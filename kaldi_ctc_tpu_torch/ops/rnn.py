@@ -1,0 +1,233 @@
+"""Multi-layer (B)LSTM/GRU/ReLU/Tanh recurrent stacks on PyTorch.
+
+Counterpart of ``kaldi_ctc_tpu/ops/rnn.py``: the same modes (RELU 0,
+TANH 1, LSTM 2, GRU 3, the reference's rnn-mode integers), multi-layer,
+uni- or bidirectional, with the same parameter tree
+``params[layer]["dirs"][d]{"w_x", "w_h", "b"}`` and the same numerics:
+
+- the input projection ``x @ W_x + b`` for all frames is hoisted out of
+  the recurrence into one matmul; operands in the compute dtype, f32
+  accumulation, the result stored in the compute dtype;
+- the recurrent product takes h rounded to the compute dtype and
+  accumulates in f32; gate math and the LSTM cell state stay f32;
+- ``input_lens`` masks the recurrence: state carries across pad frames
+  and outputs there are zero.
+
+"Compute-dtype operands, f32 accumulation" is written as an f32 matmul
+of operands rounded to the compute dtype: a product of two bf16 values
+is exact in f32, so only the order of the f32 sum differs from a bf16
+tensor-core product, on the CPU and on the card alike.
+
+A bidirectional LSTM goes through :func:`_run_birnn_fused` →
+``rnn_cuda.bilstm_layer`` (kernel K2 on CUDA, its plain version on the
+CPU).  Every other mode runs the plain per-step loop
+:func:`_run_direction` on the CPU; on CUDA, ReLU and Tanh run that loop
+too (the JAX package has no kernel for them), while unidirectional LSTM,
+GRU and BiGRU raise until their kernels (K5, K9, K8) are ported.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import enum
+from typing import Any, Dict, List, Optional
+
+import torch
+
+__all__ = ["RnnMode", "RnnConfig", "COMPUTE_DTYPES", "init_rnn_params",
+           "rnn_param_shapes", "rnn_forward", "matmul_f32acc"]
+
+
+class RnnMode(enum.IntEnum):
+    """Matches the reference's rnn-mode config integers."""
+
+    RELU = 0
+    TANH = 1
+    LSTM = 2
+    GRU = 3
+
+
+_GATES = {RnnMode.RELU: 1, RnnMode.TANH: 1, RnnMode.LSTM: 4, RnnMode.GRU: 3}
+
+COMPUTE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+@dataclasses.dataclass(frozen=True)
+class RnnConfig:
+    """Mirror of CuDNNRecurrentComponent's config surface
+    (nnet-cudnn-component.cc:72-98,488-491)."""
+
+    input_dim: int
+    hidden_dim: int
+    num_layers: int = 1
+    mode: RnnMode = RnnMode.LSTM
+    bidirectional: bool = True  # reference default (nnet-cudnn-component.cc:488)
+    param_stddev: float = 0.02
+    bias_stddev: float = 0.2
+    # matmul compute dtype: "float32" or "bfloat16" (mixed precision —
+    # params/state stay f32, matmul operands cast, f32 accumulation)
+    compute_dtype: str = "float32"
+
+    @property
+    def num_directions(self) -> int:
+        return 2 if self.bidirectional else 1
+
+    @property
+    def output_dim(self) -> int:
+        return self.hidden_dim * self.num_directions
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return COMPUTE_DTYPES[self.compute_dtype]
+
+    def layer_input_dim(self, layer: int) -> int:
+        return self.input_dim if layer == 0 else self.output_dim
+
+
+def rnn_param_shapes(cfg: RnnConfig) -> List[Dict[str, Any]]:
+    """The parameter tree with shapes (``torch.Size``) as leaves:
+    params[layer]["dirs"][d] = {"w_x": [D_in, G*H], "w_h": [H, G*H],
+    "b": [G*H]}."""
+    gh = _GATES[cfg.mode] * cfg.hidden_dim
+    return [{"dirs": [{"w_x": torch.Size((cfg.layer_input_dim(layer), gh)),
+                       "w_h": torch.Size((cfg.hidden_dim, gh)),
+                       "b": torch.Size((gh,))}
+                      for _ in range(cfg.num_directions)]}
+            for layer in range(cfg.num_layers)]
+
+
+def init_rnn_params(cfg: RnnConfig,
+                    generator: Optional[torch.Generator] = None,
+                    device="cpu") -> List[Dict[str, Any]]:
+    """Gaussian init (nnet-cudnn-component.cc:327-360): weights with
+    param_stddev, biases with bias_stddev, drawn from ``generator`` on
+    the CPU and moved to ``device``."""
+    def draw(shape, std):
+        return (std * torch.randn(shape, generator=generator,
+                                  dtype=torch.float32)).to(device)
+
+    return [{"dirs": [{"w_x": draw(d["w_x"], cfg.param_stddev),
+                       "w_h": draw(d["w_h"], cfg.param_stddev),
+                       "b": draw(d["b"], cfg.bias_stddev)}
+                      for d in layer["dirs"]]}
+            for layer in rnn_param_shapes(cfg)]
+
+
+def matmul_f32acc(a: torch.Tensor, b: torch.Tensor,
+                  cdt: torch.dtype) -> torch.Tensor:
+    """a @ b with both operands rounded to ``cdt`` and an f32 result."""
+    return torch.matmul(a.to(cdt).float(), b.to(cdt).float())
+
+
+def _lstm_cell(h, c, x_proj, w_h, cdt):
+    """One LSTM step; w_h is f32 holding compute-dtype values."""
+    gates = x_proj.float() + torch.matmul(h.to(cdt).float(), w_h)
+    i, f, g, o = gates.chunk(4, dim=-1)
+    c_new = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
+    h_new = torch.sigmoid(o) * torch.tanh(c_new)
+    return h_new, c_new
+
+
+def _gru_cell(h, x_proj, w_h, cdt):
+    # cuDNN linear-before-reset GRU: recurrent projection computed once,
+    # reset gate applied to the candidate's recurrent term.
+    h_proj = torch.matmul(h.to(cdt).float(), w_h)
+    xr, xz, xn = x_proj.float().chunk(3, dim=-1)
+    hr, hz, hn = h_proj.chunk(3, dim=-1)
+    r = torch.sigmoid(xr + hr)
+    z = torch.sigmoid(xz + hz)
+    n = torch.tanh(xn + r * hn)
+    return (1.0 - z) * n + z * h
+
+
+def _run_direction(
+    x: torch.Tensor,               # [T, B, D_in]
+    lens: Optional[torch.Tensor],  # [B] or None
+    p: Dict[str, Any],
+    cfg: RnnConfig,
+    reverse: bool,
+) -> torch.Tensor:
+    """Plain per-step loop of one direction → [T, B, H] in the compute
+    dtype (``_run_direction`` of the JAX package)."""
+    t_max, b, _ = x.shape
+    cdt = cfg.dtype
+    x_proj = (matmul_f32acc(x.reshape(t_max * b, -1), p["w_x"], cdt)
+              + p["b"]).to(cdt).reshape(t_max, b, -1)
+    if lens is None:
+        lens = torch.full((b,), t_max, dtype=torch.int32, device=x.device)
+    valid = (torch.arange(t_max, device=x.device)[:, None]
+             < lens.to(x.device)[None, :])[..., None]          # [T, B, 1]
+    w_h = p["w_h"].to(cdt).float()
+    h = torch.zeros((b, cfg.hidden_dim), dtype=torch.float32, device=x.device)
+    c = torch.zeros_like(h)
+    ys = [None] * t_max
+    for t in (range(t_max - 1, -1, -1) if reverse else range(t_max)):
+        v = valid[t]
+        if cfg.mode == RnnMode.LSTM:
+            h_new, c_new = _lstm_cell(h, c, x_proj[t], w_h, cdt)
+            c = torch.where(v, c_new, c)
+        elif cfg.mode == RnnMode.GRU:
+            h_new = _gru_cell(h, x_proj[t], w_h, cdt)
+        else:
+            act = torch.relu if cfg.mode == RnnMode.RELU else torch.tanh
+            h_new = act(x_proj[t].float()
+                        + torch.matmul(h.to(cdt).float(), w_h))
+        h = torch.where(v, h_new, h)
+        ys[t] = torch.where(v, h_new, 0.0)
+    if t_max == 0:
+        return x_proj.new_zeros((0, b, cfg.hidden_dim))
+    return torch.stack(ys).to(cdt)   # layer output in the compute dtype
+
+
+def _check_cuda_mode(cfg: RnnConfig) -> None:
+    """Modes whose JAX path is a Pallas kernel not yet ported raise on
+    CUDA rather than run the plain loop where a kernel belongs."""
+    if cfg.mode == RnnMode.LSTM and not cfg.bidirectional:
+        raise NotImplementedError(
+            "unidirectional LSTM on CUDA needs kernel K5 "
+            "(rnn_pallas.lstm_seq_fwd), not ported yet: see ROADMAP.md")
+    if cfg.mode == RnnMode.GRU:
+        k = "K8 (gru_pallas._bigru_seq_fwd)" if cfg.bidirectional else \
+            "K9 (gru_pallas.gru_seq_fwd)"
+        raise NotImplementedError(
+            f"GRU on CUDA needs kernel {k}, not ported yet: see ROADMAP.md")
+
+
+def rnn_forward(
+    params: List[Dict[str, Any]],
+    x: torch.Tensor,
+    cfg: RnnConfig,
+    input_lens: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Run the full stack. x: [T, B, input_dim] → [T, B, H*num_directions]
+    in the compute dtype."""
+    if x.device.type == "cuda":
+        _check_cuda_mode(cfg)
+    out = x
+    for layer_params in params:
+        dirs = layer_params["dirs"]
+        if cfg.bidirectional and cfg.mode == RnnMode.LSTM:
+            out = _run_birnn_fused(out, input_lens, dirs, cfg)
+            continue
+        fwd = _run_direction(out, input_lens, dirs[0], cfg, reverse=False)
+        if cfg.bidirectional:
+            bwd = _run_direction(out, input_lens, dirs[1], cfg, reverse=True)
+            out = torch.cat([fwd, bwd], dim=-1)
+        else:
+            out = fwd
+    return out
+
+
+def _run_birnn_fused(x, input_lens, dirs, cfg: RnnConfig) -> torch.Tensor:
+    """Both BLSTM directions through one fused layer: the two input
+    projections merged into one matmul, then one pass of K2."""
+    from kaldi_ctc_tpu_torch.ops.rnn_cuda import bilstm_layer
+
+    t_max, b, _ = x.shape
+    lens = (input_lens if input_lens is not None
+            else torch.full((b,), t_max, dtype=torch.int32, device=x.device))
+    w_x = torch.cat([dirs[0]["w_x"], dirs[1]["w_x"]], dim=1)
+    bias = torch.cat([dirs[0]["b"], dirs[1]["b"]])
+    y_f, y_b = bilstm_layer(x, w_x, bias, dirs[0]["w_h"], dirs[1]["w_h"],
+                            lens, cfg.compute_dtype)
+    return torch.cat([y_f, y_b], dim=-1)

@@ -1,0 +1,76 @@
+"""Parameter trees across the two packages.
+
+The port keeps the JAX package's parameter tree (nested dicts and lists)
+with torch tensors as leaves.  :func:`tree_flatten` reproduces the leaf
+order of ``jax.tree_util.tree_flatten`` — dict keys sorted, lists and
+tuples in order — without importing jax.  That order numbers the leaves
+of every ``.npz`` artifact and checkpoint, and many leaves share a shape
+(``w_h`` of both directions, ``w_x`` of layers >= 1), so a wrong order
+would load with no error and silently swap weights (hazard F3).
+"""
+
+from __future__ import annotations
+
+from typing import Any, Callable, Iterator, List
+
+import numpy as np
+import torch
+
+__all__ = ["tree_flatten", "tree_unflatten", "tree_map", "from_jax_params",
+           "to_jax_params"]
+
+
+def _is_seq(x) -> bool:
+    # a torch.Size is a shape leaf (the templates of models.acoustic)
+    return isinstance(x, (list, tuple)) and not isinstance(x, torch.Size)
+
+
+def tree_flatten(tree: Any) -> List[Any]:
+    """Leaves in ``jax.tree_util`` order; None is an empty subtree."""
+    if tree is None:
+        return []
+    if isinstance(tree, dict):
+        return [leaf for k in sorted(tree) for leaf in tree_flatten(tree[k])]
+    if _is_seq(tree):
+        return [leaf for v in tree for leaf in tree_flatten(v)]
+    return [tree]
+
+
+def tree_unflatten(template: Any, leaves: List[Any]) -> Any:
+    """Rebuild ``template``'s structure from leaves in flatten order."""
+    n = len(tree_flatten(template))
+    if len(leaves) != n:
+        raise ValueError(f"{len(leaves)} leaves for a template of {n}")
+    it: Iterator[Any] = iter(leaves)
+
+    def build(node):
+        if node is None:
+            return None
+        if isinstance(node, dict):
+            # fill in sorted-key order, keep the template's key order
+            filled = {k: build(node[k]) for k in sorted(node)}
+            return {k: filled[k] for k in node}
+        if _is_seq(node):
+            return type(node)(build(v) for v in node)
+        return next(it)
+
+    return build(template)
+
+
+def tree_map(fn: Callable[[Any], Any], tree: Any) -> Any:
+    return tree_unflatten(tree, [fn(leaf) for leaf in tree_flatten(tree)])
+
+
+def from_jax_params(tree: Any, device="cpu") -> Any:
+    """A JAX parameter tree (numpy or jax arrays as leaves) → the port's
+    tree of float32 torch tensors on ``device`` (copies: the port owns
+    its parameters)."""
+    return tree_map(lambda a: torch.tensor(
+        np.asarray(a, dtype=np.float32), device=device), tree)
+
+
+def to_jax_params(tree: Any) -> Any:
+    """The port's tree → the same tree of float32 numpy arrays, ready for
+    ``jnp.asarray`` on the JAX side."""
+    return tree_map(lambda t: t.detach().to("cpu", torch.float32).numpy(),
+                    tree)

@@ -1,0 +1,4 @@
+"""Host-only helpers copied from kaldi_ctc_tpu/utils."""
+
+from kaldi_ctc_tpu_torch.utils.logging import get_logger  # noqa: F401
+from kaldi_ctc_tpu_torch.utils.options import expand_config_args  # noqa: F401

@@ -20,3 +20,5 @@ jax.config.update("jax_num_cpu_devices", 8)
 def pytest_configure(config):
     config.addinivalue_line(
         "markers", "slow: long-running end-to-end tests")
+    config.addinivalue_line(
+        "markers", "cuda: needs a CUDA device; skips without one")

@@ -1,0 +1,211 @@
+"""The port's acoustic model, score preparation, parameter trees,
+artifacts and checkpoints held to the JAX package's: one JAX init feeds
+both packages; artifacts and checkpoint directories cross in both
+directions with every leaf in its place (hazard F3)."""
+
+import dataclasses
+import json
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from kaldi_ctc_tpu.decoding.scores import acoustic_scores as j_scores
+from kaldi_ctc_tpu.models import acoustic as jam
+from kaldi_ctc_tpu.models import artifact as jart
+from kaldi_ctc_tpu_torch.decoding.scores import acoustic_scores
+from kaldi_ctc_tpu_torch.models import acoustic as tam
+from kaldi_ctc_tpu_torch.models import artifact as tart
+from kaldi_ctc_tpu_torch.params import (from_jax_params, to_jax_params,
+                                        tree_flatten, tree_unflatten)
+
+T, B = 14, 3
+LENS = np.array([T, 9, 5], np.int32)
+# logits: f32 sums in another order (1e-5); in bf16 the layer outputs
+# are stored in bf16, so a flipped rounding moves a logit by ~an ulp of
+# the output affine's inputs (the JAX package's 2e-2 bf16 tolerance).
+TOL = {"float32": 1e-5, "bfloat16": 2e-2}
+
+
+def _cfg(dtype="float32", **kw):
+    base = dict(input_dim=8, num_targets=7, hidden_dim=16, num_layers=2,
+                compute_dtype=dtype)
+    base.update(kw)
+    return jam.AmConfig(**base), tam.AmConfig(**base)
+
+
+def _jax_params(jcfg, seed=0):
+    return jax.device_get(jam.init_am_params(jax.random.PRNGKey(seed), jcfg))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("bidirectional", [True, False])
+def test_am_forward_matches_jax(dtype, bidirectional):
+    jcfg, tcfg = _cfg(dtype, bidirectional=bidirectional)
+    params = _jax_params(jcfg)
+    feats = np.random.default_rng(0).standard_normal(
+        (B, T, jcfg.input_dim)).astype(np.float32)
+    ref = jam.am_forward(params, jnp.asarray(feats), jcfg,
+                         input_lens=jnp.asarray(LENS))
+    got = tam.am_forward(from_jax_params(params), torch.as_tensor(feats),
+                         tcfg, input_lens=torch.as_tensor(LENS))
+    assert got.dtype == torch.float32 and got.shape == ref.shape
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=0,
+                               atol=TOL[dtype])
+
+
+@pytest.mark.parametrize("priors,threshold", [(None, 0.98), ("default", 0.5),
+                                              ("default", 1.0)])
+def test_acoustic_scores_match_jax(priors, threshold):
+    rng = np.random.default_rng(1)
+    logits = rng.standard_normal((2, 9, 5)).astype(np.float32) * 3
+    logits[0, :4, 0] += 8.0   # confident blanks: forced frames
+    pri = tam.default_priors(5) if priors else None
+    got_s, got_k = acoustic_scores(torch.as_tensor(logits), priors=pri,
+                                   acoustic_scale=0.7,
+                                   blank_threshold=threshold)
+    ref_s, ref_k = j_scores(jnp.asarray(logits), priors=pri,
+                            acoustic_scale=0.7, blank_threshold=threshold)
+    np.testing.assert_array_equal(got_k.numpy(), np.asarray(ref_k))
+    # forced frames are exactly 0 / -1e30 (F4: never -inf)
+    np.testing.assert_allclose(got_s.numpy(), np.asarray(ref_s), rtol=1e-6,
+                               atol=1e-5)
+    assert np.isfinite(got_s.numpy()).all()
+    if threshold == 0.5:
+        assert got_k.any()
+        assert float(got_s.min()) < -1e29
+
+
+def test_acoustic_scores_floor_is_tiny():
+    logits = torch.tensor([[[0.0, -200.0, 200.0]]])
+    sc, _ = acoustic_scores(logits, blank_threshold=1.0)
+    assert np.isclose(float(sc[0, 0, 0]),
+                      np.log(np.finfo(np.float32).tiny))
+    assert np.isfinite(sc.numpy()).all()
+
+
+def test_tree_flatten_order_is_jax_order():
+    jcfg, _ = _cfg()
+    params = _jax_params(jcfg)
+    jleaves = jax.tree_util.tree_leaves(params)
+    tleaves = tree_flatten(params)
+    assert len(jleaves) == len(tleaves)
+    assert all(a is b for a, b in zip(jleaves, tleaves))
+    rebuilt = tree_unflatten(params, tleaves)
+    assert jax.tree_util.tree_structure(rebuilt) == \
+        jax.tree_util.tree_structure(params)
+    with pytest.raises(ValueError):
+        tree_unflatten(params, tleaves[:-1])
+
+
+def test_param_shapes_match_jax_init():
+    jcfg, tcfg = _cfg()
+    shapes = tree_flatten(tam.am_param_shapes(tcfg))
+    leaves = jax.tree_util.tree_leaves(_jax_params(jcfg))
+    assert [tuple(s) for s in shapes] == [l.shape for l in leaves]
+
+
+def _assert_trees_equal(port_tree, jax_tree):
+    """Leaf by leaf, addressed by path — not by flatten position."""
+    for path, leaf in jax.tree_util.tree_flatten_with_path(jax_tree)[0]:
+        node = port_tree
+        for k in path:
+            node = node[k.key if hasattr(k, "key") else k.idx]
+        np.testing.assert_array_equal(node.numpy(), np.asarray(leaf),
+                                      err_msg=jax.tree_util.keystr(path))
+
+
+@pytest.mark.parametrize("bidirectional", [True, False])
+def test_jax_artifact_loads_in_port(tmp_path, bidirectional):
+    # unidirectional: w_x of layers >= 1 and w_h share a shape (F3)
+    jcfg, tcfg = _cfg(num_layers=3, bidirectional=bidirectional)
+    params = _jax_params(jcfg, seed=4)
+    path = str(tmp_path / "j.npz")
+    jart.save_inference_artifact(path, params, jcfg,
+                                 priors=jam.default_priors(7))
+    got, cfg, priors = tart.load_inference_artifact(path)
+    assert cfg == tcfg
+    np.testing.assert_array_equal(priors, jam.default_priors(7))
+    _assert_trees_equal(got, params)
+
+
+def test_port_artifact_loads_in_jax(tmp_path):
+    jcfg, tcfg = _cfg(num_layers=3, compute_dtype="bfloat16")
+    params = tam.init_am_params(tcfg, torch.Generator().manual_seed(5))
+    path = str(tmp_path / "t.npz")
+    tart.save_inference_artifact(path, params, tcfg)
+    jparams, cfg, priors = jart.load_inference_artifact(path)
+    assert cfg == jcfg and priors is None
+    _assert_trees_equal(params, jax.device_get(jparams))
+    # and back through the JAX writer
+    path2 = str(tmp_path / "t2.npz")
+    jart.save_inference_artifact(path2, jparams, cfg)
+    back, _, _ = tart.load_inference_artifact(path2)
+    for a, b in zip(tree_flatten(back), tree_flatten(params)):
+        assert torch.equal(a, b)
+    assert jax.tree_util.tree_all(jax.tree_util.tree_map(
+        lambda a, b: np.array_equal(a, b), to_jax_params(params),
+        jax.device_get(jparams)))
+
+
+def test_artifact_with_wrong_leaves_is_refused(tmp_path):
+    jcfg, _ = _cfg()
+    params = _jax_params(jcfg)
+    path = str(tmp_path / "bad.npz")
+    # config says 3 layers, leaves are for 2
+    jart.save_inference_artifact(path, params,
+                                 dataclasses.replace(jcfg, num_layers=3))
+    with pytest.raises(ValueError):
+        tart.load_inference_artifact(path)
+
+
+def test_jax_init_model_dir_restores_in_port(tmp_path):
+    from kaldi_ctc_tpu.cli import init_model
+    from kaldi_ctc_tpu.training.checkpoint import restore_params as j_restore
+    from kaldi_ctc_tpu_torch.training.checkpoint import (latest_step,
+                                                         read_meta)
+    exp = str(tmp_path / "exp")
+    init_model.main(["--input-dim", "8", "--num-targets", "6",
+                     "--hidden-dim", "8", "--num-layers", "2",
+                     "--seed", "3", "--dir", exp])
+    params, cfg, priors, meta = tart.load_acoustic_model(dir=exp)
+    with open(f"{exp}/model_config.json") as f:
+        jcfg = jam.AmConfig.from_dict(json.load(f))
+    jparams, jmeta = j_restore(f"{exp}/checkpoints", jam.init_am_params(
+        jax.random.PRNGKey(0), jcfg))
+    assert cfg.to_dict() == jcfg.to_dict()
+    assert meta == jmeta and latest_step(f"{exp}/checkpoints") == 0
+    assert read_meta(f"{exp}/checkpoints")["extra"]["num_layers"] == 2
+    np.testing.assert_array_equal(priors, jam.default_priors(6))
+    _assert_trees_equal(params, jax.device_get(jparams))
+
+
+def test_config_round_trip_and_output_lens():
+    jcfg, tcfg = _cfg(compute_dtype="bfloat16", dropout=0.1)
+    assert tcfg.to_dict() == jcfg.to_dict()
+    assert tam.AmConfig.from_dict(jcfg.to_dict()) == tcfg
+    assert tcfg.output_lens(37) == 37
+    ds2 = tam.AmConfig(input_dim=8, num_targets=5, conv_layers=2)
+    assert ds2.output_lens(37) == jam.AmConfig(
+        input_dim=8, num_targets=5, conv_layers=2).output_lens(37) == 19
+
+
+@pytest.mark.parametrize("extra", [dict(splice_left=1),
+                                   dict(front_affine_dim=16),
+                                   dict(conv_layers=1)])
+def test_unported_model_families_raise(extra):
+    _, tcfg = _cfg(**extra)
+    with pytest.raises(NotImplementedError, match="item 12"):
+        tam.init_am_params(tcfg)
+
+
+def test_dropout_in_training_raises():
+    _, tcfg = _cfg(dropout=0.2)
+    params = tam.init_am_params(tcfg, torch.Generator().manual_seed(0))
+    feats = torch.zeros((1, 4, 8))
+    assert tam.am_forward(params, feats, tcfg).shape == (1, 4, 7)
+    with pytest.raises(NotImplementedError, match="dropout"):
+        tam.am_forward(params, feats, tcfg,
+                       dropout_generator=torch.Generator())

@@ -1,0 +1,190 @@
+"""The port's recurrent stacks held to the JAX package's: K2's plain
+version against ``_bilstm_seq_fwd`` in interpret mode, and
+``rnn_forward`` for every mode against JAX's XLA scan path and (for the
+BLSTM) its fused Pallas path in interpret mode.  Parameters and inputs
+are made once (JAX init, numpy inputs) and fed to both packages."""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from kaldi_ctc_tpu.ops import rnn as jrnn
+from kaldi_ctc_tpu.ops import rnn_pallas
+from kaldi_ctc_tpu_torch.ops import rnn as trnn
+from kaldi_ctc_tpu_torch.ops import rnn_cuda
+from kaldi_ctc_tpu_torch.params import from_jax_params
+
+T, B, D, H = 12, 3, 10, 16
+LENS = np.array([T, 7, 4], np.int32)   # full, partial, short rows
+
+# f32: the same f32 math in another summation order, compounded over T
+# steps of a contracting recurrence.
+F32_TOL = 1e-5
+# bf16: layer outputs are stored in bf16 (ulp 2^-8 near 1) and h enters
+# each step rounded to bf16, so a flipped rounding moves later steps by
+# about an ulp; the JAX package holds its bf16 Pallas path to its scan
+# path at the same 2e-2 (tests/test_rnn_pallas.py).
+BF16_TOL = 2e-2
+
+_DT = {"float32": (jnp.float32, torch.float32, F32_TOL),
+       "bfloat16": (jnp.bfloat16, torch.bfloat16, BF16_TOL)}
+
+
+def _np(x):
+    return np.asarray(jnp.asarray(x, jnp.float32))
+
+
+def _bilstm_inputs(t, b, h, seed):
+    rng = np.random.default_rng(seed)
+    xp = rng.standard_normal((t, b, 8 * h)).astype(np.float32)
+    w_f = (rng.standard_normal((h, 4 * h)) / np.sqrt(h)).astype(np.float32)
+    w_b = (rng.standard_normal((h, 4 * h)) / np.sqrt(h)).astype(np.float32)
+    return xp, w_f, w_b
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("h", [16, 128])   # 128: lane-aligned half views
+def test_bilstm_seq_fwd_reference_matches_pallas_interpret(dtype, h):
+    jdt, tdt, tol = _DT[dtype]
+    xp, w_f, w_b = _bilstm_inputs(T, B, h, seed=h)
+    ref = rnn_pallas._bilstm_seq_fwd(
+        jnp.asarray(xp, jdt), jnp.asarray(w_f, jdt), jnp.asarray(w_b, jdt),
+        jnp.asarray(LENS), interpret=True)
+    got = rnn_cuda.bilstm_seq_fwd(
+        torch.as_tensor(xp).to(tdt), torch.as_tensor(w_f).to(tdt),
+        torch.as_tensor(w_b).to(tdt), torch.as_tensor(LENS))
+    for name, g, r in zip(("y_f", "c_f", "y_b", "c_b"), got, ref):
+        assert str(g.dtype).split(".")[-1] == str(r.dtype), name
+        np.testing.assert_allclose(g.float().numpy(), _np(r), rtol=0,
+                                   atol=tol, err_msg=name)
+    assert rnn_cuda.bilstm_seq_fwd.launches == 0   # CPU: plain version
+
+
+def _cfgs(mode, bidirectional, dtype, d=D, h=H, layers=2):
+    kw = dict(input_dim=d, hidden_dim=h, num_layers=layers, mode=mode,
+              bidirectional=bidirectional, compute_dtype=dtype)
+    return (jrnn.RnnConfig(implementation="xla", **kw),
+            trnn.RnnConfig(**kw))
+
+
+def _run_both(mode, bidirectional, dtype, seed=0):
+    jcfg, tcfg = _cfgs(mode, bidirectional, dtype)
+    params = jrnn.init_rnn_params(jax.random.PRNGKey(seed), jcfg)
+    x = np.random.default_rng(seed).standard_normal((T, B, D)).astype(
+        np.float32)
+    ref = jrnn.rnn_forward(params, jnp.asarray(x), jcfg, jnp.asarray(LENS))
+    got = trnn.rnn_forward(from_jax_params(jax.device_get(params)),
+                           torch.as_tensor(x), tcfg, torch.as_tensor(LENS))
+    return got, ref
+
+
+@pytest.mark.parametrize("mode,bidirectional", [
+    (trnn.RnnMode.LSTM, True), (trnn.RnnMode.LSTM, False),
+    (trnn.RnnMode.GRU, True), (trnn.RnnMode.GRU, False),
+    (trnn.RnnMode.RELU, True), (trnn.RnnMode.TANH, False)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_rnn_forward_matches_jax_xla(mode, bidirectional, dtype):
+    got, ref = _run_both(mode, bidirectional, dtype)
+    assert got.shape == ref.shape
+    assert got.dtype == _DT[dtype][1]
+    np.testing.assert_allclose(got.float().numpy(), _np(ref), rtol=0,
+                               atol=_DT[dtype][2])
+    # pad frames are zero in every layer's output
+    for row, n in enumerate(LENS):
+        assert not got[n:, row].any()
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("h", [16, 128])
+def test_rnn_forward_matches_jax_fused_pallas(dtype, h):
+    """The BLSTM stack against JAX's fused dispatch (bilstm_layer with
+    its Pallas kernels in interpret mode, forced as
+    tests/test_rnn_pallas.py forces it)."""
+    kw = dict(input_dim=D, hidden_dim=h, num_layers=2,
+              mode=jrnn.RnnMode.LSTM, bidirectional=True,
+              compute_dtype=dtype)
+    jcfg = jrnn.RnnConfig(implementation="pallas", **kw)
+    params = jrnn.init_rnn_params(jax.random.PRNGKey(1), jcfg)
+    x = np.random.default_rng(1).standard_normal((T, B, D)).astype(
+        np.float32)
+    orig = rnn_pallas.bilstm_layer
+    try:
+        rnn_pallas.bilstm_layer = (
+            lambda x, wx, b, wf, wb, l, interpret=False,
+            compute_dtype="float32":
+            orig(x, wx, b, wf, wb, l, True, compute_dtype))
+        ref = jrnn.rnn_forward(params, jnp.asarray(x), jcfg,
+                               jnp.asarray(LENS))
+    finally:
+        rnn_pallas.bilstm_layer = orig
+    got = trnn.rnn_forward(from_jax_params(jax.device_get(params)),
+                           torch.as_tensor(x), trnn.RnnConfig(**kw),
+                           torch.as_tensor(LENS))
+    np.testing.assert_allclose(got.float().numpy(), _np(ref), rtol=0,
+                               atol=_DT[dtype][2])
+
+
+@pytest.mark.parametrize("reverse", [False, True])
+def test_plain_direction_loop_matches_jax(reverse):
+    """The plain per-step loop (``_run_direction``) on an LSTM direction,
+    the loop the fused path replaces."""
+    jcfg, tcfg = _cfgs(trnn.RnnMode.LSTM, True, "float32", layers=1)
+    params = jrnn.init_rnn_params(jax.random.PRNGKey(2), jcfg)
+    x = np.random.default_rng(2).standard_normal((T, B, D)).astype(
+        np.float32)
+    ref = jrnn._run_direction(jnp.asarray(x), jnp.asarray(LENS),
+                              params[0]["dirs"][1], jcfg, reverse)
+    tp = from_jax_params(jax.device_get(params))
+    got = trnn._run_direction(torch.as_tensor(x), torch.as_tensor(LENS),
+                              tp[0]["dirs"][1], tcfg, reverse)
+    np.testing.assert_allclose(got.numpy(), _np(ref), rtol=0, atol=F32_TOL)
+
+
+def test_rnn_forward_without_lens_is_full_length():
+    _, tcfg = _cfgs(trnn.RnnMode.LSTM, True, "float32")
+    params = trnn.init_rnn_params(tcfg, torch.Generator().manual_seed(0))
+    x = torch.randn((T, B, D), generator=torch.Generator().manual_seed(1))
+    full = torch.full((B,), T, dtype=torch.int32)
+    assert torch.equal(trnn.rnn_forward(params, x, tcfg),
+                       trnn.rnn_forward(params, x, tcfg, full))
+
+
+@pytest.mark.parametrize("mode,bidirectional,kernel", [
+    (trnn.RnnMode.LSTM, False, "K5"), (trnn.RnnMode.GRU, True, "K8"),
+    (trnn.RnnMode.GRU, False, "K9")])
+def test_unported_kernels_raise_on_cuda(mode, bidirectional, kernel):
+    _, tcfg = _cfgs(mode, bidirectional, "float32")
+    with pytest.raises(NotImplementedError, match=kernel):
+        trnn._check_cuda_mode(tcfg)
+
+
+@pytest.mark.parametrize("mode,bidirectional", [
+    (trnn.RnnMode.LSTM, True), (trnn.RnnMode.RELU, False),
+    (trnn.RnnMode.TANH, True)])
+def test_ported_modes_pass_the_cuda_check(mode, bidirectional):
+    trnn._check_cuda_mode(_cfgs(mode, bidirectional, "float32")[1])
+
+
+def test_init_rnn_params_seeded_and_shaped_like_jax():
+    jcfg, tcfg = _cfgs(trnn.RnnMode.LSTM, True, "float32")
+    a = trnn.init_rnn_params(tcfg, torch.Generator().manual_seed(3))
+    b = trnn.init_rnn_params(tcfg, torch.Generator().manual_seed(3))
+    j = jrnn.init_rnn_params(jax.random.PRNGKey(0), jcfg)
+    for la, lb, lj in zip(a, b, j):
+        for da, db, dj in zip(la["dirs"], lb["dirs"], lj["dirs"]):
+            for k in ("w_x", "w_h", "b"):
+                assert torch.equal(da[k], db[k])
+                assert tuple(da[k].shape) == dj[k].shape
+
+
+def test_bilstm_layer_backward_is_not_ported():
+    x = torch.randn((4, 2, D), requires_grad=True)
+    w_x = torch.randn((D, 8 * H)) * 0.1
+    w_h = torch.randn((H, 4 * H)) * 0.1
+    y_f, y_b = rnn_cuda.bilstm_layer(x, w_x, torch.zeros(8 * H), w_h, w_h,
+                                     torch.tensor([4, 3]))
+    assert y_f.shape == y_b.shape == (4, 2, H)
+    with pytest.raises(NotImplementedError, match="K3"):
+        (y_f.sum() + y_b.sum()).backward()
