@@ -2,35 +2,55 @@
 
     python3 chip_smoke.py
 
-Builds the port's CUDA kernels from ``kaldi_ctc_tpu_torch/csrc`` and drives
-the serving path once at the full width of the flagship model.  Each phase
-prints one JSON line; any failed phase exits non-zero with no result line:
+Builds the port's CUDA kernels from ``kaldi_ctc_tpu_torch/csrc`` (one nvcc
+per source, all started together) and drives the serving path and the
+training step once each at the full width of the flagship model.  Each
+phase prints one JSON line; any failed phase exits non-zero with no
+result line:
 
 1. device: the card's name and power limit (nvidia-smi), torch and CUDA
    versions;
-2. build: both kernels compiled by nvcc for sm_90a, timed;
+2. build: the four kernel sources compiled by nvcc for sm_90a, timed;
 3. k4_log_mel: the log-mel kernel against its plain version on 8 s of
    16 kHz audio (798 frames, MFCC-hires mel bank): max error, median ms;
-4. k2_bilstm: the BiLSTM recurrence kernel against its plain version at
-   T=800, B=1 and B=8, H=320, in f32 and bf16: max errors, median ms;
-5. serve: the 5x320 BLSTM flagship (random weights from a seed) written as
+4. k2_bilstm: the BiLSTM forward kernel against its plain version at
+   T=800, B=1 and B=8 (serving) and T=240, B=48 (training), H=320, in f32
+   and bf16: max errors, median ms;
+5. k1_ctc: the CTC alpha-beta kernels K1 (fused), K11 (alpha) and K12
+   (beta) against their plain loops at bench.py's shapes (B=48, T=240,
+   A=72, L=70, S=141) with short, label-less and infeasible rows: alphas,
+   betas, loss and gradient, max error, median ms; then the "separate"
+   path of ``ctc_loss_and_grad`` (K11 + K12), with its launch counts;
+6. k3_bilstm_bwd: the BiLSTM backward kernel against its plain version at
+   T=240, B=48, H=320 with ragged lengths, f32 and bf16;
+7. serve: the 5x320 BLSTM flagship (random weights from a seed) written as
    a JAX-format artifact and served by the port's own HTTP server on cuda;
    4 /recognize requests of 2, 4, 6 and 8 s of seeded audio per compute
    dtype (f32, then bf16); status, frames and labels checked; the kernel
    launch counters must rise by 5 (K2, one per layer) and >= 1 (K4) per
    request; scores compared with the same engine running the plain
    versions on the card; per-request latency and RTF;
-6. profile: one 8 s request per dtype under torch.profiler: device time
+8. train: the flagship at bench.py's shapes (B=48, T=240, L=70, seeded
+   feats and labels, TrainOptions() defaults), f32 then bf16: 3 steps of
+   ``build_train_step`` through the kernels (each step must launch K2 5x,
+   K3 5x and K1 once) and the same 3 steps from the same state on the
+   plain versions on the card, per-step loss and grad norm and the final
+   parameters compared; the eval step (K2 5x, K11 once); 5 timed calls of
+   3 steps (audio-s/s, B*T*0.03 s of audio per step); one step under
+   torch.profiler (device time by kernel, K1/K2/K3 shares, idle share);
+9. profile: one 8 s request per dtype under torch.profiler: device time
    by kernel, K2's and K4's shares, the device's idle share of the traced
    request's wall time, and the untraced wall beside it.
 
 Then a line ``{"kernels": [...]}`` with each kernel's launches during the
-served requests, its error and its time beside the plain version's; the
-card's ``nvidia-smi`` name and power limit; and, last,
+driven paths (serve, train, eval, the separate CTC path; counts set to 0
+before each and read after it), its error and its time beside the plain
+version's; the card's ``nvidia-smi`` name and power limit; and, last,
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 Exits non-zero without a CUDA device, and when run outside the repository.
 """
 
+import concurrent.futures
 import contextlib
 import http.client
 import json
@@ -51,6 +71,26 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 K4_TOL = 2e-4
 K2_TOL = {"float32": 1e-4, "bfloat16": 3e-2}
 SCORE_TOL = {"float32": 1e-3, "bfloat16": 5e-2}
+# K1/K11/K12: the same f32 log-space sums as the plain loops with the
+# card's expf/log1pf; alphas and betas reach ~-1000 (f32 ulp 6e-5).  The
+# gradient holds posteriors exp(alpha + beta - lp - log Z), so that ulp
+# is their relative error; the loss is -log Z of ~1000.
+CTC_RTOL, CTC_ATOL = 1e-5, 1e-4
+CTC_GRAD_TOL = 2e-4
+# K3 f32: dh and dc carried over 240 steps in another summation order;
+# bf16: dgates stored in bf16 and rounded to bf16 as the dh operand, so a
+# flipped rounding moves later steps by ~a bf16 ulp.
+K3_TOL = {"float32": 1e-4, "bfloat16": 5e-2}
+# Train step, kernels against plain versions after 3 steps: (loss rtol,
+# grad-norm rtol, params atol).  f32: another summation order; bf16: the
+# bf16 storage sites are the same, their rounding flips differ.
+TRAIN_TOL = {"float32": (1e-5, 1e-4, 1e-6), "bfloat16": (2e-3, 2e-2, 1e-4)}
+# bench.py's training shapes and its audio per step
+TRAIN_B, TRAIN_T, TRAIN_L = 48, 240, 70
+SECONDS_PER_FRAME = 0.03
+TRAIN_STEPS_PER_CALL, TRAIN_TIMED_CALLS = 3, 5
+KERNELS = ("log_mel", "bilstm_fwd", "bilstm_bwd", "ctc_alpha_beta",
+           "ctc_alphas", "ctc_betas")
 
 
 def emit(obj):
@@ -85,19 +125,49 @@ def max_err(got, ref, rtol, atol):
     return float(d.max()) if d.numel() else 0.0, ok
 
 
+def wrappers():
+    """Each kernel's wrapper function, by kernel name (the functions
+    carry the launch counters)."""
+    from kaldi_ctc_tpu_torch.features import stft_cuda
+    from kaldi_ctc_tpu_torch.ops import ctc_cuda, rnn_cuda
+    return {"log_mel": stft_cuda.log_mel,
+            "bilstm_fwd": rnn_cuda.bilstm_seq_fwd,
+            "bilstm_bwd": rnn_cuda.bilstm_seq_bwd_dgates,
+            "ctc_alpha_beta": ctc_cuda.alpha_beta,
+            "ctc_alphas": ctc_cuda.forward_alphas,
+            "ctc_betas": ctc_cuda.backward_betas}
+
+
+def reset_counts():
+    for fn in wrappers().values():
+        fn.launches = 0
+
+
+def read_counts():
+    return {name: fn.launches for name, fn in wrappers().items()}
+
+
 @contextlib.contextmanager
 def plain_versions():
     """Route the wrappers' callers to the plain versions (for the
-    comparison run; no kernel launches and no counts)."""
+    comparison runs; no kernel launches and no counts)."""
     from kaldi_ctc_tpu_torch.features import stft_cuda
-    from kaldi_ctc_tpu_torch.ops import rnn_cuda
-    saved = stft_cuda.log_mel, rnn_cuda.bilstm_seq_fwd
-    stft_cuda.log_mel = stft_cuda.log_mel_reference
-    rnn_cuda.bilstm_seq_fwd = rnn_cuda.bilstm_seq_fwd_reference
+    from kaldi_ctc_tpu_torch.ops import ctc_cuda, rnn_cuda
+    swaps = [(stft_cuda, "log_mel", stft_cuda.log_mel_reference),
+             (rnn_cuda, "bilstm_seq_fwd", rnn_cuda.bilstm_seq_fwd_reference),
+             (rnn_cuda, "bilstm_seq_bwd_dgates",
+              rnn_cuda.bilstm_seq_bwd_dgates_reference),
+             (ctc_cuda, "alpha_beta", ctc_cuda.alpha_beta_reference),
+             (ctc_cuda, "forward_alphas", ctc_cuda.forward_alphas_reference),
+             (ctc_cuda, "backward_betas", ctc_cuda.backward_betas_reference)]
+    saved = [(mod, name, getattr(mod, name)) for mod, name, _ in swaps]
+    for mod, name, plain in swaps:
+        setattr(mod, name, plain)
     try:
         yield
     finally:
-        stft_cuda.log_mel, rnn_cuda.bilstm_seq_fwd = saved
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
 
 
 def pcm(seconds, seed, np):
@@ -121,15 +191,22 @@ def phase_device(torch):
 
 
 def phase_build():
+    """One nvcc per kernel source, all started together."""
     from kaldi_ctc_tpu_torch import _kernels
-    out = {}
-    for name in ("log_mel", "bilstm_fwd"):
+    names = ("log_mel", "bilstm_fwd", "bilstm_bwd", "ctc_alpha_beta")
+
+    def build(name):
         t0 = time.perf_counter()
         path = _kernels.build(name)
-        out[name] = {"seconds": round(time.perf_counter() - t0, 3),
-                     "library": os.path.relpath(path, ROOT)}
+        return {"seconds": round(time.perf_counter() - t0, 3),
+                "library": os.path.relpath(path, ROOT)}
+
+    t0 = time.perf_counter()
+    with concurrent.futures.ThreadPoolExecutor(len(names)) as pool:
+        futures = {name: pool.submit(build, name) for name in names}
+        out = {name: f.result() for name, f in futures.items()}
     emit({"phase": "build", "nvcc_flags": " ".join(_kernels.NVCC_FLAGS),
-          **out})
+          "wall_seconds": round(time.perf_counter() - t0, 3), **out})
 
 
 def phase_k4(torch, np, dev):
@@ -163,11 +240,12 @@ def phase_k4(torch, np, dev):
 
 def phase_k2(torch, np, dev):
     from kaldi_ctc_tpu_torch.ops import rnn_cuda
-    t_max, h = 800, 320
+    h = 320
     rows = []
     for dtype_name, dtype in (("float32", torch.float32),
                               ("bfloat16", torch.bfloat16)):
-        for b in (1, 8):
+        # serving (T=800, B=1 and 8) and training (T=240, B=48) shapes
+        for t_max, b in ((800, 1), (800, 8), (TRAIN_T, TRAIN_B)):
             rng = np.random.default_rng(b)
             xp = torch.as_tensor(rng.standard_normal((t_max, b, 8 * h))
                                  .astype(np.float32) * 0.5, device=dev)
@@ -196,11 +274,150 @@ def phase_k2(torch, np, dev):
             if not all(ok for _, ok in errs):
                 fail(f"K2 bilstm_seq_fwd disagrees with its plain version: "
                      f"{row}")
-    # the kernels line reports the serving shape: bf16, B = 1
-    serve_row = next(r for r in rows
-                     if r["dtype"] == "bfloat16" and r["B"] == 1)
+    # the kernels line reports the training shape in bf16
+    train_row = next(r for r in rows
+                     if r["dtype"] == "bfloat16" and r["B"] == TRAIN_B)
     return {"max_abs_err": max(r["max_abs_err"] for r in rows),
-            "ms": serve_row["ms"], "plain_ms": serve_row["plain_ms"]}
+            "ms": train_row["ms"], "plain_ms": train_row["plain_ms"]}
+
+
+def ctc_batch(np, seed):
+    """bench.py's CTC shapes with ragged rows: frames and labels of full
+    length for most utterances, some short, one label-less, and two
+    with fewer frames than labels (infeasible)."""
+    rng = np.random.default_rng(seed)
+    b, t, l, a = TRAIN_B, TRAIN_T, TRAIN_L, 72
+    labels = rng.integers(1, a, (b, l)).astype(np.int32)
+    label_lens = np.full(b, l, np.int32)
+    input_lens = np.full(b, t, np.int32)
+    label_lens[1:8] = rng.integers(1, l, size=7)
+    input_lens[4:12] = rng.integers(2 * l + 1, t, size=8)
+    label_lens[12] = 0
+    input_lens[13:15] = (69, 40)            # fewer frames than L = 70
+    for i in range(b):
+        labels[i, label_lens[i]:] = 0
+    return {"logits": (rng.standard_normal((b, t, a)) * 2).astype(np.float32),
+            "labels": labels, "input_lens": input_lens,
+            "label_lens": label_lens}
+
+
+def phase_k1(torch, np, dev):
+    """K1, K11 and K12 against their plain loops on the card, then the
+    separate path of ctc_loss_and_grad as a driven path."""
+    from kaldi_ctc_tpu_torch.ops import ctc, ctc_cuda
+    data = ctc_batch(np, 1)
+    logits, labels, input_lens, label_lens = (
+        torch.as_tensor(data[k], device=dev)
+        for k in ("logits", "labels", "input_lens", "label_lens"))
+    b = logits.shape[0]
+    _, _, skip_ok, lp = ctc._lattice(logits, labels, 0)
+    skip_down = ctc._skip_down(skip_ok)
+    ref_a, ref_b = ctc_cuda.alpha_beta_reference(lp, skip_ok, skip_down,
+                                                 input_lens, label_lens)
+    runs = {
+        "ctc_alpha_beta": (
+            lambda: ctc_cuda.alpha_beta(lp, skip_ok, skip_down, input_lens,
+                                        label_lens),
+            lambda: ctc_cuda.alpha_beta_reference(
+                lp, skip_ok, skip_down, input_lens, label_lens),
+            (ref_a, ref_b)),
+        "ctc_alphas": (
+            lambda: (ctc_cuda.forward_alphas(lp, skip_ok, input_lens),),
+            lambda: ctc_cuda.forward_alphas_reference(lp, skip_ok,
+                                                      input_lens),
+            (ref_a,)),
+        "ctc_betas": (
+            lambda: (ctc_cuda.backward_betas(lp, skip_down, input_lens,
+                                             label_lens),),
+            lambda: ctc_cuda.backward_betas_reference(
+                lp, skip_down, input_lens, label_lens),
+            (ref_b,)),
+    }
+    with plain_versions():
+        ref_loss, ref_grad = ctc.ctc_loss_and_grad(
+            logits, labels, input_lens, label_lens)
+    out = {}
+    for name, (kern, plain, refs) in runs.items():
+        got = kern()
+        torch.cuda.synchronize()
+        errs = [max_err(g, r, CTC_RTOL, CTC_ATOL) for g, r in zip(got, refs)]
+        impl = "fused" if name == "ctc_alpha_beta" else "separate"
+        loss, grad = ctc.ctc_loss_and_grad(logits, labels, input_lens,
+                                           label_lens, implementation=impl)
+        e_loss = max_err(loss, ref_loss, CTC_RTOL, CTC_ATOL)
+        e_grad = max_err(grad, ref_grad, 0.0, CTC_GRAD_TOL)
+        row = {"kernel": name, "B": b, "T": int(lp.shape[0]),
+               "S": int(lp.shape[2]),
+               "max_abs_err_lattice": max(e for e, _ in errs),
+               "lattice_rtol_atol": [CTC_RTOL, CTC_ATOL],
+               "max_abs_err_loss": e_loss[0], "max_abs_err_grad": e_grad[0],
+               "grad_tol": CTC_GRAD_TOL,
+               "infeasible_rows_loss": [float(v) for v in loss[13:15]],
+               "ms": median_ms(kern, 20, torch),
+               "plain_ms": median_ms(plain, 3, torch)}
+        emit({"phase": "k1_ctc", **row})
+        if not (all(ok for _, ok in errs) and e_loss[1] and e_grad[1]):
+            fail(f"{name} disagrees with its plain version: {row}")
+        if any(row["infeasible_rows_loss"]) or grad[13:15].abs().max() > 0:
+            fail(f"infeasible rows not masked: {row}")
+        out[name] = {"max_abs_err": max(e for e, _ in errs),
+                     "ms": row["ms"], "plain_ms": row["plain_ms"]}
+    # the separate path: a user's ctc_loss_and_grad(implementation=
+    # "separate") at bench shapes, counts from this call alone
+    reset_counts()
+    loss, _ = ctc.ctc_loss_and_grad(logits, labels, input_lens, label_lens,
+                                    implementation="separate")
+    torch.cuda.synchronize()
+    counts = read_counts()
+    emit({"phase": "ctc_separate_path", "launches": counts,
+          "loss_total": float(loss.sum())})
+    if counts["ctc_alphas"] != 1 or counts["ctc_betas"] != 1:
+        fail(f"the separate CTC path did not launch K11 and K12 once: "
+             f"{counts}")
+    return out, counts
+
+
+def phase_k3(torch, np, dev):
+    from kaldi_ctc_tpu_torch.ops import rnn_cuda
+    t_max, b, h = TRAIN_T, TRAIN_B, 320
+    rows = []
+    for dtype_name, dtype in (("float32", torch.float32),
+                              ("bfloat16", torch.bfloat16)):
+        rng = np.random.default_rng(3)
+        xp = torch.as_tensor(rng.standard_normal((t_max, b, 8 * h))
+                             .astype(np.float32) * 0.5, device=dev).to(dtype)
+        w = [torch.as_tensor((rng.standard_normal((h, 4 * h)) / np.sqrt(h))
+                             .astype(np.float32), device=dev).to(dtype)
+             for _ in range(2)]
+        lens = np.full(b, t_max, np.int32)
+        lens[1:] = rng.integers(t_max // 2, t_max + 1, size=b - 1)
+        lens = torch.as_tensor(lens, device=dev)
+        y_f, c_f, y_b, c_b = rnn_cuda.bilstm_seq_fwd(xp, w[0], w[1], lens)
+        dy = [torch.as_tensor(rng.standard_normal((t_max, b, h)).astype(
+            np.float32), device=dev).to(dtype) for _ in range(2)]
+        args = (dy[0], dy[1], xp, y_f, c_f, y_b, c_b, w[0], w[1], lens)
+        got = rnn_cuda.bilstm_seq_bwd_dgates(*args)
+        ref = rnn_cuda.bilstm_seq_bwd_dgates_reference(*args)
+        torch.cuda.synchronize()
+        errs = [max_err(g, r, 0.0, K3_TOL[dtype_name])
+                for g, r in zip(got, ref)]
+        row = {"dtype": dtype_name, "T": t_max, "B": b, "H": h,
+               "max_abs_err": max(e for e, _ in errs),
+               "max_abs_ref": max(float(r.float().abs().max()) for r in ref),
+               "tol": K3_TOL[dtype_name],
+               "ms": median_ms(lambda: rnn_cuda.bilstm_seq_bwd_dgates(*args),
+                               10, torch),
+               "plain_ms": median_ms(
+                   lambda: rnn_cuda.bilstm_seq_bwd_dgates_reference(*args),
+                   3, torch)}
+        rows.append(row)
+        emit({"phase": "k3_bilstm_bwd", **row})
+        if not all(ok for _, ok in errs):
+            fail(f"K3 bilstm_seq_bwd_dgates disagrees with its plain "
+                 f"version: {row}")
+    bf16 = rows[1]
+    return {"max_abs_err": max(r["max_abs_err"] for r in rows),
+            "ms": bf16["ms"], "plain_ms": bf16["plain_ms"]}
 
 
 def post(port, path, body):
@@ -227,7 +444,7 @@ def phase_serve(torch, np):
     os.makedirs(out_dir, exist_ok=True)
     seconds = (2.0, 4.0, 6.0, 8.0)
     audio = [pcm(s, 10 + i, np) for i, s in enumerate(seconds)]
-    launches = {"log_mel": 0, "bilstm_fwd": 0}
+    launches = dict.fromkeys(KERNELS, 0)
     engines = {}
     for dtype in ("float32", "bfloat16"):
         cfg = AmConfig(input_dim=40, num_targets=72, hidden_dim=320,
@@ -250,8 +467,7 @@ def phase_serve(torch, np):
                 fail(f"serve warm-up answered {status}")
             reqs = []
             # counts from the served requests only
-            stft_cuda.log_mel.launches = 0
-            rnn_cuda.bilstm_seq_fwd.launches = 0
+            reset_counts()
             for secs, x in zip(seconds, audio):
                 k2_0 = rnn_cuda.bilstm_seq_fwd.launches
                 k4_0 = stft_cuda.log_mel.launches
@@ -274,8 +490,8 @@ def phase_serve(torch, np):
                 if k2 != cfg.num_layers or k4 < 1:
                     fail(f"/recognize {secs}s launched K2 {k2}x (want "
                          f"{cfg.num_layers}) and K4 {k4}x (want >= 1)")
-            launches["log_mel"] += stft_cuda.log_mel.launches
-            launches["bilstm_fwd"] += rnn_cuda.bilstm_seq_fwd.launches
+            for name, n in read_counts().items():
+                launches[name] += n
         finally:
             server.shutdown()
             server.server_close()
@@ -305,6 +521,159 @@ def phase_serve(torch, np):
     return launches, engines
 
 
+def device_kernels(prof, DeviceType):
+    """[(device us, count, name)] of the CUDA kernels in a trace, by
+    device time, largest first."""
+    kernels = []
+    for evt in prof.key_averages():
+        us = getattr(evt, "self_device_time_total", None)
+        if us is None:
+            us = evt.self_cuda_time_total
+        if evt.device_type == DeviceType.CUDA and us > 0:
+            kernels.append((us, evt.count, evt.key))
+    kernels.sort(reverse=True)
+    return kernels
+
+
+def phase_train(torch, np, dev):
+    """The flagship training step at bench.py's shapes: parity with the
+    plain versions on the card, launch counts, the eval step, audio-s/s
+    and one profiled step, for f32 then bf16."""
+    from torch.profiler import DeviceType, ProfilerActivity, profile
+
+    from kaldi_ctc_tpu_torch.models.acoustic import AmConfig, init_am_params
+    from kaldi_ctc_tpu_torch.params import tree_flatten
+    from kaldi_ctc_tpu_torch.training import train
+
+    b, t, l = TRAIN_B, TRAIN_T, TRAIN_L
+    rng = np.random.default_rng(0)
+    batch = {k: torch.as_tensor(v, device=dev) for k, v in {
+        "feats": rng.standard_normal((b, t, 40)).astype(np.float32),
+        "labels": rng.integers(1, 72, (b, l)).astype(np.int32),
+        "input_lens": np.full((b,), t, np.int32),
+        "label_lens": np.full((b,), l, np.int32)}.items()}
+    audio_s_per_step = b * t * SECONDS_PER_FRAME
+    launches = dict.fromkeys(KERNELS, 0)
+    out = {}
+    for dtype in ("float32", "bfloat16"):
+        cfg = AmConfig(input_dim=40, num_targets=72, hidden_dim=320,
+                       num_layers=5, compute_dtype=dtype)
+        params = init_am_params(cfg, torch.Generator().manual_seed(0), dev)
+        state0 = train.init_train_state(params)
+        step = train.build_train_step(cfg, train.TrainOptions())
+        step(state0, batch)          # warm-up: cuBLAS, allocator, kernels
+        torch.cuda.synchronize()
+
+        # the main path: 3 steps through the kernels, counts from them
+        reset_counts()
+        state, steps = state0, []
+        for _ in range(3):
+            before = read_counts()
+            state, m = step(state, batch)
+            after = read_counts()
+            per_step = [after[k] - before[k]
+                        for k in ("bilstm_fwd", "bilstm_bwd",
+                                  "ctc_alpha_beta")]
+            steps.append({"loss_total": float(m["loss_total"]),
+                          "grad_norm": float(m["grad_norm"]),
+                          "finite": bool(m["finite"]),
+                          "launches_k2_k3_k1": per_step})
+            if per_step != [cfg.num_layers, cfg.num_layers, 1]:
+                fail(f"train step {dtype} launched K2, K3, K1 {per_step} "
+                     f"times (want 5, 5, 1)")
+            if not (steps[-1]["finite"]
+                    and np.isfinite(steps[-1]["loss_total"])):
+                fail(f"train step {dtype} not finite: {steps[-1]}")
+        for name, n in read_counts().items():
+            launches[name] += n
+
+        # the same 3 steps from the same state on the plain versions
+        with plain_versions():
+            state_p, plain = state0, []
+            for _ in range(3):
+                state_p, m = step(state_p, batch)
+                plain.append({"loss_total": float(m["loss_total"]),
+                              "grad_norm": float(m["grad_norm"])})
+        loss_tol, norm_tol, param_tol = TRAIN_TOL[dtype]
+        param_err = max(float((g - r).abs().max()) for g, r in zip(
+            tree_flatten(state.params), tree_flatten(state_p.params)))
+        loss_rel = max(abs(k["loss_total"] - p["loss_total"])
+                       / abs(p["loss_total"]) for k, p in zip(steps, plain))
+        norm_rel = max(abs(k["grad_norm"] - p["grad_norm"])
+                       / abs(p["grad_norm"]) for k, p in zip(steps, plain))
+
+        # the eval step: no gradient, so the loss takes K11 alone
+        eval_step = train.make_eval_step(cfg)
+        reset_counts()
+        em = eval_step(state.params, batch)
+        eval_loss = float(em["loss_total"])
+        eval_counts = read_counts()
+        for name, n in eval_counts.items():
+            launches[name] += n
+        if (eval_counts["bilstm_fwd"] != cfg.num_layers
+                or eval_counts["ctc_alphas"] != 1
+                or not np.isfinite(eval_loss)):
+            fail(f"eval step {dtype}: launches {eval_counts}, loss "
+                 f"{eval_loss}")
+
+        # audio-s/s: timed calls of a few steps each, on the host clock
+        rates = []
+        for _ in range(TRAIN_TIMED_CALLS):
+            t0 = time.perf_counter()
+            for _ in range(TRAIN_STEPS_PER_CALL):
+                state, m = step(state, batch)
+            float(m["loss_total"])   # sync point
+            rates.append(audio_s_per_step * TRAIN_STEPS_PER_CALL
+                         / (time.perf_counter() - t0))
+        rates.sort()
+
+        # one step under the profiler
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            state, m = step(state, batch)
+            torch.cuda.synchronize()
+            traced_ms = (time.perf_counter() - t0) * 1000
+        kernels = device_kernels(prof, DeviceType)
+        device_ms = sum(k[0] for k in kernels) / 1000
+
+        def share(tag):
+            return round(sum(k[0] for k in kernels if tag in k[2])
+                         / 1000 / device_ms, 4) if device_ms else None
+
+        res = {"phase": "train", "dtype": dtype,
+               "model": "5x320 BLSTM, 40-dim input, 72 targets",
+               "B": b, "T": t, "L": l, "steps": steps, "plain_steps": plain,
+               "max_rel_err_loss": loss_rel, "max_rel_err_grad_norm":
+                   norm_rel, "max_abs_err_params": param_err,
+               "tol_loss_norm_params": [loss_tol, norm_tol, param_tol],
+               "eval_loss_total": eval_loss, "eval_launches": eval_counts,
+               "audio_s_per_s": {"median": rates[len(rates) // 2],
+                                 "min": rates[0], "max": rates[-1],
+                                 "n": len(rates),
+                                 "steps_per_call": TRAIN_STEPS_PER_CALL},
+               "step_ms_median": (audio_s_per_step * 1000
+                                  / rates[len(rates) // 2]),
+               "traced_step_ms": round(traced_ms, 3),
+               "device_kernel_ms": (round(device_ms, 3) if device_ms
+                                    else "not measured"),
+               "device_idle_share_of_traced_wall":
+                   (round(1 - device_ms / traced_ms, 4) if device_ms
+                    else "not measured"),
+               "k1_share_of_device": share("ctc_kernel"),
+               "k2_share_of_device": share("bilstm_fwd_kernel"),
+               "k3_share_of_device": share("bilstm_bwd_kernel"),
+               "top_kernels": [{"name": k[2][:80], "us": round(k[0], 1),
+                                "count": k[1]} for k in kernels[:10]]}
+        emit(res)
+        if loss_rel > loss_tol or norm_rel > norm_tol or param_err > param_tol:
+            fail(f"train step {dtype} disagrees with the plain versions: "
+                 f"loss {loss_rel}, grad norm {norm_rel}, params "
+                 f"{param_err}")
+        out[dtype] = res
+    return launches
+
+
 def phase_profile(torch, np, engines):
     """Where one 8 s request's time goes: device time by kernel from
     torch.profiler, against the request's wall time with and without
@@ -326,14 +695,7 @@ def phase_profile(torch, np, engines):
             t0 = time.perf_counter()
             engine.recognize(x)
             traced_ms = (time.perf_counter() - t0) * 1000
-        kernels = []
-        for evt in prof.key_averages():
-            us = getattr(evt, "self_device_time_total", None)
-            if us is None:
-                us = evt.self_cuda_time_total
-            if evt.device_type == DeviceType.CUDA and us > 0:
-                kernels.append((us, evt.count, evt.key))
-        kernels.sort(reverse=True)
+        kernels = device_kernels(prof, DeviceType)
         device_ms = sum(k[0] for k in kernels) / 1000
 
         def share(tag):
@@ -368,21 +730,31 @@ def main():
     dev = torch.device("cuda", 0)
     smi = phase_device(torch)
     phase_build()
-    k4 = phase_k4(torch, np, dev)
-    k2 = phase_k2(torch, np, dev)
-    launches, engines = phase_serve(torch, np)
+    measured = {"log_mel": phase_k4(torch, np, dev),
+                "bilstm_fwd": phase_k2(torch, np, dev)}
+    ctc_rows, launches = phase_k1(torch, np, dev)
+    measured.update(ctc_rows)
+    measured["bilstm_bwd"] = phase_k3(torch, np, dev)
+    served, engines = phase_serve(torch, np)
+    trained = phase_train(torch, np, dev)
+    for name in KERNELS:
+        launches[name] += served[name] + trained[name]
     if min(launches.values()) < 1:
-        fail(f"a kernel of the serving path never launched: {launches}")
+        fail(f"a kernel of the driven paths never launched: {launches}")
     phase_profile(torch, np, engines)
+    sources = {"log_mel": ("log_mel.cu", "features/stft_pallas.py:79"),
+               "bilstm_fwd": ("bilstm_fwd.cu", "ops/rnn_pallas.py:602"),
+               "bilstm_bwd": ("bilstm_bwd.cu", "ops/rnn_pallas.py:747"),
+               "ctc_alpha_beta": ("ctc_alpha_beta.cu",
+                                  "ops/ctc_pallas.py:149"),
+               "ctc_alphas": ("ctc_alpha_beta.cu", "ops/ctc_pallas.py:190"),
+               "ctc_betas": ("ctc_alpha_beta.cu", "ops/ctc_pallas.py:215")}
     emit({"kernels": [
-        {"name": "log_mel", "route": "cuda",
-         "source": "kaldi_ctc_tpu_torch/csrc/log_mel.cu",
-         "replaces": "kaldi_ctc_tpu/features/stft_pallas.py:79",
-         "launches": launches["log_mel"], **k4},
-        {"name": "bilstm_fwd", "route": "cuda",
-         "source": "kaldi_ctc_tpu_torch/csrc/bilstm_fwd.cu",
-         "replaces": "kaldi_ctc_tpu/ops/rnn_pallas.py:602",
-         "launches": launches["bilstm_fwd"], **k2}]})
+        {"name": name, "route": "cuda",
+         "source": f"kaldi_ctc_tpu_torch/csrc/{sources[name][0]}",
+         "replaces": f"kaldi_ctc_tpu/{sources[name][1]}",
+         "launches": launches[name], **measured[name]}
+        for name in KERNELS]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

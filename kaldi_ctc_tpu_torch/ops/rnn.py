@@ -19,8 +19,8 @@ is exact in f32, so only the order of the f32 sum differs from a bf16
 tensor-core product, on the CPU and on the card alike.
 
 A bidirectional LSTM goes through :func:`_run_birnn_fused` →
-``rnn_cuda.bilstm_layer`` (kernel K2 on CUDA, its plain version on the
-CPU).  Every other mode runs the plain per-step loop
+``rnn_cuda.bilstm_layer`` (kernels K2 forward and K3 backward on CUDA,
+their plain versions on the CPU).  Every other mode runs the plain per-step loop
 :func:`_run_direction` on the CPU; on CUDA, ReLU and Tanh run that loop
 too (the JAX package has no kernel for them), while unidirectional LSTM,
 GRU and BiGRU raise until their kernels (K5, K9, K8) are ported.

@@ -17,7 +17,7 @@ import numpy as np
 import torch
 
 __all__ = ["tree_flatten", "tree_unflatten", "tree_map", "from_jax_params",
-           "to_jax_params"]
+           "to_jax_params", "train_state_from_jax", "train_state_to_jax"]
 
 
 def _is_seq(x) -> bool:
@@ -57,8 +57,11 @@ def tree_unflatten(template: Any, leaves: List[Any]) -> Any:
     return build(template)
 
 
-def tree_map(fn: Callable[[Any], Any], tree: Any) -> Any:
-    return tree_unflatten(tree, [fn(leaf) for leaf in tree_flatten(tree)])
+def tree_map(fn: Callable[..., Any], tree: Any, *rest: Any) -> Any:
+    """``fn`` over the leaves of ``tree`` and, leaf by leaf, of the trees
+    in ``rest`` (which share its structure), as ``jax.tree_util``."""
+    return tree_unflatten(tree, [fn(*leaves) for leaves in zip(
+        tree_flatten(tree), *(tree_flatten(r) for r in rest))])
 
 
 def from_jax_params(tree: Any, device="cpu") -> Any:
@@ -74,3 +77,23 @@ def to_jax_params(tree: Any) -> Any:
     ``jnp.asarray`` on the JAX side."""
     return tree_map(lambda t: t.detach().to("cpu", torch.float32).numpy(),
                     tree)
+
+
+def train_state_from_jax(state: Any, device="cpu"):
+    """A JAX ``TrainState`` (its ``params``, ``velocity`` and ``step``,
+    numpy or jax arrays as leaves) → the port's
+    ``training.train.TrainState`` on ``device``."""
+    from kaldi_ctc_tpu_torch.training.train import TrainState
+    return TrainState(params=from_jax_params(state.params, device),
+                      velocity=from_jax_params(state.velocity, device),
+                      step=torch.tensor(int(np.asarray(state.step)),
+                                        dtype=torch.int32, device=device))
+
+
+def train_state_to_jax(state: Any) -> dict:
+    """The port's ``TrainState`` → ``dict(params, velocity, step)`` of
+    numpy arrays, the fields of a JAX ``TrainState``
+    (``TrainState(**d)`` on the JAX side)."""
+    return {"params": to_jax_params(state.params),
+            "velocity": to_jax_params(state.velocity),
+            "step": np.asarray(int(state.step), dtype=np.int32)}

@@ -1,0 +1,255 @@
+"""Training: the CTC train step and the outer-loop pieces.
+
+Counterpart of ``kaldi_ctc_tpu/training/train.py`` (the reference's
+NnetCtcUpdater, ``ctc/ctc-nnet-update.cc:76-348``):
+
+- one step: forward (B)LSTM stack → CTC alpha-beta loss + gradient →
+  backprop → elementwise gradient clip ±5 (cuDNN component clip,
+  ``nnet-cudnn-component.cc:602-603``) → SGD with optional momentum;
+- SGD on gradient *sums* over the minibatch (no 1/B), scaled by
+  ``objective_scale``;
+- exponential lr decay ``lr(x) = lr_i * exp(x*log(lr_f/lr_i)/num_steps)``
+  (``steps/ctc/train.sh:352``) after an optional linear warmup;
+- greedy-collapse label accuracy (``ctc/ctc-nnet-update.cc:261-317``):
+  argmax and collapse on the device, Levenshtein on the host.
+
+On the card the step runs K2 and K3 for each BLSTM layer and K1 for the
+loss; on the CPU their plain versions.  PyTorch runs eagerly: there is no
+jit, and ``make_train_step`` returns the step as it is (no buffers are
+donated).  Natural-gradient affine updates (``affine_type="natural"``)
+wait for ROADMAP.md item 13.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any, Dict, NamedTuple, Tuple
+
+import numpy as np
+import torch
+
+from kaldi_ctc_tpu_torch.models.acoustic import AmConfig, am_forward
+from kaldi_ctc_tpu_torch.ops.ctc import ctc_loss, greedy_collapse
+from kaldi_ctc_tpu_torch.params import tree_flatten, tree_map, tree_unflatten
+from kaldi_ctc_tpu_torch.utils.edit_distance import batch_edit_distance
+
+__all__ = ["TrainOptions", "exponential_lr", "build_train_step",
+           "make_train_step", "make_eval_step", "accuracy_from_outputs",
+           "TrainState", "init_train_state"]
+
+_NG_NOT_PORTED = ("affine_type='natural' (online natural-gradient SGD) is "
+                  "not ported yet: ROADMAP.md item 13")
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainOptions:
+    """Mirror of the reference's trainer knobs (ctc/ctc-nnet-train.h:33-66,
+    steps/ctc/train.sh:7-116); field for field the JAX package's."""
+
+    initial_learning_rate: float = 5e-4
+    final_learning_rate: float = 1e-5
+    num_steps: int = 10000          # decay horizon (num_iters analogue)
+    momentum: float = 0.0
+    clip_elementwise: float = 5.0   # cudnn component clip ±5
+    clip_norm: float = 0.0          # optional global-norm clip (0 = off)
+    objective_scale: float = 1.0    # 1/num_data_shards for parity
+    # NaN/Inf guard (ctc-nnet-update.cc:232-234,254): the update is
+    # suppressed when loss or grad norm is non-finite; the training loop
+    # reads the "finite" metric.  False removes the select.
+    guard_nonfinite: bool = True
+    # "simple" (plain SGD) or "natural" (not ported: ROADMAP item 13)
+    affine_type: str = "simple"
+    ng_rank_in: int = 30
+    ng_rank_out: int = 80
+    ng_update_period: int = 1
+    ng_num_samples_history: float = 2000.0
+    ng_alpha: float = 4.0
+    # linear lr warmup over this many steps before the exponential decay
+    # (0 = off, the reference schedule)
+    warmup_steps: int = 0
+
+
+class TrainState(NamedTuple):
+    params: Any
+    velocity: Any
+    step: torch.Tensor              # int32 scalar on the params' device
+    ng: Any = None                  # natural-gradient states (not ported)
+
+
+def _device(params: Any) -> torch.device:
+    return tree_flatten(params)[0].device
+
+
+def init_train_state(params: Any,
+                     opts: "TrainOptions" = None) -> TrainState:
+    if opts is not None and opts.affine_type == "natural":
+        raise NotImplementedError(_NG_NOT_PORTED)
+    return TrainState(params=params,
+                      velocity=tree_map(torch.zeros_like, params),
+                      step=torch.zeros((), dtype=torch.int32,
+                                       device=_device(params)))
+
+
+def exponential_lr(opts: TrainOptions, step: torch.Tensor) -> torch.Tensor:
+    """lr(x) = lr_i * exp(x * log(lr_f/lr_i) / num_steps) (train.sh:352),
+    optionally preceded by a linear warmup ramp (warmup_steps > 0); an
+    f32 scalar tensor on step's device."""
+    ratio = math.log(opts.final_learning_rate / opts.initial_learning_rate)
+    x = torch.as_tensor(step).to(torch.float32)
+    lr = opts.initial_learning_rate * torch.exp(
+        x * (ratio / max(opts.num_steps, 1)))
+    if opts.warmup_steps > 0:
+        w = (x + 1.0) / float(opts.warmup_steps)
+        lr = lr * torch.clamp_max(w, 1.0)
+    return lr
+
+
+def _clip_tree(grads: Any, opts: TrainOptions) -> Any:
+    if opts.clip_elementwise > 0:
+        c = opts.clip_elementwise
+        grads = tree_map(lambda g: torch.clamp(g, -c, c), grads)
+    if opts.clip_norm > 0:
+        norm = torch.sqrt(sum(torch.sum(g * g) for g in tree_flatten(grads)))
+        scale = torch.clamp_max(
+            opts.clip_norm / torch.clamp_min(norm, 1e-20), 1.0)
+        grads = tree_map(lambda g: g * scale, grads)
+    return grads
+
+
+def _on(batch: Dict[str, Any], device) -> Dict[str, torch.Tensor]:
+    return {k: torch.as_tensor(v, device=device) for k, v in batch.items()}
+
+
+def build_train_step(cfg: AmConfig, opts: TrainOptions):
+    """The train step: ``state, metrics = step(state, batch)``.
+
+    batch: feats [B, T, D] f32, labels [B, L], input_lens [B],
+    label_lens [B] (torch tensors or numpy arrays; moved to the params'
+    device).  metrics: scalars as tensors on the device, plus the
+    greedy hypotheses (``hyp_ids``, ``hyp_lens``) for host-side
+    accuracy.  Nothing is read back to the host.
+    """
+    if opts.affine_type == "natural":
+        raise NotImplementedError(_NG_NOT_PORTED)
+
+    def train_step(state: TrainState, batch: Dict[str, Any]):
+        batch = _on(batch, state.step.device)
+        leaves = [p.detach().requires_grad_(True)
+                  for p in tree_flatten(state.params)]
+        params = tree_unflatten(state.params, leaves)
+        out_lens = cfg.output_lens(batch["input_lens"])
+        with torch.enable_grad():
+            # dropout needs a generator here; am_forward raises for it
+            # until dropout is ported (ROADMAP item 12)
+            logits = am_forward(
+                params, batch["feats"], cfg, input_lens=batch["input_lens"],
+                dropout_generator=(torch.Generator() if cfg.dropout > 0.0
+                                   else None))
+            losses = ctc_loss(logits, batch["labels"], out_lens,
+                              batch["label_lens"])
+            total = torch.sum(losses) * opts.objective_scale
+        grads = tree_unflatten(state.params,
+                               list(torch.autograd.grad(total, leaves)))
+        with torch.no_grad():
+            grads = _clip_tree(grads, opts)
+            lr = exponential_lr(opts, state.step)
+            grad_norm = torch.sqrt(sum(torch.sum(g * g)
+                                       for g in tree_flatten(grads)))
+            losses = losses.detach()
+            # elementwise clip keeps NaN NaN, so grad_norm still sees it
+            finite = (torch.isfinite(torch.sum(losses))
+                      & torch.isfinite(grad_norm))
+            if opts.momentum > 0:
+                velocity = tree_map(lambda v, g: opts.momentum * v + g,
+                                    state.velocity, grads)
+            else:
+                velocity = grads
+            if opts.guard_nonfinite:
+                # a poisoned batch leaves params AND velocity as they were
+                # (a NaN velocity would re-poison every later step)
+                params = tree_map(
+                    lambda p, v: torch.where(finite, p - lr * v, p),
+                    state.params, velocity)
+                velocity = tree_map(
+                    lambda v_new, v_old: torch.where(finite, v_new, v_old),
+                    velocity, state.velocity)
+            else:
+                params = tree_map(lambda p, v: p - lr * v, state.params,
+                                  velocity)
+            new_state = TrainState(
+                params=params,
+                velocity=velocity if opts.momentum > 0 else state.velocity,
+                step=state.step + 1, ng=state.ng)
+            hyp_ids, hyp_lens = greedy_collapse(
+                torch.argmax(logits.detach(), dim=-1), out_lens)
+            num_frames = torch.sum(out_lens)
+            metrics = {
+                "loss_total": torch.sum(losses),
+                "loss_per_frame": torch.sum(losses) / num_frames.float(),
+                "num_frames": num_frames,
+                "lr": lr,
+                "grad_norm": grad_norm,
+                "finite": finite,
+                "hyp_ids": hyp_ids,
+                "hyp_lens": hyp_lens,
+            }
+        return new_state, metrics
+
+    return train_step
+
+
+def make_train_step(cfg: AmConfig, opts: TrainOptions):
+    """The train step to call in a loop: :func:`build_train_step`'s, as
+    it is (PyTorch runs eagerly; no state is donated)."""
+    return build_train_step(cfg, opts)
+
+
+def make_eval_step(cfg: AmConfig):
+    """Diagnostic objf/accuracy pass (nnet2-ctc-compute-prob analogue):
+    no gradient, so the loss takes the alpha recursion alone."""
+
+    def eval_step(params, batch):
+        batch = _on(batch, _device(params))
+        with torch.no_grad():
+            logits = am_forward(params, batch["feats"], cfg,
+                                input_lens=batch["input_lens"])
+            out_lens = cfg.output_lens(batch["input_lens"])
+            losses = ctc_loss(logits, batch["labels"], out_lens,
+                              batch["label_lens"])
+            hyp_ids, hyp_lens = greedy_collapse(
+                torch.argmax(logits, dim=-1), out_lens)
+        return {
+            "loss_total": torch.sum(losses),
+            "num_frames": torch.sum(out_lens),
+            "hyp_ids": hyp_ids,
+            "hyp_lens": hyp_lens,
+        }
+
+    return eval_step
+
+
+def _numpy(x) -> np.ndarray:
+    if isinstance(x, torch.Tensor):
+        return x.detach().cpu().numpy()
+    return np.asarray(x)
+
+
+def accuracy_from_outputs(
+    metrics: Dict[str, Any],
+    labels: np.ndarray,
+    label_lens: np.ndarray,
+) -> Tuple[float, int, int]:
+    """Greedy-collapse label accuracy = 1 - edit_distance/ref_len.
+
+    Host-side Levenshtein over the device-computed collapsed hypotheses
+    (ComputeTotAccuracy, ctc-nnet-update.cc:261-317).
+    Returns (accuracy, total_errors, total_ref_len).
+    """
+    dists, ref_lens = batch_edit_distance(
+        _numpy(labels), _numpy(label_lens), _numpy(metrics["hyp_ids"]),
+        _numpy(metrics["hyp_lens"]))
+    total_err = int(dists.sum())
+    total_ref = int(ref_lens.sum())
+    acc = 1.0 - total_err / max(total_ref, 1)
+    return acc, total_err, total_ref

@@ -1,6 +1,6 @@
 """The port's CUDA kernels: their build layer (on any machine) and,
-on the card, each kernel and the served slice against the plain PyTorch
-versions on the same inputs on the card.
+on the card, each kernel, the served slice and the training step
+against the plain PyTorch versions on the same inputs on the card.
 
 These import neither jax nor kaldi_ctc_tpu, so they also run on a machine
 without JAX: ``python -m pytest --noconftest tests/test_torch_cuda.py``.
@@ -19,7 +19,7 @@ from kaldi_ctc_tpu_torch import _kernels
 from kaldi_ctc_tpu_torch.features import stft_cuda
 from kaldi_ctc_tpu_torch.features.mel import MelOptions, mel_banks
 from kaldi_ctc_tpu_torch.features.window import FrameOptions, feature_window
-from kaldi_ctc_tpu_torch.ops import rnn_cuda
+from kaldi_ctc_tpu_torch.ops import ctc, ctc_cuda, rnn_cuda
 
 # K4: the kernel sums the DFT directly in f32 where the plain version
 # uses cuFFT; both are IEEE f32, the order of the sums differs.  2e-4 is
@@ -33,6 +33,20 @@ BILSTM_F32_TOL = 2e-5
 # rounded to bf16, so one flipped rounding moves later steps by ~1 ulp;
 # the JAX package holds its bf16 Pallas path to its scan path at 2e-2.
 BILSTM_BF16_TOL = 2e-2
+# K1/K11/K12: the same f32 log-space sums as the plain loops, with the
+# card's expf/log1pf where the plain version calls torch's; alphas and
+# betas reach ~-3000 at T = 1250 (f32 ulp 2.4e-4).
+CTC_RTOL, CTC_ATOL = 1e-5, 1e-4
+# The CTC gradient holds state posteriors exp(alpha + beta - lp - log Z)
+# whose exponent sums terms of ~-3000 at T = 1250: an f32 ulp there
+# (2.4e-4) is that relative error in a posterior of up to 1.
+CTC_GRAD_TOL = 5e-4
+# K3 f32: dh and dc carried over T steps in another summation order (the
+# partial-dh exchange sums per block, then over blocks).
+BILSTM_BWD_F32_TOL = 1e-4
+# K3 bf16: dgates are stored in bf16 and enter the dh product rounded to
+# bf16, so a flipped rounding moves later steps by about a bf16 ulp.
+BILSTM_BWD_BF16_TOL = 5e-2
 
 
 @pytest.fixture
@@ -181,6 +195,236 @@ def test_served_slice_on_cuda_matches_plain(cuda, dtype, tmp_path):
     tol = BILSTM_F32_TOL * 10 if dtype == "float32" else 5e-2
     for g, c in zip(gpu.score_utt(feats), cpu.score_utt(feats.cpu())):
         np.testing.assert_allclose(g, c, rtol=0, atol=tol)
+
+
+def _ctc_inputs(t, b, lmax, device, seed):
+    """Seeded logits and labels with ragged, short and infeasible rows
+    (row 1 has fewer frames than its labels need)."""
+    rng = np.random.default_rng(seed)
+    a = 9
+    logits = torch.as_tensor((rng.standard_normal((b, t, a)) * 2).astype(
+        np.float32), device=device)
+    label_lens = rng.integers(min(1, lmax), lmax + 1, size=b)
+    labels = np.zeros((b, lmax), np.int32)
+    for i in range(b):
+        labels[i, :label_lens[i]] = rng.integers(1, a, size=label_lens[i])
+    input_lens = rng.integers(max(1, min(t, 2 * lmax + 1)), t + 1, size=b)
+    input_lens[0] = t
+    if b > 1:
+        input_lens[1] = max(1, min(t, label_lens[1]))
+    return (logits, torch.as_tensor(labels, device=device),
+            torch.as_tensor(input_lens.astype(np.int32), device=device),
+            torch.as_tensor(label_lens.astype(np.int32), device=device))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t,b,lmax", [(24, 6, 5), (30, 3, 0), (240, 4, 70),
+                                      (1250, 2, 600)])
+def test_ctc_kernels_match_plain(cuda, t, b, lmax):
+    """K1, K11 and K12 against their plain loops on the card, including
+    S = 1 (empty labels) and S = 1201 > 1024 (threads stride over S)."""
+    logits, labels, input_lens, label_lens = _ctc_inputs(t, b, lmax, cuda,
+                                                         seed=t + b)
+    _, _, skip_ok, lp = ctc._lattice(logits, labels, 0)
+    skip_down = ctc._skip_down(skip_ok)
+    before = (ctc_cuda.alpha_beta.launches, ctc_cuda.forward_alphas.launches,
+              ctc_cuda.backward_betas.launches)
+    got = {"alpha_beta": ctc_cuda.alpha_beta(lp, skip_ok, skip_down,
+                                             input_lens, label_lens),
+           "forward_alphas": (ctc_cuda.forward_alphas(lp, skip_ok,
+                                                      input_lens),),
+           "backward_betas": (ctc_cuda.backward_betas(lp, skip_down,
+                                                      input_lens,
+                                                      label_lens),)}
+    torch.cuda.synchronize()
+    assert (ctc_cuda.alpha_beta.launches, ctc_cuda.forward_alphas.launches,
+            ctc_cuda.backward_betas.launches) == tuple(n + 1 for n in before)
+    ref_a, ref_b = ctc_cuda.alpha_beta_reference(lp, skip_ok, skip_down,
+                                                 input_lens, label_lens)
+    want = {"alpha_beta": (ref_a, ref_b), "forward_alphas": (ref_a,),
+            "backward_betas": (ref_b,)}
+    for name, outs in got.items():
+        for g, r in zip(outs, want[name]):
+            np.testing.assert_allclose(g.cpu().numpy(), r.cpu().numpy(),
+                                       rtol=CTC_RTOL, atol=CTC_ATOL,
+                                       err_msg=name)
+    ref_loss, ref_grad = ctc.ctc_loss_and_grad(
+        *(v.cpu() for v in (logits, labels, input_lens, label_lens)))
+    for impl in ("fused", "separate"):
+        loss, grad = ctc.ctc_loss_and_grad(logits, labels, input_lens,
+                                           label_lens, implementation=impl)
+        np.testing.assert_allclose(loss.cpu().numpy(), ref_loss.numpy(),
+                                   rtol=CTC_RTOL, atol=CTC_ATOL)
+        np.testing.assert_allclose(grad.cpu().numpy(), ref_grad.numpy(),
+                                   rtol=0, atol=CTC_GRAD_TOL)
+
+
+@pytest.mark.cuda
+def test_ctc_kernels_reject_bad_inputs(cuda):
+    logits, labels, input_lens, label_lens = _ctc_inputs(8, 2, 2, cuda, 0)
+    _, _, skip_ok, lp = ctc._lattice(logits, labels, 0)
+    with pytest.raises(ValueError):                  # f64 log-probs
+        ctc_cuda.forward_alphas(lp.double(), skip_ok, input_lens)
+    with pytest.raises(ValueError):                  # mask not bool
+        ctc_cuda.forward_alphas(lp, skip_ok.float(), input_lens)
+    with pytest.raises(ValueError):                  # lens on the CPU
+        ctc_cuda.backward_betas(lp, skip_ok, input_lens.cpu(), label_lens)
+    with pytest.raises(ValueError):                  # not contiguous
+        ctc_cuda.alpha_beta(lp.transpose(0, 1), skip_ok, skip_ok,
+                            input_lens, label_lens)
+    big = torch.zeros((2, 1, ctc_cuda._MAX_S + 1), device=cuda)
+    with pytest.raises(ValueError, match="shared memory"):
+        ctc_cuda.forward_alphas(big, torch.zeros(big.shape[1:], dtype=bool,
+                                                 device=cuda),
+                                input_lens[:1])
+
+
+def _bwd_inputs(t, b, h, dtype, device, seed):
+    """A forward pass through K2's plain version on the card, and seeded
+    cotangents: K3's operands."""
+    xp, w_f, w_b, lens = _bilstm_inputs(t, b, h, dtype, device, seed)
+    y_f, c_f, y_b, c_b = rnn_cuda.bilstm_seq_fwd_reference(xp, w_f, w_b,
+                                                           lens)
+    rng = np.random.default_rng(seed + 1)
+    dy_f, dy_b = (torch.as_tensor(rng.standard_normal((t, b, h)).astype(
+        np.float32), device=device).to(dtype) for _ in range(2))
+    return dy_f, dy_b, xp, y_f, c_f, y_b, c_b, w_f, w_b, lens
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, BILSTM_BWD_F32_TOL),
+                                       (torch.bfloat16, BILSTM_BWD_BF16_TOL)])
+@pytest.mark.parametrize("t,b,h", [(16, 3, 16), (16, 3, 128), (40, 2, 320),
+                                   (240, 48, 320)])
+def test_bilstm_bwd_kernel_matches_plain(cuda, dtype, tol, t, b, h):
+    args = _bwd_inputs(t, b, h, dtype, cuda, seed=h + t)
+    before = rnn_cuda.bilstm_seq_bwd_dgates.launches
+    got = rnn_cuda.bilstm_seq_bwd_dgates(*args)
+    torch.cuda.synchronize()
+    assert rnn_cuda.bilstm_seq_bwd_dgates.launches == before + 1
+    ref = rnn_cuda.bilstm_seq_bwd_dgates_reference(*args)
+    lens_np = args[-1].cpu().numpy()
+    for name, g, r in zip(("dg_f", "dg_b"), got, ref):
+        assert g.dtype == r.dtype == dtype and g.shape == r.shape, name
+        np.testing.assert_allclose(g.float().cpu().numpy(),
+                                   r.float().cpu().numpy(), rtol=0, atol=tol,
+                                   err_msg=name)
+        for row, n in enumerate(lens_np):       # zero at pad frames
+            assert not g[n:, row].any(), name
+
+
+@pytest.mark.cuda
+def test_bilstm_bwd_kernel_rejects_bad_inputs(cuda):
+    args = list(_bwd_inputs(4, 2, 16, torch.float32, cuda, 0))
+    bad = list(args)
+    bad[0] = args[0].to(torch.bfloat16)                 # dy dtype
+    with pytest.raises(ValueError):
+        rnn_cuda.bilstm_seq_bwd_dgates(*bad)
+    bad = list(args)
+    bad[4] = args[4].transpose(0, 1).contiguous().transpose(0, 1)  # c_f
+    with pytest.raises(ValueError):
+        rnn_cuda.bilstm_seq_bwd_dgates(*bad)
+    bad = list(args)
+    bad[8] = args[8][:, :-4].contiguous()               # w_h_b shape
+    with pytest.raises(ValueError):
+        rnn_cuda.bilstm_seq_bwd_dgates(*bad)
+
+
+@pytest.fixture
+def plain_kernels(monkeypatch):
+    """Route every kernel wrapper of the training path to its plain
+    version (for a comparison run on the card)."""
+    def use_plain():
+        monkeypatch.setattr(rnn_cuda, "bilstm_seq_fwd",
+                            rnn_cuda.bilstm_seq_fwd_reference)
+        monkeypatch.setattr(rnn_cuda, "bilstm_seq_bwd_dgates",
+                            rnn_cuda.bilstm_seq_bwd_dgates_reference)
+        monkeypatch.setattr(ctc_cuda, "alpha_beta",
+                            ctc_cuda.alpha_beta_reference)
+    return use_plain
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,tol", [("float32", 1e-4),
+                                       ("bfloat16", 5e-2)])
+def test_bilstm_layer_backward_on_cuda_matches_plain(cuda, dtype, tol,
+                                                     plain_kernels):
+    t, b, d, h = 30, 5, 40, 320
+    rng = np.random.default_rng(11)
+    primals = [rng.standard_normal((t, b, d)).astype(np.float32),
+               (rng.standard_normal((d, 8 * h)) / np.sqrt(d)).astype(
+                   np.float32),
+               (rng.standard_normal(8 * h) * 0.2).astype(np.float32),
+               (rng.standard_normal((h, 4 * h)) / np.sqrt(h)).astype(
+                   np.float32),
+               (rng.standard_normal((h, 4 * h)) / np.sqrt(h)).astype(
+                   np.float32)]
+    lens = torch.as_tensor(np.array([t, 17, 3, 29, 1], np.int32),
+                           device=cuda)
+    cot = [torch.as_tensor(rng.standard_normal((t, b, h)).astype(np.float32),
+                           device=cuda) for _ in range(2)]
+
+    def grads():
+        leaves = [torch.tensor(p, device=cuda, requires_grad=True)
+                  for p in primals]
+        y_f, y_b = rnn_cuda.bilstm_layer(*leaves, lens, dtype)
+        torch.autograd.backward([y_f, y_b], [c.to(y_f.dtype) for c in cot])
+        return [p.grad for p in leaves]
+
+    k3 = rnn_cuda.bilstm_seq_bwd_dgates.launches
+    got = grads()
+    torch.cuda.synchronize()
+    assert rnn_cuda.bilstm_seq_bwd_dgates.launches == k3 + 1
+    plain_kernels()
+    ref = grads()
+    for name, g, r in zip(("dx", "dw_x", "dbias", "dw_h_f", "dw_h_b"),
+                          got, ref):
+        assert g.dtype == r.dtype == torch.float32, name
+        scale = max(float(r.abs().max()), 1.0)
+        np.testing.assert_allclose(g.cpu().numpy(), r.cpu().numpy(), rtol=0,
+                                   atol=tol * scale, err_msg=name)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flagship_train_step_on_cuda_matches_plain(cuda, dtype,
+                                                   plain_kernels):
+    """One step of the 5x320 flagship (T cut to 40) through K2, K3 and
+    K1, against the same step on the plain versions on the card."""
+    from kaldi_ctc_tpu_torch.models.acoustic import AmConfig, init_am_params
+    from kaldi_ctc_tpu_torch.params import tree_flatten
+    from kaldi_ctc_tpu_torch.training import train
+
+    cfg = AmConfig(input_dim=40, num_targets=72, hidden_dim=320,
+                   num_layers=5, compute_dtype=dtype)
+    rng = np.random.default_rng(0)
+    b, t, lmax = 6, 40, 8
+    batch = {"feats": rng.standard_normal((b, t, 40)).astype(np.float32),
+             "labels": rng.integers(1, 72, (b, lmax)).astype(np.int32),
+             "input_lens": np.array([40, 40, 33, 25, 17, 5], np.int32),
+             "label_lens": np.array([8, 5, 8, 3, 8, 1], np.int32)}
+    params = init_am_params(cfg, torch.Generator().manual_seed(0), cuda)
+    step = train.build_train_step(cfg, train.TrainOptions(momentum=0.9))
+    counts = (rnn_cuda.bilstm_seq_fwd.launches,
+              rnn_cuda.bilstm_seq_bwd_dgates.launches,
+              ctc_cuda.alpha_beta.launches)
+    state, m = step(train.init_train_state(params), batch)
+    torch.cuda.synchronize()
+    assert (rnn_cuda.bilstm_seq_fwd.launches - counts[0],
+            rnn_cuda.bilstm_seq_bwd_dgates.launches - counts[1],
+            ctc_cuda.alpha_beta.launches - counts[2]) == (5, 5, 1)
+    assert bool(m["finite"]) and np.isfinite(float(m["loss_total"]))
+    plain_kernels()
+    state_p, m_p = step(train.init_train_state(params), batch)
+    rtol = 1e-5 if dtype == "float32" else 2e-3
+    np.testing.assert_allclose(float(m["loss_total"]),
+                               float(m_p["loss_total"]), rtol=rtol)
+    np.testing.assert_allclose(float(m["grad_norm"]),
+                               float(m_p["grad_norm"]), rtol=10 * rtol)
+    for g, r in zip(tree_flatten(state.params),
+                    tree_flatten(state_p.params)):
+        np.testing.assert_allclose(g.cpu().numpy(), r.cpu().numpy(), rtol=0,
+                                   atol=1e-5 if dtype == "float32" else 1e-4)
 
 
 @pytest.fixture

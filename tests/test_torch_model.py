@@ -27,6 +27,11 @@ LENS = np.array([T, 9, 5], np.int32)
 # are stored in bf16, so a flipped rounding moves a logit by ~an ulp of
 # the output affine's inputs (the JAX package's 2e-2 bf16 tolerance).
 TOL = {"float32": 1e-5, "bfloat16": 2e-2}
+# gradients, relative to each leaf's largest entry: f32 as TOL; in bf16
+# JAX's scan RNN rounds the recurrent-weight cotangent to bf16 at every
+# step, where the fused layer keeps dh and dW_h in f32, so dW_h moves by
+# up to ~1% of its largest entry (the JAX package's 2e-2 bf16 tolerance).
+GRAD_TOL = {"float32": 1e-5, "bfloat16": 2e-2}
 
 
 def _cfg(dtype="float32", **kw):
@@ -54,6 +59,48 @@ def test_am_forward_matches_jax(dtype, bidirectional):
     assert got.dtype == torch.float32 and got.shape == ref.shape
     np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=0,
                                atol=TOL[dtype])
+
+
+def _bf16_exact(g: torch.Tensor) -> bool:
+    return torch.equal(g.to(torch.bfloat16).float(), g)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_am_forward_grads_match_jax_vjp(dtype):
+    """Every parameter's gradient through the BLSTM model under one
+    shared cotangent on the logits, against ``jax.vjp`` of JAX's
+    ``am_forward`` (its scan RNN on the CPU).  Under bf16 the output
+    affine's weight gradient is rounded to bf16 in both packages (the
+    VJP of the cast to the compute dtype), while the BLSTM weight
+    gradients come out of the fused layer in f32, unrounded."""
+    jcfg, tcfg = _cfg(dtype)
+    params = _jax_params(jcfg)
+    rng = np.random.default_rng(1)
+    feats = rng.standard_normal((B, T, jcfg.input_dim)).astype(np.float32)
+    cot = rng.standard_normal((B, T, jcfg.num_targets)).astype(np.float32)
+    _, vjp = jax.vjp(
+        lambda p: jam.am_forward(p, jnp.asarray(feats), jcfg,
+                                 input_lens=jnp.asarray(LENS)),
+        jax.tree_util.tree_map(jnp.asarray, params))
+    (ref,) = vjp(jnp.asarray(cot))
+    tparams = from_jax_params(params)
+    leaves = [p.requires_grad_(True) for p in tree_flatten(tparams)]
+    logits = tam.am_forward(tree_unflatten(tparams, leaves),
+                            torch.as_tensor(feats), tcfg,
+                            input_lens=torch.as_tensor(LENS))
+    logits.backward(torch.as_tensor(cot))
+    grads = tree_unflatten(tparams, [p.grad for p in leaves])
+    for g, r in zip(tree_flatten(grads), jax.tree_util.tree_leaves(ref)):
+        assert g.dtype == torch.float32 and r.dtype == jnp.float32
+        r = np.asarray(r)
+        np.testing.assert_allclose(g.numpy(), r, rtol=0,
+                                   atol=GRAD_TOL[dtype] * np.abs(r).max())
+    assert _bf16_exact(grads["out_w"]) == (dtype == "bfloat16")
+    assert _bf16_exact(torch.as_tensor(np.asarray(ref["out_w"]))) == (
+        dtype == "bfloat16")
+    for layer in grads["rnn"]:
+        for d in layer["dirs"]:
+            assert not _bf16_exact(d["w_h"]) and not _bf16_exact(d["w_x"])
 
 
 @pytest.mark.parametrize("priors,threshold", [(None, 0.98), ("default", 0.5),

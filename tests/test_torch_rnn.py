@@ -179,12 +179,93 @@ def test_init_rnn_params_seeded_and_shaped_like_jax():
                 assert tuple(da[k].shape) == dj[k].shape
 
 
-def test_bilstm_layer_backward_is_not_ported():
-    x = torch.randn((4, 2, D), requires_grad=True)
-    w_x = torch.randn((D, 8 * H)) * 0.1
-    w_h = torch.randn((H, 4 * H)) * 0.1
-    y_f, y_b = rnn_cuda.bilstm_layer(x, w_x, torch.zeros(8 * H), w_h, w_h,
-                                     torch.tensor([4, 3]))
-    assert y_f.shape == y_b.shape == (4, 2, H)
-    with pytest.raises(NotImplementedError, match="K3"):
-        (y_f.sum() + y_b.sum()).backward()
+def _bwd_inputs(h, dtype, seed):
+    """One layer's forward run by the JAX package's Pallas K2 in
+    interpret mode, and seeded output cotangents: the operands of K3."""
+    jdt, _, _ = _DT[dtype]
+    xp, w_f, w_b = _bilstm_inputs(T, B, h, seed)
+    rng = np.random.default_rng(seed + 1)
+    dy_f, dy_b = (rng.standard_normal((T, B, h)).astype(np.float32)
+                  for _ in range(2))
+    jx = [jnp.asarray(a, jdt) for a in (xp, w_f, w_b)]
+    y_f, c_f, y_b, c_b = rnn_pallas._bilstm_seq_fwd(
+        jx[0], jx[1], jx[2], jnp.asarray(LENS), interpret=True)
+    return (jnp.asarray(dy_f, jdt), jnp.asarray(dy_b, jdt), jx[0], y_f, c_f,
+            y_b, c_b, jx[1], jx[2], jnp.asarray(LENS))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("h", [16, 128])
+def test_bilstm_seq_bwd_dgates_reference_matches_pallas_interpret(dtype, h):
+    """K3's plain version (what its wrapper runs on a CPU tensor) against
+    ``_bilstm_seq_bwd_dgates`` in interpret mode, with short rows."""
+    args = _bwd_inputs(h, dtype, seed=h + 3)
+    ref = rnn_pallas._bilstm_seq_bwd_dgates(*args, interpret=True)
+    targs = [torch.as_tensor(np.array(_np(a))).to(
+        torch.bfloat16 if a.dtype == jnp.bfloat16 else torch.float32)
+        for a in args[:-1]] + [torch.as_tensor(LENS)]
+    before = rnn_cuda.bilstm_seq_bwd_dgates.launches
+    got = rnn_cuda.bilstm_seq_bwd_dgates(*targs)
+    for name, g, r in zip(("dg_f", "dg_b"), got, ref):
+        assert str(g.dtype).split(".")[-1] == str(r.dtype), name
+        np.testing.assert_allclose(g.float().numpy(), _np(r), rtol=0,
+                                   atol=_DT[dtype][2], err_msg=name)
+        for row, n in enumerate(LENS):          # zero at pad frames
+            assert not g[n:, row].any(), name
+    assert rnn_cuda.bilstm_seq_bwd_dgates.launches == before  # CPU: plain
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("h", [16, 128])
+def test_bilstm_layer_grads_match_jax_vjp(dtype, h):
+    """``bilstm_layer``'s five gradients and their dtypes against
+    ``jax.vjp`` of ``rnn_pallas.bilstm_layer(..., interpret=True)`` under
+    one shared cotangent.  bf16: the layer stores y and dgates in bf16,
+    so the gradients move by about a bf16 ulp of their largest entries
+    (up to ~6 here: 6 * 2^-8 = 0.023 > BF16_TOL only past the largest)."""
+    jdt, tdt, _ = _DT[dtype]
+    rng = np.random.default_rng(h)
+    x = rng.standard_normal((T, B, D)).astype(np.float32)
+    w_x = (rng.standard_normal((D, 8 * h)) / np.sqrt(D)).astype(np.float32)
+    bias = (rng.standard_normal(8 * h) * 0.2).astype(np.float32)
+    w_f, w_b = ((rng.standard_normal((h, 4 * h)) / np.sqrt(h)).astype(
+        np.float32) for _ in range(2))
+    dy_f, dy_b = (rng.standard_normal((T, B, h)).astype(np.float32)
+                  for _ in range(2))
+    primals = (x, w_x, bias, w_f, w_b)
+
+    def layer(*p):
+        return rnn_pallas.bilstm_layer(*p, jnp.asarray(LENS), True, dtype)
+
+    _, vjp = jax.vjp(layer, *map(jnp.asarray, primals))
+    ref = vjp((jnp.asarray(dy_f, jdt), jnp.asarray(dy_b, jdt)))
+    leaves = [torch.tensor(a, requires_grad=True) for a in primals]
+    y_f, y_b = rnn_cuda.bilstm_layer(*leaves, torch.as_tensor(LENS), dtype)
+    assert y_f.dtype == y_b.dtype == tdt
+    torch.autograd.backward([y_f, y_b], [torch.as_tensor(dy_f).to(tdt),
+                                         torch.as_tensor(dy_b).to(tdt)])
+    for name, leaf, r in zip(("dx", "dw_x", "dbias", "dw_h_f", "dw_h_b"),
+                             leaves, ref):
+        g = leaf.grad
+        assert str(g.dtype).split(".")[-1] == str(r.dtype), name
+        assert g.shape == r.shape, name
+        np.testing.assert_allclose(g.numpy(), _np(r), rtol=0,
+                                   atol=_DT[dtype][2], err_msg=name)
+
+
+def test_bilstm_layer_bf16_grads_of_a_bf16_input():
+    """A layer above the first gets its input in bf16: dx comes back in
+    x's dtype, the weight gradients in f32 (the master dtype)."""
+    rng = np.random.default_rng(5)
+    x = torch.as_tensor(rng.standard_normal((T, B, 2 * H)).astype(
+        np.float32)).to(torch.bfloat16).requires_grad_(True)
+    w = [torch.tensor((rng.standard_normal(s) * 0.1).astype(np.float32),
+                      requires_grad=True)
+         for s in ((2 * H, 8 * H), (8 * H,), (H, 4 * H), (H, 4 * H))]
+    y_f, y_b = rnn_cuda.bilstm_layer(x, *w, torch.as_tensor(LENS),
+                                     "bfloat16")
+    (y_f.float().sum() + y_b.float().sum()).backward()
+    assert x.grad.dtype == torch.bfloat16
+    assert all(p.grad.dtype == torch.float32 for p in w)
+    for row, n in enumerate(LENS):            # no gradient from pad frames
+        assert not x.grad[n:, row].any()

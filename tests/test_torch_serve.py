@@ -198,6 +198,8 @@ def test_port_imports_without_jax(tmp_path):
         "import kaldi_ctc_tpu_torch.training.checkpoint\n"
         "import kaldi_ctc_tpu_torch.decoding.scores\n"
         "import kaldi_ctc_tpu_torch.ops.rnn_cuda\n"
+        "import kaldi_ctc_tpu_torch.ops.ctc, kaldi_ctc_tpu_torch.ops.ctc_cuda\n"
+        "import kaldi_ctc_tpu_torch.training.train\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'kaldi_ctc_tpu')]\n"
         "assert not bad, bad\n"
