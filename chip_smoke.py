@@ -3,14 +3,14 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from ``kaldi_ctc_tpu_torch/csrc`` (one nvcc
-per source, all started together) and drives the serving path and the
-training step once each at the full width of the flagship model.  Each
-phase prints one JSON line; any failed phase exits non-zero with no
-result line:
+per source, all started together) and drives the serving path, the
+streaming path and the training step at the full width of the flagship
+model and of its unidirectional variant.  Each phase prints one JSON
+line; any failed phase exits non-zero with no result line:
 
 1. device: the card's name and power limit (nvidia-smi), torch and CUDA
    versions;
-2. build: the four kernel sources compiled by nvcc for sm_90a, timed;
+2. build: the seven kernel sources compiled by nvcc for sm_90a, timed;
 3. k4_log_mel: the log-mel kernel against its plain version on 8 s of
    16 kHz audio (798 frames, MFCC-hires mel bank): max error, median ms;
 4. k2_bilstm: the BiLSTM forward kernel against its plain version at
@@ -40,14 +40,37 @@ result line:
    torch.profiler (device time by kernel, K1/K2/K3 shares, idle share);
 9. profile: one 8 s request per dtype under torch.profiler: device time
    by kernel, K2's and K4's shares, the device's idle share of the traced
-   request's wall time, and the untraced wall beside it.
+   request's wall time, and the untraced wall beside it;
+10. k5_lstm: the unidirectional LSTM forward kernel against its plain
+   version at T=800, B=1 and B=8, T=240, B=48, and one reverse case,
+   H=320, f32 and bf16;
+11. k6_lstm_bwd: its backward at T=240, B=48, H=320, ragged lengths;
+12. k7_lstm_stack: the wavefront stack kernel at L=5, H=320, T=20, B=8
+   with carries from a previous chunk, ragged lengths and an idle slot
+   (y, h_fin, c_fin against the plain version), then one 8 s utterance
+   streamed in 20-frame chunks through it against K5's offline forward;
+13. serve_uni: the unidirectional 5x320 (random weights from a seed)
+   served per dtype: 4 /recognize requests (K5 5x and K4 >= 1x each),
+   then 8 concurrent streams of 2-4 s in 0.2 s chunks through
+   /stream/start|chunk|end (K7 once per engine tick), /healthz, chunk
+   latency median and p90, and the chunk function's scores against the
+   plain versions on the card and against the offline K5 forward;
+14. train_uni: the train phase for the unidirectional 5x320 (K5 5x, K6
+   5x, K1 once per step; eval K5 5x, K11 once);
+15. profile_stream: one 8-slot tick per dtype under torch.profiler: K7's
+   share of device time and the device's idle share.
 
 Then a line ``{"kernels": [...]}`` with each kernel's launches during the
-driven paths (serve, train, eval, the separate CTC path; counts set to 0
-before each and read after it), its error and its time beside the plain
-version's; the card's ``nvidia-smi`` name and power limit; and, last,
-``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
-Exits non-zero without a CUDA device, and when run outside the repository.
+driven paths (serve, train, eval, the separate CTC path, serve_uni with
+its streams, train_uni; counts set to 0 before each and read after it),
+its error, its time beside the plain version's, its bound (the larger of
+its bytes over 3.35 TB/s and its operations over the peak rate of its
+type: 67 TFLOP/s f32, 989 TFLOP/s bf16, H100 SXM data sheet) and the
+time of one PyTorch library call computing the same function (null where
+there is none); the card's ``nvidia-smi`` name and power limit; and,
+last, ``{"ok": true, "device": {"platform": "gpu", "kind": ...,
+"count": ...}}``.  Exits non-zero without a CUDA device, and when run
+outside the repository.
 """
 
 import concurrent.futures
@@ -89,8 +112,15 @@ TRAIN_TOL = {"float32": (1e-5, 1e-4, 1e-6), "bfloat16": (2e-3, 2e-2, 1e-4)}
 TRAIN_B, TRAIN_T, TRAIN_L = 48, 240, 70
 SECONDS_PER_FRAME = 0.03
 TRAIN_STEPS_PER_CALL, TRAIN_TIMED_CALLS = 3, 5
+# the streaming server: slots and frames per tick (serve.py's defaults)
+STREAMS, CHUNK_FRAMES = 8, 20
 KERNELS = ("log_mel", "bilstm_fwd", "bilstm_bwd", "ctc_alpha_beta",
-           "ctc_alphas", "ctc_betas")
+           "ctc_alphas", "ctc_betas", "lstm_fwd", "lstm_bwd", "lstm_stack")
+DTYPES = ("float32", "bfloat16")
+# H100 SXM published peaks (NVIDIA data sheet): HBM bytes/s, f32 and bf16
+# FLOP/s; the bound of a kernel is the larger of its two times
+HBM_BYTES_PER_S = 3.35e12
+PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
 
 
 def emit(obj):
@@ -125,6 +155,49 @@ def max_err(got, ref, rtol, atol):
     return float(d.max()) if d.numel() else 0.0, ok
 
 
+def nbytes(*tensors):
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def bound(n_bytes, ops, dtype):
+    """The least time the card could take: {bound_ms, bound_by} from the
+    bytes moved (each input read once, each output written once) and the
+    operations done, at the peak rate of ``dtype``."""
+    t_bytes = n_bytes / HBM_BYTES_PER_S
+    t_ops = ops / PEAK_FLOPS[dtype]
+    return {"bound_ms": max(t_bytes, t_ops) * 1e3,
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def lstm_ops(lens, h, products):
+    """FLOPs of ``products`` [B, H] x [H, 4H] products per valid frame."""
+    return 2.0 * products * int(lens.sum()) * h * 4 * h
+
+
+def library_lstm_ms(torch, dev, dtype, t, b, d_in, h, num_layers=1,
+                    bidirectional=False, backward=False, state=False):
+    """Median ms of cuDNN's torch.nn.LSTM (TF32 off) on the same shapes:
+    forward, or the backward of one forward (input and weight
+    gradients)."""
+    lstm = torch.nn.LSTM(d_in, h, num_layers=num_layers,
+                         bidirectional=bidirectional).to(dev, dtype)
+    x = torch.randn(t, b, d_in, device=dev, dtype=dtype,
+                    requires_grad=backward)
+    hc = None
+    if state:
+        n = num_layers * (2 if bidirectional else 1)
+        hc = tuple(torch.randn(n, b, h, device=dev, dtype=dtype)
+                   for _ in range(2))
+    if not backward:
+        with torch.no_grad():
+            return median_ms(lambda: lstm(x, hc), 10, torch)
+    y, _ = lstm(x, hc)
+    dy = torch.randn_like(y)
+    leaves = [x] + list(lstm.parameters())
+    return median_ms(lambda: torch.autograd.grad(
+        y, leaves, dy, retain_graph=True), 10, torch)
+
+
 def wrappers():
     """Each kernel's wrapper function, by kernel name (the functions
     carry the launch counters)."""
@@ -135,7 +208,10 @@ def wrappers():
             "bilstm_bwd": rnn_cuda.bilstm_seq_bwd_dgates,
             "ctc_alpha_beta": ctc_cuda.alpha_beta,
             "ctc_alphas": ctc_cuda.forward_alphas,
-            "ctc_betas": ctc_cuda.backward_betas}
+            "ctc_betas": ctc_cuda.backward_betas,
+            "lstm_fwd": rnn_cuda.lstm_seq_fwd,
+            "lstm_bwd": rnn_cuda.lstm_seq_bwd_dgates,
+            "lstm_stack": rnn_cuda.lstm_stack_fwd}
 
 
 def reset_counts():
@@ -159,7 +235,11 @@ def plain_versions():
               rnn_cuda.bilstm_seq_bwd_dgates_reference),
              (ctc_cuda, "alpha_beta", ctc_cuda.alpha_beta_reference),
              (ctc_cuda, "forward_alphas", ctc_cuda.forward_alphas_reference),
-             (ctc_cuda, "backward_betas", ctc_cuda.backward_betas_reference)]
+             (ctc_cuda, "backward_betas", ctc_cuda.backward_betas_reference),
+             (rnn_cuda, "lstm_seq_fwd", rnn_cuda.lstm_seq_fwd_reference),
+             (rnn_cuda, "lstm_seq_bwd_dgates",
+              rnn_cuda.lstm_seq_bwd_dgates_reference),
+             (rnn_cuda, "lstm_stack_fwd", rnn_cuda.lstm_stack_fwd_reference)]
     saved = [(mod, name, getattr(mod, name)) for mod, name, _ in swaps]
     for mod, name, plain in swaps:
         setattr(mod, name, plain)
@@ -193,7 +273,8 @@ def phase_device(torch):
 def phase_build():
     """One nvcc per kernel source, all started together."""
     from kaldi_ctc_tpu_torch import _kernels
-    names = ("log_mel", "bilstm_fwd", "bilstm_bwd", "ctc_alpha_beta")
+    names = ("log_mel", "bilstm_fwd", "bilstm_bwd", "ctc_alpha_beta",
+             "lstm_fwd", "lstm_bwd", "lstm_stack")
 
     def build(name):
         t0 = time.perf_counter()
@@ -229,13 +310,24 @@ def phase_k4(torch, np, dev):
     ms = median_ms(lambda: stft_cuda.log_mel(*args), 20, torch)
     plain_ms = median_ms(lambda: stft_cuda.log_mel_reference(*args), 20,
                          torch)
-    res = {"phase": "k4_log_mel", "frames": int(frames.shape[0]),
+    # the kernel's inputs include the DFT tables it sums against; its
+    # work is that direct DFT (2 x L x K MACs per frame) and the mel sum
+    n_frames, length = frames.shape
+    m_bins, k_bins = mel.shape
+    tables = stft_cuda._device_tables(length, fo.padded_window_size, k_bins,
+                                      frames.device)
+    b = bound(nbytes(frames, window, mel, *tables, *got),
+              n_frames * (4.0 * length * k_bins + 2.0 * m_bins * k_bins),
+              "float32")
+    res = {"phase": "k4_log_mel", "frames": int(n_frames),
            "max_abs_err_logmel": err_m, "max_abs_err_energy": err_e,
-           "tol": K4_TOL, "ms": ms, "plain_ms": plain_ms}
+           "tol": K4_TOL, "ms": ms, "plain_ms": plain_ms, **b,
+           "library_ms": None}
     emit(res)
-    if not (ok_m and ok_e) or frames.shape[0] != 798:
+    if not (ok_m and ok_e) or n_frames != 798:
         fail(f"K4 log_mel disagrees with its plain version: {res}")
-    return {"max_abs_err": max(err_m, err_e), "ms": ms, "plain_ms": plain_ms}
+    return {"max_abs_err": max(err_m, err_e), "ms": ms, "plain_ms": plain_ms,
+            **b, "library_ms": None}
 
 
 def phase_k2(torch, np, dev):
@@ -268,7 +360,19 @@ def phase_k2(torch, np, dev):
                                    10, torch),
                    "plain_ms": median_ms(
                        lambda: rnn_cuda.bilstm_seq_fwd_reference(*args), 3,
-                       torch)}
+                       torch),
+                   **bound(nbytes(*args, *got),
+                           lstm_ops(args[3], h, 2), dtype_name)}
+            if b == TRAIN_B:
+                # cuDNN's layer includes the input projection (a layer
+                # above the first: 2H inputs), so the kernel's own
+                # projection GEMM stands beside it
+                row["library_ms"] = library_lstm_ms(
+                    torch, dev, dtype, t_max, b, 2 * h, h,
+                    bidirectional=True)
+                row["projection_plus_kernel_ms"] = projection_plus_kernel_ms(
+                    torch, dev, dtype, t_max, b, 2 * h, 8 * h,
+                    lambda p: rnn_cuda.bilstm_seq_fwd(p, *args[1:]))
             rows.append(row)
             emit({"phase": "k2_bilstm", **row})
             if not all(ok for _, ok in errs):
@@ -277,8 +381,29 @@ def phase_k2(torch, np, dev):
     # the kernels line reports the training shape in bf16
     train_row = next(r for r in rows
                      if r["dtype"] == "bfloat16" and r["B"] == TRAIN_B)
+    return kernel_row(rows, train_row)
+
+
+def kernel_row(rows, row):
+    """The kernels line's entry from a phase's rows: the largest error
+    of all, the times, bound and library time of one row."""
     return {"max_abs_err": max(r["max_abs_err"] for r in rows),
-            "ms": train_row["ms"], "plain_ms": train_row["plain_ms"]}
+            **{k: row[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                   "library_ms")}}
+
+
+def projection_plus_kernel_ms(torch, dev, dtype, t, b, d_in, g, kernel):
+    """Median ms of the hoisted projection (f32-accumulated GEMM plus
+    bias, stored in the compute dtype) followed by ``kernel`` on it: the
+    work of one cuDNN layer call."""
+    from kaldi_ctc_tpu_torch.ops.rnn import matmul_f32acc
+    x = torch.randn(t * b, d_in, device=dev)
+    w = torch.randn(d_in, g, device=dev) * d_in ** -0.5
+    bias = torch.zeros(g, device=dev)
+
+    def run():
+        kernel((matmul_f32acc(x, w, dtype) + bias).to(dtype).reshape(t, b, g))
+    return median_ms(run, 10, torch)
 
 
 def ctc_batch(np, seed):
@@ -336,6 +461,36 @@ def phase_k1(torch, np, dev):
     with plain_versions():
         ref_loss, ref_grad = ctc.ctc_loss_and_grad(
             logits, labels, input_lens, label_lens)
+    # each kernel's inputs and outputs, and ~10 f32 operations (a
+    # log-add of up to three terms) per lattice state and step of each
+    # recursion it runs
+    cells = float(lp.shape[0] * lp.shape[1] * lp.shape[2]) * 10
+    bounds = {
+        "ctc_alpha_beta": bound(nbytes(lp, skip_ok, skip_down, input_lens,
+                                       label_lens, ref_a, ref_b),
+                                2 * cells, "float32"),
+        "ctc_alphas": bound(nbytes(lp, skip_ok, input_lens, ref_a), cells,
+                            "float32"),
+        "ctc_betas": bound(nbytes(lp, skip_down, input_lens, label_lens,
+                                  ref_b), cells, "float32")}
+    # the library's CTC on the same logits and labels: forward and
+    # backward for the fused kernel, forward alone for the alphas; none
+    # computes the betas alone
+    log_probs = torch.log_softmax(logits, -1).transpose(0, 1).contiguous()
+    ctc_args = (labels, input_lens, label_lens)
+
+    def library_loss(grad):
+        lp_ = log_probs.detach().requires_grad_(grad)
+        loss = torch.nn.functional.ctc_loss(lp_, *ctc_args, blank=0,
+                                            reduction="sum",
+                                            zero_infinity=True)
+        if grad:
+            loss.backward()
+    library = {"ctc_alpha_beta": median_ms(lambda: library_loss(True), 20,
+                                           torch),
+               "ctc_alphas": median_ms(lambda: library_loss(False), 20,
+                                       torch),
+               "ctc_betas": None}
     out = {}
     for name, (kern, plain, refs) in runs.items():
         got = kern()
@@ -354,14 +509,15 @@ def phase_k1(torch, np, dev):
                "grad_tol": CTC_GRAD_TOL,
                "infeasible_rows_loss": [float(v) for v in loss[13:15]],
                "ms": median_ms(kern, 20, torch),
-               "plain_ms": median_ms(plain, 3, torch)}
+               "plain_ms": median_ms(plain, 3, torch), **bounds[name],
+               "library_ms": library[name]}
         emit({"phase": "k1_ctc", **row})
         if not (all(ok for _, ok in errs) and e_loss[1] and e_grad[1]):
             fail(f"{name} disagrees with its plain version: {row}")
         if any(row["infeasible_rows_loss"]) or grad[13:15].abs().max() > 0:
             fail(f"infeasible rows not masked: {row}")
-        out[name] = {"max_abs_err": max(e for e, _ in errs),
-                     "ms": row["ms"], "plain_ms": row["plain_ms"]}
+        out[name] = kernel_row([{"max_abs_err": max(e for e, _ in errs)}],
+                               row)
     # the separate path: a user's ctc_loss_and_grad(implementation=
     # "separate") at bench shapes, counts from this call alone
     reset_counts()
@@ -409,15 +565,207 @@ def phase_k3(torch, np, dev):
                                10, torch),
                "plain_ms": median_ms(
                    lambda: rnn_cuda.bilstm_seq_bwd_dgates_reference(*args),
-                   3, torch)}
+                   3, torch),
+               # the gate recompute and the dh product, per direction
+               **bound(nbytes(*args, *got), lstm_ops(lens, h, 4),
+                       dtype_name),
+               "library_ms": library_lstm_ms(
+                   torch, dev, dtype, t_max, b, 2 * h, h,
+                   bidirectional=True, backward=True)}
         rows.append(row)
         emit({"phase": "k3_bilstm_bwd", **row})
         if not all(ok for _, ok in errs):
             fail(f"K3 bilstm_seq_bwd_dgates disagrees with its plain "
                  f"version: {row}")
-    bf16 = rows[1]
-    return {"max_abs_err": max(r["max_abs_err"] for r in rows),
-            "ms": bf16["ms"], "plain_ms": bf16["plain_ms"]}
+    return kernel_row(rows, rows[1])     # bf16
+
+
+def uni_inputs(torch, np, dev, t_max, b, h, dtype, seed):
+    """Seeded K5 operands: x_proj, w_h, lengths (row 0 full, the rest
+    ragged from T/2 up)."""
+    rng = np.random.default_rng(seed)
+    xp = torch.as_tensor(rng.standard_normal((t_max, b, 4 * h))
+                         .astype(np.float32) * 0.5, device=dev).to(dtype)
+    w = torch.as_tensor((rng.standard_normal((h, 4 * h)) / np.sqrt(h))
+                        .astype(np.float32), device=dev).to(dtype)
+    lens = np.full(b, t_max, np.int32)
+    lens[1:] = rng.integers(t_max // 2, t_max + 1, size=b - 1)
+    return xp, w, torch.as_tensor(lens, device=dev)
+
+
+def phase_k5(torch, np, dev):
+    from kaldi_ctc_tpu_torch.ops import rnn_cuda
+    h = 320
+    rows = []
+    for dtype_name in DTYPES:
+        dtype = getattr(torch, dtype_name)
+        # serving (T=800, B=1 and 8; one reverse direction) and training
+        # (T=240, B=48) shapes
+        for t_max, b, reverse in ((800, 1, False), (800, 8, False),
+                                  (800, 1, True), (TRAIN_T, TRAIN_B, False)):
+            xp, w, lens = uni_inputs(torch, np, dev, t_max, b, h, dtype, b)
+            args = (xp, w, lens, reverse)
+            got = rnn_cuda.lstm_seq_fwd(*args)
+            ref = rnn_cuda.lstm_seq_fwd_reference(*args)
+            torch.cuda.synchronize()
+            errs = [max_err(g, r, 0.0, K2_TOL[dtype_name])
+                    for g, r in zip(got, ref)]
+            row = {"dtype": dtype_name, "T": t_max, "B": b, "H": h,
+                   "reverse": reverse,
+                   "max_abs_err": max(e for e, _ in errs),
+                   "tol": K2_TOL[dtype_name],
+                   "ms": median_ms(lambda: rnn_cuda.lstm_seq_fwd(*args), 10,
+                                   torch),
+                   "plain_ms": median_ms(
+                       lambda: rnn_cuda.lstm_seq_fwd_reference(*args), 3,
+                       torch),
+                   **bound(nbytes(xp, w, lens, *got), lstm_ops(lens, h, 1),
+                           dtype_name), "library_ms": None}
+            if b == TRAIN_B:
+                row["library_ms"] = library_lstm_ms(torch, dev, dtype, t_max,
+                                                    b, h, h)
+                row["projection_plus_kernel_ms"] = projection_plus_kernel_ms(
+                    torch, dev, dtype, t_max, b, h, 4 * h,
+                    lambda p: rnn_cuda.lstm_seq_fwd(p, w, lens))
+            rows.append(row)
+            emit({"phase": "k5_lstm", **row})
+            if not all(ok for _, ok in errs):
+                fail(f"K5 lstm_seq_fwd disagrees with its plain version: "
+                     f"{row}")
+    return kernel_row(rows, next(r for r in rows if r["dtype"] == "bfloat16"
+                                 and r["B"] == TRAIN_B))
+
+
+def phase_k6(torch, np, dev):
+    from kaldi_ctc_tpu_torch.ops import rnn_cuda
+    t_max, b, h = TRAIN_T, TRAIN_B, 320
+    rows = []
+    for dtype_name in DTYPES:
+        dtype = getattr(torch, dtype_name)
+        xp, w, lens = uni_inputs(torch, np, dev, t_max, b, h, dtype, 6)
+        y, c_seq = rnn_cuda.lstm_seq_fwd(xp, w, lens)
+        dy = torch.as_tensor(np.random.default_rng(7).standard_normal(
+            (t_max, b, h)).astype(np.float32), device=dev).to(dtype)
+        args = (dy, xp, y, c_seq, w, lens)
+        got = rnn_cuda.lstm_seq_bwd_dgates(*args)
+        ref = rnn_cuda.lstm_seq_bwd_dgates_reference(*args)
+        torch.cuda.synchronize()
+        err, ok = max_err(got, ref, 0.0, K3_TOL[dtype_name])
+        row = {"dtype": dtype_name, "T": t_max, "B": b, "H": h,
+               "max_abs_err": err, "max_abs_ref": float(ref.float().abs()
+                                                        .max()),
+               "tol": K3_TOL[dtype_name],
+               "ms": median_ms(lambda: rnn_cuda.lstm_seq_bwd_dgates(*args),
+                               10, torch),
+               "plain_ms": median_ms(
+                   lambda: rnn_cuda.lstm_seq_bwd_dgates_reference(*args), 3,
+                   torch),
+               # the gate recompute and the dh product
+               **bound(nbytes(*args, got), lstm_ops(lens, h, 2), dtype_name),
+               "library_ms": library_lstm_ms(torch, dev, dtype, t_max, b, h,
+                                             h, backward=True)}
+        rows.append(row)
+        emit({"phase": "k6_lstm_bwd", **row})
+        if not ok:
+            fail(f"K6 lstm_seq_bwd_dgates disagrees with its plain version: "
+                 f"{row}")
+    return kernel_row(rows, rows[1])     # bf16
+
+
+def uni_model(torch, dtype, dev):
+    """The unidirectional 5x320 streaming flagship (bench.py's
+    ``dataclasses.replace(_flagship_cfg(), bidirectional=False)``),
+    random weights from seed 0."""
+    from kaldi_ctc_tpu_torch.models.acoustic import AmConfig, init_am_params
+    cfg = AmConfig(input_dim=40, num_targets=72, hidden_dim=320,
+                   num_layers=5, bidirectional=False, compute_dtype=dtype)
+    return cfg, init_am_params(cfg, torch.Generator().manual_seed(0), dev)
+
+
+def phase_k7(torch, np, dev):
+    """K7 at the streaming shapes against its plain version, then an
+    8 s utterance streamed through it against K5's offline forward."""
+    from kaldi_ctc_tpu_torch.features import MfccOptions, compute_mfcc
+    from kaldi_ctc_tpu_torch.ops import rnn_cuda
+    from kaldi_ctc_tpu_torch.ops.rnn import (init_stream_state, rnn_forward,
+                                             rnn_forward_stream)
+    n_layers, h, t_max, b = 5, 320, CHUNK_FRAMES, STREAMS
+    rows = []
+    feats = compute_mfcc(torch.as_tensor(pcm(8.0, 21, np).astype(np.float32),
+                                         device=dev), MfccOptions.hires())
+    for dtype_name in DTYPES:
+        dtype = getattr(torch, dtype_name)
+        rng = np.random.default_rng(8)
+
+        def mat(*shape, scale=1.0):
+            return torch.as_tensor((rng.standard_normal(shape) * scale)
+                                   .astype(np.float32), device=dev)
+
+        whs = [mat(h, 4 * h, scale=h ** -0.5).to(dtype)
+               for _ in range(n_layers)]
+        wxs = [mat(h, 4 * h, scale=h ** -0.5).to(dtype)
+               for _ in range(n_layers - 1)]
+        bs = [mat(4 * h, scale=0.2) for _ in range(n_layers - 1)]
+        # the carries of a previous full chunk, then a chunk with short,
+        # nearly empty and idle slots
+        full = torch.full((b,), t_max, dtype=torch.int32, device=dev)
+        _, h0, c0 = rnn_cuda.lstm_stack_fwd(
+            mat(t_max, b, 4 * h, scale=0.5).to(dtype), wxs, whs, bs, full)
+        lens = torch.tensor([20, 20, 13, 0, 20, 7, 20, 1][:b],
+                            dtype=torch.int32, device=dev)
+        args = (mat(t_max, b, 4 * h, scale=0.5).to(dtype), wxs, whs, bs,
+                lens, h0, c0)
+        got = rnn_cuda.lstm_stack_fwd(*args)
+        ref = rnn_cuda.lstm_stack_fwd_reference(*args)
+        torch.cuda.synchronize()
+        errs = [max_err(g, r, 0.0, K2_TOL[dtype_name])
+                for g, r in zip(got, ref)]
+        idle_kept = bool(torch.equal(got[1][:, 3], h0[:, 3])
+                         and torch.equal(got[2][:, 3], c0[:, 3]))
+
+        # 8 s of MFCC-hires features in 20-frame chunks through K7 (B=1)
+        # against K5's offline per-layer forward of the same features
+        cfg, params = uni_model(torch, dtype_name, dev)
+        x = feats[:, None, :]
+        with torch.inference_mode():
+            offline = rnn_forward(params["rnn"], x, cfg.rnn)
+            states = init_stream_state(cfg.rnn, 1, dev)
+            k7_before = rnn_cuda.lstm_stack_fwd.launches
+            chunks = []
+            for lo in range(0, x.shape[0], t_max):
+                y, states = rnn_forward_stream(params["rnn"],
+                                               x[lo:lo + t_max], cfg.rnn,
+                                               states)
+                chunks.append(y)
+            streamed = torch.cat(chunks)
+        n_chunks = rnn_cuda.lstm_stack_fwd.launches - k7_before
+        stream_err, stream_ok = max_err(streamed, offline, 0.0,
+                                        K2_TOL[dtype_name])
+        row = {"dtype": dtype_name, "L": n_layers, "T": t_max, "B": b,
+               "H": h, "lens": lens.tolist(),
+               "max_abs_err": max(e for e, _ in errs),
+               "tol": K2_TOL[dtype_name], "idle_slot_state_kept": idle_kept,
+               "ms": median_ms(lambda: rnn_cuda.lstm_stack_fwd(*args), 20,
+                               torch),
+               "plain_ms": median_ms(
+                   lambda: rnn_cuda.lstm_stack_fwd_reference(*args), 3,
+                   torch),
+               # layer 0's recurrent product, and both products of the
+               # layers above, per valid frame
+               **bound(nbytes(args[0], *wxs, *whs, *bs, lens, h0, c0, *got),
+                       lstm_ops(lens, h, 2 * n_layers - 1), dtype_name),
+               "library_ms": library_lstm_ms(torch, dev, dtype, t_max, b, 40,
+                                             h, num_layers=n_layers,
+                                             state=True),
+               "utterance_frames": int(x.shape[0]),
+               "utterance_chunks": n_chunks,
+               "max_abs_err_stream_vs_offline_k5": stream_err}
+        rows.append(row)
+        emit({"phase": "k7_lstm_stack", **row})
+        if not (all(ok for _, ok in errs) and idle_kept and stream_ok
+                and n_chunks == -(-x.shape[0] // t_max)):
+            fail(f"K7 lstm_stack_fwd disagrees: {row}")
+    return kernel_row(rows, rows[1])     # bf16
 
 
 def post(port, path, body):
@@ -521,6 +869,232 @@ def phase_serve(torch, np):
     return launches, engines
 
 
+def get(port, path):
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=60)
+    conn.request("GET", path)
+    resp = conn.getresponse()
+    data = json.loads(resp.read().decode())
+    conn.close()
+    return resp.status, data
+
+
+def run_stream(port, audio, barrier, chunk_samples):
+    """One client streaming ``audio`` through /stream/start|chunk|end →
+    (labels, chunk latencies in ms)."""
+    barrier.wait()
+    status, start, _ = post(port, "/stream/start", b"")
+    if status != 200:
+        return None, [], f"/stream/start answered {status}"
+    slot, walls = start["slot"], []
+    for lo in range(0, len(audio), chunk_samples):
+        status, _, wall = post(port, f"/stream/{slot}/chunk",
+                               audio[lo:lo + chunk_samples].tobytes())
+        if status != 200:
+            return None, walls, f"chunk answered {status}"
+        walls.append(wall * 1000)
+    status, end, _ = post(port, f"/stream/{slot}/end", b"")
+    if status != 200:
+        return None, walls, f"end answered {status}"
+    return end["labels"], walls, None
+
+
+def stream_scores(torch, np, rec, feats, lens_of):
+    """Per-stream scores of ``feats`` (one [n_i, D] tensor per slot)
+    ticked through the recognizer's chunk function, all slots per tick,
+    from zero state → list of [n_i, A] tensors."""
+    from kaldi_ctc_tpu_torch.ops.rnn import init_stream_state
+    dev = rec.chunk_fn.device
+    n = [int(f.shape[0]) for f in feats]
+    states = init_stream_state(rec._cfg.rnn, len(feats), dev)
+    out = [[] for _ in feats]
+    for lo in range(0, max(n), CHUNK_FRAMES):
+        block = torch.zeros((CHUNK_FRAMES, len(feats), feats[0].shape[1]),
+                            device=dev)
+        lens = [lens_of(k, lo) for k in n]
+        for i, f in enumerate(feats):
+            block[:lens[i], i] = f[lo:lo + lens[i]]
+        scores, states = rec.chunk_fn(
+            block, torch.tensor(lens, dtype=torch.int32, device=dev), states)
+        for i in range(len(feats)):
+            out[i].append(scores[:lens[i], i])
+    return [torch.cat(o) for o in out]
+
+
+def phase_serve_uni(torch, np):
+    """The unidirectional 5x320 served per dtype: /recognize through K5,
+    8 concurrent streams through K7, and the chunk function's scores
+    against the plain versions and the offline forward."""
+    from kaldi_ctc_tpu_torch.cli import serve
+    from kaldi_ctc_tpu_torch.features import stft_cuda
+    from kaldi_ctc_tpu_torch.models.acoustic import am_forward, default_priors
+    from kaldi_ctc_tpu_torch.models.artifact import save_inference_artifact
+    from kaldi_ctc_tpu_torch.ops import rnn_cuda
+
+    out_dir = os.path.join(ROOT, "build", "smoke")
+    os.makedirs(out_dir, exist_ok=True)
+    seconds = (2.0, 4.0, 6.0, 8.0)
+    audio = [pcm(s, 30 + i, np) for i, s in enumerate(seconds)]
+    streams = [pcm(2.0 + 2.0 * i / (STREAMS - 1), 40 + i, np)
+               for i in range(STREAMS)]
+    chunk_samples = 3200                      # 0.2 s at 16 kHz
+    launches = dict.fromkeys(KERNELS, 0)
+    engines = {}
+    for dtype in DTYPES:
+        cfg, params = uni_model(torch, dtype, "cpu")
+        priors = default_priors(cfg.num_targets)
+        path = os.path.join(out_dir, f"uni_{dtype}.npz")
+        save_inference_artifact(path, params, cfg, priors=priors)
+        server, engine = serve.make_server(serve.parse_args(
+            ["--model", path, "--device", "cuda", "--port", "0",
+             "--max-streams", str(STREAMS), "--chunk-frames",
+             str(CHUNK_FRAMES)]))
+        engines[dtype] = engine
+        thread = threading.Thread(target=server.serve_forever, daemon=True)
+        thread.start()
+        port = server.server_address[1]
+        try:
+            # warm-up, not timed: cuBLAS, the allocator, a stream tick
+            status, _, _ = post(port, "/recognize", pcm(1.0, 9, np).tobytes())
+            _, _, err = run_stream(port, pcm(0.5, 8, np),
+                                   threading.Barrier(1), chunk_samples)
+            if status != 200 or err:
+                fail(f"serve_uni warm-up: {status} {err}")
+            health = get(port, "/healthz")
+            if health != (200, {"ok": True, "streaming": True}):
+                fail(f"serve_uni /healthz: {health}")
+            # the main path: counts from the served requests and streams
+            reset_counts()
+            reqs = []
+            for secs, x in zip(seconds, audio):
+                k5_0 = rnn_cuda.lstm_seq_fwd.launches
+                k4_0 = stft_cuda.log_mel.launches
+                status, data, wall = post(port, "/recognize", x.tobytes())
+                k5 = rnn_cuda.lstm_seq_fwd.launches - k5_0
+                k4 = stft_cuda.log_mel.launches - k4_0
+                reqs.append({"seconds": secs, "status": status,
+                             "num_frames": data.get("num_frames"),
+                             "num_labels": len(data.get("labels", [])),
+                             "latency_ms": round(wall * 1000, 3),
+                             "rtf": data.get("rtf"), "k5_launches": k5,
+                             "k4_launches": k4})
+                if status != 200 or data.get("num_frames") != \
+                        1 + (len(x) - 400) // 160:
+                    fail(f"serve_uni /recognize {secs}s: {status} {data}")
+                if k5 != cfg.num_layers or k4 < 1:
+                    fail(f"serve_uni /recognize {secs}s launched K5 {k5}x "
+                         f"(want {cfg.num_layers}) and K4 {k4}x (want >= 1)")
+            ticks0 = engine.stream.ticks
+            k7_0 = rnn_cuda.lstm_stack_fwd.launches
+            barrier = threading.Barrier(STREAMS)
+            t0 = time.perf_counter()
+            with concurrent.futures.ThreadPoolExecutor(STREAMS) as pool:
+                results = list(pool.map(
+                    lambda a: run_stream(port, a, barrier, chunk_samples),
+                    streams))
+            stream_wall = time.perf_counter() - t0
+            ticks = engine.stream.ticks - ticks0
+            k7 = rnn_cuda.lstm_stack_fwd.launches - k7_0
+            for name, n in read_counts().items():
+                launches[name] += n
+        finally:
+            server.shutdown()
+            server.server_close()
+            thread.join(timeout=30)
+        errors = [e for _, _, e in results if e]
+        if errors or k7 != ticks or ticks == 0:
+            fail(f"serve_uni streams: errors {errors}, K7 {k7} launches "
+                 f"for {ticks} ticks")
+        walls = sorted(w for _, ws, _ in results for w in ws)
+        same_labels = sum(
+            int(labels == engine.recognize(a.astype(np.float32))["labels"])
+            for (labels, _, _), a in zip(results, streams))
+
+        # the chunk function's scores: kernels, plain versions on the
+        # card, and the offline K5 forward of the whole utterance
+        feats = [engine.feats_for(a.astype(np.float32)) for a in streams]
+        lens_of = lambda n, lo: max(0, min(CHUNK_FRAMES, n - lo))
+        got = stream_scores(torch, np, engine.stream, feats, lens_of)
+        with plain_versions():
+            plain = stream_scores(torch, np, engine.stream, feats, lens_of)
+        log_priors = torch.log(torch.as_tensor(priors, device=engine.device))
+        err_plain = err_offline = 0.0
+        with torch.inference_mode():
+            for f, g, p_ in zip(feats, got, plain):
+                logits = am_forward(engine.params, f[None], cfg)[0]
+                offline = (torch.log_softmax(logits, -1) - log_priors)
+                if not bool(torch.isfinite(g).all()) or g.shape != \
+                        offline.shape:
+                    fail(f"serve_uni scores not finite or misshapen: "
+                         f"{tuple(g.shape)}")
+                err_plain = max(err_plain, float((g - p_).abs().max()))
+                err_offline = max(err_offline,
+                                  float((g - offline).abs().max()))
+        res = {"phase": "serve_uni", "dtype": dtype,
+               "model": "5x320 LSTM (unidirectional), 40-dim MFCC-hires, "
+                        "72 targets",
+               "requests": reqs, "streams": STREAMS,
+               "stream_seconds": [round(len(a) / 16000, 3)
+                                  for a in streams],
+               "chunk_seconds": chunk_samples / 16000,
+               "chunk_frames": CHUNK_FRAMES, "ticks": ticks,
+               "k7_launches": k7, "chunk_requests": len(walls),
+               "chunk_latency_ms_median": walls[len(walls) // 2],
+               "chunk_latency_ms_p90": walls[int(0.9 * (len(walls) - 1))],
+               "streams_wall_s": round(stream_wall, 3),
+               "streams_equal_to_recognize_labels": same_labels,
+               "max_abs_score_err_vs_plain": err_plain,
+               "max_abs_score_err_vs_offline_k5": err_offline,
+               "score_tol": SCORE_TOL[dtype]}
+        emit(res)
+        if max(err_plain, err_offline) > SCORE_TOL[dtype]:
+            fail(f"streamed scores disagree: {res}")
+    return launches, engines
+
+
+def phase_profile_stream(torch, np, engines):
+    """Where one 8-slot tick's time goes: device time by kernel from
+    torch.profiler against the tick's wall time."""
+    from torch.profiler import DeviceType, ProfilerActivity, profile
+
+    rng = np.random.default_rng(50)
+    chunks = rng.standard_normal((STREAMS, CHUNK_FRAMES, 40)).astype(
+        np.float32)
+    valid = np.full(STREAMS, CHUNK_FRAMES)
+    for dtype, engine in engines.items():
+        rec = engine.stream
+        for _ in range(3):
+            rec.process(chunks, valid)
+        walls = []
+        for _ in range(11):
+            t0 = time.perf_counter()
+            rec.process(chunks, valid)
+            walls.append((time.perf_counter() - t0) * 1000)
+        walls.sort()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            rec.process(chunks, valid)
+            traced_ms = (time.perf_counter() - t0) * 1000
+        kernels = device_kernels(prof, DeviceType)
+        device_ms = sum(k[0] for k in kernels) / 1000
+        k7_ms = sum(k[0] for k in kernels if "::lstm_stack_kernel" in k[2]) \
+            / 1000
+        emit({"phase": "profile_stream", "dtype": dtype, "slots": STREAMS,
+              "chunk_frames": CHUNK_FRAMES,
+              "untraced_tick_ms_median_of_11": round(walls[5], 3),
+              "traced_tick_ms": round(traced_ms, 3),
+              "device_kernel_ms": (round(device_ms, 3) if device_ms
+                                   else "not measured"),
+              "k7_ms": round(k7_ms, 4),
+              "k7_share_of_device": (round(k7_ms / device_ms, 4)
+                                     if device_ms else None),
+              "device_idle_share_of_traced_wall":
+                  (round(1 - device_ms / traced_ms, 4) if device_ms
+                   else "not measured"),
+              "top_kernels": [{"name": k[2][:80], "us": round(k[0], 1),
+                               "count": k[1]} for k in kernels[:8]]})
+
+
 def device_kernels(prof, DeviceType):
     """[(device us, count, name)] of the CUDA kernels in a trace, by
     device time, largest first."""
@@ -535,8 +1109,9 @@ def device_kernels(prof, DeviceType):
     return kernels
 
 
-def phase_train(torch, np, dev):
-    """The flagship training step at bench.py's shapes: parity with the
+def phase_train(torch, np, dev, bidirectional=True):
+    """The flagship training step (or, with ``bidirectional=False``, its
+    unidirectional variant's) at bench.py's shapes: parity with the
     plain versions on the card, launch counts, the eval step, audio-s/s
     and one profiled step, for f32 then bf16."""
     from torch.profiler import DeviceType, ProfilerActivity, profile
@@ -553,11 +1128,13 @@ def phase_train(torch, np, dev):
         "input_lens": np.full((b,), t, np.int32),
         "label_lens": np.full((b,), l, np.int32)}.items()}
     audio_s_per_step = b * t * SECONDS_PER_FRAME
+    fwd, bwd = (("bilstm_fwd", "bilstm_bwd") if bidirectional
+                else ("lstm_fwd", "lstm_bwd"))
     launches = dict.fromkeys(KERNELS, 0)
-    out = {}
-    for dtype in ("float32", "bfloat16"):
+    for dtype in DTYPES:
         cfg = AmConfig(input_dim=40, num_targets=72, hidden_dim=320,
-                       num_layers=5, compute_dtype=dtype)
+                       num_layers=5, bidirectional=bidirectional,
+                       compute_dtype=dtype)
         params = init_am_params(cfg, torch.Generator().manual_seed(0), dev)
         state0 = train.init_train_state(params)
         step = train.build_train_step(cfg, train.TrainOptions())
@@ -572,15 +1149,14 @@ def phase_train(torch, np, dev):
             state, m = step(state, batch)
             after = read_counts()
             per_step = [after[k] - before[k]
-                        for k in ("bilstm_fwd", "bilstm_bwd",
-                                  "ctc_alpha_beta")]
+                        for k in (fwd, bwd, "ctc_alpha_beta")]
             steps.append({"loss_total": float(m["loss_total"]),
                           "grad_norm": float(m["grad_norm"]),
                           "finite": bool(m["finite"]),
-                          "launches_k2_k3_k1": per_step})
+                          f"launches_{fwd}_{bwd}_ctc_alpha_beta": per_step})
             if per_step != [cfg.num_layers, cfg.num_layers, 1]:
-                fail(f"train step {dtype} launched K2, K3, K1 {per_step} "
-                     f"times (want 5, 5, 1)")
+                fail(f"train step {dtype} launched {fwd}, {bwd}, "
+                     f"ctc_alpha_beta {per_step} times (want 5, 5, 1)")
             if not (steps[-1]["finite"]
                     and np.isfinite(steps[-1]["loss_total"])):
                 fail(f"train step {dtype} not finite: {steps[-1]}")
@@ -610,7 +1186,7 @@ def phase_train(torch, np, dev):
         eval_counts = read_counts()
         for name, n in eval_counts.items():
             launches[name] += n
-        if (eval_counts["bilstm_fwd"] != cfg.num_layers
+        if (eval_counts[fwd] != cfg.num_layers
                 or eval_counts["ctc_alphas"] != 1
                 or not np.isfinite(eval_loss)):
             fail(f"eval step {dtype}: launches {eval_counts}, loss "
@@ -641,8 +1217,10 @@ def phase_train(torch, np, dev):
             return round(sum(k[0] for k in kernels if tag in k[2])
                          / 1000 / device_ms, 4) if device_ms else None
 
-        res = {"phase": "train", "dtype": dtype,
-               "model": "5x320 BLSTM, 40-dim input, 72 targets",
+        res = {"phase": "train" if bidirectional else "train_uni",
+               "dtype": dtype,
+               "model": "5x320 %s, 40-dim input, 72 targets"
+                        % ("BLSTM" if bidirectional else "LSTM"),
                "B": b, "T": t, "L": l, "steps": steps, "plain_steps": plain,
                "max_rel_err_loss": loss_rel, "max_rel_err_grad_norm":
                    norm_rel, "max_abs_err_params": param_err,
@@ -661,8 +1239,8 @@ def phase_train(torch, np, dev):
                    (round(1 - device_ms / traced_ms, 4) if device_ms
                     else "not measured"),
                "k1_share_of_device": share("ctc_kernel"),
-               "k2_share_of_device": share("bilstm_fwd_kernel"),
-               "k3_share_of_device": share("bilstm_bwd_kernel"),
+               f"{fwd}_share_of_device": share(f"::{fwd}_kernel"),
+               f"{bwd}_share_of_device": share(f"::{bwd}_kernel"),
                "top_kernels": [{"name": k[2][:80], "us": round(k[0], 1),
                                 "count": k[1]} for k in kernels[:10]]}
         emit(res)
@@ -670,7 +1248,6 @@ def phase_train(torch, np, dev):
             fail(f"train step {dtype} disagrees with the plain versions: "
                  f"loss {loss_rel}, grad norm {norm_rel}, params "
                  f"{param_err}")
-        out[dtype] = res
     return launches
 
 
@@ -735,20 +1312,30 @@ def main():
     ctc_rows, launches = phase_k1(torch, np, dev)
     measured.update(ctc_rows)
     measured["bilstm_bwd"] = phase_k3(torch, np, dev)
+    measured["lstm_fwd"] = phase_k5(torch, np, dev)
+    measured["lstm_bwd"] = phase_k6(torch, np, dev)
+    measured["lstm_stack"] = phase_k7(torch, np, dev)
     served, engines = phase_serve(torch, np)
     trained = phase_train(torch, np, dev)
+    served_uni, uni_engines = phase_serve_uni(torch, np)
+    trained_uni = phase_train(torch, np, dev, bidirectional=False)
     for name in KERNELS:
-        launches[name] += served[name] + trained[name]
+        launches[name] += (served[name] + trained[name] + served_uni[name]
+                           + trained_uni[name])
     if min(launches.values()) < 1:
         fail(f"a kernel of the driven paths never launched: {launches}")
     phase_profile(torch, np, engines)
+    phase_profile_stream(torch, np, uni_engines)
     sources = {"log_mel": ("log_mel.cu", "features/stft_pallas.py:79"),
                "bilstm_fwd": ("bilstm_fwd.cu", "ops/rnn_pallas.py:602"),
                "bilstm_bwd": ("bilstm_bwd.cu", "ops/rnn_pallas.py:747"),
                "ctc_alpha_beta": ("ctc_alpha_beta.cu",
                                   "ops/ctc_pallas.py:149"),
                "ctc_alphas": ("ctc_alpha_beta.cu", "ops/ctc_pallas.py:190"),
-               "ctc_betas": ("ctc_alpha_beta.cu", "ops/ctc_pallas.py:215")}
+               "ctc_betas": ("ctc_alpha_beta.cu", "ops/ctc_pallas.py:215"),
+               "lstm_fwd": ("lstm_fwd.cu", "ops/rnn_pallas.py:455"),
+               "lstm_bwd": ("lstm_bwd.cu", "ops/rnn_pallas.py:531"),
+               "lstm_stack": ("lstm_stack.cu", "ops/rnn_pallas.py:1110")}
     emit({"kernels": [
         {"name": name, "route": "cuda",
          "source": f"kaldi_ctc_tpu_torch/csrc/{sources[name][0]}",

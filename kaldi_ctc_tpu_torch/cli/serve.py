@@ -1,19 +1,24 @@
-"""HTTP serving front-end: full-utterance recognition on PyTorch.
+"""HTTP serving front-end: streaming and full-utterance recognition on
+PyTorch.
 
 Counterpart of ``kaldi_ctc_tpu/cli/serve.py`` with the same endpoints and
-JSON.  One process owns the model on ``--device`` (default ``cuda``);
-/recognize extracts MFCC-hires (or fbank) features on that device, runs
-the acoustic model and the score preparation there, and returns greedy
-labels.
+JSON.  One process owns the model on ``--device`` (default ``cuda``) and,
+for a unidirectional model, a :class:`BatchStreamingRecognizer`: N stream
+slots decoded per chunk of ``--chunk-frames`` frames.  Features are
+extracted on the device (MFCC-hires or fbank), and the acoustic model and
+the score preparation run there.
 
-  POST /recognize   body = WAV or raw s16le PCM
-                    → {"labels": [...], "num_frames": N, "rtf": ...}
-  GET  /healthz     → {"ok": true, "streaming": false}
-  POST /stream/start → 400: streaming is not served by this port yet
-                       (bidirectional models cannot stream at all), so
-                       /stream/<k>/chunk|end answer 404 (unknown slot)
+  POST /recognize            body = WAV or raw s16le PCM
+                             → {"labels": [...], "num_frames": N, "rtf": ...}
+  GET  /healthz              → {"ok": true, "streaming": <unidirectional>}
+  POST /stream/start         → {"slot": k}; 400 for a bidirectional model,
+                               503 when every slot is taken
+  POST /stream/<k>/chunk     body = raw s16le PCM → {"labels": [new...]}
+  POST /stream/<k>/end       → {"labels": [all...], "new": [...]}
+                               (404 for a slot that is not open)
 
-Word output through the WFST decoder (``--graph``) is not ported yet.
+Word output through the WFST decoder (``--graph``) is not ported yet
+(ROADMAP.md item 7).
 
 Run:  python -m kaldi_ctc_tpu_torch.cli.serve --model final.npz \\
           --device cuda --port 8057
@@ -29,6 +34,7 @@ import tempfile
 import threading
 import time
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+from typing import Dict, List, Optional
 
 import numpy as np
 import torch
@@ -58,6 +64,11 @@ def parse_args(argv=None):
     p.add_argument("--use-priors", type=int, default=1)
     p.add_argument("--acoustic-scale", type=float, default=1.0)
     p.add_argument("--blank-threshold", type=float, default=0.98)
+    p.add_argument("--max-streams", type=int, default=8,
+                   help="streaming slot count")
+    p.add_argument("--chunk-frames", type=int, default=20,
+                   help="decode tick size in frames (200 ms at 10 ms "
+                        "shift)")
     return p.parse_args(argv)
 
 
@@ -89,7 +100,8 @@ def resolve_device(name: str) -> torch.device:
 
 
 class Engine:
-    """Owns the model and the feature extractor on one device."""
+    """Owns the model, the feature extractor and the streaming slots on
+    one device."""
 
     def __init__(self, args):
         import dataclasses
@@ -100,7 +112,7 @@ class Engine:
 
         self.args = args
         if args.graph:
-            raise NotImplementedError("WFST word output: slice 2 "
+            raise NotImplementedError("WFST word output: ROADMAP.md item 7 "
                                       "(--graph is not ported yet)")
         self.device = resolve_device(args.device)
         try:
@@ -134,9 +146,23 @@ class Engine:
             if not args.cmvn.endswith(".npy"):
                 raise NotImplementedError(
                     "serve: --cmvn from a Kaldi archive needs utils/kaldi_io "
-                    "(ROADMAP slice 3); pass a .npy [2, D+1] stats array")
+                    "(ROADMAP.md item 8); pass a .npy [2, D+1] stats array")
             self.cmvn_stats = np.load(args.cmvn)
-        self.lock = threading.Lock()
+        # reentrant: ThreadingHTTPServer serves slots concurrently, and
+        # _drain takes the lock inside stream_chunk's
+        self.lock = threading.RLock()
+
+        # streaming (only for unidirectional models)
+        self.stream = None
+        if not self.cfg.bidirectional:
+            from kaldi_ctc_tpu_torch.decoding.streaming import (
+                BatchStreamingRecognizer)
+            self.stream = BatchStreamingRecognizer(
+                self.params, self.cfg, max_streams=args.max_streams,
+                chunk_frames=args.chunk_frames, priors=self.priors,
+                acoustic_scale=args.acoustic_scale, device=self.device)
+        self.slots: Dict[int, dict] = {}
+        self.free: List[int] = list(range(args.max_streams))
 
     # ---- features ----
 
@@ -208,6 +234,105 @@ class Engine:
         out["rtf"] = round((time.time() - t0) / max(dur, 1e-9), 4)
         return out
 
+    # ---- streaming ----
+
+    def stream_start(self) -> Optional[int]:
+        """A free slot, reset (None: the model cannot stream; -1: every
+        slot is taken)."""
+        if self.stream is None:
+            return None
+        with self.lock:
+            if not self.free:
+                return -1
+            slot = self.free.pop(0)
+            self.stream.reset_slot(slot)
+            self.slots[slot] = {"buf": np.zeros(0, np.float32),
+                                "buf_off": 0,
+                                "frames_done": 0,
+                                "ready": [],
+                                "pending": np.zeros(
+                                    (0, self.cfg.input_dim), np.float32)}
+        return slot
+
+    def _new_frames(self, st: dict) -> np.ndarray:
+        """Extract frames completed by the samples buffered so far.
+
+        `buf` holds only un-consumed samples; `buf_off` is the absolute
+        sample index of buf[0], so consumed audio is trimmed and memory
+        stays O(chunk) for arbitrarily long streams.  Each call frames
+        exactly the samples of its new frames, so a stream's features
+        equal the whole utterance's."""
+        n = st["buf_off"] + st["buf"].shape[0]
+        total = 0 if n < self.win else 1 + (n - self.win) // self.shift
+        k = total - st["frames_done"]
+        if k <= 0:
+            return np.zeros((0, self.cfg.input_dim), np.float32)
+        start = st["frames_done"] * self.shift
+        end = (st["frames_done"] + k - 1) * self.shift + self.win
+        f = self.feats_for(st["buf"][start - st["buf_off"]:
+                                     end - st["buf_off"]])[:k].cpu().numpy()
+        st["frames_done"] += f.shape[0]
+        # drop samples no future frame can touch
+        next_start = st["frames_done"] * self.shift
+        if next_start > st["buf_off"]:
+            st["buf"] = st["buf"][next_start - st["buf_off"]:]
+            st["buf_off"] = next_start
+        return f
+
+    def stream_chunk(self, slot: int, samples: np.ndarray) -> List[int]:
+        # the slot buffers and the batched recognizer state are touched
+        # only under the engine lock
+        with self.lock:
+            st = self.slots[slot]
+            st["buf"] = np.concatenate([st["buf"], samples])
+            st["pending"] = np.concatenate([st["pending"],
+                                            self._new_frames(st)])
+            return self._drain(slot)
+
+    def _drain(self, slot: int, flush: bool = False) -> List[int]:
+        """Feed complete chunk_frames ticks.
+
+        Each tick batches EVERY stream with a full chunk pending (plus
+        the driving slot's flush remainder) into ONE process() call, one
+        K7 launch on CUDA.  Labels produced for other slots are queued on
+        their "ready" lists and delivered by their own next request."""
+        cf = self.args.chunk_frames
+        st = self.slots[slot]
+        with self.lock:
+            while st["pending"].shape[0] >= (1 if flush else cf):
+                chunks = np.zeros((self.args.max_streams, cf,
+                                   self.cfg.input_dim), np.float32)
+                valid = np.zeros(self.args.max_streams, np.int64)
+                ticked = []
+                for s, other in self.slots.items():
+                    take = min(cf, other["pending"].shape[0])
+                    if s != slot and take < cf:
+                        continue   # partial chunks only flush themselves
+                    if take == 0:
+                        continue
+                    chunks[s, :take] = other["pending"][:take]
+                    valid[s] = take
+                    other["pending"] = other["pending"][take:]
+                    ticked.append(s)
+                if not ticked:
+                    break
+                out = self.stream.process(chunks, valid)
+                for s in ticked:
+                    self.slots[s]["ready"].extend(out[s])
+                if flush and st["pending"].shape[0] == 0:
+                    break
+            new = st["ready"]
+            st["ready"] = []
+        return new
+
+    def stream_end(self, slot: int) -> dict:
+        with self.lock:
+            new = self._drain(slot, flush=True)
+            labels = self.stream.finalize(slot)
+            del self.slots[slot]
+            self.free.append(slot)
+        return {"labels": labels, "new": new}
+
 
 def make_handler(engine: Engine):
     class Handler(BaseHTTPRequestHandler):
@@ -224,8 +349,8 @@ def make_handler(engine: Engine):
 
         def do_GET(self):
             if self.path == "/healthz":
-                # streaming (unidirectional models only) is not ported
-                self._json(200, {"ok": True, "streaming": False})
+                self._json(200, {"ok": True,
+                                 "streaming": engine.stream is not None})
             else:
                 self._json(404, {"error": "not found"})
 
@@ -243,14 +368,28 @@ def make_handler(engine: Engine):
                     self._json(200, engine.recognize(pcm))
                     return
                 if self.path == "/stream/start":
-                    self._json(400, {"error": (
-                        "streaming needs a unidirectional model"
-                        if engine.cfg.bidirectional else
-                        "streaming is not ported yet (ROADMAP slice 5)")})
+                    slot = engine.stream_start()
+                    if slot is None:
+                        self._json(400, {"error": "streaming needs a "
+                                         "unidirectional model"})
+                    elif slot < 0:
+                        self._json(503, {"error": "no free slots"})
+                    else:
+                        self._json(200, {"slot": slot})
                     return
                 m = re.match(r"^/stream/(\d+)/(chunk|end)$", self.path)
-                if m:   # no slot is ever opened
-                    self._json(404, {"error": f"unknown slot {m.group(1)}"})
+                if m:
+                    slot = int(m.group(1))
+                    if slot not in engine.slots:
+                        self._json(404, {"error": f"unknown slot {slot}"})
+                        return
+                    if m.group(2) == "chunk":
+                        pcm, _ = _pcm_from_body(body,
+                                                engine.args.sample_rate)
+                        self._json(200, {"labels": engine.stream_chunk(
+                            slot, pcm)})
+                    else:
+                        self._json(200, engine.stream_end(slot))
                     return
                 self._json(404, {"error": "not found"})
             except Exception as e:  # noqa: BLE001 — report to client
@@ -275,8 +414,9 @@ def main(argv=None):
     args = parse_args(argv)
     log = get_logger("serve")
     server, engine = make_server(args)
-    log.info("serving on %s:%d (device %s)", args.host,
-             server.server_address[1], engine.device)
+    log.info("serving on %s:%d (device %s, streaming slots: %s)",
+             args.host, server.server_address[1], engine.device,
+             args.max_streams if engine.stream is not None else "n/a")
     try:
         server.serve_forever()
     finally:

@@ -1,1 +1,2 @@
-"""Score preparation for decoding (counterpart of kaldi_ctc_tpu/decoding)."""
+"""Score preparation and streaming recognition (counterpart of
+kaldi_ctc_tpu/decoding)."""

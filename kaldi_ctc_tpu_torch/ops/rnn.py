@@ -20,10 +20,15 @@ tensor-core product, on the CPU and on the card alike.
 
 A bidirectional LSTM goes through :func:`_run_birnn_fused` →
 ``rnn_cuda.bilstm_layer`` (kernels K2 forward and K3 backward on CUDA,
-their plain versions on the CPU).  Every other mode runs the plain per-step loop
-:func:`_run_direction` on the CPU; on CUDA, ReLU and Tanh run that loop
-too (the JAX package has no kernel for them), while unidirectional LSTM,
-GRU and BiGRU raise until their kernels (K5, K9, K8) are ported.
+their plain versions on the CPU), a unidirectional LSTM direction through
+``rnn_cuda.lstm_sequence`` (K5 forward, K6 backward).  ReLU and Tanh run
+the plain per-step loop on every device (the JAX package has no kernel
+for them); GRU and BiGRU run it on the CPU and raise on CUDA until their
+kernels (K9, K8) are ported.
+
+:func:`rnn_forward_stream` is the chunked forward with carried state of
+a unidirectional stack (online recognition); on CUDA an LSTM stack runs
+the wavefront kernel K7.
 """
 
 from __future__ import annotations
@@ -35,7 +40,8 @@ from typing import Any, Dict, List, Optional
 import torch
 
 __all__ = ["RnnMode", "RnnConfig", "COMPUTE_DTYPES", "init_rnn_params",
-           "rnn_param_shapes", "rnn_forward", "matmul_f32acc"]
+           "rnn_param_shapes", "rnn_forward", "matmul_f32acc",
+           "init_stream_state", "rnn_forward_stream"]
 
 
 class RnnMode(enum.IntEnum):
@@ -140,28 +146,18 @@ def _gru_cell(h, x_proj, w_h, cdt):
     return (1.0 - z) * n + z * h
 
 
-def _run_direction(
-    x: torch.Tensor,               # [T, B, D_in]
-    lens: Optional[torch.Tensor],  # [B] or None
-    p: Dict[str, Any],
-    cfg: RnnConfig,
-    reverse: bool,
-) -> torch.Tensor:
-    """Plain per-step loop of one direction → [T, B, H] in the compute
-    dtype (``_run_direction`` of the JAX package)."""
-    t_max, b, _ = x.shape
+def _scan(x_proj: torch.Tensor, valid: torch.Tensor, w_h: torch.Tensor,
+          cfg: RnnConfig, state, reverse: bool = False):
+    """The plain per-step loop of one direction from ``state`` ((h, c) for
+    an LSTM, h otherwise, f32 [B, H]) → (ys [T, B, H] in the compute
+    dtype, final state).  Frames where ``valid`` [T, B, 1] is false carry
+    the state and output zero.  w_h in master precision."""
     cdt = cfg.dtype
-    x_proj = (matmul_f32acc(x.reshape(t_max * b, -1), p["w_x"], cdt)
-              + p["b"]).to(cdt).reshape(t_max, b, -1)
-    if lens is None:
-        lens = torch.full((b,), t_max, dtype=torch.int32, device=x.device)
-    valid = (torch.arange(t_max, device=x.device)[:, None]
-             < lens.to(x.device)[None, :])[..., None]          # [T, B, 1]
-    w_h = p["w_h"].to(cdt).float()
-    h = torch.zeros((b, cfg.hidden_dim), dtype=torch.float32, device=x.device)
-    c = torch.zeros_like(h)
-    ys = [None] * t_max
-    for t in (range(t_max - 1, -1, -1) if reverse else range(t_max)):
+    w_h = w_h.to(cdt).float()
+    h, c = state if cfg.mode == RnnMode.LSTM else (state, None)
+    ys = [None] * x_proj.shape[0]
+    for t in (range(x_proj.shape[0] - 1, -1, -1) if reverse
+              else range(x_proj.shape[0])):
         v = valid[t]
         if cfg.mode == RnnMode.LSTM:
             h_new, c_new = _lstm_cell(h, c, x_proj[t], w_h, cdt)
@@ -174,18 +170,52 @@ def _run_direction(
                         + torch.matmul(h.to(cdt).float(), w_h))
         h = torch.where(v, h_new, h)
         ys[t] = torch.where(v, h_new, 0.0)
-    if t_max == 0:
-        return x_proj.new_zeros((0, b, cfg.hidden_dim))
-    return torch.stack(ys).to(cdt)   # layer output in the compute dtype
+    out = (torch.stack(ys).to(cdt) if ys       # output in the compute dtype
+           else x_proj.new_zeros((0,) + h.shape, dtype=cdt))
+    return out, ((h, c) if cfg.mode == RnnMode.LSTM else h)
+
+
+def _project(x: torch.Tensor, p: Dict[str, Any], cdt) -> torch.Tensor:
+    """The hoisted input projection [T, B, D] → [T, B, G*H]: f32
+    accumulation plus bias, stored in the compute dtype."""
+    t_max, b, _ = x.shape
+    return (matmul_f32acc(x.reshape(t_max * b, -1), p["w_x"], cdt)
+            + p["b"]).to(cdt).reshape(t_max, b, -1)
+
+
+def _valid(t_max: int, lens: torch.Tensor, device) -> torch.Tensor:
+    return (torch.arange(t_max, device=device)[:, None]
+            < lens.to(device)[None, :])[..., None]             # [T, B, 1]
+
+
+def _run_direction(
+    x: torch.Tensor,               # [T, B, D_in]
+    lens: Optional[torch.Tensor],  # [B] or None
+    p: Dict[str, Any],
+    cfg: RnnConfig,
+    reverse: bool,
+) -> torch.Tensor:
+    """One direction → [T, B, H] in the compute dtype (``_run_direction``
+    of the JAX package).  An LSTM goes through ``rnn_cuda.lstm_sequence``
+    on every device, the JAX package's TPU route: K5 forward and K6
+    backward on CUDA, their plain versions on the CPU.  The other modes
+    run the plain per-step loop."""
+    t_max, b, _ = x.shape
+    x_proj = _project(x, p, cfg.dtype)
+    if lens is None:
+        lens = torch.full((b,), t_max, dtype=torch.int32, device=x.device)
+    lens = lens.to(x.device)
+    if cfg.mode == RnnMode.LSTM:
+        from kaldi_ctc_tpu_torch.ops.rnn_cuda import lstm_sequence
+        return lstm_sequence(x_proj, p["w_h"], lens, reverse)
+    h = torch.zeros((b, cfg.hidden_dim), dtype=torch.float32, device=x.device)
+    return _scan(x_proj, _valid(t_max, lens, x.device), p["w_h"], cfg, h,
+                 reverse)[0]
 
 
 def _check_cuda_mode(cfg: RnnConfig) -> None:
     """Modes whose JAX path is a Pallas kernel not yet ported raise on
     CUDA rather than run the plain loop where a kernel belongs."""
-    if cfg.mode == RnnMode.LSTM and not cfg.bidirectional:
-        raise NotImplementedError(
-            "unidirectional LSTM on CUDA needs kernel K5 "
-            "(rnn_pallas.lstm_seq_fwd), not ported yet: see ROADMAP.md")
     if cfg.mode == RnnMode.GRU:
         k = "K8 (gru_pallas._bigru_seq_fwd)" if cfg.bidirectional else \
             "K9 (gru_pallas.gru_seq_fwd)"
@@ -231,3 +261,85 @@ def _run_birnn_fused(x, input_lens, dirs, cfg: RnnConfig) -> torch.Tensor:
     y_f, y_b = bilstm_layer(x, w_x, bias, dirs[0]["w_h"], dirs[1]["w_h"],
                             lens, cfg.compute_dtype)
     return torch.cat([y_f, y_b], dim=-1)
+
+
+# ---------------------------------------------------------------------------
+# Streaming (state-carrying) forward: unidirectional stacks only
+# ---------------------------------------------------------------------------
+
+def init_stream_state(cfg: RnnConfig, batch: int, device="cpu") -> List[Any]:
+    """Zero carry state per layer, f32 [B, H] on ``device``: (h, c) for
+    an LSTM, h otherwise."""
+    if cfg.bidirectional:
+        raise ValueError("streaming requires a unidirectional stack")
+    states: List[Any] = []
+    for _ in range(cfg.num_layers):
+        h = torch.zeros((batch, cfg.hidden_dim), dtype=torch.float32,
+                        device=device)
+        states.append((h, torch.zeros_like(h)) if cfg.mode == RnnMode.LSTM
+                      else h)
+    return states
+
+
+def rnn_forward_stream(
+    params: List[Dict[str, Any]],
+    x: torch.Tensor,                       # [T, B, input_dim] (one chunk)
+    cfg: RnnConfig,
+    states: List[Any],
+    lens: Optional[torch.Tensor] = None,   # [B] valid frames this chunk
+) -> tuple:
+    """Chunked forward with explicit carry: feeding chunks with the
+    carried state equals one full-utterance forward.  Frames >= lens[b]
+    neither update stream b's state nor produce output (an idle slot has
+    lens 0).  → (y [T, B, H] in the compute dtype, new states).
+
+    On CUDA an LSTM stack runs kernel K7, all L layers as one wavefront
+    of T + L - 1 steps, whenever ``rnn_cuda.lstm_stack_fits`` holds for
+    its shapes (the port's residency rule, from K7's shared-memory
+    formula and the co-residency of its grid; the JAX package's 10 MB
+    VMEM budget and its L > 1 condition are TPU limits and do not
+    apply).  A stack that does not fit takes the per-layer path, as the
+    JAX package's scan branch does, with each layer a one-layer K7
+    launch.  Other modes, and the CPU, run the plain per-layer loop."""
+    if cfg.bidirectional:
+        raise ValueError("streaming requires a unidirectional stack")
+    t_max, b, _ = x.shape
+    if lens is None:
+        lens = torch.full((b,), t_max, dtype=torch.int32, device=x.device)
+    lens = lens.to(x.device)
+    if x.device.type == "cuda":
+        _check_cuda_mode(cfg)
+        if cfg.mode == RnnMode.LSTM:
+            return _stream_lstm_stack(params, x, cfg, states, lens)
+    valid = _valid(t_max, lens, x.device)
+    out, new_states = x, []
+    for layer_params, st in zip(params, states):
+        p = layer_params["dirs"][0]
+        out, st = _scan(_project(out, p, cfg.dtype), valid, p["w_h"], cfg, st)
+        new_states.append(st)
+    return out, new_states
+
+
+def _stream_lstm_stack(params, x, cfg: RnnConfig, states, lens) -> tuple:
+    """An LSTM stack's chunk through K7: the whole stack in one launch
+    when it fits, else one one-layer launch per layer."""
+    from kaldi_ctc_tpu_torch.ops.rnn_cuda import lstm_stack_fits, lstm_stack_fwd
+
+    cdt = cfg.dtype
+    dirs = [layer["dirs"][0] for layer in params]
+    n_layers, b = len(dirs), x.shape[1]
+    if lstm_stack_fits(n_layers, b, cfg.hidden_dim, cdt, x.device):
+        y, h_fin, c_fin = lstm_stack_fwd(
+            _project(x, dirs[0], cdt),
+            [d["w_x"].to(cdt) for d in dirs[1:]],
+            [d["w_h"].to(cdt) for d in dirs], [d["b"] for d in dirs[1:]],
+            lens, torch.stack([h for h, _ in states]),
+            torch.stack([c for _, c in states]))
+        return y, [(h_fin[i], c_fin[i]) for i in range(n_layers)]
+    out, new_states = x, []
+    for d, (h, c) in zip(dirs, states):
+        out, h_fin, c_fin = lstm_stack_fwd(
+            _project(out, d, cdt), [], [d["w_h"].to(cdt)], [], lens,
+            h[None].contiguous(), c[None].contiguous())
+        new_states.append((h_fin[0], c_fin[0]))
+    return out, new_states

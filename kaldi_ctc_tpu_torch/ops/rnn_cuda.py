@@ -1,17 +1,20 @@
-"""Fused bidirectional LSTM layer: the CUDA kernels K2 (forward) and K3
-(backward) and their plain versions.
+"""LSTM recurrences on CUDA: the kernels K2, K3 (bidirectional layer),
+K5, K6 (one unidirectional direction) and K7 (the unidirectional stack as
+a wavefront), and their plain versions.
 
-Counterpart of ``kaldi_ctc_tpu/ops/rnn_pallas.py``'s bidirectional LSTM
-(``_bilstm_seq_fwd``, ``_bilstm_seq_bwd_dgates``, ``_dw_h`` and
-``bilstm_layer`` with its custom VJP).  :func:`bilstm_seq_fwd` is the
-wrapper of ``csrc/bilstm_fwd.cu`` and :func:`bilstm_seq_bwd_dgates` of
-``csrc/bilstm_bwd.cu``: a CPU tensor goes to the plain version
-(``*_reference``); a CUDA tensor launches the kernel or raises.
-:func:`bilstm_layer` is the whole layer — the hoisted input projection
-of both directions as one matmul, then the recurrence — as a
-``torch.autograd.Function`` whose backward runs K3 and then the weight
-and input gradients as plain products, as the JAX package leaves them
-to XLA.
+Counterpart of ``kaldi_ctc_tpu/ops/rnn_pallas.py``: ``_bilstm_seq_fwd``,
+``_bilstm_seq_bwd_dgates``, ``_dw_h`` and ``bilstm_layer`` with its
+custom VJP; ``lstm_seq_fwd``, ``_lstm_seq_bwd_dgates`` and
+``lstm_sequence`` with its custom VJP; ``lstm_stack_fwd``.  Each kernel
+wrapper (:func:`bilstm_seq_fwd` of ``csrc/bilstm_fwd.cu``,
+:func:`bilstm_seq_bwd_dgates` of ``csrc/bilstm_bwd.cu``,
+:func:`lstm_seq_fwd` of ``csrc/lstm_fwd.cu``, :func:`lstm_seq_bwd_dgates`
+of ``csrc/lstm_bwd.cu``, :func:`lstm_stack_fwd` of ``csrc/lstm_stack.cu``)
+sends a CPU tensor to its plain version (``*_reference``) and launches
+the kernel or raises for a CUDA tensor.  :func:`bilstm_layer` and
+:func:`lstm_sequence` are ``torch.autograd.Function``s whose backward
+runs K3 or K6 and then the weight and input gradients as plain products,
+as the JAX package leaves them to XLA.
 
 Under bfloat16 the shipped default of the JAX package's ``_bf16_cfg``
 holds: the projection, the layer outputs and the dgates are stored in
@@ -27,25 +30,59 @@ from typing import Optional, Tuple
 import torch
 
 from kaldi_ctc_tpu_torch import _kernels
-from kaldi_ctc_tpu_torch.ops.rnn import COMPUTE_DTYPES, _lstm_cell, matmul_f32acc
+from kaldi_ctc_tpu_torch.ops.rnn import (COMPUTE_DTYPES, _lstm_cell, _valid,
+                                         matmul_f32acc)
 
 __all__ = ["bilstm_seq_fwd", "bilstm_seq_fwd_reference",
            "bilstm_seq_bwd_dgates", "bilstm_seq_bwd_dgates_reference",
-           "bilstm_layer"]
+           "bilstm_layer", "lstm_seq_fwd", "lstm_seq_fwd_reference",
+           "lstm_seq_bwd_dgates", "lstm_seq_bwd_dgates_reference",
+           "lstm_sequence", "lstm_stack_fwd", "lstm_stack_fwd_reference",
+           "lstm_stack_fits"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+# each entry point's name ends in the suffix of its compute dtype
+_SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
 _ARGS = [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P]
 _SIGNATURES = {"bilstm_fwd_f32": _ARGS, "bilstm_fwd_bf16": _ARGS}
-_ENTRY = {torch.float32: "bilstm_fwd_f32", torch.bfloat16: "bilstm_fwd_bf16"}
 _BWD_ARGS = [_P] * 13 + [_I, _I, _I, _P]
 _BWD_SIGNATURES = {"bilstm_bwd_f32": _BWD_ARGS,
                    "bilstm_bwd_bf16": _BWD_ARGS,
                    "bilstm_bwd_exchange_floats": [_I, _I]}
-_BWD_ENTRY = {torch.float32: "bilstm_bwd_f32",
-              torch.bfloat16: "bilstm_bwd_bf16"}
+_UNI_ARGS = [_P] * 6 + [_I] * 4 + [_P]
+_UNI_SIGNATURES = {"lstm_fwd_f32": _UNI_ARGS, "lstm_fwd_bf16": _UNI_ARGS}
+_UNI_BWD_ARGS = [_P] * 8 + [_I] * 4 + [_P]
+_UNI_BWD_SIGNATURES = {"lstm_bwd_f32": _UNI_BWD_ARGS,
+                       "lstm_bwd_bf16": _UNI_BWD_ARGS,
+                       "lstm_bwd_exchange_floats": [_I, _I]}
+_STACK_ARGS = [_P] * 11 + [_I] * 4 + [_P]
+_STACK_SIGNATURES = {"lstm_stack_f32": _STACK_ARGS,
+                     "lstm_stack_bf16": _STACK_ARGS,
+                     "lstm_stack_fits_f32": [_I] * 3,
+                     "lstm_stack_fits_bf16": [_I] * 3}
+_STACK_MAX_LAYERS = 16   # kMaxLayers of csrc/lstm_stack.cu
 
 Outputs = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]
+
+
+def _check_tensors(what: str, device, want) -> None:
+    """Raise unless each named tensor is contiguous, of its dtype and
+    shape, on ``device``: ``want`` maps name → (tensor, dtype, shape)."""
+    for name, (v, dtype, shape) in want.items():
+        if (v.dtype != dtype or tuple(v.shape) != tuple(shape)
+                or v.device != device or not v.is_contiguous()):
+            raise ValueError(f"{what}: {name} must be contiguous {dtype} "
+                             f"{list(shape)} on {device}, got {v.dtype} "
+                             f"{tuple(v.shape)} on {v.device}")
+
+
+def _check_lens(what: str, lens: torch.Tensor, b: int, device) -> None:
+    if tuple(lens.shape) != (b,) or lens.device != device \
+            or lens.dtype not in (torch.int32, torch.int64):
+        raise ValueError(f"{what}: lens must be int [B] on {device}, got "
+                         f"{lens.dtype} {tuple(lens.shape)} on "
+                         f"{lens.device}")
 
 
 def bilstm_seq_fwd_reference(xp: torch.Tensor, w_h_f: torch.Tensor,
@@ -59,8 +96,7 @@ def bilstm_seq_fwd_reference(xp: torch.Tensor, w_h_f: torch.Tensor,
     h_dim = g4 // 4
     cdt = w_h_f.dtype
     y_dtype = xp.dtype if y_dtype is None else y_dtype
-    valid = (torch.arange(t_max, device=xp.device)[:, None]
-             < lens.to(xp.device)[None, :])[..., None]          # [T, B, 1]
+    valid = _valid(t_max, lens, xp.device)
     outs = []
     for half, w_h in ((0, w_h_f), (1, w_h_b)):
         w = w_h.float()
@@ -83,30 +119,17 @@ def bilstm_seq_fwd_reference(xp: torch.Tensor, w_h_f: torch.Tensor,
 
 
 def _check(xp, w_h_f, w_h_b, lens, y_dtype):
-    if xp.dim() != 3 or xp.shape[2] % 8:
-        raise ValueError(f"bilstm_seq_fwd: xp must be [T, B, 8H], got "
-                         f"{tuple(xp.shape)}")
-    if xp.dtype not in _ENTRY:
-        raise ValueError(f"bilstm_seq_fwd: xp dtype {xp.dtype} is not "
-                         "float32 or bfloat16")
+    if xp.dim() != 3 or xp.shape[2] % 8 or xp.dtype not in _SUFFIX:
+        raise ValueError(f"bilstm_seq_fwd: xp must be f32 or bf16 "
+                         f"[T, B, 8H], got {xp.dtype} {tuple(xp.shape)}")
     if y_dtype != xp.dtype:
         raise ValueError(f"bilstm_seq_fwd: the kernel stores y in xp's "
                          f"dtype {xp.dtype}, not {y_dtype}")
     h = xp.shape[2] // 8
-    for name, w in (("w_h_f", w_h_f), ("w_h_b", w_h_b)):
-        if (tuple(w.shape) != (h, 4 * h) or w.dtype != xp.dtype
-                or w.device != xp.device):
-            raise ValueError(f"bilstm_seq_fwd: {name} must be {xp.dtype} "
-                             f"[{h}, {4 * h}] on {xp.device}, got "
-                             f"{w.dtype} {tuple(w.shape)} on {w.device}")
-    if tuple(lens.shape) != (xp.shape[1],) or lens.device != xp.device \
-            or lens.dtype not in (torch.int32, torch.int64):
-        raise ValueError(f"bilstm_seq_fwd: lens must be int [B] on "
-                         f"{xp.device}, got {lens.dtype} "
-                         f"{tuple(lens.shape)} on {lens.device}")
-    for name, t in (("xp", xp), ("w_h_f", w_h_f), ("w_h_b", w_h_b)):
-        if not t.is_contiguous():
-            raise ValueError(f"bilstm_seq_fwd: {name} is not contiguous")
+    _check_tensors("bilstm_seq_fwd", xp.device, {
+        "xp": (xp, xp.dtype, xp.shape), "w_h_f": (w_h_f, xp.dtype, (h, 4 * h)),
+        "w_h_b": (w_h_b, xp.dtype, (h, 4 * h))})
+    _check_lens("bilstm_seq_fwd", lens, xp.shape[1], xp.device)
 
 
 def bilstm_seq_fwd(xp: torch.Tensor, w_h_f: torch.Tensor,
@@ -135,7 +158,7 @@ def bilstm_seq_fwd(xp: torch.Tensor, w_h_f: torch.Tensor,
     hbuf = torch.zeros((2, 2, b, h), dtype=torch.float32, device=dev)
     lens32 = lens.to(torch.int32).contiguous()
     lib = _kernels.load("bilstm_fwd", _SIGNATURES)
-    err = getattr(lib, _ENTRY[xp.dtype])(
+    err = getattr(lib, "bilstm_fwd_" + _SUFFIX[xp.dtype])(
         xp.data_ptr(), w_h_f.data_ptr(), w_h_b.data_ptr(), lens32.data_ptr(),
         y_f.data_ptr(), c_f.data_ptr(), y_b.data_ptr(), c_b.data_ptr(),
         hbuf.data_ptr(), t_max, b, h, _kernels.stream_ptr(dev))
@@ -159,8 +182,7 @@ def bilstm_seq_bwd_dgates_reference(
     g4 = 4 * h_dim
     cdt = w_h_f.dtype
     dev = xp.device
-    valid = (torch.arange(t_max, device=dev)[:, None]
-             < lens.to(dev)[None, :])[..., None]                # [T, B, 1]
+    valid = _valid(t_max, lens, dev)
     zeros = torch.zeros((b, h_dim), dtype=torch.float32, device=dev)
     outs = []
     for half, (dy, y, cs, w_h) in enumerate(((dy_f, y_f, c_f, w_h_f),
@@ -196,7 +218,7 @@ def bilstm_seq_bwd_dgates_reference(
 
 
 def _check_bwd(dy_f, dy_b, xp, y_f, c_f, y_b, c_b, w_h_f, w_h_b, lens):
-    if xp.dim() != 3 or xp.shape[2] % 8 or xp.dtype not in _BWD_ENTRY:
+    if xp.dim() != 3 or xp.shape[2] % 8 or xp.dtype not in _SUFFIX:
         raise ValueError(f"bilstm_seq_bwd_dgates: xp must be f32 or bf16 "
                          f"[T, B, 8H], got {xp.dtype} {tuple(xp.shape)}")
     t_max, b, g8 = xp.shape
@@ -210,18 +232,8 @@ def _check_bwd(dy_f, dy_b, xp, y_f, c_f, y_b, c_b, w_h_f, w_h_b, lens):
             "w_h_f": (w_h_f, xp.dtype, (h, 4 * h)),
             "w_h_b": (w_h_b, xp.dtype, (h, 4 * h)),
             "xp": (xp, xp.dtype, (t_max, b, g8))}
-    for name, (v, dtype, shape) in want.items():
-        if (v.dtype != dtype or tuple(v.shape) != shape
-                or v.device != xp.device or not v.is_contiguous()):
-            raise ValueError(f"bilstm_seq_bwd_dgates: {name} must be "
-                             f"contiguous {dtype} {list(shape)} on "
-                             f"{xp.device}, got {v.dtype} "
-                             f"{tuple(v.shape)} on {v.device}")
-    if tuple(lens.shape) != (b,) or lens.device != xp.device \
-            or lens.dtype not in (torch.int32, torch.int64):
-        raise ValueError(f"bilstm_seq_bwd_dgates: lens must be int [B] on "
-                         f"{xp.device}, got {lens.dtype} "
-                         f"{tuple(lens.shape)} on {lens.device}")
+    _check_tensors("bilstm_seq_bwd_dgates", xp.device, want)
+    _check_lens("bilstm_seq_bwd_dgates", lens, b, xp.device)
 
 
 def bilstm_seq_bwd_dgates(dy_f: torch.Tensor, dy_b: torch.Tensor,
@@ -258,7 +270,7 @@ def bilstm_seq_bwd_dgates(dy_f: torch.Tensor, dy_b: torch.Tensor,
     # in the step before
     part = torch.empty((floats,), dtype=torch.float32, device=dev)
     lens32 = lens.to(torch.int32).contiguous()
-    err = getattr(lib, _BWD_ENTRY[xp.dtype])(
+    err = getattr(lib, "bilstm_bwd_" + _SUFFIX[xp.dtype])(
         dy_f.data_ptr(), dy_b.data_ptr(), xp.data_ptr(), y_f.data_ptr(),
         c_f.data_ptr(), y_b.data_ptr(), c_b.data_ptr(), w_h_f.data_ptr(),
         w_h_b.data_ptr(), lens32.data_ptr(), dg_f.data_ptr(),
@@ -348,3 +360,335 @@ def bilstm_layer(x: torch.Tensor, w_x: torch.Tensor, bias: torch.Tensor,
     gradients come back f32 and dx in x's dtype."""
     return _BiLstmLayer.apply(x, w_x, bias, w_h_f, w_h_b, lens,
                               compute_dtype)
+
+
+# ---------------------------------------------------------------------------
+# One unidirectional LSTM direction: K5 (forward) and K6 (backward)
+# ---------------------------------------------------------------------------
+
+
+def _check_x_proj(what: str, x_proj: torch.Tensor) -> None:
+    if x_proj.dim() != 3 or x_proj.shape[2] % 4 or x_proj.dtype not in _SUFFIX:
+        raise ValueError(f"{what}: x_proj must be f32 or bf16 [T, B, 4H], "
+                         f"got {x_proj.dtype} {tuple(x_proj.shape)}")
+
+
+def lstm_seq_fwd_reference(x_proj: torch.Tensor, w_h: torch.Tensor,
+                           lens: torch.Tensor, reverse: bool = False
+                           ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of :func:`lstm_seq_fwd` on any device: a
+    loop of T steps (``_fwd_kernel``)."""
+    t_max, b, g4 = x_proj.shape
+    h_dim = g4 // 4
+    dev = x_proj.device
+    valid = _valid(t_max, lens, dev)
+    w = w_h.float()
+    h = torch.zeros((b, h_dim), dtype=torch.float32, device=dev)
+    c = torch.zeros_like(h)
+    y = torch.empty((t_max, b, h_dim), dtype=x_proj.dtype, device=dev)
+    cs = torch.empty((t_max, b, h_dim), dtype=torch.float32, device=dev)
+    for t in (range(t_max - 1, -1, -1) if reverse else range(t_max)):
+        v = valid[t]
+        h_new, c_new = _lstm_cell(h, c, x_proj[t], w, w_h.dtype)
+        h = torch.where(v, h_new, h)
+        c = torch.where(v, c_new, c)
+        y[t] = torch.where(v, h_new, 0.0).to(y.dtype)
+        cs[t] = c
+    return y, cs
+
+
+def lstm_seq_fwd(x_proj: torch.Tensor, w_h: torch.Tensor, lens: torch.Tensor,
+                 reverse: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x_proj [T, B, 4H] hoisted projection and w_h [H, 4H], both in the
+    compute dtype, lens [B], reverse (walk t = T-1 .. 0) → (y [T, B, H] in
+    the compute dtype, c_seq [T, B, H] f32).  The contract of
+    ``rnn_pallas.lstm_seq_fwd``; its ``block_t`` is dropped: the time
+    blocks exist only to move larger DMA blocks on the TPU, and one
+    kernel covers both of its kernel bodies here."""
+    if x_proj.device.type == "cpu":
+        return lstm_seq_fwd_reference(x_proj, w_h, lens, reverse)
+    if x_proj.device.type != "cuda":
+        raise ValueError(f"lstm_seq_fwd: unsupported device {x_proj.device}")
+    _check_x_proj("lstm_seq_fwd", x_proj)
+    t_max, b, g4 = x_proj.shape
+    h = g4 // 4
+    dev = x_proj.device
+    _check_tensors("lstm_seq_fwd", dev, {
+        "x_proj": (x_proj, x_proj.dtype, (t_max, b, g4)),
+        "w_h": (w_h, x_proj.dtype, (h, g4))})
+    _check_lens("lstm_seq_fwd", lens, b, dev)
+    y = torch.empty((t_max, b, h), dtype=x_proj.dtype, device=dev)
+    cs = torch.empty((t_max, b, h), dtype=torch.float32, device=dev)
+    if t_max == 0 or b == 0:
+        return y, cs
+    # h exchange between blocks: [parity][B][H], parity 0 = h0
+    hbuf = torch.zeros((2, b, h), dtype=torch.float32, device=dev)
+    lens32 = lens.to(torch.int32).contiguous()
+    lib = _kernels.load("lstm_fwd", _UNI_SIGNATURES)
+    err = getattr(lib, "lstm_fwd_" + _SUFFIX[x_proj.dtype])(
+        x_proj.data_ptr(), w_h.data_ptr(), lens32.data_ptr(), y.data_ptr(),
+        cs.data_ptr(), hbuf.data_ptr(), t_max, b, h, int(reverse),
+        _kernels.stream_ptr(dev))
+    _kernels.check(lib, err, "lstm_seq_fwd")
+    lstm_seq_fwd.launches += 1
+    return y, cs
+
+
+lstm_seq_fwd.launches = 0  # kernel launches made by this wrapper
+
+
+def lstm_seq_bwd_dgates_reference(dy: torch.Tensor, x_proj: torch.Tensor,
+                                  y: torch.Tensor, c_seq: torch.Tensor,
+                                  w_h: torch.Tensor, lens: torch.Tensor,
+                                  reverse: bool = False) -> torch.Tensor:
+    """Plain PyTorch version of :func:`lstm_seq_bwd_dgates` on any
+    device: a loop of T steps in the opposite order of the forward
+    (``_bwd_kernel`` with ``_dgates_update``)."""
+    t_max, b, h_dim = dy.shape
+    dev = x_proj.device
+    valid = _valid(t_max, lens, dev)
+    w = w_h.float()
+    zeros = torch.zeros((b, h_dim), dtype=torch.float32, device=dev)
+    dh, dc = zeros, zeros
+    dg = torch.empty((t_max, b, 4 * h_dim), dtype=x_proj.dtype, device=dev)
+    for s in range(t_max):
+        t = s if reverse else t_max - 1 - s
+        tp = t + 1 if reverse else t - 1
+        first = s == t_max - 1        # the forward's first step
+        hp = zeros if first else y[tp]
+        cp = zeros if first else c_seq[tp]
+        gates = x_proj[t].float() + torch.matmul(hp.to(w_h.dtype).float(), w)
+        i, f, g, o = gates.chunk(4, dim=-1)
+        i, f, o = torch.sigmoid(i), torch.sigmoid(f), torch.sigmoid(o)
+        g = torch.tanh(g)
+        tanh_c = torch.tanh(c_seq[t])
+        dh_total = dy[t].float() + dh
+        dc_total = dc + dh_total * o * (1.0 - tanh_c * tanh_c)
+        dgates = torch.cat([dc_total * g * i * (1.0 - i),
+                            dc_total * cp * f * (1.0 - f),
+                            dc_total * i * (1.0 - g * g),
+                            dh_total * tanh_c * o * (1.0 - o)], dim=-1)
+        v = valid[t]
+        dgates = torch.where(v, dgates, 0.0)
+        dh = torch.where(v, torch.matmul(dgates.to(w_h.dtype).float(), w.T),
+                         dh)
+        dc = torch.where(v, dc_total * f, dc)
+        dg[t] = dgates.to(x_proj.dtype)
+    return dg
+
+
+def lstm_seq_bwd_dgates(dy: torch.Tensor, x_proj: torch.Tensor,
+                        y: torch.Tensor, c_seq: torch.Tensor,
+                        w_h: torch.Tensor, lens: torch.Tensor,
+                        reverse: bool = False) -> torch.Tensor:
+    """Output cotangent dy [T, B, H] and the forward's residuals (x_proj
+    [T, B, 4H], y [T, B, H] in the compute dtype, c_seq [T, B, H] f32,
+    w_h [H, 4H] in the compute dtype, lens [B], the forward's direction)
+    → dgates [T, B, 4H] in x_proj's dtype.  The contract of
+    ``rnn_pallas._lstm_seq_bwd_dgates``."""
+    if x_proj.device.type == "cpu":
+        return lstm_seq_bwd_dgates_reference(dy, x_proj, y, c_seq, w_h, lens,
+                                             reverse)
+    if x_proj.device.type != "cuda":
+        raise ValueError(f"lstm_seq_bwd_dgates: unsupported device "
+                         f"{x_proj.device}")
+    _check_x_proj("lstm_seq_bwd_dgates", x_proj)
+    t_max, b, g4 = x_proj.shape
+    h = g4 // 4
+    dev = x_proj.device
+    cdt = x_proj.dtype
+    _check_tensors("lstm_seq_bwd_dgates", dev, {
+        "dy": (dy, cdt, (t_max, b, h)), "x_proj": (x_proj, cdt, (t_max, b, g4)),
+        "y": (y, cdt, (t_max, b, h)),
+        "c_seq": (c_seq, torch.float32, (t_max, b, h)),
+        "w_h": (w_h, cdt, (h, g4))})
+    _check_lens("lstm_seq_bwd_dgates", lens, b, dev)
+    dg = torch.empty((t_max, b, g4), dtype=cdt, device=dev)
+    if t_max == 0 or b == 0:
+        return dg
+    lib = _kernels.load("lstm_bwd", _UNI_BWD_SIGNATURES)
+    floats = lib.lstm_bwd_exchange_floats(b, h)
+    if floats < 0:
+        raise RuntimeError(f"lstm_seq_bwd_dgates: no exchange size for "
+                           f"B={b}, H={h} on {dev}")
+    # partial-dh exchange between blocks; every entry read is written in
+    # the step before
+    part = torch.empty((floats,), dtype=torch.float32, device=dev)
+    lens32 = lens.to(torch.int32).contiguous()
+    err = getattr(lib, "lstm_bwd_" + _SUFFIX[cdt])(
+        dy.data_ptr(), x_proj.data_ptr(), y.data_ptr(), c_seq.data_ptr(),
+        w_h.data_ptr(), lens32.data_ptr(), dg.data_ptr(), part.data_ptr(),
+        t_max, b, h, int(reverse), _kernels.stream_ptr(dev))
+    _kernels.check(lib, err, "lstm_seq_bwd_dgates")
+    lstm_seq_bwd_dgates.launches += 1
+    return dg
+
+
+lstm_seq_bwd_dgates.launches = 0  # kernel launches made by this wrapper
+
+
+class _LstmSequence(torch.autograd.Function):
+    """``lstm_sequence`` with the custom VJP of ``rnn_pallas``: forward
+    ``_lstm_sequence_fwd`` (K5), backward ``_lstm_sequence_bwd`` (K6,
+    then the sliced dW_h product)."""
+
+    @staticmethod
+    def forward(ctx, x_proj, w_h, lens, reverse):
+        cdt = x_proj.dtype
+        y, c_seq = lstm_seq_fwd(x_proj, w_h.to(cdt).contiguous(), lens,
+                                reverse)
+        ctx.reverse = reverse
+        ctx.save_for_backward(x_proj, w_h, lens, y, c_seq)
+        return y
+
+    @staticmethod
+    def backward(ctx, dy):
+        x_proj, w_h, lens, y, c_seq = ctx.saved_tensors
+        cdt = x_proj.dtype
+        dgates = lstm_seq_bwd_dgates(dy.to(cdt).contiguous(), x_proj, y,
+                                     c_seq, w_h.to(cdt).contiguous(), lens,
+                                     ctx.reverse)
+        # one sliced product over all steps, emitted at the primal w_h's
+        # dtype (f32 for master parameters)
+        dw_h = _dw_h(y, dgates, ctx.reverse, cdt).to(w_h.dtype)
+        return dgates, dw_h, None, None
+
+
+def lstm_sequence(x_proj: torch.Tensor, w_h: torch.Tensor, lens: torch.Tensor,
+                  reverse: bool = False) -> torch.Tensor:
+    """Differentiable LSTM over a sequence → y [T, B, H] in x_proj's
+    (the compute) dtype.  w_h may arrive in master precision (f32): the
+    cast to the compute dtype happens inside, so its gradient comes back
+    f32; the x_proj gradient is the dgates, in the compute dtype."""
+    return _LstmSequence.apply(x_proj, w_h, lens, reverse)
+
+
+# ---------------------------------------------------------------------------
+# The unidirectional stack as a wavefront: K7
+# ---------------------------------------------------------------------------
+
+
+def lstm_stack_fwd_reference(xp0: torch.Tensor, wxs, whs, bs,
+                             lens: torch.Tensor,
+                             h0: Optional[torch.Tensor] = None,
+                             c0: Optional[torch.Tensor] = None
+                             ) -> Tuple[torch.Tensor, torch.Tensor,
+                                        torch.Tensor]:
+    """Plain PyTorch version of :func:`lstm_stack_fwd` on any device:
+    the layers one after the other, each a loop of T steps.  Layer l >= 1
+    projects the layer below's output (held in the compute dtype) and
+    stores the projection in the compute dtype, as the kernel does."""
+    t_max, b, g4 = xp0.shape
+    h_dim = g4 // 4
+    n_layers = len(whs)
+    cdt = xp0.dtype
+    dev = xp0.device
+    valid = _valid(t_max, lens, dev)
+    zeros = torch.zeros((n_layers, b, h_dim), dtype=torch.float32, device=dev)
+    h0 = zeros if h0 is None else h0
+    c0 = zeros if c0 is None else c0
+    xp, h_fin, c_fin = xp0, [], []
+    for layer in range(n_layers):
+        if layer > 0:
+            xp = (matmul_f32acc(y.reshape(t_max * b, h_dim), wxs[layer - 1],
+                                cdt)
+                  + bs[layer - 1]).to(cdt).reshape(t_max, b, g4)
+        w = whs[layer].float()
+        h, c = h0[layer].float(), c0[layer].float()
+        y = torch.empty((t_max, b, h_dim), dtype=cdt, device=dev)
+        for t in range(t_max):
+            v = valid[t]
+            h_new, c_new = _lstm_cell(h, c, xp[t], w, cdt)
+            h = torch.where(v, h_new, h)
+            c = torch.where(v, c_new, c)
+            y[t] = torch.where(v, h_new, 0.0).to(cdt)
+        h_fin.append(h)
+        c_fin.append(c)
+    return y, torch.stack(h_fin), torch.stack(c_fin)
+
+
+def lstm_stack_fits(num_layers: int, batch: int, hidden: int,
+                    dtype: torch.dtype, device) -> bool:
+    """Whether K7 can run an L-layer stack of ``hidden`` units at
+    ``batch`` rows on ``device``: all layers' weight columns and the rows
+    of one block fit its shared memory, and the cooperative grid (one
+    block per ceil(L*H / SMs) units) is co-resident on the card.  Decided
+    from the shapes alone; nothing is launched."""
+    lib = _kernels.load("lstm_stack", _STACK_SIGNATURES)
+    with torch.cuda.device(device):
+        r = getattr(lib, "lstm_stack_fits_" + _SUFFIX[dtype])(
+            num_layers, batch, hidden)
+    if r < 0:
+        _kernels.check(lib, -r, "lstm_stack_fits")
+    return r == 1
+
+
+def lstm_stack_fwd(xp0: torch.Tensor, wxs, whs, bs, lens: torch.Tensor,
+                   h0: Optional[torch.Tensor] = None,
+                   c0: Optional[torch.Tensor] = None
+                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Wavefront forward through an L-layer unidirectional LSTM stack,
+    the contract of ``rnn_pallas.lstm_stack_fwd``: xp0 [T, B, 4H] layer
+    0's projection in the compute dtype; wxs the L-1 input weights and
+    whs the L recurrent weights [H, 4H] in the compute dtype (lists, or
+    [L-1, H, 4H] / [L, H, 4H] tensors); bs the L-1 biases [4H] f32; lens
+    [B]; h0, c0 optional [L, B, H] f32 carries → (y [T, B, H] of the top
+    layer in the compute dtype, h_fin, c_fin [L, B, H] f32).  Inference
+    only."""
+    if xp0.device.type == "cpu":
+        return lstm_stack_fwd_reference(xp0, wxs, whs, bs, lens, h0, c0)
+    if xp0.device.type != "cuda":
+        raise ValueError(f"lstm_stack_fwd: unsupported device {xp0.device}")
+    _check_x_proj("lstm_stack_fwd", xp0)
+    t_max, b, g4 = xp0.shape
+    h = g4 // 4
+    n_layers = len(whs)
+    dev = xp0.device
+    cdt = xp0.dtype
+    if not 1 <= n_layers <= _STACK_MAX_LAYERS or len(wxs) != n_layers - 1 \
+            or len(bs) != n_layers - 1:
+        raise ValueError(f"lstm_stack_fwd: {n_layers} recurrent weights "
+                         f"(1..{_STACK_MAX_LAYERS}) need one fewer input "
+                         f"weights and biases, got {len(wxs)} and {len(bs)}")
+    want = {"xp0": (xp0, cdt, (t_max, b, g4))}
+    for name, ws, dtype, shape in (("whs", whs, cdt, (h, g4)),
+                                   ("wxs", wxs, cdt, (h, g4)),
+                                   ("bs", bs, torch.float32, (g4,))):
+        want.update({f"{name}[{i}]": (w, dtype, shape)
+                     for i, w in enumerate(ws)})
+    for name, v in (("h0", h0), ("c0", c0)):
+        if v is not None:
+            want[name] = (v, torch.float32, (n_layers, b, h))
+    _check_tensors("lstm_stack_fwd", dev, want)
+    _check_lens("lstm_stack_fwd", lens, b, dev)
+    # h exchange [parity][L][B][H], parity 0 = h0; the layer-output
+    # exchange has the same shape, and every entry read is written in
+    # the step before
+    hbuf = torch.empty((2, n_layers, b, h), dtype=torch.float32, device=dev)
+    if h0 is None:
+        hbuf[0].zero_()
+    else:
+        hbuf[0].copy_(h0)
+    c_in = (torch.zeros((n_layers, b, h), dtype=torch.float32, device=dev)
+            if c0 is None else c0)
+    y = torch.empty((t_max, b, h), dtype=cdt, device=dev)
+    if t_max == 0 or b == 0:
+        return y, hbuf[0].clone(), c_in.clone()
+    ybuf = torch.empty_like(hbuf)
+    h_fin = torch.empty((n_layers, b, h), dtype=torch.float32, device=dev)
+    c_fin = torch.empty_like(h_fin)
+    lens32 = lens.to(torch.int32).contiguous()
+    ptrs = [(_P * max(len(ws), 1))(*[w.data_ptr() for w in ws])
+            for ws in (whs, wxs, bs)]
+    lib = _kernels.load("lstm_stack", _STACK_SIGNATURES)
+    err = getattr(lib, "lstm_stack_" + _SUFFIX[cdt])(
+        xp0.data_ptr(), *(ctypes.cast(p, _P) for p in ptrs),
+        lens32.data_ptr(), c_in.data_ptr(), y.data_ptr(), h_fin.data_ptr(),
+        c_fin.data_ptr(), hbuf.data_ptr(), ybuf.data_ptr(), t_max, n_layers,
+        b, h, _kernels.stream_ptr(dev))
+    _kernels.check(lib, err, "lstm_stack_fwd")
+    lstm_stack_fwd.launches += 1
+    return y, h_fin, c_fin
+
+
+lstm_stack_fwd.launches = 0  # kernel launches made by this wrapper

@@ -13,11 +13,12 @@ NnetCtcUpdater, ``ctc/ctc-nnet-update.cc:76-348``):
 - greedy-collapse label accuracy (``ctc/ctc-nnet-update.cc:261-317``):
   argmax and collapse on the device, Levenshtein on the host.
 
-On the card the step runs K2 and K3 for each BLSTM layer and K1 for the
-loss; on the CPU their plain versions.  PyTorch runs eagerly: there is no
-jit, and ``make_train_step`` returns the step as it is (no buffers are
-donated).  Natural-gradient affine updates (``affine_type="natural"``)
-wait for ROADMAP.md item 13.
+On the card the step runs K2 and K3 for each BLSTM layer (K5 and K6 for
+each unidirectional LSTM layer) and K1 for the loss; on the CPU their
+plain versions.  PyTorch runs eagerly: there is no jit, and
+``make_train_step`` returns the step as it is (no buffers are donated).
+Natural-gradient affine updates (``affine_type="natural"``) wait for
+ROADMAP.md item 13.
 """
 
 from __future__ import annotations

@@ -1,6 +1,7 @@
 """The port's CUDA kernels: their build layer (on any machine) and,
-on the card, each kernel, the served slice and the training step
-against the plain PyTorch versions on the same inputs on the card.
+on the card, each kernel, the served slice, the streaming engine and the
+training steps against the plain PyTorch versions on the same inputs on
+the card.
 
 These import neither jax nor kaldi_ctc_tpu, so they also run on a machine
 without JAX: ``python -m pytest --noconftest tests/test_torch_cuda.py``.
@@ -47,6 +48,10 @@ BILSTM_BWD_F32_TOL = 1e-4
 # K3 bf16: dgates are stored in bf16 and enter the dh product rounded to
 # bf16, so a flipped rounding moves later steps by about a bf16 ulp.
 BILSTM_BWD_BF16_TOL = 5e-2
+# K5, K6 and K7 share K2's and K3's arithmetic and its reasons.
+LSTM_TOL = {torch.float32: BILSTM_F32_TOL, torch.bfloat16: BILSTM_BF16_TOL}
+LSTM_BWD_TOL = {torch.float32: BILSTM_BWD_F32_TOL,
+                torch.bfloat16: BILSTM_BWD_BF16_TOL}
 
 
 @pytest.fixture
@@ -341,6 +346,12 @@ def plain_kernels(monkeypatch):
                             rnn_cuda.bilstm_seq_bwd_dgates_reference)
         monkeypatch.setattr(ctc_cuda, "alpha_beta",
                             ctc_cuda.alpha_beta_reference)
+        monkeypatch.setattr(rnn_cuda, "lstm_seq_fwd",
+                            rnn_cuda.lstm_seq_fwd_reference)
+        monkeypatch.setattr(rnn_cuda, "lstm_seq_bwd_dgates",
+                            rnn_cuda.lstm_seq_bwd_dgates_reference)
+        monkeypatch.setattr(rnn_cuda, "lstm_stack_fwd",
+                            rnn_cuda.lstm_stack_fwd_reference)
     return use_plain
 
 
@@ -412,6 +423,243 @@ def test_flagship_train_step_on_cuda_matches_plain(cuda, dtype,
     torch.cuda.synchronize()
     assert (rnn_cuda.bilstm_seq_fwd.launches - counts[0],
             rnn_cuda.bilstm_seq_bwd_dgates.launches - counts[1],
+            ctc_cuda.alpha_beta.launches - counts[2]) == (5, 5, 1)
+    assert bool(m["finite"]) and np.isfinite(float(m["loss_total"]))
+    plain_kernels()
+    state_p, m_p = step(train.init_train_state(params), batch)
+    rtol = 1e-5 if dtype == "float32" else 2e-3
+    np.testing.assert_allclose(float(m["loss_total"]),
+                               float(m_p["loss_total"]), rtol=rtol)
+    np.testing.assert_allclose(float(m["grad_norm"]),
+                               float(m_p["grad_norm"]), rtol=10 * rtol)
+    for g, r in zip(tree_flatten(state.params),
+                    tree_flatten(state_p.params)):
+        np.testing.assert_allclose(g.cpu().numpy(), r.cpu().numpy(), rtol=0,
+                                   atol=1e-5 if dtype == "float32" else 1e-4)
+
+
+def _uni_inputs(t, b, h, dtype, device, seed):
+    rng = np.random.default_rng(seed)
+    xp = torch.as_tensor(rng.standard_normal((t, b, 4 * h))
+                         .astype(np.float32), device=device).to(dtype)
+    w = torch.as_tensor((rng.standard_normal((h, 4 * h)) / np.sqrt(h))
+                        .astype(np.float32), device=device).to(dtype)
+    lens = np.full(b, t, np.int32)
+    lens[1:] = rng.integers(0, t + 1, size=b - 1)   # row 0 full length
+    return xp, w, torch.as_tensor(lens, device=device)
+
+
+def _close(got, ref, tol, name):
+    assert got.dtype == ref.dtype and got.shape == ref.shape, name
+    np.testing.assert_allclose(got.float().cpu().numpy(),
+                               ref.float().cpu().numpy(), rtol=0, atol=tol,
+                               err_msg=name)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("t,b,h", [(16, 3, 16), (40, 2, 320), (240, 48, 320)])
+def test_lstm_kernel_matches_plain(cuda, dtype, t, b, h, reverse):
+    """K5 against its plain version, both directions, ragged rows."""
+    xp, w, lens = _uni_inputs(t, b, h, dtype, cuda, seed=h + t)
+    before = rnn_cuda.lstm_seq_fwd.launches
+    got = rnn_cuda.lstm_seq_fwd(xp, w, lens, reverse)
+    torch.cuda.synchronize()
+    assert rnn_cuda.lstm_seq_fwd.launches == before + 1
+    ref = rnn_cuda.lstm_seq_fwd_reference(xp, w, lens, reverse)
+    for name, g, r in zip(("y", "c_seq"), got, ref):
+        _close(g, r, LSTM_TOL[dtype], name)
+    for row, n in enumerate(lens.cpu().numpy()):     # y = 0 at pad frames
+        assert not got[0][n:, row].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("t,b,h", [(16, 3, 16), (40, 2, 320), (240, 48, 320)])
+def test_lstm_bwd_kernel_matches_plain(cuda, dtype, t, b, h, reverse):
+    """K6 against its plain version on a forward of K5's plain version."""
+    xp, w, lens = _uni_inputs(t, b, h, dtype, cuda, seed=h + t + 1)
+    y, c_seq = rnn_cuda.lstm_seq_fwd_reference(xp, w, lens, reverse)
+    dy = torch.as_tensor(np.random.default_rng(t).standard_normal(
+        (t, b, h)).astype(np.float32), device=cuda).to(dtype)
+    args = (dy, xp, y, c_seq, w, lens, reverse)
+    before = rnn_cuda.lstm_seq_bwd_dgates.launches
+    got = rnn_cuda.lstm_seq_bwd_dgates(*args)
+    torch.cuda.synchronize()
+    assert rnn_cuda.lstm_seq_bwd_dgates.launches == before + 1
+    _close(got, rnn_cuda.lstm_seq_bwd_dgates_reference(*args),
+           LSTM_BWD_TOL[dtype], "dgates")
+    for row, n in enumerate(lens.cpu().numpy()):     # zero at pad frames
+        assert not got[n:, row].any()
+
+
+@pytest.mark.cuda
+def test_lstm_kernels_reject_bad_inputs(cuda):
+    xp, w, lens = _uni_inputs(4, 2, 16, torch.float32, cuda, 0)
+    with pytest.raises(ValueError):                   # w_h dtype
+        rnn_cuda.lstm_seq_fwd(xp, w.to(torch.bfloat16), lens)
+    with pytest.raises(ValueError):                   # not [T, B, 4H]
+        rnn_cuda.lstm_seq_fwd(xp[:, :, :-2], w, lens)
+    with pytest.raises(ValueError):                   # lens on the CPU
+        rnn_cuda.lstm_seq_fwd(xp, w, lens.cpu())
+    y, c = rnn_cuda.lstm_seq_fwd_reference(xp, w, lens)
+    with pytest.raises(ValueError):                   # c_seq not f32
+        rnn_cuda.lstm_seq_bwd_dgates(y, xp, y, c.to(torch.bfloat16), w, lens)
+    with pytest.raises(ValueError):                   # y not contiguous
+        rnn_cuda.lstm_seq_bwd_dgates(y, xp, y.transpose(0, 1).contiguous()
+                                     .transpose(0, 1), c, w, lens)
+
+
+def _stack_inputs(layers, t, b, h, dtype, device, seed, stateful):
+    rng = np.random.default_rng(seed)
+
+    def mat(*shape, scale=1.0):
+        return torch.as_tensor((rng.standard_normal(shape) * scale)
+                               .astype(np.float32), device=device)
+
+    xp0 = mat(t, b, 4 * h).to(dtype)
+    whs = [mat(h, 4 * h, scale=h ** -0.5).to(dtype) for _ in range(layers)]
+    wxs = [mat(h, 4 * h, scale=h ** -0.5).to(dtype)
+           for _ in range(layers - 1)]
+    bs = [mat(4 * h, scale=0.2) for _ in range(layers - 1)]
+    lens = np.full(b, t, np.int32)
+    lens[1:] = rng.integers(0, t + 1, size=b - 1)
+    lens[-1] = 0                                      # an idle slot
+    h0 = mat(layers, b, h, scale=0.5) if stateful else None
+    c0 = mat(layers, b, h, scale=0.5) if stateful else None
+    return xp0, wxs, whs, bs, torch.as_tensor(lens, device=device), h0, c0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("layers,t,b,h,stateful", [
+    (1, 9, 3, 16, False), (3, 17, 3, 16, True), (5, 20, 8, 320, True),
+    (2, 33, 4, 320, False)])
+def test_lstm_stack_kernel_matches_plain(cuda, dtype, layers, t, b, h,
+                                         stateful):
+    """K7 against its plain version: y, h_fin and c_fin, with carries
+    from a previous chunk, ragged rows and an idle slot."""
+    args = _stack_inputs(layers, t, b, h, dtype, cuda, layers + t, stateful)
+    assert rnn_cuda.lstm_stack_fits(layers, b, h, dtype, cuda)
+    before = rnn_cuda.lstm_stack_fwd.launches
+    got = rnn_cuda.lstm_stack_fwd(*args)
+    torch.cuda.synchronize()
+    assert rnn_cuda.lstm_stack_fwd.launches == before + 1
+    ref = rnn_cuda.lstm_stack_fwd_reference(*args)
+    for name, g, r in zip(("y", "h_fin", "c_fin"), got, ref):
+        _close(g, r, LSTM_TOL[dtype], name)
+    if stateful:                                      # the idle slot keeps
+        assert torch.equal(got[1][:, -1], args[5][:, -1])   # its state
+        assert torch.equal(got[2][:, -1], args[6][:, -1])
+
+
+@pytest.mark.cuda
+def test_lstm_stack_kernel_rejects_bad_inputs(cuda):
+    xp0, wxs, whs, bs, lens, h0, c0 = _stack_inputs(
+        3, 5, 2, 16, torch.float32, cuda, 0, True)
+    with pytest.raises(ValueError):                   # one w_x too few
+        rnn_cuda.lstm_stack_fwd(xp0, wxs[:1], whs, bs, lens, h0, c0)
+    with pytest.raises(ValueError):                   # bias not f32
+        rnn_cuda.lstm_stack_fwd(xp0, wxs, whs, [b.half() for b in bs], lens)
+    with pytest.raises(ValueError):                   # h0 of 2 layers
+        rnn_cuda.lstm_stack_fwd(xp0, wxs, whs, bs, lens, h0[:2], c0)
+    # the residency rule, from shapes alone
+    assert rnn_cuda.lstm_stack_fits(5, 8, 320, torch.bfloat16, cuda)
+    assert not rnn_cuda.lstm_stack_fits(5, 4096, 320, torch.float32, cuda)
+    assert not rnn_cuda.lstm_stack_fits(17, 1, 16, torch.float32, cuda)
+
+
+def _uni_model(tmp_path, dtype, layers=5, h=32):
+    from kaldi_ctc_tpu_torch.models.acoustic import (AmConfig,
+                                                     default_priors,
+                                                     init_am_params)
+    from kaldi_ctc_tpu_torch.models.artifact import save_inference_artifact
+
+    cfg = AmConfig(input_dim=40, num_targets=9, hidden_dim=h,
+                   num_layers=layers, bidirectional=False,
+                   compute_dtype=dtype)
+    path = str(tmp_path / "uni.npz")
+    save_inference_artifact(path, init_am_params(
+        cfg, torch.Generator().manual_seed(0)), cfg, default_priors(9))
+    return path
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("per_layer", [False, True])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_uni_stream_engine_on_cuda_matches_plain(cuda, dtype, per_layer,
+                                                 tmp_path, monkeypatch):
+    """A unidirectional engine on the card: /recognize through K5 (5
+    launches), every streaming tick through one K7 launch (or, where the
+    stack does not fit, one per layer), the streamed labels equal to
+    /recognize's, and the chunk scores equal to the CPU engine's."""
+    from kaldi_ctc_tpu_torch.cli import serve
+
+    if per_layer:
+        monkeypatch.setattr(rnn_cuda, "lstm_stack_fits",
+                            lambda *a, **k: False)
+    path = _uni_model(tmp_path, dtype)
+    flags = ["--model", path, "--max-streams", "3", "--chunk-frames", "7"]
+    gpu = serve.Engine(serve.parse_args(flags))
+    cpu = serve.Engine(serve.parse_args(flags + ["--device", "cpu"]))
+    rng = np.random.default_rng(2)
+    x = (np.cumsum(rng.standard_normal(12000)) * 50).astype(np.float32)
+    k5 = rnn_cuda.lstm_seq_fwd.launches
+    offline = gpu.recognize(x)
+    assert rnn_cuda.lstm_seq_fwd.launches - k5 == 5
+    k7, ticks = rnn_cuda.lstm_stack_fwd.launches, gpu.stream.ticks
+    slot = gpu.stream_start()
+    for lo in range(0, len(x), 1700):
+        gpu.stream_chunk(slot, x[lo:lo + 1700])
+    assert gpu.stream_end(slot)["labels"] == offline["labels"]
+    ticks = gpu.stream.ticks - ticks
+    assert ticks > 0
+    assert rnn_cuda.lstm_stack_fwd.launches - k7 == ticks * (
+        5 if per_layer else 1)
+    feats = gpu.feats_for(x)[:21]                     # three full chunks
+    block = torch.zeros((3, 7, 40), device=cuda)
+    st_g = gpu.stream._state
+    st_c = [tuple(a.cpu() for a in st) for st in st_g]
+    tol = 1e-4 if dtype == "float32" else 5e-2
+    for lo in range(0, 21, 7):
+        block[1] = feats[lo:lo + 7]
+        lens = torch.tensor([0, 7, 3], dtype=torch.int32)
+        sg, st_g = gpu.stream.chunk_fn(block.transpose(0, 1), lens.to(cuda),
+                                       st_g)
+        sc, st_c = cpu.stream.chunk_fn(block.transpose(0, 1).cpu(), lens,
+                                       st_c)
+        np.testing.assert_allclose(sg.cpu().numpy(), sc.numpy(), rtol=0,
+                                   atol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_uni_train_step_on_cuda_matches_plain(cuda, dtype, plain_kernels):
+    """One step of the unidirectional 5x320 (T cut to 40) through K5, K6
+    and K1, against the same step on the plain versions on the card."""
+    from kaldi_ctc_tpu_torch.models.acoustic import AmConfig, init_am_params
+    from kaldi_ctc_tpu_torch.params import tree_flatten
+    from kaldi_ctc_tpu_torch.training import train
+
+    cfg = AmConfig(input_dim=40, num_targets=72, hidden_dim=320,
+                   num_layers=5, bidirectional=False, compute_dtype=dtype)
+    rng = np.random.default_rng(0)
+    b, t, lmax = 6, 40, 8
+    batch = {"feats": rng.standard_normal((b, t, 40)).astype(np.float32),
+             "labels": rng.integers(1, 72, (b, lmax)).astype(np.int32),
+             "input_lens": np.array([40, 40, 33, 25, 17, 5], np.int32),
+             "label_lens": np.array([8, 5, 8, 3, 8, 1], np.int32)}
+    params = init_am_params(cfg, torch.Generator().manual_seed(0), cuda)
+    step = train.build_train_step(cfg, train.TrainOptions(momentum=0.9))
+    counts = (rnn_cuda.lstm_seq_fwd.launches,
+              rnn_cuda.lstm_seq_bwd_dgates.launches,
+              ctc_cuda.alpha_beta.launches)
+    state, m = step(train.init_train_state(params), batch)
+    torch.cuda.synchronize()
+    assert (rnn_cuda.lstm_seq_fwd.launches - counts[0],
+            rnn_cuda.lstm_seq_bwd_dgates.launches - counts[1],
             ctc_cuda.alpha_beta.launches - counts[2]) == (5, 5, 1)
     assert bool(m["finite"]) and np.isfinite(float(m["loss_total"]))
     plain_kernels()

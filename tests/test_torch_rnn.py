@@ -1,7 +1,10 @@
-"""The port's recurrent stacks held to the JAX package's: K2's plain
-version against ``_bilstm_seq_fwd`` in interpret mode, and
-``rnn_forward`` for every mode against JAX's XLA scan path and (for the
-BLSTM) its fused Pallas path in interpret mode.  Parameters and inputs
+"""The port's recurrent stacks held to the JAX package's: the plain
+versions of K2, K3, K5 and K6 against ``_bilstm_seq_fwd``,
+``_bilstm_seq_bwd_dgates``, ``lstm_seq_fwd`` and ``_lstm_seq_bwd_dgates``
+in interpret mode, the gradients of ``bilstm_layer`` and
+``lstm_sequence`` against JAX's custom VJPs, and ``rnn_forward`` for
+every mode against JAX's XLA scan path and (for the BLSTM) its fused
+Pallas path in interpret mode.  Parameters and inputs
 are made once (JAX init, numpy inputs) and fed to both packages."""
 
 import jax
@@ -152,8 +155,7 @@ def test_rnn_forward_without_lens_is_full_length():
 
 
 @pytest.mark.parametrize("mode,bidirectional,kernel", [
-    (trnn.RnnMode.LSTM, False, "K5"), (trnn.RnnMode.GRU, True, "K8"),
-    (trnn.RnnMode.GRU, False, "K9")])
+    (trnn.RnnMode.GRU, True, "K8"), (trnn.RnnMode.GRU, False, "K9")])
 def test_unported_kernels_raise_on_cuda(mode, bidirectional, kernel):
     _, tcfg = _cfgs(mode, bidirectional, "float32")
     with pytest.raises(NotImplementedError, match=kernel):
@@ -161,8 +163,8 @@ def test_unported_kernels_raise_on_cuda(mode, bidirectional, kernel):
 
 
 @pytest.mark.parametrize("mode,bidirectional", [
-    (trnn.RnnMode.LSTM, True), (trnn.RnnMode.RELU, False),
-    (trnn.RnnMode.TANH, True)])
+    (trnn.RnnMode.LSTM, True), (trnn.RnnMode.LSTM, False),
+    (trnn.RnnMode.RELU, False), (trnn.RnnMode.TANH, True)])
 def test_ported_modes_pass_the_cuda_check(mode, bidirectional):
     trnn._check_cuda_mode(_cfgs(mode, bidirectional, "float32")[1])
 
@@ -269,3 +271,98 @@ def test_bilstm_layer_bf16_grads_of_a_bf16_input():
     assert all(p.grad.dtype == torch.float32 for p in w)
     for row, n in enumerate(LENS):            # no gradient from pad frames
         assert not x.grad[n:, row].any()
+
+
+def _uni_inputs(h, seed):
+    rng = np.random.default_rng(seed)
+    xp = rng.standard_normal((T, B, 4 * h)).astype(np.float32)
+    w = (rng.standard_normal((h, 4 * h)) / np.sqrt(h)).astype(np.float32)
+    return xp, w
+
+
+def _to_torch(a):
+    """A JAX array → a torch tensor of the same dtype (f32 or bf16)."""
+    t = torch.as_tensor(np.array(_np(a)))
+    return t.to(torch.bfloat16) if a.dtype == jnp.bfloat16 else t
+
+
+@pytest.mark.parametrize("block_t", [None, 1])   # time-blocked, per step
+@pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_lstm_seq_fwd_reference_matches_pallas_interpret(dtype, reverse,
+                                                         block_t):
+    """K5's plain version (what its wrapper runs on a CPU tensor) against
+    ``lstm_seq_fwd`` in interpret mode, with short rows."""
+    jdt, _, tol = _DT[dtype]
+    xp, w = _uni_inputs(H, seed=7)
+    ref = rnn_pallas.lstm_seq_fwd(jnp.asarray(xp, jdt), jnp.asarray(w, jdt),
+                                  jnp.asarray(LENS), reverse,
+                                  interpret=True, block_t=block_t)
+    got = rnn_cuda.lstm_seq_fwd(_to_torch(jnp.asarray(xp, jdt)),
+                                _to_torch(jnp.asarray(w, jdt)),
+                                torch.as_tensor(LENS), reverse)
+    for name, g, r in zip(("y", "c_seq"), got, ref):
+        assert str(g.dtype).split(".")[-1] == str(r.dtype), name
+        np.testing.assert_allclose(g.float().numpy(), _np(r), rtol=0,
+                                   atol=tol, err_msg=name)
+    for row, n in enumerate(LENS):                # y = 0 at pad frames
+        assert not got[0][n:, row].any()
+    assert rnn_cuda.lstm_seq_fwd.launches == 0    # CPU: plain version
+
+
+@pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_lstm_seq_bwd_dgates_reference_matches_pallas_interpret(dtype,
+                                                                reverse):
+    """K6's plain version against ``_lstm_seq_bwd_dgates`` in interpret
+    mode, on a forward run by JAX's K5 in interpret mode."""
+    jdt, _, tol = _DT[dtype]
+    xp, w = _uni_inputs(H, seed=8)
+    dy = np.random.default_rng(9).standard_normal((T, B, H)).astype(
+        np.float32)
+    jxp, jw, jlens = jnp.asarray(xp, jdt), jnp.asarray(w, jdt), \
+        jnp.asarray(LENS)
+    y, c_seq = rnn_pallas.lstm_seq_fwd(jxp, jw, jlens, reverse,
+                                       interpret=True)
+    args = (jnp.asarray(dy, jdt), jxp, y, c_seq, jw)
+    ref = rnn_pallas._lstm_seq_bwd_dgates(*args, jlens, reverse,
+                                          interpret=True)
+    before = rnn_cuda.lstm_seq_bwd_dgates.launches
+    got = rnn_cuda.lstm_seq_bwd_dgates(*map(_to_torch, args),
+                                       torch.as_tensor(LENS), reverse)
+    assert str(got.dtype).split(".")[-1] == str(ref.dtype)
+    np.testing.assert_allclose(got.float().numpy(), _np(ref), rtol=0,
+                               atol=tol)
+    for row, n in enumerate(LENS):                # zero at pad frames
+        assert not got[n:, row].any()
+    assert rnn_cuda.lstm_seq_bwd_dgates.launches == before
+
+
+@pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_lstm_sequence_grads_match_jax_vjp(dtype, reverse):
+    """``lstm_sequence``'s x_proj and w_h gradients and their dtypes
+    against ``jax.vjp`` of ``rnn_pallas.lstm_sequence(..., interpret=
+    True)``: w_h in master f32, x_proj in the compute dtype."""
+    jdt, tdt, tol = _DT[dtype]
+    xp, w = _uni_inputs(H, seed=10)
+    dy = np.random.default_rng(11).standard_normal((T, B, H)).astype(
+        np.float32)
+    jxp = jnp.asarray(xp, jdt)
+    y_ref, vjp = jax.vjp(
+        lambda a, b: rnn_pallas.lstm_sequence(a, b, jnp.asarray(LENS),
+                                              reverse, True),
+        jxp, jnp.asarray(w))
+    ref = vjp(jnp.asarray(dy, jdt))
+    x_t = _to_torch(jxp).requires_grad_(True)
+    w_t = torch.tensor(w, requires_grad=True)
+    y = rnn_cuda.lstm_sequence(x_t, w_t, torch.as_tensor(LENS), reverse)
+    assert y.dtype == tdt
+    np.testing.assert_allclose(y.float().detach().numpy(), _np(y_ref),
+                               rtol=0, atol=tol)
+    y.backward(torch.as_tensor(dy).to(tdt))
+    for name, g, r in (("dx_proj", x_t.grad, ref[0]),
+                       ("dw_h", w_t.grad, ref[1])):
+        assert str(g.dtype).split(".")[-1] == str(r.dtype), name
+        np.testing.assert_allclose(g.float().numpy(), _np(r), rtol=0,
+                                   atol=tol, err_msg=name)

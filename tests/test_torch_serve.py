@@ -129,8 +129,12 @@ def test_http_endpoints(http_server):
     status, low = _request(port, "POST", "/recognize",
                            _wav_bytes(pcm[::2], 8000))
     assert status == 200 and low["num_frames"] == 98
-    assert _request(port, "POST", "/stream/start")[0] == 400
-    assert _request(port, "POST", "/stream/0/chunk", b"")[0] == 404
+    # a bidirectional model cannot stream: no slot opens
+    assert _request(port, "POST", "/stream/start") == (
+        400, {"error": "streaming needs a unidirectional model"})
+    assert teng.stream is None and not teng.slots
+    assert _request(port, "POST", "/stream/0/chunk", b"") == (
+        404, {"error": "unknown slot 0"})
     assert _request(port, "GET", "/nope")[0] == 404
 
 
@@ -170,7 +174,11 @@ def test_engine_options(tmp_path):
     assert eng.win == 200 and eng.shift == 80
     assert eng.feats_for(np.zeros(8000, np.float32)).shape[0] == 1 + (
         8000 - eng.win) // eng.shift
-    with pytest.raises(NotImplementedError, match="slice 2"):
+    # the streaming options and their defaults; a bidirectional model
+    # gets no streaming slots
+    assert (eng.args.max_streams, eng.args.chunk_frames) == (8, 20)
+    assert eng.stream is None and eng.stream_start() is None
+    with pytest.raises(NotImplementedError, match="item 7"):
         tserve.Engine(tserve.parse_args(["--dir", exp, "--device", "cpu",
                                          "--graph", "TLG.fst"]))
     # a global CMVN .npy is applied on the engine's device
@@ -197,6 +205,7 @@ def test_port_imports_without_jax(tmp_path):
         "import kaldi_ctc_tpu_torch.models.artifact\n"
         "import kaldi_ctc_tpu_torch.training.checkpoint\n"
         "import kaldi_ctc_tpu_torch.decoding.scores\n"
+        "import kaldi_ctc_tpu_torch.decoding.streaming\n"
         "import kaldi_ctc_tpu_torch.ops.rnn_cuda\n"
         "import kaldi_ctc_tpu_torch.ops.ctc, kaldi_ctc_tpu_torch.ops.ctc_cuda\n"
         "import kaldi_ctc_tpu_torch.training.train\n"

@@ -1,11 +1,13 @@
 """The port's training step (``kaldi_ctc_tpu_torch/training/train.py``)
 held to the JAX package's on the CPU: the lr schedule, the clip, three
-steps of ``build_train_step`` on the tiny flagship from the JAX
-package's initial state (f32 and bf16, momentum 0 and 0.9), the
-non-finite guard, and the eval step with its accuracy.
+steps of ``build_train_step`` on the tiny flagship and on its
+unidirectional variant from the JAX package's initial state (f32 and
+bf16, momentum 0 and 0.9), the non-finite guard, and the eval step with
+its accuracy.
 
 JAX's train step on the CPU runs its ``lax.scan`` RNN and its XLA CTC;
-the port runs the plain versions of K2, K3 and K1."""
+the port runs the plain versions of K2, K3 and K1 (BLSTM) or K5, K6 and
+K1 (unidirectional LSTM)."""
 
 import dataclasses
 
@@ -18,9 +20,9 @@ import torch
 from __graft_entry__ import _flagship_cfg
 from kaldi_ctc_tpu.models import init_am_params
 from kaldi_ctc_tpu.training import train as jtrain
-from kaldi_ctc_tpu_torch.models.acoustic import AmConfig
+from kaldi_ctc_tpu_torch.models.acoustic import AmConfig, am_param_shapes
 from kaldi_ctc_tpu_torch.params import (from_jax_params, train_state_from_jax,
-                                        train_state_to_jax)
+                                        train_state_to_jax, tree_flatten)
 from kaldi_ctc_tpu_torch.training import train as ttrain
 
 B, T, L = 4, 20, 4
@@ -54,8 +56,9 @@ def _batch(seed=0):
             "label_lens": np.array([4, 3, 2, 2], np.int32)}
 
 
-def _cfgs(dtype="float32"):
-    jcfg = dataclasses.replace(_flagship_cfg(tiny=True), compute_dtype=dtype)
+def _cfgs(dtype="float32", bidirectional=True):
+    jcfg = dataclasses.replace(_flagship_cfg(tiny=True), compute_dtype=dtype,
+                               bidirectional=bidirectional)
     return jcfg, AmConfig.from_dict(jcfg.to_dict())
 
 
@@ -94,8 +97,19 @@ def test_clip_tree_matches_jax(clip_norm):
 @pytest.mark.parametrize("momentum", [0.0, 0.9])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_train_steps_match_jax(dtype, momentum):
+    _check_train_steps(dtype, momentum, bidirectional=True)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_uni_train_steps_match_jax(dtype):
+    """The unidirectional variant (bench.py's streaming config) through
+    the plain versions of K5, K6 and K1."""
+    _check_train_steps(dtype, 0.9, bidirectional=False)
+
+
+def _check_train_steps(dtype, momentum, bidirectional):
     loss_tol, norm_tol, param_tol, velocity_tol = TOLS[dtype]
-    jcfg, tcfg = _cfgs(dtype)
+    jcfg, tcfg = _cfgs(dtype, bidirectional)
     jstate = jtrain.init_train_state(init_am_params(jax.random.PRNGKey(0),
                                                     jcfg))
     tstate = train_state_from_jax(jax.device_get(jstate))
@@ -155,7 +169,15 @@ def test_nonfinite_batch_leaves_state_unchanged():
 
 
 def test_eval_step_and_accuracy_match_jax():
-    jcfg, tcfg = _cfgs()
+    _check_eval_step(bidirectional=True)
+
+
+def test_uni_eval_step_matches_jax():
+    _check_eval_step(bidirectional=False)
+
+
+def _check_eval_step(bidirectional):
+    jcfg, tcfg = _cfgs(bidirectional=bidirectional)
     jparams = init_am_params(jax.random.PRNGKey(3), jcfg)
     batch = _batch(2)
     jm = jtrain.make_eval_step(jcfg)(jparams, {k: jnp.asarray(v)
@@ -173,7 +195,17 @@ def test_eval_step_and_accuracy_match_jax():
 
 
 def test_train_state_converts_both_ways():
-    jcfg, _ = _cfgs()
+    _check_train_state_round_trip(bidirectional=True)
+
+
+def test_uni_train_state_converts_both_ways():
+    """A unidirectional tree (one direction per layer) carries across
+    as it is: same leaves, same order, same shapes."""
+    _check_train_state_round_trip(bidirectional=False)
+
+
+def _check_train_state_round_trip(bidirectional):
+    jcfg, tcfg = _cfgs(bidirectional=bidirectional)
     jstate = jtrain.init_train_state(init_am_params(jax.random.PRNGKey(0),
                                                     jcfg))
     jstate = jstate._replace(step=jnp.asarray(7, jnp.int32))
@@ -183,6 +215,12 @@ def test_train_state_converts_both_ways():
     for a, b in zip(_leaves((back.params, back.velocity)),
                     _leaves((jstate.params, jstate.velocity))):
         np.testing.assert_array_equal(a, np.asarray(b))
+    tparams = train_state_from_jax(jax.device_get(jstate)).params
+    shapes = am_param_shapes(tcfg)
+    assert all(len(layer["dirs"]) == (2 if bidirectional else 1)
+               for layer in tparams["rnn"])
+    assert [tuple(t.shape) for t in tree_flatten(tparams)] == \
+        [tuple(s) for s in tree_flatten(shapes)]
 
 
 def test_unported_training_options_raise():
