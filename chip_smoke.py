@@ -5,12 +5,14 @@
 Builds the port's CUDA kernels from ``kaldi_ctc_tpu_torch/csrc`` (one nvcc
 per source, all started together) and drives the serving path, the
 streaming path and the training step at the full width of the flagship
-model and of its unidirectional variant.  Each phase prints one JSON
-line; any failed phase exits non-zero with no result line:
+model and of its unidirectional variant, each with LSTM and with GRU
+layers.  Each phase prints one JSON line; any failed phase exits
+non-zero with no result line:
 
 1. device: the card's name and power limit (nvidia-smi), torch and CUDA
    versions;
-2. build: the seven kernel sources compiled by nvcc for sm_90a, timed;
+2. build: every kernel source in csrc/ (nine) compiled by nvcc for
+   sm_90a, timed;
 3. k4_log_mel: the log-mel kernel against its plain version on 8 s of
    16 kHz audio (798 frames, MFCC-hires mel bank): max error, median ms;
 4. k2_bilstm: the BiLSTM forward kernel against its plain version at
@@ -58,11 +60,29 @@ line; any failed phase exits non-zero with no result line:
 14. train_uni: the train phase for the unidirectional 5x320 (K5 5x, K6
    5x, K1 once per step; eval K5 5x, K11 once);
 15. profile_stream: one 8-slot tick per dtype under torch.profiler: K7's
-   share of device time and the device's idle share.
+   share of device time and the device's idle share;
+16. k9_gru: the unidirectional GRU forward kernel K9a against its plain
+   version at T=800, B=1 and B=8, T=240, B=48, and one reverse case, and
+   its backward K9b at T=240, B=48 with ragged lengths, H=320, f32 and
+   bf16, with cuDNN's nn.GRU as the library yardstick; in f32 K9a also
+   against nn.GRU holding the same function (full-length rows);
+17. k8_bigru: the same for the BiGRU kernels K8a and K8b;
+18. serve_gru: the 5x320 BiGRU served per dtype as in 7 (K8a 5x per
+   request, K4 >= 1x), scores against the plain versions;
+19. serve_gru_uni: the unidirectional 5x320 GRU as in 13: /recognize
+   through K9a 5x, 8 concurrent streams through the per-layer loop in
+   torch ops (the JAX package runs its XLA scan there: no kernel, no K7
+   launch), every stream's labels equal to its /recognize labels;
+20. train_gru, train_gru_uni: the train phase for both GRU models (K8a
+   and K8b, or K9a and K9b, 5x each and K1 once per step; eval K8a or
+   K9a 5x and K11 once);
+21. profile_gru, profile_stream_gru: phases 9 and 15 for the GRU models
+   (K8a's share of a request; the GRU tick's wall and idle share).
 
 Then a line ``{"kernels": [...]}`` with each kernel's launches during the
 driven paths (serve, train, eval, the separate CTC path, serve_uni with
-its streams, train_uni; counts set to 0 before each and read after it),
+its streams, train_uni, and the same four for the GRU models; counts set
+to 0 before each and read after it),
 its error, its time beside the plain version's, its bound (the larger of
 its bytes over 3.35 TB/s and its operations over the peak rate of its
 type: 67 TFLOP/s f32, 989 TFLOP/s bf16, H100 SXM data sheet) and the
@@ -108,6 +128,16 @@ K3_TOL = {"float32": 1e-4, "bfloat16": 5e-2}
 # grad-norm rtol, params atol).  f32: another summation order; bf16: the
 # bf16 storage sites are the same, their rounding flips differ.
 TRAIN_TOL = {"float32": (1e-5, 1e-4, 1e-6), "bfloat16": (2e-3, 2e-2, 1e-4)}
+# The GRU models' steps: f32 params 3e-6.  Their kernels agree with the
+# plain versions as closely as the LSTM's (~1e-6 on dgates of ~5), but the
+# 3 steps at lr 5e-4 on gradient sums swing the BiGRU's loss 40k -> 16k ->
+# 34k, and each step multiplies the difference by ~5 (grad-norm rel 1e-6,
+# 8e-6, 3e-5): the measured params error is 1.5e-6.
+TRAIN_TOL_GRU = {"float32": (1e-5, 1e-4, 3e-6),
+                 "bfloat16": TRAIN_TOL["bfloat16"]}
+# K8a / K9a in f32 against cuDNN's nn.GRU holding the same function:
+# cuDNN's own summation order and transcendentals over 240 steps.
+NN_GRU_TOL = 1e-3
 # bench.py's training shapes and its audio per step
 TRAIN_B, TRAIN_T, TRAIN_L = 48, 240, 70
 SECONDS_PER_FRAME = 0.03
@@ -115,7 +145,8 @@ TRAIN_STEPS_PER_CALL, TRAIN_TIMED_CALLS = 3, 5
 # the streaming server: slots and frames per tick (serve.py's defaults)
 STREAMS, CHUNK_FRAMES = 8, 20
 KERNELS = ("log_mel", "bilstm_fwd", "bilstm_bwd", "ctc_alpha_beta",
-           "ctc_alphas", "ctc_betas", "lstm_fwd", "lstm_bwd", "lstm_stack")
+           "ctc_alphas", "ctc_betas", "lstm_fwd", "lstm_bwd", "lstm_stack",
+           "bigru_fwd", "bigru_bwd", "gru_fwd", "gru_bwd")
 DTYPES = ("float32", "bfloat16")
 # H100 SXM published peaks (NVIDIA data sheet): HBM bytes/s, f32 and bf16
 # FLOP/s; the bound of a kernel is the larger of its two times
@@ -174,13 +205,19 @@ def lstm_ops(lens, h, products):
     return 2.0 * products * int(lens.sum()) * h * 4 * h
 
 
-def library_lstm_ms(torch, dev, dtype, t, b, d_in, h, num_layers=1,
-                    bidirectional=False, backward=False, state=False):
-    """Median ms of cuDNN's torch.nn.LSTM (TF32 off) on the same shapes:
-    forward, or the backward of one forward (input and weight
-    gradients)."""
-    lstm = torch.nn.LSTM(d_in, h, num_layers=num_layers,
-                         bidirectional=bidirectional).to(dev, dtype)
+def gru_ops(lens, h, products):
+    """FLOPs of ``products`` [B, H] x [H, 3H] products per valid frame."""
+    return 2.0 * products * int(lens.sum()) * h * 3 * h
+
+
+def library_rnn_ms(torch, dev, dtype, t, b, d_in, h, num_layers=1,
+                   bidirectional=False, backward=False, state=False,
+                   cell="LSTM"):
+    """Median ms of cuDNN's torch.nn.LSTM, or torch.nn.GRU with
+    ``cell="GRU"`` (TF32 off), on the same shapes: forward, or the
+    backward of one forward (input and weight gradients)."""
+    rnn = getattr(torch.nn, cell)(d_in, h, num_layers=num_layers,
+                                  bidirectional=bidirectional).to(dev, dtype)
     x = torch.randn(t, b, d_in, device=dev, dtype=dtype,
                     requires_grad=backward)
     hc = None
@@ -190,10 +227,10 @@ def library_lstm_ms(torch, dev, dtype, t, b, d_in, h, num_layers=1,
                    for _ in range(2))
     if not backward:
         with torch.no_grad():
-            return median_ms(lambda: lstm(x, hc), 10, torch)
-    y, _ = lstm(x, hc)
+            return median_ms(lambda: rnn(x, hc), 10, torch)
+    y, _ = rnn(x, hc)
     dy = torch.randn_like(y)
-    leaves = [x] + list(lstm.parameters())
+    leaves = [x] + list(rnn.parameters())
     return median_ms(lambda: torch.autograd.grad(
         y, leaves, dy, retain_graph=True), 10, torch)
 
@@ -202,7 +239,7 @@ def wrappers():
     """Each kernel's wrapper function, by kernel name (the functions
     carry the launch counters)."""
     from kaldi_ctc_tpu_torch.features import stft_cuda
-    from kaldi_ctc_tpu_torch.ops import ctc_cuda, rnn_cuda
+    from kaldi_ctc_tpu_torch.ops import ctc_cuda, gru_cuda, rnn_cuda
     return {"log_mel": stft_cuda.log_mel,
             "bilstm_fwd": rnn_cuda.bilstm_seq_fwd,
             "bilstm_bwd": rnn_cuda.bilstm_seq_bwd_dgates,
@@ -211,7 +248,11 @@ def wrappers():
             "ctc_betas": ctc_cuda.backward_betas,
             "lstm_fwd": rnn_cuda.lstm_seq_fwd,
             "lstm_bwd": rnn_cuda.lstm_seq_bwd_dgates,
-            "lstm_stack": rnn_cuda.lstm_stack_fwd}
+            "lstm_stack": rnn_cuda.lstm_stack_fwd,
+            "bigru_fwd": gru_cuda.bigru_seq_fwd,
+            "bigru_bwd": gru_cuda.bigru_seq_bwd_dgates,
+            "gru_fwd": gru_cuda.gru_seq_fwd,
+            "gru_bwd": gru_cuda.gru_seq_bwd_dgates}
 
 
 def reset_counts():
@@ -228,7 +269,7 @@ def plain_versions():
     """Route the wrappers' callers to the plain versions (for the
     comparison runs; no kernel launches and no counts)."""
     from kaldi_ctc_tpu_torch.features import stft_cuda
-    from kaldi_ctc_tpu_torch.ops import ctc_cuda, rnn_cuda
+    from kaldi_ctc_tpu_torch.ops import ctc_cuda, gru_cuda, rnn_cuda
     swaps = [(stft_cuda, "log_mel", stft_cuda.log_mel_reference),
              (rnn_cuda, "bilstm_seq_fwd", rnn_cuda.bilstm_seq_fwd_reference),
              (rnn_cuda, "bilstm_seq_bwd_dgates",
@@ -240,6 +281,9 @@ def plain_versions():
              (rnn_cuda, "lstm_seq_bwd_dgates",
               rnn_cuda.lstm_seq_bwd_dgates_reference),
              (rnn_cuda, "lstm_stack_fwd", rnn_cuda.lstm_stack_fwd_reference)]
+    swaps += [(gru_cuda, name, getattr(gru_cuda, name + "_reference"))
+              for name in ("gru_seq_fwd", "gru_seq_bwd_dgates",
+                           "bigru_seq_fwd", "bigru_seq_bwd_dgates")]
     saved = [(mod, name, getattr(mod, name)) for mod, name, _ in swaps]
     for mod, name, plain in swaps:
         setattr(mod, name, plain)
@@ -271,10 +315,10 @@ def phase_device(torch):
 
 
 def phase_build():
-    """One nvcc per kernel source, all started together."""
+    """One nvcc per kernel source in csrc/, all started together."""
     from kaldi_ctc_tpu_torch import _kernels
-    names = ("log_mel", "bilstm_fwd", "bilstm_bwd", "ctc_alpha_beta",
-             "lstm_fwd", "lstm_bwd", "lstm_stack")
+    names = sorted(f[:-3] for f in os.listdir(_kernels._CSRC)
+                   if f.endswith(".cu"))
 
     def build(name):
         t0 = time.perf_counter()
@@ -367,7 +411,7 @@ def phase_k2(torch, np, dev):
                 # cuDNN's layer includes the input projection (a layer
                 # above the first: 2H inputs), so the kernel's own
                 # projection GEMM stands beside it
-                row["library_ms"] = library_lstm_ms(
+                row["library_ms"] = library_rnn_ms(
                     torch, dev, dtype, t_max, b, 2 * h, h,
                     bidirectional=True)
                 row["projection_plus_kernel_ms"] = projection_plus_kernel_ms(
@@ -569,7 +613,7 @@ def phase_k3(torch, np, dev):
                # the gate recompute and the dh product, per direction
                **bound(nbytes(*args, *got), lstm_ops(lens, h, 4),
                        dtype_name),
-               "library_ms": library_lstm_ms(
+               "library_ms": library_rnn_ms(
                    torch, dev, dtype, t_max, b, 2 * h, h,
                    bidirectional=True, backward=True)}
         rows.append(row)
@@ -622,8 +666,8 @@ def phase_k5(torch, np, dev):
                    **bound(nbytes(xp, w, lens, *got), lstm_ops(lens, h, 1),
                            dtype_name), "library_ms": None}
             if b == TRAIN_B:
-                row["library_ms"] = library_lstm_ms(torch, dev, dtype, t_max,
-                                                    b, h, h)
+                row["library_ms"] = library_rnn_ms(torch, dev, dtype, t_max,
+                                                   b, h, h)
                 row["projection_plus_kernel_ms"] = projection_plus_kernel_ms(
                     torch, dev, dtype, t_max, b, h, 4 * h,
                     lambda p: rnn_cuda.lstm_seq_fwd(p, w, lens))
@@ -662,8 +706,8 @@ def phase_k6(torch, np, dev):
                    torch),
                # the gate recompute and the dh product
                **bound(nbytes(*args, got), lstm_ops(lens, h, 2), dtype_name),
-               "library_ms": library_lstm_ms(torch, dev, dtype, t_max, b, h,
-                                             h, backward=True)}
+               "library_ms": library_rnn_ms(torch, dev, dtype, t_max, b, h,
+                                            h, backward=True)}
         rows.append(row)
         emit({"phase": "k6_lstm_bwd", **row})
         if not ok:
@@ -672,13 +716,160 @@ def phase_k6(torch, np, dev):
     return kernel_row(rows, rows[1])     # bf16
 
 
-def uni_model(torch, dtype, dev):
+def gru_inputs(torch, np, dev, t_max, b, h, dtype, seed, dirs=1):
+    """Seeded K9a (dirs=1) or K8a (dirs=2) operands: the projection
+    [T, B, dirs*3H], ``dirs`` recurrent weights [H, 3H], lengths (row 0
+    full, the rest ragged from T/2 up)."""
+    rng = np.random.default_rng(seed)
+    xp = torch.as_tensor(rng.standard_normal((t_max, b, dirs * 3 * h))
+                         .astype(np.float32) * 0.5, device=dev).to(dtype)
+    ws = [torch.as_tensor((rng.standard_normal((h, 3 * h)) / np.sqrt(h))
+                          .astype(np.float32), device=dev).to(dtype)
+          for _ in range(dirs)]
+    lens = np.full(b, t_max, np.int32)
+    lens[1:] = rng.integers(t_max // 2, t_max + 1, size=b - 1)
+    return xp, ws, torch.as_tensor(lens, device=dev)
+
+
+def nn_gru_err(torch, xp, ws, ys):
+    """Max |y - torch.nn.GRU's output| on full-length rows, f32, with
+    cuDNN holding the same function: each direction's input weight
+    selects its 3H columns of the projection (identity), its recurrent
+    weight is w_h^T, its biases are 0 (gate order r, z, n and the
+    reset gate on the recurrent term are cuDNN's own GRU)."""
+    t, b, g = xp.shape
+    g3 = g // len(ws)
+    h = g3 // 3
+    gru = torch.nn.GRU(g, h, bidirectional=len(ws) == 2).to(xp.device)
+    eye = torch.eye(g, device=xp.device)
+    with torch.no_grad():
+        for d, (w, sfx) in enumerate(zip(ws, ("", "_reverse"))):
+            getattr(gru, "weight_ih_l0" + sfx).copy_(eye[d * g3:(d + 1) * g3])
+            getattr(gru, "weight_hh_l0" + sfx).copy_(w.float().T)
+            getattr(gru, "bias_ih_l0" + sfx).zero_()
+            getattr(gru, "bias_hh_l0" + sfx).zero_()
+        out, _ = gru(xp.float())
+    return float((out - torch.cat([y.float() for y in ys], -1)).abs().max())
+
+
+def phase_gru_kernels(torch, np, dev, bidirectional):
+    """K8a and K8b (``bidirectional``) or K9a and K9b against their plain
+    versions: the forward at T=800, B=1 and B=8 (serving; K9a also one
+    reverse case) and T=240, B=48 (training), the backward at T=240,
+    B=48 with ragged lengths, H=320, f32 and bf16; in f32 the forward
+    also against cuDNN's nn.GRU holding the same function."""
+    from kaldi_ctc_tpu_torch.ops import gru_cuda
+    h, dirs = 320, 2 if bidirectional else 1
+    if bidirectional:
+        phase, kname, prefix = "k8_bigru", "K8", "bigru"
+        fwd, fwd_ref = gru_cuda.bigru_seq_fwd, gru_cuda.bigru_seq_fwd_reference
+        bwd, bwd_ref = (gru_cuda.bigru_seq_bwd_dgates,
+                        gru_cuda.bigru_seq_bwd_dgates_reference)
+        shapes = ((800, 1, False), (800, 8, False), (TRAIN_T, TRAIN_B, False))
+    else:
+        phase, kname, prefix = "k9_gru", "K9", "gru"
+        fwd, fwd_ref = gru_cuda.gru_seq_fwd, gru_cuda.gru_seq_fwd_reference
+        bwd, bwd_ref = (gru_cuda.gru_seq_bwd_dgates,
+                        gru_cuda.gru_seq_bwd_dgates_reference)
+        shapes = ((800, 1, False), (800, 8, False), (800, 1, True),
+                  (TRAIN_T, TRAIN_B, False))
+
+    def fwd_args(xp, ws, lens, reverse):
+        return (xp, *ws, lens) + (() if bidirectional else (reverse,))
+
+    fwd_rows, bwd_rows = [], []
+    for dtype_name in DTYPES:
+        dtype = getattr(torch, dtype_name)
+        for t_max, b, reverse in shapes:
+            xp, ws, lens = gru_inputs(torch, np, dev, t_max, b, h, dtype, b,
+                                      dirs)
+            args = fwd_args(xp, ws, lens, reverse)
+            got = fwd(*args)
+            ref = fwd_ref(*args)
+            got, ref = ((got, ref) if bidirectional else ((got,), (ref,)))
+            torch.cuda.synchronize()
+            errs = [max_err(g, r, 0.0, K2_TOL[dtype_name])
+                    for g, r in zip(got, ref)]
+            row = {"kernel": f"{kname}a", "dtype": dtype_name, "T": t_max,
+                   "B": b, "H": h, "reverse": reverse,
+                   "max_abs_err": max(e for e, _ in errs),
+                   "tol": K2_TOL[dtype_name],
+                   "ms": median_ms(lambda: fwd(*args), 10, torch),
+                   "plain_ms": median_ms(lambda: fwd_ref(*args), 3, torch),
+                   **bound(nbytes(xp, *ws, lens, *got), gru_ops(lens, h, dirs),
+                           dtype_name), "library_ms": None}
+            if b == TRAIN_B:
+                # cuDNN's layer includes the input projection (a layer
+                # above the first: dirs*H inputs), so the kernel's own
+                # projection GEMM stands beside it
+                row["library_ms"] = library_rnn_ms(
+                    torch, dev, dtype, t_max, b, dirs * h, h,
+                    bidirectional=bidirectional, cell="GRU")
+                row["projection_plus_kernel_ms"] = projection_plus_kernel_ms(
+                    torch, dev, dtype, t_max, b, dirs * h, dirs * 3 * h,
+                    lambda p: fwd(*fwd_args(p, ws, lens, False)))
+                if dtype_name == "float32":
+                    full = torch.full_like(lens, t_max)
+                    ys = fwd(*fwd_args(xp, ws, full, False))
+                    row["max_abs_err_vs_nn_gru_full_rows"] = nn_gru_err(
+                        torch, xp, ws, ys if bidirectional else (ys,))
+                    errs.append((row["max_abs_err_vs_nn_gru_full_rows"],
+                                 row["max_abs_err_vs_nn_gru_full_rows"]
+                                 <= NN_GRU_TOL))
+            fwd_rows.append(row)
+            emit({"phase": phase, **row})
+            if not all(ok for _, ok in errs):
+                fail(f"{kname}a {prefix}_seq_fwd disagrees: {row}")
+
+        # the backward at the training shape, on the kernel's forward
+        xp, ws, lens = gru_inputs(torch, np, dev, TRAIN_T, TRAIN_B, h, dtype,
+                                  6, dirs)
+        ys = fwd(*fwd_args(xp, ws, lens, False))
+        ys = ys if bidirectional else (ys,)
+        rng = np.random.default_rng(7)
+        dys = [torch.as_tensor(rng.standard_normal((TRAIN_T, TRAIN_B, h))
+                               .astype(np.float32), device=dev).to(dtype)
+               for _ in range(dirs)]
+        args = ((*dys, xp, *ys, *ws, lens) if bidirectional
+                else (dys[0], xp, ys[0], ws[0], lens))
+        got = bwd(*args)
+        ref = bwd_ref(*args)
+        torch.cuda.synchronize()
+        errs = [max_err(g, r, 0.0, K3_TOL[dtype_name])
+                for g, r in zip(got, ref)]
+        row = {"kernel": f"{kname}b", "dtype": dtype_name, "T": TRAIN_T,
+               "B": TRAIN_B, "H": h,
+               "max_abs_err": max(e for e, _ in errs),
+               "max_abs_ref": max(float(r.float().abs().max()) for r in ref),
+               "tol": K3_TOL[dtype_name],
+               "ms": median_ms(lambda: bwd(*args), 10, torch),
+               "plain_ms": median_ms(lambda: bwd_ref(*args), 3, torch),
+               # the gate recompute and the dh product, per direction
+               **bound(nbytes(*args, *got), gru_ops(lens, h, 2 * dirs),
+                       dtype_name),
+               "library_ms": library_rnn_ms(
+                   torch, dev, dtype, TRAIN_T, TRAIN_B, dirs * h, h,
+                   bidirectional=bidirectional, backward=True, cell="GRU")}
+        bwd_rows.append(row)
+        emit({"phase": phase, **row})
+        if not all(ok for _, ok in errs):
+            fail(f"{kname}b {prefix}_seq_bwd_dgates disagrees: {row}")
+    # the kernels line reports the training shape in bf16
+    train_row = next(r for r in fwd_rows
+                     if r["dtype"] == "bfloat16" and r["B"] == TRAIN_B)
+    return {f"{prefix}_fwd": kernel_row(fwd_rows, train_row),
+            f"{prefix}_bwd": kernel_row(bwd_rows, bwd_rows[1])}
+
+
+def uni_model(torch, dtype, dev, mode=None):
     """The unidirectional 5x320 streaming flagship (bench.py's
-    ``dataclasses.replace(_flagship_cfg(), bidirectional=False)``),
-    random weights from seed 0."""
+    ``dataclasses.replace(_flagship_cfg(), bidirectional=False)``), an
+    LSTM or ``mode``'s cell, random weights from seed 0."""
     from kaldi_ctc_tpu_torch.models.acoustic import AmConfig, init_am_params
+    from kaldi_ctc_tpu_torch.ops.rnn import RnnMode
     cfg = AmConfig(input_dim=40, num_targets=72, hidden_dim=320,
-                   num_layers=5, bidirectional=False, compute_dtype=dtype)
+                   num_layers=5, mode=mode or RnnMode.LSTM,
+                   bidirectional=False, compute_dtype=dtype)
     return cfg, init_am_params(cfg, torch.Generator().manual_seed(0), dev)
 
 
@@ -754,9 +945,9 @@ def phase_k7(torch, np, dev):
                # layers above, per valid frame
                **bound(nbytes(args[0], *wxs, *whs, *bs, lens, h0, c0, *got),
                        lstm_ops(lens, h, 2 * n_layers - 1), dtype_name),
-               "library_ms": library_lstm_ms(torch, dev, dtype, t_max, b, 40,
-                                             h, num_layers=n_layers,
-                                             state=True),
+               "library_ms": library_rnn_ms(torch, dev, dtype, t_max, b, 40,
+                                            h, num_layers=n_layers,
+                                            state=True),
                "utterance_frames": int(x.shape[0]),
                "utterance_chunks": n_chunks,
                "max_abs_err_stream_vs_offline_k5": stream_err}
@@ -778,15 +969,21 @@ def post(port, path, body):
     return resp.status, data, time.perf_counter() - t0
 
 
-def phase_serve(torch, np):
+def phase_serve(torch, np, mode=None):
+    """The bidirectional 5x320 flagship, a BLSTM or ``mode``'s cell,
+    served per dtype through /recognize (K2 or K8a 5x per request)."""
     from kaldi_ctc_tpu_torch.cli import serve
     from kaldi_ctc_tpu_torch.features import stft_cuda
     from kaldi_ctc_tpu_torch.models.acoustic import (AmConfig,
                                                      default_priors,
                                                      init_am_params)
     from kaldi_ctc_tpu_torch.models.artifact import save_inference_artifact
-    from kaldi_ctc_tpu_torch.ops import rnn_cuda
     from kaldi_ctc_tpu_torch.ops.rnn import RnnMode
+
+    mode = mode or RnnMode.LSTM
+    gru = mode == RnnMode.GRU
+    kname, tag = ("bigru_fwd", "bigru") if gru else ("bilstm_fwd", "flagship")
+    kern = wrappers()[kname]
 
     out_dir = os.path.join(ROOT, "build", "smoke")
     os.makedirs(out_dir, exist_ok=True)
@@ -796,10 +993,10 @@ def phase_serve(torch, np):
     engines = {}
     for dtype in ("float32", "bfloat16"):
         cfg = AmConfig(input_dim=40, num_targets=72, hidden_dim=320,
-                       num_layers=5, mode=RnnMode.LSTM, bidirectional=True,
+                       num_layers=5, mode=mode, bidirectional=True,
                        compute_dtype=dtype)
         params = init_am_params(cfg, torch.Generator().manual_seed(0))
-        path = os.path.join(out_dir, f"flagship_{dtype}.npz")
+        path = os.path.join(out_dir, f"{tag}_{dtype}.npz")
         save_inference_artifact(path, params, cfg,
                                 priors=default_priors(cfg.num_targets))
         server, engine = serve.make_server(serve.parse_args(
@@ -817,18 +1014,18 @@ def phase_serve(torch, np):
             # counts from the served requests only
             reset_counts()
             for secs, x in zip(seconds, audio):
-                k2_0 = rnn_cuda.bilstm_seq_fwd.launches
+                k2_0 = kern.launches
                 k4_0 = stft_cuda.log_mel.launches
                 status, data, wall = post(port, "/recognize", x.tobytes())
-                k2 = rnn_cuda.bilstm_seq_fwd.launches - k2_0
+                k2 = kern.launches - k2_0
                 k4 = stft_cuda.log_mel.launches - k4_0
                 frames = 1 + (len(x) - 400) // 160
                 reqs.append({"seconds": secs, "status": status,
                              "num_frames": data.get("num_frames"),
                              "num_labels": len(data.get("labels", [])),
                              "latency_ms": round(wall * 1000, 3),
-                             "rtf": data.get("rtf"), "k2_launches": k2,
-                             "k4_launches": k4})
+                             "rtf": data.get("rtf"),
+                             f"{kname}_launches": k2, "k4_launches": k4})
                 if status != 200 or data.get("num_frames") != frames:
                     fail(f"/recognize {secs}s: {status} {data}")
                 labels = data["labels"]
@@ -836,7 +1033,7 @@ def phase_serve(torch, np):
                            for l in labels):
                     fail(f"/recognize {secs}s: bad labels {labels[:10]}")
                 if k2 != cfg.num_layers or k4 < 1:
-                    fail(f"/recognize {secs}s launched K2 {k2}x (want "
+                    fail(f"/recognize {secs}s launched {kname} {k2}x (want "
                          f"{cfg.num_layers}) and K4 {k4}x (want >= 1)")
             for name, n in read_counts().items():
                 launches[name] += n
@@ -858,8 +1055,9 @@ def phase_serve(torch, np):
                 fail(f"scores not finite or misshapen: {raw.shape}")
             score_err = max(score_err, float(np.abs(raw - raw_p).max()))
             same_labels += int((raw.argmax(-1) == raw_p.argmax(-1)).all())
-        res = {"phase": "serve", "dtype": dtype,
-               "model": "5x320 BLSTM, 40-dim MFCC-hires, 72 targets",
+        res = {"phase": "serve_gru" if gru else "serve", "dtype": dtype,
+               "model": "5x320 %s, 40-dim MFCC-hires, 72 targets"
+                        % ("BiGRU" if gru else "BLSTM"),
                "requests": reqs, "max_abs_score_err_vs_plain": score_err,
                "score_tol": SCORE_TOL[dtype],
                "utterances_with_equal_frame_argmax": same_labels}
@@ -920,15 +1118,21 @@ def stream_scores(torch, np, rec, feats, lens_of):
     return [torch.cat(o) for o in out]
 
 
-def phase_serve_uni(torch, np):
-    """The unidirectional 5x320 served per dtype: /recognize through K5,
-    8 concurrent streams through K7, and the chunk function's scores
-    against the plain versions and the offline forward."""
+def phase_serve_uni(torch, np, mode=None):
+    """The unidirectional 5x320 served per dtype: /recognize through K5
+    (a GRU's through K9a), 8 concurrent streams through K7 (a GRU stack:
+    the per-layer loop in torch ops, no kernel), and the chunk function's
+    scores against the plain versions and the offline forward."""
     from kaldi_ctc_tpu_torch.cli import serve
     from kaldi_ctc_tpu_torch.features import stft_cuda
     from kaldi_ctc_tpu_torch.models.acoustic import am_forward, default_priors
     from kaldi_ctc_tpu_torch.models.artifact import save_inference_artifact
     from kaldi_ctc_tpu_torch.ops import rnn_cuda
+    from kaldi_ctc_tpu_torch.ops.rnn import RnnMode
+
+    gru = mode == RnnMode.GRU
+    kname, tag = ("gru_fwd", "gru_uni") if gru else ("lstm_fwd", "uni")
+    kern = wrappers()[kname]
 
     out_dir = os.path.join(ROOT, "build", "smoke")
     os.makedirs(out_dir, exist_ok=True)
@@ -940,9 +1144,9 @@ def phase_serve_uni(torch, np):
     launches = dict.fromkeys(KERNELS, 0)
     engines = {}
     for dtype in DTYPES:
-        cfg, params = uni_model(torch, dtype, "cpu")
+        cfg, params = uni_model(torch, dtype, "cpu", mode)
         priors = default_priors(cfg.num_targets)
-        path = os.path.join(out_dir, f"uni_{dtype}.npz")
+        path = os.path.join(out_dir, f"{tag}_{dtype}.npz")
         save_inference_artifact(path, params, cfg, priors=priors)
         server, engine = serve.make_server(serve.parse_args(
             ["--model", path, "--device", "cuda", "--port", "0",
@@ -966,23 +1170,24 @@ def phase_serve_uni(torch, np):
             reset_counts()
             reqs = []
             for secs, x in zip(seconds, audio):
-                k5_0 = rnn_cuda.lstm_seq_fwd.launches
+                k5_0 = kern.launches
                 k4_0 = stft_cuda.log_mel.launches
                 status, data, wall = post(port, "/recognize", x.tobytes())
-                k5 = rnn_cuda.lstm_seq_fwd.launches - k5_0
+                k5 = kern.launches - k5_0
                 k4 = stft_cuda.log_mel.launches - k4_0
                 reqs.append({"seconds": secs, "status": status,
                              "num_frames": data.get("num_frames"),
                              "num_labels": len(data.get("labels", [])),
                              "latency_ms": round(wall * 1000, 3),
-                             "rtf": data.get("rtf"), "k5_launches": k5,
-                             "k4_launches": k4})
+                             "rtf": data.get("rtf"),
+                             f"{kname}_launches": k5, "k4_launches": k4})
                 if status != 200 or data.get("num_frames") != \
                         1 + (len(x) - 400) // 160:
                     fail(f"serve_uni /recognize {secs}s: {status} {data}")
                 if k5 != cfg.num_layers or k4 < 1:
-                    fail(f"serve_uni /recognize {secs}s launched K5 {k5}x "
-                         f"(want {cfg.num_layers}) and K4 {k4}x (want >= 1)")
+                    fail(f"serve_uni /recognize {secs}s launched {kname} "
+                         f"{k5}x (want {cfg.num_layers}) and K4 {k4}x (want "
+                         f">= 1)")
             ticks0 = engine.stream.ticks
             k7_0 = rnn_cuda.lstm_stack_fwd.launches
             barrier = threading.Barrier(STREAMS)
@@ -1001,7 +1206,7 @@ def phase_serve_uni(torch, np):
             server.server_close()
             thread.join(timeout=30)
         errors = [e for _, _, e in results if e]
-        if errors or k7 != ticks or ticks == 0:
+        if errors or k7 != (0 if gru else ticks) or ticks == 0:
             fail(f"serve_uni streams: errors {errors}, K7 {k7} launches "
                  f"for {ticks} ticks")
         walls = sorted(w for _, ws, _ in results for w in ws)
@@ -1009,8 +1214,11 @@ def phase_serve_uni(torch, np):
             int(labels == engine.recognize(a.astype(np.float32))["labels"])
             for (labels, _, _), a in zip(results, streams))
 
+        if gru and same_labels != STREAMS:
+            fail(f"serve_uni GRU: {same_labels} of {STREAMS} streams' "
+                 f"labels equal their /recognize labels")
         # the chunk function's scores: kernels, plain versions on the
-        # card, and the offline K5 forward of the whole utterance
+        # card, and the offline K5 (K9a) forward of the whole utterance
         feats = [engine.feats_for(a.astype(np.float32)) for a in streams]
         lens_of = lambda n, lo: max(0, min(CHUNK_FRAMES, n - lo))
         got = stream_scores(torch, np, engine.stream, feats, lens_of)
@@ -1029,9 +1237,10 @@ def phase_serve_uni(torch, np):
                 err_plain = max(err_plain, float((g - p_).abs().max()))
                 err_offline = max(err_offline,
                                   float((g - offline).abs().max()))
-        res = {"phase": "serve_uni", "dtype": dtype,
-               "model": "5x320 LSTM (unidirectional), 40-dim MFCC-hires, "
-                        "72 targets",
+        res = {"phase": "serve_gru_uni" if gru else "serve_uni",
+               "dtype": dtype,
+               "model": "5x320 %s (unidirectional), 40-dim MFCC-hires, 72 "
+                        "targets" % ("GRU" if gru else "LSTM"),
                "requests": reqs, "streams": STREAMS,
                "stream_seconds": [round(len(a) / 16000, 3)
                                   for a in streams],
@@ -1043,7 +1252,7 @@ def phase_serve_uni(torch, np):
                "streams_wall_s": round(stream_wall, 3),
                "streams_equal_to_recognize_labels": same_labels,
                "max_abs_score_err_vs_plain": err_plain,
-               "max_abs_score_err_vs_offline_k5": err_offline,
+               "max_abs_score_err_vs_offline": err_offline,
                "score_tol": SCORE_TOL[dtype]}
         emit(res)
         if max(err_plain, err_offline) > SCORE_TOL[dtype]:
@@ -1051,9 +1260,10 @@ def phase_serve_uni(torch, np):
     return launches, engines
 
 
-def phase_profile_stream(torch, np, engines):
+def phase_profile_stream(torch, np, engines, gru=False):
     """Where one 8-slot tick's time goes: device time by kernel from
-    torch.profiler against the tick's wall time."""
+    torch.profiler against the tick's wall time; K7's share for an LSTM
+    stack (a GRU stack launches none of the port's kernels)."""
     from torch.profiler import DeviceType, ProfilerActivity, profile
 
     rng = np.random.default_rng(50)
@@ -1079,7 +1289,8 @@ def phase_profile_stream(torch, np, engines):
         device_ms = sum(k[0] for k in kernels) / 1000
         k7_ms = sum(k[0] for k in kernels if "::lstm_stack_kernel" in k[2]) \
             / 1000
-        emit({"phase": "profile_stream", "dtype": dtype, "slots": STREAMS,
+        emit({"phase": "profile_stream_gru" if gru else "profile_stream",
+              "dtype": dtype, "slots": STREAMS,
               "chunk_frames": CHUNK_FRAMES,
               "untraced_tick_ms_median_of_11": round(walls[5], 3),
               "traced_tick_ms": round(traced_ms, 3),
@@ -1109,16 +1320,20 @@ def device_kernels(prof, DeviceType):
     return kernels
 
 
-def phase_train(torch, np, dev, bidirectional=True):
+def phase_train(torch, np, dev, bidirectional=True, mode=None):
     """The flagship training step (or, with ``bidirectional=False``, its
-    unidirectional variant's) at bench.py's shapes: parity with the
-    plain versions on the card, launch counts, the eval step, audio-s/s
-    and one profiled step, for f32 then bf16."""
+    unidirectional variant's; an LSTM or ``mode``'s cell) at bench.py's
+    shapes: parity with the plain versions on the card, launch counts,
+    the eval step, audio-s/s and one profiled step, for f32 then bf16."""
     from torch.profiler import DeviceType, ProfilerActivity, profile
 
     from kaldi_ctc_tpu_torch.models.acoustic import AmConfig, init_am_params
+    from kaldi_ctc_tpu_torch.ops.rnn import RnnMode
     from kaldi_ctc_tpu_torch.params import tree_flatten
     from kaldi_ctc_tpu_torch.training import train
+
+    mode = mode or RnnMode.LSTM
+    cell = "gru" if mode == RnnMode.GRU else "lstm"
 
     b, t, l = TRAIN_B, TRAIN_T, TRAIN_L
     rng = np.random.default_rng(0)
@@ -1128,12 +1343,12 @@ def phase_train(torch, np, dev, bidirectional=True):
         "input_lens": np.full((b,), t, np.int32),
         "label_lens": np.full((b,), l, np.int32)}.items()}
     audio_s_per_step = b * t * SECONDS_PER_FRAME
-    fwd, bwd = (("bilstm_fwd", "bilstm_bwd") if bidirectional
-                else ("lstm_fwd", "lstm_bwd"))
+    fwd, bwd = ((f"bi{cell}_fwd", f"bi{cell}_bwd") if bidirectional
+                else (f"{cell}_fwd", f"{cell}_bwd"))
     launches = dict.fromkeys(KERNELS, 0)
     for dtype in DTYPES:
         cfg = AmConfig(input_dim=40, num_targets=72, hidden_dim=320,
-                       num_layers=5, bidirectional=bidirectional,
+                       num_layers=5, mode=mode, bidirectional=bidirectional,
                        compute_dtype=dtype)
         params = init_am_params(cfg, torch.Generator().manual_seed(0), dev)
         state0 = train.init_train_state(params)
@@ -1170,7 +1385,8 @@ def phase_train(torch, np, dev, bidirectional=True):
                 state_p, m = step(state_p, batch)
                 plain.append({"loss_total": float(m["loss_total"]),
                               "grad_norm": float(m["grad_norm"])})
-        loss_tol, norm_tol, param_tol = TRAIN_TOL[dtype]
+        loss_tol, norm_tol, param_tol = (
+            TRAIN_TOL_GRU if cell == "gru" else TRAIN_TOL)[dtype]
         param_err = max(float((g - r).abs().max()) for g, r in zip(
             tree_flatten(state.params), tree_flatten(state_p.params)))
         loss_rel = max(abs(k["loss_total"] - p["loss_total"])
@@ -1217,10 +1433,11 @@ def phase_train(torch, np, dev, bidirectional=True):
             return round(sum(k[0] for k in kernels if tag in k[2])
                          / 1000 / device_ms, 4) if device_ms else None
 
-        res = {"phase": "train" if bidirectional else "train_uni",
+        res = {"phase": ("train" + ("_gru" if cell == "gru" else "")
+                         + ("" if bidirectional else "_uni")),
                "dtype": dtype,
-               "model": "5x320 %s, 40-dim input, 72 targets"
-                        % ("BLSTM" if bidirectional else "LSTM"),
+               "model": "5x320 %s%s, 40-dim input, 72 targets"
+                        % ("B" if bidirectional else "", cell.upper()),
                "B": b, "T": t, "L": l, "steps": steps, "plain_steps": plain,
                "max_rel_err_loss": loss_rel, "max_rel_err_grad_norm":
                    norm_rel, "max_abs_err_params": param_err,
@@ -1251,10 +1468,10 @@ def phase_train(torch, np, dev, bidirectional=True):
     return launches
 
 
-def phase_profile(torch, np, engines):
+def phase_profile(torch, np, engines, kname="bilstm_fwd"):
     """Where one 8 s request's time goes: device time by kernel from
-    torch.profiler, against the request's wall time with and without
-    the profiler."""
+    torch.profiler (``kname``'s share: K2, or K8a for the BiGRU), against
+    the request's wall time with and without the profiler."""
     from torch.profiler import DeviceType, ProfilerActivity, profile
 
     x = pcm(8.0, 13, np).astype(np.float32)
@@ -1279,7 +1496,8 @@ def phase_profile(torch, np, engines):
             return round(sum(k[0] for k in kernels if tag in k[2])
                          / 1000 / device_ms, 4) if device_ms else None
 
-        emit({"phase": "profile", "dtype": dtype, "audio_s": 8.0,
+        emit({"phase": "profile_gru" if "gru" in kname else "profile",
+              "dtype": dtype, "audio_s": 8.0,
               "untraced_ms_median_of_5": round(walls[2], 3),
               "traced_ms": round(traced_ms, 3),
               "device_kernel_ms": (round(device_ms, 3) if device_ms
@@ -1289,7 +1507,7 @@ def phase_profile(torch, np, engines):
               "device_idle_share_of_traced_wall":
                   (round(1 - device_ms / traced_ms, 4) if device_ms
                    else "not measured"),
-              "k2_share_of_device": share("bilstm_fwd_kernel"),
+              f"{kname}_share_of_device": share(f"::{kname}_kernel"),
               "k4_share_of_device": share("log_mel_kernel"),
               "top_kernels": [{"name": k[2][:80], "us": round(k[0], 1),
                                "count": k[1]} for k in kernels[:8]]})
@@ -1304,6 +1522,7 @@ def main():
     import torch
     if not torch.cuda.is_available():
         fail("no CUDA device: the smoke run needs one NVIDIA card")
+    from kaldi_ctc_tpu_torch.ops.rnn import RnnMode
     dev = torch.device("cuda", 0)
     smi = phase_device(torch)
     phase_build()
@@ -1315,17 +1534,28 @@ def main():
     measured["lstm_fwd"] = phase_k5(torch, np, dev)
     measured["lstm_bwd"] = phase_k6(torch, np, dev)
     measured["lstm_stack"] = phase_k7(torch, np, dev)
+    measured.update(phase_gru_kernels(torch, np, dev, bidirectional=False))
+    measured.update(phase_gru_kernels(torch, np, dev, bidirectional=True))
+    # the driven paths, each returning its launch counts
     served, engines = phase_serve(torch, np)
     trained = phase_train(torch, np, dev)
     served_uni, uni_engines = phase_serve_uni(torch, np)
     trained_uni = phase_train(torch, np, dev, bidirectional=False)
-    for name in KERNELS:
-        launches[name] += (served[name] + trained[name] + served_uni[name]
-                           + trained_uni[name])
+    served_gru, gru_engines = phase_serve(torch, np, RnnMode.GRU)
+    trained_gru = phase_train(torch, np, dev, mode=RnnMode.GRU)
+    served_gru_uni, gru_uni_engines = phase_serve_uni(torch, np, RnnMode.GRU)
+    trained_gru_uni = phase_train(torch, np, dev, bidirectional=False,
+                                  mode=RnnMode.GRU)
+    for counts in (served, trained, served_uni, trained_uni, served_gru,
+                   trained_gru, served_gru_uni, trained_gru_uni):
+        for name in KERNELS:
+            launches[name] += counts[name]
     if min(launches.values()) < 1:
         fail(f"a kernel of the driven paths never launched: {launches}")
     phase_profile(torch, np, engines)
     phase_profile_stream(torch, np, uni_engines)
+    phase_profile(torch, np, gru_engines, "bigru_fwd")
+    phase_profile_stream(torch, np, gru_uni_engines, gru=True)
     sources = {"log_mel": ("log_mel.cu", "features/stft_pallas.py:79"),
                "bilstm_fwd": ("bilstm_fwd.cu", "ops/rnn_pallas.py:602"),
                "bilstm_bwd": ("bilstm_bwd.cu", "ops/rnn_pallas.py:747"),
@@ -1335,7 +1565,11 @@ def main():
                "ctc_betas": ("ctc_alpha_beta.cu", "ops/ctc_pallas.py:215"),
                "lstm_fwd": ("lstm_fwd.cu", "ops/rnn_pallas.py:455"),
                "lstm_bwd": ("lstm_bwd.cu", "ops/rnn_pallas.py:531"),
-               "lstm_stack": ("lstm_stack.cu", "ops/rnn_pallas.py:1110")}
+               "lstm_stack": ("lstm_stack.cu", "ops/rnn_pallas.py:1110"),
+               "bigru_fwd": ("gru_fwd.cu", "ops/gru_pallas.py:238"),
+               "bigru_bwd": ("gru_bwd.cu", "ops/gru_pallas.py:274"),
+               "gru_fwd": ("gru_fwd.cu", "ops/gru_pallas.py:178"),
+               "gru_bwd": ("gru_bwd.cu", "ops/gru_pallas.py:204")}
     emit({"kernels": [
         {"name": name, "route": "cuda",
          "source": f"kaldi_ctc_tpu_torch/csrc/{sources[name][0]}",

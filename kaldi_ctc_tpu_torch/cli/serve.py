@@ -293,9 +293,10 @@ class Engine:
         """Feed complete chunk_frames ticks.
 
         Each tick batches EVERY stream with a full chunk pending (plus
-        the driving slot's flush remainder) into ONE process() call, one
-        K7 launch on CUDA.  Labels produced for other slots are queued on
-        their "ready" lists and delivered by their own next request."""
+        the driving slot's flush remainder) into ONE process() call (for
+        an LSTM stack, one K7 launch on CUDA).  Labels produced for other
+        slots are queued on their "ready" lists and delivered by their own
+        next request."""
         cf = self.args.chunk_frames
         st = self.slots[slot]
         with self.lock:

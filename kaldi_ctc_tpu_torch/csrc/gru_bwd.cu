@@ -1,0 +1,366 @@
+// K9b and K8b: the backward recurrence of a GRU (dgates), one direction
+// (K9b) or both directions of a bidirectional layer in one launch (K8b).
+//
+// Replaces kaldi_ctc_tpu/ops/gru_pallas.py::_gru_seq_bwd_dgates (kernel
+// body _bwd_kernel; K9b) and ::_bigru_seq_bwd_dgates (_bibwd_kernel;
+// K8b), both with _dgru_update and _gru_gates.  Inputs: the output
+// cotangents dy [T, B, H] and the forward's residuals as K9a / K8a wrote
+// or read them: the projection (x_proj [T, B, 3H], or xp [T, B, 6H] with
+// the forward direction's 3H first; gate order r, z, n), y [T, B, H] of
+// each direction in the compute dtype, the recurrent weights w_h [H, 3H],
+// the lengths [B] and, for K9b, the forward's direction.  Outputs, both
+// [T, B, 3H] in the compute dtype and zero at pad frames:
+//   dgx = [dr, dz, dn], the cotangent of the projection;
+//   dgh = [dr, dz, dn * r], the cotangent of h . W_h (dW_h and dh).
+//
+// The walk runs each direction's forward order in reverse: t = T-1-s for
+// a forward direction (its previous frame is t-1), t = s for a reverse
+// one (its previous frame is t+1); both directions of K8b reach their
+// forward-first step at s = T-1.  At each step it
+//   - recomputes r, z, n and hn from x_proj[t] + y[prev] . W_h, with
+//     y[prev] as stored (the compute dtype, not the forward's f32 carry)
+//     and zero at the forward's first step, f32 sums: K9a's sums in K9a's
+//     order, so the gates equal the forward's;
+//   - forms dh_total = dy + dh, dn = dh_total (1-z)(1-n^2),
+//     dz = dh_total (y[prev] - n) z (1-z), dr = dn hn r (1-r);
+//   - at valid frames carries dh = dgh . W_h^T + dh_total * z, with dgh
+//     rounded to the compute dtype as the operand and f32 sums.
+// Gate math and dh are f32.
+//
+// What bounds it on the H100: the same serial chain as K9a, T steps, and
+// each step needs the whole previous dgh row [B, 3H] of its direction to
+// form dh.  At the training batch B = 48, H = 320 that row is 184 KB in
+// f32: more than a block can hold beside its weights.
+//
+// Design: K6's and K3's (csrc/lstm_bwd.cu, csrc/bilstm_bwd.cu) with three
+// gate columns per unit.  One cooperative launch; each block owns hs
+// hidden units of one direction and keeps those units' three gate
+// columns of W_h (3*hs x H) in shared memory for the whole walk, with
+// their dh and dh_total * z.  The columns serve both products: the gate
+// recompute sums y[b, k] * W_h[k, c] over k for the block's columns c,
+// and the block's share of dh sums dgh[b, c] * W_h[k, c] over its own
+// columns c, for every k.  Blocks exchange those partial dh rows, not
+// dgh: each block writes a [B, H] partial (f32, st.global.cg) into a
+// double-buffered array laid out so that the hs units of one owner are
+// contiguous across the writing blocks; after the step's one grid.sync()
+// each block sums the nb partials of its own units (ld.global.cg) in a
+// fixed order and adds dh_total * z, so the sums stay f32 and
+// deterministic.  The next step's gate recompute needs no exchange (y is
+// in device memory) and runs before the barrier.
+
+#include <cooperative_groups.h>
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace cg = cooperative_groups;
+
+namespace {
+
+constexpr int kThreads = 512;
+
+__device__ __forceinline__ float to_f32(float v) { return v; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+
+template <typename T>
+__device__ __forceinline__ T from_f32(float v);
+template <>
+__device__ __forceinline__ float from_f32<float>(float v) { return v; }
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
+  return __float2bfloat16(v);  // round to nearest even, as astype does
+}
+
+__device__ __forceinline__ float sigmoid(float x) {
+  return 1.0f / (1.0f + expf(-x));
+}
+
+// The backward walk of DIRS directions; block blockIdx.x owns units
+// j0 .. j0+n-1 of direction blockIdx.x / nb.  Direction d's forward ran
+// backwards in time when DIRS == 2 and d == 1, or when DIRS == 1 and
+// reverse.
+template <typename T, int DIRS>
+__device__ __forceinline__ void gru_bwd_body(
+    const T* __restrict__ dy0, const T* __restrict__ dy1,
+    const T* __restrict__ xp, const T* __restrict__ y0,
+    const T* __restrict__ y1, const T* __restrict__ wh0,
+    const T* __restrict__ wh1, const int32_t* __restrict__ lens,
+    T* __restrict__ dgx0, T* __restrict__ dgh0, T* __restrict__ dgx1,
+    T* __restrict__ dgh1, float* part, int steps, int B, int H, int hs,
+    int reverse) {
+  cg::grid_group grid = cg::this_grid();
+  extern __shared__ float smem[];
+  const int nb = (H + hs - 1) / hs;         // blocks per direction
+  const int dir = blockIdx.x / nb;
+  const int own = blockIdx.x % nb;          // this block's unit group
+  const int j0 = own * hs;
+  const int n = min(hs, H - j0);            // hidden units this block owns
+  const int n3 = 3 * n;
+  const int G = 3 * H;
+  const bool rev = DIRS == 2 ? dir == 1 : reverse != 0;
+  const T* wh = dir == 0 ? wh0 : wh1;
+  const T* dy = dir == 0 ? dy0 : dy1;
+  const T* y = dir == 0 ? y0 : y1;
+  T* dgx = dir == 0 ? dgx0 : dgx1;
+  T* dgh = dir == 0 ? dgh0 : dgh1;
+  // partial dh: [parity][direction][B][owner group][writer][hs]
+  const size_t psize = (size_t)B * nb * nb * hs;
+
+  float* w_s = smem;                  // [3n][H]: column c = gate * n + jj
+  float* y_s = w_s + 3 * hs * H;      // [B][H]: y[prev], the gate operand
+  float* g_s = y_s + B * H;           // [B][3n]: recurrent sums hr, hz, hn
+  float* dg_s = g_s + B * 3 * hs;     // [B][3n]: dgh as the dh operand
+  float* dh_s = dg_s + B * 3 * hs;    // [B][n]: dh carry of owned units
+  float* dz_s = dh_s + B * hs;        // [B][n]: dh_total * z of owned units
+
+  for (int i = threadIdx.x; i < n3 * H; i += blockDim.x) {
+    const int c = i / H, k = i % H;
+    const int gate = c / n, jj = c % n;
+    w_s[i] = to_f32(wh[(size_t)k * G + gate * H + j0 + jj]);
+  }
+  for (int i = threadIdx.x; i < B * n; i += blockDim.x) dh_s[i] = 0.0f;
+
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int nwarps = blockDim.x >> 5;
+  auto time_of = [&](int s) { return rev ? s : steps - 1 - s; };
+  auto prev_of = [&](int t) { return rev ? t + 1 : t - 1; };
+
+  // recurrent sums of walk step s into g_s (K9a's dot products)
+  auto gate_sums = [&](int s) {
+    const bool first = s == steps - 1;  // the forward's first step
+    if (!first) {
+      const T* yp = y + (size_t)prev_of(time_of(s)) * B * H;
+      for (int i = threadIdx.x; i < B * H; i += blockDim.x)
+        y_s[i] = to_f32(yp[i]);
+    }
+    __syncthreads();
+    for (int o = warp; o < B * n3; o += nwarps) {
+      const int b = o / n3, c = o % n3;
+      float acc = 0.0f;
+      if (!first) {
+        const float* hb = y_s + b * H;
+        const float* wc = w_s + c * H;
+        for (int k = lane; k < H; k += 32) acc = fmaf(hb[k], wc[k], acc);
+        for (int off = 16; off > 0; off >>= 1)
+          acc += __shfl_xor_sync(0xffffffffu, acc, off);
+      }
+      if (lane == 0) g_s[o] = acc;
+    }
+  };
+
+  gate_sums(0);
+  __syncthreads();
+  for (int s = 0; s < steps; ++s) {
+    const int t = time_of(s);
+    const bool first = s == steps - 1;
+    const int tp = prev_of(t);
+    if (s > 0) {
+      // dh = dgh[s-1] . W_h^T + dh_total[s-1] * z[s-1]: the sum of every
+      // block's partial, carried only where step s-1 was a valid frame
+      const int t1 = time_of(s - 1);
+      const float* p = part + ((size_t)((s - 1) & 1) * DIRS + dir) * psize;
+      for (int e = threadIdx.x; e < B * n; e += blockDim.x) {
+        const int b = e / n, jj = e % n;
+        if (t1 >= lens[b]) continue;
+        const float* q = p + ((size_t)b * nb + own) * nb * hs + jj;
+        float acc = 0.0f;
+        for (int w = 0; w < nb; ++w) acc += __ldcg(q + (size_t)w * hs);
+        dh_s[e] = acc + dz_s[e];
+      }
+    }
+    for (int e = threadIdx.x; e < B * n; e += blockDim.x) {
+      const int b = e / n, jj = e % n, j = j0 + jj;
+      const T* x = xp + ((size_t)t * B + b) * DIRS * G + dir * G;
+      const float* g = g_s + b * n3;
+      const float r = sigmoid(to_f32(x[j]) + g[jj]);
+      const float z = sigmoid(to_f32(x[H + j]) + g[n + jj]);
+      const float hn = g[2 * n + jj];
+      const float nn = tanhf(to_f32(x[2 * H + j]) + r * hn);
+      const float hp = first ? 0.0f : to_f32(y[((size_t)tp * B + b) * H + j]);
+      const size_t o = ((size_t)t * B + b) * H + j;
+      const float dht = to_f32(dy[o]) + dh_s[e];
+      const bool valid = t < lens[b];
+      const float d_n = valid ? dht * (1.0f - z) * (1.0f - nn * nn) : 0.0f;
+      const float d_z = valid ? dht * (hp - nn) * z * (1.0f - z) : 0.0f;
+      const float d_r = valid ? d_n * hn * r * (1.0f - r) : 0.0f;
+      const T r_r = from_f32<T>(d_r), r_z = from_f32<T>(d_z);
+      const T r_nh = from_f32<T>(d_n * r);
+      const size_t og = ((size_t)t * B + b) * G;
+      dgx[og + j] = r_r;
+      dgx[og + H + j] = r_z;
+      dgx[og + 2 * H + j] = from_f32<T>(d_n);
+      dgh[og + j] = r_r;
+      dgh[og + H + j] = r_z;
+      dgh[og + 2 * H + j] = r_nh;
+      float* d = dg_s + b * n3;
+      d[jj] = to_f32(r_r);
+      d[n + jj] = to_f32(r_z);
+      d[2 * n + jj] = to_f32(r_nh);
+      dz_s[e] = dht * z;
+    }
+    __syncthreads();
+    if (s + 1 == steps) break;
+    // this block's share of the next dh: its own columns, every unit k
+    float* p = part + ((size_t)(s & 1) * DIRS + dir) * psize;
+    for (int i = threadIdx.x; i < B * H; i += blockDim.x) {
+      const int b = i / H, k = i % H;
+      const float* d = dg_s + b * n3;
+      float acc = 0.0f;
+      for (int c = 0; c < n3; ++c) acc = fmaf(d[c], w_s[c * H + k], acc);
+      __stcg(p + (((size_t)b * nb + k / hs) * nb + own) * hs + k % hs, acc);
+    }
+    gate_sums(s + 1);
+    grid.sync();
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+gru_bwd_kernel(const T* __restrict__ dy0, const T* __restrict__ dy1,
+               const T* __restrict__ xp, const T* __restrict__ y0,
+               const T* __restrict__ y1, const T* __restrict__ wh0,
+               const T* __restrict__ wh1, const int32_t* __restrict__ lens,
+               T* __restrict__ dgx0, T* __restrict__ dgh0,
+               T* __restrict__ dgx1, T* __restrict__ dgh1, float* part,
+               int steps, int B, int H, int hs, int reverse) {
+  gru_bwd_body<T, 1>(dy0, dy1, xp, y0, y1, wh0, wh1, lens, dgx0, dgh0, dgx1,
+                     dgh1, part, steps, B, H, hs, reverse);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+bigru_bwd_kernel(const T* __restrict__ dy0, const T* __restrict__ dy1,
+                 const T* __restrict__ xp, const T* __restrict__ y0,
+                 const T* __restrict__ y1, const T* __restrict__ wh0,
+                 const T* __restrict__ wh1,
+                 const int32_t* __restrict__ lens, T* __restrict__ dgx0,
+                 T* __restrict__ dgh0, T* __restrict__ dgx1,
+                 T* __restrict__ dgh1, float* part, int steps, int B, int H,
+                 int hs, int reverse) {
+  gru_bwd_body<T, 2>(dy0, dy1, xp, y0, y1, wh0, wh1, lens, dgx0, dgh0, dgx1,
+                     dgh1, part, steps, B, H, hs, reverse);
+}
+
+// hidden units per block: every direction's blocks in one wave of the SMs
+int units_per_block(int dirs, int H, int sms) {
+  return (dirs * H + sms - 1) / sms;
+}
+
+template <typename T>
+int launch(bool bidirectional, const void* dy0, const void* dy1,
+           const void* xp, const void* y0, const void* y1, const void* wh0,
+           const void* wh1, const void* lens, void* dgx0, void* dgh0,
+           void* dgx1, void* dgh1, void* part, int steps, int B, int H,
+           int reverse, void* stream) {
+  if (steps <= 0 || B <= 0) return cudaGetLastError();
+  int dev = 0, sms = 0, coop = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
+  if (!coop) return cudaErrorNotSupported;
+  const int dirs = bidirectional ? 2 : 1;
+  const int hs = units_per_block(dirs, H, sms);
+  const int nb = (H + hs - 1) / hs;
+  const size_t smem = sizeof(float) * ((size_t)3 * hs * H + (size_t)B * H +
+                                       (size_t)2 * B * 3 * hs +
+                                       (size_t)2 * B * hs);
+  auto kern = bidirectional ? &bigru_bwd_kernel<T> : &gru_bwd_kernel<T>;
+  e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           (int)smem);
+  if (e != cudaSuccess) return e;
+  int per_sm = 0;
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, kThreads,
+                                                    smem);
+  if (e != cudaSuccess) return e;
+  if (per_sm * sms < dirs * nb) return cudaErrorCooperativeLaunchTooLarge;
+
+  const T* a_dy0 = static_cast<const T*>(dy0);
+  const T* a_dy1 = static_cast<const T*>(dy1);
+  const T* a_xp = static_cast<const T*>(xp);
+  const T* a_y0 = static_cast<const T*>(y0);
+  const T* a_y1 = static_cast<const T*>(y1);
+  const T* a_wh0 = static_cast<const T*>(wh0);
+  const T* a_wh1 = static_cast<const T*>(wh1);
+  const int32_t* a_lens = static_cast<const int32_t*>(lens);
+  T* a_dgx0 = static_cast<T*>(dgx0);
+  T* a_dgh0 = static_cast<T*>(dgh0);
+  T* a_dgx1 = static_cast<T*>(dgx1);
+  T* a_dgh1 = static_cast<T*>(dgh1);
+  float* a_part = static_cast<float*>(part);
+  int a_steps = steps, a_b = B, a_hd = H, a_hs = hs, a_rev = reverse;
+  void* args[] = {&a_dy0,  &a_dy1,  &a_xp,   &a_y0,   &a_y1,    &a_wh0,
+                  &a_wh1,  &a_lens, &a_dgx0, &a_dgh0, &a_dgx1,  &a_dgh1,
+                  &a_part, &a_steps, &a_b,   &a_hd,   &a_hs,    &a_rev};
+  e = cudaLaunchCooperativeKernel((void*)kern, dim3(dirs * nb),
+                                  dim3(kThreads), args, smem,
+                                  static_cast<cudaStream_t>(stream));
+  if (e != cudaSuccess) return e;
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" {
+
+// floats of the partial-dh exchange the caller allocates for a launch of
+// `dirs` directions at B, H on the current device:
+// [2 parities][dirs][B][nb][nb][hs] (hs hidden units per block, nb
+// blocks per direction); -1 on error
+int gru_bwd_exchange_floats(int dirs, int B, int H) {
+  int dev = 0, sms = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
+          cudaSuccess || sms <= 0 || H <= 0 || (dirs != 1 && dirs != 2))
+    return -1;
+  const long long hs = units_per_block(dirs, H, sms), nb = (H + hs - 1) / hs;
+  const long long n = 2LL * dirs * B * nb * nb * hs;
+  return n > 0x7fffffffLL ? -1 : (int)n;
+}
+
+// K9b.  part: the partial-dh exchange, gru_bwd_exchange_floats(1, B, H)
+int gru_bwd_f32(const void* dy, const void* xp, const void* y,
+                const void* wh, const void* lens, void* dgx, void* dgh,
+                void* part, int steps, int B, int H, int reverse,
+                void* stream) {
+  return launch<float>(false, dy, dy, xp, y, y, wh, wh, lens, dgx, dgh, dgx,
+                       dgh, part, steps, B, H, reverse, stream);
+}
+
+int gru_bwd_bf16(const void* dy, const void* xp, const void* y,
+                 const void* wh, const void* lens, void* dgx, void* dgh,
+                 void* part, int steps, int B, int H, int reverse,
+                 void* stream) {
+  return launch<__nv_bfloat16>(false, dy, dy, xp, y, y, wh, wh, lens, dgx,
+                               dgh, dgx, dgh, part, steps, B, H, reverse,
+                               stream);
+}
+
+// K8b.  part: gru_bwd_exchange_floats(2, B, H)
+int bigru_bwd_f32(const void* dyf, const void* dyb, const void* xp,
+                  const void* yf, const void* yb, const void* whf,
+                  const void* whb, const void* lens, void* dgxf, void* dghf,
+                  void* dgxb, void* dghb, void* part, int steps, int B, int H,
+                  void* stream) {
+  return launch<float>(true, dyf, dyb, xp, yf, yb, whf, whb, lens, dgxf,
+                       dghf, dgxb, dghb, part, steps, B, H, 0, stream);
+}
+
+int bigru_bwd_bf16(const void* dyf, const void* dyb, const void* xp,
+                   const void* yf, const void* yb, const void* whf,
+                   const void* whb, const void* lens, void* dgxf, void* dghf,
+                   void* dgxb, void* dghb, void* part, int steps, int B,
+                   int H, void* stream) {
+  return launch<__nv_bfloat16>(true, dyf, dyb, xp, yf, yb, whf, whb, lens,
+                               dgxf, dghf, dgxb, dghb, part, steps, B, H, 0,
+                               stream);
+}
+
+const char* kctpu_error_string(int err) {
+  return cudaGetErrorString(static_cast<cudaError_t>(err));
+}
+
+}  // extern "C"

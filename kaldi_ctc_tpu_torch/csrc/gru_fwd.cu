@@ -1,0 +1,245 @@
+// K9a and K8a: the forward recurrence of a GRU, one direction (K9a) or
+// both directions of a bidirectional layer in one launch (K8a).
+//
+// Replaces kaldi_ctc_tpu/ops/gru_pallas.py::gru_seq_fwd (kernel body
+// _fwd_kernel; K9a) and ::_bigru_seq_fwd (kernel body _bifwd_kernel;
+// K8a).  Input is the hoisted projection in the compute dtype, gate order
+// r, z, n: x_proj [T, B, 3H] for one direction, xp [T, B, 6H] (forward
+// direction's 3H first) for both; the recurrent weights w_h [H, 3H] of
+// each direction in the compute dtype, and the lengths [B].  K9a walks
+// t = 0 .. T-1, or T-1 .. 0 with reverse = 1; K8a's step s moves the
+// forward direction at t = s and the backward direction at t = T-1-s.
+// The cell is the linear-before-reset GRU of _gru_gates:
+//   (hr, hz, hn) = h . W_h   (h rounded to the compute dtype, f32 sums)
+//   r = sigmoid(xr + hr), z = sigmoid(xz + hz), n = tanh(xn + r * hn)
+//   h' = (1 - z) * n + z * h (the carry h in f32).
+// There is no recurrent bias.  A frame t >= lens[b] carries h and writes
+// y = 0.  Output: y [T, B, H] of each direction in the compute dtype, the
+// only residual (the backward kernels recompute the gates).
+//
+// What bounds it on the H100: the T serial steps.  A step is B GEMVs of
+// H x 3H = 307,200 MACs per direction at H = 320: a few microseconds of
+// latency (read h, reduce, gate math, barrier) and almost no work for 132
+// SMs.  W_h is 320 x 960 (1.2 MB in f32) per direction, far more than one
+// block's 227 KB of shared memory.
+//
+// Design: K5's and K2's (csrc/lstm_fwd.cu, csrc/bilstm_fwd.cu) with three
+// gate columns per unit.  One cooperative launch: each block owns hs
+// hidden units of one direction and keeps those units' three gate
+// columns of W_h in shared memory for the whole sequence (as f32,
+// transposed so the lanes of a warp read consecutive k).  The n gate
+// needs hn apart from xn, so the block keeps all three recurrent sums of
+// its units (3*hs per row) rather than one fused pre-activation.  Each
+// step a block reads h from a double-buffered f32 exchange in global
+// memory (L2-resident, ld.global.cg so a stale L1 line is never seen),
+// computes its 3*hs sums per row with warp-split dot products, does the
+// gate math, writes y and its slice of the next h, and the grid meets at
+// one grid.sync() per step: step s reads parity s&1 and writes parity
+// (s+1)&1.  hs = ceil(dirs * H / SMs) puts the grid in one wave (107
+// blocks of 3 units at H = 320 for one direction, 128 blocks of 5 for
+// two); the host checks co-residency before launching.
+
+#include <cooperative_groups.h>
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace cg = cooperative_groups;
+
+namespace {
+
+constexpr int kThreads = 256;
+
+__device__ __forceinline__ float to_f32(float v) { return v; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+
+template <typename T>
+__device__ __forceinline__ T from_f32(float v);
+template <>
+__device__ __forceinline__ float from_f32<float>(float v) { return v; }
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
+  return __float2bfloat16(v);  // round to nearest even, as astype does
+}
+
+__device__ __forceinline__ float sigmoid(float x) {
+  return 1.0f / (1.0f + expf(-x));
+}
+
+// The recurrence of DIRS directions; block blockIdx.x owns units
+// j0 .. j0+n-1 of direction blockIdx.x / nb.  Direction d walks time
+// backwards when DIRS == 2 and d == 1, or when DIRS == 1 and reverse.
+template <typename T, int DIRS>
+__device__ __forceinline__ void gru_fwd_body(
+    const T* __restrict__ xp, const T* __restrict__ wh0,
+    const T* __restrict__ wh1, const int32_t* __restrict__ lens,
+    T* __restrict__ y0, T* __restrict__ y1, float* hbuf, int steps, int B,
+    int H, int hs, int reverse) {
+  cg::grid_group grid = cg::this_grid();
+  extern __shared__ float smem[];
+  const int nb = (H + hs - 1) / hs;         // blocks per direction
+  const int dir = blockIdx.x / nb;
+  const int j0 = (blockIdx.x % nb) * hs;
+  const int n = min(hs, H - j0);            // hidden units this block owns
+  const int n3 = 3 * n;
+  const int G = 3 * H;
+  const bool rev = DIRS == 2 ? dir == 1 : reverse != 0;
+  const T* wh = dir == 0 ? wh0 : wh1;
+  T* y = dir == 0 ? y0 : y1;
+
+  float* w_s = smem;                 // [3n][H]: column c = gate * n + jj
+  float* h_s = w_s + 3 * hs * H;     // [B][H]: h as the matmul operand
+  float* g_s = h_s + B * H;          // [B][3n]: recurrent sums hr, hz, hn
+
+  for (int i = threadIdx.x; i < n3 * H; i += blockDim.x) {
+    const int c = i / H, k = i % H;
+    const int gate = c / n, jj = c % n;
+    w_s[i] = to_f32(wh[(size_t)k * G + gate * H + j0 + jj]);
+  }
+
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int nwarps = blockDim.x >> 5;
+  const size_t hsize = (size_t)B * H;
+  for (int s = 0; s < steps; ++s) {
+    const int t = rev ? steps - 1 - s : s;
+    const float* h_cur = hbuf + ((size_t)(s & 1) * DIRS + dir) * hsize;
+    float* h_next = hbuf + ((size_t)((s + 1) & 1) * DIRS + dir) * hsize;
+    for (int i = threadIdx.x; i < B * H; i += blockDim.x)
+      h_s[i] = to_f32(from_f32<T>(__ldcg(h_cur + i)));
+    __syncthreads();
+    for (int o = warp; o < B * n3; o += nwarps) {
+      const int b = o / n3, c = o % n3;
+      const float* hb = h_s + b * H;
+      const float* wc = w_s + c * H;
+      float acc = 0.0f;
+      for (int k = lane; k < H; k += 32) acc = fmaf(hb[k], wc[k], acc);
+      for (int off = 16; off > 0; off >>= 1)
+        acc += __shfl_xor_sync(0xffffffffu, acc, off);
+      if (lane == 0) g_s[o] = acc;
+    }
+    __syncthreads();
+    for (int e = threadIdx.x; e < B * n; e += blockDim.x) {
+      const int b = e / n, jj = e % n, j = j0 + jj;
+      const T* x = xp + ((size_t)t * B + b) * DIRS * G + dir * G;
+      const float* g = g_s + b * n3;
+      const float r = sigmoid(to_f32(x[j]) + g[jj]);
+      const float z = sigmoid(to_f32(x[H + j]) + g[n + jj]);
+      const float nn = tanhf(to_f32(x[2 * H + j]) + r * g[2 * n + jj]);
+      const float h_prev = __ldcg(h_cur + b * H + j);
+      const float h_new = (1.0f - z) * nn + z * h_prev;
+      const bool valid = t < lens[b];
+      __stcg(h_next + b * H + j, valid ? h_new : h_prev);
+      y[((size_t)t * B + b) * H + j] = from_f32<T>(valid ? h_new : 0.0f);
+    }
+    grid.sync();
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+gru_fwd_kernel(const T* __restrict__ xp, const T* __restrict__ wh0,
+               const T* __restrict__ wh1, const int32_t* __restrict__ lens,
+               T* __restrict__ y0, T* __restrict__ y1, float* hbuf, int steps,
+               int B, int H, int hs, int reverse) {
+  gru_fwd_body<T, 1>(xp, wh0, wh1, lens, y0, y1, hbuf, steps, B, H, hs,
+                     reverse);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+bigru_fwd_kernel(const T* __restrict__ xp, const T* __restrict__ wh0,
+                 const T* __restrict__ wh1,
+                 const int32_t* __restrict__ lens, T* __restrict__ y0,
+                 T* __restrict__ y1, float* hbuf, int steps, int B, int H,
+                 int hs, int reverse) {
+  gru_fwd_body<T, 2>(xp, wh0, wh1, lens, y0, y1, hbuf, steps, B, H, hs,
+                     reverse);
+}
+
+template <typename T>
+int launch(bool bidirectional, const void* xp, const void* wh0,
+           const void* wh1, const void* lens, void* y0, void* y1,
+           void* hbuf, int steps, int B, int H, int reverse, void* stream) {
+  if (steps <= 0 || B <= 0) return cudaGetLastError();
+  int dev = 0, sms = 0, coop = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
+  if (!coop) return cudaErrorNotSupported;
+  const int dirs = bidirectional ? 2 : 1;
+  // hidden units per block: every direction's blocks in one wave
+  const int hs = (dirs * H + sms - 1) / sms;
+  const int nb = (H + hs - 1) / hs;
+  const size_t smem = sizeof(float) * ((size_t)3 * hs * H + (size_t)B * H +
+                                       (size_t)B * 3 * hs);
+  auto kern = bidirectional ? &bigru_fwd_kernel<T> : &gru_fwd_kernel<T>;
+  e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           (int)smem);
+  if (e != cudaSuccess) return e;
+  int per_sm = 0;
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, kThreads,
+                                                    smem);
+  if (e != cudaSuccess) return e;
+  if (per_sm * sms < dirs * nb) return cudaErrorCooperativeLaunchTooLarge;
+
+  const T* a_xp = static_cast<const T*>(xp);
+  const T* a_wh0 = static_cast<const T*>(wh0);
+  const T* a_wh1 = static_cast<const T*>(wh1);
+  const int32_t* a_lens = static_cast<const int32_t*>(lens);
+  T* a_y0 = static_cast<T*>(y0);
+  T* a_y1 = static_cast<T*>(y1);
+  float* a_h = static_cast<float*>(hbuf);
+  int a_steps = steps, a_b = B, a_hd = H, a_hs = hs, a_rev = reverse;
+  void* args[] = {&a_xp,    &a_wh0, &a_wh1, &a_lens, &a_y0, &a_y1,
+                  &a_h,     &a_steps, &a_b, &a_hd,   &a_hs, &a_rev};
+  e = cudaLaunchCooperativeKernel((void*)kern, dim3(dirs * nb),
+                                  dim3(kThreads), args, smem,
+                                  static_cast<cudaStream_t>(stream));
+  if (e != cudaSuccess) return e;
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" {
+
+// K9a.  hbuf: [2 parities][B][H] f32, parity 0 zeroed by the caller
+int gru_fwd_f32(const void* xp, const void* wh, const void* lens, void* y,
+                void* hbuf, int steps, int B, int H, int reverse,
+                void* stream) {
+  return launch<float>(false, xp, wh, wh, lens, y, y, hbuf, steps, B, H,
+                       reverse, stream);
+}
+
+int gru_fwd_bf16(const void* xp, const void* wh, const void* lens, void* y,
+                 void* hbuf, int steps, int B, int H, int reverse,
+                 void* stream) {
+  return launch<__nv_bfloat16>(false, xp, wh, wh, lens, y, y, hbuf, steps,
+                               B, H, reverse, stream);
+}
+
+// K8a.  hbuf: [2 parities][2 directions][B][H] f32, parity 0 zeroed by
+// the caller
+int bigru_fwd_f32(const void* xp, const void* whf, const void* whb,
+                  const void* lens, void* yf, void* yb, void* hbuf,
+                  int steps, int B, int H, void* stream) {
+  return launch<float>(true, xp, whf, whb, lens, yf, yb, hbuf, steps, B, H,
+                       0, stream);
+}
+
+int bigru_fwd_bf16(const void* xp, const void* whf, const void* whb,
+                   const void* lens, void* yf, void* yb, void* hbuf,
+                   int steps, int B, int H, void* stream) {
+  return launch<__nv_bfloat16>(true, xp, whf, whb, lens, yf, yb, hbuf,
+                               steps, B, H, 0, stream);
+}
+
+const char* kctpu_error_string(int err) {
+  return cudaGetErrorString(static_cast<cudaError_t>(err));
+}
+
+}  // extern "C"

@@ -2,13 +2,16 @@
 
 Counterpart of ``kaldi_ctc_tpu/decoding/streaming.py``.  CTC and a
 unidirectional stack make this simple: a per-chunk forward with an
-explicit (h, c) carry equals the full-utterance forward, so the labels
-match offline greedy decoding while the latency is one chunk.
+explicit carry ((h, c) for an LSTM, h for a GRU) equals the
+full-utterance forward, so the labels match offline greedy decoding
+while the latency is one chunk.
 
 Both recognizers run eagerly on the device their parameters live on
 (there is no ``jit``): on CUDA each chunk of an LSTM stack is one launch
-of the wavefront kernel K7 (``ops.rnn.rnn_forward_stream``), on the CPU
-the plain per-layer loop.  The FT front layer (``front_affine_dim``)
+of the wavefront kernel K7 (``ops.rnn.rnn_forward_stream``); a GRU stack
+runs the per-layer loop in torch ops on the card, as the JAX package runs
+its XLA scan (it has no GRU stack kernel); on the CPU every mode runs the
+plain per-layer loop.  The FT front layer (``front_affine_dim``)
 streams in the JAX package; here it raises with ``am_forward``, until
 ROADMAP.md item 12.
 

@@ -18,17 +18,18 @@ of operands rounded to the compute dtype: a product of two bf16 values
 is exact in f32, so only the order of the f32 sum differs from a bf16
 tensor-core product, on the CPU and on the card alike.
 
-A bidirectional LSTM goes through :func:`_run_birnn_fused` →
-``rnn_cuda.bilstm_layer`` (kernels K2 forward and K3 backward on CUDA,
-their plain versions on the CPU), a unidirectional LSTM direction through
-``rnn_cuda.lstm_sequence`` (K5 forward, K6 backward).  ReLU and Tanh run
-the plain per-step loop on every device (the JAX package has no kernel
-for them); GRU and BiGRU run it on the CPU and raise on CUDA until their
-kernels (K9, K8) are ported.
+A bidirectional LSTM or GRU layer goes through :func:`_run_birnn_fused`
+→ ``rnn_cuda.bilstm_layer`` (kernels K2 forward and K3 backward on CUDA,
+their plain versions on the CPU) or ``gru_cuda.bigru_layer`` (K8a, K8b);
+a unidirectional LSTM direction through ``rnn_cuda.lstm_sequence`` (K5
+forward, K6 backward), a GRU direction through ``gru_cuda.gru_sequence``
+(K9a, K9b).  ReLU and Tanh run the plain per-step loop on every device
+(the JAX package has no kernel for them).
 
 :func:`rnn_forward_stream` is the chunked forward with carried state of
 a unidirectional stack (online recognition); on CUDA an LSTM stack runs
-the wavefront kernel K7.
+the wavefront kernel K7, and the other modes run the per-layer loop in
+torch ops, as the JAX package runs its XLA scan for them.
 """
 
 from __future__ import annotations
@@ -134,15 +135,23 @@ def _lstm_cell(h, c, x_proj, w_h, cdt):
     return h_new, c_new
 
 
-def _gru_cell(h, x_proj, w_h, cdt):
-    # cuDNN linear-before-reset GRU: recurrent projection computed once,
-    # reset gate applied to the candidate's recurrent term.
+def _gru_gates(x_proj, h, w_h, cdt):
+    """Activated (r, z, n, hn) of the cuDNN linear-before-reset GRU from
+    the stored projection and the previous output (``_gru_gates`` of
+    ``gru_pallas``): the recurrent projection computed once, the reset
+    gate applied to the candidate's recurrent term; w_h is f32 holding
+    compute-dtype values.  The forward cell and the backward recompute
+    both call it."""
     h_proj = torch.matmul(h.to(cdt).float(), w_h)
     xr, xz, xn = x_proj.float().chunk(3, dim=-1)
     hr, hz, hn = h_proj.chunk(3, dim=-1)
     r = torch.sigmoid(xr + hr)
     z = torch.sigmoid(xz + hz)
-    n = torch.tanh(xn + r * hn)
+    return r, z, torch.tanh(xn + r * hn), hn
+
+
+def _gru_cell(h, x_proj, w_h, cdt):
+    r, z, n, _ = _gru_gates(x_proj, h, w_h, cdt)
     return (1.0 - z) * n + z * h
 
 
@@ -197,9 +206,10 @@ def _run_direction(
 ) -> torch.Tensor:
     """One direction → [T, B, H] in the compute dtype (``_run_direction``
     of the JAX package).  An LSTM goes through ``rnn_cuda.lstm_sequence``
-    on every device, the JAX package's TPU route: K5 forward and K6
-    backward on CUDA, their plain versions on the CPU.  The other modes
-    run the plain per-step loop."""
+    and a GRU through ``gru_cuda.gru_sequence`` on every device, the JAX
+    package's TPU route: K5 / K9a forward and K6 / K9b backward on CUDA,
+    their plain versions on the CPU.  ReLU and Tanh run the plain
+    per-step loop."""
     t_max, b, _ = x.shape
     x_proj = _project(x, p, cfg.dtype)
     if lens is None:
@@ -208,19 +218,12 @@ def _run_direction(
     if cfg.mode == RnnMode.LSTM:
         from kaldi_ctc_tpu_torch.ops.rnn_cuda import lstm_sequence
         return lstm_sequence(x_proj, p["w_h"], lens, reverse)
+    if cfg.mode == RnnMode.GRU:
+        from kaldi_ctc_tpu_torch.ops.gru_cuda import gru_sequence
+        return gru_sequence(x_proj, p["w_h"], lens, reverse)
     h = torch.zeros((b, cfg.hidden_dim), dtype=torch.float32, device=x.device)
     return _scan(x_proj, _valid(t_max, lens, x.device), p["w_h"], cfg, h,
                  reverse)[0]
-
-
-def _check_cuda_mode(cfg: RnnConfig) -> None:
-    """Modes whose JAX path is a Pallas kernel not yet ported raise on
-    CUDA rather than run the plain loop where a kernel belongs."""
-    if cfg.mode == RnnMode.GRU:
-        k = "K8 (gru_pallas._bigru_seq_fwd)" if cfg.bidirectional else \
-            "K9 (gru_pallas.gru_seq_fwd)"
-        raise NotImplementedError(
-            f"GRU on CUDA needs kernel {k}, not ported yet: see ROADMAP.md")
 
 
 def rnn_forward(
@@ -231,12 +234,10 @@ def rnn_forward(
 ) -> torch.Tensor:
     """Run the full stack. x: [T, B, input_dim] → [T, B, H*num_directions]
     in the compute dtype."""
-    if x.device.type == "cuda":
-        _check_cuda_mode(cfg)
     out = x
     for layer_params in params:
         dirs = layer_params["dirs"]
-        if cfg.bidirectional and cfg.mode == RnnMode.LSTM:
+        if cfg.bidirectional and cfg.mode in (RnnMode.LSTM, RnnMode.GRU):
             out = _run_birnn_fused(out, input_lens, dirs, cfg)
             continue
         fwd = _run_direction(out, input_lens, dirs[0], cfg, reverse=False)
@@ -249,17 +250,20 @@ def rnn_forward(
 
 
 def _run_birnn_fused(x, input_lens, dirs, cfg: RnnConfig) -> torch.Tensor:
-    """Both BLSTM directions through one fused layer: the two input
-    projections merged into one matmul, then one pass of K2."""
-    from kaldi_ctc_tpu_torch.ops.rnn_cuda import bilstm_layer
-
+    """Both B(LSTM|GRU) directions through one fused layer: the two
+    input projections merged into one matmul, then one pass of K2 or
+    K8a."""
+    if cfg.mode == RnnMode.LSTM:
+        from kaldi_ctc_tpu_torch.ops.rnn_cuda import bilstm_layer as bi_layer
+    else:
+        from kaldi_ctc_tpu_torch.ops.gru_cuda import bigru_layer as bi_layer
     t_max, b, _ = x.shape
     lens = (input_lens if input_lens is not None
             else torch.full((b,), t_max, dtype=torch.int32, device=x.device))
     w_x = torch.cat([dirs[0]["w_x"], dirs[1]["w_x"]], dim=1)
     bias = torch.cat([dirs[0]["b"], dirs[1]["b"]])
-    y_f, y_b = bilstm_layer(x, w_x, bias, dirs[0]["w_h"], dirs[1]["w_h"],
-                            lens, cfg.compute_dtype)
+    y_f, y_b = bi_layer(x, w_x, bias, dirs[0]["w_h"], dirs[1]["w_h"], lens,
+                        cfg.compute_dtype)
     return torch.cat([y_f, y_b], dim=-1)
 
 
@@ -300,17 +304,17 @@ def rnn_forward_stream(
     VMEM budget and its L > 1 condition are TPU limits and do not
     apply).  A stack that does not fit takes the per-layer path, as the
     JAX package's scan branch does, with each layer a one-layer K7
-    launch.  Other modes, and the CPU, run the plain per-layer loop."""
+    launch.  Other modes, and the CPU, run the per-layer loop in torch
+    ops: for a GRU, ReLU or Tanh stack that is the JAX package's own
+    route on every device, an XLA scan with no kernel."""
     if cfg.bidirectional:
         raise ValueError("streaming requires a unidirectional stack")
     t_max, b, _ = x.shape
     if lens is None:
         lens = torch.full((b,), t_max, dtype=torch.int32, device=x.device)
     lens = lens.to(x.device)
-    if x.device.type == "cuda":
-        _check_cuda_mode(cfg)
-        if cfg.mode == RnnMode.LSTM:
-            return _stream_lstm_stack(params, x, cfg, states, lens)
+    if x.device.type == "cuda" and cfg.mode == RnnMode.LSTM:
+        return _stream_lstm_stack(params, x, cfg, states, lens)
     valid = _valid(t_max, lens, x.device)
     out, new_states = x, []
     for layer_params, st in zip(params, states):

@@ -367,10 +367,14 @@ def bilstm_layer(x: torch.Tensor, w_x: torch.Tensor, bias: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 
-def _check_x_proj(what: str, x_proj: torch.Tensor) -> None:
-    if x_proj.dim() != 3 or x_proj.shape[2] % 4 or x_proj.dtype not in _SUFFIX:
-        raise ValueError(f"{what}: x_proj must be f32 or bf16 [T, B, 4H], "
-                         f"got {x_proj.dtype} {tuple(x_proj.shape)}")
+def _check_x_proj(what: str, x_proj: torch.Tensor, gates: int) -> int:
+    """Raise unless x_proj is an f32 or bf16 [T, B, gates*H] → H."""
+    if x_proj.dim() != 3 or x_proj.shape[2] % gates \
+            or x_proj.dtype not in _SUFFIX:
+        raise ValueError(f"{what}: x_proj must be f32 or bf16 "
+                         f"[T, B, {gates}H], got {x_proj.dtype} "
+                         f"{tuple(x_proj.shape)}")
+    return x_proj.shape[2] // gates
 
 
 def lstm_seq_fwd_reference(x_proj: torch.Tensor, w_h: torch.Tensor,
@@ -409,7 +413,7 @@ def lstm_seq_fwd(x_proj: torch.Tensor, w_h: torch.Tensor, lens: torch.Tensor,
         return lstm_seq_fwd_reference(x_proj, w_h, lens, reverse)
     if x_proj.device.type != "cuda":
         raise ValueError(f"lstm_seq_fwd: unsupported device {x_proj.device}")
-    _check_x_proj("lstm_seq_fwd", x_proj)
+    _check_x_proj("lstm_seq_fwd", x_proj, 4)
     t_max, b, g4 = x_proj.shape
     h = g4 // 4
     dev = x_proj.device
@@ -492,7 +496,7 @@ def lstm_seq_bwd_dgates(dy: torch.Tensor, x_proj: torch.Tensor,
     if x_proj.device.type != "cuda":
         raise ValueError(f"lstm_seq_bwd_dgates: unsupported device "
                          f"{x_proj.device}")
-    _check_x_proj("lstm_seq_bwd_dgates", x_proj)
+    _check_x_proj("lstm_seq_bwd_dgates", x_proj, 4)
     t_max, b, g4 = x_proj.shape
     h = g4 // 4
     dev = x_proj.device
@@ -639,7 +643,7 @@ def lstm_stack_fwd(xp0: torch.Tensor, wxs, whs, bs, lens: torch.Tensor,
         return lstm_stack_fwd_reference(xp0, wxs, whs, bs, lens, h0, c0)
     if xp0.device.type != "cuda":
         raise ValueError(f"lstm_stack_fwd: unsupported device {xp0.device}")
-    _check_x_proj("lstm_stack_fwd", xp0)
+    _check_x_proj("lstm_stack_fwd", xp0, 4)
     t_max, b, g4 = xp0.shape
     h = g4 // 4
     n_layers = len(whs)

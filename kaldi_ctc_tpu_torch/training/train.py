@@ -3,7 +3,7 @@
 Counterpart of ``kaldi_ctc_tpu/training/train.py`` (the reference's
 NnetCtcUpdater, ``ctc/ctc-nnet-update.cc:76-348``):
 
-- one step: forward (B)LSTM stack → CTC alpha-beta loss + gradient →
+- one step: forward recurrent stack → CTC alpha-beta loss + gradient →
   backprop → elementwise gradient clip ±5 (cuDNN component clip,
   ``nnet-cudnn-component.cc:602-603``) → SGD with optional momentum;
 - SGD on gradient *sums* over the minibatch (no 1/B), scaled by
@@ -13,10 +13,12 @@ NnetCtcUpdater, ``ctc/ctc-nnet-update.cc:76-348``):
 - greedy-collapse label accuracy (``ctc/ctc-nnet-update.cc:261-317``):
   argmax and collapse on the device, Levenshtein on the host.
 
-On the card the step runs K2 and K3 for each BLSTM layer (K5 and K6 for
-each unidirectional LSTM layer) and K1 for the loss; on the CPU their
-plain versions.  PyTorch runs eagerly: there is no jit, and
-``make_train_step`` returns the step as it is (no buffers are donated).
+On the card the step runs, for each layer, the forward and backward
+kernels of its mode: K2 and K3 (BLSTM), K5 and K6 (unidirectional LSTM),
+K8a and K8b (BiGRU), K9a and K9b (unidirectional GRU); and K1 for the
+loss (K11 in the eval step).  On the CPU their plain versions.  PyTorch
+runs eagerly: there is no jit, and ``make_train_step`` returns the step
+as it is (no buffers are donated).
 Natural-gradient affine updates (``affine_type="natural"``) wait for
 ROADMAP.md item 13.
 """

@@ -20,7 +20,7 @@ from kaldi_ctc_tpu_torch import _kernels
 from kaldi_ctc_tpu_torch.features import stft_cuda
 from kaldi_ctc_tpu_torch.features.mel import MelOptions, mel_banks
 from kaldi_ctc_tpu_torch.features.window import FrameOptions, feature_window
-from kaldi_ctc_tpu_torch.ops import ctc, ctc_cuda, rnn_cuda
+from kaldi_ctc_tpu_torch.ops import ctc, ctc_cuda, gru_cuda, rnn_cuda
 
 # K4: the kernel sums the DFT directly in f32 where the plain version
 # uses cuFFT; both are IEEE f32, the order of the sums differs.  2e-4 is
@@ -52,6 +52,9 @@ BILSTM_BWD_BF16_TOL = 5e-2
 LSTM_TOL = {torch.float32: BILSTM_F32_TOL, torch.bfloat16: BILSTM_BF16_TOL}
 LSTM_BWD_TOL = {torch.float32: BILSTM_BWD_F32_TOL,
                 torch.bfloat16: BILSTM_BWD_BF16_TOL}
+# K8a, K8b, K9a and K9b: the same f32 sums over H terms per gate column,
+# the same bf16 storage and rounding sites, the same partial-dh exchange.
+GRU_TOL, GRU_BWD_TOL = LSTM_TOL, LSTM_BWD_TOL
 
 
 @pytest.fixture
@@ -352,6 +355,10 @@ def plain_kernels(monkeypatch):
                             rnn_cuda.lstm_seq_bwd_dgates_reference)
         monkeypatch.setattr(rnn_cuda, "lstm_stack_fwd",
                             rnn_cuda.lstm_stack_fwd_reference)
+        for name in ("gru_seq_fwd", "gru_seq_bwd_dgates", "bigru_seq_fwd",
+                     "bigru_seq_bwd_dgates"):
+            monkeypatch.setattr(gru_cuda, name,
+                                getattr(gru_cuda, name + "_reference"))
     return use_plain
 
 
@@ -571,15 +578,16 @@ def test_lstm_stack_kernel_rejects_bad_inputs(cuda):
     assert not rnn_cuda.lstm_stack_fits(17, 1, 16, torch.float32, cuda)
 
 
-def _uni_model(tmp_path, dtype, layers=5, h=32):
+def _uni_model(tmp_path, dtype, layers=5, h=32, mode=None):
     from kaldi_ctc_tpu_torch.models.acoustic import (AmConfig,
                                                      default_priors,
                                                      init_am_params)
     from kaldi_ctc_tpu_torch.models.artifact import save_inference_artifact
+    from kaldi_ctc_tpu_torch.ops.rnn import RnnMode
 
     cfg = AmConfig(input_dim=40, num_targets=9, hidden_dim=h,
-                   num_layers=layers, bidirectional=False,
-                   compute_dtype=dtype)
+                   num_layers=layers, mode=mode or RnnMode.LSTM,
+                   bidirectional=False, compute_dtype=dtype)
     path = str(tmp_path / "uni.npz")
     save_inference_artifact(path, init_am_params(
         cfg, torch.Generator().manual_seed(0)), cfg, default_priors(9))
@@ -673,6 +681,226 @@ def test_uni_train_step_on_cuda_matches_plain(cuda, dtype, plain_kernels):
                     tree_flatten(state_p.params)):
         np.testing.assert_allclose(g.cpu().numpy(), r.cpu().numpy(), rtol=0,
                                    atol=1e-5 if dtype == "float32" else 1e-4)
+
+
+def _gru_inputs(t, b, h, dtype, device, seed, dirs=1):
+    """Seeded GRU operands: a projection [T, B, dirs*3H], ``dirs``
+    recurrent weights [H, 3H] and cotangents [T, B, H], lengths with row 0
+    full and the rest ragged (some 0)."""
+    rng = np.random.default_rng(seed)
+
+    def mat(*shape, scale=1.0):
+        return torch.as_tensor((rng.standard_normal(shape) * scale)
+                               .astype(np.float32), device=device).to(dtype)
+
+    xp = mat(t, b, dirs * 3 * h)
+    ws = [mat(h, 3 * h, scale=h ** -0.5) for _ in range(dirs)]
+    dys = [mat(t, b, h) for _ in range(dirs)]
+    lens = np.full(b, t, np.int32)
+    lens[1:] = rng.integers(0, t + 1, size=b - 1)
+    return xp, ws, dys, torch.as_tensor(lens, device=device)
+
+
+def _zero_past_lens(outs, lens, name):
+    for row, n in enumerate(lens.cpu().numpy()):
+        for g in outs:
+            assert not g[n:, row].any(), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("t,b,h", [(16, 3, 16), (40, 2, 320), (240, 48, 320)])
+def test_gru_kernel_matches_plain(cuda, dtype, t, b, h, reverse):
+    """K9a against its plain version, both directions, ragged rows."""
+    xp, (w,), _, lens = _gru_inputs(t, b, h, dtype, cuda, seed=h + t)
+    before = gru_cuda.gru_seq_fwd.launches
+    got = gru_cuda.gru_seq_fwd(xp, w, lens, reverse)
+    torch.cuda.synchronize()
+    assert gru_cuda.gru_seq_fwd.launches == before + 1
+    _close(got, gru_cuda.gru_seq_fwd_reference(xp, w, lens, reverse),
+           GRU_TOL[dtype], "y")
+    _zero_past_lens([got], lens, "y")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("t,b,h", [(16, 3, 16), (40, 2, 320), (240, 48, 320)])
+def test_gru_bwd_kernel_matches_plain(cuda, dtype, t, b, h, reverse):
+    """K9b's dgx and dgh against its plain version on a forward of K9a's
+    plain version."""
+    xp, (w,), (dy,), lens = _gru_inputs(t, b, h, dtype, cuda, seed=h + t + 1)
+    y = gru_cuda.gru_seq_fwd_reference(xp, w, lens, reverse)
+    args = (dy, xp, y, w, lens, reverse)
+    before = gru_cuda.gru_seq_bwd_dgates.launches
+    got = gru_cuda.gru_seq_bwd_dgates(*args)
+    torch.cuda.synchronize()
+    assert gru_cuda.gru_seq_bwd_dgates.launches == before + 1
+    for name, g, r in zip(("dgx", "dgh"), got,
+                          gru_cuda.gru_seq_bwd_dgates_reference(*args)):
+        _close(g, r, GRU_BWD_TOL[dtype], name)
+    _zero_past_lens(got, lens, "dgates")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("t,b,h", [(16, 3, 16), (16, 3, 128), (40, 2, 320),
+                                   (240, 48, 320)])
+def test_bigru_kernel_matches_plain(cuda, dtype, t, b, h):
+    """K8a against its plain version: both directions in one launch."""
+    xp, (w_f, w_b), _, lens = _gru_inputs(t, b, h, dtype, cuda, h + t, 2)
+    before = gru_cuda.bigru_seq_fwd.launches
+    got = gru_cuda.bigru_seq_fwd(xp, w_f, w_b, lens)
+    torch.cuda.synchronize()
+    assert gru_cuda.bigru_seq_fwd.launches == before + 1
+    ref = gru_cuda.bigru_seq_fwd_reference(xp, w_f, w_b, lens)
+    for name, g, r in zip(("y_f", "y_b"), got, ref):
+        _close(g, r, GRU_TOL[dtype], name)
+    _zero_past_lens(got, lens, "y")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("t,b,h", [(16, 3, 16), (16, 3, 128), (40, 2, 320),
+                                   (240, 48, 320)])
+def test_bigru_bwd_kernel_matches_plain(cuda, dtype, t, b, h):
+    """K8b's four outputs against its plain version on a forward of K8a's
+    plain version."""
+    xp, (w_f, w_b), (dy_f, dy_b), lens = _gru_inputs(t, b, h, dtype, cuda,
+                                                     h + t + 1, 2)
+    y_f, y_b = gru_cuda.bigru_seq_fwd_reference(xp, w_f, w_b, lens)
+    args = (dy_f, dy_b, xp, y_f, y_b, w_f, w_b, lens)
+    before = gru_cuda.bigru_seq_bwd_dgates.launches
+    got = gru_cuda.bigru_seq_bwd_dgates(*args)
+    torch.cuda.synchronize()
+    assert gru_cuda.bigru_seq_bwd_dgates.launches == before + 1
+    ref = gru_cuda.bigru_seq_bwd_dgates_reference(*args)
+    for name, g, r in zip(("dgx_f", "dgh_f", "dgx_b", "dgh_b"), got, ref):
+        _close(g, r, GRU_BWD_TOL[dtype], name)
+    _zero_past_lens(got, lens, "dgates")
+
+
+@pytest.mark.cuda
+def test_gru_kernels_reject_bad_inputs(cuda):
+    xp, (w,), (dy,), lens = _gru_inputs(4, 2, 16, torch.float32, cuda, 0)
+    with pytest.raises(ValueError):                   # w_h dtype
+        gru_cuda.gru_seq_fwd(xp, w.to(torch.bfloat16), lens)
+    with pytest.raises(ValueError):                   # not [T, B, 3H]
+        gru_cuda.gru_seq_fwd(xp[:, :, :-2].contiguous(), w, lens)
+    with pytest.raises(ValueError):                   # lens on the CPU
+        gru_cuda.gru_seq_fwd(xp, w, lens.cpu())
+    y = gru_cuda.gru_seq_fwd_reference(xp, w, lens)
+    with pytest.raises(ValueError):                   # y not contiguous
+        gru_cuda.gru_seq_bwd_dgates(dy, xp, y.transpose(0, 1).contiguous()
+                                    .transpose(0, 1), w, lens)
+    with pytest.raises(ValueError):                   # dy dtype
+        gru_cuda.gru_seq_bwd_dgates(dy.double(), xp, y, w, lens)
+    xp2, (w_f, w_b), (dy_f, dy_b), lens2 = _gru_inputs(
+        4, 2, 16, torch.float32, cuda, 0, 2)
+    with pytest.raises(ValueError):                   # w_h_b dtype
+        gru_cuda.bigru_seq_fwd(xp2, w_f, w_b.to(torch.bfloat16), lens2)
+    with pytest.raises(ValueError):                   # y in another dtype
+        gru_cuda.bigru_seq_fwd(xp2, w_f, w_b, lens2, y_dtype=torch.bfloat16)
+    with pytest.raises(ValueError):                   # lens not int
+        gru_cuda.bigru_seq_fwd(xp2, w_f, w_b, lens2.float())
+    y_f, y_b = gru_cuda.bigru_seq_fwd_reference(xp2, w_f, w_b, lens2)
+    with pytest.raises(ValueError):                   # xp not contiguous
+        gru_cuda.bigru_seq_bwd_dgates(
+            dy_f, dy_b, xp2.transpose(0, 1).contiguous().transpose(0, 1),
+            y_f, y_b, w_f, w_b, lens2)
+    with pytest.raises(ValueError):                   # lens on the CPU
+        gru_cuda.bigru_seq_bwd_dgates(dy_f, dy_b, xp2, y_f, y_b, w_f, w_b,
+                                      lens2.cpu())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bidirectional", [True, False])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_gru_train_step_on_cuda_matches_plain(cuda, dtype, bidirectional,
+                                              plain_kernels):
+    """One step of the 5x320 BiGRU (K8a, K8b) or GRU (K9a, K9b), T cut to
+    40, with K1, against the same step on the plain versions on the
+    card."""
+    from kaldi_ctc_tpu_torch.models.acoustic import AmConfig, init_am_params
+    from kaldi_ctc_tpu_torch.ops.rnn import RnnMode
+    from kaldi_ctc_tpu_torch.params import tree_flatten
+    from kaldi_ctc_tpu_torch.training import train
+
+    cfg = AmConfig(input_dim=40, num_targets=72, hidden_dim=320,
+                   num_layers=5, mode=RnnMode.GRU,
+                   bidirectional=bidirectional, compute_dtype=dtype)
+    fwd, bwd = ((gru_cuda.bigru_seq_fwd, gru_cuda.bigru_seq_bwd_dgates)
+                if bidirectional else
+                (gru_cuda.gru_seq_fwd, gru_cuda.gru_seq_bwd_dgates))
+    rng = np.random.default_rng(0)
+    b, t, lmax = 6, 40, 8
+    batch = {"feats": rng.standard_normal((b, t, 40)).astype(np.float32),
+             "labels": rng.integers(1, 72, (b, lmax)).astype(np.int32),
+             "input_lens": np.array([40, 40, 33, 25, 17, 5], np.int32),
+             "label_lens": np.array([8, 5, 8, 3, 8, 1], np.int32)}
+    params = init_am_params(cfg, torch.Generator().manual_seed(0), cuda)
+    step = train.build_train_step(cfg, train.TrainOptions(momentum=0.9))
+    counts = (fwd.launches, bwd.launches, ctc_cuda.alpha_beta.launches)
+    state, m = step(train.init_train_state(params), batch)
+    torch.cuda.synchronize()
+    assert (fwd.launches - counts[0], bwd.launches - counts[1],
+            ctc_cuda.alpha_beta.launches - counts[2]) == (5, 5, 1)
+    assert bool(m["finite"]) and np.isfinite(float(m["loss_total"]))
+    plain_kernels()
+    state_p, m_p = step(train.init_train_state(params), batch)
+    rtol = 1e-5 if dtype == "float32" else 2e-3
+    np.testing.assert_allclose(float(m["loss_total"]),
+                               float(m_p["loss_total"]), rtol=rtol)
+    np.testing.assert_allclose(float(m["grad_norm"]),
+                               float(m_p["grad_norm"]), rtol=10 * rtol)
+    for g, r in zip(tree_flatten(state.params),
+                    tree_flatten(state_p.params)):
+        np.testing.assert_allclose(g.cpu().numpy(), r.cpu().numpy(), rtol=0,
+                                   atol=1e-5 if dtype == "float32" else 1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_gru_stream_engine_on_cuda_matches_plain(cuda, dtype, tmp_path):
+    """A unidirectional GRU engine on the card: /recognize through K9a (5
+    launches), the streaming ticks through the per-layer loop in torch ops
+    (no kernel launch, as the JAX package runs its XLA scan), the
+    streamed labels equal to /recognize's, and the chunk scores equal to
+    the CPU engine's."""
+    from kaldi_ctc_tpu_torch.cli import serve
+    from kaldi_ctc_tpu_torch.ops.rnn import RnnMode
+
+    path = _uni_model(tmp_path, dtype, mode=RnnMode.GRU)
+    flags = ["--model", path, "--max-streams", "3", "--chunk-frames", "7"]
+    gpu = serve.Engine(serve.parse_args(flags))
+    cpu = serve.Engine(serve.parse_args(flags + ["--device", "cpu"]))
+    rng = np.random.default_rng(2)
+    x = (np.cumsum(rng.standard_normal(12000)) * 50).astype(np.float32)
+    k9 = gru_cuda.gru_seq_fwd.launches
+    offline = gpu.recognize(x)
+    assert gru_cuda.gru_seq_fwd.launches - k9 == 5
+    k7, ticks = rnn_cuda.lstm_stack_fwd.launches, gpu.stream.ticks
+    slot = gpu.stream_start()
+    for lo in range(0, len(x), 1700):
+        gpu.stream_chunk(slot, x[lo:lo + 1700])
+    assert gpu.stream_end(slot)["labels"] == offline["labels"]
+    assert gpu.stream.ticks - ticks > 0
+    assert rnn_cuda.lstm_stack_fwd.launches == k7
+    feats = gpu.feats_for(x)[:21]                     # three full chunks
+    block = torch.zeros((3, 7, 40), device=cuda)
+    st_g = gpu.stream._state
+    st_c = [h.cpu() for h in st_g]                    # a GRU carries h only
+    tol = 1e-4 if dtype == "float32" else 5e-2
+    for lo in range(0, 21, 7):
+        block[1] = feats[lo:lo + 7]
+        lens = torch.tensor([0, 7, 3], dtype=torch.int32)
+        sg, st_g = gpu.stream.chunk_fn(block.transpose(0, 1), lens.to(cuda),
+                                       st_g)
+        sc, st_c = cpu.stream.chunk_fn(block.transpose(0, 1).cpu(), lens,
+                                       st_c)
+        np.testing.assert_allclose(sg.cpu().numpy(), sc.numpy(), rtol=0,
+                                   atol=tol)
 
 
 @pytest.fixture

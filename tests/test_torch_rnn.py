@@ -154,21 +154,6 @@ def test_rnn_forward_without_lens_is_full_length():
                        trnn.rnn_forward(params, x, tcfg, full))
 
 
-@pytest.mark.parametrize("mode,bidirectional,kernel", [
-    (trnn.RnnMode.GRU, True, "K8"), (trnn.RnnMode.GRU, False, "K9")])
-def test_unported_kernels_raise_on_cuda(mode, bidirectional, kernel):
-    _, tcfg = _cfgs(mode, bidirectional, "float32")
-    with pytest.raises(NotImplementedError, match=kernel):
-        trnn._check_cuda_mode(tcfg)
-
-
-@pytest.mark.parametrize("mode,bidirectional", [
-    (trnn.RnnMode.LSTM, True), (trnn.RnnMode.LSTM, False),
-    (trnn.RnnMode.RELU, False), (trnn.RnnMode.TANH, True)])
-def test_ported_modes_pass_the_cuda_check(mode, bidirectional):
-    trnn._check_cuda_mode(_cfgs(mode, bidirectional, "float32")[1])
-
-
 def test_init_rnn_params_seeded_and_shaped_like_jax():
     jcfg, tcfg = _cfgs(trnn.RnnMode.LSTM, True, "float32")
     a = trnn.init_rnn_params(tcfg, torch.Generator().manual_seed(3))

@@ -138,6 +138,54 @@ def test_http_endpoints(http_server):
     assert _request(port, "GET", "/nope")[0] == 404
 
 
+@pytest.mark.parametrize("bidirectional", ["1", "0"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_gru_artifact_serves_like_jax(dtype, bidirectional, tmp_path):
+    """An ``init_model --rnn-mode 3`` directory (BiGRU, or GRU): the
+    port's CLI server on the CPU (the plain versions of K8a or K9a)
+    serving its JAX-written artifact answers /recognize with the JAX
+    engine's labels, and scores identical features as JAX does."""
+    from kaldi_ctc_tpu.cli import init_model, serve as jserve
+    from kaldi_ctc_tpu.models.artifact import save_inference_artifact
+    from kaldi_ctc_tpu_torch.cli import serve as tserve
+
+    exp = str(tmp_path / "exp")
+    init_model.main(["--input-dim", "40", "--num-targets", "6",
+                     "--hidden-dim", "16", "--num-layers", "2",
+                     "--rnn-mode", "3", "--bidirectional", bidirectional,
+                     "--dir", exp])
+    cfg_path = os.path.join(exp, "model_config.json")
+    with open(cfg_path) as f:
+        cfg = json.load(f)
+    cfg["compute_dtype"] = dtype
+    with open(cfg_path, "w") as f:
+        json.dump(cfg, f)
+    jeng = jserve.Engine(jserve.parse_args(["--dir", exp]))
+    path = str(tmp_path / "final.npz")
+    save_inference_artifact(path, jeng.params, jeng.cfg, priors=jeng.priors)
+    httpd, teng = tserve.make_server(tserve.parse_args(
+        ["--model", path, "--device", "cpu", "--port", "0"]))
+    t = threading.Thread(target=httpd.serve_forever, daemon=True)
+    t.start()
+    try:
+        for seconds, seed in ((1.2, 0), (0.7, 3)):
+            pcm = _pcm(seconds, seed)
+            jf = jeng.feats_for(pcm.astype(np.float32))
+            for got, ref in zip(teng.score_utt(torch.as_tensor(jf)),
+                                jeng._score_utt(jf)):
+                np.testing.assert_allclose(got, ref, rtol=0,
+                                           atol=SCORE_TOL[dtype])
+            status, out = _request(httpd.server_address[1], "POST",
+                                   "/recognize", pcm.tobytes())
+            want = jeng.recognize(pcm.astype(np.float32))
+            assert status == 200 and out["labels"] == want["labels"]
+            assert out["num_frames"] == want["num_frames"]
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        t.join(timeout=10)
+
+
 def test_short_audio_has_no_frames(engines):
     _, _, teng = engines
     assert teng.recognize(np.zeros(100, np.float32)) == {
@@ -207,6 +255,7 @@ def test_port_imports_without_jax(tmp_path):
         "import kaldi_ctc_tpu_torch.decoding.scores\n"
         "import kaldi_ctc_tpu_torch.decoding.streaming\n"
         "import kaldi_ctc_tpu_torch.ops.rnn_cuda\n"
+        "import kaldi_ctc_tpu_torch.ops.gru_cuda\n"
         "import kaldi_ctc_tpu_torch.ops.ctc, kaldi_ctc_tpu_torch.ops.ctc_cuda\n"
         "import kaldi_ctc_tpu_torch.training.train\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "

@@ -365,6 +365,56 @@ def test_interleaved_slots_are_independent(uni_server):
     assert e2["labels"] == off2["labels"]
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_gru_stream_matches_jax_and_recognize(dtype, tmp_path):
+    """An ``init_model --rnn-mode 3 --bidirectional 0`` directory: the
+    port's /stream/* (the per-layer loop on the CPU) gives the JAX
+    engine's streamed labels and the port's /recognize labels (the plain
+    version of K9a), which equal JAX's too."""
+    from kaldi_ctc_tpu.cli import init_model, serve as jserve
+    from kaldi_ctc_tpu_torch.cli import serve as tserve
+
+    exp = str(tmp_path / "exp")
+    init_model.main(["--input-dim", "40", "--num-targets", "6",
+                     "--hidden-dim", "16", "--num-layers", "2",
+                     "--rnn-mode", "3", "--bidirectional", "0",
+                     "--dir", exp])
+    cfg_path = f"{exp}/model_config.json"
+    with open(cfg_path) as f:
+        cfg = json.load(f)
+    cfg["compute_dtype"] = dtype
+    with open(cfg_path, "w") as f:
+        json.dump(cfg, f)
+    flags = ["--dir", exp, "--use-priors", "0", "--max-streams", "2",
+             "--chunk-frames", "7"]
+    jeng = jserve.Engine(jserve.parse_args(flags))
+    httpd, teng = tserve.make_server(tserve.parse_args(
+        flags + ["--device", "cpu", "--port", "0"]))
+    t = threading.Thread(target=httpd.serve_forever, daemon=True)
+    t.start()
+    try:
+        port = httpd.server_address[1]
+        pcm = _pcm(1.0, seed=4)
+        sizes = [1600, 2400, 3210, 4000, 2790, 2000]
+        slot = _request(port, "POST", "/stream/start")[1]["slot"]
+        off = 0
+        for sz in sizes:
+            assert _request(port, "POST", f"/stream/{slot}/chunk",
+                            pcm[off:off + sz].tobytes())[0] == 200
+            off += sz
+        status, end = _request(port, "POST", f"/stream/{slot}/end")
+        _, offline = _request(port, "POST", "/recognize", pcm.tobytes())
+        assert status == 200 and end["labels"] == offline["labels"]
+        assert end["labels"] == _jax_stream(jeng, pcm, sizes)
+        assert offline["labels"] == jeng.recognize(
+            pcm.astype(np.float32))["labels"]
+        assert teng.stream.ticks > 0
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        t.join(timeout=10)
+
+
 def test_slot_exhaustion_reuse_and_unknown_slot(uni_server):
     port, teng, _ = uni_server
     slots = [_request(port, "POST", "/stream/start")[1]["slot"]

@@ -1,13 +1,14 @@
 """The port's training step (``kaldi_ctc_tpu_torch/training/train.py``)
 held to the JAX package's on the CPU: the lr schedule, the clip, three
-steps of ``build_train_step`` on the tiny flagship and on its
-unidirectional variant from the JAX package's initial state (f32 and
-bf16, momentum 0 and 0.9), the non-finite guard, and the eval step with
-its accuracy.
+steps of ``build_train_step`` on the tiny flagship, on its
+unidirectional variant and on both with GRU layers, from the JAX
+package's initial state (f32 and bf16, momentum 0 and 0.9), the
+non-finite guard, and the eval step with its accuracy.
 
 JAX's train step on the CPU runs its ``lax.scan`` RNN and its XLA CTC;
-the port runs the plain versions of K2, K3 and K1 (BLSTM) or K5, K6 and
-K1 (unidirectional LSTM)."""
+the port runs the plain versions of K2, K3 and K1 (BLSTM), K5, K6 and K1
+(unidirectional LSTM), K8a, K8b and K1 (BiGRU) or K9a, K9b and K1
+(unidirectional GRU)."""
 
 import dataclasses
 
@@ -19,6 +20,7 @@ import torch
 
 from __graft_entry__ import _flagship_cfg
 from kaldi_ctc_tpu.models import init_am_params
+from kaldi_ctc_tpu.ops.rnn import RnnMode
 from kaldi_ctc_tpu.training import train as jtrain
 from kaldi_ctc_tpu_torch.models.acoustic import AmConfig, am_param_shapes
 from kaldi_ctc_tpu_torch.params import (from_jax_params, train_state_from_jax,
@@ -42,6 +44,12 @@ OPTS = dict(initial_learning_rate=1e-2, final_learning_rate=1e-3,
 #   gradient sums ~1.8e-3 (a bf16 ulp of 0.5) after 3 steps.
 TOLS = {"float32": (1e-6, 1e-5, 1e-5, 5e-5),
         "bfloat16": (1e-5, 1e-4, 1e-4, 5e-3)}
+# The GRU stacks: f32 as above.  bf16: JAX's scan also rounds the h
+# cotangent to bf16 at every step (the cast of h before the recurrent
+# product), where K8b's and K9b's contract carries dh in f32, so the
+# BiGRU's gradient sums of ~0.5 drift by up to ~1.3 bf16 ulps (5e-3).
+GRU_TOLS = {"float32": TOLS["float32"],
+            "bfloat16": TOLS["bfloat16"][:3] + (1e-2,)}
 
 
 def _batch(seed=0):
@@ -56,9 +64,9 @@ def _batch(seed=0):
             "label_lens": np.array([4, 3, 2, 2], np.int32)}
 
 
-def _cfgs(dtype="float32", bidirectional=True):
+def _cfgs(dtype="float32", bidirectional=True, mode=RnnMode.LSTM):
     jcfg = dataclasses.replace(_flagship_cfg(tiny=True), compute_dtype=dtype,
-                               bidirectional=bidirectional)
+                               bidirectional=bidirectional, mode=mode)
     return jcfg, AmConfig.from_dict(jcfg.to_dict())
 
 
@@ -107,9 +115,18 @@ def test_uni_train_steps_match_jax(dtype):
     _check_train_steps(dtype, 0.9, bidirectional=False)
 
 
-def _check_train_steps(dtype, momentum, bidirectional):
-    loss_tol, norm_tol, param_tol, velocity_tol = TOLS[dtype]
-    jcfg, tcfg = _cfgs(dtype, bidirectional)
+@pytest.mark.parametrize("bidirectional", [True, False])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_gru_train_steps_match_jax(dtype, bidirectional):
+    """The tiny flagship with GRU layers, bi (the plain versions of K8a,
+    K8b) and uni (K9a, K9b), and K1."""
+    _check_train_steps(dtype, 0.9, bidirectional, RnnMode.GRU)
+
+
+def _check_train_steps(dtype, momentum, bidirectional, mode=RnnMode.LSTM):
+    loss_tol, norm_tol, param_tol, velocity_tol = (
+        GRU_TOLS if mode == RnnMode.GRU else TOLS)[dtype]
+    jcfg, tcfg = _cfgs(dtype, bidirectional, mode)
     jstate = jtrain.init_train_state(init_am_params(jax.random.PRNGKey(0),
                                                     jcfg))
     tstate = train_state_from_jax(jax.device_get(jstate))
@@ -176,8 +193,13 @@ def test_uni_eval_step_matches_jax():
     _check_eval_step(bidirectional=False)
 
 
-def _check_eval_step(bidirectional):
-    jcfg, tcfg = _cfgs(bidirectional=bidirectional)
+@pytest.mark.parametrize("bidirectional", [True, False])
+def test_gru_eval_step_matches_jax(bidirectional):
+    _check_eval_step(bidirectional, RnnMode.GRU)
+
+
+def _check_eval_step(bidirectional, mode=RnnMode.LSTM):
+    jcfg, tcfg = _cfgs(bidirectional=bidirectional, mode=mode)
     jparams = init_am_params(jax.random.PRNGKey(3), jcfg)
     batch = _batch(2)
     jm = jtrain.make_eval_step(jcfg)(jparams, {k: jnp.asarray(v)
