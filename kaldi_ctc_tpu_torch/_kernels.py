@@ -4,8 +4,9 @@ Each ``csrc/<name>.cu`` is a kernel with a plain C interface.  At its
 first use in a process it is compiled by ``nvcc`` for ``sm_90a`` into a
 shared library under ``build/kernels/`` (beside the package; the
 directory is git-ignored) and loaded with ``ctypes``.  The library's
-file name carries a hash of the source and the flags, so an edited
-source is rebuilt and an unchanged one is reused.  Only sources in this
+file name carries a hash of the source, of the headers (``*.cuh``) in
+``csrc/`` and of the flags, so an edited source or header is rebuilt
+and an unchanged one is reused.  Only sources in this
 repository are built.
 
 Every C entry point returns ``cudaGetLastError()`` after its launch;
@@ -17,6 +18,7 @@ raises.
 from __future__ import annotations
 
 import ctypes
+import glob
 import hashlib
 import os
 import shutil
@@ -47,10 +49,12 @@ def _nvcc() -> str:
 
 def build(name: str) -> str:
     """Compile ``csrc/<name>.cu`` unless a library of the same source
-    hash exists → path of the shared library."""
+    and header hash exists → path of the shared library."""
     src = os.path.join(_CSRC, name + ".cu")
-    with open(src, "rb") as f:
-        digest = hashlib.sha256(f.read())
+    digest = hashlib.sha256()
+    for path in [src] + sorted(glob.glob(os.path.join(_CSRC, "*.cuh"))):
+        with open(path, "rb") as f:
+            digest.update(f.read())
     digest.update(" ".join(NVCC_FLAGS).encode())
     out = os.path.join(BUILD_DIR, f"{name}-{digest.hexdigest()[:16]}.so")
     if os.path.exists(out):

@@ -1,13 +1,17 @@
-// K3: the backward recurrence of one bidirectional LSTM layer (dgates).
+// K3 and K10b: the backward recurrence of one bidirectional LSTM layer
+// (dgates), with the gates recomputed from the hoisted projection (K3) or
+// from the layer input through the in-kernel projection (K10b).
 //
 // Replaces kaldi_ctc_tpu/ops/rnn_pallas.py::_bilstm_seq_bwd_dgates
-// (kernel body _bibwd_kernel with _dgates_update and _lstm_gates).
+// (kernel body _bibwd_kernel with _dgates_update and _lstm_gates; K3) and
+// ::_bilstm_seq_bwd_dgates_proj (kernel body _bibwd_proj_kernel; K10b).
 // Inputs: the output cotangents dy_f, dy_b [T, B, H] and the forward's
-// residuals, all as K2 wrote or read them: the projection xp [T, B, 8H]
-// (forward direction's 4H first, gate order i, f, g, o), y_f, y_b
-// [T, B, H] in the compute dtype, c_f, c_b [T, B, H] f32, the recurrent
-// weights w_h_f, w_h_b [H, 4H] and the lengths [B].  Outputs: dg_f, dg_b
-// [T, B, 4H] in the compute dtype, the cotangents of the gate
+// residuals, all as K2 or K10a wrote or read them: K3 the projection xp
+// [T, B, 8H] (forward direction's 4H first, gate order i, f, g, o),
+// K10b the layer input x [T, B, D], W_x [D, 8H] and the bias [8H] f32;
+// y_f, y_b [T, B, H] in the compute dtype, c_f, c_b [T, B, H] f32, the
+// recurrent weights w_h_f, w_h_b [H, 4H] and the lengths [B].  Outputs:
+// dg_f, dg_b [T, B, 4H] in the compute dtype, the cotangents of the gate
 // pre-activations (i, f, g, o), zero at pad frames.
 //
 // The walk runs each direction's forward order in reverse: step s
@@ -16,7 +20,9 @@
 //   - recomputes the gates from xp[t] + y[t-+1] . W_h, with y[t-+1] as
 //     stored (the compute dtype) and zero at the direction's first
 //     forward step, f32 accumulation: the same sums, in the same order,
-//     as K2's, so the gates equal the forward's;
+//     as K2's, so the gates equal the forward's.  K10b takes xp[t] from
+//     project() of csrc/bilstm_cell.cuh, K10a's own definition, so its
+//     gates equal K10a's bit for bit;
 //   - reads c[t] and c[t-+1] (zero at the first forward step);
 //   - forms dh_total = dy + dh and dc_total, writes the dgates;
 //   - at valid frames carries dh = dgates . W_h^T (dgates rounded to the
@@ -27,13 +33,15 @@
 // each step needs the whole previous dgates row [B, 4H] of its
 // direction to form dh.  At the training batch B = 48, H = 320 that row
 // is 245 KB in f32: more than one block's shared memory, and 128 blocks
-// each reading it from L2 every step would move 31 MB per step.
+// each reading it from L2 every step would move 31 MB per step.  K10b
+// adds the projection's D x 4H MACs per row and direction to each step.
 //
 // Design: one cooperative launch per layer, K2's layout.  Each block
 // owns hs hidden units of one direction and keeps those units' four
-// gate columns of W_h (4*hs x H) in shared memory for the whole walk,
-// with its dh and dc.  The columns serve both products: the gate
-// recompute sums y[b, k] * W_h[k, c] over k for the block's columns c,
+// gate columns of W_h (4*hs x H; K10b also of W_x, 4*hs x D, and the
+// bias) in shared memory for the whole walk, with its dh and dc.  The
+// W_h columns serve both products: the gate recompute sums
+// y[b, k] * W_h[k, c] over k for the block's columns c,
 // and the block's share of dh sums dgates[b, c] * W_h[k, c] over its
 // own columns c, for every k.  Blocks exchange those partial dh rows,
 // not dgates: each block writes a [B, H] partial (f32, through L2 with
@@ -42,13 +50,18 @@
 // the step's one grid.sync() each block sums the nb partials of its own
 // units (ld.global.cg), in a fixed order.  That moves 61 KB in and out
 // of each block per step instead of 245 KB in, and keeps the sums f32
-// and deterministic.  The next step's gate recompute needs no exchange
-// (y is in device memory) and runs before the barrier.
+// and deterministic.  The next step's gate recompute (K10b: with its
+// projection, x read through L1/L2) needs no exchange (y and x are in
+// device memory) and runs before the barrier.  The rows of y[t-+1], the
+// gate sums and the dgates of all B rows stay in shared memory; a batch
+// too large for it is refused with cudaErrorLaunchOutOfResources.
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "bilstm_cell.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -56,33 +69,16 @@ namespace {
 
 constexpr int kThreads = 512;
 
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-
-template <typename T>
-__device__ __forceinline__ T from_f32(float v);
-template <>
-__device__ __forceinline__ float from_f32<float>(float v) { return v; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
-  return __float2bfloat16(v);  // round to nearest even, as astype does
-}
-
-__device__ __forceinline__ float sigmoid(float x) {
-  return 1.0f / (1.0f + expf(-x));
-}
-
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-bilstm_bwd_kernel(const T* __restrict__ dyf, const T* __restrict__ dyb,
-                  const T* __restrict__ xp, const T* __restrict__ yf,
-                  const float* __restrict__ cf, const T* __restrict__ yb,
-                  const float* __restrict__ cb, const T* __restrict__ whf,
-                  const T* __restrict__ whb, const int32_t* __restrict__ lens,
-                  T* __restrict__ dgf, T* __restrict__ dgb, float* part,
-                  int steps, int B, int H, int hs) {
+template <typename T, bool kProj>
+__device__ __forceinline__ void bilstm_bwd_body(
+    const T* __restrict__ dyf, const T* __restrict__ dyb,
+    const T* __restrict__ in, const T* __restrict__ yf,
+    const float* __restrict__ cf, const T* __restrict__ yb,
+    const float* __restrict__ cb, const T* __restrict__ wx,
+    const float* __restrict__ bias, const T* __restrict__ whf,
+    const T* __restrict__ whb, const int32_t* __restrict__ lens,
+    T* __restrict__ dgf, T* __restrict__ dgb, float* part, int steps, int B,
+    int D, int H, int hs) {
   cg::grid_group grid = cg::this_grid();
   extern __shared__ float smem[];
   const int nb = (H + hs - 1) / hs;        // blocks per direction
@@ -100,9 +96,12 @@ bilstm_bwd_kernel(const T* __restrict__ dyf, const T* __restrict__ dyb,
   // partial dh: [parity][direction][B][owner group][writer][hs]
   const size_t psize = (size_t)B * nb * nb * hs;
 
+  const int wxn = kProj ? 4 * hs * D : 0;
   float* w_s = smem;                  // [4n][H]: column c = gate * n + jj
-  float* y_s = w_s + 4 * hs * H;      // [B][H]: y[t-+1], the gate operand
-  float* g_s = y_s + B * H;           // [B][4n]: recurrent gate sums
+  float* wx_s = w_s + 4 * hs * H;     // K10b: [4n][D] columns of W_x
+  float* b_s = wx_s + wxn;            // K10b: [4n] bias
+  float* y_s = b_s + (kProj ? 4 * hs : 0);  // [B][H]: y[t-+1], the operand
+  float* g_s = y_s + B * H;           // [B][4n]: gate sums
   float* dg_s = g_s + B * 4 * hs;     // [B][4n]: dgates as the dh operand
   float* dh_s = dg_s + B * 4 * hs;    // [B][n]: dh carry of owned units
   float* dc_s = dh_s + B * hs;        // [B][n]: dc carry of owned units
@@ -111,6 +110,16 @@ bilstm_bwd_kernel(const T* __restrict__ dyf, const T* __restrict__ dyb,
     const int c = i / H, k = i % H;
     const int gate = c / n, jj = c % n;
     w_s[i] = to_f32(wh[(size_t)k * G + gate * H + j0 + jj]);
+  }
+  if constexpr (kProj) {
+    for (int i = threadIdx.x; i < n4 * D; i += blockDim.x) {
+      const int c = i / D, k = i % D;
+      const int gate = c / n, jj = c % n;
+      const int col = dir * G + gate * H + j0 + jj;
+      wx_s[i] = to_f32(wx[(size_t)k * 2 * G + col]);
+    }
+    for (int c = threadIdx.x; c < n4; c += blockDim.x)
+      b_s[c] = bias[dir * G + (c / n) * H + j0 + c % n];
   }
   for (int i = threadIdx.x; i < B * n; i += blockDim.x) {
     dh_s[i] = 0.0f;
@@ -122,11 +131,13 @@ bilstm_bwd_kernel(const T* __restrict__ dyf, const T* __restrict__ dyb,
   const int nwarps = blockDim.x >> 5;
   auto time_of = [&](int s) { return dir == 0 ? steps - 1 - s : s; };
 
-  // recurrent gate sums of walk step s into g_s (K2's dot products)
+  // gate sums of walk step s into g_s: K2's recurrent dot products and,
+  // for K10b, K10a's projection
   auto gate_sums = [&](int s) {
     const bool first = s == steps - 1;  // the direction's first fwd step
+    const int t = time_of(s);
     if (!first) {
-      const int tp = dir == 0 ? time_of(s) - 1 : time_of(s) + 1;
+      const int tp = dir == 0 ? t - 1 : t + 1;
       const T* yp = y + (size_t)tp * B * H;
       for (int i = threadIdx.x; i < B * H; i += blockDim.x)
         y_s[i] = to_f32(yp[i]);
@@ -134,14 +145,10 @@ bilstm_bwd_kernel(const T* __restrict__ dyf, const T* __restrict__ dyb,
     __syncthreads();
     for (int o = warp; o < B * n4; o += nwarps) {
       const int b = o / n4, c = o % n4;
-      float acc = 0.0f;
-      if (!first) {
-        const float* hb = y_s + b * H;
-        const float* wc = w_s + c * H;
-        for (int k = lane; k < H; k += 32) acc = fmaf(hb[k], wc[k], acc);
-        for (int off = 16; off > 0; off >>= 1)
-          acc += __shfl_xor_sync(0xffffffffu, acc, off);
-      }
+      float acc = first ? 0.0f : warp_dot(y_s + b * H, w_s + c * H, H, lane);
+      if constexpr (kProj)
+        acc += project(in + ((size_t)t * B + b) * D, wx_s + c * D, b_s[c], D,
+                       lane);
       if (lane == 0) g_s[o] = acc;
     }
   };
@@ -168,12 +175,21 @@ bilstm_bwd_kernel(const T* __restrict__ dyf, const T* __restrict__ dyb,
     }
     for (int e = threadIdx.x; e < B * n; e += blockDim.x) {
       const int b = e / n, jj = e % n, j = j0 + jj;
-      const T* x = xp + ((size_t)t * B + b) * 2 * G + dir * G;
       const float* g = g_s + b * n4;
-      const float gi = sigmoid(to_f32(x[j]) + g[jj]);
-      const float gf = sigmoid(to_f32(x[H + j]) + g[n + jj]);
-      const float gg = tanhf(to_f32(x[2 * H + j]) + g[2 * n + jj]);
-      const float go = sigmoid(to_f32(x[3 * H + j]) + g[3 * n + jj]);
+      // pre-activation of gate q: K10b's sums hold the projection, K3
+      // adds the stored one
+      auto pre = [&](int q) {
+        if constexpr (kProj) {
+          return g[q * n + jj];
+        } else {
+          const T* x = in + ((size_t)t * B + b) * 2 * G + dir * G;
+          return to_f32(x[q * H + j]) + g[q * n + jj];
+        }
+      };
+      const float gi = sigmoid(pre(0));
+      const float gf = sigmoid(pre(1));
+      const float gg = tanhf(pre(2));
+      const float go = sigmoid(pre(3));
       const size_t o = ((size_t)t * B + b) * H + j;
       const float c = cst[o];
       const float cp = first ? 0.0f : cst[((size_t)tp * B + b) * H + j];
@@ -215,27 +231,65 @@ bilstm_bwd_kernel(const T* __restrict__ dyf, const T* __restrict__ dyb,
   }
 }
 
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+bilstm_bwd_kernel(const T* __restrict__ dyf, const T* __restrict__ dyb,
+                  const T* __restrict__ xp, const T* __restrict__ yf,
+                  const float* __restrict__ cf, const T* __restrict__ yb,
+                  const float* __restrict__ cb, const T* __restrict__ whf,
+                  const T* __restrict__ whb, const int32_t* __restrict__ lens,
+                  T* __restrict__ dgf, T* __restrict__ dgb, float* part,
+                  int steps, int B, int H, int hs) {
+  bilstm_bwd_body<T, false>(dyf, dyb, xp, yf, cf, yb, cb, nullptr, nullptr,
+                            whf, whb, lens, dgf, dgb, part, steps, B, 0, H,
+                            hs);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+bilstm_proj_bwd_kernel(const T* __restrict__ dyf, const T* __restrict__ dyb,
+                       const T* __restrict__ x, const T* __restrict__ yf,
+                       const float* __restrict__ cf, const T* __restrict__ yb,
+                       const float* __restrict__ cb, const T* __restrict__ wx,
+                       const float* __restrict__ bias,
+                       const T* __restrict__ whf, const T* __restrict__ whb,
+                       const int32_t* __restrict__ lens, T* __restrict__ dgf,
+                       T* __restrict__ dgb, float* part, int steps, int B,
+                       int D, int H, int hs) {
+  bilstm_bwd_body<T, true>(dyf, dyb, x, yf, cf, yb, cb, wx, bias, whf, whb,
+                           lens, dgf, dgb, part, steps, B, D, H, hs);
+}
+
 // hidden units per block: both directions' blocks in one wave of the SMs
 int units_per_block(int H, int sms) { return (2 * H + sms - 1) / sms; }
 
+// K3 (wx == nullptr: `in` is xp) or K10b (`in` is x, D its width)
 template <typename T>
-int launch(const void* dyf, const void* dyb, const void* xp, const void* yf,
-           const void* cf, const void* yb, const void* cb, const void* whf,
-           const void* whb, const void* lens, void* dgf, void* dgb,
-           void* part, int steps, int B, int H, void* stream) {
+int launch(const void* dyf, const void* dyb, const void* in, const void* yf,
+           const void* cf, const void* yb, const void* cb, const void* wx,
+           const void* bias, const void* whf, const void* whb,
+           const void* lens, void* dgf, void* dgb, void* part, int steps,
+           int B, int D, int H, void* stream) {
   if (steps <= 0 || B <= 0) return cudaGetLastError();
-  int dev = 0, sms = 0, coop = 0;
+  const bool proj = wx != nullptr;
+  int dev = 0, sms = 0, coop = 0, optin = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e != cudaSuccess) return e;
   cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
+  cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                         dev);
   if (!coop) return cudaErrorNotSupported;
   const int hs = units_per_block(H, sms);
   const int nb = (H + hs - 1) / hs;
   const size_t smem = sizeof(float) * ((size_t)4 * hs * H + (size_t)B * H +
                                        (size_t)2 * B * 4 * hs +
-                                       (size_t)2 * B * hs);
-  auto kern = bilstm_bwd_kernel<T>;
+                                       (size_t)2 * B * hs +
+                                       (proj ? (size_t)4 * hs * (D + 1) : 0));
+  if (smem > (size_t)optin) return cudaErrorLaunchOutOfResources;
+  auto k3 = bilstm_bwd_kernel<T>;
+  auto k10 = bilstm_proj_bwd_kernel<T>;
+  const void* kern = proj ? (const void*)k10 : (const void*)k3;
   e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
                            (int)smem);
   if (e != cudaSuccess) return e;
@@ -247,24 +301,31 @@ int launch(const void* dyf, const void* dyb, const void* xp, const void* yf,
 
   const T* a_dyf = static_cast<const T*>(dyf);
   const T* a_dyb = static_cast<const T*>(dyb);
-  const T* a_xp = static_cast<const T*>(xp);
+  const T* a_in = static_cast<const T*>(in);
   const T* a_yf = static_cast<const T*>(yf);
   const float* a_cf = static_cast<const float*>(cf);
   const T* a_yb = static_cast<const T*>(yb);
   const float* a_cb = static_cast<const float*>(cb);
+  const T* a_wx = static_cast<const T*>(wx);
+  const float* a_bias = static_cast<const float*>(bias);
   const T* a_whf = static_cast<const T*>(whf);
   const T* a_whb = static_cast<const T*>(whb);
   const int32_t* a_lens = static_cast<const int32_t*>(lens);
   T* a_dgf = static_cast<T*>(dgf);
   T* a_dgb = static_cast<T*>(dgb);
   float* a_part = static_cast<float*>(part);
-  int a_steps = steps, a_b = B, a_hd = H, a_hs = hs;
-  void* args[] = {&a_dyf, &a_dyb, &a_xp,  &a_yf,   &a_cf,    &a_yb,
-                  &a_cb,  &a_whf, &a_whb, &a_lens, &a_dgf,   &a_dgb,
-                  &a_part, &a_steps, &a_b, &a_hd, &a_hs};
-  e = cudaLaunchCooperativeKernel((void*)kern, dim3(2 * nb), dim3(kThreads),
-                                  args, smem,
-                                  static_cast<cudaStream_t>(stream));
+  int a_steps = steps, a_b = B, a_d = D, a_hd = H, a_hs = hs;
+  void* k3_args[] = {&a_dyf,  &a_dyb, &a_in,   &a_yf,    &a_cf,  &a_yb,
+                     &a_cb,   &a_whf, &a_whb,  &a_lens,  &a_dgf, &a_dgb,
+                     &a_part, &a_steps, &a_b,  &a_hd,    &a_hs};
+  void* k10_args[] = {&a_dyf,  &a_dyb,  &a_in,   &a_yf,   &a_cf,
+                      &a_yb,   &a_cb,   &a_wx,   &a_bias, &a_whf,
+                      &a_whb,  &a_lens, &a_dgf,  &a_dgb,  &a_part,
+                      &a_steps, &a_b,   &a_d,    &a_hd,   &a_hs};
+  void** args = proj ? static_cast<void**>(k10_args)
+                     : static_cast<void**>(k3_args);
+  e = cudaLaunchCooperativeKernel(kern, dim3(2 * nb), dim3(kThreads), args,
+                                  smem, static_cast<cudaStream_t>(stream));
   if (e != cudaSuccess) return e;
   return cudaGetLastError();
 }
@@ -293,8 +354,8 @@ int bilstm_bwd_f32(const void* dyf, const void* dyb, const void* xp,
                    const void* cb, const void* whf, const void* whb,
                    const void* lens, void* dgf, void* dgb, void* part,
                    int steps, int B, int H, void* stream) {
-  return launch<float>(dyf, dyb, xp, yf, cf, yb, cb, whf, whb, lens, dgf,
-                       dgb, part, steps, B, H, stream);
+  return launch<float>(dyf, dyb, xp, yf, cf, yb, cb, nullptr, nullptr, whf,
+                       whb, lens, dgf, dgb, part, steps, B, 0, H, stream);
 }
 
 int bilstm_bwd_bf16(const void* dyf, const void* dyb, const void* xp,
@@ -302,8 +363,32 @@ int bilstm_bwd_bf16(const void* dyf, const void* dyb, const void* xp,
                     const void* cb, const void* whf, const void* whb,
                     const void* lens, void* dgf, void* dgb, void* part,
                     int steps, int B, int H, void* stream) {
-  return launch<__nv_bfloat16>(dyf, dyb, xp, yf, cf, yb, cb, whf, whb, lens,
-                               dgf, dgb, part, steps, B, H, stream);
+  return launch<__nv_bfloat16>(dyf, dyb, xp, yf, cf, yb, cb, nullptr,
+                               nullptr, whf, whb, lens, dgf, dgb, part,
+                               steps, B, 0, H, stream);
+}
+
+// K10b: x [T, B, D] and wx [D, 8H] in the compute dtype, bias [8H] f32;
+// part as above
+int bilstm_proj_bwd_f32(const void* dyf, const void* dyb, const void* x,
+                        const void* yf, const void* cf, const void* yb,
+                        const void* cb, const void* wx, const void* bias,
+                        const void* whf, const void* whb, const void* lens,
+                        void* dgf, void* dgb, void* part, int steps, int B,
+                        int D, int H, void* stream) {
+  return launch<float>(dyf, dyb, x, yf, cf, yb, cb, wx, bias, whf, whb, lens,
+                       dgf, dgb, part, steps, B, D, H, stream);
+}
+
+int bilstm_proj_bwd_bf16(const void* dyf, const void* dyb, const void* x,
+                         const void* yf, const void* cf, const void* yb,
+                         const void* cb, const void* wx, const void* bias,
+                         const void* whf, const void* whb, const void* lens,
+                         void* dgf, void* dgb, void* part, int steps, int B,
+                         int D, int H, void* stream) {
+  return launch<__nv_bfloat16>(dyf, dyb, x, yf, cf, yb, cb, wx, bias, whf,
+                               whb, lens, dgf, dgb, part, steps, B, D, H,
+                               stream);
 }
 
 const char* kctpu_error_string(int err) {

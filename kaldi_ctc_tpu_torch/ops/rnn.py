@@ -19,12 +19,17 @@ is exact in f32, so only the order of the f32 sum differs from a bf16
 tensor-core product, on the CPU and on the card alike.
 
 A bidirectional LSTM or GRU layer goes through :func:`_run_birnn_fused`
-→ ``rnn_cuda.bilstm_layer`` (kernels K2 forward and K3 backward on CUDA,
-their plain versions on the CPU) or ``gru_cuda.bigru_layer`` (K8a, K8b);
-a unidirectional LSTM direction through ``rnn_cuda.lstm_sequence`` (K5
-forward, K6 backward), a GRU direction through ``gru_cuda.gru_sequence``
-(K9a, K9b).  ReLU and Tanh run the plain per-step loop on every device
-(the JAX package has no kernel for them).
+→ ``rnn_cuda.bilstm_layer`` or ``gru_cuda.bigru_layer`` (K8a, K8b).  The
+BLSTM layer picks its route by ``rnn_cuda.use_in_kernel_proj``, the JAX
+package's rule: in f32 a layer whose input width and 4H are multiples of
+128 and whose weights are at most 8 MiB (the 3x128 BLSTM's layers 2-3)
+runs K10a forward and K10b backward, the projection inside the kernels;
+every other layer the hoisted projection, K2 and K3.  A unidirectional
+LSTM direction goes through ``rnn_cuda.lstm_sequence`` (K5 forward, K6
+backward), a GRU direction through ``gru_cuda.gru_sequence`` (K9a, K9b).
+On the CPU each kernel's plain version runs.  ReLU and Tanh run the
+plain per-step loop on every device (the JAX package has no kernel for
+them).
 
 :func:`rnn_forward_stream` is the chunked forward with carried state of
 a unidirectional stack (online recognition); on CUDA an LSTM stack runs
@@ -251,8 +256,10 @@ def rnn_forward(
 
 def _run_birnn_fused(x, input_lens, dirs, cfg: RnnConfig) -> torch.Tensor:
     """Both B(LSTM|GRU) directions through one fused layer: the two
-    input projections merged into one matmul, then one pass of K2 or
-    K8a."""
+    input weights merged into one [D, 2*G*H] matrix, then one pass of K2
+    after the hoisted projection, of K10a with the projection inside it
+    (chosen inside ``bilstm_layer`` by ``use_in_kernel_proj``, as JAX
+    chooses inside its layer), or of K8a."""
     if cfg.mode == RnnMode.LSTM:
         from kaldi_ctc_tpu_torch.ops.rnn_cuda import bilstm_layer as bi_layer
     else:

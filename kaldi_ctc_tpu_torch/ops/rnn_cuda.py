@@ -1,20 +1,25 @@
-"""LSTM recurrences on CUDA: the kernels K2, K3 (bidirectional layer),
-K5, K6 (one unidirectional direction) and K7 (the unidirectional stack as
-a wavefront), and their plain versions.
+"""LSTM recurrences on CUDA: the kernels K2, K3 (bidirectional layer
+from the hoisted projection), K10a, K10b (bidirectional layer with the
+projection inside the kernels), K5, K6 (one unidirectional direction) and
+K7 (the unidirectional stack as a wavefront), and their plain versions.
 
 Counterpart of ``kaldi_ctc_tpu/ops/rnn_pallas.py``: ``_bilstm_seq_fwd``,
-``_bilstm_seq_bwd_dgates``, ``_dw_h`` and ``bilstm_layer`` with its
-custom VJP; ``lstm_seq_fwd``, ``_lstm_seq_bwd_dgates`` and
-``lstm_sequence`` with its custom VJP; ``lstm_stack_fwd``.  Each kernel
-wrapper (:func:`bilstm_seq_fwd` of ``csrc/bilstm_fwd.cu``,
-:func:`bilstm_seq_bwd_dgates` of ``csrc/bilstm_bwd.cu``,
-:func:`lstm_seq_fwd` of ``csrc/lstm_fwd.cu``, :func:`lstm_seq_bwd_dgates`
-of ``csrc/lstm_bwd.cu``, :func:`lstm_stack_fwd` of ``csrc/lstm_stack.cu``)
-sends a CPU tensor to its plain version (``*_reference``) and launches
-the kernel or raises for a CUDA tensor.  :func:`bilstm_layer` and
-:func:`lstm_sequence` are ``torch.autograd.Function``s whose backward
-runs K3 or K6 and then the weight and input gradients as plain products,
-as the JAX package leaves them to XLA.
+``_bilstm_seq_bwd_dgates``, ``_bilstm_seq_fwd_proj``,
+``_bilstm_seq_bwd_dgates_proj``, ``_use_in_kernel_proj``, ``_dw_h`` and
+``bilstm_layer`` with its custom VJP; ``lstm_seq_fwd``,
+``_lstm_seq_bwd_dgates`` and ``lstm_sequence`` with its custom VJP;
+``lstm_stack_fwd``.  Each kernel wrapper (:func:`bilstm_seq_fwd` and
+:func:`bilstm_seq_fwd_proj` of ``csrc/bilstm_fwd.cu``,
+:func:`bilstm_seq_bwd_dgates` and :func:`bilstm_seq_bwd_dgates_proj` of
+``csrc/bilstm_bwd.cu``, :func:`lstm_seq_fwd` of ``csrc/lstm_fwd.cu``,
+:func:`lstm_seq_bwd_dgates` of ``csrc/lstm_bwd.cu``,
+:func:`lstm_stack_fwd` of ``csrc/lstm_stack.cu``) sends a CPU tensor to
+its plain version (``*_reference``) and launches the kernel or raises for
+a CUDA tensor.  :func:`bilstm_layer` and :func:`lstm_sequence` are
+``torch.autograd.Function``s whose backward runs K3, K10b or K6 and then
+the weight and input gradients as plain products, as the JAX package
+leaves them to XLA.  :func:`bilstm_layer` picks K10a/K10b or K2/K3 by
+:func:`use_in_kernel_proj`, the JAX package's rule.
 
 Under bfloat16 the shipped default of the JAX package's ``_bf16_cfg``
 holds: the projection, the layer outputs and the dgates are stored in
@@ -35,7 +40,10 @@ from kaldi_ctc_tpu_torch.ops.rnn import (COMPUTE_DTYPES, _lstm_cell, _valid,
 
 __all__ = ["bilstm_seq_fwd", "bilstm_seq_fwd_reference",
            "bilstm_seq_bwd_dgates", "bilstm_seq_bwd_dgates_reference",
-           "bilstm_layer", "lstm_seq_fwd", "lstm_seq_fwd_reference",
+           "use_in_kernel_proj", "bilstm_seq_fwd_proj",
+           "bilstm_seq_fwd_proj_reference", "bilstm_seq_bwd_dgates_proj",
+           "bilstm_seq_bwd_dgates_proj_reference", "bilstm_layer",
+           "lstm_seq_fwd", "lstm_seq_fwd_reference",
            "lstm_seq_bwd_dgates", "lstm_seq_bwd_dgates_reference",
            "lstm_sequence", "lstm_stack_fwd", "lstm_stack_fwd_reference",
            "lstm_stack_fits"]
@@ -45,10 +53,16 @@ _I = ctypes.c_int
 # each entry point's name ends in the suffix of its compute dtype
 _SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
 _ARGS = [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P]
-_SIGNATURES = {"bilstm_fwd_f32": _ARGS, "bilstm_fwd_bf16": _ARGS}
+_PROJ_ARGS = [_P] * 11 + [_I] * 4 + [_P]
+_SIGNATURES = {"bilstm_fwd_f32": _ARGS, "bilstm_fwd_bf16": _ARGS,
+               "bilstm_proj_fwd_f32": _PROJ_ARGS,
+               "bilstm_proj_fwd_bf16": _PROJ_ARGS}
 _BWD_ARGS = [_P] * 13 + [_I, _I, _I, _P]
+_PROJ_BWD_ARGS = [_P] * 15 + [_I] * 4 + [_P]
 _BWD_SIGNATURES = {"bilstm_bwd_f32": _BWD_ARGS,
                    "bilstm_bwd_bf16": _BWD_ARGS,
+                   "bilstm_proj_bwd_f32": _PROJ_BWD_ARGS,
+                   "bilstm_proj_bwd_bf16": _PROJ_BWD_ARGS,
                    "bilstm_bwd_exchange_floats": [_I, _I]}
 _UNI_ARGS = [_P] * 6 + [_I] * 4 + [_P]
 _UNI_SIGNATURES = {"lstm_fwd_f32": _UNI_ARGS, "lstm_fwd_bf16": _UNI_ARGS}
@@ -147,24 +161,30 @@ def bilstm_seq_fwd(xp: torch.Tensor, w_h_f: torch.Tensor,
     _check(xp, w_h_f, w_h_b, lens, y_dtype)
     t_max, b, g8 = xp.shape
     h = g8 // 8
-    dev = xp.device
-    y_f = torch.empty((t_max, b, h), dtype=y_dtype, device=dev)
-    y_b = torch.empty((t_max, b, h), dtype=y_dtype, device=dev)
-    c_f = torch.empty((t_max, b, h), dtype=torch.float32, device=dev)
-    c_b = torch.empty((t_max, b, h), dtype=torch.float32, device=dev)
+    outs = _fwd_outputs(t_max, b, h, y_dtype, xp.device)
     if t_max == 0 or b == 0:
-        return y_f, c_f, y_b, c_b
+        return outs
     # h exchange between blocks: [parity][direction][B][H], parity 0 = h0
-    hbuf = torch.zeros((2, 2, b, h), dtype=torch.float32, device=dev)
+    hbuf = torch.zeros((2, 2, b, h), dtype=torch.float32, device=xp.device)
     lens32 = lens.to(torch.int32).contiguous()
     lib = _kernels.load("bilstm_fwd", _SIGNATURES)
     err = getattr(lib, "bilstm_fwd_" + _SUFFIX[xp.dtype])(
         xp.data_ptr(), w_h_f.data_ptr(), w_h_b.data_ptr(), lens32.data_ptr(),
-        y_f.data_ptr(), c_f.data_ptr(), y_b.data_ptr(), c_b.data_ptr(),
-        hbuf.data_ptr(), t_max, b, h, _kernels.stream_ptr(dev))
+        *(v.data_ptr() for v in outs), hbuf.data_ptr(), t_max, b, h,
+        _kernels.stream_ptr(xp.device))
     _kernels.check(lib, err, "bilstm_seq_fwd")
     bilstm_seq_fwd.launches += 1
-    return y_f, c_f, y_b, c_b
+    return outs
+
+
+def _fwd_outputs(t_max: int, b: int, h: int, y_dtype: torch.dtype,
+                 device) -> Outputs:
+    """K2's and K10a's outputs, unfilled: (y_f, c_f, y_b, c_b)."""
+    y = [torch.empty((t_max, b, h), dtype=y_dtype, device=device)
+         for _ in range(2)]
+    c = [torch.empty((t_max, b, h), dtype=torch.float32, device=device)
+         for _ in range(2)]
+    return y[0], c[0], y[1], c[1]
 
 
 bilstm_seq_fwd.launches = 0  # kernel launches made by this wrapper
@@ -284,6 +304,181 @@ def bilstm_seq_bwd_dgates(dy_f: torch.Tensor, dy_b: torch.Tensor,
 bilstm_seq_bwd_dgates.launches = 0  # kernel launches made by this wrapper
 
 
+# ---------------------------------------------------------------------------
+# The bidirectional layer with the projection inside: K10a and K10b
+# ---------------------------------------------------------------------------
+
+
+def use_in_kernel_proj(d: int, g4: int,
+                       dtype: torch.dtype = torch.float32) -> bool:
+    """Whether a bidirectional LSTM layer of input width ``d`` and 4H =
+    ``g4`` runs K10a/K10b (the projection inside the kernels) rather than
+    the hoisted projection with K2/K3: ``_use_in_kernel_proj`` of
+    ``rnn_pallas`` with ``KCTPU_RNN_PROJ`` unset, from shapes and dtype
+    alone.  Its three tests, in its order: D and 4H multiples of 128; not
+    bf16; the resident weights of its backward kernel (w_x, both w_h and
+    their transposes) at most 8 MiB.  The rule stays the reference's so
+    that the port takes the reference's route; K10a and K10b size their
+    shared memory from the shapes they are given."""
+    if d % 128 or g4 % 128:
+        return False
+    if dtype == torch.bfloat16:
+        return False
+    h = g4 // 4
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    return (d * 2 * g4 + 4 * h * g4) * itemsize <= 8 * 1024 * 1024
+
+
+def _project_bilstm(x: torch.Tensor, w_x: torch.Tensor,
+                    bias: torch.Tensor) -> torch.Tensor:
+    """The input projection of both directions for every frame, ``_proj``
+    of ``rnn_pallas``: x [T, B, D] · w_x [D, 8H] with f32 sums, plus the
+    f32 bias, rounded to w_x's (the compute) dtype → [T, B, 8H].  The
+    hoisted route feeds it to K2; the plain versions of K10a and K10b
+    both compute it here, as the kernels share ``project()``."""
+    t_max, b, d = x.shape
+    cdt = w_x.dtype
+    return (matmul_f32acc(x.reshape(t_max * b, d), w_x, cdt)
+            + bias.float()).to(cdt).reshape(t_max, b, -1)
+
+
+def bilstm_seq_fwd_proj_reference(x: torch.Tensor, w_x: torch.Tensor,
+                                  bias: torch.Tensor, w_h_f: torch.Tensor,
+                                  w_h_b: torch.Tensor,
+                                  lens: torch.Tensor) -> Outputs:
+    """Plain PyTorch version of :func:`bilstm_seq_fwd_proj` on any
+    device: the projection of every frame, then K2's plain loop."""
+    return bilstm_seq_fwd_reference(_project_bilstm(x, w_x, bias), w_h_f,
+                                    w_h_b, lens)
+
+
+def _check_proj(what: str, x, w_x, bias, w_h_f, w_h_b, lens,
+                residuals=None) -> None:
+    """Raise unless K10a's operands (and K10b's ``residuals``, name →
+    (tensor, dtype), each [T, B, H]) are what the kernels take."""
+    if x.dim() != 3 or x.dtype not in _SUFFIX or w_x.dim() != 2 \
+            or w_x.shape[1] % 8:
+        raise ValueError(f"{what}: x must be f32 or bf16 [T, B, D] and w_x "
+                         f"[D, 8H], got {x.dtype} {tuple(x.shape)} and "
+                         f"{tuple(w_x.shape)}")
+    t_max, b, d = x.shape
+    h = w_x.shape[1] // 8
+    want = {"x": (x, x.dtype, x.shape), "w_x": (w_x, x.dtype, (d, 8 * h)),
+            "bias": (bias, torch.float32, (8 * h,)),
+            "w_h_f": (w_h_f, x.dtype, (h, 4 * h)),
+            "w_h_b": (w_h_b, x.dtype, (h, 4 * h))}
+    for name, (v, dtype) in (residuals or {}).items():
+        want[name] = (v, dtype, (t_max, b, h))
+    _check_tensors(what, x.device, want)
+    _check_lens(what, lens, b, x.device)
+
+
+def bilstm_seq_fwd_proj(x: torch.Tensor, w_x: torch.Tensor,
+                        bias: torch.Tensor, w_h_f: torch.Tensor,
+                        w_h_b: torch.Tensor, lens: torch.Tensor) -> Outputs:
+    """x [T, B, D], w_x = [w_x_fwd | w_x_bwd] [D, 8H] and w_h_f / w_h_b
+    [H, 4H] in the compute dtype, bias [8H] f32, lens [B] → (y_f, c_f,
+    y_b, c_b): y [T, B, H] in the compute dtype, c [T, B, H] f32.  Each
+    step projects its own frame (the forward direction x[s], the backward
+    x[T-1-s]) as (x[t] · w_x half, f32 sums) + bias half, rounded to the
+    compute dtype.  The contract of ``_bilstm_seq_fwd_proj``."""
+    if x.device.type == "cpu":
+        return bilstm_seq_fwd_proj_reference(x, w_x, bias, w_h_f, w_h_b,
+                                             lens)
+    if x.device.type != "cuda":
+        raise ValueError(f"bilstm_seq_fwd_proj: unsupported device "
+                         f"{x.device}")
+    _check_proj("bilstm_seq_fwd_proj", x, w_x, bias, w_h_f, w_h_b, lens)
+    t_max, b, d = x.shape
+    h = w_x.shape[1] // 8
+    outs = _fwd_outputs(t_max, b, h, x.dtype, x.device)
+    if t_max == 0 or b == 0:
+        return outs
+    # h exchange between blocks: [parity][direction][B][H], parity 0 = h0
+    hbuf = torch.zeros((2, 2, b, h), dtype=torch.float32, device=x.device)
+    lens32 = lens.to(torch.int32).contiguous()
+    lib = _kernels.load("bilstm_fwd", _SIGNATURES)
+    err = getattr(lib, "bilstm_proj_fwd_" + _SUFFIX[x.dtype])(
+        x.data_ptr(), w_x.data_ptr(), bias.data_ptr(), w_h_f.data_ptr(),
+        w_h_b.data_ptr(), lens32.data_ptr(), *(v.data_ptr() for v in outs),
+        hbuf.data_ptr(), t_max, b, d, h, _kernels.stream_ptr(x.device))
+    _kernels.check(lib, err, f"bilstm_seq_fwd_proj at T={t_max}, B={b}, "
+                             f"D={d}, H={h}")
+    bilstm_seq_fwd_proj.launches += 1
+    return outs
+
+
+bilstm_seq_fwd_proj.launches = 0  # kernel launches made by this wrapper
+
+
+def bilstm_seq_bwd_dgates_proj_reference(
+        dy_f: torch.Tensor, dy_b: torch.Tensor, x: torch.Tensor,
+        y_f: torch.Tensor, c_f: torch.Tensor, y_b: torch.Tensor,
+        c_b: torch.Tensor, w_x: torch.Tensor, bias: torch.Tensor,
+        w_h_f: torch.Tensor, w_h_b: torch.Tensor, lens: torch.Tensor
+        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of :func:`bilstm_seq_bwd_dgates_proj` on any
+    device: the forward's projection recomputed by the same
+    ``_project_bilstm``, then K3's plain loop."""
+    return bilstm_seq_bwd_dgates_reference(
+        dy_f, dy_b, _project_bilstm(x, w_x, bias), y_f, c_f, y_b, c_b,
+        w_h_f, w_h_b, lens)
+
+
+def bilstm_seq_bwd_dgates_proj(dy_f: torch.Tensor, dy_b: torch.Tensor,
+                               x: torch.Tensor, y_f: torch.Tensor,
+                               c_f: torch.Tensor, y_b: torch.Tensor,
+                               c_b: torch.Tensor, w_x: torch.Tensor,
+                               bias: torch.Tensor, w_h_f: torch.Tensor,
+                               w_h_b: torch.Tensor, lens: torch.Tensor
+                               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Output cotangents dy_f / dy_b [T, B, H] and K10a's operands and
+    outputs (x, w_x, bias, w_h_f, w_h_b as :func:`bilstm_seq_fwd_proj`
+    takes them, y and c of both directions, lens) → (dg_f, dg_b) [T, B,
+    4H] in the compute dtype, zero at pad frames.  The gates are
+    recomputed from x through K10a's projection, with h_prev from the
+    stored y.  The contract of ``_bilstm_seq_bwd_dgates_proj``."""
+    if x.device.type == "cpu":
+        return bilstm_seq_bwd_dgates_proj_reference(
+            dy_f, dy_b, x, y_f, c_f, y_b, c_b, w_x, bias, w_h_f, w_h_b, lens)
+    if x.device.type != "cuda":
+        raise ValueError(f"bilstm_seq_bwd_dgates_proj: unsupported device "
+                         f"{x.device}")
+    f32 = torch.float32
+    _check_proj("bilstm_seq_bwd_dgates_proj", x, w_x, bias, w_h_f, w_h_b,
+                lens, {"dy_f": (dy_f, x.dtype), "dy_b": (dy_b, x.dtype),
+                       "y_f": (y_f, x.dtype), "y_b": (y_b, x.dtype),
+                       "c_f": (c_f, f32), "c_b": (c_b, f32)})
+    t_max, b, d = x.shape
+    h = w_x.shape[1] // 8
+    dev = x.device
+    dg_f = torch.empty((t_max, b, 4 * h), dtype=x.dtype, device=dev)
+    dg_b = torch.empty((t_max, b, 4 * h), dtype=x.dtype, device=dev)
+    if t_max == 0 or b == 0:
+        return dg_f, dg_b
+    lib = _kernels.load("bilstm_bwd", _BWD_SIGNATURES)
+    floats = lib.bilstm_bwd_exchange_floats(b, h)
+    if floats < 0:
+        raise RuntimeError(f"bilstm_seq_bwd_dgates_proj: no exchange size "
+                           f"for B={b}, H={h} on {dev}")
+    # K3's partial-dh exchange
+    part = torch.empty((floats,), dtype=torch.float32, device=dev)
+    lens32 = lens.to(torch.int32).contiguous()
+    err = getattr(lib, "bilstm_proj_bwd_" + _SUFFIX[x.dtype])(
+        dy_f.data_ptr(), dy_b.data_ptr(), x.data_ptr(), y_f.data_ptr(),
+        c_f.data_ptr(), y_b.data_ptr(), c_b.data_ptr(), w_x.data_ptr(),
+        bias.data_ptr(), w_h_f.data_ptr(), w_h_b.data_ptr(),
+        lens32.data_ptr(), dg_f.data_ptr(), dg_b.data_ptr(), part.data_ptr(),
+        t_max, b, d, h, _kernels.stream_ptr(dev))
+    _kernels.check(lib, err, f"bilstm_seq_bwd_dgates_proj at T={t_max}, "
+                             f"B={b}, D={d}, H={h}")
+    bilstm_seq_bwd_dgates_proj.launches += 1
+    return dg_f, dg_b
+
+
+bilstm_seq_bwd_dgates_proj.launches = 0  # kernel launches by this wrapper
+
+
 def _dw_h(y: torch.Tensor, dgates: torch.Tensor, reverse: bool,
           cdt: torch.dtype) -> torch.Tensor:
     """dW_h = Σ_t h_prev[t]ᵀ · dgates[t] as one sliced product, f32.
@@ -302,19 +497,23 @@ def _dw_h(y: torch.Tensor, dgates: torch.Tensor, reverse: bool,
 
 class _BiLstmLayer(torch.autograd.Function):
     """``bilstm_layer`` with the custom VJP of ``rnn_pallas``: forward
-    ``_bilstm_layer_fwd_impl`` (projection, K2), backward
-    ``_bilstm_layer_bwd`` (K3, then plain products)."""
+    ``_bilstm_layer_fwd_impl`` (K10a, or the projection and K2), backward
+    ``_bilstm_layer_bwd`` (K10b or K3, then plain products)."""
 
     @staticmethod
     def forward(ctx, x, w_x, bias, w_h_f, w_h_b, lens, compute_dtype):
-        t_max, b, d = x.shape
         cdt = COMPUTE_DTYPES[compute_dtype]
-        # f32-accumulated projection plus bias, stored in the compute dtype
-        xp = (matmul_f32acc(x.reshape(t_max * b, d), w_x, cdt)
-              + bias).to(cdt).reshape(t_max, b, -1)
-        y_f, c_f, y_b, c_b = bilstm_seq_fwd(
-            xp, w_h_f.to(cdt).contiguous(), w_h_b.to(cdt).contiguous(),
-            lens, cdt)
+        whf, whb = w_h_f.to(cdt).contiguous(), w_h_b.to(cdt).contiguous()
+        if use_in_kernel_proj(x.shape[-1], w_x.shape[1] // 2, cdt):
+            # the projection inside the kernel: no [T, B, 8H] residual is
+            # written, kept or read back (xp None, as in the reference)
+            xp = None
+            y_f, c_f, y_b, c_b = bilstm_seq_fwd_proj(
+                x.to(cdt).contiguous(), w_x.to(cdt).contiguous(),
+                bias.float().contiguous(), whf, whb, lens)
+        else:
+            xp = _project_bilstm(x, w_x.to(cdt), bias)
+            y_f, c_f, y_b, c_b = bilstm_seq_fwd(xp, whf, whb, lens, cdt)
         ctx.cdt = cdt
         ctx.save_for_backward(x, w_x, bias, w_h_f, w_h_b, lens, xp,
                               y_f, c_f, y_b, c_b)
@@ -322,12 +521,19 @@ class _BiLstmLayer(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, dy_f, dy_b):
-        x, w_x, _, w_h_f, w_h_b, lens, xp, y_f, c_f, y_b, c_b = \
+        x, w_x, bias, w_h_f, w_h_b, lens, xp, y_f, c_f, y_b, c_b = \
             ctx.saved_tensors
         cdt = ctx.cdt
-        dg_f, dg_b = bilstm_seq_bwd_dgates(
-            dy_f.contiguous(), dy_b.contiguous(), xp, y_f, c_f, y_b, c_b,
-            w_h_f.to(cdt).contiguous(), w_h_b.to(cdt).contiguous(), lens)
+        whf, whb = w_h_f.to(cdt).contiguous(), w_h_b.to(cdt).contiguous()
+        if xp is None:
+            dg_f, dg_b = bilstm_seq_bwd_dgates_proj(
+                dy_f.contiguous(), dy_b.contiguous(), x.to(cdt).contiguous(),
+                y_f, c_f, y_b, c_b, w_x.to(cdt).contiguous(),
+                bias.float().contiguous(), whf, whb, lens)
+        else:
+            dg_f, dg_b = bilstm_seq_bwd_dgates(
+                dy_f.contiguous(), dy_b.contiguous(), xp, y_f, c_f, y_b, c_b,
+                whf, whb, lens)
         t_max, b, h = y_f.shape
         g4 = 4 * h
         d = x.shape[-1]

@@ -1,7 +1,7 @@
 """The port's CUDA kernels: their build layer (on any machine) and,
-on the card, each kernel, the served slice, the streaming engine and the
-training steps against the plain PyTorch versions on the same inputs on
-the card.
+on the card, each kernel, the served slice, the streaming engine, the
+BLSTM layer's choice between K2/K3 and K10a/K10b, and the training steps
+against the plain PyTorch versions on the same inputs on the card.
 
 These import neither jax nor kaldi_ctc_tpu, so they also run on a machine
 without JAX: ``python -m pytest --noconftest tests/test_torch_cuda.py``.
@@ -48,7 +48,8 @@ BILSTM_BWD_F32_TOL = 1e-4
 # K3 bf16: dgates are stored in bf16 and enter the dh product rounded to
 # bf16, so a flipped rounding moves later steps by about a bf16 ulp.
 BILSTM_BWD_BF16_TOL = 5e-2
-# K5, K6 and K7 share K2's and K3's arithmetic and its reasons.
+# K5, K6, K7, K10a and K10b share K2's and K3's arithmetic and its reasons
+# (K10a and K10b also sum the projection in another order than cuBLAS).
 LSTM_TOL = {torch.float32: BILSTM_F32_TOL, torch.bfloat16: BILSTM_BF16_TOL}
 LSTM_BWD_TOL = {torch.float32: BILSTM_BWD_F32_TOL,
                 torch.bfloat16: BILSTM_BWD_BF16_TOL}
@@ -347,6 +348,10 @@ def plain_kernels(monkeypatch):
                             rnn_cuda.bilstm_seq_fwd_reference)
         monkeypatch.setattr(rnn_cuda, "bilstm_seq_bwd_dgates",
                             rnn_cuda.bilstm_seq_bwd_dgates_reference)
+        monkeypatch.setattr(rnn_cuda, "bilstm_seq_fwd_proj",
+                            rnn_cuda.bilstm_seq_fwd_proj_reference)
+        monkeypatch.setattr(rnn_cuda, "bilstm_seq_bwd_dgates_proj",
+                            rnn_cuda.bilstm_seq_bwd_dgates_proj_reference)
         monkeypatch.setattr(ctc_cuda, "alpha_beta",
                             ctc_cuda.alpha_beta_reference)
         monkeypatch.setattr(rnn_cuda, "lstm_seq_fwd",
@@ -443,6 +448,184 @@ def test_flagship_train_step_on_cuda_matches_plain(cuda, dtype,
                     tree_flatten(state_p.params)):
         np.testing.assert_allclose(g.cpu().numpy(), r.cpu().numpy(), rtol=0,
                                    atol=1e-5 if dtype == "float32" else 1e-4)
+
+
+def _proj_inputs(t, b, d, h, dtype, device, seed):
+    """Seeded K10a/K10b operands: x [T, B, D], w_x [D, 8H], w_h_f,
+    w_h_b [H, 4H] and the cotangents dy_f, dy_b [T, B, H] in ``dtype``,
+    the bias [8H] f32, lengths with row 0 full and the rest ragged."""
+    rng = np.random.default_rng(seed)
+
+    def mat(*shape, scale=1.0):
+        return torch.as_tensor((rng.standard_normal(shape) * scale)
+                               .astype(np.float32), device=device)
+
+    x = mat(t, b, d).to(dtype)
+    w_x = mat(d, 8 * h, scale=d ** -0.5).to(dtype)
+    bias = mat(8 * h, scale=0.2)
+    w_f, w_b = (mat(h, 4 * h, scale=h ** -0.5).to(dtype) for _ in range(2))
+    dy_f, dy_b = (mat(t, b, h).to(dtype) for _ in range(2))
+    lens = np.full(b, t, np.int32)
+    lens[1:] = rng.integers(0, t + 1, size=b - 1)
+    return (x, w_x, bias, w_f, w_b, torch.as_tensor(lens, device=device),
+            dy_f, dy_b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("t,b,d,h", [
+    (24, 1, 256, 128),      # serving, the 3x128's layers 2-3
+    (24, 48, 256, 128),     # training
+    (8, 3, 512, 256),       # the largest shape use_in_kernel_proj admits
+    (16, 3, 40, 16)])       # unaligned: the kernels take any D and H
+def test_bilstm_proj_kernels_match_plain(cuda, dtype, t, b, d, h):
+    """K10a and then K10b on K10a's outputs against their plain versions
+    on the card; zero outputs past each row's length."""
+    x, w_x, bias, w_f, w_b, lens, dy_f, dy_b = _proj_inputs(
+        t, b, d, h, dtype, cuda, seed=d + h + b)
+    fwd = rnn_cuda.bilstm_seq_fwd_proj
+    bwd = rnn_cuda.bilstm_seq_bwd_dgates_proj
+    counts = (fwd.launches, bwd.launches)
+    got = fwd(x, w_x, bias, w_f, w_b, lens)
+    torch.cuda.synchronize()
+    ref = rnn_cuda.bilstm_seq_fwd_proj_reference(x, w_x, bias, w_f, w_b,
+                                                 lens)
+    for name, g, r in zip(("y_f", "c_f", "y_b", "c_b"), got, ref):
+        _close(g, r, LSTM_TOL[dtype], name)
+    _zero_past_lens((got[0], got[2]), lens, "y")
+    args = (dy_f, dy_b, x, *got, w_x, bias, w_f, w_b, lens)
+    dg = bwd(*args)
+    torch.cuda.synchronize()
+    assert (fwd.launches, bwd.launches) == (counts[0] + 1, counts[1] + 1)
+    ref_dg = rnn_cuda.bilstm_seq_bwd_dgates_proj_reference(*args)
+    for name, g, r in zip(("dg_f", "dg_b"), dg, ref_dg):
+        _close(g, r, LSTM_BWD_TOL[dtype], name)
+    _zero_past_lens(dg, lens, "dg")
+
+
+@pytest.mark.cuda
+def test_bilstm_fwd_kernels_tile_a_large_batch(cuda):
+    """At B=600 the h rows of K2 and K10a no longer fit one block's
+    shared memory: both stage them in tiles and still match their plain
+    versions; K10b, which keeps every row, refuses the launch."""
+    t, b, d, h = 4, 600, 256, 128
+    x, w_x, bias, w_f, w_b, lens, dy_f, dy_b = _proj_inputs(
+        t, b, d, h, torch.float32, cuda, seed=5)
+    got = rnn_cuda.bilstm_seq_fwd_proj(x, w_x, bias, w_f, w_b, lens)
+    ref = rnn_cuda.bilstm_seq_fwd_proj_reference(x, w_x, bias, w_f, w_b,
+                                                 lens)
+    xp = rnn_cuda._project_bilstm(x, w_x, bias)
+    got_k2 = rnn_cuda.bilstm_seq_fwd(xp, w_f, w_b, lens)
+    torch.cuda.synchronize()
+    for name, g, k2, r in zip(("y_f", "c_f", "y_b", "c_b"), got, got_k2,
+                              ref):
+        _close(g, r, BILSTM_F32_TOL, name)
+        _close(k2, r, BILSTM_F32_TOL, name)
+    with pytest.raises(RuntimeError, match="resources"):
+        rnn_cuda.bilstm_seq_bwd_dgates_proj(dy_f, dy_b, x, *got, w_x, bias,
+                                            w_f, w_b, lens)
+
+
+@pytest.mark.cuda
+def test_bilstm_proj_kernels_reject_bad_inputs(cuda):
+    x, w_x, bias, w_f, w_b, lens, dy_f, dy_b = _proj_inputs(
+        4, 2, 128, 32, torch.float32, cuda, 0)
+    fwd = rnn_cuda.bilstm_seq_fwd_proj
+    bwd = rnn_cuda.bilstm_seq_bwd_dgates_proj
+    with pytest.raises(ValueError):                   # w_x dtype
+        fwd(x, w_x.to(torch.bfloat16), bias, w_f, w_b, lens)
+    with pytest.raises(ValueError):                   # bias not f32
+        fwd(x, w_x, bias.to(torch.bfloat16), w_f, w_b, lens)
+    with pytest.raises(ValueError):                   # w_x not [D, 8H]
+        fwd(x, w_x[:, :-8].contiguous(), bias, w_f, w_b, lens)
+    with pytest.raises(ValueError):                   # x not contiguous
+        fwd(x.transpose(0, 1).contiguous().transpose(0, 1), w_x, bias, w_f,
+            w_b, lens)
+    with pytest.raises(ValueError):                   # w_h_b on the CPU
+        fwd(x, w_x, bias, w_f, w_b.cpu(), lens)
+    with pytest.raises(ValueError):                   # f64 x
+        fwd(x.double(), w_x, bias, w_f, w_b, lens)
+    with pytest.raises(ValueError):                   # lens not int
+        fwd(x, w_x, bias, w_f, w_b, lens.float())
+    y_f, c_f, y_b, c_b = fwd(x, w_x, bias, w_f, w_b, lens)
+    with pytest.raises(ValueError):                   # dy dtype
+        bwd(dy_f.to(torch.bfloat16), dy_b, x, y_f, c_f, y_b, c_b, w_x, bias,
+            w_f, w_b, lens)
+    with pytest.raises(ValueError):                   # c not f32
+        bwd(dy_f, dy_b, x, y_f, c_f.to(torch.bfloat16), y_b, c_b, w_x, bias,
+            w_f, w_b, lens)
+    with pytest.raises(ValueError):                   # y_b shape
+        bwd(dy_f, dy_b, x, y_f, c_f, y_b[:, :1].contiguous(), c_b, w_x, bias,
+            w_f, w_b, lens)
+    with pytest.raises(ValueError):                   # w_x on the CPU
+        bwd(dy_f, dy_b, x, y_f, c_f, y_b, c_b, w_x.cpu(), bias, w_f, w_b,
+            lens)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d,h,dtype,proj", [
+    (640, 320, "float32", False),     # a flagship layer above the first
+    (40, 128, "float32", False),      # the 3x128's layer 1
+    (256, 128, "float32", True),      # the 3x128's layers 2-3
+    (256, 128, "bfloat16", False)])   # the same layer in bf16
+def test_bilstm_layer_takes_the_reference_route(cuda, d, h, dtype, proj):
+    """``bilstm_layer`` on the card launches K10a where
+    ``use_in_kernel_proj`` holds and K2 elsewhere, once per layer."""
+    t, b = 8, 2
+    rng = np.random.default_rng(d + h)
+    args = [torch.as_tensor((rng.standard_normal(s) * 0.1).astype(
+        np.float32), device=cuda)
+        for s in ((t, b, d), (d, 8 * h), (8 * h,), (h, 4 * h), (h, 4 * h))]
+    lens = torch.full((b,), t, dtype=torch.int32, device=cuda)
+    counts = (rnn_cuda.bilstm_seq_fwd.launches,
+              rnn_cuda.bilstm_seq_fwd_proj.launches)
+    with torch.no_grad():
+        rnn_cuda.bilstm_layer(*args, lens, dtype)
+    torch.cuda.synchronize()
+    assert (rnn_cuda.bilstm_seq_fwd.launches - counts[0],
+            rnn_cuda.bilstm_seq_fwd_proj.launches - counts[1]) == (
+                (0, 1) if proj else (1, 0))
+
+
+@pytest.mark.cuda
+def test_proj_train_step_on_cuda_matches_plain(cuda, plain_kernels):
+    """One f32 step of the 3x128 BLSTM of recipes/medium and recipes/hard
+    (T cut to 40) through K2/K3 (layer 1), K10a/K10b (layers 2-3) and K1,
+    against the same step on the plain versions on the card."""
+    from kaldi_ctc_tpu_torch.models.acoustic import AmConfig, init_am_params
+    from kaldi_ctc_tpu_torch.params import tree_flatten
+    from kaldi_ctc_tpu_torch.training import train
+
+    cfg = AmConfig(input_dim=40, num_targets=42, hidden_dim=128,
+                   num_layers=3)
+    rng = np.random.default_rng(0)
+    b, t, lmax = 6, 40, 8
+    batch = {"feats": rng.standard_normal((b, t, 40)).astype(np.float32),
+             "labels": rng.integers(1, 42, (b, lmax)).astype(np.int32),
+             "input_lens": np.array([40, 40, 33, 25, 17, 5], np.int32),
+             "label_lens": np.array([8, 5, 8, 3, 8, 1], np.int32)}
+    params = init_am_params(cfg, torch.Generator().manual_seed(0), cuda)
+    step = train.build_train_step(cfg, train.TrainOptions(
+        momentum=0.9, initial_learning_rate=1e-3))
+    wrappers = (rnn_cuda.bilstm_seq_fwd, rnn_cuda.bilstm_seq_fwd_proj,
+                rnn_cuda.bilstm_seq_bwd_dgates,
+                rnn_cuda.bilstm_seq_bwd_dgates_proj, ctc_cuda.alpha_beta)
+    counts = [w.launches for w in wrappers]
+    state, m = step(train.init_train_state(params), batch)
+    torch.cuda.synchronize()
+    assert [w.launches - c for w, c in zip(wrappers, counts)] == \
+        [1, 2, 1, 2, 1]
+    assert bool(m["finite"]) and np.isfinite(float(m["loss_total"]))
+    plain_kernels()
+    state_p, m_p = step(train.init_train_state(params), batch)
+    np.testing.assert_allclose(float(m["loss_total"]),
+                               float(m_p["loss_total"]), rtol=1e-5)
+    np.testing.assert_allclose(float(m["grad_norm"]),
+                               float(m_p["grad_norm"]), rtol=1e-4)
+    for g, r in zip(tree_flatten(state.params),
+                    tree_flatten(state_p.params)):
+        np.testing.assert_allclose(g.cpu().numpy(), r.cpu().numpy(), rtol=0,
+                                   atol=1e-5)
 
 
 def _uni_inputs(t, b, h, dtype, device, seed):
@@ -936,6 +1119,19 @@ def test_build_is_keyed_by_source_hash(fake_build):
     second = _kernels.build("k")                     # edited: rebuilt
     assert second != first and os.path.exists(second)
     assert len(log.read_text().splitlines()) == 2
+
+
+def test_build_is_keyed_by_header_hash(fake_build):
+    """A source is rebuilt when a header of csrc/ it may include changes."""
+    src, log = fake_build
+    first = _kernels.build("k")
+    header = src.parent / "shared.cuh"
+    header.write_text("// h1\n")
+    second = _kernels.build("k")
+    assert second != first and _kernels.build("k") == second
+    header.write_text("// h2\n")
+    assert _kernels.build("k") not in (first, second)
+    assert len(log.read_text().splitlines()) == 3
 
 
 def test_build_failure_raises_with_compiler_output(fake_build):

@@ -255,6 +255,8 @@ def test_port_imports_without_jax(tmp_path):
         "import kaldi_ctc_tpu_torch.decoding.scores\n"
         "import kaldi_ctc_tpu_torch.decoding.streaming\n"
         "import kaldi_ctc_tpu_torch.ops.rnn_cuda\n"
+        "from kaldi_ctc_tpu_torch.ops.rnn_cuda import (bilstm_seq_fwd_proj,"
+        " bilstm_seq_bwd_dgates_proj, use_in_kernel_proj)\n"
         "import kaldi_ctc_tpu_torch.ops.gru_cuda\n"
         "import kaldi_ctc_tpu_torch.ops.ctc, kaldi_ctc_tpu_torch.ops.ctc_cuda\n"
         "import kaldi_ctc_tpu_torch.training.train\n"
