@@ -13,7 +13,8 @@ result line:
 1. device: the card's name and power limit (nvidia-smi), torch and CUDA
    versions;
 2. build: every kernel source in csrc/ (nine; K2/K10a and K3/K10b share
-   csrc/bilstm_cell.cuh) compiled by nvcc for sm_90a, timed;
+   csrc/bilstm_cell.cuh, the row-keeping kernels csrc/row_ceiling.cuh)
+   compiled by nvcc for sm_90a, timed;
 3. k4_log_mel: the log-mel kernel against its plain version on 8 s of
    16 kHz audio (798 frames, MFCC-hires mel bank): max error, median ms;
 4. k2_bilstm: the BiLSTM forward kernel against its plain version at
@@ -84,14 +85,22 @@ result line:
 22. k10_bilstm_proj: the in-kernel-projection BiLSTM kernels at the 3x128
    model's layers 2-3 (D=256, H=128), f32 and bf16: K10a against its
    plain version at T=800, B=1 and B=8 and T=240, B=48, K10b at T=240,
-   B=48 with ragged lengths; beside each, cuDNN's nn.LSTM(256, 128,
-   bidirectional) and the hoisted route on the same layer (projection
-   GEMM plus K2 forward, K3 on the stored projection backward);
-23. serve_proj: the 3x128 BLSTM (40-dim input, 42 targets, random weights
+   B=48 with ragged lengths, its plan and its two phases timed apart
+   (phase 1, the gate pre-activations of every step; phase 2, the dh/dc
+   chain in thread-block clusters), and in f32 at B=600 (three chunks of
+   steps); beside each, cuDNN's nn.LSTM(256, 128, bidirectional) and the
+   hoisted route on the same layer (projection GEMM plus K2 forward, K3
+   on the stored projection backward);
+23. f7: each kernel that keeps every batch row in one block's shared
+   memory (K3, K5, K6, K7 one layer, K8a, K8b, K9a, K9b) once at one row
+   above the most one launch takes (its source's *_max_rows query),
+   H=320, T=20, f32, against its plain version: the wrapper runs row
+   slices and counts one launch;
+24. serve_proj: the 3x128 BLSTM (40-dim input, 42 targets, random weights
    from a seed) served per dtype as in 7: per request K2 1x and K10a 2x
    in f32 (layer 1 unaligned, layers 2-3 in-kernel), K2 3x and K10a 0x in
    bf16, K4 >= 1x;
-24. train_proj: its training step at bench.py's shapes with the recipes'
+25. train_proj: its training step at bench.py's shapes with the recipes'
    momentum 0.9 and learning rate 1e-3, as in 8: per step K2 1x, K10a 2x,
    K3 1x, K10b 2x and K1 once in f32, K2 3x, K3 3x and K1 once in bf16;
    the eval step K2 1x, K10a 2x (f32) and K11 once; the profiled step
@@ -987,17 +996,181 @@ def phase_k10(torch, np, dev):
                "hoisted_route_ms": median_ms(
                    lambda: rnn_cuda.bilstm_seq_bwd_dgates(
                        dy[0], dy[1], xp, *got, w[0], w[1], lens), 10, torch)}
+        row.update(k10b_phases(torch, dev, bargs))
         bwd_rows.append(row)
         emit({"phase": "k10_bilstm_proj", **row})
         if not all(ok for _, ok in errs):
             fail(f"K10b bilstm_seq_bwd_dgates_proj disagrees with its plain "
                  f"version: {row}")
+    bwd_rows.append(k10b_large_batch(torch, np, dev))
     # the kernels line reports the training shape in f32, the only dtype
     # the main path runs them in
     train_row = next(r for r in fwd_rows
                      if r["dtype"] == "float32" and r["B"] == TRAIN_B)
     return {"bilstm_proj_fwd": kernel_row(fwd_rows, train_row),
             "bilstm_proj_bwd": kernel_row(bwd_rows, bwd_rows[0])}
+
+
+def k10b_phases(torch, dev, bargs):
+    """K10b's plan and its two phases timed apart on the same operands
+    (one chunk of steps at the training shape): phase 1, the gate
+    pre-activations of every step, and phase 2, the dh/dc chain."""
+    from kaldi_ctc_tpu_torch import _kernels
+    from kaldi_ctc_tpu_torch.ops import rnn_cuda
+    dy_f, dy_b, x, y_f, c_f, y_b, c_b, w_x, bias, w_f, w_b, lens = bargs
+    t, b, d = x.shape
+    h = w_f.shape[0]
+    lib = _kernels.load("bilstm_bwd", rnn_cuda._BWD_SIGNATURES)
+    plan = rnn_cuda.k10b_plan(
+        b, d, h, torch.cuda.get_device_properties(dev).multi_processor_count,
+        rnn_cuda._smem_optin(lib, dev))
+    f32 = torch.float32
+    pre = torch.empty((t, b, 8 * h), dtype=f32, device=dev)
+    state = torch.zeros((2, 2, b, h), dtype=f32, device=dev)
+    dg = [torch.empty((t, b, 4 * h), dtype=x.dtype, device=dev)
+          for _ in range(2)]
+    lens32 = lens.to(torch.int32)
+    gates_ms = median_ms(lambda: rnn_cuda._k10b_gates(
+        lib, x, y_f, y_b, w_x, bias, w_f, w_b, pre, 0, t, plan), 10, torch)
+    chain_ms = median_ms(lambda: rnn_cuda._k10b_chain(
+        lib, dy_f, dy_b, c_f, c_b, w_f, w_b, lens32, pre, *dg, state, 0, t,
+        plan), 10, torch)
+    return {"plan": plan._asdict(), "phase1_gates_ms": gates_ms,
+            "phase2_chain_ms": chain_ms}
+
+
+def k10b_large_batch(torch, np, dev):
+    """K10b at B=600 (T=240, D=256, H=128, f32, ragged rows) on K10a's
+    outputs against its plain version: 14 row groups of clusters, and a
+    scratch above 256 MiB, so three chunks of steps with dh and dc
+    carried between them."""
+    from kaldi_ctc_tpu_torch.ops import rnn_cuda
+    t, b, h, d = TRAIN_T, 600, PROJ_H, 2 * PROJ_H
+    rng = np.random.default_rng(600)
+
+    def mat(*shape, scale=1.0):
+        return torch.as_tensor((rng.standard_normal(shape) * scale)
+                               .astype(np.float32), device=dev)
+
+    x = mat(t, b, d)
+    w_x = mat(d, 8 * h, scale=d ** -0.5)
+    bias = mat(8 * h, scale=0.2)
+    w = [mat(h, 4 * h, scale=h ** -0.5) for _ in range(2)]
+    lens = np.full(b, t, np.int32)
+    lens[1:] = rng.integers(t // 2, t + 1, size=b - 1)
+    lens = torch.as_tensor(lens, device=dev)
+    ys = rnn_cuda.bilstm_seq_fwd_proj(x, w_x, bias, w[0], w[1], lens)
+    bargs = (mat(t, b, h), mat(t, b, h), x, *ys, w_x, bias, w[0], w[1],
+             lens)
+    got = rnn_cuda.bilstm_seq_bwd_dgates_proj(*bargs)
+    ref = rnn_cuda.bilstm_seq_bwd_dgates_proj_reference(*bargs)
+    torch.cuda.synchronize()
+    errs = [max_err(g, r, 0.0, K3_TOL["float32"]) for g, r in zip(got, ref)]
+    row = {"kernel": "K10b", "dtype": "float32", "T": t, "B": b, "D": d,
+           "H": h, "max_abs_err": max(e for e, _ in errs),
+           "tol": K3_TOL["float32"],
+           "chunks": -(-t // max(1, rnn_cuda._K10B_SCRATCH_BYTES
+                                 // (b * 8 * h * 4))),
+           "ms": median_ms(lambda: rnn_cuda.bilstm_seq_bwd_dgates_proj(
+               *bargs), 3, torch)}
+    emit({"phase": "k10_bilstm_proj", **row})
+    if not all(ok for _, ok in errs):
+        fail(f"K10b at B=600 disagrees with its plain version: {row}")
+    return row
+
+
+def phase_f7(torch, np, dev):
+    """Each kernel that keeps every batch row in one block's shared
+    memory (K3, K5, K6, K7 one layer, K8a, K8b, K9a, K9b), once at one row
+    above the most its launch takes (its source's *_max_rows query),
+    H=320, T=20, f32, ragged rows, against its plain version: the wrapper
+    runs it as row slices and counts one launch."""
+    from kaldi_ctc_tpu_torch import _kernels
+    from kaldi_ctc_tpu_torch.ops import gru_cuda, rnn_cuda
+    t, h, f32 = 20, 320, torch.float32
+    rng = np.random.default_rng(7)
+
+    def mat(*shape, scale=1.0):
+        return torch.as_tensor((rng.standard_normal(shape) * scale)
+                               .astype(np.float32), device=dev)
+
+    def above(source, signatures, query, *dims):
+        lib = _kernels.load(source, signatures)
+        return rnn_cuda.max_rows(lib, query, dev, *dims) + 1
+
+    def case(name):
+        """(wrapper, plain version, operands, tolerance, B)"""
+        if name == "K3":
+            b = above("bilstm_bwd", rnn_cuda._BWD_SIGNATURES,
+                      "bilstm_bwd_max_rows_f32", h)
+            xp, w, lens = uni_inputs(torch, np, dev, t, b, h, f32, b)
+            xp = torch.cat([xp, mat(t, b, 4 * h, scale=0.5)], dim=2)
+            w2 = mat(h, 4 * h, scale=h ** -0.5)
+            ys = rnn_cuda.bilstm_seq_fwd_reference(xp, w, w2, lens)
+            return (rnn_cuda.bilstm_seq_bwd_dgates,
+                    rnn_cuda.bilstm_seq_bwd_dgates_reference,
+                    (mat(t, b, h), mat(t, b, h), xp, *ys, w, w2, lens),
+                    K3_TOL["float32"], b)
+        if name in ("K5", "K6", "K7"):
+            src, sigs, query, dims = {
+                "K5": ("lstm_fwd", rnn_cuda._UNI_SIGNATURES,
+                       "lstm_fwd_max_rows_f32", (h,)),
+                "K6": ("lstm_bwd", rnn_cuda._UNI_BWD_SIGNATURES,
+                       "lstm_bwd_max_rows_f32", (h,)),
+                "K7": ("lstm_stack", rnn_cuda._STACK_SIGNATURES,
+                       "lstm_stack_max_rows_f32", (1, h))}[name]
+            b = above(src, sigs, query, *dims)
+            xp, w, lens = uni_inputs(torch, np, dev, t, b, h, f32, b)
+            if name == "K5":
+                return (rnn_cuda.lstm_seq_fwd, rnn_cuda.lstm_seq_fwd_reference,
+                        (xp, w, lens, False), K2_TOL["float32"], b)
+            if name == "K7":
+                return (rnn_cuda.lstm_stack_fwd,
+                        rnn_cuda.lstm_stack_fwd_reference,
+                        (xp, [], [w], [], lens, mat(1, b, h, scale=0.5),
+                         mat(1, b, h, scale=0.5)), K2_TOL["float32"], b)
+            y, c = rnn_cuda.lstm_seq_fwd_reference(xp, w, lens)
+            return (rnn_cuda.lstm_seq_bwd_dgates,
+                    rnn_cuda.lstm_seq_bwd_dgates_reference,
+                    (mat(t, b, h), xp, y, c, w, lens), K3_TOL["float32"], b)
+        dirs = 2 if name.startswith("K8") else 1
+        kernel = "bigru" if dirs == 2 else "gru"
+        fwd = name.endswith("a")
+        src, sigs = (("gru_fwd", gru_cuda._FWD_SIGNATURES) if fwd
+                     else ("gru_bwd", gru_cuda._BWD_SIGNATURES))
+        b = above(src, sigs, f"{kernel}_{src[4:]}_max_rows_f32", h)
+        xp, ws, lens = gru_inputs(torch, np, dev, t, b, h, f32, b, dirs)
+        fn = getattr(gru_cuda, kernel + ("_seq_fwd" if fwd
+                                         else "_seq_bwd_dgates"))
+        ref = getattr(gru_cuda, fn.__name__ + "_reference")
+        if fwd:
+            args = (xp, *ws, lens) if dirs == 2 else (xp, ws[0], lens, False)
+            return fn, ref, args, K2_TOL["float32"], b
+        ys = (gru_cuda.bigru_seq_fwd_reference(xp, *ws, lens) if dirs == 2
+              else (gru_cuda.gru_seq_fwd_reference(xp, ws[0], lens),))
+        dys = [mat(t, b, h) for _ in range(dirs)]
+        args = (*dys, xp, *ys, *ws, lens)
+        return fn, ref, args, K3_TOL["float32"], b
+
+    rows = []
+    for name in ("K3", "K5", "K6", "K7", "K8a", "K8b", "K9a", "K9b"):
+        fn, ref, args, tol, b = case(name)
+        before = fn.launches
+        got = fn(*args)
+        torch.cuda.synchronize()
+        launched = fn.launches - before
+        want = ref(*args)
+        got, want = ((got, want) if isinstance(got, tuple)
+                     else ((got,), (want,)))
+        errs = [max_err(g, r, 0.0, tol) for g, r in zip(got, want)]
+        row = {"kernel": name, "wrapper": fn.__name__, "T": t, "H": h,
+               "B": b, "one_launch_max_rows": b - 1, "launches": launched,
+               "max_abs_err": max(e for e, _ in errs), "tol": tol}
+        rows.append(row)
+        if not all(ok for _, ok in errs) or launched != 1:
+            emit({"phase": "f7", "rows": rows})
+            fail(f"F7: {name} above its ceiling disagrees: {row}")
+    emit({"phase": "f7", "rows": rows})
 
 
 def uni_model(torch, dtype, dev, mode=None):
@@ -1476,6 +1649,18 @@ def device_kernels(prof, DeviceType):
     return kernels
 
 
+# the device kernels of a wrapper as a trace names them: one each, but
+# K10b's two phases (phase 1 is bilstm_proj_gates_tiled_kernel or
+# bilstm_proj_gates_kernel); a wrapper call launches the last of them
+# once per chunk of steps (one chunk at the training shape)
+KERNEL_TAGS = {"bilstm_proj_bwd": ("::bilstm_proj_gates",
+                                   "::bilstm_proj_chain_kernel")}
+
+
+def kernel_tags(name):
+    return KERNEL_TAGS.get(name, (f"::{name}_kernel",))
+
+
 def train_launches(fwd, bwd, layers, proj, dtype):
     """The launches one train step must add, by kernel: ``fwd`` and
     ``bwd`` once per layer and K1 once; for a BLSTM, K10a and K10b where
@@ -1610,14 +1795,15 @@ def phase_train(torch, np, dev, bidirectional=True, mode=None, proj=False):
                 traced_ms = (time.perf_counter() - t0) * 1000
             kernels = device_kernels(prof, DeviceType)
             traced = {k: sum(c for _, c, name in kernels
-                             if f"::{k}_kernel" in name)
+                             if kernel_tags(k)[-1] in name)
                       for k in want if k != "ctc_alpha_beta"}
             if all(traced[k] == want[k] for k in traced):
                 break
         device_ms = sum(k[0] for k in kernels) / 1000
 
-        def share(tag):
-            return round(sum(k[0] for k in kernels if tag in k[2])
+        def share(*tags):
+            return round(sum(k[0] for k in kernels
+                             if any(tag in k[2] for tag in tags))
                          / 1000 / device_ms, 4) if device_ms else None
 
         res = {"phase": ("train" + ("_gru" if cell == "gru" else "")
@@ -1646,7 +1832,7 @@ def phase_train(torch, np, dev, bidirectional=True, mode=None, proj=False):
                    (round(1 - device_ms / traced_ms, 4) if device_ms
                     else "not measured"),
                "k1_share_of_device": share("ctc_kernel"),
-               **{f"{k}_share_of_device": share(f"::{k}_kernel")
+               **{f"{k}_share_of_device": share(*kernel_tags(k))
                   for k in want if k != "ctc_alpha_beta"},
                "top_kernels": [{"name": k[2][:80], "us": round(k[0], 1),
                                 "count": k[1]} for k in kernels[:10]]}
@@ -1727,6 +1913,7 @@ def main():
     measured.update(phase_gru_kernels(torch, np, dev, bidirectional=False))
     measured.update(phase_gru_kernels(torch, np, dev, bidirectional=True))
     measured.update(phase_k10(torch, np, dev))
+    phase_f7(torch, np, dev)
     # the driven paths, each returning its launch counts
     served, engines = phase_serve(torch, np)
     trained = phase_train(torch, np, dev)

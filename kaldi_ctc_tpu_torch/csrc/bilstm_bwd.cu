@@ -29,19 +29,17 @@
 //     compute dtype, f32 accumulation) and dc = dc_total * f.
 // Gate math, dh, dc and c are f32.
 //
-// What bounds it on the H100: the same serial chain as K2, T steps, and
-// each step needs the whole previous dgates row [B, 4H] of its
+// K3.  What bounds it on the H100: the same serial chain as K2, T steps,
+// and each step needs the whole previous dgates row [B, 4H] of its
 // direction to form dh.  At the training batch B = 48, H = 320 that row
 // is 245 KB in f32: more than one block's shared memory, and 128 blocks
-// each reading it from L2 every step would move 31 MB per step.  K10b
-// adds the projection's D x 4H MACs per row and direction to each step.
+// each reading it from L2 every step would move 31 MB per step.
 //
 // Design: one cooperative launch per layer, K2's layout.  Each block
 // owns hs hidden units of one direction and keeps those units' four
-// gate columns of W_h (4*hs x H; K10b also of W_x, 4*hs x D, and the
-// bias) in shared memory for the whole walk, with its dh and dc.  The
-// W_h columns serve both products: the gate recompute sums
-// y[b, k] * W_h[k, c] over k for the block's columns c,
+// gate columns of W_h (4*hs x H) in shared memory for the whole walk,
+// with its dh and dc.  The W_h columns serve both products: the gate
+// recompute sums y[b, k] * W_h[k, c] over k for the block's columns c,
 // and the block's share of dh sums dgates[b, c] * W_h[k, c] over its
 // own columns c, for every k.  Blocks exchange those partial dh rows,
 // not dgates: each block writes a [B, H] partial (f32, through L2 with
@@ -50,11 +48,56 @@
 // the step's one grid.sync() each block sums the nb partials of its own
 // units (ld.global.cg), in a fixed order.  That moves 61 KB in and out
 // of each block per step instead of 245 KB in, and keeps the sums f32
-// and deterministic.  The next step's gate recompute (K10b: with its
-// projection, x read through L1/L2) needs no exchange (y and x are in
-// device memory) and runs before the barrier.  The rows of y[t-+1], the
-// gate sums and the dgates of all B rows stay in shared memory; a batch
-// too large for it is refused with cudaErrorLaunchOutOfResources.
+// and deterministic.  The next step's gate recompute needs no exchange
+// (y is in device memory) and runs before the barrier.  The rows of
+// y[t-+1], the gate sums and the dgates of all B rows stay in shared
+// memory, so a launch takes at most bilstm_bwd_max_rows(H) rows (~139 at
+// H = 320); the wrapper runs a larger batch as row slices.
+//
+// K10b.  The gate recompute depends only on x and the stored y, never on
+// the dh/dc recurrence; the only serial chain is dh -> dgates ->
+// dgates . W_h^T -> dh.  So K10b is two kernels:
+//   1. bilstm_proj_gates_kernel, the gate pre-activations of every step
+//      at once, parallel over T: for each (step, row, gate column) the
+//      projection through project() of csrc/bilstm_cell.cuh plus the
+//      recurrent sum over the stored y[t-+1] through warp_dot, the two
+//      calls and the order K10a makes, so the pre-activations are K10a's
+//      bit for bit (the recompute invariant).  Where a row of D + H f32
+//      and 64 columns of W_x | W_h fit a block (D + H <= 426: the
+//      3x128's D=256, H=128), a tiled kernel keeps 64 columns and walks
+//      tiles of 64 rows, and each thread sums 4 x 4 of them with
+//      tile_dot4x4, which walks warp_dot's lanes in the order of its
+//      shuffle tree; wider rows take one warp per (row, column), calling
+//      warp_dot and project() themselves over up to 32 columns of W_x
+//      and W_h held as f32, x[t] and y[t-+1] read through L1/L2 as K10a
+//      reads x.  The card tests hold the two to each other bit for bit.
+//      The result goes to an f32 scratch [S, B, 8H] the wrapper
+//      allocates per chunk of S steps; nothing of the forward is kept
+//      for the backward (the K10 route's point).
+//   2. bilstm_proj_chain_kernel, the dh/dc chain, serial over the steps,
+//      in thread-block clusters (cudaLaunchKernelEx with a cluster
+//      dimension, not a cooperative launch): one cluster of C CTAs per
+//      (direction, group of R rows).  Each CTA keeps its ceil(H/C) units'
+//      four gate columns of W_h in shared memory as f32 (64 KB at H = 128,
+//      C = 4) with their dh and dc carries.  A step: the gate math from
+//      the scratch, c[t], c[t-+1] and dy[t]; the dgates written; the
+//      CTA's partial dh = dgates_own . W_h_own^T for every unit k stored
+//      into k's owner's shared memory through DSMEM
+//      (cluster.map_shared_rank); one cluster barrier, split into
+//      barrier.cluster.arrive and wait; then each CTA sums the C partials
+//      of its own units in rank order.  The next step's scratch, c and
+//      dy do not depend on dh: cp.async loads them into a double buffer
+//      from the top of the step, and the step waits for them after the
+//      barrier.  The partial sums run four interleaved accumulators per
+//      row (short dependent chains), added in a fixed order.  Rows are independent, so clusters never meet: no
+//      grid barrier, and ceil(B/R) x 2 clusters take any B in as many
+//      waves as the card needs.  C and R come from the wrapper
+//      (rnn_cuda.k10b_plan); the launcher checks them and returns the
+//      CUDA error when they do not fit.
+// Between chunks of steps (a scratch above 256 MiB) the chain carries dh
+// and dc in an f32 state [2][2][B][H] (dh, dc; direction).
+
+#include <algorithm>
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
@@ -62,6 +105,7 @@
 #include <stdint.h>
 
 #include "bilstm_cell.cuh"
+#include "row_ceiling.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -69,16 +113,15 @@ namespace {
 
 constexpr int kThreads = 512;
 
-template <typename T, bool kProj>
+template <typename T>
 __device__ __forceinline__ void bilstm_bwd_body(
     const T* __restrict__ dyf, const T* __restrict__ dyb,
-    const T* __restrict__ in, const T* __restrict__ yf,
+    const T* __restrict__ xp, const T* __restrict__ yf,
     const float* __restrict__ cf, const T* __restrict__ yb,
-    const float* __restrict__ cb, const T* __restrict__ wx,
-    const float* __restrict__ bias, const T* __restrict__ whf,
+    const float* __restrict__ cb, const T* __restrict__ whf,
     const T* __restrict__ whb, const int32_t* __restrict__ lens,
     T* __restrict__ dgf, T* __restrict__ dgb, float* part, int steps, int B,
-    int D, int H, int hs) {
+    int H, int hs) {
   cg::grid_group grid = cg::this_grid();
   extern __shared__ float smem[];
   const int nb = (H + hs - 1) / hs;        // blocks per direction
@@ -96,11 +139,8 @@ __device__ __forceinline__ void bilstm_bwd_body(
   // partial dh: [parity][direction][B][owner group][writer][hs]
   const size_t psize = (size_t)B * nb * nb * hs;
 
-  const int wxn = kProj ? 4 * hs * D : 0;
   float* w_s = smem;                  // [4n][H]: column c = gate * n + jj
-  float* wx_s = w_s + 4 * hs * H;     // K10b: [4n][D] columns of W_x
-  float* b_s = wx_s + wxn;            // K10b: [4n] bias
-  float* y_s = b_s + (kProj ? 4 * hs : 0);  // [B][H]: y[t-+1], the operand
+  float* y_s = w_s + 4 * hs * H;      // [B][H]: y[t-+1], the operand
   float* g_s = y_s + B * H;           // [B][4n]: gate sums
   float* dg_s = g_s + B * 4 * hs;     // [B][4n]: dgates as the dh operand
   float* dh_s = dg_s + B * 4 * hs;    // [B][n]: dh carry of owned units
@@ -110,16 +150,6 @@ __device__ __forceinline__ void bilstm_bwd_body(
     const int c = i / H, k = i % H;
     const int gate = c / n, jj = c % n;
     w_s[i] = to_f32(wh[(size_t)k * G + gate * H + j0 + jj]);
-  }
-  if constexpr (kProj) {
-    for (int i = threadIdx.x; i < n4 * D; i += blockDim.x) {
-      const int c = i / D, k = i % D;
-      const int gate = c / n, jj = c % n;
-      const int col = dir * G + gate * H + j0 + jj;
-      wx_s[i] = to_f32(wx[(size_t)k * 2 * G + col]);
-    }
-    for (int c = threadIdx.x; c < n4; c += blockDim.x)
-      b_s[c] = bias[dir * G + (c / n) * H + j0 + c % n];
   }
   for (int i = threadIdx.x; i < B * n; i += blockDim.x) {
     dh_s[i] = 0.0f;
@@ -131,8 +161,7 @@ __device__ __forceinline__ void bilstm_bwd_body(
   const int nwarps = blockDim.x >> 5;
   auto time_of = [&](int s) { return dir == 0 ? steps - 1 - s : s; };
 
-  // gate sums of walk step s into g_s: K2's recurrent dot products and,
-  // for K10b, K10a's projection
+  // recurrent gate sums of walk step s into g_s: K2's dot products
   auto gate_sums = [&](int s) {
     const bool first = s == steps - 1;  // the direction's first fwd step
     const int t = time_of(s);
@@ -146,9 +175,6 @@ __device__ __forceinline__ void bilstm_bwd_body(
     for (int o = warp; o < B * n4; o += nwarps) {
       const int b = o / n4, c = o % n4;
       float acc = first ? 0.0f : warp_dot(y_s + b * H, w_s + c * H, H, lane);
-      if constexpr (kProj)
-        acc += project(in + ((size_t)t * B + b) * D, wx_s + c * D, b_s[c], D,
-                       lane);
       if (lane == 0) g_s[o] = acc;
     }
   };
@@ -176,16 +202,9 @@ __device__ __forceinline__ void bilstm_bwd_body(
     for (int e = threadIdx.x; e < B * n; e += blockDim.x) {
       const int b = e / n, jj = e % n, j = j0 + jj;
       const float* g = g_s + b * n4;
-      // pre-activation of gate q: K10b's sums hold the projection, K3
-      // adds the stored one
-      auto pre = [&](int q) {
-        if constexpr (kProj) {
-          return g[q * n + jj];
-        } else {
-          const T* x = in + ((size_t)t * B + b) * 2 * G + dir * G;
-          return to_f32(x[q * H + j]) + g[q * n + jj];
-        }
-      };
+      const T* x = xp + ((size_t)t * B + b) * 2 * G + dir * G;
+      // pre-activation of gate q: the stored projection plus the sums
+      auto pre = [&](int q) { return to_f32(x[q * H + j]) + g[q * n + jj]; };
       const float gi = sigmoid(pre(0));
       const float gf = sigmoid(pre(1));
       const float gg = tanhf(pre(2));
@@ -240,38 +259,19 @@ bilstm_bwd_kernel(const T* __restrict__ dyf, const T* __restrict__ dyb,
                   const T* __restrict__ whb, const int32_t* __restrict__ lens,
                   T* __restrict__ dgf, T* __restrict__ dgb, float* part,
                   int steps, int B, int H, int hs) {
-  bilstm_bwd_body<T, false>(dyf, dyb, xp, yf, cf, yb, cb, nullptr, nullptr,
-                            whf, whb, lens, dgf, dgb, part, steps, B, 0, H,
-                            hs);
-}
-
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-bilstm_proj_bwd_kernel(const T* __restrict__ dyf, const T* __restrict__ dyb,
-                       const T* __restrict__ x, const T* __restrict__ yf,
-                       const float* __restrict__ cf, const T* __restrict__ yb,
-                       const float* __restrict__ cb, const T* __restrict__ wx,
-                       const float* __restrict__ bias,
-                       const T* __restrict__ whf, const T* __restrict__ whb,
-                       const int32_t* __restrict__ lens, T* __restrict__ dgf,
-                       T* __restrict__ dgb, float* part, int steps, int B,
-                       int D, int H, int hs) {
-  bilstm_bwd_body<T, true>(dyf, dyb, x, yf, cf, yb, cb, wx, bias, whf, whb,
-                           lens, dgf, dgb, part, steps, B, D, H, hs);
+  bilstm_bwd_body<T>(dyf, dyb, xp, yf, cf, yb, cb, whf, whb, lens, dgf, dgb,
+                     part, steps, B, H, hs);
 }
 
 // hidden units per block: both directions' blocks in one wave of the SMs
 int units_per_block(int H, int sms) { return (2 * H + sms - 1) / sms; }
 
-// K3 (wx == nullptr: `in` is xp) or K10b (`in` is x, D its width)
+// K3's geometry at B rows: hs hidden units per block, nb blocks per
+// direction and the shared memory in bytes; refuses rows that do not fit
+// one block and a grid that is not co-resident.  The launch and
+// bilstm_bwd_max_rows share it.
 template <typename T>
-int launch(const void* dyf, const void* dyb, const void* in, const void* yf,
-           const void* cf, const void* yb, const void* cb, const void* wx,
-           const void* bias, const void* whf, const void* whb,
-           const void* lens, void* dgf, void* dgb, void* part, int steps,
-           int B, int D, int H, void* stream) {
-  if (steps <= 0 || B <= 0) return cudaGetLastError();
-  const bool proj = wx != nullptr;
+cudaError_t plan(int B, int H, int* hs, int* nb, size_t* smem) {
   int dev = 0, sms = 0, coop = 0, optin = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e != cudaSuccess) return e;
@@ -280,52 +280,611 @@ int launch(const void* dyf, const void* dyb, const void* in, const void* yf,
   cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
                          dev);
   if (!coop) return cudaErrorNotSupported;
-  const int hs = units_per_block(H, sms);
-  const int nb = (H + hs - 1) / hs;
-  const size_t smem = sizeof(float) * ((size_t)4 * hs * H + (size_t)B * H +
-                                       (size_t)2 * B * 4 * hs +
-                                       (size_t)2 * B * hs +
-                                       (proj ? (size_t)4 * hs * (D + 1) : 0));
-  if (smem > (size_t)optin) return cudaErrorLaunchOutOfResources;
-  auto k3 = bilstm_bwd_kernel<T>;
-  auto k10 = bilstm_proj_bwd_kernel<T>;
-  const void* kern = proj ? (const void*)k10 : (const void*)k3;
+  *hs = units_per_block(H, sms);
+  *nb = (H + *hs - 1) / *hs;
+  *smem = sizeof(float) * ((size_t)4 * *hs * H + (size_t)B * H +
+                           (size_t)2 * B * 4 * *hs + (size_t)2 * B * *hs);
+  if (*smem > (size_t)optin) return cudaErrorLaunchOutOfResources;
+  auto kern = bilstm_bwd_kernel<T>;
   e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           (int)smem);
+                           (int)*smem);
   if (e != cudaSuccess) return e;
   int per_sm = 0;
   e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, kThreads,
-                                                    smem);
+                                                    *smem);
   if (e != cudaSuccess) return e;
-  if (per_sm * sms < 2 * nb) return cudaErrorCooperativeLaunchTooLarge;
+  return per_sm * sms < 2 * *nb ? cudaErrorCooperativeLaunchTooLarge
+                                : cudaSuccess;
+}
+
+template <typename T>
+int max_rows_of(int H) {
+  if (H <= 0) return -static_cast<int>(cudaErrorInvalidValue);
+  return max_rows([H](int B) {
+    int hs = 0, nb = 0;
+    size_t smem = 0;
+    return plan<T>(B, H, &hs, &nb, &smem);
+  });
+}
+
+template <typename T>
+int launch(const void* dyf, const void* dyb, const void* xp, const void* yf,
+           const void* cf, const void* yb, const void* cb, const void* whf,
+           const void* whb, const void* lens, void* dgf, void* dgb,
+           void* part, int steps, int B, int H, void* stream) {
+  if (steps <= 0 || B <= 0) return cudaGetLastError();
+  int hs = 0, nb = 0;
+  size_t smem = 0;
+  cudaError_t e = plan<T>(B, H, &hs, &nb, &smem);
+  if (e != cudaSuccess) return e;
 
   const T* a_dyf = static_cast<const T*>(dyf);
   const T* a_dyb = static_cast<const T*>(dyb);
-  const T* a_in = static_cast<const T*>(in);
+  const T* a_xp = static_cast<const T*>(xp);
   const T* a_yf = static_cast<const T*>(yf);
   const float* a_cf = static_cast<const float*>(cf);
   const T* a_yb = static_cast<const T*>(yb);
   const float* a_cb = static_cast<const float*>(cb);
-  const T* a_wx = static_cast<const T*>(wx);
-  const float* a_bias = static_cast<const float*>(bias);
   const T* a_whf = static_cast<const T*>(whf);
   const T* a_whb = static_cast<const T*>(whb);
   const int32_t* a_lens = static_cast<const int32_t*>(lens);
   T* a_dgf = static_cast<T*>(dgf);
   T* a_dgb = static_cast<T*>(dgb);
   float* a_part = static_cast<float*>(part);
-  int a_steps = steps, a_b = B, a_d = D, a_hd = H, a_hs = hs;
-  void* k3_args[] = {&a_dyf,  &a_dyb, &a_in,   &a_yf,    &a_cf,  &a_yb,
-                     &a_cb,   &a_whf, &a_whb,  &a_lens,  &a_dgf, &a_dgb,
-                     &a_part, &a_steps, &a_b,  &a_hd,    &a_hs};
-  void* k10_args[] = {&a_dyf,  &a_dyb,  &a_in,   &a_yf,   &a_cf,
-                      &a_yb,   &a_cb,   &a_wx,   &a_bias, &a_whf,
-                      &a_whb,  &a_lens, &a_dgf,  &a_dgb,  &a_part,
-                      &a_steps, &a_b,   &a_d,    &a_hd,   &a_hs};
-  void** args = proj ? static_cast<void**>(k10_args)
-                     : static_cast<void**>(k3_args);
-  e = cudaLaunchCooperativeKernel(kern, dim3(2 * nb), dim3(kThreads), args,
-                                  smem, static_cast<cudaStream_t>(stream));
+  int a_steps = steps, a_b = B, a_hd = H, a_hs = hs;
+  void* args[] = {&a_dyf,  &a_dyb, &a_xp,   &a_yf,    &a_cf,  &a_yb,
+                  &a_cb,   &a_whf, &a_whb,  &a_lens,  &a_dgf, &a_dgb,
+                  &a_part, &a_steps, &a_b,  &a_hd,    &a_hs};
+  e = cudaLaunchCooperativeKernel((void*)bilstm_bwd_kernel<T>, dim3(2 * nb),
+                                  dim3(kThreads), args, smem,
+                                  static_cast<cudaStream_t>(stream));
+  if (e != cudaSuccess) return e;
+  return cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// K10b phase 1: the gate pre-activations of every step, parallel over T
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
+               "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+constexpr int kGateThreads = 256;
+constexpr int kMaxGateCols = 32;      // gate columns per block, one a lane
+constexpr int kGateRowsPerWarp = 32;  // rows each warp walks (grid sizing)
+
+// shared memory of a phase-1 block of `cols` gate columns: their W_x and
+// W_h columns and bias as f32 (ops/rnn_cuda.py::k10b_plan picks cols by
+// the same sum)
+size_t gates_smem(int cols, int D, int H) {
+  return sizeof(float) * (size_t)cols * (D + H + 1);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kGateThreads)
+bilstm_proj_gates_kernel(const T* __restrict__ x, const T* __restrict__ yf,
+                         const T* __restrict__ yb, const T* __restrict__ wx,
+                         const float* __restrict__ bias,
+                         const T* __restrict__ whf, const T* __restrict__ whb,
+                         float* __restrict__ pre, int s0, int S, int steps,
+                         int B, int D, int H, int cols) {
+  extern __shared__ float smem[];
+  const int G = 4 * H;
+  const int tiles = (G + cols - 1) / cols;   // per direction
+  const int dir = blockIdx.x / tiles;
+  const int c0 = (blockIdx.x % tiles) * cols;
+  const int nc = min(cols, G - c0);
+  const T* wh = dir == 0 ? whf : whb;
+  const T* y = dir == 0 ? yf : yb;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int nwarps = blockDim.x >> 5;
+  float* wx_s = smem;                 // [nc][D]: W_x column c0 + c
+  float* wh_s = wx_s + nc * D;        // [nc][H]: W_h column c0 + c
+  float* b_s = wh_s + nc * H;         // [nc]
+
+  for (int i = threadIdx.x; i < nc * D; i += blockDim.x) {
+    const int k = i / nc, c = i % nc;
+    wx_s[c * D + k] = to_f32(wx[(size_t)k * 2 * G + dir * G + c0 + c]);
+  }
+  for (int i = threadIdx.x; i < nc * H; i += blockDim.x) {
+    const int k = i / nc, c = i % nc;
+    wh_s[c * H + k] = to_f32(wh[(size_t)k * G + c0 + c]);
+  }
+  for (int c = threadIdx.x; c < nc; c += blockDim.x)
+    b_s[c] = bias[dir * G + c0 + c];
+  __syncthreads();
+
+  // one row (step, batch row) per warp at a time; x[t] and y[t-+1] are
+  // read through L1/L2 (never staged, as K10a reads x), each lane its
+  // k = lane, lane + 32, ...
+  const int rows = S * B;
+  for (int r = blockIdx.y * nwarps + warp; r < rows;
+       r += gridDim.y * nwarps) {
+    const int si = r / B, b = r % B;
+    const int s = s0 + si;
+    const bool first = s == steps - 1;   // the direction's first fwd step
+    const int t = dir == 0 ? steps - 1 - s : s;
+    const int tp = dir == 0 ? t - 1 : t + 1;
+    const T* xr = x + ((size_t)t * B + b) * D;
+    const T* yr = y + ((size_t)(first ? t : tp) * B + b) * H;
+    // K10a's gate sum: the recurrent warp_dot, then its project()
+    float mine = 0.0f;
+    for (int c = 0; c < nc; ++c) {
+      float acc = first ? 0.0f : warp_dot(yr, wh_s + c * H, H, lane);
+      acc += project(xr, wx_s + c * D, b_s[c], D, lane);
+      if (lane == c) mine = acc;
+    }
+    if (lane < nc)
+      pre[((size_t)si * B + b) * 2 * G + dir * G + c0 + lane] = mine;
+  }
+}
+
+template <typename T>
+int gates_launch(const void* x, const void* yf, const void* yb,
+                 const void* wx, const void* bias, const void* whf,
+                 const void* whb, void* pre, int s0, int S, int steps, int B,
+                 int D, int H, int cols, void* stream) {
+  if (S <= 0 || B <= 0) return cudaGetLastError();
+  if (s0 < 0 || s0 + S > steps || D <= 0 || H <= 0 || cols < 1 ||
+      cols > kMaxGateCols)
+    return cudaErrorInvalidValue;
+  int dev = 0, optin = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                         dev);
+  const size_t smem = gates_smem(cols, D, H);
+  if (smem > (size_t)optin) return cudaErrorLaunchOutOfResources;
+  auto kern = bilstm_proj_gates_kernel<T>;
+  e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           (int)smem);
+  if (e != cudaSuccess) return e;
+  const long long rows = (long long)S * B;
+  const long long per_block = (kGateThreads / 32) * kGateRowsPerWarp;
+  const int tiles = (4 * H + cols - 1) / cols;
+  const dim3 grid(2 * tiles,
+                  (unsigned)std::min<long long>(65535,
+                                                (rows + per_block - 1) /
+                                                    per_block));
+  kern<<<grid, kGateThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const T*>(x), static_cast<const T*>(yf),
+      static_cast<const T*>(yb), static_cast<const T*>(wx),
+      static_cast<const float*>(bias), static_cast<const T*>(whf),
+      static_cast<const T*>(whb), static_cast<float*>(pre), s0, S, steps, B,
+      D, H, cols);
+  return cudaGetLastError();
+}
+
+// The tiled phase 1: each block takes 64 gate columns of one direction
+// (their W_x and W_h as f32, staged once) and walks tiles of 64 rows
+// (step, batch row), staging the rows' x[t] and y[t-+1] (zeros at the
+// first forward step); each thread sums 4 rows x 4 columns with
+// tile_dot4x4 (csrc/bilstm_cell.cuh): warp_dot's order, bit for bit,
+// with none of its shuffles.  Rows and columns are staged k-major, 68
+// floats a k (64 and a pad that keeps float4 loads aligned), so a
+// thread reads its 4 rows and its 4 columns at one k with two float4
+// loads.  Rows of D + H <= 426 floats fit (227 KB).
+constexpr int kTileRows = 64;         // (step, batch row) pairs a block
+constexpr int kTileCols = 64;         // gate columns a block
+constexpr int kTileThreads = 256;     // 16 x 16 threads of 4 x 4 pairs
+constexpr int kTileStride = 68;       // floats a k, rows or columns
+
+size_t gates_tiled_smem(int D, int H) {
+  return sizeof(float) *
+         ((size_t)2 * kTileStride * (D + H) + kTileCols);
+}
+
+// one staged operand of the tiled phase 1, as f32: an f32 value is
+// copied by cp.async (every copy of a tile in flight at once), a bf16
+// value converted on the way; a missing one (past the rows, y before the
+// first step) is zero
+template <typename T>
+__device__ __forceinline__ void stage(float* dst, const T* src) {
+  if (src == nullptr) {
+    *dst = 0.0f;
+  } else if constexpr (sizeof(T) == sizeof(float)) {
+    cp_async4(dst, src);
+  } else {
+    *dst = to_f32(*src);
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kTileThreads, 1)
+bilstm_proj_gates_tiled_kernel(
+    const T* __restrict__ x, const T* __restrict__ yf,
+    const T* __restrict__ yb, const T* __restrict__ wx,
+    const float* __restrict__ bias, const T* __restrict__ whf,
+    const T* __restrict__ whb, float* __restrict__ pre, int s0, int S,
+    int steps, int B, int D, int H) {
+  extern __shared__ __align__(16) float tile_smem[];
+  const int G = 4 * H;
+  const int K = D + H;
+  const int tiles = (G + kTileCols - 1) / kTileCols;   // per direction
+  const int dir = blockIdx.x / tiles;
+  const int c0 = (blockIdx.x % tiles) * kTileCols;
+  const int nc = min(kTileCols, G - c0);
+  const T* wh = dir == 0 ? whf : whb;
+  const T* y = dir == 0 ? yf : yb;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int nwarps = blockDim.x >> 5;
+  float* a_s = tile_smem;                // [K][68]: x[t] | y[t-+1] by row
+  float* w_s = a_s + kTileStride * K;    // [K][68]: W_x | W_h by column
+  float* b_s = w_s + kTileStride * K;    // [64]
+
+  // the block's columns, once: it walks row tiles blockIdx.y, + gridDim.y
+  for (int i = threadIdx.x; i < kTileCols * K; i += blockDim.x) {
+    const int k = i / kTileCols, c = i % kTileCols;
+    float w = 0.0f;
+    if (c < nc)
+      w = k < D ? to_f32(wx[(size_t)k * 2 * G + dir * G + c0 + c])
+                : to_f32(wh[(size_t)(k - D) * G + c0 + c]);
+    w_s[k * kTileStride + c] = w;
+  }
+  for (int c = threadIdx.x; c < kTileCols; c += blockDim.x)
+    b_s[c] = c < nc ? bias[dir * G + c0 + c] : 0.0f;
+
+  const int tr = threadIdx.x / 16, tc = threadIdx.x % 16;
+  const int row_tiles = (S * B + kTileRows - 1) / kTileRows;
+  for (int rt = blockIdx.y; rt < row_tiles; rt += gridDim.y) {
+    const int row0 = rt * kTileRows;      // of the chunk's S * B rows
+    const int nr = min(kTileRows, S * B - row0);
+    __syncthreads();                      // the last tile's sums are done
+    for (int r = warp; r < kTileRows; r += nwarps) {
+      const T* xr = nullptr;
+      const T* yr = nullptr;              // zeros at the first fwd step
+      if (r < nr) {
+        const int si = (row0 + r) / B, b = (row0 + r) % B;
+        const int s = s0 + si;
+        const int t = dir == 0 ? steps - 1 - s : s;
+        xr = x + ((size_t)t * B + b) * D;
+        if (s != steps - 1)
+          yr = y + ((size_t)(dir == 0 ? t - 1 : t + 1) * B + b) * H;
+      }
+      for (int k = lane; k < D; k += 32)
+        stage(a_s + k * kTileStride + r, xr == nullptr ? xr : xr + k);
+      for (int k = lane; k < H; k += 32)
+        stage(a_s + (D + k) * kTileStride + r, yr == nullptr ? yr : yr + k);
+    }
+    cp_async_wait_all();
+    __syncthreads();
+
+    float proj[4][4], rec[4][4];
+    tile_dot4x4(a_s + 4 * tr, w_s + 4 * tc, kTileStride, D, proj);
+    tile_dot4x4(a_s + D * kTileStride + 4 * tr,
+                w_s + D * kTileStride + 4 * tc, kTileStride, H, rec);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int r = 4 * tr + i;
+      if (r >= nr) continue;
+      float* out = pre + (size_t)(row0 + r) * 2 * G + dir * G + c0;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int c = 4 * tc + j;
+        // K10a's gate: the recurrent sum (+0 over the zero rows of the
+        // first step, as K10a's over h0), plus project()'s rounded
+        // projection
+        if (c < nc)
+          out[c] = rec[i][j] + to_f32(from_f32<T>(proj[i][j] + b_s[c]));
+      }
+    }
+  }
+}
+
+template <typename T>
+int gates_tiled_launch(const void* x, const void* yf, const void* yb,
+                       const void* wx, const void* bias, const void* whf,
+                       const void* whb, void* pre, int s0, int S, int steps,
+                       int B, int D, int H, void* stream) {
+  if (S <= 0 || B <= 0) return cudaGetLastError();
+  if (s0 < 0 || s0 + S > steps || D <= 0 || H <= 0)
+    return cudaErrorInvalidValue;
+  int dev = 0, optin = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                         dev);
+  const size_t smem = gates_tiled_smem(D, H);
+  if (smem > (size_t)optin) return cudaErrorLaunchOutOfResources;
+  auto kern = bilstm_proj_gates_tiled_kernel<T>;
+  e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           (int)smem);
+  if (e != cudaSuccess) return e;
+  // one block an SM (its shared memory), each walking row tiles
+  int sms = 0;
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  const int col_blocks = 2 * ((4 * H + kTileCols - 1) / kTileCols);
+  const long long row_tiles = ((long long)S * B + kTileRows - 1) / kTileRows;
+  const dim3 grid(col_blocks,
+                  (unsigned)std::max<long long>(
+                      1, std::min<long long>(row_tiles, sms / col_blocks)));
+  kern<<<grid, kTileThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const T*>(x), static_cast<const T*>(yf),
+      static_cast<const T*>(yb), static_cast<const T*>(wx),
+      static_cast<const float*>(bias), static_cast<const T*>(whf),
+      static_cast<const T*>(whb), static_cast<float*>(pre), s0, S, steps, B,
+      D, H);
+  return cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// K10b phase 2: the dh/dc chain, serial over the steps, in clusters
+// ---------------------------------------------------------------------------
+
+constexpr int kChainThreads = 256;
+constexpr int kMaxCluster = 16;
+// words prefetched per (row, unit) and step: the four gate
+// pre-activations, c[t], c[t-+1], the 4-byte word holding dy[t], a spare
+constexpr int kPrefetch = 8;
+
+// floats of a phase-2 CTA's shared memory at cluster size C, R rows per
+// cluster, H units (the layout of bilstm_proj_chain_kernel; the plan in
+// ops/rnn_cuda.py::k10b_plan sizes R by the same sum)
+size_t chain_floats(int C, int R, int H) {
+  const size_t hsz = (H + C - 1) / C;
+  const size_t rp = (R + 3) & ~3;
+  const size_t recv = (2 * (size_t)C * R * hsz + 3) & ~(size_t)3;
+  return 4 * hsz * H + recv + 4 * hsz * rp + 2 * (size_t)R * hsz +
+         2 * (size_t)kPrefetch * R * hsz + R;
+}
+
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// the 4-byte aligned word holding *p (a bf16 value shares it with a
+// neighbour of the same tensor), and *p read back from that word
+template <typename T>
+__device__ __forceinline__ const void* word_of(const T* p) {
+  return reinterpret_cast<const void*>(reinterpret_cast<uintptr_t>(p) &
+                                       ~static_cast<uintptr_t>(3));
+}
+__device__ __forceinline__ float from_word(uint32_t w, const float*) {
+  return __uint_as_float(w);
+}
+__device__ __forceinline__ float from_word(uint32_t w,
+                                           const __nv_bfloat16* p) {
+  const bool high = (reinterpret_cast<uintptr_t>(p) & 2) != 0;
+  return __bfloat162float(__ushort_as_bfloat16(
+      static_cast<unsigned short>(high ? w >> 16 : w & 0xffffu)));
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kChainThreads)
+bilstm_proj_chain_kernel(const T* __restrict__ dyf, const T* __restrict__ dyb,
+                         const float* __restrict__ cf,
+                         const float* __restrict__ cb,
+                         const T* __restrict__ whf, const T* __restrict__ whb,
+                         const int32_t* __restrict__ lens,
+                         const float* __restrict__ pre, T* __restrict__ dgf,
+                         T* __restrict__ dgb, float* __restrict__ state,
+                         int s0, int S, int steps, int B, int H, int R) {
+  extern __shared__ __align__(16) unsigned char chain_smem[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int C = static_cast<int>(cluster.num_blocks());
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int groups = (B + R - 1) / R;
+  const int cid = blockIdx.x / C;           // this cluster
+  const int dir = cid / groups;
+  const int r0 = (cid % groups) * R;        // its first row
+  const int nr = min(R, B - r0);
+  const int hsz = (H + C - 1) / C;          // units per rank
+  const int j0 = rank * hsz;
+  const int n = max(0, min(hsz, H - j0));   // units this CTA owns
+  const int n4 = 4 * n;
+  const int G = 4 * H;
+  const int rp = (R + 3) & ~3;
+  const T* dy = dir == 0 ? dyf : dyb;
+  const float* cst = dir == 0 ? cf : cb;
+  const T* wh = dir == 0 ? whf : whb;
+  T* dg = dir == 0 ? dgf : dgb;
+  float* dh_state = state + (size_t)dir * B * H;        // state[0][dir]
+  float* dc_state = state + (size_t)(2 + dir) * B * H;  // state[1][dir]
+
+  const size_t recv_size = (2 * (size_t)C * R * hsz + 3) & ~(size_t)3;
+  float* w_s = reinterpret_cast<float*>(chain_smem);  // [4n][H]
+  float* recv = w_s + (size_t)4 * hsz * H;  // [2][writer rank][R][hsz]
+  float* dg_s = recv + recv_size;           // [4n][rp]: rounded dgates
+  float* dh_s = dg_s + (size_t)4 * hsz * rp;  // [nr][n]: dh carry
+  float* dc_s = dh_s + (size_t)R * hsz;       // [nr][n]: dc carry
+  uint32_t* pf = reinterpret_cast<uint32_t*>(dc_s + (size_t)R * hsz);
+  int* lens_s = reinterpret_cast<int*>(pf + (size_t)2 * kPrefetch * R * hsz);
+
+  for (int i = threadIdx.x; i < n4 * H; i += blockDim.x) {
+    const int k = i / n4, c = i % n4;
+    const int gate = c / n, jj = c % n;
+    w_s[c * H + k] = to_f32(wh[(size_t)k * G + gate * H + j0 + jj]);
+  }
+  for (int i = threadIdx.x; i < 4 * hsz * rp; i += blockDim.x) dg_s[i] = 0.0f;
+  const int ne = nr * n;                    // (row, unit) elements
+  for (int e = threadIdx.x; e < ne; e += blockDim.x) {
+    const size_t o = (size_t)(r0 + e / n) * H + j0 + e % n;
+    dh_s[e] = dh_state[o];
+    dc_s[e] = dc_state[o];
+  }
+  for (int r = threadIdx.x; r < nr; r += blockDim.x) lens_s[r] = lens[r0 + r];
+
+  auto time_of = [&](int s) { return dir == 0 ? steps - 1 - s : s; };
+  // step s's operands of this thread's elements into buffer `buf`: they
+  // depend on nothing the chain computes
+  auto prefetch = [&](int s, int buf) {
+    const int t = time_of(s);
+    const bool first = s == steps - 1;
+    const int tp = dir == 0 ? t - 1 : t + 1;
+    uint32_t* p = pf + (size_t)buf * kPrefetch * R * hsz;
+    for (int e = threadIdx.x; e < ne; e += blockDim.x) {
+      const int b = r0 + e / n, j = j0 + e % n;
+      uint32_t* q = p + (size_t)e * kPrefetch;
+      const float* g = pre + ((size_t)(s - s0) * B + b) * 2 * G + dir * G + j;
+      for (int gate = 0; gate < 4; ++gate) cp_async4(q + gate, g + gate * H);
+      cp_async4(q + 4, cst + ((size_t)t * B + b) * H + j);
+      if (!first) cp_async4(q + 5, cst + ((size_t)tp * B + b) * H + j);
+      cp_async4(q + 6, word_of(dy + ((size_t)t * B + b) * H + j));
+    }
+  };
+
+  prefetch(s0, 0);
+  cp_async_wait_all();
+  __syncthreads();
+  cluster.sync();   // every CTA runs before any DSMEM store reaches it
+  for (int i = 0; i < S; ++i) {
+    const int s = s0 + i;
+    const int t = time_of(s);
+    const bool first = s == steps - 1;
+    // the next step's operands load while this step runs (the buffer
+    // they fill was read by the step before)
+    if (i + 1 < S) prefetch(s + 1, (i + 1) & 1);
+    const uint32_t* p = pf + (size_t)(i & 1) * kPrefetch * R * hsz;
+    for (int e = threadIdx.x; e < ne; e += blockDim.x) {
+      const int r = e / n, jj = e % n, b = r0 + r, j = j0 + jj;
+      const uint32_t* q = p + (size_t)e * kPrefetch;
+      const float gi = sigmoid(__uint_as_float(q[0]));
+      const float gf = sigmoid(__uint_as_float(q[1]));
+      const float gg = tanhf(__uint_as_float(q[2]));
+      const float go = sigmoid(__uint_as_float(q[3]));
+      const float c = __uint_as_float(q[4]);
+      const float cp = first ? 0.0f : __uint_as_float(q[5]);
+      const float tc = tanhf(c);
+      const float dht =
+          from_word(q[6], dy + ((size_t)t * B + b) * H + j) + dh_s[e];
+      const float dct = dc_s[e] + dht * go * (1.0f - tc * tc);
+      const bool valid = t < lens_s[r];
+      const float d_i = valid ? dct * gg * gi * (1.0f - gi) : 0.0f;
+      const float d_f = valid ? dct * cp * gf * (1.0f - gf) : 0.0f;
+      const float d_g = valid ? dct * gi * (1.0f - gg * gg) : 0.0f;
+      const float d_o = valid ? dht * tc * go * (1.0f - go) : 0.0f;
+      const T r_i = from_f32<T>(d_i), r_f = from_f32<T>(d_f);
+      const T r_g = from_f32<T>(d_g), r_o = from_f32<T>(d_o);
+      T* out = dg + ((size_t)t * B + b) * G;
+      out[j] = r_i;
+      out[H + j] = r_f;
+      out[2 * H + j] = r_g;
+      out[3 * H + j] = r_o;
+      dg_s[(size_t)jj * rp + r] = to_f32(r_i);
+      dg_s[(size_t)(n + jj) * rp + r] = to_f32(r_f);
+      dg_s[(size_t)(2 * n + jj) * rp + r] = to_f32(r_g);
+      dg_s[(size_t)(3 * n + jj) * rp + r] = to_f32(r_o);
+      if (valid) dc_s[e] = dct * gf;
+    }
+    if (s + 1 == steps) break;
+    __syncthreads();
+    // this CTA's partial dh for every unit k over its own columns, into
+    // k's owner's slot for this rank
+    float* slot =
+        recv + ((size_t)(i & 1) * C + rank) * R * hsz;  // [parity][rank]
+    const int row_tiles = (nr + 3) >> 2;
+    for (int item = threadIdx.x; item < H * row_tiles; item += blockDim.x) {
+      const int k = item % H, r4 = (item / H) * 4;
+      // four rows, each summed over its columns c = q, q + 4, ... in
+      // four sums (short dependent chains), added in a fixed order
+      float acc[4][4] = {};
+      for (int c = 0; c < n4; c += 4) {     // n4 = 4 n
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          const float w = w_s[(c + q) * H + k];
+          const float4 d =
+              *reinterpret_cast<const float4*>(dg_s + (c + q) * rp + r4);
+          acc[q][0] = fmaf(d.x, w, acc[q][0]);
+          acc[q][1] = fmaf(d.y, w, acc[q][1]);
+          acc[q][2] = fmaf(d.z, w, acc[q][2]);
+          acc[q][3] = fmaf(d.w, w, acc[q][3]);
+        }
+      }
+      float* dst = cluster.map_shared_rank(slot, k / hsz) +
+                   (size_t)r4 * hsz + k % hsz;
+#pragma unroll
+      for (int rr = 0; rr < 4; ++rr)
+        if (r4 + rr < nr)
+          dst[rr * hsz] =
+              (acc[0][rr] + acc[1][rr]) + (acc[2][rr] + acc[3][rr]);
+    }
+    cluster_arrive();
+    cluster_wait();
+    cp_async_wait_all();
+    // dh for the next step: the C partials of this CTA's units in rank
+    // order, carried only where this step was a valid frame
+    const float* in = recv + (size_t)(i & 1) * C * R * hsz;
+    for (int e = threadIdx.x; e < ne; e += blockDim.x) {
+      const int r = e / n, jj = e % n;
+      if (t >= lens_s[r]) continue;
+      float acc = 0.0f;
+      for (int w = 0; w < C; ++w) acc += in[((size_t)w * R + r) * hsz + jj];
+      dh_s[e] = acc;
+    }
+  }
+  if (s0 + S < steps) {   // the next chunk of steps takes the carries
+    for (int e = threadIdx.x; e < ne; e += blockDim.x) {
+      const size_t o = (size_t)(r0 + e / n) * H + j0 + e % n;
+      dh_state[o] = dh_s[e];
+      dc_state[o] = dc_s[e];
+    }
+  }
+}
+
+template <typename T>
+int chain_launch(const void* dyf, const void* dyb, const void* cf,
+                 const void* cb, const void* whf, const void* whb,
+                 const void* lens, const void* pre, void* dgf, void* dgb,
+                 void* state, int s0, int S, int steps, int B, int H, int C,
+                 int R, void* stream) {
+  if (S <= 0 || B <= 0) return cudaGetLastError();
+  if (C < 1 || C > kMaxCluster || (C & (C - 1)) != 0 || R < 1 || H <= 0 ||
+      s0 < 0 || s0 + S > steps)
+    return cudaErrorInvalidValue;
+  int dev = 0, optin = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                         dev);
+  const size_t smem = sizeof(float) * chain_floats(C, R, H);
+  if (smem > (size_t)optin) return cudaErrorLaunchOutOfResources;
+  auto kern = bilstm_proj_chain_kernel<T>;
+  e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           (int)smem);
+  if (e != cudaSuccess) return e;
+  if (C > 8) {
+    e = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (e != cudaSuccess) return e;
+  }
+  const int groups = (B + R - 1) / R;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(2 * groups * C);
+  cfg.blockDim = dim3(kChainThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = static_cast<cudaStream_t>(stream);
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = C;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  int clusters = 0;
+  e = cudaOccupancyMaxActiveClusters(&clusters, (const void*)kern, &cfg);
+  if (e != cudaSuccess) return e;
+  if (clusters < 1) return cudaErrorLaunchOutOfResources;
+  e = cudaLaunchKernelEx(
+      &cfg, kern, static_cast<const T*>(dyf), static_cast<const T*>(dyb),
+      static_cast<const float*>(cf), static_cast<const float*>(cb),
+      static_cast<const T*>(whf), static_cast<const T*>(whb),
+      static_cast<const int32_t*>(lens), static_cast<const float*>(pre),
+      static_cast<T*>(dgf), static_cast<T*>(dgb), static_cast<float*>(state),
+      s0, S, steps, B, H, R);
   if (e != cudaSuccess) return e;
   return cudaGetLastError();
 }
@@ -334,7 +893,7 @@ int launch(const void* dyf, const void* dyb, const void* in, const void* yf,
 
 extern "C" {
 
-// floats of the partial-dh exchange the caller allocates for a launch
+// floats of the partial-dh exchange the caller allocates for a K3 launch
 // at B, H on the current device: [2 parities][2 directions][B][nb][nb][hs]
 // (hs hidden units per block, nb blocks per direction); -1 on error
 int bilstm_bwd_exchange_floats(int B, int H) {
@@ -348,14 +907,21 @@ int bilstm_bwd_exchange_floats(int B, int H) {
   return n > 0x7fffffffLL ? -1 : (int)n;
 }
 
-// part: the partial-dh exchange, bilstm_bwd_exchange_floats(B, H) f32
+// the most batch rows one K3 launch takes at H units on the current
+// device (0: not one), or a negative CUDA error code; nothing is launched
+int bilstm_bwd_max_rows_f32(int H) { return max_rows_of<float>(H); }
+int bilstm_bwd_max_rows_bf16(int H) {
+  return max_rows_of<__nv_bfloat16>(H);
+}
+
+// K3.  part: the partial-dh exchange, bilstm_bwd_exchange_floats(B, H) f32
 int bilstm_bwd_f32(const void* dyf, const void* dyb, const void* xp,
                    const void* yf, const void* cf, const void* yb,
                    const void* cb, const void* whf, const void* whb,
                    const void* lens, void* dgf, void* dgb, void* part,
                    int steps, int B, int H, void* stream) {
-  return launch<float>(dyf, dyb, xp, yf, cf, yb, cb, nullptr, nullptr, whf,
-                       whb, lens, dgf, dgb, part, steps, B, 0, H, stream);
+  return launch<float>(dyf, dyb, xp, yf, cf, yb, cb, whf, whb, lens, dgf,
+                       dgb, part, steps, B, H, stream);
 }
 
 int bilstm_bwd_bf16(const void* dyf, const void* dyb, const void* xp,
@@ -363,32 +929,90 @@ int bilstm_bwd_bf16(const void* dyf, const void* dyb, const void* xp,
                     const void* cb, const void* whf, const void* whb,
                     const void* lens, void* dgf, void* dgb, void* part,
                     int steps, int B, int H, void* stream) {
-  return launch<__nv_bfloat16>(dyf, dyb, xp, yf, cf, yb, cb, nullptr,
-                               nullptr, whf, whb, lens, dgf, dgb, part,
-                               steps, B, 0, H, stream);
+  return launch<__nv_bfloat16>(dyf, dyb, xp, yf, cf, yb, cb, whf, whb, lens,
+                               dgf, dgb, part, steps, B, H, stream);
 }
 
-// K10b: x [T, B, D] and wx [D, 8H] in the compute dtype, bias [8H] f32;
-// part as above
-int bilstm_proj_bwd_f32(const void* dyf, const void* dyb, const void* x,
-                        const void* yf, const void* cf, const void* yb,
-                        const void* cb, const void* wx, const void* bias,
-                        const void* whf, const void* whb, const void* lens,
-                        void* dgf, void* dgb, void* part, int steps, int B,
-                        int D, int H, void* stream) {
-  return launch<float>(dyf, dyb, x, yf, cf, yb, cb, wx, bias, whf, whb, lens,
-                       dgf, dgb, part, steps, B, D, H, stream);
+// the opt-in shared memory of one block on the current device, in bytes
+// (K10b's plan sizes its clusters by it), or a negative CUDA error code
+int bilstm_proj_bwd_smem_optin(void) {
+  int dev = 0, optin = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&optin,
+                               cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  return e == cudaSuccess ? optin : -static_cast<int>(e);
 }
 
-int bilstm_proj_bwd_bf16(const void* dyf, const void* dyb, const void* x,
-                         const void* yf, const void* cf, const void* yb,
-                         const void* cb, const void* wx, const void* bias,
-                         const void* whf, const void* whb, const void* lens,
-                         void* dgf, void* dgb, void* part, int steps, int B,
-                         int D, int H, void* stream) {
-  return launch<__nv_bfloat16>(dyf, dyb, x, yf, cf, yb, cb, wx, bias, whf,
-                               whb, lens, dgf, dgb, part, steps, B, D, H,
-                               stream);
+// K10b phase 1 over walk steps s0 .. s0+S-1 of `steps`: x [T, B, D], y_f,
+// y_b [T, B, H], wx [D, 8H], w_h_f, w_h_b [H, 4H] in the compute dtype,
+// bias [8H] f32 -> pre [S, B, 8H] f32 (row i holds step s0+i: the
+// forward direction's gates at t = T-1-s, the backward's at t = s);
+// `cols` gate columns per block (at most 32)
+int bilstm_proj_gates_f32(const void* x, const void* yf, const void* yb,
+                          const void* wx, const void* bias, const void* whf,
+                          const void* whb, void* pre, int s0, int S,
+                          int steps, int B, int D, int H, int cols,
+                          void* stream) {
+  return gates_launch<float>(x, yf, yb, wx, bias, whf, whb, pre, s0, S,
+                             steps, B, D, H, cols, stream);
+}
+
+int bilstm_proj_gates_bf16(const void* x, const void* yf, const void* yb,
+                           const void* wx, const void* bias, const void* whf,
+                           const void* whb, void* pre, int s0, int S,
+                           int steps, int B, int D, int H, int cols,
+                           void* stream) {
+  return gates_launch<__nv_bfloat16>(x, yf, yb, wx, bias, whf, whb, pre, s0,
+                                     S, steps, B, D, H, cols, stream);
+}
+
+// the same with the tiled kernel (64 columns a block, tiles of 64 rows,
+// D + H up to gates_tiled_smem's fit): the same sums, bit for bit
+int bilstm_proj_gates_tiled_f32(const void* x, const void* yf,
+                                const void* yb, const void* wx,
+                                const void* bias, const void* whf,
+                                const void* whb, void* pre, int s0, int S,
+                                int steps, int B, int D, int H,
+                                void* stream) {
+  return gates_tiled_launch<float>(x, yf, yb, wx, bias, whf, whb, pre, s0,
+                                   S, steps, B, D, H, stream);
+}
+
+int bilstm_proj_gates_tiled_bf16(const void* x, const void* yf,
+                                 const void* yb, const void* wx,
+                                 const void* bias, const void* whf,
+                                 const void* whb, void* pre, int s0, int S,
+                                 int steps, int B, int D, int H,
+                                 void* stream) {
+  return gates_tiled_launch<__nv_bfloat16>(x, yf, yb, wx, bias, whf, whb,
+                                           pre, s0, S, steps, B, D, H,
+                                           stream);
+}
+
+// K10b phase 2 over the same steps: dy_f, dy_b [T, B, H] and w_h_f, w_h_b
+// in the compute dtype, c_f, c_b [T, B, H] f32, lens [B] int32, pre from
+// phase 1 -> dg_f, dg_b [T, B, 4H] at those steps' frames; state [2][2][B]
+// [H] f32 holds dh and dc (per direction) on entry and, unless the walk
+// ends here, on exit.  C CTAs per cluster (a power of two <= 16), R rows
+// per cluster.
+int bilstm_proj_chain_f32(const void* dyf, const void* dyb, const void* cf,
+                          const void* cb, const void* whf, const void* whb,
+                          const void* lens, const void* pre, void* dgf,
+                          void* dgb, void* state, int s0, int S, int steps,
+                          int B, int H, int C, int R, void* stream) {
+  return chain_launch<float>(dyf, dyb, cf, cb, whf, whb, lens, pre, dgf, dgb,
+                             state, s0, S, steps, B, H, C, R, stream);
+}
+
+int bilstm_proj_chain_bf16(const void* dyf, const void* dyb, const void* cf,
+                           const void* cb, const void* whf, const void* whb,
+                           const void* lens, const void* pre, void* dgf,
+                           void* dgb, void* state, int s0, int S, int steps,
+                           int B, int H, int C, int R, void* stream) {
+  return chain_launch<__nv_bfloat16>(dyf, dyb, cf, cb, whf, whb, lens, pre,
+                                     dgf, dgb, state, s0, S, steps, B, H, C,
+                                     R, stream);
 }
 
 const char* kctpu_error_string(int err) {

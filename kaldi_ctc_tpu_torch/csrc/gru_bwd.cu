@@ -46,12 +46,17 @@
 // each block sums the nb partials of its own units (ld.global.cg) in a
 // fixed order and adds dh_total * z, so the sums stay f32 and
 // deterministic.  The next step's gate recompute needs no exchange (y is
-// in device memory) and runs before the barrier.
+// in device memory) and runs before the barrier.  Every row's y, sums and
+// dgh stay in shared memory, so a launch takes at most gru_bwd_max_rows(H)
+// rows (~160 at H = 320; bigru_bwd_max_rows ~148); the wrapper runs a
+// larger batch as row slices.
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "row_ceiling.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -249,6 +254,47 @@ int units_per_block(int dirs, int H, int sms) {
   return (dirs * H + sms - 1) / sms;
 }
 
+// The launch's geometry at B rows of `dirs` directions: hs hidden units
+// per block, nb blocks per direction and the shared memory in bytes;
+// refuses rows that do not fit one block and a grid that is not
+// co-resident.  The launch and the *_max_rows queries share it.
+template <typename T>
+cudaError_t plan(int dirs, int B, int H, int* hs, int* nb, size_t* smem) {
+  int dev = 0, sms = 0, coop = 0, optin = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
+  cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                         dev);
+  if (!coop) return cudaErrorNotSupported;
+  *hs = units_per_block(dirs, H, sms);
+  *nb = (H + *hs - 1) / *hs;
+  *smem = sizeof(float) * ((size_t)3 * *hs * H + (size_t)B * H +
+                           (size_t)2 * B * 3 * *hs + (size_t)2 * B * *hs);
+  if (*smem > (size_t)optin) return cudaErrorLaunchOutOfResources;
+  auto kern = dirs == 2 ? &bigru_bwd_kernel<T> : &gru_bwd_kernel<T>;
+  e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           (int)*smem);
+  if (e != cudaSuccess) return e;
+  int per_sm = 0;
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, kThreads,
+                                                    *smem);
+  if (e != cudaSuccess) return e;
+  return per_sm * sms < dirs * *nb ? cudaErrorCooperativeLaunchTooLarge
+                                   : cudaSuccess;
+}
+
+template <typename T>
+int max_rows_of(int dirs, int H) {
+  if (H <= 0) return -static_cast<int>(cudaErrorInvalidValue);
+  return max_rows([dirs, H](int B) {
+    int hs = 0, nb = 0;
+    size_t smem = 0;
+    return plan<T>(dirs, B, H, &hs, &nb, &smem);
+  });
+}
+
 template <typename T>
 int launch(bool bidirectional, const void* dy0, const void* dy1,
            const void* xp, const void* y0, const void* y1, const void* wh0,
@@ -256,27 +302,12 @@ int launch(bool bidirectional, const void* dy0, const void* dy1,
            void* dgx1, void* dgh1, void* part, int steps, int B, int H,
            int reverse, void* stream) {
   if (steps <= 0 || B <= 0) return cudaGetLastError();
-  int dev = 0, sms = 0, coop = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e != cudaSuccess) return e;
-  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
-  if (!coop) return cudaErrorNotSupported;
   const int dirs = bidirectional ? 2 : 1;
-  const int hs = units_per_block(dirs, H, sms);
-  const int nb = (H + hs - 1) / hs;
-  const size_t smem = sizeof(float) * ((size_t)3 * hs * H + (size_t)B * H +
-                                       (size_t)2 * B * 3 * hs +
-                                       (size_t)2 * B * hs);
+  int hs = 0, nb = 0;
+  size_t smem = 0;
+  cudaError_t e = plan<T>(dirs, B, H, &hs, &nb, &smem);
+  if (e != cudaSuccess) return e;
   auto kern = bidirectional ? &bigru_bwd_kernel<T> : &gru_bwd_kernel<T>;
-  e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           (int)smem);
-  if (e != cudaSuccess) return e;
-  int per_sm = 0;
-  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, kThreads,
-                                                    smem);
-  if (e != cudaSuccess) return e;
-  if (per_sm * sms < dirs * nb) return cudaErrorCooperativeLaunchTooLarge;
 
   const T* a_dy0 = static_cast<const T*>(dy0);
   const T* a_dy1 = static_cast<const T*>(dy1);
@@ -305,6 +336,18 @@ int launch(bool bidirectional, const void* dy0, const void* dy1,
 }  // namespace
 
 extern "C" {
+
+// the most batch rows one launch of K9b (gru_*) or K8b (bigru_*) takes at
+// H units on the current device (0: not one), or a negative CUDA error
+// code; nothing is launched
+int gru_bwd_max_rows_f32(int H) { return max_rows_of<float>(1, H); }
+int gru_bwd_max_rows_bf16(int H) {
+  return max_rows_of<__nv_bfloat16>(1, H);
+}
+int bigru_bwd_max_rows_f32(int H) { return max_rows_of<float>(2, H); }
+int bigru_bwd_max_rows_bf16(int H) {
+  return max_rows_of<__nv_bfloat16>(2, H);
+}
 
 // floats of the partial-dh exchange the caller allocates for a launch of
 // `dirs` directions at B, H on the current device:

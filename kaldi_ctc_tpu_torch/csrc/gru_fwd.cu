@@ -37,12 +37,17 @@
 // one grid.sync() per step: step s reads parity s&1 and writes parity
 // (s+1)&1.  hs = ceil(dirs * H / SMs) puts the grid in one wave (107
 // blocks of 3 units at H = 320 for one direction, 128 blocks of 5 for
-// two); the host checks co-residency before launching.
+// two); the host checks co-residency before launching.  Every row's h
+// stays in shared memory, so a launch takes at most gru_fwd_max_rows(H)
+// rows (~167 at H = 320; bigru_fwd_max_rows ~159); the wrapper runs a
+// larger batch as row slices.
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "row_ceiling.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -159,32 +164,59 @@ bigru_fwd_kernel(const T* __restrict__ xp, const T* __restrict__ wh0,
                      reverse);
 }
 
+// The launch's geometry at B rows of `dirs` directions: hs hidden units
+// per block (every direction's blocks in one wave), nb blocks per
+// direction and the shared memory in bytes; refuses rows that do not fit
+// one block and a grid that is not co-resident.  The launch and the
+// *_max_rows queries share it.
+template <typename T>
+cudaError_t plan(int dirs, int B, int H, int* hs, int* nb, size_t* smem) {
+  int dev = 0, sms = 0, coop = 0, optin = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
+  cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                         dev);
+  if (!coop) return cudaErrorNotSupported;
+  *hs = (dirs * H + sms - 1) / sms;
+  *nb = (H + *hs - 1) / *hs;
+  *smem = sizeof(float) * ((size_t)3 * *hs * H + (size_t)B * H +
+                           (size_t)B * 3 * *hs);
+  if (*smem > (size_t)optin) return cudaErrorLaunchOutOfResources;
+  auto kern = dirs == 2 ? &bigru_fwd_kernel<T> : &gru_fwd_kernel<T>;
+  e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           (int)*smem);
+  if (e != cudaSuccess) return e;
+  int per_sm = 0;
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, kThreads,
+                                                    *smem);
+  if (e != cudaSuccess) return e;
+  return per_sm * sms < dirs * *nb ? cudaErrorCooperativeLaunchTooLarge
+                                   : cudaSuccess;
+}
+
+template <typename T>
+int max_rows_of(int dirs, int H) {
+  if (H <= 0) return -static_cast<int>(cudaErrorInvalidValue);
+  return max_rows([dirs, H](int B) {
+    int hs = 0, nb = 0;
+    size_t smem = 0;
+    return plan<T>(dirs, B, H, &hs, &nb, &smem);
+  });
+}
+
 template <typename T>
 int launch(bool bidirectional, const void* xp, const void* wh0,
            const void* wh1, const void* lens, void* y0, void* y1,
            void* hbuf, int steps, int B, int H, int reverse, void* stream) {
   if (steps <= 0 || B <= 0) return cudaGetLastError();
-  int dev = 0, sms = 0, coop = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e != cudaSuccess) return e;
-  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
-  if (!coop) return cudaErrorNotSupported;
   const int dirs = bidirectional ? 2 : 1;
-  // hidden units per block: every direction's blocks in one wave
-  const int hs = (dirs * H + sms - 1) / sms;
-  const int nb = (H + hs - 1) / hs;
-  const size_t smem = sizeof(float) * ((size_t)3 * hs * H + (size_t)B * H +
-                                       (size_t)B * 3 * hs);
+  int hs = 0, nb = 0;
+  size_t smem = 0;
+  cudaError_t e = plan<T>(dirs, B, H, &hs, &nb, &smem);
+  if (e != cudaSuccess) return e;
   auto kern = bidirectional ? &bigru_fwd_kernel<T> : &gru_fwd_kernel<T>;
-  e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           (int)smem);
-  if (e != cudaSuccess) return e;
-  int per_sm = 0;
-  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, kThreads,
-                                                    smem);
-  if (e != cudaSuccess) return e;
-  if (per_sm * sms < dirs * nb) return cudaErrorCooperativeLaunchTooLarge;
 
   const T* a_xp = static_cast<const T*>(xp);
   const T* a_wh0 = static_cast<const T*>(wh0);
@@ -206,6 +238,18 @@ int launch(bool bidirectional, const void* xp, const void* wh0,
 }  // namespace
 
 extern "C" {
+
+// the most batch rows one launch of K9a (gru_*) or K8a (bigru_*) takes at
+// H units on the current device (0: not one), or a negative CUDA error
+// code; nothing is launched
+int gru_fwd_max_rows_f32(int H) { return max_rows_of<float>(1, H); }
+int gru_fwd_max_rows_bf16(int H) {
+  return max_rows_of<__nv_bfloat16>(1, H);
+}
+int bigru_fwd_max_rows_f32(int H) { return max_rows_of<float>(2, H); }
+int bigru_fwd_max_rows_bf16(int H) {
+  return max_rows_of<__nv_bfloat16>(2, H);
+}
 
 // K9a.  hbuf: [2 parities][B][H] f32, parity 0 zeroed by the caller
 int gru_fwd_f32(const void* xp, const void* wh, const void* lens, void* y,

@@ -42,12 +42,16 @@
 // each block sums the nb partials of its own units (ld.global.cg) in a
 // fixed order, so the sums stay f32 and deterministic.  The next step's
 // gate recompute needs no exchange (y is in device memory) and runs
-// before the barrier.
+// before the barrier.  Every row's y, gate sums and dgates stay in shared
+// memory, so a launch takes at most lstm_bwd_max_rows(H) rows (~155 at
+// H = 320); the wrapper runs a larger batch as row slices.
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "row_ceiling.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -209,31 +213,56 @@ lstm_bwd_kernel(const T* __restrict__ dy, const T* __restrict__ xp,
 // hidden units per block: the grid in one wave of the SMs
 int units_per_block(int H, int sms) { return (H + sms - 1) / sms; }
 
+// The launch's geometry at B rows: hs hidden units per block, nb blocks
+// and the shared memory in bytes; refuses rows that do not fit one block
+// and a grid that is not co-resident.  The launch and lstm_bwd_max_rows
+// share it.
+template <typename T>
+cudaError_t plan(int B, int H, int* hs, int* nb, size_t* smem) {
+  int dev = 0, sms = 0, coop = 0, optin = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
+  cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                         dev);
+  if (!coop) return cudaErrorNotSupported;
+  *hs = units_per_block(H, sms);
+  *nb = (H + *hs - 1) / *hs;
+  *smem = sizeof(float) * ((size_t)4 * *hs * H + (size_t)B * H +
+                           (size_t)2 * B * 4 * *hs + (size_t)2 * B * *hs);
+  if (*smem > (size_t)optin) return cudaErrorLaunchOutOfResources;
+  auto kern = lstm_bwd_kernel<T>;
+  e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           (int)*smem);
+  if (e != cudaSuccess) return e;
+  int per_sm = 0;
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, kThreads,
+                                                    *smem);
+  if (e != cudaSuccess) return e;
+  return per_sm * sms < *nb ? cudaErrorCooperativeLaunchTooLarge
+                            : cudaSuccess;
+}
+
+template <typename T>
+int max_rows_of(int H) {
+  if (H <= 0) return -static_cast<int>(cudaErrorInvalidValue);
+  return max_rows([H](int B) {
+    int hs = 0, nb = 0;
+    size_t smem = 0;
+    return plan<T>(B, H, &hs, &nb, &smem);
+  });
+}
+
 template <typename T>
 int launch(const void* dy, const void* xp, const void* y, const void* cst,
            const void* wh, const void* lens, void* dg, void* part, int steps,
            int B, int H, int reverse, void* stream) {
   if (steps <= 0 || B <= 0) return cudaGetLastError();
-  int dev = 0, sms = 0, coop = 0;
-  cudaError_t e = cudaGetDevice(&dev);
+  int hs = 0, nb = 0;
+  size_t smem = 0;
+  cudaError_t e = plan<T>(B, H, &hs, &nb, &smem);
   if (e != cudaSuccess) return e;
-  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
-  if (!coop) return cudaErrorNotSupported;
-  const int hs = units_per_block(H, sms);
-  const int nb = (H + hs - 1) / hs;
-  const size_t smem = sizeof(float) * ((size_t)4 * hs * H + (size_t)B * H +
-                                       (size_t)2 * B * 4 * hs +
-                                       (size_t)2 * B * hs);
-  auto kern = lstm_bwd_kernel<T>;
-  e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           (int)smem);
-  if (e != cudaSuccess) return e;
-  int per_sm = 0;
-  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, kThreads,
-                                                    smem);
-  if (e != cudaSuccess) return e;
-  if (per_sm * sms < nb) return cudaErrorCooperativeLaunchTooLarge;
 
   const T* a_dy = static_cast<const T*>(dy);
   const T* a_xp = static_cast<const T*>(xp);
@@ -246,8 +275,9 @@ int launch(const void* dy, const void* xp, const void* y, const void* cst,
   int a_steps = steps, a_b = B, a_hd = H, a_hs = hs, a_rev = reverse;
   void* args[] = {&a_dy,   &a_xp,    &a_y, &a_c,  &a_wh, &a_lens, &a_dg,
                   &a_part, &a_steps, &a_b, &a_hd, &a_hs, &a_rev};
-  e = cudaLaunchCooperativeKernel((void*)kern, dim3(nb), dim3(kThreads), args,
-                                  smem, static_cast<cudaStream_t>(stream));
+  e = cudaLaunchCooperativeKernel((void*)lstm_bwd_kernel<T>, dim3(nb),
+                                  dim3(kThreads), args, smem,
+                                  static_cast<cudaStream_t>(stream));
   if (e != cudaSuccess) return e;
   return cudaGetLastError();
 }
@@ -255,6 +285,11 @@ int launch(const void* dy, const void* xp, const void* y, const void* cst,
 }  // namespace
 
 extern "C" {
+
+// the most batch rows one launch takes at H units on the current device
+// (0: not one), or a negative CUDA error code; nothing is launched
+int lstm_bwd_max_rows_f32(int H) { return max_rows_of<float>(H); }
+int lstm_bwd_max_rows_bf16(int H) { return max_rows_of<__nv_bfloat16>(H); }
 
 // floats of the partial-dh exchange the caller allocates for a launch at
 // B, H on the current device: [2 parities][B][nb][nb][hs] (hs hidden

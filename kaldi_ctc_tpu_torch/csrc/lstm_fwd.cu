@@ -30,12 +30,16 @@
 // and the grid meets at one grid.sync() per step: step s reads parity
 // s&1 and writes parity (s+1)&1.  hs = ceil(H / SMs) puts the grid in one
 // wave (107 blocks of 3 units at H = 320); the host checks co-residency
-// before launching and refuses a grid that cannot be.
+// before launching and refuses a grid that cannot be.  Every row's h
+// stays in shared memory, so a launch takes at most lstm_fwd_max_rows(H)
+// rows (~162 at H = 320); the wrapper runs a larger batch as row slices.
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "row_ceiling.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -131,30 +135,56 @@ lstm_fwd_kernel(const T* __restrict__ xp, const T* __restrict__ wh,
   }
 }
 
+// The launch's geometry at B rows: hs hidden units per block (the grid in
+// one wave of the SMs), nb blocks and the shared memory in bytes; refuses
+// rows that do not fit one block and a grid that is not co-resident.
+// The launch and lstm_fwd_max_rows share it.
+template <typename T>
+cudaError_t plan(int B, int H, int* hs, int* nb, size_t* smem) {
+  int dev = 0, sms = 0, coop = 0, optin = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
+  cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                         dev);
+  if (!coop) return cudaErrorNotSupported;
+  *hs = (H + sms - 1) / sms;
+  *nb = (H + *hs - 1) / *hs;
+  *smem = sizeof(float) * ((size_t)4 * *hs * H + (size_t)B * H +
+                           (size_t)B * 4 * *hs + (size_t)B * *hs);
+  if (*smem > (size_t)optin) return cudaErrorLaunchOutOfResources;
+  auto kern = lstm_fwd_kernel<T>;
+  e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           (int)*smem);
+  if (e != cudaSuccess) return e;
+  int per_sm = 0;
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, kThreads,
+                                                    *smem);
+  if (e != cudaSuccess) return e;
+  return per_sm * sms < *nb ? cudaErrorCooperativeLaunchTooLarge
+                            : cudaSuccess;
+}
+
+template <typename T>
+int max_rows_of(int H) {
+  if (H <= 0) return -static_cast<int>(cudaErrorInvalidValue);
+  return max_rows([H](int B) {
+    int hs = 0, nb = 0;
+    size_t smem = 0;
+    return plan<T>(B, H, &hs, &nb, &smem);
+  });
+}
+
 template <typename T>
 int launch(const void* xp, const void* wh, const void* lens, void* y,
            void* cst, void* hbuf, int steps, int B, int H, int reverse,
            void* stream) {
   if (steps <= 0 || B <= 0) return cudaGetLastError();
-  int dev = 0, sms = 0, coop = 0;
-  cudaError_t e = cudaGetDevice(&dev);
+  int hs = 0, nb = 0;
+  size_t smem = 0;
+  cudaError_t e = plan<T>(B, H, &hs, &nb, &smem);
   if (e != cudaSuccess) return e;
-  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
-  if (!coop) return cudaErrorNotSupported;
-  const int hs = (H + sms - 1) / sms;   // hidden units per block: one wave
-  const int nb = (H + hs - 1) / hs;
-  const size_t smem = sizeof(float) * ((size_t)4 * hs * H + (size_t)B * H +
-                                       (size_t)B * 4 * hs + (size_t)B * hs);
-  auto kern = lstm_fwd_kernel<T>;
-  e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           (int)smem);
-  if (e != cudaSuccess) return e;
-  int per_sm = 0;
-  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, kThreads,
-                                                    smem);
-  if (e != cudaSuccess) return e;
-  if (per_sm * sms < nb) return cudaErrorCooperativeLaunchTooLarge;
 
   const T* a_xp = static_cast<const T*>(xp);
   const T* a_wh = static_cast<const T*>(wh);
@@ -165,8 +195,9 @@ int launch(const void* xp, const void* wh, const void* lens, void* y,
   int a_steps = steps, a_b = B, a_hd = H, a_hs = hs, a_rev = reverse;
   void* args[] = {&a_xp, &a_wh,    &a_lens, &a_y,  &a_c, &a_h,
                   &a_steps, &a_b, &a_hd,  &a_hs, &a_rev};
-  e = cudaLaunchCooperativeKernel((void*)kern, dim3(nb), dim3(kThreads), args,
-                                  smem, static_cast<cudaStream_t>(stream));
+  e = cudaLaunchCooperativeKernel((void*)lstm_fwd_kernel<T>, dim3(nb),
+                                  dim3(kThreads), args, smem,
+                                  static_cast<cudaStream_t>(stream));
   if (e != cudaSuccess) return e;
   return cudaGetLastError();
 }
@@ -174,6 +205,11 @@ int launch(const void* xp, const void* wh, const void* lens, void* y,
 }  // namespace
 
 extern "C" {
+
+// the most batch rows one launch takes at H units on the current device
+// (0: not one), or a negative CUDA error code; nothing is launched
+int lstm_fwd_max_rows_f32(int H) { return max_rows_of<float>(H); }
+int lstm_fwd_max_rows_bf16(int H) { return max_rows_of<__nv_bfloat16>(H); }
 
 // hbuf: [2 parities][B][H] f32, parity 0 zeroed by the caller
 int lstm_fwd_f32(const void* xp, const void* wh, const void* lens, void* y,

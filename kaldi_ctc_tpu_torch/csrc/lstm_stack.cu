@@ -37,13 +37,18 @@
 // copies its units' h forward.  Step s reads parity s&1 and writes parity
 // (s+1)&1, so one grid.sync() per step keeps the wavefront in order: the
 // layer above reads last step's output while this step's is written to
-// the other buffer.  The host decides from shapes, before any launch,
-// whether the grid fits (lstm_stack_fits).
+// the other buffer.  Every row stays in shared memory, so a launch takes
+// at most lstm_stack_max_rows(L, H) rows, decided from shapes before any
+// launch: the streaming server runs the whole stack in one launch up to
+// that many slots (32 at 5 x 320), the per-layer route above it, and the
+// wrapper runs a larger batch as row slices (above 162 slots at H = 320).
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "row_ceiling.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -262,17 +267,13 @@ cudaError_t prepare(int L, int B, int H, int* hs_out, int* blocks_out,
 }
 
 template <typename T>
-int fits(int L, int B, int H) {
-  int hs = 0, blocks = 0;
-  size_t smem = 0;
-  const cudaError_t e = prepare<T>(L, B, H, &hs, &blocks, &smem);
-  if (e == cudaSuccess) return 1;
-  if (e == cudaErrorCooperativeLaunchTooLarge ||
-      e == cudaErrorInvalidValue) {
-    cudaGetLastError();   // clear a refused attribute, nothing launched
-    return 0;
-  }
-  return -(int)e;
+int max_rows_of(int L, int H) {
+  if (L < 1 || L > kMaxLayers || H <= 0) return 0;   // no grid at all
+  return max_rows([L, H](int B) {
+    int hs = 0, blocks = 0;
+    size_t smem = 0;
+    return prepare<T>(L, B, H, &hs, &blocks, &smem);
+  });
 }
 
 template <typename T>
@@ -313,12 +314,13 @@ int launch(const void* xp0, const void* const* wh, const void* const* wx,
 
 extern "C" {
 
-// whether a launch at L layers, B rows, H units fits the current device
-// (shared memory and co-residency of the cooperative grid): 1 yes, 0 no,
-// a negative CUDA error code otherwise.  Nothing is launched.
-int lstm_stack_fits_f32(int L, int B, int H) { return fits<float>(L, B, H); }
-int lstm_stack_fits_bf16(int L, int B, int H) {
-  return fits<__nv_bfloat16>(L, B, H);
+// the most batch rows one launch takes at L layers, H units on the
+// current device (shared memory and co-residency of the cooperative
+// grid; 0: not one, or L or H out of range), or a negative CUDA error
+// code; nothing is launched
+int lstm_stack_max_rows_f32(int L, int H) { return max_rows_of<float>(L, H); }
+int lstm_stack_max_rows_bf16(int L, int H) {
+  return max_rows_of<__nv_bfloat16>(L, H);
 }
 
 // wh: L device pointers, wx and b: L-1 device pointers (host arrays);

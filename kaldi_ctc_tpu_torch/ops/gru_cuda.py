@@ -35,7 +35,8 @@ from kaldi_ctc_tpu_torch.ops.rnn import (COMPUTE_DTYPES, _gru_gates, _valid,
                                          matmul_f32acc)
 from kaldi_ctc_tpu_torch.ops.rnn_cuda import (_I, _P, _SUFFIX, _check_lens,
                                               _check_tensors, _check_x_proj,
-                                              _dw_h)
+                                              _dw_h, max_rows,
+                                              run_in_row_slices)
 
 __all__ = ["gru_seq_fwd", "gru_seq_fwd_reference", "gru_seq_bwd_dgates",
            "gru_seq_bwd_dgates_reference", "gru_sequence", "bigru_seq_fwd",
@@ -51,6 +52,11 @@ _BWD_SIGNATURES = {"gru_bwd_f32": [_P] * 8 + [_I] * 4 + [_P],
                    "bigru_bwd_f32": [_P] * 13 + [_I] * 3 + [_P],
                    "bigru_bwd_bf16": [_P] * 13 + [_I] * 3 + [_P],
                    "gru_bwd_exchange_floats": [_I] * 3}
+# each source's batch-ceiling queries, one per kernel and dtype
+_FWD_SIGNATURES.update({f"{k}_fwd_max_rows_{sfx}": [_I]
+                        for k in ("gru", "bigru") for sfx in _SUFFIX.values()})
+_BWD_SIGNATURES.update({f"{k}_bwd_max_rows_{sfx}": [_I]
+                        for k in ("gru", "bigru") for sfx in _SUFFIX.values()})
 
 Pair = Tuple[torch.Tensor, torch.Tensor]
 
@@ -152,17 +158,27 @@ def gru_seq_fwd(x_proj: torch.Tensor, w_h: torch.Tensor, lens: torch.Tensor,
         "x_proj": (x_proj, x_proj.dtype, (t_max, b, g3)),
         "w_h": (w_h, x_proj.dtype, (h, g3))})
     _check_lens("gru_seq_fwd", lens, b, dev)
-    y = torch.empty((t_max, b, h), dtype=x_proj.dtype, device=dev)
     if t_max == 0 or b == 0:
-        return y
-    # h exchange between blocks: [parity][B][H], parity 0 = h0
-    hbuf = torch.zeros((2, b, h), dtype=torch.float32, device=dev)
-    lens32 = lens.to(torch.int32).contiguous()
+        return torch.empty((t_max, b, h), dtype=x_proj.dtype, device=dev)
     lib = _kernels.load("gru_fwd", _FWD_SIGNATURES)
-    err = getattr(lib, "gru_fwd_" + _SUFFIX[x_proj.dtype])(
-        x_proj.data_ptr(), w_h.data_ptr(), lens32.data_ptr(), y.data_ptr(),
-        hbuf.data_ptr(), t_max, b, h, int(reverse), _kernels.stream_ptr(dev))
-    _kernels.check(lib, err, "gru_seq_fwd")
+    sfx = _SUFFIX[x_proj.dtype]
+
+    def launch(x_proj, lens):
+        n = x_proj.shape[1]
+        y = torch.empty((t_max, n, h), dtype=x_proj.dtype, device=dev)
+        # h exchange between blocks: [parity][B][H], parity 0 = h0
+        hbuf = torch.zeros((2, n, h), dtype=torch.float32, device=dev)
+        lens32 = lens.to(torch.int32).contiguous()
+        err = getattr(lib, "gru_fwd_" + sfx)(
+            x_proj.data_ptr(), w_h.data_ptr(), lens32.data_ptr(),
+            y.data_ptr(), hbuf.data_ptr(), t_max, n, h, int(reverse),
+            _kernels.stream_ptr(dev))
+        _kernels.check(lib, err, "gru_seq_fwd")
+        return (y,)
+
+    y, = run_in_row_slices(
+        launch, max_rows(lib, "gru_fwd_max_rows_" + sfx, dev, h), x_proj,
+        lens)
     gru_seq_fwd.launches += 1
     return y
 
@@ -200,20 +216,30 @@ def gru_seq_bwd_dgates(dy: torch.Tensor, x_proj: torch.Tensor,
         "dy": (dy, cdt, (t_max, b, h)), "y": (y, cdt, (t_max, b, h)),
         "x_proj": (x_proj, cdt, (t_max, b, g3)), "w_h": (w_h, cdt, (h, g3))})
     _check_lens("gru_seq_bwd_dgates", lens, b, dev)
-    dgx = torch.empty((t_max, b, g3), dtype=cdt, device=dev)
-    dgh = torch.empty_like(dgx)
     if t_max == 0 or b == 0:
-        return dgx, dgh
+        return tuple(torch.empty((t_max, b, g3), dtype=cdt, device=dev)
+                     for _ in range(2))
     lib = _kernels.load("gru_bwd", _BWD_SIGNATURES)
-    part = _exchange(lib, 1, b, h, dev, "gru_seq_bwd_dgates")
-    lens32 = lens.to(torch.int32).contiguous()
-    err = getattr(lib, "gru_bwd_" + _SUFFIX[cdt])(
-        dy.data_ptr(), x_proj.data_ptr(), y.data_ptr(), w_h.data_ptr(),
-        lens32.data_ptr(), dgx.data_ptr(), dgh.data_ptr(), part.data_ptr(),
-        t_max, b, h, int(reverse), _kernels.stream_ptr(dev))
-    _kernels.check(lib, err, "gru_seq_bwd_dgates")
+
+    def launch(dy, x_proj, y, lens):
+        n = x_proj.shape[1]
+        dgx = torch.empty((t_max, n, g3), dtype=cdt, device=dev)
+        dgh = torch.empty_like(dgx)
+        part = _exchange(lib, 1, n, h, dev, "gru_seq_bwd_dgates")
+        lens32 = lens.to(torch.int32).contiguous()
+        err = getattr(lib, "gru_bwd_" + _SUFFIX[cdt])(
+            dy.data_ptr(), x_proj.data_ptr(), y.data_ptr(), w_h.data_ptr(),
+            lens32.data_ptr(), dgx.data_ptr(), dgh.data_ptr(),
+            part.data_ptr(), t_max, n, h, int(reverse),
+            _kernels.stream_ptr(dev))
+        _kernels.check(lib, err, "gru_seq_bwd_dgates")
+        return dgx, dgh
+
+    out = run_in_row_slices(
+        launch, max_rows(lib, "gru_bwd_max_rows_" + _SUFFIX[cdt], dev, h),
+        dy, x_proj, y, lens)
     gru_seq_bwd_dgates.launches += 1
-    return dgx, dgh
+    return out
 
 
 gru_seq_bwd_dgates.launches = 0  # kernel launches made by this wrapper
@@ -293,21 +319,32 @@ def bigru_seq_fwd(xp: torch.Tensor, w_h_f: torch.Tensor, w_h_b: torch.Tensor,
         "w_h_f": (w_h_f, xp.dtype, (h, 3 * h)),
         "w_h_b": (w_h_b, xp.dtype, (h, 3 * h))})
     _check_lens("bigru_seq_fwd", lens, b, dev)
-    y_f = torch.empty((t_max, b, h), dtype=y_dtype, device=dev)
-    y_b = torch.empty_like(y_f)
     if t_max == 0 or b == 0:
-        return y_f, y_b
-    # h exchange between blocks: [parity][direction][B][H], parity 0 = h0
-    hbuf = torch.zeros((2, 2, b, h), dtype=torch.float32, device=dev)
-    lens32 = lens.to(torch.int32).contiguous()
+        return tuple(torch.empty((t_max, b, h), dtype=y_dtype, device=dev)
+                     for _ in range(2))
     lib = _kernels.load("gru_fwd", _FWD_SIGNATURES)
-    err = getattr(lib, "bigru_fwd_" + _SUFFIX[xp.dtype])(
-        xp.data_ptr(), w_h_f.data_ptr(), w_h_b.data_ptr(), lens32.data_ptr(),
-        y_f.data_ptr(), y_b.data_ptr(), hbuf.data_ptr(), t_max, b, h,
-        _kernels.stream_ptr(dev))
-    _kernels.check(lib, err, "bigru_seq_fwd")
+    sfx = _SUFFIX[xp.dtype]
+
+    def launch(xp, lens):
+        n = xp.shape[1]
+        y_f = torch.empty((t_max, n, h), dtype=y_dtype, device=dev)
+        y_b = torch.empty_like(y_f)
+        # h exchange between blocks: [parity][direction][B][H], parity 0
+        # = h0
+        hbuf = torch.zeros((2, 2, n, h), dtype=torch.float32, device=dev)
+        lens32 = lens.to(torch.int32).contiguous()
+        err = getattr(lib, "bigru_fwd_" + sfx)(
+            xp.data_ptr(), w_h_f.data_ptr(), w_h_b.data_ptr(),
+            lens32.data_ptr(), y_f.data_ptr(), y_b.data_ptr(),
+            hbuf.data_ptr(), t_max, n, h, _kernels.stream_ptr(dev))
+        _kernels.check(lib, err, "bigru_seq_fwd")
+        return y_f, y_b
+
+    out = run_in_row_slices(
+        launch, max_rows(lib, "bigru_fwd_max_rows_" + sfx, dev, h), xp,
+        lens)
     bigru_seq_fwd.launches += 1
-    return y_f, y_b
+    return out
 
 
 bigru_seq_fwd.launches = 0  # kernel launches made by this wrapper
@@ -363,21 +400,30 @@ def bigru_seq_bwd_dgates(dy_f: torch.Tensor, dy_b: torch.Tensor,
         want[name] = (v, cdt, (h, 3 * h))
     _check_tensors("bigru_seq_bwd_dgates", dev, want)
     _check_lens("bigru_seq_bwd_dgates", lens, b, dev)
-    outs = [torch.empty((t_max, b, 3 * h), dtype=cdt, device=dev)
-            for _ in range(4)]
     if t_max == 0 or b == 0:
-        return tuple(outs)
+        return tuple(torch.empty((t_max, b, 3 * h), dtype=cdt, device=dev)
+                     for _ in range(4))
     lib = _kernels.load("gru_bwd", _BWD_SIGNATURES)
-    part = _exchange(lib, 2, b, h, dev, "bigru_seq_bwd_dgates")
-    lens32 = lens.to(torch.int32).contiguous()
-    err = getattr(lib, "bigru_bwd_" + _SUFFIX[cdt])(
-        dy_f.data_ptr(), dy_b.data_ptr(), xp.data_ptr(), y_f.data_ptr(),
-        y_b.data_ptr(), w_h_f.data_ptr(), w_h_b.data_ptr(), lens32.data_ptr(),
-        *(o.data_ptr() for o in outs), part.data_ptr(), t_max, b, h,
-        _kernels.stream_ptr(dev))
-    _kernels.check(lib, err, "bigru_seq_bwd_dgates")
+
+    def launch(dy_f, dy_b, xp, y_f, y_b, lens):
+        n = xp.shape[1]
+        outs = [torch.empty((t_max, n, 3 * h), dtype=cdt, device=dev)
+                for _ in range(4)]
+        part = _exchange(lib, 2, n, h, dev, "bigru_seq_bwd_dgates")
+        lens32 = lens.to(torch.int32).contiguous()
+        err = getattr(lib, "bigru_bwd_" + _SUFFIX[cdt])(
+            dy_f.data_ptr(), dy_b.data_ptr(), xp.data_ptr(), y_f.data_ptr(),
+            y_b.data_ptr(), w_h_f.data_ptr(), w_h_b.data_ptr(),
+            lens32.data_ptr(), *(o.data_ptr() for o in outs),
+            part.data_ptr(), t_max, n, h, _kernels.stream_ptr(dev))
+        _kernels.check(lib, err, "bigru_seq_bwd_dgates")
+        return tuple(outs)
+
+    out = run_in_row_slices(
+        launch, max_rows(lib, "bigru_bwd_max_rows_" + _SUFFIX[cdt], dev, h),
+        dy_f, dy_b, xp, y_f, y_b, lens)
     bigru_seq_bwd_dgates.launches += 1
-    return tuple(outs)
+    return out
 
 
 bigru_seq_bwd_dgates.launches = 0  # kernel launches made by this wrapper

@@ -19,7 +19,11 @@ a CUDA tensor.  :func:`bilstm_layer` and :func:`lstm_sequence` are
 ``torch.autograd.Function``s whose backward runs K3, K10b or K6 and then
 the weight and input gradients as plain products, as the JAX package
 leaves them to XLA.  :func:`bilstm_layer` picks K10a/K10b or K2/K3 by
-:func:`use_in_kernel_proj`, the JAX package's rule.
+:func:`use_in_kernel_proj`, the JAX package's rule.  A kernel that keeps
+every batch row in one block's shared memory takes at most its source's
+``*_max_rows`` rows a launch; its wrapper runs a larger batch as row
+slices (:func:`run_in_row_slices`), so every wrapper takes any batch, as
+the reference does.
 
 Under bfloat16 the shipped default of the JAX package's ``_bf16_cfg``
 holds: the projection, the layer outputs and the dgates are stored in
@@ -30,7 +34,7 @@ cell states are f32, and weight gradients come out f32.
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Tuple
+from typing import Callable, Dict, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -46,7 +50,8 @@ __all__ = ["bilstm_seq_fwd", "bilstm_seq_fwd_reference",
            "lstm_seq_fwd", "lstm_seq_fwd_reference",
            "lstm_seq_bwd_dgates", "lstm_seq_bwd_dgates_reference",
            "lstm_sequence", "lstm_stack_fwd", "lstm_stack_fwd_reference",
-           "lstm_stack_fits"]
+           "lstm_stack_fits", "max_rows", "run_in_row_slices", "K10bPlan",
+           "k10b_plan"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -58,23 +63,36 @@ _SIGNATURES = {"bilstm_fwd_f32": _ARGS, "bilstm_fwd_bf16": _ARGS,
                "bilstm_proj_fwd_f32": _PROJ_ARGS,
                "bilstm_proj_fwd_bf16": _PROJ_ARGS}
 _BWD_ARGS = [_P] * 13 + [_I, _I, _I, _P]
-_PROJ_BWD_ARGS = [_P] * 15 + [_I] * 4 + [_P]
+_GATES_ARGS = [_P] * 8 + [_I] * 7 + [_P]
+_TILED_ARGS = [_P] * 8 + [_I] * 6 + [_P]
+_CHAIN_ARGS = [_P] * 11 + [_I] * 7 + [_P]
 _BWD_SIGNATURES = {"bilstm_bwd_f32": _BWD_ARGS,
                    "bilstm_bwd_bf16": _BWD_ARGS,
-                   "bilstm_proj_bwd_f32": _PROJ_BWD_ARGS,
-                   "bilstm_proj_bwd_bf16": _PROJ_BWD_ARGS,
-                   "bilstm_bwd_exchange_floats": [_I, _I]}
+                   "bilstm_bwd_exchange_floats": [_I, _I],
+                   "bilstm_bwd_max_rows_f32": [_I],
+                   "bilstm_bwd_max_rows_bf16": [_I],
+                   "bilstm_proj_bwd_smem_optin": [],
+                   "bilstm_proj_gates_f32": _GATES_ARGS,
+                   "bilstm_proj_gates_bf16": _GATES_ARGS,
+                   "bilstm_proj_gates_tiled_f32": _TILED_ARGS,
+                   "bilstm_proj_gates_tiled_bf16": _TILED_ARGS,
+                   "bilstm_proj_chain_f32": _CHAIN_ARGS,
+                   "bilstm_proj_chain_bf16": _CHAIN_ARGS}
 _UNI_ARGS = [_P] * 6 + [_I] * 4 + [_P]
-_UNI_SIGNATURES = {"lstm_fwd_f32": _UNI_ARGS, "lstm_fwd_bf16": _UNI_ARGS}
+_UNI_SIGNATURES = {"lstm_fwd_f32": _UNI_ARGS, "lstm_fwd_bf16": _UNI_ARGS,
+                   "lstm_fwd_max_rows_f32": [_I],
+                   "lstm_fwd_max_rows_bf16": [_I]}
 _UNI_BWD_ARGS = [_P] * 8 + [_I] * 4 + [_P]
 _UNI_BWD_SIGNATURES = {"lstm_bwd_f32": _UNI_BWD_ARGS,
                        "lstm_bwd_bf16": _UNI_BWD_ARGS,
-                       "lstm_bwd_exchange_floats": [_I, _I]}
+                       "lstm_bwd_exchange_floats": [_I, _I],
+                       "lstm_bwd_max_rows_f32": [_I],
+                       "lstm_bwd_max_rows_bf16": [_I]}
 _STACK_ARGS = [_P] * 11 + [_I] * 4 + [_P]
 _STACK_SIGNATURES = {"lstm_stack_f32": _STACK_ARGS,
                      "lstm_stack_bf16": _STACK_ARGS,
-                     "lstm_stack_fits_f32": [_I] * 3,
-                     "lstm_stack_fits_bf16": [_I] * 3}
+                     "lstm_stack_max_rows_f32": [_I] * 2,
+                     "lstm_stack_max_rows_bf16": [_I] * 2}
 _STACK_MAX_LAYERS = 16   # kMaxLayers of csrc/lstm_stack.cu
 
 Outputs = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]
@@ -97,6 +115,69 @@ def _check_lens(what: str, lens: torch.Tensor, b: int, device) -> None:
         raise ValueError(f"{what}: lens must be int [B] on {device}, got "
                          f"{lens.dtype} {tuple(lens.shape)} on "
                          f"{lens.device}")
+
+
+# batch ceilings already asked of a kernel source: (query, device, dims)
+_ROW_CEILINGS: Dict[tuple, int] = {}
+
+
+def _ceiling(lib: ctypes.CDLL, query: str, device, *dims: int) -> int:
+    """The answer of a kernel source's ``query`` (``*_max_rows``) on
+    ``device``: the most batch rows one launch takes, from the launch's
+    own shared-memory and co-residency check over B, 0 if not one;
+    nothing is launched.  Cached per device and shape (it depends on
+    nothing else)."""
+    with torch.cuda.device(device):
+        key = (query, torch.cuda.current_device(), dims)
+        rows = _ROW_CEILINGS.get(key)
+        if rows is None:
+            rows = getattr(lib, query)(*dims)
+            if rows < 0:
+                _kernels.check(lib, -rows, query)
+            _ROW_CEILINGS[key] = rows
+    return rows
+
+
+def max_rows(lib: ctypes.CDLL, query: str, device, *dims: int) -> int:
+    """:func:`_ceiling`, raising when not even one row fits a launch."""
+    rows = _ceiling(lib, query, device, *dims)
+    if rows < 1:
+        raise RuntimeError(f"{query}{dims}: not one batch row fits a "
+                           f"launch on {device}")
+    return rows
+
+
+def run_in_row_slices(launch: Callable[..., Tuple[torch.Tensor, ...]],
+                      rows: int, *batched: Optional[torch.Tensor]
+                      ) -> Tuple[torch.Tensor, ...]:
+    """``launch(*batched)`` over slices of at most ``rows`` batch rows →
+    its outputs for the whole batch.
+
+    Every row's recurrence is independent of the others, so a batch above
+    a kernel's ceiling runs as row slices, each written into the full
+    outputs.  A [B] tensor has its rows on axis 0, any other on axis 1
+    (the [T, B, ...] and [L, B, ...] layouts); None passes through; each
+    output has its rows on axis 1.  At or under the ceiling ``launch``
+    gets the tensors as they are: one call, no copy."""
+    def axis(v):
+        return 0 if v.dim() == 1 else 1
+
+    b = batched[0].shape[axis(batched[0])]
+    if b <= rows:
+        return launch(*batched)
+    outs = None
+    for r0 in range(0, b, rows):
+        n = min(rows, b - r0)
+        part = launch(*(None if v is None
+                        else v.narrow(axis(v), r0, n).contiguous()
+                        for v in batched))
+        if outs is None:
+            outs = tuple(torch.empty((p.shape[0], b) + tuple(p.shape[2:]),
+                                     dtype=p.dtype, device=p.device)
+                         for p in part)
+        for o, p in zip(outs, part):
+            o.narrow(1, r0, n).copy_(p)
+    return outs
 
 
 def bilstm_seq_fwd_reference(xp: torch.Tensor, w_h_f: torch.Tensor,
@@ -277,28 +358,38 @@ def bilstm_seq_bwd_dgates(dy_f: torch.Tensor, dy_b: torch.Tensor,
     t_max, b, g8 = xp.shape
     h = g8 // 8
     dev = xp.device
-    dg_f = torch.empty((t_max, b, 4 * h), dtype=xp.dtype, device=dev)
-    dg_b = torch.empty((t_max, b, 4 * h), dtype=xp.dtype, device=dev)
     if t_max == 0 or b == 0:
-        return dg_f, dg_b
+        return tuple(torch.empty((t_max, b, 4 * h), dtype=xp.dtype,
+                                 device=dev) for _ in range(2))
     lib = _kernels.load("bilstm_bwd", _BWD_SIGNATURES)
-    floats = lib.bilstm_bwd_exchange_floats(b, h)
-    if floats < 0:
-        raise RuntimeError(f"bilstm_seq_bwd_dgates: no exchange size for "
-                           f"B={b}, H={h} on {dev}")
-    # partial-dh exchange between blocks; every entry read is written
-    # in the step before
-    part = torch.empty((floats,), dtype=torch.float32, device=dev)
-    lens32 = lens.to(torch.int32).contiguous()
-    err = getattr(lib, "bilstm_bwd_" + _SUFFIX[xp.dtype])(
-        dy_f.data_ptr(), dy_b.data_ptr(), xp.data_ptr(), y_f.data_ptr(),
-        c_f.data_ptr(), y_b.data_ptr(), c_b.data_ptr(), w_h_f.data_ptr(),
-        w_h_b.data_ptr(), lens32.data_ptr(), dg_f.data_ptr(),
-        dg_b.data_ptr(), part.data_ptr(), t_max, b, h,
-        _kernels.stream_ptr(dev))
-    _kernels.check(lib, err, "bilstm_seq_bwd_dgates")
+    sfx = _SUFFIX[xp.dtype]
+
+    def launch(dy_f, dy_b, xp, y_f, c_f, y_b, c_b, lens):
+        n = xp.shape[1]
+        dg_f = torch.empty((t_max, n, 4 * h), dtype=xp.dtype, device=dev)
+        dg_b = torch.empty_like(dg_f)
+        floats = lib.bilstm_bwd_exchange_floats(n, h)
+        if floats < 0:
+            raise RuntimeError(f"bilstm_seq_bwd_dgates: no exchange size "
+                               f"for B={n}, H={h} on {dev}")
+        # partial-dh exchange between blocks; every entry read is written
+        # in the step before
+        part = torch.empty((floats,), dtype=torch.float32, device=dev)
+        lens32 = lens.to(torch.int32).contiguous()
+        err = getattr(lib, "bilstm_bwd_" + sfx)(
+            dy_f.data_ptr(), dy_b.data_ptr(), xp.data_ptr(), y_f.data_ptr(),
+            c_f.data_ptr(), y_b.data_ptr(), c_b.data_ptr(), w_h_f.data_ptr(),
+            w_h_b.data_ptr(), lens32.data_ptr(), dg_f.data_ptr(),
+            dg_b.data_ptr(), part.data_ptr(), t_max, n, h,
+            _kernels.stream_ptr(dev))
+        _kernels.check(lib, err, "bilstm_seq_bwd_dgates")
+        return dg_f, dg_b
+
+    out = run_in_row_slices(
+        launch, max_rows(lib, "bilstm_bwd_max_rows_" + sfx, dev, h),
+        dy_f, dy_b, xp, y_f, c_f, y_b, c_b, lens)
     bilstm_seq_bwd_dgates.launches += 1
-    return dg_f, dg_b
+    return out
 
 
 bilstm_seq_bwd_dgates.launches = 0  # kernel launches made by this wrapper
@@ -411,6 +502,112 @@ def bilstm_seq_fwd_proj(x: torch.Tensor, w_x: torch.Tensor,
 bilstm_seq_fwd_proj.launches = 0  # kernel launches made by this wrapper
 
 
+class K10bPlan(NamedTuple):
+    """K10b's launch shape.  Phase 1 runs the tiled kernel (64 rows and
+    64 gate columns a block) where ``gates_tiled``, else one warp per
+    (row, column) over ``gate_cols`` columns a block; ``gates_smem`` is a
+    block's shared memory.  Phase 2 runs one cluster of ``cluster`` CTAs
+    per (direction, ``rows`` batch rows); each CTA holds ceil(H /
+    cluster) units' gate columns of W_h (``chain_smem`` bytes in all)."""
+    gates_tiled: bool
+    gate_cols: int
+    gates_smem: int
+    cluster: int
+    rows: int
+    chain_smem: int
+
+
+_K10B_CLUSTERS = (1, 2, 4, 8, 16)   # powers of two up to kMaxCluster
+_K10B_SCRATCH_BYTES = 256 << 20     # phase 1's scratch per chunk of steps
+
+
+def _k10b_chain_bytes(c: int, r: int, h: int) -> int:
+    """Shared memory of a phase-2 CTA at cluster size ``c``, ``r`` rows
+    per cluster, ``h`` units: ``chain_floats`` of csrc/bilstm_bwd.cu."""
+    hsz = -(-h // c)
+    rp = -(-r // 4) * 4
+    recv = -(-(2 * c * r * hsz) // 4) * 4
+    return 4 * (4 * hsz * h + recv + 4 * hsz * rp + 2 * r * hsz
+                + 2 * 8 * r * hsz + r)
+
+
+def k10b_plan(b: int, d: int, h: int, sms: int, smem_optin: int
+              ) -> K10bPlan:
+    """K10b's cluster size C and rows per cluster R for a batch of ``b``
+    rows, input width ``d`` and ``h`` units on a card of ``sms`` SMs with
+    ``smem_optin`` bytes of shared memory per block.
+
+    Phase 1 is tiled where 64 staged rows and 64 columns of D + H f32
+    fit a block (D + H <= 426), else it takes 32 gate columns a block, fewer where
+    W_x's columns are too long (D = 8064 at H = 32 takes 7).  C is the
+    smallest power of two whose share of W_h (4 ceil(H/C) H f32)
+    leaves half of a CTA's shared memory to the rows: 4 at H = 128, 16 at
+    H = 256 and 320.  R is the fewest rows per cluster that keep the
+    2 ceil(B/R) clusters in one wave on three quarters of the SMs (whole
+    clusters of C CTAs do not pack every SM), as far as shared memory
+    allows; a batch above that runs in more waves.  Raises when no plan
+    fits."""
+    tiled = 4 * (2 * 68 * (d + h) + 64)      # gates_tiled_smem of the .cu
+    cols = 64 if tiled <= smem_optin else min(
+        32, smem_optin // (4 * (d + h + 1)))
+    c = next((c for c in _K10B_CLUSTERS
+              if _k10b_chain_bytes(c, 1, h) <= smem_optin // 2),
+             _K10B_CLUSTERS[-1])
+    if cols < 1 or _k10b_chain_bytes(c, 1, h) > smem_optin:
+        raise ValueError(f"K10b: no cluster plan fits D={d}, H={h} in "
+                         f"{smem_optin} bytes of shared memory")
+    clusters = max(1, sms * 3 // 4 // (2 * c))
+    r = max(1, min(b, -(-b // clusters)))
+    while r > 1 and _k10b_chain_bytes(c, r, h) > smem_optin:
+        r -= 1
+    return K10bPlan(tiled <= smem_optin, cols,
+                    tiled if tiled <= smem_optin else 4 * cols * (d + h + 1),
+                    c, r, _k10b_chain_bytes(c, r, h))
+
+
+def _smem_optin(lib: ctypes.CDLL, device) -> int:
+    """The opt-in shared memory of one block on ``device``, in bytes."""
+    with torch.cuda.device(device):
+        optin = lib.bilstm_proj_bwd_smem_optin()
+    if optin < 0:
+        _kernels.check(lib, -optin, "bilstm_proj_bwd_smem_optin")
+    return optin
+
+
+def _k10b_gates(lib, x, y_f, y_b, w_x, bias, w_h_f, w_h_b, pre, s0, n,
+                plan: K10bPlan):
+    """K10b phase 1 for walk steps s0 .. s0+n-1: the gate pre-activations
+    of both directions into pre[:n]."""
+    t_max, b, d = x.shape
+    args = [x.data_ptr(), y_f.data_ptr(), y_b.data_ptr(), w_x.data_ptr(),
+            bias.data_ptr(), w_h_f.data_ptr(), w_h_b.data_ptr(),
+            pre.data_ptr(), s0, n, t_max, b, d, w_h_f.shape[0]]
+    sfx = _SUFFIX[x.dtype]
+    if plan.gates_tiled:
+        err = getattr(lib, "bilstm_proj_gates_tiled_" + sfx)(
+            *args, _kernels.stream_ptr(x.device))
+    else:
+        err = getattr(lib, "bilstm_proj_gates_" + sfx)(
+            *args, plan.gate_cols, _kernels.stream_ptr(x.device))
+    _kernels.check(lib, err, f"bilstm_seq_bwd_dgates_proj phase 1 at "
+                             f"T={t_max}, B={b}, D={d}, {plan}")
+
+
+def _k10b_chain(lib, dy_f, dy_b, c_f, c_b, w_h_f, w_h_b, lens32, pre, dg_f,
+                dg_b, state, s0, n, plan: K10bPlan):
+    """K10b phase 2 for the same steps: the dh/dc chain in clusters,
+    dgates into dg_f, dg_b; ``state`` carries dh and dc across chunks."""
+    t_max, b, h = dy_f.shape
+    err = getattr(lib, "bilstm_proj_chain_" + _SUFFIX[dy_f.dtype])(
+        dy_f.data_ptr(), dy_b.data_ptr(), c_f.data_ptr(), c_b.data_ptr(),
+        w_h_f.data_ptr(), w_h_b.data_ptr(), lens32.data_ptr(),
+        pre.data_ptr(), dg_f.data_ptr(), dg_b.data_ptr(), state.data_ptr(),
+        s0, n, t_max, b, h, plan.cluster, plan.rows,
+        _kernels.stream_ptr(dy_f.device))
+    _kernels.check(lib, err, f"bilstm_seq_bwd_dgates_proj phase 2 at "
+                             f"T={t_max}, B={b}, H={h}, {plan}")
+
+
 def bilstm_seq_bwd_dgates_proj_reference(
         dy_f: torch.Tensor, dy_b: torch.Tensor, x: torch.Tensor,
         y_f: torch.Tensor, c_f: torch.Tensor, y_b: torch.Tensor,
@@ -437,7 +634,10 @@ def bilstm_seq_bwd_dgates_proj(dy_f: torch.Tensor, dy_b: torch.Tensor,
     takes them, y and c of both directions, lens) → (dg_f, dg_b) [T, B,
     4H] in the compute dtype, zero at pad frames.  The gates are
     recomputed from x through K10a's projection, with h_prev from the
-    stored y.  The contract of ``_bilstm_seq_bwd_dgates_proj``."""
+    stored y.  The contract of ``_bilstm_seq_bwd_dgates_proj``.  On the
+    card: phase 1 computes every step's gate pre-activations at once into
+    an f32 scratch, phase 2 walks the dh/dc chain in thread-block clusters
+    (:func:`k10b_plan`); any B."""
     if x.device.type == "cpu":
         return bilstm_seq_bwd_dgates_proj_reference(
             dy_f, dy_b, x, y_f, c_f, y_b, c_b, w_x, bias, w_h_f, w_h_b, lens)
@@ -457,21 +657,21 @@ def bilstm_seq_bwd_dgates_proj(dy_f: torch.Tensor, dy_b: torch.Tensor,
     if t_max == 0 or b == 0:
         return dg_f, dg_b
     lib = _kernels.load("bilstm_bwd", _BWD_SIGNATURES)
-    floats = lib.bilstm_bwd_exchange_floats(b, h)
-    if floats < 0:
-        raise RuntimeError(f"bilstm_seq_bwd_dgates_proj: no exchange size "
-                           f"for B={b}, H={h} on {dev}")
-    # K3's partial-dh exchange
-    part = torch.empty((floats,), dtype=torch.float32, device=dev)
+    plan = k10b_plan(b, d, h,
+                     torch.cuda.get_device_properties(dev)
+                     .multi_processor_count, _smem_optin(lib, dev))
+    # phase 1's scratch holds the steps of one chunk; phase 2 carries dh
+    # and dc between chunks in `state`
+    steps = max(1, min(t_max, _K10B_SCRATCH_BYTES // (b * 8 * h * 4)))
+    pre = torch.empty((steps, b, 8 * h), dtype=f32, device=dev)
+    state = torch.zeros((2, 2, b, h), dtype=f32, device=dev)
     lens32 = lens.to(torch.int32).contiguous()
-    err = getattr(lib, "bilstm_proj_bwd_" + _SUFFIX[x.dtype])(
-        dy_f.data_ptr(), dy_b.data_ptr(), x.data_ptr(), y_f.data_ptr(),
-        c_f.data_ptr(), y_b.data_ptr(), c_b.data_ptr(), w_x.data_ptr(),
-        bias.data_ptr(), w_h_f.data_ptr(), w_h_b.data_ptr(),
-        lens32.data_ptr(), dg_f.data_ptr(), dg_b.data_ptr(), part.data_ptr(),
-        t_max, b, d, h, _kernels.stream_ptr(dev))
-    _kernels.check(lib, err, f"bilstm_seq_bwd_dgates_proj at T={t_max}, "
-                             f"B={b}, D={d}, H={h}")
+    for s0 in range(0, t_max, steps):
+        n = min(steps, t_max - s0)
+        _k10b_gates(lib, x, y_f, y_b, w_x, bias, w_h_f, w_h_b, pre, s0, n,
+                    plan)
+        _k10b_chain(lib, dy_f, dy_b, c_f, c_b, w_h_f, w_h_b, lens32, pre,
+                    dg_f, dg_b, state, s0, n, plan)
     bilstm_seq_bwd_dgates_proj.launches += 1
     return dg_f, dg_b
 
@@ -627,21 +827,31 @@ def lstm_seq_fwd(x_proj: torch.Tensor, w_h: torch.Tensor, lens: torch.Tensor,
         "x_proj": (x_proj, x_proj.dtype, (t_max, b, g4)),
         "w_h": (w_h, x_proj.dtype, (h, g4))})
     _check_lens("lstm_seq_fwd", lens, b, dev)
-    y = torch.empty((t_max, b, h), dtype=x_proj.dtype, device=dev)
-    cs = torch.empty((t_max, b, h), dtype=torch.float32, device=dev)
     if t_max == 0 or b == 0:
-        return y, cs
-    # h exchange between blocks: [parity][B][H], parity 0 = h0
-    hbuf = torch.zeros((2, b, h), dtype=torch.float32, device=dev)
-    lens32 = lens.to(torch.int32).contiguous()
+        return (torch.empty((t_max, b, h), dtype=x_proj.dtype, device=dev),
+                torch.empty((t_max, b, h), dtype=torch.float32, device=dev))
     lib = _kernels.load("lstm_fwd", _UNI_SIGNATURES)
-    err = getattr(lib, "lstm_fwd_" + _SUFFIX[x_proj.dtype])(
-        x_proj.data_ptr(), w_h.data_ptr(), lens32.data_ptr(), y.data_ptr(),
-        cs.data_ptr(), hbuf.data_ptr(), t_max, b, h, int(reverse),
-        _kernels.stream_ptr(dev))
-    _kernels.check(lib, err, "lstm_seq_fwd")
+    sfx = _SUFFIX[x_proj.dtype]
+
+    def launch(x_proj, lens):
+        n = x_proj.shape[1]
+        y = torch.empty((t_max, n, h), dtype=x_proj.dtype, device=dev)
+        cs = torch.empty((t_max, n, h), dtype=torch.float32, device=dev)
+        # h exchange between blocks: [parity][B][H], parity 0 = h0
+        hbuf = torch.zeros((2, n, h), dtype=torch.float32, device=dev)
+        lens32 = lens.to(torch.int32).contiguous()
+        err = getattr(lib, "lstm_fwd_" + sfx)(
+            x_proj.data_ptr(), w_h.data_ptr(), lens32.data_ptr(),
+            y.data_ptr(), cs.data_ptr(), hbuf.data_ptr(), t_max, n, h,
+            int(reverse), _kernels.stream_ptr(dev))
+        _kernels.check(lib, err, "lstm_seq_fwd")
+        return y, cs
+
+    out = run_in_row_slices(
+        launch, max_rows(lib, "lstm_fwd_max_rows_" + sfx, dev, h), x_proj,
+        lens)
     lstm_seq_fwd.launches += 1
-    return y, cs
+    return out
 
 
 lstm_seq_fwd.launches = 0  # kernel launches made by this wrapper
@@ -713,23 +923,31 @@ def lstm_seq_bwd_dgates(dy: torch.Tensor, x_proj: torch.Tensor,
         "c_seq": (c_seq, torch.float32, (t_max, b, h)),
         "w_h": (w_h, cdt, (h, g4))})
     _check_lens("lstm_seq_bwd_dgates", lens, b, dev)
-    dg = torch.empty((t_max, b, g4), dtype=cdt, device=dev)
     if t_max == 0 or b == 0:
-        return dg
+        return torch.empty((t_max, b, g4), dtype=cdt, device=dev)
     lib = _kernels.load("lstm_bwd", _UNI_BWD_SIGNATURES)
-    floats = lib.lstm_bwd_exchange_floats(b, h)
-    if floats < 0:
-        raise RuntimeError(f"lstm_seq_bwd_dgates: no exchange size for "
-                           f"B={b}, H={h} on {dev}")
-    # partial-dh exchange between blocks; every entry read is written in
-    # the step before
-    part = torch.empty((floats,), dtype=torch.float32, device=dev)
-    lens32 = lens.to(torch.int32).contiguous()
-    err = getattr(lib, "lstm_bwd_" + _SUFFIX[cdt])(
-        dy.data_ptr(), x_proj.data_ptr(), y.data_ptr(), c_seq.data_ptr(),
-        w_h.data_ptr(), lens32.data_ptr(), dg.data_ptr(), part.data_ptr(),
-        t_max, b, h, int(reverse), _kernels.stream_ptr(dev))
-    _kernels.check(lib, err, "lstm_seq_bwd_dgates")
+
+    def launch(dy, x_proj, y, c_seq, lens):
+        n = x_proj.shape[1]
+        dg = torch.empty((t_max, n, g4), dtype=cdt, device=dev)
+        floats = lib.lstm_bwd_exchange_floats(n, h)
+        if floats < 0:
+            raise RuntimeError(f"lstm_seq_bwd_dgates: no exchange size for "
+                               f"B={n}, H={h} on {dev}")
+        # partial-dh exchange between blocks; every entry read is written
+        # in the step before
+        part = torch.empty((floats,), dtype=torch.float32, device=dev)
+        lens32 = lens.to(torch.int32).contiguous()
+        err = getattr(lib, "lstm_bwd_" + _SUFFIX[cdt])(
+            dy.data_ptr(), x_proj.data_ptr(), y.data_ptr(), c_seq.data_ptr(),
+            w_h.data_ptr(), lens32.data_ptr(), dg.data_ptr(), part.data_ptr(),
+            t_max, n, h, int(reverse), _kernels.stream_ptr(dev))
+        _kernels.check(lib, err, "lstm_seq_bwd_dgates")
+        return (dg,)
+
+    dg, = run_in_row_slices(
+        launch, max_rows(lib, "lstm_bwd_max_rows_" + _SUFFIX[cdt], dev, h),
+        dy, x_proj, y, c_seq, lens)
     lstm_seq_bwd_dgates.launches += 1
     return dg
 
@@ -820,17 +1038,13 @@ def lstm_stack_fwd_reference(xp0: torch.Tensor, wxs, whs, bs,
 def lstm_stack_fits(num_layers: int, batch: int, hidden: int,
                     dtype: torch.dtype, device) -> bool:
     """Whether K7 can run an L-layer stack of ``hidden`` units at
-    ``batch`` rows on ``device``: all layers' weight columns and the rows
-    of one block fit its shared memory, and the cooperative grid (one
-    block per ceil(L*H / SMs) units) is co-resident on the card.  Decided
-    from the shapes alone; nothing is launched."""
+    ``batch`` rows on ``device`` in one launch: all layers' weight columns
+    and the rows of one block fit its shared memory, and the cooperative
+    grid (one block per ceil(L*H / SMs) units) is co-resident on the
+    card.  Decided from the shapes alone; nothing is launched."""
     lib = _kernels.load("lstm_stack", _STACK_SIGNATURES)
-    with torch.cuda.device(device):
-        r = getattr(lib, "lstm_stack_fits_" + _SUFFIX[dtype])(
-            num_layers, batch, hidden)
-    if r < 0:
-        _kernels.check(lib, -r, "lstm_stack_fits")
-    return r == 1
+    return batch <= _ceiling(lib, "lstm_stack_max_rows_" + _SUFFIX[dtype],
+                             device, num_layers, hidden)
 
 
 def lstm_stack_fwd(xp0: torch.Tensor, wxs, whs, bs, lens: torch.Tensor,
@@ -871,34 +1085,48 @@ def lstm_stack_fwd(xp0: torch.Tensor, wxs, whs, bs, lens: torch.Tensor,
             want[name] = (v, torch.float32, (n_layers, b, h))
     _check_tensors("lstm_stack_fwd", dev, want)
     _check_lens("lstm_stack_fwd", lens, b, dev)
-    # h exchange [parity][L][B][H], parity 0 = h0; the layer-output
-    # exchange has the same shape, and every entry read is written in
-    # the step before
-    hbuf = torch.empty((2, n_layers, b, h), dtype=torch.float32, device=dev)
-    if h0 is None:
-        hbuf[0].zero_()
-    else:
-        hbuf[0].copy_(h0)
-    c_in = (torch.zeros((n_layers, b, h), dtype=torch.float32, device=dev)
-            if c0 is None else c0)
-    y = torch.empty((t_max, b, h), dtype=cdt, device=dev)
     if t_max == 0 or b == 0:
-        return y, hbuf[0].clone(), c_in.clone()
-    ybuf = torch.empty_like(hbuf)
-    h_fin = torch.empty((n_layers, b, h), dtype=torch.float32, device=dev)
-    c_fin = torch.empty_like(h_fin)
-    lens32 = lens.to(torch.int32).contiguous()
+        zeros = torch.zeros((n_layers, b, h), dtype=torch.float32, device=dev)
+        return (torch.empty((t_max, b, h), dtype=cdt, device=dev),
+                (zeros if h0 is None else h0).clone(),
+                (zeros if c0 is None else c0).clone())
     ptrs = [(_P * max(len(ws), 1))(*[w.data_ptr() for w in ws])
             for ws in (whs, wxs, bs)]
     lib = _kernels.load("lstm_stack", _STACK_SIGNATURES)
-    err = getattr(lib, "lstm_stack_" + _SUFFIX[cdt])(
-        xp0.data_ptr(), *(ctypes.cast(p, _P) for p in ptrs),
-        lens32.data_ptr(), c_in.data_ptr(), y.data_ptr(), h_fin.data_ptr(),
-        c_fin.data_ptr(), hbuf.data_ptr(), ybuf.data_ptr(), t_max, n_layers,
-        b, h, _kernels.stream_ptr(dev))
-    _kernels.check(lib, err, "lstm_stack_fwd")
+    sfx = _SUFFIX[cdt]
+
+    def launch(xp0, lens, h0, c0):
+        n = xp0.shape[1]
+        # h exchange [parity][L][B][H], parity 0 = h0; the layer-output
+        # exchange has the same shape, and every entry read is written
+        # in the step before
+        hbuf = torch.empty((2, n_layers, n, h), dtype=torch.float32,
+                           device=dev)
+        if h0 is None:
+            hbuf[0].zero_()
+        else:
+            hbuf[0].copy_(h0)
+        c_in = (torch.zeros((n_layers, n, h), dtype=torch.float32,
+                            device=dev) if c0 is None else c0)
+        y = torch.empty((t_max, n, h), dtype=cdt, device=dev)
+        ybuf = torch.empty_like(hbuf)
+        h_fin = torch.empty((n_layers, n, h), dtype=torch.float32,
+                            device=dev)
+        c_fin = torch.empty_like(h_fin)
+        lens32 = lens.to(torch.int32).contiguous()
+        err = getattr(lib, "lstm_stack_" + sfx)(
+            xp0.data_ptr(), *(ctypes.cast(p, _P) for p in ptrs),
+            lens32.data_ptr(), c_in.data_ptr(), y.data_ptr(),
+            h_fin.data_ptr(), c_fin.data_ptr(), hbuf.data_ptr(),
+            ybuf.data_ptr(), t_max, n_layers, n, h, _kernels.stream_ptr(dev))
+        _kernels.check(lib, err, "lstm_stack_fwd")
+        return y, h_fin, c_fin
+
+    out = run_in_row_slices(
+        launch, max_rows(lib, "lstm_stack_max_rows_" + sfx, dev, n_layers, h),
+        xp0, lens, h0, c0)
     lstm_stack_fwd.launches += 1
-    return y, h_fin, c_fin
+    return out
 
 
 lstm_stack_fwd.launches = 0  # kernel launches made by this wrapper

@@ -476,7 +476,9 @@ def _proj_inputs(t, b, d, h, dtype, device, seed):
 @pytest.mark.parametrize("t,b,d,h", [
     (24, 1, 256, 128),      # serving, the 3x128's layers 2-3
     (24, 48, 256, 128),     # training
-    (8, 3, 512, 256),       # the largest shape use_in_kernel_proj admits
+    (8, 3, 512, 256),       # exactly the rule's 8 MiB of resident weights
+    (8, 3, 128, 320),       # its largest H: K10b's clusters of 16 CTAs
+    (8, 3, 8064, 32),       # its widest D: 7 gate columns a phase-1 block
     (16, 3, 40, 16)])       # unaligned: the kernels take any D and H
 def test_bilstm_proj_kernels_match_plain(cuda, dtype, t, b, d, h):
     """K10a and then K10b on K10a's outputs against their plain versions
@@ -507,7 +509,8 @@ def test_bilstm_proj_kernels_match_plain(cuda, dtype, t, b, d, h):
 def test_bilstm_fwd_kernels_tile_a_large_batch(cuda):
     """At B=600 the h rows of K2 and K10a no longer fit one block's
     shared memory: both stage them in tiles and still match their plain
-    versions; K10b, which keeps every row, refuses the launch."""
+    versions; K10b, whose clusters each take a group of rows, matches its
+    plain version too (one launch)."""
     t, b, d, h = 4, 600, 256, 128
     x, w_x, bias, w_f, w_b, lens, dy_f, dy_b = _proj_inputs(
         t, b, d, h, torch.float32, cuda, seed=5)
@@ -521,9 +524,67 @@ def test_bilstm_fwd_kernels_tile_a_large_batch(cuda):
                               ref):
         _close(g, r, BILSTM_F32_TOL, name)
         _close(k2, r, BILSTM_F32_TOL, name)
-    with pytest.raises(RuntimeError, match="resources"):
-        rnn_cuda.bilstm_seq_bwd_dgates_proj(dy_f, dy_b, x, *got, w_x, bias,
-                                            w_f, w_b, lens)
+    args = (dy_f, dy_b, x, *got, w_x, bias, w_f, w_b, lens)
+    before = rnn_cuda.bilstm_seq_bwd_dgates_proj.launches
+    dg = rnn_cuda.bilstm_seq_bwd_dgates_proj(*args)
+    torch.cuda.synchronize()
+    assert rnn_cuda.bilstm_seq_bwd_dgates_proj.launches == before + 1
+    ref_dg = rnn_cuda.bilstm_seq_bwd_dgates_proj_reference(*args)
+    for name, g, r in zip(("dg_f", "dg_b"), dg, ref_dg):
+        _close(g, r, BILSTM_BWD_F32_TOL, name)
+    _zero_past_lens(dg, lens, "dg")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d,h", [(256, 128), (40, 16), (128, 256)])
+def test_k10b_phase1_kernels_agree_bit_for_bit(cuda, dtype, d, h):
+    """K10b's tiled phase 1 (tile_dot, warp_dot's order walked by one
+    thread) and its warp kernel (warp_dot and project() themselves, as
+    K10a calls them) give the same gate pre-activations bit for bit, on a
+    chunk of steps that starts mid-walk and one that ends it."""
+    t, b = 7, 5
+    x, w_x, bias, w_f, w_b, lens, _, _ = _proj_inputs(t, b, d, h, dtype,
+                                                      cuda, seed=d + h)
+    y_f, _, y_b, _ = rnn_cuda.bilstm_seq_fwd_proj(x, w_x, bias, w_f, w_b,
+                                                  lens)
+    lib = _kernels.load("bilstm_bwd", rnn_cuda._BWD_SIGNATURES)
+    plan = rnn_cuda.k10b_plan(b, d, h, 132, 232448)
+    assert plan.gates_tiled
+    warp = plan._replace(gates_tiled=False, gate_cols=32)
+    for s0, n in ((2, 3), (4, 3)):
+        got = []
+        for p in (plan, warp):
+            pre = torch.full((n, b, 8 * h), float("nan"), device=cuda)
+            rnn_cuda._k10b_gates(lib, x, y_f, y_b, w_x, bias, w_f, w_b, pre,
+                                 s0, n, p)
+            got.append(pre)
+        torch.cuda.synchronize()
+        assert not got[0].isnan().any()
+        assert torch.equal(got[0], got[1]), (s0, n)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_bilstm_proj_bwd_in_chunks_of_steps(cuda, dtype, monkeypatch):
+    """K10b with its scratch cut to 3 steps (a scratch above 256 MiB runs
+    in chunks): phase 2 carries dh and dc between the chunks, and the
+    dgates equal one chunk's exactly and the plain version's within K3's
+    tolerance."""
+    t, b, d, h = 10, 5, 128, 32
+    x, w_x, bias, w_f, w_b, lens, dy_f, dy_b = _proj_inputs(
+        t, b, d, h, dtype, cuda, seed=9)
+    y_f, c_f, y_b, c_b = rnn_cuda.bilstm_seq_fwd_proj(x, w_x, bias, w_f,
+                                                      w_b, lens)
+    args = (dy_f, dy_b, x, y_f, c_f, y_b, c_b, w_x, bias, w_f, w_b, lens)
+    whole = rnn_cuda.bilstm_seq_bwd_dgates_proj(*args)
+    monkeypatch.setattr(rnn_cuda, "_K10B_SCRATCH_BYTES", 3 * b * 8 * h * 4)
+    chunked = rnn_cuda.bilstm_seq_bwd_dgates_proj(*args)
+    torch.cuda.synchronize()
+    ref = rnn_cuda.bilstm_seq_bwd_dgates_proj_reference(*args)
+    for name, c, w, r in zip(("dg_f", "dg_b"), chunked, whole, ref):
+        assert torch.equal(c, w), name
+        _close(c, r, LSTM_BWD_TOL[dtype], name)
 
 
 @pytest.mark.cuda
@@ -1084,6 +1145,124 @@ def test_gru_stream_engine_on_cuda_matches_plain(cuda, dtype, tmp_path):
                                        st_c)
         np.testing.assert_allclose(sg.cpu().numpy(), sc.numpy(), rtol=0,
                                    atol=tol)
+
+
+def _above_ceiling(source, signatures, query, *dims):
+    """One row more than a kernel takes in one launch on the card: its
+    source's own ceiling query (``*_max_rows``) plus one."""
+    lib = _kernels.load(source, signatures)
+    rows = rnn_cuda.max_rows(lib, query, torch.device("cuda"), *dims)
+    assert 100 < rows < 200, (query, rows)     # ~139-167 at H = 320
+    return rows + 1
+
+
+def _sliced_case(name, t, h, device):
+    """(wrapper, plain version, operands, tolerance) of one kernel that
+    keeps every row in a block, at one row above its ceiling, f32."""
+    f32 = torch.float32
+    if name == "K3":
+        b = _above_ceiling("bilstm_bwd", rnn_cuda._BWD_SIGNATURES,
+                           "bilstm_bwd_max_rows_f32", h)
+        return (rnn_cuda.bilstm_seq_bwd_dgates,
+                rnn_cuda.bilstm_seq_bwd_dgates_reference,
+                _bwd_inputs(t, b, h, f32, device, seed=b), BILSTM_BWD_F32_TOL)
+    if name in ("K5", "K6"):
+        b = (_above_ceiling("lstm_fwd", rnn_cuda._UNI_SIGNATURES,
+                            "lstm_fwd_max_rows_f32", h) if name == "K5"
+             else _above_ceiling("lstm_bwd", rnn_cuda._UNI_BWD_SIGNATURES,
+                                 "lstm_bwd_max_rows_f32", h))
+        xp, w, lens = _uni_inputs(t, b, h, f32, device, b)
+        if name == "K5":
+            return (rnn_cuda.lstm_seq_fwd, rnn_cuda.lstm_seq_fwd_reference,
+                    (xp, w, lens, True), LSTM_TOL[f32])
+        y, c = rnn_cuda.lstm_seq_fwd_reference(xp, w, lens)
+        dy = torch.as_tensor(np.random.default_rng(b).standard_normal(
+            (t, b, h)).astype(np.float32), device=device)
+        return (rnn_cuda.lstm_seq_bwd_dgates,
+                rnn_cuda.lstm_seq_bwd_dgates_reference,
+                (dy, xp, y, c, w, lens), LSTM_BWD_TOL[f32])
+    if name == "K7":
+        # one layer with carries: the streaming server's per-layer route
+        b = _above_ceiling("lstm_stack", rnn_cuda._STACK_SIGNATURES,
+                           "lstm_stack_max_rows_f32", 1, h)
+        return (rnn_cuda.lstm_stack_fwd, rnn_cuda.lstm_stack_fwd_reference,
+                _stack_inputs(1, t, b, h, f32, device, b, True),
+                LSTM_TOL[f32])
+    bi = name.startswith("K8")
+    kernel = "bigru" if bi else "gru"
+    if name.endswith("a"):
+        b = _above_ceiling("gru_fwd", gru_cuda._FWD_SIGNATURES,
+                           f"{kernel}_fwd_max_rows_f32", h)
+        xp, ws, _, lens = _gru_inputs(t, b, h, f32, device, b, 2 if bi else 1)
+        if bi:
+            return (gru_cuda.bigru_seq_fwd, gru_cuda.bigru_seq_fwd_reference,
+                    (xp, *ws, lens), GRU_TOL[f32])
+        return (gru_cuda.gru_seq_fwd, gru_cuda.gru_seq_fwd_reference,
+                (xp, ws[0], lens, True), GRU_TOL[f32])
+    b = _above_ceiling("gru_bwd", gru_cuda._BWD_SIGNATURES,
+                       f"{kernel}_bwd_max_rows_f32", h)
+    xp, ws, dys, lens = _gru_inputs(t, b, h, f32, device, b, 2 if bi else 1)
+    if bi:
+        ys = gru_cuda.bigru_seq_fwd_reference(xp, *ws, lens)
+        return (gru_cuda.bigru_seq_bwd_dgates,
+                gru_cuda.bigru_seq_bwd_dgates_reference,
+                (*dys, xp, *ys, *ws, lens), GRU_BWD_TOL[f32])
+    y = gru_cuda.gru_seq_fwd_reference(xp, ws[0], lens)
+    return (gru_cuda.gru_seq_bwd_dgates, gru_cuda.gru_seq_bwd_dgates_reference,
+            (dys[0], xp, y, ws[0], lens), GRU_BWD_TOL[f32])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["K3", "K5", "K6", "K7", "K8a", "K8b",
+                                  "K9a", "K9b"])
+def test_sliced_kernel_above_its_ceiling_matches_plain(cuda, name):
+    """Each kernel that keeps every row in one block's shared memory, at
+    one row above the most its launch takes (H=320), runs as row slices
+    and returns its plain version's result, as the reference does at any
+    batch; the launch counter rises by one (it counts wrapper calls)."""
+    fn, ref, args, tol = _sliced_case(name, 4, 320, cuda)
+    before = fn.launches
+    got = fn(*args)
+    torch.cuda.synchronize()
+    assert fn.launches == before + 1
+    want = ref(*args)
+    got, want = ((got, want) if isinstance(got, tuple) else ((got,), (want,)))
+    for i, (g, r) in enumerate(zip(got, want)):
+        _close(g, r, tol, f"{name}[{i}]")
+
+
+@pytest.mark.cuda
+def test_stream_tick_of_200_slots_takes_the_per_layer_route(cuda, tmp_path):
+    """``serve --max-streams 200`` on a 2x320 LSTM: the stack does not fit
+    K7 whole, so a tick runs one K7 launch per layer, each above the
+    one-layer ceiling in row slices; its scores and carries equal the
+    plain loop's on the CPU."""
+    from kaldi_ctc_tpu_torch.cli import serve
+
+    path = _uni_model(tmp_path, "float32", layers=2, h=320)
+    flags = ["--model", path, "--max-streams", "200", "--chunk-frames", "7"]
+    gpu = serve.Engine(serve.parse_args(flags))
+    cpu = serve.Engine(serve.parse_args(flags + ["--device", "cpu"]))
+    assert not rnn_cuda.lstm_stack_fits(2, 200, 320, torch.float32, cuda)
+    assert _above_ceiling("lstm_stack", rnn_cuda._STACK_SIGNATURES,
+                          "lstm_stack_max_rows_f32", 1, 320) <= 200
+    rng = np.random.default_rng(4)
+    block = torch.as_tensor(rng.standard_normal((7, 200, 40)).astype(
+        np.float32), device=cuda)
+    lens = torch.as_tensor(rng.integers(0, 8, 200).astype(np.int32))
+    st_g = gpu.stream._state
+    st_c = [tuple(a.cpu() for a in st) for st in st_g]
+    k7 = rnn_cuda.lstm_stack_fwd.launches
+    sg, st_g = gpu.stream.chunk_fn(block, lens.to(cuda), st_g)
+    torch.cuda.synchronize()
+    assert rnn_cuda.lstm_stack_fwd.launches - k7 == 2
+    sc, st_c = cpu.stream.chunk_fn(block.cpu(), lens, st_c)
+    np.testing.assert_allclose(sg.cpu().numpy(), sc.numpy(), rtol=0,
+                               atol=1e-4)
+    for layer_g, layer_c in zip(st_g, st_c):
+        for g, c in zip(layer_g, layer_c):
+            np.testing.assert_allclose(g.cpu().numpy(), c.numpy(), rtol=0,
+                                       atol=1e-4)
 
 
 @pytest.fixture

@@ -1,0 +1,176 @@
+"""The port's batch ceilings (the kernels that keep every row in one
+block's shared memory) and K10b's launch plan, on the CPU.
+
+``rnn_cuda.run_in_row_slices`` runs a kernel over row slices under its
+ceiling; here it is driven with each sliced kernel's plain version and a
+small forced ceiling, and must return exactly what one unsliced call
+returns.  ``rnn_cuda.k10b_plan`` must fit every shape the BLSTM layer
+sends to K10b (``use_in_kernel_proj``) into one H100 block's shared
+memory.  No JAX here: the plain versions are the port's own.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from kaldi_ctc_tpu_torch.ops import gru_cuda, rnn_cuda
+
+T, B, H = 6, 7, 8
+LENS = [T, 3, 0, 6, 1, 5, 2]     # ragged, one empty row
+CEILING = 4                      # slices of 4 and 3 rows
+
+# H100 SXM: SMs and the opt-in shared memory of one block (bytes)
+H100_SMS, H100_SMEM = 132, 232448
+
+
+def _mat(rng, *shape, scale=1.0):
+    return torch.as_tensor((rng.standard_normal(shape) * scale)
+                           .astype(np.float32))
+
+
+def _case(name):
+    """(launch, batched operands) of one sliced kernel's plain version:
+    ``launch`` takes the batched operands and returns a tuple."""
+    rng = np.random.default_rng(len(name))
+    lens = torch.tensor(LENS, dtype=torch.int32)
+    w = [_mat(rng, H, 4 * H, scale=H ** -0.5) for _ in range(2)]
+    g = [_mat(rng, H, 3 * H, scale=H ** -0.5) for _ in range(2)]
+    dy = [_mat(rng, T, B, H) for _ in range(2)]
+    if name == "K3":
+        xp = _mat(rng, T, B, 8 * H)
+        y_f, c_f, y_b, c_b = rnn_cuda.bilstm_seq_fwd_reference(xp, *w, lens)
+        return (lambda *a: rnn_cuda.bilstm_seq_bwd_dgates_reference(
+            *a[:7], *w, a[7]), (*dy, xp, y_f, c_f, y_b, c_b, lens))
+    if name == "K5":
+        return (lambda xp, ln: rnn_cuda.lstm_seq_fwd_reference(
+            xp, w[0], ln, True), (_mat(rng, T, B, 4 * H), lens))
+    if name == "K6":
+        xp = _mat(rng, T, B, 4 * H)
+        y, c = rnn_cuda.lstm_seq_fwd_reference(xp, w[0], lens)
+        return (lambda *a: (rnn_cuda.lstm_seq_bwd_dgates_reference(
+            *a[:4], w[0], a[4]),), (dy[0], xp, y, c, lens))
+    if name == "K7":
+        # the streaming server's per-layer route: one layer with carries
+        return (lambda xp, ln, h0, c0: rnn_cuda.lstm_stack_fwd_reference(
+            xp, [], [w[0]], [], ln, h0, c0),
+            (_mat(rng, T, B, 4 * H), lens, _mat(rng, 1, B, H),
+             _mat(rng, 1, B, H)))
+    if name == "K8a":
+        return (lambda xp, ln: gru_cuda.bigru_seq_fwd_reference(
+            xp, *g, ln), (_mat(rng, T, B, 6 * H), lens))
+    if name == "K8b":
+        xp = _mat(rng, T, B, 6 * H)
+        y_f, y_b = gru_cuda.bigru_seq_fwd_reference(xp, *g, lens)
+        return (lambda *a: gru_cuda.bigru_seq_bwd_dgates_reference(
+            *a[:5], *g, a[5]), (*dy, xp, y_f, y_b, lens))
+    if name == "K9a":
+        return (lambda xp, ln: (gru_cuda.gru_seq_fwd_reference(
+            xp, g[0], ln),), (_mat(rng, T, B, 3 * H), lens))
+    assert name == "K9b"
+    xp = _mat(rng, T, B, 3 * H)
+    y = gru_cuda.gru_seq_fwd_reference(xp, g[0], lens, True)
+    return (lambda *a: gru_cuda.gru_seq_bwd_dgates_reference(
+        *a[:3], g[0], a[3], True), (dy[0], xp, y, lens))
+
+
+@pytest.mark.parametrize("name", ["K3", "K5", "K6", "K7", "K8a", "K8b",
+                                  "K9a", "K9b"])
+def test_row_slices_equal_one_unsliced_call(name):
+    """Each sliced kernel's plain version run by the wrappers' helper over
+    slices of at most 4 of its 7 rows equals the same plain version on
+    all 7 rows, exactly: every row's recurrence is independent.  (The CPU
+    matmul of a plain version may sum a 1- or 2-row product in another
+    order than a 7-row one, so the slices here keep 3 rows or more.)"""
+    launch, batched = _case(name)
+    want = launch(*batched)
+    calls = []
+
+    def counted(*args):
+        calls.append(args[0].shape[1])
+        return launch(*args)
+
+    got = rnn_cuda.run_in_row_slices(counted, CEILING, *batched)
+    assert calls == [4, 3]
+    assert len(got) == len(want)
+    for i, (g, w) in enumerate(zip(got, want)):
+        assert g.dtype == w.dtype and g.shape == w.shape, i
+        assert torch.equal(g, w), i
+
+
+def test_row_slices_under_the_ceiling_is_one_call_on_the_same_tensors():
+    """At or under the ceiling the helper hands the operands over as they
+    are, once: the main path's B = 48 is unchanged, no copy."""
+    launch, batched = _case("K3")
+    seen = []
+
+    def spy(*args):
+        seen.append(args)
+        return launch(*args)
+
+    for rows in (B, 1000):
+        seen.clear()
+        rnn_cuda.run_in_row_slices(spy, rows, *batched)
+        assert len(seen) == 1
+        assert all(a is b for a, b in zip(seen[0], batched))
+
+
+def _k10_shapes():
+    """Every (D, H) of H <= 320 that use_in_kernel_proj sends to K10b: D
+    and 4H multiples of 128, resident weights of at most 8 MiB in f32."""
+    return [(d, h) for h in range(32, 321, 32) for d in range(128, 8193, 128)
+            if rnn_cuda.use_in_kernel_proj(d, 4 * h)]
+
+
+def _check_plan(plan, b, d, h):
+    c, r = plan.cluster, plan.rows
+    assert c in (1, 2, 4, 8, 16), plan
+    assert 1 <= r <= max(b, 1), plan
+    assert c * -(-h // c) >= h, plan           # the cluster holds every unit
+    if plan.gates_tiled:     # gates_tiled_smem of csrc/bilstm_bwd.cu
+        assert plan.gate_cols == 64 and d + h <= 426, plan
+        assert plan.gates_smem == 4 * (2 * 68 * (d + h) + 64)
+    else:
+        assert 1 <= plan.gate_cols <= 32 and d + h > 426, plan
+        assert plan.gates_smem == 4 * plan.gate_cols * (d + h + 1)
+    assert plan.gates_smem <= H100_SMEM and plan.chain_smem <= H100_SMEM
+    # the phase-2 CTA's layout (chain_floats of csrc/bilstm_bwd.cu)
+    hsz, rp = -(-h // c), -(-r // 4) * 4
+    floats = (4 * hsz * h + -(-(2 * c * r * hsz) // 4) * 4 + 4 * hsz * rp
+              + 2 * r * hsz + 16 * r * hsz + r)
+    assert plan.chain_smem == 4 * floats, plan
+
+
+@pytest.mark.parametrize("b", [1, 48, 600])
+def test_k10b_plan_fits_every_shape_the_rule_admits(b):
+    shapes = _k10_shapes()
+    assert (256, 128) in shapes and (128, 320) in shapes and \
+        (8064, 32) in shapes and (512, 256) in shapes
+    assert max(h for _, h in shapes) == 320     # D = 128 only
+    for d, h in shapes:
+        _check_plan(rnn_cuda.k10b_plan(b, d, h, H100_SMS, H100_SMEM), b, d, h)
+
+
+@pytest.mark.parametrize("b", [1, 48, 600])
+@pytest.mark.parametrize("d,h", [(40, 16), (40, 128), (640, 320), (24, 20),
+                                 (100, 100)])
+def test_k10b_plan_fits_unaligned_shapes(b, d, h):
+    """The wrapper takes any D and H the kernels took before (the card
+    tests' unaligned D=40 H=16 among them), not only the rule's."""
+    _check_plan(rnn_cuda.k10b_plan(b, d, h, H100_SMS, H100_SMEM), b, d, h)
+
+
+def test_k10b_plan_at_the_3x128_training_shape():
+    """Layers 2-3 of the 3x128 BLSTM at B=48: the tiled phase 1 (rows of
+    384 floats); four CTAs of 32 units a cluster (64 KB of W_h each), four
+    rows a cluster, 24 clusters; the largest H, 320, needs clusters of 16;
+    B=600 fits one block's shared memory in 14 row groups."""
+    plan = rnn_cuda.k10b_plan(48, 256, 128, H100_SMS, H100_SMEM)
+    assert plan.gates_tiled and (plan.cluster, plan.rows) == (4, 4)
+    assert rnn_cuda.k10b_plan(48, 128, 320, H100_SMS, H100_SMEM).cluster == 16
+    big = rnn_cuda.k10b_plan(600, 256, 128, H100_SMS, H100_SMEM)
+    assert -(-600 // big.rows) == 14
+
+
+def test_k10b_plan_refuses_what_cannot_fit():
+    with pytest.raises(ValueError, match="no cluster plan"):
+        rnn_cuda.k10b_plan(48, 256, 1024, H100_SMS, H100_SMEM)
