@@ -48,8 +48,9 @@ result line:
    by kernel, K2's and K4's shares, the device's idle share of the traced
    request's wall time, and the untraced wall beside it;
 10. k5_lstm: the unidirectional LSTM forward kernel against its plain
-   version at T=800, B=1 and B=8, T=240, B=48, and one reverse case,
-   H=320, f32 and bf16;
+   version at T=800, B=1 and B=8, T=240, B=48 and B=600, and one reverse
+   case, H=320, f32 and bf16, with its plan (the cluster route: the
+   forward chain of csrc/lstm_chain.cuh);
 11. k6_lstm_bwd: its backward at T=240, B=48, H=320, ragged lengths;
 12. k7_lstm_stack: the wavefront stack kernel at L=5, H=320, T=20, B=8
    with carries from a previous chunk, ragged lengths and an idle slot
@@ -84,18 +85,21 @@ result line:
    (K8a's share of a request; the GRU tick's wall and idle share);
 22. k10_bilstm_proj: the in-kernel-projection BiLSTM kernels at the 3x128
    model's layers 2-3 (D=256, H=128), f32 and bf16: K10a against its
-   plain version at T=800, B=1 and B=8 and T=240, B=48, K10b at T=240,
-   B=48 with ragged lengths, its plan and its two phases timed apart
-   (phase 1, the gate pre-activations of every step; phase 2, the dh/dc
-   chain in thread-block clusters), and in f32 at B=600 (three chunks of
-   steps); beside each, cuDNN's nn.LSTM(256, 128, bidirectional) and the
-   hoisted route on the same layer (projection GEMM plus K2 forward, K3
-   on the stored projection backward);
+   plain version at T=800, B=1 and B=8 and T=240, B=48 and B=600, with
+   its plan and, at B=48, its two phases timed apart (phase 1, every
+   frame's projection; phase 2, both directions' forward chains in
+   thread-block clusters); K10b at T=240, B=48 with ragged lengths, its
+   plan and its two phases timed apart (phase 1, the gate pre-activations
+   of every step; phase 2, the dh/dc chain in clusters), and in f32 at
+   B=600 (three chunks of steps); beside each, cuDNN's nn.LSTM(256, 128,
+   bidirectional) and the hoisted route on the same layer (projection
+   GEMM plus K2 forward, K3 on the stored projection backward);
 23. f7: each kernel that keeps every batch row in one block's shared
-   memory (K3, K5, K6, K7 one layer, K8a, K8b, K9a, K9b) once at one row
-   above the most one launch takes (its source's *_max_rows query),
-   H=320, T=20, f32, against its plain version: the wrapper runs row
-   slices and counts one launch;
+   memory (K3, K5's cooperative route, K6, K7 one layer, K8a, K8b, K9a,
+   K9b) once at one row above the most one launch takes (its source's
+   *_max_rows query), H=320 (K5 at H=512, where W_h fits no cluster),
+   T=20, f32, against its plain version: the wrapper runs row slices and
+   counts one launch;
 24. serve_proj: the 3x128 BLSTM (40-dim input, 42 targets, random weights
    from a seed) served per dtype as in 7: per request K2 1x and K10a 2x
    in f32 (layer 1 unaligned, layers 2-3 in-kernel), K2 3x and K10a 0x in
@@ -105,6 +109,11 @@ result line:
    K3 1x, K10b 2x and K1 once in f32, K2 3x, K3 3x and K1 once in bf16;
    the eval step K2 1x, K10a 2x (f32) and K11 once; the profiled step
    gives K10a's and K10b's shares.
+
+Every profiled window (a request, a step, a tick) runs its work as the
+profiler's warm-up for 50 ms or more, then a marker kernel, then the
+measured run, whose kernels are those the device ran after the marker: a
+trace lacked the device records of its first milliseconds.
 
 Then a line ``{"kernels": [...]}`` with each kernel's launches during the
 driven paths (serve, train, eval, the separate CTC path, serve_uni with
@@ -178,6 +187,10 @@ KERNELS = ("log_mel", "bilstm_fwd", "bilstm_bwd", "ctc_alpha_beta",
            "ctc_alphas", "ctc_betas", "lstm_fwd", "lstm_bwd", "lstm_stack",
            "bigru_fwd", "bigru_bwd", "gru_fwd", "gru_bwd", "bilstm_proj_fwd",
            "bilstm_proj_bwd")
+# K5 takes its cooperative route (W_h fits no cluster of 16) from this
+# f32 H on (ops/rnn_cuda.py::fwd_chain_plan); the f7 phase drives its
+# ceiling there
+K5_COOPERATIVE_H = 512
 # the 3x128 BLSTM of recipes/medium and recipes/hard: hidden units,
 # layers, targets (its input is the flagship's 40-dim features)
 PROJ_H, PROJ_LAYERS, PROJ_TARGETS = 128, 3, 42
@@ -692,7 +705,8 @@ def phase_k5(torch, np, dev):
         # serving (T=800, B=1 and 8; one reverse direction) and training
         # (T=240, B=48) shapes
         for t_max, b, reverse in ((800, 1, False), (800, 8, False),
-                                  (800, 1, True), (TRAIN_T, TRAIN_B, False)):
+                                  (800, 1, True), (TRAIN_T, TRAIN_B, False),
+                                  (TRAIN_T, 600, False)):
             xp, w, lens = uni_inputs(torch, np, dev, t_max, b, h, dtype, b)
             args = (xp, w, lens, reverse)
             got = rnn_cuda.lstm_seq_fwd(*args)
@@ -710,7 +724,9 @@ def phase_k5(torch, np, dev):
                        lambda: rnn_cuda.lstm_seq_fwd_reference(*args), 3,
                        torch),
                    **bound(nbytes(xp, w, lens, *got), lstm_ops(lens, h, 1),
-                           dtype_name), "library_ms": None}
+                           dtype_name), "library_ms": None,
+                   "plan": chain_plan(torch, dev, "lstm_fwd", b, 0, h,
+                                      dtype, 1)}
             if b == TRAIN_B:
                 row["library_ms"] = library_rnn_ms(torch, dev, dtype, t_max,
                                                    b, h, h)
@@ -910,8 +926,9 @@ def phase_gru_kernels(torch, np, dev, bidirectional):
 def phase_k10(torch, np, dev):
     """K10a and K10b at the 3x128 model's layers 2-3 (D=256, H=128)
     against their plain versions: K10a at T=800, B=1 and B=8 (serving)
-    and T=240, B=48 (training), K10b at T=240, B=48 on K10a's outputs,
-    ragged lengths, f32 and bf16.  Beside each at the training shape:
+    and T=240, B=48 (training, its two phases timed apart) and B=600,
+    K10b at T=240, B=48 on K10a's outputs, ragged lengths, f32 and bf16.
+    Beside each at the training shape:
     cuDNN's nn.LSTM(256, 128, bidirectional), which holds the projection
     too, and the hoisted route on the same inputs (the projection GEMM
     then K2; K3 on the stored projection)."""
@@ -924,7 +941,8 @@ def phase_k10(torch, np, dev):
     fwd_rows, bwd_rows = [], []
     for dtype_name in DTYPES:
         dtype = getattr(torch, dtype_name)
-        for t_max, b in ((800, 1), (800, 8), (TRAIN_T, TRAIN_B)):
+        for t_max, b in ((800, 1), (800, 8), (TRAIN_T, TRAIN_B),
+                         (TRAIN_T, 600)):
             rng = np.random.default_rng(100 + b)
 
             def mat(*shape, scale=1.0):
@@ -952,7 +970,9 @@ def phase_k10(torch, np, dev):
                    # both directions' projection and recurrent product
                    **bound(nbytes(*args, *got),
                            proj_ops(lens, d, h) + lstm_ops(lens, h, 2),
-                           dtype_name), "library_ms": None}
+                           dtype_name), "library_ms": None,
+                   "plan": chain_plan(torch, dev, "bilstm_fwd", b, d, h,
+                                      dtype, 2)}
             if b == TRAIN_B:
                 row["library_ms"] = library_rnn_ms(
                     torch, dev, dtype, t_max, b, d, h, bidirectional=True)
@@ -960,13 +980,16 @@ def phase_k10(torch, np, dev):
                     lambda: rnn_cuda.bilstm_seq_fwd(
                         rnn_cuda._project_bilstm(x, w_x, bias), w[0], w[1],
                         lens), 10, torch)
+                row.update(k10a_phases(torch, dev, args))
+                train = (x, w_x, bias, w, lens, got)
             fwd_rows.append(row)
             emit({"phase": "k10_bilstm_proj", **row})
             if not all(ok for _, ok in errs):
                 fail(f"K10a bilstm_seq_fwd_proj disagrees with its plain "
                      f"version: {row}")
 
-        # K10b at the training shape, on the last (B=48) forward's outputs
+        # K10b at the training shape, on the B=48 forward's outputs
+        x, w_x, bias, w, lens, got = train
         rng = np.random.default_rng(107)
         dy = [torch.as_tensor(rng.standard_normal((TRAIN_T, TRAIN_B, h))
                               .astype(np.float32), device=dev).to(dtype)
@@ -1011,6 +1034,52 @@ def phase_k10(torch, np, dev):
             "bilstm_proj_bwd": kernel_row(bwd_rows, bwd_rows[0])}
 
 
+def chain_plan(torch, dev, source, b, d, h, dtype, dirs):
+    """The forward chain's launch shape (K10a, or K5 with d 0) as its
+    wrapper plans it: ops/rnn_cuda.py::fwd_chain_plan."""
+    from kaldi_ctc_tpu_torch import _kernels
+    from kaldi_ctc_tpu_torch.ops import rnn_cuda
+    lib = _kernels.load(source, rnn_cuda._SIGNATURES if source == "bilstm_fwd"
+                        else rnn_cuda._UNI_SIGNATURES)
+    return rnn_cuda.fwd_chain_plan(
+        b, d, h, dtype, dirs,
+        torch.cuda.get_device_properties(dev).multi_processor_count,
+        rnn_cuda._smem_optin(lib, f"{source}_smem_optin", dev))._asdict()
+
+
+def k10a_phases(torch, dev, args):
+    """K10a's two phases timed apart on the same operands (one chunk of
+    frames at the training shape): phase 1, every frame's projection, and
+    phase 2, both directions' chains in clusters."""
+    from kaldi_ctc_tpu_torch import _kernels
+    from kaldi_ctc_tpu_torch.ops import rnn_cuda
+    x, w_x, bias, w_f, w_b, lens = args
+    t, b, d = x.shape
+    h = w_f.shape[0]
+    lib = _kernels.load("bilstm_fwd", rnn_cuda._SIGNATURES)
+    plan = rnn_cuda.FwdChainPlan(**chain_plan(torch, dev, "bilstm_fwd", b, d,
+                                              h, x.dtype, 2))
+    sfx = rnn_cuda._SUFFIX[x.dtype]
+    stream = _kernels.stream_ptr(dev)
+    pre = torch.empty((t, b, 8 * h), dtype=torch.float32, device=dev)
+    state = torch.zeros((2, 2, b, h), dtype=torch.float32, device=dev)
+    outs = rnn_cuda._fwd_outputs(t, b, h, x.dtype, dev)
+    lens32 = lens.to(torch.int32)
+
+    def proj():
+        _kernels.check(lib, getattr(lib, "bilstm_proj_x_" + sfx)(
+            x.data_ptr(), w_x.data_ptr(), bias.data_ptr(), pre.data_ptr(), 0,
+            0, t, t, b, d, h, plan.proj_cols, stream), "K10a phase 1")
+
+    def chain():
+        _kernels.check(lib, getattr(lib, "bilstm_fwd_chain_" + sfx)(
+            pre.data_ptr(), w_f.data_ptr(), w_b.data_ptr(), lens32.data_ptr(),
+            *(v.data_ptr() for v in outs), state.data_ptr(), 0, t, t, b, h,
+            plan.cluster, plan.rows, stream), "K10a phase 2")
+    return {"phase1_proj_ms": median_ms(proj, 10, torch),
+            "phase2_chain_ms": median_ms(chain, 10, torch)}
+
+
 def k10b_phases(torch, dev, bargs):
     """K10b's plan and its two phases timed apart on the same operands
     (one chunk of steps at the training shape): phase 1, the gate
@@ -1023,7 +1092,7 @@ def k10b_phases(torch, dev, bargs):
     lib = _kernels.load("bilstm_bwd", rnn_cuda._BWD_SIGNATURES)
     plan = rnn_cuda.k10b_plan(
         b, d, h, torch.cuda.get_device_properties(dev).multi_processor_count,
-        rnn_cuda._smem_optin(lib, dev))
+        rnn_cuda._smem_optin(lib, "bilstm_proj_bwd_smem_optin", dev))
     f32 = torch.float32
     pre = torch.empty((t, b, 8 * h), dtype=f32, device=dev)
     state = torch.zeros((2, 2, b, h), dtype=f32, device=dev)
@@ -1069,7 +1138,7 @@ def k10b_large_batch(torch, np, dev):
     row = {"kernel": "K10b", "dtype": "float32", "T": t, "B": b, "D": d,
            "H": h, "max_abs_err": max(e for e, _ in errs),
            "tol": K3_TOL["float32"],
-           "chunks": -(-t // max(1, rnn_cuda._K10B_SCRATCH_BYTES
+           "chunks": -(-t // max(1, rnn_cuda._K10_SCRATCH_BYTES
                                  // (b * 8 * h * 4))),
            "ms": median_ms(lambda: rnn_cuda.bilstm_seq_bwd_dgates_proj(
                *bargs), 3, torch)}
@@ -1081,10 +1150,11 @@ def k10b_large_batch(torch, np, dev):
 
 def phase_f7(torch, np, dev):
     """Each kernel that keeps every batch row in one block's shared
-    memory (K3, K5, K6, K7 one layer, K8a, K8b, K9a, K9b), once at one row
-    above the most its launch takes (its source's *_max_rows query),
-    H=320, T=20, f32, ragged rows, against its plain version: the wrapper
-    runs it as row slices and counts one launch."""
+    memory (K3, K5's cooperative route, K6, K7 one layer, K8a, K8b, K9a,
+    K9b), once at one row above the most its launch takes (its source's
+    *_max_rows query), H=320 (K5: K5_COOPERATIVE_H), T=20, f32, ragged
+    rows, against its plain version: the wrapper runs it as row slices
+    and counts one launch."""
     from kaldi_ctc_tpu_torch import _kernels
     from kaldi_ctc_tpu_torch.ops import gru_cuda, rnn_cuda
     t, h, f32 = 20, 320, torch.float32
@@ -1114,16 +1184,23 @@ def phase_f7(torch, np, dev):
         if name in ("K5", "K6", "K7"):
             src, sigs, query, dims = {
                 "K5": ("lstm_fwd", rnn_cuda._UNI_SIGNATURES,
-                       "lstm_fwd_max_rows_f32", (h,)),
+                       "lstm_fwd_max_rows_f32", (K5_COOPERATIVE_H,)),
                 "K6": ("lstm_bwd", rnn_cuda._UNI_BWD_SIGNATURES,
                        "lstm_bwd_max_rows_f32", (h,)),
                 "K7": ("lstm_stack", rnn_cuda._STACK_SIGNATURES,
                        "lstm_stack_max_rows_f32", (1, h))}[name]
             b = above(src, sigs, query, *dims)
-            xp, w, lens = uni_inputs(torch, np, dev, t, b, h, f32, b)
             if name == "K5":
+                # only K5's cooperative route has a ceiling
+                if chain_plan(torch, dev, "lstm_fwd", b, 0, K5_COOPERATIVE_H,
+                              f32, 1)["route"] != "cooperative":
+                    fail(f"F7: K5 at H={K5_COOPERATIVE_H} does not take its "
+                         f"cooperative route")
+                xp, w, lens = uni_inputs(torch, np, dev, t, b,
+                                         K5_COOPERATIVE_H, f32, b)
                 return (rnn_cuda.lstm_seq_fwd, rnn_cuda.lstm_seq_fwd_reference,
                         (xp, w, lens, False), K2_TOL["float32"], b)
+            xp, w, lens = uni_inputs(torch, np, dev, t, b, h, f32, b)
             if name == "K7":
                 return (rnn_cuda.lstm_stack_fwd,
                         rnn_cuda.lstm_stack_fwd_reference,
@@ -1163,7 +1240,8 @@ def phase_f7(torch, np, dev):
         got, want = ((got, want) if isinstance(got, tuple)
                      else ((got,), (want,)))
         errs = [max_err(g, r, 0.0, tol) for g, r in zip(got, want)]
-        row = {"kernel": name, "wrapper": fn.__name__, "T": t, "H": h,
+        row = {"kernel": name, "wrapper": fn.__name__, "T": t,
+               "H": K5_COOPERATIVE_H if name == "K5" else h,
                "B": b, "one_launch_max_rows": b - 1, "launches": launched,
                "max_abs_err": max(e for e, _ in errs), "tol": tol}
         rows.append(row)
@@ -1593,7 +1671,7 @@ def phase_profile_stream(torch, np, engines, gru=False):
     """Where one 8-slot tick's time goes: device time by kernel from
     torch.profiler against the tick's wall time; K7's share for an LSTM
     stack (a GRU stack launches none of the port's kernels)."""
-    from torch.profiler import DeviceType, ProfilerActivity, profile
+    from torch.profiler import DeviceType
 
     rng = np.random.default_rng(50)
     chunks = rng.standard_normal((STREAMS, CHUNK_FRAMES, 40)).astype(
@@ -1609,11 +1687,7 @@ def phase_profile_stream(torch, np, engines, gru=False):
             rec.process(chunks, valid)
             walls.append((time.perf_counter() - t0) * 1000)
         walls.sort()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            rec.process(chunks, valid)
-            traced_ms = (time.perf_counter() - t0) * 1000
+        prof, traced_ms = profiled(torch, lambda: rec.process(chunks, valid))
         kernels = device_kernels(prof, DeviceType)
         device_ms = sum(k[0] for k in kernels) / 1000
         k7_ms = sum(k[0] for k in kernels if "::lstm_stack_kernel" in k[2]) \
@@ -1635,30 +1709,78 @@ def phase_profile_stream(torch, np, engines, gru=False):
                                "count": k[1]} for k in kernels[:8]]})
 
 
+# a traced window: its warm-up (at least this long) and the marker kernel
+# that starts the measured run on the device's own clock (torch.cuda._sleep
+# launches spin_kernel)
+WARMUP_S = 0.05
+MARK = "spin_kernel"
+
+
+def profiled(torch, fn):
+    """``fn()`` under torch.profiler after a warm-up of ``fn()`` runs
+    (``WARMUP_S`` or more) and a marker kernel → (the profiler, the wall
+    ms of the measured run, which ends in a synchronize).  A trace lacked
+    the device records of its first milliseconds (the f32 3x128 step's
+    K2, a uni GRU step's first K9a: absent from kineto's own records), so
+    a window must not start with the work it measures; and the measured
+    kernels are found by the device's clock (after the marker), not the
+    host's."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        while True:
+            fn()
+            torch.cuda.synchronize()
+            if time.perf_counter() - t0 >= WARMUP_S:
+                break
+        torch.cuda._sleep(1000)
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        traced_ms = (time.perf_counter() - t0) * 1000
+    return prof, traced_ms
+
+
 def device_kernels(prof, DeviceType):
-    """[(device us, count, name)] of the CUDA kernels in a trace, by
-    device time, largest first."""
-    kernels = []
-    for evt in prof.key_averages():
-        us = getattr(evt, "self_device_time_total", None)
-        if us is None:
-            us = evt.self_cuda_time_total
-        if evt.device_type == DeviceType.CUDA and us > 0:
-            kernels.append((us, evt.count, evt.key))
-    kernels.sort(reverse=True)
-    return kernels
+    """[(device us, count, name)] of the CUDA kernels of the measured run
+    of ``profiled`` (after its marker), by device time, largest first;
+    none when the trace lost the marker."""
+    events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    marks = [e.time_range.start for e in events if MARK in e.name]
+    if not marks:
+        return []
+    sums = {}
+    for e in events:
+        if e.time_range.start > max(marks) and MARK not in e.name:
+            us, count = sums.get(e.name, (0.0, 0))
+            sums[e.name] = (us + e.time_range.elapsed_us(), count + 1)
+    return sorted(((us, count, name) for name, (us, count) in sums.items()
+                   if us > 0), reverse=True)
 
 
 # the device kernels of a wrapper as a trace names them: one each, but
-# K10b's two phases (phase 1 is bilstm_proj_gates_tiled_kernel or
-# bilstm_proj_gates_kernel); a wrapper call launches the last of them
-# once per chunk of steps (one chunk at the training shape)
-KERNEL_TAGS = {"bilstm_proj_bwd": ("::bilstm_proj_gates",
-                                   "::bilstm_proj_chain_kernel")}
+# K10a's two phases (bilstm_proj_x_tiled_kernel or bilstm_proj_x_kernel,
+# then bilstm_fwd_chain_kernel), K10b's (bilstm_proj_gates_tiled_kernel or
+# bilstm_proj_gates_kernel, then bilstm_proj_chain_kernel) and K5's two
+# routes (lstm_fwd_chain_kernel or lstm_fwd_kernel)
+KERNEL_TAGS = {"bilstm_proj_fwd": ("::bilstm_proj_x",
+                                   "::bilstm_fwd_chain_kernel"),
+               "bilstm_proj_bwd": ("::bilstm_proj_gates",
+                                   "::bilstm_proj_chain_kernel"),
+               "lstm_fwd": ("::lstm_fwd_chain_kernel", "::lstm_fwd_kernel")}
+# of those, the ones a wrapper call launches once (once per chunk of
+# steps: one chunk at the training shape)
+LAUNCH_TAGS = {"bilstm_proj_fwd": ("::bilstm_fwd_chain_kernel",),
+               "bilstm_proj_bwd": ("::bilstm_proj_chain_kernel",)}
 
 
 def kernel_tags(name):
     return KERNEL_TAGS.get(name, (f"::{name}_kernel",))
+
+
+def launch_tags(name):
+    return LAUNCH_TAGS.get(name, kernel_tags(name))
 
 
 def train_launches(fwd, bwd, layers, proj, dtype):
@@ -1681,7 +1803,7 @@ def phase_train(torch, np, dev, bidirectional=True, mode=None, proj=False):
     bench.py's shapes: parity with the plain versions on the card, launch
     counts, the eval step, audio-s/s and one profiled step, for f32 then
     bf16."""
-    from torch.profiler import DeviceType, ProfilerActivity, profile
+    from torch.profiler import DeviceType
 
     from kaldi_ctc_tpu_torch.models.acoustic import AmConfig, init_am_params
     from kaldi_ctc_tpu_torch.ops.rnn import RnnMode
@@ -1783,19 +1905,18 @@ def phase_train(torch, np, dev, bidirectional=True, mode=None, proj=False):
                          / (time.perf_counter() - t0))
         rates.sort()
 
-        # one step under the profiler; a trace that lost one of the
-        # step's recurrent kernel launches (seen once on the card) is
+        # one step under the profiler, after its warm-up step; a trace
+        # that still lost one of the step's recurrent kernel launches is
         # taken again, up to three times
+        def one_step():
+            nonlocal state
+            state, _ = step(state, batch)
+
         for traces in range(1, 4):
-            with profile(activities=[ProfilerActivity.CPU,
-                                     ProfilerActivity.CUDA]) as prof:
-                t0 = time.perf_counter()
-                state, m = step(state, batch)
-                torch.cuda.synchronize()
-                traced_ms = (time.perf_counter() - t0) * 1000
+            prof, traced_ms = profiled(torch, one_step)
             kernels = device_kernels(prof, DeviceType)
             traced = {k: sum(c for _, c, name in kernels
-                             if kernel_tags(k)[-1] in name)
+                             if any(tag in name for tag in launch_tags(k)))
                       for k in want if k != "ctc_alpha_beta"}
             if all(traced[k] == want[k] for k in traced):
                 break
@@ -1848,7 +1969,7 @@ def phase_profile(torch, np, engines, kname="bilstm_fwd"):
     """Where one 8 s request's time goes: device time by kernel from
     torch.profiler (``kname``'s share: K2, or K8a for the BiGRU), against
     the request's wall time with and without the profiler."""
-    from torch.profiler import DeviceType, ProfilerActivity, profile
+    from torch.profiler import DeviceType
 
     x = pcm(8.0, 13, np).astype(np.float32)
     for dtype, engine in engines.items():
@@ -1860,11 +1981,7 @@ def phase_profile(torch, np, engines, kname="bilstm_fwd"):
             engine.recognize(x)
             walls.append((time.perf_counter() - t0) * 1000)
         walls.sort()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            engine.recognize(x)
-            traced_ms = (time.perf_counter() - t0) * 1000
+        prof, traced_ms = profiled(torch, lambda: engine.recognize(x))
         kernels = device_kernels(prof, DeviceType)
         device_ms = sum(k[0] for k in kernels) / 1000
 

@@ -105,6 +105,7 @@
 #include <stdint.h>
 
 #include "bilstm_cell.cuh"
+#include "lstm_gates.cuh"
 #include "row_ceiling.cuh"
 
 namespace cg = cooperative_groups;
@@ -344,29 +345,28 @@ int launch(const void* dyf, const void* dyb, const void* xp, const void* yf,
 
 // ---------------------------------------------------------------------------
 // K10b phase 1: the gate pre-activations of every step, parallel over T
+// (the bodies of csrc/lstm_gates.cuh, which K10a's phase 1 runs too)
 // ---------------------------------------------------------------------------
 
-__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
-               "l"(src)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_all;\n" ::: "memory");
-}
-
-constexpr int kGateThreads = 256;
-constexpr int kMaxGateCols = 32;      // gate columns per block, one a lane
-constexpr int kGateRowsPerWarp = 32;  // rows each warp walks (grid sizing)
-
-// shared memory of a phase-1 block of `cols` gate columns: their W_x and
-// W_h columns and bias as f32 (ops/rnn_cuda.py::k10b_plan picks cols by
-// the same sum)
-size_t gates_smem(int cols, int D, int H) {
-  return sizeof(float) * (size_t)cols * (D + H + 1);
-}
+// K10b's rows: row r of a chunk is walk step s0 + r / B, batch row r % B;
+// the forward direction is at t = T-1-s, the backward at t = s, and
+// y[t-+1] is zero (null) at the direction's first forward step
+template <typename T>
+struct WalkRows {
+  const T* x;
+  const T* yf;
+  const T* yb;
+  int s0, steps, B, D, H;
+  __device__ __forceinline__ void operator()(int dir, int r, const T*& xr,
+                                             const T*& yr) const {
+    const int s = s0 + r / B, b = r % B;
+    const int t = dir == 0 ? steps - 1 - s : s;
+    xr = x + ((size_t)t * B + b) * D;
+    if (s != steps - 1)
+      yr = (dir == 0 ? yf : yb) +
+           ((size_t)(dir == 0 ? t - 1 : t + 1) * B + b) * H;
+  }
+};
 
 template <typename T>
 __global__ void __launch_bounds__(kGateThreads)
@@ -376,56 +376,8 @@ bilstm_proj_gates_kernel(const T* __restrict__ x, const T* __restrict__ yf,
                          const T* __restrict__ whf, const T* __restrict__ whb,
                          float* __restrict__ pre, int s0, int S, int steps,
                          int B, int D, int H, int cols) {
-  extern __shared__ float smem[];
-  const int G = 4 * H;
-  const int tiles = (G + cols - 1) / cols;   // per direction
-  const int dir = blockIdx.x / tiles;
-  const int c0 = (blockIdx.x % tiles) * cols;
-  const int nc = min(cols, G - c0);
-  const T* wh = dir == 0 ? whf : whb;
-  const T* y = dir == 0 ? yf : yb;
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int nwarps = blockDim.x >> 5;
-  float* wx_s = smem;                 // [nc][D]: W_x column c0 + c
-  float* wh_s = wx_s + nc * D;        // [nc][H]: W_h column c0 + c
-  float* b_s = wh_s + nc * H;         // [nc]
-
-  for (int i = threadIdx.x; i < nc * D; i += blockDim.x) {
-    const int k = i / nc, c = i % nc;
-    wx_s[c * D + k] = to_f32(wx[(size_t)k * 2 * G + dir * G + c0 + c]);
-  }
-  for (int i = threadIdx.x; i < nc * H; i += blockDim.x) {
-    const int k = i / nc, c = i % nc;
-    wh_s[c * H + k] = to_f32(wh[(size_t)k * G + c0 + c]);
-  }
-  for (int c = threadIdx.x; c < nc; c += blockDim.x)
-    b_s[c] = bias[dir * G + c0 + c];
-  __syncthreads();
-
-  // one row (step, batch row) per warp at a time; x[t] and y[t-+1] are
-  // read through L1/L2 (never staged, as K10a reads x), each lane its
-  // k = lane, lane + 32, ...
-  const int rows = S * B;
-  for (int r = blockIdx.y * nwarps + warp; r < rows;
-       r += gridDim.y * nwarps) {
-    const int si = r / B, b = r % B;
-    const int s = s0 + si;
-    const bool first = s == steps - 1;   // the direction's first fwd step
-    const int t = dir == 0 ? steps - 1 - s : s;
-    const int tp = dir == 0 ? t - 1 : t + 1;
-    const T* xr = x + ((size_t)t * B + b) * D;
-    const T* yr = y + ((size_t)(first ? t : tp) * B + b) * H;
-    // K10a's gate sum: the recurrent warp_dot, then its project()
-    float mine = 0.0f;
-    for (int c = 0; c < nc; ++c) {
-      float acc = first ? 0.0f : warp_dot(yr, wh_s + c * H, H, lane);
-      acc += project(xr, wx_s + c * D, b_s[c], D, lane);
-      if (lane == c) mine = acc;
-    }
-    if (lane < nc)
-      pre[((size_t)si * B + b) * 2 * G + dir * G + c0 + lane] = mine;
-  }
+  gates_warp_body<T, true>(wx, bias, whf, whb, pre, S * B, D, H, cols,
+                           WalkRows<T>{x, yf, yb, s0, steps, B, D, H});
 }
 
 template <typename T>
@@ -437,65 +389,19 @@ int gates_launch(const void* x, const void* yf, const void* yb,
   if (s0 < 0 || s0 + S > steps || D <= 0 || H <= 0 || cols < 1 ||
       cols > kMaxGateCols)
     return cudaErrorInvalidValue;
-  int dev = 0, optin = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e != cudaSuccess) return e;
-  cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
-                         dev);
-  const size_t smem = gates_smem(cols, D, H);
-  if (smem > (size_t)optin) return cudaErrorLaunchOutOfResources;
   auto kern = bilstm_proj_gates_kernel<T>;
-  e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           (int)smem);
+  const size_t smem = gates_smem(cols, D, H);
+  int sms = 0;
+  cudaError_t e = gates_prepare((const void*)kern, smem, &sms);
   if (e != cudaSuccess) return e;
-  const long long rows = (long long)S * B;
-  const long long per_block = (kGateThreads / 32) * kGateRowsPerWarp;
-  const int tiles = (4 * H + cols - 1) / cols;
-  const dim3 grid(2 * tiles,
-                  (unsigned)std::min<long long>(65535,
-                                                (rows + per_block - 1) /
-                                                    per_block));
-  kern<<<grid, kGateThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+  kern<<<gates_warp_grid((long long)S * B, H, cols), kGateThreads, smem,
+         static_cast<cudaStream_t>(stream)>>>(
       static_cast<const T*>(x), static_cast<const T*>(yf),
       static_cast<const T*>(yb), static_cast<const T*>(wx),
       static_cast<const float*>(bias), static_cast<const T*>(whf),
       static_cast<const T*>(whb), static_cast<float*>(pre), s0, S, steps, B,
       D, H, cols);
   return cudaGetLastError();
-}
-
-// The tiled phase 1: each block takes 64 gate columns of one direction
-// (their W_x and W_h as f32, staged once) and walks tiles of 64 rows
-// (step, batch row), staging the rows' x[t] and y[t-+1] (zeros at the
-// first forward step); each thread sums 4 rows x 4 columns with
-// tile_dot4x4 (csrc/bilstm_cell.cuh): warp_dot's order, bit for bit,
-// with none of its shuffles.  Rows and columns are staged k-major, 68
-// floats a k (64 and a pad that keeps float4 loads aligned), so a
-// thread reads its 4 rows and its 4 columns at one k with two float4
-// loads.  Rows of D + H <= 426 floats fit (227 KB).
-constexpr int kTileRows = 64;         // (step, batch row) pairs a block
-constexpr int kTileCols = 64;         // gate columns a block
-constexpr int kTileThreads = 256;     // 16 x 16 threads of 4 x 4 pairs
-constexpr int kTileStride = 68;       // floats a k, rows or columns
-
-size_t gates_tiled_smem(int D, int H) {
-  return sizeof(float) *
-         ((size_t)2 * kTileStride * (D + H) + kTileCols);
-}
-
-// one staged operand of the tiled phase 1, as f32: an f32 value is
-// copied by cp.async (every copy of a tile in flight at once), a bf16
-// value converted on the way; a missing one (past the rows, y before the
-// first step) is zero
-template <typename T>
-__device__ __forceinline__ void stage(float* dst, const T* src) {
-  if (src == nullptr) {
-    *dst = 0.0f;
-  } else if constexpr (sizeof(T) == sizeof(float)) {
-    cp_async4(dst, src);
-  } else {
-    *dst = to_f32(*src);
-  }
 }
 
 template <typename T>
@@ -506,79 +412,8 @@ bilstm_proj_gates_tiled_kernel(
     const float* __restrict__ bias, const T* __restrict__ whf,
     const T* __restrict__ whb, float* __restrict__ pre, int s0, int S,
     int steps, int B, int D, int H) {
-  extern __shared__ __align__(16) float tile_smem[];
-  const int G = 4 * H;
-  const int K = D + H;
-  const int tiles = (G + kTileCols - 1) / kTileCols;   // per direction
-  const int dir = blockIdx.x / tiles;
-  const int c0 = (blockIdx.x % tiles) * kTileCols;
-  const int nc = min(kTileCols, G - c0);
-  const T* wh = dir == 0 ? whf : whb;
-  const T* y = dir == 0 ? yf : yb;
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int nwarps = blockDim.x >> 5;
-  float* a_s = tile_smem;                // [K][68]: x[t] | y[t-+1] by row
-  float* w_s = a_s + kTileStride * K;    // [K][68]: W_x | W_h by column
-  float* b_s = w_s + kTileStride * K;    // [64]
-
-  // the block's columns, once: it walks row tiles blockIdx.y, + gridDim.y
-  for (int i = threadIdx.x; i < kTileCols * K; i += blockDim.x) {
-    const int k = i / kTileCols, c = i % kTileCols;
-    float w = 0.0f;
-    if (c < nc)
-      w = k < D ? to_f32(wx[(size_t)k * 2 * G + dir * G + c0 + c])
-                : to_f32(wh[(size_t)(k - D) * G + c0 + c]);
-    w_s[k * kTileStride + c] = w;
-  }
-  for (int c = threadIdx.x; c < kTileCols; c += blockDim.x)
-    b_s[c] = c < nc ? bias[dir * G + c0 + c] : 0.0f;
-
-  const int tr = threadIdx.x / 16, tc = threadIdx.x % 16;
-  const int row_tiles = (S * B + kTileRows - 1) / kTileRows;
-  for (int rt = blockIdx.y; rt < row_tiles; rt += gridDim.y) {
-    const int row0 = rt * kTileRows;      // of the chunk's S * B rows
-    const int nr = min(kTileRows, S * B - row0);
-    __syncthreads();                      // the last tile's sums are done
-    for (int r = warp; r < kTileRows; r += nwarps) {
-      const T* xr = nullptr;
-      const T* yr = nullptr;              // zeros at the first fwd step
-      if (r < nr) {
-        const int si = (row0 + r) / B, b = (row0 + r) % B;
-        const int s = s0 + si;
-        const int t = dir == 0 ? steps - 1 - s : s;
-        xr = x + ((size_t)t * B + b) * D;
-        if (s != steps - 1)
-          yr = y + ((size_t)(dir == 0 ? t - 1 : t + 1) * B + b) * H;
-      }
-      for (int k = lane; k < D; k += 32)
-        stage(a_s + k * kTileStride + r, xr == nullptr ? xr : xr + k);
-      for (int k = lane; k < H; k += 32)
-        stage(a_s + (D + k) * kTileStride + r, yr == nullptr ? yr : yr + k);
-    }
-    cp_async_wait_all();
-    __syncthreads();
-
-    float proj[4][4], rec[4][4];
-    tile_dot4x4(a_s + 4 * tr, w_s + 4 * tc, kTileStride, D, proj);
-    tile_dot4x4(a_s + D * kTileStride + 4 * tr,
-                w_s + D * kTileStride + 4 * tc, kTileStride, H, rec);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int r = 4 * tr + i;
-      if (r >= nr) continue;
-      float* out = pre + (size_t)(row0 + r) * 2 * G + dir * G + c0;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int c = 4 * tc + j;
-        // K10a's gate: the recurrent sum (+0 over the zero rows of the
-        // first step, as K10a's over h0), plus project()'s rounded
-        // projection
-        if (c < nc)
-          out[c] = rec[i][j] + to_f32(from_f32<T>(proj[i][j] + b_s[c]));
-      }
-    }
-  }
+  gates_tiled_body<T, true>(wx, bias, whf, whb, pre, S * B, D, H,
+                            WalkRows<T>{x, yf, yb, s0, steps, B, D, H});
 }
 
 template <typename T>
@@ -589,26 +424,13 @@ int gates_tiled_launch(const void* x, const void* yf, const void* yb,
   if (S <= 0 || B <= 0) return cudaGetLastError();
   if (s0 < 0 || s0 + S > steps || D <= 0 || H <= 0)
     return cudaErrorInvalidValue;
-  int dev = 0, optin = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e != cudaSuccess) return e;
-  cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
-                         dev);
-  const size_t smem = gates_tiled_smem(D, H);
-  if (smem > (size_t)optin) return cudaErrorLaunchOutOfResources;
   auto kern = bilstm_proj_gates_tiled_kernel<T>;
-  e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           (int)smem);
-  if (e != cudaSuccess) return e;
-  // one block an SM (its shared memory), each walking row tiles
+  const size_t smem = gates_tiled_smem(D, H);
   int sms = 0;
-  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  const int col_blocks = 2 * ((4 * H + kTileCols - 1) / kTileCols);
-  const long long row_tiles = ((long long)S * B + kTileRows - 1) / kTileRows;
-  const dim3 grid(col_blocks,
-                  (unsigned)std::max<long long>(
-                      1, std::min<long long>(row_tiles, sms / col_blocks)));
-  kern<<<grid, kTileThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+  cudaError_t e = gates_prepare((const void*)kern, smem, &sms);
+  if (e != cudaSuccess) return e;
+  kern<<<gates_tiled_grid((long long)S * B, H, sms), kTileThreads, smem,
+         static_cast<cudaStream_t>(stream)>>>(
       static_cast<const T*>(x), static_cast<const T*>(yf),
       static_cast<const T*>(yb), static_cast<const T*>(wx),
       static_cast<const float*>(bias), static_cast<const T*>(whf),
@@ -636,31 +458,6 @@ size_t chain_floats(int C, int R, int H) {
   const size_t recv = (2 * (size_t)C * R * hsz + 3) & ~(size_t)3;
   return 4 * hsz * H + recv + 4 * hsz * rp + 2 * (size_t)R * hsz +
          2 * (size_t)kPrefetch * R * hsz + R;
-}
-
-__device__ __forceinline__ void cluster_arrive() {
-  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void cluster_wait() {
-  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
-}
-
-// the 4-byte aligned word holding *p (a bf16 value shares it with a
-// neighbour of the same tensor), and *p read back from that word
-template <typename T>
-__device__ __forceinline__ const void* word_of(const T* p) {
-  return reinterpret_cast<const void*>(reinterpret_cast<uintptr_t>(p) &
-                                       ~static_cast<uintptr_t>(3));
-}
-__device__ __forceinline__ float from_word(uint32_t w, const float*) {
-  return __uint_as_float(w);
-}
-__device__ __forceinline__ float from_word(uint32_t w,
-                                           const __nv_bfloat16* p) {
-  const bool high = (reinterpret_cast<uintptr_t>(p) & 2) != 0;
-  return __bfloat162float(__ushort_as_bfloat16(
-      static_cast<unsigned short>(high ? w >> 16 : w & 0xffffu)));
 }
 
 template <typename T>
@@ -935,14 +732,7 @@ int bilstm_bwd_bf16(const void* dyf, const void* dyb, const void* xp,
 
 // the opt-in shared memory of one block on the current device, in bytes
 // (K10b's plan sizes its clusters by it), or a negative CUDA error code
-int bilstm_proj_bwd_smem_optin(void) {
-  int dev = 0, optin = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e == cudaSuccess)
-    e = cudaDeviceGetAttribute(&optin,
-                               cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  return e == cudaSuccess ? optin : -static_cast<int>(e);
-}
+int bilstm_proj_bwd_smem_optin(void) { return smem_optin_bytes(); }
 
 // K10b phase 1 over walk steps s0 .. s0+S-1 of `steps`: x [T, B, D], y_f,
 // y_b [T, B, H], wx [D, 8H], w_h_f, w_h_b [H, 4H] in the compute dtype,

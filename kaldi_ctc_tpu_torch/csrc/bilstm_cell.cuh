@@ -1,22 +1,29 @@
-// What the bidirectional LSTM kernels share: K2 and K10a
-// (csrc/bilstm_fwd.cu), K3 and K10b (csrc/bilstm_bwd.cu).
+// What the LSTM kernels share: K2 and K10a (csrc/bilstm_fwd.cu), K3 and
+// K10b (csrc/bilstm_bwd.cu), K5 (csrc/lstm_fwd.cu), the phase-1 code of
+// csrc/lstm_gates.cuh and the forward chain of csrc/lstm_chain.cuh.
 //
 // The gate sums are warp-split dot products: lane l adds the products at
 // k = l, l + 32, ... with fmaf in order, then the warp reduces the 32
 // partial sums by xor shuffles.  The order is fixed by the lane, not by
 // the block or the kernel, so the backward kernels, which recompute the
 // forward's gates, get the same sums bit for bit from the same operands.
+// warp_dot() sums one output a warp; tile_dot4x4() the same sums, one
+// thread for 4 x 4 outputs; warp_sum32() 32 outputs a warp at once.
 //
 // project() is the in-kernel input projection of K10a and K10b, the
 // counterpart of rnn_pallas.py::_proj: x[t, b, :] . W_x[:, col] with f32
 // sums, plus the f32 bias, rounded to the compute dtype.  It is the one
 // definition both passes call, so the gates K10b recomputes are the gates
 // K10a computed (the recompute invariant holds for the projection too).
+//
+// Last, the asynchronous copies (cp.async), the split cluster barrier and
+// the 4-byte word access of a bf16 value that the chains use.
 
 #pragma once
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 namespace {
 
@@ -124,6 +131,87 @@ __device__ __forceinline__ float project(const T* __restrict__ x_row,
                                         const float* __restrict__ wx_col,
                                         float bias, int D, int lane) {
   return to_f32(from_f32<T>(warp_dot(x_row, wx_col, D, lane) + bias));
+}
+
+// One level of warp_sum32: `live` partial sums a lane → live / 2.  At
+// xor offset live / 2 a lane keeps the half of its outputs whose offset
+// bit is its own and adds its partner's partial of each (a + b = b + a
+// exactly, so either lane's sum is warp_dot's at this level).
+template <int kLive>
+__device__ __forceinline__ void fold_half(float (&v)[32], int lane) {
+  constexpr int kHalf = kLive / 2;
+  const bool upper = (lane & kHalf) != 0;
+#pragma unroll
+  for (int q = 0; q < kHalf; ++q) {
+    const float send = upper ? v[q] : v[q + kHalf];
+    const float keep = upper ? v[q + kHalf] : v[q];
+    v[q] = keep + __shfl_xor_sync(0xffffffffu, send, kHalf);
+  }
+}
+
+// 32 outputs of a warp at once: v[o] holds lane's partial sum of output o
+// (its k = lane, lane + 32, ... summed with fmaf in order, as in warp_dot)
+// → lane o's return value is output o's sum, warp_dot's bit for bit (the
+// same xor tree, offsets 16, 8, 4, 2, 1), in 31 shuffles where 32
+// warp_dot reductions take 160.
+__device__ __forceinline__ float warp_sum32(float (&v)[32], int lane) {
+  fold_half<32>(v, lane);
+  fold_half<16>(v, lane);
+  fold_half<8>(v, lane);
+  fold_half<4>(v, lane);
+  fold_half<2>(v, lane);
+  return v[0];
+}
+
+// a 4-byte copy from global to shared memory that does not hold up the
+// thread (cp.async); cp_async_wait_all waits for the thread's own copies
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
+               "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// the cluster barrier in two halves: stores before arrive are seen by
+// every CTA of the cluster after its wait
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// the 4-byte aligned word holding *p (a bf16 value shares it with a
+// neighbour of the same tensor), and *p read back from that word
+template <typename T>
+__device__ __forceinline__ const void* word_of(const T* p) {
+  return reinterpret_cast<const void*>(reinterpret_cast<uintptr_t>(p) &
+                                       ~static_cast<uintptr_t>(3));
+}
+__device__ __forceinline__ float from_word(uint32_t w, const float*) {
+  return __uint_as_float(w);
+}
+__device__ __forceinline__ float from_word(uint32_t w,
+                                           const __nv_bfloat16* p) {
+  const bool high = (reinterpret_cast<uintptr_t>(p) & 2) != 0;
+  return __bfloat162float(__ushort_as_bfloat16(
+      static_cast<unsigned short>(high ? w >> 16 : w & 0xffffu)));
+}
+
+// the opt-in shared memory of one block on the current device, in bytes,
+// or a negative CUDA error code
+inline int smem_optin_bytes() {
+  int dev = 0, optin = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&optin,
+                               cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  return e == cudaSuccess ? optin : -static_cast<int>(e);
 }
 
 }  // namespace

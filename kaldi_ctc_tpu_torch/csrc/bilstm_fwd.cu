@@ -1,6 +1,6 @@
 // K2 and K10a: the forward recurrence of one bidirectional LSTM layer,
 // from the hoisted projection (K2) or with the input projection computed
-// inside each step (K10a).
+// by the kernels (K10a).
 //
 // Replaces kaldi_ctc_tpu/ops/rnn_pallas.py::_bilstm_seq_fwd (kernel body
 // _bifwd_kernel; K2) and ::_bilstm_seq_fwd_proj (kernel body
@@ -8,12 +8,12 @@
 // [T, B, 8H] in the compute dtype (forward direction's 4H first, gate
 // order i, f, g, o).  K10a's is the layer input x [T, B, D] with W_x
 // [D, 8H] in the compute dtype and the bias [8H] in f32: the projection
-// of each step is x[t] . W_x-half + bias-half with f32 sums, rounded to
+// of each frame is x[t] . W_x-half + bias-half with f32 sums, rounded to
 // the compute dtype (project() of csrc/bilstm_cell.cuh), so it equals
 // the hoisted projection K2 would have read.  Both take the recurrent
 // weights w_h_f / w_h_b [H, 4H] and the lengths [B].  Both directions
-// advance in one loop of T steps: step s moves the forward direction at
-// t = s and the backward direction at t = T-1-s.
+// advance together: step s moves the forward direction at t = s and the
+// backward direction at t = T-1-s.
 // gates = xp[t] + h[t-1] . W_h with the operand h rounded to the compute
 // dtype and f32 accumulation; gate math and the cell state are f32.
 // A frame t >= lens[b] carries h and c forward and writes y = 0.
@@ -25,26 +25,37 @@
 // a few microseconds of latency (read h[t-1], reduce, gate math) but
 // almost no work for 132 SMs.  W_h is 320 x 1280 per direction (1.6 MB
 // in f32), far above the 227 KB of shared memory one block has, where
-// the TPU kernel kept it whole in VMEM.  K10a adds D x 4H MACs per row
-// and direction to each step (twice the recurrent work at D = 2H), none
-// of which waits on the previous step.
+// the TPU kernel kept it whole in VMEM.
 //
-// Design: ONE cooperative launch per layer.  The grid covers both
+// K2's design: ONE cooperative launch per layer.  The grid covers both
 // directions: each block owns hs hidden units of one direction and
-// keeps those units' four gate columns of W_h (and, for K10a, of W_x and
-// the bias) in shared memory for the whole sequence (as f32, transposed
-// so the lanes of a warp read consecutive k), and their cell state c in
-// shared memory too.  Each step a block reads h[t-1] of its direction
-// from a double-buffered f32 exchange in global memory (L2-resident;
-// read with ld.global.cg so a stale L1 line is never seen), computes its
-// 4*hs gate sums with warp-split dot products (K10a: each warp's
-// projection from x[t] read through L1/L2, so any B fits), does the gate
-// math, writes y, c and its slice of h[t], and the grid meets at one
-// grid.sync() per step.  The double buffer makes one barrier per step
-// enough: step s reads parity s&1 and writes parity (s+1)&1.  h[t-1] is
-// staged in tiles of bt rows (bt = B whenever B rows fit shared memory),
-// so the kernel takes any batch.  hs is chosen so that the grid fits the
-// card in one wave; the host checks co-residency before launching.
+// keeps those units' four gate columns of W_h in shared memory for the
+// whole sequence (as f32, transposed so the lanes of a warp read
+// consecutive k), and their cell state c in shared memory too.  Each
+// step a block reads h[t-1] of its direction from a double-buffered f32
+// exchange in global memory (L2-resident; read with ld.global.cg so a
+// stale L1 line is never seen), computes its 4*hs gate sums with
+// warp-split dot products, does the gate math, writes y, c and its slice
+// of h[t], and the grid meets at one grid.sync() per step.  The double
+// buffer makes one barrier per step enough: step s reads parity s&1 and
+// writes parity (s+1)&1.  h[t-1] is staged in tiles of bt rows (bt = B
+// whenever B rows fit shared memory), so the kernel takes any batch.  hs
+// is chosen so that the grid fits the card in one wave; the host checks
+// co-residency before launching.
+//
+// K10a's design: two kernels.  The projection does not depend on the
+// recurrence, so it leaves the serial chain:
+//   1. bilstm_proj_x_tiled_kernel (or, for D > 426, bilstm_proj_x_kernel)
+//      computes every frame's projection at once, parallel over T, into
+//      an f32 scratch [S, B, 8H] indexed by time: csrc/lstm_gates.cuh,
+//      the same code as K10b's phase 1, so the projection is project()'s
+//      bit for bit (the recompute invariant);
+//   2. bilstm_fwd_chain_kernel walks both directions' recurrences in
+//      thread-block clusters (csrc/lstm_chain.cuh), no grid barrier, any
+//      B, reading each step's projection from the scratch.
+// A scratch above 256 MiB runs in chunks of S frames a direction (the
+// forward direction's chunk k holds t = kS .., the backward direction's
+// t = T - (k+1)S ..), h and c carried between them in an f32 state.
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
@@ -54,24 +65,22 @@
 #include <algorithm>
 
 #include "bilstm_cell.cuh"
+#include "lstm_chain.cuh"
+#include "lstm_gates.cuh"
 
 namespace cg = cooperative_groups;
 
 namespace {
 
 constexpr int kThreads = 256;
-// K10a's steps hold the projection's D-long sums besides the recurrent
-// ones, so it runs twice K2's warps
-constexpr int kProjThreads = 512;
 
-template <typename T, bool kProj>
-__device__ __forceinline__ void bilstm_fwd_body(
-    const T* __restrict__ in, const T* __restrict__ wx,
-    const float* __restrict__ bias, const T* __restrict__ whf,
-    const T* __restrict__ whb, const int32_t* __restrict__ lens,
-    T* __restrict__ yf, float* __restrict__ cf, T* __restrict__ yb,
-    float* __restrict__ cb, float* hbuf, int steps, int B, int D, int H,
-    int hs, int bt) {
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+bilstm_fwd_kernel(const T* __restrict__ xp, const T* __restrict__ whf,
+                  const T* __restrict__ whb, const int32_t* __restrict__ lens,
+                  T* __restrict__ yf, float* __restrict__ cf,
+                  T* __restrict__ yb, float* __restrict__ cb, float* hbuf,
+                  int steps, int B, int H, int hs, int bt) {
   cg::grid_group grid = cg::this_grid();
   extern __shared__ float smem[];
   const int nb = (H + hs - 1) / hs;        // blocks per direction
@@ -84,11 +93,8 @@ __device__ __forceinline__ void bilstm_fwd_body(
   T* y = dir == 0 ? yf : yb;
   float* cst = dir == 0 ? cf : cb;
 
-  const int wxn = kProj ? 4 * hs * D : 0;
   float* w_s = smem;                 // [4n][H]: column c = gate * n + jj
-  float* wx_s = w_s + 4 * hs * H;    // K10a: [4n][D] columns of W_x
-  float* b_s = wx_s + wxn;           // K10a: [4n] bias
-  float* c_s = b_s + (kProj ? 4 * hs : 0);  // [B][n]: cell state
+  float* c_s = w_s + 4 * hs * H;     // [B][n]: cell state
   float* h_s = c_s + B * hs;         // [bt][H]: h[t-1] as the operand
   float* g_s = h_s + bt * H;         // [bt][4n]: gate sums
 
@@ -96,16 +102,6 @@ __device__ __forceinline__ void bilstm_fwd_body(
     const int c = i / H, k = i % H;
     const int gate = c / n, jj = c % n;
     w_s[i] = to_f32(wh[(size_t)k * G + gate * H + j0 + jj]);
-  }
-  if constexpr (kProj) {
-    for (int i = threadIdx.x; i < n4 * D; i += blockDim.x) {
-      const int c = i / D, k = i % D;
-      const int gate = c / n, jj = c % n;
-      const int col = dir * G + gate * H + j0 + jj;
-      wx_s[i] = to_f32(wx[(size_t)k * 2 * G + col]);
-    }
-    for (int c = threadIdx.x; c < n4; c += blockDim.x)
-      b_s[c] = bias[dir * G + (c / n) * H + j0 + c % n];
   }
   for (int i = threadIdx.x; i < B * n; i += blockDim.x) c_s[i] = 0.0f;
 
@@ -125,26 +121,16 @@ __device__ __forceinline__ void bilstm_fwd_body(
       __syncthreads();
       for (int o = warp; o < nr * n4; o += nwarps) {
         const int r = o / n4, c = o % n4;
-        float acc = warp_dot(h_s + r * H, w_s + c * H, H, lane);
-        if constexpr (kProj)
-          acc += project(in + ((size_t)t * B + r0 + r) * D, wx_s + c * D,
-                         b_s[c], D, lane);
+        const float acc = warp_dot(h_s + r * H, w_s + c * H, H, lane);
         if (lane == 0) g_s[o] = acc;
       }
       __syncthreads();
       for (int e = threadIdx.x; e < nr * n; e += blockDim.x) {
         const int r = e / n, jj = e % n, j = j0 + jj, b = r0 + r;
         const float* g = g_s + r * n4;
-        // pre-activation of gate q: K10a's sums hold the projection, K2
-        // adds the stored one
-        auto pre = [&](int q) {
-          if constexpr (kProj) {
-            return g[q * n + jj];
-          } else {
-            const T* x = in + ((size_t)t * B + b) * 2 * G + dir * G;
-            return to_f32(x[q * H + j]) + g[q * n + jj];
-          }
-        };
+        const T* x = xp + ((size_t)t * B + b) * 2 * G + dir * G;
+        // pre-activation of gate q: the stored projection plus the sums
+        auto pre = [&](int q) { return to_f32(x[q * H + j]) + g[q * n + jj]; };
         const float gi = sigmoid(pre(0));
         const float gf = sigmoid(pre(1));
         const float gg = tanhf(pre(2));
@@ -167,38 +153,12 @@ __device__ __forceinline__ void bilstm_fwd_body(
   }
 }
 
+// K2
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
-bilstm_fwd_kernel(const T* __restrict__ xp, const T* __restrict__ whf,
-                  const T* __restrict__ whb, const int32_t* __restrict__ lens,
-                  T* __restrict__ yf, float* __restrict__ cf,
-                  T* __restrict__ yb, float* __restrict__ cb, float* hbuf,
-                  int steps, int B, int H, int hs, int bt) {
-  bilstm_fwd_body<T, false>(xp, nullptr, nullptr, whf, whb, lens, yf, cf, yb,
-                            cb, hbuf, steps, B, 0, H, hs, bt);
-}
-
-template <typename T>
-__global__ void __launch_bounds__(kProjThreads)
-bilstm_proj_fwd_kernel(const T* __restrict__ x, const T* __restrict__ wx,
-                       const float* __restrict__ bias,
-                       const T* __restrict__ whf, const T* __restrict__ whb,
-                       const int32_t* __restrict__ lens, T* __restrict__ yf,
-                       float* __restrict__ cf, T* __restrict__ yb,
-                       float* __restrict__ cb, float* hbuf, int steps, int B,
-                       int D, int H, int hs, int bt) {
-  bilstm_fwd_body<T, true>(x, wx, bias, whf, whb, lens, yf, cf, yb, cb, hbuf,
-                           steps, B, D, H, hs, bt);
-}
-
-// K2 (wx == nullptr: `in` is xp) or K10a (`in` is x, D its width)
-template <typename T>
-int launch(const void* in, const void* wx, const void* bias, const void* whf,
-           const void* whb, const void* lens, void* yf, void* cf, void* yb,
-           void* cb, void* hbuf, int steps, int B, int D, int H,
-           void* stream) {
+int launch(const void* xp, const void* whf, const void* whb,
+           const void* lens, void* yf, void* cf, void* yb, void* cb,
+           void* hbuf, int steps, int B, int H, void* stream) {
   if (steps <= 0 || B <= 0) return cudaGetLastError();
-  const bool proj = wx != nullptr;
   int dev = 0, sms = 0, coop = 0, optin = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e != cudaSuccess) return e;
@@ -210,31 +170,25 @@ int launch(const void* in, const void* wx, const void* bias, const void* whf,
   // hidden units per block: both directions' blocks in one wave
   const int hs = (2 * H + sms - 1) / sms;
   const int nb = (H + hs - 1) / hs;
-  // the weight columns, the bias and every row's cell state stay; the
-  // h operand and the gate sums take bt rows at a time
-  const size_t fixed = (size_t)4 * hs * H + (size_t)B * hs +
-                       (proj ? (size_t)4 * hs * (D + 1) : 0);
+  // the weight columns and every row's cell state stay; the h operand
+  // and the gate sums take bt rows at a time
+  const size_t fixed = (size_t)4 * hs * H + (size_t)B * hs;
   const size_t per_row = (size_t)H + 4 * hs;
   const size_t room = (size_t)optin / sizeof(float);
   if (room < fixed + per_row) return cudaErrorLaunchOutOfResources;
   const int bt = (int)std::min<size_t>(B, (room - fixed) / per_row);
   const size_t smem = sizeof(float) * (fixed + (size_t)bt * per_row);
-  auto k2 = bilstm_fwd_kernel<T>;
-  auto k10 = bilstm_proj_fwd_kernel<T>;
-  const void* kern = proj ? (const void*)k10 : (const void*)k2;
-  const int threads = proj ? kProjThreads : kThreads;
+  auto kern = bilstm_fwd_kernel<T>;
   e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
                            (int)smem);
   if (e != cudaSuccess) return e;
   int per_sm = 0;
-  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, threads,
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, kThreads,
                                                     smem);
   if (e != cudaSuccess) return e;
   if (per_sm * sms < 2 * nb) return cudaErrorCooperativeLaunchTooLarge;
 
-  const T* a_in = static_cast<const T*>(in);
-  const T* a_wx = static_cast<const T*>(wx);
-  const float* a_bias = static_cast<const float*>(bias);
+  const T* a_xp = static_cast<const T*>(xp);
   const T* a_whf = static_cast<const T*>(whf);
   const T* a_whb = static_cast<const T*>(whb);
   const int32_t* a_lens = static_cast<const int32_t*>(lens);
@@ -243,55 +197,187 @@ int launch(const void* in, const void* wx, const void* bias, const void* whf,
   T* a_yb = static_cast<T*>(yb);
   float* a_cb = static_cast<float*>(cb);
   float* a_h = static_cast<float*>(hbuf);
-  int a_steps = steps, a_b = B, a_d = D, a_hd = H, a_hs = hs, a_bt = bt;
-  void* k2_args[] = {&a_in, &a_whf, &a_whb, &a_lens, &a_yf, &a_cf, &a_yb,
-                     &a_cb, &a_h, &a_steps, &a_b, &a_hd, &a_hs, &a_bt};
-  void* k10_args[] = {&a_in,  &a_wx, &a_bias, &a_whf, &a_whb, &a_lens,
-                      &a_yf,  &a_cf, &a_yb,   &a_cb,  &a_h,   &a_steps,
-                      &a_b,   &a_d,  &a_hd,   &a_hs,  &a_bt};
-  void** args = proj ? static_cast<void**>(k10_args)
-                     : static_cast<void**>(k2_args);
-  e = cudaLaunchCooperativeKernel(kern, dim3(2 * nb), dim3(threads), args, smem,
+  int a_steps = steps, a_b = B, a_hd = H, a_hs = hs, a_bt = bt;
+  void* args[] = {&a_xp, &a_whf, &a_whb, &a_lens, &a_yf, &a_cf, &a_yb,
+                  &a_cb, &a_h,   &a_steps, &a_b, &a_hd, &a_hs, &a_bt};
+  e = cudaLaunchCooperativeKernel((void*)kern, dim3(2 * nb), dim3(kThreads),
+                                  args, smem,
                                   static_cast<cudaStream_t>(stream));
   if (e != cudaSuccess) return e;
   return cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// K10a phase 1: every frame's projection at once, parallel over T
+// ---------------------------------------------------------------------------
+
+// K10a's rows: row r of a chunk is frame t0 + r / B of the direction
+// (t0f forward, t0b backward), batch row r % B
+template <typename T>
+struct FrameRows {
+  const T* x;
+  int t0f, t0b, B, D;
+  __device__ __forceinline__ void operator()(int dir, int r, const T*& xr,
+                                             const T*&) const {
+    const int t = (dir == 0 ? t0f : t0b) + r / B;
+    xr = x + ((size_t)t * B + r % B) * D;
+  }
+};
+
+template <typename T>
+__global__ void __launch_bounds__(kGateThreads)
+bilstm_proj_x_kernel(const T* __restrict__ x, const T* __restrict__ wx,
+                     const float* __restrict__ bias, float* __restrict__ pre,
+                     int t0f, int t0b, int S, int B, int D, int H,
+                     int cols) {
+  gates_warp_body<T, false>(wx, bias, static_cast<const T*>(nullptr),
+                            static_cast<const T*>(nullptr), pre, S * B, D,
+                            H, cols, FrameRows<T>{x, t0f, t0b, B, D});
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kTileThreads, 1)
+bilstm_proj_x_tiled_kernel(const T* __restrict__ x,
+                           const T* __restrict__ wx,
+                           const float* __restrict__ bias,
+                           float* __restrict__ pre, int t0f, int t0b, int S,
+                           int B, int D, int H) {
+  gates_tiled_body<T, false>(wx, bias, static_cast<const T*>(nullptr),
+                             static_cast<const T*>(nullptr), pre, S * B, D,
+                             H, FrameRows<T>{x, t0f, t0b, B, D});
+}
+
+// cols 0: the tiled kernel; 1..32: the warp kernel with that many gate
+// columns a block
+template <typename T>
+int proj_x_launch(const void* x, const void* wx, const void* bias,
+                  void* pre, int t0f, int t0b, int S, int steps, int B,
+                  int D, int H, int cols, void* stream) {
+  if (S <= 0 || B <= 0) return cudaGetLastError();
+  if (t0f < 0 || t0b < 0 || t0f + S > steps || t0b + S > steps || D <= 0 ||
+      H <= 0 || cols < 0 || cols > kMaxGateCols)
+    return cudaErrorInvalidValue;
+  const long long rows = (long long)S * B;
+  const T* a_x = static_cast<const T*>(x);
+  const T* a_wx = static_cast<const T*>(wx);
+  const float* a_bias = static_cast<const float*>(bias);
+  float* a_pre = static_cast<float*>(pre);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  int sms = 0;
+  if (cols == 0) {
+    auto kern = bilstm_proj_x_tiled_kernel<T>;
+    const size_t smem = gates_tiled_smem(D, 0);
+    cudaError_t e = gates_prepare((const void*)kern, smem, &sms);
+    if (e != cudaSuccess) return e;
+    kern<<<gates_tiled_grid(rows, H, sms), kTileThreads, smem, st>>>(
+        a_x, a_wx, a_bias, a_pre, t0f, t0b, S, B, D, H);
+  } else {
+    auto kern = bilstm_proj_x_kernel<T>;
+    const size_t smem = gates_smem(cols, D, 0);
+    cudaError_t e = gates_prepare((const void*)kern, smem, &sms);
+    if (e != cudaSuccess) return e;
+    kern<<<gates_warp_grid(rows, H, cols), kGateThreads, smem, st>>>(
+        a_x, a_wx, a_bias, a_pre, t0f, t0b, S, B, D, H, cols);
+  }
+  return cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// K10a phase 2: both directions' recurrences in thread-block clusters
+// ---------------------------------------------------------------------------
+
+template <typename T, int RT>
+__global__ void __launch_bounds__(kChainFwdThreads)
+bilstm_fwd_chain_kernel(const float* pre, int pre_stride, int t0f, int t0b,
+                        const T* whf, const T* whb, const int32_t* lens,
+                        T* yf, float* cf, T* yb, float* cb, float* state,
+                        int dirs, int s0, int S, int steps, int B, int H,
+                        int R, int reverse) {
+  fwd_chain_body<T, float, RT>(pre, pre_stride, t0f, t0b, whf, whb, lens, yf,
+                               cf, yb, cb, state, dirs, s0, S, steps, B, H,
+                               R, reverse);
+}
+
+template <typename T>
+int chain_launch(const void* pre, const void* whf, const void* whb,
+                 const void* lens, void* yf, void* cf, void* yb, void* cb,
+                 void* state, int s0, int S, int steps, int B, int H, int C,
+                 int R, void* stream) {
+  // the forward direction's chunk starts at t = s0, the backward's ends
+  // at t = T-1-s0; the scratch holds both directions' S frames in order
+  const int t0f = s0, t0b = steps - s0 - S;
+  auto kern = R >= 4 ? &bilstm_fwd_chain_kernel<T, 4>
+              : R >= 2 ? &bilstm_fwd_chain_kernel<T, 2>
+                       : &bilstm_fwd_chain_kernel<T, 1>;
+  return fwd_chain_launch<T, float>(kern, pre, 8 * H, t0f, t0b, whf, whb,
+                                    lens, yf, cf, yb, cb, state, 2, s0, S,
+                                    steps, B, H, C, R, 0, stream);
 }
 
 }  // namespace
 
 extern "C" {
 
-// hbuf: [2 parities][2 directions][B][H] f32, parity 0 zeroed by the caller
+// K2.  hbuf: [2 parities][2 directions][B][H] f32, parity 0 zeroed by the
+// caller
 int bilstm_fwd_f32(const void* xp, const void* whf, const void* whb,
                    const void* lens, void* yf, void* cf, void* yb, void* cb,
                    void* hbuf, int steps, int B, int H, void* stream) {
-  return launch<float>(xp, nullptr, nullptr, whf, whb, lens, yf, cf, yb, cb,
-                       hbuf, steps, B, 0, H, stream);
+  return launch<float>(xp, whf, whb, lens, yf, cf, yb, cb, hbuf, steps, B,
+                       H, stream);
 }
 
 int bilstm_fwd_bf16(const void* xp, const void* whf, const void* whb,
                     const void* lens, void* yf, void* cf, void* yb, void* cb,
                     void* hbuf, int steps, int B, int H, void* stream) {
-  return launch<__nv_bfloat16>(xp, nullptr, nullptr, whf, whb, lens, yf, cf,
-                               yb, cb, hbuf, steps, B, 0, H, stream);
+  return launch<__nv_bfloat16>(xp, whf, whb, lens, yf, cf, yb, cb, hbuf,
+                               steps, B, H, stream);
 }
 
-// K10a: x [T, B, D] and wx [D, 8H] in the compute dtype, bias [8H] f32;
-// hbuf as above
-int bilstm_proj_fwd_f32(const void* x, const void* wx, const void* bias,
-                        const void* whf, const void* whb, const void* lens,
-                        void* yf, void* cf, void* yb, void* cb, void* hbuf,
-                        int steps, int B, int D, int H, void* stream) {
-  return launch<float>(x, wx, bias, whf, whb, lens, yf, cf, yb, cb, hbuf,
-                       steps, B, D, H, stream);
+// the opt-in shared memory of one block on the current device, in bytes
+// (K10a's plan sizes its kernels by it), or a negative CUDA error code
+int bilstm_fwd_smem_optin(void) { return smem_optin_bytes(); }
+
+// K10a phase 1 over S frames a direction of `steps`: x [T, B, D] and wx
+// [D, 8H] in the compute dtype, bias [8H] f32 -> pre [S, B, 8H] f32, row
+// i holding the forward direction's projection at t = t0f + i and the
+// backward direction's at t = t0b + i; `cols` 0 for the tiled kernel
+// (D <= 426), else gate columns a block of the warp kernel (at most 32)
+int bilstm_proj_x_f32(const void* x, const void* wx, const void* bias,
+                      void* pre, int t0f, int t0b, int S, int steps, int B,
+                      int D, int H, int cols, void* stream) {
+  return proj_x_launch<float>(x, wx, bias, pre, t0f, t0b, S, steps, B, D, H,
+                              cols, stream);
 }
 
-int bilstm_proj_fwd_bf16(const void* x, const void* wx, const void* bias,
-                         const void* whf, const void* whb, const void* lens,
-                         void* yf, void* cf, void* yb, void* cb, void* hbuf,
-                         int steps, int B, int D, int H, void* stream) {
-  return launch<__nv_bfloat16>(x, wx, bias, whf, whb, lens, yf, cf, yb, cb,
-                               hbuf, steps, B, D, H, stream);
+int bilstm_proj_x_bf16(const void* x, const void* wx, const void* bias,
+                       void* pre, int t0f, int t0b, int S, int steps, int B,
+                       int D, int H, int cols, void* stream) {
+  return proj_x_launch<__nv_bfloat16>(x, wx, bias, pre, t0f, t0b, S, steps,
+                                      B, D, H, cols, stream);
+}
+
+// K10a phase 2 over walk steps s0 .. s0+S-1 of `steps`: pre from phase 1
+// (t0f = s0, t0b = steps - s0 - S), w_h_f, w_h_b [H, 4H] in the compute
+// dtype, lens [B] int32 -> y_f, y_b [T, B, H] in the compute dtype and
+// c_f, c_b [T, B, H] f32 at those steps' frames; state [2][2][B][H] f32
+// holds h and c (per direction) on entry and, unless the walk ends here,
+// on exit.  C CTAs per cluster (a power of two <= 16), R rows per cluster.
+int bilstm_fwd_chain_f32(const void* pre, const void* whf, const void* whb,
+                         const void* lens, void* yf, void* cf, void* yb,
+                         void* cb, void* state, int s0, int S, int steps,
+                         int B, int H, int C, int R, void* stream) {
+  return chain_launch<float>(pre, whf, whb, lens, yf, cf, yb, cb, state, s0,
+                             S, steps, B, H, C, R, stream);
+}
+
+int bilstm_fwd_chain_bf16(const void* pre, const void* whf, const void* whb,
+                          const void* lens, void* yf, void* cf, void* yb,
+                          void* cb, void* state, int s0, int S, int steps,
+                          int B, int H, int C, int R, void* stream) {
+  return chain_launch<__nv_bfloat16>(pre, whf, whb, lens, yf, cf, yb, cb,
+                                     state, s0, S, steps, B, H, C, R,
+                                     stream);
 }
 
 const char* kctpu_error_string(int err) {

@@ -19,26 +19,39 @@
 // 320 x 1280 (1.6 MB in f32), far more than one block's 227 KB of shared
 // memory.
 //
-// Design: K2's (csrc/bilstm_fwd.cu) with one direction.  One cooperative
-// launch: each block owns hs hidden units and keeps those units' four
-// gate columns of W_h in shared memory for the whole sequence (as f32,
-// transposed so the lanes of a warp read consecutive k), and their cell
-// state too.  Each step a block reads h from a double-buffered f32
-// exchange in global memory (L2-resident, ld.global.cg so a stale L1
-// line is never seen), computes its 4*hs gate sums with warp-split dot
-// products, does the gate math, writes y, c and its slice of the next h,
-// and the grid meets at one grid.sync() per step: step s reads parity
-// s&1 and writes parity (s+1)&1.  hs = ceil(H / SMs) puts the grid in one
-// wave (107 blocks of 3 units at H = 320); the host checks co-residency
-// before launching and refuses a grid that cannot be.  Every row's h
-// stays in shared memory, so a launch takes at most lstm_fwd_max_rows(H)
-// rows (~162 at H = 320); the wrapper runs a larger batch as row slices.
+// Two routes, chosen by the wrapper's plan from the shapes
+// (ops/rnn_cuda.py::fwd_chain_plan):
+//   - the cluster route, wherever W_h fits a cluster of at most 16 CTAs
+//     (H up to ~470 in f32, ~670 in bf16): lstm_fwd_chain_kernel, the
+//     forward chain of csrc/lstm_chain.cuh with one direction, reading
+//     x_proj directly.  Rows never meet, so each cluster of C CTAs walks a
+//     group of R rows with W_h in distributed shared memory and one
+//     cluster barrier a step: no grid barrier, any B;
+//   - the cooperative route above that: lstm_fwd_kernel, K2's design
+//     (csrc/bilstm_fwd.cu) with one direction.  One cooperative launch:
+//     each block owns hs hidden units and keeps those units' four gate
+//     columns of W_h in shared memory for the whole sequence (as f32,
+//     transposed so the lanes of a warp read consecutive k), and their
+//     cell state too.  Each step a block reads h from a double-buffered
+//     f32 exchange in global memory (L2-resident, ld.global.cg so a stale
+//     L1 line is never seen), computes its 4*hs gate sums with warp-split
+//     dot products, does the gate math, writes y, c and its slice of the
+//     next h, and the grid meets at one grid.sync() per step: step s
+//     reads parity s&1 and writes parity (s+1)&1.  hs = ceil(H / SMs)
+//     puts the grid in one wave; the host checks co-residency before
+//     launching and refuses a grid that cannot be.  Every row's h stays in
+//     shared memory, so a launch takes at most lstm_fwd_max_rows(H) rows;
+//     the wrapper runs a larger batch as row slices.
+// Both sum in warp_dot's order (csrc/bilstm_cell.cuh), the order K6
+// recomputes the gates in.
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "bilstm_cell.cuh"
+#include "lstm_chain.cuh"
 #include "row_ceiling.cuh"
 
 namespace cg = cooperative_groups;
@@ -46,24 +59,6 @@ namespace cg = cooperative_groups;
 namespace {
 
 constexpr int kThreads = 256;
-
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-
-template <typename T>
-__device__ __forceinline__ T from_f32(float v);
-template <>
-__device__ __forceinline__ float from_f32<float>(float v) { return v; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
-  return __float2bfloat16(v);  // round to nearest even, as astype does
-}
-
-__device__ __forceinline__ float sigmoid(float x) {
-  return 1.0f / (1.0f + expf(-x));
-}
 
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
@@ -202,6 +197,31 @@ int launch(const void* xp, const void* wh, const void* lens, void* y,
   return cudaGetLastError();
 }
 
+// the cluster route: K5 as the forward chain with one direction
+template <typename T, int RT>
+__global__ void __launch_bounds__(kChainFwdThreads)
+lstm_fwd_chain_kernel(const T* pre, int pre_stride, int t0f, int t0b,
+                      const T* whf, const T* whb, const int32_t* lens, T* yf,
+                      float* cf, T* yb, float* cb, float* state, int dirs,
+                      int s0, int S, int steps, int B, int H, int R,
+                      int reverse) {
+  fwd_chain_body<T, T, RT>(pre, pre_stride, t0f, t0b, whf, whb, lens, yf, cf,
+                           yb, cb, state, dirs, s0, S, steps, B, H, R,
+                           reverse);
+}
+
+template <typename T>
+int chain_launch(const void* xp, const void* wh, const void* lens, void* y,
+                 void* cst, void* state, int steps, int B, int H, int C,
+                 int R, int reverse, void* stream) {
+  auto kern = R >= 4 ? &lstm_fwd_chain_kernel<T, 4>
+              : R >= 2 ? &lstm_fwd_chain_kernel<T, 2>
+                       : &lstm_fwd_chain_kernel<T, 1>;
+  return fwd_chain_launch<T, T>(kern, xp, 4 * H, 0, 0, wh, wh, lens, y, cst,
+                                y, cst, state, 1, 0, steps, steps, B, H, C,
+                                R, reverse, stream);
+}
+
 }  // namespace
 
 extern "C" {
@@ -211,7 +231,12 @@ extern "C" {
 int lstm_fwd_max_rows_f32(int H) { return max_rows_of<float>(H); }
 int lstm_fwd_max_rows_bf16(int H) { return max_rows_of<__nv_bfloat16>(H); }
 
-// hbuf: [2 parities][B][H] f32, parity 0 zeroed by the caller
+// the opt-in shared memory of one block on the current device, in bytes
+// (K5's plan sizes its clusters by it), or a negative CUDA error code
+int lstm_fwd_smem_optin(void) { return smem_optin_bytes(); }
+
+// the cooperative route.  hbuf: [2 parities][B][H] f32, parity 0 zeroed
+// by the caller
 int lstm_fwd_f32(const void* xp, const void* wh, const void* lens, void* y,
                  void* cst, void* hbuf, int steps, int B, int H, int reverse,
                  void* stream) {
@@ -224,6 +249,22 @@ int lstm_fwd_bf16(const void* xp, const void* wh, const void* lens, void* y,
                   void* stream) {
   return launch<__nv_bfloat16>(xp, wh, lens, y, cst, hbuf, steps, B, H,
                                reverse, stream);
+}
+
+// the cluster route: C CTAs per cluster (a power of two <= 16), R rows
+// per cluster; state [2 (h, c)][B][H] f32 zeroed by the caller
+int lstm_fwd_chain_f32(const void* xp, const void* wh, const void* lens,
+                       void* y, void* cst, void* state, int steps, int B,
+                       int H, int C, int R, int reverse, void* stream) {
+  return chain_launch<float>(xp, wh, lens, y, cst, state, steps, B, H, C, R,
+                             reverse, stream);
+}
+
+int lstm_fwd_chain_bf16(const void* xp, const void* wh, const void* lens,
+                        void* y, void* cst, void* state, int steps, int B,
+                        int H, int C, int R, int reverse, void* stream) {
+  return chain_launch<__nv_bfloat16>(xp, wh, lens, y, cst, state, steps, B,
+                                     H, C, R, reverse, stream);
 }
 
 const char* kctpu_error_string(int err) {

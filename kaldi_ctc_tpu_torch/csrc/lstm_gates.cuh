@@ -1,0 +1,252 @@
+// Gate pre-activations of many (step, batch row) pairs at once, parallel
+// over the steps: phase 1 of K10b (csrc/bilstm_bwd.cu) and of K10a
+// (csrc/bilstm_fwd.cu).
+//
+// K10b's phase 1 recomputes the forward's gates, the projection of x[t]
+// plus the recurrent sum over the stored y[t-+1]; K10a's phase 1 computes
+// the projection alone, which its forward chain (csrc/lstm_chain.cuh)
+// adds to the recurrent sum.  Both run the bodies below, so the
+// projection K10a's chain reads is the one K10b recomputes, bit for bit:
+// project() of csrc/bilstm_cell.cuh, x . W_x with warp_dot's order, plus
+// the bias, rounded to the compute dtype.
+//
+// Two kernels of the same sums (the card tests hold them equal bit for
+// bit):
+//   - tiled: a block keeps 64 gate columns of one direction (their W_x,
+//     and for K10b their W_h, as f32, staged once) and walks tiles of 64
+//     rows, staging each tile's x rows (and y rows) by cp.async, k-major,
+//     68 floats a k (64 and a pad that keeps float4 loads aligned); each
+//     thread sums 4 rows x 4 columns with tile_dot4x4, which walks
+//     warp_dot's lanes in the order of its shuffle tree.  Rows of
+//     D + H <= 426 floats fit (227 KB; D <= 426 for the projection alone);
+//   - warp: one warp per row over up to 32 columns of a block, calling
+//     warp_dot and project() themselves, x[t] and y[t-+1] read through
+//     L1/L2: for rows too long to stage.
+// The output is an f32 scratch [rows][8H] (forward direction's 4H first):
+// row r of the caller's rows at r * 8H.  The caller maps row r to its x
+// row and y row (null: zeros, the first forward step) with `row_of(dir, r,
+// xr, yr)`; the projection alone (kRec false) never reads a y row.
+
+#pragma once
+
+#include <algorithm>
+
+#include <cuda_runtime.h>
+
+#include "bilstm_cell.cuh"
+
+namespace {
+
+constexpr int kGateThreads = 256;
+constexpr int kMaxGateCols = 32;      // gate columns per block, one a lane
+constexpr int kGateRowsPerWarp = 32;  // rows each warp walks (grid sizing)
+
+constexpr int kTileRows = 64;         // rows a block tile
+constexpr int kTileCols = 64;         // gate columns a block
+constexpr int kTileThreads = 256;     // 16 x 16 threads of 4 x 4 pairs
+constexpr int kTileStride = 68;       // floats a k, rows or columns
+
+// shared memory of a warp-kernel block of `cols` gate columns: their W_x
+// and W_h columns and bias as f32 (H = 0: the projection alone)
+size_t gates_smem(int cols, int D, int H) {
+  return sizeof(float) * (size_t)cols * (D + H + 1);
+}
+
+// shared memory of a tiled block (H = 0: the projection alone)
+size_t gates_tiled_smem(int D, int H) {
+  return sizeof(float) * ((size_t)2 * kTileStride * (D + H) + kTileCols);
+}
+
+// one staged operand of the tiled kernel, as f32: an f32 value is copied
+// by cp.async (every copy of a tile in flight at once), a bf16 value
+// converted on the way; a missing one (past the rows, y before the first
+// step) is zero
+template <typename T>
+__device__ __forceinline__ void stage(float* dst, const T* src) {
+  if (src == nullptr) {
+    *dst = 0.0f;
+  } else if constexpr (sizeof(T) == sizeof(float)) {
+    cp_async4(dst, src);
+  } else {
+    *dst = to_f32(*src);
+  }
+}
+
+// The warp kernel's block: `cols` gate columns of one direction
+// (blockIdx.x), rows blockIdx.y * warps + warp, + gridDim.y * warps, ...
+template <typename T, bool kRec, typename RowOf>
+__device__ __forceinline__ void gates_warp_body(
+    const T* __restrict__ wx, const float* __restrict__ bias,
+    const T* __restrict__ whf, const T* __restrict__ whb,
+    float* __restrict__ pre, int rows, int D, int H, int cols,
+    RowOf row_of) {
+  extern __shared__ float smem[];
+  const int G = 4 * H;
+  const int Hr = kRec ? H : 0;               // recurrent terms a sum
+  const int tiles = (G + cols - 1) / cols;   // per direction
+  const int dir = blockIdx.x / tiles;
+  const int c0 = (blockIdx.x % tiles) * cols;
+  const int nc = min(cols, G - c0);
+  const T* wh = dir == 0 ? whf : whb;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int nwarps = blockDim.x >> 5;
+  float* wx_s = smem;                 // [nc][D]: W_x column c0 + c
+  float* wh_s = wx_s + nc * D;        // [nc][Hr]: W_h column c0 + c
+  float* b_s = wh_s + nc * Hr;        // [nc]
+
+  for (int i = threadIdx.x; i < nc * D; i += blockDim.x) {
+    const int k = i / nc, c = i % nc;
+    wx_s[c * D + k] = to_f32(wx[(size_t)k * 2 * G + dir * G + c0 + c]);
+  }
+  if constexpr (kRec) {
+    for (int i = threadIdx.x; i < nc * H; i += blockDim.x) {
+      const int k = i / nc, c = i % nc;
+      wh_s[c * H + k] = to_f32(wh[(size_t)k * G + c0 + c]);
+    }
+  }
+  for (int c = threadIdx.x; c < nc; c += blockDim.x)
+    b_s[c] = bias[dir * G + c0 + c];
+  __syncthreads();
+
+  // one row per warp at a time; x and y rows are read through L1/L2
+  // (never staged, as K10a read x), each lane its k = lane, lane + 32, ...
+  for (int r = blockIdx.y * nwarps + warp; r < rows;
+       r += gridDim.y * nwarps) {
+    const T* xr = nullptr;
+    const T* yr = nullptr;
+    row_of(dir, r, xr, yr);
+    // K10a's gate sum: the recurrent warp_dot, then its project()
+    float mine = 0.0f;
+    for (int c = 0; c < nc; ++c) {
+      float acc;
+      if constexpr (kRec) {
+        acc = yr == nullptr ? 0.0f : warp_dot(yr, wh_s + c * H, H, lane);
+        acc += project(xr, wx_s + c * D, b_s[c], D, lane);
+      } else {
+        acc = project(xr, wx_s + c * D, b_s[c], D, lane);
+      }
+      if (lane == c) mine = acc;
+    }
+    if (lane < nc) pre[(size_t)r * 2 * G + dir * G + c0 + lane] = mine;
+  }
+}
+
+// the warp kernel's grid: both directions' column blocks by enough row
+// groups that each warp walks ~kGateRowsPerWarp rows
+inline dim3 gates_warp_grid(long long rows, int H, int cols) {
+  const long long per_block = (kGateThreads / 32) * kGateRowsPerWarp;
+  const int tiles = (4 * H + cols - 1) / cols;
+  return dim3(2 * tiles,
+              (unsigned)std::min<long long>(
+                  65535, (rows + per_block - 1) / per_block));
+}
+
+// The tiled kernel's block: 64 gate columns of one direction
+// (blockIdx.x), row tiles blockIdx.y, + gridDim.y, ...
+template <typename T, bool kRec, typename RowOf>
+__device__ __forceinline__ void gates_tiled_body(
+    const T* __restrict__ wx, const float* __restrict__ bias,
+    const T* __restrict__ whf, const T* __restrict__ whb,
+    float* __restrict__ pre, int rows, int D, int H, RowOf row_of) {
+  extern __shared__ __align__(16) float tile_smem[];
+  const int G = 4 * H;
+  const int Hr = kRec ? H : 0;
+  const int K = D + Hr;
+  const int tiles = (G + kTileCols - 1) / kTileCols;   // per direction
+  const int dir = blockIdx.x / tiles;
+  const int c0 = (blockIdx.x % tiles) * kTileCols;
+  const int nc = min(kTileCols, G - c0);
+  const T* wh = dir == 0 ? whf : whb;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int nwarps = blockDim.x >> 5;
+  float* a_s = tile_smem;                // [K][68]: x | y by row
+  float* w_s = a_s + kTileStride * K;    // [K][68]: W_x | W_h by column
+  float* b_s = w_s + kTileStride * K;    // [64]
+
+  // the block's columns, once: it walks row tiles blockIdx.y, + gridDim.y
+  for (int i = threadIdx.x; i < kTileCols * K; i += blockDim.x) {
+    const int k = i / kTileCols, c = i % kTileCols;
+    float w = 0.0f;
+    if (c < nc)
+      w = k < D ? to_f32(wx[(size_t)k * 2 * G + dir * G + c0 + c])
+                : to_f32(wh[(size_t)(k - D) * G + c0 + c]);
+    w_s[k * kTileStride + c] = w;
+  }
+  for (int c = threadIdx.x; c < kTileCols; c += blockDim.x)
+    b_s[c] = c < nc ? bias[dir * G + c0 + c] : 0.0f;
+
+  const int tr = threadIdx.x / 16, tc = threadIdx.x % 16;
+  const int row_tiles = (rows + kTileRows - 1) / kTileRows;
+  for (int rt = blockIdx.y; rt < row_tiles; rt += gridDim.y) {
+    const int row0 = rt * kTileRows;
+    const int nr = min(kTileRows, rows - row0);
+    __syncthreads();                      // the last tile's sums are done
+    for (int r = warp; r < kTileRows; r += nwarps) {
+      const T* xr = nullptr;              // zeros past the rows
+      const T* yr = nullptr;              // and at the first fwd step
+      if (r < nr) row_of(dir, row0 + r, xr, yr);
+      for (int k = lane; k < D; k += 32)
+        stage(a_s + k * kTileStride + r, xr == nullptr ? xr : xr + k);
+      if constexpr (kRec) {
+        for (int k = lane; k < H; k += 32)
+          stage(a_s + (D + k) * kTileStride + r,
+                yr == nullptr ? yr : yr + k);
+      }
+    }
+    cp_async_wait_all();
+    __syncthreads();
+
+    float proj[4][4], rec[4][4];
+    tile_dot4x4(a_s + 4 * tr, w_s + 4 * tc, kTileStride, D, proj);
+    if constexpr (kRec)
+      tile_dot4x4(a_s + D * kTileStride + 4 * tr,
+                  w_s + D * kTileStride + 4 * tc, kTileStride, H, rec);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int r = 4 * tr + i;
+      if (r >= nr) continue;
+      float* out = pre + (size_t)(row0 + r) * 2 * G + dir * G + c0;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int c = 4 * tc + j;
+        if (c >= nc) continue;
+        // project()'s rounded projection; K10b adds it to the recurrent
+        // sum (+0 over the zero rows of the first step, as K10a's over
+        // h0), as K10a's chain does
+        const float p = to_f32(from_f32<T>(proj[i][j] + b_s[c]));
+        if constexpr (kRec)
+          out[c] = rec[i][j] + p;
+        else
+          out[c] = p;
+      }
+    }
+  }
+}
+
+// the tiled kernel's grid: both directions' column blocks by as many row
+// groups as leave one block an SM (its shared memory)
+inline dim3 gates_tiled_grid(long long rows, int H, int sms) {
+  const int col_blocks = 2 * ((4 * H + kTileCols - 1) / kTileCols);
+  const long long row_tiles = (rows + kTileRows - 1) / kTileRows;
+  return dim3(col_blocks,
+              (unsigned)std::max<long long>(
+                  1, std::min<long long>(row_tiles, sms / col_blocks)));
+}
+
+// the shared-memory check and attribute of a phase-1 launch
+inline cudaError_t gates_prepare(const void* kern, size_t smem, int* sms) {
+  int dev = 0, optin = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                         dev);
+  cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
+  if (smem > (size_t)optin) return cudaErrorLaunchOutOfResources;
+  return cudaFuncSetAttribute(kern,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              (int)smem);
+}
+
+}  // namespace

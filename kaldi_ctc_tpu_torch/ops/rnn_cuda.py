@@ -23,7 +23,10 @@ leaves them to XLA.  :func:`bilstm_layer` picks K10a/K10b or K2/K3 by
 every batch row in one block's shared memory takes at most its source's
 ``*_max_rows`` rows a launch; its wrapper runs a larger batch as row
 slices (:func:`run_in_row_slices`), so every wrapper takes any batch, as
-the reference does.
+the reference does.  K10a and K5 walk their recurrence in thread-block
+clusters (``csrc/lstm_chain.cuh``), which take any batch by design; their
+launch shape comes from :func:`fwd_chain_plan`, which also sends K5 to its
+cooperative kernel where W_h fits no cluster.
 
 Under bfloat16 the shipped default of the JAX package's ``_bf16_cfg``
 holds: the projection, the layer outputs and the dgates are stored in
@@ -51,17 +54,21 @@ __all__ = ["bilstm_seq_fwd", "bilstm_seq_fwd_reference",
            "lstm_seq_bwd_dgates", "lstm_seq_bwd_dgates_reference",
            "lstm_sequence", "lstm_stack_fwd", "lstm_stack_fwd_reference",
            "lstm_stack_fits", "max_rows", "run_in_row_slices", "K10bPlan",
-           "k10b_plan"]
+           "k10b_plan", "FwdChainPlan", "fwd_chain_plan"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 # each entry point's name ends in the suffix of its compute dtype
 _SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
 _ARGS = [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P]
-_PROJ_ARGS = [_P] * 11 + [_I] * 4 + [_P]
+_PROJ_X_ARGS = [_P] * 4 + [_I] * 8 + [_P]
+_FWD_CHAIN_ARGS = [_P] * 9 + [_I] * 7 + [_P]
 _SIGNATURES = {"bilstm_fwd_f32": _ARGS, "bilstm_fwd_bf16": _ARGS,
-               "bilstm_proj_fwd_f32": _PROJ_ARGS,
-               "bilstm_proj_fwd_bf16": _PROJ_ARGS}
+               "bilstm_fwd_smem_optin": [],
+               "bilstm_proj_x_f32": _PROJ_X_ARGS,
+               "bilstm_proj_x_bf16": _PROJ_X_ARGS,
+               "bilstm_fwd_chain_f32": _FWD_CHAIN_ARGS,
+               "bilstm_fwd_chain_bf16": _FWD_CHAIN_ARGS}
 _BWD_ARGS = [_P] * 13 + [_I, _I, _I, _P]
 _GATES_ARGS = [_P] * 8 + [_I] * 7 + [_P]
 _TILED_ARGS = [_P] * 8 + [_I] * 6 + [_P]
@@ -79,9 +86,13 @@ _BWD_SIGNATURES = {"bilstm_bwd_f32": _BWD_ARGS,
                    "bilstm_proj_chain_f32": _CHAIN_ARGS,
                    "bilstm_proj_chain_bf16": _CHAIN_ARGS}
 _UNI_ARGS = [_P] * 6 + [_I] * 4 + [_P]
+_UNI_CHAIN_ARGS = [_P] * 6 + [_I] * 6 + [_P]
 _UNI_SIGNATURES = {"lstm_fwd_f32": _UNI_ARGS, "lstm_fwd_bf16": _UNI_ARGS,
                    "lstm_fwd_max_rows_f32": [_I],
-                   "lstm_fwd_max_rows_bf16": [_I]}
+                   "lstm_fwd_max_rows_bf16": [_I],
+                   "lstm_fwd_smem_optin": [],
+                   "lstm_fwd_chain_f32": _UNI_CHAIN_ARGS,
+                   "lstm_fwd_chain_bf16": _UNI_CHAIN_ARGS}
 _UNI_BWD_ARGS = [_P] * 8 + [_I] * 4 + [_P]
 _UNI_BWD_SIGNATURES = {"lstm_bwd_f32": _UNI_BWD_ARGS,
                        "lstm_bwd_bf16": _UNI_BWD_ARGS,
@@ -472,7 +483,10 @@ def bilstm_seq_fwd_proj(x: torch.Tensor, w_x: torch.Tensor,
     y_b, c_b): y [T, B, H] in the compute dtype, c [T, B, H] f32.  Each
     step projects its own frame (the forward direction x[s], the backward
     x[T-1-s]) as (x[t] · w_x half, f32 sums) + bias half, rounded to the
-    compute dtype.  The contract of ``_bilstm_seq_fwd_proj``."""
+    compute dtype.  The contract of ``_bilstm_seq_fwd_proj``.  On the
+    card: phase 1 computes every frame's projection at once into an f32
+    scratch, phase 2 walks both directions' recurrences in thread-block
+    clusters (:func:`fwd_chain_plan`); any B."""
     if x.device.type == "cpu":
         return bilstm_seq_fwd_proj_reference(x, w_x, bias, w_h_f, w_h_b,
                                              lens)
@@ -482,19 +496,35 @@ def bilstm_seq_fwd_proj(x: torch.Tensor, w_x: torch.Tensor,
     _check_proj("bilstm_seq_fwd_proj", x, w_x, bias, w_h_f, w_h_b, lens)
     t_max, b, d = x.shape
     h = w_x.shape[1] // 8
-    outs = _fwd_outputs(t_max, b, h, x.dtype, x.device)
+    dev = x.device
+    outs = _fwd_outputs(t_max, b, h, x.dtype, dev)
     if t_max == 0 or b == 0:
         return outs
-    # h exchange between blocks: [parity][direction][B][H], parity 0 = h0
-    hbuf = torch.zeros((2, 2, b, h), dtype=torch.float32, device=x.device)
-    lens32 = lens.to(torch.int32).contiguous()
     lib = _kernels.load("bilstm_fwd", _SIGNATURES)
-    err = getattr(lib, "bilstm_proj_fwd_" + _SUFFIX[x.dtype])(
-        x.data_ptr(), w_x.data_ptr(), bias.data_ptr(), w_h_f.data_ptr(),
-        w_h_b.data_ptr(), lens32.data_ptr(), *(v.data_ptr() for v in outs),
-        hbuf.data_ptr(), t_max, b, d, h, _kernels.stream_ptr(x.device))
-    _kernels.check(lib, err, f"bilstm_seq_fwd_proj at T={t_max}, B={b}, "
-                             f"D={d}, H={h}")
+    plan = fwd_chain_plan(b, d, h, x.dtype, 2, _sm_count(dev),
+                          _smem_optin(lib, "bilstm_fwd_smem_optin", dev))
+    sfx = _SUFFIX[x.dtype]
+    stream = _kernels.stream_ptr(dev)
+    # phase 1's scratch holds one chunk of frames a direction; phase 2
+    # carries h and c between chunks in `state`
+    steps = max(1, min(t_max, _K10_SCRATCH_BYTES // (b * 8 * h * 4)))
+    pre = torch.empty((steps, b, 8 * h), dtype=torch.float32, device=dev)
+    state = torch.zeros((2, 2, b, h), dtype=torch.float32, device=dev)
+    lens32 = lens.to(torch.int32).contiguous()
+    what = f"bilstm_seq_fwd_proj at T={t_max}, B={b}, D={d}, {plan}"
+    for s0 in range(0, t_max, steps):
+        n = min(steps, t_max - s0)
+        # the forward direction's frames s0.., the backward's ..T-1-s0
+        err = getattr(lib, "bilstm_proj_x_" + sfx)(
+            x.data_ptr(), w_x.data_ptr(), bias.data_ptr(), pre.data_ptr(),
+            s0, t_max - s0 - n, n, t_max, b, d, h, plan.proj_cols, stream)
+        _kernels.check(lib, err, what + " phase 1")
+        err = getattr(lib, "bilstm_fwd_chain_" + sfx)(
+            pre.data_ptr(), w_h_f.data_ptr(), w_h_b.data_ptr(),
+            lens32.data_ptr(), *(v.data_ptr() for v in outs),
+            state.data_ptr(), s0, n, t_max, b, h, plan.cluster, plan.rows,
+            stream)
+        _kernels.check(lib, err, what + " phase 2")
     bilstm_seq_fwd_proj.launches += 1
     return outs
 
@@ -517,8 +547,9 @@ class K10bPlan(NamedTuple):
     chain_smem: int
 
 
-_K10B_CLUSTERS = (1, 2, 4, 8, 16)   # powers of two up to kMaxCluster
-_K10B_SCRATCH_BYTES = 256 << 20     # phase 1's scratch per chunk of steps
+_CLUSTERS = (1, 2, 4, 8, 16)        # powers of two up to 16 CTAs
+_K10_SCRATCH_BYTES = 256 << 20      # K10a's and K10b's phase-1 scratch,
+                                    # per chunk of steps
 
 
 def _k10b_chain_bytes(c: int, r: int, h: int) -> int:
@@ -550,9 +581,9 @@ def k10b_plan(b: int, d: int, h: int, sms: int, smem_optin: int
     tiled = 4 * (2 * 68 * (d + h) + 64)      # gates_tiled_smem of the .cu
     cols = 64 if tiled <= smem_optin else min(
         32, smem_optin // (4 * (d + h + 1)))
-    c = next((c for c in _K10B_CLUSTERS
+    c = next((c for c in _CLUSTERS
               if _k10b_chain_bytes(c, 1, h) <= smem_optin // 2),
-             _K10B_CLUSTERS[-1])
+             _CLUSTERS[-1])
     if cols < 1 or _k10b_chain_bytes(c, 1, h) > smem_optin:
         raise ValueError(f"K10b: no cluster plan fits D={d}, H={h} in "
                          f"{smem_optin} bytes of shared memory")
@@ -565,13 +596,93 @@ def k10b_plan(b: int, d: int, h: int, sms: int, smem_optin: int
                     c, r, _k10b_chain_bytes(c, r, h))
 
 
-def _smem_optin(lib: ctypes.CDLL, device) -> int:
-    """The opt-in shared memory of one block on ``device``, in bytes."""
+class FwdChainPlan(NamedTuple):
+    """The launch shape of a forward chain (K10a, K5).  ``route``
+    "cluster": one cluster of ``cluster`` CTAs per (direction, ``rows``
+    batch rows), each CTA holding ceil(H / cluster) units' gate columns of
+    W_h in the compute dtype (``chain_smem`` bytes in all); "cooperative"
+    (K5 only, where W_h fits no cluster): K5's cooperative kernel in row
+    slices, and the other fields 0.  K10a's phase 1 runs the tiled kernel
+    (64 frames and 64 gate columns a block, ``proj_cols`` 0) or one warp
+    per frame over ``proj_cols`` columns a block; ``proj_smem`` is its
+    block's shared memory."""
+    route: str
+    cluster: int
+    rows: int
+    chain_smem: int
+    proj_cols: int
+    proj_smem: int
+
+
+def _fwd_chain_bytes(c: int, r: int, h: int, itemsize: int) -> int:
+    """Shared memory of a forward-chain CTA at cluster size ``c``, ``r``
+    rows per cluster, ``h`` units, W_h and h of ``itemsize`` bytes:
+    ``fwd_chain_bytes`` of csrc/lstm_chain.cuh."""
+    hsz = -(-h // c)
+
+    def a16(n):
+        return -(-n // 16) * 16
+    return (a16(4 * hsz * h * itemsize) + a16(2 * r * h * itemsize)
+            + a16(r * hsz * itemsize) + 4 * r * hsz * 13 + 4 * r)
+
+
+def fwd_chain_plan(b: int, d: int, h: int, dtype: torch.dtype, dirs: int,
+                   sms: int, smem_optin: int) -> FwdChainPlan:
+    """The launch shape of a forward chain for a batch of ``b`` rows,
+    ``h`` units and ``dirs`` directions in ``dtype`` on a card of ``sms``
+    SMs with ``smem_optin`` bytes of shared memory per block: K10a with
+    its input width ``d`` (dirs 2), K5 with ``d`` 0 (dirs 1).
+
+    C is the smallest power of two whose share of W_h as f32 (4 ceil(H/C)
+    H floats) leaves half of a CTA's shared memory to the rows: 4 at
+    H = 128, 16 at H = 256 and 320 in either dtype.  The cluster route
+    holds where one row fits beside that share in the compute dtype (H up
+    to ~470 in f32, ~670 in bf16); above that K5 takes its cooperative
+    route, K10a has none and raises.  R is the fewest rows per cluster
+    that keep the dirs ceil(B/R) clusters in one wave on three quarters of
+    the SMs (whole clusters of C CTAs do not pack every SM), as far as
+    shared memory allows; a larger batch runs in more waves.  K10a's phase
+    1 is tiled where 64 staged frames and 64 columns of D f32 fit a block
+    (D <= 426), else it takes 32 gate columns a block, fewer where W_x's
+    columns are too long.  Raises when K10a has no plan."""
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    c = next((c for c in _CLUSTERS
+              if 4 * 4 * -(-h // c) * h <= smem_optin // 2),
+             _CLUSTERS[-1])
+    if _fwd_chain_bytes(c, 1, h, itemsize) > smem_optin:
+        if d == 0:
+            return FwdChainPlan("cooperative", 0, 0, 0, 0, 0)
+        raise ValueError(f"K10a: no cluster plan fits H={h} in {dtype} in "
+                         f"{smem_optin} bytes of shared memory")
+    clusters = max(1, sms * 3 // 4 // (dirs * c))
+    r = max(1, min(b, -(-b // clusters)))
+    while r > 1 and _fwd_chain_bytes(c, r, h, itemsize) > smem_optin:
+        r -= 1
+    cols = proj_smem = 0
+    if d:
+        proj_smem = 4 * (2 * 68 * d + 64)   # gates_tiled_smem(D, 0)
+        if proj_smem > smem_optin:
+            cols = min(32, smem_optin // (4 * (d + 1)))
+            if cols < 1:
+                raise ValueError(f"K10a: no projection plan fits D={d} in "
+                                 f"{smem_optin} bytes of shared memory")
+            proj_smem = 4 * cols * (d + 1)   # gates_smem(cols, D, 0)
+    return FwdChainPlan("cluster", c, r, _fwd_chain_bytes(c, r, h, itemsize),
+                        cols, proj_smem)
+
+
+def _smem_optin(lib: ctypes.CDLL, query: str, device) -> int:
+    """The opt-in shared memory of one block on ``device``, in bytes, from
+    a kernel source's ``query`` (``*_smem_optin``)."""
     with torch.cuda.device(device):
-        optin = lib.bilstm_proj_bwd_smem_optin()
+        optin = getattr(lib, query)()
     if optin < 0:
-        _kernels.check(lib, -optin, "bilstm_proj_bwd_smem_optin")
+        _kernels.check(lib, -optin, query)
     return optin
+
+
+def _sm_count(device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def _k10b_gates(lib, x, y_f, y_b, w_x, bias, w_h_f, w_h_b, pre, s0, n,
@@ -657,12 +768,11 @@ def bilstm_seq_bwd_dgates_proj(dy_f: torch.Tensor, dy_b: torch.Tensor,
     if t_max == 0 or b == 0:
         return dg_f, dg_b
     lib = _kernels.load("bilstm_bwd", _BWD_SIGNATURES)
-    plan = k10b_plan(b, d, h,
-                     torch.cuda.get_device_properties(dev)
-                     .multi_processor_count, _smem_optin(lib, dev))
+    plan = k10b_plan(b, d, h, _sm_count(dev),
+                     _smem_optin(lib, "bilstm_proj_bwd_smem_optin", dev))
     # phase 1's scratch holds the steps of one chunk; phase 2 carries dh
     # and dc between chunks in `state`
-    steps = max(1, min(t_max, _K10B_SCRATCH_BYTES // (b * 8 * h * 4)))
+    steps = max(1, min(t_max, _K10_SCRATCH_BYTES // (b * 8 * h * 4)))
     pre = torch.empty((steps, b, 8 * h), dtype=f32, device=dev)
     state = torch.zeros((2, 2, b, h), dtype=f32, device=dev)
     lens32 = lens.to(torch.int32).contiguous()
@@ -814,7 +924,10 @@ def lstm_seq_fwd(x_proj: torch.Tensor, w_h: torch.Tensor, lens: torch.Tensor,
     the compute dtype, c_seq [T, B, H] f32).  The contract of
     ``rnn_pallas.lstm_seq_fwd``; its ``block_t`` is dropped: the time
     blocks exist only to move larger DMA blocks on the TPU, and one
-    kernel covers both of its kernel bodies here."""
+    kernel covers both of its kernel bodies here.  On the card the route
+    is :func:`fwd_chain_plan`'s, from the shapes: the forward chain in
+    thread-block clusters (any B, one launch) where W_h fits a cluster,
+    else the cooperative kernel in row slices."""
     if x_proj.device.type == "cpu":
         return lstm_seq_fwd_reference(x_proj, w_h, lens, reverse)
     if x_proj.device.type != "cuda":
@@ -832,14 +945,28 @@ def lstm_seq_fwd(x_proj: torch.Tensor, w_h: torch.Tensor, lens: torch.Tensor,
                 torch.empty((t_max, b, h), dtype=torch.float32, device=dev))
     lib = _kernels.load("lstm_fwd", _UNI_SIGNATURES)
     sfx = _SUFFIX[x_proj.dtype]
+    plan = fwd_chain_plan(b, 0, h, x_proj.dtype, 1, _sm_count(dev),
+                          _smem_optin(lib, "lstm_fwd_smem_optin", dev))
+    lens32 = lens.to(torch.int32).contiguous()
+    if plan.route == "cluster":
+        # the forward chain in clusters: one launch for any B
+        y = torch.empty((t_max, b, h), dtype=x_proj.dtype, device=dev)
+        cs = torch.empty((t_max, b, h), dtype=torch.float32, device=dev)
+        state = torch.zeros((2, 1, b, h), dtype=torch.float32, device=dev)
+        err = getattr(lib, "lstm_fwd_chain_" + sfx)(
+            x_proj.data_ptr(), w_h.data_ptr(), lens32.data_ptr(),
+            y.data_ptr(), cs.data_ptr(), state.data_ptr(), t_max, b, h,
+            plan.cluster, plan.rows, int(reverse), _kernels.stream_ptr(dev))
+        _kernels.check(lib, err, f"lstm_seq_fwd at T={t_max}, B={b}, {plan}")
+        lstm_seq_fwd.launches += 1
+        return y, cs
 
-    def launch(x_proj, lens):
+    def launch(x_proj, lens32):
         n = x_proj.shape[1]
         y = torch.empty((t_max, n, h), dtype=x_proj.dtype, device=dev)
         cs = torch.empty((t_max, n, h), dtype=torch.float32, device=dev)
         # h exchange between blocks: [parity][B][H], parity 0 = h0
         hbuf = torch.zeros((2, n, h), dtype=torch.float32, device=dev)
-        lens32 = lens.to(torch.int32).contiguous()
         err = getattr(lib, "lstm_fwd_" + sfx)(
             x_proj.data_ptr(), w_h.data_ptr(), lens32.data_ptr(),
             y.data_ptr(), cs.data_ptr(), hbuf.data_ptr(), t_max, n, h,
@@ -847,9 +974,10 @@ def lstm_seq_fwd(x_proj: torch.Tensor, w_h: torch.Tensor, lens: torch.Tensor,
         _kernels.check(lib, err, "lstm_seq_fwd")
         return y, cs
 
+    # the cooperative route (W_h fits no cluster), in row slices
     out = run_in_row_slices(
         launch, max_rows(lib, "lstm_fwd_max_rows_" + sfx, dev, h), x_proj,
-        lens)
+        lens32)
     lstm_seq_fwd.launches += 1
     return out
 

@@ -578,13 +578,113 @@ def test_bilstm_proj_bwd_in_chunks_of_steps(cuda, dtype, monkeypatch):
                                                       w_b, lens)
     args = (dy_f, dy_b, x, y_f, c_f, y_b, c_b, w_x, bias, w_f, w_b, lens)
     whole = rnn_cuda.bilstm_seq_bwd_dgates_proj(*args)
-    monkeypatch.setattr(rnn_cuda, "_K10B_SCRATCH_BYTES", 3 * b * 8 * h * 4)
+    monkeypatch.setattr(rnn_cuda, "_K10_SCRATCH_BYTES", 3 * b * 8 * h * 4)
     chunked = rnn_cuda.bilstm_seq_bwd_dgates_proj(*args)
     torch.cuda.synchronize()
     ref = rnn_cuda.bilstm_seq_bwd_dgates_proj_reference(*args)
     for name, c, w, r in zip(("dg_f", "dg_b"), chunked, whole, ref):
         assert torch.equal(c, w), name
         _close(c, r, LSTM_BWD_TOL[dtype], name)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b", [1, 48, 600])
+def test_k10a_chain_matches_plain_at_any_batch(cuda, dtype, b):
+    """K10a (phase 1, then the forward chain in clusters) at the 3x128's
+    layers 2-3 against its plain version, ragged rows, one launch at
+    B = 1, 48 and 600 (25 row groups of clusters in several waves)."""
+    t, d, h = 12, 256, 128
+    x, w_x, bias, w_f, w_b, lens, _, _ = _proj_inputs(t, b, d, h, dtype,
+                                                      cuda, seed=b)
+    fwd = rnn_cuda.bilstm_seq_fwd_proj
+    before = fwd.launches
+    got = fwd(x, w_x, bias, w_f, w_b, lens)
+    torch.cuda.synchronize()
+    assert fwd.launches == before + 1
+    ref = rnn_cuda.bilstm_seq_fwd_proj_reference(x, w_x, bias, w_f, w_b,
+                                                 lens)
+    for name, g, r in zip(("y_f", "c_f", "y_b", "c_b"), got, ref):
+        _close(g, r, LSTM_TOL[dtype], name)
+    _zero_past_lens((got[0], got[2]), lens, "y")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_bilstm_proj_fwd_in_chunks_of_steps(cuda, dtype, monkeypatch):
+    """K10a with its scratch cut to 3 frames a direction (a scratch above
+    256 MiB runs in chunks): the chain carries h and c between the
+    chunks, and the outputs equal one chunk's exactly and the plain
+    version's within K2's tolerance."""
+    t, b, d, h = 10, 5, 128, 32
+    x, w_x, bias, w_f, w_b, lens, _, _ = _proj_inputs(t, b, d, h, dtype,
+                                                      cuda, seed=19)
+    args = (x, w_x, bias, w_f, w_b, lens)
+    whole = rnn_cuda.bilstm_seq_fwd_proj(*args)
+    monkeypatch.setattr(rnn_cuda, "_K10_SCRATCH_BYTES", 3 * b * 8 * h * 4)
+    chunked = rnn_cuda.bilstm_seq_fwd_proj(*args)
+    torch.cuda.synchronize()
+    ref = rnn_cuda.bilstm_seq_fwd_proj_reference(*args)
+    for name, c, w, r in zip(("y_f", "c_f", "y_b", "c_b"), chunked, whole,
+                             ref):
+        assert torch.equal(c, w), name
+        _close(c, r, LSTM_TOL[dtype], name)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d,h", [(256, 128), (40, 16), (8064, 32)])
+def test_k10a_equals_k2_on_its_own_projection_bit_for_bit(cuda, dtype, d, h):
+    """K10a's outputs equal K2's on the projection K10a's phase 1 wrote
+    (tiled, or the warp kernel at D=8064), bit for bit: the chain's sums
+    are warp_dot's, its gate math K2's."""
+    t, b = 9, 5
+    x, w_x, bias, w_f, w_b, lens, _, _ = _proj_inputs(t, b, d, h, dtype,
+                                                      cuda, seed=d + h)
+    got = rnn_cuda.bilstm_seq_fwd_proj(x, w_x, bias, w_f, w_b, lens)
+    lib = _kernels.load("bilstm_fwd", rnn_cuda._SIGNATURES)
+    plan = rnn_cuda.fwd_chain_plan(b, d, h, dtype, 2, 132, 232448)
+    assert (plan.proj_cols == 0) == (d <= 426)
+    pre = torch.full((t, b, 8 * h), float("nan"), device=cuda)
+    err = getattr(lib, "bilstm_proj_x_" + rnn_cuda._SUFFIX[dtype])(
+        x.data_ptr(), w_x.data_ptr(), bias.data_ptr(), pre.data_ptr(), 0, 0,
+        t, t, b, d, h, plan.proj_cols, _kernels.stream_ptr(cuda))
+    _kernels.check(lib, err, "bilstm_proj_x")
+    assert not pre.isnan().any()
+    xp = pre.to(dtype)                  # exact: phase 1 rounded it
+    assert torch.equal(xp.float(), pre)
+    k2 = rnn_cuda.bilstm_seq_fwd(xp, w_f, w_b, lens)
+    torch.cuda.synchronize()
+    for name, g, r in zip(("y_f", "c_f", "y_b", "c_b"), got, k2):
+        assert torch.equal(g, r), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k10a_projection_kernels_agree_bit_for_bit(cuda, dtype):
+    """K10a's tiled phase 1 and its warp kernel write the same projection
+    bit for bit, on a chunk of frames that starts mid-sequence for both
+    directions."""
+    t, b, d, h = 7, 5, 256, 64
+    x, w_x, bias, *_ = _proj_inputs(t, b, d, h, dtype, cuda, seed=3)
+    lib = _kernels.load("bilstm_fwd", rnn_cuda._SIGNATURES)
+    got = []
+    for cols in (0, 32):
+        pre = torch.full((3, b, 8 * h), float("nan"), device=cuda)
+        err = getattr(lib, "bilstm_proj_x_" + rnn_cuda._SUFFIX[dtype])(
+            x.data_ptr(), w_x.data_ptr(), bias.data_ptr(), pre.data_ptr(), 2,
+            4, 3, t, b, d, h, cols, _kernels.stream_ptr(cuda))
+        _kernels.check(lib, err, "bilstm_proj_x")
+        got.append(pre)
+    torch.cuda.synchronize()
+    assert not got[0].isnan().any()
+    assert torch.equal(got[0], got[1])
+    # row i: the forward half at t = 2 + i, the backward half at t = 4 + i
+    ref = rnn_cuda._project_bilstm(x, w_x, bias).float()
+    g4 = 4 * h
+    tol = 1e-5 if dtype == torch.float32 else 2e-2
+    _close(got[0][:, :, :g4], ref[2:5, :, :g4], tol, "forward half")
+    _close(got[0][:, :, g4:], ref[4:7, :, g4:], tol, "backward half")
 
 
 @pytest.mark.cuda
@@ -761,6 +861,67 @@ def test_lstm_kernels_reject_bad_inputs(cuda):
     with pytest.raises(ValueError):                   # y not contiguous
         rnn_cuda.lstm_seq_bwd_dgates(y, xp, y.transpose(0, 1).contiguous()
                                      .transpose(0, 1), c, w, lens)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b", [1, 48, 600])
+def test_k5_chain_matches_plain_at_any_batch(cuda, dtype, b, reverse):
+    """K5 on its cluster route at H=320 (clusters of 16) against its plain
+    version, ragged rows, both directions, one launch at B = 1, 48 and
+    600 (in several waves of clusters, no row slices)."""
+    t, h = 12, 320
+    xp, w, lens = _uni_inputs(t, b, h, dtype, cuda, seed=b + reverse)
+    assert rnn_cuda.fwd_chain_plan(b, 0, h, dtype, 1, 132, 232448).route \
+        == "cluster"
+    before = rnn_cuda.lstm_seq_fwd.launches
+    got = rnn_cuda.lstm_seq_fwd(xp, w, lens, reverse)
+    torch.cuda.synchronize()
+    assert rnn_cuda.lstm_seq_fwd.launches == before + 1
+    ref = rnn_cuda.lstm_seq_fwd_reference(xp, w, lens, reverse)
+    for name, g, r in zip(("y", "c_seq"), got, ref):
+        _close(g, r, LSTM_TOL[dtype], name)
+    _zero_past_lens((got[0],), lens, "y")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,h", [(torch.float32, 512),
+                                     (torch.bfloat16, 704)])
+def test_k5_cooperative_route_at_a_large_h(cuda, dtype, h):
+    """Where W_h fits no cluster of 16 the plan sends K5 to its
+    cooperative kernel, which still matches its plain version."""
+    t, b = 10, 3
+    xp, w, lens = _uni_inputs(t, b, h, dtype, cuda, seed=h)
+    assert rnn_cuda.fwd_chain_plan(b, 0, h, dtype, 1, 132, 232448).route \
+        == "cooperative"
+    for reverse in (False, True):
+        got = rnn_cuda.lstm_seq_fwd(xp, w, lens, reverse)
+        torch.cuda.synchronize()
+        ref = rnn_cuda.lstm_seq_fwd_reference(xp, w, lens, reverse)
+        for name, g, r in zip(("y", "c_seq"), got, ref):
+            _close(g, r, LSTM_TOL[dtype], name)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k5_equals_k2_direction_bit_for_bit(cuda, dtype, reverse):
+    """K5's (y, c) equal K2's forward direction on the same x_proj and
+    W_h (the backward direction for ``reverse``), bit for bit: the same
+    warp_dot sums and the same gate math."""
+    t, b, h = 20, 4, 320
+    xp, w, lens = _uni_inputs(t, b, h, dtype, cuda, seed=5 + reverse)
+    other, w2, _ = _uni_inputs(t, b, h, dtype, cuda, seed=9)
+    halves = (other, xp) if reverse else (xp, other)
+    ws = (w2, w) if reverse else (w, w2)
+    got = rnn_cuda.lstm_seq_fwd(xp, w, lens, reverse)
+    y_f, c_f, y_b, c_b = rnn_cuda.bilstm_seq_fwd(
+        torch.cat(halves, dim=2).contiguous(), *ws, lens)
+    torch.cuda.synchronize()
+    want = (y_b, c_b) if reverse else (y_f, c_f)
+    for name, g, r in zip(("y", "c_seq"), got, want):
+        assert torch.equal(g, r), name
 
 
 def _stack_inputs(layers, t, b, h, dtype, device, seed, stateful):
@@ -1152,13 +1313,18 @@ def _above_ceiling(source, signatures, query, *dims):
     source's own ceiling query (``*_max_rows``) plus one."""
     lib = _kernels.load(source, signatures)
     rows = rnn_cuda.max_rows(lib, query, torch.device("cuda"), *dims)
-    assert 100 < rows < 200, (query, rows)     # ~139-167 at H = 320
+    assert 50 < rows < 200, (query, rows)  # ~139-167 at H = 320, ~93 K5's
     return rows + 1
+
+
+# the f32 H from which K5 takes its cooperative route (fwd_chain_plan)
+K5_COOPERATIVE_H = 512
 
 
 def _sliced_case(name, t, h, device):
     """(wrapper, plain version, operands, tolerance) of one kernel that
-    keeps every row in a block, at one row above its ceiling, f32."""
+    keeps every row in a block, at one row above its ceiling, f32 (K5 on
+    its cooperative route, at K5_COOPERATIVE_H)."""
     f32 = torch.float32
     if name == "K3":
         b = _above_ceiling("bilstm_bwd", rnn_cuda._BWD_SIGNATURES,
@@ -1166,15 +1332,19 @@ def _sliced_case(name, t, h, device):
         return (rnn_cuda.bilstm_seq_bwd_dgates,
                 rnn_cuda.bilstm_seq_bwd_dgates_reference,
                 _bwd_inputs(t, b, h, f32, device, seed=b), BILSTM_BWD_F32_TOL)
-    if name in ("K5", "K6"):
-        b = (_above_ceiling("lstm_fwd", rnn_cuda._UNI_SIGNATURES,
-                            "lstm_fwd_max_rows_f32", h) if name == "K5"
-             else _above_ceiling("lstm_bwd", rnn_cuda._UNI_BWD_SIGNATURES,
-                                 "lstm_bwd_max_rows_f32", h))
+    if name == "K5":
+        # only K5's cooperative route keeps its rows in one block: H=512
+        assert rnn_cuda.fwd_chain_plan(1, 0, K5_COOPERATIVE_H, f32, 1, 132,
+                                       232448).route == "cooperative"
+        b = _above_ceiling("lstm_fwd", rnn_cuda._UNI_SIGNATURES,
+                           "lstm_fwd_max_rows_f32", K5_COOPERATIVE_H)
+        xp, w, lens = _uni_inputs(t, b, K5_COOPERATIVE_H, f32, device, b)
+        return (rnn_cuda.lstm_seq_fwd, rnn_cuda.lstm_seq_fwd_reference,
+                (xp, w, lens, True), LSTM_TOL[f32])
+    if name == "K6":
+        b = _above_ceiling("lstm_bwd", rnn_cuda._UNI_BWD_SIGNATURES,
+                           "lstm_bwd_max_rows_f32", h)
         xp, w, lens = _uni_inputs(t, b, h, f32, device, b)
-        if name == "K5":
-            return (rnn_cuda.lstm_seq_fwd, rnn_cuda.lstm_seq_fwd_reference,
-                    (xp, w, lens, True), LSTM_TOL[f32])
         y, c = rnn_cuda.lstm_seq_fwd_reference(xp, w, lens)
         dy = torch.as_tensor(np.random.default_rng(b).standard_normal(
             (t, b, h)).astype(np.float32), device=device)
@@ -1217,7 +1387,8 @@ def _sliced_case(name, t, h, device):
                                   "K9a", "K9b"])
 def test_sliced_kernel_above_its_ceiling_matches_plain(cuda, name):
     """Each kernel that keeps every row in one block's shared memory, at
-    one row above the most its launch takes (H=320), runs as row slices
+    one row above the most its launch takes (H=320; K5's cooperative
+    route at H=512), runs as row slices
     and returns its plain version's result, as the reference does at any
     batch; the launch counter rises by one (it counts wrapper calls)."""
     fn, ref, args, tol = _sliced_case(name, 4, 320, cuda)

@@ -1,12 +1,16 @@
 """The port's batch ceilings (the kernels that keep every row in one
-block's shared memory) and K10b's launch plan, on the CPU.
+block's shared memory) and the launch plans of K10b and of the forward
+chain (K10a, K5), on the CPU.
 
 ``rnn_cuda.run_in_row_slices`` runs a kernel over row slices under its
 ceiling; here it is driven with each sliced kernel's plain version and a
 small forced ceiling, and must return exactly what one unsliced call
-returns.  ``rnn_cuda.k10b_plan`` must fit every shape the BLSTM layer
-sends to K10b (``use_in_kernel_proj``) into one H100 block's shared
-memory.  No JAX here: the plain versions are the port's own.
+returns.  ``rnn_cuda.k10b_plan`` and ``rnn_cuda.fwd_chain_plan`` must fit
+every shape the BLSTM layer sends to K10b and K10a
+(``use_in_kernel_proj``) into one H100 block's shared memory, and
+``fwd_chain_plan`` must send K5 to its cluster route wherever W_h fits a
+cluster and to its cooperative route elsewhere.  No JAX here: the plain
+versions are the port's own.
 """
 
 import numpy as np
@@ -174,3 +178,116 @@ def test_k10b_plan_at_the_3x128_training_shape():
 def test_k10b_plan_refuses_what_cannot_fit():
     with pytest.raises(ValueError, match="no cluster plan"):
         rnn_cuda.k10b_plan(48, 256, 1024, H100_SMS, H100_SMEM)
+
+
+def _chain_bytes(c, r, h, size):
+    """fwd_chain_bytes of csrc/lstm_chain.cuh: W_h's share, two receive
+    buffers of h and the CTA's h slice (each 16-byte aligned), then f32
+    sums, cell state and prefetched pre-activations, and the lengths."""
+    hsz = -(-h // c)
+
+    def a16(n):
+        return -(-n // 16) * 16
+    return (a16(4 * hsz * h * size) + a16(2 * r * h * size)
+            + a16(r * hsz * size) + 4 * r * hsz * (4 + 1 + 8) + 4 * r)
+
+
+def _check_chain_plan(plan, b, d, h, dtype, dirs):
+    """A cluster plan of the forward chain: its layout within one block,
+    its rows, and K10a's phase 1 (d > 0)."""
+    c, r = plan.cluster, plan.rows
+    assert plan.route == "cluster", plan
+    assert c in (1, 2, 4, 8, 16), plan
+    assert 1 <= r <= max(b, 1), plan
+    assert c * -(-h // c) >= h, plan           # the cluster holds every unit
+    size = torch.empty((), dtype=dtype).element_size()
+    assert plan.chain_smem == _chain_bytes(c, r, h, size) <= H100_SMEM, plan
+    # R: the fewest rows that put the clusters in one wave on 3/4 of the
+    # SMs, unless one more row would not fit shared memory
+    want = min(b, -(-b // max(1, H100_SMS * 3 // 4 // (dirs * c))))
+    assert r == want or (r < want and _chain_bytes(c, r + 1, h, size)
+                         > H100_SMEM), plan
+    if d == 0:
+        assert plan.proj_cols == 0 and plan.proj_smem == 0
+    elif d <= 426:       # gates_tiled_smem(D, 0) of csrc/lstm_gates.cuh
+        assert plan.proj_cols == 0 and plan.proj_smem == 4 * (136 * d + 64)
+    else:                # gates_smem(cols, D, 0)
+        assert 1 <= plan.proj_cols <= 32, plan
+        assert plan.proj_smem == 4 * plan.proj_cols * (d + 1) <= H100_SMEM
+
+
+@pytest.mark.parametrize("b", [1, 48, 600])
+def test_fwd_chain_plan_fits_every_shape_the_rule_admits(b):
+    """K10a's plan (both directions) at every (D, H) the layer sends it."""
+    for d, h in _k10_shapes():
+        plan = rnn_cuda.fwd_chain_plan(b, d, h, torch.float32, 2, H100_SMS,
+                                       H100_SMEM)
+        _check_chain_plan(plan, b, d, h, torch.float32, 2)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b", [1, 48, 600])
+@pytest.mark.parametrize("d,h", [(40, 16), (40, 128), (640, 320), (24, 20),
+                                 (100, 100)])
+def test_fwd_chain_plan_fits_unaligned_shapes(dtype, b, d, h):
+    """K10a takes every D and H that K10b's plan takes, in either dtype."""
+    plan = rnn_cuda.fwd_chain_plan(b, d, h, dtype, 2, H100_SMS, H100_SMEM)
+    _check_chain_plan(plan, b, d, h, dtype, 2)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b", [1, 48, 600])
+def test_fwd_chain_plan_sends_k5_at_h320_to_clusters_of_16(dtype, b):
+    """K5 at the 5x320 models' H: the cluster route in both dtypes, 16
+    CTAs of 20 units a cluster, any batch."""
+    plan = rnn_cuda.fwd_chain_plan(b, 0, 320, dtype, 1, H100_SMS, H100_SMEM)
+    _check_chain_plan(plan, b, 0, 320, dtype, 1)
+    assert plan.cluster == 16
+
+
+@pytest.mark.parametrize("dtype,h,route", [
+    (torch.float32, 470, "cluster"),       # f32 W_h share 4 x 30 x 470 x 4
+    (torch.float32, 480, "cooperative"),
+    (torch.float32, 512, "cooperative"),
+    (torch.bfloat16, 640, "cluster"),      # bf16 halves the share
+    (torch.bfloat16, 700, "cooperative")])
+def test_fwd_chain_plan_picks_k5s_route_from_shapes(dtype, h, route):
+    """K5's route is a function of the shapes: the cluster route while one
+    row fits beside W_h's share of a cluster of 16, else the cooperative
+    kernel (in row slices), which takes any H the reference takes."""
+    for b in (1, 48, 600):
+        plan = rnn_cuda.fwd_chain_plan(b, 0, h, dtype, 1, H100_SMS,
+                                       H100_SMEM)
+        assert plan.route == route, (b, plan)
+        if route == "cluster":
+            _check_chain_plan(plan, b, 0, h, dtype, 1)
+        else:
+            assert plan == ("cooperative", 0, 0, 0, 0, 0)
+
+
+def test_fwd_chain_plan_at_the_training_shapes():
+    """K10a at the 3x128's layers 2-3 at B=48: the tiled phase 1, 24
+    clusters of 4 CTAs (32 units, 64 KB of f32 W_h each), 4 rows a
+    cluster; K5 at the uni LSTM's H=320 in bf16: 6 clusters of 16, 8 rows
+    each; at the 8 s request's B=1 one cluster of 16."""
+    k10a = rnn_cuda.fwd_chain_plan(48, 256, 128, torch.float32, 2, H100_SMS,
+                                   H100_SMEM)
+    assert (k10a.cluster, k10a.rows, k10a.proj_cols) == (4, 4, 0)
+    assert 2 * -(-48 // k10a.rows) == 24
+    k5 = rnn_cuda.fwd_chain_plan(48, 0, 320, torch.bfloat16, 1, H100_SMS,
+                                 H100_SMEM)
+    assert (k5.cluster, k5.rows) == (16, 8)
+    serve = rnn_cuda.fwd_chain_plan(1, 0, 320, torch.bfloat16, 1, H100_SMS,
+                                    H100_SMEM)
+    assert (serve.cluster, serve.rows) == (16, 1)
+
+
+def test_fwd_chain_plan_refuses_what_cannot_fit():
+    """K10a has no cooperative route: an H whose W_h fits no cluster, or a
+    D whose one W_x column does not fit a block, raises."""
+    with pytest.raises(ValueError, match="no cluster plan"):
+        rnn_cuda.fwd_chain_plan(48, 256, 1024, torch.float32, 2, H100_SMS,
+                                H100_SMEM)
+    with pytest.raises(ValueError, match="no projection plan"):
+        rnn_cuda.fwd_chain_plan(48, 60000, 32, torch.float32, 2, H100_SMS,
+                                H100_SMEM)
