@@ -13,13 +13,16 @@ result line:
 1. device: the card's name and power limit (nvidia-smi), torch and CUDA
    versions;
 2. build: every kernel source in csrc/ (nine; K2/K10a and K3/K10b share
-   csrc/bilstm_cell.cuh, the row-keeping kernels csrc/row_ceiling.cuh)
+   csrc/bilstm_cell.cuh, K2, K5, K9a and K10a the forward chain of
+   csrc/fwd_chain.cuh, the row-keeping kernels csrc/row_ceiling.cuh)
    compiled by nvcc for sm_90a, timed;
 3. k4_log_mel: the log-mel kernel against its plain version on 8 s of
    16 kHz audio (798 frames, MFCC-hires mel bank): max error, median ms;
 4. k2_bilstm: the BiLSTM forward kernel against its plain version at
-   T=800, B=1 and B=8 (serving) and T=240, B=48 (training), H=320, in f32
-   and bf16: max errors, median ms;
+   T=800, B=1 and B=8 (serving) and T=240, B=48 and B=600 (training),
+   H=320, in f32 and bf16, with its plan: max errors, median ms; at
+   T=800, B=1 and T=240, B=48 both routes (the forward chain in clusters,
+   the cooperative kernel) timed on the same operands;
 5. k1_ctc: the CTC alpha-beta kernels K1 (fused), K11 (alpha) and K12
    (beta) against their plain loops at bench.py's shapes (B=48, T=240,
    A=72, L=70, S=141) with short, label-less and infeasible rows: alphas,
@@ -45,12 +48,12 @@ result line:
    3 steps (audio-s/s, B*T*0.03 s of audio per step); one step under
    torch.profiler (device time by kernel, K1/K2/K3 shares, idle share);
 9. profile: one 8 s request per dtype under torch.profiler: device time
-   by kernel, K2's and K4's shares, the device's idle share of the traced
+   by kernel, K2's (either route) and K4's shares, the device's idle share of the traced
    request's wall time, and the untraced wall beside it;
 10. k5_lstm: the unidirectional LSTM forward kernel against its plain
    version at T=800, B=1 and B=8, T=240, B=48 and B=600, and one reverse
    case, H=320, f32 and bf16, with its plan (the cluster route: the
-   forward chain of csrc/lstm_chain.cuh);
+   forward chain of csrc/fwd_chain.cuh);
 11. k6_lstm_bwd: its backward at T=240, B=48, H=320, ragged lengths;
 12. k7_lstm_stack: the wavefront stack kernel at L=5, H=320, T=20, B=8
    with carries from a previous chunk, ragged lengths and an idle slot
@@ -67,10 +70,12 @@ result line:
 15. profile_stream: one 8-slot tick per dtype under torch.profiler: K7's
    share of device time and the device's idle share;
 16. k9_gru: the unidirectional GRU forward kernel K9a against its plain
-   version at T=800, B=1 and B=8, T=240, B=48, and one reverse case, and
-   its backward K9b at T=240, B=48 with ragged lengths, H=320, f32 and
-   bf16, with cuDNN's nn.GRU as the library yardstick; in f32 K9a also
-   against nn.GRU holding the same function (full-length rows);
+   version at T=800, B=1 and B=8, T=240, B=48 and B=600, and one reverse
+   case, with its plan and, at T=800, B=1 and T=240, B=48, both routes
+   timed on the same operands, and its backward K9b at T=240, B=48 with
+   ragged lengths, H=320, f32 and bf16, with cuDNN's nn.GRU as the
+   library yardstick; in f32 K9a also against nn.GRU holding the same
+   function (full-length rows);
 17. k8_bigru: the same for the BiGRU kernels K8a and K8b;
 18. serve_gru: the 5x320 BiGRU served per dtype as in 7 (K8a 5x per
    request, K4 >= 1x), scores against the plain versions;
@@ -81,8 +86,9 @@ result line:
 20. train_gru, train_gru_uni: the train phase for both GRU models (K8a
    and K8b, or K9a and K9b, 5x each and K1 once per step; eval K8a or
    K9a 5x and K11 once);
-21. profile_gru, profile_stream_gru: phases 9 and 15 for the GRU models
-   (K8a's share of a request; the GRU tick's wall and idle share);
+21. profile_gru, profile_gru_uni, profile_stream_gru: phases 9 and 15 for
+   the GRU models (K8a's share of a BiGRU request, K9a's of a uni GRU
+   request; the GRU tick's wall and idle share);
 22. k10_bilstm_proj: the in-kernel-projection BiLSTM kernels at the 3x128
    model's layers 2-3 (D=256, H=128), f32 and bf16: K10a against its
    plain version at T=800, B=1 and B=8 and T=240, B=48 and B=600, with
@@ -95,11 +101,11 @@ result line:
    bidirectional) and the hoisted route on the same layer (projection
    GEMM plus K2 forward, K3 on the stored projection backward);
 23. f7: each kernel that keeps every batch row in one block's shared
-   memory (K3, K5's cooperative route, K6, K7 one layer, K8a, K8b, K9a,
-   K9b) once at one row above the most one launch takes (its source's
-   *_max_rows query), H=320 (K5 at H=512, where W_h fits no cluster),
-   T=20, f32, against its plain version: the wrapper runs row slices and
-   counts one launch;
+   memory (K3, K5's and K9a's cooperative routes, K6, K7 one layer, K8a,
+   K8b, K9b) once at one row above the most one launch takes (its
+   source's *_max_rows query), H=320 (K5 at H=512 and K9a at H=576, where
+   W_h fits no cluster), T=20, f32, against its plain version: the
+   wrapper runs row slices and counts one launch;
 24. serve_proj: the 3x128 BLSTM (40-dim input, 42 targets, random weights
    from a seed) served per dtype as in 7: per request K2 1x and K10a 2x
    in f32 (layer 1 unaligned, layers 2-3 in-kernel), K2 3x and K10a 0x in
@@ -187,10 +193,11 @@ KERNELS = ("log_mel", "bilstm_fwd", "bilstm_bwd", "ctc_alpha_beta",
            "ctc_alphas", "ctc_betas", "lstm_fwd", "lstm_bwd", "lstm_stack",
            "bigru_fwd", "bigru_bwd", "gru_fwd", "gru_bwd", "bilstm_proj_fwd",
            "bilstm_proj_bwd")
-# K5 takes its cooperative route (W_h fits no cluster of 16) from this
-# f32 H on (ops/rnn_cuda.py::fwd_chain_plan); the f7 phase drives its
-# ceiling there
+# K5 and K9a take their cooperative routes (W_h fits no cluster of 16)
+# from these f32 H on (ops/rnn_cuda.py::fwd_chain_plan with 4 and 3
+# gates); the f7 phase drives their ceilings there
 K5_COOPERATIVE_H = 512
+K9A_COOPERATIVE_H = 576
 # the 3x128 BLSTM of recipes/medium and recipes/hard: hidden units,
 # layers, targets (its input is the flagship's 40-dim features)
 PROJ_H, PROJ_LAYERS, PROJ_TARGETS = 128, 3, 42
@@ -434,13 +441,19 @@ def phase_k4(torch, np, dev):
 
 
 def phase_k2(torch, np, dev):
+    """K2 against its plain version at T=800, B=1 and B=8 (serving) and
+    T=240, B=48 and B=600 (training), H=320, f32 and bf16, with its plan;
+    at T=800, B=1 and T=240, B=48 both of its routes timed on the same
+    operands (the cluster route and the cooperative kernel)."""
+    from kaldi_ctc_tpu_torch import _kernels
     from kaldi_ctc_tpu_torch.ops import rnn_cuda
     h = 320
+    lib = _kernels.load("bilstm_fwd", rnn_cuda._SIGNATURES)
     rows = []
     for dtype_name, dtype in (("float32", torch.float32),
                               ("bfloat16", torch.bfloat16)):
-        # serving (T=800, B=1 and 8) and training (T=240, B=48) shapes
-        for t_max, b in ((800, 1), (800, 8), (TRAIN_T, TRAIN_B)):
+        for t_max, b in ((800, 1), (800, 8), (TRAIN_T, TRAIN_B),
+                         (TRAIN_T, 600)):
             rng = np.random.default_rng(b)
             xp = torch.as_tensor(rng.standard_normal((t_max, b, 8 * h))
                                  .astype(np.float32) * 0.5, device=dev)
@@ -456,16 +469,32 @@ def phase_k2(torch, np, dev):
             torch.cuda.synchronize()
             errs = [max_err(g, r, 0.0, K2_TOL[dtype_name])
                     for g, r in zip(got, ref)]
+            plan = rnn_cuda.k2_plan(lib, b, h, dtype, dev)
             row = {"dtype": dtype_name, "T": t_max, "B": b, "H": h,
                    "max_abs_err": max(e for e, _ in errs),
-                   "tol": K2_TOL[dtype_name],
+                   "tol": K2_TOL[dtype_name], "plan": plan._asdict(),
                    "ms": median_ms(lambda: rnn_cuda.bilstm_seq_fwd(*args),
                                    10, torch),
                    "plain_ms": median_ms(
                        lambda: rnn_cuda.bilstm_seq_fwd_reference(*args), 3,
                        torch),
                    **bound(nbytes(*args, *got),
-                           lstm_ops(args[3], h, 2), dtype_name)}
+                           lstm_ops(args[3], h, 2), dtype_name),
+                   "library_ms": None}
+            if b in (1, TRAIN_B):
+                # both routes on the same operands, through their exports
+                chain = rnn_cuda.fwd_chain_plan(
+                    b, 0, h, dtype, 2, torch.cuda.get_device_properties(
+                        dev).multi_processor_count,
+                    rnn_cuda._smem_optin(lib, "bilstm_fwd_smem_optin", dev))
+                lens32 = args[3].to(torch.int32)
+                row["chain_route_ms"] = median_ms(
+                    lambda: rnn_cuda._bilstm_fwd_chain(lib, *args[:3],
+                                                       lens32, chain),
+                    10, torch)
+                row["cooperative_route_ms"] = median_ms(
+                    lambda: rnn_cuda._bilstm_fwd_cooperative(
+                        lib, *args[:3], lens32), 10, torch)
             if b == TRAIN_B:
                 # cuDNN's layer includes the input projection (a layer
                 # above the first: 2H inputs), so the kernel's own
@@ -817,10 +846,13 @@ def nn_gru_err(torch, xp, ws, ys):
 def phase_gru_kernels(torch, np, dev, bidirectional):
     """K8a and K8b (``bidirectional``) or K9a and K9b against their plain
     versions: the forward at T=800, B=1 and B=8 (serving; K9a also one
-    reverse case) and T=240, B=48 (training), the backward at T=240,
-    B=48 with ragged lengths, H=320, f32 and bf16; in f32 the forward
-    also against cuDNN's nn.GRU holding the same function."""
-    from kaldi_ctc_tpu_torch.ops import gru_cuda
+    reverse case) and T=240, B=48 (training; K9a also B=600), the backward
+    at T=240, B=48 with ragged lengths, H=320, f32 and bf16; in f32 the
+    forward also against cuDNN's nn.GRU holding the same function.  K9a's
+    rows carry its plan, and at T=800, B=1 and T=240, B=48 both of its
+    routes timed on the same operands."""
+    from kaldi_ctc_tpu_torch import _kernels
+    from kaldi_ctc_tpu_torch.ops import gru_cuda, rnn_cuda
     h, dirs = 320, 2 if bidirectional else 1
     if bidirectional:
         phase, kname, prefix = "k8_bigru", "K8", "bigru"
@@ -834,7 +866,8 @@ def phase_gru_kernels(torch, np, dev, bidirectional):
         bwd, bwd_ref = (gru_cuda.gru_seq_bwd_dgates,
                         gru_cuda.gru_seq_bwd_dgates_reference)
         shapes = ((800, 1, False), (800, 8, False), (800, 1, True),
-                  (TRAIN_T, TRAIN_B, False))
+                  (TRAIN_T, TRAIN_B, False), (TRAIN_T, 600, False))
+        lib = _kernels.load("gru_fwd", gru_cuda._FWD_SIGNATURES)
 
     def fwd_args(xp, ws, lens, reverse):
         return (xp, *ws, lens) + (() if bidirectional else (reverse,))
@@ -860,6 +893,23 @@ def phase_gru_kernels(torch, np, dev, bidirectional):
                    "plain_ms": median_ms(lambda: fwd_ref(*args), 3, torch),
                    **bound(nbytes(xp, *ws, lens, *got), gru_ops(lens, h, dirs),
                            dtype_name), "library_ms": None}
+            if not bidirectional:
+                row["plan"] = gru_cuda.k9a_plan(lib, b, h, dtype,
+                                                dev)._asdict()
+            if not bidirectional and b in (1, TRAIN_B) and not reverse:
+                # both routes on the same operands, through their exports
+                chain = rnn_cuda.fwd_chain_plan(
+                    b, 0, h, dtype, 1, torch.cuda.get_device_properties(
+                        dev).multi_processor_count,
+                    rnn_cuda._smem_optin(lib, "gru_fwd_smem_optin", dev),
+                    gates=3)
+                lens32 = lens.to(torch.int32)
+                row["chain_route_ms"] = median_ms(
+                    lambda: gru_cuda._gru_fwd_chain(lib, xp, ws[0], lens32,
+                                                    False, chain), 10, torch)
+                row["cooperative_route_ms"] = median_ms(
+                    lambda: gru_cuda._gru_fwd_cooperative(
+                        lib, xp, ws[0], lens32, False), 10, torch)
             if b == TRAIN_B:
                 # cuDNN's layer includes the input projection (a layer
                 # above the first: dirs*H inputs), so the kernel's own
@@ -1150,11 +1200,11 @@ def k10b_large_batch(torch, np, dev):
 
 def phase_f7(torch, np, dev):
     """Each kernel that keeps every batch row in one block's shared
-    memory (K3, K5's cooperative route, K6, K7 one layer, K8a, K8b, K9a,
-    K9b), once at one row above the most its launch takes (its source's
-    *_max_rows query), H=320 (K5: K5_COOPERATIVE_H), T=20, f32, ragged
-    rows, against its plain version: the wrapper runs it as row slices
-    and counts one launch."""
+    memory (K3, K5's and K9a's cooperative routes, K6, K7 one layer, K8a,
+    K8b, K9b), once at one row above the most its launch takes (its
+    source's *_max_rows query), H=320 (K5: K5_COOPERATIVE_H, K9a:
+    K9A_COOPERATIVE_H), T=20, f32, ragged rows, against its plain version:
+    the wrapper runs it as row slices and counts one launch."""
     from kaldi_ctc_tpu_torch import _kernels
     from kaldi_ctc_tpu_torch.ops import gru_cuda, rnn_cuda
     t, h, f32 = 20, 320, torch.float32
@@ -1215,8 +1265,15 @@ def phase_f7(torch, np, dev):
         fwd = name.endswith("a")
         src, sigs = (("gru_fwd", gru_cuda._FWD_SIGNATURES) if fwd
                      else ("gru_bwd", gru_cuda._BWD_SIGNATURES))
-        b = above(src, sigs, f"{kernel}_{src[4:]}_max_rows_f32", h)
-        xp, ws, lens = gru_inputs(torch, np, dev, t, b, h, f32, b, dirs)
+        hg = K9A_COOPERATIVE_H if name == "K9a" else h
+        b = above(src, sigs, f"{kernel}_{src[4:]}_max_rows_f32", hg)
+        if name == "K9a":
+            # only K9a's cooperative route has a ceiling
+            lib = _kernels.load(src, sigs)
+            if gru_cuda.k9a_plan(lib, b, hg, f32, dev).route != "cooperative":
+                fail(f"F7: K9a at H={hg} does not take its cooperative "
+                     f"route")
+        xp, ws, lens = gru_inputs(torch, np, dev, t, b, hg, f32, b, dirs)
         fn = getattr(gru_cuda, kernel + ("_seq_fwd" if fwd
                                          else "_seq_bwd_dgates"))
         ref = getattr(gru_cuda, fn.__name__ + "_reference")
@@ -1241,7 +1298,8 @@ def phase_f7(torch, np, dev):
                      else ((got,), (want,)))
         errs = [max_err(g, r, 0.0, tol) for g, r in zip(got, want)]
         row = {"kernel": name, "wrapper": fn.__name__, "T": t,
-               "H": K5_COOPERATIVE_H if name == "K5" else h,
+               "H": {"K5": K5_COOPERATIVE_H,
+                     "K9a": K9A_COOPERATIVE_H}.get(name, h),
                "B": b, "one_launch_max_rows": b - 1, "launches": launched,
                "max_abs_err": max(e for e, _ in errs), "tol": tol}
         rows.append(row)
@@ -1762,13 +1820,18 @@ def device_kernels(prof, DeviceType):
 # the device kernels of a wrapper as a trace names them: one each, but
 # K10a's two phases (bilstm_proj_x_tiled_kernel or bilstm_proj_x_kernel,
 # then bilstm_fwd_chain_kernel), K10b's (bilstm_proj_gates_tiled_kernel or
-# bilstm_proj_gates_kernel, then bilstm_proj_chain_kernel) and K5's two
-# routes (lstm_fwd_chain_kernel or lstm_fwd_kernel)
+# bilstm_proj_gates_kernel, then bilstm_proj_chain_kernel) and the two
+# routes of K2 (bilstm_xp_chain_kernel or bilstm_fwd_kernel), K5
+# (lstm_fwd_chain_kernel or lstm_fwd_kernel) and K9a (gru_fwd_chain_kernel
+# or gru_fwd_kernel)
 KERNEL_TAGS = {"bilstm_proj_fwd": ("::bilstm_proj_x",
                                    "::bilstm_fwd_chain_kernel"),
                "bilstm_proj_bwd": ("::bilstm_proj_gates",
                                    "::bilstm_proj_chain_kernel"),
-               "lstm_fwd": ("::lstm_fwd_chain_kernel", "::lstm_fwd_kernel")}
+               "bilstm_fwd": ("::bilstm_xp_chain_kernel",
+                              "::bilstm_fwd_kernel"),
+               "lstm_fwd": ("::lstm_fwd_chain_kernel", "::lstm_fwd_kernel"),
+               "gru_fwd": ("::gru_fwd_chain_kernel", "::gru_fwd_kernel")}
 # of those, the ones a wrapper call launches once (once per chunk of
 # steps: one chunk at the training shape)
 LAUNCH_TAGS = {"bilstm_proj_fwd": ("::bilstm_fwd_chain_kernel",),
@@ -1967,8 +2030,9 @@ def phase_train(torch, np, dev, bidirectional=True, mode=None, proj=False):
 
 def phase_profile(torch, np, engines, kname="bilstm_fwd"):
     """Where one 8 s request's time goes: device time by kernel from
-    torch.profiler (``kname``'s share: K2, or K8a for the BiGRU), against
-    the request's wall time with and without the profiler."""
+    torch.profiler (``kname``'s share: K2, K8a for the BiGRU or K9a for
+    the uni GRU), against the request's wall time with and without the
+    profiler."""
     from torch.profiler import DeviceType
 
     x = pcm(8.0, 13, np).astype(np.float32)
@@ -1985,11 +2049,13 @@ def phase_profile(torch, np, engines, kname="bilstm_fwd"):
         kernels = device_kernels(prof, DeviceType)
         device_ms = sum(k[0] for k in kernels) / 1000
 
-        def share(tag):
-            return round(sum(k[0] for k in kernels if tag in k[2])
+        def share(*tags):
+            return round(sum(k[0] for k in kernels
+                             if any(tag in k[2] for tag in tags))
                          / 1000 / device_ms, 4) if device_ms else None
 
-        emit({"phase": "profile_gru" if "gru" in kname else "profile",
+        emit({"phase": {"bilstm_fwd": "profile", "bigru_fwd": "profile_gru",
+                        "gru_fwd": "profile_gru_uni"}[kname],
               "dtype": dtype, "audio_s": 8.0,
               "untraced_ms_median_of_5": round(walls[2], 3),
               "traced_ms": round(traced_ms, 3),
@@ -2000,7 +2066,7 @@ def phase_profile(torch, np, engines, kname="bilstm_fwd"):
               "device_idle_share_of_traced_wall":
                   (round(1 - device_ms / traced_ms, 4) if device_ms
                    else "not measured"),
-              f"{kname}_share_of_device": share(f"::{kname}_kernel"),
+              f"{kname}_share_of_device": share(*kernel_tags(kname)),
               "k4_share_of_device": share("log_mel_kernel"),
               "top_kernels": [{"name": k[2][:80], "us": round(k[0], 1),
                                "count": k[1]} for k in kernels[:8]]})
@@ -2053,6 +2119,7 @@ def main():
     phase_profile(torch, np, engines)
     phase_profile_stream(torch, np, uni_engines)
     phase_profile(torch, np, gru_engines, "bigru_fwd")
+    phase_profile(torch, np, gru_uni_engines, "gru_fwd")
     phase_profile_stream(torch, np, gru_uni_engines, gru=True)
     sources = {"log_mel": ("log_mel.cu", "features/stft_pallas.py:79"),
                "bilstm_fwd": ("bilstm_fwd.cu", "ops/rnn_pallas.py:602"),

@@ -1,6 +1,7 @@
 // What the LSTM kernels share: K2 and K10a (csrc/bilstm_fwd.cu), K3 and
 // K10b (csrc/bilstm_bwd.cu), K5 (csrc/lstm_fwd.cu), the phase-1 code of
-// csrc/lstm_gates.cuh and the forward chain of csrc/lstm_chain.cuh.
+// csrc/lstm_gates.cuh and the forward chain of csrc/fwd_chain.cuh, which
+// the GRU forwards K8a and K9a (csrc/gru_fwd.cu) include too.
 //
 // The gate sums are warp-split dot products: lane l adds the products at
 // k = l, l + 32, ... with fmaf in order, then the warp reduces the 32

@@ -27,21 +27,37 @@
 // in f32), far above the 227 KB of shared memory one block has, where
 // the TPU kernel kept it whole in VMEM.
 //
-// K2's design: ONE cooperative launch per layer.  The grid covers both
-// directions: each block owns hs hidden units of one direction and
-// keeps those units' four gate columns of W_h in shared memory for the
-// whole sequence (as f32, transposed so the lanes of a warp read
-// consecutive k), and their cell state c in shared memory too.  Each
-// step a block reads h[t-1] of its direction from a double-buffered f32
-// exchange in global memory (L2-resident; read with ld.global.cg so a
-// stale L1 line is never seen), computes its 4*hs gate sums with
-// warp-split dot products, does the gate math, writes y, c and its slice
-// of h[t], and the grid meets at one grid.sync() per step.  The double
-// buffer makes one barrier per step enough: step s reads parity s&1 and
-// writes parity (s+1)&1.  h[t-1] is staged in tiles of bt rows (bt = B
-// whenever B rows fit shared memory), so the kernel takes any batch.  hs
-// is chosen so that the grid fits the card in one wave; the host checks
-// co-residency before launching.
+// K2's design: two routes, chosen by the wrapper's plan from the shapes
+// (ops/rnn_cuda.py::fwd_chain_plan):
+//   - the cluster route, wherever W_h fits a cluster of at most 16 CTAs
+//     (H up to ~470 in f32, ~670 in bf16): bilstm_xp_chain_kernel, the
+//     forward chain of csrc/fwd_chain.cuh with both directions, reading
+//     xp directly.  Rows never meet, so each cluster of C CTAs walks one
+//     direction of a group of R rows with W_h in distributed shared
+//     memory and one cluster barrier a step: no grid barrier, any B.  Its
+//     name is its own (not bilstm_fwd_chain_kernel, K10a's phase 2, which
+//     in f32 would be the same template instance), so a trace tells K2
+//     from K10a;
+//   - the cooperative route above that: bilstm_fwd_kernel, ONE
+//     cooperative launch per layer.  The grid covers both directions: each block owns hs hidden
+//     units of one direction and keeps those units' four gate columns of
+//     W_h in shared memory for the whole sequence (as f32, transposed so
+//     the lanes of a warp read consecutive k), and their cell state c in
+//     shared memory too.  Each step a block reads h[t-1] of its direction
+//     from a double-buffered f32 exchange in global memory (L2-resident;
+//     read with ld.global.cg so a stale L1 line is never seen), computes
+//     its 4*hs gate sums with warp-split dot products, does the gate
+//     math, writes y, c and its slice of h[t], and the grid meets at one
+//     grid.sync() per step.  The double buffer makes one barrier per step
+//     enough: step s reads parity s&1 and writes parity (s+1)&1.  h[t-1]
+//     is staged in tiles of bt rows (bt = B whenever B rows fit shared
+//     memory), so the kernel takes any batch.  hs is chosen so that the
+//     grid fits the card in one wave; the host checks co-residency before
+//     launching.
+// Both sum in warp_dot's order (csrc/bilstm_cell.cuh), the order K3
+// recomputes the gates in, and do the gate math of one function
+// (LstmCell::step of csrc/fwd_chain.cuh): the two routes agree bit for
+// bit.
 //
 // K10a's design: two kernels.  The projection does not depend on the
 // recurrence, so it leaves the serial chain:
@@ -51,7 +67,7 @@
 //      the same code as K10b's phase 1, so the projection is project()'s
 //      bit for bit (the recompute invariant);
 //   2. bilstm_fwd_chain_kernel walks both directions' recurrences in
-//      thread-block clusters (csrc/lstm_chain.cuh), no grid barrier, any
+//      thread-block clusters (csrc/fwd_chain.cuh), no grid barrier, any
 //      B, reading each step's projection from the scratch.
 // A scratch above 256 MiB runs in chunks of S frames a direction (the
 // forward direction's chunk k holds t = kS .., the backward direction's
@@ -65,7 +81,7 @@
 #include <algorithm>
 
 #include "bilstm_cell.cuh"
-#include "lstm_chain.cuh"
+#include "fwd_chain.cuh"
 #include "lstm_gates.cuh"
 
 namespace cg = cooperative_groups;
@@ -129,15 +145,16 @@ bilstm_fwd_kernel(const T* __restrict__ xp, const T* __restrict__ whf,
         const int r = e / n, jj = e % n, j = j0 + jj, b = r0 + r;
         const float* g = g_s + r * n4;
         const T* x = xp + ((size_t)t * B + b) * 2 * G + dir * G;
-        // pre-activation of gate q: the stored projection plus the sums
-        auto pre = [&](int q) { return to_f32(x[q * H + j]) + g[q * n + jj]; };
-        const float gi = sigmoid(pre(0));
-        const float gf = sigmoid(pre(1));
-        const float gg = tanhf(pre(2));
-        const float go = sigmoid(pre(3));
+        // gate q: the sums and the stored projection, the chain's cell
+        float sums[4], xs[4];
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          sums[q] = g[q * n + jj];
+          xs[q] = to_f32(x[q * H + j]);
+        }
         const float c_prev = c_s[b * n + jj];
-        const float c_new = gf * c_prev + gi * gg;
-        const float h_new = go * tanhf(c_new);
+        float c_new = c_prev;
+        const float h_new = LstmCell::step(sums, xs, c_new);
         const bool valid = t < lens[b];
         const float h_prev = __ldcg(h_cur + b * H + j);
         const float c_out = valid ? c_new : c_prev;
@@ -293,9 +310,10 @@ bilstm_fwd_chain_kernel(const float* pre, int pre_stride, int t0f, int t0b,
                         T* yf, float* cf, T* yb, float* cb, float* state,
                         int dirs, int s0, int S, int steps, int B, int H,
                         int R, int reverse) {
-  fwd_chain_body<T, float, RT>(pre, pre_stride, t0f, t0b, whf, whb, lens, yf,
-                               cf, yb, cb, state, dirs, s0, S, steps, B, H,
-                               R, reverse);
+  fwd_chain_body<LstmCell, T, float, RT>(pre, pre_stride, t0f, t0b, whf,
+                                         whb, lens, yf, cf, yb, cb, state,
+                                         dirs, s0, S, steps, B, H, R,
+                                         reverse);
 }
 
 template <typename T>
@@ -309,17 +327,48 @@ int chain_launch(const void* pre, const void* whf, const void* whb,
   auto kern = R >= 4 ? &bilstm_fwd_chain_kernel<T, 4>
               : R >= 2 ? &bilstm_fwd_chain_kernel<T, 2>
                        : &bilstm_fwd_chain_kernel<T, 1>;
-  return fwd_chain_launch<T, float>(kern, pre, 8 * H, t0f, t0b, whf, whb,
-                                    lens, yf, cf, yb, cb, state, 2, s0, S,
-                                    steps, B, H, C, R, 0, stream);
+  return fwd_chain_launch<LstmCell, T, float>(kern, pre, 8 * H, t0f, t0b,
+                                              whf, whb, lens, yf, cf, yb, cb,
+                                              state, 2, s0, S, steps, B, H,
+                                              C, R, 0, stream);
+}
+
+// ---------------------------------------------------------------------------
+// K2's cluster route: both directions' recurrences on xp
+// ---------------------------------------------------------------------------
+
+template <typename T, int RT>
+__global__ void __launch_bounds__(kChainFwdThreads)
+bilstm_xp_chain_kernel(const T* pre, int pre_stride, int t0f, int t0b,
+                       const T* whf, const T* whb, const int32_t* lens, T* yf,
+                       float* cf, T* yb, float* cb, float* state, int dirs,
+                       int s0, int S, int steps, int B, int H, int R,
+                       int reverse) {
+  fwd_chain_body<LstmCell, T, T, RT>(pre, pre_stride, t0f, t0b, whf, whb,
+                                     lens, yf, cf, yb, cb, state, dirs, s0,
+                                     S, steps, B, H, R, reverse);
+}
+
+template <typename T>
+int xp_chain_launch(const void* xp, const void* whf, const void* whb,
+                    const void* lens, void* yf, void* cf, void* yb, void* cb,
+                    void* state, int steps, int B, int H, int C, int R,
+                    void* stream) {
+  auto kern = R >= 4 ? &bilstm_xp_chain_kernel<T, 4>
+              : R >= 2 ? &bilstm_xp_chain_kernel<T, 2>
+                       : &bilstm_xp_chain_kernel<T, 1>;
+  return fwd_chain_launch<LstmCell, T, T>(kern, xp, 8 * H, 0, 0, whf, whb,
+                                          lens, yf, cf, yb, cb, state, 2, 0,
+                                          steps, steps, B, H, C, R, 0,
+                                          stream);
 }
 
 }  // namespace
 
 extern "C" {
 
-// K2.  hbuf: [2 parities][2 directions][B][H] f32, parity 0 zeroed by the
-// caller
+// K2's cooperative route.  hbuf: [2 parities][2 directions][B][H] f32,
+// parity 0 zeroed by the caller
 int bilstm_fwd_f32(const void* xp, const void* whf, const void* whb,
                    const void* lens, void* yf, void* cf, void* yb, void* cb,
                    void* hbuf, int steps, int B, int H, void* stream) {
@@ -334,8 +383,29 @@ int bilstm_fwd_bf16(const void* xp, const void* whf, const void* whb,
                                steps, B, H, stream);
 }
 
+// K2's cluster route: xp [T, B, 8H] and w_h_f, w_h_b [H, 4H] in the
+// compute dtype, lens [B] int32 -> y_f, y_b [T, B, H] in the compute dtype
+// and c_f, c_b [T, B, H] f32; state [2][2][B][H] f32 zeroed by the caller.
+// C CTAs per cluster (a power of two <= 16), R rows per cluster.
+int bilstm_xp_chain_f32(const void* xp, const void* whf, const void* whb,
+                        const void* lens, void* yf, void* cf, void* yb,
+                        void* cb, void* state, int steps, int B, int H, int C,
+                        int R, void* stream) {
+  return xp_chain_launch<float>(xp, whf, whb, lens, yf, cf, yb, cb, state,
+                                steps, B, H, C, R, stream);
+}
+
+int bilstm_xp_chain_bf16(const void* xp, const void* whf, const void* whb,
+                         const void* lens, void* yf, void* cf, void* yb,
+                         void* cb, void* state, int steps, int B, int H,
+                         int C, int R, void* stream) {
+  return xp_chain_launch<__nv_bfloat16>(xp, whf, whb, lens, yf, cf, yb, cb,
+                                        state, steps, B, H, C, R, stream);
+}
+
 // the opt-in shared memory of one block on the current device, in bytes
-// (K10a's plan sizes its kernels by it), or a negative CUDA error code
+// (K2's and K10a's plans size their kernels by it), or a negative CUDA
+// error code
 int bilstm_fwd_smem_optin(void) { return smem_optin_bytes(); }
 
 // K10a phase 1 over S frames a direction of `steps`: x [T, B, D] and wx

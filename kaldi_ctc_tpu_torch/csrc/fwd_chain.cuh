@@ -1,34 +1,41 @@
-// The forward recurrence of an LSTM in thread-block clusters: phase 2 of
-// K10a (csrc/bilstm_fwd.cu: both directions, the projection from phase
-// 1's f32 scratch) and K5 (csrc/lstm_fwd.cu: one direction, the hoisted
-// projection x_proj in the compute dtype).
+// The forward recurrence of an LSTM or a GRU in thread-block clusters:
+// K2 (csrc/bilstm_fwd.cu: both LSTM directions from the hoisted projection
+// xp), phase 2 of K10a (csrc/bilstm_fwd.cu: both directions, the
+// projection from phase 1's f32 scratch), K5 (csrc/lstm_fwd.cu: one LSTM
+// direction from x_proj) and K9a (csrc/gru_fwd.cu: one GRU direction from
+// x_proj).  The cell is a policy (LstmCell, GruCell below): its number of
+// gate columns per unit, its one f32 state per (row, unit) and its gate
+// math.
 //
 // gates = pre[t] + h[t-1] . W_h with the operand h rounded to the compute
-// dtype and f32 accumulation; gate math and the cell state are f32.  A
-// frame t >= lens[b] carries h and c and writes y = 0.  Outputs: y [T, B,
-// H] in the compute dtype and c [T, B, H] f32 per direction.
+// dtype and f32 accumulation; gate math and the state are f32.  A frame t
+// >= lens[b] carries h and the state and writes y = 0.  Outputs: y [T, B,
+// H] in the compute dtype per direction and, for the LSTM, c [T, B, H] f32
+// (the GRU's state is its f32 carry h, which it does not store).
 //
 // What bounds it on the H100: the serial chain, T steps of a [R, H] x
-// [H, 4H] product per group of rows.  The product is no work for the
+// [H, gates H] product per group of rows.  The product is no work for the
 // card (~20 M MACs a step at B = 48, H = 320); what a step costs is its
 // latency: reading h[t-1], the sums, the gate math and one exchange.
 //
 // Design: rows never meet, so one cluster of C CTAs (cudaLaunchKernelEx
 // with a cluster dimension, no cooperative launch and no grid barrier)
 // walks the steps of each (direction, group of R rows).  Each CTA keeps
-// the four gate columns of W_h of its ceil(H / C) units in shared memory
-// for the whole walk, in the compute dtype (exact; it halves bf16's
-// footprint), with its units' cell state and a double-buffered receive
-// area for h[t-1] of its R rows.  A step:
-//   1. the CTA's gate sums over h[t-1], R rows x 4 ceil(H / C) columns,
-//      in tiles of 32 outputs a warp: each lane sums its k = lane, lane +
-//      32, ... for all 32 with fmaf in order and warp_sum32 folds them,
-//      so every sum is warp_dot's bit for bit: the recompute invariant
-//      of K6 and K10b, which recompute these gates with warp_dot or
-//      tile_dot4x4 (no tensor-core mma here: it would break it);
+// the gate columns of W_h of its ceil(H / C) units in shared memory for
+// the whole walk, in the compute dtype (exact; it halves bf16's
+// footprint), with its units' state and a double-buffered receive area
+// for h[t-1] of its R rows.  A step:
+//   1. the CTA's gate sums over h[t-1], R rows x gates ceil(H / C)
+//      columns, in tiles of 32 outputs a warp: each lane sums its k =
+//      lane, lane + 32, ... for all 32 with fmaf in order and warp_sum32
+//      folds them, so every sum is warp_dot's bit for bit: the recompute
+//      invariant of K3, K6, K9b and K10b, which recompute these gates with
+//      warp_dot or tile_dot4x4 (no tensor-core mma here: it would break
+//      it);
 //   2. plus the step's pre-activation, prefetched (cp.async) into a
 //      double buffer at the top of the step before;
-//   3. the gate math; y[t] and c[t] of its units written;
+//   3. the cell's gate math; y[t] (and the LSTM's c[t]) of its units
+//      written;
 //   4. its slice of h[t], rounded to the compute dtype as the next
 //      operand, stored into every CTA's receive buffer of the other
 //      parity through DSMEM (cluster.map_shared_rank);
@@ -41,8 +48,8 @@
 // them and returns the CUDA error when they do not fit.
 //
 // A walk may run in chunks of steps (K10a's scratch above 256 MiB): h and
-// c are read from and, unless the walk ends, written to an f32 state
-// [2 (h, c)][dirs][B][H] (zeros before the first step).
+// the state are read from and, unless the walk ends, written to an f32
+// array [2 (h, state)][dirs][B][H] (zeros before the first step).
 
 #pragma once
 
@@ -64,22 +71,75 @@ __host__ __device__ constexpr size_t align16(size_t n) {
   return (n + 15) & ~(size_t)15;
 }
 
+// The linear-before-reset GRU cell of ops/gru_pallas.py::_gru_gates: the
+// projection parts xr, xz, xn, the recurrent sums hr, hz, hn and the f32
+// carry h -> h' = (1 - z) n + z h, with r = sigmoid(xr + hr), z =
+// sigmoid(xz + hz), n = tanh(xn + r hn).  Every route of K8a and K9a calls
+// it (the fmaf are explicit so that no route contracts otherwise).
+__device__ __forceinline__ float gru_cell(float xr, float xz, float xn,
+                                          float hr, float hz, float hn,
+                                          float h) {
+  const float r = sigmoid(xr + hr);
+  const float z = sigmoid(xz + hz);
+  const float n = tanhf(fmaf(r, hn, xn));
+  return fmaf(z, h, (1.0f - z) * n);
+}
+
+// The cells of the chain.  step(): the gate sums s and the step's
+// pre-activations x of one (row, unit), and its f32 state → h_new, the
+// state updated.  kStoresState: the state is an output ([T, B, H] f32).
+
+// gates i, f, g, o; the state is the cell state c.  c' = gi gg + gf c
+// with the fmaf explicit: nvcc may contract either product, and every
+// LSTM forward must agree bit for bit (K2's two routes call this; K5's
+// cooperative kernel contracts its own expression the same way).
+struct LstmCell {
+  static constexpr int kGates = 4;
+  static constexpr bool kStoresState = true;
+  __device__ __forceinline__ static float step(const float (&s)[4],
+                                               const float (&x)[4],
+                                               float& c) {
+    const float gi = sigmoid(s[0] + x[0]);
+    const float gf = sigmoid(s[1] + x[1]);
+    const float gg = tanhf(s[2] + x[2]);
+    const float go = sigmoid(s[3] + x[3]);
+    c = fmaf(gi, gg, gf * c);
+    return go * tanhf(c);
+  }
+};
+
+// gates r, z, n; the state is the carry h in f32
+struct GruCell {
+  static constexpr int kGates = 3;
+  static constexpr bool kStoresState = false;
+  __device__ __forceinline__ static float step(const float (&s)[3],
+                                               const float (&x)[3],
+                                               float& h) {
+    h = gru_cell(x[0], x[1], x[2], s[0], s[1], s[2], h);
+    return h;
+  }
+};
+
 // bytes of a chain CTA's shared memory at cluster size C, R rows per
-// cluster, H units, W_h and h in a type of `tsize` bytes (the layout of
-// fwd_chain_body; ops/rnn_cuda.py::fwd_chain_plan sizes R by the same sum)
-inline size_t fwd_chain_bytes(int C, int R, int H, int tsize) {
+// cluster, H units, `gates` gate columns per unit, W_h and h in a type of
+// `tsize` bytes (the layout of fwd_chain_body; ops/rnn_cuda.py::
+// _fwd_chain_bytes sizes R by the same sum)
+inline size_t fwd_chain_bytes(int C, int R, int H, int tsize, int gates) {
   const size_t hsz = (H + C - 1) / C;
-  return align16(4 * hsz * H * tsize)           // W_h columns
+  return align16(gates * hsz * H * tsize)       // W_h columns
          + align16((size_t)2 * R * H * tsize)   // receive, two parities
          + align16((size_t)R * hsz * tsize)     // this CTA's h slice
-         + sizeof(float) * (size_t)R * hsz * (4 + 1 + 8)  // sums, c, pre
+         // sums, state, prefetched pre-activations (two buffers)
+         + sizeof(float) * (size_t)R * hsz * (gates + 1 + 2 * gates)
          + sizeof(int) * (size_t)R;             // lengths
 }
 
-// T: the compute dtype; P: the pre-activation's type; RT rows by 32 / RT
-// columns a warp tile.  pre row of (t, b): pre + ((t - t0) * B + b) *
-// pre_stride + dir * 4H, the gate columns i, f, g, o at q * H + j.
-template <typename T, typename P, int RT>
+// Cell: LstmCell or GruCell; T: the compute dtype; P: the
+// pre-activation's type; RT rows by 32 / RT columns a warp tile.  pre row
+// of (t, b): pre + ((t - t0) * B + b) * pre_stride + dir * gates H, gate q
+// of unit j at q * H + j.  cf, cb: the LSTM's c outputs (unused by a
+// cell that stores no state).
+template <typename Cell, typename T, typename P, int RT>
 __device__ __forceinline__ void fwd_chain_body(
     const P* __restrict__ pre, int pre_stride, int t0f, int t0b,
     const T* __restrict__ whf, const T* __restrict__ whb,
@@ -87,6 +147,7 @@ __device__ __forceinline__ void fwd_chain_body(
     float* __restrict__ cf, T* __restrict__ yb, float* __restrict__ cb,
     float* __restrict__ state, int dirs, int s0, int S, int steps, int B,
     int H, int R, int reverse) {
+  constexpr int kG = Cell::kGates;
   constexpr int CT = 32 / RT;
   extern __shared__ __align__(16) unsigned char fwd_chain_smem[];
   cgc::cluster_group cluster = cgc::this_cluster();
@@ -100,36 +161,36 @@ __device__ __forceinline__ void fwd_chain_body(
   const int hsz = (H + C - 1) / C;          // units per rank
   const int j0 = rank * hsz;
   const int n = max(0, min(hsz, H - j0));   // units this CTA owns
-  const int n4 = 4 * n;
-  const int G = 4 * H;
+  const int ng = kG * n;
+  const int G = kG * H;
   const bool rev = (dir != 0) != (reverse != 0);
   const int t0 = dir == 0 ? t0f : t0b;
   const T* wh = dir == 0 ? whf : whb;
   T* y = dir == 0 ? yf : yb;
   float* cst = dir == 0 ? cf : cb;
   float* h_state = state + (size_t)dir * B * H;           // state[0][dir]
-  float* c_state = state + (size_t)(dirs + dir) * B * H;  // state[1][dir]
+  float* s_state = state + (size_t)(dirs + dir) * B * H;  // state[1][dir]
 
   unsigned char* p = fwd_chain_smem;
-  T* w_s = reinterpret_cast<T*>(p);         // [4n][H]: column gate * n + jj
-  p += align16((size_t)4 * hsz * H * sizeof(T));
+  T* w_s = reinterpret_cast<T*>(p);         // [kG n][H]: column gate n + jj
+  p += align16((size_t)kG * hsz * H * sizeof(T));
   T* recv = reinterpret_cast<T*>(p);        // [2][R][H]: h[t-1], operand
   p += align16((size_t)2 * R * H * sizeof(T));
   T* hl = reinterpret_cast<T*>(p);          // [R][hsz]: this CTA's h[t]
   p += align16((size_t)R * hsz * sizeof(T));
-  float* g_s = reinterpret_cast<float*>(p);  // [R][4n]: recurrent sums
-  float* c_s = g_s + (size_t)4 * R * hsz;    // [nr][n]: cell state
+  float* g_s = reinterpret_cast<float*>(p);  // [R][kG n]: recurrent sums
+  float* c_s = g_s + (size_t)kG * R * hsz;   // [nr][n]: the cell's state
   uint32_t* pf = reinterpret_cast<uint32_t*>(c_s + (size_t)R * hsz);
-  int* lens_s = reinterpret_cast<int*>(pf + (size_t)8 * R * hsz);
+  int* lens_s = reinterpret_cast<int*>(pf + (size_t)2 * kG * R * hsz);
 
-  for (int i = threadIdx.x; i < n4 * H; i += blockDim.x) {
-    const int k = i / n4, c = i % n4;
+  for (int i = threadIdx.x; i < ng * H; i += blockDim.x) {
+    const int k = i / ng, c = i % ng;
     const int gate = c / n, jj = c % n;
     w_s[(size_t)c * H + k] = wh[(size_t)k * G + gate * H + j0 + jj];
   }
   const int ne = nr * n;                    // (row, unit) elements
   for (int e = threadIdx.x; e < ne; e += blockDim.x)
-    c_s[e] = c_state[(size_t)(r0 + e / n) * H + j0 + e % n];
+    c_s[e] = s_state[(size_t)(r0 + e / n) * H + j0 + e % n];
   for (int i = threadIdx.x; i < nr * H; i += blockDim.x)
     recv[i] = from_f32<T>(h_state[(size_t)r0 * H + i]);
   for (int r = threadIdx.x; r < nr; r += blockDim.x) lens_s[r] = lens[r0 + r];
@@ -139,16 +200,16 @@ __device__ __forceinline__ void fwd_chain_body(
     return pre + ((size_t)(t - t0) * B + b) * pre_stride + dir * G;
   };
   // step s's pre-activations of this thread's elements into buffer `buf`
-  // (4 words an element, the words holding the 4 gates' values): they
+  // (kG words an element, the words holding the gates' values): they
   // depend on nothing the chain computes
   auto prefetch = [&](int s, int buf) {
     const int t = time_of(s);
-    uint32_t* q0 = pf + (size_t)buf * 4 * R * hsz;
+    uint32_t* q0 = pf + (size_t)buf * kG * R * hsz;
     for (int e = threadIdx.x; e < ne; e += blockDim.x) {
       const P* g = pre_of(t, r0 + e / n) + j0 + e % n;
-      uint32_t* q = q0 + (size_t)e * 4;
+      uint32_t* q = q0 + (size_t)e * kG;
 #pragma unroll
-      for (int gate = 0; gate < 4; ++gate)
+      for (int gate = 0; gate < kG; ++gate)
         cp_async4(q + gate, word_of(g + gate * H));
     }
   };
@@ -156,7 +217,7 @@ __device__ __forceinline__ void fwd_chain_body(
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const int nwarps = blockDim.x >> 5;
-  const int col_tiles = (n4 + CT - 1) / CT;
+  const int col_tiles = (ng + CT - 1) / CT;
   const int tiles = n > 0 ? ((nr + RT - 1) / RT) * col_tiles : 0;
 
   prefetch(s0, 0);
@@ -180,7 +241,7 @@ __device__ __forceinline__ void fwd_chain_body(
 #pragma unroll
       for (int a = 0; a < RT; ++a) hr[a] = h_cur + min(ra + a, nr - 1) * H;
 #pragma unroll
-      for (int c = 0; c < CT; ++c) wc[c] = w_s + min(ca + c, n4 - 1) * H;
+      for (int c = 0; c < CT; ++c) wc[c] = w_s + min(ca + c, ng - 1) * H;
       float v[32];
 #pragma unroll
       for (int o = 0; o < 32; ++o) v[o] = 0.0f;
@@ -198,37 +259,36 @@ __device__ __forceinline__ void fwd_chain_body(
       }
       const float sum = warp_sum32(v, lane);
       const int r = ra + lane / CT, c = ca + lane % CT;
-      if (r < nr && c < n4) g_s[r * n4 + c] = sum;
+      if (r < nr && c < ng) g_s[r * ng + c] = sum;
     }
     __syncthreads();
 
     // 2-3. the gate math of this thread's elements
-    const uint32_t* pq = pf + (size_t)(i & 1) * 4 * R * hsz;
+    const uint32_t* pq = pf + (size_t)(i & 1) * kG * R * hsz;
     for (int e = threadIdx.x; e < ne; e += blockDim.x) {
       const int r = e / n, jj = e % n, b = r0 + r, j = j0 + jj;
-      const uint32_t* q = pq + (size_t)e * 4;
-      const float* g = g_s + r * n4;
+      const uint32_t* q = pq + (size_t)e * kG;
+      const float* g = g_s + r * ng;
       const P* src = pre_of(t, b) + j;
-      // pre-activation of gate k: the sum plus the step's projection
-      auto gate_pre = [&](int k) {
-        return g[k * n + jj] + from_word(q[k], src + k * H);
-      };
-      const float gi = sigmoid(gate_pre(0));
-      const float gf = sigmoid(gate_pre(1));
-      const float gg = tanhf(gate_pre(2));
-      const float go = sigmoid(gate_pre(3));
-      const float c_prev = c_s[e];
-      const float c_new = gf * c_prev + gi * gg;
-      const float h_new = go * tanhf(c_new);
+      // gate k: the recurrent sum and the step's projection
+      float sums[kG], xs[kG];
+#pragma unroll
+      for (int k = 0; k < kG; ++k) {
+        sums[k] = g[k * n + jj];
+        xs[k] = from_word(q[k], src + k * H);
+      }
+      const float s_prev = c_s[e];
+      float s_new = s_prev;
+      const float h_new = Cell::step(sums, xs, s_new);
       const bool valid = t < lens_s[r];
-      const float c_out = valid ? c_new : c_prev;
-      c_s[e] = c_out;
+      const float s_out = valid ? s_new : s_prev;
+      c_s[e] = s_out;
       T h_out = h_cur[r * H + j];         // the carry, already rounded
       if (valid) h_out = from_f32<T>(h_new);
       hl[r * hsz + jj] = h_out;
       const size_t o = ((size_t)t * B + b) * H + j;
       y[o] = from_f32<T>(valid ? h_new : 0.0f);
-      cst[o] = c_out;
+      if constexpr (Cell::kStoresState) cst[o] = s_out;
     }
     if (i + 1 == S) break;
     __syncthreads();
@@ -250,15 +310,15 @@ __device__ __forceinline__ void fwd_chain_body(
       const int r = e / n, jj = e % n;
       const size_t o = (size_t)(r0 + r) * H + j0 + jj;
       h_state[o] = to_f32(hl[r * hsz + jj]);
-      c_state[o] = c_s[e];
+      s_state[o] = c_s[e];
     }
   }
 }
 
-// Launch `kern` (a __global__ wrapper of fwd_chain_body) over dirs x
-// ceil(B / R) clusters of C CTAs: C a power of two <= 16, R >= 1, the
-// CTA's shared memory within the card's opt-in limit.
-template <typename T, typename P>
+// Launch `kern` (a __global__ wrapper of fwd_chain_body with Cell) over
+// dirs x ceil(B / R) clusters of C CTAs: C a power of two <= 16, R >= 1,
+// the CTA's shared memory within the card's opt-in limit.
+template <typename Cell, typename T, typename P>
 cudaError_t fwd_chain_launch(
     void (*kern)(const P*, int, int, int, const T*, const T*, const int32_t*,
                  T*, float*, T*, float*, float*, int, int, int, int, int,
@@ -273,7 +333,7 @@ cudaError_t fwd_chain_launch(
     return cudaErrorInvalidValue;
   const int optin = smem_optin_bytes();
   if (optin < 0) return static_cast<cudaError_t>(-optin);
-  const size_t smem = fwd_chain_bytes(C, R, H, sizeof(T));
+  const size_t smem = fwd_chain_bytes(C, R, H, sizeof(T), Cell::kGates);
   if (smem > (size_t)optin) return cudaErrorLaunchOutOfResources;
   cudaError_t e = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);

@@ -23,30 +23,50 @@
 // SMs.  W_h is 320 x 960 (1.2 MB in f32) per direction, far more than one
 // block's 227 KB of shared memory.
 //
-// Design: K5's and K2's (csrc/lstm_fwd.cu, csrc/bilstm_fwd.cu) with three
-// gate columns per unit.  One cooperative launch: each block owns hs
-// hidden units of one direction and keeps those units' three gate
-// columns of W_h in shared memory for the whole sequence (as f32,
-// transposed so the lanes of a warp read consecutive k).  The n gate
-// needs hn apart from xn, so the block keeps all three recurrent sums of
-// its units (3*hs per row) rather than one fused pre-activation.  Each
-// step a block reads h from a double-buffered f32 exchange in global
-// memory (L2-resident, ld.global.cg so a stale L1 line is never seen),
-// computes its 3*hs sums per row with warp-split dot products, does the
-// gate math, writes y and its slice of the next h, and the grid meets at
-// one grid.sync() per step: step s reads parity s&1 and writes parity
-// (s+1)&1.  hs = ceil(dirs * H / SMs) puts the grid in one wave (107
-// blocks of 3 units at H = 320 for one direction, 128 blocks of 5 for
-// two); the host checks co-residency before launching.  Every row's h
-// stays in shared memory, so a launch takes at most gru_fwd_max_rows(H)
-// rows (~167 at H = 320; bigru_fwd_max_rows ~159); the wrapper runs a
-// larger batch as row slices.
+// K9a has two routes, chosen by the wrapper's plan from the shapes
+// (ops/rnn_cuda.py::fwd_chain_plan with three gates):
+//   - the cluster route, wherever W_h's three gate columns fit a cluster
+//     of at most 16 CTAs (H up to ~545 in f32, ~770 in bf16):
+//     gru_fwd_chain_kernel, the forward chain of csrc/fwd_chain.cuh with
+//     the GRU cell (GruCell: three sums a unit, the f32 carry h as the
+//     cell's state), reading x_proj directly.  Rows never meet, so each
+//     cluster of C CTAs walks a group of R rows with W_h in distributed
+//     shared memory and one cluster barrier a step: no grid barrier, any
+//     B;
+//   - the cooperative route above that: gru_fwd_kernel, below.
+// K8a runs the cooperative design with both directions.
+//
+// The cooperative design: K2's (csrc/bilstm_fwd.cu) with three gate
+// columns per unit.  One cooperative launch: each block owns hs hidden
+// units of one direction and keeps those units' three gate columns of W_h
+// in shared memory for the whole sequence (as f32, transposed so the
+// lanes of a warp read consecutive k).  The n gate needs hn apart from
+// xn, so the block keeps all three recurrent sums of its units (3*hs per
+// row) rather than one fused pre-activation.  Each step a block reads h
+// from a double-buffered f32 exchange in global memory (L2-resident,
+// ld.global.cg so a stale L1 line is never seen), computes its 3*hs sums
+// per row with warp-split dot products, does the gate math, writes y and
+// its slice of the next h, and the grid meets at one grid.sync() per
+// step: step s reads parity s&1 and writes parity (s+1)&1.  hs =
+// ceil(dirs * H / SMs) puts the grid in one wave (107 blocks of 3 units
+// at H = 320 for one direction, 128 blocks of 5 for two); the host checks
+// co-residency before launching.  Every row's h stays in shared memory,
+// so a launch takes at most gru_fwd_max_rows(H) rows (~167 at H = 320;
+// bigru_fwd_max_rows ~159); the wrapper runs a larger batch as row
+// slices.
+//
+// Every route sums in warp_dot's order (csrc/bilstm_cell.cuh), the order
+// K8b and K9b recompute the sums in, and does the gate math of one
+// function, gru_cell() of csrc/fwd_chain.cuh: K9a's two routes agree bit
+// for bit.
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "bilstm_cell.cuh"
+#include "fwd_chain.cuh"
 #include "row_ceiling.cuh"
 
 namespace cg = cooperative_groups;
@@ -54,24 +74,6 @@ namespace cg = cooperative_groups;
 namespace {
 
 constexpr int kThreads = 256;
-
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-
-template <typename T>
-__device__ __forceinline__ T from_f32(float v);
-template <>
-__device__ __forceinline__ float from_f32<float>(float v) { return v; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
-  return __float2bfloat16(v);  // round to nearest even, as astype does
-}
-
-__device__ __forceinline__ float sigmoid(float x) {
-  return 1.0f / (1.0f + expf(-x));
-}
 
 // The recurrence of DIRS directions; block blockIdx.x owns units
 // j0 .. j0+n-1 of direction blockIdx.x / nb.  Direction d walks time
@@ -130,11 +132,10 @@ __device__ __forceinline__ void gru_fwd_body(
       const int b = e / n, jj = e % n, j = j0 + jj;
       const T* x = xp + ((size_t)t * B + b) * DIRS * G + dir * G;
       const float* g = g_s + b * n3;
-      const float r = sigmoid(to_f32(x[j]) + g[jj]);
-      const float z = sigmoid(to_f32(x[H + j]) + g[n + jj]);
-      const float nn = tanhf(to_f32(x[2 * H + j]) + r * g[2 * n + jj]);
       const float h_prev = __ldcg(h_cur + b * H + j);
-      const float h_new = (1.0f - z) * nn + z * h_prev;
+      const float h_new = gru_cell(to_f32(x[j]), to_f32(x[H + j]),
+                                   to_f32(x[2 * H + j]), g[jj], g[n + jj],
+                                   g[2 * n + jj], h_prev);
       const bool valid = t < lens[b];
       __stcg(h_next + b * H + j, valid ? h_new : h_prev);
       y[((size_t)t * B + b) * H + j] = from_f32<T>(valid ? h_new : 0.0f);
@@ -235,6 +236,32 @@ int launch(bool bidirectional, const void* xp, const void* wh0,
   return cudaGetLastError();
 }
 
+// K9a's cluster route: the forward chain with the GRU cell
+template <typename T, int RT>
+__global__ void __launch_bounds__(kChainFwdThreads)
+gru_fwd_chain_kernel(const T* pre, int pre_stride, int t0f, int t0b,
+                     const T* whf, const T* whb, const int32_t* lens, T* yf,
+                     float* cf, T* yb, float* cb, float* state, int dirs,
+                     int s0, int S, int steps, int B, int H, int R,
+                     int reverse) {
+  fwd_chain_body<GruCell, T, T, RT>(pre, pre_stride, t0f, t0b, whf, whb,
+                                    lens, yf, cf, yb, cb, state, dirs, s0, S,
+                                    steps, B, H, R, reverse);
+}
+
+template <typename T>
+int chain_launch(const void* xp, const void* wh, const void* lens, void* y,
+                 void* state, int steps, int B, int H, int C, int R,
+                 int reverse, void* stream) {
+  auto kern = R >= 4 ? &gru_fwd_chain_kernel<T, 4>
+              : R >= 2 ? &gru_fwd_chain_kernel<T, 2>
+                       : &gru_fwd_chain_kernel<T, 1>;
+  return fwd_chain_launch<GruCell, T, T>(kern, xp, 3 * H, 0, 0, wh, wh, lens,
+                                         y, nullptr, y, nullptr, state, 1, 0,
+                                         steps, steps, B, H, C, R, reverse,
+                                         stream);
+}
+
 }  // namespace
 
 extern "C" {
@@ -251,7 +278,12 @@ int bigru_fwd_max_rows_bf16(int H) {
   return max_rows_of<__nv_bfloat16>(2, H);
 }
 
-// K9a.  hbuf: [2 parities][B][H] f32, parity 0 zeroed by the caller
+// the opt-in shared memory of one block on the current device, in bytes
+// (K9a's plan sizes its clusters by it), or a negative CUDA error code
+int gru_fwd_smem_optin(void) { return smem_optin_bytes(); }
+
+// K9a's cooperative route.  hbuf: [2 parities][B][H] f32, parity 0 zeroed
+// by the caller
 int gru_fwd_f32(const void* xp, const void* wh, const void* lens, void* y,
                 void* hbuf, int steps, int B, int H, int reverse,
                 void* stream) {
@@ -264,6 +296,23 @@ int gru_fwd_bf16(const void* xp, const void* wh, const void* lens, void* y,
                  void* stream) {
   return launch<__nv_bfloat16>(false, xp, wh, wh, lens, y, y, hbuf, steps,
                                B, H, reverse, stream);
+}
+
+// K9a's cluster route: C CTAs per cluster (a power of two <= 16), R rows
+// per cluster; state [2 (h, h)][B][H] f32 zeroed by the caller (the
+// operand's h and the cell's f32 carry)
+int gru_fwd_chain_f32(const void* xp, const void* wh, const void* lens,
+                      void* y, void* state, int steps, int B, int H, int C,
+                      int R, int reverse, void* stream) {
+  return chain_launch<float>(xp, wh, lens, y, state, steps, B, H, C, R,
+                             reverse, stream);
+}
+
+int gru_fwd_chain_bf16(const void* xp, const void* wh, const void* lens,
+                       void* y, void* state, int steps, int B, int H, int C,
+                       int R, int reverse, void* stream) {
+  return chain_launch<__nv_bfloat16>(xp, wh, lens, y, state, steps, B, H, C,
+                                     R, reverse, stream);
 }
 
 // K8a.  hbuf: [2 parities][2 directions][B][H] f32, parity 0 zeroed by

@@ -23,7 +23,7 @@
 // (ops/rnn_cuda.py::fwd_chain_plan):
 //   - the cluster route, wherever W_h fits a cluster of at most 16 CTAs
 //     (H up to ~470 in f32, ~670 in bf16): lstm_fwd_chain_kernel, the
-//     forward chain of csrc/lstm_chain.cuh with one direction, reading
+//     forward chain of csrc/fwd_chain.cuh with one direction, reading
 //     x_proj directly.  Rows never meet, so each cluster of C CTAs walks a
 //     group of R rows with W_h in distributed shared memory and one
 //     cluster barrier a step: no grid barrier, any B;
@@ -51,7 +51,7 @@
 #include <stdint.h>
 
 #include "bilstm_cell.cuh"
-#include "lstm_chain.cuh"
+#include "fwd_chain.cuh"
 #include "row_ceiling.cuh"
 
 namespace cg = cooperative_groups;
@@ -205,9 +205,9 @@ lstm_fwd_chain_kernel(const T* pre, int pre_stride, int t0f, int t0b,
                       float* cf, T* yb, float* cb, float* state, int dirs,
                       int s0, int S, int steps, int B, int H, int R,
                       int reverse) {
-  fwd_chain_body<T, T, RT>(pre, pre_stride, t0f, t0b, whf, whb, lens, yf, cf,
-                           yb, cb, state, dirs, s0, S, steps, B, H, R,
-                           reverse);
+  fwd_chain_body<LstmCell, T, T, RT>(pre, pre_stride, t0f, t0b, whf, whb,
+                                     lens, yf, cf, yb, cb, state, dirs, s0,
+                                     S, steps, B, H, R, reverse);
 }
 
 template <typename T>
@@ -217,9 +217,10 @@ int chain_launch(const void* xp, const void* wh, const void* lens, void* y,
   auto kern = R >= 4 ? &lstm_fwd_chain_kernel<T, 4>
               : R >= 2 ? &lstm_fwd_chain_kernel<T, 2>
                        : &lstm_fwd_chain_kernel<T, 1>;
-  return fwd_chain_launch<T, T>(kern, xp, 4 * H, 0, 0, wh, wh, lens, y, cst,
-                                y, cst, state, 1, 0, steps, steps, B, H, C,
-                                R, reverse, stream);
+  return fwd_chain_launch<LstmCell, T, T>(kern, xp, 4 * H, 0, 0, wh, wh,
+                                          lens, y, cst, y, cst, state, 1, 0,
+                                          steps, steps, B, H, C, R, reverse,
+                                          stream);
 }
 
 }  // namespace

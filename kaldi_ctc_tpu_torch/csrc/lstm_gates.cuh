@@ -4,7 +4,7 @@
 //
 // K10b's phase 1 recomputes the forward's gates, the projection of x[t]
 // plus the recurrent sum over the stored y[t-+1]; K10a's phase 1 computes
-// the projection alone, which its forward chain (csrc/lstm_chain.cuh)
+// the projection alone, which its forward chain (csrc/fwd_chain.cuh)
 // adds to the recurrent sum.  Both run the bodies below, so the
 // projection K10a's chain reads is the one K10b recomputes, bit for bit:
 // project() of csrc/bilstm_cell.cuh, x . W_x with warp_dot's order, plus

@@ -11,7 +11,11 @@ tensor to its plain version (``*_reference``) and launches the kernel or
 raises for a CUDA tensor.  :func:`gru_sequence` and :func:`bigru_layer`
 are ``torch.autograd.Function``s whose backward runs K9b or K8b and then
 the weight and input gradients as plain products, as the JAX package
-leaves them to XLA.
+leaves them to XLA.  On the card K9a's route comes from
+``rnn_cuda.fwd_chain_plan`` with three gates: the forward chain in
+thread-block clusters (``csrc/fwd_chain.cuh`` with the GRU cell; any B,
+one launch) where W_h fits a cluster, else the cooperative kernel in row
+slices.
 
 The cell is cuDNN's linear-before-reset GRU (``ops.rnn._gru_gates``, gate
 order r, z, n, no recurrent bias).  The forward writes y only; the
@@ -33,18 +37,23 @@ import torch
 from kaldi_ctc_tpu_torch import _kernels
 from kaldi_ctc_tpu_torch.ops.rnn import (COMPUTE_DTYPES, _gru_gates, _valid,
                                          matmul_f32acc)
-from kaldi_ctc_tpu_torch.ops.rnn_cuda import (_I, _P, _SUFFIX, _check_lens,
-                                              _check_tensors, _check_x_proj,
-                                              _dw_h, max_rows,
+from kaldi_ctc_tpu_torch.ops.rnn_cuda import (_I, _P, _SUFFIX, FwdChainPlan,
+                                              _check_lens, _check_tensors,
+                                              _check_x_proj, _dw_h,
+                                              _sm_count, _smem_optin,
+                                              fwd_chain_plan, max_rows,
                                               run_in_row_slices)
 
 __all__ = ["gru_seq_fwd", "gru_seq_fwd_reference", "gru_seq_bwd_dgates",
            "gru_seq_bwd_dgates_reference", "gru_sequence", "bigru_seq_fwd",
            "bigru_seq_fwd_reference", "bigru_seq_bwd_dgates",
-           "bigru_seq_bwd_dgates_reference", "bigru_layer"]
+           "bigru_seq_bwd_dgates_reference", "bigru_layer", "k9a_plan"]
 
 _FWD_SIGNATURES = {"gru_fwd_f32": [_P] * 5 + [_I] * 4 + [_P],
                    "gru_fwd_bf16": [_P] * 5 + [_I] * 4 + [_P],
+                   "gru_fwd_chain_f32": [_P] * 5 + [_I] * 6 + [_P],
+                   "gru_fwd_chain_bf16": [_P] * 5 + [_I] * 6 + [_P],
+                   "gru_fwd_smem_optin": [],
                    "bigru_fwd_f32": [_P] * 7 + [_I] * 3 + [_P],
                    "bigru_fwd_bf16": [_P] * 7 + [_I] * 3 + [_P]}
 _BWD_SIGNATURES = {"gru_bwd_f32": [_P] * 8 + [_I] * 4 + [_P],
@@ -146,7 +155,10 @@ def gru_seq_fwd(x_proj: torch.Tensor, w_h: torch.Tensor, lens: torch.Tensor,
                 reverse: bool = False) -> torch.Tensor:
     """x_proj [T, B, 3H] hoisted projection and w_h [H, 3H], both in the
     compute dtype, lens [B], reverse (walk t = T-1 .. 0) → y [T, B, H] in
-    the compute dtype.  The contract of ``gru_pallas.gru_seq_fwd``."""
+    the compute dtype.  The contract of ``gru_pallas.gru_seq_fwd``.  On
+    the card the route is :func:`k9a_plan`'s, from the shapes: the forward
+    chain in thread-block clusters, or the cooperative kernel in row
+    slices."""
     if x_proj.device.type == "cpu":
         return gru_seq_fwd_reference(x_proj, w_h, lens, reverse)
     if x_proj.device.type != "cuda":
@@ -161,14 +173,58 @@ def gru_seq_fwd(x_proj: torch.Tensor, w_h: torch.Tensor, lens: torch.Tensor,
     if t_max == 0 or b == 0:
         return torch.empty((t_max, b, h), dtype=x_proj.dtype, device=dev)
     lib = _kernels.load("gru_fwd", _FWD_SIGNATURES)
+    plan = k9a_plan(lib, b, h, x_proj.dtype, dev)
+    lens32 = lens.to(torch.int32).contiguous()
+    if plan.route == "cluster":
+        y = _gru_fwd_chain(lib, x_proj, w_h, lens32, reverse, plan)
+    else:
+        y = _gru_fwd_cooperative(lib, x_proj, w_h, lens32, reverse)
+    gru_seq_fwd.launches += 1
+    return y
+
+
+def k9a_plan(lib, b: int, h: int, dtype: torch.dtype, device
+             ) -> FwdChainPlan:
+    """K9a's route and launch shape on ``device``:
+    ``rnn_cuda.fwd_chain_plan`` with three gates and one direction."""
+    return fwd_chain_plan(b, 0, h, dtype, 1, _sm_count(device),
+                          _smem_optin(lib, "gru_fwd_smem_optin", device),
+                          gates=3)
+
+
+def _gru_fwd_chain(lib, x_proj: torch.Tensor, w_h: torch.Tensor,
+                   lens32: torch.Tensor, reverse: bool, plan: FwdChainPlan
+                   ) -> torch.Tensor:
+    """K9a's cluster route (``gru_fwd_chain_*``, one launch for any B) on
+    checked operands."""
+    t_max, b, g3 = x_proj.shape
+    h = g3 // 3
+    dev = x_proj.device
+    y = torch.empty((t_max, b, h), dtype=x_proj.dtype, device=dev)
+    # the initial h: the operand's and the cell's f32 carry
+    state = torch.zeros((2, 1, b, h), dtype=torch.float32, device=dev)
+    err = getattr(lib, "gru_fwd_chain_" + _SUFFIX[x_proj.dtype])(
+        x_proj.data_ptr(), w_h.data_ptr(), lens32.data_ptr(), y.data_ptr(),
+        state.data_ptr(), t_max, b, h, plan.cluster, plan.rows, int(reverse),
+        _kernels.stream_ptr(dev))
+    _kernels.check(lib, err, f"gru_seq_fwd at T={t_max}, B={b}, {plan}")
+    return y
+
+
+def _gru_fwd_cooperative(lib, x_proj: torch.Tensor, w_h: torch.Tensor,
+                         lens32: torch.Tensor, reverse: bool) -> torch.Tensor:
+    """K9a's cooperative route (``gru_fwd_*``) on checked operands, in row
+    slices under its ceiling."""
+    t_max, _, g3 = x_proj.shape
+    h = g3 // 3
+    dev = x_proj.device
     sfx = _SUFFIX[x_proj.dtype]
 
-    def launch(x_proj, lens):
+    def launch(x_proj, lens32):
         n = x_proj.shape[1]
         y = torch.empty((t_max, n, h), dtype=x_proj.dtype, device=dev)
         # h exchange between blocks: [parity][B][H], parity 0 = h0
         hbuf = torch.zeros((2, n, h), dtype=torch.float32, device=dev)
-        lens32 = lens.to(torch.int32).contiguous()
         err = getattr(lib, "gru_fwd_" + sfx)(
             x_proj.data_ptr(), w_h.data_ptr(), lens32.data_ptr(),
             y.data_ptr(), hbuf.data_ptr(), t_max, n, h, int(reverse),
@@ -178,8 +234,7 @@ def gru_seq_fwd(x_proj: torch.Tensor, w_h: torch.Tensor, lens: torch.Tensor,
 
     y, = run_in_row_slices(
         launch, max_rows(lib, "gru_fwd_max_rows_" + sfx, dev, h), x_proj,
-        lens)
-    gru_seq_fwd.launches += 1
+        lens32)
     return y
 
 

@@ -24,9 +24,10 @@ every batch row in one block's shared memory takes at most its source's
 ``*_max_rows`` rows a launch; its wrapper runs a larger batch as row
 slices (:func:`run_in_row_slices`), so every wrapper takes any batch, as
 the reference does.  K10a and K5 walk their recurrence in thread-block
-clusters (``csrc/lstm_chain.cuh``), which take any batch by design; their
-launch shape comes from :func:`fwd_chain_plan`, which also sends K5 to its
-cooperative kernel where W_h fits no cluster.
+clusters (``csrc/fwd_chain.cuh``), which take any batch by design, and so
+do K2 and the GRU's K9a (``ops/gru_cuda.py``) where W_h fits a cluster;
+their launch shape comes from :func:`fwd_chain_plan`, which sends K2, K5
+and K9a to their cooperative kernels where W_h fits no cluster.
 
 Under bfloat16 the shipped default of the JAX package's ``_bf16_cfg``
 holds: the projection, the layer outputs and the dgates are stored in
@@ -54,7 +55,7 @@ __all__ = ["bilstm_seq_fwd", "bilstm_seq_fwd_reference",
            "lstm_seq_bwd_dgates", "lstm_seq_bwd_dgates_reference",
            "lstm_sequence", "lstm_stack_fwd", "lstm_stack_fwd_reference",
            "lstm_stack_fits", "max_rows", "run_in_row_slices", "K10bPlan",
-           "k10b_plan", "FwdChainPlan", "fwd_chain_plan"]
+           "k10b_plan", "FwdChainPlan", "fwd_chain_plan", "k2_plan"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -63,8 +64,11 @@ _SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
 _ARGS = [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P]
 _PROJ_X_ARGS = [_P] * 4 + [_I] * 8 + [_P]
 _FWD_CHAIN_ARGS = [_P] * 9 + [_I] * 7 + [_P]
+_XP_CHAIN_ARGS = [_P] * 9 + [_I] * 5 + [_P]
 _SIGNATURES = {"bilstm_fwd_f32": _ARGS, "bilstm_fwd_bf16": _ARGS,
                "bilstm_fwd_smem_optin": [],
+               "bilstm_xp_chain_f32": _XP_CHAIN_ARGS,
+               "bilstm_xp_chain_bf16": _XP_CHAIN_ARGS,
                "bilstm_proj_x_f32": _PROJ_X_ARGS,
                "bilstm_proj_x_bf16": _PROJ_X_ARGS,
                "bilstm_fwd_chain_f32": _FWD_CHAIN_ARGS,
@@ -244,7 +248,10 @@ def bilstm_seq_fwd(xp: torch.Tensor, w_h_f: torch.Tensor,
     """xp [T, B, 8H] fused projection (forward half first, compute dtype),
     w_h_f / w_h_b [H, 4H] in the compute dtype, lens [B] →
     (y_f, c_f, y_b, c_b): y [T, B, H] in y_dtype (default xp's), c
-    [T, B, H] f32.  The contract of ``_bilstm_seq_fwd``."""
+    [T, B, H] f32.  The contract of ``_bilstm_seq_fwd``.  On the card the
+    route is :func:`fwd_chain_plan`'s, from the shapes: both directions'
+    forward chains in thread-block clusters where W_h fits a cluster, else
+    the cooperative kernel; one launch for any B either way."""
     y_dtype = xp.dtype if y_dtype is None else y_dtype
     if xp.device.type == "cpu":
         return bilstm_seq_fwd_reference(xp, w_h_f, w_h_b, lens, y_dtype)
@@ -253,19 +260,56 @@ def bilstm_seq_fwd(xp: torch.Tensor, w_h_f: torch.Tensor,
     _check(xp, w_h_f, w_h_b, lens, y_dtype)
     t_max, b, g8 = xp.shape
     h = g8 // 8
-    outs = _fwd_outputs(t_max, b, h, y_dtype, xp.device)
     if t_max == 0 or b == 0:
-        return outs
+        return _fwd_outputs(t_max, b, h, y_dtype, xp.device)
+    lib = _kernels.load("bilstm_fwd", _SIGNATURES)
+    plan = k2_plan(lib, b, h, xp.dtype, xp.device)
+    lens32 = lens.to(torch.int32).contiguous()
+    if plan.route == "cluster":
+        outs = _bilstm_fwd_chain(lib, xp, w_h_f, w_h_b, lens32, plan)
+    else:
+        outs = _bilstm_fwd_cooperative(lib, xp, w_h_f, w_h_b, lens32)
+    bilstm_seq_fwd.launches += 1
+    return outs
+
+
+def k2_plan(lib: ctypes.CDLL, b: int, h: int, dtype: torch.dtype,
+            device) -> "FwdChainPlan":
+    """K2's route and launch shape on ``device``: :func:`fwd_chain_plan`
+    with both directions."""
+    return fwd_chain_plan(b, 0, h, dtype, 2, _sm_count(device),
+                          _smem_optin(lib, "bilstm_fwd_smem_optin", device))
+
+
+def _bilstm_fwd_chain(lib: ctypes.CDLL, xp: torch.Tensor, w_h_f, w_h_b,
+                      lens32: torch.Tensor, plan: "FwdChainPlan") -> Outputs:
+    """K2's cluster route (``bilstm_xp_chain_*``) on checked operands."""
+    t_max, b, g8 = xp.shape
+    h = g8 // 8
+    outs = _fwd_outputs(t_max, b, h, xp.dtype, xp.device)
+    state = torch.zeros((2, 2, b, h), dtype=torch.float32, device=xp.device)
+    err = getattr(lib, "bilstm_xp_chain_" + _SUFFIX[xp.dtype])(
+        xp.data_ptr(), w_h_f.data_ptr(), w_h_b.data_ptr(), lens32.data_ptr(),
+        *(v.data_ptr() for v in outs), state.data_ptr(), t_max, b, h,
+        plan.cluster, plan.rows, _kernels.stream_ptr(xp.device))
+    _kernels.check(lib, err, f"bilstm_seq_fwd at T={t_max}, B={b}, {plan}")
+    return outs
+
+
+def _bilstm_fwd_cooperative(lib: ctypes.CDLL, xp: torch.Tensor, w_h_f,
+                            w_h_b, lens32: torch.Tensor) -> Outputs:
+    """K2's cooperative route (``bilstm_fwd_*``, any B: it stages h[t-1]
+    in tiles of rows) on checked operands."""
+    t_max, b, g8 = xp.shape
+    h = g8 // 8
+    outs = _fwd_outputs(t_max, b, h, xp.dtype, xp.device)
     # h exchange between blocks: [parity][direction][B][H], parity 0 = h0
     hbuf = torch.zeros((2, 2, b, h), dtype=torch.float32, device=xp.device)
-    lens32 = lens.to(torch.int32).contiguous()
-    lib = _kernels.load("bilstm_fwd", _SIGNATURES)
     err = getattr(lib, "bilstm_fwd_" + _SUFFIX[xp.dtype])(
         xp.data_ptr(), w_h_f.data_ptr(), w_h_b.data_ptr(), lens32.data_ptr(),
         *(v.data_ptr() for v in outs), hbuf.data_ptr(), t_max, b, h,
         _kernels.stream_ptr(xp.device))
     _kernels.check(lib, err, "bilstm_seq_fwd")
-    bilstm_seq_fwd.launches += 1
     return outs
 
 
@@ -597,15 +641,15 @@ def k10b_plan(b: int, d: int, h: int, sms: int, smem_optin: int
 
 
 class FwdChainPlan(NamedTuple):
-    """The launch shape of a forward chain (K10a, K5).  ``route``
+    """The launch shape of a forward chain (K2, K5, K9a, K10a).  ``route``
     "cluster": one cluster of ``cluster`` CTAs per (direction, ``rows``
     batch rows), each CTA holding ceil(H / cluster) units' gate columns of
     W_h in the compute dtype (``chain_smem`` bytes in all); "cooperative"
-    (K5 only, where W_h fits no cluster): K5's cooperative kernel in row
-    slices, and the other fields 0.  K10a's phase 1 runs the tiled kernel
-    (64 frames and 64 gate columns a block, ``proj_cols`` 0) or one warp
-    per frame over ``proj_cols`` columns a block; ``proj_smem`` is its
-    block's shared memory."""
+    (K2, K5 and K9a only): the kernel's cooperative route, and the other
+    fields 0.  K10a's phase 1 runs the tiled kernel (64 frames and 64 gate
+    columns a block, ``proj_cols`` 0) or one warp per frame over
+    ``proj_cols`` columns a block; ``proj_smem`` is its block's shared
+    memory."""
     route: str
     cluster: int
     rows: int
@@ -614,49 +658,60 @@ class FwdChainPlan(NamedTuple):
     proj_smem: int
 
 
-def _fwd_chain_bytes(c: int, r: int, h: int, itemsize: int) -> int:
+def _fwd_chain_bytes(c: int, r: int, h: int, itemsize: int,
+                     gates: int = 4) -> int:
     """Shared memory of a forward-chain CTA at cluster size ``c``, ``r``
-    rows per cluster, ``h`` units, W_h and h of ``itemsize`` bytes:
-    ``fwd_chain_bytes`` of csrc/lstm_chain.cuh."""
+    rows per cluster, ``h`` units of ``gates`` gate columns, W_h and h of
+    ``itemsize`` bytes: ``fwd_chain_bytes`` of csrc/fwd_chain.cuh (f32
+    sums, state and two buffers of prefetched pre-activations: gates + 1 +
+    2 gates floats an element)."""
     hsz = -(-h // c)
 
     def a16(n):
         return -(-n // 16) * 16
-    return (a16(4 * hsz * h * itemsize) + a16(2 * r * h * itemsize)
-            + a16(r * hsz * itemsize) + 4 * r * hsz * 13 + 4 * r)
+    return (a16(gates * hsz * h * itemsize) + a16(2 * r * h * itemsize)
+            + a16(r * hsz * itemsize) + 4 * r * hsz * (3 * gates + 1)
+            + 4 * r)
 
 
 def fwd_chain_plan(b: int, d: int, h: int, dtype: torch.dtype, dirs: int,
-                   sms: int, smem_optin: int) -> FwdChainPlan:
+                   sms: int, smem_optin: int, gates: int = 4
+                   ) -> FwdChainPlan:
     """The launch shape of a forward chain for a batch of ``b`` rows,
-    ``h`` units and ``dirs`` directions in ``dtype`` on a card of ``sms``
-    SMs with ``smem_optin`` bytes of shared memory per block: K10a with
-    its input width ``d`` (dirs 2), K5 with ``d`` 0 (dirs 1).
+    ``h`` units of ``gates`` gate columns (4: an LSTM, 3: a GRU) and
+    ``dirs`` directions in ``dtype`` on a card of ``sms`` SMs with
+    ``smem_optin`` bytes of shared memory per block: K10a with its input
+    width ``d`` (dirs 2); a kernel on the hoisted projection with ``d`` 0:
+    K2 (dirs 2), K5 and K9a (dirs 1, K9a with gates 3).
 
-    C is the smallest power of two whose share of W_h as f32 (4 ceil(H/C)
-    H floats) leaves half of a CTA's shared memory to the rows: 4 at
-    H = 128, 16 at H = 256 and 320 in either dtype.  The cluster route
-    holds where one row fits beside that share in the compute dtype (H up
-    to ~470 in f32, ~670 in bf16); above that K5 takes its cooperative
-    route, K10a has none and raises.  R is the fewest rows per cluster
-    that keep the dirs ceil(B/R) clusters in one wave on three quarters of
-    the SMs (whole clusters of C CTAs do not pack every SM), as far as
-    shared memory allows; a larger batch runs in more waves.  K10a's phase
-    1 is tiled where 64 staged frames and 64 columns of D f32 fit a block
-    (D <= 426), else it takes 32 gate columns a block, fewer where W_x's
-    columns are too long.  Raises when K10a has no plan."""
+    C is the smallest power of two whose share of W_h as f32 (gates
+    ceil(H/C) H floats) leaves half of a CTA's shared memory to the rows:
+    4 at H = 128 (the GRU: 2), 16 at H = 256 and 320 in either dtype.  The
+    cluster route holds where one row fits beside that share in the
+    compute dtype (the LSTM to H ~470 in f32, ~670 in bf16; the GRU to
+    ~545 and ~770); above that a kernel on the hoisted projection takes its
+    cooperative route, and K10a, which has none, raises.  (At the serving
+    batch B = 1 the chain is no slower than the cooperative kernels on the
+    H100, so the batch does not choose the route: PERF.md §5.)
+    R is the fewest rows per cluster that keep the dirs ceil(B/R) clusters
+    in one wave on three quarters of the SMs (whole clusters of C CTAs do
+    not pack every SM), as far as shared memory allows; a larger batch
+    runs in more waves.  K10a's phase 1 is tiled where 64 staged frames and
+    64 columns of D f32 fit a block (D <= 426), else it takes 32 gate
+    columns a block, fewer where W_x's columns are too long.  Raises when
+    K10a has no plan."""
     itemsize = torch.empty((), dtype=dtype).element_size()
     c = next((c for c in _CLUSTERS
-              if 4 * 4 * -(-h // c) * h <= smem_optin // 2),
+              if 4 * gates * -(-h // c) * h <= smem_optin // 2),
              _CLUSTERS[-1])
-    if _fwd_chain_bytes(c, 1, h, itemsize) > smem_optin:
+    if _fwd_chain_bytes(c, 1, h, itemsize, gates) > smem_optin:
         if d == 0:
             return FwdChainPlan("cooperative", 0, 0, 0, 0, 0)
         raise ValueError(f"K10a: no cluster plan fits H={h} in {dtype} in "
                          f"{smem_optin} bytes of shared memory")
     clusters = max(1, sms * 3 // 4 // (dirs * c))
     r = max(1, min(b, -(-b // clusters)))
-    while r > 1 and _fwd_chain_bytes(c, r, h, itemsize) > smem_optin:
+    while r > 1 and _fwd_chain_bytes(c, r, h, itemsize, gates) > smem_optin:
         r -= 1
     cols = proj_smem = 0
     if d:
@@ -667,8 +722,9 @@ def fwd_chain_plan(b: int, d: int, h: int, dtype: torch.dtype, dirs: int,
                 raise ValueError(f"K10a: no projection plan fits D={d} in "
                                  f"{smem_optin} bytes of shared memory")
             proj_smem = 4 * cols * (d + 1)   # gates_smem(cols, D, 0)
-    return FwdChainPlan("cluster", c, r, _fwd_chain_bytes(c, r, h, itemsize),
-                        cols, proj_smem)
+    return FwdChainPlan("cluster", c, r,
+                        _fwd_chain_bytes(c, r, h, itemsize, gates), cols,
+                        proj_smem)
 
 
 def _smem_optin(lib: ctypes.CDLL, query: str, device) -> int:

@@ -507,10 +507,10 @@ def test_bilstm_proj_kernels_match_plain(cuda, dtype, t, b, d, h):
 
 @pytest.mark.cuda
 def test_bilstm_fwd_kernels_tile_a_large_batch(cuda):
-    """At B=600 the h rows of K2 and K10a no longer fit one block's
-    shared memory: both stage them in tiles and still match their plain
-    versions; K10b, whose clusters each take a group of rows, matches its
-    plain version too (one launch)."""
+    """At B=600 K2 and K10a walk their recurrences in several waves of
+    clusters and still match their plain versions; K10b, whose clusters
+    each take a group of rows, matches its plain version too (one
+    launch)."""
     t, b, d, h = 4, 600, 256, 128
     x, w_x, bias, w_f, w_b, lens, dy_f, dy_b = _proj_inputs(
         t, b, d, h, torch.float32, cuda, seed=5)
@@ -635,9 +635,9 @@ def test_bilstm_proj_fwd_in_chunks_of_steps(cuda, dtype, monkeypatch):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("d,h", [(256, 128), (40, 16), (8064, 32)])
 def test_k10a_equals_k2_on_its_own_projection_bit_for_bit(cuda, dtype, d, h):
-    """K10a's outputs equal K2's on the projection K10a's phase 1 wrote
-    (tiled, or the warp kernel at D=8064), bit for bit: the chain's sums
-    are warp_dot's, its gate math K2's."""
+    """K10a's outputs equal those of K2's cooperative kernel on the
+    projection K10a's phase 1 wrote (tiled, or the warp kernel at D=8064),
+    bit for bit: the chain's sums are warp_dot's, its gate math K2's."""
     t, b = 9, 5
     x, w_x, bias, w_f, w_b, lens, _, _ = _proj_inputs(t, b, d, h, dtype,
                                                       cuda, seed=d + h)
@@ -653,9 +653,82 @@ def test_k10a_equals_k2_on_its_own_projection_bit_for_bit(cuda, dtype, d, h):
     assert not pre.isnan().any()
     xp = pre.to(dtype)                  # exact: phase 1 rounded it
     assert torch.equal(xp.float(), pre)
-    k2 = rnn_cuda.bilstm_seq_fwd(xp, w_f, w_b, lens)
+    # K2's cooperative kernel: a witness independent of the chain
+    k2 = rnn_cuda._bilstm_fwd_cooperative(lib, xp, w_f, w_b,
+                                          lens.to(torch.int32))
     torch.cuda.synchronize()
     for name, g, r in zip(("y_f", "c_f", "y_b", "c_b"), got, k2):
+        assert torch.equal(g, r), name
+
+
+def _k2_lib():
+    return _kernels.load("bilstm_fwd", rnn_cuda._SIGNATURES)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b", [1, 48, 600])
+@pytest.mark.parametrize("h", [128, 320])
+def test_k2_chain_matches_plain_at_any_batch(cuda, dtype, b, h):
+    """K2 at the 3x128's layer 1 (H=128, clusters of 4) and the 5x320's
+    layers (H=320, clusters of 16) against its plain version, ragged rows,
+    one launch at B = 1, 48 and 600 (several waves of clusters, no row
+    slices), through the wrapper and through the cluster route's export."""
+    t = 12
+    xp, w_f, w_b, lens = _bilstm_inputs(t, b, h, dtype, cuda, seed=b + h)
+    lib = _k2_lib()
+    assert rnn_cuda.k2_plan(lib, b, h, dtype, cuda).route == "cluster"
+    before = rnn_cuda.bilstm_seq_fwd.launches
+    got = rnn_cuda.bilstm_seq_fwd(xp, w_f, w_b, lens)
+    chain = rnn_cuda._bilstm_fwd_chain(
+        lib, xp, w_f, w_b, lens.to(torch.int32),
+        rnn_cuda.fwd_chain_plan(b, 0, h, dtype, 2, 132, 232448))
+    torch.cuda.synchronize()
+    assert rnn_cuda.bilstm_seq_fwd.launches == before + 1
+    ref = rnn_cuda.bilstm_seq_fwd_reference(xp, w_f, w_b, lens)
+    for outs in (got, chain):
+        for name, g, r in zip(("y_f", "c_f", "y_b", "c_b"), outs, ref):
+            _close(g, r, LSTM_TOL[dtype], name)
+        _zero_past_lens((outs[0], outs[2]), lens, "y")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,h", [(torch.float32, 512),
+                                     (torch.bfloat16, 704)])
+def test_k2_cooperative_route_at_a_large_h(cuda, dtype, h):
+    """Where W_h fits no cluster of 16 the plan sends K2 to its
+    cooperative kernel, which still matches its plain version."""
+    t, b = 10, 3
+    xp, w_f, w_b, lens = _bilstm_inputs(t, b, h, dtype, cuda, seed=h)
+    assert rnn_cuda.k2_plan(_k2_lib(), b, h, dtype, cuda).route \
+        == "cooperative"
+    before = rnn_cuda.bilstm_seq_fwd.launches
+    got = rnn_cuda.bilstm_seq_fwd(xp, w_f, w_b, lens)
+    torch.cuda.synchronize()
+    assert rnn_cuda.bilstm_seq_fwd.launches == before + 1
+    ref = rnn_cuda.bilstm_seq_fwd_reference(xp, w_f, w_b, lens)
+    for name, g, r in zip(("y_f", "c_f", "y_b", "c_b"), got, ref):
+        _close(g, r, LSTM_TOL[dtype], name)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b", [1, 5])
+@pytest.mark.parametrize("h", [128, 320])
+def test_k2_chain_equals_k2_cooperative_bit_for_bit(cuda, dtype, b, h):
+    """K2's two routes give the same (y, c) of both directions bit for
+    bit, ragged rows: the chain's sums are warp_dot's, its gate math the
+    cooperative kernel's."""
+    t = 20
+    xp, w_f, w_b, lens = _bilstm_inputs(t, b, h, dtype, cuda, seed=7 * h + b)
+    lib = _k2_lib()
+    lens32 = lens.to(torch.int32)
+    chain = rnn_cuda._bilstm_fwd_chain(
+        lib, xp, w_f, w_b, lens32,
+        rnn_cuda.fwd_chain_plan(b, 0, h, dtype, 2, 132, 232448))
+    coop = rnn_cuda._bilstm_fwd_cooperative(lib, xp, w_f, w_b, lens32)
+    torch.cuda.synchronize()
+    for name, g, r in zip(("y_f", "c_f", "y_b", "c_b"), chain, coop):
         assert torch.equal(g, r), name
 
 
@@ -907,17 +980,18 @@ def test_k5_cooperative_route_at_a_large_h(cuda, dtype, h):
 @pytest.mark.parametrize("reverse", [False, True])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_k5_equals_k2_direction_bit_for_bit(cuda, dtype, reverse):
-    """K5's (y, c) equal K2's forward direction on the same x_proj and
-    W_h (the backward direction for ``reverse``), bit for bit: the same
-    warp_dot sums and the same gate math."""
+    """K5's (y, c) equal the forward direction of K2's cooperative kernel
+    on the same x_proj and W_h (the backward direction for ``reverse``),
+    bit for bit: the same warp_dot sums and the same gate math."""
     t, b, h = 20, 4, 320
     xp, w, lens = _uni_inputs(t, b, h, dtype, cuda, seed=5 + reverse)
     other, w2, _ = _uni_inputs(t, b, h, dtype, cuda, seed=9)
     halves = (other, xp) if reverse else (xp, other)
     ws = (w2, w) if reverse else (w, w2)
     got = rnn_cuda.lstm_seq_fwd(xp, w, lens, reverse)
-    y_f, c_f, y_b, c_b = rnn_cuda.bilstm_seq_fwd(
-        torch.cat(halves, dim=2).contiguous(), *ws, lens)
+    y_f, c_f, y_b, c_b = rnn_cuda._bilstm_fwd_cooperative(
+        _kernels.load("bilstm_fwd", rnn_cuda._SIGNATURES),
+        torch.cat(halves, dim=2).contiguous(), *ws, lens.to(torch.int32))
     torch.cuda.synchronize()
     want = (y_b, c_b) if reverse else (y_f, c_f)
     for name, g, r in zip(("y", "c_seq"), got, want):
@@ -1186,6 +1260,79 @@ def test_bigru_bwd_kernel_matches_plain(cuda, dtype, t, b, h):
     _zero_past_lens(got, lens, "dgates")
 
 
+# the f32 and bf16 H from which K9a takes its cooperative route (W_h's
+# three gate columns fit no cluster of 16: fwd_chain_plan with 3 gates)
+K9A_COOPERATIVE_H = {torch.float32: 576, torch.bfloat16: 800}
+
+
+def _gru_lib():
+    return _kernels.load("gru_fwd", gru_cuda._FWD_SIGNATURES)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b", [1, 48, 600])
+def test_k9a_chain_matches_plain_at_any_batch(cuda, dtype, b, reverse):
+    """K9a at H=320 (clusters of 16) against its plain version, ragged
+    rows, both directions, one launch at B = 1, 48 and 600 (several waves
+    of clusters, no row slices), through the wrapper and through the
+    cluster route's export."""
+    t, h = 12, 320
+    xp, (w,), _, lens = _gru_inputs(t, b, h, dtype, cuda, seed=b + reverse)
+    lib = _gru_lib()
+    assert gru_cuda.k9a_plan(lib, b, h, dtype, cuda).route == "cluster"
+    before = gru_cuda.gru_seq_fwd.launches
+    got = gru_cuda.gru_seq_fwd(xp, w, lens, reverse)
+    chain = gru_cuda._gru_fwd_chain(
+        lib, xp, w, lens.to(torch.int32), reverse,
+        rnn_cuda.fwd_chain_plan(b, 0, h, dtype, 1, 132, 232448, gates=3))
+    torch.cuda.synchronize()
+    assert gru_cuda.gru_seq_fwd.launches == before + 1
+    ref = gru_cuda.gru_seq_fwd_reference(xp, w, lens, reverse)
+    for y in (got, chain):
+        _close(y, ref, GRU_TOL[dtype], "y")
+        _zero_past_lens([y], lens, "y")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k9a_cooperative_route_at_a_large_h(cuda, dtype):
+    """Where W_h fits no cluster of 16 the plan sends K9a to its
+    cooperative kernel, which still matches its plain version."""
+    t, b, h = 10, 3, K9A_COOPERATIVE_H[dtype]
+    xp, (w,), _, lens = _gru_inputs(t, b, h, dtype, cuda, seed=h)
+    assert gru_cuda.k9a_plan(_gru_lib(), b, h, dtype, cuda).route \
+        == "cooperative"
+    for reverse in (False, True):
+        before = gru_cuda.gru_seq_fwd.launches
+        got = gru_cuda.gru_seq_fwd(xp, w, lens, reverse)
+        torch.cuda.synchronize()
+        assert gru_cuda.gru_seq_fwd.launches == before + 1
+        _close(got, gru_cuda.gru_seq_fwd_reference(xp, w, lens, reverse),
+               GRU_TOL[dtype], "y")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,h", [(1, 320), (5, 128), (5, 320)])
+def test_k9a_chain_equals_k9a_cooperative_bit_for_bit(cuda, dtype, b, h,
+                                                      reverse):
+    """K9a's two routes give the same y bit for bit, ragged rows: the same
+    warp_dot sums and the same gru_cell(), the f32 carry in both."""
+    t = 20
+    xp, (w,), _, lens = _gru_inputs(t, b, h, dtype, cuda, seed=3 * h + b)
+    lib = _gru_lib()
+    lens32 = lens.to(torch.int32)
+    chain = gru_cuda._gru_fwd_chain(
+        lib, xp, w, lens32, reverse,
+        rnn_cuda.fwd_chain_plan(b, 0, h, dtype, 1, 132, 232448, gates=3))
+    coop = gru_cuda._gru_fwd_cooperative(lib, xp, w, lens32, reverse)
+    torch.cuda.synchronize()
+    assert torch.equal(chain, coop)
+
+
 @pytest.mark.cuda
 def test_gru_kernels_reject_bad_inputs(cuda):
     xp, (w,), (dy,), lens = _gru_inputs(4, 2, 16, torch.float32, cuda, 0)
@@ -1323,8 +1470,9 @@ K5_COOPERATIVE_H = 512
 
 def _sliced_case(name, t, h, device):
     """(wrapper, plain version, operands, tolerance) of one kernel that
-    keeps every row in a block, at one row above its ceiling, f32 (K5 on
-    its cooperative route, at K5_COOPERATIVE_H)."""
+    keeps every row in a block, at one row above its ceiling, f32 (K5 and
+    K9a on their cooperative routes, at K5_COOPERATIVE_H and
+    K9A_COOPERATIVE_H)."""
     f32 = torch.float32
     if name == "K3":
         b = _above_ceiling("bilstm_bwd", rnn_cuda._BWD_SIGNATURES,
@@ -1361,6 +1509,11 @@ def _sliced_case(name, t, h, device):
     bi = name.startswith("K8")
     kernel = "bigru" if bi else "gru"
     if name.endswith("a"):
+        if not bi:
+            # only K9a's cooperative route keeps its rows in one block
+            h = K9A_COOPERATIVE_H[f32]
+            assert rnn_cuda.fwd_chain_plan(1, 0, h, f32, 1, 132, 232448,
+                                           gates=3).route == "cooperative"
         b = _above_ceiling("gru_fwd", gru_cuda._FWD_SIGNATURES,
                            f"{kernel}_fwd_max_rows_f32", h)
         xp, ws, _, lens = _gru_inputs(t, b, h, f32, device, b, 2 if bi else 1)
@@ -1388,7 +1541,7 @@ def _sliced_case(name, t, h, device):
 def test_sliced_kernel_above_its_ceiling_matches_plain(cuda, name):
     """Each kernel that keeps every row in one block's shared memory, at
     one row above the most its launch takes (H=320; K5's cooperative
-    route at H=512), runs as row slices
+    route at H=512, K9a's at H=576), runs as row slices
     and returns its plain version's result, as the reference does at any
     batch; the launch counter rises by one (it counts wrapper calls)."""
     fn, ref, args, tol = _sliced_case(name, 4, 320, cuda)

@@ -1,6 +1,6 @@
 """The port's batch ceilings (the kernels that keep every row in one
 block's shared memory) and the launch plans of K10b and of the forward
-chain (K10a, K5), on the CPU.
+chain (K2, K5, K9a, K10a), on the CPU.
 
 ``rnn_cuda.run_in_row_slices`` runs a kernel over row slices under its
 ceiling; here it is driven with each sliced kernel's plain version and a
@@ -8,9 +8,10 @@ small forced ceiling, and must return exactly what one unsliced call
 returns.  ``rnn_cuda.k10b_plan`` and ``rnn_cuda.fwd_chain_plan`` must fit
 every shape the BLSTM layer sends to K10b and K10a
 (``use_in_kernel_proj``) into one H100 block's shared memory, and
-``fwd_chain_plan`` must send K5 to its cluster route wherever W_h fits a
-cluster and to its cooperative route elsewhere.  No JAX here: the plain
-versions are the port's own.
+``fwd_chain_plan`` must send K2, K5 and K9a to their cluster routes
+wherever W_h fits a cluster (and the batch reaches the serving
+threshold) and to their cooperative routes elsewhere.  No JAX here: the
+plain versions are the port's own.
 """
 
 import numpy as np
@@ -180,19 +181,21 @@ def test_k10b_plan_refuses_what_cannot_fit():
         rnn_cuda.k10b_plan(48, 256, 1024, H100_SMS, H100_SMEM)
 
 
-def _chain_bytes(c, r, h, size):
-    """fwd_chain_bytes of csrc/lstm_chain.cuh: W_h's share, two receive
+def _chain_bytes(c, r, h, size, gates=4):
+    """fwd_chain_bytes of csrc/fwd_chain.cuh: W_h's share, two receive
     buffers of h and the CTA's h slice (each 16-byte aligned), then f32
-    sums, cell state and prefetched pre-activations, and the lengths."""
+    sums, the cell's state and two buffers of prefetched
+    pre-activations, and the lengths."""
     hsz = -(-h // c)
 
     def a16(n):
         return -(-n // 16) * 16
-    return (a16(4 * hsz * h * size) + a16(2 * r * h * size)
-            + a16(r * hsz * size) + 4 * r * hsz * (4 + 1 + 8) + 4 * r)
+    return (a16(gates * hsz * h * size) + a16(2 * r * h * size)
+            + a16(r * hsz * size) + 4 * r * hsz * (gates + 1 + 2 * gates)
+            + 4 * r)
 
 
-def _check_chain_plan(plan, b, d, h, dtype, dirs):
+def _check_chain_plan(plan, b, d, h, dtype, dirs, gates=4):
     """A cluster plan of the forward chain: its layout within one block,
     its rows, and K10a's phase 1 (d > 0)."""
     c, r = plan.cluster, plan.rows
@@ -201,11 +204,12 @@ def _check_chain_plan(plan, b, d, h, dtype, dirs):
     assert 1 <= r <= max(b, 1), plan
     assert c * -(-h // c) >= h, plan           # the cluster holds every unit
     size = torch.empty((), dtype=dtype).element_size()
-    assert plan.chain_smem == _chain_bytes(c, r, h, size) <= H100_SMEM, plan
+    assert plan.chain_smem == _chain_bytes(c, r, h, size, gates) \
+        <= H100_SMEM, plan
     # R: the fewest rows that put the clusters in one wave on 3/4 of the
     # SMs, unless one more row would not fit shared memory
     want = min(b, -(-b // max(1, H100_SMS * 3 // 4 // (dirs * c))))
-    assert r == want or (r < want and _chain_bytes(c, r + 1, h, size)
+    assert r == want or (r < want and _chain_bytes(c, r + 1, h, size, gates)
                          > H100_SMEM), plan
     if d == 0:
         assert plan.proj_cols == 0 and plan.proj_smem == 0
@@ -291,3 +295,128 @@ def test_fwd_chain_plan_refuses_what_cannot_fit():
     with pytest.raises(ValueError, match="no projection plan"):
         rnn_cuda.fwd_chain_plan(48, 60000, 32, torch.float32, 2, H100_SMS,
                                 H100_SMEM)
+
+
+@pytest.mark.parametrize("gates", [3, 4])
+@pytest.mark.parametrize("c,r,h,size", [(16, 16, 320, 4), (16, 8, 320, 2),
+                                        (4, 4, 128, 4), (16, 1, 545, 4),
+                                        (2, 3, 20, 2)])
+def test_fwd_chain_bytes_formula_per_gate_count(gates, c, r, h, size):
+    """The Python twin of fwd_chain_bytes for the LSTM's 4 and the GRU's 3
+    gate columns a unit: gates ceil(H/C) H weights, (gates + 1 + 2 gates)
+    f32 words an element; 4 gates is the LSTM's layout (13 words)."""
+    assert rnn_cuda._fwd_chain_bytes(c, r, h, size, gates) == _chain_bytes(
+        c, r, h, size, gates)
+    if gates == 4:
+        assert rnn_cuda._fwd_chain_bytes(c, r, h, size) == _chain_bytes(
+            c, r, h, size)
+    hsz = -(-h // c)
+    assert (_chain_bytes(c, r, h, size, 4) - _chain_bytes(c, r, h, size, 3)
+            >= hsz * h * size + 4 * 3 * r * hsz - 15)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b", [1, 48, 600])
+@pytest.mark.parametrize("h", [128, 320])
+def test_fwd_chain_plan_sends_k2_to_clusters(dtype, b, h):
+    """K2 (both directions on the hoisted projection) at the 3x128's layer
+    1 and the 5x320's layers: the cluster route in both dtypes, clusters
+    of 4 (H=128) or 16 (H=320), any batch."""
+    plan = rnn_cuda.fwd_chain_plan(b, 0, h, dtype, 2, H100_SMS, H100_SMEM)
+    _check_chain_plan(plan, b, 0, h, dtype, 2)
+    assert plan.cluster == (4 if h == 128 else 16)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b", [1, 48, 600])
+@pytest.mark.parametrize("h", [128, 320])
+def test_fwd_chain_plan_sends_k9a_to_clusters(dtype, b, h):
+    """K9a (one GRU direction, 3 gate columns a unit) at H=128 and the
+    5x320's H: the cluster route in both dtypes, any batch; three gate
+    columns halve the cluster at H=128 (96 KB of f32 W_h a CTA at C=2)."""
+    plan = rnn_cuda.fwd_chain_plan(b, 0, h, dtype, 1, H100_SMS, H100_SMEM,
+                                   gates=3)
+    _check_chain_plan(plan, b, 0, h, dtype, 1, gates=3)
+    assert plan.cluster == (2 if h == 128 else 16)
+
+
+@pytest.mark.parametrize("gates,dirs,dtype,h,route", [
+    (4, 2, torch.float32, 470, "cluster"),     # K2: K5's limits
+    (4, 2, torch.float32, 480, "cooperative"),
+    (4, 2, torch.bfloat16, 640, "cluster"),
+    (4, 2, torch.bfloat16, 704, "cooperative"),
+    (3, 1, torch.float32, 544, "cluster"),     # K9a: 3 x 34 x 544 x 4
+    (3, 1, torch.float32, 576, "cooperative"),
+    (3, 1, torch.bfloat16, 768, "cluster"),
+    (3, 1, torch.bfloat16, 800, "cooperative")])
+def test_fwd_chain_plan_picks_k2_and_k9a_routes_from_shapes(gates, dirs,
+                                                            dtype, h, route):
+    """K2's and K9a's routes are a function of the shapes: the cluster
+    route while one row fits beside W_h's share of a cluster of 16, else
+    the cooperative kernel, which takes any H the reference takes."""
+    for b in (1, 48, 600):
+        plan = rnn_cuda.fwd_chain_plan(b, 0, h, dtype, dirs, H100_SMS,
+                                       H100_SMEM, gates=gates)
+        assert plan.route == route, (b, plan)
+        if route == "cluster":
+            _check_chain_plan(plan, b, 0, h, dtype, dirs, gates)
+        else:
+            assert plan == ("cooperative", 0, 0, 0, 0, 0)
+
+
+def test_fwd_chain_plan_at_k2_and_k9a_training_shapes():
+    """At B=48, H=320: K2 takes 6 clusters of 16 with 16 rows each, K9a 6
+    clusters of 16 with 8 rows each; K2 at the 3x128's layer 1 24
+    clusters of 4 with 4 rows."""
+    for dtype in (torch.float32, torch.bfloat16):
+        k2 = rnn_cuda.fwd_chain_plan(48, 0, 320, dtype, 2, H100_SMS,
+                                     H100_SMEM)
+        assert (k2.cluster, k2.rows) == (16, 16)
+        k9a = rnn_cuda.fwd_chain_plan(48, 0, 320, dtype, 1, H100_SMS,
+                                      H100_SMEM, gates=3)
+        assert (k9a.cluster, k9a.rows) == (16, 8)
+    layer1 = rnn_cuda.fwd_chain_plan(48, 0, 128, torch.float32, 2, H100_SMS,
+                                     H100_SMEM)
+    assert (layer1.cluster, layer1.rows) == (4, 4)
+    assert 2 * -(-48 // layer1.rows) == 24
+
+
+@pytest.fixture
+def h100(monkeypatch):
+    """The wrappers' plan functions on an H100's SM count and shared
+    memory, without a card (the kernel source's query is not asked)."""
+    for mod in (rnn_cuda, gru_cuda):
+        monkeypatch.setattr(mod, "_sm_count", lambda device: H100_SMS)
+        monkeypatch.setattr(mod, "_smem_optin",
+                            lambda lib, query, device: H100_SMEM)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b", [1, 2, 8, 48, 600])
+def test_k2_and_k9a_plans_are_their_cells_chain_plans(h100, dtype, b):
+    """``k2_plan`` and ``k9a_plan`` are fwd_chain_plan with the kernel's
+    gate count and directions: at H=320 the cluster route at every batch,
+    the serving batch B = 1 included; at an H whose W_h fits no cluster,
+    the cooperative route."""
+    k2 = rnn_cuda.k2_plan(None, b, 320, dtype, "cuda")
+    _check_chain_plan(k2, b, 0, 320, dtype, 2)
+    assert k2 == rnn_cuda.fwd_chain_plan(b, 0, 320, dtype, 2, H100_SMS,
+                                         H100_SMEM)
+    k9a = gru_cuda.k9a_plan(None, b, 320, dtype, "cuda")
+    _check_chain_plan(k9a, b, 0, 320, dtype, 1, gates=3)
+    assert k9a == rnn_cuda.fwd_chain_plan(b, 0, 320, dtype, 1, H100_SMS,
+                                          H100_SMEM, gates=3)
+    assert rnn_cuda.k2_plan(None, b, 704, dtype, "cuda").route \
+        == "cooperative"
+    assert gru_cuda.k9a_plan(None, b, 800, dtype, "cuda").route \
+        == "cooperative"
+
+
+def test_fwd_chain_plan_k10a_still_refuses_with_either_gate_count():
+    """K10a (d > 0) has no cooperative route: where W_h fits no cluster it
+    raises, whatever the gate count and batch."""
+    for gates in (3, 4):
+        for b in (1, 48):
+            with pytest.raises(ValueError, match="no cluster plan"):
+                rnn_cuda.fwd_chain_plan(b, 256, 1024, torch.float32, 2,
+                                        H100_SMS, H100_SMEM, gates=gates)
