@@ -12,10 +12,12 @@ result line:
 
 1. device: the card's name and power limit (nvidia-smi), torch and CUDA
    versions;
-2. build: every kernel source in csrc/ (nine; K2/K10a and K3/K10b share
-   csrc/bilstm_cell.cuh, K2, K5, K9a and K10a the forward chain of
-   csrc/fwd_chain.cuh, the row-keeping kernels csrc/row_ceiling.cuh)
-   compiled by nvcc for sm_90a, timed;
+2. build: every kernel source in csrc/ (nine; the recurrent kernels
+   share csrc/bilstm_cell.cuh, K2, K5, K9a and K10a the forward chain of
+   csrc/fwd_chain.cuh, K6, K9b and K10b the backward chain of
+   csrc/bwd_chain.cuh and the phase-1 bodies of csrc/lstm_gates.cuh, the
+   row-keeping kernels csrc/row_ceiling.cuh) compiled by nvcc for
+   sm_90a, timed;
 3. k4_log_mel: the log-mel kernel against its plain version on 8 s of
    16 kHz audio (798 frames, MFCC-hires mel bank): max error, median ms;
 4. k2_bilstm: the BiLSTM forward kernel against its plain version at
@@ -54,7 +56,10 @@ result line:
    version at T=800, B=1 and B=8, T=240, B=48 and B=600, and one reverse
    case, H=320, f32 and bf16, with its plan (the cluster route: the
    forward chain of csrc/fwd_chain.cuh);
-11. k6_lstm_bwd: its backward at T=240, B=48, H=320, ragged lengths;
+11. k6_lstm_bwd: its backward at T=240, B=48, H=320, ragged lengths,
+   with its plan, both routes (phase 1 and the backward chain of
+   csrc/bwd_chain.cuh in clusters; the cooperative kernel) timed on the
+   same operands and the cluster route's two phases timed apart;
 12. k7_lstm_stack: the wavefront stack kernel at L=5, H=320, T=20, B=8
    with carries from a previous chunk, ragged lengths and an idle slot
    (y, h_fin, c_fin against the plain version), then one 8 s utterance
@@ -73,7 +78,8 @@ result line:
    version at T=800, B=1 and B=8, T=240, B=48 and B=600, and one reverse
    case, with its plan and, at T=800, B=1 and T=240, B=48, both routes
    timed on the same operands, and its backward K9b at T=240, B=48 with
-   ragged lengths, H=320, f32 and bf16, with cuDNN's nn.GRU as the
+   ragged lengths, H=320, f32 and bf16, with its plan, both routes and
+   its cluster route's two phases timed as K6's, with cuDNN's nn.GRU as the
    library yardstick; in f32 K9a also against nn.GRU holding the same
    function (full-length rows);
 17. k8_bigru: the same for the BiGRU kernels K8a and K8b;
@@ -101,11 +107,13 @@ result line:
    bidirectional) and the hoisted route on the same layer (projection
    GEMM plus K2 forward, K3 on the stored projection backward);
 23. f7: each kernel that keeps every batch row in one block's shared
-   memory (K3, K5's and K9a's cooperative routes, K6, K7 one layer, K8a,
-   K8b, K9b) once at one row above the most one launch takes (its
-   source's *_max_rows query), H=320 (K5 at H=512 and K9a at H=576, where
-   W_h fits no cluster), T=20, f32, against its plain version: the
-   wrapper runs row slices and counts one launch;
+   memory (K3, the cooperative routes of K5, K6, K9a and K9b, K7 one
+   layer, K8a, K8b) once at one row above the most one launch takes (its
+   source's *_max_rows query), H=320 (K5 and K6 at H=512, K9a and K9b at
+   H=576, where W_h fits no cluster), T=20, f32, against its plain
+   version: the wrapper runs row slices and counts one launch; then K6
+   and K9b at B=600, H=320 on their cluster route (one call, no
+   ceiling);
 24. serve_proj: the 3x128 BLSTM (40-dim input, 42 targets, random weights
    from a seed) served per dtype as in 7: per request K2 1x and K10a 2x
    in f32 (layer 1 unaligned, layers 2-3 in-kernel), K2 3x and K10a 0x in
@@ -198,6 +206,9 @@ KERNELS = ("log_mel", "bilstm_fwd", "bilstm_bwd", "ctc_alpha_beta",
 # gates); the f7 phase drives their ceilings there
 K5_COOPERATIVE_H = 512
 K9A_COOPERATIVE_H = 576
+# K6 and K9b take theirs (W_h's gate columns as f32 fit no cluster of 16)
+# from these H on, in either dtype (ops/rnn_cuda.py::bwd_chain_plan)
+BWD_COOPERATIVE_H = {"K6": 512, "K9b": 576}
 # the 3x128 BLSTM of recipes/medium and recipes/hard: hidden units,
 # layers, targets (its input is the flagship's 40-dim features)
 PROJ_H, PROJ_LAYERS, PROJ_TARGETS = 128, 3, 42
@@ -799,12 +810,70 @@ def phase_k6(torch, np, dev):
                **bound(nbytes(*args, got), lstm_ops(lens, h, 2), dtype_name),
                "library_ms": library_rnn_ms(torch, dev, dtype, t_max, b, h,
                                             h, backward=True)}
+        row.update(bwd_routes(torch, dev, "K6", args))
         rows.append(row)
         emit({"phase": "k6_lstm_bwd", **row})
         if not ok:
             fail(f"K6 lstm_seq_bwd_dgates disagrees with its plain version: "
                  f"{row}")
     return kernel_row(rows, rows[1])     # bf16
+
+
+def bwd_routes(torch, dev, name, args):
+    """K6's or K9b's plan and its two routes timed on the same operands
+    (the cluster route: phase 1 then the backward chain; the cooperative
+    kernel in row slices), and the cluster route's two phases timed apart
+    (one chunk of steps at the training shape): phase 1, the recurrent
+    sums of every step, and phase 2, the chain in clusters."""
+    from kaldi_ctc_tpu_torch import _kernels
+    from kaldi_ctc_tpu_torch.ops import gru_cuda, rnn_cuda
+    f32 = torch.float32
+    if name == "K6":
+        dy, xp, y, res, w, lens = args
+        lib = _kernels.load("lstm_bwd", rnn_cuda._UNI_BWD_SIGNATURES)
+        prefix, gates, carries, outputs = "lstm_bwd", 4, 2, 1
+        chain, coop = (rnn_cuda._lstm_bwd_chain,
+                       rnn_cuda._lstm_bwd_cooperative)
+        plan_of, ops = rnn_cuda.k6_plan, (dy, xp, y, res, w)
+    else:
+        dy, xp, y, w, lens = args
+        res = y
+        lib = _kernels.load("gru_bwd", gru_cuda._BWD_SIGNATURES)
+        prefix, gates, carries, outputs = "gru_bwd", 3, 1, 2
+        chain, coop = gru_cuda._gru_bwd_chain, gru_cuda._gru_bwd_cooperative
+        plan_of, ops = gru_cuda.k9b_plan, (dy, xp, y, w)
+    t, b, g = xp.shape
+    h = g // gates
+    plan = plan_of(lib, b, h, xp.dtype, dev)
+    if plan.route != "cluster":
+        fail(f"{name} at T={t}, B={b}, H={h} does not take its cluster "
+             f"route: {plan}")
+    sfx = rnn_cuda._SUFFIX[xp.dtype]
+    stream = _kernels.stream_ptr(dev)
+    lens32 = lens.to(torch.int32)
+    pre = torch.empty((t, b, g), dtype=f32, device=dev)
+    state = torch.zeros((carries, 1, b, h), dtype=f32, device=dev)
+    outs = [torch.empty((t, b, g), dtype=xp.dtype, device=dev)
+            for _ in range(outputs)]
+
+    def phase1():
+        _kernels.check(lib, getattr(lib, f"{prefix}_gates_{sfx}")(
+            y.data_ptr(), w.data_ptr(), pre.data_ptr(), 0, t, t, b, h,
+            plan.gate_cols, 0, stream), f"{name} phase 1")
+
+    def phase2():
+        _kernels.check(lib, getattr(lib, f"{prefix}_chain_{sfx}")(
+            dy.data_ptr(), xp.data_ptr(), res.data_ptr(), w.data_ptr(),
+            lens32.data_ptr(), pre.data_ptr(), *(o.data_ptr() for o in outs),
+            state.data_ptr(), 0, t, t, b, h, plan.cluster, plan.rows, 0,
+            stream), f"{name} phase 2")
+    return {"plan": plan._asdict(),
+            "chain_route_ms": median_ms(
+                lambda: chain(lib, *ops, lens32, False, plan), 10, torch),
+            "cooperative_route_ms": median_ms(
+                lambda: coop(lib, *ops, lens32, False), 10, torch),
+            "phase1_gates_ms": median_ms(phase1, 10, torch),
+            "phase2_chain_ms": median_ms(phase2, 10, torch)}
 
 
 def gru_inputs(torch, np, dev, t_max, b, h, dtype, seed, dirs=1):
@@ -962,6 +1031,8 @@ def phase_gru_kernels(torch, np, dev, bidirectional):
                "library_ms": library_rnn_ms(
                    torch, dev, dtype, TRAIN_T, TRAIN_B, dirs * h, h,
                    bidirectional=bidirectional, backward=True, cell="GRU")}
+        if not bidirectional:
+            row.update(bwd_routes(torch, dev, "K9b", args))
         bwd_rows.append(row)
         emit({"phase": phase, **row})
         if not all(ok for _, ok in errs):
@@ -1200,11 +1271,13 @@ def k10b_large_batch(torch, np, dev):
 
 def phase_f7(torch, np, dev):
     """Each kernel that keeps every batch row in one block's shared
-    memory (K3, K5's and K9a's cooperative routes, K6, K7 one layer, K8a,
-    K8b, K9b), once at one row above the most its launch takes (its
+    memory (K3, the cooperative routes of K5, K6, K9a and K9b, K7 one
+    layer, K8a, K8b), once at one row above the most its launch takes (its
     source's *_max_rows query), H=320 (K5: K5_COOPERATIVE_H, K9a:
-    K9A_COOPERATIVE_H), T=20, f32, ragged rows, against its plain version:
-    the wrapper runs it as row slices and counts one launch."""
+    K9A_COOPERATIVE_H, K6 and K9b: BWD_COOPERATIVE_H), T=20, f32, ragged
+    rows, against its plain version: the wrapper runs it as row slices and
+    counts one launch.  Then K6 and K9b at B=600, H=320 on their cluster
+    route (no ceiling: one call in waves of clusters)."""
     from kaldi_ctc_tpu_torch import _kernels
     from kaldi_ctc_tpu_torch.ops import gru_cuda, rnn_cuda
     t, h, f32 = 20, 320, torch.float32
@@ -1236,7 +1309,7 @@ def phase_f7(torch, np, dev):
                 "K5": ("lstm_fwd", rnn_cuda._UNI_SIGNATURES,
                        "lstm_fwd_max_rows_f32", (K5_COOPERATIVE_H,)),
                 "K6": ("lstm_bwd", rnn_cuda._UNI_BWD_SIGNATURES,
-                       "lstm_bwd_max_rows_f32", (h,)),
+                       "lstm_bwd_max_rows_f32", (BWD_COOPERATIVE_H["K6"],)),
                 "K7": ("lstm_stack", rnn_cuda._STACK_SIGNATURES,
                        "lstm_stack_max_rows_f32", (1, h))}[name]
             b = above(src, sigs, query, *dims)
@@ -1250,28 +1323,37 @@ def phase_f7(torch, np, dev):
                                          K5_COOPERATIVE_H, f32, b)
                 return (rnn_cuda.lstm_seq_fwd, rnn_cuda.lstm_seq_fwd_reference,
                         (xp, w, lens, False), K2_TOL["float32"], b)
-            xp, w, lens = uni_inputs(torch, np, dev, t, b, h, f32, b)
             if name == "K7":
+                xp, w, lens = uni_inputs(torch, np, dev, t, b, h, f32, b)
                 return (rnn_cuda.lstm_stack_fwd,
                         rnn_cuda.lstm_stack_fwd_reference,
                         (xp, [], [w], [], lens, mat(1, b, h, scale=0.5),
                          mat(1, b, h, scale=0.5)), K2_TOL["float32"], b)
+            # only K6's cooperative route has a ceiling
+            hk = BWD_COOPERATIVE_H["K6"]
+            if rnn_cuda.k6_plan(_kernels.load(src, sigs), b, hk, f32,
+                                dev).route != "cooperative":
+                fail(f"F7: K6 at H={hk} does not take its cooperative "
+                     f"route")
+            xp, w, lens = uni_inputs(torch, np, dev, t, b, hk, f32, b)
             y, c = rnn_cuda.lstm_seq_fwd_reference(xp, w, lens)
             return (rnn_cuda.lstm_seq_bwd_dgates,
                     rnn_cuda.lstm_seq_bwd_dgates_reference,
-                    (mat(t, b, h), xp, y, c, w, lens), K3_TOL["float32"], b)
+                    (mat(t, b, hk), xp, y, c, w, lens), K3_TOL["float32"], b)
         dirs = 2 if name.startswith("K8") else 1
         kernel = "bigru" if dirs == 2 else "gru"
         fwd = name.endswith("a")
         src, sigs = (("gru_fwd", gru_cuda._FWD_SIGNATURES) if fwd
                      else ("gru_bwd", gru_cuda._BWD_SIGNATURES))
-        hg = K9A_COOPERATIVE_H if name == "K9a" else h
+        hg = {"K9a": K9A_COOPERATIVE_H,
+              "K9b": BWD_COOPERATIVE_H["K9b"]}.get(name, h)
         b = above(src, sigs, f"{kernel}_{src[4:]}_max_rows_f32", hg)
-        if name == "K9a":
-            # only K9a's cooperative route has a ceiling
+        if name in ("K9a", "K9b"):
+            # only K9a's and K9b's cooperative routes have a ceiling
             lib = _kernels.load(src, sigs)
-            if gru_cuda.k9a_plan(lib, b, hg, f32, dev).route != "cooperative":
-                fail(f"F7: K9a at H={hg} does not take its cooperative "
+            plan_of = gru_cuda.k9a_plan if fwd else gru_cuda.k9b_plan
+            if plan_of(lib, b, hg, f32, dev).route != "cooperative":
+                fail(f"F7: {name} at H={hg} does not take its cooperative "
                      f"route")
         xp, ws, lens = gru_inputs(torch, np, dev, t, b, hg, f32, b, dirs)
         fn = getattr(gru_cuda, kernel + ("_seq_fwd" if fwd
@@ -1282,9 +1364,29 @@ def phase_f7(torch, np, dev):
             return fn, ref, args, K2_TOL["float32"], b
         ys = (gru_cuda.bigru_seq_fwd_reference(xp, *ws, lens) if dirs == 2
               else (gru_cuda.gru_seq_fwd_reference(xp, ws[0], lens),))
-        dys = [mat(t, b, h) for _ in range(dirs)]
+        dys = [mat(t, b, hg) for _ in range(dirs)]
         args = (*dys, xp, *ys, *ws, lens)
         return fn, ref, args, K3_TOL["float32"], b
+
+    def cluster_case(name):
+        """K6 or K9b on its cluster route at B=600, H=320: (wrapper, plain
+        version, operands, plan)"""
+        b = 600
+        if name == "K6":
+            lib = _kernels.load("lstm_bwd", rnn_cuda._UNI_BWD_SIGNATURES)
+            plan = rnn_cuda.k6_plan(lib, b, h, f32, dev)
+            xp, w, lens = uni_inputs(torch, np, dev, t, b, h, f32, b)
+            y, c = rnn_cuda.lstm_seq_fwd_reference(xp, w, lens)
+            return (rnn_cuda.lstm_seq_bwd_dgates,
+                    rnn_cuda.lstm_seq_bwd_dgates_reference,
+                    (mat(t, b, h), xp, y, c, w, lens), plan)
+        lib = _kernels.load("gru_bwd", gru_cuda._BWD_SIGNATURES)
+        plan = gru_cuda.k9b_plan(lib, b, h, f32, dev)
+        xp, ws, lens = gru_inputs(torch, np, dev, t, b, h, f32, b)
+        y = gru_cuda.gru_seq_fwd_reference(xp, ws[0], lens)
+        return (gru_cuda.gru_seq_bwd_dgates,
+                gru_cuda.gru_seq_bwd_dgates_reference,
+                (mat(t, b, h), xp, y, ws[0], lens), plan)
 
     rows = []
     for name in ("K3", "K5", "K6", "K7", "K8a", "K8b", "K9a", "K9b"):
@@ -1298,14 +1400,37 @@ def phase_f7(torch, np, dev):
                      else ((got,), (want,)))
         errs = [max_err(g, r, 0.0, tol) for g, r in zip(got, want)]
         row = {"kernel": name, "wrapper": fn.__name__, "T": t,
-               "H": {"K5": K5_COOPERATIVE_H,
-                     "K9a": K9A_COOPERATIVE_H}.get(name, h),
+               "H": {"K5": K5_COOPERATIVE_H, "K9a": K9A_COOPERATIVE_H,
+                     **BWD_COOPERATIVE_H}.get(name, h),
                "B": b, "one_launch_max_rows": b - 1, "launches": launched,
                "max_abs_err": max(e for e, _ in errs), "tol": tol}
         rows.append(row)
         if not all(ok for _, ok in errs) or launched != 1:
             emit({"phase": "f7", "rows": rows})
             fail(f"F7: {name} above its ceiling disagrees: {row}")
+    # K6 and K9b at H=320 take their cluster route, which has no ceiling:
+    # B=600 in one call, waves of clusters, no row slices
+    for name in ("K6", "K9b"):
+        fn, ref, args, plan = cluster_case(name)
+        before = fn.launches
+        got = fn(*args)
+        torch.cuda.synchronize()
+        launched = fn.launches - before
+        got = got if isinstance(got, tuple) else (got,)
+        want = ref(*args)
+        want = want if isinstance(want, tuple) else (want,)
+        errs = [max_err(g, r, 0.0, K3_TOL["float32"])
+                for g, r in zip(got, want)]
+        row = {"kernel": name, "wrapper": fn.__name__, "route": plan.route,
+               "T": t, "H": h, "B": 600, "plan": plan._asdict(),
+               "launches": launched, "max_abs_err": max(e for e, _ in errs),
+               "tol": K3_TOL["float32"]}
+        rows.append(row)
+        if (plan.route != "cluster" or not all(ok for _, ok in errs)
+                or launched != 1):
+            emit({"phase": "f7", "rows": rows})
+            fail(f"F7: {name} at B=600 on its cluster route disagrees: "
+                 f"{row}")
     emit({"phase": "f7", "rows": rows})
 
 
@@ -1820,10 +1945,13 @@ def device_kernels(prof, DeviceType):
 # the device kernels of a wrapper as a trace names them: one each, but
 # K10a's two phases (bilstm_proj_x_tiled_kernel or bilstm_proj_x_kernel,
 # then bilstm_fwd_chain_kernel), K10b's (bilstm_proj_gates_tiled_kernel or
-# bilstm_proj_gates_kernel, then bilstm_proj_chain_kernel) and the two
+# bilstm_proj_gates_kernel, then bilstm_proj_chain_kernel), the two
 # routes of K2 (bilstm_xp_chain_kernel or bilstm_fwd_kernel), K5
 # (lstm_fwd_chain_kernel or lstm_fwd_kernel) and K9a (gru_fwd_chain_kernel
-# or gru_fwd_kernel)
+# or gru_fwd_kernel), and those of K6 and K9b: the cluster route's two
+# phases (lstm_bwd_gates_tiled_kernel or lstm_bwd_gates_kernel, then
+# lstm_bwd_chain_kernel; the same with gru_bwd_) or the cooperative
+# kernel (lstm_bwd_kernel, gru_bwd_kernel)
 KERNEL_TAGS = {"bilstm_proj_fwd": ("::bilstm_proj_x",
                                    "::bilstm_fwd_chain_kernel"),
                "bilstm_proj_bwd": ("::bilstm_proj_gates",
@@ -1831,11 +1959,17 @@ KERNEL_TAGS = {"bilstm_proj_fwd": ("::bilstm_proj_x",
                "bilstm_fwd": ("::bilstm_xp_chain_kernel",
                               "::bilstm_fwd_kernel"),
                "lstm_fwd": ("::lstm_fwd_chain_kernel", "::lstm_fwd_kernel"),
-               "gru_fwd": ("::gru_fwd_chain_kernel", "::gru_fwd_kernel")}
+               "gru_fwd": ("::gru_fwd_chain_kernel", "::gru_fwd_kernel"),
+               "lstm_bwd": ("::lstm_bwd_gates", "::lstm_bwd_chain_kernel",
+                            "::lstm_bwd_kernel"),
+               "gru_bwd": ("::gru_bwd_gates", "::gru_bwd_chain_kernel",
+                           "::gru_bwd_kernel")}
 # of those, the ones a wrapper call launches once (once per chunk of
 # steps: one chunk at the training shape)
 LAUNCH_TAGS = {"bilstm_proj_fwd": ("::bilstm_fwd_chain_kernel",),
-               "bilstm_proj_bwd": ("::bilstm_proj_chain_kernel",)}
+               "bilstm_proj_bwd": ("::bilstm_proj_chain_kernel",),
+               "lstm_bwd": ("::lstm_bwd_chain_kernel", "::lstm_bwd_kernel"),
+               "gru_bwd": ("::gru_bwd_chain_kernel", "::gru_bwd_kernel")}
 
 
 def kernel_tags(name):

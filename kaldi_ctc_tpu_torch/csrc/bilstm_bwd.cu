@@ -75,25 +75,16 @@
 //      allocates per chunk of S steps; nothing of the forward is kept
 //      for the backward (the K10 route's point).
 //   2. bilstm_proj_chain_kernel, the dh/dc chain, serial over the steps,
-//      in thread-block clusters (cudaLaunchKernelEx with a cluster
-//      dimension, not a cooperative launch): one cluster of C CTAs per
-//      (direction, group of R rows).  Each CTA keeps its ceil(H/C) units'
-//      four gate columns of W_h in shared memory as f32 (64 KB at H = 128,
-//      C = 4) with their dh and dc carries.  A step: the gate math from
-//      the scratch, c[t], c[t-+1] and dy[t]; the dgates written; the
-//      CTA's partial dh = dgates_own . W_h_own^T for every unit k stored
-//      into k's owner's shared memory through DSMEM
-//      (cluster.map_shared_rank); one cluster barrier, split into
-//      barrier.cluster.arrive and wait; then each CTA sums the C partials
-//      of its own units in rank order.  The next step's scratch, c and
-//      dy do not depend on dh: cp.async loads them into a double buffer
-//      from the top of the step, and the step waits for them after the
-//      barrier.  The partial sums run four interleaved accumulators per
-//      row (short dependent chains), added in a fixed order.  Rows are independent, so clusters never meet: no
-//      grid barrier, and ceil(B/R) x 2 clusters take any B in as many
-//      waves as the card needs.  C and R come from the wrapper
-//      (rnn_cuda.k10b_plan); the launcher checks them and returns the
-//      CUDA error when they do not fit.
+//      in thread-block clusters: the backward chain of csrc/bwd_chain.cuh
+//      with the LSTM cell (LstmBwdCell), both directions, on the
+//      pre-activations of phase 1 (K6 and K9b run the same chain on their
+//      own phase 1's recurrent sums).  One cluster of C
+//      CTAs per (direction, group of R rows); each CTA keeps its ceil(H/C)
+//      units' four gate columns of W_h in shared memory as f32 (64 KB at
+//      H = 128, C = 4) with their dh and dc carries; one cluster barrier a
+//      step, the partial dh rows exchanged through DSMEM; any B.  C and R
+//      come from the wrapper (rnn_cuda.k10b_plan); the launcher checks
+//      them and returns the CUDA error when they do not fit.
 // Between chunks of steps (a scratch above 256 MiB) the chain carries dh
 // and dc in an f32 state [2][2][B][H] (dh, dc; direction).
 
@@ -105,6 +96,7 @@
 #include <stdint.h>
 
 #include "bilstm_cell.cuh"
+#include "bwd_chain.cuh"
 #include "lstm_gates.cuh"
 #include "row_ceiling.cuh"
 
@@ -376,8 +368,9 @@ bilstm_proj_gates_kernel(const T* __restrict__ x, const T* __restrict__ yf,
                          const T* __restrict__ whf, const T* __restrict__ whb,
                          float* __restrict__ pre, int s0, int S, int steps,
                          int B, int D, int H, int cols) {
-  gates_warp_body<T, true>(wx, bias, whf, whb, pre, S * B, D, H, cols,
-                           WalkRows<T>{x, yf, yb, s0, steps, B, D, H});
+  gates_warp_body<T, Sums::kProjRec>(
+      wx, bias, whf, whb, pre, S * B, D, H, 4, 2, cols,
+      WalkRows<T>{x, yf, yb, s0, steps, B, D, H});
 }
 
 template <typename T>
@@ -394,8 +387,8 @@ int gates_launch(const void* x, const void* yf, const void* yb,
   int sms = 0;
   cudaError_t e = gates_prepare((const void*)kern, smem, &sms);
   if (e != cudaSuccess) return e;
-  kern<<<gates_warp_grid((long long)S * B, H, cols), kGateThreads, smem,
-         static_cast<cudaStream_t>(stream)>>>(
+  kern<<<gates_warp_grid((long long)S * B, 4 * H, 2, cols), kGateThreads,
+         smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const T*>(x), static_cast<const T*>(yf),
       static_cast<const T*>(yb), static_cast<const T*>(wx),
       static_cast<const float*>(bias), static_cast<const T*>(whf),
@@ -412,8 +405,9 @@ bilstm_proj_gates_tiled_kernel(
     const float* __restrict__ bias, const T* __restrict__ whf,
     const T* __restrict__ whb, float* __restrict__ pre, int s0, int S,
     int steps, int B, int D, int H) {
-  gates_tiled_body<T, true>(wx, bias, whf, whb, pre, S * B, D, H,
-                            WalkRows<T>{x, yf, yb, s0, steps, B, D, H});
+  gates_tiled_body<T, Sums::kProjRec>(
+      wx, bias, whf, whb, pre, S * B, D, H, 4, 2,
+      WalkRows<T>{x, yf, yb, s0, steps, B, D, H});
 }
 
 template <typename T>
@@ -429,8 +423,8 @@ int gates_tiled_launch(const void* x, const void* yf, const void* yb,
   int sms = 0;
   cudaError_t e = gates_prepare((const void*)kern, smem, &sms);
   if (e != cudaSuccess) return e;
-  kern<<<gates_tiled_grid((long long)S * B, H, sms), kTileThreads, smem,
-         static_cast<cudaStream_t>(stream)>>>(
+  kern<<<gates_tiled_grid((long long)S * B, 4 * H, 2, sms), kTileThreads,
+         smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const T*>(x), static_cast<const T*>(yf),
       static_cast<const T*>(yb), static_cast<const T*>(wx),
       static_cast<const float*>(bias), static_cast<const T*>(whf),
@@ -443,25 +437,8 @@ int gates_tiled_launch(const void* x, const void* yf, const void* yb,
 // K10b phase 2: the dh/dc chain, serial over the steps, in clusters
 // ---------------------------------------------------------------------------
 
-constexpr int kChainThreads = 256;
-constexpr int kMaxCluster = 16;
-// words prefetched per (row, unit) and step: the four gate
-// pre-activations, c[t], c[t-+1], the 4-byte word holding dy[t], a spare
-constexpr int kPrefetch = 8;
-
-// floats of a phase-2 CTA's shared memory at cluster size C, R rows per
-// cluster, H units (the layout of bilstm_proj_chain_kernel; the plan in
-// ops/rnn_cuda.py::k10b_plan sizes R by the same sum)
-size_t chain_floats(int C, int R, int H) {
-  const size_t hsz = (H + C - 1) / C;
-  const size_t rp = (R + 3) & ~3;
-  const size_t recv = (2 * (size_t)C * R * hsz + 3) & ~(size_t)3;
-  return 4 * hsz * H + recv + 4 * hsz * rp + 2 * (size_t)R * hsz +
-         2 * (size_t)kPrefetch * R * hsz + R;
-}
-
 template <typename T>
-__global__ void __launch_bounds__(kChainThreads)
+__global__ void __launch_bounds__(kBwdChainThreads)
 bilstm_proj_chain_kernel(const T* __restrict__ dyf, const T* __restrict__ dyb,
                          const float* __restrict__ cf,
                          const float* __restrict__ cb,
@@ -470,166 +447,10 @@ bilstm_proj_chain_kernel(const T* __restrict__ dyf, const T* __restrict__ dyb,
                          const float* __restrict__ pre, T* __restrict__ dgf,
                          T* __restrict__ dgb, float* __restrict__ state,
                          int s0, int S, int steps, int B, int H, int R) {
-  extern __shared__ __align__(16) unsigned char chain_smem[];
-  cg::cluster_group cluster = cg::this_cluster();
-  const int C = static_cast<int>(cluster.num_blocks());
-  const int rank = static_cast<int>(cluster.block_rank());
-  const int groups = (B + R - 1) / R;
-  const int cid = blockIdx.x / C;           // this cluster
-  const int dir = cid / groups;
-  const int r0 = (cid % groups) * R;        // its first row
-  const int nr = min(R, B - r0);
-  const int hsz = (H + C - 1) / C;          // units per rank
-  const int j0 = rank * hsz;
-  const int n = max(0, min(hsz, H - j0));   // units this CTA owns
-  const int n4 = 4 * n;
-  const int G = 4 * H;
-  const int rp = (R + 3) & ~3;
-  const T* dy = dir == 0 ? dyf : dyb;
-  const float* cst = dir == 0 ? cf : cb;
-  const T* wh = dir == 0 ? whf : whb;
-  T* dg = dir == 0 ? dgf : dgb;
-  float* dh_state = state + (size_t)dir * B * H;        // state[0][dir]
-  float* dc_state = state + (size_t)(2 + dir) * B * H;  // state[1][dir]
-
-  const size_t recv_size = (2 * (size_t)C * R * hsz + 3) & ~(size_t)3;
-  float* w_s = reinterpret_cast<float*>(chain_smem);  // [4n][H]
-  float* recv = w_s + (size_t)4 * hsz * H;  // [2][writer rank][R][hsz]
-  float* dg_s = recv + recv_size;           // [4n][rp]: rounded dgates
-  float* dh_s = dg_s + (size_t)4 * hsz * rp;  // [nr][n]: dh carry
-  float* dc_s = dh_s + (size_t)R * hsz;       // [nr][n]: dc carry
-  uint32_t* pf = reinterpret_cast<uint32_t*>(dc_s + (size_t)R * hsz);
-  int* lens_s = reinterpret_cast<int*>(pf + (size_t)2 * kPrefetch * R * hsz);
-
-  for (int i = threadIdx.x; i < n4 * H; i += blockDim.x) {
-    const int k = i / n4, c = i % n4;
-    const int gate = c / n, jj = c % n;
-    w_s[c * H + k] = to_f32(wh[(size_t)k * G + gate * H + j0 + jj]);
-  }
-  for (int i = threadIdx.x; i < 4 * hsz * rp; i += blockDim.x) dg_s[i] = 0.0f;
-  const int ne = nr * n;                    // (row, unit) elements
-  for (int e = threadIdx.x; e < ne; e += blockDim.x) {
-    const size_t o = (size_t)(r0 + e / n) * H + j0 + e % n;
-    dh_s[e] = dh_state[o];
-    dc_s[e] = dc_state[o];
-  }
-  for (int r = threadIdx.x; r < nr; r += blockDim.x) lens_s[r] = lens[r0 + r];
-
-  auto time_of = [&](int s) { return dir == 0 ? steps - 1 - s : s; };
-  // step s's operands of this thread's elements into buffer `buf`: they
-  // depend on nothing the chain computes
-  auto prefetch = [&](int s, int buf) {
-    const int t = time_of(s);
-    const bool first = s == steps - 1;
-    const int tp = dir == 0 ? t - 1 : t + 1;
-    uint32_t* p = pf + (size_t)buf * kPrefetch * R * hsz;
-    for (int e = threadIdx.x; e < ne; e += blockDim.x) {
-      const int b = r0 + e / n, j = j0 + e % n;
-      uint32_t* q = p + (size_t)e * kPrefetch;
-      const float* g = pre + ((size_t)(s - s0) * B + b) * 2 * G + dir * G + j;
-      for (int gate = 0; gate < 4; ++gate) cp_async4(q + gate, g + gate * H);
-      cp_async4(q + 4, cst + ((size_t)t * B + b) * H + j);
-      if (!first) cp_async4(q + 5, cst + ((size_t)tp * B + b) * H + j);
-      cp_async4(q + 6, word_of(dy + ((size_t)t * B + b) * H + j));
-    }
-  };
-
-  prefetch(s0, 0);
-  cp_async_wait_all();
-  __syncthreads();
-  cluster.sync();   // every CTA runs before any DSMEM store reaches it
-  for (int i = 0; i < S; ++i) {
-    const int s = s0 + i;
-    const int t = time_of(s);
-    const bool first = s == steps - 1;
-    // the next step's operands load while this step runs (the buffer
-    // they fill was read by the step before)
-    if (i + 1 < S) prefetch(s + 1, (i + 1) & 1);
-    const uint32_t* p = pf + (size_t)(i & 1) * kPrefetch * R * hsz;
-    for (int e = threadIdx.x; e < ne; e += blockDim.x) {
-      const int r = e / n, jj = e % n, b = r0 + r, j = j0 + jj;
-      const uint32_t* q = p + (size_t)e * kPrefetch;
-      const float gi = sigmoid(__uint_as_float(q[0]));
-      const float gf = sigmoid(__uint_as_float(q[1]));
-      const float gg = tanhf(__uint_as_float(q[2]));
-      const float go = sigmoid(__uint_as_float(q[3]));
-      const float c = __uint_as_float(q[4]);
-      const float cp = first ? 0.0f : __uint_as_float(q[5]);
-      const float tc = tanhf(c);
-      const float dht =
-          from_word(q[6], dy + ((size_t)t * B + b) * H + j) + dh_s[e];
-      const float dct = dc_s[e] + dht * go * (1.0f - tc * tc);
-      const bool valid = t < lens_s[r];
-      const float d_i = valid ? dct * gg * gi * (1.0f - gi) : 0.0f;
-      const float d_f = valid ? dct * cp * gf * (1.0f - gf) : 0.0f;
-      const float d_g = valid ? dct * gi * (1.0f - gg * gg) : 0.0f;
-      const float d_o = valid ? dht * tc * go * (1.0f - go) : 0.0f;
-      const T r_i = from_f32<T>(d_i), r_f = from_f32<T>(d_f);
-      const T r_g = from_f32<T>(d_g), r_o = from_f32<T>(d_o);
-      T* out = dg + ((size_t)t * B + b) * G;
-      out[j] = r_i;
-      out[H + j] = r_f;
-      out[2 * H + j] = r_g;
-      out[3 * H + j] = r_o;
-      dg_s[(size_t)jj * rp + r] = to_f32(r_i);
-      dg_s[(size_t)(n + jj) * rp + r] = to_f32(r_f);
-      dg_s[(size_t)(2 * n + jj) * rp + r] = to_f32(r_g);
-      dg_s[(size_t)(3 * n + jj) * rp + r] = to_f32(r_o);
-      if (valid) dc_s[e] = dct * gf;
-    }
-    if (s + 1 == steps) break;
-    __syncthreads();
-    // this CTA's partial dh for every unit k over its own columns, into
-    // k's owner's slot for this rank
-    float* slot =
-        recv + ((size_t)(i & 1) * C + rank) * R * hsz;  // [parity][rank]
-    const int row_tiles = (nr + 3) >> 2;
-    for (int item = threadIdx.x; item < H * row_tiles; item += blockDim.x) {
-      const int k = item % H, r4 = (item / H) * 4;
-      // four rows, each summed over its columns c = q, q + 4, ... in
-      // four sums (short dependent chains), added in a fixed order
-      float acc[4][4] = {};
-      for (int c = 0; c < n4; c += 4) {     // n4 = 4 n
-#pragma unroll
-        for (int q = 0; q < 4; ++q) {
-          const float w = w_s[(c + q) * H + k];
-          const float4 d =
-              *reinterpret_cast<const float4*>(dg_s + (c + q) * rp + r4);
-          acc[q][0] = fmaf(d.x, w, acc[q][0]);
-          acc[q][1] = fmaf(d.y, w, acc[q][1]);
-          acc[q][2] = fmaf(d.z, w, acc[q][2]);
-          acc[q][3] = fmaf(d.w, w, acc[q][3]);
-        }
-      }
-      float* dst = cluster.map_shared_rank(slot, k / hsz) +
-                   (size_t)r4 * hsz + k % hsz;
-#pragma unroll
-      for (int rr = 0; rr < 4; ++rr)
-        if (r4 + rr < nr)
-          dst[rr * hsz] =
-              (acc[0][rr] + acc[1][rr]) + (acc[2][rr] + acc[3][rr]);
-    }
-    cluster_arrive();
-    cluster_wait();
-    cp_async_wait_all();
-    // dh for the next step: the C partials of this CTA's units in rank
-    // order, carried only where this step was a valid frame
-    const float* in = recv + (size_t)(i & 1) * C * R * hsz;
-    for (int e = threadIdx.x; e < ne; e += blockDim.x) {
-      const int r = e / n, jj = e % n;
-      if (t >= lens_s[r]) continue;
-      float acc = 0.0f;
-      for (int w = 0; w < C; ++w) acc += in[((size_t)w * R + r) * hsz + jj];
-      dh_s[e] = acc;
-    }
-  }
-  if (s0 + S < steps) {   // the next chunk of steps takes the carries
-    for (int e = threadIdx.x; e < ne; e += blockDim.x) {
-      const size_t o = (size_t)(r0 + e / n) * H + j0 + e % n;
-      dh_state[o] = dh_s[e];
-      dc_state[o] = dc_s[e];
-    }
-  }
+  bwd_chain_body<LstmBwdCell, true, T>(
+      pre, static_cast<const T*>(nullptr), dyf, dyb, cf, cb, whf, whb, lens,
+      dgf, static_cast<T*>(nullptr), dgb, static_cast<T*>(nullptr), state,
+      2, s0, S, steps, B, H, R, 0);
 }
 
 template <typename T>
@@ -638,52 +459,14 @@ int chain_launch(const void* dyf, const void* dyb, const void* cf,
                  const void* lens, const void* pre, void* dgf, void* dgb,
                  void* state, int s0, int S, int steps, int B, int H, int C,
                  int R, void* stream) {
-  if (S <= 0 || B <= 0) return cudaGetLastError();
-  if (C < 1 || C > kMaxCluster || (C & (C - 1)) != 0 || R < 1 || H <= 0 ||
-      s0 < 0 || s0 + S > steps)
-    return cudaErrorInvalidValue;
-  int dev = 0, optin = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e != cudaSuccess) return e;
-  cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
-                         dev);
-  const size_t smem = sizeof(float) * chain_floats(C, R, H);
-  if (smem > (size_t)optin) return cudaErrorLaunchOutOfResources;
-  auto kern = bilstm_proj_chain_kernel<T>;
-  e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           (int)smem);
-  if (e != cudaSuccess) return e;
-  if (C > 8) {
-    e = cudaFuncSetAttribute(
-        kern, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
-    if (e != cudaSuccess) return e;
-  }
-  const int groups = (B + R - 1) / R;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(2 * groups * C);
-  cfg.blockDim = dim3(kChainThreads);
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = static_cast<cudaStream_t>(stream);
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = C;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  int clusters = 0;
-  e = cudaOccupancyMaxActiveClusters(&clusters, (const void*)kern, &cfg);
-  if (e != cudaSuccess) return e;
-  if (clusters < 1) return cudaErrorLaunchOutOfResources;
-  e = cudaLaunchKernelEx(
-      &cfg, kern, static_cast<const T*>(dyf), static_cast<const T*>(dyb),
+  return bwd_chain_launch<LstmBwdCell, true>(
+      bilstm_proj_chain_kernel<T>, C, 2, s0, S, steps, B, H, R, stream,
+      static_cast<const T*>(dyf), static_cast<const T*>(dyb),
       static_cast<const float*>(cf), static_cast<const float*>(cb),
       static_cast<const T*>(whf), static_cast<const T*>(whb),
       static_cast<const int32_t*>(lens), static_cast<const float*>(pre),
       static_cast<T*>(dgf), static_cast<T*>(dgb), static_cast<float*>(state),
       s0, S, steps, B, H, R);
-  if (e != cudaSuccess) return e;
-  return cudaGetLastError();
 }
 
 }  // namespace

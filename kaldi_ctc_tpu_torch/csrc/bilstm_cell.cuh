@@ -1,7 +1,8 @@
-// What the LSTM kernels share: K2 and K10a (csrc/bilstm_fwd.cu), K3 and
-// K10b (csrc/bilstm_bwd.cu), K5 (csrc/lstm_fwd.cu), the phase-1 code of
-// csrc/lstm_gates.cuh and the forward chain of csrc/fwd_chain.cuh, which
-// the GRU forwards K8a and K9a (csrc/gru_fwd.cu) include too.
+// What the recurrent kernels share: K2 and K10a (csrc/bilstm_fwd.cu), K3
+// and K10b (csrc/bilstm_bwd.cu), K5 (csrc/lstm_fwd.cu), K6
+// (csrc/lstm_bwd.cu), the GRU kernels (csrc/gru_fwd.cu, csrc/gru_bwd.cu),
+// the phase-1 code of csrc/lstm_gates.cuh and the two chains,
+// csrc/fwd_chain.cuh and csrc/bwd_chain.cuh.
 //
 // The gate sums are warp-split dot products: lane l adds the products at
 // k = l, l + 32, ... with fmaf in order, then the warp reduces the 32
@@ -44,6 +45,21 @@ __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
 
 __device__ __forceinline__ float sigmoid(float x) {
   return 1.0f / (1.0f + expf(-x));
+}
+
+// r, z and n of the linear-before-reset GRU cell of
+// ops/gru_pallas.py::_gru_gates from the projection parts xr, xz, xn and
+// the recurrent sums hr, hz, hn: r = sigmoid(xr + hr), z = sigmoid(xz +
+// hz), n = tanh(xn + r hn).  The forward's gru_cell() (csrc/fwd_chain.cuh)
+// and the backward chain's GruBwdCell (csrc/bwd_chain.cuh) both form them
+// here (the fmaf is explicit so that neither contracts otherwise), so the
+// recomputed gates are the forward's.
+__device__ __forceinline__ void gru_rzn(float xr, float xz, float xn,
+                                        float hr, float hz, float hn,
+                                        float& r, float& z, float& n) {
+  r = sigmoid(xr + hr);
+  z = sigmoid(xz + hz);
+  n = tanhf(fmaf(r, hn, xn));
 }
 
 // sum_k a[k] * b[k] over k < n, in every lane of the calling warp

@@ -247,9 +247,10 @@ bilstm_proj_x_kernel(const T* __restrict__ x, const T* __restrict__ wx,
                      const float* __restrict__ bias, float* __restrict__ pre,
                      int t0f, int t0b, int S, int B, int D, int H,
                      int cols) {
-  gates_warp_body<T, false>(wx, bias, static_cast<const T*>(nullptr),
-                            static_cast<const T*>(nullptr), pre, S * B, D,
-                            H, cols, FrameRows<T>{x, t0f, t0b, B, D});
+  gates_warp_body<T, Sums::kProj>(wx, bias, static_cast<const T*>(nullptr),
+                                  static_cast<const T*>(nullptr), pre, S * B,
+                                  D, H, 4, 2, cols,
+                                  FrameRows<T>{x, t0f, t0b, B, D});
 }
 
 template <typename T>
@@ -259,9 +260,10 @@ bilstm_proj_x_tiled_kernel(const T* __restrict__ x,
                            const float* __restrict__ bias,
                            float* __restrict__ pre, int t0f, int t0b, int S,
                            int B, int D, int H) {
-  gates_tiled_body<T, false>(wx, bias, static_cast<const T*>(nullptr),
-                             static_cast<const T*>(nullptr), pre, S * B, D,
-                             H, FrameRows<T>{x, t0f, t0b, B, D});
+  gates_tiled_body<T, Sums::kProj>(wx, bias, static_cast<const T*>(nullptr),
+                                   static_cast<const T*>(nullptr), pre,
+                                   S * B, D, H, 4, 2,
+                                   FrameRows<T>{x, t0f, t0b, B, D});
 }
 
 // cols 0: the tiled kernel; 1..32: the warp kernel with that many gate
@@ -286,14 +288,14 @@ int proj_x_launch(const void* x, const void* wx, const void* bias,
     const size_t smem = gates_tiled_smem(D, 0);
     cudaError_t e = gates_prepare((const void*)kern, smem, &sms);
     if (e != cudaSuccess) return e;
-    kern<<<gates_tiled_grid(rows, H, sms), kTileThreads, smem, st>>>(
+    kern<<<gates_tiled_grid(rows, 4 * H, 2, sms), kTileThreads, smem, st>>>(
         a_x, a_wx, a_bias, a_pre, t0f, t0b, S, B, D, H);
   } else {
     auto kern = bilstm_proj_x_kernel<T>;
     const size_t smem = gates_smem(cols, D, 0);
     cudaError_t e = gates_prepare((const void*)kern, smem, &sms);
     if (e != cudaSuccess) return e;
-    kern<<<gates_warp_grid(rows, H, cols), kGateThreads, smem, st>>>(
+    kern<<<gates_warp_grid(rows, 4 * H, 2, cols), kGateThreads, smem, st>>>(
         a_x, a_wx, a_bias, a_pre, t0f, t0b, S, B, D, H, cols);
   }
   return cudaGetLastError();

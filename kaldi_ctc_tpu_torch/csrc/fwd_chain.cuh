@@ -73,15 +73,14 @@ __host__ __device__ constexpr size_t align16(size_t n) {
 
 // The linear-before-reset GRU cell of ops/gru_pallas.py::_gru_gates: the
 // projection parts xr, xz, xn, the recurrent sums hr, hz, hn and the f32
-// carry h -> h' = (1 - z) n + z h, with r = sigmoid(xr + hr), z =
-// sigmoid(xz + hz), n = tanh(xn + r hn).  Every route of K8a and K9a calls
-// it (the fmaf are explicit so that no route contracts otherwise).
+// carry h -> h' = (1 - z) n + z h, with r, z and n from gru_rzn() of
+// csrc/bilstm_cell.cuh.  Every route of K8a and K9a calls it (the fmaf are
+// explicit so that no route contracts otherwise).
 __device__ __forceinline__ float gru_cell(float xr, float xz, float xn,
                                           float hr, float hz, float hn,
                                           float h) {
-  const float r = sigmoid(xr + hr);
-  const float z = sigmoid(xz + hz);
-  const float n = tanhf(fmaf(r, hn, xn));
+  float r, z, n;
+  gru_rzn(xr, xz, xn, hr, hz, hn, r, z, n);
   return fmaf(z, h, (1.0f - z) * n);
 }
 

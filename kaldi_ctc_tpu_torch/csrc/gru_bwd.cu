@@ -32,30 +32,50 @@
 // form dh.  At the training batch B = 48, H = 320 that row is 184 KB in
 // f32: more than a block can hold beside its weights.
 //
-// Design: K6's and K3's (csrc/lstm_bwd.cu, csrc/bilstm_bwd.cu) with three
-// gate columns per unit.  One cooperative launch; each block owns hs
-// hidden units of one direction and keeps those units' three gate
-// columns of W_h (3*hs x H) in shared memory for the whole walk, with
-// their dh and dh_total * z.  The columns serve both products: the gate
-// recompute sums y[b, k] * W_h[k, c] over k for the block's columns c,
-// and the block's share of dh sums dgh[b, c] * W_h[k, c] over its own
-// columns c, for every k.  Blocks exchange those partial dh rows, not
-// dgh: each block writes a [B, H] partial (f32, st.global.cg) into a
-// double-buffered array laid out so that the hs units of one owner are
-// contiguous across the writing blocks; after the step's one grid.sync()
-// each block sums the nb partials of its own units (ld.global.cg) in a
-// fixed order and adds dh_total * z, so the sums stay f32 and
-// deterministic.  The next step's gate recompute needs no exchange (y is
-// in device memory) and runs before the barrier.  Every row's y, sums and
-// dgh stay in shared memory, so a launch takes at most gru_bwd_max_rows(H)
-// rows (~160 at H = 320; bigru_bwd_max_rows ~148); the wrapper runs a
-// larger batch as row slices.
+// K9b has two routes, chosen by the wrapper's plan from the shapes
+// (ops/rnn_cuda.py::bwd_chain_plan with three gates), K6's
+// (csrc/lstm_bwd.cu):
+//   - the cluster route, wherever W_h's three gate columns fit a cluster
+//     of at most 16 CTAs as f32 (H up to ~545): gru_bwd_gates_tiled_kernel
+//     (H <= 426) or gru_bwd_gates_kernel computes the recurrent sums hr,
+//     hz, hn = y[prev] . W_h of every step at once into an f32 scratch
+//     [S, B, 3H] (csrc/lstm_gates.cuh, warp_dot's order: K9a's sums), then
+//     gru_bwd_chain_kernel walks the dh chain, the backward chain of
+//     csrc/bwd_chain.cuh with the GRU cell (GruBwdCell: r, z and n formed
+//     by gru_rzn() from x_proj[t] and the sums, as K9a's gru_cell() forms
+//     them; the residual y[prev]; dh_total z added to the summed
+//     partials).  Any B, no row slices; a scratch above 256 MiB runs in
+//     chunks of steps, dh carried between them;
+//   - the cooperative route above that: gru_bwd_kernel, below.
+// K8b runs the cooperative design with both directions.
+//
+// The cooperative design: K6's and K3's (csrc/lstm_bwd.cu,
+// csrc/bilstm_bwd.cu) with three gate columns per unit.  One cooperative
+// launch; each block owns hs hidden units of one direction and keeps
+// those units' three gate columns of W_h (3*hs x H) in shared memory for
+// the whole walk, with their dh and dh_total * z.  The columns serve both
+// products: the gate recompute sums y[b, k] * W_h[k, c] over k for the
+// block's columns c, and the block's share of dh sums dgh[b, c] * W_h[k,
+// c] over its own columns c, for every k.  Blocks exchange those partial
+// dh rows, not dgh: each block writes a [B, H] partial (f32,
+// st.global.cg) into a double-buffered array laid out so that the hs
+// units of one owner are contiguous across the writing blocks; after the
+// step's one grid.sync() each block sums the nb partials of its own units
+// (ld.global.cg) in a fixed order and adds dh_total * z, so the sums stay
+// f32 and deterministic.  The next step's gate recompute needs no
+// exchange (y is in device memory) and runs before the barrier.  Every
+// row's y, sums and dgh stay in shared memory, so a launch takes at most
+// gru_bwd_max_rows(H) rows (~80 at H = 576; bigru_bwd_max_rows ~148 at
+// H = 320); the wrapper runs a larger batch as row slices.
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "bilstm_cell.cuh"
+#include "bwd_chain.cuh"
+#include "lstm_gates.cuh"
 #include "row_ceiling.cuh"
 
 namespace cg = cooperative_groups;
@@ -63,24 +83,6 @@ namespace cg = cooperative_groups;
 namespace {
 
 constexpr int kThreads = 512;
-
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-
-template <typename T>
-__device__ __forceinline__ T from_f32(float v);
-template <>
-__device__ __forceinline__ float from_f32<float>(float v) { return v; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
-  return __float2bfloat16(v);  // round to nearest even, as astype does
-}
-
-__device__ __forceinline__ float sigmoid(float x) {
-  return 1.0f / (1.0f + expf(-x));
-}
 
 // The backward walk of DIRS directions; block blockIdx.x owns units
 // j0 .. j0+n-1 of direction blockIdx.x / nb.  Direction d's forward ran
@@ -333,6 +335,61 @@ int launch(bool bidirectional, const void* dy0, const void* dy1,
   return cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// K9b's cluster route: phase 1, every step's recurrent sums at once, then
+// the backward chain
+// ---------------------------------------------------------------------------
+
+template <typename T>
+__global__ void __launch_bounds__(kGateThreads)
+gru_bwd_gates_kernel(const T* __restrict__ y, const T* __restrict__ wh,
+                     float* __restrict__ pre, int s0, int S, int steps,
+                     int B, int H, int cols, int reverse) {
+  gates_warp_body<T, Sums::kRec>(nullptr, nullptr, wh, wh, pre, S * B, 0, H,
+                                 3, 1, cols,
+                                 UniWalkRows<T>{y, s0, steps, B, H, reverse});
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kTileThreads, 1)
+gru_bwd_gates_tiled_kernel(const T* __restrict__ y,
+                           const T* __restrict__ wh,
+                           float* __restrict__ pre, int s0, int S, int steps,
+                           int B, int H, int reverse) {
+  gates_tiled_body<T, Sums::kRec>(nullptr, nullptr, wh, wh, pre, S * B, 0,
+                                  H, 3, 1,
+                                  UniWalkRows<T>{y, s0, steps, B, H, reverse});
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kBwdChainThreads)
+gru_bwd_chain_kernel(const T* __restrict__ dy, const T* __restrict__ xp,
+                     const T* __restrict__ y, const T* __restrict__ wh,
+                     const int32_t* __restrict__ lens,
+                     const float* __restrict__ pre, T* __restrict__ dgx,
+                     T* __restrict__ dgh, float* __restrict__ state, int s0,
+                     int S, int steps, int B, int H, int R, int reverse) {
+  bwd_chain_body<GruBwdCell, false, T>(
+      pre, xp, dy, static_cast<const T*>(nullptr), y, nullptr, wh,
+      static_cast<const T*>(nullptr), lens, dgx, dgh,
+      static_cast<T*>(nullptr), static_cast<T*>(nullptr), state, 1, s0, S,
+      steps, B, H, R, reverse);
+}
+
+template <typename T>
+int chain_launch(const void* dy, const void* xp, const void* y,
+                 const void* wh, const void* lens, const void* pre,
+                 void* dgx, void* dgh, void* state, int s0, int S, int steps,
+                 int B, int H, int C, int R, int reverse, void* stream) {
+  return bwd_chain_launch<GruBwdCell, false>(
+      gru_bwd_chain_kernel<T>, C, 1, s0, S, steps, B, H, R, stream,
+      static_cast<const T*>(dy), static_cast<const T*>(xp),
+      static_cast<const T*>(y), static_cast<const T*>(wh),
+      static_cast<const int32_t*>(lens), static_cast<const float*>(pre),
+      static_cast<T*>(dgx), static_cast<T*>(dgh), static_cast<float*>(state),
+      s0, S, steps, B, H, R, reverse);
+}
+
 }  // namespace
 
 extern "C" {
@@ -380,6 +437,57 @@ int gru_bwd_bf16(const void* dy, const void* xp, const void* y,
   return launch<__nv_bfloat16>(false, dy, dy, xp, y, y, wh, wh, lens, dgx,
                                dgh, dgx, dgh, part, steps, B, H, reverse,
                                stream);
+}
+
+// the opt-in shared memory of one block on the current device, in bytes
+// (K9b's cluster route sizes its clusters by it), or a negative CUDA
+// error code
+int gru_bwd_smem_optin(void) { return smem_optin_bytes(); }
+
+// K9b's cluster route, phase 1 over walk steps s0 .. s0+S-1 of `steps`: y
+// [T, B, H] and w_h [H, 3H] in the compute dtype -> pre [S, B, 3H] f32,
+// row i the recurrent sums hr, hz, hn of step s0 + i (t = T-1-s, or t = s
+// with reverse).  cols 0: the tiled kernel (H <= 426); 1..32: the warp
+// kernel with that many gate columns a block.
+int gru_bwd_gates_f32(const void* y, const void* wh, void* pre, int s0,
+                      int S, int steps, int B, int H, int cols, int reverse,
+                      void* stream) {
+  return rec_gates_launch<float>(gru_bwd_gates_tiled_kernel<float>,
+                                 gru_bwd_gates_kernel<float>, y, wh, pre, s0,
+                                 S, steps, B, H, 3, cols, reverse, stream);
+}
+
+int gru_bwd_gates_bf16(const void* y, const void* wh, void* pre, int s0,
+                       int S, int steps, int B, int H, int cols, int reverse,
+                       void* stream) {
+  return rec_gates_launch<__nv_bfloat16>(
+      gru_bwd_gates_tiled_kernel<__nv_bfloat16>,
+      gru_bwd_gates_kernel<__nv_bfloat16>, y, wh, pre, s0, S, steps, B, H, 3,
+      cols, reverse, stream);
+}
+
+// K9b's cluster route, phase 2 over the same steps: dy, x_proj, y, w_h in
+// the compute dtype, lens [B] int32, pre from phase 1 -> dgx, dgh
+// [T, B, 3H] at those steps' frames; state [1][1][B][H] f32 holds dh on
+// entry and, unless the walk ends here, on exit.  C CTAs per cluster (a
+// power of two <= 16), R rows per cluster.
+int gru_bwd_chain_f32(const void* dy, const void* xp, const void* y,
+                      const void* wh, const void* lens, const void* pre,
+                      void* dgx, void* dgh, void* state, int s0, int S,
+                      int steps, int B, int H, int C, int R, int reverse,
+                      void* stream) {
+  return chain_launch<float>(dy, xp, y, wh, lens, pre, dgx, dgh, state, s0,
+                             S, steps, B, H, C, R, reverse, stream);
+}
+
+int gru_bwd_chain_bf16(const void* dy, const void* xp, const void* y,
+                       const void* wh, const void* lens, const void* pre,
+                       void* dgx, void* dgh, void* state, int s0, int S,
+                       int steps, int B, int H, int C, int R, int reverse,
+                       void* stream) {
+  return chain_launch<__nv_bfloat16>(dy, xp, y, wh, lens, pre, dgx, dgh,
+                                     state, s0, S, steps, B, H, C, R,
+                                     reverse, stream);
 }
 
 // K8b.  part: gru_bwd_exchange_floats(2, B, H)

@@ -29,13 +29,33 @@
 // the training batch B = 48, H = 320 that row is 245 KB in f32: more
 // than one block's shared memory.
 //
-// Design: K3's (csrc/bilstm_bwd.cu) with one direction.  One cooperative
-// launch; each block owns hs hidden units and keeps those units' four
-// gate columns of W_h (4*hs x H) in shared memory for the whole walk,
-// with its dh and dc.  The columns serve both products: the gate
-// recompute sums y[b, k] * W_h[k, c] over k for the block's columns c,
-// and the block's share of dh sums dgates[b, c] * W_h[k, c] over its own
-// columns c, for every k.  Blocks exchange those partial dh rows, not
+// Two routes, chosen by the wrapper's plan from the shapes
+// (ops/rnn_cuda.py::bwd_chain_plan with four gates):
+//   - the cluster route, wherever W_h's four gate columns fit a cluster
+//     of at most 16 CTAs as f32 (H up to ~465): two kernels, K10b's
+//     split.  The gate recompute depends only on the stored y,
+//     never on the dh/dc recurrence, so
+//       1. lstm_bwd_gates_tiled_kernel (H <= 426) or lstm_bwd_gates_kernel
+//          (one warp per row over 32 gate columns a block) computes the
+//          recurrent sums y[prev] . W_h of every step at once, parallel
+//          over T, into an f32 scratch [S, B, 4H] (the bodies of
+//          csrc/lstm_gates.cuh with the projection left out; y[prev] is
+//          zero at the forward's first step): warp_dot's sums, in its
+//          order, so the gates equal K5's chain gates bit for bit;
+//       2. lstm_bwd_chain_kernel walks the dh/dc chain: the backward chain
+//          of csrc/bwd_chain.cuh with the LSTM cell and one direction,
+//          which adds x_proj[t] to each sum as the forward chain does.
+//     Any B in waves of clusters, no row slices; a scratch above 256 MiB
+//     runs in chunks of steps, dh and dc carried between them;
+//   - the cooperative route above that: lstm_bwd_kernel, below.
+//
+// The cooperative design: K3's (csrc/bilstm_bwd.cu) with one direction.
+// One cooperative launch; each block owns hs hidden units and keeps those
+// units' four gate columns of W_h (4*hs x H) in shared memory for the
+// whole walk, with its dh and dc.  The columns serve both products: the
+// gate recompute sums y[b, k] * W_h[k, c] over k for the block's columns
+// c, and the block's share of dh sums dgates[b, c] * W_h[k, c] over its
+// own columns c, for every k.  Blocks exchange those partial dh rows, not
 // dgates: each block writes a [B, H] partial (f32, st.global.cg) into a
 // double-buffered array laid out so that the hs units of one owner are
 // contiguous across the writing blocks; after the step's one grid.sync()
@@ -43,14 +63,17 @@
 // fixed order, so the sums stay f32 and deterministic.  The next step's
 // gate recompute needs no exchange (y is in device memory) and runs
 // before the barrier.  Every row's y, gate sums and dgates stay in shared
-// memory, so a launch takes at most lstm_bwd_max_rows(H) rows (~155 at
-// H = 320); the wrapper runs a larger batch as row slices.
+// memory, so a launch takes at most lstm_bwd_max_rows(H) rows (~90 at
+// H = 512); the wrapper runs a larger batch as row slices.
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "bilstm_cell.cuh"
+#include "bwd_chain.cuh"
+#include "lstm_gates.cuh"
 #include "row_ceiling.cuh"
 
 namespace cg = cooperative_groups;
@@ -58,24 +81,6 @@ namespace cg = cooperative_groups;
 namespace {
 
 constexpr int kThreads = 512;
-
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-
-template <typename T>
-__device__ __forceinline__ T from_f32(float v);
-template <>
-__device__ __forceinline__ float from_f32<float>(float v) { return v; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
-  return __float2bfloat16(v);  // round to nearest even, as astype does
-}
-
-__device__ __forceinline__ float sigmoid(float x) {
-  return 1.0f / (1.0f + expf(-x));
-}
 
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
@@ -282,6 +287,62 @@ int launch(const void* dy, const void* xp, const void* y, const void* cst,
   return cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// The cluster route: phase 1, every step's recurrent sums at once, then
+// the backward chain
+// ---------------------------------------------------------------------------
+
+template <typename T>
+__global__ void __launch_bounds__(kGateThreads)
+lstm_bwd_gates_kernel(const T* __restrict__ y, const T* __restrict__ wh,
+                      float* __restrict__ pre, int s0, int S, int steps,
+                      int B, int H, int cols, int reverse) {
+  gates_warp_body<T, Sums::kRec>(nullptr, nullptr, wh, wh, pre, S * B, 0, H,
+                                 4, 1, cols,
+                                 UniWalkRows<T>{y, s0, steps, B, H, reverse});
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kTileThreads, 1)
+lstm_bwd_gates_tiled_kernel(const T* __restrict__ y,
+                            const T* __restrict__ wh,
+                            float* __restrict__ pre, int s0, int S,
+                            int steps, int B, int H, int reverse) {
+  gates_tiled_body<T, Sums::kRec>(nullptr, nullptr, wh, wh, pre, S * B, 0,
+                                  H, 4, 1,
+                                  UniWalkRows<T>{y, s0, steps, B, H, reverse});
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kBwdChainThreads)
+lstm_bwd_chain_kernel(const T* __restrict__ dy, const T* __restrict__ xp,
+                      const float* __restrict__ cst,
+                      const T* __restrict__ wh,
+                      const int32_t* __restrict__ lens,
+                      const float* __restrict__ pre, T* __restrict__ dg,
+                      float* __restrict__ state, int s0, int S, int steps,
+                      int B, int H, int R, int reverse) {
+  bwd_chain_body<LstmBwdCell, false, T>(
+      pre, xp, dy, static_cast<const T*>(nullptr), cst, nullptr, wh,
+      static_cast<const T*>(nullptr), lens, dg, static_cast<T*>(nullptr),
+      static_cast<T*>(nullptr), static_cast<T*>(nullptr), state, 1, s0, S,
+      steps, B, H, R, reverse);
+}
+
+template <typename T>
+int chain_launch(const void* dy, const void* xp, const void* cst,
+                 const void* wh, const void* lens, const void* pre, void* dg,
+                 void* state, int s0, int S, int steps, int B, int H, int C,
+                 int R, int reverse, void* stream) {
+  return bwd_chain_launch<LstmBwdCell, false>(
+      lstm_bwd_chain_kernel<T>, C, 1, s0, S, steps, B, H, R, stream,
+      static_cast<const T*>(dy), static_cast<const T*>(xp),
+      static_cast<const float*>(cst), static_cast<const T*>(wh),
+      static_cast<const int32_t*>(lens), static_cast<const float*>(pre),
+      static_cast<T*>(dg), static_cast<float*>(state), s0, S, steps, B, H, R,
+      reverse);
+}
+
 }  // namespace
 
 extern "C" {
@@ -320,6 +381,57 @@ int lstm_bwd_bf16(const void* dy, const void* xp, const void* y,
                   void* stream) {
   return launch<__nv_bfloat16>(dy, xp, y, cst, wh, lens, dg, part, steps, B,
                                H, reverse, stream);
+}
+
+// the opt-in shared memory of one block on the current device, in bytes
+// (the cluster route's plan sizes its clusters by it), or a negative CUDA
+// error code
+int lstm_bwd_smem_optin(void) { return smem_optin_bytes(); }
+
+// The cluster route's phase 1 over walk steps s0 .. s0+S-1 of `steps`: y
+// [T, B, H] and w_h [H, 4H] in the compute dtype -> pre [S, B, 4H] f32,
+// row i the recurrent sums y[prev] . W_h of step s0 + i (t = T-1-s, or
+// t = s with reverse).  cols 0: the tiled kernel (H <= 426); 1..32: the
+// warp kernel with that many gate columns a block.
+int lstm_bwd_gates_f32(const void* y, const void* wh, void* pre, int s0,
+                       int S, int steps, int B, int H, int cols, int reverse,
+                       void* stream) {
+  return rec_gates_launch<float>(lstm_bwd_gates_tiled_kernel<float>,
+                                 lstm_bwd_gates_kernel<float>, y, wh, pre, s0,
+                                 S, steps, B, H, 4, cols, reverse, stream);
+}
+
+int lstm_bwd_gates_bf16(const void* y, const void* wh, void* pre, int s0,
+                        int S, int steps, int B, int H, int cols,
+                        int reverse, void* stream) {
+  return rec_gates_launch<__nv_bfloat16>(
+      lstm_bwd_gates_tiled_kernel<__nv_bfloat16>,
+      lstm_bwd_gates_kernel<__nv_bfloat16>, y, wh, pre, s0, S, steps, B, H,
+      4, cols, reverse, stream);
+}
+
+// The cluster route's phase 2 over the same steps: dy, x_proj, w_h in the
+// compute dtype, c [T, B, H] f32, lens [B] int32, pre from phase 1 ->
+// dgates [T, B, 4H] at those steps' frames; state [2][1][B][H] f32 holds
+// dh and dc on entry and, unless the walk ends here, on exit.  C CTAs per
+// cluster (a power of two <= 16), R rows per cluster.
+int lstm_bwd_chain_f32(const void* dy, const void* xp, const void* cst,
+                       const void* wh, const void* lens, const void* pre,
+                       void* dg, void* state, int s0, int S, int steps,
+                       int B, int H, int C, int R, int reverse,
+                       void* stream) {
+  return chain_launch<float>(dy, xp, cst, wh, lens, pre, dg, state, s0, S,
+                             steps, B, H, C, R, reverse, stream);
+}
+
+int lstm_bwd_chain_bf16(const void* dy, const void* xp, const void* cst,
+                        const void* wh, const void* lens, const void* pre,
+                        void* dg, void* state, int s0, int S, int steps,
+                        int B, int H, int C, int R, int reverse,
+                        void* stream) {
+  return chain_launch<__nv_bfloat16>(dy, xp, cst, wh, lens, pre, dg, state,
+                                     s0, S, steps, B, H, C, R, reverse,
+                                     stream);
 }
 
 const char* kctpu_error_string(int err) {

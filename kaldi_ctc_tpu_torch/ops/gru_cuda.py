@@ -15,7 +15,10 @@ leaves them to XLA.  On the card K9a's route comes from
 ``rnn_cuda.fwd_chain_plan`` with three gates: the forward chain in
 thread-block clusters (``csrc/fwd_chain.cuh`` with the GRU cell; any B,
 one launch) where W_h fits a cluster, else the cooperative kernel in row
-slices.
+slices.  K9b's comes from ``rnn_cuda.bwd_chain_plan`` with three gates:
+every step's recurrent sums at once, then the backward chain in clusters
+(``csrc/bwd_chain.cuh`` with the GRU cell; any B), else the cooperative
+kernel in row slices.
 
 The cell is cuDNN's linear-before-reset GRU (``ops.rnn._gru_gates``, gate
 order r, z, n, no recurrent bias).  The forward writes y only; the
@@ -37,17 +40,20 @@ import torch
 from kaldi_ctc_tpu_torch import _kernels
 from kaldi_ctc_tpu_torch.ops.rnn import (COMPUTE_DTYPES, _gru_gates, _valid,
                                          matmul_f32acc)
-from kaldi_ctc_tpu_torch.ops.rnn_cuda import (_I, _P, _SUFFIX, FwdChainPlan,
-                                              _check_lens, _check_tensors,
-                                              _check_x_proj, _dw_h,
+from kaldi_ctc_tpu_torch.ops.rnn_cuda import (_I, _P, _REC_GATES_ARGS,
+                                              _SUFFIX, BwdChainPlan,
+                                              FwdChainPlan, _check_lens,
+                                              _check_tensors, _check_x_proj,
+                                              _dw_h, _scratch_steps,
                                               _sm_count, _smem_optin,
-                                              fwd_chain_plan, max_rows,
-                                              run_in_row_slices)
+                                              bwd_chain_plan, fwd_chain_plan,
+                                              max_rows, run_in_row_slices)
 
 __all__ = ["gru_seq_fwd", "gru_seq_fwd_reference", "gru_seq_bwd_dgates",
            "gru_seq_bwd_dgates_reference", "gru_sequence", "bigru_seq_fwd",
            "bigru_seq_fwd_reference", "bigru_seq_bwd_dgates",
-           "bigru_seq_bwd_dgates_reference", "bigru_layer", "k9a_plan"]
+           "bigru_seq_bwd_dgates_reference", "bigru_layer", "k9a_plan",
+           "k9b_plan"]
 
 _FWD_SIGNATURES = {"gru_fwd_f32": [_P] * 5 + [_I] * 4 + [_P],
                    "gru_fwd_bf16": [_P] * 5 + [_I] * 4 + [_P],
@@ -60,7 +66,12 @@ _BWD_SIGNATURES = {"gru_bwd_f32": [_P] * 8 + [_I] * 4 + [_P],
                    "gru_bwd_bf16": [_P] * 8 + [_I] * 4 + [_P],
                    "bigru_bwd_f32": [_P] * 13 + [_I] * 3 + [_P],
                    "bigru_bwd_bf16": [_P] * 13 + [_I] * 3 + [_P],
-                   "gru_bwd_exchange_floats": [_I] * 3}
+                   "gru_bwd_exchange_floats": [_I] * 3,
+                   "gru_bwd_smem_optin": [],
+                   "gru_bwd_gates_f32": _REC_GATES_ARGS,
+                   "gru_bwd_gates_bf16": _REC_GATES_ARGS,
+                   "gru_bwd_chain_f32": [_P] * 9 + [_I] * 8 + [_P],
+                   "gru_bwd_chain_bf16": [_P] * 9 + [_I] * 8 + [_P]}
 # each source's batch-ceiling queries, one per kernel and dtype
 _FWD_SIGNATURES.update({f"{k}_fwd_max_rows_{sfx}": [_I]
                         for k in ("gru", "bigru") for sfx in _SUFFIX.values()})
@@ -256,7 +267,11 @@ def gru_seq_bwd_dgates(dy: torch.Tensor, x_proj: torch.Tensor,
     """Output cotangent dy [T, B, H] and the forward's residuals (x_proj
     [T, B, 3H], y [T, B, H] and w_h [H, 3H] in the compute dtype, lens
     [B], the forward's direction) → (dgx, dgh) [T, B, 3H] in x_proj's
-    dtype.  The contract of ``gru_pallas._gru_seq_bwd_dgates``."""
+    dtype.  The contract of ``gru_pallas._gru_seq_bwd_dgates``.  On the
+    card the route is :func:`k9b_plan`'s, from the shapes: phase 1 (every
+    step's recurrent sums at once) and the backward chain in thread-block
+    clusters (any B, chunks of steps above a 256 MiB scratch) where W_h
+    fits a cluster, else the cooperative kernel in row slices."""
     if x_proj.device.type == "cpu":
         return gru_seq_bwd_dgates_reference(dy, x_proj, y, w_h, lens,
                                             reverse)
@@ -275,14 +290,72 @@ def gru_seq_bwd_dgates(dy: torch.Tensor, x_proj: torch.Tensor,
         return tuple(torch.empty((t_max, b, g3), dtype=cdt, device=dev)
                      for _ in range(2))
     lib = _kernels.load("gru_bwd", _BWD_SIGNATURES)
+    plan = k9b_plan(lib, b, h, cdt, dev)
+    lens32 = lens.to(torch.int32).contiguous()
+    if plan.route == "cluster":
+        out = _gru_bwd_chain(lib, dy, x_proj, y, w_h, lens32, reverse, plan)
+    else:
+        out = _gru_bwd_cooperative(lib, dy, x_proj, y, w_h, lens32, reverse)
+    gru_seq_bwd_dgates.launches += 1
+    return out
 
-    def launch(dy, x_proj, y, lens):
+
+def k9b_plan(lib, b: int, h: int, dtype: torch.dtype, device
+             ) -> BwdChainPlan:
+    """K9b's route and launch shape on ``device``:
+    ``rnn_cuda.bwd_chain_plan`` with three gates and one direction."""
+    return bwd_chain_plan(b, h, dtype, 1, _sm_count(device),
+                          _smem_optin(lib, "gru_bwd_smem_optin", device),
+                          gates=3)
+
+
+def _gru_bwd_chain(lib, dy, x_proj, y, w_h, lens32: torch.Tensor,
+                   reverse: bool, plan: BwdChainPlan) -> Pair:
+    """K9b's cluster route (``gru_bwd_gates_*``, then ``gru_bwd_chain_*``,
+    per chunk of steps) on checked operands."""
+    t_max, b, g3 = x_proj.shape
+    h = g3 // 3
+    dev = x_proj.device
+    sfx = _SUFFIX[x_proj.dtype]
+    stream = _kernels.stream_ptr(dev)
+    dgx = torch.empty((t_max, b, g3), dtype=x_proj.dtype, device=dev)
+    dgh = torch.empty_like(dgx)
+    # phase 1's scratch holds the steps of one chunk; phase 2 carries dh
+    # between chunks in `state`
+    steps = _scratch_steps(t_max, b, g3)
+    pre = torch.empty((steps, b, g3), dtype=torch.float32, device=dev)
+    state = torch.zeros((1, 1, b, h), dtype=torch.float32, device=dev)
+    what = f"gru_seq_bwd_dgates at T={t_max}, B={b}, {plan}"
+    for s0 in range(0, t_max, steps):
+        n = min(steps, t_max - s0)
+        err = getattr(lib, "gru_bwd_gates_" + sfx)(
+            y.data_ptr(), w_h.data_ptr(), pre.data_ptr(), s0, n, t_max, b, h,
+            plan.gate_cols, int(reverse), stream)
+        _kernels.check(lib, err, what + " phase 1")
+        err = getattr(lib, "gru_bwd_chain_" + sfx)(
+            dy.data_ptr(), x_proj.data_ptr(), y.data_ptr(), w_h.data_ptr(),
+            lens32.data_ptr(), pre.data_ptr(), dgx.data_ptr(),
+            dgh.data_ptr(), state.data_ptr(), s0, n, t_max, b, h,
+            plan.cluster, plan.rows, int(reverse), stream)
+        _kernels.check(lib, err, what + " phase 2")
+    return dgx, dgh
+
+
+def _gru_bwd_cooperative(lib, dy, x_proj, y, w_h, lens32: torch.Tensor,
+                         reverse: bool) -> Pair:
+    """K9b's cooperative route (``gru_bwd_*``) on checked operands, in
+    row slices under its ceiling."""
+    t_max, _, g3 = x_proj.shape
+    h = g3 // 3
+    dev = x_proj.device
+    sfx = _SUFFIX[x_proj.dtype]
+
+    def launch(dy, x_proj, y, lens32):
         n = x_proj.shape[1]
-        dgx = torch.empty((t_max, n, g3), dtype=cdt, device=dev)
+        dgx = torch.empty((t_max, n, g3), dtype=x_proj.dtype, device=dev)
         dgh = torch.empty_like(dgx)
         part = _exchange(lib, 1, n, h, dev, "gru_seq_bwd_dgates")
-        lens32 = lens.to(torch.int32).contiguous()
-        err = getattr(lib, "gru_bwd_" + _SUFFIX[cdt])(
+        err = getattr(lib, "gru_bwd_" + sfx)(
             dy.data_ptr(), x_proj.data_ptr(), y.data_ptr(), w_h.data_ptr(),
             lens32.data_ptr(), dgx.data_ptr(), dgh.data_ptr(),
             part.data_ptr(), t_max, n, h, int(reverse),
@@ -290,12 +363,9 @@ def gru_seq_bwd_dgates(dy: torch.Tensor, x_proj: torch.Tensor,
         _kernels.check(lib, err, "gru_seq_bwd_dgates")
         return dgx, dgh
 
-    out = run_in_row_slices(
-        launch, max_rows(lib, "gru_bwd_max_rows_" + _SUFFIX[cdt], dev, h),
-        dy, x_proj, y, lens)
-    gru_seq_bwd_dgates.launches += 1
-    return out
-
+    return run_in_row_slices(
+        launch, max_rows(lib, "gru_bwd_max_rows_" + sfx, dev, h), dy, x_proj,
+        y, lens32)
 
 gru_seq_bwd_dgates.launches = 0  # kernel launches made by this wrapper
 

@@ -27,7 +27,11 @@ the reference does.  K10a and K5 walk their recurrence in thread-block
 clusters (``csrc/fwd_chain.cuh``), which take any batch by design, and so
 do K2 and the GRU's K9a (``ops/gru_cuda.py``) where W_h fits a cluster;
 their launch shape comes from :func:`fwd_chain_plan`, which sends K2, K5
-and K9a to their cooperative kernels where W_h fits no cluster.
+and K9a to their cooperative kernels where W_h fits no cluster.  The
+backwards K6, K9b and K10b (phase 2) walk the dh chain the same way
+(``csrc/bwd_chain.cuh``) after a phase 1 that computes every step's gate
+sums at once; :func:`bwd_chain_plan` sends K6 and K9b to their
+cooperative kernels where W_h fits no cluster.
 
 Under bfloat16 the shipped default of the JAX package's ``_bf16_cfg``
 holds: the projection, the layer outputs and the dgates are stored in
@@ -55,7 +59,8 @@ __all__ = ["bilstm_seq_fwd", "bilstm_seq_fwd_reference",
            "lstm_seq_bwd_dgates", "lstm_seq_bwd_dgates_reference",
            "lstm_sequence", "lstm_stack_fwd", "lstm_stack_fwd_reference",
            "lstm_stack_fits", "max_rows", "run_in_row_slices", "K10bPlan",
-           "k10b_plan", "FwdChainPlan", "fwd_chain_plan", "k2_plan"]
+           "k10b_plan", "FwdChainPlan", "fwd_chain_plan", "k2_plan",
+           "BwdChainPlan", "bwd_chain_plan", "k6_plan"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -98,11 +103,19 @@ _UNI_SIGNATURES = {"lstm_fwd_f32": _UNI_ARGS, "lstm_fwd_bf16": _UNI_ARGS,
                    "lstm_fwd_chain_f32": _UNI_CHAIN_ARGS,
                    "lstm_fwd_chain_bf16": _UNI_CHAIN_ARGS}
 _UNI_BWD_ARGS = [_P] * 8 + [_I] * 4 + [_P]
+# the backward chains' phase 1 (K6, K9b) and K6's phase 2
+_REC_GATES_ARGS = [_P] * 3 + [_I] * 7 + [_P]
+_UNI_BWD_CHAIN_ARGS = [_P] * 8 + [_I] * 8 + [_P]
 _UNI_BWD_SIGNATURES = {"lstm_bwd_f32": _UNI_BWD_ARGS,
                        "lstm_bwd_bf16": _UNI_BWD_ARGS,
                        "lstm_bwd_exchange_floats": [_I, _I],
                        "lstm_bwd_max_rows_f32": [_I],
-                       "lstm_bwd_max_rows_bf16": [_I]}
+                       "lstm_bwd_max_rows_bf16": [_I],
+                       "lstm_bwd_smem_optin": [],
+                       "lstm_bwd_gates_f32": _REC_GATES_ARGS,
+                       "lstm_bwd_gates_bf16": _REC_GATES_ARGS,
+                       "lstm_bwd_chain_f32": _UNI_BWD_CHAIN_ARGS,
+                       "lstm_bwd_chain_bf16": _UNI_BWD_CHAIN_ARGS}
 _STACK_ARGS = [_P] * 11 + [_I] * 4 + [_P]
 _STACK_SIGNATURES = {"lstm_stack_f32": _STACK_ARGS,
                      "lstm_stack_bf16": _STACK_ARGS,
@@ -551,7 +564,7 @@ def bilstm_seq_fwd_proj(x: torch.Tensor, w_x: torch.Tensor,
     stream = _kernels.stream_ptr(dev)
     # phase 1's scratch holds one chunk of frames a direction; phase 2
     # carries h and c between chunks in `state`
-    steps = max(1, min(t_max, _K10_SCRATCH_BYTES // (b * 8 * h * 4)))
+    steps = _scratch_steps(t_max, b, 8 * h)
     pre = torch.empty((steps, b, 8 * h), dtype=torch.float32, device=dev)
     state = torch.zeros((2, 2, b, h), dtype=torch.float32, device=dev)
     lens32 = lens.to(torch.int32).contiguous()
@@ -592,18 +605,60 @@ class K10bPlan(NamedTuple):
 
 
 _CLUSTERS = (1, 2, 4, 8, 16)        # powers of two up to 16 CTAs
-_K10_SCRATCH_BYTES = 256 << 20      # K10a's and K10b's phase-1 scratch,
-                                    # per chunk of steps
+_K10_SCRATCH_BYTES = 256 << 20      # the phase-1 scratch of K10a, K10b,
+                                    # K6 and K9b, per chunk of steps
 
 
-def _k10b_chain_bytes(c: int, r: int, h: int) -> int:
-    """Shared memory of a phase-2 CTA at cluster size ``c``, ``r`` rows
-    per cluster, ``h`` units: ``chain_floats`` of csrc/bilstm_bwd.cu."""
+def _scratch_steps(t_max: int, b: int, g: int) -> int:
+    """Steps (or frames) a chunk of a phase-1 scratch [steps, B, g] f32
+    holds within ``_K10_SCRATCH_BYTES``, at least one."""
+    return max(1, min(t_max, _K10_SCRATCH_BYTES // (b * g * 4)))
+
+
+def _bwd_chain_words(gates: int, pre: bool) -> int:
+    """Words a backward-chain CTA prefetches per (row, unit) and step:
+    ``bwd_chain_words`` of csrc/bwd_chain.cuh with the cell's residual
+    words (the LSTM's c[t] and c[prev], the GRU's y[prev]); ``pre``: the
+    scratch holds the pre-activation (K10b), else x_proj's words too."""
+    res = 2 if gates == 4 else 1
+    return -(-(gates * (1 if pre else 2) + res + 1) // 4) * 4
+
+
+def _bwd_chain_bytes(c: int, r: int, h: int, gates: int, words: int) -> int:
+    """Shared memory of a backward-chain CTA at cluster size ``c``, ``r``
+    rows per cluster, ``h`` units of ``gates`` gate columns, ``words``
+    prefetched words per (row, unit): ``bwd_chain_floats`` of
+    csrc/bwd_chain.cuh (W_h's share as f32, the received partials, the
+    rounded dgates, dh and the cell's second value, two prefetch buffers,
+    the lengths)."""
     hsz = -(-h // c)
     rp = -(-r // 4) * 4
-    recv = -(-(2 * c * r * hsz) // 4) * 4
-    return 4 * (4 * hsz * h + recv + 4 * hsz * rp + 2 * r * hsz
-                + 2 * 8 * r * hsz + r)
+
+    def r4(n):
+        return -(-n // 4) * 4
+    return 4 * (r4(gates * hsz * h) + r4(2 * c * r * hsz) + gates * hsz * rp
+                + 2 * r * hsz + 2 * words * r * hsz + r)
+
+
+def _bwd_chain_shape(b: int, h: int, gates: int, words: int, dirs: int,
+                     sms: int, smem_optin: int) -> Optional[Tuple[int, int]]:
+    """A backward chain's cluster size C and rows per cluster R, or None
+    where not one row fits beside W_h's share of a cluster of 16.  C is
+    the smallest power of two whose CTA at one row takes at most half of
+    its shared memory; R the fewest rows per cluster that keep the dirs
+    ceil(B/R) clusters in one wave on three quarters of the SMs (whole
+    clusters of C CTAs do not pack every SM), as far as shared memory
+    allows (a larger batch runs in more waves)."""
+    c = next((c for c in _CLUSTERS
+              if _bwd_chain_bytes(c, 1, h, gates, words) <= smem_optin // 2),
+             _CLUSTERS[-1])
+    if _bwd_chain_bytes(c, 1, h, gates, words) > smem_optin:
+        return None
+    clusters = max(1, sms * 3 // 4 // (dirs * c))
+    r = max(1, min(b, -(-b // clusters)))
+    while r > 1 and _bwd_chain_bytes(c, r, h, gates, words) > smem_optin:
+        r -= 1
+    return c, r
 
 
 def k10b_plan(b: int, d: int, h: int, sms: int, smem_optin: int
@@ -614,30 +669,71 @@ def k10b_plan(b: int, d: int, h: int, sms: int, smem_optin: int
 
     Phase 1 is tiled where 64 staged rows and 64 columns of D + H f32
     fit a block (D + H <= 426), else it takes 32 gate columns a block, fewer where
-    W_x's columns are too long (D = 8064 at H = 32 takes 7).  C is the
-    smallest power of two whose share of W_h (4 ceil(H/C) H f32)
-    leaves half of a CTA's shared memory to the rows: 4 at H = 128, 16 at
-    H = 256 and 320.  R is the fewest rows per cluster that keep the
-    2 ceil(B/R) clusters in one wave on three quarters of the SMs (whole
-    clusters of C CTAs do not pack every SM), as far as shared memory
-    allows; a batch above that runs in more waves.  Raises when no plan
-    fits."""
+    W_x's columns are too long (D = 8064 at H = 32 takes 7).  Phase 2 is
+    the backward chain with both directions on the pre-activations
+    (:func:`_bwd_chain_shape`): C is 4 at H = 128, 16 at H = 256 and 320.
+    Raises when no plan fits."""
     tiled = 4 * (2 * 68 * (d + h) + 64)      # gates_tiled_smem of the .cu
     cols = 64 if tiled <= smem_optin else min(
         32, smem_optin // (4 * (d + h + 1)))
-    c = next((c for c in _CLUSTERS
-              if _k10b_chain_bytes(c, 1, h) <= smem_optin // 2),
-             _CLUSTERS[-1])
-    if cols < 1 or _k10b_chain_bytes(c, 1, h) > smem_optin:
+    words = _bwd_chain_words(4, pre=True)
+    shape = _bwd_chain_shape(b, h, 4, words, 2, sms, smem_optin)
+    if cols < 1 or shape is None:
         raise ValueError(f"K10b: no cluster plan fits D={d}, H={h} in "
                          f"{smem_optin} bytes of shared memory")
-    clusters = max(1, sms * 3 // 4 // (2 * c))
-    r = max(1, min(b, -(-b // clusters)))
-    while r > 1 and _k10b_chain_bytes(c, r, h) > smem_optin:
-        r -= 1
+    c, r = shape
     return K10bPlan(tiled <= smem_optin, cols,
                     tiled if tiled <= smem_optin else 4 * cols * (d + h + 1),
-                    c, r, _k10b_chain_bytes(c, r, h))
+                    c, r, _bwd_chain_bytes(c, r, h, 4, words))
+
+
+class BwdChainPlan(NamedTuple):
+    """The launch shape of a backward recurrence on the hoisted projection
+    (K6, K9b).  ``route`` "cluster": phase 1, the recurrent sums of every
+    step, on the tiled kernel (64 rows and 64 gate columns a block,
+    ``gate_cols`` 0) or one warp per row over ``gate_cols`` columns a
+    block, ``gates_smem`` bytes a block; phase 2, the backward chain, one
+    cluster of ``cluster`` CTAs per (direction, ``rows`` batch rows), each
+    CTA holding ceil(H / cluster) units' gate columns of W_h as f32
+    (``chain_smem`` bytes in all).  "cooperative": the kernel's
+    cooperative route (in row slices), the other fields 0."""
+    route: str
+    gate_cols: int
+    gates_smem: int
+    cluster: int
+    rows: int
+    chain_smem: int
+
+
+def bwd_chain_plan(b: int, h: int, dtype: torch.dtype, dirs: int, sms: int,
+                   smem_optin: int, gates: int = 4) -> BwdChainPlan:
+    """The route and launch shape of a backward recurrence on the hoisted
+    projection for a batch of ``b`` rows, ``h`` units of ``gates`` gate
+    columns (4: an LSTM, K6; 3: a GRU, K9b) and ``dirs`` directions in
+    ``dtype`` on a card of ``sms`` SMs with ``smem_optin`` bytes of
+    shared memory per block.
+
+    The chain holds W_h as f32 in either dtype (its dh product reads each
+    weight once a step per row, so a bf16 copy would cost a conversion in
+    the serial loop), so ``dtype`` does not move the fit: the cluster
+    route holds where one row fits beside W_h's share of a cluster of 16
+    (the LSTM to H ~465, the GRU to ~545), with C and R from
+    :func:`_bwd_chain_shape` (16 and 8 at B = 48, H = 320); above that
+    the kernel's cooperative route.  Phase 1 is tiled where 64 staged rows
+    and 64 columns of H f32 fit a block (H <= 426), else it takes 32 gate
+    columns a block."""
+    if dtype not in _SUFFIX:
+        raise ValueError(f"bwd_chain_plan: no kernel for {dtype}")
+    words = _bwd_chain_words(gates, pre=False)
+    shape = _bwd_chain_shape(b, h, gates, words, dirs, sms, smem_optin)
+    if shape is None:
+        return BwdChainPlan("cooperative", 0, 0, 0, 0, 0)
+    c, r = shape
+    tiled = 4 * (2 * 68 * h + 64)            # gates_tiled_smem(0, H)
+    cols = 0 if tiled <= smem_optin else 32
+    return BwdChainPlan("cluster", cols,
+                        tiled if cols == 0 else 4 * cols * (h + 1), c, r,
+                        _bwd_chain_bytes(c, r, h, gates, words))
 
 
 class FwdChainPlan(NamedTuple):
@@ -828,7 +924,7 @@ def bilstm_seq_bwd_dgates_proj(dy_f: torch.Tensor, dy_b: torch.Tensor,
                      _smem_optin(lib, "bilstm_proj_bwd_smem_optin", dev))
     # phase 1's scratch holds the steps of one chunk; phase 2 carries dh
     # and dc between chunks in `state`
-    steps = max(1, min(t_max, _K10_SCRATCH_BYTES // (b * 8 * h * 4)))
+    steps = _scratch_steps(t_max, b, 8 * h)
     pre = torch.empty((steps, b, 8 * h), dtype=f32, device=dev)
     state = torch.zeros((2, 2, b, h), dtype=f32, device=dev)
     lens32 = lens.to(torch.int32).contiguous()
@@ -1089,7 +1185,11 @@ def lstm_seq_bwd_dgates(dy: torch.Tensor, x_proj: torch.Tensor,
     [T, B, 4H], y [T, B, H] in the compute dtype, c_seq [T, B, H] f32,
     w_h [H, 4H] in the compute dtype, lens [B], the forward's direction)
     → dgates [T, B, 4H] in x_proj's dtype.  The contract of
-    ``rnn_pallas._lstm_seq_bwd_dgates``."""
+    ``rnn_pallas._lstm_seq_bwd_dgates``.  On the card the route is
+    :func:`k6_plan`'s, from the shapes: phase 1 (every step's recurrent
+    sums at once) and the backward chain in thread-block clusters (any B,
+    chunks of steps above a 256 MiB scratch) where W_h fits a cluster,
+    else the cooperative kernel in row slices."""
     if x_proj.device.type == "cpu":
         return lstm_seq_bwd_dgates_reference(dy, x_proj, y, c_seq, w_h, lens,
                                              reverse)
@@ -1110,10 +1210,71 @@ def lstm_seq_bwd_dgates(dy: torch.Tensor, x_proj: torch.Tensor,
     if t_max == 0 or b == 0:
         return torch.empty((t_max, b, g4), dtype=cdt, device=dev)
     lib = _kernels.load("lstm_bwd", _UNI_BWD_SIGNATURES)
+    plan = k6_plan(lib, b, h, cdt, dev)
+    lens32 = lens.to(torch.int32).contiguous()
+    if plan.route == "cluster":
+        dg = _lstm_bwd_chain(lib, dy, x_proj, y, c_seq, w_h, lens32, reverse,
+                             plan)
+    else:
+        dg = _lstm_bwd_cooperative(lib, dy, x_proj, y, c_seq, w_h, lens32,
+                                   reverse)
+    lstm_seq_bwd_dgates.launches += 1
+    return dg
 
-    def launch(dy, x_proj, y, c_seq, lens):
+
+def k6_plan(lib: ctypes.CDLL, b: int, h: int, dtype: torch.dtype,
+            device) -> BwdChainPlan:
+    """K6's route and launch shape on ``device``: :func:`bwd_chain_plan`
+    with four gates and one direction."""
+    return bwd_chain_plan(b, h, dtype, 1, _sm_count(device),
+                          _smem_optin(lib, "lstm_bwd_smem_optin", device))
+
+
+def _lstm_bwd_chain(lib: ctypes.CDLL, dy, x_proj, y, c_seq, w_h,
+                    lens32: torch.Tensor, reverse: bool,
+                    plan: BwdChainPlan) -> torch.Tensor:
+    """K6's cluster route (``lstm_bwd_gates_*``, then
+    ``lstm_bwd_chain_*``, per chunk of steps) on checked operands."""
+    t_max, b, g4 = x_proj.shape
+    h = g4 // 4
+    dev = x_proj.device
+    sfx = _SUFFIX[x_proj.dtype]
+    stream = _kernels.stream_ptr(dev)
+    dg = torch.empty((t_max, b, g4), dtype=x_proj.dtype, device=dev)
+    # phase 1's scratch holds the steps of one chunk; phase 2 carries dh
+    # and dc between chunks in `state`
+    steps = _scratch_steps(t_max, b, g4)
+    pre = torch.empty((steps, b, g4), dtype=torch.float32, device=dev)
+    state = torch.zeros((2, 1, b, h), dtype=torch.float32, device=dev)
+    what = f"lstm_seq_bwd_dgates at T={t_max}, B={b}, {plan}"
+    for s0 in range(0, t_max, steps):
+        n = min(steps, t_max - s0)
+        err = getattr(lib, "lstm_bwd_gates_" + sfx)(
+            y.data_ptr(), w_h.data_ptr(), pre.data_ptr(), s0, n, t_max, b, h,
+            plan.gate_cols, int(reverse), stream)
+        _kernels.check(lib, err, what + " phase 1")
+        err = getattr(lib, "lstm_bwd_chain_" + sfx)(
+            dy.data_ptr(), x_proj.data_ptr(), c_seq.data_ptr(),
+            w_h.data_ptr(), lens32.data_ptr(), pre.data_ptr(), dg.data_ptr(),
+            state.data_ptr(), s0, n, t_max, b, h, plan.cluster, plan.rows,
+            int(reverse), stream)
+        _kernels.check(lib, err, what + " phase 2")
+    return dg
+
+
+def _lstm_bwd_cooperative(lib: ctypes.CDLL, dy, x_proj, y, c_seq, w_h,
+                          lens32: torch.Tensor, reverse: bool
+                          ) -> torch.Tensor:
+    """K6's cooperative route (``lstm_bwd_*``) on checked operands, in
+    row slices under its ceiling."""
+    t_max, _, g4 = x_proj.shape
+    h = g4 // 4
+    dev = x_proj.device
+    sfx = _SUFFIX[x_proj.dtype]
+
+    def launch(dy, x_proj, y, c_seq, lens32):
         n = x_proj.shape[1]
-        dg = torch.empty((t_max, n, g4), dtype=cdt, device=dev)
+        dg = torch.empty((t_max, n, g4), dtype=x_proj.dtype, device=dev)
         floats = lib.lstm_bwd_exchange_floats(n, h)
         if floats < 0:
             raise RuntimeError(f"lstm_seq_bwd_dgates: no exchange size for "
@@ -1121,8 +1282,7 @@ def lstm_seq_bwd_dgates(dy: torch.Tensor, x_proj: torch.Tensor,
         # partial-dh exchange between blocks; every entry read is written
         # in the step before
         part = torch.empty((floats,), dtype=torch.float32, device=dev)
-        lens32 = lens.to(torch.int32).contiguous()
-        err = getattr(lib, "lstm_bwd_" + _SUFFIX[cdt])(
+        err = getattr(lib, "lstm_bwd_" + sfx)(
             dy.data_ptr(), x_proj.data_ptr(), y.data_ptr(), c_seq.data_ptr(),
             w_h.data_ptr(), lens32.data_ptr(), dg.data_ptr(), part.data_ptr(),
             t_max, n, h, int(reverse), _kernels.stream_ptr(dev))
@@ -1130,9 +1290,8 @@ def lstm_seq_bwd_dgates(dy: torch.Tensor, x_proj: torch.Tensor,
         return (dg,)
 
     dg, = run_in_row_slices(
-        launch, max_rows(lib, "lstm_bwd_max_rows_" + _SUFFIX[cdt], dev, h),
-        dy, x_proj, y, c_seq, lens)
-    lstm_seq_bwd_dgates.launches += 1
+        launch, max_rows(lib, "lstm_bwd_max_rows_" + sfx, dev, h), dy, x_proj,
+        y, c_seq, lens32)
     return dg
 
 

@@ -873,6 +873,14 @@ def _uni_inputs(t, b, h, dtype, device, seed):
     return xp, w, torch.as_tensor(lens, device=device)
 
 
+def _k6_lib():
+    return _kernels.load("lstm_bwd", rnn_cuda._UNI_BWD_SIGNATURES)
+
+
+def _k9b_lib():
+    return _kernels.load("gru_bwd", gru_cuda._BWD_SIGNATURES)
+
+
 def _close(got, ref, tol, name):
     assert got.dtype == ref.dtype and got.shape == ref.shape, name
     np.testing.assert_allclose(got.float().cpu().numpy(),
@@ -903,8 +911,11 @@ def test_lstm_kernel_matches_plain(cuda, dtype, t, b, h, reverse):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("t,b,h", [(16, 3, 16), (40, 2, 320), (240, 48, 320)])
 def test_lstm_bwd_kernel_matches_plain(cuda, dtype, t, b, h, reverse):
-    """K6 against its plain version on a forward of K5's plain version."""
+    """K6 against its plain version on a forward of K5's plain version:
+    its cluster route (phase 1, then the backward chain), as every H <=
+    464 takes."""
     xp, w, lens = _uni_inputs(t, b, h, dtype, cuda, seed=h + t + 1)
+    assert rnn_cuda.k6_plan(_k6_lib(), b, h, dtype, cuda).route == "cluster"
     y, c_seq = rnn_cuda.lstm_seq_fwd_reference(xp, w, lens, reverse)
     dy = torch.as_tensor(np.random.default_rng(t).standard_normal(
         (t, b, h)).astype(np.float32), device=cuda).to(dtype)
@@ -1208,8 +1219,11 @@ def test_gru_kernel_matches_plain(cuda, dtype, t, b, h, reverse):
 @pytest.mark.parametrize("t,b,h", [(16, 3, 16), (40, 2, 320), (240, 48, 320)])
 def test_gru_bwd_kernel_matches_plain(cuda, dtype, t, b, h, reverse):
     """K9b's dgx and dgh against its plain version on a forward of K9a's
-    plain version."""
+    plain version: its cluster route (phase 1, then the backward chain),
+    as every H <= 544 takes."""
     xp, (w,), (dy,), lens = _gru_inputs(t, b, h, dtype, cuda, seed=h + t + 1)
+    assert gru_cuda.k9b_plan(_k9b_lib(), b, h, dtype, cuda).route \
+        == "cluster"
     y = gru_cuda.gru_seq_fwd_reference(xp, w, lens, reverse)
     args = (dy, xp, y, w, lens, reverse)
     before = gru_cuda.gru_seq_bwd_dgates.launches
@@ -1455,6 +1469,214 @@ def test_gru_stream_engine_on_cuda_matches_plain(cuda, dtype, tmp_path):
                                    atol=tol)
 
 
+# ---------------------------------------------------------------------------
+# K6 and K9b on the backward chain (csrc/bwd_chain.cuh)
+# ---------------------------------------------------------------------------
+
+# the f32 H from which K6 and K9b take their cooperative routes: W_h's
+# four or three gate columns as f32 fit no cluster of 16 (bwd_chain_plan)
+BWD_COOPERATIVE_H = {"K6": 512, "K9b": 576}
+
+
+def _bwd_case(name, t, b, h, dtype, device, seed, reverse=False):
+    """(wrapper, plain version, operands, tolerance, names of the
+    outputs, lib, plan) of K6 or K9b on a forward of the plain version,
+    ragged rows."""
+    if name == "K6":
+        xp, w, lens = _uni_inputs(t, b, h, dtype, device, seed)
+        y, c = rnn_cuda.lstm_seq_fwd_reference(xp, w, lens, reverse)
+        dy = torch.as_tensor(np.random.default_rng(seed + 1).standard_normal(
+            (t, b, h)).astype(np.float32), device=device).to(dtype)
+        lib = _k6_lib()
+        return (rnn_cuda.lstm_seq_bwd_dgates,
+                rnn_cuda.lstm_seq_bwd_dgates_reference,
+                (dy, xp, y, c, w, lens, reverse), LSTM_BWD_TOL[dtype],
+                ("dgates",), lib, rnn_cuda.k6_plan(lib, b, h, dtype, device))
+    xp, (w,), (dy,), lens = _gru_inputs(t, b, h, dtype, device, seed)
+    y = gru_cuda.gru_seq_fwd_reference(xp, w, lens, reverse)
+    lib = _k9b_lib()
+    return (gru_cuda.gru_seq_bwd_dgates, gru_cuda.gru_seq_bwd_dgates_reference,
+            (dy, xp, y, w, lens, reverse), GRU_BWD_TOL[dtype], ("dgx", "dgh"),
+            lib, gru_cuda.k9b_plan(lib, b, h, dtype, device))
+
+
+def _routes(name, lib, args, plan):
+    """(cluster route, cooperative route) of K6 or K9b on the same checked
+    operands, each a tuple of outputs."""
+    *ops, lens, reverse = args
+    lens32 = lens.to(torch.int32)
+    if name == "K6":
+        return ((rnn_cuda._lstm_bwd_chain(lib, *ops, lens32, reverse, plan),),
+                (rnn_cuda._lstm_bwd_cooperative(lib, *ops, lens32, reverse),))
+    return (gru_cuda._gru_bwd_chain(lib, *ops, lens32, reverse, plan),
+            gru_cuda._gru_bwd_cooperative(lib, *ops, lens32, reverse))
+
+
+def _outputs(got):
+    return got if isinstance(got, tuple) else (got,)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b", [1, 600])
+@pytest.mark.parametrize("name", ["K6", "K9b"])
+def test_k6_k9b_chain_matches_plain_at_any_batch(cuda, name, b, dtype,
+                                                 reverse):
+    """K6 and K9b on their cluster route at H=320 at the serving batch B=1
+    and at B=600 (several waves of clusters, no row slices; T=120 puts
+    the phase-1 scratch above 256 MiB, so the walk runs in two chunks of
+    steps) against their plain versions, ragged rows, zero at pad frames,
+    one launch a call."""
+    t = 120 if b == 600 else 30
+    fn, ref, args, tol, names, _, plan = _bwd_case(
+        name, t, b, 320, dtype, cuda, seed=b + reverse, reverse=reverse)
+    assert plan.route == "cluster" and plan.cluster == 16, plan
+    g = (4 if name == "K6" else 3) * 320
+    chunks = -(-t // rnn_cuda._scratch_steps(t, b, g))
+    assert chunks == (2 if b == 600 else 1)
+    before = fn.launches
+    got = _outputs(fn(*args))
+    torch.cuda.synchronize()
+    assert fn.launches == before + 1
+    for n, gv, rv in zip(names, got, _outputs(ref(*args))):
+        _close(gv, rv, tol, n)
+    _zero_past_lens(got, args[-2], name)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("h", [32, 320])
+@pytest.mark.parametrize("name", ["K6", "K9b"])
+def test_k6_k9b_in_chunks_of_steps_equal_one_chunk(cuda, name, h, dtype,
+                                                   monkeypatch):
+    """K6 and K9b with their scratch cut to 3 steps: the chain carries dh
+    (and K6's dc) between the chunks, and the outputs equal one chunk's
+    bit for bit (both directions)."""
+    t, b = 10, 5
+    for reverse in (False, True):
+        fn, _, args, _, names, _, _ = _bwd_case(name, t, b, h, dtype, cuda,
+                                                seed=h, reverse=reverse)
+        whole = _outputs(fn(*args))
+        g = (4 if name == "K6" else 3) * h
+        with monkeypatch.context() as m:
+            m.setattr(rnn_cuda, "_K10_SCRATCH_BYTES", 3 * b * g * 4)
+            assert rnn_cuda._scratch_steps(t, b, g) == 3
+            chunked = _outputs(fn(*args))
+        torch.cuda.synchronize()
+        for n, c, w in zip(names, chunked, whole):
+            assert torch.equal(c, w), (n, reverse)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("name", ["K6", "K9b"])
+def test_k6_k9b_cluster_route_agrees_with_cooperative(cuda, name, dtype,
+                                                      reverse):
+    """K6's and K9b's two routes on the same operands (H=320, ragged
+    rows): the same gates (warp_dot's sums in both), the dh sums in
+    another order (partials per CTA of a cluster, then over the ranks),
+    so within the backward tolerance rather than bit for bit."""
+    fn, _, args, tol, names, lib, plan = _bwd_case(
+        name, 40, 5, 320, dtype, cuda, seed=11, reverse=reverse)
+    chain, coop = _routes(name, lib, args, plan)
+    torch.cuda.synchronize()
+    for n, c, k in zip(names, chain, coop):
+        _close(c, k, tol, n)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("name", ["K6", "K9b"])
+def test_k6_k9b_routes_equal_where_dh_is_zero(cuda, name, dtype, reverse):
+    """The recompute invariant, witnessed by K6's and K9b's cooperative
+    kernels, which recompute the gates with warp_dot in its order: at
+    each row's first valid frame of the walk (t = len - 1, or t = 0 for a
+    reverse direction) dh (and dc) are still zero, so the two routes'
+    outputs there depend on the gates alone and are equal bit for bit."""
+    t, b, h = 24, 6, 320
+    fn, _, args, _, names, lib, plan = _bwd_case(
+        name, t, b, h, dtype, cuda, seed=29, reverse=reverse)
+    chain, coop = _routes(name, lib, args, plan)
+    torch.cuda.synchronize()
+    lens = args[-2].cpu().numpy()
+    assert lens.min() >= 0 and (lens > 0).sum() >= 3
+    for n, c, k in zip(names, chain, coop):
+        for row, length in enumerate(lens):
+            if length:
+                first = 0 if reverse else length - 1
+                assert torch.equal(c[first, row], k[first, row]), (n, row)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("h", [128, 320])
+@pytest.mark.parametrize("name", ["K6", "K9b"])
+def test_k6_k9b_phase1_kernels_agree_bit_for_bit(cuda, name, h, dtype):
+    """K6's and K9b's tiled phase 1 (tile_dot4x4, warp_dot's order walked
+    by one thread) and their warp kernel (warp_dot itself) give the same
+    recurrent sums bit for bit, for four and three gate columns, on a
+    chunk of steps that starts mid-walk and one that ends it (its last
+    step, the forward's first, sums over zeros), both directions."""
+    t, b = 7, 5
+    _, _, args, _, _, lib, plan = _bwd_case(name, t, b, h, dtype, cuda,
+                                            seed=h + 3)
+    assert plan.gate_cols == 0                # tiled at these H
+    gates = 4 if name == "K6" else 3
+    y, w = args[2], args[-3]
+    prefix = "lstm_bwd_gates_" if name == "K6" else "gru_bwd_gates_"
+    fn = getattr(lib, prefix + rnn_cuda._SUFFIX[dtype])
+    for reverse in (0, 1):
+        for s0, n in ((2, 3), (4, 3)):
+            got = []
+            for cols in (0, 32):
+                pre = torch.full((n, b, gates * h), float("nan"), device=cuda)
+                _kernels.check(lib, fn(y.data_ptr(), w.data_ptr(),
+                                       pre.data_ptr(), s0, n, t, b, h, cols,
+                                       reverse,
+                                       _kernels.stream_ptr(cuda)), prefix)
+                got.append(pre)
+            torch.cuda.synchronize()
+            assert not got[0].isnan().any()
+            assert torch.equal(got[0], got[1]), (reverse, s0, n)
+            if s0 + n == t:                   # the forward's first step
+                assert not got[0][-1].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("name", ["K6", "K9b"])
+def test_k6_k9b_cooperative_route_at_a_large_h(cuda, name, dtype):
+    """Where W_h's gate columns as f32 fit no cluster of 16 (K6 from H ~
+    470, K9b from ~550, in either dtype) the plan sends K6 and K9b to
+    their cooperative kernels, which still match their plain versions."""
+    h = BWD_COOPERATIVE_H[name]
+    for reverse in (False, True):
+        fn, ref, args, tol, names, _, plan = _bwd_case(
+            name, 10, 3, h, dtype, cuda, seed=h, reverse=reverse)
+        assert plan.route == "cooperative", plan
+        before = fn.launches
+        got = _outputs(fn(*args))
+        torch.cuda.synchronize()
+        assert fn.launches == before + 1
+        for n, gv, rv in zip(names, got, _outputs(ref(*args))):
+            _close(gv, rv, tol, n)
+
+
+@pytest.mark.cuda
+def test_k6_k9b_chain_launch_errors_raise(cuda):
+    """A cluster launch the card refuses (here a cluster of 32 CTAs, past
+    the 16 the chain takes) raises through _kernels.check: no silent
+    switch to the other route or to the plain version."""
+    for name in ("K6", "K9b"):
+        _, _, args, _, _, lib, plan = _bwd_case(name, 6, 3, 32,
+                                                torch.float32, cuda, seed=1)
+        with pytest.raises(RuntimeError, match="phase 2"):
+            _routes(name, lib, args, plan._replace(cluster=32))
+
+
 def _above_ceiling(source, signatures, query, *dims):
     """One row more than a kernel takes in one launch on the card: its
     source's own ceiling query (``*_max_rows``) plus one."""
@@ -1470,9 +1692,9 @@ K5_COOPERATIVE_H = 512
 
 def _sliced_case(name, t, h, device):
     """(wrapper, plain version, operands, tolerance) of one kernel that
-    keeps every row in a block, at one row above its ceiling, f32 (K5 and
-    K9a on their cooperative routes, at K5_COOPERATIVE_H and
-    K9A_COOPERATIVE_H)."""
+    keeps every row in a block, at one row above its ceiling, f32 (K5, K6,
+    K9a and K9b on their cooperative routes, at K5_COOPERATIVE_H,
+    BWD_COOPERATIVE_H and K9A_COOPERATIVE_H)."""
     f32 = torch.float32
     if name == "K3":
         b = _above_ceiling("bilstm_bwd", rnn_cuda._BWD_SIGNATURES,
@@ -1490,6 +1712,10 @@ def _sliced_case(name, t, h, device):
         return (rnn_cuda.lstm_seq_fwd, rnn_cuda.lstm_seq_fwd_reference,
                 (xp, w, lens, True), LSTM_TOL[f32])
     if name == "K6":
+        # only K6's cooperative route keeps its rows in one block: H=512
+        h = BWD_COOPERATIVE_H["K6"]
+        assert rnn_cuda.bwd_chain_plan(1, h, f32, 1, 132,
+                                       232448).route == "cooperative"
         b = _above_ceiling("lstm_bwd", rnn_cuda._UNI_BWD_SIGNATURES,
                            "lstm_bwd_max_rows_f32", h)
         xp, w, lens = _uni_inputs(t, b, h, f32, device, b)
@@ -1522,6 +1748,11 @@ def _sliced_case(name, t, h, device):
                     (xp, *ws, lens), GRU_TOL[f32])
         return (gru_cuda.gru_seq_fwd, gru_cuda.gru_seq_fwd_reference,
                 (xp, ws[0], lens, True), GRU_TOL[f32])
+    if not bi:
+        # only K9b's cooperative route keeps its rows in one block
+        h = BWD_COOPERATIVE_H["K9b"]
+        assert rnn_cuda.bwd_chain_plan(1, h, f32, 1, 132, 232448,
+                                       gates=3).route == "cooperative"
     b = _above_ceiling("gru_bwd", gru_cuda._BWD_SIGNATURES,
                        f"{kernel}_bwd_max_rows_f32", h)
     xp, ws, dys, lens = _gru_inputs(t, b, h, f32, device, b, 2 if bi else 1)
@@ -1540,8 +1771,9 @@ def _sliced_case(name, t, h, device):
                                   "K9a", "K9b"])
 def test_sliced_kernel_above_its_ceiling_matches_plain(cuda, name):
     """Each kernel that keeps every row in one block's shared memory, at
-    one row above the most its launch takes (H=320; K5's cooperative
-    route at H=512, K9a's at H=576), runs as row slices
+    one row above the most its launch takes (H=320; the cooperative
+    routes of K5 and K6 at H=512, of K9a and K9b at H=576), runs as row
+    slices
     and returns its plain version's result, as the reference does at any
     batch; the launch counter rises by one (it counts wrapper calls)."""
     fn, ref, args, tol = _sliced_case(name, 4, 320, cuda)

@@ -1,6 +1,7 @@
 """The port's batch ceilings (the kernels that keep every row in one
-block's shared memory) and the launch plans of K10b and of the forward
-chain (K2, K5, K9a, K10a), on the CPU.
+block's shared memory) and the launch plans of K10b, of the forward
+chain (K2, K5, K9a, K10a) and of the backward chain (K6, K9b), on the
+CPU.
 
 ``rnn_cuda.run_in_row_slices`` runs a kernel over row slices under its
 ceiling; here it is driven with each sliced kernel's plain version and a
@@ -10,8 +11,10 @@ every shape the BLSTM layer sends to K10b and K10a
 (``use_in_kernel_proj``) into one H100 block's shared memory, and
 ``fwd_chain_plan`` must send K2, K5 and K9a to their cluster routes
 wherever W_h fits a cluster (and the batch reaches the serving
-threshold) and to their cooperative routes elsewhere.  No JAX here: the
-plain versions are the port's own.
+threshold) and to their cooperative routes elsewhere; ``bwd_chain_plan``
+does the same for K6 and K9b, its byte formula the twin of
+``csrc/bwd_chain.cuh``'s.  No JAX here: the plain versions are the
+port's own.
 """
 
 import numpy as np
@@ -420,3 +423,193 @@ def test_fwd_chain_plan_k10a_still_refuses_with_either_gate_count():
             with pytest.raises(ValueError, match="no cluster plan"):
                 rnn_cuda.fwd_chain_plan(b, 256, 1024, torch.float32, 2,
                                         H100_SMS, H100_SMEM, gates=gates)
+
+
+# ---------------------------------------------------------------------------
+# The backward chain's plan (K6, K9b; K10b's phase 2 shares its shape)
+# ---------------------------------------------------------------------------
+
+
+def _bwd_words(gates, pre):
+    """bwd_chain_words of csrc/bwd_chain.cuh: the gates' scratch words,
+    without the pre-activation in the scratch the gates' x_proj words too,
+    the cell's residual words (the LSTM's c[t] and c[prev], the GRU's
+    y[prev]) and dy's word, rounded up to 4."""
+    n = gates * (1 if pre else 2) + (2 if gates == 4 else 1) + 1
+    return (n + 3) // 4 * 4
+
+
+def _bwd_bytes(c, r, h, gates, words):
+    """bwd_chain_floats of csrc/bwd_chain.cuh, in bytes: W_h's share and
+    the received partials (each rounded to 4 floats), the rounded dgates
+    [gates ceil(H/C)][R to 4], dh and c2, two prefetch buffers, the
+    lengths."""
+    hsz = -(-h // c)
+    rp = -(-r // 4) * 4
+    floats = (-(-gates * hsz * h // 4) * 4 + -(-2 * c * r * hsz // 4) * 4
+              + gates * hsz * rp + 2 * r * hsz + 2 * words * r * hsz + r)
+    return 4 * floats
+
+
+def _check_bwd_plan(plan, b, h, dirs, gates):
+    """A cluster plan of the backward chain: its layout within one block,
+    its cluster, its rows and its phase 1."""
+    c, r = plan.cluster, plan.rows
+    words = _bwd_words(gates, pre=False)
+    assert plan.route == "cluster", plan
+    assert c in (1, 2, 4, 8, 16), plan
+    assert 1 <= r <= max(b, 1), plan
+    assert c * -(-h // c) >= h, plan           # the cluster holds every unit
+    assert plan.chain_smem == _bwd_bytes(c, r, h, gates, words) <= H100_SMEM
+    # C: the smallest power of two whose CTA at one row takes at most
+    # half of a block's shared memory, else 16
+    assert c == 16 or _bwd_bytes(c, 1, h, gates, words) <= H100_SMEM // 2
+    assert c == 1 or _bwd_bytes(c // 2, 1, h, gates, words) > H100_SMEM // 2
+    # R: the fewest rows that put the clusters in one wave on 3/4 of the
+    # SMs, unless one more row would not fit shared memory
+    want = min(b, -(-b // max(1, H100_SMS * 3 // 4 // (dirs * c))))
+    assert r == want or (r < want and _bwd_bytes(c, r + 1, h, gates, words)
+                         > H100_SMEM), plan
+    if h <= 426:         # gates_tiled_smem(0, H) of csrc/lstm_gates.cuh
+        assert plan.gate_cols == 0 and plan.gates_smem == 4 * (136 * h + 64)
+    else:                # gates_smem(32, 0, H)
+        assert plan.gate_cols == 32 and plan.gates_smem == 4 * 32 * (h + 1)
+    assert plan.gates_smem <= H100_SMEM
+
+
+@pytest.mark.parametrize("b", [1, 48, 600])
+@pytest.mark.parametrize("gates", [3, 4])
+def test_bwd_chain_plan_fits_every_shape(b, gates):
+    """bwd_chain_plan at every H from 8 to the cluster route's last, in
+    both dtypes: a cluster plan that fits one H100 block's shared memory
+    at B = 1, 48 and 600, its phase 1 tiled to H = 426."""
+    last = 464 if gates == 4 else 544
+    for h in list(range(8, last + 1, 24)) + [320, 426, 427, last]:
+        for dtype in (torch.float32, torch.bfloat16):
+            plan = rnn_cuda.bwd_chain_plan(b, h, dtype, 1, H100_SMS,
+                                           H100_SMEM, gates=gates)
+            _check_bwd_plan(plan, b, h, 1, gates)
+            assert plan == rnn_cuda.bwd_chain_plan(
+                b, h, torch.float32, 1, H100_SMS, H100_SMEM, gates=gates)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("gates", [3, 4])
+def test_bwd_chain_plan_at_the_training_shape(dtype, gates):
+    """K6 and K9b at the 5x320 models' H: clusters of 16 (W_h's share, 4
+    or 3 x 20 x 320 f32, is 102 KB or 77 KB) in both dtypes; at B=48 six
+    clusters of 8 rows, at B=1 one cluster of one row."""
+    for b, rows in ((48, 8), (1, 1)):
+        plan = rnn_cuda.bwd_chain_plan(b, 320, dtype, 1, H100_SMS, H100_SMEM,
+                                       gates=gates)
+        _check_bwd_plan(plan, b, 320, 1, gates)
+        assert (plan.cluster, plan.rows, plan.gate_cols) == (16, rows, 0)
+    big = rnn_cuda.bwd_chain_plan(600, 320, dtype, 1, H100_SMS, H100_SMEM,
+                                  gates=gates)
+    assert big.cluster == 16 and big.rows < 48    # more waves of clusters
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("gates,h,route", [
+    (4, 464, "cluster"),             # K6: 4 x 29 x 464 f32 a CTA
+    (4, 472, "cooperative"),
+    (4, 512, "cooperative"),
+    (3, 544, "cluster"),             # K9b: 3 x 34 x 544 f32
+    (3, 552, "cooperative"),
+    (3, 576, "cooperative")])
+def test_bwd_chain_plan_picks_k6_and_k9b_routes_from_shapes(dtype, gates, h,
+                                                            route):
+    """K6's and K9b's routes are a function of the shapes: the cluster
+    route while one row fits beside W_h's f32 share of a cluster of 16
+    (the same H in either dtype), else the cooperative kernel, which takes
+    any H the reference takes, at any batch."""
+    for b in (1, 48, 600):
+        plan = rnn_cuda.bwd_chain_plan(b, h, dtype, 1, H100_SMS, H100_SMEM,
+                                       gates=gates)
+        assert plan.route == route, (b, plan)
+        if route == "cluster":
+            _check_bwd_plan(plan, b, h, 1, gates)
+        else:
+            assert plan == ("cooperative", 0, 0, 0, 0, 0)
+
+
+def test_bwd_chain_plan_refuses_what_cannot_fit():
+    """No cluster plan past shared memory: where not one row fits beside
+    W_h's share of 16 CTAs the plan is the cooperative route, at any H;
+    a dtype with no kernel raises."""
+    for gates in (3, 4):
+        for h in (1024, 4096):
+            assert rnn_cuda.bwd_chain_plan(
+                48, h, torch.float32, 1, H100_SMS, H100_SMEM,
+                gates=gates).route == "cooperative"
+    with pytest.raises(ValueError, match="no kernel"):
+        rnn_cuda.bwd_chain_plan(48, 320, torch.float16, 1, H100_SMS,
+                                H100_SMEM)
+
+
+@pytest.mark.parametrize("gates,pre", [(4, True), (4, False), (3, False)])
+@pytest.mark.parametrize("c,r,h", [(16, 8, 320), (16, 26, 320), (4, 4, 128),
+                                   (16, 1, 545), (2, 3, 21), (8, 5, 100)])
+def test_bwd_chain_bytes_formula_per_gate_count(gates, pre, c, r, h):
+    """The Python twin of bwd_chain_floats and bwd_chain_words for K10b's
+    four gates on the pre-activation (8 words, the layout K10b had before
+    it moved onto the chain), K6's four gates and K9b's three on the
+    recurrent sums (12 and 8 words)."""
+    words = rnn_cuda._bwd_chain_words(gates, pre)
+    assert words == _bwd_words(gates, pre)
+    assert words == {(4, True): 8, (4, False): 12, (3, False): 8}[gates, pre]
+    assert rnn_cuda._bwd_chain_bytes(c, r, h, gates, words) == _bwd_bytes(
+        c, r, h, gates, words)
+    if gates == 4 and pre:     # K10b's chain_floats before the move
+        hsz, rp = -(-h // c), -(-r // 4) * 4
+        floats = (4 * hsz * h + -(-(2 * c * r * hsz) // 4) * 4
+                  + 4 * hsz * rp + 2 * r * hsz + 16 * r * hsz + r)
+        assert rnn_cuda._bwd_chain_bytes(c, r, h, 4, words) == 4 * floats
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b", [1, 2, 48, 600])
+def test_k6_and_k9b_plans_are_their_cells_chain_plans(h100, dtype, b):
+    """``k6_plan`` and ``k9b_plan`` are bwd_chain_plan with the kernel's
+    gate count and one direction: the cluster route at H=320 at every
+    batch, the cooperative route at an H whose W_h fits no cluster."""
+    k6 = rnn_cuda.k6_plan(None, b, 320, dtype, "cuda")
+    assert k6 == rnn_cuda.bwd_chain_plan(b, 320, dtype, 1, H100_SMS,
+                                         H100_SMEM)
+    _check_bwd_plan(k6, b, 320, 1, 4)
+    k9b = gru_cuda.k9b_plan(None, b, 320, dtype, "cuda")
+    assert k9b == rnn_cuda.bwd_chain_plan(b, 320, dtype, 1, H100_SMS,
+                                          H100_SMEM, gates=3)
+    _check_bwd_plan(k9b, b, 320, 1, 3)
+    assert rnn_cuda.k6_plan(None, b, 512, dtype, "cuda").route \
+        == "cooperative"
+    assert gru_cuda.k9b_plan(None, b, 576, dtype, "cuda").route \
+        == "cooperative"
+
+
+@pytest.mark.parametrize("b", [1, 48, 600])
+def test_k10b_plan_is_the_backward_chain_shape(b):
+    """K10b's phase 2 runs the backward chain with both directions on the
+    pre-activations (8 words): its cluster and rows are the chain's shape
+    for four gates and two directions, the same as before the move (the
+    3x128's layers 2-3: 4 CTAs, 4 rows at B=48; 14 row groups at B=600)."""
+    plan = rnn_cuda.k10b_plan(b, 256, 128, H100_SMS, H100_SMEM)
+    assert (plan.cluster, plan.rows) == rnn_cuda._bwd_chain_shape(
+        b, 128, 4, 8, 2, H100_SMS, H100_SMEM)
+    assert (plan.cluster, plan.rows) == {1: (4, 1), 48: (4, 4),
+                                         600: (4, 43)}[b]
+    assert plan.chain_smem == _bwd_bytes(4, plan.rows, 128, 4, 8)
+
+
+def test_scratch_chunks_of_the_backward_chains():
+    """The phase-1 scratch of K6 and K9b holds at most 256 MiB a chunk:
+    at B=600, H=320 the 240 steps run in three chunks (K6: 87 steps, 737
+    MB in all) or three (K9b: 116); at B=48 in one."""
+    mib = 256 << 20
+    assert rnn_cuda._K10_SCRATCH_BYTES == mib
+    for g, steps, chunks in ((1280, 87, 3), (960, 116, 3)):
+        assert rnn_cuda._scratch_steps(240, 600, g) == steps
+        assert -(-240 // steps) == chunks
+        assert rnn_cuda._scratch_steps(240, 48, g) == 240
+    assert 240 * 600 * 1280 * 4 > 2 * mib       # 737 MB
+    assert rnn_cuda._scratch_steps(5, 10 ** 7, 1280) == 1   # at least one
