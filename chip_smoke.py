@@ -13,8 +13,8 @@ result line:
 1. device: the card's name and power limit (nvidia-smi), torch and CUDA
    versions;
 2. build: every kernel source in csrc/ (nine; the recurrent kernels
-   share csrc/bilstm_cell.cuh, K2, K5, K9a and K10a the forward chain of
-   csrc/fwd_chain.cuh, K6, K9b and K10b the backward chain of
+   share csrc/bilstm_cell.cuh, K2, K5, K8a, K9a and K10a the forward chain
+   of csrc/fwd_chain.cuh, K3, K6, K9b and K10b the backward chain of
    csrc/bwd_chain.cuh and the phase-1 bodies of csrc/lstm_gates.cuh, the
    row-keeping kernels csrc/row_ceiling.cuh) compiled by nvcc for
    sm_90a, timed;
@@ -31,7 +31,11 @@ result line:
    betas, loss and gradient, max error, median ms; then the "separate"
    path of ``ctc_loss_and_grad`` (K11 + K12), with its launch counts;
 6. k3_bilstm_bwd: the BiLSTM backward kernel against its plain version at
-   T=240, B=48, H=320 with ragged lengths, f32 and bf16;
+   T=240, B=48, H=320 with ragged lengths, f32 and bf16, with its plan,
+   both routes (phase 1 and the backward chain with both directions in
+   clusters; the cooperative kernel) timed on the same operands, the
+   cluster route's two phases timed apart, and the two routes held equal
+   bit for bit at each row's first valid walk step;
 7. serve: the 5x320 BLSTM flagship (random weights from a seed) written as
    a JAX-format artifact and served by the port's own HTTP server on cuda;
    4 /recognize requests of 2, 4, 6 and 8 s of seeded audio per compute
@@ -82,7 +86,9 @@ result line:
    its cluster route's two phases timed as K6's, with cuDNN's nn.GRU as the
    library yardstick; in f32 K9a also against nn.GRU holding the same
    function (full-length rows);
-17. k8_bigru: the same for the BiGRU kernels K8a and K8b;
+17. k8_bigru: the same for the BiGRU kernels K8a and K8b (K8a with its
+   plan and both routes, its cluster route held equal bit for bit to its
+   cooperative kernel and, a direction each, to K9a's cluster route);
 18. serve_gru: the 5x320 BiGRU served per dtype as in 7 (K8a 5x per
    request, K4 >= 1x), scores against the plain versions;
 19. serve_gru_uni: the unidirectional 5x320 GRU as in 13: /recognize
@@ -107,13 +113,13 @@ result line:
    bidirectional) and the hoisted route on the same layer (projection
    GEMM plus K2 forward, K3 on the stored projection backward);
 23. f7: each kernel that keeps every batch row in one block's shared
-   memory (K3, the cooperative routes of K5, K6, K9a and K9b, K7 one
-   layer, K8a, K8b) once at one row above the most one launch takes (its
-   source's *_max_rows query), H=320 (K5 and K6 at H=512, K9a and K9b at
-   H=576, where W_h fits no cluster), T=20, f32, against its plain
-   version: the wrapper runs row slices and counts one launch; then K6
-   and K9b at B=600, H=320 on their cluster route (one call, no
-   ceiling);
+   memory (the cooperative routes of K3, K5, K6, K8a, K9a and K9b, K7 one
+   layer, K8b) once at one row above the most one launch takes (its
+   source's *_max_rows query), H=320 (K3, K5 and K6 at H=512, K8a, K9a
+   and K9b at H=576, where W_h fits no cluster), T=20, f32, against its
+   plain version: the wrapper runs row slices and counts one launch; then
+   K3, K6, K8a and K9b at B=600, H=320 on their cluster route (one call,
+   no ceiling);
 24. serve_proj: the 3x128 BLSTM (40-dim input, 42 targets, random weights
    from a seed) served per dtype as in 7: per request K2 1x and K10a 2x
    in f32 (layer 1 unaligned, layers 2-3 in-kernel), K2 3x and K10a 0x in
@@ -206,9 +212,12 @@ KERNELS = ("log_mel", "bilstm_fwd", "bilstm_bwd", "ctc_alpha_beta",
 # gates); the f7 phase drives their ceilings there
 K5_COOPERATIVE_H = 512
 K9A_COOPERATIVE_H = 576
-# K6 and K9b take theirs (W_h's gate columns as f32 fit no cluster of 16)
-# from these H on, in either dtype (ops/rnn_cuda.py::bwd_chain_plan)
-BWD_COOPERATIVE_H = {"K6": 512, "K9b": 576}
+# K8a takes its cooperative route from K9a's f32 H on (the same plan with
+# both directions); K3, K6 and K9b take theirs (W_h's gate columns as f32
+# fit no cluster of 16) from these H on, in either dtype
+# (ops/rnn_cuda.py::bwd_chain_plan)
+K8A_COOPERATIVE_H = K9A_COOPERATIVE_H
+BWD_COOPERATIVE_H = {"K3": 512, "K6": 512, "K9b": 576}
 # the 3x128 BLSTM of recipes/medium and recipes/hard: hidden units,
 # layers, targets (its input is the flagship's 40-dim features)
 PROJ_H, PROJ_LAYERS, PROJ_TARGETS = 128, 3, 42
@@ -677,6 +686,12 @@ def phase_k1(torch, np, dev):
 
 
 def phase_k3(torch, np, dev):
+    """K3 against its plain version at T=240, B=48, H=320 with ragged
+    lengths, f32 and bf16, with its plan (the cluster route), both routes
+    timed on the same operands and the cluster route's two phases timed
+    apart (bwd_routes), and the recompute witness: at each row's first
+    valid walk step, where dh and dc are zero, the cluster route equals
+    the cooperative kernel bit for bit."""
     from kaldi_ctc_tpu_torch.ops import rnn_cuda
     t_max, b, h = TRAIN_T, TRAIN_B, 320
     rows = []
@@ -715,12 +730,41 @@ def phase_k3(torch, np, dev):
                "library_ms": library_rnn_ms(
                    torch, dev, dtype, t_max, b, 2 * h, h,
                    bidirectional=True, backward=True)}
+        row.update(bwd_routes(torch, dev, "K3", args))
+        row["first_step_bit_equal_cooperative"] = k3_first_steps_equal(
+            torch, dev, args)
+        row["below_library"] = row["ms"] < row["library_ms"]
         rows.append(row)
         emit({"phase": "k3_bilstm_bwd", **row})
         if not all(ok for _, ok in errs):
             fail(f"K3 bilstm_seq_bwd_dgates disagrees with its plain "
                  f"version: {row}")
+        if not row["first_step_bit_equal_cooperative"]:
+            fail(f"K3's routes differ where dh and dc are zero: {row}")
     return kernel_row(rows, rows[1])     # bf16
+
+
+def k3_first_steps_equal(torch, dev, args):
+    """Whether K3's cluster route and its cooperative kernel give the same
+    dgates bit for bit at each row's first valid walk step (t = len - 1
+    for the forward direction, t = 0 for the backward one), where dh and
+    dc are still zero: the gates recomputed in warp_dot's order by both."""
+    from kaldi_ctc_tpu_torch import _kernels
+    from kaldi_ctc_tpu_torch.ops import rnn_cuda
+    *ops, lens = args
+    xp = ops[2]
+    b, h = xp.shape[1], xp.shape[2] // 8
+    lib = _kernels.load("bilstm_bwd", rnn_cuda._BWD_SIGNATURES)
+    lens32 = lens.to(torch.int32)
+    chain = rnn_cuda._bilstm_bwd_chain(
+        lib, *ops, lens32, rnn_cuda.k3_plan(lib, b, h, xp.dtype, dev))
+    coop = rnn_cuda._bilstm_bwd_cooperative(lib, *ops, lens32)
+    rows = torch.arange(b, device=dev)
+    valid = lens > 0
+    first = (lens.long() - 1).clamp(min=0)
+    return (torch.equal(chain[0][first, rows][valid],
+                        coop[0][first, rows][valid])
+            and torch.equal(chain[1][0][valid], coop[1][0][valid]))
 
 
 def uni_inputs(torch, np, dev, t_max, b, h, dtype, seed):
@@ -820,58 +864,89 @@ def phase_k6(torch, np, dev):
 
 
 def bwd_routes(torch, dev, name, args):
-    """K6's or K9b's plan and its two routes timed on the same operands
-    (the cluster route: phase 1 then the backward chain; the cooperative
-    kernel in row slices), and the cluster route's two phases timed apart
-    (one chunk of steps at the training shape): phase 1, the recurrent
-    sums of every step, and phase 2, the chain in clusters."""
+    """K3's, K6's or K9b's plan and its two routes timed on the same
+    operands (the cluster route: phase 1 then the backward chain; the
+    cooperative kernel in row slices), and the cluster route's two phases
+    timed apart (one chunk of steps at the training shape): phase 1, the
+    recurrent sums of every step (of both directions for K3), and phase
+    2, the chain in clusters."""
     from kaldi_ctc_tpu_torch import _kernels
     from kaldi_ctc_tpu_torch.ops import gru_cuda, rnn_cuda
     f32 = torch.float32
-    if name == "K6":
-        dy, xp, y, res, w, lens = args
-        lib = _kernels.load("lstm_bwd", rnn_cuda._UNI_BWD_SIGNATURES)
-        prefix, gates, carries, outputs = "lstm_bwd", 4, 2, 1
-        chain, coop = (rnn_cuda._lstm_bwd_chain,
-                       rnn_cuda._lstm_bwd_cooperative)
-        plan_of, ops = rnn_cuda.k6_plan, (dy, xp, y, res, w)
+    *ops, lens = args
+    lens32 = lens.to(torch.int32)
+    stream = _kernels.stream_ptr(dev)
+    if name == "K3":
+        dy_f, dy_b, xp, y_f, c_f, y_b, c_b, w_f, w_b = ops
+        lib = _kernels.load("bilstm_bwd", rnn_cuda._BWD_SIGNATURES)
+        t, b, g = xp.shape
+        h = g // 8
+        plan = rnn_cuda.k3_plan(lib, b, h, xp.dtype, dev)
+        pre = torch.empty((t, b, g), dtype=f32, device=dev)
+        state = torch.zeros((2, 2, b, h), dtype=f32, device=dev)
+        outs = [torch.empty((t, b, 4 * h), dtype=xp.dtype, device=dev)
+                for _ in range(2)]
+
+        def chain():
+            rnn_cuda._bilstm_bwd_chain(lib, *ops, lens32, plan)
+
+        def coop():
+            rnn_cuda._bilstm_bwd_cooperative(lib, *ops, lens32)
+
+        def phase1():
+            rnn_cuda._k3_gates(lib, y_f, y_b, w_f, w_b, pre, 0, t, plan)
+
+        def phase2():
+            rnn_cuda._k3_chain(lib, dy_f, dy_b, xp, c_f, c_b, w_f, w_b,
+                               lens32, pre, *outs, state, 0, t, plan)
     else:
-        dy, xp, y, w, lens = args
-        res = y
-        lib = _kernels.load("gru_bwd", gru_cuda._BWD_SIGNATURES)
-        prefix, gates, carries, outputs = "gru_bwd", 3, 1, 2
-        chain, coop = gru_cuda._gru_bwd_chain, gru_cuda._gru_bwd_cooperative
-        plan_of, ops = gru_cuda.k9b_plan, (dy, xp, y, w)
-    t, b, g = xp.shape
-    h = g // gates
-    plan = plan_of(lib, b, h, xp.dtype, dev)
+        if name == "K6":
+            dy, xp, y, res, w = ops
+            lib = _kernels.load("lstm_bwd", rnn_cuda._UNI_BWD_SIGNATURES)
+            prefix, gates, carries, outputs = "lstm_bwd", 4, 2, 1
+            chain_of, coop_of = (rnn_cuda._lstm_bwd_chain,
+                                 rnn_cuda._lstm_bwd_cooperative)
+            plan_of = rnn_cuda.k6_plan
+        else:
+            dy, xp, y, w = ops
+            res = y
+            lib = _kernels.load("gru_bwd", gru_cuda._BWD_SIGNATURES)
+            prefix, gates, carries, outputs = "gru_bwd", 3, 1, 2
+            chain_of, coop_of = (gru_cuda._gru_bwd_chain,
+                                 gru_cuda._gru_bwd_cooperative)
+            plan_of = gru_cuda.k9b_plan
+        t, b, g = xp.shape
+        h = g // gates
+        plan = plan_of(lib, b, h, xp.dtype, dev)
+        sfx = rnn_cuda._SUFFIX[xp.dtype]
+        pre = torch.empty((t, b, g), dtype=f32, device=dev)
+        state = torch.zeros((carries, 1, b, h), dtype=f32, device=dev)
+        outs = [torch.empty((t, b, g), dtype=xp.dtype, device=dev)
+                for _ in range(outputs)]
+
+        def chain():
+            chain_of(lib, *ops, lens32, False, plan)
+
+        def coop():
+            coop_of(lib, *ops, lens32, False)
+
+        def phase1():
+            _kernels.check(lib, getattr(lib, f"{prefix}_gates_{sfx}")(
+                y.data_ptr(), w.data_ptr(), pre.data_ptr(), 0, t, t, b, h,
+                plan.gate_cols, 0, stream), f"{name} phase 1")
+
+        def phase2():
+            _kernels.check(lib, getattr(lib, f"{prefix}_chain_{sfx}")(
+                dy.data_ptr(), xp.data_ptr(), res.data_ptr(), w.data_ptr(),
+                lens32.data_ptr(), pre.data_ptr(),
+                *(o.data_ptr() for o in outs), state.data_ptr(), 0, t, t, b,
+                h, plan.cluster, plan.rows, 0, stream), f"{name} phase 2")
     if plan.route != "cluster":
         fail(f"{name} at T={t}, B={b}, H={h} does not take its cluster "
              f"route: {plan}")
-    sfx = rnn_cuda._SUFFIX[xp.dtype]
-    stream = _kernels.stream_ptr(dev)
-    lens32 = lens.to(torch.int32)
-    pre = torch.empty((t, b, g), dtype=f32, device=dev)
-    state = torch.zeros((carries, 1, b, h), dtype=f32, device=dev)
-    outs = [torch.empty((t, b, g), dtype=xp.dtype, device=dev)
-            for _ in range(outputs)]
-
-    def phase1():
-        _kernels.check(lib, getattr(lib, f"{prefix}_gates_{sfx}")(
-            y.data_ptr(), w.data_ptr(), pre.data_ptr(), 0, t, t, b, h,
-            plan.gate_cols, 0, stream), f"{name} phase 1")
-
-    def phase2():
-        _kernels.check(lib, getattr(lib, f"{prefix}_chain_{sfx}")(
-            dy.data_ptr(), xp.data_ptr(), res.data_ptr(), w.data_ptr(),
-            lens32.data_ptr(), pre.data_ptr(), *(o.data_ptr() for o in outs),
-            state.data_ptr(), 0, t, t, b, h, plan.cluster, plan.rows, 0,
-            stream), f"{name} phase 2")
     return {"plan": plan._asdict(),
-            "chain_route_ms": median_ms(
-                lambda: chain(lib, *ops, lens32, False, plan), 10, torch),
-            "cooperative_route_ms": median_ms(
-                lambda: coop(lib, *ops, lens32, False), 10, torch),
+            "chain_route_ms": median_ms(chain, 10, torch),
+            "cooperative_route_ms": median_ms(coop, 10, torch),
             "phase1_gates_ms": median_ms(phase1, 10, torch),
             "phase2_chain_ms": median_ms(phase2, 10, torch)}
 
@@ -917,11 +992,13 @@ def phase_gru_kernels(torch, np, dev, bidirectional):
     versions: the forward at T=800, B=1 and B=8 (serving; K9a also one
     reverse case) and T=240, B=48 (training; K9a also B=600), the backward
     at T=240, B=48 with ragged lengths, H=320, f32 and bf16; in f32 the
-    forward also against cuDNN's nn.GRU holding the same function.  K9a's
-    rows carry its plan, and at T=800, B=1 and T=240, B=48 both of its
-    routes timed on the same operands."""
+    forward also against cuDNN's nn.GRU holding the same function.  The
+    forward rows carry the plan, and at T=800, B=1 and T=240, B=48 both
+    routes timed on the same operands; K8a's there also its witnesses:
+    its cluster route equals its cooperative kernel bit for bit, and each
+    direction equals K9a's cluster route on its half of xp."""
     from kaldi_ctc_tpu_torch import _kernels
-    from kaldi_ctc_tpu_torch.ops import gru_cuda, rnn_cuda
+    from kaldi_ctc_tpu_torch.ops import gru_cuda
     h, dirs = 320, 2 if bidirectional else 1
     if bidirectional:
         phase, kname, prefix = "k8_bigru", "K8", "bigru"
@@ -936,7 +1013,8 @@ def phase_gru_kernels(torch, np, dev, bidirectional):
                         gru_cuda.gru_seq_bwd_dgates_reference)
         shapes = ((800, 1, False), (800, 8, False), (800, 1, True),
                   (TRAIN_T, TRAIN_B, False), (TRAIN_T, 600, False))
-        lib = _kernels.load("gru_fwd", gru_cuda._FWD_SIGNATURES)
+    lib = _kernels.load("gru_fwd", gru_cuda._FWD_SIGNATURES)
+    plan_of = gru_cuda.k8a_plan if bidirectional else gru_cuda.k9a_plan
 
     def fwd_args(xp, ws, lens, reverse):
         return (xp, *ws, lens) + (() if bidirectional else (reverse,))
@@ -962,23 +1040,35 @@ def phase_gru_kernels(torch, np, dev, bidirectional):
                    "plain_ms": median_ms(lambda: fwd_ref(*args), 3, torch),
                    **bound(nbytes(xp, *ws, lens, *got), gru_ops(lens, h, dirs),
                            dtype_name), "library_ms": None}
-            if not bidirectional:
-                row["plan"] = gru_cuda.k9a_plan(lib, b, h, dtype,
-                                                dev)._asdict()
-            if not bidirectional and b in (1, TRAIN_B) and not reverse:
+            plan = plan_of(lib, b, h, dtype, dev)
+            row["plan"] = plan._asdict()
+            if plan.route != "cluster":
+                fail(f"{kname}a at T={t_max}, B={b}, H={h} does not take "
+                     f"its cluster route: {plan}")
+            if b in (1, TRAIN_B) and not reverse:
                 # both routes on the same operands, through their exports
-                chain = rnn_cuda.fwd_chain_plan(
-                    b, 0, h, dtype, 1, torch.cuda.get_device_properties(
-                        dev).multi_processor_count,
-                    rnn_cuda._smem_optin(lib, "gru_fwd_smem_optin", dev),
-                    gates=3)
                 lens32 = lens.to(torch.int32)
-                row["chain_route_ms"] = median_ms(
-                    lambda: gru_cuda._gru_fwd_chain(lib, xp, ws[0], lens32,
-                                                    False, chain), 10, torch)
-                row["cooperative_route_ms"] = median_ms(
-                    lambda: gru_cuda._gru_fwd_cooperative(
-                        lib, xp, ws[0], lens32, False), 10, torch)
+                if bidirectional:
+                    def chain():
+                        return gru_cuda._bigru_fwd_chain(lib, xp, *ws,
+                                                         lens32, plan)
+
+                    def coop():
+                        return gru_cuda._bigru_fwd_cooperative(lib, xp, *ws,
+                                                               lens32)
+                else:
+                    def chain():
+                        return gru_cuda._gru_fwd_chain(lib, xp, ws[0],
+                                                       lens32, False, plan)
+
+                    def coop():
+                        return gru_cuda._gru_fwd_cooperative(
+                            lib, xp, ws[0], lens32, False)
+                row["chain_route_ms"] = median_ms(chain, 10, torch)
+                row["cooperative_route_ms"] = median_ms(coop, 10, torch)
+                if bidirectional:
+                    row.update(k8a_witnesses(torch, lib, xp, ws, lens32,
+                                             chain(), coop()))
             if b == TRAIN_B:
                 # cuDNN's layer includes the input projection (a layer
                 # above the first: dirs*H inputs), so the kernel's own
@@ -989,6 +1079,8 @@ def phase_gru_kernels(torch, np, dev, bidirectional):
                 row["projection_plus_kernel_ms"] = projection_plus_kernel_ms(
                     torch, dev, dtype, t_max, b, dirs * h, dirs * 3 * h,
                     lambda p: fwd(*fwd_args(p, ws, lens, False)))
+                row["projection_plus_kernel_below_library"] = (
+                    row["projection_plus_kernel_ms"] < row["library_ms"])
                 if dtype_name == "float32":
                     full = torch.full_like(lens, t_max)
                     ys = fwd(*fwd_args(xp, ws, full, False))
@@ -1001,6 +1093,9 @@ def phase_gru_kernels(torch, np, dev, bidirectional):
             emit({"phase": phase, **row})
             if not all(ok for _, ok in errs):
                 fail(f"{kname}a {prefix}_seq_fwd disagrees: {row}")
+            if not (row.get("bit_equal_cooperative", True)
+                    and row.get("bit_equal_k9a", True)):
+                fail(f"K8a's witnesses do not hold: {row}")
 
         # the backward at the training shape, on the kernel's forward
         xp, ws, lens = gru_inputs(torch, np, dev, TRAIN_T, TRAIN_B, h, dtype,
@@ -1042,6 +1137,23 @@ def phase_gru_kernels(torch, np, dev, bidirectional):
                      if r["dtype"] == "bfloat16" and r["B"] == TRAIN_B)
     return {f"{prefix}_fwd": kernel_row(fwd_rows, train_row),
             f"{prefix}_bwd": kernel_row(bwd_rows, bwd_rows[1])}
+
+
+def k8a_witnesses(torch, lib, xp, ws, lens32, chain, coop):
+    """K8a's two witnesses on one set of operands: its cluster route's y
+    (``chain``) equals its cooperative kernel's (``coop``) bit for bit,
+    and each direction equals K9a's cluster route on that direction's
+    half of xp (the backward one with reverse)."""
+    from kaldi_ctc_tpu_torch.ops import gru_cuda
+    b, h = xp.shape[1], xp.shape[2] // 6
+    k9a = gru_cuda.k9a_plan(lib, b, h, xp.dtype, xp.device)
+    uni = [gru_cuda._gru_fwd_chain(lib, xp[..., d * 3 * h:(d + 1) * 3 * h]
+                                   .contiguous(), ws[d], lens32, d == 1, k9a)
+           for d in range(2)]
+    return {"bit_equal_cooperative": all(torch.equal(c, k)
+                                         for c, k in zip(chain, coop)),
+            "bit_equal_k9a": all(torch.equal(c, u)
+                                 for c, u in zip(chain, uni))}
 
 
 def phase_k10(torch, np, dev):
@@ -1213,7 +1325,7 @@ def k10b_phases(torch, dev, bargs):
     lib = _kernels.load("bilstm_bwd", rnn_cuda._BWD_SIGNATURES)
     plan = rnn_cuda.k10b_plan(
         b, d, h, torch.cuda.get_device_properties(dev).multi_processor_count,
-        rnn_cuda._smem_optin(lib, "bilstm_proj_bwd_smem_optin", dev))
+        rnn_cuda._smem_optin(lib, "bilstm_bwd_smem_optin", dev))
     f32 = torch.float32
     pre = torch.empty((t, b, 8 * h), dtype=f32, device=dev)
     state = torch.zeros((2, 2, b, h), dtype=f32, device=dev)
@@ -1269,15 +1381,27 @@ def k10b_large_batch(torch, np, dev):
     return row
 
 
+def bilstm_bwd_operands(torch, np, dev, t, b, h, mat):
+    """K3's operands at T=t, B=b, H=h, f32, ragged rows: seeded cotangents
+    and a forward of K2's plain version (``mat`` draws seeded matrices)."""
+    from kaldi_ctc_tpu_torch.ops import rnn_cuda
+    xp, w, lens = uni_inputs(torch, np, dev, t, b, h, torch.float32, b)
+    xp = torch.cat([xp, mat(t, b, 4 * h, scale=0.5)], dim=2)
+    w2 = mat(h, 4 * h, scale=h ** -0.5)
+    ys = rnn_cuda.bilstm_seq_fwd_reference(xp, w, w2, lens)
+    return (mat(t, b, h), mat(t, b, h), xp, *ys, w, w2, lens)
+
+
 def phase_f7(torch, np, dev):
     """Each kernel that keeps every batch row in one block's shared
-    memory (K3, the cooperative routes of K5, K6, K9a and K9b, K7 one
-    layer, K8a, K8b), once at one row above the most its launch takes (its
-    source's *_max_rows query), H=320 (K5: K5_COOPERATIVE_H, K9a:
-    K9A_COOPERATIVE_H, K6 and K9b: BWD_COOPERATIVE_H), T=20, f32, ragged
-    rows, against its plain version: the wrapper runs it as row slices and
-    counts one launch.  Then K6 and K9b at B=600, H=320 on their cluster
-    route (no ceiling: one call in waves of clusters)."""
+    memory (the cooperative routes of K3, K5, K6, K8a, K9a and K9b, K7 one
+    layer, K8b), once at one row above the most its launch takes (its
+    source's *_max_rows query), H=320 (K5: K5_COOPERATIVE_H, K8a and K9a:
+    K9A_COOPERATIVE_H, K3, K6 and K9b: BWD_COOPERATIVE_H), T=20, f32,
+    ragged rows, against its plain version: the wrapper runs it as row
+    slices and counts one launch.  Then K3, K6, K8a and K9b at B=600,
+    H=320 on their cluster route (no ceiling: one call in waves of
+    clusters)."""
     from kaldi_ctc_tpu_torch import _kernels
     from kaldi_ctc_tpu_torch.ops import gru_cuda, rnn_cuda
     t, h, f32 = 20, 320, torch.float32
@@ -1294,15 +1418,17 @@ def phase_f7(torch, np, dev):
     def case(name):
         """(wrapper, plain version, operands, tolerance, B)"""
         if name == "K3":
+            # only K3's cooperative route has a ceiling
+            hk = BWD_COOPERATIVE_H["K3"]
+            lib = _kernels.load("bilstm_bwd", rnn_cuda._BWD_SIGNATURES)
             b = above("bilstm_bwd", rnn_cuda._BWD_SIGNATURES,
-                      "bilstm_bwd_max_rows_f32", h)
-            xp, w, lens = uni_inputs(torch, np, dev, t, b, h, f32, b)
-            xp = torch.cat([xp, mat(t, b, 4 * h, scale=0.5)], dim=2)
-            w2 = mat(h, 4 * h, scale=h ** -0.5)
-            ys = rnn_cuda.bilstm_seq_fwd_reference(xp, w, w2, lens)
+                      "bilstm_bwd_max_rows_f32", hk)
+            if rnn_cuda.k3_plan(lib, b, hk, f32, dev).route != "cooperative":
+                fail(f"F7: K3 at H={hk} does not take its cooperative "
+                     f"route")
             return (rnn_cuda.bilstm_seq_bwd_dgates,
                     rnn_cuda.bilstm_seq_bwd_dgates_reference,
-                    (mat(t, b, h), mat(t, b, h), xp, *ys, w, w2, lens),
+                    bilstm_bwd_operands(torch, np, dev, t, b, hk, mat),
                     K3_TOL["float32"], b)
         if name in ("K5", "K6", "K7"):
             src, sigs, query, dims = {
@@ -1345,13 +1471,14 @@ def phase_f7(torch, np, dev):
         fwd = name.endswith("a")
         src, sigs = (("gru_fwd", gru_cuda._FWD_SIGNATURES) if fwd
                      else ("gru_bwd", gru_cuda._BWD_SIGNATURES))
-        hg = {"K9a": K9A_COOPERATIVE_H,
+        hg = {"K8a": K8A_COOPERATIVE_H, "K9a": K9A_COOPERATIVE_H,
               "K9b": BWD_COOPERATIVE_H["K9b"]}.get(name, h)
         b = above(src, sigs, f"{kernel}_{src[4:]}_max_rows_f32", hg)
-        if name in ("K9a", "K9b"):
-            # only K9a's and K9b's cooperative routes have a ceiling
+        if name in ("K8a", "K9a", "K9b"):
+            # only K8a's, K9a's and K9b's cooperative routes have a ceiling
             lib = _kernels.load(src, sigs)
-            plan_of = gru_cuda.k9a_plan if fwd else gru_cuda.k9b_plan
+            plan_of = {"K8a": gru_cuda.k8a_plan, "K9a": gru_cuda.k9a_plan,
+                       "K9b": gru_cuda.k9b_plan}[name]
             if plan_of(lib, b, hg, f32, dev).route != "cooperative":
                 fail(f"F7: {name} at H={hg} does not take its cooperative "
                      f"route")
@@ -1369,9 +1496,15 @@ def phase_f7(torch, np, dev):
         return fn, ref, args, K3_TOL["float32"], b
 
     def cluster_case(name):
-        """K6 or K9b on its cluster route at B=600, H=320: (wrapper, plain
-        version, operands, plan)"""
+        """K3, K6, K8a or K9b on its cluster route at B=600, H=320:
+        (wrapper, plain version, operands, tolerance, plan)"""
         b = 600
+        if name == "K3":
+            lib = _kernels.load("bilstm_bwd", rnn_cuda._BWD_SIGNATURES)
+            return (rnn_cuda.bilstm_seq_bwd_dgates,
+                    rnn_cuda.bilstm_seq_bwd_dgates_reference,
+                    bilstm_bwd_operands(torch, np, dev, t, b, h, mat),
+                    K3_TOL["float32"], rnn_cuda.k3_plan(lib, b, h, f32, dev))
         if name == "K6":
             lib = _kernels.load("lstm_bwd", rnn_cuda._UNI_BWD_SIGNATURES)
             plan = rnn_cuda.k6_plan(lib, b, h, f32, dev)
@@ -1379,14 +1512,21 @@ def phase_f7(torch, np, dev):
             y, c = rnn_cuda.lstm_seq_fwd_reference(xp, w, lens)
             return (rnn_cuda.lstm_seq_bwd_dgates,
                     rnn_cuda.lstm_seq_bwd_dgates_reference,
-                    (mat(t, b, h), xp, y, c, w, lens), plan)
+                    (mat(t, b, h), xp, y, c, w, lens), K3_TOL["float32"],
+                    plan)
+        if name == "K8a":
+            lib = _kernels.load("gru_fwd", gru_cuda._FWD_SIGNATURES)
+            xp, ws, lens = gru_inputs(torch, np, dev, t, b, h, f32, b, 2)
+            return (gru_cuda.bigru_seq_fwd, gru_cuda.bigru_seq_fwd_reference,
+                    (xp, *ws, lens), K2_TOL["float32"],
+                    gru_cuda.k8a_plan(lib, b, h, f32, dev))
         lib = _kernels.load("gru_bwd", gru_cuda._BWD_SIGNATURES)
         plan = gru_cuda.k9b_plan(lib, b, h, f32, dev)
         xp, ws, lens = gru_inputs(torch, np, dev, t, b, h, f32, b)
         y = gru_cuda.gru_seq_fwd_reference(xp, ws[0], lens)
         return (gru_cuda.gru_seq_bwd_dgates,
                 gru_cuda.gru_seq_bwd_dgates_reference,
-                (mat(t, b, h), xp, y, ws[0], lens), plan)
+                (mat(t, b, h), xp, y, ws[0], lens), K3_TOL["float32"], plan)
 
     rows = []
     for name in ("K3", "K5", "K6", "K7", "K8a", "K8b", "K9a", "K9b"):
@@ -1400,7 +1540,8 @@ def phase_f7(torch, np, dev):
                      else ((got,), (want,)))
         errs = [max_err(g, r, 0.0, tol) for g, r in zip(got, want)]
         row = {"kernel": name, "wrapper": fn.__name__, "T": t,
-               "H": {"K5": K5_COOPERATIVE_H, "K9a": K9A_COOPERATIVE_H,
+               "H": {"K5": K5_COOPERATIVE_H, "K8a": K8A_COOPERATIVE_H,
+                     "K9a": K9A_COOPERATIVE_H,
                      **BWD_COOPERATIVE_H}.get(name, h),
                "B": b, "one_launch_max_rows": b - 1, "launches": launched,
                "max_abs_err": max(e for e, _ in errs), "tol": tol}
@@ -1408,10 +1549,10 @@ def phase_f7(torch, np, dev):
         if not all(ok for _, ok in errs) or launched != 1:
             emit({"phase": "f7", "rows": rows})
             fail(f"F7: {name} above its ceiling disagrees: {row}")
-    # K6 and K9b at H=320 take their cluster route, which has no ceiling:
-    # B=600 in one call, waves of clusters, no row slices
-    for name in ("K6", "K9b"):
-        fn, ref, args, plan = cluster_case(name)
+    # K3, K6, K8a and K9b at H=320 take their cluster route, which has no
+    # ceiling: B=600 in one call, waves of clusters, no row slices
+    for name in ("K3", "K6", "K8a", "K9b"):
+        fn, ref, args, tol, plan = cluster_case(name)
         before = fn.launches
         got = fn(*args)
         torch.cuda.synchronize()
@@ -1419,12 +1560,11 @@ def phase_f7(torch, np, dev):
         got = got if isinstance(got, tuple) else (got,)
         want = ref(*args)
         want = want if isinstance(want, tuple) else (want,)
-        errs = [max_err(g, r, 0.0, K3_TOL["float32"])
-                for g, r in zip(got, want)]
+        errs = [max_err(g, r, 0.0, tol) for g, r in zip(got, want)]
         row = {"kernel": name, "wrapper": fn.__name__, "route": plan.route,
                "T": t, "H": h, "B": 600, "plan": plan._asdict(),
                "launches": launched, "max_abs_err": max(e for e, _ in errs),
-               "tol": K3_TOL["float32"]}
+               "tol": tol}
         rows.append(row)
         if (plan.route != "cluster" or not all(ok for _, ok in errs)
                 or launched != 1):
@@ -1947,11 +2087,12 @@ def device_kernels(prof, DeviceType):
 # then bilstm_fwd_chain_kernel), K10b's (bilstm_proj_gates_tiled_kernel or
 # bilstm_proj_gates_kernel, then bilstm_proj_chain_kernel), the two
 # routes of K2 (bilstm_xp_chain_kernel or bilstm_fwd_kernel), K5
-# (lstm_fwd_chain_kernel or lstm_fwd_kernel) and K9a (gru_fwd_chain_kernel
-# or gru_fwd_kernel), and those of K6 and K9b: the cluster route's two
-# phases (lstm_bwd_gates_tiled_kernel or lstm_bwd_gates_kernel, then
-# lstm_bwd_chain_kernel; the same with gru_bwd_) or the cooperative
-# kernel (lstm_bwd_kernel, gru_bwd_kernel)
+# (lstm_fwd_chain_kernel or lstm_fwd_kernel), K9a (gru_fwd_chain_kernel
+# or gru_fwd_kernel) and K8a (bigru_fwd_chain_kernel or bigru_fwd_kernel),
+# and those of K3, K6 and K9b: the cluster route's two phases
+# (lstm_bwd_gates_tiled_kernel or lstm_bwd_gates_kernel, then
+# lstm_bwd_chain_kernel; the same with bilstm_bwd_ and gru_bwd_) or the
+# cooperative kernel (bilstm_bwd_kernel, lstm_bwd_kernel, gru_bwd_kernel)
 KERNEL_TAGS = {"bilstm_proj_fwd": ("::bilstm_proj_x",
                                    "::bilstm_fwd_chain_kernel"),
                "bilstm_proj_bwd": ("::bilstm_proj_gates",
@@ -1960,6 +2101,11 @@ KERNEL_TAGS = {"bilstm_proj_fwd": ("::bilstm_proj_x",
                               "::bilstm_fwd_kernel"),
                "lstm_fwd": ("::lstm_fwd_chain_kernel", "::lstm_fwd_kernel"),
                "gru_fwd": ("::gru_fwd_chain_kernel", "::gru_fwd_kernel"),
+               "bigru_fwd": ("::bigru_fwd_chain_kernel",
+                             "::bigru_fwd_kernel"),
+               "bilstm_bwd": ("::bilstm_bwd_gates",
+                              "::bilstm_bwd_chain_kernel",
+                              "::bilstm_bwd_kernel"),
                "lstm_bwd": ("::lstm_bwd_gates", "::lstm_bwd_chain_kernel",
                             "::lstm_bwd_kernel"),
                "gru_bwd": ("::gru_bwd_gates", "::gru_bwd_chain_kernel",
@@ -1968,6 +2114,8 @@ KERNEL_TAGS = {"bilstm_proj_fwd": ("::bilstm_proj_x",
 # steps: one chunk at the training shape)
 LAUNCH_TAGS = {"bilstm_proj_fwd": ("::bilstm_fwd_chain_kernel",),
                "bilstm_proj_bwd": ("::bilstm_proj_chain_kernel",),
+               "bilstm_bwd": ("::bilstm_bwd_chain_kernel",
+                              "::bilstm_bwd_kernel"),
                "lstm_bwd": ("::lstm_bwd_chain_kernel", "::lstm_bwd_kernel"),
                "gru_bwd": ("::gru_bwd_chain_kernel", "::gru_bwd_kernel")}
 

@@ -32,27 +32,53 @@
 // K3.  What bounds it on the H100: the same serial chain as K2, T steps,
 // and each step needs the whole previous dgates row [B, 4H] of its
 // direction to form dh.  At the training batch B = 48, H = 320 that row
-// is 245 KB in f32: more than one block's shared memory, and 128 blocks
-// each reading it from L2 every step would move 31 MB per step.
+// is 245 KB in f32: more than one block's shared memory.
 //
-// Design: one cooperative launch per layer, K2's layout.  Each block
-// owns hs hidden units of one direction and keeps those units' four
-// gate columns of W_h (4*hs x H) in shared memory for the whole walk,
-// with its dh and dc.  The W_h columns serve both products: the gate
-// recompute sums y[b, k] * W_h[k, c] over k for the block's columns c,
-// and the block's share of dh sums dgates[b, c] * W_h[k, c] over its
-// own columns c, for every k.  Blocks exchange those partial dh rows,
-// not dgates: each block writes a [B, H] partial (f32, through L2 with
-// st.global.cg) into a double-buffered array laid out so that the hs
-// units of one owner are contiguous across the writing blocks; after
-// the step's one grid.sync() each block sums the nb partials of its own
-// units (ld.global.cg), in a fixed order.  That moves 61 KB in and out
-// of each block per step instead of 245 KB in, and keeps the sums f32
-// and deterministic.  The next step's gate recompute needs no exchange
-// (y is in device memory) and runs before the barrier.  The rows of
-// y[t-+1], the gate sums and the dgates of all B rows stay in shared
-// memory, so a launch takes at most bilstm_bwd_max_rows(H) rows (~139 at
-// H = 320); the wrapper runs a larger batch as row slices.
+// K3 has two routes, chosen by the wrapper's plan from the shapes
+// (ops/rnn_cuda.py::k3_plan, the backward chain's plan with both
+// directions):
+//   - the cluster route, wherever W_h's four gate columns as f32 fit a
+//     cluster of at most 16 CTAs (H up to ~465, either dtype): two
+//     kernels, the split of K6 (csrc/lstm_bwd.cu) with both directions.
+//     The gate recompute depends only on the stored y, never on the dh/dc
+//     recurrence, so
+//       1. bilstm_bwd_gates_tiled_kernel (H <= 426) or
+//          bilstm_bwd_gates_kernel computes both directions' recurrent
+//          sums y[t-+1] . W_h of every step at once, parallel over T
+//          (csrc/lstm_gates.cuh with Sums::kRec and BiWalkRows: warp_dot's
+//          sums, the forward chain's order), into an f32 scratch [S, B, 8H]
+//          per chunk of S steps (chunks above 256 MiB);
+//       2. bilstm_bwd_chain_kernel walks the dh/dc chain of both
+//          directions in thread-block clusters (the backward chain of
+//          csrc/bwd_chain.cuh with LstmBwdCell), adding xp[t] to each sum
+//          as the forward chain does, so the gates equal K2's bit for bit
+//          (the recompute invariant).  Rows never meet: one cluster of C
+//          CTAs per (direction, group of R rows), W_h's gate columns as
+//          f32 in distributed shared memory, the partial dh rows exchanged
+//          through DSMEM, one cluster barrier a step, no grid barrier, any
+//          B.  Its name is its own (not bilstm_proj_chain_kernel, K10b's
+//          phase 2, which reads the pre-activation), so a trace tells K3
+//          from K10b;
+//   - the cooperative route above that: bilstm_bwd_kernel, below.  One
+//     cooperative launch per layer, K2's cooperative layout.  Each block
+//     owns hs hidden units of one direction and keeps those units' four
+//     gate columns of W_h (4*hs x H) in shared memory for the whole walk,
+//     with its dh and dc.  The W_h columns serve both products: the gate
+//     recompute sums y[b, k] * W_h[k, c] over k for the block's columns
+//     c, and the block's share of dh sums dgates[b, c] * W_h[k, c] over
+//     its own columns c, for every k.  Blocks exchange those partial dh
+//     rows, not dgates: each block writes a [B, H] partial (f32, through
+//     L2 with st.global.cg) into a double-buffered array laid out so that
+//     the hs units of one owner are contiguous across the writing blocks;
+//     after the step's one grid.sync() each block sums the nb partials of
+//     its own units (ld.global.cg), in a fixed order.  The rows of
+//     y[t-+1], the gate sums and the dgates of all B rows stay in shared
+//     memory, so a launch takes at most bilstm_bwd_max_rows(H) rows; the
+//     wrapper runs a larger batch as row slices.
+// Both routes recompute the gates with warp_dot's sums; they carry dh in
+// another order (partials per CTA of a cluster, then over the ranks), so
+// they agree bit for bit where dh and dc are still zero (each row's first
+// valid walk step) and within tolerance elsewhere.
 //
 // K10b.  The gate recompute depends only on x and the stored y, never on
 // the dh/dc recurrence; the only serial chain is dh -> dgates ->
@@ -77,11 +103,11 @@
 //   2. bilstm_proj_chain_kernel, the dh/dc chain, serial over the steps,
 //      in thread-block clusters: the backward chain of csrc/bwd_chain.cuh
 //      with the LSTM cell (LstmBwdCell), both directions, on the
-//      pre-activations of phase 1 (K6 and K9b run the same chain on their
-//      own phase 1's recurrent sums).  One cluster of C
-//      CTAs per (direction, group of R rows); each CTA keeps its ceil(H/C)
-//      units' four gate columns of W_h in shared memory as f32 (64 KB at
-//      H = 128, C = 4) with their dh and dc carries; one cluster barrier a
+//      pre-activations of phase 1 (K3, K6 and K9b run the same chain on
+//      their own phase 1's recurrent sums).  One cluster of C CTAs per
+//      (direction, group of R rows); each CTA keeps its ceil(H/C) units'
+//      four gate columns of W_h in shared memory as f32 (64 KB at H =
+//      128, C = 4) with their dh and dc carries; one cluster barrier a
 //      step, the partial dh rows exchanged through DSMEM; any B.  C and R
 //      come from the wrapper (rnn_cuda.k10b_plan); the launcher checks
 //      them and returns the CUDA error when they do not fit.
@@ -469,6 +495,68 @@ int chain_launch(const void* dyf, const void* dyb, const void* cf,
       s0, S, steps, B, H, R);
 }
 
+// ---------------------------------------------------------------------------
+// K3's cluster route: phase 1, both directions' recurrent sums of every
+// step at once, then the backward chain with both directions on them
+// ---------------------------------------------------------------------------
+
+template <typename T>
+__global__ void __launch_bounds__(kGateThreads)
+bilstm_bwd_gates_kernel(const T* __restrict__ yf, const T* __restrict__ yb,
+                        const T* __restrict__ whf, const T* __restrict__ whb,
+                        float* __restrict__ pre, int s0, int S, int steps,
+                        int B, int H, int cols, int) {
+  gates_warp_body<T, Sums::kRec>(nullptr, nullptr, whf, whb, pre, S * B, 0,
+                                 H, 4, 2, cols,
+                                 BiWalkRows<T>{yf, yb, s0, steps, B, H});
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kTileThreads, 1)
+bilstm_bwd_gates_tiled_kernel(const T* __restrict__ yf,
+                              const T* __restrict__ yb,
+                              const T* __restrict__ whf,
+                              const T* __restrict__ whb,
+                              float* __restrict__ pre, int s0, int S,
+                              int steps, int B, int H, int) {
+  gates_tiled_body<T, Sums::kRec>(nullptr, nullptr, whf, whb, pre, S * B, 0,
+                                  H, 4, 2,
+                                  BiWalkRows<T>{yf, yb, s0, steps, B, H});
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kBwdChainThreads)
+bilstm_bwd_chain_kernel(const T* __restrict__ dyf, const T* __restrict__ dyb,
+                        const T* __restrict__ xp, const float* __restrict__ cf,
+                        const float* __restrict__ cb,
+                        const T* __restrict__ whf, const T* __restrict__ whb,
+                        const int32_t* __restrict__ lens,
+                        const float* __restrict__ pre, T* __restrict__ dgf,
+                        T* __restrict__ dgb, float* __restrict__ state,
+                        int s0, int S, int steps, int B, int H, int R) {
+  bwd_chain_body<LstmBwdCell, false, T>(
+      pre, xp, dyf, dyb, cf, cb, whf, whb, lens, dgf,
+      static_cast<T*>(nullptr), dgb, static_cast<T*>(nullptr), state, 2, s0,
+      S, steps, B, H, R, 0);
+}
+
+template <typename T>
+int rec_chain_launch(const void* dyf, const void* dyb, const void* xp,
+                     const void* cf, const void* cb, const void* whf,
+                     const void* whb, const void* lens, const void* pre,
+                     void* dgf, void* dgb, void* state, int s0, int S,
+                     int steps, int B, int H, int C, int R, void* stream) {
+  return bwd_chain_launch<LstmBwdCell, false>(
+      bilstm_bwd_chain_kernel<T>, C, 2, s0, S, steps, B, H, R, stream,
+      static_cast<const T*>(dyf), static_cast<const T*>(dyb),
+      static_cast<const T*>(xp), static_cast<const float*>(cf),
+      static_cast<const float*>(cb), static_cast<const T*>(whf),
+      static_cast<const T*>(whb), static_cast<const int32_t*>(lens),
+      static_cast<const float*>(pre), static_cast<T*>(dgf),
+      static_cast<T*>(dgb), static_cast<float*>(state), s0, S, steps, B, H,
+      R);
+}
+
 }  // namespace
 
 extern "C" {
@@ -494,7 +582,8 @@ int bilstm_bwd_max_rows_bf16(int H) {
   return max_rows_of<__nv_bfloat16>(H);
 }
 
-// K3.  part: the partial-dh exchange, bilstm_bwd_exchange_floats(B, H) f32
+// K3's cooperative route.  part: the partial-dh exchange,
+// bilstm_bwd_exchange_floats(B, H) f32
 int bilstm_bwd_f32(const void* dyf, const void* dyb, const void* xp,
                    const void* yf, const void* cf, const void* yb,
                    const void* cb, const void* whf, const void* whb,
@@ -514,8 +603,61 @@ int bilstm_bwd_bf16(const void* dyf, const void* dyb, const void* xp,
 }
 
 // the opt-in shared memory of one block on the current device, in bytes
-// (K10b's plan sizes its clusters by it), or a negative CUDA error code
-int bilstm_proj_bwd_smem_optin(void) { return smem_optin_bytes(); }
+// (the plans of K3's cluster route and of K10b size their clusters by
+// it), or a negative CUDA error code
+int bilstm_bwd_smem_optin(void) { return smem_optin_bytes(); }
+
+// K3's cluster route, phase 1 over walk steps s0 .. s0+S-1 of `steps`:
+// y_f, y_b [T, B, H] and w_h_f, w_h_b [H, 4H] in the compute dtype -> pre
+// [S, B, 8H] f32, row i the recurrent sums y[prev] . W_h of step s0 + i
+// (the forward direction's at t = T-1-s, over y_f[t-1]; the backward's at
+// t = s, over y_b[t+1]).  cols 0: the tiled kernel (H <= 426); 1..32: the
+// warp kernel with that many gate columns a block.
+int bilstm_bwd_gates_f32(const void* yf, const void* yb, const void* whf,
+                         const void* whb, void* pre, int s0, int S,
+                         int steps, int B, int H, int cols, void* stream) {
+  return rec_gates_launch<float>(bilstm_bwd_gates_tiled_kernel<float>,
+                                 bilstm_bwd_gates_kernel<float>, yf, yb, whf,
+                                 whb, pre, s0, S, steps, B, H, 4, 2, cols, 0,
+                                 stream);
+}
+
+int bilstm_bwd_gates_bf16(const void* yf, const void* yb, const void* whf,
+                          const void* whb, void* pre, int s0, int S,
+                          int steps, int B, int H, int cols, void* stream) {
+  return rec_gates_launch<__nv_bfloat16>(
+      bilstm_bwd_gates_tiled_kernel<__nv_bfloat16>,
+      bilstm_bwd_gates_kernel<__nv_bfloat16>, yf, yb, whf, whb, pre, s0, S,
+      steps, B, H, 4, 2, cols, 0, stream);
+}
+
+// K3's cluster route, phase 2 over the same steps: dy_f, dy_b [T, B, H],
+// xp [T, B, 8H] and w_h_f, w_h_b in the compute dtype, c_f, c_b [T, B, H]
+// f32, lens [B] int32, pre from phase 1 -> dg_f, dg_b [T, B, 4H] at those
+// steps' frames; state [2][2][B][H] f32 holds dh and dc (per direction) on
+// entry and, unless the walk ends here, on exit.  C CTAs per cluster (a
+// power of two <= 16), R rows per cluster.
+int bilstm_bwd_chain_f32(const void* dyf, const void* dyb, const void* xp,
+                         const void* cf, const void* cb, const void* whf,
+                         const void* whb, const void* lens, const void* pre,
+                         void* dgf, void* dgb, void* state, int s0, int S,
+                         int steps, int B, int H, int C, int R,
+                         void* stream) {
+  return rec_chain_launch<float>(dyf, dyb, xp, cf, cb, whf, whb, lens, pre,
+                                 dgf, dgb, state, s0, S, steps, B, H, C, R,
+                                 stream);
+}
+
+int bilstm_bwd_chain_bf16(const void* dyf, const void* dyb, const void* xp,
+                          const void* cf, const void* cb, const void* whf,
+                          const void* whb, const void* lens, const void* pre,
+                          void* dgf, void* dgb, void* state, int s0, int S,
+                          int steps, int B, int H, int C, int R,
+                          void* stream) {
+  return rec_chain_launch<__nv_bfloat16>(dyf, dyb, xp, cf, cb, whf, whb, lens,
+                                         pre, dgf, dgb, state, s0, S, steps,
+                                         B, H, C, R, stream);
+}
 
 // K10b phase 1 over walk steps s0 .. s0+S-1 of `steps`: x [T, B, D], y_f,
 // y_b [T, B, H], wx [D, 8H], w_h_f, w_h_b [H, 4H] in the compute dtype,

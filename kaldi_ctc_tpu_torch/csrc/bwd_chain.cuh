@@ -1,9 +1,10 @@
 // The backward recurrence of an LSTM or a GRU in thread-block clusters,
 // the serial half of a backward kernel split in two: phase 2 of K10b
 // (csrc/bilstm_bwd.cu: both LSTM directions, the gate pre-activations
-// from its phase 1), K6 (csrc/lstm_bwd.cu: one LSTM direction) and K9b
-// (csrc/gru_bwd.cu: one GRU direction), both on their phase 1's
-// recurrent sums plus the stored projection x_proj.  The cell is a
+// from its phase 1), K3 (csrc/bilstm_bwd.cu: both LSTM directions), K6
+// (csrc/lstm_bwd.cu: one LSTM direction) and K9b (csrc/gru_bwd.cu: one
+// GRU direction), the last three on their phase 1's recurrent sums plus
+// the stored projection (xp or x_proj).  The cell is a
 // policy (LstmBwdCell, GruBwdCell below): its gate columns per unit, the
 // residuals it reads, its carries and its gate math.
 //
@@ -13,10 +14,10 @@
 // direction's forward order in reverse (step s at t = T-1-s for a
 // forward direction, whose previous frame is t-1; at t = s for a reverse
 // one, previous frame t+1).  At each step, for each (row, unit):
-//   - the gates, from the scratch (K10b: the pre-activation; K6, K9b: the
-//     recurrent sum, to which the chain adds x_proj[t], the one addition
-//     the forward chain makes, so the gates equal the forward's bit for
-//     bit: the recompute invariant);
+//   - the gates, from the scratch (K10b: the pre-activation; K3, K6,
+//     K9b: the recurrent sum, to which the chain adds x_proj[t], the one
+//     addition the forward chain makes, so the gates equal the forward's
+//     bit for bit: the recompute invariant);
 //   - dh_total = dy[t] + dh and the cell's gate math: the dgates written
 //     in the compute dtype, zero at pad frames;
 //   - the CTA's partial dh = dgates_own . W_h_own^T for every unit k, the

@@ -2,8 +2,9 @@
 // K2 (csrc/bilstm_fwd.cu: both LSTM directions from the hoisted projection
 // xp), phase 2 of K10a (csrc/bilstm_fwd.cu: both directions, the
 // projection from phase 1's f32 scratch), K5 (csrc/lstm_fwd.cu: one LSTM
-// direction from x_proj) and K9a (csrc/gru_fwd.cu: one GRU direction from
-// x_proj).  The cell is a policy (LstmCell, GruCell below): its number of
+// direction from x_proj), K9a (csrc/gru_fwd.cu: one GRU direction from
+// x_proj) and K8a (csrc/gru_fwd.cu: both GRU directions from xp).  The
+// cell is a policy (LstmCell, GruCell below): its number of
 // gate columns per unit, its one f32 state per (row, unit) and its gate
 // math.
 //

@@ -342,7 +342,8 @@ int launch(bool bidirectional, const void* dy0, const void* dy1,
 
 template <typename T>
 __global__ void __launch_bounds__(kGateThreads)
-gru_bwd_gates_kernel(const T* __restrict__ y, const T* __restrict__ wh,
+gru_bwd_gates_kernel(const T* __restrict__ y, const T*,
+                     const T* __restrict__ wh, const T*,
                      float* __restrict__ pre, int s0, int S, int steps,
                      int B, int H, int cols, int reverse) {
   gates_warp_body<T, Sums::kRec>(nullptr, nullptr, wh, wh, pre, S * B, 0, H,
@@ -352,8 +353,8 @@ gru_bwd_gates_kernel(const T* __restrict__ y, const T* __restrict__ wh,
 
 template <typename T>
 __global__ void __launch_bounds__(kTileThreads, 1)
-gru_bwd_gates_tiled_kernel(const T* __restrict__ y,
-                           const T* __restrict__ wh,
+gru_bwd_gates_tiled_kernel(const T* __restrict__ y, const T*,
+                           const T* __restrict__ wh, const T*,
                            float* __restrict__ pre, int s0, int S, int steps,
                            int B, int H, int reverse) {
   gates_tiled_body<T, Sums::kRec>(nullptr, nullptr, wh, wh, pre, S * B, 0,
@@ -453,8 +454,9 @@ int gru_bwd_gates_f32(const void* y, const void* wh, void* pre, int s0,
                       int S, int steps, int B, int H, int cols, int reverse,
                       void* stream) {
   return rec_gates_launch<float>(gru_bwd_gates_tiled_kernel<float>,
-                                 gru_bwd_gates_kernel<float>, y, wh, pre, s0,
-                                 S, steps, B, H, 3, cols, reverse, stream);
+                                 gru_bwd_gates_kernel<float>, y, y, wh, wh,
+                                 pre, s0, S, steps, B, H, 3, 1, cols,
+                                 reverse, stream);
 }
 
 int gru_bwd_gates_bf16(const void* y, const void* wh, void* pre, int s0,
@@ -462,8 +464,8 @@ int gru_bwd_gates_bf16(const void* y, const void* wh, void* pre, int s0,
                        void* stream) {
   return rec_gates_launch<__nv_bfloat16>(
       gru_bwd_gates_tiled_kernel<__nv_bfloat16>,
-      gru_bwd_gates_kernel<__nv_bfloat16>, y, wh, pre, s0, S, steps, B, H, 3,
-      cols, reverse, stream);
+      gru_bwd_gates_kernel<__nv_bfloat16>, y, y, wh, wh, pre, s0, S, steps,
+      B, H, 3, 1, cols, reverse, stream);
 }
 
 // K9b's cluster route, phase 2 over the same steps: dy, x_proj, y, w_h in

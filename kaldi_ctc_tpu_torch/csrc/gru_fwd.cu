@@ -23,18 +23,21 @@
 // SMs.  W_h is 320 x 960 (1.2 MB in f32) per direction, far more than one
 // block's 227 KB of shared memory.
 //
-// K9a has two routes, chosen by the wrapper's plan from the shapes
-// (ops/rnn_cuda.py::fwd_chain_plan with three gates):
+// K9a and K8a have two routes each, chosen by the wrapper's plan from the
+// shapes (ops/rnn_cuda.py::fwd_chain_plan with three gates and one or two
+// directions):
 //   - the cluster route, wherever W_h's three gate columns fit a cluster
 //     of at most 16 CTAs (H up to ~545 in f32, ~770 in bf16):
-//     gru_fwd_chain_kernel, the forward chain of csrc/fwd_chain.cuh with
-//     the GRU cell (GruCell: three sums a unit, the f32 carry h as the
-//     cell's state), reading x_proj directly.  Rows never meet, so each
-//     cluster of C CTAs walks a group of R rows with W_h in distributed
+//     gru_fwd_chain_kernel (K9a) or bigru_fwd_chain_kernel (K8a, both
+//     directions; its own name, so a trace tells it from K9a), the
+//     forward chain of csrc/fwd_chain.cuh with the GRU cell (GruCell:
+//     three sums a unit, the f32 carry h as the cell's state), reading
+//     x_proj or xp directly.  Rows never meet, so each cluster of C CTAs
+//     walks one direction of a group of R rows with W_h in distributed
 //     shared memory and one cluster barrier a step: no grid barrier, any
 //     B;
-//   - the cooperative route above that: gru_fwd_kernel, below.
-// K8a runs the cooperative design with both directions.
+//   - the cooperative route above that: gru_fwd_kernel (K9a) or
+//     bigru_fwd_kernel (K8a), below.
 //
 // The cooperative design: K2's (csrc/bilstm_fwd.cu) with three gate
 // columns per unit.  One cooperative launch: each block owns hs hidden
@@ -58,7 +61,7 @@
 // Every route sums in warp_dot's order (csrc/bilstm_cell.cuh), the order
 // K8b and K9b recompute the sums in, and does the gate math of one
 // function, gru_cell() of csrc/fwd_chain.cuh: K9a's two routes agree bit
-// for bit.
+// for bit, and so do K8a's, each direction with K9a's on its half of xp.
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
@@ -262,6 +265,33 @@ int chain_launch(const void* xp, const void* wh, const void* lens, void* y,
                                          stream);
 }
 
+// K8a's cluster route: the forward chain with the GRU cell, both
+// directions on xp [T, B, 6H] (the forward direction's 3H first)
+template <typename T, int RT>
+__global__ void __launch_bounds__(kChainFwdThreads)
+bigru_fwd_chain_kernel(const T* pre, int pre_stride, int t0f, int t0b,
+                       const T* whf, const T* whb, const int32_t* lens,
+                       T* yf, float* cf, T* yb, float* cb, float* state,
+                       int dirs, int s0, int S, int steps, int B, int H,
+                       int R, int reverse) {
+  fwd_chain_body<GruCell, T, T, RT>(pre, pre_stride, t0f, t0b, whf, whb,
+                                    lens, yf, cf, yb, cb, state, dirs, s0, S,
+                                    steps, B, H, R, reverse);
+}
+
+template <typename T>
+int bichain_launch(const void* xp, const void* whf, const void* whb,
+                   const void* lens, void* yf, void* yb, void* state,
+                   int steps, int B, int H, int C, int R, void* stream) {
+  auto kern = R >= 4 ? &bigru_fwd_chain_kernel<T, 4>
+              : R >= 2 ? &bigru_fwd_chain_kernel<T, 2>
+                       : &bigru_fwd_chain_kernel<T, 1>;
+  return fwd_chain_launch<GruCell, T, T>(kern, xp, 6 * H, 0, 0, whf, whb,
+                                         lens, yf, nullptr, yb, nullptr,
+                                         state, 2, 0, steps, steps, B, H, C,
+                                         R, 0, stream);
+}
+
 }  // namespace
 
 extern "C" {
@@ -279,7 +309,8 @@ int bigru_fwd_max_rows_bf16(int H) {
 }
 
 // the opt-in shared memory of one block on the current device, in bytes
-// (K9a's plan sizes its clusters by it), or a negative CUDA error code
+// (K9a's and K8a's plans size their clusters by it), or a negative CUDA
+// error code
 int gru_fwd_smem_optin(void) { return smem_optin_bytes(); }
 
 // K9a's cooperative route.  hbuf: [2 parities][B][H] f32, parity 0 zeroed
@@ -315,8 +346,28 @@ int gru_fwd_chain_bf16(const void* xp, const void* wh, const void* lens,
                                      R, reverse, stream);
 }
 
-// K8a.  hbuf: [2 parities][2 directions][B][H] f32, parity 0 zeroed by
-// the caller
+// K8a's cluster route: xp [T, B, 6H] and w_h_f, w_h_b [H, 3H] in the
+// compute dtype, lens [B] int32 -> y_f, y_b [T, B, H] in the compute
+// dtype; state [2 (h, h)][2 directions][B][H] f32 zeroed by the caller (the
+// operand's h and the cell's f32 carry).  C CTAs per cluster (a power of
+// two <= 16), R rows per cluster.
+int bigru_fwd_chain_f32(const void* xp, const void* whf, const void* whb,
+                        const void* lens, void* yf, void* yb, void* state,
+                        int steps, int B, int H, int C, int R, void* stream) {
+  return bichain_launch<float>(xp, whf, whb, lens, yf, yb, state, steps, B,
+                               H, C, R, stream);
+}
+
+int bigru_fwd_chain_bf16(const void* xp, const void* whf, const void* whb,
+                         const void* lens, void* yf, void* yb, void* state,
+                         int steps, int B, int H, int C, int R,
+                         void* stream) {
+  return bichain_launch<__nv_bfloat16>(xp, whf, whb, lens, yf, yb, state,
+                                       steps, B, H, C, R, stream);
+}
+
+// K8a's cooperative route.  hbuf: [2 parities][2 directions][B][H] f32,
+// parity 0 zeroed by the caller
 int bigru_fwd_f32(const void* xp, const void* whf, const void* whb,
                   const void* lens, void* yf, void* yb, void* hbuf,
                   int steps, int B, int H, void* stream) {

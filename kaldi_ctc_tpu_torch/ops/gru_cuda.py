@@ -11,11 +11,11 @@ tensor to its plain version (``*_reference``) and launches the kernel or
 raises for a CUDA tensor.  :func:`gru_sequence` and :func:`bigru_layer`
 are ``torch.autograd.Function``s whose backward runs K9b or K8b and then
 the weight and input gradients as plain products, as the JAX package
-leaves them to XLA.  On the card K9a's route comes from
-``rnn_cuda.fwd_chain_plan`` with three gates: the forward chain in
-thread-block clusters (``csrc/fwd_chain.cuh`` with the GRU cell; any B,
-one launch) where W_h fits a cluster, else the cooperative kernel in row
-slices.  K9b's comes from ``rnn_cuda.bwd_chain_plan`` with three gates:
+leaves them to XLA.  On the card K9a's and K8a's routes come from
+``rnn_cuda.fwd_chain_plan`` with three gates and one or two directions:
+the forward chain in thread-block clusters (``csrc/fwd_chain.cuh`` with
+the GRU cell; any B, one launch) where W_h fits a cluster, else the
+cooperative kernel in row slices.  K9b's comes from ``rnn_cuda.bwd_chain_plan`` with three gates:
 every step's recurrent sums at once, then the backward chain in clusters
 (``csrc/bwd_chain.cuh`` with the GRU cell; any B), else the cooperative
 kernel in row slices.
@@ -52,8 +52,8 @@ from kaldi_ctc_tpu_torch.ops.rnn_cuda import (_I, _P, _REC_GATES_ARGS,
 __all__ = ["gru_seq_fwd", "gru_seq_fwd_reference", "gru_seq_bwd_dgates",
            "gru_seq_bwd_dgates_reference", "gru_sequence", "bigru_seq_fwd",
            "bigru_seq_fwd_reference", "bigru_seq_bwd_dgates",
-           "bigru_seq_bwd_dgates_reference", "bigru_layer", "k9a_plan",
-           "k9b_plan"]
+           "bigru_seq_bwd_dgates_reference", "bigru_layer", "k8a_plan",
+           "k9a_plan", "k9b_plan"]
 
 _FWD_SIGNATURES = {"gru_fwd_f32": [_P] * 5 + [_I] * 4 + [_P],
                    "gru_fwd_bf16": [_P] * 5 + [_I] * 4 + [_P],
@@ -61,7 +61,9 @@ _FWD_SIGNATURES = {"gru_fwd_f32": [_P] * 5 + [_I] * 4 + [_P],
                    "gru_fwd_chain_bf16": [_P] * 5 + [_I] * 6 + [_P],
                    "gru_fwd_smem_optin": [],
                    "bigru_fwd_f32": [_P] * 7 + [_I] * 3 + [_P],
-                   "bigru_fwd_bf16": [_P] * 7 + [_I] * 3 + [_P]}
+                   "bigru_fwd_bf16": [_P] * 7 + [_I] * 3 + [_P],
+                   "bigru_fwd_chain_f32": [_P] * 7 + [_I] * 5 + [_P],
+                   "bigru_fwd_chain_bf16": [_P] * 7 + [_I] * 5 + [_P]}
 _BWD_SIGNATURES = {"gru_bwd_f32": [_P] * 8 + [_I] * 4 + [_P],
                    "gru_bwd_bf16": [_P] * 8 + [_I] * 4 + [_P],
                    "bigru_bwd_f32": [_P] * 13 + [_I] * 3 + [_P],
@@ -427,7 +429,10 @@ def bigru_seq_fwd(xp: torch.Tensor, w_h_f: torch.Tensor, w_h_b: torch.Tensor,
     """xp [T, B, 6H] fused projection (forward half first, compute dtype),
     w_h_f / w_h_b [H, 3H] in the compute dtype, lens [B] → (y_f, y_b)
     [T, B, H] in y_dtype (default xp's).  The contract of
-    ``_bigru_seq_fwd``."""
+    ``_bigru_seq_fwd``.  On the card the route is :func:`k8a_plan`'s,
+    from the shapes: both directions' forward chains in thread-block
+    clusters (any B, one launch) where W_h fits a cluster, else the
+    cooperative kernel in row slices."""
     y_dtype = xp.dtype if y_dtype is None else y_dtype
     if xp.device.type == "cpu":
         return bigru_seq_fwd_reference(xp, w_h_f, w_h_b, lens, y_dtype)
@@ -448,16 +453,61 @@ def bigru_seq_fwd(xp: torch.Tensor, w_h_f: torch.Tensor, w_h_b: torch.Tensor,
         return tuple(torch.empty((t_max, b, h), dtype=y_dtype, device=dev)
                      for _ in range(2))
     lib = _kernels.load("gru_fwd", _FWD_SIGNATURES)
+    plan = k8a_plan(lib, b, h, xp.dtype, dev)
+    lens32 = lens.to(torch.int32).contiguous()
+    if plan.route == "cluster":
+        out = _bigru_fwd_chain(lib, xp, w_h_f, w_h_b, lens32, plan)
+    else:
+        out = _bigru_fwd_cooperative(lib, xp, w_h_f, w_h_b, lens32)
+    bigru_seq_fwd.launches += 1
+    return out
+
+
+def k8a_plan(lib, b: int, h: int, dtype: torch.dtype, device
+             ) -> FwdChainPlan:
+    """K8a's route and launch shape on ``device``:
+    ``rnn_cuda.fwd_chain_plan`` with three gates and both directions."""
+    return fwd_chain_plan(b, 0, h, dtype, 2, _sm_count(device),
+                          _smem_optin(lib, "gru_fwd_smem_optin", device),
+                          gates=3)
+
+
+def _bigru_fwd_chain(lib, xp: torch.Tensor, w_h_f: torch.Tensor,
+                     w_h_b: torch.Tensor, lens32: torch.Tensor,
+                     plan: FwdChainPlan) -> Pair:
+    """K8a's cluster route (``bigru_fwd_chain_*``, one launch for any B) on
+    checked operands."""
+    t_max, b, g6 = xp.shape
+    h = g6 // 6
+    dev = xp.device
+    y_f = torch.empty((t_max, b, h), dtype=xp.dtype, device=dev)
+    y_b = torch.empty_like(y_f)
+    # the initial h of each direction: the operand's and the cell's carry
+    state = torch.zeros((2, 2, b, h), dtype=torch.float32, device=dev)
+    err = getattr(lib, "bigru_fwd_chain_" + _SUFFIX[xp.dtype])(
+        xp.data_ptr(), w_h_f.data_ptr(), w_h_b.data_ptr(), lens32.data_ptr(),
+        y_f.data_ptr(), y_b.data_ptr(), state.data_ptr(), t_max, b, h,
+        plan.cluster, plan.rows, _kernels.stream_ptr(dev))
+    _kernels.check(lib, err, f"bigru_seq_fwd at T={t_max}, B={b}, {plan}")
+    return y_f, y_b
+
+
+def _bigru_fwd_cooperative(lib, xp: torch.Tensor, w_h_f: torch.Tensor,
+                           w_h_b: torch.Tensor, lens32: torch.Tensor) -> Pair:
+    """K8a's cooperative route (``bigru_fwd_*``) on checked operands, in
+    row slices under its ceiling."""
+    t_max, _, g6 = xp.shape
+    h = g6 // 6
+    dev = xp.device
     sfx = _SUFFIX[xp.dtype]
 
-    def launch(xp, lens):
+    def launch(xp, lens32):
         n = xp.shape[1]
-        y_f = torch.empty((t_max, n, h), dtype=y_dtype, device=dev)
+        y_f = torch.empty((t_max, n, h), dtype=xp.dtype, device=dev)
         y_b = torch.empty_like(y_f)
         # h exchange between blocks: [parity][direction][B][H], parity 0
         # = h0
         hbuf = torch.zeros((2, 2, n, h), dtype=torch.float32, device=dev)
-        lens32 = lens.to(torch.int32).contiguous()
         err = getattr(lib, "bigru_fwd_" + sfx)(
             xp.data_ptr(), w_h_f.data_ptr(), w_h_b.data_ptr(),
             lens32.data_ptr(), y_f.data_ptr(), y_b.data_ptr(),
@@ -465,11 +515,9 @@ def bigru_seq_fwd(xp: torch.Tensor, w_h_f: torch.Tensor, w_h_b: torch.Tensor,
         _kernels.check(lib, err, "bigru_seq_fwd")
         return y_f, y_b
 
-    out = run_in_row_slices(
+    return run_in_row_slices(
         launch, max_rows(lib, "bigru_fwd_max_rows_" + sfx, dev, h), xp,
-        lens)
-    bigru_seq_fwd.launches += 1
-    return out
+        lens32)
 
 
 bigru_seq_fwd.launches = 0  # kernel launches made by this wrapper

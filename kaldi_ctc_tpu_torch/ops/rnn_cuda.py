@@ -27,11 +27,11 @@ the reference does.  K10a and K5 walk their recurrence in thread-block
 clusters (``csrc/fwd_chain.cuh``), which take any batch by design, and so
 do K2 and the GRU's K9a (``ops/gru_cuda.py``) where W_h fits a cluster;
 their launch shape comes from :func:`fwd_chain_plan`, which sends K2, K5
-and K9a to their cooperative kernels where W_h fits no cluster.  The
-backwards K6, K9b and K10b (phase 2) walk the dh chain the same way
-(``csrc/bwd_chain.cuh``) after a phase 1 that computes every step's gate
-sums at once; :func:`bwd_chain_plan` sends K6 and K9b to their
-cooperative kernels where W_h fits no cluster.
+and K9a (and the GRU's K8a) to their cooperative kernels where W_h fits
+no cluster.  The backwards K3, K6, K9b and K10b (phase 2) walk the dh
+chain the same way (``csrc/bwd_chain.cuh``) after a phase 1 that
+computes every step's gate sums at once; :func:`bwd_chain_plan` sends
+K3, K6 and K9b to their cooperative kernels where W_h fits no cluster.
 
 Under bfloat16 the shipped default of the JAX package's ``_bf16_cfg``
 holds: the projection, the layer outputs and the dgates are stored in
@@ -60,7 +60,7 @@ __all__ = ["bilstm_seq_fwd", "bilstm_seq_fwd_reference",
            "lstm_sequence", "lstm_stack_fwd", "lstm_stack_fwd_reference",
            "lstm_stack_fits", "max_rows", "run_in_row_slices", "K10bPlan",
            "k10b_plan", "FwdChainPlan", "fwd_chain_plan", "k2_plan",
-           "BwdChainPlan", "bwd_chain_plan", "k6_plan"]
+           "BwdChainPlan", "bwd_chain_plan", "k3_plan", "k6_plan"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -82,12 +82,19 @@ _BWD_ARGS = [_P] * 13 + [_I, _I, _I, _P]
 _GATES_ARGS = [_P] * 8 + [_I] * 7 + [_P]
 _TILED_ARGS = [_P] * 8 + [_I] * 6 + [_P]
 _CHAIN_ARGS = [_P] * 11 + [_I] * 7 + [_P]
+# K3's cluster route: phase 1 and the backward chain with both directions
+_BI_GATES_ARGS = [_P] * 5 + [_I] * 6 + [_P]
+_BI_CHAIN_ARGS = [_P] * 12 + [_I] * 7 + [_P]
 _BWD_SIGNATURES = {"bilstm_bwd_f32": _BWD_ARGS,
                    "bilstm_bwd_bf16": _BWD_ARGS,
                    "bilstm_bwd_exchange_floats": [_I, _I],
                    "bilstm_bwd_max_rows_f32": [_I],
                    "bilstm_bwd_max_rows_bf16": [_I],
-                   "bilstm_proj_bwd_smem_optin": [],
+                   "bilstm_bwd_smem_optin": [],
+                   "bilstm_bwd_gates_f32": _BI_GATES_ARGS,
+                   "bilstm_bwd_gates_bf16": _BI_GATES_ARGS,
+                   "bilstm_bwd_chain_f32": _BI_CHAIN_ARGS,
+                   "bilstm_bwd_chain_bf16": _BI_CHAIN_ARGS,
                    "bilstm_proj_gates_f32": _GATES_ARGS,
                    "bilstm_proj_gates_bf16": _GATES_ARGS,
                    "bilstm_proj_gates_tiled_f32": _TILED_ARGS,
@@ -415,7 +422,12 @@ def bilstm_seq_bwd_dgates(dy_f: torch.Tensor, dy_b: torch.Tensor,
     residuals (xp [T, B, 8H], y and c of both directions, w_h_f / w_h_b
     [H, 4H] in the compute dtype, lens [B]) → (dg_f, dg_b) [T, B, 4H] in
     xp's dtype, the gate pre-activation cotangents.  The contract of
-    ``_bilstm_seq_bwd_dgates`` with its default dgates dtype."""
+    ``_bilstm_seq_bwd_dgates`` with its default dgates dtype.  On the card
+    the route is :func:`k3_plan`'s, from the shapes: phase 1 (both
+    directions' recurrent sums of every step at once) and the backward
+    chain with both directions in thread-block clusters (any B, chunks of
+    steps above a 256 MiB scratch) where W_h fits a cluster, else the
+    cooperative kernel in row slices."""
     if xp.device.type == "cpu":
         return bilstm_seq_bwd_dgates_reference(
             dy_f, dy_b, xp, y_f, c_f, y_b, c_b, w_h_f, w_h_b, lens)
@@ -430,9 +442,91 @@ def bilstm_seq_bwd_dgates(dy_f: torch.Tensor, dy_b: torch.Tensor,
         return tuple(torch.empty((t_max, b, 4 * h), dtype=xp.dtype,
                                  device=dev) for _ in range(2))
     lib = _kernels.load("bilstm_bwd", _BWD_SIGNATURES)
+    plan = k3_plan(lib, b, h, xp.dtype, dev)
+    lens32 = lens.to(torch.int32).contiguous()
+    ops = (dy_f, dy_b, xp, y_f, c_f, y_b, c_b, w_h_f, w_h_b, lens32)
+    if plan.route == "cluster":
+        out = _bilstm_bwd_chain(lib, *ops, plan)
+    else:
+        out = _bilstm_bwd_cooperative(lib, *ops)
+    bilstm_seq_bwd_dgates.launches += 1
+    return out
+
+
+def k3_plan(lib: ctypes.CDLL, b: int, h: int, dtype: torch.dtype,
+            device) -> "BwdChainPlan":
+    """K3's route and launch shape on ``device``: :func:`bwd_chain_plan`
+    with four gates and both directions."""
+    return bwd_chain_plan(b, h, dtype, 2, _sm_count(device),
+                          _smem_optin(lib, "bilstm_bwd_smem_optin", device))
+
+
+def _k3_gates(lib: ctypes.CDLL, y_f, y_b, w_h_f, w_h_b, pre: torch.Tensor,
+              s0: int, n: int, plan: "BwdChainPlan") -> None:
+    """K3's phase 1 for walk steps s0 .. s0+n-1: both directions'
+    recurrent sums into pre[:n]."""
+    t_max, b, h = y_f.shape
+    err = getattr(lib, "bilstm_bwd_gates_" + _SUFFIX[y_f.dtype])(
+        y_f.data_ptr(), y_b.data_ptr(), w_h_f.data_ptr(), w_h_b.data_ptr(),
+        pre.data_ptr(), s0, n, t_max, b, h, plan.gate_cols,
+        _kernels.stream_ptr(y_f.device))
+    _kernels.check(lib, err, f"bilstm_seq_bwd_dgates phase 1 at T={t_max}, "
+                             f"B={b}, {plan}")
+
+
+def _k3_chain(lib: ctypes.CDLL, dy_f, dy_b, xp, c_f, c_b, w_h_f, w_h_b,
+              lens32: torch.Tensor, pre: torch.Tensor, dg_f, dg_b,
+              state: torch.Tensor, s0: int, n: int,
+              plan: "BwdChainPlan") -> None:
+    """K3's phase 2 for the same steps: the dh/dc chain of both directions
+    in clusters, dgates into dg_f, dg_b; ``state`` carries dh and dc
+    across chunks."""
+    t_max, b, h = dy_f.shape
+    err = getattr(lib, "bilstm_bwd_chain_" + _SUFFIX[dy_f.dtype])(
+        dy_f.data_ptr(), dy_b.data_ptr(), xp.data_ptr(), c_f.data_ptr(),
+        c_b.data_ptr(), w_h_f.data_ptr(), w_h_b.data_ptr(),
+        lens32.data_ptr(), pre.data_ptr(), dg_f.data_ptr(), dg_b.data_ptr(),
+        state.data_ptr(), s0, n, t_max, b, h, plan.cluster, plan.rows,
+        _kernels.stream_ptr(dy_f.device))
+    _kernels.check(lib, err, f"bilstm_seq_bwd_dgates phase 2 at T={t_max}, "
+                             f"B={b}, {plan}")
+
+
+def _bilstm_bwd_chain(lib: ctypes.CDLL, dy_f, dy_b, xp, y_f, c_f, y_b, c_b,
+                      w_h_f, w_h_b, lens32: torch.Tensor,
+                      plan: "BwdChainPlan") -> Tuple[torch.Tensor,
+                                                     torch.Tensor]:
+    """K3's cluster route (``bilstm_bwd_gates_*``, then
+    ``bilstm_bwd_chain_*``, per chunk of steps) on checked operands."""
+    t_max, b, g8 = xp.shape
+    h = g8 // 8
+    dev = xp.device
+    dg_f = torch.empty((t_max, b, 4 * h), dtype=xp.dtype, device=dev)
+    dg_b = torch.empty_like(dg_f)
+    # phase 1's scratch holds the steps of one chunk; phase 2 carries dh
+    # and dc between chunks in `state`
+    steps = _scratch_steps(t_max, b, g8)
+    pre = torch.empty((steps, b, g8), dtype=torch.float32, device=dev)
+    state = torch.zeros((2, 2, b, h), dtype=torch.float32, device=dev)
+    for s0 in range(0, t_max, steps):
+        n = min(steps, t_max - s0)
+        _k3_gates(lib, y_f, y_b, w_h_f, w_h_b, pre, s0, n, plan)
+        _k3_chain(lib, dy_f, dy_b, xp, c_f, c_b, w_h_f, w_h_b, lens32, pre,
+                  dg_f, dg_b, state, s0, n, plan)
+    return dg_f, dg_b
+
+
+def _bilstm_bwd_cooperative(lib: ctypes.CDLL, dy_f, dy_b, xp, y_f, c_f,
+                            y_b, c_b, w_h_f, w_h_b, lens32: torch.Tensor
+                            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K3's cooperative route (``bilstm_bwd_*``) on checked operands, in
+    row slices under its ceiling."""
+    t_max, _, g8 = xp.shape
+    h = g8 // 8
+    dev = xp.device
     sfx = _SUFFIX[xp.dtype]
 
-    def launch(dy_f, dy_b, xp, y_f, c_f, y_b, c_b, lens):
+    def launch(dy_f, dy_b, xp, y_f, c_f, y_b, c_b, lens32):
         n = xp.shape[1]
         dg_f = torch.empty((t_max, n, 4 * h), dtype=xp.dtype, device=dev)
         dg_b = torch.empty_like(dg_f)
@@ -443,7 +537,6 @@ def bilstm_seq_bwd_dgates(dy_f: torch.Tensor, dy_b: torch.Tensor,
         # partial-dh exchange between blocks; every entry read is written
         # in the step before
         part = torch.empty((floats,), dtype=torch.float32, device=dev)
-        lens32 = lens.to(torch.int32).contiguous()
         err = getattr(lib, "bilstm_bwd_" + sfx)(
             dy_f.data_ptr(), dy_b.data_ptr(), xp.data_ptr(), y_f.data_ptr(),
             c_f.data_ptr(), y_b.data_ptr(), c_b.data_ptr(), w_h_f.data_ptr(),
@@ -453,11 +546,9 @@ def bilstm_seq_bwd_dgates(dy_f: torch.Tensor, dy_b: torch.Tensor,
         _kernels.check(lib, err, "bilstm_seq_bwd_dgates")
         return dg_f, dg_b
 
-    out = run_in_row_slices(
+    return run_in_row_slices(
         launch, max_rows(lib, "bilstm_bwd_max_rows_" + sfx, dev, h),
-        dy_f, dy_b, xp, y_f, c_f, y_b, c_b, lens)
-    bilstm_seq_bwd_dgates.launches += 1
-    return out
+        dy_f, dy_b, xp, y_f, c_f, y_b, c_b, lens32)
 
 
 bilstm_seq_bwd_dgates.launches = 0  # kernel launches made by this wrapper
@@ -689,7 +780,7 @@ def k10b_plan(b: int, d: int, h: int, sms: int, smem_optin: int
 
 class BwdChainPlan(NamedTuple):
     """The launch shape of a backward recurrence on the hoisted projection
-    (K6, K9b).  ``route`` "cluster": phase 1, the recurrent sums of every
+    (K3, K6, K9b).  ``route`` "cluster": phase 1, the recurrent sums of every
     step, on the tiled kernel (64 rows and 64 gate columns a block,
     ``gate_cols`` 0) or one warp per row over ``gate_cols`` columns a
     block, ``gates_smem`` bytes a block; phase 2, the backward chain, one
@@ -709,17 +800,18 @@ def bwd_chain_plan(b: int, h: int, dtype: torch.dtype, dirs: int, sms: int,
                    smem_optin: int, gates: int = 4) -> BwdChainPlan:
     """The route and launch shape of a backward recurrence on the hoisted
     projection for a batch of ``b`` rows, ``h`` units of ``gates`` gate
-    columns (4: an LSTM, K6; 3: a GRU, K9b) and ``dirs`` directions in
-    ``dtype`` on a card of ``sms`` SMs with ``smem_optin`` bytes of
-    shared memory per block.
+    columns (4: an LSTM, K3 with dirs 2 and K6 with 1; 3: a GRU, K9b) and
+    ``dirs`` directions in ``dtype`` on a card of ``sms`` SMs with
+    ``smem_optin`` bytes of shared memory per block.
 
     The chain holds W_h as f32 in either dtype (its dh product reads each
     weight once a step per row, so a bf16 copy would cost a conversion in
     the serial loop), so ``dtype`` does not move the fit: the cluster
     route holds where one row fits beside W_h's share of a cluster of 16
     (the LSTM to H ~465, the GRU to ~545), with C and R from
-    :func:`_bwd_chain_shape` (16 and 8 at B = 48, H = 320); above that
-    the kernel's cooperative route.  Phase 1 is tiled where 64 staged rows
+    :func:`_bwd_chain_shape` (16 and 8 at B = 48, H = 320 with one
+    direction, 16 and 16 with two); above that the kernel's cooperative
+    route.  Phase 1 is tiled where 64 staged rows
     and 64 columns of H f32 fit a block (H <= 426), else it takes 32 gate
     columns a block."""
     if dtype not in _SUFFIX:
@@ -737,12 +829,12 @@ def bwd_chain_plan(b: int, h: int, dtype: torch.dtype, dirs: int, sms: int,
 
 
 class FwdChainPlan(NamedTuple):
-    """The launch shape of a forward chain (K2, K5, K9a, K10a).  ``route``
-    "cluster": one cluster of ``cluster`` CTAs per (direction, ``rows``
-    batch rows), each CTA holding ceil(H / cluster) units' gate columns of
-    W_h in the compute dtype (``chain_smem`` bytes in all); "cooperative"
-    (K2, K5 and K9a only): the kernel's cooperative route, and the other
-    fields 0.  K10a's phase 1 runs the tiled kernel (64 frames and 64 gate
+    """The launch shape of a forward chain (K2, K5, K8a, K9a, K10a).
+    ``route`` "cluster": one cluster of ``cluster`` CTAs per (direction,
+    ``rows`` batch rows), each CTA holding ceil(H / cluster) units' gate
+    columns of W_h in the compute dtype (``chain_smem`` bytes in all);
+    "cooperative" (all but K10a): the kernel's cooperative route, and the
+    other fields 0.  K10a's phase 1 runs the tiled kernel (64 frames and 64 gate
     columns a block, ``proj_cols`` 0) or one warp per frame over
     ``proj_cols`` columns a block; ``proj_smem`` is its block's shared
     memory."""
@@ -778,7 +870,8 @@ def fwd_chain_plan(b: int, d: int, h: int, dtype: torch.dtype, dirs: int,
     ``dirs`` directions in ``dtype`` on a card of ``sms`` SMs with
     ``smem_optin`` bytes of shared memory per block: K10a with its input
     width ``d`` (dirs 2); a kernel on the hoisted projection with ``d`` 0:
-    K2 (dirs 2), K5 and K9a (dirs 1, K9a with gates 3).
+    K2 (dirs 2), K5 and K9a (dirs 1, K9a with gates 3), K8a (dirs 2,
+    gates 3).
 
     C is the smallest power of two whose share of W_h as f32 (gates
     ceil(H/C) H floats) leaves half of a CTA's shared memory to the rows:
@@ -921,7 +1014,7 @@ def bilstm_seq_bwd_dgates_proj(dy_f: torch.Tensor, dy_b: torch.Tensor,
         return dg_f, dg_b
     lib = _kernels.load("bilstm_bwd", _BWD_SIGNATURES)
     plan = k10b_plan(b, d, h, _sm_count(dev),
-                     _smem_optin(lib, "bilstm_proj_bwd_smem_optin", dev))
+                     _smem_optin(lib, "bilstm_bwd_smem_optin", dev))
     # phase 1's scratch holds the steps of one chunk; phase 2 carries dh
     # and dc between chunks in `state`
     steps = _scratch_steps(t_max, b, 8 * h)

@@ -1677,6 +1677,268 @@ def test_k6_k9b_chain_launch_errors_raise(cuda):
             _routes(name, lib, args, plan._replace(cluster=32))
 
 
+# ---------------------------------------------------------------------------
+# K8a on the forward chain and K3 on the backward chain, both directions
+# ---------------------------------------------------------------------------
+
+# the f32 H from which K3 and K8a take their cooperative routes: W_h fits
+# no cluster of 16 (bwd_chain_plan with four gates; fwd_chain_plan with
+# three gates, where bf16 halves W_h's share: 800)
+K3_COOPERATIVE_H = 512
+K8A_COOPERATIVE_H = K9A_COOPERATIVE_H
+
+
+def _k3_lib():
+    return _kernels.load("bilstm_bwd", rnn_cuda._BWD_SIGNATURES)
+
+
+def _k3_routes(args, plan):
+    """(cluster route, cooperative route) of K3 on the same checked
+    operands, each (dg_f, dg_b)."""
+    lib = _k3_lib()
+    *ops, lens = args
+    lens32 = lens.to(torch.int32)
+    return (rnn_cuda._bilstm_bwd_chain(lib, *ops, lens32, plan),
+            rnn_cuda._bilstm_bwd_cooperative(lib, *ops, lens32))
+
+
+def _k8a_routes(xp, w_f, w_b, lens, dtype):
+    """(cluster route, cooperative route) of K8a on the same operands."""
+    lib = _gru_lib()
+    b, h = xp.shape[1], xp.shape[2] // 6
+    lens32 = lens.to(torch.int32)
+    plan = rnn_cuda.fwd_chain_plan(b, 0, h, dtype, 2, 132, 232448, gates=3)
+    return (gru_cuda._bigru_fwd_chain(lib, xp, w_f, w_b, lens32, plan),
+            gru_cuda._bigru_fwd_cooperative(lib, xp, w_f, w_b, lens32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b", [1, 48, 600])
+def test_k8a_chain_matches_plain_at_any_batch(cuda, dtype, b):
+    """K8a at H=320 (clusters of 16) against its plain version, ragged
+    rows, one launch at B = 1, 48 and 600 (several waves of clusters, no
+    row slices), through the wrapper and through the cluster route's
+    export."""
+    t, h = 12, 320
+    xp, (w_f, w_b), _, lens = _gru_inputs(t, b, h, dtype, cuda, b + 1, 2)
+    plan = gru_cuda.k8a_plan(_gru_lib(), b, h, dtype, cuda)
+    assert plan.route == "cluster" and plan.cluster == 16, plan
+    before = gru_cuda.bigru_seq_fwd.launches
+    got = gru_cuda.bigru_seq_fwd(xp, w_f, w_b, lens)
+    chain, _ = _k8a_routes(xp, w_f, w_b, lens, dtype)
+    torch.cuda.synchronize()
+    assert gru_cuda.bigru_seq_fwd.launches == before + 1
+    ref = gru_cuda.bigru_seq_fwd_reference(xp, w_f, w_b, lens)
+    for ys in (got, chain):
+        for name, y, r in zip(("y_f", "y_b"), ys, ref):
+            _close(y, r, GRU_TOL[dtype], name)
+        _zero_past_lens(ys, lens, "y")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,h", [(1, 320), (5, 128), (5, 320), (48, 320)])
+def test_k8a_chain_equals_cooperative_and_k9a_bit_for_bit(cuda, dtype, b, h):
+    """K8a's two routes give the same y bit for bit, ragged rows, and each
+    direction of its chain equals K9a's chain on that direction's half of
+    xp (the backward direction as K9a with reverse): the same warp_dot
+    sums and the same gru_cell(), the f32 carry in every route."""
+    t = 20
+    xp, (w_f, w_b), _, lens = _gru_inputs(t, b, h, dtype, cuda, 7 * h + b, 2)
+    chain, coop = _k8a_routes(xp, w_f, w_b, lens, dtype)
+    lib = _gru_lib()
+    lens32 = lens.to(torch.int32)
+    k9a = rnn_cuda.fwd_chain_plan(b, 0, h, dtype, 1, 132, 232448, gates=3)
+    uni = (gru_cuda._gru_fwd_chain(lib, xp[..., :3 * h].contiguous(), w_f,
+                                   lens32, False, k9a),
+           gru_cuda._gru_fwd_chain(lib, xp[..., 3 * h:].contiguous(), w_b,
+                                   lens32, True, k9a))
+    torch.cuda.synchronize()
+    for name, c, k, u in zip(("y_f", "y_b"), chain, coop, uni):
+        assert torch.equal(c, k), name
+        assert torch.equal(c, u), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k8a_cooperative_route_at_a_large_h(cuda, dtype):
+    """Where W_h fits no cluster of 16 the plan sends K8a to its
+    cooperative kernel, which still matches its plain version."""
+    t, b, h = 10, 3, K8A_COOPERATIVE_H[dtype]
+    xp, (w_f, w_b), _, lens = _gru_inputs(t, b, h, dtype, cuda, h, 2)
+    assert gru_cuda.k8a_plan(_gru_lib(), b, h, dtype, cuda).route \
+        == "cooperative"
+    before = gru_cuda.bigru_seq_fwd.launches
+    got = gru_cuda.bigru_seq_fwd(xp, w_f, w_b, lens)
+    torch.cuda.synchronize()
+    assert gru_cuda.bigru_seq_fwd.launches == before + 1
+    for name, g, r in zip(("y_f", "y_b"), got,
+                          gru_cuda.bigru_seq_fwd_reference(xp, w_f, w_b,
+                                                           lens)):
+        _close(g, r, GRU_TOL[dtype], name)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b", [1, 48, 600])
+def test_k3_chain_matches_plain_at_any_batch(cuda, dtype, b):
+    """K3 on its cluster route at H=320 at B = 1, 48 and 600 (several
+    waves of clusters, no row slices; at B=600, T=120 puts the phase-1
+    scratch above 256 MiB, so the walk runs in three chunks of steps)
+    against its plain version, ragged rows, zero at pad frames, one launch
+    a call."""
+    t = 120 if b == 600 else 30
+    args = _bwd_inputs(t, b, 320, dtype, cuda, seed=b + 5)
+    plan = rnn_cuda.k3_plan(_k3_lib(), b, 320, dtype, cuda)
+    assert plan.route == "cluster" and plan.cluster == 16, plan
+    assert -(-t // rnn_cuda._scratch_steps(t, b, 8 * 320)) == \
+        (3 if b == 600 else 1)
+    before = rnn_cuda.bilstm_seq_bwd_dgates.launches
+    got = rnn_cuda.bilstm_seq_bwd_dgates(*args)
+    torch.cuda.synchronize()
+    assert rnn_cuda.bilstm_seq_bwd_dgates.launches == before + 1
+    for name, g, r in zip(("dg_f", "dg_b"), got,
+                          rnn_cuda.bilstm_seq_bwd_dgates_reference(*args)):
+        _close(g, r, LSTM_BWD_TOL[dtype], name)
+    _zero_past_lens(got, args[-1], "dgates")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("h", [32, 320])
+def test_k3_in_chunks_of_steps_equal_one_chunk(cuda, h, dtype, monkeypatch):
+    """K3 with its scratch cut to 3 steps: the chain carries dh and dc of
+    both directions between the chunks, and the outputs equal one
+    chunk's bit for bit."""
+    t, b = 10, 5
+    args = _bwd_inputs(t, b, h, dtype, cuda, seed=h + 1)
+    whole = rnn_cuda.bilstm_seq_bwd_dgates(*args)
+    with monkeypatch.context() as m:
+        m.setattr(rnn_cuda, "_K10_SCRATCH_BYTES", 3 * b * 8 * h * 4)
+        assert rnn_cuda._scratch_steps(t, b, 8 * h) == 3
+        chunked = rnn_cuda.bilstm_seq_bwd_dgates(*args)
+    torch.cuda.synchronize()
+    for name, c, w in zip(("dg_f", "dg_b"), chunked, whole):
+        assert torch.equal(c, w), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k3_routes_agree_and_equal_where_dh_is_zero(cuda, dtype):
+    """The recompute invariant, witnessed by K3's cooperative kernel,
+    which recomputes the gates with warp_dot in its order: at each row's
+    first valid frame of the walk (t = len - 1 for the forward direction,
+    t = 0 for the backward one) dh and dc are still zero, so the two
+    routes' dgates there depend on the gates alone and are equal bit for
+    bit; elsewhere dh is summed in another order, within tolerance."""
+    t, b, h = 24, 6, 320
+    args = _bwd_inputs(t, b, h, dtype, cuda, seed=29)
+    plan = rnn_cuda.k3_plan(_k3_lib(), b, h, dtype, cuda)
+    chain, coop = _k3_routes(args, plan)
+    torch.cuda.synchronize()
+    lens = args[-1].cpu().numpy()
+    assert (lens > 0).sum() >= 3
+    for d, (name, c, k) in enumerate(zip(("dg_f", "dg_b"), chain, coop)):
+        _close(c, k, LSTM_BWD_TOL[dtype], name)
+        for row, length in enumerate(lens):
+            if length:
+                first = length - 1 if d == 0 else 0
+                assert torch.equal(c[first, row], k[first, row]), (name, row)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b", [5, 48])
+def test_k3_directions_equal_k6_bit_for_bit(cuda, dtype, b):
+    """Each direction of K3 equals K6 on that direction's operands (the
+    backward one as K6 with reverse), bit for bit over the whole walk:
+    both plans take clusters of 16 at H=320 and rows never meet, so each
+    row's sums are the same whatever the rows a cluster."""
+    t, h = 30, 320
+    dy_f, dy_b, xp, y_f, c_f, y_b, c_b, w_f, w_b, lens = _bwd_inputs(
+        t, b, h, dtype, cuda, seed=b + 11)
+    k3 = rnn_cuda.k3_plan(_k3_lib(), b, h, dtype, cuda)
+    k6 = rnn_cuda.k6_plan(_k6_lib(), b, h, dtype, cuda)
+    assert k3.cluster == k6.cluster == 16, (k3, k6)
+    got = rnn_cuda.bilstm_seq_bwd_dgates(dy_f, dy_b, xp, y_f, c_f, y_b, c_b,
+                                         w_f, w_b, lens)
+    uni = (rnn_cuda.lstm_seq_bwd_dgates(dy_f, xp[..., :4 * h].contiguous(),
+                                        y_f, c_f, w_f, lens),
+           rnn_cuda.lstm_seq_bwd_dgates(dy_b, xp[..., 4 * h:].contiguous(),
+                                        y_b, c_b, w_b, lens, True))
+    torch.cuda.synchronize()
+    for name, g, u in zip(("dg_f", "dg_b"), got, uni):
+        assert torch.equal(g, u), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("h", [128, 320])
+def test_k3_phase1_kernels_agree_bit_for_bit(cuda, h, dtype):
+    """K3's tiled phase 1 and its warp kernel give the same recurrent sums
+    of both directions bit for bit, on a chunk of steps that starts
+    mid-walk and one that ends it (its last step, each direction's first
+    forward step, sums over zeros)."""
+    t, b = 7, 5
+    _, _, _, y_f, _, y_b, _, w_f, w_b, _ = _bwd_inputs(t, b, h, dtype, cuda,
+                                                       seed=h + 3)
+    lib = _k3_lib()
+    assert rnn_cuda.k3_plan(lib, b, h, dtype, cuda).gate_cols == 0
+    fn = getattr(lib, "bilstm_bwd_gates_" + rnn_cuda._SUFFIX[dtype])
+    for s0, n in ((2, 3), (4, 3)):
+        got = []
+        for cols in (0, 32):
+            pre = torch.full((n, b, 8 * h), float("nan"), device=cuda)
+            _kernels.check(lib, fn(y_f.data_ptr(), y_b.data_ptr(),
+                                   w_f.data_ptr(), w_b.data_ptr(),
+                                   pre.data_ptr(), s0, n, t, b, h, cols,
+                                   _kernels.stream_ptr(cuda)), "K3 phase 1")
+            got.append(pre)
+        torch.cuda.synchronize()
+        assert not got[0].isnan().any()
+        assert torch.equal(got[0], got[1]), (s0, n)
+        if s0 + n == t:                       # the forward's first step
+            assert not got[0][-1].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k3_cooperative_route_at_a_large_h(cuda, dtype):
+    """Where W_h's gate columns as f32 fit no cluster of 16 (from H ~470,
+    in either dtype) the plan sends K3 to its cooperative kernel, which
+    still matches its plain version."""
+    h = K3_COOPERATIVE_H
+    args = _bwd_inputs(10, 3, h, dtype, cuda, seed=h)
+    assert rnn_cuda.k3_plan(_k3_lib(), 3, h, dtype, cuda).route \
+        == "cooperative"
+    before = rnn_cuda.bilstm_seq_bwd_dgates.launches
+    got = rnn_cuda.bilstm_seq_bwd_dgates(*args)
+    torch.cuda.synchronize()
+    assert rnn_cuda.bilstm_seq_bwd_dgates.launches == before + 1
+    for name, g, r in zip(("dg_f", "dg_b"), got,
+                          rnn_cuda.bilstm_seq_bwd_dgates_reference(*args)):
+        _close(g, r, LSTM_BWD_TOL[dtype], name)
+
+
+@pytest.mark.cuda
+def test_k3_k8a_chain_launch_errors_raise(cuda):
+    """A cluster launch the card refuses (a cluster of 32 CTAs, past the
+    16 the chains take) raises through _kernels.check: no silent switch
+    to the other route or to the plain version."""
+    f32 = torch.float32
+    args = _bwd_inputs(6, 3, 32, f32, cuda, seed=1)
+    plan = rnn_cuda.k3_plan(_k3_lib(), 3, 32, f32, cuda)
+    with pytest.raises(RuntimeError, match="phase 2"):
+        _k3_routes(args, plan._replace(cluster=32))
+    xp, (w_f, w_b), _, lens = _gru_inputs(6, 3, 32, f32, cuda, 1, 2)
+    plan = gru_cuda.k8a_plan(_gru_lib(), 3, 32, f32, cuda)
+    with pytest.raises(RuntimeError, match="bigru_seq_fwd"):
+        gru_cuda._bigru_fwd_chain(_gru_lib(), xp, w_f, w_b,
+                                  lens.to(torch.int32),
+                                  plan._replace(cluster=32))
+
+
 def _above_ceiling(source, signatures, query, *dims):
     """One row more than a kernel takes in one launch on the card: its
     source's own ceiling query (``*_max_rows``) plus one."""
@@ -1692,11 +1954,15 @@ K5_COOPERATIVE_H = 512
 
 def _sliced_case(name, t, h, device):
     """(wrapper, plain version, operands, tolerance) of one kernel that
-    keeps every row in a block, at one row above its ceiling, f32 (K5, K6,
-    K9a and K9b on their cooperative routes, at K5_COOPERATIVE_H,
-    BWD_COOPERATIVE_H and K9A_COOPERATIVE_H)."""
+    keeps every row in a block, at one row above its ceiling, f32 (K3, K5,
+    K6, K8a, K9a and K9b on their cooperative routes, at K3_COOPERATIVE_H,
+    K5_COOPERATIVE_H, BWD_COOPERATIVE_H and K9A_COOPERATIVE_H)."""
     f32 = torch.float32
     if name == "K3":
+        # only K3's cooperative route keeps its rows in one block: H=512
+        h = K3_COOPERATIVE_H
+        assert rnn_cuda.bwd_chain_plan(1, h, f32, 2, 132,
+                                       232448).route == "cooperative"
         b = _above_ceiling("bilstm_bwd", rnn_cuda._BWD_SIGNATURES,
                            "bilstm_bwd_max_rows_f32", h)
         return (rnn_cuda.bilstm_seq_bwd_dgates,
@@ -1735,11 +2001,12 @@ def _sliced_case(name, t, h, device):
     bi = name.startswith("K8")
     kernel = "bigru" if bi else "gru"
     if name.endswith("a"):
-        if not bi:
-            # only K9a's cooperative route keeps its rows in one block
-            h = K9A_COOPERATIVE_H[f32]
-            assert rnn_cuda.fwd_chain_plan(1, 0, h, f32, 1, 132, 232448,
-                                           gates=3).route == "cooperative"
+        # only K8a's and K9a's cooperative routes keep their rows in one
+        # block
+        h = K9A_COOPERATIVE_H[f32]
+        assert rnn_cuda.fwd_chain_plan(1, 0, h, f32, 2 if bi else 1, 132,
+                                       232448, gates=3).route \
+            == "cooperative"
         b = _above_ceiling("gru_fwd", gru_cuda._FWD_SIGNATURES,
                            f"{kernel}_fwd_max_rows_f32", h)
         xp, ws, _, lens = _gru_inputs(t, b, h, f32, device, b, 2 if bi else 1)
@@ -1772,10 +2039,10 @@ def _sliced_case(name, t, h, device):
 def test_sliced_kernel_above_its_ceiling_matches_plain(cuda, name):
     """Each kernel that keeps every row in one block's shared memory, at
     one row above the most its launch takes (H=320; the cooperative
-    routes of K5 and K6 at H=512, of K9a and K9b at H=576), runs as row
-    slices
-    and returns its plain version's result, as the reference does at any
-    batch; the launch counter rises by one (it counts wrapper calls)."""
+    routes of K3, K5 and K6 at H=512, of K8a, K9a and K9b at H=576), runs
+    as row slices and returns its plain version's result, as the
+    reference does at any batch; the launch counter rises by one (it
+    counts wrapper calls)."""
     fn, ref, args, tol = _sliced_case(name, 4, 320, cuda)
     before = fn.launches
     got = fn(*args)

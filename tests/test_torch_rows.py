@@ -1,7 +1,7 @@
 """The port's batch ceilings (the kernels that keep every row in one
 block's shared memory) and the launch plans of K10b, of the forward
-chain (K2, K5, K9a, K10a) and of the backward chain (K6, K9b), on the
-CPU.
+chain (K2, K5, K8a, K9a, K10a) and of the backward chain (K3, K6, K9b),
+on the CPU.
 
 ``rnn_cuda.run_in_row_slices`` runs a kernel over row slices under its
 ceiling; here it is driven with each sliced kernel's plain version and a
@@ -9,11 +9,10 @@ small forced ceiling, and must return exactly what one unsliced call
 returns.  ``rnn_cuda.k10b_plan`` and ``rnn_cuda.fwd_chain_plan`` must fit
 every shape the BLSTM layer sends to K10b and K10a
 (``use_in_kernel_proj``) into one H100 block's shared memory, and
-``fwd_chain_plan`` must send K2, K5 and K9a to their cluster routes
-wherever W_h fits a cluster (and the batch reaches the serving
-threshold) and to their cooperative routes elsewhere; ``bwd_chain_plan``
-does the same for K6 and K9b, its byte formula the twin of
-``csrc/bwd_chain.cuh``'s.  No JAX here: the plain versions are the
+``fwd_chain_plan`` must send K2, K5, K8a and K9a to their cluster
+routes wherever W_h fits a cluster and to their cooperative routes
+elsewhere; ``bwd_chain_plan`` does the same for K3, K6 and K9b, its byte
+formula the twin of ``csrc/bwd_chain.cuh``'s.  No JAX here: the plain versions are the
 port's own.
 """
 
@@ -303,7 +302,8 @@ def test_fwd_chain_plan_refuses_what_cannot_fit():
 @pytest.mark.parametrize("gates", [3, 4])
 @pytest.mark.parametrize("c,r,h,size", [(16, 16, 320, 4), (16, 8, 320, 2),
                                         (4, 4, 128, 4), (16, 1, 545, 4),
-                                        (2, 3, 20, 2)])
+                                        (2, 3, 20, 2), (16, 45, 320, 4),
+                                        (16, 91, 320, 2)])
 def test_fwd_chain_bytes_formula_per_gate_count(gates, c, r, h, size):
     """The Python twin of fwd_chain_bytes for the LSTM's 4 and the GRU's 3
     gate columns a unit: gates ceil(H/C) H weights, (gates + 1 + 2 gates)
@@ -334,13 +334,15 @@ def test_fwd_chain_plan_sends_k2_to_clusters(dtype, b, h):
 @pytest.mark.parametrize("b", [1, 48, 600])
 @pytest.mark.parametrize("h", [128, 320])
 def test_fwd_chain_plan_sends_k9a_to_clusters(dtype, b, h):
-    """K9a (one GRU direction, 3 gate columns a unit) at H=128 and the
-    5x320's H: the cluster route in both dtypes, any batch; three gate
-    columns halve the cluster at H=128 (96 KB of f32 W_h a CTA at C=2)."""
-    plan = rnn_cuda.fwd_chain_plan(b, 0, h, dtype, 1, H100_SMS, H100_SMEM,
-                                   gates=3)
-    _check_chain_plan(plan, b, 0, h, dtype, 1, gates=3)
-    assert plan.cluster == (2 if h == 128 else 16)
+    """K9a (one GRU direction, 3 gate columns a unit) and K8a (both
+    directions) at H=128 and the 5x320's H: the cluster route in both
+    dtypes, any batch; three gate columns halve the cluster at H=128 (96
+    KB of f32 W_h a CTA at C=2)."""
+    for dirs in (1, 2):
+        plan = rnn_cuda.fwd_chain_plan(b, 0, h, dtype, dirs, H100_SMS,
+                                       H100_SMEM, gates=3)
+        _check_chain_plan(plan, b, 0, h, dtype, dirs, gates=3)
+        assert plan.cluster == (2 if h == 128 else 16)
 
 
 @pytest.mark.parametrize("gates,dirs,dtype,h,route", [
@@ -351,10 +353,14 @@ def test_fwd_chain_plan_sends_k9a_to_clusters(dtype, b, h):
     (3, 1, torch.float32, 544, "cluster"),     # K9a: 3 x 34 x 544 x 4
     (3, 1, torch.float32, 576, "cooperative"),
     (3, 1, torch.bfloat16, 768, "cluster"),
-    (3, 1, torch.bfloat16, 800, "cooperative")])
+    (3, 1, torch.bfloat16, 800, "cooperative"),
+    (3, 2, torch.float32, 544, "cluster"),     # K8a: K9a's limits
+    (3, 2, torch.float32, 576, "cooperative"),
+    (3, 2, torch.bfloat16, 768, "cluster"),
+    (3, 2, torch.bfloat16, 800, "cooperative")])
 def test_fwd_chain_plan_picks_k2_and_k9a_routes_from_shapes(gates, dirs,
                                                             dtype, h, route):
-    """K2's and K9a's routes are a function of the shapes: the cluster
+    """K2's, K9a's and K8a's routes are a function of the shapes: the cluster
     route while one row fits beside W_h's share of a cluster of 16, else
     the cooperative kernel, which takes any H the reference takes."""
     for b in (1, 48, 600):
@@ -368,9 +374,10 @@ def test_fwd_chain_plan_picks_k2_and_k9a_routes_from_shapes(gates, dirs,
 
 
 def test_fwd_chain_plan_at_k2_and_k9a_training_shapes():
-    """At B=48, H=320: K2 takes 6 clusters of 16 with 16 rows each, K9a 6
-    clusters of 16 with 8 rows each; K2 at the 3x128's layer 1 24
-    clusters of 4 with 4 rows."""
+    """At B=48, H=320: K2 and K8a take 6 clusters of 16 with 16 rows each
+    (K8a's CTA 131,904 B in f32, 72,384 in bf16), K9a 6 clusters of 16
+    with 8 rows each; K2 at the 3x128's layer 1 24 clusters of 4 with 4
+    rows; K8a at B=600 packs 45 rows a cluster in f32 and 91 in bf16."""
     for dtype in (torch.float32, torch.bfloat16):
         k2 = rnn_cuda.fwd_chain_plan(48, 0, 320, dtype, 2, H100_SMS,
                                      H100_SMEM)
@@ -378,6 +385,14 @@ def test_fwd_chain_plan_at_k2_and_k9a_training_shapes():
         k9a = rnn_cuda.fwd_chain_plan(48, 0, 320, dtype, 1, H100_SMS,
                                       H100_SMEM, gates=3)
         assert (k9a.cluster, k9a.rows) == (16, 8)
+        k8a = rnn_cuda.fwd_chain_plan(48, 0, 320, dtype, 2, H100_SMS,
+                                      H100_SMEM, gates=3)
+        assert (k8a.cluster, k8a.rows) == (16, 16)
+        assert k8a.chain_smem == (131904 if dtype == torch.float32
+                                  else 72384)
+        big = rnn_cuda.fwd_chain_plan(600, 0, 320, dtype, 2, H100_SMS,
+                                      H100_SMEM, gates=3)
+        assert big.rows == (45 if dtype == torch.float32 else 91)
     layer1 = rnn_cuda.fwd_chain_plan(48, 0, 128, torch.float32, 2, H100_SMS,
                                      H100_SMEM)
     assert (layer1.cluster, layer1.rows) == (4, 4)
@@ -397,8 +412,8 @@ def h100(monkeypatch):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("b", [1, 2, 8, 48, 600])
 def test_k2_and_k9a_plans_are_their_cells_chain_plans(h100, dtype, b):
-    """``k2_plan`` and ``k9a_plan`` are fwd_chain_plan with the kernel's
-    gate count and directions: at H=320 the cluster route at every batch,
+    """``k2_plan``, ``k9a_plan`` and ``k8a_plan`` are fwd_chain_plan with
+    the kernel's gate count and directions: at H=320 the cluster route at every batch,
     the serving batch B = 1 included; at an H whose W_h fits no cluster,
     the cooperative route."""
     k2 = rnn_cuda.k2_plan(None, b, 320, dtype, "cuda")
@@ -409,10 +424,17 @@ def test_k2_and_k9a_plans_are_their_cells_chain_plans(h100, dtype, b):
     _check_chain_plan(k9a, b, 0, 320, dtype, 1, gates=3)
     assert k9a == rnn_cuda.fwd_chain_plan(b, 0, 320, dtype, 1, H100_SMS,
                                           H100_SMEM, gates=3)
+    k8a = gru_cuda.k8a_plan(None, b, 320, dtype, "cuda")
+    _check_chain_plan(k8a, b, 0, 320, dtype, 2, gates=3)
+    assert k8a == rnn_cuda.fwd_chain_plan(b, 0, 320, dtype, 2, H100_SMS,
+                                          H100_SMEM, gates=3)
     assert rnn_cuda.k2_plan(None, b, 704, dtype, "cuda").route \
         == "cooperative"
-    assert gru_cuda.k9a_plan(None, b, 800, dtype, "cuda").route \
-        == "cooperative"
+    for h in (800, 576 if dtype == torch.float32 else 800):
+        assert gru_cuda.k9a_plan(None, b, h, dtype, "cuda").route \
+            == "cooperative"
+        assert gru_cuda.k8a_plan(None, b, h, dtype, "cuda").route \
+            == "cooperative"
 
 
 def test_fwd_chain_plan_k10a_still_refuses_with_either_gate_count():
@@ -481,16 +503,19 @@ def _check_bwd_plan(plan, b, h, dirs, gates):
 @pytest.mark.parametrize("gates", [3, 4])
 def test_bwd_chain_plan_fits_every_shape(b, gates):
     """bwd_chain_plan at every H from 8 to the cluster route's last, in
-    both dtypes: a cluster plan that fits one H100 block's shared memory
-    at B = 1, 48 and 600, its phase 1 tiled to H = 426."""
+    both dtypes, one direction (K6, K9b) and two (K3): a cluster plan that
+    fits one H100 block's shared memory at B = 1, 48 and 600, its phase 1
+    tiled to H = 426."""
     last = 464 if gates == 4 else 544
     for h in list(range(8, last + 1, 24)) + [320, 426, 427, last]:
         for dtype in (torch.float32, torch.bfloat16):
-            plan = rnn_cuda.bwd_chain_plan(b, h, dtype, 1, H100_SMS,
-                                           H100_SMEM, gates=gates)
-            _check_bwd_plan(plan, b, h, 1, gates)
-            assert plan == rnn_cuda.bwd_chain_plan(
-                b, h, torch.float32, 1, H100_SMS, H100_SMEM, gates=gates)
+            for dirs in (1, 2):
+                plan = rnn_cuda.bwd_chain_plan(b, h, dtype, dirs, H100_SMS,
+                                               H100_SMEM, gates=gates)
+                _check_bwd_plan(plan, b, h, dirs, gates)
+                assert plan == rnn_cuda.bwd_chain_plan(
+                    b, h, torch.float32, dirs, H100_SMS, H100_SMEM,
+                    gates=gates)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -498,15 +523,22 @@ def test_bwd_chain_plan_fits_every_shape(b, gates):
 def test_bwd_chain_plan_at_the_training_shape(dtype, gates):
     """K6 and K9b at the 5x320 models' H: clusters of 16 (W_h's share, 4
     or 3 x 20 x 320 f32, is 102 KB or 77 KB) in both dtypes; at B=48 six
-    clusters of 8 rows, at B=1 one cluster of one row."""
-    for b, rows in ((48, 8), (1, 1)):
-        plan = rnn_cuda.bwd_chain_plan(b, 320, dtype, 1, H100_SMS, H100_SMEM,
-                                       gates=gates)
-        _check_bwd_plan(plan, b, 320, 1, gates)
+    clusters of 8 rows, at B=1 one cluster of one row.  With both
+    directions (K3 for four gates) three clusters a direction of 16 rows
+    at B=48 (181,824 B a CTA for K3), 26 rows at B=600."""
+    for dirs, b, rows in ((1, 48, 8), (1, 1, 1), (2, 48, 16), (2, 1, 1)):
+        plan = rnn_cuda.bwd_chain_plan(b, 320, dtype, dirs, H100_SMS,
+                                       H100_SMEM, gates=gates)
+        _check_bwd_plan(plan, b, 320, dirs, gates)
         assert (plan.cluster, plan.rows, plan.gate_cols) == (16, rows, 0)
     big = rnn_cuda.bwd_chain_plan(600, 320, dtype, 1, H100_SMS, H100_SMEM,
                                   gates=gates)
     assert big.cluster == 16 and big.rows < 48    # more waves of clusters
+    if gates == 4:
+        k3 = rnn_cuda.bwd_chain_plan(48, 320, dtype, 2, H100_SMS, H100_SMEM)
+        assert k3.chain_smem == 181824
+        assert rnn_cuda.bwd_chain_plan(600, 320, dtype, 2, H100_SMS,
+                                       H100_SMEM).rows == 26
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -516,21 +548,28 @@ def test_bwd_chain_plan_at_the_training_shape(dtype, gates):
     (4, 512, "cooperative"),
     (3, 544, "cluster"),             # K9b: 3 x 34 x 544 f32
     (3, 552, "cooperative"),
-    (3, 576, "cooperative")])
+    (3, 576, "cooperative"),
+    (4, 128, "cluster"),             # K3 at the 3x128's layer 1: C=4
+    (3, 128, "cluster")])
 def test_bwd_chain_plan_picks_k6_and_k9b_routes_from_shapes(dtype, gates, h,
                                                             route):
-    """K6's and K9b's routes are a function of the shapes: the cluster
-    route while one row fits beside W_h's f32 share of a cluster of 16
-    (the same H in either dtype), else the cooperative kernel, which takes
-    any H the reference takes, at any batch."""
+    """K6's, K9b's and (four gates, both directions) K3's routes are a
+    function of the shapes: the cluster route while one row fits beside
+    W_h's f32 share of a cluster of 16 (the same H in either dtype and
+    for either number of directions), else the cooperative kernel, which
+    takes any H the reference takes, at any batch."""
     for b in (1, 48, 600):
-        plan = rnn_cuda.bwd_chain_plan(b, h, dtype, 1, H100_SMS, H100_SMEM,
-                                       gates=gates)
-        assert plan.route == route, (b, plan)
-        if route == "cluster":
-            _check_bwd_plan(plan, b, h, 1, gates)
-        else:
-            assert plan == ("cooperative", 0, 0, 0, 0, 0)
+        for dirs in (1, 2):
+            plan = rnn_cuda.bwd_chain_plan(b, h, dtype, dirs, H100_SMS,
+                                           H100_SMEM, gates=gates)
+            assert plan.route == route, (b, dirs, plan)
+            if route == "cluster":
+                _check_bwd_plan(plan, b, h, dirs, gates)
+            else:
+                assert plan == ("cooperative", 0, 0, 0, 0, 0)
+    if (gates, h) == (4, 128):       # K3 at the 3x128's layer 1, B=48
+        k3 = rnn_cuda.bwd_chain_plan(48, h, dtype, 2, H100_SMS, H100_SMEM)
+        assert (k3.cluster, k3.rows) == (4, 4)
 
 
 def test_bwd_chain_plan_refuses_what_cannot_fit():
@@ -549,6 +588,7 @@ def test_bwd_chain_plan_refuses_what_cannot_fit():
 
 @pytest.mark.parametrize("gates,pre", [(4, True), (4, False), (3, False)])
 @pytest.mark.parametrize("c,r,h", [(16, 8, 320), (16, 26, 320), (4, 4, 128),
+                                   (16, 16, 320),
                                    (16, 1, 545), (2, 3, 21), (8, 5, 100)])
 def test_bwd_chain_bytes_formula_per_gate_count(gates, pre, c, r, h):
     """The Python twin of bwd_chain_floats and bwd_chain_words for K10b's
@@ -571,8 +611,9 @@ def test_bwd_chain_bytes_formula_per_gate_count(gates, pre, c, r, h):
 @pytest.mark.parametrize("b", [1, 2, 48, 600])
 def test_k6_and_k9b_plans_are_their_cells_chain_plans(h100, dtype, b):
     """``k6_plan`` and ``k9b_plan`` are bwd_chain_plan with the kernel's
-    gate count and one direction: the cluster route at H=320 at every
-    batch, the cooperative route at an H whose W_h fits no cluster."""
+    gate count and one direction, ``k3_plan`` with four gates and both
+    directions: the cluster route at H=320 at every batch, the
+    cooperative route at an H whose W_h fits no cluster."""
     k6 = rnn_cuda.k6_plan(None, b, 320, dtype, "cuda")
     assert k6 == rnn_cuda.bwd_chain_plan(b, 320, dtype, 1, H100_SMS,
                                          H100_SMEM)
@@ -581,7 +622,13 @@ def test_k6_and_k9b_plans_are_their_cells_chain_plans(h100, dtype, b):
     assert k9b == rnn_cuda.bwd_chain_plan(b, 320, dtype, 1, H100_SMS,
                                           H100_SMEM, gates=3)
     _check_bwd_plan(k9b, b, 320, 1, 3)
+    k3 = rnn_cuda.k3_plan(None, b, 320, dtype, "cuda")
+    assert k3 == rnn_cuda.bwd_chain_plan(b, 320, dtype, 2, H100_SMS,
+                                         H100_SMEM)
+    _check_bwd_plan(k3, b, 320, 2, 4)
     assert rnn_cuda.k6_plan(None, b, 512, dtype, "cuda").route \
+        == "cooperative"
+    assert rnn_cuda.k3_plan(None, b, 512, dtype, "cuda").route \
         == "cooperative"
     assert gru_cuda.k9b_plan(None, b, 576, dtype, "cuda").route \
         == "cooperative"
