@@ -13,11 +13,11 @@ result line:
 1. device: the card's name and power limit (nvidia-smi), torch and CUDA
    versions;
 2. build: every kernel source in csrc/ (nine; the recurrent kernels
-   share csrc/bilstm_cell.cuh, K2, K5, K8a, K9a and K10a the forward chain
-   of csrc/fwd_chain.cuh, K3, K6, K9b and K10b the backward chain of
-   csrc/bwd_chain.cuh and the phase-1 bodies of csrc/lstm_gates.cuh, the
-   row-keeping kernels csrc/row_ceiling.cuh) compiled by nvcc for
-   sm_90a, timed;
+   share csrc/bilstm_cell.cuh, K2, K5, K7, K8a, K9a and K10a the forward
+   chain of csrc/fwd_chain.cuh, K3, K6, K8b, K9b and K10b the backward
+   chain of csrc/bwd_chain.cuh and the phase-1 bodies of
+   csrc/lstm_gates.cuh, the row-keeping kernels csrc/row_ceiling.cuh)
+   compiled by nvcc for sm_90a, timed;
 3. k4_log_mel: the log-mel kernel against its plain version on 8 s of
    16 kHz audio (798 frames, MFCC-hires mel bank): max error, median ms;
 4. k2_bilstm: the BiLSTM forward kernel against its plain version at
@@ -66,7 +66,10 @@ result line:
    same operands and the cluster route's two phases timed apart;
 12. k7_lstm_stack: the wavefront stack kernel at L=5, H=320, T=20, B=8
    with carries from a previous chunk, ragged lengths and an idle slot
-   (y, h_fin, c_fin against the plain version), then one 8 s utterance
+   (y, h_fin, c_fin against the plain version), with its plan, both
+   routes (the wavefront of per-layer clusters; the cooperative kernel)
+   timed on the same operands and held equal bit for bit at B=8 and B=1,
+   the co-residency guarantee its launches held, then one 8 s utterance
    streamed in 20-frame chunks through it against K5's offline forward;
 13. serve_uni: the unidirectional 5x320 (random weights from a seed)
    served per dtype: 4 /recognize requests (K5 5x and K4 >= 1x each),
@@ -77,7 +80,7 @@ result line:
 14. train_uni: the train phase for the unidirectional 5x320 (K5 5x, K6
    5x, K1 once per step; eval K5 5x, K11 once);
 15. profile_stream: one 8-slot tick per dtype under torch.profiler: K7's
-   share of device time and the device's idle share;
+   share of device time (either route) and the device's idle share;
 16. k9_gru: the unidirectional GRU forward kernel K9a against its plain
    version at T=800, B=1 and B=8, T=240, B=48 and B=600, and one reverse
    case, with its plan and, at T=800, B=1 and T=240, B=48, both routes
@@ -88,7 +91,11 @@ result line:
    function (full-length rows);
 17. k8_bigru: the same for the BiGRU kernels K8a and K8b (K8a with its
    plan and both routes, its cluster route held equal bit for bit to its
-   cooperative kernel and, a direction each, to K9a's cluster route);
+   cooperative kernel and, a direction each, to K9a's cluster route; K8b
+   with its plan, both routes and its cluster route's two phases timed as
+   K9b's, its cluster route equal bit for bit to its cooperative kernel
+   at each row's first valid walk step and, a direction each, to K9b's
+   cluster route over the whole walk);
 18. serve_gru: the 5x320 BiGRU served per dtype as in 7 (K8a 5x per
    request, K4 >= 1x), scores against the plain versions;
 19. serve_gru_uni: the unidirectional 5x320 GRU as in 13: /recognize
@@ -113,13 +120,13 @@ result line:
    bidirectional) and the hoisted route on the same layer (projection
    GEMM plus K2 forward, K3 on the stored projection backward);
 23. f7: each kernel that keeps every batch row in one block's shared
-   memory (the cooperative routes of K3, K5, K6, K8a, K9a and K9b, K7 one
-   layer, K8b) once at one row above the most one launch takes (its
-   source's *_max_rows query), H=320 (K3, K5 and K6 at H=512, K8a, K9a
-   and K9b at H=576, where W_h fits no cluster), T=20, f32, against its
+   memory (the cooperative routes of K3, K5, K6, K7 one layer, K8a, K8b,
+   K9a and K9b) once at one row above the most one launch takes (its
+   source's *_max_rows query), where W_h fits no cluster (K3, K5, K6 and
+   K7 at H=512, K8a, K8b, K9a and K9b at H=576), T=20, f32, against its
    plain version: the wrapper runs row slices and counts one launch; then
-   K3, K6, K8a and K9b at B=600, H=320 on their cluster route (one call,
-   no ceiling);
+   K3, K6, K7 one layer, K8a, K8b and K9b at B=600, H=320 on their
+   cluster route (one call, no ceiling);
 24. serve_proj: the 3x128 BLSTM (40-dim input, 42 targets, random weights
    from a seed) served per dtype as in 7: per request K2 1x and K10a 2x
    in f32 (layer 1 unaligned, layers 2-3 in-kernel), K2 3x and K10a 0x in
@@ -235,6 +242,25 @@ def emit(obj):
 def fail(msg):
     print(f"chip_smoke: FAILED: {msg}", file=sys.stderr, flush=True)
     sys.exit(1)
+
+
+def back_to_back_ms(fn, calls, torch):
+    """Mean ms a call over ``calls`` calls enqueued back to back between
+    two CUDA events, after a warm-up: the host enqueues ahead of the card,
+    so where the card's time exceeds the host's, this is the card's time
+    per call (a single timed call also holds the host's time before its
+    first launch)."""
+    for _ in range(3):
+        fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(calls):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / calls
 
 
 def median_ms(fn, runs, torch):
@@ -864,12 +890,12 @@ def phase_k6(torch, np, dev):
 
 
 def bwd_routes(torch, dev, name, args):
-    """K3's, K6's or K9b's plan and its two routes timed on the same
-    operands (the cluster route: phase 1 then the backward chain; the
+    """K3's, K6's, K8b's or K9b's plan and its two routes timed on the
+    same operands (the cluster route: phase 1 then the backward chain; the
     cooperative kernel in row slices), and the cluster route's two phases
     timed apart (one chunk of steps at the training shape): phase 1, the
-    recurrent sums of every step (of both directions for K3), and phase
-    2, the chain in clusters."""
+    recurrent sums of every step (of both directions for K3 and K8b), and
+    phase 2, the chain in clusters."""
     from kaldi_ctc_tpu_torch import _kernels
     from kaldi_ctc_tpu_torch.ops import gru_cuda, rnn_cuda
     f32 = torch.float32
@@ -899,6 +925,29 @@ def bwd_routes(torch, dev, name, args):
         def phase2():
             rnn_cuda._k3_chain(lib, dy_f, dy_b, xp, c_f, c_b, w_f, w_b,
                                lens32, pre, *outs, state, 0, t, plan)
+    elif name == "K8b":
+        dy_f, dy_b, xp, y_f, y_b, w_f, w_b = ops
+        lib = _kernels.load("gru_bwd", gru_cuda._BWD_SIGNATURES)
+        t, b, g = xp.shape
+        h = g // 6
+        plan = gru_cuda.k8b_plan(lib, b, h, xp.dtype, dev)
+        pre = torch.empty((t, b, g), dtype=f32, device=dev)
+        state = torch.zeros((1, 2, b, h), dtype=f32, device=dev)
+        outs = [torch.empty((t, b, 3 * h), dtype=xp.dtype, device=dev)
+                for _ in range(4)]
+
+        def chain():
+            gru_cuda._bigru_bwd_chain(lib, *ops, lens32, plan)
+
+        def coop():
+            gru_cuda._bigru_bwd_cooperative(lib, *ops, lens32)
+
+        def phase1():
+            gru_cuda._k8b_gates(lib, y_f, y_b, w_f, w_b, pre, 0, t, plan)
+
+        def phase2():
+            gru_cuda._k8b_chain(lib, dy_f, dy_b, xp, y_f, y_b, w_f, w_b,
+                                lens32, pre, outs, state, 0, t, plan)
     else:
         if name == "K6":
             dy, xp, y, res, w = ops
@@ -1126,12 +1175,16 @@ def phase_gru_kernels(torch, np, dev, bidirectional):
                "library_ms": library_rnn_ms(
                    torch, dev, dtype, TRAIN_T, TRAIN_B, dirs * h, h,
                    bidirectional=bidirectional, backward=True, cell="GRU")}
-        if not bidirectional:
-            row.update(bwd_routes(torch, dev, "K9b", args))
+        row.update(bwd_routes(torch, dev, f"{kname}b", args))
+        if bidirectional:
+            row.update(k8b_witnesses(torch, dev, args))
         bwd_rows.append(row)
         emit({"phase": phase, **row})
         if not all(ok for _, ok in errs):
             fail(f"{kname}b {prefix}_seq_bwd_dgates disagrees: {row}")
+        if not (row.get("first_step_bit_equal_cooperative", True)
+                and row.get("bit_equal_k9b", True)):
+            fail(f"K8b's witnesses do not hold: {row}")
     # the kernels line reports the training shape in bf16
     train_row = next(r for r in fwd_rows
                      if r["dtype"] == "bfloat16" and r["B"] == TRAIN_B)
@@ -1153,6 +1206,41 @@ def k8a_witnesses(torch, lib, xp, ws, lens32, chain, coop):
     return {"bit_equal_cooperative": all(torch.equal(c, k)
                                          for c, k in zip(chain, coop)),
             "bit_equal_k9a": all(torch.equal(c, u)
+                                 for c, u in zip(chain, uni))}
+
+
+def k8b_witnesses(torch, dev, args):
+    """K8b's two witnesses on one set of operands: its cluster route
+    equals its cooperative kernel bit for bit at each row's first valid
+    walk step (t = len - 1 forward, t = 0 backward), where dh is zero; and
+    each direction of its cluster route equals K9b's cluster route on that
+    direction's operands (the backward one with reverse) over the whole
+    walk."""
+    from kaldi_ctc_tpu_torch import _kernels
+    from kaldi_ctc_tpu_torch.ops import gru_cuda
+    *ops, lens = args
+    dy_f, dy_b, xp, y_f, y_b, w_f, w_b = ops
+    lib = _kernels.load("gru_bwd", gru_cuda._BWD_SIGNATURES)
+    b, h = xp.shape[1], xp.shape[2] // 6
+    lens32 = lens.to(torch.int32)
+    chain = gru_cuda._bigru_bwd_chain(
+        lib, *ops, lens32, gru_cuda.k8b_plan(lib, b, h, xp.dtype, dev))
+    coop = gru_cuda._bigru_bwd_cooperative(lib, *ops, lens32)
+    k9b = gru_cuda.k9b_plan(lib, b, h, xp.dtype, dev)
+    uni = (gru_cuda._gru_bwd_chain(lib, dy_f, xp[..., :3 * h].contiguous(),
+                                   y_f, w_f, lens32, False, k9b)
+           + gru_cuda._gru_bwd_chain(lib, dy_b, xp[..., 3 * h:].contiguous(),
+                                     y_b, w_b, lens32, True, k9b))
+    rows = torch.arange(b, device=dev)
+    valid = lens > 0
+    first = (lens.long() - 1).clamp(min=0)
+    first_equal = (
+        all(torch.equal(c[first, rows][valid], k[first, rows][valid])
+            for c, k in zip(chain[:2], coop[:2]))
+        and all(torch.equal(c[0][valid], k[0][valid])
+                for c, k in zip(chain[2:], coop[2:])))
+    return {"first_step_bit_equal_cooperative": first_equal,
+            "bit_equal_k9b": all(torch.equal(c, u)
                                  for c, u in zip(chain, uni))}
 
 
@@ -1394,14 +1482,14 @@ def bilstm_bwd_operands(torch, np, dev, t, b, h, mat):
 
 def phase_f7(torch, np, dev):
     """Each kernel that keeps every batch row in one block's shared
-    memory (the cooperative routes of K3, K5, K6, K8a, K9a and K9b, K7 one
-    layer, K8b), once at one row above the most its launch takes (its
-    source's *_max_rows query), H=320 (K5: K5_COOPERATIVE_H, K8a and K9a:
-    K9A_COOPERATIVE_H, K3, K6 and K9b: BWD_COOPERATIVE_H), T=20, f32,
-    ragged rows, against its plain version: the wrapper runs it as row
-    slices and counts one launch.  Then K3, K6, K8a and K9b at B=600,
-    H=320 on their cluster route (no ceiling: one call in waves of
-    clusters)."""
+    memory (the cooperative routes of K3, K5, K6, K7 one layer, K8a, K8b,
+    K9a and K9b, each at an H whose W_h fits no cluster: K5 and K7:
+    K5_COOPERATIVE_H, K8a and K9a: K9A_COOPERATIVE_H, K3, K6, K9b and K8b:
+    BWD_COOPERATIVE_H), once at one row above the most its launch takes
+    (its source's *_max_rows query), T=20, f32, ragged rows, against its
+    plain version: the wrapper runs it as row slices and counts one
+    launch.  Then K3, K6, K7 one layer, K8a, K8b and K9b at B=600, H=320
+    on their cluster route (no ceiling: one call in waves of clusters)."""
     from kaldi_ctc_tpu_torch import _kernels
     from kaldi_ctc_tpu_torch.ops import gru_cuda, rnn_cuda
     t, h, f32 = 20, 320, torch.float32
@@ -1437,7 +1525,8 @@ def phase_f7(torch, np, dev):
                 "K6": ("lstm_bwd", rnn_cuda._UNI_BWD_SIGNATURES,
                        "lstm_bwd_max_rows_f32", (BWD_COOPERATIVE_H["K6"],)),
                 "K7": ("lstm_stack", rnn_cuda._STACK_SIGNATURES,
-                       "lstm_stack_max_rows_f32", (1, h))}[name]
+                       "lstm_stack_max_rows_f32", (1, K5_COOPERATIVE_H))
+            }[name]
             b = above(src, sigs, query, *dims)
             if name == "K5":
                 # only K5's cooperative route has a ceiling
@@ -1450,11 +1539,18 @@ def phase_f7(torch, np, dev):
                 return (rnn_cuda.lstm_seq_fwd, rnn_cuda.lstm_seq_fwd_reference,
                         (xp, w, lens, False), K2_TOL["float32"], b)
             if name == "K7":
-                xp, w, lens = uni_inputs(torch, np, dev, t, b, h, f32, b)
+                # one layer with carries, the per-layer route, where only
+                # the cooperative route keeps its rows in one block
+                hk = K5_COOPERATIVE_H
+                if rnn_cuda.k7_plan(_kernels.load(src, sigs), 1, b, hk, f32,
+                                    dev).route != "cooperative":
+                    fail(f"F7: K7 at H={hk} does not take its cooperative "
+                         f"route")
+                xp, w, lens = uni_inputs(torch, np, dev, t, b, hk, f32, b)
                 return (rnn_cuda.lstm_stack_fwd,
                         rnn_cuda.lstm_stack_fwd_reference,
-                        (xp, [], [w], [], lens, mat(1, b, h, scale=0.5),
-                         mat(1, b, h, scale=0.5)), K2_TOL["float32"], b)
+                        (xp, [], [w], [], lens, mat(1, b, hk, scale=0.5),
+                         mat(1, b, hk, scale=0.5)), K2_TOL["float32"], b)
             # only K6's cooperative route has a ceiling
             hk = BWD_COOPERATIVE_H["K6"]
             if rnn_cuda.k6_plan(_kernels.load(src, sigs), b, hk, f32,
@@ -1472,16 +1568,16 @@ def phase_f7(torch, np, dev):
         src, sigs = (("gru_fwd", gru_cuda._FWD_SIGNATURES) if fwd
                      else ("gru_bwd", gru_cuda._BWD_SIGNATURES))
         hg = {"K8a": K8A_COOPERATIVE_H, "K9a": K9A_COOPERATIVE_H,
-              "K9b": BWD_COOPERATIVE_H["K9b"]}.get(name, h)
+              "K8b": BWD_COOPERATIVE_H["K9b"],
+              "K9b": BWD_COOPERATIVE_H["K9b"]}[name]
         b = above(src, sigs, f"{kernel}_{src[4:]}_max_rows_f32", hg)
-        if name in ("K8a", "K9a", "K9b"):
-            # only K8a's, K9a's and K9b's cooperative routes have a ceiling
-            lib = _kernels.load(src, sigs)
-            plan_of = {"K8a": gru_cuda.k8a_plan, "K9a": gru_cuda.k9a_plan,
-                       "K9b": gru_cuda.k9b_plan}[name]
-            if plan_of(lib, b, hg, f32, dev).route != "cooperative":
-                fail(f"F7: {name} at H={hg} does not take its cooperative "
-                     f"route")
+        # only their cooperative routes have a ceiling
+        lib = _kernels.load(src, sigs)
+        plan_of = {"K8a": gru_cuda.k8a_plan, "K9a": gru_cuda.k9a_plan,
+                   "K8b": gru_cuda.k8b_plan, "K9b": gru_cuda.k9b_plan}[name]
+        if plan_of(lib, b, hg, f32, dev).route != "cooperative":
+            fail(f"F7: {name} at H={hg} does not take its cooperative "
+                 f"route")
         xp, ws, lens = gru_inputs(torch, np, dev, t, b, hg, f32, b, dirs)
         fn = getattr(gru_cuda, kernel + ("_seq_fwd" if fwd
                                          else "_seq_bwd_dgates"))
@@ -1496,8 +1592,9 @@ def phase_f7(torch, np, dev):
         return fn, ref, args, K3_TOL["float32"], b
 
     def cluster_case(name):
-        """K3, K6, K8a or K9b on its cluster route at B=600, H=320:
-        (wrapper, plain version, operands, tolerance, plan)"""
+        """K3, K6, K7 (one layer), K8a, K8b or K9b on its cluster route at
+        B=600, H=320: (wrapper, plain version, operands, tolerance,
+        plan)"""
         b = 600
         if name == "K3":
             lib = _kernels.load("bilstm_bwd", rnn_cuda._BWD_SIGNATURES)
@@ -1514,12 +1611,28 @@ def phase_f7(torch, np, dev):
                     rnn_cuda.lstm_seq_bwd_dgates_reference,
                     (mat(t, b, h), xp, y, c, w, lens), K3_TOL["float32"],
                     plan)
+        if name == "K7":
+            lib = _kernels.load("lstm_stack", rnn_cuda._STACK_SIGNATURES)
+            xp, w, lens = uni_inputs(torch, np, dev, t, b, h, f32, b)
+            return (rnn_cuda.lstm_stack_fwd,
+                    rnn_cuda.lstm_stack_fwd_reference,
+                    (xp, [], [w], [], lens, mat(1, b, h, scale=0.5),
+                     mat(1, b, h, scale=0.5)), K2_TOL["float32"],
+                    rnn_cuda.k7_plan(lib, 1, b, h, f32, dev))
         if name == "K8a":
             lib = _kernels.load("gru_fwd", gru_cuda._FWD_SIGNATURES)
             xp, ws, lens = gru_inputs(torch, np, dev, t, b, h, f32, b, 2)
             return (gru_cuda.bigru_seq_fwd, gru_cuda.bigru_seq_fwd_reference,
                     (xp, *ws, lens), K2_TOL["float32"],
                     gru_cuda.k8a_plan(lib, b, h, f32, dev))
+        if name == "K8b":
+            lib = _kernels.load("gru_bwd", gru_cuda._BWD_SIGNATURES)
+            xp, ws, lens = gru_inputs(torch, np, dev, t, b, h, f32, b, 2)
+            ys = gru_cuda.bigru_seq_fwd_reference(xp, *ws, lens)
+            return (gru_cuda.bigru_seq_bwd_dgates,
+                    gru_cuda.bigru_seq_bwd_dgates_reference,
+                    (mat(t, b, h), mat(t, b, h), xp, *ys, *ws, lens),
+                    K3_TOL["float32"], gru_cuda.k8b_plan(lib, b, h, f32, dev))
         lib = _kernels.load("gru_bwd", gru_cuda._BWD_SIGNATURES)
         plan = gru_cuda.k9b_plan(lib, b, h, f32, dev)
         xp, ws, lens = gru_inputs(torch, np, dev, t, b, h, f32, b)
@@ -1540,18 +1653,19 @@ def phase_f7(torch, np, dev):
                      else ((got,), (want,)))
         errs = [max_err(g, r, 0.0, tol) for g, r in zip(got, want)]
         row = {"kernel": name, "wrapper": fn.__name__, "T": t,
-               "H": {"K5": K5_COOPERATIVE_H, "K8a": K8A_COOPERATIVE_H,
-                     "K9a": K9A_COOPERATIVE_H,
-                     **BWD_COOPERATIVE_H}.get(name, h),
+               "H": {"K5": K5_COOPERATIVE_H, "K7": K5_COOPERATIVE_H,
+                     "K8a": K8A_COOPERATIVE_H, "K8b": BWD_COOPERATIVE_H["K9b"],
+                     "K9a": K9A_COOPERATIVE_H, **BWD_COOPERATIVE_H}[name],
                "B": b, "one_launch_max_rows": b - 1, "launches": launched,
                "max_abs_err": max(e for e, _ in errs), "tol": tol}
         rows.append(row)
         if not all(ok for _, ok in errs) or launched != 1:
             emit({"phase": "f7", "rows": rows})
             fail(f"F7: {name} above its ceiling disagrees: {row}")
-    # K3, K6, K8a and K9b at H=320 take their cluster route, which has no
-    # ceiling: B=600 in one call, waves of clusters, no row slices
-    for name in ("K3", "K6", "K8a", "K9b"):
+    # K3, K6, K7 (one layer), K8a, K8b and K9b at H=320 take their cluster
+    # route, which has no ceiling: B=600 in one call, waves of clusters,
+    # no row slices
+    for name in ("K3", "K6", "K7", "K8a", "K8b", "K9b"):
         fn, ref, args, tol, plan = cluster_case(name)
         before = fn.launches
         got = fn(*args)
@@ -1586,9 +1700,60 @@ def uni_model(torch, dtype, dev, mode=None):
     return cfg, init_am_params(cfg, torch.Generator().manual_seed(0), dev)
 
 
+def k7_routes(torch, dev, args):
+    """K7's plan at ``args`` (the streaming shape), its two routes timed
+    on the same operands (the wavefront of per-layer clusters, in row
+    slices where its ceiling is below B; the cooperative kernel), and the
+    witness: both routes give y, h_fin and c_fin bit for bit, at B and at
+    B=1 (the first slot alone); the co-residency guarantee the cluster
+    route's launches held (1: cooperative launch, 2: checked count) and
+    the clusters of its shape the card holds at once.  Each route is timed
+    as one call (median_ms: the host's time before its first launch
+    included) and as 50 calls back to back (the card's time a call)."""
+    from kaldi_ctc_tpu_torch import _kernels
+    from kaldi_ctc_tpu_torch.ops import rnn_cuda
+    lib = _kernels.load("lstm_stack", rnn_cuda._STACK_SIGNATURES)
+    xp0, wxs, whs, bs, lens, h0, c0 = args
+    n_layers, b, h = len(whs), xp0.shape[1], xp0.shape[2] // 4
+    plan = rnn_cuda.k7_plan(lib, n_layers, b, h, xp0.dtype, dev)
+    if not plan.cluster:
+        fail(f"K7 at L={n_layers}, B={b}, H={h} has no cluster route: "
+             f"{plan}")
+    one = (xp0[:, :1].contiguous(), wxs, whs, bs, lens[:1],
+           h0[:, :1].contiguous(), c0[:, :1].contiguous())
+    equal = {}
+    for name, (x, *_, ln, hh, cc) in (("B", args), ("B1", one)):
+        p = rnn_cuda.k7_plan(lib, n_layers, x.shape[1], h, x.dtype, dev)
+        ops = (x, wxs, whs, bs, ln.to(torch.int32), hh, cc)
+        chain = rnn_cuda._lstm_stack_chain(lib, *ops, p)
+        coop = rnn_cuda._lstm_stack_cooperative(lib, *ops)
+        equal[name] = all(torch.equal(g, k) for g, k in zip(chain, coop))
+    ops = (xp0, wxs, whs, bs, lens.to(torch.int32), h0, c0)
+    sfx = rnn_cuda._SUFFIX[xp0.dtype]
+
+    def chain():
+        rnn_cuda._lstm_stack_chain(lib, *ops, plan)
+
+    def coop():
+        rnn_cuda._lstm_stack_cooperative(lib, *ops)
+
+    return {"plan": plan._asdict(),
+            "chain_route_ms": median_ms(chain, 20, torch),
+            "cooperative_route_ms": median_ms(coop, 20, torch),
+            "chain_route_back_to_back_ms": back_to_back_ms(chain, 50, torch),
+            "cooperative_route_back_to_back_ms": back_to_back_ms(coop, 50,
+                                                                 torch),
+            "bit_equal_cooperative": equal,
+            "residency": lib.lstm_stack_chain_residency(),
+            "co_resident_clusters": getattr(
+                lib, "lstm_stack_chain_clusters_" + sfx)(
+                    n_layers, h, plan.cluster, plan.rows)}
+
+
 def phase_k7(torch, np, dev):
-    """K7 at the streaming shapes against its plain version, then an
-    8 s utterance streamed through it against K5's offline forward."""
+    """K7 at the streaming shapes against its plain version, with its
+    plan, both routes timed and held equal bit for bit (k7_routes), then
+    an 8 s utterance streamed through it against K5's offline forward."""
     from kaldi_ctc_tpu_torch.features import MfccOptions, compute_mfcc
     from kaldi_ctc_tpu_torch.ops import rnn_cuda
     from kaldi_ctc_tpu_torch.ops.rnn import (init_stream_state, rnn_forward,
@@ -1663,11 +1828,14 @@ def phase_k7(torch, np, dev):
                                             state=True),
                "utterance_frames": int(x.shape[0]),
                "utterance_chunks": n_chunks,
-               "max_abs_err_stream_vs_offline_k5": stream_err}
+               "max_abs_err_stream_vs_offline_k5": stream_err,
+               **k7_routes(torch, dev, args)}
         rows.append(row)
         emit({"phase": "k7_lstm_stack", **row})
         if not (all(ok for _, ok in errs) and idle_kept and stream_ok
-                and n_chunks == -(-x.shape[0] // t_max)):
+                and n_chunks == -(-x.shape[0] // t_max)
+                and all(row["bit_equal_cooperative"].values())
+                and row["residency"] in (1, 2)):
             fail(f"K7 lstm_stack_fwd disagrees: {row}")
     return kernel_row(rows, rows[1])     # bf16
 
@@ -2013,8 +2181,9 @@ def phase_profile_stream(torch, np, engines, gru=False):
         prof, traced_ms = profiled(torch, lambda: rec.process(chunks, valid))
         kernels = device_kernels(prof, DeviceType)
         device_ms = sum(k[0] for k in kernels) / 1000
-        k7_ms = sum(k[0] for k in kernels if "::lstm_stack_kernel" in k[2]) \
-            / 1000
+        k7_ms = sum(k[0] for k in kernels
+                    if any(tag in k[2] for tag in kernel_tags("lstm_stack"))
+                    ) / 1000
         emit({"phase": "profile_stream_gru" if gru else "profile_stream",
               "dtype": dtype, "slots": STREAMS,
               "chunk_frames": CHUNK_FRAMES,
@@ -2089,10 +2258,12 @@ def device_kernels(prof, DeviceType):
 # routes of K2 (bilstm_xp_chain_kernel or bilstm_fwd_kernel), K5
 # (lstm_fwd_chain_kernel or lstm_fwd_kernel), K9a (gru_fwd_chain_kernel
 # or gru_fwd_kernel) and K8a (bigru_fwd_chain_kernel or bigru_fwd_kernel),
-# and those of K3, K6 and K9b: the cluster route's two phases
+# those of K3, K6, K8b and K9b: the cluster route's two phases
 # (lstm_bwd_gates_tiled_kernel or lstm_bwd_gates_kernel, then
-# lstm_bwd_chain_kernel; the same with bilstm_bwd_ and gru_bwd_) or the
-# cooperative kernel (bilstm_bwd_kernel, lstm_bwd_kernel, gru_bwd_kernel)
+# lstm_bwd_chain_kernel; the same with bilstm_bwd_, bigru_bwd_ and
+# gru_bwd_) or the cooperative kernel (bilstm_bwd_kernel, lstm_bwd_kernel,
+# bigru_bwd_kernel, gru_bwd_kernel); and K7's two routes
+# (lstm_stack_chain_kernel or lstm_stack_kernel)
 KERNEL_TAGS = {"bilstm_proj_fwd": ("::bilstm_proj_x",
                                    "::bilstm_fwd_chain_kernel"),
                "bilstm_proj_bwd": ("::bilstm_proj_gates",
@@ -2109,7 +2280,12 @@ KERNEL_TAGS = {"bilstm_proj_fwd": ("::bilstm_proj_x",
                "lstm_bwd": ("::lstm_bwd_gates", "::lstm_bwd_chain_kernel",
                             "::lstm_bwd_kernel"),
                "gru_bwd": ("::gru_bwd_gates", "::gru_bwd_chain_kernel",
-                           "::gru_bwd_kernel")}
+                           "::gru_bwd_kernel"),
+               "bigru_bwd": ("::bigru_bwd_gates",
+                             "::bigru_bwd_chain_kernel",
+                             "::bigru_bwd_kernel"),
+               "lstm_stack": ("::lstm_stack_chain_kernel",
+                              "::lstm_stack_kernel")}
 # of those, the ones a wrapper call launches once (once per chunk of
 # steps: one chunk at the training shape)
 LAUNCH_TAGS = {"bilstm_proj_fwd": ("::bilstm_fwd_chain_kernel",),
@@ -2117,7 +2293,9 @@ LAUNCH_TAGS = {"bilstm_proj_fwd": ("::bilstm_fwd_chain_kernel",),
                "bilstm_bwd": ("::bilstm_bwd_chain_kernel",
                               "::bilstm_bwd_kernel"),
                "lstm_bwd": ("::lstm_bwd_chain_kernel", "::lstm_bwd_kernel"),
-               "gru_bwd": ("::gru_bwd_chain_kernel", "::gru_bwd_kernel")}
+               "gru_bwd": ("::gru_bwd_chain_kernel", "::gru_bwd_kernel"),
+               "bigru_bwd": ("::bigru_bwd_chain_kernel",
+                             "::bigru_bwd_kernel")}
 
 
 def kernel_tags(name):

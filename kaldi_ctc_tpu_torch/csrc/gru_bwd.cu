@@ -47,7 +47,22 @@
 //     partials).  Any B, no row slices; a scratch above 256 MiB runs in
 //     chunks of steps, dh carried between them;
 //   - the cooperative route above that: gru_bwd_kernel, below.
-// K8b runs the cooperative design with both directions.
+// K8b has the same two routes with both directions (ops/gru_cuda.py::
+// k8b_plan, the same plan with dirs 2), K3's split (csrc/bilstm_bwd.cu)
+// with the GRU cell:
+//   - the cluster route, to the same H: bigru_bwd_gates_tiled_kernel (H
+//     <= 426) or bigru_bwd_gates_kernel computes both directions' sums
+//     y[prev] . W_h of every step at once (BiWalkRows: the forward
+//     direction at t = T-1-s over y_f[t-1], the backward one at t = s over
+//     y_b[t+1], zeros at each one's forward-first step) into an f32
+//     scratch [S, B, 2 3H]; then bigru_bwd_chain_kernel (its own name, so
+//     a trace tells it from K9b's chain) walks both directions' dh chains,
+//     one cluster per (direction, R rows), reading xp at stride 6H and
+//     each direction's y[prev] residual.  Each direction's sums and cell
+//     are K9b's, so each equals K9b's chain on its operands bit for bit
+//     (rows never meet: R does not change a row's sums).  Any B; chunks
+//     of steps above a 256 MiB scratch, dh carried in state [1][2][B][H];
+//   - the cooperative route (bigru_bwd_kernel) above that H.
 //
 // The cooperative design: K6's and K3's (csrc/lstm_bwd.cu,
 // csrc/bilstm_bwd.cu) with three gate columns per unit.  One cooperative
@@ -391,6 +406,69 @@ int chain_launch(const void* dy, const void* xp, const void* y,
       s0, S, steps, B, H, R, reverse);
 }
 
+// ---------------------------------------------------------------------------
+// K8b's cluster route: phase 1, both directions' recurrent sums of every
+// step at once, then the backward chain with both directions
+// ---------------------------------------------------------------------------
+
+template <typename T>
+__global__ void __launch_bounds__(kGateThreads)
+bigru_bwd_gates_kernel(const T* __restrict__ yf, const T* __restrict__ yb,
+                       const T* __restrict__ whf, const T* __restrict__ whb,
+                       float* __restrict__ pre, int s0, int S, int steps,
+                       int B, int H, int cols, int) {
+  gates_warp_body<T, Sums::kRec>(nullptr, nullptr, whf, whb, pre, S * B, 0,
+                                 H, 3, 2, cols,
+                                 BiWalkRows<T>{yf, yb, s0, steps, B, H});
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kTileThreads, 1)
+bigru_bwd_gates_tiled_kernel(const T* __restrict__ yf,
+                             const T* __restrict__ yb,
+                             const T* __restrict__ whf,
+                             const T* __restrict__ whb,
+                             float* __restrict__ pre, int s0, int S,
+                             int steps, int B, int H, int) {
+  gates_tiled_body<T, Sums::kRec>(nullptr, nullptr, whf, whb, pre, S * B, 0,
+                                  H, 3, 2,
+                                  BiWalkRows<T>{yf, yb, s0, steps, B, H});
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kBwdChainThreads)
+bigru_bwd_chain_kernel(const T* __restrict__ dyf, const T* __restrict__ dyb,
+                       const T* __restrict__ xp, const T* __restrict__ yf,
+                       const T* __restrict__ yb, const T* __restrict__ whf,
+                       const T* __restrict__ whb,
+                       const int32_t* __restrict__ lens,
+                       const float* __restrict__ pre, T* __restrict__ dgxf,
+                       T* __restrict__ dghf, T* __restrict__ dgxb,
+                       T* __restrict__ dghb, float* __restrict__ state,
+                       int s0, int S, int steps, int B, int H, int R) {
+  bwd_chain_body<GruBwdCell, false, T>(
+      pre, xp, dyf, dyb, yf, yb, whf, whb, lens, dgxf, dghf, dgxb, dghb,
+      state, 2, s0, S, steps, B, H, R, 0);
+}
+
+template <typename T>
+int bi_chain_launch(const void* dyf, const void* dyb, const void* xp,
+                    const void* yf, const void* yb, const void* whf,
+                    const void* whb, const void* lens, const void* pre,
+                    void* dgxf, void* dghf, void* dgxb, void* dghb,
+                    void* state, int s0, int S, int steps, int B, int H,
+                    int C, int R, void* stream) {
+  return bwd_chain_launch<GruBwdCell, false>(
+      bigru_bwd_chain_kernel<T>, C, 2, s0, S, steps, B, H, R, stream,
+      static_cast<const T*>(dyf), static_cast<const T*>(dyb),
+      static_cast<const T*>(xp), static_cast<const T*>(yf),
+      static_cast<const T*>(yb), static_cast<const T*>(whf),
+      static_cast<const T*>(whb), static_cast<const int32_t*>(lens),
+      static_cast<const float*>(pre), static_cast<T*>(dgxf),
+      static_cast<T*>(dghf), static_cast<T*>(dgxb), static_cast<T*>(dghb),
+      static_cast<float*>(state), s0, S, steps, B, H, R);
+}
+
 }  // namespace
 
 extern "C" {
@@ -492,7 +570,7 @@ int gru_bwd_chain_bf16(const void* dy, const void* xp, const void* y,
                                      reverse, stream);
 }
 
-// K8b.  part: gru_bwd_exchange_floats(2, B, H)
+// K8b's cooperative route.  part: gru_bwd_exchange_floats(2, B, H)
 int bigru_bwd_f32(const void* dyf, const void* dyb, const void* xp,
                   const void* yf, const void* yb, const void* whf,
                   const void* whb, const void* lens, void* dgxf, void* dghf,
@@ -510,6 +588,58 @@ int bigru_bwd_bf16(const void* dyf, const void* dyb, const void* xp,
   return launch<__nv_bfloat16>(true, dyf, dyb, xp, yf, yb, whf, whb, lens,
                                dgxf, dghf, dgxb, dghb, part, steps, B, H, 0,
                                stream);
+}
+
+// K8b's cluster route, phase 1 over walk steps s0 .. s0+S-1 of `steps`:
+// y_f, y_b [T, B, H] and w_h_f, w_h_b [H, 3H] in the compute dtype -> pre
+// [S, B, 6H] f32, row i the recurrent sums hr, hz, hn of step s0 + i of
+// both directions (the forward one at t = T-1-s over y_f[t-1], the
+// backward one at t = s over y_b[t+1]).  cols 0: the tiled kernel (H <=
+// 426); 1..32: the warp kernel with that many gate columns a block.
+int bigru_bwd_gates_f32(const void* yf, const void* yb, const void* whf,
+                        const void* whb, void* pre, int s0, int S, int steps,
+                        int B, int H, int cols, void* stream) {
+  return rec_gates_launch<float>(bigru_bwd_gates_tiled_kernel<float>,
+                                 bigru_bwd_gates_kernel<float>, yf, yb, whf,
+                                 whb, pre, s0, S, steps, B, H, 3, 2, cols, 0,
+                                 stream);
+}
+
+int bigru_bwd_gates_bf16(const void* yf, const void* yb, const void* whf,
+                         const void* whb, void* pre, int s0, int S,
+                         int steps, int B, int H, int cols, void* stream) {
+  return rec_gates_launch<__nv_bfloat16>(
+      bigru_bwd_gates_tiled_kernel<__nv_bfloat16>,
+      bigru_bwd_gates_kernel<__nv_bfloat16>, yf, yb, whf, whb, pre, s0, S,
+      steps, B, H, 3, 2, cols, 0, stream);
+}
+
+// K8b's cluster route, phase 2 over the same steps: dy_f, dy_b, xp [T, B,
+// 6H], y_f, y_b, w_h_f, w_h_b in the compute dtype, lens [B] int32, pre
+// from phase 1 -> dgx_f, dgh_f, dgx_b, dgh_b [T, B, 3H] at those steps'
+// frames; state [1][2][B][H] f32 holds each direction's dh on entry and,
+// unless the walk ends here, on exit.  C CTAs per cluster (a power of two
+// <= 16), R rows per cluster.
+int bigru_bwd_chain_f32(const void* dyf, const void* dyb, const void* xp,
+                        const void* yf, const void* yb, const void* whf,
+                        const void* whb, const void* lens, const void* pre,
+                        void* dgxf, void* dghf, void* dgxb, void* dghb,
+                        void* state, int s0, int S, int steps, int B, int H,
+                        int C, int R, void* stream) {
+  return bi_chain_launch<float>(dyf, dyb, xp, yf, yb, whf, whb, lens, pre,
+                                dgxf, dghf, dgxb, dghb, state, s0, S, steps,
+                                B, H, C, R, stream);
+}
+
+int bigru_bwd_chain_bf16(const void* dyf, const void* dyb, const void* xp,
+                         const void* yf, const void* yb, const void* whf,
+                         const void* whb, const void* lens, const void* pre,
+                         void* dgxf, void* dghf, void* dgxb, void* dghb,
+                         void* state, int s0, int S, int steps, int B, int H,
+                         int C, int R, void* stream) {
+  return bi_chain_launch<__nv_bfloat16>(dyf, dyb, xp, yf, yb, whf, whb, lens,
+                                        pre, dgxf, dghf, dgxb, dghb, state,
+                                        s0, S, steps, B, H, C, R, stream);
 }
 
 const char* kctpu_error_string(int err) {

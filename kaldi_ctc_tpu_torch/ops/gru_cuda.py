@@ -15,7 +15,8 @@ leaves them to XLA.  On the card K9a's and K8a's routes come from
 ``rnn_cuda.fwd_chain_plan`` with three gates and one or two directions:
 the forward chain in thread-block clusters (``csrc/fwd_chain.cuh`` with
 the GRU cell; any B, one launch) where W_h fits a cluster, else the
-cooperative kernel in row slices.  K9b's comes from ``rnn_cuda.bwd_chain_plan`` with three gates:
+cooperative kernel in row slices.  K9b's and K8b's come from
+``rnn_cuda.bwd_chain_plan`` with three gates and one or two directions:
 every step's recurrent sums at once, then the backward chain in clusters
 (``csrc/bwd_chain.cuh`` with the GRU cell; any B), else the cooperative
 kernel in row slices.
@@ -40,8 +41,9 @@ import torch
 from kaldi_ctc_tpu_torch import _kernels
 from kaldi_ctc_tpu_torch.ops.rnn import (COMPUTE_DTYPES, _gru_gates, _valid,
                                          matmul_f32acc)
-from kaldi_ctc_tpu_torch.ops.rnn_cuda import (_I, _P, _REC_GATES_ARGS,
-                                              _SUFFIX, BwdChainPlan,
+from kaldi_ctc_tpu_torch.ops.rnn_cuda import (_BI_GATES_ARGS, _I, _P,
+                                              _REC_GATES_ARGS, _SUFFIX,
+                                              BwdChainPlan,
                                               FwdChainPlan, _check_lens,
                                               _check_tensors, _check_x_proj,
                                               _dw_h, _scratch_steps,
@@ -53,7 +55,7 @@ __all__ = ["gru_seq_fwd", "gru_seq_fwd_reference", "gru_seq_bwd_dgates",
            "gru_seq_bwd_dgates_reference", "gru_sequence", "bigru_seq_fwd",
            "bigru_seq_fwd_reference", "bigru_seq_bwd_dgates",
            "bigru_seq_bwd_dgates_reference", "bigru_layer", "k8a_plan",
-           "k9a_plan", "k9b_plan"]
+           "k8b_plan", "k9a_plan", "k9b_plan"]
 
 _FWD_SIGNATURES = {"gru_fwd_f32": [_P] * 5 + [_I] * 4 + [_P],
                    "gru_fwd_bf16": [_P] * 5 + [_I] * 4 + [_P],
@@ -73,7 +75,11 @@ _BWD_SIGNATURES = {"gru_bwd_f32": [_P] * 8 + [_I] * 4 + [_P],
                    "gru_bwd_gates_f32": _REC_GATES_ARGS,
                    "gru_bwd_gates_bf16": _REC_GATES_ARGS,
                    "gru_bwd_chain_f32": [_P] * 9 + [_I] * 8 + [_P],
-                   "gru_bwd_chain_bf16": [_P] * 9 + [_I] * 8 + [_P]}
+                   "gru_bwd_chain_bf16": [_P] * 9 + [_I] * 8 + [_P],
+                   "bigru_bwd_gates_f32": _BI_GATES_ARGS,
+                   "bigru_bwd_gates_bf16": _BI_GATES_ARGS,
+                   "bigru_bwd_chain_f32": [_P] * 14 + [_I] * 7 + [_P],
+                   "bigru_bwd_chain_bf16": [_P] * 14 + [_I] * 7 + [_P]}
 # each source's batch-ceiling queries, one per kernel and dtype
 _FWD_SIGNATURES.update({f"{k}_fwd_max_rows_{sfx}": [_I]
                         for k in ("gru", "bigru") for sfx in _SUFFIX.values()})
@@ -550,7 +556,12 @@ def bigru_seq_bwd_dgates(dy_f: torch.Tensor, dy_b: torch.Tensor,
     residuals (xp [T, B, 6H], y_f / y_b [T, B, H], w_h_f / w_h_b [H, 3H],
     all in the compute dtype, lens [B]) → (dgx_f, dgh_f, dgx_b, dgh_b)
     [T, B, 3H] in dg_dtype (default xp's).  The contract of
-    ``_bigru_seq_bwd_dgates``."""
+    ``_bigru_seq_bwd_dgates``.  On the card the route is
+    :func:`k8b_plan`'s, from the shapes: phase 1 (both directions'
+    recurrent sums of every step at once) and the backward chain with both
+    directions in thread-block clusters (any B, chunks of steps above a
+    256 MiB scratch) where W_h fits a cluster, else the cooperative kernel
+    in row slices."""
     dg_dtype = xp.dtype if dg_dtype is None else dg_dtype
     if xp.device.type == "cpu":
         return bigru_seq_bwd_dgates_reference(dy_f, dy_b, xp, y_f, y_b,
@@ -577,14 +588,94 @@ def bigru_seq_bwd_dgates(dy_f: torch.Tensor, dy_b: torch.Tensor,
         return tuple(torch.empty((t_max, b, 3 * h), dtype=cdt, device=dev)
                      for _ in range(4))
     lib = _kernels.load("gru_bwd", _BWD_SIGNATURES)
+    plan = k8b_plan(lib, b, h, cdt, dev)
+    ops = (dy_f, dy_b, xp, y_f, y_b, w_h_f, w_h_b,
+           lens.to(torch.int32).contiguous())
+    if plan.route == "cluster":
+        out = _bigru_bwd_chain(lib, *ops, plan)
+    else:
+        out = _bigru_bwd_cooperative(lib, *ops)
+    bigru_seq_bwd_dgates.launches += 1
+    return out
 
-    def launch(dy_f, dy_b, xp, y_f, y_b, lens):
+
+def k8b_plan(lib, b: int, h: int, dtype: torch.dtype, device
+             ) -> BwdChainPlan:
+    """K8b's route and launch shape on ``device``:
+    ``rnn_cuda.bwd_chain_plan`` with three gates and both directions."""
+    return bwd_chain_plan(b, h, dtype, 2, _sm_count(device),
+                          _smem_optin(lib, "gru_bwd_smem_optin", device),
+                          gates=3)
+
+
+def _k8b_gates(lib, y_f, y_b, w_h_f, w_h_b, pre: torch.Tensor, s0: int,
+               n: int, plan: BwdChainPlan) -> None:
+    """K8b's phase 1 for walk steps s0 .. s0+n-1: both directions'
+    recurrent sums into pre[:n]."""
+    t_max, b, h = y_f.shape
+    err = getattr(lib, "bigru_bwd_gates_" + _SUFFIX[y_f.dtype])(
+        y_f.data_ptr(), y_b.data_ptr(), w_h_f.data_ptr(), w_h_b.data_ptr(),
+        pre.data_ptr(), s0, n, t_max, b, h, plan.gate_cols,
+        _kernels.stream_ptr(y_f.device))
+    _kernels.check(lib, err, f"bigru_seq_bwd_dgates phase 1 at T={t_max}, "
+                             f"B={b}, {plan}")
+
+
+def _k8b_chain(lib, dy_f, dy_b, xp, y_f, y_b, w_h_f, w_h_b,
+               lens32: torch.Tensor, pre: torch.Tensor, outs: Quad,
+               state: torch.Tensor, s0: int, n: int,
+               plan: BwdChainPlan) -> None:
+    """K8b's phase 2 for the same steps: both directions' dh chains in
+    clusters, (dgx_f, dgh_f, dgx_b, dgh_b) into ``outs``; ``state``
+    carries dh across chunks."""
+    t_max, b, h = dy_f.shape
+    err = getattr(lib, "bigru_bwd_chain_" + _SUFFIX[dy_f.dtype])(
+        dy_f.data_ptr(), dy_b.data_ptr(), xp.data_ptr(), y_f.data_ptr(),
+        y_b.data_ptr(), w_h_f.data_ptr(), w_h_b.data_ptr(),
+        lens32.data_ptr(), pre.data_ptr(), *(o.data_ptr() for o in outs),
+        state.data_ptr(), s0, n, t_max, b, h, plan.cluster, plan.rows,
+        _kernels.stream_ptr(dy_f.device))
+    _kernels.check(lib, err, f"bigru_seq_bwd_dgates phase 2 at T={t_max}, "
+                             f"B={b}, {plan}")
+
+
+def _bigru_bwd_chain(lib, dy_f, dy_b, xp, y_f, y_b, w_h_f, w_h_b,
+                     lens32: torch.Tensor, plan: BwdChainPlan) -> Quad:
+    """K8b's cluster route (``bigru_bwd_gates_*``, then
+    ``bigru_bwd_chain_*``, per chunk of steps) on checked operands."""
+    t_max, b, g6 = xp.shape
+    h = g6 // 6
+    dev = xp.device
+    outs = tuple(torch.empty((t_max, b, 3 * h), dtype=xp.dtype, device=dev)
+                 for _ in range(4))
+    # phase 1's scratch holds the steps of one chunk; phase 2 carries each
+    # direction's dh between chunks in `state`
+    steps = _scratch_steps(t_max, b, g6)
+    pre = torch.empty((steps, b, g6), dtype=torch.float32, device=dev)
+    state = torch.zeros((1, 2, b, h), dtype=torch.float32, device=dev)
+    for s0 in range(0, t_max, steps):
+        n = min(steps, t_max - s0)
+        _k8b_gates(lib, y_f, y_b, w_h_f, w_h_b, pre, s0, n, plan)
+        _k8b_chain(lib, dy_f, dy_b, xp, y_f, y_b, w_h_f, w_h_b, lens32, pre,
+                   outs, state, s0, n, plan)
+    return outs
+
+
+def _bigru_bwd_cooperative(lib, dy_f, dy_b, xp, y_f, y_b, w_h_f, w_h_b,
+                           lens32: torch.Tensor) -> Quad:
+    """K8b's cooperative route (``bigru_bwd_*``) on checked operands, in
+    row slices under its ceiling."""
+    t_max, _, g6 = xp.shape
+    h = g6 // 6
+    dev = xp.device
+    sfx = _SUFFIX[xp.dtype]
+
+    def launch(dy_f, dy_b, xp, y_f, y_b, lens32):
         n = xp.shape[1]
-        outs = [torch.empty((t_max, n, 3 * h), dtype=cdt, device=dev)
+        outs = [torch.empty((t_max, n, 3 * h), dtype=xp.dtype, device=dev)
                 for _ in range(4)]
         part = _exchange(lib, 2, n, h, dev, "bigru_seq_bwd_dgates")
-        lens32 = lens.to(torch.int32).contiguous()
-        err = getattr(lib, "bigru_bwd_" + _SUFFIX[cdt])(
+        err = getattr(lib, "bigru_bwd_" + sfx)(
             dy_f.data_ptr(), dy_b.data_ptr(), xp.data_ptr(), y_f.data_ptr(),
             y_b.data_ptr(), w_h_f.data_ptr(), w_h_b.data_ptr(),
             lens32.data_ptr(), *(o.data_ptr() for o in outs),
@@ -592,11 +683,9 @@ def bigru_seq_bwd_dgates(dy_f: torch.Tensor, dy_b: torch.Tensor,
         _kernels.check(lib, err, "bigru_seq_bwd_dgates")
         return tuple(outs)
 
-    out = run_in_row_slices(
-        launch, max_rows(lib, "bigru_bwd_max_rows_" + _SUFFIX[cdt], dev, h),
-        dy_f, dy_b, xp, y_f, y_b, lens)
-    bigru_seq_bwd_dgates.launches += 1
-    return out
+    return run_in_row_slices(
+        launch, max_rows(lib, "bigru_bwd_max_rows_" + sfx, dev, h),
+        dy_f, dy_b, xp, y_f, y_b, lens32)
 
 
 bigru_seq_bwd_dgates.launches = 0  # kernel launches made by this wrapper

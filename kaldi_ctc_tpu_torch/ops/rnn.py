@@ -304,12 +304,13 @@ def rnn_forward_stream(
     neither update stream b's state nor produce output (an idle slot has
     lens 0).  → (y [T, B, H] in the compute dtype, new states).
 
-    On CUDA an LSTM stack runs kernel K7, all L layers as one wavefront
-    of T + L - 1 steps, whenever ``rnn_cuda.lstm_stack_fits`` holds for
-    its shapes (the port's residency rule, from K7's shared-memory
-    formula and the co-residency of its grid; the JAX package's 10 MB
-    VMEM budget and its L > 1 condition are TPU limits and do not
-    apply).  A stack that does not fit takes the per-layer path, as the
+    On CUDA an LSTM stack runs kernel K7, all L layers as one wavefront,
+    whenever ``rnn_cuda.lstm_stack_fits`` holds for its shapes (the
+    port's residency rule, ``rnn_cuda.k7_plan``: the cluster route where
+    each layer's weights fit one cluster's shared memory and the L
+    clusters of the batch are co-resident, else the cooperative kernel
+    where its grid is; the JAX package's 10 MB VMEM budget and its L > 1
+    condition are TPU limits and do not apply).  A stack that does not fit takes the per-layer path, as the
     JAX package's scan branch does, with each layer a one-layer K7
     launch.  Other modes, and the CPU, run the per-layer loop in torch
     ops: for a GRU, ReLU or Tanh stack that is the JAX package's own

@@ -60,7 +60,8 @@ __all__ = ["bilstm_seq_fwd", "bilstm_seq_fwd_reference",
            "lstm_sequence", "lstm_stack_fwd", "lstm_stack_fwd_reference",
            "lstm_stack_fits", "max_rows", "run_in_row_slices", "K10bPlan",
            "k10b_plan", "FwdChainPlan", "fwd_chain_plan", "k2_plan",
-           "BwdChainPlan", "bwd_chain_plan", "k3_plan", "k6_plan"]
+           "BwdChainPlan", "bwd_chain_plan", "k3_plan", "k6_plan",
+           "StackPlan", "stack_chain_plan", "k7_plan"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -124,10 +125,17 @@ _UNI_BWD_SIGNATURES = {"lstm_bwd_f32": _UNI_BWD_ARGS,
                        "lstm_bwd_chain_f32": _UNI_BWD_CHAIN_ARGS,
                        "lstm_bwd_chain_bf16": _UNI_BWD_CHAIN_ARGS}
 _STACK_ARGS = [_P] * 11 + [_I] * 4 + [_P]
+_STACK_CHAIN_ARGS = [_P] * 12 + [_I] * 6 + [_P]
 _STACK_SIGNATURES = {"lstm_stack_f32": _STACK_ARGS,
                      "lstm_stack_bf16": _STACK_ARGS,
                      "lstm_stack_max_rows_f32": [_I] * 2,
-                     "lstm_stack_max_rows_bf16": [_I] * 2}
+                     "lstm_stack_max_rows_bf16": [_I] * 2,
+                     "lstm_stack_chain_f32": _STACK_CHAIN_ARGS,
+                     "lstm_stack_chain_bf16": _STACK_CHAIN_ARGS,
+                     "lstm_stack_chain_clusters_f32": [_I] * 4,
+                     "lstm_stack_chain_clusters_bf16": [_I] * 4,
+                     "lstm_stack_chain_residency": [],
+                     "lstm_stack_smem_optin": []}
 _STACK_MAX_LAYERS = 16   # kMaxLayers of csrc/lstm_stack.cu
 
 Outputs = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]
@@ -157,11 +165,12 @@ _ROW_CEILINGS: Dict[tuple, int] = {}
 
 
 def _ceiling(lib: ctypes.CDLL, query: str, device, *dims: int) -> int:
-    """The answer of a kernel source's ``query`` (``*_max_rows``) on
-    ``device``: the most batch rows one launch takes, from the launch's
-    own shared-memory and co-residency check over B, 0 if not one;
-    nothing is launched.  Cached per device and shape (it depends on
-    nothing else)."""
+    """The answer of a kernel source's ``query`` on ``device``: a
+    ``*_max_rows`` query's most batch rows one launch takes, from the
+    launch's own shared-memory and co-residency check over B, 0 if not
+    one (or ``lstm_stack_chain_clusters_*``'s clusters the card holds at
+    once); nothing is launched.  Cached per device and shape (it depends
+    on nothing else)."""
     with torch.cuda.device(device):
         key = (query, torch.cuda.current_device(), dims)
         rows = _ROW_CEILINGS.get(key)
@@ -1471,16 +1480,160 @@ def lstm_stack_fwd_reference(xp0: torch.Tensor, wxs, whs, bs,
     return y, torch.stack(h_fin), torch.stack(c_fin)
 
 
+class StackPlan(NamedTuple):
+    """K7's route and launch shape.  ``route`` "cluster": the wavefront of
+    per-layer clusters, "cooperative": the cooperative kernel.  The
+    cluster route's shape, where it fits (else zeros): one cluster of
+    ``cluster`` CTAs per (layer, ``rows`` batch rows), ``groups`` groups
+    of L clusters a launch (0: any, a one-layer stack waits on nothing),
+    ``chain_rows`` rows a launch (0: any B), ``chain_smem`` bytes a CTA.
+    ``coop_rows``: the cooperative kernel's rows a launch (its
+    ``lstm_stack_max_rows_*`` ceiling)."""
+    route: str
+    cluster: int
+    rows: int
+    groups: int
+    chain_rows: int
+    chain_smem: int
+    coop_rows: int
+
+    @property
+    def launch_rows(self) -> int:
+        """Rows one launch of the chosen route takes (0: any B)."""
+        return self.chain_rows if self.route == "cluster" else self.coop_rows
+
+
+def _stack_chain_bytes(n_layers: int, c: int, r: int, h: int,
+                       itemsize: int) -> int:
+    """Shared memory of a K7 cluster-route CTA for ``n_layers`` layers at
+    cluster size ``c``, ``r`` rows per cluster, ``h`` units, W and h of
+    ``itemsize`` bytes: ``stack_chain_bytes`` of csrc/lstm_stack.cu (W_h's
+    and, above one layer, W_x's gate columns, two parities of h, the
+    layer below's rows, the CTA's h slice, then f32 sums, c, h, layer 0's
+    two prefetch buffers of xp0, the bias and the lengths)."""
+    hsz = -(-h // c)
+    m = 1 if n_layers > 1 else 0
+
+    def a16(n):
+        return -(-n // 16) * 16
+    return ((1 + m) * a16(4 * hsz * h * itemsize) + a16(2 * r * h * itemsize)
+            + m * a16(r * h * itemsize) + a16(r * hsz * itemsize)
+            + 4 * r * hsz * 14 + 4 * m * 4 * hsz + 4 * r)
+
+
+def stack_chain_plan(n_layers: int, b: int, h: int, dtype: torch.dtype,
+                     sms: int, smem_optin: int,
+                     clusters: Callable[[int, int], int],
+                     coop_rows: int) -> StackPlan:
+    """K7's route and launch shape for an ``n_layers`` stack of ``h`` units
+    at a batch of ``b`` rows in ``dtype`` on a card of ``sms`` SMs with
+    ``smem_optin`` bytes of shared memory per block.  ``clusters(c, r)``:
+    the clusters of ``c`` CTAs at ``r`` rows the card holds at once (the
+    kernel source's ``lstm_stack_chain_clusters_*``); ``coop_rows``: the
+    cooperative kernel's ceiling (``lstm_stack_max_rows_*``).
+
+    The cluster route: C is the smallest power of two whose share of W_h
+    (and, above one layer, W_x) as f32 leaves half of a CTA's shared
+    memory to the rows, as the forward chain's plan takes it (16 at H =
+    320); it fits where one row fits beside that share in the compute
+    dtype.  Above one layer each layer's cluster waits on
+    the layer below, so a launch holds at most clusters(C, R_max) / L
+    groups, co-resident: R_max rows a group (~42 in bf16, 5 in f32 at 5 x
+    320).  A one-layer stack waits on nothing: R as the forward chain's
+    (the clusters in one wave on three quarters of the SMs), any B.
+
+    The route: the cluster route where it runs the batch in one launch,
+    else the cooperative kernel where that runs it in one launch, else
+    whichever fits, in row slices (the cluster route first).  Raises when
+    neither fits."""
+    if dtype not in _SUFFIX or not 1 <= n_layers <= _STACK_MAX_LAYERS:
+        raise ValueError(f"K7: no kernel for {n_layers} layers in {dtype}")
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    m = 2 if n_layers > 1 else 1
+
+    def size(c, r):
+        return _stack_chain_bytes(n_layers, c, r, h, itemsize)
+
+    c = next((c for c in _CLUSTERS
+              if m * 16 * -(-h // c) * h <= smem_optin // 2),
+             _CLUSTERS[-1])
+    chain = None
+    if size(c, 1) <= smem_optin:
+        lo, hi = 1, 1 << 16                  # the most rows a cluster holds
+        while lo < hi:
+            mid = (lo + hi + 1) // 2
+            lo, hi = (mid, hi) if size(c, mid) <= smem_optin else (lo, mid - 1)
+        r_max = lo
+        if n_layers == 1:
+            per_wave = max(1, sms * 3 // 4 // c)
+            r = max(1, min(b, -(-b // per_wave), r_max))
+            chain = (c, r, 0, 0)
+        else:
+            k = clusters(c, r_max) // n_layers   # co-resident groups
+            if k >= 1:
+                n = min(b, k * r_max)            # this call's rows a launch
+                groups = min(k, n)
+                chain = (c, -(-n // groups), groups, k * r_max)
+    if chain is not None and (chain[3] == 0 or b <= chain[3]):
+        route = "cluster"
+    elif coop_rows >= b:
+        route = "cooperative"
+    elif chain is not None:
+        route = "cluster"
+    elif coop_rows >= 1:
+        route = "cooperative"
+    else:
+        raise ValueError(f"K7: neither route fits L={n_layers}, H={h} in "
+                         f"{dtype} in {smem_optin} bytes of shared memory")
+    if chain is None:
+        return StackPlan(route, 0, 0, 0, 0, 0, coop_rows)
+    c, r, groups, rows = chain
+    return StackPlan(route, c, r, groups, rows, size(c, r), coop_rows)
+
+
+# K7's plans already made: (layers, B, H, dtype, device) → StackPlan
+_STACK_PLANS: Dict[tuple, StackPlan] = {}
+
+
+def k7_plan(lib: ctypes.CDLL, n_layers: int, b: int, h: int,
+            dtype: torch.dtype, device) -> StackPlan:
+    """K7's route and launch shape on ``device``: :func:`stack_chain_plan`
+    with the card's SMs, shared memory, co-resident clusters and the
+    cooperative kernel's ceiling, from the kernel source's queries.
+    Cached per shape and device: the streaming server asks every tick."""
+    key = (n_layers, b, h, dtype, device)
+    plan = _STACK_PLANS.get(key)
+    if plan is None:
+        sfx = _SUFFIX[dtype]
+
+        def clusters(c, r):
+            return _ceiling(lib, "lstm_stack_chain_clusters_" + sfx, device,
+                            n_layers, h, c, r)
+
+        plan = stack_chain_plan(
+            n_layers, b, h, dtype, _sm_count(device),
+            _smem_optin(lib, "lstm_stack_smem_optin", device), clusters,
+            _ceiling(lib, "lstm_stack_max_rows_" + sfx, device, n_layers,
+                     h))
+        _STACK_PLANS[key] = plan
+    return plan
+
+
 def lstm_stack_fits(num_layers: int, batch: int, hidden: int,
                     dtype: torch.dtype, device) -> bool:
-    """Whether K7 can run an L-layer stack of ``hidden`` units at
-    ``batch`` rows on ``device`` in one launch: all layers' weight columns
-    and the rows of one block fit its shared memory, and the cooperative
-    grid (one block per ceil(L*H / SMs) units) is co-resident on the
-    card.  Decided from the shapes alone; nothing is launched."""
+    """Whether K7 runs an L-layer stack of ``hidden`` units at ``batch``
+    rows on ``device`` in one launch: :func:`k7_plan`'s route takes that
+    many rows (the cluster route's shared memory and the co-residency of
+    its L clusters, or the cooperative kernel's ceiling).  Decided from
+    the shapes alone; nothing is launched."""
+    if not 1 <= num_layers <= _STACK_MAX_LAYERS:
+        return False
     lib = _kernels.load("lstm_stack", _STACK_SIGNATURES)
-    return batch <= _ceiling(lib, "lstm_stack_max_rows_" + _SUFFIX[dtype],
-                             device, num_layers, hidden)
+    try:
+        plan = k7_plan(lib, num_layers, batch, hidden, dtype, device)
+    except ValueError:
+        return False
+    return plan.launch_rows == 0 or batch <= plan.launch_rows
 
 
 def lstm_stack_fwd(xp0: torch.Tensor, wxs, whs, bs, lens: torch.Tensor,
@@ -1494,7 +1647,9 @@ def lstm_stack_fwd(xp0: torch.Tensor, wxs, whs, bs, lens: torch.Tensor,
     [L-1, H, 4H] / [L, H, 4H] tensors); bs the L-1 biases [4H] f32; lens
     [B]; h0, c0 optional [L, B, H] f32 carries → (y [T, B, H] of the top
     layer in the compute dtype, h_fin, c_fin [L, B, H] f32).  Inference
-    only."""
+    only.  On the card the route is :func:`k7_plan`'s, from the shapes:
+    the wavefront of per-layer clusters, or the cooperative kernel, each
+    in row slices above its ceiling."""
     if xp0.device.type == "cpu":
         return lstm_stack_fwd_reference(xp0, wxs, whs, bs, lens, h0, c0)
     if xp0.device.type != "cuda":
@@ -1526,12 +1681,84 @@ def lstm_stack_fwd(xp0: torch.Tensor, wxs, whs, bs, lens: torch.Tensor,
         return (torch.empty((t_max, b, h), dtype=cdt, device=dev),
                 (zeros if h0 is None else h0).clone(),
                 (zeros if c0 is None else c0).clone())
-    ptrs = [(_P * max(len(ws), 1))(*[w.data_ptr() for w in ws])
-            for ws in (whs, wxs, bs)]
     lib = _kernels.load("lstm_stack", _STACK_SIGNATURES)
-    sfx = _SUFFIX[cdt]
+    plan = k7_plan(lib, n_layers, b, h, cdt, dev)
+    ops = (xp0, wxs, whs, bs, lens.to(torch.int32).contiguous(), h0, c0)
+    if plan.route == "cluster":
+        out = _lstm_stack_chain(lib, *ops, plan)
+    else:
+        out = _lstm_stack_cooperative(lib, *ops)
+    lstm_stack_fwd.launches += 1
+    return out
 
-    def launch(xp0, lens, h0, c0):
+
+def _stack_ptrs(*weight_lists):
+    """Host arrays of device pointers, one per list of tensors."""
+    return [ctypes.cast((_P * max(len(ws), 1))(*[w.data_ptr() for w in ws]),
+                        _P) for ws in weight_lists]
+
+
+def _stack_outputs(t_max: int, n_layers: int, n: int, h: int, cdt, dev):
+    """y [T, n, H] in the compute dtype, h_fin and c_fin [L, n, H] f32."""
+    h_fin = torch.empty((n_layers, n, h), dtype=torch.float32, device=dev)
+    return (torch.empty((t_max, n, h), dtype=cdt, device=dev), h_fin,
+            torch.empty_like(h_fin))
+
+
+def _lstm_stack_chain(lib: ctypes.CDLL, xp0, wxs, whs, bs,
+                      lens32: torch.Tensor, h0, c0, plan: StackPlan):
+    """K7's cluster route (``lstm_stack_chain_*``) on checked operands, in
+    row slices of ``plan.chain_rows`` (0: one launch)."""
+    t_max, b, g4 = xp0.shape
+    h = g4 // 4
+    n_layers = len(whs)
+    dev, cdt = xp0.device, xp0.dtype
+    ptrs = _stack_ptrs(whs, wxs, bs)
+
+    def launch(xp0, lens32, h0, c0):
+        n = xp0.shape[1]
+        zeros = None
+        if h0 is None or c0 is None:
+            zeros = torch.zeros((n_layers, n, h), dtype=torch.float32,
+                                device=dev)
+        h_in = zeros if h0 is None else h0
+        c_in = zeros if c0 is None else c0
+        y, h_fin, c_fin = _stack_outputs(t_max, n_layers, n, h, cdt, dev)
+        ybuf = flags = None
+        if n_layers > 1:
+            # the outputs of the layers below the top, and the hand-off
+            # flag of each of their CTAs, zero before the launch
+            ybuf = torch.empty((n_layers - 1, t_max, n, h), dtype=cdt,
+                               device=dev)
+            flags = torch.zeros((n_layers - 1, -(-n // plan.rows),
+                                 plan.cluster), dtype=torch.int32, device=dev)
+        err = getattr(lib, "lstm_stack_chain_" + _SUFFIX[cdt])(
+            xp0.data_ptr(), *ptrs, lens32.data_ptr(), h_in.data_ptr(),
+            c_in.data_ptr(), y.data_ptr(), h_fin.data_ptr(),
+            c_fin.data_ptr(), *(None if v is None else v.data_ptr()
+                                for v in (ybuf, flags)),
+            t_max, n_layers, n, h, plan.cluster, plan.rows,
+            _kernels.stream_ptr(dev))
+        _kernels.check(lib, err, f"lstm_stack_fwd at L={n_layers}, "
+                                 f"T={t_max}, B={n}, {plan}")
+        return y, h_fin, c_fin
+
+    return run_in_row_slices(launch, plan.chain_rows or b, xp0, lens32, h0,
+                             c0)
+
+
+def _lstm_stack_cooperative(lib: ctypes.CDLL, xp0, wxs, whs, bs,
+                            lens32: torch.Tensor, h0, c0):
+    """K7's cooperative route (``lstm_stack_*``) on checked operands, in
+    row slices under its ceiling."""
+    t_max, _, g4 = xp0.shape
+    h = g4 // 4
+    n_layers = len(whs)
+    dev, cdt = xp0.device, xp0.dtype
+    sfx = _SUFFIX[cdt]
+    ptrs = _stack_ptrs(whs, wxs, bs)
+
+    def launch(xp0, lens32, h0, c0):
         n = xp0.shape[1]
         # h exchange [parity][L][B][H], parity 0 = h0; the layer-output
         # exchange has the same shape, and every entry read is written
@@ -1544,25 +1771,19 @@ def lstm_stack_fwd(xp0: torch.Tensor, wxs, whs, bs, lens: torch.Tensor,
             hbuf[0].copy_(h0)
         c_in = (torch.zeros((n_layers, n, h), dtype=torch.float32,
                             device=dev) if c0 is None else c0)
-        y = torch.empty((t_max, n, h), dtype=cdt, device=dev)
+        y, h_fin, c_fin = _stack_outputs(t_max, n_layers, n, h, cdt, dev)
         ybuf = torch.empty_like(hbuf)
-        h_fin = torch.empty((n_layers, n, h), dtype=torch.float32,
-                            device=dev)
-        c_fin = torch.empty_like(h_fin)
-        lens32 = lens.to(torch.int32).contiguous()
         err = getattr(lib, "lstm_stack_" + sfx)(
-            xp0.data_ptr(), *(ctypes.cast(p, _P) for p in ptrs),
-            lens32.data_ptr(), c_in.data_ptr(), y.data_ptr(),
-            h_fin.data_ptr(), c_fin.data_ptr(), hbuf.data_ptr(),
-            ybuf.data_ptr(), t_max, n_layers, n, h, _kernels.stream_ptr(dev))
+            xp0.data_ptr(), *ptrs, lens32.data_ptr(), c_in.data_ptr(),
+            y.data_ptr(), h_fin.data_ptr(), c_fin.data_ptr(),
+            hbuf.data_ptr(), ybuf.data_ptr(), t_max, n_layers, n, h,
+            _kernels.stream_ptr(dev))
         _kernels.check(lib, err, "lstm_stack_fwd")
         return y, h_fin, c_fin
 
-    out = run_in_row_slices(
+    return run_in_row_slices(
         launch, max_rows(lib, "lstm_stack_max_rows_" + sfx, dev, n_layers, h),
-        xp0, lens, h0, c0)
-    lstm_stack_fwd.launches += 1
-    return out
+        xp0, lens32, h0, c0)
 
 
 lstm_stack_fwd.launches = 0  # kernel launches made by this wrapper

@@ -1062,10 +1062,129 @@ def test_lstm_stack_kernel_rejects_bad_inputs(cuda):
         rnn_cuda.lstm_stack_fwd(xp0, wxs, whs, [b.half() for b in bs], lens)
     with pytest.raises(ValueError):                   # h0 of 2 layers
         rnn_cuda.lstm_stack_fwd(xp0, wxs, whs, bs, lens, h0[:2], c0)
-    # the residency rule, from shapes alone
+    # the residency rule, from shapes alone (k7_plan): the 8-slot tick of
+    # the 5 x 320 stack in one launch, bf16 on the cluster route, f32 on
+    # the cooperative kernel (f32 W_h and W_x leave a cluster 5 rows)
+    lib = _k7_lib()
     assert rnn_cuda.lstm_stack_fits(5, 8, 320, torch.bfloat16, cuda)
+    assert rnn_cuda.k7_plan(lib, 5, 8, 320, torch.bfloat16,
+                            cuda).route == "cluster"
+    assert rnn_cuda.lstm_stack_fits(5, 8, 320, torch.float32, cuda)
+    assert rnn_cuda.k7_plan(lib, 5, 8, 320, torch.float32,
+                            cuda).route == "cooperative"
     assert not rnn_cuda.lstm_stack_fits(5, 4096, 320, torch.float32, cuda)
     assert not rnn_cuda.lstm_stack_fits(17, 1, 16, torch.float32, cuda)
+
+
+def _k7_lib():
+    return _kernels.load("lstm_stack", rnn_cuda._STACK_SIGNATURES)
+
+
+def _k7_routes(args, plan):
+    """(cluster route, cooperative route) of K7 on the same checked
+    operands, each (y, h_fin, c_fin)."""
+    lib = _k7_lib()
+    xp0, wxs, whs, bs, lens, h0, c0 = args
+    ops = (xp0, wxs, whs, bs, lens.to(torch.int32), h0, c0)
+    return (rnn_cuda._lstm_stack_chain(lib, *ops, plan),
+            rnn_cuda._lstm_stack_cooperative(lib, *ops))
+
+
+# the smoke's ragged lengths of an 8-slot tick: full, short, idle, one
+STREAM_LENS = [20, 20, 13, 0, 20, 7, 20, 1]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("layers,t,b,h,stateful", [
+    (1, 9, 3, 16, False), (3, 17, 3, 16, True), (5, 20, 8, 320, True),
+    (2, 33, 4, 320, False), (5, 20, 1, 320, True), (1, 20, 200, 320, True),
+    (4, 7, 5, 96, True)])
+def test_k7_chain_matches_plain(cuda, dtype, layers, t, b, h, stateful):
+    """K7's cluster route (the wavefront of per-layer clusters) against
+    its plain version: y, h_fin and c_fin, carries from a previous chunk,
+    ragged rows and an idle slot that keeps (h, c); f32 at B = 8 (5 rows a
+    cluster) in row slices of the cluster route."""
+    args = _stack_inputs(layers, t, b, h, dtype, cuda, 3 * layers + t,
+                         stateful)
+    plan = rnn_cuda.k7_plan(_k7_lib(), layers, b, h, dtype, cuda)
+    assert plan.cluster > 0, plan
+    xp0, wxs, whs, bs, lens, h0, c0 = args
+    got = rnn_cuda._lstm_stack_chain(_k7_lib(), xp0, wxs, whs, bs,
+                                     lens.to(torch.int32), h0, c0, plan)
+    torch.cuda.synchronize()
+    ref = rnn_cuda.lstm_stack_fwd_reference(*args)
+    for name, g, r in zip(("y", "h_fin", "c_fin"), got, ref):
+        _close(g, r, LSTM_TOL[dtype], name)
+    _zero_past_lens(got[:1], lens, "y")
+    if stateful:                                      # the idle slot keeps
+        assert torch.equal(got[1][:, -1], h0[:, -1])  # its state
+        assert torch.equal(got[2][:, -1], c0[:, -1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b", [1, 8])
+def test_k7_chain_equals_cooperative_bit_for_bit(cuda, dtype, b):
+    """The witness: at the streaming shape (L=5, T=20, H=320) with the
+    smoke's ragged lengths and carried (h0, c0), the cluster route's y,
+    h_fin and c_fin equal the cooperative lstm_stack_kernel's bit for bit
+    (warp_dot's sums, one fmaf form of c', the projection rounded as
+    round(p + b), the f32 carry of h)."""
+    layers, t, h = 5, 20, 320
+    args = list(_stack_inputs(layers, t, b, h, dtype, cuda, b + 40, True))
+    args[4] = torch.tensor(STREAM_LENS[:b], dtype=torch.int32, device=cuda)
+    plan = rnn_cuda.k7_plan(_k7_lib(), layers, b, h, dtype, cuda)
+    chain, coop = _k7_routes(args, plan)
+    torch.cuda.synchronize()
+    for name, c, k in zip(("y", "h_fin", "c_fin"), chain, coop):
+        assert torch.equal(c, k), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k7_at_its_ceiling_and_one_row_above(cuda, dtype):
+    """The 5 x 320 stack at the most rows one launch takes (the larger of
+    the cluster route's and the cooperative kernel's: 42 rows in bf16 on
+    the cluster route, 32 in f32 on the cooperative kernel) fits and runs
+    in one launch; one row more does not fit and runs the cluster route in
+    row slices; both match the plain version, one counted launch each."""
+    layers, t, h = 5, 6, 320
+    lib = _k7_lib()
+    plan = rnn_cuda.k7_plan(lib, layers, 1, h, dtype, cuda)
+    top = max(plan.chain_rows, plan.coop_rows)
+    for b, fits in ((top, True), (top + 1, False)):
+        assert rnn_cuda.lstm_stack_fits(layers, b, h, dtype, cuda) == fits
+        route = rnn_cuda.k7_plan(lib, layers, b, h, dtype, cuda).route
+        assert route == ("cluster" if b == plan.chain_rows or not fits
+                         else "cooperative"), (b, route)
+        args = _stack_inputs(layers, t, b, h, dtype, cuda, b, True)
+        before = rnn_cuda.lstm_stack_fwd.launches
+        got = rnn_cuda.lstm_stack_fwd(*args)
+        torch.cuda.synchronize()
+        assert rnn_cuda.lstm_stack_fwd.launches == before + 1
+        for name, g, r in zip(("y", "h_fin", "c_fin"), got,
+                              rnn_cuda.lstm_stack_fwd_reference(*args)):
+            _close(g, r, LSTM_TOL[dtype], name)
+
+
+@pytest.mark.cuda
+def test_k7_chain_residency_and_launch_errors(cuda):
+    """A launch of the cluster route over several layers holds one of its
+    two guarantees of co-residency (the cooperative launch, or the checked
+    count of co-resident clusters), and the card holds at least the five
+    clusters of the 5 x 320 stack; a launch the card refuses (a cluster of
+    32 CTAs) raises through _kernels.check."""
+    lib = _k7_lib()
+    args = _stack_inputs(5, 6, 3, 320, torch.bfloat16, cuda, 1, True)
+    plan = rnn_cuda.k7_plan(lib, 5, 3, 320, torch.bfloat16, cuda)
+    assert lib.lstm_stack_chain_clusters_bf16(5, 320, plan.cluster,
+                                              plan.rows) >= 5
+    _k7_routes(args, plan)
+    torch.cuda.synchronize()
+    assert lib.lstm_stack_chain_residency() in (1, 2)
+    with pytest.raises(RuntimeError, match="lstm_stack_fwd"):
+        _k7_routes(args, plan._replace(cluster=32))
 
 
 def _uni_model(tmp_path, dtype, layers=5, h=32, mode=None):
@@ -1939,6 +2058,171 @@ def test_k3_k8a_chain_launch_errors_raise(cuda):
                                   plan._replace(cluster=32))
 
 
+def _k8b_case(t, b, h, dtype, device, seed):
+    """K8b's operands on a forward of K8a's plain version, ragged rows:
+    (dy_f, dy_b, xp, y_f, y_b, w_h_f, w_h_b, lens)."""
+    xp, (w_f, w_b), (dy_f, dy_b), lens = _gru_inputs(t, b, h, dtype, device,
+                                                     seed, 2)
+    y_f, y_b = gru_cuda.bigru_seq_fwd_reference(xp, w_f, w_b, lens)
+    return dy_f, dy_b, xp, y_f, y_b, w_f, w_b, lens
+
+
+def _k8b_routes(args, plan):
+    """(cluster route, cooperative route) of K8b on the same checked
+    operands, each (dgx_f, dgh_f, dgx_b, dgh_b)."""
+    lib = _k9b_lib()
+    *ops, lens = args
+    lens32 = lens.to(torch.int32)
+    return (gru_cuda._bigru_bwd_chain(lib, *ops, lens32, plan),
+            gru_cuda._bigru_bwd_cooperative(lib, *ops, lens32))
+
+
+K8B_OUTPUTS = ("dgx_f", "dgh_f", "dgx_b", "dgh_b")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b", [1, 48, 600])
+def test_k8b_chain_matches_plain_at_any_batch(cuda, dtype, b):
+    """K8b on its cluster route at H=320 at B = 1, 48 and 600 (one launch,
+    36 rows a cluster; at B=600, T=120 the phase-1 scratch is above 256
+    MiB, so the walk runs in three chunks of steps) against its plain
+    version, ragged rows, zero at pad frames, one launch a call."""
+    t = 120 if b == 600 else 30
+    args = _k8b_case(t, b, 320, dtype, cuda, b + 9)
+    plan = gru_cuda.k8b_plan(_k9b_lib(), b, 320, dtype, cuda)
+    assert plan.route == "cluster" and plan.cluster == 16, plan
+    assert -(-t // rnn_cuda._scratch_steps(t, b, 6 * 320)) == \
+        (3 if b == 600 else 1)
+    before = gru_cuda.bigru_seq_bwd_dgates.launches
+    got = gru_cuda.bigru_seq_bwd_dgates(*args)
+    torch.cuda.synchronize()
+    assert gru_cuda.bigru_seq_bwd_dgates.launches == before + 1
+    for name, g, r in zip(K8B_OUTPUTS, got,
+                          gru_cuda.bigru_seq_bwd_dgates_reference(*args)):
+        _close(g, r, GRU_BWD_TOL[dtype], name)
+    _zero_past_lens(got, args[-1], "dgates")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k8b_in_chunks_of_steps_equal_one_chunk(cuda, dtype, monkeypatch):
+    """K8b with its scratch cut to 3 steps: the chain carries both
+    directions' dh between the chunks, and the outputs equal one chunk's
+    bit for bit."""
+    t, b, h = 10, 5, 320
+    args = _k8b_case(t, b, h, dtype, cuda, 17)
+    whole = gru_cuda.bigru_seq_bwd_dgates(*args)
+    with monkeypatch.context() as m:
+        m.setattr(gru_cuda, "_scratch_steps", lambda *a: 3)
+        chunked = gru_cuda.bigru_seq_bwd_dgates(*args)
+    torch.cuda.synchronize()
+    for name, c, w in zip(K8B_OUTPUTS, chunked, whole):
+        assert torch.equal(c, w), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k8b_routes_agree_and_equal_where_dh_is_zero(cuda, dtype):
+    """The recompute invariant, witnessed by K8b's cooperative kernel: at
+    each row's first valid walk step (t = len - 1 forward, t = 0
+    backward) dh is still zero, so the two routes' outputs there depend
+    on the gates alone and are equal bit for bit; elsewhere dh is summed
+    in another order, within tolerance."""
+    t, b, h = 24, 6, 320
+    args = _k8b_case(t, b, h, dtype, cuda, 31)
+    plan = gru_cuda.k8b_plan(_k9b_lib(), b, h, dtype, cuda)
+    chain, coop = _k8b_routes(args, plan)
+    torch.cuda.synchronize()
+    lens = args[-1].cpu().numpy()
+    assert (lens > 0).sum() >= 3
+    for i, (name, c, k) in enumerate(zip(K8B_OUTPUTS, chain, coop)):
+        _close(c, k, GRU_BWD_TOL[dtype], name)
+        for row, length in enumerate(lens):
+            if length:
+                first = length - 1 if i < 2 else 0
+                assert torch.equal(c[first, row], k[first, row]), (name, row)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b", [5, 48])
+def test_k8b_directions_equal_k9b_bit_for_bit(cuda, dtype, b):
+    """Each direction of K8b equals K9b's cluster route on that
+    direction's operands (the backward one as K9b with reverse), bit for
+    bit over the whole walk: rows never meet, so 16 rows a cluster (K8b at
+    B=48) against K9b's 8 change no row's sums."""
+    t, h = 30, 320
+    dy_f, dy_b, xp, y_f, y_b, w_f, w_b, lens = _k8b_case(t, b, h, dtype,
+                                                         cuda, b + 13)
+    got = gru_cuda.bigru_seq_bwd_dgates(dy_f, dy_b, xp, y_f, y_b, w_f, w_b,
+                                        lens)
+    uni = (gru_cuda.gru_seq_bwd_dgates(dy_f, xp[..., :3 * h].contiguous(),
+                                       y_f, w_f, lens)
+           + gru_cuda.gru_seq_bwd_dgates(dy_b, xp[..., 3 * h:].contiguous(),
+                                         y_b, w_b, lens, True))
+    torch.cuda.synchronize()
+    for name, g, u in zip(K8B_OUTPUTS, got, uni):
+        assert torch.equal(g, u), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("h", [128, 320])
+def test_k8b_phase1_kernels_agree_bit_for_bit(cuda, h, dtype):
+    """K8b's tiled phase 1 and its warp kernel give the same recurrent
+    sums of both directions bit for bit, on a chunk of steps mid-walk and
+    one that ends it (each direction's first forward step sums zeros)."""
+    t, b = 7, 5
+    _, _, _, y_f, y_b, w_f, w_b, _ = _k8b_case(t, b, h, dtype, cuda, h + 5)
+    lib = _k9b_lib()
+    assert gru_cuda.k8b_plan(lib, b, h, dtype, cuda).gate_cols == 0
+    fn = getattr(lib, "bigru_bwd_gates_" + rnn_cuda._SUFFIX[dtype])
+    for s0, n in ((2, 3), (4, 3)):
+        got = []
+        for cols in (0, 32):
+            pre = torch.full((n, b, 6 * h), float("nan"), device=cuda)
+            _kernels.check(lib, fn(y_f.data_ptr(), y_b.data_ptr(),
+                                   w_f.data_ptr(), w_b.data_ptr(),
+                                   pre.data_ptr(), s0, n, t, b, h, cols,
+                                   _kernels.stream_ptr(cuda)), "K8b phase 1")
+            got.append(pre)
+        torch.cuda.synchronize()
+        assert not got[0].isnan().any()
+        assert torch.equal(got[0], got[1]), (s0, n)
+        if s0 + n == t:                       # the forward's first step
+            assert not got[0][-1].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k8b_cooperative_route_at_a_large_h(cuda, dtype):
+    """Where W_h's gate columns as f32 fit no cluster of 16 (from H ~545,
+    in either dtype) the plan sends K8b to its cooperative kernel, which
+    still matches its plain version."""
+    h = BWD_COOPERATIVE_H["K9b"]
+    args = _k8b_case(10, 3, h, dtype, cuda, h)
+    assert gru_cuda.k8b_plan(_k9b_lib(), 3, h, dtype, cuda).route \
+        == "cooperative"
+    before = gru_cuda.bigru_seq_bwd_dgates.launches
+    got = gru_cuda.bigru_seq_bwd_dgates(*args)
+    torch.cuda.synchronize()
+    assert gru_cuda.bigru_seq_bwd_dgates.launches == before + 1
+    for name, g, r in zip(K8B_OUTPUTS, got,
+                          gru_cuda.bigru_seq_bwd_dgates_reference(*args)):
+        _close(g, r, GRU_BWD_TOL[dtype], name)
+
+
+@pytest.mark.cuda
+def test_k8b_chain_launch_errors_raise(cuda):
+    """A cluster launch the card refuses (a cluster of 32 CTAs) raises
+    through _kernels.check."""
+    args = _k8b_case(6, 3, 32, torch.float32, cuda, 1)
+    plan = gru_cuda.k8b_plan(_k9b_lib(), 3, 32, torch.float32, cuda)
+    with pytest.raises(RuntimeError, match="phase 2"):
+        _k8b_routes(args, plan._replace(cluster=32))
+
+
 def _above_ceiling(source, signatures, query, *dims):
     """One row more than a kernel takes in one launch on the card: its
     source's own ceiling query (``*_max_rows``) plus one."""
@@ -1955,8 +2239,9 @@ K5_COOPERATIVE_H = 512
 def _sliced_case(name, t, h, device):
     """(wrapper, plain version, operands, tolerance) of one kernel that
     keeps every row in a block, at one row above its ceiling, f32 (K3, K5,
-    K6, K8a, K9a and K9b on their cooperative routes, at K3_COOPERATIVE_H,
-    K5_COOPERATIVE_H, BWD_COOPERATIVE_H and K9A_COOPERATIVE_H)."""
+    K6, K7, K8a, K8b, K9a and K9b on their cooperative routes, at
+    K3_COOPERATIVE_H, K5_COOPERATIVE_H (K7 one layer), BWD_COOPERATIVE_H
+    (K8b as K9b) and K9A_COOPERATIVE_H)."""
     f32 = torch.float32
     if name == "K3":
         # only K3's cooperative route keeps its rows in one block: H=512
@@ -1992,14 +2277,24 @@ def _sliced_case(name, t, h, device):
                 rnn_cuda.lstm_seq_bwd_dgates_reference,
                 (dy, xp, y, c, w, lens), LSTM_BWD_TOL[f32])
     if name == "K7":
-        # one layer with carries: the streaming server's per-layer route
+        # one layer with carries (the streaming server's per-layer route)
+        # where W_h fits no cluster: only the cooperative route keeps its
+        # rows in one block
+        h = K5_COOPERATIVE_H
         b = _above_ceiling("lstm_stack", rnn_cuda._STACK_SIGNATURES,
                            "lstm_stack_max_rows_f32", 1, h)
+        assert rnn_cuda.k7_plan(_k7_lib(), 1, b, h, f32, device).route \
+            == "cooperative"
         return (rnn_cuda.lstm_stack_fwd, rnn_cuda.lstm_stack_fwd_reference,
                 _stack_inputs(1, t, b, h, f32, device, b, True),
                 LSTM_TOL[f32])
     bi = name.startswith("K8")
     kernel = "bigru" if bi else "gru"
+    if name == "K8b":
+        # only K8b's cooperative route keeps its rows in one block
+        h = BWD_COOPERATIVE_H["K9b"]
+        assert rnn_cuda.bwd_chain_plan(1, h, f32, 2, 132, 232448,
+                                       gates=3).route == "cooperative"
     if name.endswith("a"):
         # only K8a's and K9a's cooperative routes keep their rows in one
         # block
@@ -2038,11 +2333,11 @@ def _sliced_case(name, t, h, device):
                                   "K9a", "K9b"])
 def test_sliced_kernel_above_its_ceiling_matches_plain(cuda, name):
     """Each kernel that keeps every row in one block's shared memory, at
-    one row above the most its launch takes (H=320; the cooperative
-    routes of K3, K5 and K6 at H=512, of K8a, K9a and K9b at H=576), runs
-    as row slices and returns its plain version's result, as the
-    reference does at any batch; the launch counter rises by one (it
-    counts wrapper calls)."""
+    one row above the most its launch takes (the cooperative routes of
+    K3, K5, K6 and K7 at H=512, of K8a, K8b, K9a and K9b at H=576, where
+    W_h fits no cluster), runs as row slices and returns its plain
+    version's result, as the reference does at any batch; the launch
+    counter rises by one (it counts wrapper calls)."""
     fn, ref, args, tol = _sliced_case(name, 4, 320, cuda)
     before = fn.launches
     got = fn(*args)
@@ -2057,9 +2352,9 @@ def test_sliced_kernel_above_its_ceiling_matches_plain(cuda, name):
 @pytest.mark.cuda
 def test_stream_tick_of_200_slots_takes_the_per_layer_route(cuda, tmp_path):
     """``serve --max-streams 200`` on a 2x320 LSTM: the stack does not fit
-    K7 whole, so a tick runs one K7 launch per layer, each above the
-    one-layer ceiling in row slices; its scores and carries equal the
-    plain loop's on the CPU."""
+    K7 whole, so a tick runs one K7 launch per layer, each one launch of
+    the cluster route (one layer waits on nothing: any B, no row slices);
+    its scores and carries equal the plain loop's on the CPU."""
     from kaldi_ctc_tpu_torch.cli import serve
 
     path = _uni_model(tmp_path, "float32", layers=2, h=320)
@@ -2067,8 +2362,8 @@ def test_stream_tick_of_200_slots_takes_the_per_layer_route(cuda, tmp_path):
     gpu = serve.Engine(serve.parse_args(flags))
     cpu = serve.Engine(serve.parse_args(flags + ["--device", "cpu"]))
     assert not rnn_cuda.lstm_stack_fits(2, 200, 320, torch.float32, cuda)
-    assert _above_ceiling("lstm_stack", rnn_cuda._STACK_SIGNATURES,
-                          "lstm_stack_max_rows_f32", 1, 320) <= 200
+    layer = rnn_cuda.k7_plan(_k7_lib(), 1, 200, 320, torch.float32, cuda)
+    assert layer.route == "cluster" and layer.launch_rows == 0, layer
     rng = np.random.default_rng(4)
     block = torch.as_tensor(rng.standard_normal((7, 200, 40)).astype(
         np.float32), device=cuda)

@@ -11,9 +11,12 @@ every shape the BLSTM layer sends to K10b and K10a
 (``use_in_kernel_proj``) into one H100 block's shared memory, and
 ``fwd_chain_plan`` must send K2, K5, K8a and K9a to their cluster
 routes wherever W_h fits a cluster and to their cooperative routes
-elsewhere; ``bwd_chain_plan`` does the same for K3, K6 and K9b, its byte
-formula the twin of ``csrc/bwd_chain.cuh``'s.  No JAX here: the plain versions are the
-port's own.
+elsewhere; ``bwd_chain_plan`` does the same for K3, K6, K9b and K8b, its
+byte formula the twin of ``csrc/bwd_chain.cuh``'s; ``stack_chain_plan``
+chooses K7's route (the wavefront of per-layer clusters or the
+cooperative kernel), its byte formula the twin of
+``csrc/lstm_stack.cu``'s.  No JAX here: the plain versions are the port's
+own.
 """
 
 import numpy as np
@@ -660,3 +663,221 @@ def test_scratch_chunks_of_the_backward_chains():
         assert rnn_cuda._scratch_steps(240, 48, g) == 240
     assert 240 * 600 * 1280 * 4 > 2 * mib       # 737 MB
     assert rnn_cuda._scratch_steps(5, 10 ** 7, 1280) == 1   # at least one
+
+
+# ---------------------------------------------------------------------------
+# K8b on the backward chain with two directions
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,rows,smem", [(1, 1, None), (48, 16, 144704),
+                                         (600, 36, 229584)])
+def test_k8b_plan_is_the_two_direction_gru_chain(h100, dtype, b, rows, smem):
+    """``k8b_plan`` is bwd_chain_plan with three gates and both
+    directions: at H=320 the cluster route at every batch, clusters of 16,
+    16 rows a cluster at the training batch (three clusters a direction,
+    96 CTAs; 144,704 B a CTA), 36 at B=600 in one launch, phase 1 tiled
+    (174,336 B a block)."""
+    plan = gru_cuda.k8b_plan(None, b, 320, dtype, "cuda")
+    assert plan == rnn_cuda.bwd_chain_plan(b, 320, dtype, 2, H100_SMS,
+                                           H100_SMEM, gates=3)
+    _check_bwd_plan(plan, b, 320, 2, 3)
+    assert (plan.route, plan.cluster, plan.rows) == ("cluster", 16, rows)
+    assert plan.gates_smem == 174336
+    if smem is not None:
+        assert plan.chain_smem == smem
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k8b_routes_by_h(h100, dtype):
+    """K8b takes its cluster route at every H up to the last whose W_h as
+    f32 fits a cluster of 16 with one row (544, as K9b), in either dtype,
+    and its cooperative kernel above it (552, and 576 where the f7 checks
+    run its ceiling)."""
+    for h in list(range(8, 545, 24)) + [320, 426, 427, 544]:
+        for b in (1, 48, 600):
+            plan = gru_cuda.k8b_plan(None, b, h, dtype, "cuda")
+            _check_bwd_plan(plan, b, h, 2, 3)
+    for h in (552, 576, 1024):
+        for b in (1, 48, 600):
+            assert gru_cuda.k8b_plan(None, b, h, dtype, "cuda") == (
+                "cooperative", 0, 0, 0, 0, 0)
+
+
+# ---------------------------------------------------------------------------
+# K7: the plan of the wavefront of per-layer clusters
+# ---------------------------------------------------------------------------
+
+
+def _stack_bytes(n_layers, c, r, h, size):
+    """stack_chain_bytes of csrc/lstm_stack.cu transcribed from the
+    kernel's layout, region by region: W_h's [4 hsz][H] and (L > 1)
+    W_x's, recv [2][R][H], (L > 1) x_s [R][H], hl [R][hsz], each in the
+    compute dtype and 16-byte aligned; then f32 g_s [R][4 hsz], c_s and
+    hf_s [R][hsz], the prefetch words [2][R hsz][4], (L > 1) b_s [4 hsz],
+    and the lengths [R]."""
+    hsz = -(-h // c)
+    regions = [4 * hsz * h, 2 * r * h, r * hsz]
+    if n_layers > 1:
+        regions += [4 * hsz * h, r * h]
+    total = sum(-(-n * size // 16) * 16 for n in regions)
+    floats = 4 * r * hsz + r * hsz + r * hsz + 2 * 4 * r * hsz
+    if n_layers > 1:
+        floats += 4 * hsz
+    return total + 4 * floats + 4 * r
+
+
+def _clusters(c, r):
+    """A model of the card's co-resident clusters of c CTAs (one CTA an
+    SM): the wrappers ask the kernel source instead."""
+    return H100_SMS // c
+
+
+def _coop_rows(n_layers, h):
+    """lstm_stack_max_rows of the cooperative kernel, transcribed: hs =
+    ceil(L H / SMs) units a block, W_h (and W_x) columns, the rows of h
+    (and of the input), the sums (and projections) and c, all f32."""
+    hs = -(-n_layers * h // H100_SMS)
+    m = 2 if n_layers > 1 else 1
+    fixed = 4 * m * 4 * hs * h
+    per_row = 4 * (m * h + m * 4 * hs + hs)
+    return max(0, (H100_SMEM - fixed) // per_row)
+
+
+def _stack_plan(n_layers, b, h, dtype, clusters=_clusters, coop=None):
+    return rnn_cuda.stack_chain_plan(
+        n_layers, b, h, dtype, H100_SMS, H100_SMEM, clusters,
+        _coop_rows(n_layers, h) if coop is None else coop)
+
+
+@pytest.mark.parametrize("size", [4, 2])
+@pytest.mark.parametrize("n_layers,c,r,h", [
+    (5, 16, 8, 320), (5, 16, 32, 320), (5, 16, 5, 320), (1, 16, 1, 320),
+    (3, 4, 3, 16), (2, 8, 7, 100), (1, 2, 13, 21)])
+def test_stack_chain_bytes_formula(size, n_layers, c, r, h):
+    """The Python twin of stack_chain_bytes against the transcription of
+    the kernel's layout, in both dtypes."""
+    assert rnn_cuda._stack_chain_bytes(n_layers, c, r, h, size) == \
+        _stack_bytes(n_layers, c, r, h, size)
+
+
+def test_stack_chain_bytes_at_the_streaming_shape():
+    """At 5 x 320, C=16: the forward chain's CTA plus W_x's columns (51,200
+    B in bf16, 102,400 in f32) and the input rows (R H of the compute
+    dtype), and the stack's own f32 h and bias.  bf16 fits with room at
+    R=8 and R=32; f32 does not fit at R=8 (245,472 B > 232,448) and takes
+    at most 5 rows a cluster."""
+    for size, wx in ((2, 51200), (4, 102400)):
+        for r in (8, 32):
+            assert rnn_cuda._stack_chain_bytes(5, 16, r, 320, size) == (
+                rnn_cuda._fwd_chain_bytes(16, r, 320, size) + wx
+                + r * 320 * size + 4 * r * 20 + 4 * 80)
+    assert rnn_cuda._stack_chain_bytes(5, 16, 8, 320, 2) == 127392
+    assert rnn_cuda._stack_chain_bytes(5, 16, 32, 320, 2) == 201408
+    assert rnn_cuda._stack_chain_bytes(5, 16, 8, 320, 4) == 245472 \
+        > H100_SMEM
+    assert rnn_cuda._stack_chain_bytes(5, 16, 5, 320, 4) <= H100_SMEM \
+        < rnn_cuda._stack_chain_bytes(5, 16, 6, 320, 4)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b", [1, 8, 32, 200])
+@pytest.mark.parametrize("n_layers", [1, 5])
+def test_stack_chain_plan(dtype, b, n_layers):
+    """K7's plan at the streaming stack (5 x 320) and one of its layers:
+    clusters of 16 in both dtypes; the shape fits a CTA and is the most
+    rows R_max that do; one layer takes any B in one launch, R as the
+    forward chain's (the clusters in one wave on 3/4 of the SMs); five
+    layers take one group of five clusters a launch (the model's 8
+    clusters of 16 hold one), so the cluster route runs B <= R_max in one
+    launch (42 rows in bf16, 5 in f32), the cooperative kernel B <= 32,
+    and a larger B the cluster route in row slices."""
+    itemsize = 4 if dtype == torch.float32 else 2
+    plan = _stack_plan(n_layers, b, 320, dtype)
+    assert plan.cluster == 16, plan
+    assert plan.chain_smem == _stack_bytes(n_layers, 16, plan.rows, 320,
+                                           itemsize) <= H100_SMEM
+    assert plan.coop_rows == (32 if n_layers == 5 else 162)
+    if n_layers == 1:
+        assert plan.route == "cluster" and plan.groups == 0
+        assert plan.chain_rows == plan.launch_rows == 0
+        assert plan.rows == max(1, -(-b // (H100_SMS * 3 // 4 // 16)))
+        return
+    r_max = 42 if dtype == torch.bfloat16 else 5
+    assert _stack_bytes(5, 16, r_max, 320, itemsize) <= H100_SMEM \
+        < _stack_bytes(5, 16, r_max + 1, 320, itemsize)
+    assert (plan.groups, plan.chain_rows) == (1, r_max)
+    assert plan.rows == min(b, r_max)
+    route = ("cluster" if b <= r_max
+             else "cooperative" if b <= 32 else "cluster")
+    assert plan.route == route, plan
+    assert plan.launch_rows == (32 if route == "cooperative" else r_max)
+
+
+def test_stack_chain_plan_groups_follow_the_co_resident_clusters():
+    """Above one layer a launch holds clusters(C, R_max) // L groups: two
+    layers at 5 co-resident clusters give 2 groups, the rows spread over
+    them; fewer clusters than layers leave the cooperative kernel."""
+    plan = _stack_plan(2, 8, 320, torch.bfloat16, lambda c, r: 5)
+    assert (plan.route, plan.groups, plan.rows) == ("cluster", 2, 4)
+    r_max = plan.chain_rows // 2
+    assert _stack_bytes(2, 16, r_max, 320, 2) <= H100_SMEM \
+        < _stack_bytes(2, 16, r_max + 1, 320, 2)
+    plan = _stack_plan(5, 8, 320, torch.bfloat16, lambda c, r: 4)
+    assert plan.route == "cooperative" and plan.cluster == 0, plan
+
+
+def test_stack_chain_plan_refuses_what_cannot_fit():
+    """No route where neither fits: a W_h of 4096 units fits no cluster
+    and no cooperative block; more layers than the kernels take, or a
+    dtype with no kernel, raise.  A one-layer stack whose W_h fits no
+    cluster of 16 (f32 H=512) takes the cooperative kernel."""
+    with pytest.raises(ValueError, match="neither route"):
+        _stack_plan(5, 8, 4096, torch.float32, coop=0)
+    with pytest.raises(ValueError, match="no kernel"):
+        _stack_plan(17, 1, 16, torch.float32)
+    with pytest.raises(ValueError, match="no kernel"):
+        _stack_plan(2, 1, 16, torch.float16)
+    plan = _stack_plan(1, 94, 512, torch.float32)
+    assert plan.route == "cooperative" and plan.cluster == 0, plan
+    assert plan.coop_rows == _coop_rows(1, 512) == 93
+
+
+@pytest.fixture
+def h100_stack(h100, monkeypatch):
+    """K7's plan on an H100 without a card: the kernel source's queries
+    answered by the models above, and no plan of an earlier case kept."""
+    monkeypatch.setattr(rnn_cuda._kernels, "load", lambda *a: None)
+    monkeypatch.setattr(rnn_cuda, "_STACK_PLANS", {})
+
+    def ceiling(lib, query, device, *dims):
+        if query.startswith("lstm_stack_chain_clusters_"):
+            return _clusters(*dims[2:])
+        assert query.startswith("lstm_stack_max_rows_"), query
+        return _coop_rows(*dims)
+
+    monkeypatch.setattr(rnn_cuda, "_ceiling", ceiling)
+
+
+def test_lstm_stack_fits_agrees_with_the_plan(h100_stack):
+    """``lstm_stack_fits`` (the streaming server's choice between the
+    whole stack and one launch per layer) holds exactly where K7's plan
+    runs the batch in one launch: the 8-slot tick of the 5 x 320 stack in
+    either dtype (bf16 on the cluster route, f32 on the cooperative
+    kernel), not 200 slots of two f32 layers, not 17 layers."""
+    for dtype in (torch.float32, torch.bfloat16):
+        for n_layers in (1, 2, 5):
+            for b in (1, 8, 32, 33, 42, 43, 200):
+                plan = rnn_cuda.k7_plan(None, n_layers, b, 320, dtype,
+                                        "cuda")
+                assert plan == _stack_plan(n_layers, b, 320, dtype)
+                one = plan.launch_rows == 0 or b <= plan.launch_rows
+                assert rnn_cuda.lstm_stack_fits(n_layers, b, 320, dtype,
+                                                "cuda") == one
+    assert rnn_cuda.lstm_stack_fits(5, 8, 320, torch.bfloat16, "cuda")
+    assert rnn_cuda.lstm_stack_fits(5, 8, 320, torch.float32, "cuda")
+    assert not rnn_cuda.lstm_stack_fits(5, 4096, 320, torch.float32, "cuda")
+    assert not rnn_cuda.lstm_stack_fits(2, 200, 320, torch.float32, "cuda")
+    assert not rnn_cuda.lstm_stack_fits(17, 1, 16, torch.float32, "cuda")
+    assert rnn_cuda.lstm_stack_fits(1, 200, 320, torch.float32, "cuda")
