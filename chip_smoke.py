@@ -18,8 +18,14 @@ result line:
    chain of csrc/bwd_chain.cuh and the phase-1 bodies of
    csrc/lstm_gates.cuh, the row-keeping kernels csrc/row_ceiling.cuh)
    compiled by nvcc for sm_90a, timed;
-3. k4_log_mel: the log-mel kernel against its plain version on 8 s of
-   16 kHz audio (798 frames, MFCC-hires mel bank): max error, median ms;
+3. k4_log_mel: the log-mel kernel on MFCC-hires frames of 8 s of 16 kHz
+   audio (798 frames, a request) and of one 0.2 s stream chunk (20
+   frames), with its plan (k4_plan): the wrapper, which must take the fft
+   route, against its plain version and against the dft route on the
+   same operands; both routes timed (one call, 50 back to back, the
+   card's time in a trace) beside the plain version and two bounds (the
+   FFT's work and the direct DFT's); then a 400-point transform
+   (round_to_power_of_two off) through the dft route;
 4. k2_bilstm: the BiLSTM forward kernel against its plain version at
    T=800, B=1 and B=8 (serving) and T=240, B=48 and B=600 (training),
    H=320, in f32 and bf16, with its plan: max errors, median ms; at
@@ -28,8 +34,11 @@ result line:
 5. k1_ctc: the CTC alpha-beta kernels K1 (fused), K11 (alpha) and K12
    (beta) against their plain loops at bench.py's shapes (B=48, T=240,
    A=72, L=70, S=141) with short, label-less and infeasible rows: alphas,
-   betas, loss and gradient, max error, median ms; then the "separate"
-   path of ``ctc_loss_and_grad`` (K11 + K12), with its launch counts;
+   betas, loss and gradient, max error, median ms; K1's plan (k1_plan),
+   its wrapper on the warp route, both routes (one warp per utterance and
+   recursion; the block kernel) timed as K4's and held equal bit for bit
+   at B=48 and B=1; then the "separate" path of ``ctc_loss_and_grad``
+   (K11 + K12), with its launch counts;
 6. k3_bilstm_bwd: the BiLSTM backward kernel against its plain version at
    T=240, B=48, H=320 with ragged lengths, f32 and bf16, with its plan,
    both routes (phase 1 and the backward chain with both directions in
@@ -142,7 +151,11 @@ profiler's warm-up for 50 ms or more, then a marker kernel, then the
 measured run, whose kernels are those the device ran after the marker: a
 trace lacked the device records of its first milliseconds.
 
-Then a line ``{"kernels": [...]}`` with each kernel's launches during the
+Then a line ``driven_routes``: K4's launches on the driven paths by
+route and by frames, K1's by route (the run fails unless every served
+K4 launch took the fft route and every K1 launch the warp route).  Then
+a line ``{"kernels": [...], "launch_floor_ms": ...}`` with each kernel's
+launches during the
 driven paths (serve, train, eval, the separate CTC path, serve_uni with
 its streams, train_uni, the same four for the GRU models, serve_proj and
 train_proj; counts set to 0 before each and read after it),
@@ -150,16 +163,20 @@ its error, its time beside the plain version's, its bound (the larger of
 its bytes over 3.35 TB/s and its operations over the peak rate of its
 type: 67 TFLOP/s f32, 989 TFLOP/s bf16, H100 SXM data sheet) and the
 time of one PyTorch library call computing the same function (null where
-there is none); the card's ``nvidia-smi`` name and power limit; and,
+there is none), K4's two shapes and K1's two routes beside their rows,
+and the time of one empty launch (CUDA events over back-to-back calls
+of a null kernel); the card's ``nvidia-smi`` name and power limit; and,
 last, ``{"ok": true, "device": {"platform": "gpu", "kind": ...,
 "count": ...}}``.  Exits non-zero without a CUDA device, and when run
 outside the repository.
 """
 
+import collections
 import concurrent.futures
 import contextlib
 import http.client
 import json
+import math
 import os
 import subprocess
 import sys
@@ -363,13 +380,35 @@ def wrappers():
             "bilstm_proj_bwd": rnn_cuda.bilstm_seq_bwd_dgates_proj}
 
 
+# the per-route launch counters of K4 and K1, beside each wrapper's
+# ``launches``: key in the counts → (kernel, the wrapper's attribute)
+ROUTE_COUNTERS = {"log_mel.fft": ("log_mel", "fft_launches"),
+                  "log_mel.dft": ("log_mel", "dft_launches"),
+                  "ctc_alpha_beta.warp": ("ctc_alpha_beta", "warp_launches"),
+                  "ctc_alpha_beta.block": ("ctc_alpha_beta",
+                                           "block_launches")}
+# K4's launches by the frames of the launch: keys "log_mel.frames.<F>"
+K4_FRAMES = "log_mel.frames."
+
+
 def reset_counts():
-    for fn in wrappers().values():
+    fns = wrappers()
+    for fn in fns.values():
         fn.launches = 0
+    for name, attr in ROUTE_COUNTERS.values():
+        setattr(fns[name], attr, 0)
+    fns["log_mel"].frame_counts.clear()
 
 
 def read_counts():
-    return {name: fn.launches for name, fn in wrappers().items()}
+    """Each wrapper's launches, K4's and K1's by route, K4's by frames."""
+    fns = wrappers()
+    counts = {name: fn.launches for name, fn in fns.items()}
+    counts.update({key: getattr(fns[name], attr)
+                   for key, (name, attr) in ROUTE_COUNTERS.items()})
+    counts.update({f"{K4_FRAMES}{f}": n
+                   for f, n in fns["log_mel"].frame_counts.items()})
+    return counts
 
 
 @contextlib.contextmanager
@@ -446,44 +485,162 @@ def phase_build():
           "wall_seconds": round(time.perf_counter() - t0, 3), **out})
 
 
+def device_ms(torch, fn, tags, calls=20):
+    """The card's mean ms a call of the kernels whose names hold one of
+    ``tags``, from a torch.profiler trace of ``calls`` calls of ``fn``
+    (``profiled``: after a warm-up and a marker); None where the trace
+    holds none of them."""
+    from torch.profiler import DeviceType
+
+    def run():
+        for _ in range(calls):
+            fn()
+    prof, _ = profiled(torch, run)
+    hits = [k for k in device_kernels(prof, DeviceType)
+            if any(tag in k[2] for tag in tags)]
+    n = sum(k[1] for k in hits)
+    return sum(k[0] for k in hits) / n / 1000 if n else None
+
+
+def route_times(torch, fn, tags):
+    """One route's times: one call (CUDA events around it, the host's time
+    before its launch included), 50 calls back to back, and the card's
+    time a call in a trace."""
+    return {"ms": median_ms(fn, 20, torch),
+            "back_to_back_ms": back_to_back_ms(fn, 50, torch),
+            "device_ms": device_ms(torch, fn, tags)}
+
+
+def launch_floor_ms(torch, dev):
+    """One empty launch: CUDA events over 200 back-to-back calls of a null
+    kernel through ctypes, as each wrapper calls its kernel."""
+    from kaldi_ctc_tpu_torch import _kernels
+    from kaldi_ctc_tpu_torch.features import stft_cuda
+    lib = _kernels.load("log_mel", stft_cuda._SIGNATURES)
+    stream = _kernels.stream_ptr(dev)
+    return back_to_back_ms(lambda: lib.kctpu_null_launch(stream), 200, torch)
+
+
+def fft_ops(n_frames, length, padded, k_bins, mel):
+    """The operations K4's function needs on these inputs, by an FFT:
+    frame processing (~6 a sample), an N/2-point complex FFT (5 (N/2)
+    log2(N/2)), the real split and power (~17 a bin), the mel rows'
+    nonzero products (2 each)."""
+    nh = padded // 2
+    nnz = int((mel != 0).sum())
+    return n_frames * (6.0 * length + 5.0 * nh * math.log2(nh)
+                       + 17.0 * k_bins + 2.0 * nnz)
+
+
 def phase_k4(torch, np, dev):
+    """K4 on MFCC-hires frames of 8 s (798 frames, a request) and of one
+    0.2 s stream chunk (20 frames): its plan; the wrapper (the fft route)
+    against the plain version and against the dft route on the same
+    operands; both routes timed; a 400-point transform
+    (round_to_power_of_two off) through the dft route."""
     from kaldi_ctc_tpu_torch.features import MfccOptions, stft_cuda
     from kaldi_ctc_tpu_torch.features.mel import mel_banks
-    from kaldi_ctc_tpu_torch.features.window import (feature_window,
+    from kaldi_ctc_tpu_torch.features.window import (FrameOptions,
+                                                     feature_window,
                                                      frame_signal)
     opts = MfccOptions.hires()
     fo = opts.frame_opts
     wave = torch.as_tensor(pcm(8.0, 100, np).astype(np.float32), device=dev)
-    frames = frame_signal(wave, fo).contiguous()
+    all_frames = frame_signal(wave, fo).contiguous()
     window = torch.as_tensor(feature_window(fo), device=dev)
     mel = torch.as_tensor(mel_banks(opts.mel_opts, fo), device=dev)
-    args = (frames, window, mel, fo.padded_window_size)
-    got = stft_cuda.log_mel(*args)
-    ref = stft_cuda.log_mel_reference(*args)
-    torch.cuda.synchronize()
-    err_m, ok_m = max_err(got[0], ref[0], K4_TOL, K4_TOL)
-    err_e, ok_e = max_err(got[1], ref[1], K4_TOL, K4_TOL)
-    ms = median_ms(lambda: stft_cuda.log_mel(*args), 20, torch)
-    plain_ms = median_ms(lambda: stft_cuda.log_mel_reference(*args), 20,
-                         torch)
-    # the kernel's inputs include the DFT tables it sums against; its
-    # work is that direct DFT (2 x L x K MACs per frame) and the mel sum
-    n_frames, length = frames.shape
+    padded = fo.padded_window_size
     m_bins, k_bins = mel.shape
-    tables = stft_cuda._device_tables(length, fo.padded_window_size, k_bins,
-                                      frames.device)
-    b = bound(nbytes(frames, window, mel, *tables, *got),
-              n_frames * (4.0 * length * k_bins + 2.0 * m_bins * k_bins),
-              "float32")
-    res = {"phase": "k4_log_mel", "frames": int(n_frames),
-           "max_abs_err_logmel": err_m, "max_abs_err_energy": err_e,
-           "tol": K4_TOL, "ms": ms, "plain_ms": plain_ms, **b,
-           "library_ms": None}
-    emit(res)
-    if not (ok_m and ok_e) or n_frames != 798:
-        fail(f"K4 log_mel disagrees with its plain version: {res}")
-    return {"max_abs_err": max(err_m, err_e), "ms": ms, "plain_ms": plain_ms,
-            **b, "library_ms": None}
+    length = fo.window_size
+    plan = stft_cuda.k4_plan(length, padded, k_bins, m_bins)
+    emit({"phase": "k4_plan", "length": length, "padded": padded,
+          "k_bins": k_bins, "m_bins": m_bins, "plan": plan._asdict()})
+    if plan.route != "fft" or all_frames.shape[0] != 798:
+        fail(f"K4 at the hires shape: {plan}, {all_frames.shape[0]} frames")
+    flags = (fo.remove_dc_offset, fo.preemph_coeff, True, True)
+    tw = stft_cuda._device_twiddles(padded, dev)
+    tables = stft_cuda._device_tables(length, padded, k_bins, dev)
+    shapes, errs = [], []
+    for count in (798, 20):
+        frames = all_frames[:count].contiguous()
+        args = (frames, window, mel, padded)
+        before = read_counts()
+        got = stft_cuda.log_mel(*args)
+        after = read_counts()
+        ref = stft_cuda.log_mel_reference(*args)
+        dft = stft_cuda._log_mel_dft(*args, *flags)
+        torch.cuda.synchronize()
+        taken = {k: after[k] - before[k] for k in ("log_mel.fft",
+                                                   "log_mel.dft")}
+        checks = {"vs_plain": [max_err(g, r, K4_TOL, K4_TOL)
+                               for g, r in zip(got, ref)],
+                  "vs_dft_route": [max_err(g, r, K4_TOL, K4_TOL)
+                                   for g, r in zip(got, dft)]}
+        fft_b = bound(nbytes(frames, window, mel, tw, *got),
+                      fft_ops(count, length, padded, k_bins, mel),
+                      "float32")
+        dft_b = bound(nbytes(frames, window, mel, *tables, *got),
+                      count * (4.0 * length * k_bins
+                               + 2.0 * m_bins * k_bins), "float32")
+        row = {"frames": count, "route_taken": taken,
+               **{f"max_abs_err_{k}": max(e for e, _ in v)
+                  for k, v in checks.items()},
+               "tol": K4_TOL,
+               "ms": median_ms(lambda: stft_cuda.log_mel(*args), 20, torch),
+               "plain_ms": median_ms(
+                   lambda: stft_cuda.log_mel_reference(*args), 20, torch),
+               "fft_route": route_times(
+                   torch, lambda: stft_cuda._log_mel_fft(*args, *flags,
+                                                         plan),
+                   ("log_mel_fft_kernel",)),
+               "dft_route": route_times(
+                   torch, lambda: stft_cuda._log_mel_dft(*args, *flags),
+                   ("log_mel_kernel",)),
+               **fft_b, "bound_work": "FFT: bytes of the frames, window, "
+               "mel, twiddles and outputs; ~6 ops a sample, 5 (N/2) "
+               "log2(N/2), ~17 a bin, 2 a nonzero mel entry",
+               "bound_ms_direct_dft": dft_b["bound_ms"],
+               "bound_by_direct_dft": dft_b["bound_by"],
+               "library_ms": None}
+        emit({"phase": "k4_log_mel", **row})
+        shapes.append(row)
+        errs.append(row["max_abs_err_vs_plain"])
+        if taken != {"log_mel.fft": 1, "log_mel.dft": 0}:
+            fail(f"K4 at {count} frames did not take the fft route: {row}")
+        if not all(ok for v in checks.values() for _, ok in v):
+            fail(f"K4 at {count} frames disagrees with its plain version "
+                 f"or its dft route: {row}")
+    # round_to_power_of_two off: a 400-point transform, the dft route
+    fo4 = FrameOptions(round_to_power_of_two=False)
+    mel4 = torch.as_tensor(mel_banks(opts.mel_opts, fo4), device=dev)
+    args4 = (frame_signal(wave, fo4).contiguous(), window, mel4,
+             fo4.padded_window_size)
+    before = read_counts()
+    got = stft_cuda.log_mel(*args4)
+    after = read_counts()
+    ref = stft_cuda.log_mel_reference(*args4)
+    torch.cuda.synchronize()
+    e4 = [max_err(g, r, K4_TOL, K4_TOL) for g, r in zip(got, ref)]
+    row4 = {"phase": "k4_log_mel_400_points",
+            "padded": fo4.padded_window_size,
+            "plan": stft_cuda.k4_plan(length, fo4.padded_window_size,
+                                      mel4.shape[1], mel4.shape[0])._asdict(),
+            "route_taken": {k: after[k] - before[k]
+                            for k in ("log_mel.fft", "log_mel.dft")},
+            "max_abs_err_vs_plain": max(e for e, _ in e4), "tol": K4_TOL}
+    emit(row4)
+    if row4["route_taken"] != {"log_mel.fft": 0, "log_mel.dft": 1} or \
+            not all(ok for _, ok in e4):
+        fail(f"K4's 400-point transform: {row4}")
+    main = shapes[0]
+    return {"max_abs_err": max(errs + [row4["max_abs_err_vs_plain"]]),
+            **{k: main[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                    "library_ms", "bound_ms_direct_dft")},
+            "shapes": [{k: r[k] for k in (
+                "frames", "ms", "plain_ms", "fft_route", "dft_route",
+                "bound_ms", "bound_by", "bound_ms_direct_dft",
+                "max_abs_err_vs_plain", "max_abs_err_vs_dft_route")}
+                for r in shapes]}
 
 
 def phase_k2(torch, np, dev):
@@ -670,9 +827,12 @@ def phase_k1(torch, np, dev):
                                        torch),
                "ctc_betas": None}
     out = {}
+    routes = k1_routes(torch, lp, skip_ok, skip_down, input_lens, label_lens)
     for name, (kern, plain, refs) in runs.items():
+        before = read_counts()
         got = kern()
         torch.cuda.synchronize()
+        after = read_counts()
         errs = [max_err(g, r, CTC_RTOL, CTC_ATOL) for g, r in zip(got, refs)]
         impl = "fused" if name == "ctc_alpha_beta" else "separate"
         loss, grad = ctc.ctc_loss_and_grad(logits, labels, input_lens,
@@ -696,6 +856,11 @@ def phase_k1(torch, np, dev):
             fail(f"infeasible rows not masked: {row}")
         out[name] = kernel_row([{"max_abs_err": max(e for e, _ in errs)}],
                                row)
+        if name == "ctc_alpha_beta":
+            if (after["ctc_alpha_beta.warp"] - before["ctc_alpha_beta.warp"]
+                    != 1):
+                fail(f"K1 at S={row['S']} did not take the warp route")
+            out[name]["routes"] = routes
     # the separate path: a user's ctc_loss_and_grad(implementation=
     # "separate") at bench shapes, counts from this call alone
     reset_counts()
@@ -709,6 +874,36 @@ def phase_k1(torch, np, dev):
         fail(f"the separate CTC path did not launch K11 and K12 once: "
              f"{counts}")
     return out, counts
+
+
+def k1_routes(torch, lp, skip_ok, skip_down, lens, label_lens):
+    """K1's plan at bench's S, its two routes timed on the same operands
+    (the warp route; the block kernel), and the witness: both give alphas
+    and betas bit for bit, at bench's B and at B=1 (the first row)."""
+    from kaldi_ctc_tpu_torch.ops import ctc_cuda
+    plan = ctc_cuda.k1_plan(lp.shape[2])
+    ops = (lp, skip_ok, skip_down, lens.to(torch.int32),
+           label_lens.to(torch.int32))
+    one = (lp[:, :1].contiguous(), *(v[:1].contiguous() for v in ops[1:]))
+    equal = {}
+    for key, args in (("B", ops), ("B1", one)):
+        warp = ctc_cuda._alpha_beta_route("warp", *args)
+        block = ctc_cuda._alpha_beta_route("block", *args)
+        equal[key] = all(torch.equal(w, k) for w, k in zip(warp, block))
+    res = {"phase": "k1_routes", "B": int(lp.shape[1]), "T": int(lp.shape[0]),
+           "S": int(lp.shape[2]), "plan": plan._asdict(),
+           "bit_equal_block_route": equal,
+           "warp_route": route_times(
+               torch, lambda: ctc_cuda._alpha_beta_route("warp", *ops),
+               ("ctc_warp_kernel",)),
+           "block_route": route_times(
+               torch, lambda: ctc_cuda._alpha_beta_route("block", *ops),
+               ("ctc_kernel<true, true>",))}
+    emit(res)
+    if plan.route != "warp" or not all(equal.values()):
+        fail(f"K1's warp route at bench's shape: {res}")
+    return {k: res[k] for k in ("plan", "bit_equal_block_route",
+                                "warp_route", "block_route")}
 
 
 def phase_k3(torch, np, dev):
@@ -1884,7 +2079,7 @@ def phase_serve(torch, np, mode=None, proj=False):
     os.makedirs(out_dir, exist_ok=True)
     seconds = (2.0, 4.0, 6.0, 8.0)
     audio = [pcm(s, 10 + i, np) for i, s in enumerate(seconds)]
-    launches = dict.fromkeys(KERNELS, 0)
+    launches = collections.Counter()
     engines = {}
     for dtype in ("float32", "bfloat16"):
         cfg = AmConfig(input_dim=40, num_targets=targets, hidden_dim=hidden,
@@ -2039,7 +2234,7 @@ def phase_serve_uni(torch, np, mode=None):
     streams = [pcm(2.0 + 2.0 * i / (STREAMS - 1), 40 + i, np)
                for i in range(STREAMS)]
     chunk_samples = 3200                      # 0.2 s at 16 kHz
-    launches = dict.fromkeys(KERNELS, 0)
+    launches = collections.Counter()
     engines = {}
     for dtype in DTYPES:
         cfg, params = uni_model(torch, dtype, "cpu", mode)
@@ -2351,7 +2546,7 @@ def phase_train(torch, np, dev, bidirectional=True, mode=None, proj=False):
     audio_s_per_step = b * t * SECONDS_PER_FRAME
     fwd, bwd = ((f"bi{cell}_fwd", f"bi{cell}_bwd") if bidirectional
                 else (f"{cell}_fwd", f"{cell}_bwd"))
-    launches = dict.fromkeys(KERNELS, 0)
+    launches = collections.Counter()
     for dtype in DTYPES:
         cfg = AmConfig(input_dim=40, num_targets=targets, hidden_dim=hidden,
                        num_layers=layers, mode=mode,
@@ -2475,7 +2670,7 @@ def phase_train(torch, np, dev, bidirectional=True, mode=None, proj=False):
                "device_idle_share_of_traced_wall":
                    (round(1 - device_ms / traced_ms, 4) if device_ms
                     else "not measured"),
-               "k1_share_of_device": share("ctc_kernel"),
+               "k1_share_of_device": share("ctc_kernel", "ctc_warp_kernel"),
                **{f"{k}_share_of_device": share(*kernel_tags(k))
                   for k in want if k != "ctc_alpha_beta"},
                "top_kernels": [{"name": k[2][:80], "us": round(k[0], 1),
@@ -2527,9 +2722,36 @@ def phase_profile(torch, np, engines, kname="bilstm_fwd"):
                   (round(1 - device_ms / traced_ms, 4) if device_ms
                    else "not measured"),
               f"{kname}_share_of_device": share(*kernel_tags(kname)),
-              "k4_share_of_device": share("log_mel_kernel"),
+              "k4_share_of_device": share("log_mel_kernel",
+                                          "log_mel_fft_kernel"),
               "top_kernels": [{"name": k[2][:80], "us": round(k[0], 1),
                                "count": k[1]} for k in kernels[:8]]})
+
+
+def driven_routes(launches, served):
+    """K4's launches on the driven paths by route and by frames, K1's by
+    route; fails unless every served K4 launch and every K1 launch took
+    the route its plan names at these shapes (fft; warp at S = 141)."""
+    frames = sorted((int(k[len(K4_FRAMES):]), n) for k, n in launches.items()
+                    if k.startswith(K4_FRAMES))
+    served_k4 = {k: sum(c[k] for c in served)
+                 for k in ("log_mel", "log_mel.fft", "log_mel.dft")}
+    res = {"phase": "driven_routes",
+           "log_mel": {"fft": launches["log_mel.fft"],
+                       "dft": launches["log_mel.dft"],
+                       "by_frames": {str(f): n for f, n in frames},
+                       "served": served_k4},
+           "ctc_alpha_beta": {"warp": launches["ctc_alpha_beta.warp"],
+                              "block": launches["ctc_alpha_beta.block"]}}
+    emit(res)
+    if (served_k4["log_mel.dft"] or served_k4["log_mel"] < 1
+            or served_k4["log_mel.fft"] != served_k4["log_mel"]):
+        fail(f"the served paths' K4 launches did not all take the fft "
+             f"route: {res}")
+    if (launches["ctc_alpha_beta.block"]
+            or launches["ctc_alpha_beta.warp"] != launches["ctc_alpha_beta"]):
+        fail(f"K1's launches on the driven paths did not all take the warp "
+             f"route: {res}")
 
 
 def main():
@@ -2569,13 +2791,15 @@ def main():
                                   mode=RnnMode.GRU)
     served_proj, _ = phase_serve(torch, np, proj=True)
     trained_proj = phase_train(torch, np, dev, proj=True)
+    launches = collections.Counter(launches)
     for counts in (served, trained, served_uni, trained_uni, served_gru,
                    trained_gru, served_gru_uni, trained_gru_uni, served_proj,
                    trained_proj):
-        for name in KERNELS:
-            launches[name] += counts[name]
-    if min(launches.values()) < 1:
+        launches.update(counts)
+    if min(launches[name] for name in KERNELS) < 1:
         fail(f"a kernel of the driven paths never launched: {launches}")
+    driven_routes(launches, (served, served_uni, served_gru, served_gru_uni,
+                             served_proj))
     phase_profile(torch, np, engines)
     phase_profile_stream(torch, np, uni_engines)
     phase_profile(torch, np, gru_engines, "bigru_fwd")
@@ -2602,7 +2826,7 @@ def main():
          "source": f"kaldi_ctc_tpu_torch/csrc/{sources[name][0]}",
          "replaces": f"kaldi_ctc_tpu/{sources[name][1]}",
          "launches": launches[name], **measured[name]}
-        for name in KERNELS]})
+        for name in KERNELS], "launch_floor_ms": launch_floor_ms(torch, dev)})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -5,7 +5,11 @@ Counterpart of ``kaldi_ctc_tpu/ops/ctc_pallas.py`` (``alpha_beta_pallas``,
 ``forward_alphas_pallas``, ``backward_betas_pallas``); the plain versions
 are the loops of ``kaldi_ctc_tpu/ops/ctc.py`` (``_forward_alphas``,
 ``_backward_betas``) on the gathered label log-probs.  One CUDA source,
-``csrc/ctc_alpha_beta.cu``, has the three entry points.
+``csrc/ctc_alpha_beta.cu``, has the kernels.  K1 takes one of two
+routes, chosen from S by :func:`k1_plan`: ``warp`` (one warp per
+utterance and recursion, the states in registers, S up to
+``K1_WARP_MAX_S``) or ``block`` (one block per utterance, the rows in
+shared memory).  K11 and K12 take the block kernel.
 
 Each wrapper takes the JAX signature: ``lp_ext_t`` [T, B, S] f32,
 ``skip_ok`` / ``skip_down`` [B, S] bool, ``lens`` and ``label_lens`` [B]
@@ -17,14 +21,15 @@ Log 0 is the finite -1e30, never -inf (hazard F4).
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+from typing import NamedTuple, Tuple
 
 import torch
 
 from kaldi_ctc_tpu_torch import _kernels
 
-__all__ = ["NEG_INF", "logaddexp", "alpha_beta", "alpha_beta_reference",
-           "forward_alphas", "forward_alphas_reference", "backward_betas",
+__all__ = ["NEG_INF", "K1_WARP_MAX_S", "K1Plan", "k1_plan", "logaddexp",
+           "alpha_beta", "alpha_beta_reference", "forward_alphas",
+           "forward_alphas_reference", "backward_betas",
            "backward_betas_reference"]
 
 NEG_INF = -1e30  # finite stand-in for log(0); avoids inf-inf NaNs
@@ -33,12 +38,32 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
     "ctc_alpha_beta": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+    "ctc_alpha_beta_warp": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+    "ctc_log1p_unit_check": [ctypes.c_uint, ctypes.c_uint, _P, _P],
     "ctc_alphas": [_P, _P, _P, _P, _I, _I, _I, _P],
     "ctc_betas": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
 }
-# the kernel keeps two rows of S per recursion in one block's shared
-# memory (227 KB on the H100)
+# the block kernel keeps two rows of S per recursion in one block's
+# shared memory (227 KB on the H100)
 _MAX_S = 232448 // (4 * 4)
+# the warp route: at most 8 states a lane (csrc/ctc_alpha_beta.cu
+# kMaxPerLane)
+K1_WARP_MAX_S = 32 * 8
+
+
+class K1Plan(NamedTuple):
+    """K1's route ("warp" or "block") and, on the warp route, the states
+    each lane holds."""
+    route: str
+    states_per_lane: int
+
+
+def k1_plan(s: int) -> K1Plan:
+    """K1's route for S lattice states: the warp route up to
+    ``K1_WARP_MAX_S``, else the block kernel.  A pure function of S."""
+    if 1 <= s <= K1_WARP_MAX_S:
+        return K1Plan("warp", -(-s // 32))
+    return K1Plan("block", 0)
 
 
 def logaddexp(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -163,20 +188,36 @@ def alpha_beta(lp_ext_t: torch.Tensor, skip_ok: torch.Tensor,
                skip_down: torch.Tensor, lens: torch.Tensor,
                label_lens: torch.Tensor
                ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """K1: the fused sweep, alpha at t=i and beta at t=T-1-i in one
-    loop → (alphas, betas) [T, B, S] f32."""
+    """K1: both recursions in one launch, on :func:`k1_plan`'s route →
+    (alphas, betas) [T, B, S] f32."""
     if not _device("alpha_beta", lp_ext_t):
         return alpha_beta_reference(lp_ext_t, skip_ok, skip_down, lens,
                                     label_lens)
     lens32, ll32 = _check("alpha_beta", lp_ext_t,
                           {"skip_ok": skip_ok, "skip_down": skip_down},
                           {"lens": lens, "label_lens": label_lens})
+    if not lp_ext_t.numel():
+        return torch.empty_like(lp_ext_t), torch.empty_like(lp_ext_t)
+    plan = k1_plan(lp_ext_t.shape[2])
+    out = _alpha_beta_route(plan.route, lp_ext_t, skip_ok, skip_down, lens32,
+                            ll32)
+    alpha_beta.launches += 1
+    if plan.route == "warp":
+        alpha_beta.warp_launches += 1
+    else:
+        alpha_beta.block_launches += 1
+    return out
+
+
+def _alpha_beta_route(route, lp_ext_t, skip_ok, skip_down, lens32, ll32):
+    """K1 on ``route`` on checked operands → (alphas, betas): "warp"
+    (``ctc_alpha_beta_warp``, S at most ``K1_WARP_MAX_S``) or "block"
+    (``ctc_alpha_beta``)."""
     alphas = torch.empty_like(lp_ext_t)
     betas = torch.empty_like(lp_ext_t)
-    if lp_ext_t.numel():
-        _launch("ctc_alpha_beta", "alpha_beta", lp_ext_t, skip_ok, skip_down,
-                lens32, ll32, alphas, betas)
-        alpha_beta.launches += 1
+    entry = "ctc_alpha_beta_warp" if route == "warp" else "ctc_alpha_beta"
+    _launch(entry, f"alpha_beta ({route} route)", lp_ext_t, skip_ok,
+            skip_down, lens32, ll32, alphas, betas)
     return alphas, betas
 
 
@@ -213,7 +254,9 @@ def backward_betas(lp_ext_t: torch.Tensor, skip_down: torch.Tensor,
     return betas
 
 
-# kernel launches made by each wrapper
+# kernel launches made by each wrapper (K1's also by route)
 alpha_beta.launches = 0
+alpha_beta.warp_launches = 0
+alpha_beta.block_launches = 0
 forward_alphas.launches = 0
 backward_betas.launches = 0

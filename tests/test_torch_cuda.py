@@ -288,6 +288,270 @@ def test_ctc_kernels_reject_bad_inputs(cuda):
                                 input_lens[:1])
 
 
+# ---------------------------------------------------------------------------
+# K4's two routes (stft_cuda.k4_plan) and K1's (ctc_cuda.k1_plan)
+# ---------------------------------------------------------------------------
+
+
+def _log_mel_inputs(num_frames, fo, device, seed, mel_opts=None):
+    rng = np.random.default_rng(seed)
+    frames = torch.as_tensor(
+        (rng.standard_normal((num_frames, fo.window_size)) * 1000)
+        .astype(np.float32), device=device)
+    window = torch.as_tensor(feature_window(fo), device=device)
+    mel = torch.as_tensor(mel_banks(mel_opts or MelOptions(
+        num_bins=40, low_freq=20.0, high_freq=-400.0), fo), device=device)
+    return frames, window, mel
+
+
+def _log_mel_close(got, ref):
+    for g, r in zip(got, ref):
+        np.testing.assert_allclose(g.cpu().numpy(), r.cpu().numpy(),
+                                   rtol=LOG_MEL_TOL, atol=LOG_MEL_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("num_frames", [1, 20, 37, 798])
+def test_log_mel_fft_route_matches_plain(cuda, num_frames):
+    """The MFCC-hires shapes (400 samples, 512 points, K = N/2 = 256) on
+    the fft route: one frame, a stream chunk, a ragged last block, 8 s."""
+    fo = FrameOptions()
+    args = _log_mel_inputs(num_frames, fo, cuda, num_frames)
+    assert stft_cuda.k4_plan(fo.window_size, fo.padded_window_size,
+                             args[2].shape[1], 40).route == "fft"
+    before = (stft_cuda.log_mel.launches, stft_cuda.log_mel.fft_launches,
+              stft_cuda.log_mel.dft_launches)
+    got = stft_cuda.log_mel(*args, fo.padded_window_size)
+    torch.cuda.synchronize()
+    assert (stft_cuda.log_mel.launches, stft_cuda.log_mel.fft_launches,
+            stft_cuda.log_mel.dft_launches) == (before[0] + 1,
+                                                before[1] + 1, before[2])
+    _log_mel_close(got, stft_cuda.log_mel_reference(
+        *args, fo.padded_window_size))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kw", [
+    dict(remove_dc=False, preemph=0.0, use_power=False, use_log=False),
+    dict(remove_dc=True, preemph=0.0, use_power=True, use_log=False),
+    dict(remove_dc=False, preemph=0.97, use_power=False, use_log=True)])
+def test_log_mel_fft_route_options(cuda, kw):
+    """test_log_mel_kernel_options's magnitude spectrum, no log, no DC
+    removal, no preemphasis, and two mixes, on the fft route."""
+    fo = FrameOptions()
+    rng = np.random.default_rng(7)
+    frames = torch.as_tensor((rng.standard_normal((9, fo.window_size))
+                              * 100 + 30).astype(np.float32), device=cuda)
+    window = torch.as_tensor(feature_window(fo), device=cuda)
+    mel = torch.as_tensor(mel_banks(MelOptions(), fo), device=cuda)
+    before = stft_cuda.log_mel.fft_launches
+    got = stft_cuda.log_mel(frames, window, mel, fo.padded_window_size, **kw)
+    assert stft_cuda.log_mel.fft_launches == before + 1
+    _log_mel_close(got, stft_cuda.log_mel_reference(
+        frames, window, mel, fo.padded_window_size, **kw))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("length,padded,k_bins,frames", [
+    (400, 512, 257, 20),     # Nyquist included: K = N/2 + 1
+    (200, 256, 128, 37),     # 8 kHz: a radix-4 transform of 128
+    (1000, 1024, 512, 9),    # radix 2, then radix 4
+    (3, 4, 3, 5),            # two points: one radix-2 pass
+    (401, 4096, 300, 3)])    # the plan's largest transform
+def test_log_mel_fft_route_at_other_sizes(cuda, length, padded, k_bins,
+                                          frames):
+    """The fft route against the plain version where the transform, the
+    bins and the mel rows (random spans, one row empty, K not a multiple
+    of 4) differ from the hires shapes."""
+    rng = np.random.default_rng(length)
+    x = torch.as_tensor((rng.standard_normal((frames, length)) * 300)
+                        .astype(np.float32), device=cuda)
+    window = torch.as_tensor(rng.uniform(0.1, 1.0, length)
+                             .astype(np.float32), device=cuda)
+    mel = np.zeros((11, k_bins), np.float32)
+    for m in range(1, 11):
+        lo = rng.integers(0, k_bins)
+        hi = rng.integers(lo, k_bins) + 1
+        mel[m, lo:hi] = rng.uniform(0.0, 1.0, hi - lo)
+    mel = torch.as_tensor(mel, device=cuda)
+    assert stft_cuda.k4_plan(length, padded, k_bins, 11).route == "fft"
+    before = stft_cuda.log_mel.fft_launches
+    got = stft_cuda.log_mel(x, window, mel, padded)
+    assert stft_cuda.log_mel.fft_launches == before + 1
+    _log_mel_close(got, stft_cuda.log_mel_reference(x, window, mel, padded))
+
+
+@pytest.mark.cuda
+def test_log_mel_dft_route_on_a_400_point_transform(cuda):
+    """round_to_power_of_two=False pads to 400 points: the dft route."""
+    fo = FrameOptions(round_to_power_of_two=False)
+    assert fo.padded_window_size == 400
+    args = _log_mel_inputs(37, fo, cuda, 5)
+    assert stft_cuda.k4_plan(400, 400, args[2].shape[1], 40).route == "dft"
+    before = (stft_cuda.log_mel.fft_launches, stft_cuda.log_mel.dft_launches)
+    got = stft_cuda.log_mel(*args, 400)
+    assert (stft_cuda.log_mel.fft_launches,
+            stft_cuda.log_mel.dft_launches) == (before[0], before[1] + 1)
+    _log_mel_close(got, stft_cuda.log_mel_reference(*args, 400))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("num_frames", [20, 798])
+def test_log_mel_routes_agree(cuda, num_frames):
+    """The fft and dft routes on the same operands: one sums an FFT, the
+    other the direct DFT, so they agree to K4's tolerance, not bit for
+    bit; the launches of the routes called alone count nothing."""
+    fo = FrameOptions()
+    args = _log_mel_inputs(num_frames, fo, cuda, 3)
+    counts = (stft_cuda.log_mel.launches, stft_cuda.log_mel.fft_launches)
+    fft = stft_cuda._log_mel_fft(*args, fo.padded_window_size, True, 0.97,
+                                 True, True)
+    dft = stft_cuda._log_mel_dft(*args, fo.padded_window_size, True, 0.97,
+                                 True, True)
+    assert (stft_cuda.log_mel.launches,
+            stft_cuda.log_mel.fft_launches) == counts
+    _log_mel_close(fft, dft)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("length,padded,k_bins,m_bins,nnz", [
+    (400, 512, 256, 40, 468), (400, 512, 257, 23, 0), (200, 256, 128, 11, 9),
+    (1000, 1024, 512, 80, 40960), (3, 4, 3, 2, 5)])
+def test_log_mel_smem_queries_are_the_plan_formulas(cuda, length, padded,
+                                                    k_bins, m_bins, nnz):
+    lib = _kernels.load("log_mel", stft_cuda._SIGNATURES)
+    for fpb in (1, 2, 4):
+        assert lib.log_mel_fft_smem(length, padded, m_bins, nnz, fpb) \
+            == stft_cuda._fft_smem_bytes(length, padded, m_bins, nnz, fpb)
+    assert lib.log_mel_dft_smem(length, k_bins) \
+        == stft_cuda._dft_smem_bytes(length, k_bins)
+
+
+def _k1_inputs(t, b, lmax, device, seed):
+    """``_ctc_inputs`` where, if the batch has room, row 1 has half the
+    frames its lmax labels need (infeasible), row 2 no frames and row 3
+    no labels: short, empty and infeasible rows."""
+    logits, labels, input_lens, label_lens = _ctc_inputs(t, b, lmax, device,
+                                                         seed)
+    if b > 3 and lmax > 1:
+        label_lens[1] = lmax
+        labels[1] = torch.arange(lmax, device=device) % 8 + 1
+        input_lens[1] = lmax // 2
+        input_lens[2] = 0
+        label_lens[3] = 0
+        labels[3] = 0
+    return logits, labels, input_lens, label_lens
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t,b,lmax", [(24, 6, 5), (30, 3, 0), (240, 4, 70),
+                                      (240, 48, 70)])
+def test_k1_warp_route_equals_block_route_bit_for_bit(cuda, t, b, lmax):
+    """The warp route computes each state with the block route's
+    expressions in its order: alphas and betas equal bit for bit (S = 1
+    at L = 0, S = 141 at bench's shape)."""
+    logits, labels, input_lens, label_lens = _k1_inputs(t, b, lmax, cuda,
+                                                        seed=t * b)
+    _, _, skip_ok, lp = ctc._lattice(logits, labels, 0)
+    skip_down = ctc._skip_down(skip_ok)
+    assert ctc_cuda.k1_plan(lp.shape[2]).route == "warp"
+    ops = (lp, skip_ok, skip_down, input_lens.to(torch.int32),
+           label_lens.to(torch.int32))
+    warp = ctc_cuda._alpha_beta_route("warp", *ops)
+    block = ctc_cuda._alpha_beta_route("block", *ops)
+    torch.cuda.synchronize()
+    for w, k in zip(warp, block):
+        assert torch.equal(w, k)
+    ref = ctc_cuda.alpha_beta_reference(lp, skip_ok, skip_down, input_lens,
+                                        label_lens)
+    for w, r in zip(warp, ref):
+        np.testing.assert_allclose(w.cpu().numpy(), r.cpu().numpy(),
+                                   rtol=CTC_RTOL, atol=CTC_ATOL)
+
+
+@pytest.mark.cuda
+def test_k1_warp_route_log1p_equals_log1pf_on_the_unit_interval(cuda):
+    """The warp route's branch-free log1p equals libdevice's log1pf bit
+    for bit at every float in [0, 1], the range of a log-add's
+    expf(-|a-b|)."""
+    lib = _kernels.load("ctc_alpha_beta", ctc_cuda._SIGNATURES)
+    bad = torch.zeros(1, dtype=torch.int64, device=cuda)
+    one = int(np.float32(1.0).view(np.uint32))
+    err = lib.ctc_log1p_unit_check(0, one, bad.data_ptr(),
+                                   _kernels.stream_ptr(cuda))
+    _kernels.check(lib, err, "ctc_log1p_unit_check")
+    assert int(bad) == 0
+
+
+@pytest.mark.cuda
+def test_k1_warp_route_on_the_fused_loss(cuda):
+    """ctc_loss_and_grad(implementation="fused") at bench's shape takes
+    the warp route; it matches the plain loops, and the infeasible and
+    frameless rows keep loss 0 (frameless: F8's frame-0 loss) and a zero
+    gradient as there."""
+    logits, labels, input_lens, label_lens = _k1_inputs(240, 48, 70, cuda,
+                                                        seed=11)
+    before = (ctc_cuda.alpha_beta.launches, ctc_cuda.alpha_beta.warp_launches,
+              ctc_cuda.alpha_beta.block_launches)
+    loss, grad = ctc.ctc_loss_and_grad(logits, labels, input_lens,
+                                       label_lens, implementation="fused")
+    torch.cuda.synchronize()
+    assert (ctc_cuda.alpha_beta.launches, ctc_cuda.alpha_beta.warp_launches,
+            ctc_cuda.alpha_beta.block_launches) == (
+                before[0] + 1, before[1] + 1, before[2])
+    ref_loss, ref_grad = ctc.ctc_loss_and_grad(
+        *(v.cpu() for v in (logits, labels, input_lens, label_lens)))
+    np.testing.assert_allclose(loss.cpu().numpy(), ref_loss.numpy(),
+                               rtol=CTC_RTOL, atol=CTC_ATOL)
+    np.testing.assert_allclose(grad.cpu().numpy(), ref_grad.numpy(), rtol=0,
+                               atol=CTC_GRAD_TOL)
+    assert float(loss[1]) == 0.0 and float(grad[1].abs().max()) == 0.0
+    assert float(grad[2].abs().max()) == 0.0
+
+
+@pytest.mark.cuda
+def test_k1_block_route_above_the_warp_limit(cuda):
+    """S = 1201 (L = 600) is above the warp route's 256 states: the block
+    route, against the plain loops; S = 257 is the first such S."""
+    assert ctc_cuda.k1_plan(ctc_cuda.K1_WARP_MAX_S + 1).route == "block"
+    logits, labels, input_lens, label_lens = _ctc_inputs(1250, 2, 600, cuda,
+                                                         seed=1252)
+    _, _, skip_ok, lp = ctc._lattice(logits, labels, 0)
+    skip_down = ctc._skip_down(skip_ok)
+    assert lp.shape[2] == 1201
+    assert ctc_cuda.k1_plan(1201).route == "block"
+    before = (ctc_cuda.alpha_beta.warp_launches,
+              ctc_cuda.alpha_beta.block_launches)
+    got = ctc_cuda.alpha_beta(lp, skip_ok, skip_down, input_lens, label_lens)
+    torch.cuda.synchronize()
+    assert (ctc_cuda.alpha_beta.warp_launches,
+            ctc_cuda.alpha_beta.block_launches) == (before[0], before[1] + 1)
+    ref = ctc_cuda.alpha_beta_reference(lp, skip_ok, skip_down, input_lens,
+                                        label_lens)
+    for g, r in zip(got, ref):
+        np.testing.assert_allclose(g.cpu().numpy(), r.cpu().numpy(),
+                                   rtol=CTC_RTOL, atol=5e-4)
+
+
+@pytest.mark.cuda
+def test_k1_warp_route_at_its_limit_and_a_large_batch(cuda):
+    """S = 255 (L = 127, 8 states a lane) at B = 600: the warp route,
+    1,200 warps in a plain grid, bit for bit against the block route."""
+    logits, labels, input_lens, label_lens = _k1_inputs(40, 600, 127, cuda,
+                                                        seed=600)
+    _, _, skip_ok, lp = ctc._lattice(logits, labels, 0)
+    skip_down = ctc._skip_down(skip_ok)
+    assert lp.shape[2] == 255
+    assert ctc_cuda.k1_plan(255) == ctc_cuda.K1Plan("warp", 8)
+    ops = (lp, skip_ok, skip_down, input_lens.to(torch.int32),
+           label_lens.to(torch.int32))
+    warp = ctc_cuda._alpha_beta_route("warp", *ops)
+    block = ctc_cuda._alpha_beta_route("block", *ops)
+    torch.cuda.synchronize()
+    for w, k in zip(warp, block):
+        assert torch.equal(w, k)
+
+
 def _bwd_inputs(t, b, h, dtype, device, seed):
     """A forward pass through K2's plain version on the card, and seeded
     cotangents: K3's operands."""
