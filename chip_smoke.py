@@ -37,8 +37,12 @@ result line:
    betas, loss and gradient, max error, median ms; K1's plan (k1_plan),
    its wrapper on the warp route, both routes (one warp per utterance and
    recursion; the block kernel) timed as K4's and held equal bit for bit
-   at B=48 and B=1; then the "separate" path of ``ctc_loss_and_grad``
-   (K11 + K12), with its launch counts;
+   at B=48 and B=1; K11's and K12's plans (k11_plan, k12_plan), their
+   wrappers on the band route, both routes (bands of states on the warps
+   of one block per utterance; the block kernel) timed as K4's, and the
+   band route held equal bit for bit to the block route and to K1's warp
+   route at B=48 and B=1; then the "separate" path of
+   ``ctc_loss_and_grad`` (K11 + K12), with its launch counts;
 6. k3_bilstm_bwd: the BiLSTM backward kernel against its plain version at
    T=240, B=48, H=320 with ragged lengths, f32 and bf16, with its plan,
    both routes (phase 1 and the backward chain with both directions in
@@ -59,8 +63,9 @@ result line:
    K3 5x, K1 once and K10a, K10b never) and the same 3 steps from the
    same state on the
    plain versions on the card, per-step loss and grad norm and the final
-   parameters compared; the eval step (K2 5x, K11 once); 5 timed calls of
-   3 steps (audio-s/s, B*T*0.03 s of audio per step); one step under
+   parameters compared; the eval step (K2 5x, K11 once), and one eval
+   step under torch.profiler (K11's card time and share); 5 timed calls
+   of 3 steps (audio-s/s, B*T*0.03 s of audio per step); one step under
    torch.profiler (device time by kernel, K1/K2/K3 shares, idle share);
 9. profile: one 8 s request per dtype under torch.profiler: device time
    by kernel, K2's (either route) and K4's shares, the device's idle share of the traced
@@ -152,8 +157,9 @@ measured run, whose kernels are those the device ran after the marker: a
 trace lacked the device records of its first milliseconds.
 
 Then a line ``driven_routes``: K4's launches on the driven paths by
-route and by frames, K1's by route (the run fails unless every served
-K4 launch took the fft route and every K1 launch the warp route).  Then
+route and by frames, K1's, K11's and K12's by route (the run fails
+unless every served K4 launch took the fft route, every K1 launch the
+warp route and every K11 and K12 launch the band route).  Then
 a line ``{"kernels": [...], "launch_floor_ms": ...}`` with each kernel's
 launches during the
 driven paths (serve, train, eval, the separate CTC path, serve_uni with
@@ -163,7 +169,8 @@ its error, its time beside the plain version's, its bound (the larger of
 its bytes over 3.35 TB/s and its operations over the peak rate of its
 type: 67 TFLOP/s f32, 989 TFLOP/s bf16, H100 SXM data sheet) and the
 time of one PyTorch library call computing the same function (null where
-there is none), K4's two shapes and K1's two routes beside their rows,
+there is none), K4's two shapes and the routes of K1, K11 and K12 beside
+their rows,
 and the time of one empty launch (CUDA events over back-to-back calls
 of a null kernel); the card's ``nvidia-smi`` name and power limit; and,
 last, ``{"ok": true, "device": {"platform": "gpu", "kind": ...,
@@ -380,13 +387,18 @@ def wrappers():
             "bilstm_proj_bwd": rnn_cuda.bilstm_seq_bwd_dgates_proj}
 
 
-# the per-route launch counters of K4 and K1, beside each wrapper's
+# the per-route launch counters of K4, K1, K11 and K12, beside each
+# wrapper's
 # ``launches``: key in the counts → (kernel, the wrapper's attribute)
 ROUTE_COUNTERS = {"log_mel.fft": ("log_mel", "fft_launches"),
                   "log_mel.dft": ("log_mel", "dft_launches"),
                   "ctc_alpha_beta.warp": ("ctc_alpha_beta", "warp_launches"),
                   "ctc_alpha_beta.block": ("ctc_alpha_beta",
-                                           "block_launches")}
+                                           "block_launches"),
+                  "ctc_alphas.band": ("ctc_alphas", "band_launches"),
+                  "ctc_alphas.block": ("ctc_alphas", "block_launches"),
+                  "ctc_betas.band": ("ctc_betas", "band_launches"),
+                  "ctc_betas.block": ("ctc_betas", "block_launches")}
 # K4's launches by the frames of the launch: keys "log_mel.frames.<F>"
 K4_FRAMES = "log_mel.frames."
 
@@ -401,7 +413,8 @@ def reset_counts():
 
 
 def read_counts():
-    """Each wrapper's launches, K4's and K1's by route, K4's by frames."""
+    """Each wrapper's launches, K4's, K1's, K11's and K12's by route,
+    K4's by frames."""
     fns = wrappers()
     counts = {name: fn.launches for name, fn in fns.items()}
     counts.update({key: getattr(fns[name], attr)
@@ -827,7 +840,14 @@ def phase_k1(torch, np, dev):
                                        torch),
                "ctc_betas": None}
     out = {}
-    routes = k1_routes(torch, lp, skip_ok, skip_down, input_lens, label_lens)
+    k1_ops = (lp, skip_ok, skip_down, input_lens.to(torch.int32),
+              label_lens.to(torch.int32))
+    routes = {"ctc_alpha_beta": k1_routes(torch, *k1_ops),
+              "ctc_alphas": band_routes(torch, "k11", k1_ops),
+              "ctc_betas": band_routes(torch, "k12", k1_ops)}
+    want_route = {"ctc_alpha_beta": "ctc_alpha_beta.warp",
+                  "ctc_alphas": "ctc_alphas.band",
+                  "ctc_betas": "ctc_betas.band"}
     for name, (kern, plain, refs) in runs.items():
         before = read_counts()
         got = kern()
@@ -856,11 +876,10 @@ def phase_k1(torch, np, dev):
             fail(f"infeasible rows not masked: {row}")
         out[name] = kernel_row([{"max_abs_err": max(e for e, _ in errs)}],
                                row)
-        if name == "ctc_alpha_beta":
-            if (after["ctc_alpha_beta.warp"] - before["ctc_alpha_beta.warp"]
-                    != 1):
-                fail(f"K1 at S={row['S']} did not take the warp route")
-            out[name]["routes"] = routes
+        key = want_route[name]
+        if after[key] - before[key] != 1:
+            fail(f"{name} at S={row['S']} did not take its route {key}")
+        out[name]["routes"] = routes[name]
     # the separate path: a user's ctc_loss_and_grad(implementation=
     # "separate") at bench shapes, counts from this call alone
     reset_counts()
@@ -876,14 +895,52 @@ def phase_k1(torch, np, dev):
     return out, counts
 
 
+def band_routes(torch, kernel, k1_ops):
+    """K11's (``kernel`` "k11") or K12's ("k12") plan at bench's S, its
+    two routes timed on the same operands (the band route; the block
+    kernel), and the witness: the band route's rows equal the block
+    route's and K1's warp route's bit for bit, at bench's B and at B=1
+    (the first row).  ``k1_ops`` are K1's checked operands."""
+    from kaldi_ctc_tpu_torch.ops import ctc_cuda
+    alpha = kernel == "k11"
+    plan = (ctc_cuda.k11_plan if alpha else ctc_cuda.k12_plan)(
+        k1_ops[0].shape[2])
+    route = ctc_cuda._alphas_route if alpha else ctc_cuda._betas_route
+    pick = (0, 1, 3) if alpha else (0, 2, 3, 4)
+    one = (k1_ops[0][:, :1].contiguous(),
+           *(v[:1].contiguous() for v in k1_ops[1:]))
+    equal = {}
+    for key, args in (("B", k1_ops), ("B1", one)):
+        sub = [args[i] for i in pick]
+        band = route("band", *sub)
+        k1 = ctc_cuda._alpha_beta_route("warp", *args)[0 if alpha else 1]
+        equal[key] = {"block": torch.equal(band, route("block", *sub)),
+                      "k1_warp_route": torch.equal(band, k1)}
+    ops = [k1_ops[i] for i in pick]
+    rec = "<true, false" if alpha else "<false, true"
+    band_tag = "ctc_band_kernel" + ("<true" if alpha else "<false")
+    res = {"phase": f"{kernel}_routes", "B": int(k1_ops[0].shape[1]),
+           "T": int(k1_ops[0].shape[0]), "S": int(k1_ops[0].shape[2]),
+           "plan": plan._asdict(), "bit_equal": equal,
+           "band_route": route_times(torch, lambda: route("band", *ops),
+                                     (band_tag,)),
+           "block_route": route_times(torch, lambda: route("block", *ops),
+                                      ("ctc_kernel" + rec,))}
+    emit(res)
+    if plan.route != "band" or not all(all(v.values())
+                                       for v in equal.values()):
+        fail(f"{kernel}'s band route at bench's shape: {res}")
+    return {k: res[k] for k in ("plan", "bit_equal", "band_route",
+                                "block_route")}
+
+
 def k1_routes(torch, lp, skip_ok, skip_down, lens, label_lens):
     """K1's plan at bench's S, its two routes timed on the same operands
     (the warp route; the block kernel), and the witness: both give alphas
     and betas bit for bit, at bench's B and at B=1 (the first row)."""
     from kaldi_ctc_tpu_torch.ops import ctc_cuda
     plan = ctc_cuda.k1_plan(lp.shape[2])
-    ops = (lp, skip_ok, skip_down, lens.to(torch.int32),
-           label_lens.to(torch.int32))
+    ops = (lp, skip_ok, skip_down, lens, label_lens)
     one = (lp[:, :1].contiguous(), *(v[:1].contiguous() for v in ops[1:]))
     equal = {}
     for key, args in (("B", ops), ("B1", one)):
@@ -2493,6 +2550,10 @@ LAUNCH_TAGS = {"bilstm_proj_fwd": ("::bilstm_fwd_chain_kernel",),
                              "::bigru_bwd_kernel")}
 
 
+# K11's kernels as a trace names them, either route
+K11_TAGS = ("ctc_band_kernel<true", "ctc_kernel<true, false>")
+
+
 def kernel_tags(name):
     return KERNEL_TAGS.get(name, (f"::{name}_kernel",))
 
@@ -2611,6 +2672,20 @@ def phase_train(torch, np, dev, bidirectional=True, mode=None, proj=False):
                 or not np.isfinite(eval_loss)):
             fail(f"eval step {dtype}: launches {eval_counts} (want "
                  f"{want_eval}), loss {eval_loss}")
+        # one eval step under the profiler: K11's share of its card time
+        prof, eval_traced_ms = profiled(
+            torch, lambda: eval_step(state.params, batch))
+        eval_kernels = device_kernels(prof, DeviceType)
+        eval_device_us = sum(k[0] for k in eval_kernels)
+        k11_us = sum(k[0] for k in eval_kernels
+                     if any(tag in k[2] for tag in K11_TAGS))
+        eval_profile = {
+            "traced_ms": round(eval_traced_ms, 3),
+            "device_kernel_ms": (round(eval_device_us / 1000, 3)
+                                 if eval_device_us else "not measured"),
+            "k11_device_us": round(k11_us, 2),
+            "k11_share_of_device": (round(k11_us / eval_device_us, 5)
+                                    if eval_device_us else None)}
 
         # audio-s/s: timed calls of a few steps each, on the host clock
         rates = []
@@ -2657,6 +2732,7 @@ def phase_train(torch, np, dev, bidirectional=True, mode=None, proj=False):
                    norm_rel, "max_abs_err_params": param_err,
                "tol_loss_norm_params": [loss_tol, norm_tol, param_tol],
                "eval_loss_total": eval_loss, "eval_launches": eval_counts,
+               "eval_profile": eval_profile,
                "audio_s_per_s": {"median": rates[len(rates) // 2],
                                  "min": rates[0], "max": rates[-1],
                                  "n": len(rates),
@@ -2729,9 +2805,10 @@ def phase_profile(torch, np, engines, kname="bilstm_fwd"):
 
 
 def driven_routes(launches, served):
-    """K4's launches on the driven paths by route and by frames, K1's by
-    route; fails unless every served K4 launch and every K1 launch took
-    the route its plan names at these shapes (fft; warp at S = 141)."""
+    """K4's launches on the driven paths by route and by frames, K1's,
+    K11's and K12's by route; fails unless every served K4 launch and
+    every K1, K11 and K12 launch took the route its plan names at these
+    shapes (fft; warp at S = 141; band at S = 141)."""
     frames = sorted((int(k[len(K4_FRAMES):]), n) for k, n in launches.items()
                     if k.startswith(K4_FRAMES))
     served_k4 = {k: sum(c[k] for c in served)
@@ -2742,7 +2819,10 @@ def driven_routes(launches, served):
                        "by_frames": {str(f): n for f, n in frames},
                        "served": served_k4},
            "ctc_alpha_beta": {"warp": launches["ctc_alpha_beta.warp"],
-                              "block": launches["ctc_alpha_beta.block"]}}
+                              "block": launches["ctc_alpha_beta.block"]},
+           **{name: {"band": launches[f"{name}.band"],
+                     "block": launches[f"{name}.block"]}
+              for name in ("ctc_alphas", "ctc_betas")}}
     emit(res)
     if (served_k4["log_mel.dft"] or served_k4["log_mel"] < 1
             or served_k4["log_mel.fft"] != served_k4["log_mel"]):
@@ -2752,6 +2832,11 @@ def driven_routes(launches, served):
             or launches["ctc_alpha_beta.warp"] != launches["ctc_alpha_beta"]):
         fail(f"K1's launches on the driven paths did not all take the warp "
              f"route: {res}")
+    for name in ("ctc_alphas", "ctc_betas"):
+        if (launches[f"{name}.block"] or launches[name] < 1
+                or launches[f"{name}.band"] != launches[name]):
+            fail(f"{name}'s launches on the driven paths did not all take "
+                 f"the band route: {res}")
 
 
 def main():

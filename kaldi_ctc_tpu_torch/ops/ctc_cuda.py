@@ -9,7 +9,11 @@ are the loops of ``kaldi_ctc_tpu/ops/ctc.py`` (``_forward_alphas``,
 routes, chosen from S by :func:`k1_plan`: ``warp`` (one warp per
 utterance and recursion, the states in registers, S up to
 ``K1_WARP_MAX_S``) or ``block`` (one block per utterance, the rows in
-shared memory).  K11 and K12 take the block kernel.
+shared memory).  K11 and K12, each one recursion alone, take the
+``band`` route up to ``BAND_MAX_S`` (one block per utterance whose
+warps each hold a band of 32 states and hand the band's edge states on
+through shared memory; :func:`k11_plan`, :func:`k12_plan`), else the
+block kernel.  Every route gives the same bits.
 
 Each wrapper takes the JAX signature: ``lp_ext_t`` [T, B, S] f32,
 ``skip_ok`` / ``skip_down`` [B, S] bool, ``lens`` and ``label_lens`` [B]
@@ -27,8 +31,9 @@ import torch
 
 from kaldi_ctc_tpu_torch import _kernels
 
-__all__ = ["NEG_INF", "K1_WARP_MAX_S", "K1Plan", "k1_plan", "logaddexp",
-           "alpha_beta", "alpha_beta_reference", "forward_alphas",
+__all__ = ["NEG_INF", "K1_WARP_MAX_S", "K1Plan", "k1_plan", "BAND_MAX_S",
+           "BandPlan", "k11_plan", "k12_plan", "logaddexp", "alpha_beta",
+           "alpha_beta_reference", "forward_alphas",
            "forward_alphas_reference", "backward_betas",
            "backward_betas_reference"]
 
@@ -42,6 +47,9 @@ _SIGNATURES = {
     "ctc_log1p_unit_check": [ctypes.c_uint, ctypes.c_uint, _P, _P],
     "ctc_alphas": [_P, _P, _P, _P, _I, _I, _I, _P],
     "ctc_betas": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
+    "ctc_alphas_band": [_P, _P, _P, _P, _I, _I, _I, _P],
+    "ctc_betas_band": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
+    "ctc_band_smem": [_I],
 }
 # the block kernel keeps two rows of S per recursion in one block's
 # shared memory (227 KB on the H100)
@@ -64,6 +72,48 @@ def k1_plan(s: int) -> K1Plan:
     if 1 <= s <= K1_WARP_MAX_S:
         return K1Plan("warp", -(-s // 32))
     return K1Plan("block", 0)
+
+
+# The band route of K11 and K12 (csrc/ctc_alpha_beta.cu kBandMaxWarps,
+# kRing): at most 8 warps of 32 lanes, one state a lane.  On the card (an
+# NVIDIA H100 80GB HBM3 at 700 W, B=48, T=240) it beat the block kernel
+# at S = 141; two states a lane on fewer warps, and other hand-offs
+# between bands, were slower (PERF.md), so above 256 states the plans
+# take the block kernel.
+BAND_MAX_WARPS = 8
+BAND_MAX_S = 32 * BAND_MAX_WARPS
+_LP_RING = 5
+
+
+class BandPlan(NamedTuple):
+    """K11's or K12's route ("band" or "block") and, on the band route,
+    its warps (one band of 32 states each)."""
+    route: str
+    warps: int
+
+
+def _band_plan(s: int) -> BandPlan:
+    if 1 <= s <= BAND_MAX_S:
+        return BandPlan("band", -(-s // 32))
+    return BandPlan("block", 0)
+
+
+def k11_plan(s: int) -> BandPlan:
+    """K11's route for S lattice states: the band route up to
+    ``BAND_MAX_S``, else the block kernel.  A pure function of S."""
+    return _band_plan(s)
+
+
+def k12_plan(s: int) -> BandPlan:
+    """K12's route for S lattice states, as :func:`k11_plan`."""
+    return _band_plan(s)
+
+
+def _band_smem_bytes(warps: int) -> int:
+    """The band route's dynamic shared memory, the twin of
+    ``band_smem_bytes`` in the source (``ctc_band_smem`` returns it): per
+    warp a ring of lp rows of 32 floats and a float2 edge."""
+    return warps * (_LP_RING * 32 * 4 + 8)
 
 
 def logaddexp(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -221,42 +271,88 @@ def _alpha_beta_route(route, lp_ext_t, skip_ok, skip_down, lens32, ll32):
     return alphas, betas
 
 
+def _route_entry(route, entry, s):
+    """The C entry point of K11's or K12's ``route`` ("band": ``entry``
+    + "_band", refused above ``BAND_MAX_S`` states; "block": ``entry``)."""
+    if route != "band":
+        return entry
+    if s > BAND_MAX_S:
+        raise ValueError(f"band route: S = {s} is above BAND_MAX_S = "
+                         f"{BAND_MAX_S}")
+    return entry + "_band"
+
+
+def _alphas_route(route, lp_ext_t, skip_ok, lens32):
+    """K11 on ``route`` on checked operands → alphas: "band"
+    (``ctc_alphas_band``, S at most ``BAND_MAX_S``) or "block"
+    (``ctc_alphas``)."""
+    alphas = torch.empty_like(lp_ext_t)
+    _launch(_route_entry(route, "ctc_alphas", lp_ext_t.shape[2]),
+            f"forward_alphas ({route} route)", lp_ext_t, skip_ok, lens32,
+            alphas)
+    return alphas
+
+
+def _betas_route(route, lp_ext_t, skip_down, lens32, ll32):
+    """K12 on ``route`` on checked operands → betas, as
+    :func:`_alphas_route` (``ctc_betas_band``, ``ctc_betas``)."""
+    betas = torch.empty_like(lp_ext_t)
+    _launch(_route_entry(route, "ctc_betas", lp_ext_t.shape[2]),
+            f"backward_betas ({route} route)", lp_ext_t, skip_down, lens32,
+            ll32, betas)
+    return betas
+
+
 def forward_alphas(lp_ext_t: torch.Tensor, skip_ok: torch.Tensor,
                    lens: torch.Tensor) -> torch.Tensor:
-    """K11: the alpha recursion alone → alphas [T, B, S] f32."""
+    """K11: the alpha recursion alone, on :func:`k11_plan`'s route →
+    alphas [T, B, S] f32."""
     if not _device("forward_alphas", lp_ext_t):
         return forward_alphas_reference(lp_ext_t, skip_ok, lens)
     (lens32,) = _check("forward_alphas", lp_ext_t, {"skip_ok": skip_ok},
                        {"lens": lens})
-    alphas = torch.empty_like(lp_ext_t)
-    if lp_ext_t.numel():
-        _launch("ctc_alphas", "forward_alphas", lp_ext_t, skip_ok, lens32,
-                alphas)
-        forward_alphas.launches += 1
+    if not lp_ext_t.numel():
+        return torch.empty_like(lp_ext_t)
+    plan = k11_plan(lp_ext_t.shape[2])
+    alphas = _alphas_route(plan.route, lp_ext_t, skip_ok, lens32)
+    forward_alphas.launches += 1
+    if plan.route == "band":
+        forward_alphas.band_launches += 1
+    else:
+        forward_alphas.block_launches += 1
     return alphas
 
 
 def backward_betas(lp_ext_t: torch.Tensor, skip_down: torch.Tensor,
                    lens: torch.Tensor, label_lens: torch.Tensor
                    ) -> torch.Tensor:
-    """K12: the beta recursion alone → betas [T, B, S] f32."""
+    """K12: the beta recursion alone, on :func:`k12_plan`'s route →
+    betas [T, B, S] f32."""
     if not _device("backward_betas", lp_ext_t):
         return backward_betas_reference(lp_ext_t, skip_down, lens,
                                         label_lens)
     lens32, ll32 = _check("backward_betas", lp_ext_t,
                           {"skip_down": skip_down},
                           {"lens": lens, "label_lens": label_lens})
-    betas = torch.empty_like(lp_ext_t)
-    if lp_ext_t.numel():
-        _launch("ctc_betas", "backward_betas", lp_ext_t, skip_down, lens32,
-                ll32, betas)
-        backward_betas.launches += 1
+    if not lp_ext_t.numel():
+        return torch.empty_like(lp_ext_t)
+    plan = k12_plan(lp_ext_t.shape[2])
+    betas = _betas_route(plan.route, lp_ext_t, skip_down, lens32, ll32)
+    backward_betas.launches += 1
+    if plan.route == "band":
+        backward_betas.band_launches += 1
+    else:
+        backward_betas.block_launches += 1
     return betas
 
 
-# kernel launches made by each wrapper (K1's also by route)
+# kernel launches made by each wrapper, and by route
 alpha_beta.launches = 0
 alpha_beta.warp_launches = 0
 alpha_beta.block_launches = 0
 forward_alphas.launches = 0
+forward_alphas.band_launches = 0
+forward_alphas.block_launches = 0
 backward_betas.launches = 0
+backward_betas.band_launches = 0
+backward_betas.block_launches = 0

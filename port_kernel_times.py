@@ -1,5 +1,5 @@
-"""Times K4 and K1 of the PyTorch/CUDA port through their public wrappers,
-so that two checkouts can be timed in one call on one card:
+"""Times K4, K1, K11 and K12 of the PyTorch/CUDA port through their public
+wrappers, so that two checkouts can be timed in one call on one card:
 
     python3 port_kernel_times.py [--root CHECKOUT] [--label NAME]
 
@@ -8,8 +8,10 @@ so that two checkouts can be timed in one call on one card:
 ``build/kernels``.  The inputs are ``chip_smoke.py``'s (this script's
 copy): K4 (``stft_cuda.log_mel``) on MFCC-hires frames of 8 s of seeded
 audio (798 frames, a request) and on its first 20 frames (one 0.2 s
-stream chunk); K1 (``ctc_cuda.alpha_beta``) at bench.py's CTC shape
-(B=48, T=240, S=141, short, label-less and infeasible rows).  Each is
+stream chunk); K1 (``ctc_cuda.alpha_beta``), K11
+(``ctc_cuda.forward_alphas``) and K12 (``ctc_cuda.backward_betas``) at
+bench.py's CTC shape (B=48, T=240, S=141, short, label-less and
+infeasible rows), each on the route its checkout's plan takes.  Each is
 timed three ways: one call between CUDA events (the host's time before
 its launch included), 50 calls back to back, and the card's time a call
 in a torch.profiler trace.  Prints one JSON line with the card's
@@ -73,6 +75,13 @@ def main():
     out["k1_bench"] = times(
         torch, lambda: ctc_cuda.alpha_beta(lp, skip_ok, skip_down,
                                            input_lens, label_lens),
+        ("ctc_",))
+    out["k11_bench"] = times(
+        torch, lambda: ctc_cuda.forward_alphas(lp, skip_ok, input_lens),
+        ("ctc_",))
+    out["k12_bench"] = times(
+        torch, lambda: ctc_cuda.backward_betas(lp, skip_down, input_lens,
+                                               label_lens),
         ("ctc_",))
     out["nvidia_smi"] = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

@@ -509,6 +509,132 @@ def test_k1_warp_route_on_the_fused_loss(cuda):
     assert float(grad[2].abs().max()) == 0.0
 
 
+# ---------------------------------------------------------------------------
+# K11's and K12's band route (ctc_cuda.k11_plan, k12_plan)
+# ---------------------------------------------------------------------------
+
+
+def _band_operands(t, b, lmax, device, seed):
+    """``_k1_inputs``' lattice: (lp, skip_ok, skip_down, lens, label_lens)
+    with int32 counts, as the routes take them."""
+    logits, labels, input_lens, label_lens = _k1_inputs(t, b, lmax, device,
+                                                        seed)
+    _, _, skip_ok, lp = ctc._lattice(logits, labels, 0)
+    return (lp, skip_ok, ctc._skip_down(skip_ok), input_lens.to(torch.int32),
+            label_lens.to(torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t,b,lmax", [(1, 1, 0), (24, 6, 5), (24, 6, 16),
+                                      (24, 3, 32), (240, 48, 70),
+                                      (240, 4, 127), (240, 4, 255),
+                                      (240, 600, 70)])
+def test_k11_k12_band_route_equals_block_and_k1_routes_bit_for_bit(
+        cuda, t, b, lmax):
+    """The band route computes each state with the block route's
+    expressions in its order: K11's alphas and K12's betas equal the
+    block route's and K1's (its warp route up to 256 states, its block
+    route above) bit for bit, on short, empty, infeasible and label-less
+    rows; S = 1, 11, 33 and 65 (a top band of one live state), 141
+    (bench), 255 (8 bands, the band route's last odd S) and B = 600; at
+    S = 511 both wrappers take the block kernel.  The wrappers take their
+    plan's route."""
+    lp, skip_ok, skip_down, lens32, ll32 = _band_operands(t, b, lmax, cuda,
+                                                          seed=t + b)
+    s = lp.shape[2]
+    route = "band" if s <= ctc_cuda.BAND_MAX_S else "block"
+    assert ctc_cuda.k11_plan(s).route == ctc_cuda.k12_plan(s).route == route
+    routes = ("band", "block") if route == "band" else ("block",)
+    alphas = {r: ctc_cuda._alphas_route(r, lp, skip_ok, lens32)
+              for r in routes}
+    betas = {r: ctc_cuda._betas_route(r, lp, skip_down, lens32, ll32)
+             for r in routes}
+    fns = (ctc_cuda.forward_alphas, ctc_cuda.backward_betas)
+    before = [getattr(f, f"{route}_launches") for f in fns]
+    wrapped = (ctc_cuda.forward_alphas(lp, skip_ok, lens32),
+               ctc_cuda.backward_betas(lp, skip_down, lens32, ll32))
+    k1 = {r: ctc_cuda._alpha_beta_route(r, lp, skip_ok, skip_down, lens32,
+                                        ll32)
+          for r in (("warp", "block") if s <= ctc_cuda.K1_WARP_MAX_S
+                    else ("block",))}
+    torch.cuda.synchronize()
+    assert [getattr(f, f"{route}_launches") for f in fns] == [
+        n + 1 for n in before]
+    got_a, got_b = alphas[route], betas[route]
+    assert torch.equal(got_a, alphas["block"])
+    assert torch.equal(got_b, betas["block"])
+    assert torch.equal(wrapped[0], got_a)
+    assert torch.equal(wrapped[1], got_b)
+    for a, b_ in k1.values():
+        assert torch.equal(got_a, a)
+        assert torch.equal(got_b, b_)
+    ref_a, ref_b = ctc_cuda.alpha_beta_reference(lp, skip_ok, skip_down,
+                                                 lens32, ll32)
+    np.testing.assert_allclose(got_a.cpu().numpy(),
+                               ref_a.cpu().numpy(), rtol=CTC_RTOL,
+                               atol=CTC_ATOL)
+    np.testing.assert_allclose(got_b.cpu().numpy(),
+                               ref_b.cpu().numpy(), rtol=CTC_RTOL,
+                               atol=CTC_ATOL)
+
+
+@pytest.mark.cuda
+def test_band_smem_query_equals_the_python_formula(cuda):
+    """One shared-memory formula for the band launch and its query, and
+    its Python twin, at every S the band route takes; an S the launch
+    refuses has none."""
+    lib = _kernels.load("ctc_alpha_beta", ctc_cuda._SIGNATURES)
+    for s in range(1, ctc_cuda.BAND_MAX_S + 1):
+        assert lib.ctc_band_smem(s) == ctc_cuda._band_smem_bytes(
+            ctc_cuda.k11_plan(s).warps)
+    assert lib.ctc_band_smem(0) == lib.ctc_band_smem(
+        ctc_cuda.BAND_MAX_S + 1) == -1
+
+
+@pytest.mark.cuda
+def test_band_launch_refuses_s_above_its_limit(cuda):
+    """The C entry points themselves refuse S above 256 states."""
+    lp, skip_ok, skip_down, lens32, ll32 = _band_operands(24, 6, 5, cuda,
+                                                          seed=3)
+    lib = _kernels.load("ctc_alpha_beta", ctc_cuda._SIGNATURES)
+    out = torch.empty_like(lp)
+    t_max, b, _ = lp.shape
+    s = ctc_cuda.BAND_MAX_S + 1
+    stream = _kernels.stream_ptr(cuda)
+    assert lib.ctc_alphas_band(lp.data_ptr(), skip_ok.data_ptr(),
+                               lens32.data_ptr(), out.data_ptr(), t_max, b,
+                               s, stream) != 0
+    assert lib.ctc_betas_band(lp.data_ptr(), skip_down.data_ptr(),
+                              lens32.data_ptr(), ll32.data_ptr(),
+                              out.data_ptr(), t_max, b, s, stream) != 0
+
+
+@pytest.mark.cuda
+def test_separate_ctc_path_on_the_band_route(cuda):
+    """ctc_loss_and_grad(implementation="separate") at bench's shape
+    launches K11 and K12 once each, on the band route, and matches the
+    plain loops; infeasible and frameless rows keep loss 0 (frameless:
+    F8's frame-0 loss) and a zero gradient."""
+    logits, labels, input_lens, label_lens = _k1_inputs(240, 48, 70, cuda,
+                                                        seed=13)
+    fns = (ctc_cuda.forward_alphas, ctc_cuda.backward_betas)
+    before = [(f.launches, f.band_launches, f.block_launches) for f in fns]
+    loss, grad = ctc.ctc_loss_and_grad(logits, labels, input_lens,
+                                       label_lens, implementation="separate")
+    torch.cuda.synchronize()
+    after = [(f.launches, f.band_launches, f.block_launches) for f in fns]
+    assert after == [(n + 1, band + 1, block)
+                     for n, band, block in before]
+    ref_loss, ref_grad = ctc.ctc_loss_and_grad(
+        *(v.cpu() for v in (logits, labels, input_lens, label_lens)))
+    np.testing.assert_allclose(loss.cpu().numpy(), ref_loss.numpy(),
+                               rtol=CTC_RTOL, atol=CTC_ATOL)
+    np.testing.assert_allclose(grad.cpu().numpy(), ref_grad.numpy(), rtol=0,
+                               atol=CTC_GRAD_TOL)
+    assert float(loss[1]) == 0.0 and float(grad[1].abs().max()) == 0.0
+    assert float(grad[2].abs().max()) == 0.0
+
+
 @pytest.mark.cuda
 def test_k1_block_route_above_the_warp_limit(cuda):
     """S = 1201 (L = 600) is above the warp route's 256 states: the block
