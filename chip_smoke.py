@@ -6,7 +6,9 @@ Builds the port's CUDA kernels from ``kaldi_ctc_tpu_torch/csrc`` (one nvcc
 per source, all started together) and drives the serving path, the
 streaming path and the training step at the full width of the flagship
 model and of its unidirectional variant, each with LSTM and with GRU
-layers, and of the 3x128 BLSTM of recipes/medium and recipes/hard.  Each
+layers, and of the 3x128 BLSTM of recipes/medium and recipes/hard, and
+offline decoding with word output (decode_ctc, nnet_compute, the model
+CLIs and serve --graph) on the flagship.  Each
 phase prints one JSON line; any failed phase exits non-zero with no
 result line:
 
@@ -149,7 +151,33 @@ result line:
    momentum 0.9 and learning rate 1e-3, as in 8: per step K2 1x, K10a 2x,
    K3 1x, K10b 2x and K1 once in f32, K2 3x, K3 3x and K1 once in bf16;
    the eval step K2 1x, K10a 2x (f32) and K11 once; the profiled step
-   gives K10a's and K10b's shares.
+   gives K10a's and K10b's shares;
+26. decode (after the serve and train phases): offline decoding with
+   word output through the port alone.  decode_setup: the native WFST
+   library built by the port's loader into build/native (its path and
+   build seconds; no libctc_native.so may appear in the JAX package), the
+   flagship made by ``init_model`` (seed 0) and a bf16 twin (its
+   model_config.json with compute_dtype bfloat16), ``copy_model`` to an
+   artifact equal to the checkpoint, ``model_info``, 16 utterances of 2-8
+   s of seeded noise as MFCC-hires from the card (K4) written as ark,scp,
+   a word-loop graph (words = labels 1..71) and a seeded lexicon loop of
+   2,000 words of 2-6 labels with unigram costs, both CTC-transformed by
+   the port's NativeFst (states and arcs printed).  Per dtype:
+   ``nnet_compute --what log-post`` on the card against the same on the
+   CPU's plain versions (SCORE_TOL) and ``--what post`` (rows sum to 1
+   within 1e-4); ``decode_ctc`` greedy, beam and wfst (the lexicon graph,
+   --words) on the card, each launching K2, against the plain path (the
+   CPU's log posteriors, ``acoustic_scores`` and the port's decoders on
+   the CPU): in f32 greedy and beam exactly; otherwise equal or, where a
+   hypothesis differs, the two paths' best-path scores within
+   DECODE_COST_RTOL (printed); a line per method and dtype with
+   utterances, audio seconds, wall, RTF and the share of non-empty
+   hypotheses; the prefix beam loop alone on the card (f32).  Then
+   ``serve --graph --words`` (the word loop, as tests/test_serve.py
+   serves it) on the flagship (f32) and the uni LSTM: 4
+   /recognize requests of 2-8 s with words and text (latencies printed),
+   and on the uni LSTM 2 streams whose end words equal their /recognize
+   words.
 
 Every profiled window (a request, a step, a tick) runs its work as the
 profiler's warm-up for 50 ms or more, then a marker kernel, then the
@@ -163,8 +191,9 @@ warp route and every K11 and K12 launch the band route).  Then
 a line ``{"kernels": [...], "launch_floor_ms": ...}`` with each kernel's
 launches during the
 driven paths (serve, train, eval, the separate CTC path, serve_uni with
-its streams, train_uni, the same four for the GRU models, serve_proj and
-train_proj; counts set to 0 before each and read after it),
+its streams, train_uni, the same four for the GRU models, serve_proj,
+train_proj, and decode's decode_ctc runs and served requests; counts set
+to 0 before each and read after it),
 its error, its time beside the plain version's, its bound (the larger of
 its bytes over 3.35 TB/s and its operations over the peak rate of its
 type: 67 TFLOP/s f32, 989 TFLOP/s bf16, H100 SXM data sheet) and the
@@ -2228,7 +2257,7 @@ def get(port, path):
 
 def run_stream(port, audio, barrier, chunk_samples):
     """One client streaming ``audio`` through /stream/start|chunk|end →
-    (labels, chunk latencies in ms)."""
+    (the end's response, chunk latencies in ms, error or None)."""
     barrier.wait()
     status, start, _ = post(port, "/stream/start", b"")
     if status != 200:
@@ -2243,7 +2272,7 @@ def run_stream(port, audio, barrier, chunk_samples):
     status, end, _ = post(port, f"/stream/{slot}/end", b"")
     if status != 200:
         return None, walls, f"end answered {status}"
-    return end["labels"], walls, None
+    return end, walls, None
 
 
 def stream_scores(torch, np, rec, feats, lens_of):
@@ -2361,8 +2390,9 @@ def phase_serve_uni(torch, np, mode=None):
                  f"for {ticks} ticks")
         walls = sorted(w for _, ws, _ in results for w in ws)
         same_labels = sum(
-            int(labels == engine.recognize(a.astype(np.float32))["labels"])
-            for (labels, _, _), a in zip(results, streams))
+            int(end["labels"] == engine.recognize(
+                a.astype(np.float32))["labels"])
+            for (end, _, _), a in zip(results, streams))
 
         if gru and same_labels != STREAMS:
             fail(f"serve_uni GRU: {same_labels} of {STREAMS} streams' "
@@ -2839,6 +2869,391 @@ def driven_routes(launches, served):
                  f"the band route: {res}")
 
 
+# the decode phase: 16 utterances of 2-8 s, a 2,000-word lexicon loop of
+# 2-6 labels a word, decode_ctc's three methods and their tolerance
+DECODE_UTTS, LEX_WORDS = 16, 2000
+# the flagship's hidden units (a CPU rehearsal may set fewer)
+DECODE_HIDDEN = 320
+# where two paths' hypotheses differ, their best-path scores (greedy: the
+# framewise maxima, beam: the prefix score, wfst: the graph cost) agree
+# to this relative difference: a near-tie that the forward's tolerance
+# flips, not a fault
+DECODE_COST_RTOL = 1e-3
+
+
+def run_cli(main, argv):
+    """A CLI's main() in this process → its standard output."""
+    import io
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        main(argv)
+    return buf.getvalue()
+
+
+def lexicon_graph(np, fst_cls, seed):
+    """A seeded lexicon loop of LEX_WORDS words of 2-6 labels (1..71),
+    each word's unigram cost on its first arc, with CTC self-loops and
+    blanks → (graph, words table lines)."""
+    rng = np.random.default_rng(seed)
+    arcs, weights, n = [], [], 1
+    probs = rng.dirichlet(np.ones(LEX_WORDS))
+    for w in range(1, LEX_WORDS + 1):
+        labels = rng.integers(1, 72, int(rng.integers(2, 7)))
+        src = 0
+        for i, lab in enumerate(labels):
+            dst = 0 if i == len(labels) - 1 else n
+            n += dst != 0
+            arcs.append([src, int(lab), w if i == 0 else 0, dst])
+            weights.append(-math.log(probs[w - 1]) if i == 0 else 0.0)
+            src = dst
+    finals = np.full(n, np.inf, np.float32)
+    finals[0] = 0.0
+    lg = fst_cls.from_arrays(0, n, np.asarray(arcs, np.int32),
+                             np.asarray(weights, np.float32), finals)
+    table = ["<eps> 0"] + [f"w{w} {w}" for w in range(1, LEX_WORDS + 1)]
+    return lg.add_self_loops().make_ctc_graph().renumber_bfs(), table
+
+
+def word_loop_graph(np, fst_cls):
+    """The serve tests' word loop: words = labels 1..71, CTC-transformed
+    → (graph, words table lines)."""
+    arcs, weights = [], []
+    for lab in range(1, 72):
+        arcs += [[0, lab, lab, lab], [lab, lab, 0, lab], [lab, 0, 0, 0]]
+        weights += [1.0, 0.0, 0.0]
+    finals = np.full(72, np.inf, np.float32)
+    finals[0] = 0.0
+    base = fst_cls.from_arrays(0, 72, np.asarray(arcs, np.int32),
+                               np.asarray(weights, np.float32), finals)
+    return base.make_ctc_graph(), ["<eps> 0"] + [f"l{i} {i}"
+                                                 for i in range(1, 72)]
+
+
+def plain_decode(torch, np, post, method, graph, table):
+    """decode_ctc's decoding, by the port's decoders on the CPU, over the
+    log posteriors ``post`` (key → [T, A], nnet_compute's output) with
+    decode_ctc's defaults → ({key: hypothesis}, {key: best-path score})."""
+    from kaldi_ctc_tpu_torch.decoding import (acoustic_scores,
+                                              greedy_decode,
+                                              prefix_beam_search)
+    from kaldi_ctc_tpu_torch.decoding.wfst import decode_best_path_batch
+    from kaldi_ctc_tpu_torch.models import default_priors
+
+    keys = sorted(post)
+    lens = torch.as_tensor([post[k].shape[0] for k in keys])
+    x = torch.zeros((len(keys), int(lens.max()), post[keys[0]].shape[1]))
+    for j, k in enumerate(keys):
+        x[j, :post[k].shape[0]] = torch.as_tensor(post[k])
+    scores, skip = acoustic_scores(x, priors=default_priors(x.shape[-1]))
+    hyps, costs = {}, {}
+    if method == "wfst":
+        words_of = dict(line.split()[::-1] for line in table)
+        rows = [scores[j, :lens[j]][~skip[j, :lens[j]]].numpy()
+                for j in range(len(keys))]
+        todo = [j for j in range(len(keys)) if rows[j].shape[0]]
+        out = decode_best_path_batch(graph, [rows[j] for j in todo])
+        for j in range(len(keys)):
+            hyps[keys[j]], costs[keys[j]] = [], 0.0
+        for j, (words, _, cost, ok) in zip(todo, out):
+            hyps[keys[j]] = ([words_of[str(int(w))] for w in words]
+                             if ok else [])
+            costs[keys[j]] = cost
+        return hyps, costs
+    if method == "greedy":
+        labels, n = greedy_decode(scores, lens)
+        mask = torch.arange(x.shape[1])[None] < lens[:, None]
+        best = (scores.max(-1).values * mask).sum(-1)
+    else:
+        labels, n, best = prefix_beam_search(scores, lens)
+    for j, k in enumerate(keys):
+        hyps[k] = [str(int(v)) for v in labels[j, :n[j]]]
+        costs[k] = float(best[j])
+    return hyps, costs
+
+
+def read_hyps(path):
+    with open(path) as f:
+        return {line.split()[0]: line.split()[1:] for line in f}
+
+
+def phase_decode(torch, np, dev):
+    """Offline decoding with word output through the port alone: the
+    native library built by the port's loader, the flagship made by
+    init_model (and a bf16 twin), copy_model and model_info, 16
+    utterances' MFCC-hires from the card written as ark,scp, a word-loop
+    and a 2,000-word lexicon graph, decode_ctc's three methods per dtype
+    against the plain path (nnet_compute's CPU forward and the port's
+    decoders on the CPU), nnet_compute --what post, and serve --graph on
+    the flagship and the uni LSTM → the launch counts of the decode runs
+    and the served requests."""
+    import glob
+    import shutil
+
+    from kaldi_ctc_tpu_torch.cli import (copy_model, decode_ctc, init_model,
+                                         model_info, nnet_compute)
+    from kaldi_ctc_tpu_torch.decoding import wfst
+    from kaldi_ctc_tpu_torch.features import MfccOptions, compute_mfcc
+    from kaldi_ctc_tpu_torch.models.artifact import load_inference_artifact
+    from kaldi_ctc_tpu_torch.params import tree_flatten
+    from kaldi_ctc_tpu_torch.training.checkpoint import restore_params
+    from kaldi_ctc_tpu_torch.utils.kaldi_io import (MatrixWriter,
+                                                    SequentialMatrixReader)
+
+    def jax_libraries():
+        return {p: os.path.getmtime(p) for p in glob.glob(os.path.join(
+            ROOT, "kaldi_ctc_tpu", "**", "libctc_native*.so"),
+            recursive=True)}
+
+    before = jax_libraries()
+    t0 = time.perf_counter()
+    lib = wfst.ensure_built()
+    build_s = time.perf_counter() - t0
+    wfst._load()
+    if os.path.dirname(lib) != os.path.join(ROOT, "build", "native") or \
+            jax_libraries() != before:
+        fail(f"the native library was built at {lib}; in the JAX package: "
+             f"{jax_libraries()} (before: {before})")
+
+    work = os.path.join(ROOT, "build", "smoke", "decode")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    exps = {"float32": os.path.join(work, "exp")}
+    run_cli(init_model.main, [
+        "--dir", exps["float32"], "--input-dim", "40", "--num-targets", "72",
+        "--hidden-dim", str(DECODE_HIDDEN), "--num-layers", "5",
+        "--seed", "0"])
+    exps["bfloat16"] = os.path.join(work, "exp_bf16")
+    shutil.copytree(exps["float32"], exps["bfloat16"])
+    cfg_path = os.path.join(exps["bfloat16"], "model_config.json")
+    with open(cfg_path) as f:
+        cfg = json.load(f)
+    with open(cfg_path, "w") as f:
+        json.dump({**cfg, "compute_dtype": "bfloat16"}, f)
+    artifact = os.path.join(work, "final.npz")
+    run_cli(copy_model.main, ["--dir", exps["float32"], "--output", artifact])
+    info = json.loads(run_cli(model_info.main, ["--dir", exps["float32"]]))
+    a_params, a_cfg, a_priors = load_inference_artifact(artifact)
+    c_params, _ = restore_params(os.path.join(exps["float32"],
+                                              "checkpoints"), a_cfg)
+    if not all(torch.equal(a, c) for a, c in zip(
+            tree_flatten(a_params), tree_flatten(c_params))) or \
+            a_priors is None or info["num_parameters"] != sum(
+                int(t.numel()) for t in tree_flatten(a_params)):
+        fail(f"copy_model's artifact differs from its checkpoint: {info}")
+
+    # 16 utterances of 2-8 s: MFCC-hires on the card (K4), ark,scp
+    secs = [2.0 + 6.0 * i / (DECODE_UTTS - 1) for i in range(DECODE_UTTS)]
+    feats_spec = (f"ark,scp:{work}/feats.ark,{work}/feats.scp")
+    frames = 0
+    with MatrixWriter(feats_spec) as w:
+        for i, s in enumerate(secs):
+            wave = torch.as_tensor(pcm(s, 60 + i, np).astype(np.float32),
+                                   device=dev)
+            f = compute_mfcc(wave, MfccOptions.hires()).cpu().numpy()
+            w[f"utt{i:02d}"] = f
+            frames += f.shape[0]
+    audio_s = frames * 0.01
+
+    graphs = {}
+    for name, (g, table) in (
+            ("word_loop", word_loop_graph(np, wfst.NativeFst)),
+            ("lexicon", lexicon_graph(np, wfst.NativeFst, 70))):
+        path = os.path.join(work, f"{name}.fst")
+        g.write(path)
+        with open(path + ".words.txt", "w") as f:
+            f.write("\n".join(table) + "\n")
+        graphs[name] = (g, path, table)
+    emit({"phase": "decode_setup", "native_library": os.path.relpath(
+              lib, ROOT), "native_build_s": round(build_s, 3),
+          "model": f"5x{DECODE_HIDDEN} BLSTM, 40-dim MFCC-hires, 72 "
+                   "targets (init_model --seed 0)",
+          "model_info": {k: info[k] for k in ("num_parameters",
+                                              "parameter_norm",
+                                              "checkpoint_step")},
+          "utterances": DECODE_UTTS, "frames": frames,
+          "audio_seconds": round(audio_s, 3),
+          "graphs": {k: {"states": g.num_states, "arcs": g.num_arcs}
+                     for k, (g, _, _) in graphs.items()}})
+
+    launches = collections.Counter()
+    lex, lex_path, lex_table = graphs["lexicon"]
+    for dtype in DTYPES:
+        exp = exps[dtype]
+        post = {}
+        for device in ("cpu", dev.type):
+            out = os.path.join(work, f"post_{device}_{dtype}")
+            run_cli(nnet_compute.main, [
+                "--feats", f"scp:{work}/feats.scp", "--dir", exp,
+                "--what", "log-post", "--device", device,
+                "--output", f"ark:{out}.ark"])
+            post[device] = dict(SequentialMatrixReader(f"ark:{out}.ark"))
+        post["kernels"] = post[dev.type]
+        err = max(float(np.abs(post["kernels"][k] - post["cpu"][k]).max())
+                  for k in post["cpu"])
+        # nnet_compute --what post on the card: rows sum to 1
+        out = os.path.join(work, f"post_{dtype}")
+        run_cli(nnet_compute.main, [
+            "--feats", f"scp:{work}/feats.scp", "--dir", exp,
+            "--what", "post", "--device", dev.type,
+            "--output", f"ark:{out}.ark"])
+        probs = dict(SequentialMatrixReader(f"ark:{out}.ark"))
+        row_err = max(float(np.abs(p.sum(-1) - 1.0).max())
+                      for p in probs.values())
+        log_err = max(float(np.abs(np.log(np.maximum(probs[k], 1e-30))
+                                   - post["kernels"][k]).max())
+                      for k in probs)
+        res = {"phase": "nnet_compute", "dtype": dtype,
+               "max_abs_log_post_err_vs_cpu_plain": err,
+               "score_tol": SCORE_TOL[dtype], "post_row_sum_err": row_err,
+               "max_abs_log_of_post_err": log_err}
+        emit(res)
+        if err > SCORE_TOL[dtype] or row_err > 1e-4 or log_err > \
+                SCORE_TOL[dtype]:
+            fail(f"nnet_compute disagrees: {res}")
+
+        for method in ("greedy", "beam", "wfst"):
+            plain, plain_cost = plain_decode(torch, np, post["cpu"], method,
+                                             lex, lex_table)
+            _, kern_cost = plain_decode(torch, np, post["kernels"], method,
+                                        lex, lex_table)
+            refs = os.path.join(work, f"refs_{method}_{dtype}.txt")
+            with open(refs, "w") as f:
+                f.writelines(f"{k} {' '.join(v)}\n" for k, v in
+                             sorted(plain.items()))
+            hyp_path = os.path.join(work, f"hyp_{method}_{dtype}.txt")
+            argv = ["--feats", f"scp:{work}/feats.scp", "--dir", exp,
+                    "--method", method, "--text", refs, "--output", hyp_path,
+                    "--device", dev.type]
+            if method == "wfst":
+                argv += ["--graph", lex_path, "--words",
+                         lex_path + ".words.txt"]
+            before = read_counts()
+            t1 = time.perf_counter()
+            line = run_cli(decode_ctc.main, argv)
+            wall = time.perf_counter() - t1
+            after = read_counts()
+            for name in after:
+                launches[name] += after[name] - before[name]
+            score = json.loads(line.strip().splitlines()[-1])
+            hyps = read_hyps(hyp_path)
+            differ = sorted(k for k in plain if hyps.get(k) != plain[k])
+            far = [k for k in differ if abs(kern_cost[k] - plain_cost[k])
+                   > DECODE_COST_RTOL * abs(plain_cost[k])]
+            res = {"phase": "decode", "method": method, "dtype": dtype,
+                   "utterances": len(hyps), "audio_seconds": round(
+                       audio_s, 3), "wall_s": round(wall, 4),
+                   "rtf": score["rtf"], "k2_launches":
+                       after["bilstm_fwd"] - before["bilstm_fwd"],
+                   "nonempty_share": sum(1 for v in hyps.values() if v)
+                   / len(hyps),
+                   "mean_hyp_len": sum(len(v) for v in hyps.values())
+                   / len(hyps),
+                   "differ_from_plain": len(differ),
+                   "label_error_rate_vs_plain": score["label_error_rate"],
+                   "max_cost_rel_diff": max(
+                       [abs(kern_cost[k] - plain_cost[k])
+                        / max(abs(plain_cost[k]), 1e-30) for k in differ],
+                       default=0.0)}
+            if method == "wfst":
+                res["graph"] = "lexicon"
+            emit(res)
+            if len(hyps) != DECODE_UTTS or res["k2_launches"] < 5:
+                fail(f"decode_ctc did not run the kernel path: {res}")
+            exact = method != "wfst" and dtype == "float32"
+            if (differ and exact) or far:
+                fail(f"decode_ctc's hypotheses disagree with the plain "
+                     f"path: {res}; {differ[:4]}")
+        if dtype == "float32":
+            # the prefix beam loop alone on the card, on the kernel scores
+            from kaldi_ctc_tpu_torch.decoding import (acoustic_scores,
+                                                      prefix_beam_search)
+            keys = sorted(post["kernels"])
+            lens = torch.as_tensor([post["kernels"][k].shape[0]
+                                    for k in keys], device=dev)
+            x = torch.zeros((len(keys), int(lens.max()), 72), device=dev)
+            for j, k in enumerate(keys):
+                x[j, :lens[j]] = torch.as_tensor(post["kernels"][k])
+            sc, _ = acoustic_scores(x, priors=a_priors)
+            sync(torch, dev)
+            t1 = time.perf_counter()
+            prefix_beam_search(sc, lens)
+            sync(torch, dev)
+            emit({"phase": "prefix_beam_loop", "dtype": dtype,
+                  "frames_max": int(lens.max()), "batch": len(keys),
+                  "wall_s": round(time.perf_counter() - t1, 4)})
+    launches.update(serve_graph(torch, np, dev, work, exps["float32"],
+                                graphs["word_loop"][1]))
+    return launches
+
+
+def sync(torch, dev):
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def serve_graph(torch, np, dev, work, flagship, graph):
+    """serve --graph --words (the word loop) on the flagship (f32) and the
+    uni LSTM: 4
+    /recognize requests with words and text, and on the uni LSTM 2 streams
+    whose end words equal their /recognize words → the launch counts of
+    the served requests and streams."""
+    from kaldi_ctc_tpu_torch.cli import init_model, serve
+
+    uni = os.path.join(work, "exp_uni")
+    run_cli(init_model.main, [
+        "--dir", uni, "--input-dim", "40", "--num-targets", "72",
+        "--hidden-dim", str(DECODE_HIDDEN), "--num-layers", "5",
+        "--bidirectional", "0"])
+    launches = collections.Counter()
+    audio = [pcm(s, 80 + i, np) for i, s in enumerate((2.0, 4.0, 6.0, 8.0))]
+    for tag, exp in (("flagship", flagship), ("uni", uni)):
+        server, _ = serve.make_server(serve.parse_args(
+            ["--dir", exp, "--device", dev.type, "--port", "0", "--graph",
+             graph, "--words", graph + ".words.txt", "--max-streams", "2"]))
+        thread = threading.Thread(target=server.serve_forever, daemon=True)
+        thread.start()
+        port = server.server_address[1]
+        try:
+            status, _, _ = post(port, "/recognize", pcm(1.0, 9, np).tobytes())
+            if status != 200:
+                fail(f"serve --graph warm-up answered {status}")
+            reset_counts()
+            walls, words = [], []
+            for x in audio:
+                status, data, wall = post(port, "/recognize", x.tobytes())
+                walls.append(round(wall * 1000, 3))
+                words.append(data.get("words"))
+                if status != 200 or "text" not in data or len(
+                        data["text"].split()) != len(data["words"]):
+                    fail(f"serve --graph /recognize ({tag}): {status} "
+                         f"{str(data)[:300]}")
+            ends = []
+            if tag == "uni":
+                for x in audio[:2]:
+                    end, _, err = run_stream(port, x, threading.Barrier(1),
+                                             3200)
+                    if err:
+                        fail(f"serve --graph stream: {err}")
+                    ends.append(end.get("words"))
+                if ends != words[:2]:
+                    fail(f"serve --graph: stream end words {ends} differ "
+                         f"from /recognize's {words[:2]}")
+            counts = read_counts()
+        finally:
+            server.shutdown()
+            server.server_close()
+            thread.join(timeout=30)
+        launches.update(counts)
+        emit({"phase": "serve_graph", "model": tag, "dtype": "float32",
+              "request_seconds": [2.0, 4.0, 6.0, 8.0],
+              "latency_ms": walls,
+              "words_per_request": [len(w) for w in words],
+              "streams_equal_to_recognize_words": len(ends),
+              "launches": {k: v for k, v in counts.items()
+                           if v and "." not in k}})
+    return launches
+
+
 def main():
     if not os.path.exists(os.path.join(ROOT, "kaldi_ctc_tpu_torch", "csrc",
                                        "bilstm_fwd.cu")):
@@ -2876,15 +3291,16 @@ def main():
                                   mode=RnnMode.GRU)
     served_proj, _ = phase_serve(torch, np, proj=True)
     trained_proj = phase_train(torch, np, dev, proj=True)
+    decoded = phase_decode(torch, np, dev)
     launches = collections.Counter(launches)
     for counts in (served, trained, served_uni, trained_uni, served_gru,
                    trained_gru, served_gru_uni, trained_gru_uni, served_proj,
-                   trained_proj):
+                   trained_proj, decoded):
         launches.update(counts)
     if min(launches[name] for name in KERNELS) < 1:
         fail(f"a kernel of the driven paths never launched: {launches}")
     driven_routes(launches, (served, served_uni, served_gru, served_gru_uni,
-                             served_proj))
+                             served_proj, decoded))
     phase_profile(torch, np, engines)
     phase_profile_stream(torch, np, uni_engines)
     phase_profile(torch, np, gru_engines, "bigru_fwd")

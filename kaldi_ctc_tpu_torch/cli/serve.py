@@ -9,19 +9,26 @@ extracted on the device (MFCC-hires or fbank), and the acoustic model and
 the score preparation run there.
 
   POST /recognize            body = WAV or raw s16le PCM
-                             → {"labels": [...], "num_frames": N, "rtf": ...}
+                             → {"labels": [...], "words": [...]?,
+                                "text": "..."?, "num_frames": N, "rtf": ...}
   GET  /healthz              → {"ok": true, "streaming": <unidirectional>}
   POST /stream/start         → {"slot": k}; 400 for a bidirectional model,
                                503 when every slot is taken
   POST /stream/<k>/chunk     body = raw s16le PCM → {"labels": [new...]}
-  POST /stream/<k>/end       → {"labels": [all...], "new": [...]}
+  POST /stream/<k>/end       → {"labels": [all...], "new": [...],
+                                "words": [...]?, "text": "..."?}
                                (404 for a slot that is not open)
 
-Word output through the WFST decoder (``--graph``) is not ported yet
-(ROADMAP.md item 7).
+With ``--graph`` (a CTC TLG graph) /recognize and /stream end add the
+best path's words through the native WFST decoder on the host
+(``decoding/wfst.py``), and "text" with a ``--words`` table; a stream
+keeps its features while a graph is loaded and decodes them whole at its
+end (for a unidirectional model the offline forward equals the chunked
+one).
 
 Run:  python -m kaldi_ctc_tpu_torch.cli.serve --model final.npz \\
-          --device cuda --port 8057
+          [--graph TLG.fst --words TLG.fst.words.txt] --device cuda \\
+          --port 8057
 """
 
 from __future__ import annotations
@@ -38,6 +45,8 @@ from typing import Dict, List, Optional
 
 import numpy as np
 import torch
+
+from kaldi_ctc_tpu_torch.cli.common import resolve_device
 
 
 def parse_args(argv=None):
@@ -57,13 +66,16 @@ def parse_args(argv=None):
     p.add_argument("--feat-config", choices=["default", "hires"],
                    default="hires")
     p.add_argument("--cmvn", default=None,
-                   help="global CMVN stats as a .npy [2, D+1] array")
+                   help="global CMVN stats matrix (ark with one key "
+                        "'global' or a .npy [2, D+1] stats array)")
     p.add_argument("--graph", default=None,
-                   help="CTC TLG graph for word output (not ported yet: "
-                        "raises)")
+                   help="CTC TLG graph for word output on /recognize "
+                        "and /stream end")
+    p.add_argument("--words", default=None, help="words.txt for --graph")
     p.add_argument("--use-priors", type=int, default=1)
     p.add_argument("--acoustic-scale", type=float, default=1.0)
     p.add_argument("--blank-threshold", type=float, default=0.98)
+    p.add_argument("--beam", type=float, default=16.0)
     p.add_argument("--max-streams", type=int, default=8,
                    help="streaming slot count")
     p.add_argument("--chunk-frames", type=int, default=20,
@@ -88,17 +100,6 @@ def _pcm_from_body(body: bytes, default_rate: float):
     return pcm, default_rate
 
 
-def resolve_device(name: str) -> torch.device:
-    """The engine's device; asking for CUDA where there is none raises
-    rather than serving on the CPU."""
-    device = torch.device(name)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(f"serve: --device {name} but no CUDA device is "
-                           "available (pass --device cpu to serve on the "
-                           "CPU)")
-    return device
-
-
 class Engine:
     """Owns the model, the feature extractor and the streaming slots on
     one device."""
@@ -111,9 +112,6 @@ class Engine:
         from kaldi_ctc_tpu_torch.models.artifact import load_acoustic_model
 
         self.args = args
-        if args.graph:
-            raise NotImplementedError("WFST word output: ROADMAP.md item 7 "
-                                      "(--graph is not ported yet)")
         self.device = resolve_device(args.device)
         try:
             self.params, self.cfg, self.priors, _ = load_acoustic_model(
@@ -143,11 +141,24 @@ class Engine:
 
         self.cmvn_stats = None
         if args.cmvn:
-            if not args.cmvn.endswith(".npy"):
-                raise NotImplementedError(
-                    "serve: --cmvn from a Kaldi archive needs utils/kaldi_io "
-                    "(ROADMAP.md item 8); pass a .npy [2, D+1] stats array")
-            self.cmvn_stats = np.load(args.cmvn)
+            if args.cmvn.endswith(".npy"):
+                self.cmvn_stats = np.load(args.cmvn)
+            else:
+                from kaldi_ctc_tpu_torch.utils.kaldi_io import (
+                    SequentialMatrixReader)
+                for _, m in SequentialMatrixReader(args.cmvn):
+                    self.cmvn_stats = np.asarray(m)
+                    break
+
+        self.graph = None
+        self.word_syms = None
+        if args.graph:
+            from kaldi_ctc_tpu_torch.decoding.wfst import NativeFst
+            self.graph = NativeFst.load(args.graph)
+            if args.words:
+                from kaldi_ctc_tpu_torch.utils.kaldi_io import \
+                    read_symbol_table
+                self.word_syms = read_symbol_table(args.words)
         # reentrant: ThreadingHTTPServer serves slots concurrently, and
         # _drain takes the lock inside stream_chunk's
         self.lock = threading.RLock()
@@ -220,7 +231,7 @@ class Engine:
                 return {"labels": [], "num_frames": 0}
             # forward + score prep (CtcDecodableAmNnet semantics) and the
             # unforced scores the greedy labels come from
-            _scores, _skip, raw = self.score_utt(feats)
+            scores, skip, raw = self.score_utt(feats)
         out: dict = {"num_frames": int(feats.shape[0])}
         ids = np.argmax(raw, axis=-1)
         labels = []
@@ -230,8 +241,24 @@ class Engine:
                 labels.append(int(lab))
             last = int(lab)
         out["labels"] = labels
+        if self.graph is not None:
+            out.update(self._wfst_words(scores, skip))
         dur = feats.shape[0] * self.shift / self.args.sample_rate
         out["rtf"] = round((time.time() - t0) / max(dur, 1e-9), 4)
+        return out
+
+    def _wfst_words(self, scores: np.ndarray, skip: np.ndarray) -> dict:
+        """Native WFST best-path over prepared acoustic scores →
+        {"words": [...]} (+ "text" with a symbol table)."""
+        from kaldi_ctc_tpu_torch.decoding.wfst import decode_best_path
+        keep = scores[~skip]
+        use = keep if keep.shape[0] else scores
+        words, _align, _cost, _final = decode_best_path(
+            self.graph, use, beam=self.args.beam)
+        out = {"words": [int(w) for w in words]}
+        if self.word_syms:
+            out["text"] = " ".join(
+                self.word_syms.get(int(w), str(int(w))) for w in words)
         return out
 
     # ---- streaming ----
@@ -250,6 +277,7 @@ class Engine:
                                 "buf_off": 0,
                                 "frames_done": 0,
                                 "ready": [],
+                                "hist": [],
                                 "pending": np.zeros(
                                     (0, self.cfg.input_dim), np.float32)}
         return slot
@@ -285,8 +313,12 @@ class Engine:
         with self.lock:
             st = self.slots[slot]
             st["buf"] = np.concatenate([st["buf"], samples])
-            st["pending"] = np.concatenate([st["pending"],
-                                            self._new_frames(st)])
+            frames = self._new_frames(st)
+            if self.graph is not None and frames.shape[0]:
+                # keep the feature history for the WFST word decode at
+                # stream end (~16 KB per audio-second at 40 dims)
+                st["hist"].append(frames)
+            st["pending"] = np.concatenate([st["pending"], frames])
             return self._drain(slot)
 
     def _drain(self, slot: int, flush: bool = False) -> List[int]:
@@ -330,9 +362,18 @@ class Engine:
         with self.lock:
             new = self._drain(slot, flush=True)
             labels = self.stream.finalize(slot)
+            hist = self.slots[slot]["hist"]
             del self.slots[slot]
             self.free.append(slot)
-        return {"labels": labels, "new": new}
+            out = {"labels": labels, "new": new}
+            if self.graph is not None and hist:
+                # WFST word decode over the whole stream's features (the
+                # /stream end "text" contract)
+                feats = torch.as_tensor(np.concatenate(hist),
+                                        device=self.device)
+                sc, skip, _raw = self.score_utt(feats)
+                out.update(self._wfst_words(sc, skip))
+        return out
 
 
 def make_handler(engine: Engine):

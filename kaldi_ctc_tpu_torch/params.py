@@ -51,7 +51,10 @@ def tree_unflatten(template: Any, leaves: List[Any]) -> Any:
             filled = {k: build(node[k]) for k in sorted(node)}
             return {k: filled[k] for k in node}
         if _is_seq(node):
-            return type(node)(build(v) for v in node)
+            values = [build(v) for v in node]
+            # a NamedTuple (TrainState) takes its fields as arguments
+            return (type(node)(*values) if hasattr(node, "_fields")
+                    else type(node)(values))
         return next(it)
 
     return build(template)

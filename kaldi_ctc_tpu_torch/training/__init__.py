@@ -1,4 +1,4 @@
-"""Training step, optimizer semantics, checkpoint reading (counterpart of
+"""Training step, optimizer semantics, checkpointing (counterpart of
 kaldi_ctc_tpu/training)."""
 
 from kaldi_ctc_tpu_torch.training.train import (  # noqa: F401

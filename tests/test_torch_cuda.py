@@ -2773,6 +2773,101 @@ def test_stream_tick_of_200_slots_takes_the_per_layer_route(cuda, tmp_path):
                                        atol=1e-4)
 
 
+def _decode_exp(tmp_path, dtype):
+    """A port init_model directory (8-dim input, 6 targets, 2x32 BLSTM,
+    weights large enough for clear frame decisions) in ``dtype``, 6
+    utterances of <= 60 frames and a word-loop CTC graph (words = labels
+    1..5)."""
+    import json
+
+    from kaldi_ctc_tpu_torch.cli import init_model
+    from kaldi_ctc_tpu_torch.decoding.wfst import NativeFst
+    from kaldi_ctc_tpu_torch.utils.kaldi_io import MatrixWriter
+
+    exp = str(tmp_path / "exp")
+    init_model.main(["--dir", exp, "--input-dim", "8", "--num-targets", "6",
+                     "--hidden-dim", "32", "--num-layers", "2",
+                     "--param-stddev", "0.5"])
+    cfg_path = os.path.join(exp, "model_config.json")
+    with open(cfg_path) as f:
+        cfg = json.load(f)
+    cfg["compute_dtype"] = dtype
+    with open(cfg_path, "w") as f:
+        json.dump(cfg, f)
+    rng = np.random.default_rng(21)
+    with MatrixWriter(f"ark:{tmp_path}/feats.ark") as w:
+        for i in range(6):
+            w[f"u{i}"] = rng.standard_normal(
+                (int(rng.integers(20, 61)), 8)).astype(np.float32) * 2.0
+    arcs, weights = [], []
+    for lab in range(1, 6):
+        arcs += [[0, lab, lab, lab], [lab, lab, 0, lab], [lab, 0, 0, 0]]
+        weights += [1.0, 0.0, 0.0]
+    finals = np.full(6, np.inf, np.float32)
+    finals[0] = 0.0
+    graph = str(tmp_path / "ctc.fst")
+    NativeFst.from_arrays(0, 6, np.asarray(arcs, np.int32),
+                          np.asarray(weights, np.float32),
+                          finals).make_ctc_graph().write(graph)
+    return exp, f"ark:{tmp_path}/feats.ark", graph
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("method", ["greedy", "beam", "wfst"])
+def test_decode_ctc_on_cuda_equals_cpu(cuda, method, dtype, tmp_path):
+    """decode_ctc on the card (K2 per layer, greedy and beam on the card)
+    prints the hypotheses of the same call on the CPU's plain versions."""
+    from kaldi_ctc_tpu_torch.cli import decode_ctc
+
+    exp, feats, graph = _decode_exp(tmp_path, dtype)
+    flags = ["--feats", feats, "--dir", exp, "--method", method,
+             "--use-priors", "0", "--minibatch-size", "4"]
+    if method == "wfst":
+        flags += ["--graph", graph]
+    out = {}
+    for device in ("cuda", "cpu"):
+        path = str(tmp_path / f"{device}.txt")
+        k2 = rnn_cuda.bilstm_seq_fwd.launches
+        decode_ctc.main(flags + ["--device", device, "--output", path])
+        if device == "cuda":
+            assert rnn_cuda.bilstm_seq_fwd.launches - k2 == 2 * 2
+        with open(path) as f:
+            out[device] = f.read()
+    assert out["cuda"] == out["cpu"]
+    assert sum(1 for line in out["cpu"].splitlines()
+               if len(line.split()) > 1) >= 4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ties", [False, True])
+def test_prefix_beam_on_cuda_equals_cpu(cuda, ties):
+    """prefix_beam_search on CUDA scores equals it on the same scores on
+    the CPU: labels and lengths exact, scores within 1e-5 (the same f32
+    steps on two devices); tie-heavy scores hold the stable top-k."""
+    from kaldi_ctc_tpu_torch.decoding import prefix_beam_search
+
+    rng = np.random.default_rng(22)
+    x = rng.standard_normal((5, 80, 12)).astype(np.float32) * 2.0
+    lp = x - np.log(np.exp(x).sum(-1, keepdims=True))
+    if ties:
+        lp = np.round(lp * 2.0) / 2.0
+    lp = torch.as_tensor(lp)
+    lens = torch.as_tensor([80, 61, 0, 1, 33], dtype=torch.int32)
+    for beam, max_len in ((8, 0), (4, 10)):
+        want = prefix_beam_search(lp, lens, beam=beam, max_len=max_len)
+        got = prefix_beam_search(lp.to(cuda), lens.to(cuda), beam=beam,
+                                 max_len=max_len)
+        assert all(g.device.type == "cuda" for g in got)
+        np.testing.assert_array_equal(got[1].cpu().numpy(),
+                                      want[1].numpy())
+        for j, n in enumerate(want[1].tolist()):
+            np.testing.assert_array_equal(got[0][j, :n].cpu().numpy(),
+                                          want[0][j, :n].numpy())
+        np.testing.assert_allclose(got[2].cpu().numpy(), want[2].numpy(),
+                                   rtol=0, atol=1e-5)
+
+
 @pytest.fixture
 def fake_build(tmp_path, monkeypatch):
     """_kernels with its source and build directories in tmp_path and a

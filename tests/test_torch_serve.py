@@ -226,9 +226,11 @@ def test_engine_options(tmp_path):
     # gets no streaming slots
     assert (eng.args.max_streams, eng.args.chunk_frames) == (8, 20)
     assert eng.stream is None and eng.stream_start() is None
-    with pytest.raises(NotImplementedError, match="item 7"):
+    # --graph loads through the port's native loader: a missing graph
+    # file raises its error (tests/test_torch_cli.py decodes words)
+    with pytest.raises(IOError):
         tserve.Engine(tserve.parse_args(["--dir", exp, "--device", "cpu",
-                                         "--graph", "TLG.fst"]))
+                                         "--graph", str(tmp_path / "no.fst")]))
     # a global CMVN .npy is applied on the engine's device
     x = _pcm(0.5, seed=2).astype(np.float32)
     stats_path = str(tmp_path / "cmvn.npy")
@@ -237,15 +239,23 @@ def test_engine_options(tmp_path):
         ["--dir", exp, "--device", "cpu", "--sample-rate", "8000",
          "--cmvn", stats_path]))
     assert abs(float(eng_c.feats_for(x).mean(0).abs().max())) < 1e-3
+    # the same stats from a Kaldi archive (its first matrix)
+    from kaldi_ctc_tpu_torch.utils.kaldi_io import MatrixWriter
+    with MatrixWriter(f"ark:{tmp_path}/cmvn.ark") as w:
+        w["global"] = np.load(stats_path)
+    eng_a = tserve.Engine(tserve.parse_args(
+        ["--dir", exp, "--device", "cpu", "--sample-rate", "8000",
+         "--cmvn", f"ark:{tmp_path}/cmvn.ark"]))
+    assert torch.equal(eng_a.feats_for(x), eng_c.feats_for(x))
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             tserve.Engine(tserve.parse_args(["--dir", exp]))
 
 
 def test_port_imports_without_jax(tmp_path):
-    """In a fresh interpreter the port and its serve CLI load no jax and
-    no kaldi_ctc_tpu (a subprocess: this test process has jax loaded by
-    tests/conftest.py)."""
+    """In a fresh interpreter the port, its CLIs and its native loader
+    (with the library loaded) load no jax and no kaldi_ctc_tpu (a
+    subprocess: this test process has jax loaded by tests/conftest.py)."""
     code = (
         "import sys\n"
         "import kaldi_ctc_tpu_torch, kaldi_ctc_tpu_torch.cli.serve\n"
@@ -260,10 +270,23 @@ def test_port_imports_without_jax(tmp_path):
         "import kaldi_ctc_tpu_torch.ops.gru_cuda\n"
         "import kaldi_ctc_tpu_torch.ops.ctc, kaldi_ctc_tpu_torch.ops.ctc_cuda\n"
         "import kaldi_ctc_tpu_torch.training.train\n"
+        "import kaldi_ctc_tpu_torch.utils.kaldi_io, kaldi_ctc_tpu_torch.data\n"
+        "import kaldi_ctc_tpu_torch.data.egs_io\n"
+        "import kaldi_ctc_tpu_torch.utils.transition_model\n"
+        "import kaldi_ctc_tpu_torch.utils.profiling\n"
+        "import kaldi_ctc_tpu_torch.decoding.wfst\n"
+        "import kaldi_ctc_tpu_torch.decoding.greedy\n"
+        "import kaldi_ctc_tpu_torch.decoding.prefix_beam\n"
+        "from kaldi_ctc_tpu_torch.cli import (decode_ctc, nnet_compute,"
+        " init_model, copy_model, average_models, model_info)\n"
+        "kaldi_ctc_tpu_torch.decoding.wfst._load()\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'kaldi_ctc_tpu')]\n"
         "assert not bad, bad\n"
         "assert kaldi_ctc_tpu_torch.cli.serve.parse_args([]).device "
+        "== 'cuda'\n"
+        "assert decode_ctc.parse_args(['--feats', 'x']).device == 'cuda'\n"
+        "assert nnet_compute.parse_args(['--output', 'x']).device "
         "== 'cuda'\n"
         "print('ok')\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
