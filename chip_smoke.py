@@ -8,7 +8,9 @@ streaming path and the training step at the full width of the flagship
 model and of its unidirectional variant, each with LSTM and with GRU
 layers, and of the 3x128 BLSTM of recipes/medium and recipes/hard, and
 offline decoding with word output (decode_ctc, nnet_compute, the model
-CLIs and serve --graph) on the flagship.  Each
+CLIs and serve --graph) on the flagship, and the training drive from WAV
+files to a trained flagship (compute_feats, prepare_egs, train_ctc,
+compute_prob, adjust_priors, decode_ctc, decode_stream).  Each
 phase prints one JSON line; any failed phase exits non-zero with no
 result line:
 
@@ -178,6 +180,29 @@ result line:
    /recognize requests of 2-8 s with words and text (latencies printed),
    and on the uni LSTM 2 streams whose end words equal their /recognize
    words.
+27. pipeline (after decode): features → egs → a trained model through
+   the port's CLIs on the card.  144 seeded utterances of 2-8 s written as
+   WAV files of 12 speakers; ``compute_feats --type mfcc --config hires``
+   (K4 once per utterance, fft route), its archive equal to the kernel's
+   features and the kernel's log-mel within K4_TOL of the plain version on
+   4 utterances; ``compute_cmvn`` per speaker; seeded pdf alignments over
+   71 ids; ``prepare_egs get`` (96 train, 48 valid) and ``info``;
+   ``train_ctc`` on the flagship (5x320 BLSTM, 72 targets, minibatch 48,
+   5 epochs of 2 steps, cv at step 10) in f32 and bf16: K2 5x, K3 5x and
+   K1 once a step and K2 5x and K11 once in cv, the first step's loss per
+   frame and grad norm against one step of the plain versions from the
+   same initial parameters on the same first batch (TRAIN_TOL), steps/s,
+   audio-s/s and the steps' share of the wall from metrics.jsonl; the f32
+   run once more under torch.profiler (the device's busy and the host's
+   share of the wall); ``compute_prob`` on the valid egs (K11) and
+   ``adjust_priors --feats`` (K2) against the same CLIs on the plain
+   versions; ``decode_ctc --method greedy --use-priors 1`` on the trained
+   model; ``init_model`` of the uni LSTM 5x320 and ``decode_stream`` of 16
+   utterances in chunks of 50 frames (K7 once a chunk, with k7_plan's route
+   at B=1) equal to that model's offline greedy ``decode_ctc`` (K5); then
+   one summary line (feature RTF, train_ctc's steps/s and audio-s/s, the
+   compute_prob loss, the decode_stream RTF, K7's route) with the card's
+   name and power limit.
 
 Every profiled window (a request, a step, a tick) runs its work as the
 profiler's warm-up for 50 ms or more, then a marker kernel, then the
@@ -192,8 +217,8 @@ a line ``{"kernels": [...], "launch_floor_ms": ...}`` with each kernel's
 launches during the
 driven paths (serve, train, eval, the separate CTC path, serve_uni with
 its streams, train_uni, the same four for the GRU models, serve_proj,
-train_proj, and decode's decode_ctc runs and served requests; counts set
-to 0 before each and read after it),
+train_proj, decode's decode_ctc runs and served requests, and the
+pipeline's CLI runs; counts set to 0 before each and read after it),
 its error, its time beside the plain version's, its bound (the larger of
 its bytes over 3.35 TB/s and its operations over the peak rate of its
 type: 67 TFLOP/s f32, 989 TFLOP/s bf16, H100 SXM data sheet) and the
@@ -3186,6 +3211,383 @@ def phase_decode(torch, np, dev):
     return launches
 
 
+# the pipeline phase: 144 utterances of 2-8 s (96 train, 48 valid), pdf
+# alignments over 71 ids in runs of 9-16 frames (at most 89 labels in
+# 798 frames: the label bucket 93, S = 187, within K1's warp and K11's
+# band routes), train_ctc's flagship defaults for 5 epochs of 2 steps,
+# the streamed utterances and decode_stream's chunk
+PIPE_UTTS, PIPE_TRAIN, PIPE_STREAMS, PIPE_CHUNK = 144, 96, 16, 50
+PIPE_SECONDS, PIPE_RUN = (2.0, 8.0), (9, 17)
+# the flagship's width, train_ctc's defaults (a CPU rehearsal may set less)
+PIPE_HIDDEN, PIPE_LAYERS = 320, 5
+# compute_prob's loss and adjust_priors' priors against the same CLI on
+# the plain versions: f32 sums in another order
+PIPE_PROB_RTOL, PIPE_PRIOR_ATOL = 1e-5, 1e-5
+
+
+def write_wav(path, samples):
+    import wave
+    with wave.open(path, "wb") as w:
+        w.setnchannels(1)
+        w.setsampwidth(2)
+        w.setframerate(16000)
+        w.writeframes(samples.tobytes())
+
+
+def cli_counts(main, argv):
+    """A CLI's main() → (its standard output, the kernel launches it
+    made, its wall seconds)."""
+    before = read_counts()
+    t0 = time.perf_counter()
+    out = run_cli(main, argv)
+    wall = time.perf_counter() - t0
+    after = read_counts()
+    return out, collections.Counter(
+        {k: after[k] - before.get(k, 0) for k in after}), wall
+
+
+def plain_cli(main, argv):
+    """A CLI's main() on the plain versions → (its standard output, the
+    kernel launches it made: none, unless a wrapper escaped the swap)."""
+    before = read_counts()
+    with plain_versions():
+        out = run_cli(main, argv)
+    return out, sum(v - before.get(k, 0) for k, v in read_counts().items())
+
+
+def train_records(exp):
+    with open(os.path.join(exp, "metrics.jsonl")) as f:
+        return [json.loads(line) for line in f]
+
+
+def phase_pipeline(torch, np, dev, smi):
+    """Features → egs → a trained flagship → eval, priors and decodes,
+    through the port's CLIs on the card: compute_feats (K4 per
+    utterance), compute_cmvn, prepare_egs get and info, train_ctc in f32
+    and bf16 (K2, K3, K1 each step, K11 in cv; the first step against the
+    plain versions), a profiled f32 train_ctc (device and host shares),
+    compute_prob (K11) and adjust_priors --feats (K2) against the same
+    CLIs on the plain versions, decode_ctc greedy with priors, and
+    decode_stream on a uni LSTM (K7 per chunk) against that model's
+    offline greedy decode → the launch counts of the CLI runs."""
+    import shutil
+
+    from torch.profiler import DeviceType, ProfilerActivity, profile
+
+    from kaldi_ctc_tpu_torch.cli import (adjust_priors, compute_cmvn,
+                                         compute_feats, compute_prob,
+                                         decode_ctc, decode_stream,
+                                         init_model, prepare_egs, train_ctc)
+    from kaldi_ctc_tpu_torch import _kernels
+    from kaldi_ctc_tpu_torch.data import EgsPipeline
+    from kaldi_ctc_tpu_torch.data.egs_io import SequentialEgsReader
+    from kaldi_ctc_tpu_torch.features import MfccOptions, compute_mfcc
+    from kaldi_ctc_tpu_torch.features import stft_cuda
+    from kaldi_ctc_tpu_torch.features.window import (feature_window,
+                                                     frame_signal)
+    from kaldi_ctc_tpu_torch.features.mel import mel_banks
+    from kaldi_ctc_tpu_torch.models import AmConfig
+    from kaldi_ctc_tpu_torch.ops import rnn_cuda
+    from kaldi_ctc_tpu_torch.parallel import shard_batch
+    from kaldi_ctc_tpu_torch.training import (TrainOptions,
+                                              build_train_step,
+                                              init_train_state)
+    from kaldi_ctc_tpu_torch.utils.kaldi_io import (IntVectorWriter,
+                                                    SequentialMatrixReader)
+
+    work = os.path.join(ROOT, "build", "smoke", "pipeline")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    device = ["--device", dev.type]
+    launches = collections.Counter()
+
+    # 1. seeded WAVs and wav.scp; 12 speakers
+    rng = np.random.default_rng(90)
+    secs = rng.uniform(*PIPE_SECONDS, PIPE_UTTS)
+    keys = [f"spk{i % 12:02d}-utt{i:03d}" for i in range(PIPE_UTTS)]
+    waves = {}
+    with open(os.path.join(work, "wav.scp"), "w") as scp, \
+            open(os.path.join(work, "utt2spk"), "w") as u2s:
+        for i, key in enumerate(keys):
+            waves[key] = pcm(float(secs[i]), 300 + i, np)
+            path = os.path.join(work, f"{key}.wav")
+            write_wav(path, waves[key])
+            scp.write(f"{key} {path}\n")
+            u2s.write(f"{key} {key[:5]}\n")
+    audio_s = float(sum(len(w) for w in waves.values())) / 16000
+
+    # 2. compute_feats on the card (K4 once per utterance)
+    feats_spec = f"ark,scp:{work}/feats.ark,{work}/feats.scp"
+    _, counts, feat_wall = cli_counts(compute_feats.main, [
+        "--wav-scp", f"{work}/wav.scp", "--type", "mfcc", "--config",
+        "hires", "--compress", "0", "--out", feats_spec] + device)
+    launches.update(counts)
+    feats = dict(SequentialMatrixReader(f"scp:{work}/feats.scp"))
+    opts = MfccOptions.hires()
+    fo = opts.frame_opts
+    window = torch.as_tensor(feature_window(fo), device=dev)
+    mel = torch.as_tensor(mel_banks(opts.mel_opts, fo), device=dev)
+    k4_err, k4_ok, same = 0.0, True, True
+    for key in keys[:4]:
+        wave = torch.as_tensor(waves[key].astype(np.float32), device=dev)
+        again = compute_mfcc(wave, opts).cpu().numpy()
+        same &= bool(np.array_equal(again, feats[key]))
+        frames = frame_signal(wave, fo).contiguous()
+        got = stft_cuda.log_mel(frames, window, mel, fo.padded_window_size)
+        ref = stft_cuda.log_mel_reference(frames, window, mel,
+                                          fo.padded_window_size)
+        for g, r in zip(got, ref):
+            e, ok = max_err(g, r, K4_TOL, K4_TOL)
+            k4_err, k4_ok = max(k4_err, e), k4_ok and ok
+    res = {"phase": "pipeline_feats", "utterances": PIPE_UTTS,
+           "audio_seconds": round(audio_s, 3),
+           "frames": sum(f.shape[0] for f in feats.values()),
+           "wall_s": round(feat_wall, 4),
+           "feature_rtf": feat_wall / audio_s,
+           "k4_launches": counts["log_mel"],
+           "k4_fft_launches": counts["log_mel.fft"],
+           "archive_equals_kernel_recompute": same,
+           "k4_max_abs_err_vs_plain_4_utts": k4_err, "tol": K4_TOL}
+    emit(res)
+    if (len(feats) != PIPE_UTTS or counts["log_mel"] != PIPE_UTTS
+            or not same or not k4_ok
+            or any(f.shape[1] != 40 or not np.isfinite(f).all()
+                   for f in feats.values())):
+        fail(f"compute_feats: {res}")
+
+    # 3. CMVN per speaker; 4. seeded alignments and egs
+    run_cli(compute_cmvn.main, ["--feats", f"scp:{work}/feats.scp",
+                                "--utt2spk", f"{work}/utt2spk",
+                                "--out", f"ark:{work}/cmvn.ark"])
+    for part, part_keys in (("train", keys[:PIPE_TRAIN]),
+                            ("valid", keys[PIPE_TRAIN:])):
+        with IntVectorWriter(f"ark:{work}/ali_{part}.ark") as w:
+            for key in part_keys:
+                t, ali = feats[key].shape[0], []
+                while len(ali) < t:
+                    ali += [int(rng.integers(0, 71))] * int(
+                        rng.integers(*PIPE_RUN))
+                w[key] = np.asarray(ali[:t], np.int32)
+        run_cli(prepare_egs.main, [
+            "get", "--feats", f"scp:{work}/feats.scp", "--ali",
+            f"ark:{work}/ali_{part}.ark", "--cmvn", f"ark:{work}/cmvn.ark",
+            "--utt2spk", f"{work}/utt2spk", "--output",
+            f"ark,scp:{work}/{part}_egs.ark,{work}/{part}_egs.scp"])
+    info = {part: json.loads(run_cli(prepare_egs.main, [
+        "info", "--egs", f"scp:{work}/{part}_egs.scp"]))
+        for part in ("train", "valid")}
+    emit({"phase": "pipeline_egs", "info": info})
+    if info["train"]["num_examples"] != PIPE_TRAIN or \
+            info["valid"]["num_examples"] != PIPE_UTTS - PIPE_TRAIN:
+        fail(f"prepare_egs: {info}")
+
+    # 5. train_ctc per dtype: the flagship's defaults, 10 steps, cv at 10
+    train_argv = ["--egs", f"scp:{work}/train_egs.scp", "--valid-feats",
+                  f"scp:{work}/feats.scp", "--valid-ali",
+                  f"ark:{work}/ali_valid.ark", "--cmvn",
+                  f"ark:{work}/cmvn.ark", "--utt2spk", f"{work}/utt2spk",
+                  "--num-targets", "72", "--hidden-dim", str(PIPE_HIDDEN),
+                  "--num-layers", str(PIPE_LAYERS), "--epochs", "5",
+                  "--cv-period", "1", "--checkpoint-period", "5"] + device
+    examples = list(SequentialEgsReader(f"scp:{work}/train_egs.scp"))
+    first = next(EgsPipeline(examples, minibatch_size=48).epoch(0))
+    first.pop("keys")
+    exps = {}
+    for dtype in DTYPES:
+        exps[dtype] = os.path.join(work, f"exp_{dtype}")
+        _, counts, wall = cli_counts(train_ctc.main, train_argv + [
+            "--dir", exps[dtype], "--compute-dtype", dtype])
+        launches.update(counts)
+        recs = train_records(exps[dtype])
+        steps = [r for r in recs if r["event"] == "train_step"]
+        valid = [r for r in recs if r["event"] == "valid"]
+        n = len(steps)
+        span = steps[-1]["t"] - steps[0]["t"]
+        # the plain versions' first step from train_ctc's initial params
+        cfg = AmConfig(input_dim=40, num_targets=72, hidden_dim=PIPE_HIDDEN,
+                       num_layers=PIPE_LAYERS, compute_dtype=dtype)
+        state = init_train_state(train_ctc.initial_params(cfg, 0, dev))
+        before = read_counts()
+        with plain_versions():
+            _, m = build_train_step(cfg, TrainOptions(num_steps=10))(
+                state, shard_batch(first, dev))
+            plain = {k: float(m[k]) for k in ("loss_per_frame",
+                                              "grad_norm")}
+        plain_launches = sum(v - before.get(k, 0)
+                             for k, v in read_counts().items())
+        loss_rtol, grad_rtol, _ = TRAIN_TOL[dtype]
+        rel = {k: abs(steps[0][k] - v) / abs(v) for k, v in plain.items()}
+        res = {"phase": "pipeline_train", "dtype": dtype, "steps": n,
+               "wall_s": round(wall, 4),
+               "steps_per_s": (n - 1) / span if span > 0 else None,
+               "audio_s_per_s": (sum(r["num_frames"] for r in steps[1:])
+                                 * 0.01 / span if span > 0 else None),
+               "steps_share_of_wall": (span * n / (n - 1)) / wall,
+               "loss_per_frame": [r["loss_per_frame"] for r in steps],
+               "valid": valid,
+               "first_step_rel_err_vs_plain": rel,
+               "tol": {"loss_per_frame": loss_rtol, "grad_norm": grad_rtol},
+               "launches": {k: counts[k] for k in (
+                   "bilstm_fwd", "bilstm_bwd", "ctc_alpha_beta",
+                   "ctc_alphas")}}
+        emit(res)
+        # one eval batch of 48 valid utterances at step 10
+        if (n != 10 or len(valid) != 1
+                or counts["bilstm_bwd"] != PIPE_LAYERS * n
+                or counts["ctc_alpha_beta"] != n
+                or counts["ctc_alphas"] != 1
+                or counts["bilstm_fwd"] != PIPE_LAYERS * (n + 1)
+                or rel["loss_per_frame"] > loss_rtol
+                or rel["grad_norm"] > grad_rtol or plain_launches
+                or not all(np.isfinite(r["loss_per_frame"])
+                           for r in steps)):
+            fail(f"train_ctc: {res}")
+
+    # the f32 run once more under torch.profiler: the device's busy share
+    prof_exp = os.path.join(work, "exp_profiled")
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run_cli(train_ctc.main, train_argv + ["--dir", prof_exp])
+        sync(torch, dev)
+        traced_s = time.perf_counter() - t0
+    busy = sum(e.time_range.elapsed_us() for e in prof.events()
+               if e.device_type == DeviceType.CUDA) / 1e6
+    emit({"phase": "pipeline_train_profile", "dtype": "float32",
+          "traced_wall_s": round(traced_s, 4),
+          "device_kernel_s": round(busy, 4) if busy else "not measured",
+          "device_busy_share": (round(busy / traced_s, 4) if busy
+                                else "not measured"),
+          "host_side_share": (round(1 - busy / traced_s, 4) if busy
+                              else "not measured")})
+
+    # 6. compute_prob on the valid egs (K11) against the plain versions
+    exp = exps["float32"]
+    prob_argv = ["--egs", f"scp:{work}/valid_egs.scp", "--dir", exp] + device
+    out, counts, wall = cli_counts(compute_prob.main, prob_argv)
+    launches.update(counts)
+    prob = json.loads(out.strip().splitlines()[-1])
+    out, plain_launches = plain_cli(compute_prob.main, prob_argv)
+    plain = json.loads(out.strip().splitlines()[-1])
+    rel = abs(prob["loss_per_frame"] - plain["loss_per_frame"]) / abs(
+        plain["loss_per_frame"])
+    res = {"phase": "pipeline_compute_prob", "dtype": "float32", **prob,
+           "wall_s": round(wall, 4), "rel_err_vs_plain": rel,
+           "tol": PIPE_PROB_RTOL, "k11_launches": counts["ctc_alphas"],
+           "k2_launches": counts["bilstm_fwd"]}
+    emit(res)
+    if rel > PIPE_PROB_RTOL or counts["ctc_alphas"] < 1 or \
+            prob["num_utts"] != PIPE_UTTS - PIPE_TRAIN or \
+            prob["accuracy"] != plain["accuracy"] or plain_launches:
+        fail(f"compute_prob: {res}")
+
+    # 7. adjust_priors --feats (K2) against the plain versions
+    plain_exp = os.path.join(work, "exp_priors_plain")
+    shutil.copytree(exp, plain_exp)
+    prior_argv = ["--feats", f"scp:{work}/feats.scp", "--cmvn",
+                  f"ark:{work}/cmvn.ark", "--utt2spk",
+                  f"{work}/utt2spk"] + device
+    _, counts, wall = cli_counts(adjust_priors.main,
+                                 prior_argv + ["--dir", exp])
+    launches.update(counts)
+    _, plain_launches = plain_cli(adjust_priors.main,
+                                  prior_argv + ["--dir", plain_exp])
+    priors = np.load(os.path.join(exp, "priors.npy"))
+    plain = np.load(os.path.join(plain_exp, "priors.npy"))
+    err = float(np.abs(priors - plain).max())
+    res = {"phase": "pipeline_adjust_priors", "dtype": "float32",
+           "wall_s": round(wall, 4), "max_abs_err_vs_plain": err,
+           "tol": PIPE_PRIOR_ATOL, "blank_prior": float(priors[0]),
+           "k2_launches": counts["bilstm_fwd"]}
+    emit(res)
+    if err > PIPE_PRIOR_ATOL or counts["bilstm_fwd"] < 5 or \
+            abs(float(priors.sum()) - 1.0) > 1e-4 or plain_launches:
+        fail(f"adjust_priors: {res}")
+
+    # 8. decode_ctc greedy with the new priors
+    hyp_path = os.path.join(work, "hyps_greedy.txt")
+    _, counts, wall = cli_counts(decode_ctc.main, [
+        "--feats", f"scp:{work}/feats.scp", "--cmvn", f"ark:{work}/cmvn.ark",
+        "--utt2spk", f"{work}/utt2spk", "--dir", exp, "--method", "greedy",
+        "--use-priors", "1", "--output", hyp_path] + device)
+    launches.update(counts)
+    hyps = read_hyps(hyp_path)
+    emit({"phase": "pipeline_decode", "method": "greedy", "use_priors": 1,
+          "utterances": len(hyps), "wall_s": round(wall, 4),
+          "nonempty_share": sum(1 for v in hyps.values() if v) / len(hyps),
+          "k2_launches": counts["bilstm_fwd"]})
+    if len(hyps) != PIPE_UTTS or counts["bilstm_fwd"] < 5:
+        fail("decode_ctc on the trained model did not decode every "
+             "utterance through K2")
+
+    # 9. decode_stream on a uni LSTM (K7 a chunk) against its offline
+    # greedy decode (K5)
+    uni = os.path.join(work, "exp_uni")
+    run_cli(init_model.main, [
+        "--dir", uni, "--input-dim", "40", "--num-targets", "72",
+        "--hidden-dim", str(PIPE_HIDDEN), "--num-layers", str(PIPE_LAYERS),
+        "--bidirectional", "0"])
+    with open(os.path.join(work, "feats.scp")) as f:
+        lines = f.readlines()[:PIPE_STREAMS]
+    with open(os.path.join(work, "stream.scp"), "w") as f:
+        f.writelines(lines)
+    stream_audio = sum(feats[line.split()[0]].shape[0]
+                       for line in lines) * 0.01
+    lib = _kernels.load("lstm_stack", rnn_cuda._STACK_SIGNATURES)
+    plan = rnn_cuda.k7_plan(lib, PIPE_LAYERS, 1, PIPE_HIDDEN, torch.float32,
+                            dev)
+    paths = {m: os.path.join(work, f"hyps_{m}.txt")
+             for m in ("stream", "offline")}
+    _, off_counts, _ = cli_counts(decode_ctc.main, [
+        "--feats", f"scp:{work}/stream.scp", "--dir", uni, "--method",
+        "greedy", "--use-priors", "0", "--output", paths["offline"]]
+        + device)
+    launches.update(off_counts)
+    # the offline hypotheses as the reference text: decode_stream prints
+    # its RTF and chunk latency beside the label error rate against them
+    out, counts, wall = cli_counts(decode_stream.main, [
+        "--feats", f"scp:{work}/stream.scp", "--dir", uni,
+        "--chunk-frames", str(PIPE_CHUNK), "--output", paths["stream"],
+        "--text", paths["offline"]] + device)
+    launches.update(counts)
+    stream_score = json.loads(out.strip().splitlines()[-1])
+    stream, offline = read_hyps(paths["stream"]), read_hyps(paths["offline"])
+    chunks = sum(-(-feats[line.split()[0]].shape[0] // PIPE_CHUNK)
+                 for line in lines)
+    res = {"phase": "pipeline_decode_stream", "dtype": "float32",
+           "utterances": len(stream), "audio_seconds": round(stream_audio, 3),
+           "chunk_frames": PIPE_CHUNK, "chunks": chunks,
+           "wall_s": round(wall, 4), "rtf": stream_score["rtf"],
+           "median_chunk_latency_ms":
+               stream_score["median_chunk_latency_ms"],
+           "k7_plan": plan._asdict(), "k7_launches": counts["lstm_stack"],
+           "offline_k5_launches": off_counts["lstm_fwd"],
+           "equal_to_offline_greedy": stream == offline,
+           "label_error_rate_vs_offline": stream_score["label_error_rate"],
+           "nonempty_share": sum(1 for v in stream.values() if v)
+           / max(len(stream), 1)}
+    emit(res)
+    if (stream != offline or len(stream) != PIPE_STREAMS
+            or counts["lstm_stack"] != chunks or off_counts["lstm_fwd"] < 5):
+        fail(f"decode_stream: {res}")
+
+    train = {}
+    for dtype in DTYPES:
+        steps = [r for r in train_records(exps[dtype])
+                 if r["event"] == "train_step"]
+        span = steps[-1]["t"] - steps[0]["t"]
+        train[dtype] = {"steps_per_s": round((len(steps) - 1) / span, 3),
+                        "audio_s_per_s": round(sum(
+                            r["num_frames"] for r in steps[1:]) * 0.01
+                            / span, 1)}
+    emit({"phase": "pipeline_summary", "feature_rtf": feat_wall / audio_s,
+          "train_ctc": train,
+          "compute_prob_loss_per_frame": prob["loss_per_frame"],
+          "decode_stream_rtf": stream_score["rtf"], "k7_route": plan.route,
+          "card": smi})
+    return launches
+
+
 def sync(torch, dev):
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
@@ -3292,15 +3694,16 @@ def main():
     served_proj, _ = phase_serve(torch, np, proj=True)
     trained_proj = phase_train(torch, np, dev, proj=True)
     decoded = phase_decode(torch, np, dev)
+    piped = phase_pipeline(torch, np, dev, smi)
     launches = collections.Counter(launches)
     for counts in (served, trained, served_uni, trained_uni, served_gru,
                    trained_gru, served_gru_uni, trained_gru_uni, served_proj,
-                   trained_proj, decoded):
+                   trained_proj, decoded, piped):
         launches.update(counts)
     if min(launches[name] for name in KERNELS) < 1:
         fail(f"a kernel of the driven paths never launched: {launches}")
     driven_routes(launches, (served, served_uni, served_gru, served_gru_uni,
-                             served_proj, decoded))
+                             served_proj, decoded, piped))
     phase_profile(torch, np, engines)
     phase_profile_stream(torch, np, uni_engines)
     phase_profile(torch, np, gru_engines, "bigru_fwd")

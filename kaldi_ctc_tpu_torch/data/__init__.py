@@ -1,7 +1,5 @@
-"""Examples, bucketing and egs archives (counterpart of kaldi_ctc_tpu/data).
-
-``data/pipeline.py`` (the host prefetch pipeline) is not ported yet:
-ROADMAP.md item 8."""
+"""Examples, bucketing, egs archives and the host prefetch pipeline
+(counterpart of kaldi_ctc_tpu/data)."""
 
 from kaldi_ctc_tpu_torch.data.egs import (  # noqa: F401
     MAX_LABEL_LENGTH,
@@ -15,4 +13,9 @@ from kaldi_ctc_tpu_torch.data.bucketing import (  # noqa: F401
     bucket_length,
     make_buckets,
     pad_batch,
+)
+from kaldi_ctc_tpu_torch.data.pipeline import (  # noqa: F401
+    EgsPipeline,
+    Prefetcher,
+    load_examples,
 )

@@ -1,8 +1,10 @@
-"""Kaldi-compatible feature front end on PyTorch (the serving slice).
+"""Kaldi-compatible feature front end on PyTorch.
 
 Counterpart of ``kaldi_ctc_tpu/features``: framing, windowing, the fused
-log-mel stage (CUDA kernel K4, ``stft_cuda.py``), MFCC, fbank and CMVN,
-plus host-only copies of the wave reader, resampler and mel banks.
+log-mel stage (CUDA kernel K4, ``stft_cuda.py``), MFCC, fbank, PLP,
+spectrogram, CMVN, deltas and splicing on the waveform's device, plus
+host-only copies of the wave reader, resampler, mel banks, pitch, HTK
+I/O and feature transforms.
 """
 
 from kaldi_ctc_tpu_torch.features.window import (  # noqa: F401
@@ -26,3 +28,16 @@ from kaldi_ctc_tpu_torch.features.cmvn import (  # noqa: F401
     apply_cmvn,
 )
 from kaldi_ctc_tpu_torch.features.wave import read_wave  # noqa: F401
+from kaldi_ctc_tpu_torch.features.functions import (  # noqa: F401
+    add_deltas,
+    splice_frames,
+)
+from kaldi_ctc_tpu_torch.features.htk import read_htk, write_htk  # noqa: F401
+from kaldi_ctc_tpu_torch.features.plp import PlpOptions, compute_plp  # noqa: F401
+from kaldi_ctc_tpu_torch.features.spectrogram import (  # noqa: F401
+    SpectrogramOptions,
+    compute_spectrogram,
+)
+from kaldi_ctc_tpu_torch.features.pitch import (  # noqa: F401
+    PitchOptions, ProcessPitchOptions, compute_and_process_pitch,
+    compute_kaldi_pitch, process_pitch)

@@ -26,7 +26,7 @@ from kaldi_ctc_tpu_torch.ops.rnn import (RnnConfig, RnnMode, init_rnn_params,
                                          rnn_param_shapes)
 
 __all__ = ["AmConfig", "init_am_params", "am_forward", "am_param_shapes",
-           "default_priors"]
+           "default_priors", "grow_rnn_layer"]
 
 _NOT_PORTED = ("{} is not ported yet: ROADMAP.md item 12 "
                "(am_forward extras)")
@@ -69,6 +69,14 @@ class AmConfig:
             out.append((tk, fk, self.conv_time_stride if ts is None else ts,
                         fs))
         return out
+
+    @property
+    def time_stride(self) -> int:
+        """Output frames per input frame denominator (1 without convs)."""
+        s = 1
+        for _tk, _fk, ts, _fs in self.conv_specs():
+            s *= ts
+        return s
 
     def output_lens(self, input_lens):
         """Map input frame counts to logit frame counts ('SAME' conv
@@ -142,6 +150,35 @@ def init_am_params(cfg: AmConfig,
     return {"rnn": init_rnn_params(cfg.rnn, generator, device),
             "out_w": out_w.to(device),
             "out_b": torch.zeros(shapes["out_b"], device=device)}
+
+
+def grow_rnn_layer(params: Dict[str, Any], cfg: AmConfig,
+                   generator: Optional[torch.Generator] = None) -> tuple:
+    """Append a freshly initialized recurrent layer (layer-wise growth,
+    the nnet-insert step of steps/ctc/train.sh:357-384).
+
+    The new layer has the shapes and stddevs of ``init_rnn_params``'
+    layers, drawn per direction (w_x, w_h, b) from ``generator`` on the
+    CPU and placed on the device of the existing parameters.  The
+    distributions are the JAX package's, the numbers are not (its
+    ``jax.random`` draws differ from ``torch.Generator``'s, as for
+    ``init_am_params``).  Returns (new_params, new_cfg); the caller
+    rebuilds the optimizer state, whose tree changed.
+    """
+    new_cfg = dataclasses.replace(cfg, num_layers=cfg.num_layers + 1)
+    shapes = rnn_param_shapes(new_cfg.rnn)[-1]["dirs"]
+    device = params["out_w"].device
+
+    def draw(shape, std):
+        return (std * torch.randn(shape, generator=generator,
+                                  dtype=torch.float32)).to(device)
+
+    dirs = [{"w_x": draw(d["w_x"], cfg.param_stddev),
+             "w_h": draw(d["w_h"], cfg.param_stddev),
+             "b": draw(d["b"], cfg.bias_stddev)} for d in shapes]
+    new_params = dict(params)
+    new_params["rnn"] = list(params["rnn"]) + [{"dirs": dirs}]
+    return new_params, new_cfg
 
 
 def am_forward(

@@ -2929,3 +2929,66 @@ def test_missing_nvcc_raises(monkeypatch):
     monkeypatch.setattr(_kernels.os.path, "exists", lambda p: False)
     with pytest.raises(RuntimeError, match="nvcc not found"):
         _kernels._nvcc()
+
+
+def _train_set(path, n=16, dim=8, targets=6, seed=23):
+    """n seeded utterances (labels painted onto a feature channel) with
+    pdf alignments, written by the port's own archive writers."""
+    from kaldi_ctc_tpu_torch.utils.kaldi_io import IntVectorWriter, MatrixWriter
+
+    rng = np.random.default_rng(seed)
+    with MatrixWriter(f"ark:{path}/feats.ark") as fw, \
+            IntVectorWriter(f"ark:{path}/ali.ark") as aw:
+        for i in range(n):
+            pdfs = rng.integers(0, targets - 1, int(rng.integers(2, 6)))
+            feats = rng.standard_normal((8 * len(pdfs), dim)).astype(
+                np.float32) * 0.1
+            for j, p in enumerate(pdfs):
+                feats[8 * j:8 * (j + 1), (p + 1) % dim] += 2.0
+            fw[f"u{i:02d}"] = feats
+            aw[f"u{i:02d}"] = np.repeat(pdfs, 8).astype(np.int32)
+
+
+@pytest.mark.cuda
+def test_train_ctc_on_cuda_launches_k2_k3_k1(cuda, tmp_path):
+    """train_ctc --device cuda, 2 steps of a 2x32 BLSTM: each step
+    launches K2 and K3 once per layer and K1 once, and logs finite
+    records."""
+    import json
+
+    from kaldi_ctc_tpu_torch.cli import train_ctc
+
+    _train_set(tmp_path)
+    before = (rnn_cuda.bilstm_seq_fwd.launches,
+              rnn_cuda.bilstm_seq_bwd_dgates.launches,
+              ctc_cuda.alpha_beta.launches)
+    exp = tmp_path / "exp"
+    train_ctc.main(["--feats", f"ark:{tmp_path}/feats.ark", "--ali",
+                    f"ark:{tmp_path}/ali.ark", "--num-targets", "6",
+                    "--hidden-dim", "32", "--num-layers", "2", "--epochs",
+                    "1", "--minibatch-size", "8", "--dir", str(exp),
+                    "--device", "cuda"])
+    after = (rnn_cuda.bilstm_seq_fwd.launches,
+             rnn_cuda.bilstm_seq_bwd_dgates.launches,
+             ctc_cuda.alpha_beta.launches)
+    assert [a - b for a, b in zip(after, before)] == [4, 4, 2]
+    with open(exp / "metrics.jsonl") as f:
+        steps = [r for r in map(json.loads, f) if r["event"] == "train_step"]
+    assert [r["step"] for r in steps] == [1, 2]
+    assert all(np.isfinite(r["loss_per_frame"]) and r["grad_norm"] > 0
+               for r in steps)
+
+
+def test_train_ctc_device_cuda_without_a_card_raises(tmp_path, monkeypatch):
+    """--device cuda where torch sees no card raises before any file is
+    written; it never falls back to the CPU."""
+    from kaldi_ctc_tpu_torch.cli import train_ctc
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    _train_set(tmp_path, n=2)
+    exp = tmp_path / "exp"
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train_ctc.main(["--feats", f"ark:{tmp_path}/feats.ark", "--ali",
+                        f"ark:{tmp_path}/ali.ark", "--num-targets", "6",
+                        "--dir", str(exp)])
+    assert not exp.exists()

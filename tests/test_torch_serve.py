@@ -279,6 +279,13 @@ def test_port_imports_without_jax(tmp_path):
         "import kaldi_ctc_tpu_torch.decoding.prefix_beam\n"
         "from kaldi_ctc_tpu_torch.cli import (decode_ctc, nnet_compute,"
         " init_model, copy_model, average_models, model_info)\n"
+        "from kaldi_ctc_tpu_torch.cli import (train_ctc, compute_prob,"
+        " adjust_priors, decode_stream, prepare_egs, compute_feats,"
+        " compute_cmvn, feat_tool)\n"
+        "import kaldi_ctc_tpu_torch.data.pipeline, kaldi_ctc_tpu_torch.lm\n"
+        "import kaldi_ctc_tpu_torch.parallel.distributed\n"
+        "from kaldi_ctc_tpu_torch.features import (functions, transform,"
+        " spectrogram, plp, pitch, htk)\n"
         "kaldi_ctc_tpu_torch.decoding.wfst._load()\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'kaldi_ctc_tpu')]\n"
@@ -288,6 +295,11 @@ def test_port_imports_without_jax(tmp_path):
         "assert decode_ctc.parse_args(['--feats', 'x']).device == 'cuda'\n"
         "assert nnet_compute.parse_args(['--output', 'x']).device "
         "== 'cuda'\n"
+        "for cli, argv in ((train_ctc, ['--num-targets', '2', '--dir', 'x']),"
+        " (compute_prob, ['--dir', 'x']), (adjust_priors, ['--dir', 'x']),"
+        " (decode_stream, ['--feats', 'x']),"
+        " (compute_feats, ['--wav-scp', 'x', '--out', 'y'])):\n"
+        "    assert cli.parse_args(argv).device == 'cuda'\n"
         "print('ok')\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     env["PYTHONPATH"] = ROOT
