@@ -8,9 +8,11 @@ prior[blank] = ``--blank-prior`` 9, ``nnet2-ctc-init-model.cc:64-67``).
 The weights come from the port's ``init_am_params`` with a
 ``torch.Generator`` seeded by ``--seed``: the same distributions as the
 JAX package's, not the same numbers (``jax.random`` draws other bits).
-A model the port cannot run yet (``--front-affine-dim``,
-``--conv-layers``, splicing: ROADMAP.md item 12) raises
-``NotImplementedError`` here, before any file is written.
+Splicing, the FT front (``--front-affine-dim``, relu) and the DS2 conv
+front (``--conv-layers``) take the JAX CLI's flags; ``--front-nonlin``,
+``--front-group`` and ``--conv-norm`` exist only in ``train_ctc``, as
+there.  A DS2 front combined with splicing or the FT front raises
+``ValueError`` before any file is written.
 """
 
 from __future__ import annotations
@@ -76,7 +78,7 @@ def main(argv=None):
                    conv_layers=args.conv_layers,
                    conv_channels=args.conv_channels,
                    conv_time_stride=args.conv_time_stride)
-    # raises for the model types of ROADMAP item 12 before any write
+    # a DS2 front with splicing or the FT front raises before any write
     params = init_am_params(cfg, torch.Generator().manual_seed(args.seed))
 
     os.makedirs(args.dir, exist_ok=True)

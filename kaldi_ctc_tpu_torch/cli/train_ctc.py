@@ -12,13 +12,20 @@ line, and runs held-out diagnostics (K11 for the loss) every
 
 One process trains on one device (``parallel`` is a stand-in until
 ROADMAP.md item 14); ``--minibatch-size`` is the global batch and the
-final short batch of an epoch is dropped, as in the JAX package.  These
-raise ``NotImplementedError`` before any file is written:
-``--realign-epochs`` and ``--affine-type natural`` (ROADMAP item 13),
-``--dropout > 0``, splicing, the FT front and the DS2 conv front (item
-12).  ``init_model``'s caveat holds here too: the same ``--seed`` draws
-other initial numbers than JAX's (``torch.Generator``), so runs are
-compared from one shared checkpoint with ``--resume``.
+final short batch of an epoch is dropped, as in the JAX package.  The
+model families and options of the JAX CLI all run: splicing, the FT
+front (``--front-affine-dim``, five nonlinearities), the DS2 conv front
+(``--conv-layers``; its time stride enters the egs 2L+1 filter),
+``--dropout``, ``--affine-type natural`` (NG-SGD on the output affine
+and the FT front) and ``--realign-epochs`` (at those epochs the current
+model Viterbi-aligns the training set on the device: relabel, drop
+infeasible utterances, write data-driven priors, recompute the lr decay
+horizon, and persist the relabeled set to
+``realign_labels.host0.json``, which ``--resume`` reapplies).
+``init_model``'s caveat holds here too: the same ``--seed`` draws other
+initial numbers than JAX's (``torch.Generator``), and dropout masks are
+drawn from a ``torch.Generator`` seeded with the step, not from JAX's
+keys, so runs are compared from one shared checkpoint with ``--resume``.
 
 Example (tiny sanity run on the CPU):
   python -m kaldi_ctc_tpu_torch.cli.train_ctc \\
@@ -32,8 +39,6 @@ import argparse
 import json
 import os
 import sys
-
-_AM_EXTRAS = "{} is not ported yet: ROADMAP.md item 12 (am_forward extras)"
 
 
 def parse_args(argv=None):
@@ -59,8 +64,7 @@ def parse_args(argv=None):
                    help="0=relu 1=tanh 2=lstm 3=gru")
     p.add_argument("--bidirectional", type=int, default=1)
     p.add_argument("--splice-left", type=int, default=0,
-                   help="input splice left context (not ported yet: "
-                        "raises)")
+                   help="input splice left context (SpliceComponent)")
     p.add_argument("--splice-right", type=int, default=0)
     p.add_argument("--front-nonlin", default="relu",
                    choices=["relu", "tanh", "sigmoid", "pnorm", "maxout"],
@@ -68,17 +72,22 @@ def parse_args(argv=None):
     p.add_argument("--front-group", type=int, default=1,
                    help="group size for pnorm/maxout front layers")
     p.add_argument("--front-affine-dim", type=int, default=0,
-                   help="FT model type front layer width (0 = google "
-                        "type; not ported yet: raises)")
+                   help="FT model type: Affine + nonlinearity + renorm "
+                        "front layer width before the RNN stack (0 = "
+                        "google type)")
     p.add_argument("--conv-layers", type=int, default=0,
-                   help="DS2 model type conv layers (not ported yet: "
-                        "raises)")
+                   help="DS2 model type: this many 2D conv layers "
+                        "(kernels (11,41)/(11,21)/(11,21), freq stride "
+                        "2, leaky clipped ReLU) before the RNN stack")
     p.add_argument("--conv-channels", type=int, default=32)
-    p.add_argument("--conv-time-stride", type=int, default=2)
-    p.add_argument("--conv-norm", default="seq", choices=["seq", "none"])
+    p.add_argument("--conv-time-stride", type=int, default=2,
+                   help="time stride of the first conv layer (halves "
+                        "the RNN sequence at 2)")
+    p.add_argument("--conv-norm", default="seq", choices=["seq", "none"],
+                   help="conv-front normalization: 'seq' = per-utterance, "
+                        "per-channel moments over valid frames; 'none'")
     p.add_argument("--dropout", type=float, default=0.0,
-                   help="dropout after the RNN stack (not ported yet: "
-                        "> 0 raises)")
+                   help="dropout after the RNN stack (training only)")
     p.add_argument("--compute-dtype", default="float32",
                    choices=["float32", "bfloat16"],
                    help="matmul operand dtype (bfloat16 = mixed "
@@ -104,7 +113,8 @@ def parse_args(argv=None):
     p.add_argument("--clip-gradient", type=float, default=5.0)
     p.add_argument("--affine-type", choices=["simple", "natural"],
                    default="simple",
-                   help="natural: online NG-SGD (not ported yet: raises)")
+                   help="natural: online NG-SGD preconditioning of the "
+                        "output affine and the FT front")
     p.add_argument("--ng-rank-in", type=int, default=30)
     p.add_argument("--ng-rank-out", type=int, default=80)
     p.add_argument("--ng-update-period", type=int, default=1)
@@ -115,8 +125,10 @@ def parse_args(argv=None):
                         "or skip the batch (the update is suppressed on "
                         "the device either way, so state stays clean)")
     p.add_argument("--realign-epochs", default="",
-                   help="epochs at whose start the model realigns the "
-                        "training set (not ported yet: raises)")
+                   help="comma-separated epoch indices at whose start the "
+                        "current model realigns the training set: Viterbi "
+                        "align -> relabel -> data-driven priors "
+                        "(steps/ctc/train.sh:111-115 realign loop)")
     p.add_argument("--cv-period", type=int, default=10,
                    help="diagnostic eval every N steps x 10")
     p.add_argument("--checkpoint-period", type=int, default=200)
@@ -134,29 +146,6 @@ def parse_args(argv=None):
     return p.parse_args(argv)
 
 
-def check_ported(args) -> None:
-    """Raise for the options the port does not run yet, before anything
-    is read or written."""
-    if args.realign_epochs:
-        raise NotImplementedError(
-            "--realign-epochs is not ported yet: ROADMAP.md item 13 "
-            "(ctc_viterbi_align, training/realign.py)")
-    if args.affine_type == "natural":
-        raise NotImplementedError(
-            "--affine-type natural (online natural-gradient SGD) is not "
-            "ported yet: ROADMAP.md item 13")
-    if args.dropout > 0.0:
-        raise NotImplementedError(_AM_EXTRAS.format("--dropout > 0"))
-    if args.splice_left or args.splice_right:
-        raise NotImplementedError(_AM_EXTRAS.format("input splicing"))
-    if args.front_affine_dim:
-        raise NotImplementedError(_AM_EXTRAS.format(
-            "the FT front (--front-affine-dim)"))
-    if args.conv_layers:
-        raise NotImplementedError(_AM_EXTRAS.format(
-            "the DS2 conv front (--conv-layers)"))
-
-
 def initial_params(cfg, seed: int, device):
     """The parameters a fresh run starts from: ``init_am_params`` drawn
     from ``torch.Generator().manual_seed(seed)``."""
@@ -167,27 +156,33 @@ def initial_params(cfg, seed: int, device):
 
 
 def main(argv=None):
+    import dataclasses
+
+    import numpy as np
     import torch
 
     from kaldi_ctc_tpu_torch.cli.common import resolve_device
-    from kaldi_ctc_tpu_torch.data import EgsPipeline, Prefetcher, load_examples
+    from kaldi_ctc_tpu_torch.data import (CtcExample, EgsPipeline, Prefetcher,
+                                          load_examples)
     from kaldi_ctc_tpu_torch.models import AmConfig, grow_rnn_layer
     from kaldi_ctc_tpu_torch.ops.rnn import RnnMode
     from kaldi_ctc_tpu_torch.parallel import make_mesh, shard_batch
     from kaldi_ctc_tpu_torch.parallel.distributed import (init_distributed,
-                                                          is_primary)
+                                                          is_primary,
+                                                          process_index)
     from kaldi_ctc_tpu_torch.training import (
         TrainOptions, accuracy_from_outputs, init_train_state,
         make_eval_step, make_train_step)
     from kaldi_ctc_tpu_torch.training.checkpoint import (
         apply_retention, latest_step, read_meta, restore_checkpoint,
         save_checkpoint)
+    from kaldi_ctc_tpu_torch.training.realign import (parse_realign_epochs,
+                                                      realign_examples)
     from kaldi_ctc_tpu_torch.utils import get_logger, profiling
     from kaldi_ctc_tpu_torch.utils.kaldi_io import SequentialTextReader
     from kaldi_ctc_tpu_torch.utils.logging import MetricsLogger, Timer
 
     args = parse_args(argv)
-    check_ported(args)
     init_distributed()
     device = resolve_device(args.device)
     os.makedirs(args.dir, exist_ok=True)
@@ -216,6 +211,11 @@ def main(argv=None):
         log.error("no examples loaded"); sys.exit(1)
     input_dim = examples[0].feats.shape[1]
     log.info("loaded %d utterances, input dim %d", len(examples), input_dim)
+    # the conv stride math lives in AmConfig.time_stride (one source of
+    # truth for the egs 2L+1 filters and the model)
+    model_stride = AmConfig(
+        input_dim=1, num_targets=2, conv_layers=args.conv_layers,
+        conv_time_stride=args.conv_time_stride).time_stride
 
     # --minibatch-size is the global batch (reference semantics: lr*sum
     # over that many utterances); one process assembles all of it
@@ -227,11 +227,14 @@ def main(argv=None):
                   "--minibatch-size", len(examples), args.minibatch_size)
         sys.exit(1)
 
-    pipe = EgsPipeline(
-        examples, minibatch_size=args.minibatch_size,
-        max_allow_frames=args.max_allow_frames,
-        frame_subsampling_factor=args.frame_subsampling_factor,
-        seed=args.seed)
+    def make_pipe(exs):
+        return EgsPipeline(
+            exs, minibatch_size=args.minibatch_size,
+            max_allow_frames=args.max_allow_frames,
+            frame_subsampling_factor=args.frame_subsampling_factor,
+            seed=args.seed, time_stride=model_stride)
+
+    pipe = make_pipe(examples)
 
     valid_pipe = None
     if args.valid_feats and args.valid_ali:
@@ -242,7 +245,7 @@ def main(argv=None):
             valid_examples, minibatch_size=args.minibatch_size,
             max_allow_frames=args.max_allow_frames,
             frame_subsampling_factor=args.frame_subsampling_factor,
-            seed=args.seed + 1000)
+            seed=args.seed + 1000, time_stride=model_stride)
 
     grow = args.add_layers_period > 0 and args.start_layers < args.num_layers
     start_layers = args.start_layers if grow else args.num_layers
@@ -320,11 +323,92 @@ def main(argv=None):
     tot_err = tot_ref = 0
     global_step = int(state.step)
 
+    realign_epochs = parse_realign_epochs(args.realign_epochs)
+    realign_labels_path = os.path.join(
+        args.dir, f"realign_labels.host{process_index()}.json")
+
+    def run_realign(epoch):
+        # align -> relabel -> priors with the current params (the train.sh
+        # realign loop); infeasible utterances drop, so the pipeline is
+        # rebuilt
+        nonlocal examples, pipe, opts, train_step
+        new_exs, counts, stats = realign_examples(
+            examples, state.params, cfg,
+            frame_subsampling_factor=args.frame_subsampling_factor,
+            log=log)
+        if not new_exs:
+            log.error("realignment dropped every utterance; keeping the "
+                      "previous training set")
+            return
+        if len(new_exs) < args.minibatch_size:
+            log.error("realignment left only %d utterances for a "
+                      "per-host batch of %d: every remaining epoch "
+                      "would yield zero batches", len(new_exs),
+                      args.minibatch_size)
+            raise RuntimeError("realignment left too few utterances")
+        examples = new_exs
+        pipe = make_pipe(examples)
+        # persist the relabeled/pruned set so a --resume past this epoch
+        # keeps it (otherwise dropped utterances silently rejoin)
+        with open(realign_labels_path, "w") as f:
+            json.dump({"epoch": epoch,
+                       "labels": {e.key: e.labels.tolist()
+                                  for e in examples}}, f)
+        # the lr decay horizon was sized on the pre-realign example
+        # count; recompute it over the remaining epochs or the schedule
+        # never reaches --final-learning-rate
+        new_num_steps = global_step + max(
+            len(examples) // args.minibatch_size, 1) * (args.epochs - epoch)
+        if new_num_steps != opts.num_steps:
+            opts = dataclasses.replace(opts, num_steps=new_num_steps)
+            train_step = make_train_step(cfg, opts)
+            log.info("lr decay horizon recomputed after realign: "
+                     "%d steps", new_num_steps)
+        priors = np.maximum((counts / counts.sum()).astype(np.float32),
+                            1.0e-15)
+        if is_primary():
+            np.save(os.path.join(args.dir, "priors.npy"), priors)
+        metrics_log.log("realign", step=global_step, epoch=epoch,
+                        aligned=stats["aligned"], dropped=stats["dropped"],
+                        avg_logprob_per_frame=stats[
+                            "avg_logprob_per_frame"])
+        log.info("realign @epoch %d: %d utterances kept, priors updated "
+                 "(blank prior %.3f)", epoch, len(examples), priors[0])
+
+    if (args.resume and realign_epochs
+            and any(e <= start_epoch for e in realign_epochs)):
+        # a realign epoch already fired before the checkpoint: restore
+        # the relabeled/pruned training set it produced, or re-run the
+        # alignment with the restored params if nothing was persisted
+        if os.path.exists(realign_labels_path):
+            with open(realign_labels_path) as f:
+                saved = json.load(f)
+            by_key = saved["labels"]
+            examples = [CtcExample(e.key, e.feats,
+                                   np.asarray(by_key[e.key], np.int32))
+                        for e in examples if e.key in by_key]
+            pipe = make_pipe(examples)
+            log.info("resume: reapplied persisted realignment from epoch "
+                     "%d (%d utterances)", saved["epoch"], len(examples))
+        else:
+            log.warning("resume past realign epoch %s with no persisted "
+                        "labels — re-running realignment with the "
+                        "restored params",
+                        max(e for e in realign_epochs if e <= start_epoch))
+            run_realign(max(e for e in realign_epochs if e <= start_epoch))
+
     # the trace closes on the way out of the with, a failed step included,
     # or the profile directory is left unusable
     with profiling.trace(args.profile_dir):
         for epoch in range(start_epoch, args.epochs):
             log.info("epoch %d", epoch)
+            if (epoch in realign_epochs
+                    and not (epoch == start_epoch and start_epoch_step > 0)):
+                # skipped when resuming into the middle of this epoch: the
+                # params that produced the in-flight epoch's alignment are
+                # gone, and realigning with newer params would
+                # double-apply the epoch's realignment
+                run_realign(epoch)
             epoch_step = 0
             trained_batches = skipped_nonfinite = 0
             skip = start_epoch_step if epoch == start_epoch else 0

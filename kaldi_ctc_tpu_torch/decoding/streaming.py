@@ -11,9 +11,12 @@ Both recognizers run eagerly on the device their parameters live on
 of the wavefront kernel K7 (``ops.rnn.rnn_forward_stream``); a GRU stack
 runs the per-layer loop in torch ops on the card, as the JAX package runs
 its XLA scan (it has no GRU stack kernel); on the CPU every mode runs the
-plain per-layer loop.  The FT front layer (``front_affine_dim``)
-streams in the JAX package; here it raises with ``am_forward``, until
-ROADMAP.md item 12.
+plain per-layer loop.  The FT front layer (``front_affine_dim``) is
+frame-local, so it streams exactly: each chunk runs ``am_forward``'s
+``front_layer`` before the stack (every ``front_nonlin``; the JAX
+package's recognizers apply relu whatever the config names, ROADMAP §3).
+Splicing and the conv front reach across chunk boundaries and are
+refused, as in the JAX package.
 
 Usage:
     rec = StreamingRecognizer(params, cfg, priors=...)
@@ -29,7 +32,7 @@ from typing import Any, List, Optional
 import numpy as np
 import torch
 
-from kaldi_ctc_tpu_torch.models.acoustic import _NOT_PORTED, AmConfig
+from kaldi_ctc_tpu_torch.models.acoustic import AmConfig, front_layer
 from kaldi_ctc_tpu_torch.ops.rnn import (init_stream_state, matmul_f32acc,
                                          rnn_forward_stream)
 from kaldi_ctc_tpu_torch.params import tree_flatten
@@ -50,9 +53,6 @@ def _check_streamable(cfg: AmConfig, bidirectional_msg: str) -> None:
         raise ValueError(_SPLICE)
     if cfg.conv_layers:
         raise ValueError(_CONV)
-    if cfg.front_affine_dim:
-        raise NotImplementedError(_NOT_PORTED.format(
-            "the FT front layer (front_affine_dim)"))
 
 
 class _ChunkScorer:
@@ -75,6 +75,9 @@ class _ChunkScorer:
                     for layer in params["rnn"]]
         self.out_w = params["out_w"].to(self.device, cdt)
         self.out_b = params["out_b"].to(self.device, torch.float32)
+        self.front = ({k: params[k].to(self.device, torch.float32)
+                       for k in ("front_w", "front_b")}
+                      if cfg.front_affine_dim else None)
         self.log_priors = (None if priors is None else torch.log(
             torch.as_tensor(np.asarray(priors, np.float32),
                             device=self.device)))
@@ -85,6 +88,8 @@ class _ChunkScorer:
         """x [T, B, D] f32 on the device, lens [B] or None → (scores
         [T, B, A] f32, new states); the given states are not changed."""
         with torch.inference_mode():
+            if self.front is not None:
+                x = front_layer(self.front, x, self.cfg)
             y, new_states = rnn_forward_stream(self.rnn, x, self.cfg.rnn,
                                                states, lens=lens)
             t, b, h = y.shape

@@ -24,7 +24,7 @@ from kaldi_ctc_tpu_torch.ops import ctc_cuda
 from kaldi_ctc_tpu_torch.ops.ctc_cuda import NEG_INF, logaddexp
 
 __all__ = ["ctc_loss", "ctc_loss_and_grad", "extend_labels",
-           "greedy_collapse", "ctc_loss_forward_only"]
+           "greedy_collapse", "ctc_loss_forward_only", "ctc_viterbi_align"]
 
 
 def extend_labels(labels: torch.Tensor, blank: int = 0) -> torch.Tensor:
@@ -169,6 +169,73 @@ def ctc_loss_forward_only(logits, labels, input_lens, label_lens, blank=0):
     the independent check of the alpha-beta gradient."""
     return _ctc_forward(logits, labels, input_lens, label_lens, blank,
                         ctc_cuda.forward_alphas_reference)
+
+
+def ctc_viterbi_align(logits: torch.Tensor, labels: torch.Tensor,
+                      input_lens: torch.Tensor, label_lens: torch.Tensor,
+                      blank: int = 0):
+    """CTC forced alignment: the Viterbi path through the
+    blank-interleaved label lattice the loss uses (the CTC-native
+    realignment of ``steps/nnet2/align.sh`` + ``relabel_egs2.sh``).
+
+    logits [B, T, A] pre-softmax; labels [B, L] padded ids in [1, A);
+    input_lens, label_lens [B].  → (frame_labels [B, T] int32: the
+    symbol each frame emits, blank at pad frames and on infeasible rows;
+    path_logprob [B] f32; feasible [B] bool, False where no path exists,
+    T < 2L+1 with repeats).  Log 0 is -1e30 (F4).  The recursion picks
+    the first maximum of (stay, s-1, s-2), and the terminal state is 2L
+    where its score is >= 2L-1's, as the JAX package's ``argmax`` and
+    ``>=`` do.  It is a loop over frames in torch ops on the logits'
+    device (a few small ops a frame: host-bound on the card), then a
+    backtrace loop of one gather a frame.
+    """
+    dev = logits.device
+    log_probs = torch.log_softmax(logits.float(), dim=-1)
+    b, t_max, _ = log_probs.shape
+    ext = extend_labels(labels.to(dev), blank)                # [B, S]
+    s_max = ext.shape[1]
+    skip_ok = _transition_masks(ext, blank)
+    lp_ext = log_probs.gather(
+        2, ext.long()[:, None, :].expand(-1, t_max, -1))      # [B, T, S]
+    input_lens = input_lens.to(dev)
+    label_lens = label_lens.to(dev)
+    neg = torch.full((b, 2), NEG_INF, device=dev)
+
+    delta = torch.full((b, s_max), NEG_INF, device=dev)
+    delta[:, :2] = lp_ext[:, 0, :2]
+    bps = []                      # back-pointers, 0: stay, 1: s-1, 2: s-2
+    for t in range(1, t_max):
+        shift1 = torch.cat([neg[:, :1], delta[:, :-1]], dim=1)
+        shift2 = torch.where(skip_ok, torch.cat([neg, delta], dim=1)
+                             [:, :s_max], NEG_INF)
+        best, choice = torch.stack([delta, shift1, shift2]).max(dim=0)
+        active = (t < input_lens)[:, None]
+        delta = torch.where(active, torch.clamp_min(best + lp_ext[:, t],
+                                                    NEG_INF), delta)
+        bps.append(torch.where(active, choice, 0))
+
+    # terminal state: the better of 2L (trailing blank) and 2L-1
+    idx_last = (2 * label_lens).long()
+    d_last = delta.gather(1, idx_last[:, None])[:, 0]
+    idx_prev = torch.clamp_min(idx_last - 1, 0)
+    d_prev = delta.gather(1, idx_prev[:, None])[:, 0]
+    d_prev = torch.where(label_lens > 0, d_prev, NEG_INF)
+    s = torch.where(d_last >= d_prev, idx_last, idx_prev)
+    path_logprob = torch.maximum(d_last, d_prev)
+    feasible = path_logprob > 0.5 * NEG_INF
+
+    # backtrace: s[t-1] = s[t] - bp[t, s[t]] while t-1 is a real frame
+    states = [s]
+    for t in range(t_max - 1, 0, -1):
+        step_back = bps[t - 1].gather(1, s[:, None])[:, 0]
+        s = torch.where(t < input_lens, s - step_back, s)
+        states.append(s)
+    states = torch.stack(states[::-1], dim=1)                 # [B, T]
+    frame_labels = ext.long().gather(1, states)
+    valid = (torch.arange(t_max, device=dev)[None, :] < input_lens[:, None])
+    frame_labels = torch.where(valid & feasible[:, None], frame_labels,
+                               blank).to(torch.int32)
+    return frame_labels, path_logprob, feasible
 
 
 def greedy_collapse(argmax_ids: torch.Tensor, input_lens: torch.Tensor,

@@ -82,21 +82,43 @@ def to_jax_params(tree: Any) -> Any:
                     tree)
 
 
+def _ng_from_jax(ng: Any, device) -> Any:
+    """JAX ``NgState`` leaves (w, rho, d f32; t int32) → the port's
+    ``NgState``s, the counter kept int32."""
+    if not ng:
+        return ng
+    from kaldi_ctc_tpu_torch.training.natural_gradient import NgState
+    return {name: {side: NgState(
+        w=torch.tensor(np.asarray(s.w, np.float32), device=device),
+        rho=torch.tensor(np.asarray(s.rho, np.float32), device=device),
+        d=torch.tensor(np.asarray(s.d, np.float32), device=device),
+        t=torch.tensor(np.asarray(s.t, np.int32), device=device))
+        for side, s in layer.items()} for name, layer in ng.items()}
+
+
 def train_state_from_jax(state: Any, device="cpu"):
-    """A JAX ``TrainState`` (its ``params``, ``velocity`` and ``step``,
-    numpy or jax arrays as leaves) → the port's
-    ``training.train.TrainState`` on ``device``."""
+    """A JAX ``TrainState`` (its ``params``, ``velocity``, ``step`` and
+    natural-gradient states ``ng``, numpy or jax arrays as leaves) → the
+    port's ``training.train.TrainState`` on ``device``."""
     from kaldi_ctc_tpu_torch.training.train import TrainState
     return TrainState(params=from_jax_params(state.params, device),
                       velocity=from_jax_params(state.velocity, device),
                       step=torch.tensor(int(np.asarray(state.step)),
-                                        dtype=torch.int32, device=device))
+                                        dtype=torch.int32, device=device),
+                      ng=_ng_from_jax(getattr(state, "ng", None), device))
 
 
 def train_state_to_jax(state: Any) -> dict:
     """The port's ``TrainState`` → ``dict(params, velocity, step)`` of
     numpy arrays, the fields of a JAX ``TrainState``
-    (``TrainState(**d)`` on the JAX side)."""
-    return {"params": to_jax_params(state.params),
-            "velocity": to_jax_params(state.velocity),
-            "step": np.asarray(int(state.step), dtype=np.int32)}
+    (``TrainState(**d)`` on the JAX side).  With natural-gradient states
+    it adds ``ng``: per layer and side a dict of the ``NgState`` fields
+    (``NgState(**s)`` on the JAX side; ``t`` int32)."""
+    out = {"params": to_jax_params(state.params),
+           "velocity": to_jax_params(state.velocity),
+           "step": np.asarray(int(state.step), dtype=np.int32)}
+    if state.ng:
+        out["ng"] = {name: {side: {
+            f: getattr(s, f).detach().cpu().numpy() for f in s._fields}
+            for side, s in layer.items()} for name, layer in state.ng.items()}
+    return out

@@ -11,7 +11,14 @@ NnetCtcUpdater, ``ctc/ctc-nnet-update.cc:76-348``):
 - exponential lr decay ``lr(x) = lr_i * exp(x*log(lr_f/lr_i)/num_steps)``
   (``steps/ctc/train.sh:352``) after an optional linear warmup;
 - greedy-collapse label accuracy (``ctc/ctc-nnet-update.cc:261-317``):
-  argmax and collapse on the device, Levenshtein on the host.
+  argmax and collapse on the device, Levenshtein on the host;
+- ``affine_type="natural"``: the output affine's and the FT front's
+  gradients replaced by online NG-SGD updates
+  (``training/natural_gradient.py``) formed from the layers' input rows
+  and their pre-activation gradients, taken from autograd on those
+  tensors (the JAX package's zero probes);
+- dropout after the stack (training only) with a mask drawn by
+  :func:`dropout_mask`.
 
 On the card the step runs, for each layer, the forward and backward
 kernels of its mode: K2 and K3 (BLSTM), K5 and K6 (unidirectional LSTM),
@@ -19,8 +26,6 @@ K8a and K8b (BiGRU), K9a and K9b (unidirectional GRU); and K1 for the
 loss (K11 in the eval step).  On the CPU their plain versions.  PyTorch
 runs eagerly: there is no jit, and ``make_train_step`` returns the step
 as it is (no buffers are donated).
-Natural-gradient affine updates (``affine_type="natural"``) wait for
-ROADMAP.md item 13.
 """
 
 from __future__ import annotations
@@ -39,10 +44,7 @@ from kaldi_ctc_tpu_torch.utils.edit_distance import batch_edit_distance
 
 __all__ = ["TrainOptions", "exponential_lr", "build_train_step",
            "make_train_step", "make_eval_step", "accuracy_from_outputs",
-           "TrainState", "init_train_state"]
-
-_NG_NOT_PORTED = ("affine_type='natural' (online natural-gradient SGD) is "
-                  "not ported yet: ROADMAP.md item 13")
+           "TrainState", "init_train_state", "dropout_mask"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -61,7 +63,8 @@ class TrainOptions:
     # suppressed when loss or grad norm is non-finite; the training loop
     # reads the "finite" metric.  False removes the select.
     guard_nonfinite: bool = True
-    # "simple" (plain SGD) or "natural" (not ported: ROADMAP item 13)
+    # "simple" (plain SGD) or "natural" (online NG-SGD preconditioning
+    # of the affine updates, --affine-type natural)
     affine_type: str = "simple"
     ng_rank_in: int = 30
     ng_rank_out: int = 80
@@ -77,7 +80,9 @@ class TrainState(NamedTuple):
     params: Any
     velocity: Any
     step: torch.Tensor              # int32 scalar on the params' device
-    ng: Any = None                  # natural-gradient states (not ported)
+    # natural-gradient states: {"out": {"in": NgState, "out": NgState}}
+    # and "front" with an FT front; None for plain affine (no leaves)
+    ng: Any = None
 
 
 def _device(params: Any) -> torch.device:
@@ -86,12 +91,36 @@ def _device(params: Any) -> torch.device:
 
 def init_train_state(params: Any,
                      opts: "TrainOptions" = None) -> TrainState:
+    device = _device(params)
+    ng = None
     if opts is not None and opts.affine_type == "natural":
-        raise NotImplementedError(_NG_NOT_PORTED)
+        from kaldi_ctc_tpu_torch.training.natural_gradient import ng_init
+        ng = {}
+        for name in ("front", "out"):
+            w = params.get(f"{name}_w")
+            if w is None:
+                continue
+            d_in, d_out = int(w.shape[0]), int(w.shape[1])
+            ng[name] = {
+                "in": ng_init(d_in + 1, opts.ng_rank_in, opts.ng_alpha,
+                              device),
+                "out": ng_init(d_out, opts.ng_rank_out, opts.ng_alpha,
+                               device)}
     return TrainState(params=params,
                       velocity=tree_map(torch.zeros_like, params),
-                      step=torch.zeros((), dtype=torch.int32,
-                                       device=_device(params)))
+                      step=torch.zeros((), dtype=torch.int32, device=device),
+                      ng=ng)
+
+
+def dropout_mask(step: int, keep: float, shape, device) -> torch.Tensor:
+    """The keep mask (bool, True with probability ``keep``) of training
+    step ``step``: uniform draws from a ``torch.Generator`` on ``device``
+    seeded with the step, so a step's mask is the same on a resumed run.
+    JAX draws ``bernoulli(fold_in(PRNGKey(0), step))``, other bits: the
+    masks differ between the packages (ROADMAP §3)."""
+    gen = torch.Generator(device=device)
+    gen.manual_seed(int(step))
+    return torch.rand(shape, generator=gen, device=device) < keep
 
 
 def exponential_lr(opts: TrainOptions, step: torch.Tensor) -> torch.Tensor:
@@ -131,10 +160,20 @@ def build_train_step(cfg: AmConfig, opts: TrainOptions):
     label_lens [B] (torch tensors or numpy arrays; moved to the params'
     device).  metrics: scalars as tensors on the device, plus the
     greedy hypotheses (``hyp_ids``, ``hyp_lens``) for host-side
-    accuracy.  Nothing is read back to the host.
+    accuracy.  Nothing is read back to the host, but for the step
+    number that seeds a dropout mask (with ``cfg.dropout > 0``).
     """
-    if opts.affine_type == "natural":
-        raise NotImplementedError(_NG_NOT_PORTED)
+    use_ng = opts.affine_type == "natural"
+    if use_ng:
+        from kaldi_ctc_tpu_torch.training.natural_gradient import (
+            NgOptions, ng_affine_update)
+        ng_opts = NgOptions(
+            rank_in=opts.ng_rank_in, rank_out=opts.ng_rank_out,
+            update_period=opts.ng_update_period,
+            num_samples_history=opts.ng_num_samples_history,
+            alpha=opts.ng_alpha)
+    ng_layers = [name for name in ("out", "front")
+                 if use_ng and (name == "out" or cfg.front_affine_dim)]
 
     def train_step(state: TrainState, batch: Dict[str, Any]):
         batch = _on(batch, state.step.device)
@@ -142,19 +181,38 @@ def build_train_step(cfg: AmConfig, opts: TrainOptions):
                   for p in tree_flatten(state.params)]
         params = tree_unflatten(state.params, leaves)
         out_lens = cfg.output_lens(batch["input_lens"])
+        mask = None
+        if cfg.dropout > 0.0:
+            b, t = batch["feats"].shape[:2]
+            mask = dropout_mask(int(state.step), 1.0 - cfg.dropout,
+                                (-(-t // cfg.time_stride), b,
+                                 cfg.rnn.output_dim), state.step.device)
+        taps = {} if use_ng else None
         with torch.enable_grad():
-            # dropout needs a generator here; am_forward raises for it
-            # until dropout is ported (ROADMAP item 12)
-            logits = am_forward(
-                params, batch["feats"], cfg, input_lens=batch["input_lens"],
-                dropout_generator=(torch.Generator() if cfg.dropout > 0.0
-                                   else None))
+            logits = am_forward(params, batch["feats"], cfg,
+                                input_lens=batch["input_lens"],
+                                dropout_mask=mask, taps=taps)
             losses = ctc_loss(logits, batch["labels"], out_lens,
                               batch["label_lens"])
             total = torch.sum(losses) * opts.objective_scale
-        grads = tree_unflatten(state.params,
-                               list(torch.autograd.grad(total, leaves)))
+        # with NG-SGD, the gradients of the affine pre-activations too:
+        # the JAX package's zero-probe gradients, [T'*B, A] for the output
+        # affine (time-major rows) and [T, B, F] for the front
+        pre = [taps[f"{name}_pre"] for name in ng_layers]
+        all_grads = torch.autograd.grad(total, leaves + pre)
+        grads = tree_unflatten(state.params, list(all_grads[:len(leaves)]))
+        new_ng = state.ng
         with torch.no_grad():
+            if use_ng:
+                new_ng = dict(state.ng)
+                for name, dy in zip(ng_layers, all_grads[len(leaves):]):
+                    x = taps[f"{name}_in"]
+                    gw, gb, s_in, s_out = ng_affine_update(
+                        state.ng[name]["in"], state.ng[name]["out"],
+                        x.reshape(-1, x.shape[-1]),
+                        dy.reshape(-1, dy.shape[-1]), ng_opts)
+                    grads[f"{name}_w"], grads[f"{name}_b"] = gw, gb
+                    new_ng[name] = {"in": s_in, "out": s_out}
             grads = _clip_tree(grads, opts)
             lr = exponential_lr(opts, state.step)
             grad_norm = torch.sqrt(sum(torch.sum(g * g)
@@ -177,13 +235,17 @@ def build_train_step(cfg: AmConfig, opts: TrainOptions):
                 velocity = tree_map(
                     lambda v_new, v_old: torch.where(finite, v_new, v_old),
                     velocity, state.velocity)
+                if use_ng:
+                    # nor the preconditioners
+                    new_ng = tree_map(lambda n, o: torch.where(finite, n, o),
+                                      new_ng, state.ng)
             else:
                 params = tree_map(lambda p, v: p - lr * v, state.params,
                                   velocity)
             new_state = TrainState(
                 params=params,
                 velocity=velocity if opts.momentum > 0 else state.velocity,
-                step=state.step + 1, ng=state.ng)
+                step=state.step + 1, ng=new_ng)
             hyp_ids, hyp_lens = greedy_collapse(
                 torch.argmax(logits.detach(), dim=-1), out_lens)
             num_frames = torch.sum(out_lens)

@@ -254,8 +254,8 @@ def test_kaldi_archives_cross_packages(tmp_path):
 
 def test_unported_flags_raise(setup, tmp_path):
     """--lattice and --determinize raise naming item 15; the FT, DS2 and
-    splicing model types raise naming item 12 before init_model writes a
-    file; decode_ctc and nnet_compute default to the card and raise
+    splicing model types initialise, and a DS2 front with splicing raises
+    ValueError before init_model writes a file; decode_ctc and nnet_compute default to the card and raise
     without one."""
     from kaldi_ctc_tpu_torch.cli import decode_ctc, init_model, nnet_compute
 
@@ -269,11 +269,20 @@ def test_unported_flags_raise(setup, tmp_path):
                                 "--determinize", "1"])
     for extra in (["--front-affine-dim", "16"], ["--conv-layers", "1"],
                   ["--splice-left", "2"]):
+        # the model types of ROADMAP item 12 now initialise
         out = tmp_path / extra[0].strip("-")
-        with pytest.raises(NotImplementedError, match="item 12"):
-            init_model.main(["--dir", str(out), "--input-dim", "8",
-                             "--num-targets", "6"] + extra)
-        assert not out.exists()
+        init_model.main(["--dir", str(out), "--input-dim", "8",
+                         "--num-targets", "6", "--hidden-dim", "8",
+                         "--num-layers", "1"] + extra)
+        with open(out / "model_config.json") as f:
+            assert json.load(f)[extra[0][2:].replace("-", "_")] == int(
+                extra[1])
+    out = tmp_path / "ds2_splice"
+    with pytest.raises(ValueError, match="DS2 conv front"):
+        init_model.main(["--dir", str(out), "--input-dim", "8",
+                         "--num-targets", "6", "--conv-layers", "1",
+                         "--splice-left", "2"])
+    assert not out.exists()
     assert decode_ctc.parse_args(["--feats", "x"]).device == "cuda"
     assert nnet_compute.parse_args(["--output", "x"]).device == "cuda"
     if not torch.cuda.is_available():

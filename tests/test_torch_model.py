@@ -243,16 +243,39 @@ def test_config_round_trip_and_output_lens():
                                    dict(front_affine_dim=16),
                                    dict(conv_layers=1)])
 def test_unported_model_families_raise(extra):
-    _, tcfg = _cfg(**extra)
-    with pytest.raises(NotImplementedError, match="item 12"):
-        tam.init_am_params(tcfg)
+    """Splicing, the FT front and the DS2 conv front, once refused, now
+    build the JAX package's parameter tree: the same leaves in the same
+    order with the same shapes and the same RNN input width; a DS2 front
+    combined with splicing or the FT front raises ValueError in both."""
+    jcfg, tcfg = _cfg(**extra)
+    jleaves = jax.tree_util.tree_leaves(_jax_params(jcfg))
+    tleaves = tree_flatten(tam.init_am_params(
+        tcfg, torch.Generator().manual_seed(0)))
+    assert [tuple(t.shape) for t in tleaves] == [r.shape for r in jleaves]
+    assert tcfg.rnn == tam.AmConfig.from_dict(jcfg.to_dict()).rnn
+    assert tcfg.rnn.input_dim == jcfg.rnn.input_dim
+    for bad in (dict(conv_layers=1, splice_left=1),
+                dict(conv_layers=1, front_affine_dim=4)):
+        jbad, tbad = _cfg(**bad)
+        for c in (jbad, tbad):
+            with pytest.raises(ValueError, match="DS2 conv front"):
+                c.rnn
 
 
 def test_dropout_in_training_raises():
+    """Dropout acts only where a mask is given (training): without one
+    the forward is the eval forward; with one, kept units are scaled by
+    1 / (1 - p) and dropped ones zeroed before the output affine."""
     _, tcfg = _cfg(dropout=0.2)
     params = tam.init_am_params(tcfg, torch.Generator().manual_seed(0))
-    feats = torch.zeros((1, 4, 8))
-    assert tam.am_forward(params, feats, tcfg).shape == (1, 4, 7)
-    with pytest.raises(NotImplementedError, match="dropout"):
-        tam.am_forward(params, feats, tcfg,
-                       dropout_generator=torch.Generator())
+    feats = torch.randn((1, 4, 8), generator=torch.Generator().manual_seed(1))
+    eval_out = tam.am_forward(params, feats, tcfg)
+    assert eval_out.shape == (1, 4, 7)
+    ones = torch.ones((4, 1, 32), dtype=torch.bool)
+    assert torch.equal(tam.am_forward(params, feats, tcfg,
+                                      dropout_mask=~ones), params["out_b"]
+                       .expand(1, 4, 7))
+    got = tam.am_forward(params, feats, tcfg, dropout_mask=ones)
+    np.testing.assert_allclose(got.numpy(), (
+        eval_out - params["out_b"]).numpy() / 0.8 + params["out_b"].numpy(),
+        rtol=1e-5, atol=1e-6)

@@ -284,6 +284,9 @@ def test_port_imports_without_jax(tmp_path):
         " compute_cmvn, feat_tool)\n"
         "import kaldi_ctc_tpu_torch.data.pipeline, kaldi_ctc_tpu_torch.lm\n"
         "import kaldi_ctc_tpu_torch.parallel.distributed\n"
+        "import kaldi_ctc_tpu_torch.training.realign\n"
+        "import kaldi_ctc_tpu_torch.training.natural_gradient\n"
+        "from kaldi_ctc_tpu_torch.cli import align_ctc\n"
         "from kaldi_ctc_tpu_torch.features import (functions, transform,"
         " spectrogram, plp, pitch, htk)\n"
         "kaldi_ctc_tpu_torch.decoding.wfst._load()\n"

@@ -21,7 +21,8 @@ from kaldi_ctc_tpu.models import acoustic as jacoustic
 from kaldi_ctc_tpu.ops import rnn as jrnn
 from kaldi_ctc_tpu.ops import rnn_pallas
 from kaldi_ctc_tpu_torch.decoding import streaming as tstreaming
-from kaldi_ctc_tpu_torch.models.acoustic import AmConfig, am_forward
+from kaldi_ctc_tpu_torch.models.acoustic import (AmConfig, am_forward,
+                                                 init_am_params)
 from kaldi_ctc_tpu_torch.ops import rnn as trnn
 from kaldi_ctc_tpu_torch.ops import rnn_cuda
 from kaldi_ctc_tpu_torch.params import from_jax_params
@@ -263,8 +264,13 @@ def test_recognizers_refuse_what_cannot_stream():
             value = True if field == "bidirectional" else 1
             with pytest.raises(ValueError, match=msg):
                 make(dataclasses.replace(tcfg, **{field: value}))
-        with pytest.raises(NotImplementedError, match="item 12"):
-            make(dataclasses.replace(tcfg, front_affine_dim=8))
+    # the FT front is frame-local: both recognizers stream it (ROADMAP
+    # item 12), the front's weights on the chunk scorer
+    ft = dataclasses.replace(tcfg, front_affine_dim=8)
+    fparams = init_am_params(ft, torch.Generator().manual_seed(0))
+    for rec in (tstreaming.StreamingRecognizer(fparams, ft),
+                tstreaming.BatchStreamingRecognizer(fparams, ft, 2, 5)):
+        assert rec.chunk_fn.front["front_w"].shape == (ft.input_dim, 8)
 
 
 # ---- /stream/* against the JAX server ----

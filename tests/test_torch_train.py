@@ -246,16 +246,27 @@ def _check_train_state_round_trip(bidirectional):
 
 
 def test_unported_training_options_raise():
-    _, tcfg = _cfgs()
-    with pytest.raises(NotImplementedError, match="item 13"):
-        ttrain.build_train_step(tcfg, ttrain.TrainOptions(
-            affine_type="natural"))
-    params = from_jax_params(jax.device_get(init_am_params(
-        jax.random.PRNGKey(0), _cfgs()[0])))
-    with pytest.raises(NotImplementedError, match="item 13"):
-        ttrain.init_train_state(params, ttrain.TrainOptions(
-            affine_type="natural"))
+    """The options once refused now run: ``affine_type="natural"`` gives
+    the JAX package's NG state tree (the same leaves, shapes and dtypes,
+    the counter int32) and a step that advances it; a dropout step draws
+    its mask from the step number, the same mask for the same step."""
+    jcfg, tcfg = _cfgs()
+    opts = dict(affine_type="natural", ng_rank_in=5, ng_rank_out=4)
+    jparams = init_am_params(jax.random.PRNGKey(0), jcfg)
+    jstate = jtrain.init_train_state(jparams, jtrain.TrainOptions(**opts))
+    params = from_jax_params(jax.device_get(jparams))
+    state = ttrain.init_train_state(params, ttrain.TrainOptions(**opts))
+    jleaves = _leaves(jstate.ng)
+    assert [(tuple(t.shape), t.numpy().dtype) for t in tree_flatten(
+        state.ng)] == [(j.shape, j.dtype) for j in jleaves]
+    step = ttrain.build_train_step(tcfg, ttrain.TrainOptions(**opts))
+    new, m = step(state, _batch())
+    assert bool(m["finite"]) and int(new.ng["out"]["in"].t) == 1
+    assert ttrain.dropout_mask(7, 0.9, (4, 3), "cpu").equal(
+        ttrain.dropout_mask(7, 0.9, (4, 3), "cpu"))
     step = ttrain.build_train_step(dataclasses.replace(tcfg, dropout=0.1),
                                    ttrain.TrainOptions())
-    with pytest.raises(NotImplementedError, match="dropout"):
-        step(ttrain.init_train_state(params), _batch())
+    a, _ = step(ttrain.init_train_state(params), _batch())
+    b, _ = step(ttrain.init_train_state(params), _batch())
+    assert all(x.equal(y) for x, y in zip(tree_flatten(a.params),
+                                          tree_flatten(b.params)))

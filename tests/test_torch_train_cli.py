@@ -261,13 +261,29 @@ def test_train_ctc_growth(data, tmp_path, caplog):
 ])
 def test_train_ctc_unported_flags_raise_before_writing(data, tmp_path, flags,
                                                         item):
+    """The flags that raised before any file was written until ROADMAP
+    items 12 and 13 were ported now train: a fresh two-epoch run per flag
+    writes its config, finite steps and a final checkpoint (their
+    agreement with the JAX package: tests/test_torch_am_extras.py,
+    test_torch_align.py and test_torch_ng.py)."""
     from kaldi_ctc_tpu_torch.cli import train_ctc
 
     exp = tmp_path / "exp"
-    with pytest.raises(NotImplementedError, match=item):
-        train_ctc.main(_argv(data) + flags + ["--dir", str(exp),
-                                              "--device", "cpu"])
-    assert not exp.exists()
+    argv = _argv(data, epochs=2)
+    argv.remove("--resume")
+    train_ctc.main(argv + flags + ["--dir", str(exp), "--device", "cpu"])
+    steps = [r for r in _records(str(exp)) if r["event"] == "train_step"]
+    assert len(steps) == 4 and all(np.isfinite(r["loss_per_frame"])
+                                   for r in steps)
+    with open(exp / "model_config.json") as f:
+        cfg = json.load(f)
+    key = flags[0][2:].replace("-", "_")
+    if key in cfg:
+        assert cfg[key] == type(cfg[key])(flags[1])
+    _, meta = _final_leaves(str(exp))
+    assert meta["extra"]["final"] and meta["step"] == 4
+    if key == "realign_epochs":
+        assert (exp / "realign_labels.host0.json").exists()
 
 
 def test_train_ctc_profile_trace_on_cpu(data, tmp_path):
