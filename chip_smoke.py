@@ -8,9 +8,11 @@ streaming path and the training step at the full width of the flagship
 model and of its unidirectional variant, each with LSTM and with GRU
 layers, and of the 3x128 BLSTM of recipes/medium and recipes/hard, and
 offline decoding with word output (decode_ctc, nnet_compute, the model
-CLIs and serve --graph) on the flagship, and the training drive from WAV
+CLIs and serve --graph) on the flagship, the training drive from WAV
 files to a trained flagship (compute_feats, prepare_egs, train_ctc,
-compute_prob, adjust_priors, decode_ctc, decode_stream).  Each
+compute_prob, adjust_priors, decode_ctc, decode_stream), and slice 8:
+bench.py's DS2 flagship served and trained, NG-SGD, realignment,
+align_ctc and an FT-front stream on the 3x128 BLSTM and a uni LSTM.  Each
 phase prints one JSON line; any failed phase exits non-zero with no
 result line:
 
@@ -203,6 +205,32 @@ result line:
    one summary line (feature RTF, train_ctc's steps/s and audio-s/s, the
    compute_prob loss, the decode_stream RTF, K7's route) with the card's
    name and power limit.
+28. serve_ds2, train_ds2 (after pipeline): bench.py's DS2 flagship
+   (``_bench_cfg(ds2=True)``: 2 conv layers of 32 channels, time stride
+   2, then the 5x320 BLSTM at half the frames; the convs cuDNN's, f32 in
+   both dtypes) served as in 7 and trained as in 8 (K2 5x, K3 5x and K1
+   once a step; eval K2 5x and K11 once), with the convs' share of the
+   profiled step's device time;
+29. extras: slice 8's CLIs on the card.  ``decode_ctc`` greedy on the
+   DS2 flagship (``init_model --conv-layers 2``, and its bf16 twin) over
+   16 of the pipeline's utterances, equal to the plain path; the 3x128
+   BLSTM on the pipeline's egs: ``train_ctc --affine-type natural`` (10
+   steps, cv at step 10; the first step's loss and grad norm against one
+   plain step of NG-SGD from the same parameters, TRAIN_TOL; K2 1x, K10a
+   2x, K3 1x, K10b 2x and K1 once a step) and ``train_ctc
+   --realign-epochs 1 --epochs 2`` (B=16; the realign fires at epoch 1
+   and the lr decay horizon is recomputed: later steps' lr equal the new
+   horizon's); ``align_ctc`` on the 48 valid utterances (RTF, the Viterbi
+   loop's seconds and share of the wall) against the same CLI on the
+   plain versions (mean path log-prob within ALIGN_LP_RTOL), ``prepare_egs
+   relabel --frame-labels 1`` on its frame labels (equal to the egs'
+   labels) and ``adjust_priors --frame-labels 1`` (equal to the
+   frame-label occupancies); a uni LSTM 5x320 behind a pnorm FT front
+   (group 2) streamed by ``decode_stream`` (K7 a chunk), equal to its
+   offline greedy ``decode_ctc`` (K5); ``train_ctc --dropout 0.1
+   --splice-left 2 --splice-right 2`` on the 3x128; one summary line; then
+   ``extras_launches``, which fails unless the slice's paths launched K2,
+   K3, K1, K11, K10a, K10b, K5 and K7.
 
 Every profiled window (a request, a step, a tick) runs its work as the
 profiler's warm-up for 50 ms or more, then a marker kernel, then the
@@ -217,8 +245,9 @@ a line ``{"kernels": [...], "launch_floor_ms": ...}`` with each kernel's
 launches during the
 driven paths (serve, train, eval, the separate CTC path, serve_uni with
 its streams, train_uni, the same four for the GRU models, serve_proj,
-train_proj, decode's decode_ctc runs and served requests, and the
-pipeline's CLI runs; counts set to 0 before each and read after it),
+train_proj, decode's decode_ctc runs and served requests, the
+pipeline's CLI runs, serve_ds2, train_ds2 and the extras' CLI runs;
+counts set to 0 before each and read after it),
 its error, its time beside the plain version's, its bound (the larger of
 its bytes over 3.35 TB/s and its operations over the peak rate of its
 type: 67 TFLOP/s f32, 989 TFLOP/s bf16, H100 SXM data sheet) and the
@@ -306,6 +335,9 @@ BWD_COOPERATIVE_H = {"K3": 512, "K6": 512, "K9b": 576}
 # the 3x128 BLSTM of recipes/medium and recipes/hard: hidden units,
 # layers, targets (its input is the flagship's 40-dim features)
 PROJ_H, PROJ_LAYERS, PROJ_TARGETS = 128, 3, 42
+# bench.py's DS2 configuration (_bench_cfg(ds2=True)): the flagship behind
+# a 2-layer conv front of 32 channels, time stride 2
+DS2_CONV = dict(conv_layers=2, conv_channels=32, conv_time_stride=2)
 DTYPES = ("float32", "bfloat16")
 # H100 SXM published peaks (NVIDIA data sheet): HBM bytes/s, f32 and bf16
 # FLOP/s; the bound of a kernel is the larger of its two times
@@ -2169,10 +2201,11 @@ def serve_launches(gru, proj, dtype):
     return {"bilstm_fwd": 5, "bilstm_proj_fwd": 0}
 
 
-def phase_serve(torch, np, mode=None, proj=False):
-    """The bidirectional 5x320 flagship, a BLSTM or ``mode``'s cell, or
-    with ``proj`` the 3x128 BLSTM, served per dtype through /recognize
-    (launches per request: ``serve_launches``)."""
+def phase_serve(torch, np, mode=None, proj=False, ds2=False):
+    """The bidirectional 5x320 flagship, a BLSTM or ``mode``'s cell, with
+    ``proj`` the 3x128 BLSTM, or with ``ds2`` the flagship behind bench.py's
+    DS2 conv front, served per dtype through /recognize (launches per
+    request: ``serve_launches``)."""
     from kaldi_ctc_tpu_torch.cli import serve
     from kaldi_ctc_tpu_torch.models.acoustic import (AmConfig,
                                                      default_priors,
@@ -2182,7 +2215,8 @@ def phase_serve(torch, np, mode=None, proj=False):
 
     mode = mode or RnnMode.LSTM
     gru = mode == RnnMode.GRU
-    tag = "bigru" if gru else ("proj" if proj else "flagship")
+    tag = "bigru" if gru else ("proj" if proj else
+                               "ds2" if ds2 else "flagship")
     hidden, layers, targets = ((PROJ_H, PROJ_LAYERS, PROJ_TARGETS) if proj
                                else (320, 5, 72))
 
@@ -2195,7 +2229,7 @@ def phase_serve(torch, np, mode=None, proj=False):
     for dtype in ("float32", "bfloat16"):
         cfg = AmConfig(input_dim=40, num_targets=targets, hidden_dim=hidden,
                        num_layers=layers, mode=mode, bidirectional=True,
-                       compute_dtype=dtype)
+                       compute_dtype=dtype, **(DS2_CONV if ds2 else {}))
         params = init_am_params(cfg, torch.Generator().manual_seed(0))
         want = serve_launches(gru, proj, dtype)
         path = os.path.join(out_dir, f"{tag}_{dtype}.npz")
@@ -2252,16 +2286,18 @@ def phase_serve(torch, np, mode=None, proj=False):
             with plain_versions():
                 feats_p = engine.feats_for(xf)
                 _, _, raw_p = engine.score_utt(feats_p)
-            if not np.isfinite(raw).all() or raw.shape != (feats.shape[0],
-                                                           targets):
+            if not np.isfinite(raw).all() or raw.shape != (
+                    cfg.output_lens(feats.shape[0]), targets):
                 fail(f"scores not finite or misshapen: {raw.shape}")
             score_err = max(score_err, float(np.abs(raw - raw_p).max()))
             same_labels += int((raw.argmax(-1) == raw_p.argmax(-1)).all())
-        res = {"phase": ("serve_gru" if gru else
-                         "serve_proj" if proj else "serve"), "dtype": dtype,
-               "model": "%dx%d %s, 40-dim MFCC-hires, %d targets"
-                        % (layers, hidden, "BiGRU" if gru else "BLSTM",
-                           targets),
+        res = {"phase": ("serve_gru" if gru else "serve_proj" if proj
+                         else "serve_ds2" if ds2 else "serve"),
+               "dtype": dtype,
+               "model": "%s%dx%d %s, 40-dim MFCC-hires, %d targets"
+                        % ("DS2 conv front (2 layers, 32 channels, time "
+                           "stride 2) + " if ds2 else "", layers, hidden,
+                           "BiGRU" if gru else "BLSTM", targets),
                "requests": reqs, "max_abs_score_err_vs_plain": score_err,
                "score_tol": SCORE_TOL[dtype],
                "utterances_with_equal_frame_argmax": same_labels}
@@ -2630,13 +2666,15 @@ def train_launches(fwd, bwd, layers, proj, dtype):
     return want
 
 
-def phase_train(torch, np, dev, bidirectional=True, mode=None, proj=False):
+def phase_train(torch, np, dev, bidirectional=True, mode=None, proj=False,
+                ds2=False):
     """The flagship training step (or, with ``bidirectional=False``, its
     unidirectional variant's; an LSTM or ``mode``'s cell; with ``proj``
-    the 3x128 BLSTM's, at the recipes' momentum and learning rate) at
-    bench.py's shapes: parity with the plain versions on the card, launch
-    counts, the eval step, audio-s/s and one profiled step, for f32 then
-    bf16."""
+    the 3x128 BLSTM's, at the recipes' momentum and learning rate; with
+    ``ds2`` the flagship behind bench.py's DS2 conv front, T halved
+    before the stack) at bench.py's shapes: parity with the plain
+    versions on the card, launch counts, the eval step, audio-s/s and one
+    profiled step, for f32 then bf16."""
     from torch.profiler import DeviceType
 
     from kaldi_ctc_tpu_torch.models.acoustic import AmConfig, init_am_params
@@ -2666,7 +2704,8 @@ def phase_train(torch, np, dev, bidirectional=True, mode=None, proj=False):
     for dtype in DTYPES:
         cfg = AmConfig(input_dim=40, num_targets=targets, hidden_dim=hidden,
                        num_layers=layers, mode=mode,
-                       bidirectional=bidirectional, compute_dtype=dtype)
+                       bidirectional=bidirectional, compute_dtype=dtype,
+                       **(DS2_CONV if ds2 else {}))
         params = init_am_params(cfg, torch.Generator().manual_seed(0), dev)
         state0 = train.init_train_state(params)
         step = train.build_train_step(cfg, opts)
@@ -2777,10 +2816,13 @@ def phase_train(torch, np, dev, bidirectional=True, mode=None, proj=False):
 
         res = {"phase": ("train" + ("_gru" if cell == "gru" else "")
                          + ("" if bidirectional else "_uni")
-                         + ("_proj" if proj else "")),
+                         + ("_proj" if proj else "")
+                         + ("_ds2" if ds2 else "")),
                "dtype": dtype,
-               "model": "%dx%d %s%s, 40-dim input, %d targets"
-                        % (layers, hidden, "B" if bidirectional else "",
+               "model": "%s%dx%d %s%s, 40-dim input, %d targets"
+                        % ("DS2 conv front (2 layers, 32 channels, time "
+                           "stride 2, T/2 into the stack) + " if ds2 else "",
+                           layers, hidden, "B" if bidirectional else "",
                            cell.upper(), targets),
                "B": b, "T": t, "L": l, "steps": steps, "plain_steps": plain,
                "max_rel_err_loss": loss_rel, "max_rel_err_grad_norm":
@@ -2802,6 +2844,9 @@ def phase_train(torch, np, dev, bidirectional=True, mode=None, proj=False):
                    (round(1 - device_ms / traced_ms, 4) if device_ms
                     else "not measured"),
                "k1_share_of_device": share("ctc_kernel", "ctc_warp_kernel"),
+               **({"conv_share_of_device": share("convolve", "dgrad",
+                                                 "wgrad", "conv2d")}
+                  if ds2 else {}),
                **{f"{k}_share_of_device": share(*kernel_tags(k))
                   for k in want if k != "ctc_alpha_beta"},
                "top_kernels": [{"name": k[2][:80], "us": round(k[0], 1),
@@ -3588,6 +3633,369 @@ def phase_pipeline(torch, np, dev, smi):
     return launches
 
 
+# the extras phase: the DS2 flagship's greedy decode, the 3x128 BLSTM's
+# NG-SGD and realign runs on the pipeline phase's egs (recipes/medium's
+# momentum and learning rate), align_ctc on its valid set, a uni LSTM
+# 5x320 behind a pnorm FT front streamed, a spliced dropout run
+EXTRAS_DECODE_UTTS, EXTRAS_STREAMS, NG_STEPS = 16, 8, 10
+# the kernels slice 8's paths must launch: K2, K3, K1, K11, K10a, K10b,
+# K5, K7
+SLICE8_KERNELS = ("bilstm_fwd", "bilstm_bwd", "ctc_alpha_beta",
+                  "ctc_alphas", "bilstm_proj_fwd", "bilstm_proj_bwd",
+                  "lstm_fwd", "lstm_stack")
+# the DS2 flagship's and the FT uni LSTM's width (a CPU rehearsal may set
+# less)
+EXTRAS_HIDDEN = 320
+RECIPE_OPTS = ["--momentum", "0.9", "--initial-learning-rate", "1e-3"]
+# align_ctc's mean path log-prob against the same CLI on the plain
+# versions: sums of f32 log-softmax values of logits that differ by the
+# kernels' f32 tolerance
+ALIGN_LP_RTOL = 1e-4
+
+
+def proj_step_launches(steps, cv_batches):
+    """The launches of a train_ctc run of the 3x128 BLSTM in f32: per
+    step layer 1 on K2/K3, layers 2-3 on K10a/K10b, K1 once; per cv
+    batch the forwards and K11."""
+    return {"bilstm_fwd": steps + cv_batches, "bilstm_bwd": steps,
+            "bilstm_proj_fwd": 2 * (steps + cv_batches),
+            "bilstm_proj_bwd": 2 * steps, "ctc_alpha_beta": steps,
+            "ctc_alphas": cv_batches}
+
+
+def timed_viterbi(torch, dev, seconds):
+    """A context in which ``ops.ctc.ctc_viterbi_align`` adds its wall
+    seconds (synchronised) to ``seconds[0]``."""
+    from kaldi_ctc_tpu_torch.ops import ctc
+    plain = ctc.ctc_viterbi_align
+
+    def timed(*args, **kw):
+        sync(torch, dev)
+        t0 = time.perf_counter()
+        out = plain(*args, **kw)
+        sync(torch, dev)
+        seconds[0] += time.perf_counter() - t0
+        return out
+
+    @contextlib.contextmanager
+    def swap():
+        ctc.ctc_viterbi_align = timed
+        try:
+            yield
+        finally:
+            ctc.ctc_viterbi_align = plain
+    return swap()
+
+
+def phase_extras(torch, np, dev, smi):
+    """Slice 8's paths through the port's CLIs on the card: decode_ctc
+    greedy on the DS2 flagship per dtype against the plain path; the 3x128
+    BLSTM trained by train_ctc --affine-type natural (its first step held
+    to the plain versions, K11 in cv) and by train_ctc --realign-epochs 1
+    (the realign fires and recomputes the lr decay horizon); align_ctc on
+    the valid set against the plain path, then prepare_egs relabel
+    --frame-labels 1 and adjust_priors --frame-labels 1 on its output; a
+    uni LSTM 5x320 behind a pnorm FT front streamed by decode_stream (K7)
+    and equal to its offline greedy decode (K5); one spliced train_ctc
+    run with dropout → the launch counts of the CLI runs."""
+    import shutil
+
+    from kaldi_ctc_tpu_torch.cli import (adjust_priors, align_ctc,
+                                         decode_ctc, decode_stream,
+                                         init_model, prepare_egs, train_ctc)
+    from kaldi_ctc_tpu_torch.data import EgsPipeline
+    from kaldi_ctc_tpu_torch.data.egs_io import SequentialEgsReader
+    from kaldi_ctc_tpu_torch.models import AmConfig, init_am_params
+    from kaldi_ctc_tpu_torch.parallel import shard_batch
+    from kaldi_ctc_tpu_torch.training import (TrainOptions, build_train_step,
+                                              exponential_lr,
+                                              init_train_state)
+    from kaldi_ctc_tpu_torch.training.checkpoint import save_checkpoint
+    from kaldi_ctc_tpu_torch.utils.kaldi_io import (SequentialIntVectorReader,
+                                                    SequentialMatrixReader)
+
+    pipe = os.path.join(ROOT, "build", "smoke", "pipeline")
+    work = os.path.join(ROOT, "build", "smoke", "extras")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    device = ["--device", dev.type]
+    launches = collections.Counter()
+    summary = {"card": smi}
+    with open(os.path.join(pipe, "feats.scp")) as f:
+        scp_lines = f.readlines()
+    feats = dict(SequentialMatrixReader(f"scp:{pipe}/feats.scp"))
+
+    def subset(name, n):
+        path = os.path.join(work, f"{name}.scp")
+        with open(path, "w") as f:
+            f.writelines(scp_lines[:n])
+        return path, sum(feats[line.split()[0]].shape[0]
+                         for line in scp_lines[:n]) * 0.01
+
+    # 1. the DS2 flagship (init_model's defaults, as the decode phase's
+    # flagship): decode_ctc greedy per dtype against the plain path
+    scp, audio_s = subset("decode", EXTRAS_DECODE_UTTS)
+    ds2 = {"float32": os.path.join(work, "exp_ds2")}
+    run_cli(init_model.main, [
+        "--dir", ds2["float32"], "--input-dim", "40", "--num-targets", "72",
+        "--hidden-dim", str(EXTRAS_HIDDEN), "--num-layers", "5",
+        "--conv-layers", "2", "--conv-channels", "32",
+        "--conv-time-stride", "2"])
+    ds2["bfloat16"] = ds2["float32"] + "_bf16"
+    shutil.copytree(ds2["float32"], ds2["bfloat16"])
+    cfg_path = os.path.join(ds2["bfloat16"], "model_config.json")
+    with open(cfg_path) as f:
+        cfg = json.load(f)
+    with open(cfg_path, "w") as f:
+        json.dump({**cfg, "compute_dtype": "bfloat16"}, f)
+    for dtype, exp in ds2.items():
+        argv = ["--feats", f"scp:{scp}", "--dir", exp, "--method",
+                "greedy", "--use-priors", "0"]
+        hyp, plain_hyp = (os.path.join(work, f"ds2_{dtype}_{k}.txt")
+                          for k in ("kernels", "plain"))
+        _, counts, wall = cli_counts(decode_ctc.main, argv + [
+            "--output", hyp] + device)
+        launches.update(counts)
+        _, plain_launches = plain_cli(decode_ctc.main, argv + [
+            "--output", plain_hyp] + device)
+        got, want = read_hyps(hyp), read_hyps(plain_hyp)
+        res = {"phase": "extras_ds2_decode", "dtype": dtype,
+               "model": "DS2 conv front (2 layers, 32 channels, time "
+                        "stride 2) + 5x320 BLSTM, init_model --seed 0",
+               "utterances": len(got), "audio_seconds": round(audio_s, 3),
+               "wall_s": round(wall, 4), "rtf": wall / audio_s,
+               "equal_to_plain": got == want,
+               "utterances_equal": sum(got.get(k) == v
+                                       for k, v in want.items()),
+               "labels": sum(len(v) for v in got.values()),
+               "k2_launches": counts["bilstm_fwd"]}
+        emit(res)
+        if (got != want or len(got) != EXTRAS_DECODE_UTTS or plain_launches
+                or counts["bilstm_fwd"] != 5):
+            fail(f"DS2 decode_ctc: {res}")
+
+    # 2. the 3x128 BLSTM, train_ctc --affine-type natural, 10 steps, cv at
+    # step 10; its first step against the plain versions
+    proj = ["--egs", f"scp:{pipe}/train_egs.scp", "--num-targets", "72",
+            "--hidden-dim", str(PROJ_H), "--num-layers", str(PROJ_LAYERS)]
+    valid = ["--valid-feats", f"scp:{pipe}/feats.scp", "--valid-ali",
+             f"ark:{pipe}/ali_valid.ark", "--cmvn", f"ark:{pipe}/cmvn.ark",
+             "--utt2spk", f"{pipe}/utt2spk"]
+    exp_ng = os.path.join(work, "exp_ng")
+    epochs = NG_STEPS // (PIPE_TRAIN // 48)
+    _, counts, wall = cli_counts(train_ctc.main, proj + valid + RECIPE_OPTS + [
+        "--affine-type", "natural", "--epochs", str(epochs),
+        "--cv-period", "1", "--dir", exp_ng] + device)
+    launches.update(counts)
+    recs = train_records(exp_ng)
+    steps = [r for r in recs if r["event"] == "train_step"]
+    examples = list(SequentialEgsReader(f"scp:{pipe}/train_egs.scp"))
+    first = next(EgsPipeline(examples, minibatch_size=48).epoch(0))
+    first.pop("keys")
+    cfg = AmConfig(input_dim=40, num_targets=72, hidden_dim=PROJ_H,
+                   num_layers=PROJ_LAYERS)
+    opts = TrainOptions(initial_learning_rate=1e-3, momentum=0.9,
+                        num_steps=NG_STEPS, affine_type="natural")
+    state = init_train_state(train_ctc.initial_params(cfg, 0, dev), opts)
+    with plain_versions():
+        _, m = build_train_step(cfg, opts)(state, shard_batch(first, dev))
+    plain = {k: float(m[k]) for k in ("loss_per_frame", "grad_norm")}
+    loss_rtol, grad_rtol, _ = TRAIN_TOL["float32"]
+    rel = {k: abs(steps[0][k] - v) / abs(v) for k, v in plain.items()}
+    span = steps[-1]["t"] - steps[0]["t"]
+    want = proj_step_launches(NG_STEPS, 1)
+    res = {"phase": "extras_train_ng", "dtype": "float32",
+           "model": "3x128 BLSTM, 72 targets, --affine-type natural "
+                    "(ranks 30 / 80)",
+           "steps": len(steps), "wall_s": round(wall, 4),
+           "steps_per_s": (len(steps) - 1) / span,
+           "audio_s_per_s": sum(r["num_frames"] for r in steps[1:]) * 0.01
+           / span,
+           "loss_per_frame": [r["loss_per_frame"] for r in steps],
+           "first_step_rel_err_vs_plain": rel,
+           "tol": {"loss_per_frame": loss_rtol, "grad_norm": grad_rtol},
+           "launches": {k: counts[k] for k in want}}
+    emit(res)
+    summary["train_ng"] = {k: res[k] for k in ("steps_per_s",
+                                               "audio_s_per_s")}
+    if (len(steps) != NG_STEPS or res["launches"] != want
+            or rel["loss_per_frame"] > loss_rtol
+            or rel["grad_norm"] > grad_rtol
+            or not all(np.isfinite(r["loss_per_frame"]) for r in steps)):
+        fail(f"train_ctc --affine-type natural: {res}")
+
+    # 3. train_ctc --realign-epochs 1 --epochs 2 in minibatches of 16;
+    # --max-allow-frames 500 keeps the long utterances out of the batches
+    # but not out of the realignment, so the horizon changes
+    exp_ra = os.path.join(work, "exp_realign")
+    mb = 16
+    _, counts, wall = cli_counts(train_ctc.main, proj + RECIPE_OPTS + [
+        "--realign-epochs", "1", "--epochs", "2", "--minibatch-size",
+        str(mb), "--max-allow-frames", "500", "--dir", exp_ra] + device)
+    launches.update(counts)
+    recs = train_records(exp_ra)
+    steps = [r for r in recs if r["event"] == "train_step"]
+    realign = [r for r in recs if r["event"] == "realign"]
+    before = [r for r in steps if r["step"] <= realign[0]["step"]] \
+        if realign else []
+    old_horizon = (len(examples) // mb) * 2
+    new_horizon = (realign[0]["step"] + realign[0]["aligned"] // mb
+                   if realign else None)
+    lr_opts = TrainOptions(initial_learning_rate=1e-3,
+                           num_steps=new_horizon or old_horizon)
+    lr_err = max((abs(r["lr"] - float(exponential_lr(lr_opts,
+                                                     r["step"] - 1)))
+                  / r["lr"] for r in steps if r not in before), default=1.0)
+    realign_s = (realign[0]["t"] - before[-1]["t"]) if before else None
+    res = {"phase": "extras_train_realign", "dtype": "float32",
+           "steps": len(steps), "wall_s": round(wall, 4),
+           "realign": realign, "realign_s": realign_s,
+           "old_horizon": old_horizon, "new_horizon": new_horizon,
+           "lr_rel_err_after_realign": lr_err,
+           "priors_blank": float(np.load(os.path.join(exp_ra,
+                                                      "priors.npy"))[0]),
+           "launches": {k: counts[k] for k in proj_step_launches(0, 0)}}
+    emit(res)
+    summary["train_realign"] = {"realign_s": realign_s,
+                                "steps": len(steps)}
+    if (len(realign) != 1 or realign[0]["epoch"] != 1
+            or new_horizon == old_horizon or lr_err > 1e-5
+            or not os.path.exists(os.path.join(
+                exp_ra, "realign_labels.host0.json"))
+            or counts["ctc_alpha_beta"] != len(steps)):
+        fail(f"train_ctc --realign-epochs: {res}")
+
+    # 4. align_ctc on the valid set with the NG run's model, against the
+    # plain path; its frame labels relabel the valid egs (a feasible
+    # utterance keeps its labels) and give frame-occupancy priors
+    valid_keys = [line.split()[0] for line in scp_lines[PIPE_TRAIN:]]
+    valid_audio = sum(feats[k].shape[0] for k in valid_keys) * 0.01
+    fl = os.path.join(work, "frame_labels.ark")
+    align_argv = ["--feats", f"scp:{pipe}/feats.scp", "--ali",
+                  f"ark:{pipe}/ali_valid.ark"] + valid[4:] + [
+        "--dir", exp_ng, "--ctm", os.path.join(work, "ali.ctm")]
+    viterbi_s = [0.0]
+    with timed_viterbi(torch, dev, viterbi_s):
+        out, counts, wall = cli_counts(align_ctc.main, align_argv + [
+            "--frame-labels", f"ark:{fl}"] + device)
+    launches.update(counts)
+    summ = json.loads(out.strip().splitlines()[-1])
+    out, plain_launches = plain_cli(align_ctc.main, align_argv + [
+        "--frame-labels", f"ark:{work}/frame_labels_plain.ark"] + device)
+    plain = json.loads(out.strip().splitlines()[-1])
+    lp_rel = abs(summ["avg_logprob_per_frame"]
+                 - plain["avg_logprob_per_frame"]) / abs(
+                     plain["avg_logprob_per_frame"])
+    run_cli(prepare_egs.main, [
+        "relabel", "--egs", f"scp:{pipe}/valid_egs.scp", "--ali",
+        f"ark:{fl}", "--frame-labels", "1", "--output",
+        f"ark:{work}/relabeled.ark"])
+    relabeled = {e.key: e.labels.tolist()
+                 for e in SequentialEgsReader(f"ark:{work}/relabeled.ark")}
+    originals = {e.key: e.labels.tolist()
+                 for e in SequentialEgsReader(f"scp:{pipe}/valid_egs.scp")}
+    prior_exp = os.path.join(work, "exp_priors")
+    shutil.copytree(exp_ng, prior_exp)
+    run_cli(adjust_priors.main, ["--dir", prior_exp, "--ali", f"ark:{fl}",
+                                 "--frame-labels", "1"] + device)
+    priors = np.load(os.path.join(prior_exp, "priors.npy"))
+    occupancy = np.zeros(72)
+    for _, v in SequentialIntVectorReader(f"ark:{fl}"):
+        occupancy += np.bincount(np.asarray(v), minlength=72)[:72]
+    prior_err = float(np.abs(priors - np.maximum(
+        occupancy / occupancy.sum(), 1e-15)).max())
+    res = {"phase": "extras_align", "dtype": "float32", **summ,
+           "wall_s": round(wall, 4), "audio_seconds": round(valid_audio, 3),
+           "rtf": wall / valid_audio,
+           "viterbi_s": round(viterbi_s[0], 4),
+           "viterbi_share_of_wall": viterbi_s[0] / wall,
+           "avg_logprob_rel_err_vs_plain": lp_rel, "tol": ALIGN_LP_RTOL,
+           "relabeled_equal_to_egs_labels": relabeled == originals,
+           "frame_label_priors_max_abs_err": prior_err,
+           "launches": {k: counts[k] for k in ("bilstm_fwd",
+                                               "bilstm_proj_fwd")}}
+    emit(res)
+    summary["align_ctc"] = {k: res[k] for k in ("rtf",
+                                                "viterbi_share_of_wall")}
+    if (summ["aligned"] != len(valid_keys) or summ["failed"]
+            or plain["aligned"] != summ["aligned"] or lp_rel > ALIGN_LP_RTOL
+            or plain_launches or relabeled != originals or prior_err > 1e-6
+            or counts["bilstm_proj_fwd"] < 2):
+        fail(f"align_ctc: {res}")
+
+    # 5. a uni LSTM 5x320 behind a pnorm FT front (group 2), init_model's
+    # stddevs: decode_stream (K7 a chunk) equal to decode_ctc's offline
+    # greedy labels (K5).  (At stddev 0.3 the stack amplifies the two
+    # kernels' f32 summation orders over hundreds of frames: the first
+    # card run's labels differed.)
+    cfg = AmConfig(input_dim=40, num_targets=72, hidden_dim=EXTRAS_HIDDEN,
+                   num_layers=5, bidirectional=False,
+                   front_affine_dim=EXTRAS_HIDDEN, front_nonlin="pnorm",
+                   front_group=2)
+    exp_ft = os.path.join(work, "exp_ft")
+    os.makedirs(exp_ft)
+    with open(os.path.join(exp_ft, "model_config.json"), "w") as f:
+        json.dump(cfg.to_dict(), f)
+    save_checkpoint(os.path.join(exp_ft, "checkpoints"), 0, init_train_state(
+        init_am_params(cfg, torch.Generator().manual_seed(0))),
+        extra={"epoch": 0, "num_layers": 5})
+    scp, stream_audio = subset("stream", EXTRAS_STREAMS)
+    paths = {m: os.path.join(work, f"ft_{m}.txt")
+             for m in ("stream", "offline")}
+    _, off_counts, _ = cli_counts(decode_ctc.main, [
+        "--feats", f"scp:{scp}", "--dir", exp_ft, "--method", "greedy",
+        "--use-priors", "0", "--output", paths["offline"]] + device)
+    launches.update(off_counts)
+    out, counts, wall = cli_counts(decode_stream.main, [
+        "--feats", f"scp:{scp}", "--dir", exp_ft, "--chunk-frames",
+        str(PIPE_CHUNK), "--output", paths["stream"], "--text",
+        paths["offline"]] + device)
+    launches.update(counts)
+    score = json.loads(out.strip().splitlines()[-1])
+    stream, offline = read_hyps(paths["stream"]), read_hyps(paths["offline"])
+    chunks = sum(-(-feats[line.split()[0]].shape[0] // PIPE_CHUNK)
+                 for line in scp_lines[:EXTRAS_STREAMS])
+    res = {"phase": "extras_ft_stream", "dtype": "float32",
+           "model": "FT front 40 -> 640 pnorm group 2 -> 320, uni LSTM "
+                    "5x320",
+           "utterances": len(stream), "audio_seconds": round(stream_audio,
+                                                             3),
+           "chunk_frames": PIPE_CHUNK, "chunks": chunks,
+           "wall_s": round(wall, 4), "rtf": score["rtf"],
+           "median_chunk_latency_ms": score["median_chunk_latency_ms"],
+           "equal_to_offline_greedy": stream == offline,
+           "labels": sum(len(v) for v in stream.values()),
+           "k7_launches": counts["lstm_stack"],
+           "offline_k5_launches": off_counts["lstm_fwd"]}
+    emit(res)
+    summary["ft_stream"] = {k: res[k] for k in ("rtf",
+                                                "median_chunk_latency_ms")}
+    if (stream != offline or len(stream) != EXTRAS_STREAMS
+            or counts["lstm_stack"] != chunks or off_counts["lstm_fwd"] < 5
+            or not res["labels"]):
+        fail(f"FT-front decode_stream: {res}")
+
+    # 6. the 3x128 BLSTM with --dropout 0.1 --splice-left 2 --splice-right
+    # 2: one epoch (layer 1 on K2/K3 at D = 200, layers 2-3 on K10a/K10b)
+    exp_sp = os.path.join(work, "exp_splice_dropout")
+    _, counts, wall = cli_counts(train_ctc.main, proj + RECIPE_OPTS + [
+        "--dropout", "0.1", "--splice-left", "2", "--splice-right", "2",
+        "--epochs", "1", "--dir", exp_sp] + device)
+    launches.update(counts)
+    steps = [r for r in train_records(exp_sp) if r["event"] == "train_step"]
+    want = proj_step_launches(len(steps), 0)
+    res = {"phase": "extras_train_splice_dropout", "dtype": "float32",
+           "steps": len(steps), "wall_s": round(wall, 4),
+           "loss_per_frame": [r["loss_per_frame"] for r in steps],
+           "launches": {k: counts[k] for k in want}}
+    emit(res)
+    if (not steps or res["launches"] != want
+            or not all(np.isfinite(r["loss_per_frame"]) for r in steps)):
+        fail(f"train_ctc --dropout --splice: {res}")
+    emit({"phase": "extras_summary", **summary})
+    return launches
+
+
 def sync(torch, dev):
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
@@ -3695,15 +4103,29 @@ def main():
     trained_proj = phase_train(torch, np, dev, proj=True)
     decoded = phase_decode(torch, np, dev)
     piped = phase_pipeline(torch, np, dev, smi)
+    # slice 8: the DS2 flagship served and trained, then the extras' CLIs
+    served_ds2, _ = phase_serve(torch, np, ds2=True)
+    trained_ds2 = phase_train(torch, np, dev, ds2=True)
+    extras = phase_extras(torch, np, dev, smi)
     launches = collections.Counter(launches)
     for counts in (served, trained, served_uni, trained_uni, served_gru,
                    trained_gru, served_gru_uni, trained_gru_uni, served_proj,
-                   trained_proj, decoded, piped):
+                   trained_proj, decoded, piped, served_ds2, trained_ds2,
+                   extras):
         launches.update(counts)
     if min(launches[name] for name in KERNELS) < 1:
         fail(f"a kernel of the driven paths never launched: {launches}")
+    slice8 = collections.Counter(served_ds2)
+    slice8.update(trained_ds2)
+    slice8.update(extras)
+    missing = [k for k in SLICE8_KERNELS if slice8[k] < 1]
+    emit({"phase": "extras_launches", "launches": {
+        k: slice8[k] for k in SLICE8_KERNELS}})
+    if missing:
+        fail(f"slice 8's paths never launched {missing}: {dict(slice8)}")
     driven_routes(launches, (served, served_uni, served_gru, served_gru_uni,
-                             served_proj, decoded, piped))
+                             served_proj, decoded, piped, served_ds2,
+                             extras))
     phase_profile(torch, np, engines)
     phase_profile_stream(torch, np, uni_engines)
     phase_profile(torch, np, gru_engines, "bigru_fwd")

@@ -105,14 +105,11 @@ def _load_examples(args, log) -> list:
 
 
 def main(argv=None):
-    import torch
-
     from kaldi_ctc_tpu_torch.cli.common import resolve_device
     from kaldi_ctc_tpu_torch.data import pad_batch
     from kaldi_ctc_tpu_torch.data.bucketing import make_buckets
-    from kaldi_ctc_tpu_torch.models import am_forward
     from kaldi_ctc_tpu_torch.models.artifact import load_acoustic_model
-    from kaldi_ctc_tpu_torch.ops.ctc import ctc_viterbi_align
+    from kaldi_ctc_tpu_torch.training.realign import align_batch
     from kaldi_ctc_tpu_torch.utils import get_logger
     from kaldi_ctc_tpu_torch.utils.kaldi_io import IntVectorWriter
 
@@ -150,16 +147,6 @@ def main(argv=None):
     # length-sorted groups: homogeneous pads
     egs.sort(key=lambda e: e.num_frames)
 
-    def align(batch):
-        feats, input_lens, labels, label_lens = (
-            torch.as_tensor(batch[k], device=device)
-            for k in ("feats", "input_lens", "labels", "label_lens"))
-        with torch.inference_mode():
-            logits = am_forward(params, feats, cfg, input_lens=input_lens)
-            out = ctc_viterbi_align(logits, labels,
-                                    cfg.output_lens(input_lens), label_lens)
-        return (a.cpu().numpy() for a in out)
-
     # seconds per logit frame (input shift × subsampling × conv stride)
     sec = args.frame_shift * args.frame_subsampling_factor * cfg.time_stride
 
@@ -174,8 +161,7 @@ def main(argv=None):
         for i in range(0, len(egs), args.minibatch_size):
             group = egs[i:i + args.minibatch_size]
             batch = pad_batch(group, frame_buckets, label_buckets)
-            frame_labels, lp, ok = align(batch)
-            out_lens = np.asarray(cfg.output_lens(batch["input_lens"]))
+            frame_labels, lp, ok, out_lens = align_batch(params, cfg, batch)
             for j, e in enumerate(group):
                 t = int(out_lens[j])
                 if not ok[j]:

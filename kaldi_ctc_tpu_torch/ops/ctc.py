@@ -11,7 +11,9 @@ for a gradient on the card, K11 (alpha alone) for a loss without a
 gradient, and their plain loops on the CPU.  The gradient is assembled
 after the sweep in plain torch, as the JAX package assembles it in XLA:
 state posteriors, their masks, and a one-hot product onto the alphabet
-at full f32.
+at full f32.  ``ctc_viterbi_align``, the forced alignment through the same
+lattice, is a loop of torch ops a frame on the logits' device, as the JAX
+package's is a ``lax.scan`` with no kernel.
 """
 
 from __future__ import annotations

@@ -24,7 +24,7 @@ from typing import List, Tuple
 import numpy as np
 import torch
 
-__all__ = ["realign_examples", "parse_realign_epochs"]
+__all__ = ["realign_examples", "parse_realign_epochs", "align_batch"]
 
 
 def parse_realign_epochs(spec: str) -> frozenset:
@@ -33,6 +33,28 @@ def parse_realign_epochs(spec: str) -> frozenset:
         return frozenset()
     return frozenset(int(x) for x in spec.replace(" ", ",").split(",")
                      if x)
+
+
+def align_batch(params, cfg, batch) -> Tuple[np.ndarray, ...]:
+    """One padded batch (``pad_batch``'s feats, input_lens, labels,
+    label_lens) through ``am_forward`` and ``ctc_viterbi_align`` on the
+    device of ``params`` → numpy (frame_labels [B, T'], path_logprob [B],
+    feasible [B], logit-rate lens [B]); realign_examples' and
+    align_ctc's alignment."""
+    from kaldi_ctc_tpu_torch.models import am_forward
+    from kaldi_ctc_tpu_torch.ops.ctc import ctc_viterbi_align
+    from kaldi_ctc_tpu_torch.params import tree_flatten
+
+    device = tree_flatten(params)[0].device
+    feats, input_lens, labels, label_lens = (
+        torch.as_tensor(batch[k], device=device)
+        for k in ("feats", "input_lens", "labels", "label_lens"))
+    with torch.inference_mode():
+        logits = am_forward(params, feats, cfg, input_lens=input_lens)
+        out = ctc_viterbi_align(logits, labels, cfg.output_lens(input_lens),
+                                label_lens)
+    return tuple(a.cpu().numpy() for a in out) + (
+        np.asarray(cfg.output_lens(batch["input_lens"])),)
 
 
 def realign_examples(
@@ -51,20 +73,6 @@ def realign_examples(
     """
     from kaldi_ctc_tpu_torch.data.bucketing import make_buckets, pad_batch
     from kaldi_ctc_tpu_torch.data.egs import CtcExample, frame_subsample
-    from kaldi_ctc_tpu_torch.models import am_forward
-    from kaldi_ctc_tpu_torch.ops.ctc import ctc_viterbi_align
-    from kaldi_ctc_tpu_torch.params import tree_flatten
-
-    device = tree_flatten(params)[0].device
-
-    def align(batch):
-        feats, input_lens, labels, label_lens = (
-            torch.as_tensor(batch[k], device=device)
-            for k in ("feats", "input_lens", "labels", "label_lens"))
-        with torch.inference_mode():
-            logits = am_forward(params, feats, cfg, input_lens=input_lens)
-            return ctc_viterbi_align(logits, labels,
-                                     cfg.output_lens(input_lens), label_lens)
 
     subs = [CtcExample(e.key,
                        frame_subsample(e.feats, frame_subsampling_factor),
@@ -83,8 +91,7 @@ def realign_examples(
         idx = order[i:i + minibatch_size]
         group = [subs[j] for j in idx]
         batch = pad_batch(group, frame_buckets, label_buckets)
-        frame_labels, lp, ok = (a.cpu().numpy() for a in align(batch))
-        out_lens = np.asarray(cfg.output_lens(batch["input_lens"]))
+        frame_labels, lp, ok, out_lens = align_batch(params, cfg, batch)
         for row, j in enumerate(idx):
             t = int(out_lens[row])
             if not ok[row]:

@@ -185,8 +185,8 @@ def build_train_step(cfg: AmConfig, opts: TrainOptions):
         if cfg.dropout > 0.0:
             b, t = batch["feats"].shape[:2]
             mask = dropout_mask(int(state.step), 1.0 - cfg.dropout,
-                                (-(-t // cfg.time_stride), b,
-                                 cfg.rnn.output_dim), state.step.device)
+                                (cfg.output_lens(t), b, cfg.rnn.output_dim),
+                                state.step.device)
         taps = {} if use_ng else None
         with torch.enable_grad():
             logits = am_forward(params, batch["feats"], cfg,

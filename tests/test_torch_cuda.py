@@ -2992,3 +2992,186 @@ def test_train_ctc_device_cuda_without_a_card_raises(tmp_path, monkeypatch):
                         f"ark:{tmp_path}/ali.ark", "--num-targets", "6",
                         "--dir", str(exp)])
     assert not exp.exists()
+
+
+# ---- slice 8: the model's extras, NG-SGD and alignment on the card ----
+
+def _extras_batch(b=6, t=40, l=5, dim=8, targets=7, seed=31):
+    rng = np.random.default_rng(seed)
+    return {"feats": rng.standard_normal((b, t, dim)).astype(np.float32),
+            "labels": rng.integers(1, targets, (b, l)).astype(np.int32),
+            "input_lens": np.array([t, t - 3, t - 10, 25, 30, t][:b],
+                                   np.int32),
+            "label_lens": np.array([l, l - 1, 3, 2, l, 1][:b], np.int32)}
+
+
+def _steps_on(device, cfg, opts, batch, n=2):
+    from kaldi_ctc_tpu_torch.models import init_am_params
+    from kaldi_ctc_tpu_torch.training import (build_train_step,
+                                              init_train_state)
+    state = init_train_state(init_am_params(
+        cfg, torch.Generator().manual_seed(0), device), opts)
+    step = build_train_step(cfg, opts)
+    losses = []
+    for _ in range(n):
+        state, m = step(state, batch)
+        losses.append(float(m["loss_total"]))
+    return state, losses
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("extra", ["ds2", "ds2_stride1", "ft_dropout",
+                                   "natural", "natural_front"])
+def test_extras_train_steps_on_cuda_match_cpu(cuda, extra):
+    """Two train steps of each slice-8 configuration on the card (K2/K3 or
+    K10a/K10b per layer, K1) against the same steps on the CPU's plain
+    path: the DS2 conv front (cuDNN convs, TF32 off) at time strides 2
+    and 1, a pnorm FT front with dropout (the masks drawn on each device
+    differ, so that case compares the card with itself: finite, and the
+    same mask for the same step), and NG-SGD on the output affine and the
+    FT front.  f32 sums in another order: loss 1e-5, params 1e-5 of
+    their largest entry; the preconditioners' eigenvalues d and rho
+    1e-3.  W itself is not compared: its top-R subspace turns where
+    eigenvalues nearly tie at rank R, and cusolver's and LAPACK's eigh
+    put W^T W up to 4% of its largest entry apart after two steps (the
+    first card run) while the parameters agreed to 1e-5."""
+    from kaldi_ctc_tpu_torch.models import AmConfig
+    from kaldi_ctc_tpu_torch.params import tree_flatten
+    from kaldi_ctc_tpu_torch.training import TrainOptions
+
+    kw = {"ds2": dict(conv_layers=2, conv_channels=8),
+          "ds2_stride1": dict(conv_layers=2, conv_channels=8,
+                              conv_time_stride=1),
+          "ft_dropout": dict(front_affine_dim=64, front_nonlin="pnorm",
+                             front_group=2, dropout=0.2),
+          "natural": {},
+          "natural_front": dict(front_affine_dim=128)}[extra]
+    cfg = AmConfig(input_dim=8, num_targets=7, hidden_dim=64, num_layers=2,
+                   param_stddev=0.2, **kw)
+    opts = TrainOptions(initial_learning_rate=1e-2, momentum=0.9,
+                        affine_type=("natural" if extra.startswith("natural")
+                                     else "simple"))
+    batch = _extras_batch()
+    k1 = ctc_cuda.alpha_beta.launches
+    got, got_losses = _steps_on(cuda, cfg, opts, batch)
+    assert ctc_cuda.alpha_beta.launches == k1 + 2
+    if extra == "ft_dropout":
+        again, again_losses = _steps_on(cuda, cfg, opts, batch)
+        assert got_losses == again_losses and np.isfinite(got_losses).all()
+        return
+    ref, ref_losses = _steps_on("cpu", cfg, opts, batch)
+    np.testing.assert_allclose(got_losses, ref_losses, rtol=1e-5)
+    for g, r in zip(tree_flatten(got.params), tree_flatten(ref.params)):
+        np.testing.assert_allclose(g.cpu().numpy(), r.numpy(), rtol=0,
+                                   atol=1e-5 * max(float(r.abs().max()), 1))
+    if got.ng:
+        for name in got.ng:
+            for side in ("in", "out"):
+                g, r = got.ng[name][side], ref.ng[name][side]
+                assert g.t.dtype == torch.int32 and int(g.t) == int(r.t)
+                for f in ("rho", "d"):
+                    a, b = getattr(g, f).cpu().numpy(), getattr(r, f).numpy()
+                    np.testing.assert_allclose(a, b, rtol=0,
+                                               atol=1e-3 * np.abs(b).max())
+
+
+@pytest.mark.cuda
+def test_viterbi_align_on_cuda_equals_cpu(cuda):
+    """ctc_viterbi_align on the card and on the CPU at B=16, T=200,
+    L=40 with ragged rows: the same feasibility, path log-probs to f32
+    rounding, and the card's path scores the CPU's best under the CPU's
+    log-softmax (a near-tie may pick another path of the same score)."""
+    rng = np.random.default_rng(5)
+    b, t, a, l = 16, 200, 30, 40
+    logits = torch.as_tensor((rng.standard_normal((b, t, a)) * 3).astype(
+        np.float32))
+    labels = torch.as_tensor(rng.integers(1, a, (b, l)).astype(np.int32))
+    lens = rng.integers(30, t + 1, b).astype(np.int32)
+    llens = rng.integers(0, l + 1, b).astype(np.int32)
+    lens[0], llens[0] = 10, l           # infeasible: 40 labels, 10 frames
+    lens, llens = torch.as_tensor(lens), torch.as_tensor(llens)
+    ref = ctc.ctc_viterbi_align(logits, labels, lens, llens)
+    got = ctc.ctc_viterbi_align(logits.to(cuda), labels.to(cuda),
+                                lens.to(cuda), llens.to(cuda))
+    assert torch.equal(got[2].cpu(), ref[2]) and bool(ref[2].any())
+    assert not bool(ref[2].all())
+    np.testing.assert_allclose(got[1].cpu().numpy(), ref[1].numpy(),
+                               rtol=1e-5)
+    logp = torch.log_softmax(logits, -1)
+    for row in torch.nonzero(ref[2]).flatten().tolist():
+        n = int(lens[row])
+        path = got[0][row, :n].cpu().long()
+        score = float(logp[row, torch.arange(n), path].sum())
+        np.testing.assert_allclose(score, float(ref[1][row]), rtol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nonlin", ["relu", "pnorm"])
+def test_ft_front_stream_on_cuda_equals_offline(cuda, nonlin):
+    """A uni LSTM 3x64 behind an FT front streamed on the card in chunks
+    of 7 (K7 a chunk) gives the labels of the offline forward (K5)."""
+    from kaldi_ctc_tpu_torch.decoding.streaming import StreamingRecognizer
+    from kaldi_ctc_tpu_torch.models import AmConfig, am_forward, init_am_params
+
+    cfg = AmConfig(input_dim=8, num_targets=7, hidden_dim=64, num_layers=3,
+                   bidirectional=False, param_stddev=0.4,
+                   front_affine_dim=32, front_nonlin=nonlin,
+                   front_group=2 if nonlin == "pnorm" else 1)
+    params = init_am_params(cfg, torch.Generator().manual_seed(2), cuda)
+    x = np.random.default_rng(3).standard_normal((60, 8)).astype(
+        np.float32) * 2
+    k7 = rnn_cuda.lstm_stack_fwd.launches
+    rec = StreamingRecognizer(params, cfg)
+    for i in range(0, 60, 7):
+        rec.process(x[i:i + 7])
+    assert rnn_cuda.lstm_stack_fwd.launches > k7
+    k5 = rnn_cuda.lstm_seq_fwd.launches
+    with torch.inference_mode():
+        ids = am_forward(params, torch.as_tensor(x[None], device=cuda),
+                         cfg)[0].argmax(-1).tolist()
+    assert rnn_cuda.lstm_seq_fwd.launches == k5 + 3
+    want, last = [], 0
+    for lab in ids:
+        if lab not in (0, last):
+            want.append(lab)
+        last = lab
+    assert rec.finalize() == want and want
+
+
+@pytest.mark.cuda
+def test_train_ctc_realign_and_align_ctc_on_cuda(cuda, tmp_path):
+    """train_ctc --realign-epochs 1 --epochs 2 on the card (the realign
+    aligns every utterance on the card and writes its priors and labels),
+    then align_ctc on the card against align_ctc on the CPU: the same
+    counts, mean path log-prob to 1e-5."""
+    import contextlib
+    import io
+    import json
+
+    from kaldi_ctc_tpu_torch.cli import align_ctc, train_ctc
+
+    _train_set(tmp_path)
+    exp = tmp_path / "exp"
+    train_ctc.main(["--feats", f"ark:{tmp_path}/feats.ark", "--ali",
+                    f"ark:{tmp_path}/ali.ark", "--num-targets", "6",
+                    "--hidden-dim", "32", "--num-layers", "2", "--epochs",
+                    "2", "--minibatch-size", "8", "--realign-epochs", "1",
+                    "--dir", str(exp), "--device", "cuda"])
+    with open(exp / "metrics.jsonl") as f:
+        recs = [json.loads(line) for line in f]
+    assert [r["epoch"] for r in recs if r["event"] == "realign"] == [1]
+    assert (exp / "realign_labels.host0.json").exists()
+    summaries = {}
+    for device in ("cuda", "cpu"):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            align_ctc.main(["--feats", f"ark:{tmp_path}/feats.ark", "--ali",
+                            f"ark:{tmp_path}/ali.ark", "--dir", str(exp),
+                            "--frame-labels",
+                            f"ark:{tmp_path}/fl_{device}.ark",
+                            "--device", device])
+        summaries[device] = json.loads(buf.getvalue().strip().splitlines()[-1])
+    assert summaries["cuda"]["aligned"] == summaries["cpu"]["aligned"] == 16
+    np.testing.assert_allclose(summaries["cuda"]["avg_logprob_per_frame"],
+                               summaries["cpu"]["avg_logprob_per_frame"],
+                               rtol=1e-5)
