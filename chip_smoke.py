@@ -12,7 +12,9 @@ CLIs and serve --graph) on the flagship, the training drive from WAV
 files to a trained flagship (compute_feats, prepare_egs, train_ctc,
 compute_prob, adjust_priors, decode_ctc, decode_stream), and slice 8:
 bench.py's DS2 flagship served and trained, NG-SGD, realignment,
-align_ctc and an FT-front stream on the 3x128 BLSTM and a uni LSTM.  Each
+align_ctc and an FT-front stream on the 3x128 BLSTM and a uni LSTM, and
+slice 9: train_ctc on one NCCL rank, the launcher and the multi-process
+dry run, then lattice output and its tools.  Each
 phase prints one JSON line; any failed phase exits non-zero with no
 result line:
 
@@ -231,6 +233,29 @@ result line:
    --splice-left 2 --splice-right 2`` on the 3x128; one summary line; then
    ``extras_launches``, which fails unless the slice's paths launched K2,
    K3, K1, K11, K10a, K10b, K5 and K7.
+30. distributed (after extras): the pipeline's f32 ``train_ctc`` with no
+   process group and with one NCCL rank on cuda:0 (COORDINATOR_ADDRESS,
+   PROCESS_ID=0, NUM_PROCESSES=1; the backend checked): K2 5x, K3 5x and
+   K1 once a step, K2 5x and K11 once in cv, in both; the final
+   checkpoints equal within DIST_CKPT_ATOL (the one-rank all-reduce is an
+   identity); steps/s of both with the card's name and power limit; then
+   ``launch --num-processes 1 -- train_ctc`` as a subprocess (exit 0, a
+   final checkpoint), ``dryrun_multichip(1)`` on the card (NCCL), and one
+   rank more than the cards through ``launch``, which must exit non-zero
+   with the NCCL device-count error within its time limit.  Scaling
+   across cards is not measurable on one card;
+31. lattice: ``decode_ctc --method wfst --lattice --determinize 1`` on a
+   5x320 BLSTM flagship (init_model seed 0 at LATTICE_STDDEV, f32) over
+   decode's 16 utterances on the word loop and 4 on the 2,000-word
+   lexicon graph (LATTICE_FLAGS: lattice beam and max-active), on the
+   card (K2) and on the CPU's plain path: equal best
+   paths or near ties, best-path costs within DECODE_COST_RTOL, RTF;
+   ``score_lattices`` (lm weights 1-5), ``lattice_tool best-path`` (equal
+   to decode_ctc's hypotheses) and ``mbr`` on the word-loop lattices,
+   ``align-words`` with the lexicon and ``lmrescore`` with a seeded
+   bigram ARPA over the lexicon's words and its const-ARPA form on the
+   lexicon lattices; then ``slice9_launches``, which fails unless the
+   distributed phase launched K2, K3, K1 and K11 and the lattice phase K2.
 
 Every profiled window (a request, a step, a tick) runs its work as the
 profiler's warm-up for 50 ms or more, then a marker kernel, then the
@@ -246,7 +271,8 @@ launches during the
 driven paths (serve, train, eval, the separate CTC path, serve_uni with
 its streams, train_uni, the same four for the GRU models, serve_proj,
 train_proj, decode's decode_ctc runs and served requests, the
-pipeline's CLI runs, serve_ds2, train_ds2 and the extras' CLI runs;
+pipeline's CLI runs, serve_ds2, train_ds2, the extras' CLI runs, the
+distributed phase's NCCL train_ctc and the lattice phase's card decodes;
 counts set to 0 before each and read after it),
 its error, its time beside the plain version's, its bound (the larger of
 its bytes over 3.35 TB/s and its operations over the peak rate of its
@@ -2960,15 +2986,22 @@ def run_cli(main, argv):
     return buf.getvalue()
 
 
+def lexicon_prons(np, seed):
+    """The seeded lexicon of ``lexicon_graph``: the words' unigram
+    probabilities and each word's labels (2-6 of 1..71)."""
+    rng = np.random.default_rng(seed)
+    probs = rng.dirichlet(np.ones(LEX_WORDS))
+    return probs, [rng.integers(1, 72, int(rng.integers(2, 7)))
+                   for _ in range(LEX_WORDS)]
+
+
 def lexicon_graph(np, fst_cls, seed):
     """A seeded lexicon loop of LEX_WORDS words of 2-6 labels (1..71),
     each word's unigram cost on its first arc, with CTC self-loops and
     blanks → (graph, words table lines)."""
-    rng = np.random.default_rng(seed)
+    probs, prons = lexicon_prons(np, seed)
     arcs, weights, n = [], [], 1
-    probs = rng.dirichlet(np.ones(LEX_WORDS))
-    for w in range(1, LEX_WORDS + 1):
-        labels = rng.integers(1, 72, int(rng.integers(2, 7)))
+    for w, labels in enumerate(prons, 1):
         src = 0
         for i, lab in enumerate(labels):
             dst = 0 if i == len(labels) - 1 else n
@@ -3305,6 +3338,18 @@ def train_records(exp):
         return [json.loads(line) for line in f]
 
 
+def pipeline_train_argv(work):
+    """train_ctc on the pipeline's egs: the flagship's defaults, 5 epochs
+    of 2 steps, cv over the 48 valid utterances at step 10."""
+    return ["--egs", f"scp:{work}/train_egs.scp", "--valid-feats",
+            f"scp:{work}/feats.scp", "--valid-ali",
+            f"ark:{work}/ali_valid.ark", "--cmvn", f"ark:{work}/cmvn.ark",
+            "--utt2spk", f"{work}/utt2spk", "--num-targets", "72",
+            "--hidden-dim", str(PIPE_HIDDEN), "--num-layers",
+            str(PIPE_LAYERS), "--epochs", "5", "--cv-period", "1",
+            "--checkpoint-period", "5"]
+
+
 def phase_pipeline(torch, np, dev, smi):
     """Features → egs → a trained flagship → eval, priors and decodes,
     through the port's CLIs on the card: compute_feats (K4 per
@@ -3333,7 +3378,7 @@ def phase_pipeline(torch, np, dev, smi):
     from kaldi_ctc_tpu_torch.features.mel import mel_banks
     from kaldi_ctc_tpu_torch.models import AmConfig
     from kaldi_ctc_tpu_torch.ops import rnn_cuda
-    from kaldi_ctc_tpu_torch.parallel import shard_batch
+    from kaldi_ctc_tpu_torch.parallel import make_mesh, shard_batch
     from kaldi_ctc_tpu_torch.training import (TrainOptions,
                                               build_train_step,
                                               init_train_state)
@@ -3427,13 +3472,7 @@ def phase_pipeline(torch, np, dev, smi):
         fail(f"prepare_egs: {info}")
 
     # 5. train_ctc per dtype: the flagship's defaults, 10 steps, cv at 10
-    train_argv = ["--egs", f"scp:{work}/train_egs.scp", "--valid-feats",
-                  f"scp:{work}/feats.scp", "--valid-ali",
-                  f"ark:{work}/ali_valid.ark", "--cmvn",
-                  f"ark:{work}/cmvn.ark", "--utt2spk", f"{work}/utt2spk",
-                  "--num-targets", "72", "--hidden-dim", str(PIPE_HIDDEN),
-                  "--num-layers", str(PIPE_LAYERS), "--epochs", "5",
-                  "--cv-period", "1", "--checkpoint-period", "5"] + device
+    train_argv = pipeline_train_argv(work) + device
     examples = list(SequentialEgsReader(f"scp:{work}/train_egs.scp"))
     first = next(EgsPipeline(examples, minibatch_size=48).epoch(0))
     first.pop("keys")
@@ -3455,7 +3494,7 @@ def phase_pipeline(torch, np, dev, smi):
         before = read_counts()
         with plain_versions():
             _, m = build_train_step(cfg, TrainOptions(num_steps=10))(
-                state, shard_batch(first, dev))
+                state, shard_batch(first, make_mesh(devices=[dev])))
             plain = {k: float(m[k]) for k in ("loss_per_frame",
                                               "grad_norm")}
         plain_launches = sum(v - before.get(k, 0)
@@ -3706,7 +3745,7 @@ def phase_extras(torch, np, dev, smi):
     from kaldi_ctc_tpu_torch.data import EgsPipeline
     from kaldi_ctc_tpu_torch.data.egs_io import SequentialEgsReader
     from kaldi_ctc_tpu_torch.models import AmConfig, init_am_params
-    from kaldi_ctc_tpu_torch.parallel import shard_batch
+    from kaldi_ctc_tpu_torch.parallel import make_mesh, shard_batch
     from kaldi_ctc_tpu_torch.training import (TrainOptions, build_train_step,
                                               exponential_lr,
                                               init_train_state)
@@ -3798,7 +3837,8 @@ def phase_extras(torch, np, dev, smi):
                         num_steps=NG_STEPS, affine_type="natural")
     state = init_train_state(train_ctc.initial_params(cfg, 0, dev), opts)
     with plain_versions():
-        _, m = build_train_step(cfg, opts)(state, shard_batch(first, dev))
+        _, m = build_train_step(cfg, opts)(
+            state, shard_batch(first, make_mesh(devices=[dev])))
     plain = {k: float(m[k]) for k in ("loss_per_frame", "grad_norm")}
     loss_rtol, grad_rtol, _ = TRAIN_TOL["float32"]
     rel = {k: abs(steps[0][k] - v) / abs(v) for k, v in plain.items()}
@@ -3996,6 +4036,442 @@ def phase_extras(torch, np, dev, smi):
     return launches
 
 
+# the kernels slice 9's training run launches: K2, K3, K1 and K11 (cv)
+SLICE9_KERNELS = ("bilstm_fwd", "bilstm_bwd", "ctc_alpha_beta", "ctc_alphas")
+# the distributed phase: the pipeline's f32 train_ctc (the flagship, 10
+# steps, cv at step 10) in one process with no process group, then with
+# one NCCL rank on cuda:0; the one-rank all-reduce is an identity, so the
+# final checkpoints agree to DIST_CKPT_ATOL (f32; expected 0, the
+# difference is printed)
+DIST_CKPT_ATOL = 1e-5
+# the launched runs and the dry run start python processes: their limits
+DIST_SUBPROCESS_S = 300
+
+
+def free_port():
+    import socket
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def final_leaves(exp):
+    """The leaves and meta of the latest checkpoint in exp/checkpoints."""
+    ckpt = os.path.join(exp, "checkpoints")
+    step = max(int(n.split("_")[1]) for n in os.listdir(ckpt)
+               if n.startswith("step_") and not n.endswith(".tmp"))
+    import numpy as np
+    with np.load(os.path.join(ckpt, f"step_{step}", "arrays.npz")) as z:
+        leaves = [z[f"leaf_{i}"] for i in range(len(z.files))]
+    with open(os.path.join(ckpt, f"step_{step}", "meta.json")) as f:
+        return leaves, json.load(f)
+
+
+def port_subprocess(argv, timeout):
+    """``python -m`` a module of the port from the checkout → the
+    completed process (output captured)."""
+    import kaldi_ctc_tpu_torch
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [os.path.dirname(os.path.dirname(kaldi_ctc_tpu_torch.__file__))]
+        + ([env["PYTHONPATH"]] if env.get("PYTHONPATH") else []))
+    return subprocess.run([sys.executable, "-m"] + argv, cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=timeout)
+
+
+def step_collective_ms(torch, dev, calls=20):
+    """The collective work the step adds on a one-rank NCCL group, timed
+    with CUDA events: ``sum_over_data`` over the flagship's gradient
+    leaves (10.8 M f32), the loss and the frame count (the flat copy in,
+    the all-reduce, the views out)."""
+    from kaldi_ctc_tpu_torch.models import AmConfig
+    from kaldi_ctc_tpu_torch.models.acoustic import am_param_shapes
+    from kaldi_ctc_tpu_torch.params import tree_flatten
+    from kaldi_ctc_tpu_torch.parallel import distributed, make_mesh
+    from kaldi_ctc_tpu_torch.parallel.mesh import sum_over_data
+
+    distributed.init_distributed(f"localhost:{free_port()}", 1, 0,
+                                 device=dev.type)
+    try:
+        shapes = tree_flatten(am_param_shapes(AmConfig(
+            input_dim=40, num_targets=72, hidden_dim=PIPE_HIDDEN,
+            num_layers=PIPE_LAYERS)))
+        grads = [torch.randn(s, device=dev) for s in shapes]
+        extra = [torch.ones((), device=dev), torch.ones((), device=dev)]
+        mesh = make_mesh()
+        for _ in range(3):
+            sum_over_data(mesh, grads + extra)
+        start, end = (torch.cuda.Event(enable_timing=True)
+                      for _ in range(2))
+        start.record()
+        for _ in range(calls):
+            sum_over_data(mesh, grads + extra)
+        end.record()
+        end.synchronize()
+        ms = start.elapsed_time(end) / calls
+        n = sum(g.numel() for g in grads)
+    finally:
+        distributed.shutdown()
+    return {"ms": ms, "parameters": n, "bytes": 4 * n,
+            "calls": calls, "backend": "nccl", "ranks": 1}
+
+
+def phase_distributed(torch, np, dev, smi):
+    """Multi-process training on torch.distributed with the card's one
+    rank: the pipeline's f32 train_ctc with no process group and with one
+    NCCL rank (COORDINATOR_ADDRESS, PROCESS_ID=0, NUM_PROCESSES=1): the
+    backend NCCL, K2, K3, K1 and K11 launched as in the pipeline phase,
+    the final checkpoints equal to DIST_CKPT_ATOL, steps/s of both; then
+    ``launch --num-processes 1 -- train_ctc`` as a subprocess (exit 0, a
+    final checkpoint); ``dryrun_multichip(1)`` on the card; and one rank
+    more than the cards launched, which must exit non-zero with the NCCL
+    device-count error (time-limited) → the launches of the NCCL run."""
+    import shutil
+
+    from kaldi_ctc_tpu_torch.cli import train_ctc
+    from kaldi_ctc_tpu_torch.parallel import distributed
+    from kaldi_ctc_tpu_torch.parallel.dryrun import dryrun_multichip
+
+    pipe = os.path.join(ROOT, "build", "smoke", "pipeline")
+    work = os.path.join(ROOT, "build", "smoke", "distributed")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    argv = pipeline_train_argv(pipe) + ["--device", dev.type]
+    env_keys = ("COORDINATOR_ADDRESS", "PROCESS_ID", "NUM_PROCESSES")
+    groups = []
+    init = distributed.init_distributed
+
+    def recording_init(*args, **kw):
+        device = init(*args, **kw)
+        groups.append((torch.distributed.get_backend()
+                       if torch.distributed.is_initialized() else None,
+                       distributed.process_count(), str(device)))
+        return device
+
+    runs, launches = {}, collections.Counter()
+    distributed.init_distributed = recording_init
+    try:
+        # in turns, so that the host's noise shows as the spread of a pair
+        for name in ("no_group", "nccl_one_rank", "nccl_one_rank_2",
+                     "no_group_2"):
+            exp = os.path.join(work, name)
+            if name.startswith("nccl"):
+                os.environ.update(
+                    COORDINATOR_ADDRESS=f"localhost:{free_port()}",
+                    PROCESS_ID="0", NUM_PROCESSES="1")
+            try:
+                _, counts, wall = cli_counts(train_ctc.main,
+                                             argv + ["--dir", exp])
+            finally:
+                for key in env_keys:
+                    os.environ.pop(key, None)
+            steps = [r for r in train_records(exp)
+                     if r["event"] == "train_step"]
+            span = steps[-1]["t"] - steps[0]["t"]
+            runs[name] = {
+                "steps": len(steps), "wall_s": round(wall, 4),
+                "steps_per_s": (len(steps) - 1) / span if span > 0 else None,
+                "group": groups[-1],
+                "launches": {k: counts[k] for k in (
+                    "bilstm_fwd", "bilstm_bwd", "ctc_alpha_beta",
+                    "ctc_alphas")}}
+            if name == "nccl_one_rank":
+                launches.update(counts)
+    finally:
+        distributed.init_distributed = init
+    finals = {n: final_leaves(os.path.join(work, n)) for n in runs}
+    a, meta_a = finals["no_group"]
+    ckpt_diff = max(float(np.abs(x - y).max()) for n in runs
+                    for x, y in zip(a, finals[n][0]))
+    res = {"phase": "distributed_train_ctc", "card": smi, "dtype": "float32",
+           "runs": runs, "final_checkpoint_max_abs_diff": ckpt_diff,
+           "tol": DIST_CKPT_ATOL,
+           "group_left": not torch.distributed.is_initialized(),
+           "step_collective": step_collective_ms(torch, dev)}
+    emit(res)
+    nccl = runs["nccl_one_rank"]
+    b, meta_b = finals["nccl_one_rank"]
+    if (any(runs[n]["group"] != ("nccl", 1, "cuda:0")
+            for n in runs if n.startswith("nccl"))
+            or any(runs[n]["group"][0] is not None
+                   for n in runs if n.startswith("no_group"))
+            or any(r["steps"] != 10 for r in runs.values())
+            or any(r["launches"] != nccl["launches"] for r in runs.values())
+            or nccl["launches"]["bilstm_bwd"] != PIPE_LAYERS * 10
+            or nccl["launches"]["ctc_alpha_beta"] != 10
+            or nccl["launches"]["ctc_alphas"] != 1
+            or nccl["launches"]["bilstm_fwd"] != PIPE_LAYERS * 11
+            or len(a) != len(b) or meta_a["step"] != meta_b["step"]
+            or not meta_b["extra"].get("final")
+            or ckpt_diff > DIST_CKPT_ATOL or not res["group_left"]):
+        fail(f"train_ctc on one NCCL rank: {res}")
+
+    # the launcher: one process on the card, one epoch (2 steps)
+    short = pipeline_train_argv(pipe)[:2] + [
+        "--num-targets", "72", "--hidden-dim", str(PIPE_HIDDEN),
+        "--num-layers", str(PIPE_LAYERS), "--epochs", "1",
+        "--device", dev.type]
+    exp = os.path.join(work, "launched")
+    t0 = time.perf_counter()
+    proc = port_subprocess([
+        "kaldi_ctc_tpu_torch.cli.launch", "--num-processes", "1", "--",
+        sys.executable, "-m", "kaldi_ctc_tpu_torch.cli.train_ctc"]
+        + short + ["--dir", exp], DIST_SUBPROCESS_S)
+    launch_s = time.perf_counter() - t0
+    ok = proc.returncode == 0 and os.path.isdir(os.path.join(
+        exp, "checkpoints")) and final_leaves(exp)[1]["extra"].get("final")
+    # one rank more than the cards: every rank raises before any rendezvous
+    ranks = torch.cuda.device_count() + 1
+    t0 = time.perf_counter()
+    over = port_subprocess([
+        "kaldi_ctc_tpu_torch.cli.launch", "--num-processes", str(ranks),
+        "--", sys.executable, "-m", "kaldi_ctc_tpu_torch.cli.train_ctc"]
+        + short + ["--dir", os.path.join(work, "over")], DIST_SUBPROCESS_S)
+    over_s = time.perf_counter() - t0
+    refused = (over.returncode != 0 and "NCCL cannot put two ranks on one "
+               "device" in over.stderr and not os.path.isdir(
+                   os.path.join(work, "over", "checkpoints")))
+    t0 = time.perf_counter()
+    dry = dryrun_multichip(1, device=dev.type, timeout=DIST_SUBPROCESS_S)
+    dry_s = time.perf_counter() - t0
+    res = {"phase": "distributed_launch", "card": smi,
+           "launch_one_rank": {"rc": proc.returncode,
+                               "wall_s": round(launch_s, 3),
+                               "final_checkpoint": bool(ok)},
+           "ranks_over_cards": {"ranks": ranks, "rc": over.returncode,
+                                "wall_s": round(over_s, 3),
+                                "refused": refused},
+           "dryrun_multichip_1": {"wall_s": round(dry_s, 3),
+                                  "flagship_loss": float(
+                                      dry[0]["flagship"][0]),
+                                  "ds2_loss": float(dry[0]["ds2"][0])},
+           "scaling_across_cards": "not measurable on one card"}
+    emit(res)
+    if not ok:
+        fail(f"launch -- train_ctc: {res}\n{proc.stderr[-3000:]}")
+    if not refused:
+        fail(f"{ranks} ranks on {ranks - 1} card(s) did not refuse: {res}"
+             f"\n{over.stderr[-3000:]}")
+    return launches
+
+
+# the lattice phase: decode_ctc --lattice --determinize 1 on a flagship
+# of the decode phase's width (5x320 BLSTM, f32, init_model seed 0) over
+# its 16 utterances on the word loop and 4 on the 2,000-word lexicon
+# graph.  Its weights are drawn at LATTICE_STDDEV: at init_model's 0.02
+# the posteriors are nearly flat (greedy and the WFST decode one label or
+# word an utterance, PR 15), so a word-loop lattice holds nearly every
+# label sequence; from ~0.3 the 5x320 stack amplifies the f32 summation
+# orders into other labels (PR 17).  The lattice beam (also the
+# determinization beam) and max-active bound the lattices.  The kernel
+# path's lattices are held to the plain path's (the CPU forward): equal
+# best paths or, where two differ, best-path costs within
+# DECODE_COST_RTOL of each other (a near tie under the two forwards' f32
+# sums), and every best-path cost within DECODE_COST_RTOL.
+LATTICE_STDDEV = 0.1
+LATTICE_FLAGS = {
+    "word_loop": ["--lattice-beam", "2", "--max-active", "1000"],
+    "lexicon": ["--lattice-beam", "2", "--max-active", "1000",
+                "--wfst-beam", "12"]}
+LATTICE_LEX_UTTS = 4
+# lattice_tool lmrescore: the ARPA model and its const-ARPA form (f32
+# log-probabilities) give graph costs within this
+LMRESCORE_ATOL = 1e-3
+
+
+def bigram_arpa(np, words, seed, bigrams):
+    """A seeded bigram ARPA over ``words``: every unigram with a backoff,
+    ``bigrams`` random word pairs (and <s> and </s> ones)."""
+    rng = np.random.default_rng(seed)
+    uni = ["<s>", "</s>"] + list(words)
+    lines = [f"{-rng.uniform(0.5, 4.0):.4f} {w}"
+             + ("" if w == "</s>" else f" {-rng.uniform(0.1, 0.5):.4f}")
+             for w in uni]
+    left = ["<s>"] + list(words)
+    right = list(words) + ["</s>"]
+    pairs = sorted({(left[int(i)], right[int(j)]) for i, j in zip(
+        rng.integers(0, len(left), bigrams),
+        rng.integers(0, len(right), bigrams))})
+    bi = [f"{-rng.uniform(0.1, 2.0):.4f} {a} {b}" for a, b in pairs]
+    return ("\\data\\\n" f"ngram 1={len(lines)}\n" f"ngram 2={len(bi)}\n\n"
+            "\\1-grams:\n" + "\n".join(lines) + "\n\n\\2-grams:\n"
+            + "\n".join(bi) + "\n\n\\end\\\n")
+
+
+def phase_lattice(torch, np, dev, smi):
+    """Lattice output and its tools on a 5x320 BLSTM flagship drawn at
+    LATTICE_STDDEV, over the decode phase's features and graphs:
+    ``decode_ctc --method wfst --lattice --determinize 1`` on the card
+    (K2) and on the CPU's plain path, over the word loop (16 utterances)
+    and the lexicon graph (4), the best paths and costs compared; then
+    ``score_lattices`` (an lm-weight sweep) on the word-loop lattices,
+    ``lattice_tool best-path`` and ``mbr`` on them, ``align-words`` on
+    the lexicon lattices with the lexicon (unalignable ones passed
+    through, as its default), and ``lmrescore`` with a
+    seeded bigram ARPA over the lexicon's words and its const-ARPA form
+    (the two within LMRESCORE_ATOL) → the launches of the card's
+    decodes."""
+    import shutil
+
+    from kaldi_ctc_tpu_torch.cli import (decode_ctc, init_model,
+                                         lattice_tool, score_lattices)
+    from kaldi_ctc_tpu_torch.decoding.det_lattice import \
+        read_compact_lattice_text_ark
+    from kaldi_ctc_tpu_torch.lm import parse_arpa
+    from kaldi_ctc_tpu_torch.lm.const_arpa import compile_const_arpa
+    from kaldi_ctc_tpu_torch.utils.kaldi_io import SequentialMatrixReader
+
+    dec = os.path.join(ROOT, "build", "smoke", "decode")
+    work = os.path.join(ROOT, "build", "smoke", "lattice")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    exp = os.path.join(work, "exp")
+    run_cli(init_model.main, [
+        "--dir", exp, "--input-dim", "40", "--num-targets", "72",
+        "--hidden-dim", str(DECODE_HIDDEN), "--num-layers", "5", "--seed",
+        "0", "--param-stddev", str(LATTICE_STDDEV)])
+    with open(os.path.join(dec, "feats.scp")) as f:
+        scp = f.readlines()
+    with open(os.path.join(work, "feats_lex.scp"), "w") as f:
+        f.writelines(scp[:LATTICE_LEX_UTTS])
+    frames = {k: m.shape[0] for k, m in SequentialMatrixReader(
+        f"scp:{dec}/feats.scp")}
+    launches = collections.Counter()
+    summary, lats = {"card": smi}, {}
+    for graph, feats in (("word_loop", os.path.join(dec, "feats.scp")),
+                         ("lexicon", os.path.join(work, "feats_lex.scp"))):
+        gpath = os.path.join(dec, f"{graph}.fst")
+        base = ["--feats", f"scp:{feats}", "--dir", exp, "--method", "wfst",
+                "--graph", gpath, "--words", gpath + ".words.txt",
+                "--determinize", "1"] + LATTICE_FLAGS[graph]
+        got = {}
+        for path_of, device in (("plain", "cpu"), ("kernels", dev.type)):
+            lat = os.path.join(work, f"{graph}_{path_of}.lat")
+            hyp = os.path.join(work, f"{graph}_{path_of}.hyp")
+            extra = ["--device", device, "--lattice", lat, "--output", hyp]
+            if path_of == "kernels":
+                # the plain path's hypotheses as the reference text
+                extra += ["--text", os.path.join(work, f"{graph}_plain.hyp")]
+            out, counts, wall = cli_counts(decode_ctc.main, base + extra)
+            if path_of == "plain":
+                if any(counts.values()):
+                    fail(f"the plain decode launched kernels: {counts}")
+            else:
+                launches.update(counts)
+                score = json.loads(out.strip().splitlines()[-1])
+            got[path_of] = dict(read_compact_lattice_text_ark(lat))
+        lats[graph] = os.path.join(work, f"{graph}_kernels.lat")
+        keys = sorted(got["plain"])
+        best = {p: {k: got[p][k].best_path() for k in keys} for p in got}
+        differ = [k for k in keys if list(best["plain"][k][0])
+                  != list(best["kernels"][k][0])]
+        rel = {k: abs(best["kernels"][k][2] - best["plain"][k][2])
+               / max(abs(best["plain"][k][2]), 1e-30) for k in keys}
+        audio_s = sum(frames[k] for k in keys) * 0.01
+        res = {"phase": "lattice_decode", "graph": graph,
+               "flags": LATTICE_FLAGS[graph], "utterances": len(keys),
+               "audio_seconds": round(audio_s, 3),
+               "card_wall_s": round(wall, 4), "rtf": score["rtf"],
+               "k2_launches": counts["bilstm_fwd"],
+               "states": sum(got["kernels"][k].num_states for k in keys),
+               "arcs": sum(got["kernels"][k].num_arcs for k in keys),
+               "plain_states": sum(got["plain"][k].num_states for k in keys),
+               "best_paths_differ": len(differ),
+               "max_best_cost_rel_diff": max(rel.values()),
+               "tol": DECODE_COST_RTOL,
+               "label_error_rate_vs_plain": score["label_error_rate"]}
+        emit(res)
+        summary[graph] = {k: res[k] for k in ("rtf", "audio_seconds",
+                                              "best_paths_differ")}
+        if (sorted(got["kernels"]) != keys or len(keys) != (
+                DECODE_UTTS if graph == "word_loop" else LATTICE_LEX_UTTS)
+                or counts["bilstm_fwd"] < PIPE_LAYERS
+                or res["max_best_cost_rel_diff"] > DECODE_COST_RTOL
+                or not all(best["plain"][k][0].size for k in keys)):
+            fail(f"decode_ctc --lattice: {res}; {differ[:4]}")
+
+    # the word loop's lattices: an lm-weight sweep, best path and MBR
+    wl_words = os.path.join(dec, "word_loop.fst.words.txt")
+    sweep = run_cli(score_lattices.main, [
+        "--lattices", lats["word_loop"], "--compact", "1", "--text",
+        os.path.join(work, "word_loop_plain.hyp"), "--words", wl_words,
+        "--min-lmwt", "1", "--max-lmwt", "5"])
+    sweep = [json.loads(line) for line in sweep.strip().splitlines()]
+    bp = os.path.join(work, "best_path.txt")
+    run_cli(lattice_tool.main, [
+        "best-path", "--lattices", lats["word_loop"], "--compact", "1",
+        "--words", wl_words, "--output", bp])
+    mbr = os.path.join(work, "mbr.txt")
+    run_cli(lattice_tool.main, [
+        "mbr", "--lattices", lats["word_loop"], "--words", wl_words,
+        "--output", mbr, "--ctm", mbr + ".ctm"])
+    card_hyps = read_hyps(os.path.join(work, "word_loop_kernels.hyp"))
+    bp_hyps, mbr_hyps = read_hyps(bp), read_hyps(mbr)
+
+    # the lexicon's lattices: word alignment and LM rescoring
+    _, prons = lexicon_prons(np, 70)
+    lexicon = os.path.join(work, "lexicon.txt")
+    with open(lexicon, "w") as f:
+        f.writelines(f"w{w} {' '.join(f'p{int(x)}' for x in labels)}\n"
+                     for w, labels in enumerate(prons, 1))
+    phones = os.path.join(work, "phones.txt")
+    with open(phones, "w") as f:
+        f.writelines(f"p{i} {i}\n" for i in range(1, 72))
+    lex_words = os.path.join(dec, "lexicon.fst.words.txt")
+    aligned = os.path.join(work, "aligned.lat")
+    run_cli(lattice_tool.main, [
+        "align-words", "--lattices", lats["lexicon"], "--output", aligned,
+        "--lexicon", lexicon, "--words", lex_words, "--phones", phones])
+    arpa = os.path.join(work, "bigram.arpa")
+    with open(arpa, "w") as f:
+        f.write(bigram_arpa(np, [f"w{w}" for w in range(1, LEX_WORDS + 1)],
+                            71, 20 * LEX_WORDS))
+    const = os.path.join(work, "bigram.npz")
+    compile_const_arpa(parse_arpa(arpa)).save(const)
+    rescored = {}
+    for kind, flag, lm in (("arpa", "--arpa", arpa),
+                           ("const_arpa", "--const-arpa", const)):
+        rescored[kind] = os.path.join(work, f"rescored_{kind}.lat")
+        t0 = time.perf_counter()
+        run_cli(lattice_tool.main, [
+            "lmrescore", "--lattices", lats["lexicon"], flag, lm, "--words",
+            lex_words, "--lm-scale", "0.5", "--output", rescored[kind]])
+        summary[f"lmrescore_{kind}_s"] = round(time.perf_counter() - t0, 4)
+    resc = {k: dict(read_compact_lattice_text_ark(p))
+            for k, p in rescored.items()}
+    lex_in = dict(read_compact_lattice_text_ark(lats["lexicon"]))
+    lm_diff = max(abs(a - b) for k in resc["arpa"] for a, b in zip(
+        resc["arpa"][k].arc_graph_cost + resc["arpa"][k].final_graph_cost,
+        resc["const_arpa"][k].arc_graph_cost
+        + resc["const_arpa"][k].final_graph_cost)
+        if math.isfinite(a) or math.isfinite(b))
+    moved = sum(resc["arpa"][k].best_path()[2] != lex_in[k].best_path()[2]
+                for k in lex_in)
+    aligned_lats = dict(read_compact_lattice_text_ark(aligned))
+    res = {"phase": "lattice_tools", **summary,
+           "score_lattices": sweep[-1],
+           "best_path_equal_decode": bp_hyps == card_hyps,
+           "mbr_utterances": len(mbr_hyps),
+           "aligned_lattices": len(aligned_lats),
+           # the random lexicon's words repeat labels, which the dropped
+           # blank-threshold frames can merge: some paths do not align
+           "aligned_best_words_kept": sum(
+               list(aligned_lats[k].best_path()[0])
+               == list(lex_in[k].best_path()[0]) for k in aligned_lats),
+           "lmrescore_arpa_vs_const_max_abs": lm_diff,
+           "lmrescore_tol": LMRESCORE_ATOL,
+           "lmrescore_costs_moved": moved}
+    emit(res)
+    if (len(sweep) != 6 or "best_wer" not in sweep[-1]
+            or not res["best_path_equal_decode"]
+            or len(mbr_hyps) != len(card_hyps)
+            or sorted(aligned_lats) != sorted(lex_in)
+            or lm_diff > LMRESCORE_ATOL or moved != len(lex_in)
+            or sorted(resc["const_arpa"]) != sorted(lex_in)):
+        fail(f"the lattice tools: {res}")
+    return launches
+
+
 def sync(torch, dev):
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
@@ -4107,11 +4583,14 @@ def main():
     served_ds2, _ = phase_serve(torch, np, ds2=True)
     trained_ds2 = phase_train(torch, np, dev, ds2=True)
     extras = phase_extras(torch, np, dev, smi)
+    # slice 9: train_ctc on one NCCL rank and the launcher, then lattices
+    dist = phase_distributed(torch, np, dev, smi)
+    latticed = phase_lattice(torch, np, dev, smi)
     launches = collections.Counter(launches)
     for counts in (served, trained, served_uni, trained_uni, served_gru,
                    trained_gru, served_gru_uni, trained_gru_uni, served_proj,
                    trained_proj, decoded, piped, served_ds2, trained_ds2,
-                   extras):
+                   extras, dist, latticed):
         launches.update(counts)
     if min(launches[name] for name in KERNELS) < 1:
         fail(f"a kernel of the driven paths never launched: {launches}")
@@ -4123,9 +4602,15 @@ def main():
         k: slice8[k] for k in SLICE8_KERNELS}})
     if missing:
         fail(f"slice 8's paths never launched {missing}: {dict(slice8)}")
+    slice9 = {"distributed": {k: dist[k] for k in SLICE9_KERNELS},
+              "lattice": {"bilstm_fwd": latticed["bilstm_fwd"]}}
+    emit({"phase": "slice9_launches", "launches": slice9})
+    if min(slice9["distributed"].values()) < 1 or \
+            slice9["lattice"]["bilstm_fwd"] < 1:
+        fail(f"slice 9's paths never launched a kernel: {slice9}")
     driven_routes(launches, (served, served_uni, served_gru, served_gru_uni,
                              served_proj, decoded, piped, served_ds2,
-                             extras))
+                             extras, dist, latticed))
     phase_profile(torch, np, engines)
     phase_profile_stream(torch, np, uni_engines)
     phase_profile(torch, np, gru_engines, "bigru_fwd")

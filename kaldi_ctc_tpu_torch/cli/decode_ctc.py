@@ -10,10 +10,11 @@ decodes greedy or prefix-beam on the device or best-path through the
 native WFST decoder on the host, writes hypothesis label sequences (word
 sequences with a words table), reports RTF like the reference
 (ctcbin/nnet2-ctc-latgen-faster.cc:238-245), and scores the label error
-rate when reference text is given.
-
-Lattice output (``--lattice``, ``--determinize``) is not ported yet and
-raises: ROADMAP.md item 15 (``decoding/lattice.py``, ``det_lattice.py``).
+rate when reference text is given.  With ``--method wfst --lattice``
+each utterance's lattice is generated on the host from the device's
+scores (blank-threshold frames dropped), pruned at ``--lattice-beam``,
+optionally determinized (``--determinize 1``), and written as a text
+archive.
 """
 
 from __future__ import annotations
@@ -24,9 +25,6 @@ import sys
 import time
 
 import numpy as np
-
-_LATTICE_NOT_PORTED = ("{} is not ported yet: ROADMAP.md item 15 "
-                       "(decoding/lattice.py, decoding/det_lattice.py)")
 
 
 def parse_args(argv=None):
@@ -54,10 +52,9 @@ def parse_args(argv=None):
                    help="words.txt symbol table (id word) for wfst output")
     p.add_argument("--lattice", default=None,
                    help="write lattices (text archive) to this path; "
-                        "wfst method only (not ported yet: raises)")
+                        "wfst method only")
     p.add_argument("--determinize", type=int, default=0,
-                   help="1: determinize lattices before writing "
-                        "(not ported yet: raises)")
+                   help="1: determinize lattices before writing")
     p.add_argument("--lattice-beam", type=float, default=10.0,
                    help="forward-backward lattice pruning margin "
                         "(run_ctc_phone.sh lattice_beam default 10)")
@@ -103,10 +100,6 @@ def main(argv=None):
 
     args = parse_args(argv)
     log = get_logger("decode_ctc")
-    if args.lattice:
-        raise NotImplementedError(_LATTICE_NOT_PORTED.format("--lattice"))
-    if args.determinize:
-        raise NotImplementedError(_LATTICE_NOT_PORTED.format("--determinize"))
     device = resolve_device(args.device)
     if args.profile:
         profiling.enable()
@@ -123,12 +116,16 @@ def main(argv=None):
     graph = None
     word_syms = None
     ilabel_map = None
+    lat_writer = None
     if args.method == "wfst":
         from kaldi_ctc_tpu_torch.decoding.wfst import (NativeFst,
                                                        decode_best_path_batch)
         if not args.graph:
             log.error("--method wfst requires --graph"); sys.exit(1)
         graph = NativeFst.load(args.graph)
+        if args.lattice:
+            from kaldi_ctc_tpu_torch.decoding.lattice import LatticeWriter
+            lat_writer = LatticeWriter(args.lattice)
         if args.trans_model:
             from kaldi_ctc_tpu_torch.utils.transition_model import (
                 ctc_ilabel_map, read_transition_model)
@@ -172,7 +169,27 @@ def main(argv=None):
                     hyps[e.key] = []
                     continue
                 todo.append((e.key, rows))
-            if todo:
+            if lat_writer is not None:
+                from kaldi_ctc_tpu_torch.decoding.lattice import decode_lattice
+                for key, rows in todo:
+                    lat = decode_lattice(
+                        graph, rows, ilabel_map=ilabel_map,
+                        beam=args.wfst_beam, max_active=args.max_active,
+                        lattice_beam=args.lattice_beam)
+                    if args.determinize:
+                        from kaldi_ctc_tpu_torch.decoding.det_lattice import (
+                            determinize_lattice_pruned,
+                            write_compact_lattice_text)
+                        clat = determinize_lattice_pruned(
+                            lat, det_beam=args.lattice_beam)
+                        write_compact_lattice_text(
+                            lat_writer._f, key, clat)
+                        words, _, _ = clat.best_path()
+                    else:
+                        lat_writer[key] = lat
+                        words, _, _ = lat.best_path()
+                    emit(key, words)
+            elif todo:
                 # threaded native batch decode (nj-parallel analogue)
                 results = decode_best_path_batch(
                     graph, [rows for _, rows in todo],
@@ -193,6 +210,8 @@ def main(argv=None):
             for j, e in enumerate(group):
                 hyps[e.key] = list(map(int, labels[j][: out_lens[j]]))
         total_frames += int(np.asarray(batch["input_lens"]).sum())
+    if lat_writer is not None:
+        lat_writer.close()
     elapsed = time.perf_counter() - t0
     # frames are frame_shift*fs_factor seconds of audio each
     audio_s = total_frames * 0.01 * args.frame_subsampling_factor

@@ -10,9 +10,17 @@ checkpoints with retention, logs the reference's parseable accuracy
 line, and runs held-out diagnostics (K11 for the loss) every
 ``cv_period * 10`` steps (train.sh:330-349).
 
-One process trains on one device (``parallel`` is a stand-in until
-ROADMAP.md item 14); ``--minibatch-size`` is the global batch and the
-final short batch of an epoch is dropped, as in the JAX package.  The
+Under ``cli/launch.py`` (or any environment that names a coordinator,
+see ``parallel.distributed``) N processes train one model, one device
+each: every process loads the same list, keeps the utterances every
+filter passes, truncates it to a multiple of N and takes its shard
+(``items[i::N]``), pads every batch to the global maxima so that all
+ranks run the same shapes, and batches ``--minibatch-size / N``
+utterances; the step sums the gradient over the processes
+(``training/train.py``), and the logged counts cover the global batch.
+Only the first process writes metrics.jsonl, priors.npy and the
+checkpoints.  ``--minibatch-size`` is the global batch and the final
+short batch of an epoch is dropped, as in the JAX package.  The
 model families and options of the JAX CLI all run: splicing, the FT
 front (``--front-affine-dim``, five nonlinearities), the DS2 conv front
 (``--conv-layers``; its time stride enters the egs 2L+1 filter),
@@ -156,20 +164,36 @@ def initial_params(cfg, seed: int, device):
 
 
 def main(argv=None):
+    from kaldi_ctc_tpu_torch.cli.common import resolve_device
+    from kaldi_ctc_tpu_torch.parallel.distributed import (init_distributed,
+                                                          shutdown)
+
+    args = parse_args(argv)
+    # multi-process bring-up (no-op in one process; the run.pl analogue)
+    device = init_distributed(device=resolve_device(args.device))
+    try:
+        _train(args, device)
+    finally:
+        # leave the group on every exit path, so that a caller in this
+        # process can start again
+        shutdown()
+
+
+def _train(args, device):
     import dataclasses
 
     import numpy as np
     import torch
 
-    from kaldi_ctc_tpu_torch.cli.common import resolve_device
     from kaldi_ctc_tpu_torch.data import (CtcExample, EgsPipeline, Prefetcher,
                                           load_examples)
+    from kaldi_ctc_tpu_torch.data.egs import example_ok, frame_subsample
     from kaldi_ctc_tpu_torch.models import AmConfig, grow_rnn_layer
     from kaldi_ctc_tpu_torch.ops.rnn import RnnMode
     from kaldi_ctc_tpu_torch.parallel import make_mesh, shard_batch
-    from kaldi_ctc_tpu_torch.parallel.distributed import (init_distributed,
-                                                          is_primary,
-                                                          process_index)
+    from kaldi_ctc_tpu_torch.parallel.distributed import (
+        host_shard, initialised_device, is_primary, process_allgather,
+        process_count, process_index)
     from kaldi_ctc_tpu_torch.training import (
         TrainOptions, accuracy_from_outputs, init_train_state,
         make_eval_step, make_train_step)
@@ -182,9 +206,6 @@ def main(argv=None):
     from kaldi_ctc_tpu_torch.utils.kaldi_io import SequentialTextReader
     from kaldi_ctc_tpu_torch.utils.logging import MetricsLogger, Timer
 
-    args = parse_args(argv)
-    init_distributed()
-    device = resolve_device(args.device)
     os.makedirs(args.dir, exist_ok=True)
     if args.profile:
         profiling.enable()
@@ -209,30 +230,73 @@ def main(argv=None):
         log.error("need --egs or both --feats and --ali"); sys.exit(1)
     if not examples:
         log.error("no examples loaded"); sys.exit(1)
-    input_dim = examples[0].feats.shape[1]
-    log.info("loaded %d utterances, input dim %d", len(examples), input_dim)
     # the conv stride math lives in AmConfig.time_stride (one source of
     # truth for the egs 2L+1 filters and the model)
     model_stride = AmConfig(
         input_dim=1, num_targets=2, conv_layers=args.conv_layers,
         conv_time_stride=args.conv_time_stride).time_stride
 
-    # --minibatch-size is the global batch (reference semantics: lr*sum
-    # over that many utterances); one process assembles all of it
-    if len(examples) < args.minibatch_size:
+    def ok_all_shifts(e):
+        for shift in range(max(args.frame_subsampling_factor, 1)):
+            sub = CtcExample(
+                e.key,
+                frame_subsample(e.feats, args.frame_subsampling_factor,
+                                shift),
+                e.labels)
+            if not example_ok(sub, args.max_allow_frames,
+                              time_stride=model_stride):
+                return False
+        return True
+
+    n_proc = process_count()
+
+    def shard_for_spmd(exs, what):
+        # every process must run the same steps at the same shapes:
+        # pre-filter the global list (the same on every process) so that
+        # per-shard filtering cannot diverge, truncate the shards to equal
+        # length, and fix the padded shape at the global maxima
+        exs = [e for e in exs if ok_all_shifts(e)]
+        exs = exs[:(len(exs) // n_proc) * n_proc]
+        fixed = (max((e.num_frames for e in exs), default=1),
+                 max((e.num_labels for e in exs), default=1))
+        exs = host_shard(exs)
+        log.info("host %d/%d: %d %s utterances after sharding, "
+                 "fixed shape %s", process_index(), n_proc, len(exs), what,
+                 fixed)
+        return exs, fixed
+
+    fixed_shape = None
+    if n_proc > 1:
+        examples, fixed_shape = shard_for_spmd(examples, "train")
+    if not examples:
+        log.error("no usable examples after filtering/sharding "
+                  "(check --max-allow-frames and the process count)")
+        sys.exit(1)
+    input_dim = examples[0].feats.shape[1]
+    log.info("loaded %d utterances, input dim %d", len(examples), input_dim)
+
+    # --minibatch-size is the GLOBAL batch (reference semantics: lr*sum
+    # over that many utterances); each process batches its 1/n_proc
+    if args.minibatch_size % n_proc:
+        log.error("--minibatch-size %d not divisible by the %d processes",
+                  args.minibatch_size, n_proc)
+        sys.exit(1)
+    host_mb = args.minibatch_size // n_proc
+    if len(examples) < host_mb:
         # the final short batch is dropped, so fewer examples than one
         # batch would train zero steps silently
         log.error("only %d utterances for a per-host batch of %d: every "
                   "epoch would yield zero batches — reduce "
-                  "--minibatch-size", len(examples), args.minibatch_size)
+                  "--minibatch-size", len(examples), host_mb)
         sys.exit(1)
 
     def make_pipe(exs):
         return EgsPipeline(
-            exs, minibatch_size=args.minibatch_size,
+            exs, minibatch_size=host_mb,
             max_allow_frames=args.max_allow_frames,
             frame_subsampling_factor=args.frame_subsampling_factor,
-            seed=args.seed, time_stride=model_stride)
+            seed=args.seed, fixed_shape=fixed_shape,
+            time_stride=model_stride)
 
     pipe = make_pipe(examples)
 
@@ -241,11 +305,19 @@ def main(argv=None):
         valid_examples = list(load_examples(args.valid_feats, args.valid_ali,
                                             cmvn_rspecifier=args.cmvn,
                                             utt2spk=utt2spk))
+        valid_fixed = None
+        if n_proc > 1:
+            # the same contract as training, the global pre-filter
+            # included: per-process filtering inside the pipeline would
+            # give the processes different batch counts
+            valid_examples, valid_fixed = shard_for_spmd(valid_examples,
+                                                         "valid")
         valid_pipe = EgsPipeline(
-            valid_examples, minibatch_size=args.minibatch_size,
+            valid_examples, minibatch_size=host_mb,
             max_allow_frames=args.max_allow_frames,
             frame_subsampling_factor=args.frame_subsampling_factor,
-            seed=args.seed + 1000, time_stride=model_stride)
+            seed=args.seed + 1000, fixed_shape=valid_fixed,
+            time_stride=model_stride)
 
     grow = args.add_layers_period > 0 and args.start_layers < args.num_layers
     start_layers = args.start_layers if grow else args.num_layers
@@ -287,8 +359,8 @@ def main(argv=None):
     cfg = build_cfg(start_layers)
     write_cfg(cfg)
 
-    # rough decay horizon: one step consumes minibatch_size utterances
-    steps_per_epoch = max(len(examples) // args.minibatch_size, 1)
+    # rough decay horizon: one step consumes host_mb utterances a process
+    steps_per_epoch = max(len(examples) // host_mb, 1)
     num_steps = steps_per_epoch * args.epochs
     opts = TrainOptions(
         initial_learning_rate=args.initial_learning_rate,
@@ -303,7 +375,7 @@ def main(argv=None):
         ng_update_period=args.ng_update_period,
     )
 
-    mesh = make_mesh(device)
+    mesh = make_mesh(devices=None if initialised_device() else [device])
     state = init_train_state(initial_params(cfg, args.seed, device), opts)
     start_epoch = 0
     start_epoch_step = 0
@@ -317,11 +389,20 @@ def main(argv=None):
         log.info("resumed from step %d (epoch %d, batch %d)",
                  meta["step"], start_epoch, start_epoch_step)
 
-    train_step = make_train_step(cfg, opts)
-    eval_step = make_eval_step(cfg)
+    train_step = make_train_step(cfg, opts, mesh)
+    eval_step = make_eval_step(cfg, mesh)
     timer = Timer()
     tot_err = tot_ref = 0
     global_step = int(state.step)
+
+    def global_counts(err, ref):
+        # accuracy counts are computed on this process's rows; the logged
+        # (parseable) numbers cover the whole global batch
+        if n_proc == 1:
+            return err, ref
+        arr = process_allgather(np.asarray([err, ref], np.int64))
+        arr = arr.reshape(-1, 2)
+        return int(arr[:, 0].sum()), int(arr[:, 1].sum())
 
     realign_epochs = parse_realign_epochs(args.realign_epochs)
     realign_labels_path = os.path.join(
@@ -330,21 +411,32 @@ def main(argv=None):
     def run_realign(epoch):
         # align -> relabel -> priors with the current params (the train.sh
         # realign loop); infeasible utterances drop, so the pipeline is
-        # rebuilt
+        # rebuilt and (multi-process) the shards re-truncated to equal
+        # length
         nonlocal examples, pipe, opts, train_step
         new_exs, counts, stats = realign_examples(
             examples, state.params, cfg,
             frame_subsampling_factor=args.frame_subsampling_factor,
             log=log)
+        if n_proc > 1:
+            sizes = process_allgather(
+                np.asarray([len(new_exs)], np.int64)).reshape(-1)
+            new_exs = new_exs[:int(sizes.min())]
+            # occupancies must cover only utterances that stay in the
+            # training set: truncate first, then sum per-utterance counts
+            counts = np.zeros_like(counts)
+            for e in new_exs:
+                counts += stats["counts_by_key"][e.key]
+            counts = process_allgather(counts[None]).reshape(
+                -1, counts.shape[0]).sum(axis=0)
         if not new_exs:
             log.error("realignment dropped every utterance; keeping the "
                       "previous training set")
             return
-        if len(new_exs) < args.minibatch_size:
+        if len(new_exs) < host_mb:
             log.error("realignment left only %d utterances for a "
                       "per-host batch of %d: every remaining epoch "
-                      "would yield zero batches", len(new_exs),
-                      args.minibatch_size)
+                      "would yield zero batches", len(new_exs), host_mb)
             raise RuntimeError("realignment left too few utterances")
         examples = new_exs
         pipe = make_pipe(examples)
@@ -358,10 +450,10 @@ def main(argv=None):
         # count; recompute it over the remaining epochs or the schedule
         # never reaches --final-learning-rate
         new_num_steps = global_step + max(
-            len(examples) // args.minibatch_size, 1) * (args.epochs - epoch)
+            len(examples) // host_mb, 1) * (args.epochs - epoch)
         if new_num_steps != opts.num_steps:
             opts = dataclasses.replace(opts, num_steps=new_num_steps)
-            train_step = make_train_step(cfg, opts)
+            train_step = make_train_step(cfg, opts, mesh)
             log.info("lr decay horizon recomputed after realign: "
                      "%d steps", new_num_steps)
         priors = np.maximum((counts / counts.sum()).astype(np.float32),
@@ -448,8 +540,8 @@ def main(argv=None):
                     # the tree changed: fresh velocity, rebuilt steps
                     state = init_train_state(new_params,
                                              opts)._replace(step=state.step)
-                    train_step = make_train_step(cfg, opts)
-                    eval_step = make_eval_step(cfg)
+                    train_step = make_train_step(cfg, opts, mesh)
+                    eval_step = make_eval_step(cfg, mesh)
                     write_cfg(cfg)
                     log.info("grew RNN stack to %d layers at step %d",
                              cfg.num_layers, global_step)
@@ -479,6 +571,7 @@ def main(argv=None):
                         v_err += e; v_ref += r
                         v_loss += float(out["loss_total"])
                         v_frames += int(out["num_frames"])
+                    v_err, v_ref = global_counts(v_err, v_ref)
                     v_acc = 1.0 - v_err / max(v_ref, 1)
                     metrics_log.log("valid", step=global_step, accuracy=v_acc,
                                     loss_per_frame=v_loss / max(v_frames, 1))
@@ -505,9 +598,10 @@ def main(argv=None):
                 log.warning("epoch %d: every batch (%d) was skipped as "
                             "non-finite — no parameters were updated",
                             epoch, skipped_nonfinite)
-            # per-epoch accuracy line (parseable contract)
-            if tot_ref > 0:
-                metrics_log.log_accuracy(1.0 - tot_err / max(tot_ref, 1),
+            # per-epoch accuracy line (parseable contract), global counts
+            g_err, g_ref = global_counts(tot_err, tot_ref)
+            if g_ref > 0:
+                metrics_log.log_accuracy(1.0 - g_err / max(g_ref, 1),
                                          epoch=epoch, step=global_step)
             tot_err = tot_ref = 0
             if is_primary():
@@ -516,6 +610,9 @@ def main(argv=None):
                                        "num_layers": cfg.num_layers})
                 apply_retention(ckpt_dir)
 
+    if not is_primary():
+        log.info("done (secondary process): %d steps", global_step)
+        return
     save_checkpoint(ckpt_dir, global_step, state,
                     extra={"epoch": args.epochs, "num_layers": cfg.num_layers,
                            "final": True})

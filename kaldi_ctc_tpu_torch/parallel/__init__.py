@@ -1,11 +1,11 @@
-"""Device placement for training (counterpart of kaldi_ctc_tpu/parallel).
+"""Process mesh and sharding rules for multi-process training
+(counterpart of kaldi_ctc_tpu/parallel): ``distributed`` joins the
+``torch.distributed`` group, ``mesh`` places this process in it."""
 
-A one-process, one-device stand-in until ROADMAP.md item 14 ports the
-multi-GPU runtime onto ``torch.distributed``: ``make_mesh`` returns the
-device and ``shard_batch`` moves a numpy batch onto it.
-"""
-
-from kaldi_ctc_tpu_torch.parallel.distributed import (  # noqa: F401
+from kaldi_ctc_tpu_torch.parallel.mesh import (  # noqa: F401
+    data_sharding,
     make_mesh,
+    param_sharding,
+    replicated,
     shard_batch,
 )

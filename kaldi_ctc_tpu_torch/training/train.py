@@ -37,14 +37,16 @@ from typing import Any, Dict, NamedTuple, Tuple
 import numpy as np
 import torch
 
-from kaldi_ctc_tpu_torch.models.acoustic import AmConfig, am_forward
+from kaldi_ctc_tpu_torch.models.acoustic import (AmConfig, am_forward,
+                                                 am_param_shapes)
 from kaldi_ctc_tpu_torch.ops.ctc import ctc_loss, greedy_collapse
 from kaldi_ctc_tpu_torch.params import tree_flatten, tree_map, tree_unflatten
 from kaldi_ctc_tpu_torch.utils.edit_distance import batch_edit_distance
 
 __all__ = ["TrainOptions", "exponential_lr", "build_train_step",
            "make_train_step", "make_eval_step", "accuracy_from_outputs",
-           "TrainState", "init_train_state", "dropout_mask"]
+           "TrainState", "init_train_state", "dropout_mask",
+           "shard_train_state", "whole_params"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -153,7 +155,43 @@ def _on(batch: Dict[str, Any], device) -> Dict[str, torch.Tensor]:
     return {k: torch.as_tensor(v, device=device) for k, v in batch.items()}
 
 
-def build_train_step(cfg: AmConfig, opts: TrainOptions):
+def _model_axis(mesh) -> bool:
+    return mesh is not None and mesh.model > 1
+
+
+def _split_dims(cfg: AmConfig, mesh) -> list:
+    """The dim of each parameter leaf (flatten order) that the mesh's
+    model axis splits, or None."""
+    from kaldi_ctc_tpu_torch.parallel.mesh import split_dims
+    return split_dims(mesh, am_param_shapes(cfg))
+
+
+def shard_train_state(state: TrainState, cfg: AmConfig, mesh) -> TrainState:
+    """This rank's train state from the whole one: its slices of the
+    parameters and velocities that the mesh's model axis splits; the NG
+    states stay replicated.  The identity without a model axis."""
+    if not _model_axis(mesh):
+        return state
+    from kaldi_ctc_tpu_torch.parallel.mesh import local_slices
+    dims = _split_dims(cfg, mesh)
+    return state._replace(
+        params=tree_unflatten(state.params, local_slices(
+            mesh, tree_flatten(state.params), dims)),
+        velocity=tree_unflatten(state.velocity, local_slices(
+            mesh, tree_flatten(state.velocity), dims)))
+
+
+def whole_params(params: Any, cfg: AmConfig, mesh) -> Any:
+    """The whole parameters from this rank's slices (an all-gather over
+    the model group); ``params`` as they are without a model axis."""
+    if not _model_axis(mesh):
+        return params
+    from kaldi_ctc_tpu_torch.parallel.mesh import gather_model
+    return tree_unflatten(params, gather_model(
+        mesh, tree_flatten(params), _split_dims(cfg, mesh)))
+
+
+def build_train_step(cfg: AmConfig, opts: TrainOptions, mesh=None):
     """The train step: ``state, metrics = step(state, batch)``.
 
     batch: feats [B, T, D] f32, labels [B, L], input_lens [B],
@@ -162,6 +200,27 @@ def build_train_step(cfg: AmConfig, opts: TrainOptions):
     greedy hypotheses (``hyp_ids``, ``hyp_lens``) for host-side
     accuracy.  Nothing is read back to the host, but for the step
     number that seeds a dropout mask (with ``cfg.dropout > 0``).
+
+    ``mesh`` (``parallel.make_mesh``): with no mesh, or a mesh with no
+    process group, the step runs alone.  Otherwise each process gives
+    its own rows (its shard of the global batch, the same shape on every
+    rank) and the step computes what the JAX package's step computes on
+    the global batch:
+
+    - the gradient is the SUM of the ranks' gradients over the data
+      group (the loss is ``sum(losses) * objective_scale``, not a mean);
+    - the clips, ``grad_norm`` and ``finite`` read the summed gradient
+      and the summed loss, so every rank applies or skips one update;
+    - ``loss_total``, ``num_frames`` and ``loss_per_frame`` cover the
+      global batch (``hyp_ids`` stay this rank's rows);
+    - NG-SGD preconditions with the rows of the global batch, gathered
+      over the data group in JAX's row order, so every rank holds the
+      same NG states;
+    - a dropout mask is drawn at the global batch's shape and each rank
+      takes its own columns;
+    - with a model axis, ``state`` holds this rank's slices of the split
+      leaves (``shard_train_state``); the step all-gathers the whole
+      leaves for the forward and updates its own slices.
     """
     use_ng = opts.affine_type == "natural"
     if use_ng:
@@ -174,19 +233,36 @@ def build_train_step(cfg: AmConfig, opts: TrainOptions):
             alpha=opts.ng_alpha)
     ng_layers = [name for name in ("out", "front")
                  if use_ng and (name == "out" or cfg.front_affine_dim)]
+    spmd = mesh is not None and mesh.distributed
+    if spmd:
+        from kaldi_ctc_tpu_torch.parallel.mesh import (gather_over_data,
+                                                       sum_over_data)
+    dims = _split_dims(cfg, mesh) if _model_axis(mesh) else None
+    # the leaves NG-SGD replaces: formed from the global rows, so they
+    # are the same on every rank and are not summed again
+    ng_leaves = {f"{name}_{wb}" for name in ng_layers for wb in "wb"}
+    shapes, summed, at = am_param_shapes(cfg), [], 0
+    for k in sorted(shapes):      # flatten order: top-level keys sorted
+        n = len(tree_flatten(shapes[k]))
+        if k not in ng_leaves:
+            summed += range(at, at + n)
+        at += n
 
     def train_step(state: TrainState, batch: Dict[str, Any]):
         batch = _on(batch, state.step.device)
-        leaves = [p.detach().requires_grad_(True)
-                  for p in tree_flatten(state.params)]
+        whole = tree_flatten(whole_params(state.params, cfg, mesh))
+        leaves = [p.detach().requires_grad_(True) for p in whole]
         params = tree_unflatten(state.params, leaves)
         out_lens = cfg.output_lens(batch["input_lens"])
         mask = None
         if cfg.dropout > 0.0:
             b, t = batch["feats"].shape[:2]
+            data = mesh.data if spmd else 1
             mask = dropout_mask(int(state.step), 1.0 - cfg.dropout,
-                                (cfg.output_lens(t), b, cfg.rnn.output_dim),
-                                state.step.device)
+                                (cfg.output_lens(t), b * data,
+                                 cfg.rnn.output_dim), state.step.device)
+            if data > 1:
+                mask = mask[:, mesh.data_index * b:(mesh.data_index + 1) * b]
         taps = {} if use_ng else None
         with torch.enable_grad():
             logits = am_forward(params, batch["feats"], cfg,
@@ -200,13 +276,34 @@ def build_train_step(cfg: AmConfig, opts: TrainOptions):
         # affine (time-major rows) and [T, B, F] for the front
         pre = [taps[f"{name}_pre"] for name in ng_layers]
         all_grads = torch.autograd.grad(total, leaves + pre)
-        grads = tree_unflatten(state.params, list(all_grads[:len(leaves)]))
+        grad_leaves = list(all_grads[:len(leaves)])
         new_ng = state.ng
         with torch.no_grad():
+            losses = losses.detach()
+            loss_sum = torch.sum(losses)
+            num_frames = torch.sum(out_lens)
+            if spmd:
+                # one all-reduce on one flat f32 buffer over the data
+                # group: the summed leaves' gradients, the loss sum and
+                # the frame count (exact in f32 below 2^24 frames)
+                reduced = sum_over_data(
+                    mesh, [grad_leaves[i] for i in summed]
+                    + [loss_sum, num_frames.to(torch.float32)])
+                for i, g in zip(summed, reduced):
+                    grad_leaves[i] = g
+                loss_sum = reduced[-2]
+                num_frames = torch.round(reduced[-1]).to(num_frames.dtype)
+            grads = tree_unflatten(state.params, grad_leaves)
             if use_ng:
                 new_ng = dict(state.ng)
                 for name, dy in zip(ng_layers, all_grads[len(leaves):]):
-                    x = taps[f"{name}_in"]
+                    x = taps[f"{name}_in"].detach().float()
+                    dy = dy.reshape(x.shape[:-1] + dy.shape[-1:])
+                    if spmd:
+                        # the global batch's rows, in JAX's order: gather
+                        # [T, B_local, .] along the batch dim, then flatten
+                        x = gather_over_data(mesh, x, 1)
+                        dy = gather_over_data(mesh, dy, 1)
                     gw, gb, s_in, s_out = ng_affine_update(
                         state.ng[name]["in"], state.ng[name]["out"],
                         x.reshape(-1, x.shape[-1]),
@@ -217,10 +314,12 @@ def build_train_step(cfg: AmConfig, opts: TrainOptions):
             lr = exponential_lr(opts, state.step)
             grad_norm = torch.sqrt(sum(torch.sum(g * g)
                                        for g in tree_flatten(grads)))
-            losses = losses.detach()
             # elementwise clip keeps NaN NaN, so grad_norm still sees it
-            finite = (torch.isfinite(torch.sum(losses))
-                      & torch.isfinite(grad_norm))
+            finite = torch.isfinite(loss_sum) & torch.isfinite(grad_norm)
+            if dims is not None:
+                from kaldi_ctc_tpu_torch.parallel.mesh import local_slices
+                grads = tree_unflatten(state.params, local_slices(
+                    mesh, tree_flatten(grads), dims))
             if opts.momentum > 0:
                 velocity = tree_map(lambda v, g: opts.momentum * v + g,
                                     state.velocity, grads)
@@ -248,10 +347,9 @@ def build_train_step(cfg: AmConfig, opts: TrainOptions):
                 step=state.step + 1, ng=new_ng)
             hyp_ids, hyp_lens = greedy_collapse(
                 torch.argmax(logits.detach(), dim=-1), out_lens)
-            num_frames = torch.sum(out_lens)
             metrics = {
-                "loss_total": torch.sum(losses),
-                "loss_per_frame": torch.sum(losses) / num_frames.float(),
+                "loss_total": loss_sum,
+                "loss_per_frame": loss_sum / num_frames.float(),
                 "num_frames": num_frames,
                 "lr": lr,
                 "grad_norm": grad_norm,
@@ -264,19 +362,24 @@ def build_train_step(cfg: AmConfig, opts: TrainOptions):
     return train_step
 
 
-def make_train_step(cfg: AmConfig, opts: TrainOptions):
+def make_train_step(cfg: AmConfig, opts: TrainOptions, mesh=None):
     """The train step to call in a loop: :func:`build_train_step`'s, as
     it is (PyTorch runs eagerly; no state is donated)."""
-    return build_train_step(cfg, opts)
+    return build_train_step(cfg, opts, mesh)
 
 
-def make_eval_step(cfg: AmConfig):
+def make_eval_step(cfg: AmConfig, mesh=None):
     """Diagnostic objf/accuracy pass (nnet2-ctc-compute-prob analogue):
-    no gradient, so the loss takes the alpha recursion alone."""
+    no gradient, so the loss takes the alpha recursion alone.  With a
+    process group in ``mesh``, ``loss_total`` and ``num_frames`` are
+    summed over the data group (``hyp_ids`` stay this rank's rows), and
+    ``params`` are this rank's slices where a model axis splits them."""
+    spmd = mesh is not None and mesh.distributed
 
     def eval_step(params, batch):
         batch = _on(batch, _device(params))
         with torch.no_grad():
+            params = whole_params(params, cfg, mesh)
             logits = am_forward(params, batch["feats"], cfg,
                                 input_lens=batch["input_lens"])
             out_lens = cfg.output_lens(batch["input_lens"])
@@ -284,9 +387,16 @@ def make_eval_step(cfg: AmConfig):
                               batch["label_lens"])
             hyp_ids, hyp_lens = greedy_collapse(
                 torch.argmax(logits, dim=-1), out_lens)
+            loss_total = torch.sum(losses)
+            num_frames = torch.sum(out_lens)
+            if spmd:
+                from kaldi_ctc_tpu_torch.parallel.mesh import sum_over_data
+                loss_total, frames = sum_over_data(
+                    mesh, [loss_total, num_frames.to(torch.float32)])
+                num_frames = torch.round(frames).to(num_frames.dtype)
         return {
-            "loss_total": torch.sum(losses),
-            "num_frames": torch.sum(out_lens),
+            "loss_total": loss_total,
+            "num_frames": num_frames,
             "hyp_ids": hyp_ids,
             "hyp_lens": hyp_lens,
         }

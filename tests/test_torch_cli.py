@@ -253,20 +253,34 @@ def test_kaldi_archives_cross_packages(tmp_path):
 
 
 def test_unported_flags_raise(setup, tmp_path):
-    """--lattice and --determinize raise naming item 15; the FT, DS2 and
+    """--lattice writes a raw lattice archive and --determinize 1 a
+    compact one, whose best paths are the hypotheses printed (the flags
+    raised before the lattice chain was ported); the FT, DS2 and
     splicing model types initialise, and a DS2 front with splicing raises
     ValueError before init_model writes a file; decode_ctc and nnet_compute default to the card and raise
     without one."""
     from kaldi_ctc_tpu_torch.cli import decode_ctc, init_model, nnet_compute
+    from kaldi_ctc_tpu_torch.decoding.det_lattice import \
+        read_compact_lattice_text_ark
+    from kaldi_ctc_tpu_torch.decoding.lattice import read_lattice_text_ark
 
     d, exp, tlg = setup
-    base = ["--feats", f"scp:{d}/feats.scp", "--dir", exp, "--device", "cpu"]
-    with pytest.raises(NotImplementedError, match="item 15"):
-        decode_ctc.main(base + ["--method", "wfst", "--graph", tlg,
-                                "--lattice", str(tmp_path / "lat.ark")])
-    with pytest.raises(NotImplementedError, match="item 15"):
-        decode_ctc.main(base + ["--method", "wfst", "--graph", tlg,
-                                "--determinize", "1"])
+    # a narrow lattice beam: the random model's lattices stay small
+    base = ["--feats", f"scp:{d}/feats.scp", "--dir", exp, "--device", "cpu",
+            "--method", "wfst", "--graph", tlg, "--use-priors", "0",
+            "--lattice-beam", "3", "--max-active", "200"]
+    for det in (0, 1):
+        lat, hyp = tmp_path / f"lat{det}.ark", tmp_path / f"hyp{det}.txt"
+        decode_ctc.main(base + ["--lattice", str(lat), "--determinize",
+                                str(det), "--output", str(hyp)])
+        reader = (read_compact_lattice_text_ark if det
+                  else read_lattice_text_ark)
+        lats = dict(reader(str(lat)))
+        hyps = {line.split()[0]: [int(w) for w in line.split()[1:]]
+                for line in hyp.read_text().splitlines()}
+        assert lats and set(lats) <= set(hyps)
+        for key, la in lats.items():
+            assert list(la.best_path()[0]) == hyps[key]
     for extra in (["--front-affine-dim", "16"], ["--conv-layers", "1"],
                   ["--splice-left", "2"]):
         # the model types of ROADMAP item 12 now initialise

@@ -3175,3 +3175,105 @@ def test_train_ctc_realign_and_align_ctc_on_cuda(cuda, tmp_path):
     np.testing.assert_allclose(summaries["cuda"]["avg_logprob_per_frame"],
                                summaries["cpu"]["avg_logprob_per_frame"],
                                rtol=1e-5)
+
+
+# ---- slice 9: one NCCL rank, and lattices on the card ----
+
+@pytest.fixture
+def one_nccl_rank(cuda, monkeypatch):
+    """A process group of one NCCL rank on cuda:0 (a free port), left
+    when the test ends."""
+    import socket
+
+    from kaldi_ctc_tpu_torch.parallel import distributed
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    device = distributed.init_distributed(f"localhost:{port}", 1, 0,
+                                          device="cuda")
+    yield device
+    distributed.shutdown()
+
+
+@pytest.mark.cuda
+def test_make_mesh_and_shard_batch_on_one_nccl_rank(one_nccl_rank):
+    """make_mesh on a group of one NCCL rank: the rank's card, a 1x1 mesh
+    whose groups run the collectives; shard_batch puts the rows there."""
+    from kaldi_ctc_tpu_torch.parallel import make_mesh, shard_batch
+    from kaldi_ctc_tpu_torch.parallel.mesh import sum_over_data
+
+    assert torch.distributed.get_backend() == "nccl"
+    assert one_nccl_rank == torch.device("cuda", 0)
+    mesh = make_mesh()
+    assert (mesh.device, mesh.data, mesh.model, mesh.distributed) == (
+        torch.device("cuda", 0), 1, 1, True)
+    batch = shard_batch({"x": np.arange(6, dtype=np.float32)}, mesh)
+    assert batch["x"].device == mesh.device
+    (got,) = sum_over_data(mesh, [batch["x"]])
+    assert torch.equal(got, batch["x"])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("affine_type", ["simple", "natural"])
+def test_step_on_one_nccl_rank_equals_step_alone(one_nccl_rank, affine_type):
+    """The train step with a one-rank NCCL mesh (its all-reduce and
+    gathers run) equals the step with no mesh, bit for bit, over two
+    steps with momentum; the eval step's sums too."""
+    from kaldi_ctc_tpu_torch.models import AmConfig, init_am_params
+    from kaldi_ctc_tpu_torch.parallel import make_mesh
+    from kaldi_ctc_tpu_torch.params import tree_flatten
+    from kaldi_ctc_tpu_torch.training import train as ttrain
+
+    cfg = AmConfig(input_dim=8, num_targets=7, hidden_dim=32, num_layers=2)
+    opts = ttrain.TrainOptions(momentum=0.9, affine_type=affine_type,
+                               ng_rank_in=4, ng_rank_out=3)
+    batch = _extras_batch()
+    out = {}
+    for mesh in (None, make_mesh()):
+        state = ttrain.init_train_state(init_am_params(
+            cfg, torch.Generator().manual_seed(3), "cuda"), opts)
+        step = ttrain.make_train_step(cfg, opts, mesh)
+        metrics = []
+        for _ in range(2):
+            state, m = step(state, batch)
+            metrics.append([float(m[k]) for k in (
+                "loss_total", "grad_norm", "num_frames")])
+        ev = ttrain.make_eval_step(cfg, mesh)(state.params, batch)
+        out[mesh is None] = (metrics, tree_flatten(state.params),
+                             float(ev["loss_total"]), int(ev["num_frames"]))
+    alone, meshed = out[True], out[False]
+    assert meshed[0] == alone[0] and meshed[2:] == alone[2:]
+    assert all(torch.equal(a, b) for a, b in zip(meshed[1], alone[1]))
+
+
+@pytest.mark.cuda
+def test_decode_ctc_lattice_on_cuda_equals_cpu(cuda, tmp_path):
+    """decode_ctc --lattice --determinize 1 on the card (K2 per layer)
+    writes the lattices of the same call on the CPU's plain versions:
+    the same keys and best paths, best-path costs within 1e-4 relative
+    (the kernels' f32 sums against the plain versions')."""
+    from kaldi_ctc_tpu_torch.cli import decode_ctc
+    from kaldi_ctc_tpu_torch.decoding.det_lattice import \
+        read_compact_lattice_text_ark
+
+    exp, feats, graph = _decode_exp(tmp_path, "float32")
+    flags = ["--feats", feats, "--dir", exp, "--method", "wfst", "--graph",
+             graph, "--use-priors", "0", "--determinize", "1",
+             "--lattice-beam", "3", "--max-active", "200"]
+    lats = {}
+    for device in ("cuda", "cpu"):
+        path = str(tmp_path / f"{device}.lat")
+        k2 = rnn_cuda.bilstm_seq_fwd.launches
+        decode_ctc.main(flags + ["--device", device, "--lattice", path,
+                                 "--output", str(tmp_path / device)])
+        if device == "cuda":
+            assert rnn_cuda.bilstm_seq_fwd.launches - k2 == 2 * 1
+        lats[device] = dict(read_compact_lattice_text_ark(path))
+    assert sorted(lats["cuda"]) == sorted(lats["cpu"])
+    assert len(lats["cpu"]) >= 4
+    for key, want in lats["cpu"].items():
+        w_words, _, w_cost = want.best_path()
+        g_words, _, g_cost = lats["cuda"][key].best_path()
+        assert list(g_words) == list(w_words)
+        assert abs(g_cost - w_cost) <= 1e-4 * abs(w_cost)

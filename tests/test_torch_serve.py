@@ -284,6 +284,13 @@ def test_port_imports_without_jax(tmp_path):
         " compute_cmvn, feat_tool)\n"
         "import kaldi_ctc_tpu_torch.data.pipeline, kaldi_ctc_tpu_torch.lm\n"
         "import kaldi_ctc_tpu_torch.parallel.distributed\n"
+        "import kaldi_ctc_tpu_torch.parallel.mesh\n"
+        "import kaldi_ctc_tpu_torch.parallel.dryrun\n"
+        "from kaldi_ctc_tpu_torch.cli import (launch, lattice_tool,"
+        " score_lattices)\n"
+        "from kaldi_ctc_tpu_torch.decoding import (lattice, det_lattice,"
+        " lattice_binary, lattice_ops, mbr, word_align, rescore)\n"
+        "from kaldi_ctc_tpu_torch.lm import arpa, const_arpa\n"
         "import kaldi_ctc_tpu_torch.training.realign\n"
         "import kaldi_ctc_tpu_torch.training.natural_gradient\n"
         "from kaldi_ctc_tpu_torch.cli import align_ctc\n"

@@ -2,8 +2,8 @@
 checkpoint: the per-step records of metrics.jsonl, the cv records, the
 Accuracy lines and the final checkpoint's leaves; --lr-warmup-steps,
 --nonfinite-action, --resume mid-epoch and layer-wise growth; the flags
-that raise before any file is written; and the one-process stand-in of
-``parallel``.
+that raise before any file is written; and ``parallel.distributed``'s
+reading of the launcher's environment.
 
 ``init_model``'s draws differ between the packages (ROADMAP §3), so each
 run starts from a checkpoint the JAX package wrote (``--resume``).  The
@@ -17,6 +17,7 @@ import shutil
 
 import numpy as np
 import pytest
+import torch
 
 # f32 on the CPU: the same sums in another order (XLA's fused step against
 # torch's eager ops), compounded over a dozen SGD steps with momentum
@@ -301,30 +302,47 @@ def test_train_ctc_profile_trace_on_cpu(data, tmp_path):
                for n in os.listdir(trace))
 
 
-@pytest.mark.parametrize("env,item", [
-    ({"WORLD_SIZE": "2"}, "item 14"),
-    ({"NUM_PROCESSES": "4"}, "item 14"),
-    ({"COORDINATOR_ADDRESS": "localhost:1234"}, "item 14"),
-    ({"JAX_COORDINATOR_ADDRESS": "localhost:1234"}, "item 14"),
+@pytest.mark.parametrize("env,want", [
+    ({"WORLD_SIZE": "2", "RANK": "1", "MASTER_ADDR": "localhost",
+      "MASTER_PORT": "1234"}, ("localhost:1234", 2, 1)),
+    ({"NUM_PROCESSES": "4", "PROCESS_ID": "3",
+      "COORDINATOR_ADDRESS": "host:29"}, ("host:29", 4, 3)),
+    ({"COORDINATOR_ADDRESS": "localhost:1234"}, ("localhost:1234", 1, 0)),
+    ({"JAX_COORDINATOR_ADDRESS": "localhost:1234", "NUM_PROCESSES": "2",
+      "PROCESS_ID": "1"}, ("localhost:1234", 2, 1)),
     ({"WORLD_SIZE": "1", "NUM_PROCESSES": "1"}, None),
 ])
-def test_init_distributed_stand_in(monkeypatch, env, item):
+def test_init_distributed_stand_in(monkeypatch, env, want):
+    """``init_distributed``'s reading of the environment: the address,
+    world size and rank from the launcher's variables (or torchrun's),
+    and the one-process no-op, in which the process group is absent and
+    the mesh is the one device."""
     from kaldi_ctc_tpu_torch import parallel
     from kaldi_ctc_tpu_torch.parallel import distributed
 
     for name in ("WORLD_SIZE", "NUM_PROCESSES", "COORDINATOR_ADDRESS",
-                 "JAX_COORDINATOR_ADDRESS"):
+                 "JAX_COORDINATOR_ADDRESS", "RANK", "PROCESS_ID",
+                 "MASTER_ADDR", "MASTER_PORT"):
         monkeypatch.delenv(name, raising=False)
     for k, v in env.items():
         monkeypatch.setenv(k, v)
-    if item:
-        with pytest.raises(NotImplementedError, match=item):
-            distributed.init_distributed()
+    got = distributed.resolve_environment()
+    if want is not None:
+        assert tuple(got) == want
+        if want[1] > 1:
+            # the same world without an address cannot be joined
+            for name in ("COORDINATOR_ADDRESS", "JAX_COORDINATOR_ADDRESS",
+                         "MASTER_ADDR"):
+                monkeypatch.delenv(name, raising=False)
+            with pytest.raises(ValueError, match="no coordinator address"):
+                distributed.init_distributed(device="cpu")
         return
-    distributed.init_distributed()
+    assert got is None
+    assert distributed.init_distributed(device="cpu") == torch.device("cpu")
     assert distributed.is_primary() and distributed.process_count() == 1
     assert distributed.process_index() == 0
     assert distributed.host_shard([1, 2, 3]) == [1, 2, 3]
-    dev = parallel.make_mesh("cpu")
-    batch = parallel.shard_batch({"x": np.arange(3, dtype=np.int32)}, dev)
-    assert batch["x"].device == dev and batch["x"].tolist() == [0, 1, 2]
+    mesh = parallel.make_mesh(devices=["cpu"])
+    assert (mesh.data, mesh.model, mesh.distributed) == (1, 1, False)
+    batch = parallel.shard_batch({"x": np.arange(3, dtype=np.int32)}, mesh)
+    assert batch["x"].device == mesh.device and batch["x"].tolist() == [0, 1, 2]
