@@ -233,10 +233,11 @@ result line:
    --splice-left 2 --splice-right 2`` on the 3x128; one summary line; then
    ``extras_launches``, which fails unless the slice's paths launched K2,
    K3, K1, K11, K10a, K10b, K5 and K7.
-30. distributed (after extras): the pipeline's f32 ``train_ctc`` with no
-   process group and with one NCCL rank on cuda:0 (COORDINATOR_ADDRESS,
-   PROCESS_ID=0, NUM_PROCESSES=1; the backend checked): K2 5x, K3 5x and
-   K1 once a step, K2 5x and K11 once in cv, in both; the final
+30. distributed (after extras): the pipeline's f32 ``train_ctc`` twice
+   with no process group, twice with one NCCL rank on cuda:0
+   (COORDINATOR_ADDRESS, PROCESS_ID=0, NUM_PROCESSES=1; the backend
+   checked), twice more with no group: K2 5x, K3 5x and
+   K1 once a step, K2 5x and K11 once in cv, in each; the final
    checkpoints equal within DIST_CKPT_ATOL (the one-rank all-reduce is an
    identity); steps/s of both with the card's name and power limit; then
    ``launch --num-processes 1 -- train_ctc`` as a subprocess (exit 0, a
@@ -4119,7 +4120,8 @@ def step_collective_ms(torch, dev, calls=20):
 def phase_distributed(torch, np, dev, smi):
     """Multi-process training on torch.distributed with the card's one
     rank: the pipeline's f32 train_ctc with no process group and with one
-    NCCL rank (COORDINATOR_ADDRESS, PROCESS_ID=0, NUM_PROCESSES=1): the
+    NCCL rank (COORDINATOR_ADDRESS, PROCESS_ID=0, NUM_PROCESSES=1), in
+    pairs (none, NCCL, none): the
     backend NCCL, K2, K3, K1 and K11 launched as in the pipeline phase,
     the final checkpoints equal to DIST_CKPT_ATOL, steps/s of both; then
     ``launch --num-processes 1 -- train_ctc`` as a subprocess (exit 0, a
@@ -4151,9 +4153,11 @@ def phase_distributed(torch, np, dev, smi):
     runs, launches = {}, collections.Counter()
     distributed.init_distributed = recording_init
     try:
-        # in turns, so that the host's noise shows as the spread of a pair
-        for name in ("no_group", "nccl_one_rank", "nccl_one_rank_2",
-                     "no_group_2"):
+        # two runs with no group, two on one NCCL rank, two with no group
+        # after them: the host's noise shows as the spread of each pair,
+        # and whatever a group leaves in the process as the last pair's
+        for name in ("no_group", "no_group_2", "nccl_one_rank",
+                     "nccl_one_rank_2", "no_group_3", "no_group_4"):
             exp = os.path.join(work, name)
             if name.startswith("nccl"):
                 os.environ.update(
