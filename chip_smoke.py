@@ -14,7 +14,8 @@ compute_prob, adjust_priors, decode_ctc, decode_stream), and slice 8:
 bench.py's DS2 flagship served and trained, NG-SGD, realignment,
 align_ctc and an FT-front stream on the 3x128 BLSTM and a uni LSTM, and
 slice 9: train_ctc on one NCCL rank, the launcher and the multi-process
-dry run, then lattice output and its tools.  Each
+dry run, then lattice output and its tools, and slice 10: the recipes'
+scripts, the tree and graph builders and the LM tools.  Each
 phase prints one JSON line; any failed phase exits non-zero with no
 result line:
 
@@ -164,8 +165,9 @@ result line:
    build seconds; no libctc_native.so may appear in the JAX package), the
    flagship made by ``init_model`` (seed 0) and a bf16 twin (its
    model_config.json with compute_dtype bfloat16), ``copy_model`` to an
-   artifact equal to the checkpoint, ``model_info``, 16 utterances of 2-8
-   s of seeded noise as MFCC-hires from the card (K4) written as ark,scp,
+   artifact equal to the checkpoint, ``model_info``, DECODE_UTTS (8)
+   utterances of 2-8 s of seeded noise as MFCC-hires from the card (K4)
+   written as ark,scp,
    a word-loop graph (words = labels 1..71) and a seeded lexicon loop of
    2,000 words of 2-6 labels with unigram costs, both CTC-transformed by
    the port's NativeFst (states and arcs printed).  Per dtype:
@@ -247,7 +249,7 @@ result line:
    across cards is not measurable on one card;
 31. lattice: ``decode_ctc --method wfst --lattice --determinize 1`` on a
    5x320 BLSTM flagship (init_model seed 0 at LATTICE_STDDEV, f32) over
-   decode's 16 utterances on the word loop and 4 on the 2,000-word
+   decode's DECODE_UTTS utterances on the word loop and 4 on the 2,000-word
    lexicon graph (LATTICE_FLAGS: lattice beam and max-active), on the
    card (K2) and on the CPU's plain path: equal best
    paths or near ties, best-path costs within DECODE_COST_RTOL, RTF;
@@ -257,6 +259,31 @@ result line:
    bigram ARPA over the lexicon's words and its const-ARPA form on the
    lexicon lattices; then ``slice9_launches``, which fails unless the
    distributed phase launched K2, K3, K1 and K11 and the lattice phase K2.
+32. recipes (after lattice): the port's recipe scripts on the card, each
+   stage a process (``build/smoke/recipes``; a sitecustomize hook first on
+   PYTHONPATH appends each process's wall and launch counts to a file).
+   ``devwatch model_info --help`` exits 0, and 66 with
+   KCTPU_DEVICE_TIMEOUT=0.0001; the librispeech_ctc chain at the
+   flagship's width: ``make_synth_data.py --num-phones 71`` (80 train and
+   16 test utterances, vocab 150: WAVs → compute_feats MFCC-hires on the
+   card (K4) → compute_cmvn → graph_tool make-tlg), then ``run.sh`` with
+   device=cuda and num_targets 72 (prepare_egs get/sort/subset, train_ctc
+   at its defaults, 5x320 bf16 B=48 fs 3, for RECIPE_EPOCHS epochs (K2,
+   K3, K1), compute_prob (K11), adjust_priors, decode_ctc --method wfst
+   --lattice, score_lattices, its report) and generate_report without
+   --plot; the decode held to the same call on the CPU's plain path
+   (equal best paths, or best-path costs within DECODE_COST_RTOL); the
+   triphone chain on that corpus: tree_tool acc-stats, sum-stats,
+   questions, build (TRI_LEAVES leaves) and info, prepare_egs get --tree,
+   f32 train_ctc at 5x320 with num_pdfs + 1 targets, graph_tool make-tlg
+   --tree, decode_ctc --lattice on the card against the plain path,
+   score_lattices; lm_tool arpa-to-fst, compile-const and perplexity
+   (ARPA and const-ARPA agree), graph_tool compose (the CTC graph with
+   G) and info; each with stage walls, graph sizes and build seconds,
+   the tree's leaves, steps/s, decode RTF and WERs; then
+   ``slice10_launches``, which fails unless the phase launched K4, K2,
+   K3, K1 and K11 (K10a and K10b where the triphone chain's f32 layers
+   take them).
 
 Every profiled window (a request, a step, a tick) runs its work as the
 profiler's warm-up for 50 ms or more, then a marker kernel, then the
@@ -273,7 +300,8 @@ driven paths (serve, train, eval, the separate CTC path, serve_uni with
 its streams, train_uni, the same four for the GRU models, serve_proj,
 train_proj, decode's decode_ctc runs and served requests, the
 pipeline's CLI runs, serve_ds2, train_ds2, the extras' CLI runs, the
-distributed phase's NCCL train_ctc and the lattice phase's card decodes;
+distributed phase's NCCL train_ctc, the lattice phase's card decodes and
+the recipes phase's processes and card runs;
 counts set to 0 before each and read after it),
 its error, its time beside the plain version's, its bound (the larger of
 its bytes over 3.35 TB/s and its operations over the peak rate of its
@@ -293,6 +321,7 @@ import concurrent.futures
 import contextlib
 import http.client
 import json
+import logging
 import math
 import os
 import subprocess
@@ -2966,9 +2995,11 @@ def driven_routes(launches, served):
                  f"the band route: {res}")
 
 
-# the decode phase: 16 utterances of 2-8 s, a 2,000-word lexicon loop of
-# 2-6 labels a word, decode_ctc's three methods and their tolerance
-DECODE_UTTS, LEX_WORDS = 16, 2000
+# the decode phase: DECODE_UTTS utterances of 2-8 s, a 2,000-word lexicon
+# loop of 2-6 labels a word, decode_ctc's three methods and their
+# tolerance; 8 utterances: a cut in depth that keeps the whole run, the
+# recipes phase included, near 750 s
+DECODE_UTTS, LEX_WORDS = 8, 2000
 # the flagship's hidden units (a CPU rehearsal may set fewer)
 DECODE_HIDDEN = 320
 # where two paths' hypotheses differ, their best-path scores (greedy: the
@@ -3145,7 +3176,7 @@ def phase_decode(torch, np, dev):
                 int(t.numel()) for t in tree_flatten(a_params)):
         fail(f"copy_model's artifact differs from its checkpoint: {info}")
 
-    # 16 utterances of 2-8 s: MFCC-hires on the card (K4), ark,scp
+    # DECODE_UTTS utterances of 2-8 s: MFCC-hires on the card (K4), ark,scp
     secs = [2.0 + 6.0 * i / (DECODE_UTTS - 1) for i in range(DECODE_UTTS)]
     feats_spec = (f"ark,scp:{work}/feats.ark,{work}/feats.scp")
     frames = 0
@@ -4261,7 +4292,7 @@ def phase_distributed(torch, np, dev, smi):
 
 # the lattice phase: decode_ctc --lattice --determinize 1 on a flagship
 # of the decode phase's width (5x320 BLSTM, f32, init_model seed 0) over
-# its 16 utterances on the word loop and 4 on the 2,000-word lexicon
+# its DECODE_UTTS utterances on the word loop and 4 on the 2,000-word lexicon
 # graph.  Its weights are drawn at LATTICE_STDDEV: at init_model's 0.02
 # the posteriors are nearly flat (greedy and the WFST decode one label or
 # word an utterance, PR 15), so a word-loop lattice holds nearly every
@@ -4306,7 +4337,7 @@ def phase_lattice(torch, np, dev, smi):
     """Lattice output and its tools on a 5x320 BLSTM flagship drawn at
     LATTICE_STDDEV, over the decode phase's features and graphs:
     ``decode_ctc --method wfst --lattice --determinize 1`` on the card
-    (K2) and on the CPU's plain path, over the word loop (16 utterances)
+    (K2) and on the CPU's plain path, over the word loop (DECODE_UTTS)
     and the lexicon graph (4), the best paths and costs compared; then
     ``score_lattices`` (an lm-weight sweep) on the word-loop lattices,
     ``lattice_tool best-path`` and ``mbr`` on them, ``align-words`` on
@@ -4476,6 +4507,410 @@ def phase_lattice(torch, np, dev, smi):
     return launches
 
 
+# slice 10: the librispeech_ctc recipe of the port at the flagship's width
+# (71 phones: 72 targets, the 5x320 BLSTM, bf16, B=48, fs 3) on the
+# corpus of its make_synth_data.py (vocab 150, 80 train and 16 test
+# utterances), cut in depth to RECIPE_EPOCHS epochs of 2 steps; then the
+# triphone chain on the same corpus (a tree of TRI_LEAVES leaves, f32
+# train_ctc for TRI_EPOCHS epochs) and the LM and graph tools.  The
+# decodes search at RECIPE_WFST_BEAM (run.sh: 20) and keep lattices at
+# RECIPE_LATTICE_BEAM (run.sh: 10): the barely trained models' near-flat
+# posteriors make the host's search and lattices the phase's cost.  Egs
+# in RECIPE_ARCHIVES archives (run.sh: 16): with 1, run.sh's sort loop
+# finds no egs.1.ark (get expands JOB only for 2 or more).
+RECIPE_PHONES = 71
+RECIPE_EPOCHS, TRI_EPOCHS, TRI_LEAVES = 4, 3, 200
+RECIPE_ARCHIVES, RECIPE_WFST_BEAM, RECIPE_LATTICE_BEAM = 2, 12, 2
+# decode_ctc's flags in the librispeech run.sh's stage 3 (its blank
+# threshold 0.98) with the beams above
+RECIPE_DECODE = ["--method", "wfst", "--wfst-beam", str(RECIPE_WFST_BEAM),
+                 "--lattice-beam", str(RECIPE_LATTICE_BEAM),
+                 "--blank-threshold", "0.98", "--frame-subsampling-factor",
+                 "3"]
+RECIPE_STAGE_S = 900
+SLICE10_KERNELS = ("log_mel", "bilstm_fwd", "bilstm_bwd", "ctc_alpha_beta",
+                   "ctc_alphas")
+# every python process of the recipe's scripts loads this as
+# sitecustomize (its directory is first on PYTHONPATH) and, where it
+# loaded the port, appends its argv, wall seconds and launch counts to
+# the file that $SMOKE_LAUNCHES names: the counters live in each process
+LAUNCH_HOOK = '''import atexit, json, os, sys, time
+_T0 = time.perf_counter()
+
+
+def _report():
+    if "kaldi_ctc_tpu_torch" not in sys.modules:
+        return
+    sys.path.insert(0, {root!r})
+    import chip_smoke
+    rec = {{"argv": sys.argv, "wall_s": time.perf_counter() - _T0,
+            "counts": chip_smoke.read_counts()}}
+    with open(os.environ["SMOKE_LAUNCHES"], "a") as f:
+        f.write(json.dumps(rec) + "\\n")
+
+
+atexit.register(_report)
+'''
+
+
+def run_logged(cmd, env, timeout, ok=(0,)):
+    """A command in a subprocess → (its completed process, wall seconds);
+    fails the run unless it exits with a code in ``ok``."""
+    t0 = time.perf_counter()
+    try:
+        r = subprocess.run(cmd, env=env, capture_output=True, text=True,
+                           timeout=timeout)
+    except subprocess.TimeoutExpired:
+        fail(f"{cmd[:4]} ran past {timeout} s")
+    wall = time.perf_counter() - t0
+    if r.returncode not in ok:
+        fail(f"{cmd[:4]} exited {r.returncode}: {r.stdout[-2000:]} "
+             f"{r.stderr[-3000:]}")
+    return r, wall
+
+
+class LogLines(logging.Handler):
+    """Keeps each record's message (a host CLI run in this process logs
+    its summary rather than printing it)."""
+
+    def __init__(self):
+        super().__init__()
+        self.messages = []
+
+    def emit(self, record):
+        self.messages.append(record.getMessage())
+
+
+def tlg_line(text):
+    """graph_tool make-tlg's log line → {states, arcs, stage seconds}."""
+    import ast
+    import re
+    m = re.search(r"TLG: (\d+) states / (\d+) arcs .*stage seconds: "
+                  r"(\{.*\})", text)
+    if not m:
+        fail(f"no make-tlg line in: {text[-2000:]}")
+    return {"states": int(m.group(1)), "arcs": int(m.group(2)),
+            "stage_seconds": ast.literal_eval(m.group(3))}
+
+
+def best_costs(path, keys):
+    """Each utterance's best-path cost in a lattice text archive."""
+    from kaldi_ctc_tpu_torch.decoding.lattice import read_lattice_text_ark
+    lats = dict(read_lattice_text_ark(path))
+    return {k: lats[k].best_path()[2] for k in keys}
+
+
+def hold_to_plain(name, card_hyp, plain_hyp, card_lat, plain_lat):
+    """The card's decode against the plain path's: equal best paths, or
+    best-path costs within DECODE_COST_RTOL where a near-tie flips (PR
+    18's lattice rule) → the utterances that differ."""
+    card, plain = read_hyps(card_hyp), read_hyps(plain_hyp)
+    if sorted(card) != sorted(plain) or not card:
+        fail(f"{name}: the card decoded {sorted(card)}, the plain path "
+             f"{sorted(plain)}")
+    differ = [k for k in plain if card[k] != plain[k]]
+    rel = 0.0
+    if differ:
+        got = best_costs(card_lat, differ)
+        want = best_costs(plain_lat, differ)
+        rel = max(abs(got[k] - want[k]) / max(abs(want[k]), 1e-30)
+                  for k in differ)
+        if rel > DECODE_COST_RTOL:
+            fail(f"{name}: best paths differ on {differ[:4]} with "
+                 f"best-path costs {rel} apart")
+    return {"utterances": len(card), "best_paths_differ": len(differ),
+            "max_best_cost_rel_diff": rel, "tol": DECODE_COST_RTOL}
+
+
+def steps_per_s(exp):
+    """train_ctc's steps/s over its train_step records (from the first
+    step's end to the last's)."""
+    steps = [r for r in train_records(exp) if r.get("event") == "train_step"]
+    if len(steps) < 2:
+        fail(f"{exp}: {len(steps)} train steps")
+    return (len(steps) - 1) / max(steps[-1]["t"] - steps[0]["t"], 1e-9)
+
+
+def triphone_host_stages(np, ls, tri):
+    """The triphone chain's host stages in this process: phone-id
+    alignments (pdf + 1), tree_tool acc-stats, sum-stats, questions,
+    build and info, then prepare_egs get --tree → (tree info, egs, walls).
+    """
+    from kaldi_ctc_tpu_torch.cli import prepare_egs, tree_tool
+    from kaldi_ctc_tpu_torch.utils import kaldi_io
+
+    os.makedirs(tri)
+    data = os.path.join(ls, "data")
+    t0 = time.perf_counter()
+    with kaldi_io.IntVectorWriter(f"ark:{tri}/ali.phones.ark") as w:
+        for key, pdfs in kaldi_io.SequentialIntVectorReader(
+                f"ark:{ls}/ali/ali.pdf.ark"):
+            w[key] = np.asarray(pdfs, np.int32) + 1     # pdf = phone - 1
+    tr = os.path.join(data, "train")
+    run_cli(tree_tool.main, ["acc-stats", "--feats", f"scp:{tr}/feats.scp",
+                             "--ali", f"ark:{tri}/ali.phones.ark",
+                             "--output", f"{tri}/stats.npz"])
+    run_cli(tree_tool.main, ["sum-stats", f"{tri}/stats.npz", "--output",
+                             f"{tri}/sum.npz"])
+    run_cli(tree_tool.main, ["questions", "--stats", f"{tri}/sum.npz",
+                             "--output", f"{tri}/questions.int"])
+    run_cli(tree_tool.main, ["build", "--stats", f"{tri}/sum.npz",
+                             "--questions", f"{tri}/questions.int",
+                             "--max-leaves", str(TRI_LEAVES),
+                             "--num-phones", str(RECIPE_PHONES),
+                             "--output", f"{tri}/tree"])
+    tree = json.loads(run_cli(tree_tool.main, [
+        "info", "--tree", f"{tri}/tree"]).strip().splitlines()[-1])
+    tri_walls = {"tree_tool": time.perf_counter() - t0}
+    t0 = time.perf_counter()
+    run_cli(prepare_egs.main, [
+        "get", "--feats", f"scp:{tr}/feats.scp", "--cmvn",
+        f"scp:{tr}/cmvn.scp", "--utt2spk", f"{tr}/utt2spk", "--text",
+        f"{tr}/text", "--lexicon", f"{ls}/lexicon.txt", "--phones",
+        f"{ls}/phones.txt", "--tree", f"{tri}/tree", "--output",
+        f"ark,scp:{tri}/egs.ark,{tri}/egs.scp"])
+    tri_walls["prepare_egs"] = time.perf_counter() - t0
+    with open(f"{tri}/egs.scp") as f:
+        n_egs = len(f.readlines())
+    return tree, n_egs, tri_walls
+
+
+def phase_recipes(torch, np, dev, smi):
+    """Slice 10 on the card: the port's recipe scripts and tools, each
+    stage a process as a user runs it.  devwatch's exit 0 through and
+    exit 66 on a wedge; the librispeech_ctc chain (make_synth_data.py at
+    71 phones → compute_feats (K4), compute_cmvn, graph_tool make-tlg;
+    run.sh with device=cuda: prepare_egs get/sort/subset, train_ctc at
+    its defaults (K2, K3, K1), compute_prob (K11), adjust_priors, decode_ctc
+    --method wfst --lattice, score_lattices; generate_report) with the
+    decode held to the same call on the CPU's plain path; the triphone
+    chain on the same corpus (tree_tool acc-stats, sum-stats, questions,
+    build, info; prepare_egs get --tree, these host stages in this
+    process while run.sh runs; f32 train_ctc at the flagship's
+    width; graph_tool make-tlg --tree; decode_ctc --lattice on the card
+    and on the plain path; score_lattices); lm_tool arpa-to-fst,
+    perplexity and compile-const, graph_tool info and compose → the
+    phase's launches."""
+    import shutil
+
+    from kaldi_ctc_tpu_torch.cli import (decode_ctc, generate_report,
+                                         graph_tool, lm_tool,
+                                         score_lattices, train_ctc)
+    from kaldi_ctc_tpu_torch.utils import kaldi_io
+
+    work = os.path.join(ROOT, "build", "smoke", "recipes")
+    shutil.rmtree(work, ignore_errors=True)
+    hook = os.path.join(work, "hook")
+    os.makedirs(hook)
+    with open(os.path.join(hook, "sitecustomize.py"), "w") as f:
+        f.write(LAUNCH_HOOK.format(root=ROOT))
+    records = os.path.join(work, "launches.jsonl")
+    path = os.environ.get("PYTHONPATH")
+    env = dict(os.environ, SMOKE_LAUNCHES=records, device=dev.type,
+               PYTHONPATH=os.pathsep.join(
+                   [hook, ROOT] + ([path] if path else [])))
+    recipes = os.path.join(ROOT, "kaldi_ctc_tpu_torch", "recipes")
+    py = sys.executable
+    walls = {}
+
+    # devwatch: through to the CLI, and 66 when the probe cannot finish
+    watch = [py, "-m", "kaldi_ctc_tpu_torch.cli.devwatch",
+             "kaldi_ctc_tpu_torch.cli.model_info", "--help"]
+    r, walls["devwatch"] = run_logged(watch, env, 120)
+    if "--dir" not in r.stdout:
+        fail(f"devwatch did not run model_info: {r.stdout[-500:]}")
+    r, walls["devwatch_wedged"] = run_logged(
+        watch, dict(env, KCTPU_DEVICE_TIMEOUT="0.0001"), 120, ok=(66,))
+    if "wedged" not in r.stderr or "--dir" in r.stdout:
+        fail(f"devwatch on a wedge: {r.stderr[-500:]}")
+
+    # the librispeech_ctc chain: the corpus, then run.sh on the card
+    ls = os.path.join(work, "ls")
+    r, walls["make_synth_data"] = run_logged(
+        [py, os.path.join(recipes, "librispeech_ctc", "make_synth_data.py"),
+         "--out", ls, "--num-phones", str(RECIPE_PHONES), "--device",
+         dev.type], env,
+        RECIPE_STAGE_S)
+    corpus = json.loads(r.stdout.strip().splitlines()[-1])
+    mono_graph = tlg_line(r.stderr)
+    if corpus["num_targets"] != RECIPE_PHONES + 1:
+        fail(f"make_synth_data: {corpus}")
+    data, graph = os.path.join(ls, "data"), os.path.join(ls, "graph")
+    exp = os.path.join(work, "exp")
+    knobs = {"data": data, "ali": os.path.join(ls, "ali"), "graph": graph,
+             "exp": exp, "num_targets": str(corpus["num_targets"]),
+             "epochs": str(RECIPE_EPOCHS),
+             "num_archives": str(RECIPE_ARCHIVES),
+             "wfst_beam": str(RECIPE_WFST_BEAM),
+             "lattice_beam": str(RECIPE_LATTICE_BEAM)}
+    # run.sh in the background; meanwhile the triphone chain's host stages
+    # (the tree and its egs) run here
+    tri = os.path.join(work, "tri")
+    logs = [os.path.join(work, f"run.sh.{k}") for k in ("out", "err")]
+    t0 = time.perf_counter()
+    with open(logs[0], "w") as out, open(logs[1], "w") as err:
+        proc = subprocess.Popen(
+            ["bash", os.path.join(recipes, "librispeech_ctc", "run.sh")],
+            env=dict(env, **knobs), stdout=out, stderr=err)
+        try:
+            tree, n_egs, tri_walls = triphone_host_stages(np, ls, tri)
+            try:
+                proc.wait(timeout=RECIPE_STAGE_S)
+            except subprocess.TimeoutExpired:
+                fail(f"run.sh ran past {RECIPE_STAGE_S} s")
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    walls["run.sh"] = time.perf_counter() - t0
+    with open(logs[0]) as f_out, open(logs[1]) as f_err:
+        run_out, run_err = f_out.read(), f_err.read()
+    if proc.returncode:
+        fail(f"run.sh exited {proc.returncode}: {run_out[-2000:]} "
+             f"{run_err[-3000:]}")
+    import re
+    rtf = [float(x) for x in re.findall(r"RTF ([0-9.]+)", run_err)]
+    with open(os.path.join(exp, "wer.test_clean.json")) as f:
+        wer = json.loads(f.read().strip().splitlines()[-1])
+    t0 = time.perf_counter()
+    run_cli(generate_report.main, ["--dir", exp])
+    walls["generate_report"] = time.perf_counter() - t0
+    with open(records) as f:
+        procs = [json.loads(line) for line in f]
+    launches = collections.Counter()
+    for p in procs:
+        launches.update(p["counts"])
+    per_cli = collections.defaultdict(float)
+    for p in procs:
+        per_cli[os.path.basename(p["argv"][0]).replace(".py", "")] += \
+            p["wall_s"]
+    # the same decode on the CPU's plain path, in this process
+    t = os.path.join(data, "test_clean")
+    base = ["--feats", f"scp:{t}/feats.scp", "--cmvn", f"scp:{t}/cmvn.scp",
+            "--utt2spk", f"{t}/utt2spk", "--dir", exp, "--graph",
+            f"{graph}/CTC.fst", "--words", f"{graph}/words.txt"] + \
+        RECIPE_DECODE
+    plain_lat = os.path.join(work, "lat.plain.ark.txt")
+    plain_hyp = os.path.join(work, "hyps.plain.txt")
+    _, leaked = plain_cli(decode_ctc.main, base + [
+        "--lattice", plain_lat, "--output", plain_hyp, "--device", "cpu"])
+    if leaked:
+        fail(f"the plain decode launched {leaked} kernels")
+    mono = hold_to_plain("librispeech_ctc decode",
+                         os.path.join(exp, "hyps.test_clean.txt"), plain_hyp,
+                         os.path.join(exp, "lat.test_clean.ark.txt"),
+                         plain_lat)
+    res = {"phase": "recipes_librispeech", "card": smi,
+           "corpus": corpus | {"run": None}, "mono_graph": mono_graph,
+           "stage_walls_s": {k: round(v, 3) for k, v in walls.items()},
+           "process_walls_s": {k: round(v, 3) for k, v in per_cli.items()},
+           "train_steps_per_s": steps_per_s(exp), "decode_rtf": rtf,
+           "wer": wer, "decode_vs_plain": mono,
+           "launches": {k: launches[k] for k in SLICE10_KERNELS}}
+    emit(res)
+    if len(rtf) != 1 or "best_wer" not in wer:
+        fail(f"the librispeech_ctc chain: {res}")
+
+    # the triphone chain: train and decode on the card
+    exp_tri = os.path.join(work, "exp_tri")
+    _, tri_counts, tri_walls["train_ctc"] = cli_counts(train_ctc.main, [
+        "--egs", f"scp:{tri}/egs.scp", "--num-targets",
+        str(tree["num_pdfs"] + 1), "--hidden-dim", str(PIPE_HIDDEN),
+        "--num-layers", str(PIPE_LAYERS), "--epochs", str(TRI_EPOCHS),
+        "--minibatch-size", "48", "--frame-subsampling-factor", "3",
+        "--initial-learning-rate", "5e-4", "--final-learning-rate", "1e-5",
+        "--clip-gradient", "5.0", "--dir", exp_tri, "--device", dev.type])
+    tri_train = collections.Counter(tri_counts)
+    t0 = time.perf_counter()
+    lines = LogLines()
+    logging.getLogger("graph_tool").addHandler(lines)
+    try:
+        run_cli(graph_tool.main, [
+            "make-tlg", "--lexicon", f"{ls}/lexicon.txt", "--arpa",
+            f"{ls}/lm.arpa", "--phones", f"{ls}/phones.txt", "--tree",
+            f"{tri}/tree", "--output", f"{tri}/TLG.fst"])
+    finally:
+        logging.getLogger("graph_tool").removeHandler(lines)
+    tri_walls["make_tlg_tree"] = time.perf_counter() - t0
+    tri_graph = tlg_line("\n".join(lines.messages))
+    base = ["--feats", f"scp:{t}/feats.scp", "--cmvn", f"scp:{t}/cmvn.scp",
+            "--utt2spk", f"{t}/utt2spk", "--dir", exp_tri, "--graph",
+            f"{tri}/TLG.fst", "--words", f"{tri}/TLG.fst.words.txt"] + \
+        RECIPE_DECODE
+    card_lat, card_hyp = f"{tri}/lat.card.ark.txt", f"{tri}/hyps.card.txt"
+    out, dec_counts, tri_walls["decode_ctc"] = cli_counts(
+        decode_ctc.main, base + ["--lattice", card_lat, "--output",
+                                 card_hyp, "--device", dev.type])
+    tri_dec = collections.Counter(dec_counts)
+    _, leaked = plain_cli(decode_ctc.main, base + [
+        "--lattice", f"{tri}/lat.plain.ark.txt", "--output",
+        f"{tri}/hyps.plain.txt", "--device", "cpu"])
+    if leaked:
+        fail(f"the plain triphone decode launched {leaked} kernels")
+    tri_vs = hold_to_plain("triphone decode", card_hyp,
+                           f"{tri}/hyps.plain.txt", card_lat,
+                           f"{tri}/lat.plain.ark.txt")
+    t0 = time.perf_counter()
+    sweep = [json.loads(line) for line in run_cli(score_lattices.main, [
+        "--lattices", card_lat, "--text", f"{t}/text", "--words",
+        f"{tri}/TLG.fst.words.txt", "--acoustic-scale", "10",
+        "--min-lmwt", "9", "--max-lmwt", "20"]).strip().splitlines()]
+    tri_walls["score_lattices"] = time.perf_counter() - t0
+    audio_s = sum(m.shape[0] for _, m in kaldi_io.SequentialMatrixReader(
+        f"scp:{t}/feats.scp")) * 0.01
+    res = {"phase": "recipes_triphone", "card": smi, "tree": tree,
+           "egs": n_egs, "num_targets": tree["num_pdfs"] + 1,
+           "tri_graph": tri_graph,
+           "stage_walls_s": {k: round(v, 3) for k, v in tri_walls.items()},
+           "train_steps_per_s": steps_per_s(exp_tri),
+           "decode_rtf": tri_walls["decode_ctc"] / audio_s,
+           "wer": sweep[-1], "decode_vs_plain": tri_vs,
+           "train_launches": {k: v for k, v in tri_train.items()
+                              if v and "." not in k},
+           "decode_launches": {k: v for k, v in tri_dec.items()
+                               if v and "." not in k}}
+    emit(res)
+    if (tree["num_pdfs"] < RECIPE_PHONES or n_egs < 70
+            or "best_wer" not in sweep[-1]
+            or tri_train["bilstm_bwd"] + tri_train["bilstm_proj_bwd"] < 1
+            or tri_dec["bilstm_fwd"] + tri_dec["bilstm_proj_fwd"] < 1):
+        fail(f"the triphone chain: {res}")
+    launches.update(tri_train)
+    launches.update(tri_dec)
+
+    # the LM and graph tools on the corpus' LM and the built graphs
+    tools = os.path.join(work, "tools")
+    os.makedirs(tools)
+    t0 = time.perf_counter()
+    run_cli(lm_tool.main, ["arpa-to-fst", "--arpa", f"{ls}/lm.arpa",
+                           "--words", f"{graph}/words.txt", "--output",
+                           f"{tools}/G.fst"])
+    run_cli(lm_tool.main, ["compile-const", "--arpa", f"{ls}/lm.arpa",
+                           "--output", f"{tools}/G.carpa.npz"])
+    ppl = {kind: json.loads(run_cli(lm_tool.main, [
+        "perplexity", flag, lm, "--text", f"{t}/text"]).strip().splitlines(
+        )[-1]) for kind, flag, lm in (
+            ("arpa", "--arpa", f"{ls}/lm.arpa"),
+            ("const_arpa", "--const-arpa", f"{tools}/G.carpa.npz"))}
+    run_cli(graph_tool.main, ["compose", "--a", f"{graph}/CTC.fst", "--b",
+                              f"{tools}/G.fst", "--output",
+                              f"{tools}/CTC_G.fst"])
+    info = {name: json.loads(run_cli(graph_tool.main, [
+        "info", "--graph", p]).strip().splitlines()[-1]) for name, p in (
+            ("mono", f"{graph}/CTC.fst"), ("tri", f"{tri}/TLG.fst"),
+            ("G", f"{tools}/G.fst"), ("CTC_G", f"{tools}/CTC_G.fst"))}
+    res = {"phase": "recipes_tools", "perplexity": ppl, "graph_info": info,
+           "wall_s": round(time.perf_counter() - t0, 3)}
+    emit(res)
+    if (abs(ppl["arpa"]["perplexity"] - ppl["const_arpa"]["perplexity"])
+            > 1e-4 * ppl["arpa"]["perplexity"]
+            or info["mono"]["num_states"] != mono_graph["states"]
+            or info["tri"]["num_states"] != tri_graph["states"]
+            or info["CTC_G"]["num_states"] < info["mono"]["num_states"]):
+        fail(f"the tools: {res}")
+    return launches
+
+
 def sync(torch, dev):
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
@@ -4590,11 +5025,14 @@ def main():
     # slice 9: train_ctc on one NCCL rank and the launcher, then lattices
     dist = phase_distributed(torch, np, dev, smi)
     latticed = phase_lattice(torch, np, dev, smi)
+    # slice 10: the recipes, the tree and graph builders and their tools
+    reset_counts()
+    recipes = phase_recipes(torch, np, dev, smi)
     launches = collections.Counter(launches)
     for counts in (served, trained, served_uni, trained_uni, served_gru,
                    trained_gru, served_gru_uni, trained_gru_uni, served_proj,
                    trained_proj, decoded, piped, served_ds2, trained_ds2,
-                   extras, dist, latticed):
+                   extras, dist, latticed, recipes):
         launches.update(counts)
     if min(launches[name] for name in KERNELS) < 1:
         fail(f"a kernel of the driven paths never launched: {launches}")
@@ -4612,9 +5050,14 @@ def main():
     if min(slice9["distributed"].values()) < 1 or \
             slice9["lattice"]["bilstm_fwd"] < 1:
         fail(f"slice 9's paths never launched a kernel: {slice9}")
+    slice10 = {k: recipes[k] for k in SLICE10_KERNELS + (
+        "bilstm_proj_fwd", "bilstm_proj_bwd")}
+    emit({"phase": "slice10_launches", "launches": slice10})
+    if min(slice10[k] for k in SLICE10_KERNELS) < 1:
+        fail(f"slice 10's paths never launched a kernel: {slice10}")
     driven_routes(launches, (served, served_uni, served_gru, served_gru_uni,
                              served_proj, decoded, piped, served_ds2,
-                             extras, dist, latticed))
+                             extras, dist, latticed, recipes))
     phase_profile(torch, np, engines)
     phase_profile_stream(torch, np, uni_engines)
     phase_profile(torch, np, gru_engines, "bigru_fwd")

@@ -2,9 +2,7 @@
 
 Counterpart of ``kaldi_ctc_tpu/cli/prepare_egs.py`` with the same
 subcommands, flags, defaults, archives and printed lines; host-only
-numpy, as there.  ``get --tree`` (context-dependent flat-start targets)
-needs ``decoding/context.py`` and ``utils/tree.py`` and raises
-``NotImplementedError`` before anything is written: ROADMAP.md item 15.
+numpy, as there.
 
 One CLI covering the ctcbin egs tool family
 (``ctcbin/Makefile:10-14``):
@@ -30,10 +28,6 @@ from __future__ import annotations
 import argparse
 
 import numpy as np
-
-
-_TREE_NOT_PORTED = ("prepare_egs get --tree is not ported yet: ROADMAP.md "
-                    "item 15 (decoding/context.py, utils/tree.py)")
 
 
 def _expand(template: str, idx: int) -> str:
@@ -174,8 +168,6 @@ def main(argv=None):
 
     args = parse_args(argv)
     log = get_logger("prepare_egs")
-    if args.cmd == "get" and args.tree:
-        raise NotImplementedError(_TREE_NOT_PORTED)
 
     def _split_write(egs_iter, template, num, random, seed, compress):
         writers = [EgsWriter(_expand(template, i) if num > 1 else template,
@@ -337,6 +329,12 @@ def main(argv=None):
                      for k, v in SequentialTextReader(args.text)}
             cmvn = (kaldi_io.open_random_access_matrices(args.cmvn)
                     if args.cmvn else None)
+            tree = None
+            if args.tree:
+                from kaldi_ctc_tpu_torch.decoding.context import \
+                    labels_to_pdfs
+                from kaldi_ctc_tpu_torch.utils.tree import read_tree
+                tree = read_tree(args.tree)
 
             def gen():
                 nonlocal n_skip, n_oov
@@ -349,6 +347,14 @@ def main(argv=None):
                     if labels is None:
                         n_oov += 1
                         continue
+                    if tree is not None:
+                        try:
+                            labels = labels_to_pdfs(labels, tree)
+                        except ValueError:
+                            # unseen phone context in the tree: skip the
+                            # utterance (like the OOV path), don't abort
+                            n_oov += 1
+                            continue
                     if cmvn is not None:
                         spk = utt2spk.get(key, key) if utt2spk else key
                         if spk in cmvn:

@@ -3277,3 +3277,83 @@ def test_decode_ctc_lattice_on_cuda_equals_cpu(cuda, tmp_path):
         g_words, _, g_cost = lats["cuda"][key].best_path()
         assert list(g_words) == list(w_words)
         assert abs(g_cost - w_cost) <= 1e-4 * abs(w_cost)
+
+
+@pytest.mark.cuda
+def test_devwatch_cuda_probe_passes_through(cuda):
+    """devwatch's probe on the card (the default device, and --device
+    cuda named in the wrapped argv) passes through to the CLI."""
+    import subprocess
+    import sys
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = root
+    for extra in ([], ["--device", "cuda"]):
+        r = subprocess.run(
+            [sys.executable, "-m", "kaldi_ctc_tpu_torch.cli.devwatch",
+             "kaldi_ctc_tpu_torch.cli.decode_ctc"] + extra + ["--help"],
+            capture_output=True, text=True, env=env, timeout=120)
+        assert r.returncode == 0, r.stderr
+        assert "--dir" in r.stdout
+
+
+@pytest.mark.cuda
+def test_triphone_decode_ctc_on_cuda_equals_cpu(cuda, tmp_path):
+    """The triphone chain's decode: a handmade triphone tree (10 pdfs
+    over 5 phones), graph_tool make-tlg --tree, a seeded 2x32 BLSTM of
+    11 targets (init_model, peaky at stddev 0.5), decode_ctc --method
+    wfst --lattice --determinize 1 on the card (K2 per layer) and on the
+    CPU's plain versions: the same hypotheses' best paths, best-path
+    costs within 1e-4 relative."""
+    from kaldi_ctc_tpu_torch.cli import decode_ctc, graph_tool, init_model
+    from kaldi_ctc_tpu_torch.decoding.det_lattice import \
+        read_compact_lattice_text_ark
+    from kaldi_ctc_tpu_torch.utils.kaldi_io import MatrixWriter
+    from kaldi_ctc_tpu_torch.utils.tree import (CE, SE, TE,
+                                                ContextDependency,
+                                                write_tree)
+
+    write_tree(str(tmp_path / "tree"), ContextDependency(3, 1, TE(1, [
+        None] + [SE(2, [2], CE(2 * p - 1), CE(2 * p - 2))
+                 for p in range(1, 6)])))
+    (tmp_path / "lexicon.txt").write_text("ab p1 p2\nc p3\nde p4 p5\n")
+    (tmp_path / "phones.txt").write_text(
+        "".join(f"p{i} {i}\n" for i in range(1, 6)))
+    (tmp_path / "lm.arpa").write_text(
+        "\\data\\\nngram 1=5\n\n\\1-grams:\n-0.5 <s>\n-0.5 </s>\n"
+        "-0.5 ab\n-0.5 c\n-0.8 de\n\n\\end\\\n")
+    tlg = str(tmp_path / "TLG.fst")
+    graph_tool.main(["make-tlg", "--lexicon", str(tmp_path / "lexicon.txt"),
+                     "--arpa", str(tmp_path / "lm.arpa"), "--phones",
+                     str(tmp_path / "phones.txt"), "--tree",
+                     str(tmp_path / "tree"), "--output", tlg])
+    exp = str(tmp_path / "exp")
+    init_model.main(["--dir", exp, "--input-dim", "12", "--num-targets",
+                     "11", "--hidden-dim", "32", "--num-layers", "2",
+                     "--seed", "0", "--param-stddev", "0.5"])
+    rng = np.random.default_rng(4)
+    with MatrixWriter(f"ark:{tmp_path}/feats.ark") as w:
+        for i in range(8):
+            w[f"u{i}"] = rng.standard_normal(
+                (int(rng.integers(20, 60)), 12)).astype(np.float32)
+    flags = ["--feats", f"ark:{tmp_path}/feats.ark", "--dir", exp,
+             "--method", "wfst", "--graph", tlg, "--words",
+             tlg + ".words.txt", "--use-priors", "0", "--determinize", "1",
+             "--lattice-beam", "3", "--max-active", "200"]
+    lats = {}
+    for device in ("cuda", "cpu"):
+        path = str(tmp_path / f"{device}.lat")
+        k2 = rnn_cuda.bilstm_seq_fwd.launches
+        decode_ctc.main(flags + ["--device", device, "--lattice", path,
+                                 "--output", str(tmp_path / device)])
+        if device == "cuda":
+            assert rnn_cuda.bilstm_seq_fwd.launches - k2 == 2 * 1
+        lats[device] = dict(read_compact_lattice_text_ark(path))
+    assert sorted(lats["cuda"]) == sorted(lats["cpu"])
+    assert len(lats["cpu"]) == 8
+    for key, want in lats["cpu"].items():
+        w_words, _, w_cost = want.best_path()
+        g_words, _, g_cost = lats["cuda"][key].best_path()
+        assert list(g_words) == list(w_words)
+        assert abs(g_cost - w_cost) <= 1e-4 * abs(w_cost)

@@ -89,10 +89,12 @@ def test_prefetcher_keeps_order_and_reraises():
 def data(tmp_path_factory):
     """Features, pdf alignments, transition-id alignments, CMVN stats of
     two speakers, transcripts and a lexicon, an LDA matrix, per-speaker
-    affine transforms and online ivectors for 12 utterances, and a
-    1-state-per-phone transition model of 3 phones."""
+    affine transforms and online ivectors for 12 utterances, a
+    1-state-per-phone transition model of 3 phones and a triphone tree."""
     from kaldi_ctc_tpu.features.cmvn import acc_cmvn_stats
     from kaldi_ctc_tpu.utils import kaldi_io
+    from kaldi_ctc_tpu.utils.tree import CE, SE, TE, ContextDependency, \
+        write_tree
 
     d = tmp_path_factory.mktemp("egs")
     rng = np.random.default_rng(5)
@@ -133,6 +135,11 @@ def data(tmp_path_factory):
                                            for w, p in lex.items()))
     (d / "phones.txt").write_text("p1 1\np2 2\np3 3\n")
     (d / "final.mdl").write_bytes(_make_mono_ctc_model(3).read())
+    # a triphone tree over the 3 phones that answers no window with p3 in
+    # the centre and p2 on its right ("c de")
+    write_tree(str(d / "tree"), ContextDependency(3, 1, TE(1, [
+        None, SE(2, [2], CE(1), CE(0)), SE(0, [1], CE(3), CE(2)),
+        TE(2, [CE(4), CE(5), None, CE(6)])])))
     return d
 
 
@@ -197,6 +204,12 @@ GET_CASES = {
     "flat_phones": (None, ["--text", "{d}/text", "--lexicon",
                            "{d}/lexicon.txt", "--phones", "{d}/phones.txt"],
                     True),
+    # context-dependent targets: the tree's pdfs + 1, and the utterances
+    # with a context the tree does not answer skipped as OOV
+    "flat_tree": (None, ["--text", "{d}/text", "--lexicon",
+                         "{d}/lexicon.txt", "--phones", "{d}/phones.txt",
+                         "--tree", "{d}/tree", "--cmvn", "ark:{d}/cmvn.ark"],
+                  True),
 }
 
 
@@ -262,18 +275,6 @@ def test_prepare_egs_info_equal_jax(egs_ark, tmp_path):
     out = _both(tmp_path, lambda prefix: ["info", "--egs", f"ark:{egs_ark}"])
     assert out["port"][1] == out["jax"][1]
     assert json.loads(out["port"][1])["num_examples"] >= 6
-
-
-def test_prepare_egs_get_tree_raises_before_writing(data, tmp_path):
-    from kaldi_ctc_tpu_torch.cli import prepare_egs
-
-    out = tmp_path / "egs.ark"
-    with pytest.raises(NotImplementedError, match="item 15"):
-        prepare_egs.main(["get", "--feats", f"scp:{data}/feats.scp",
-                          "--text", f"{data}/text", "--lexicon",
-                          f"{data}/lexicon.txt", "--tree", f"{data}/tree",
-                          "--output", f"ark:{out}"])
-    assert not out.exists()
 
 
 def test_load_examples_equal_jax(data):

@@ -296,6 +296,12 @@ def test_port_imports_without_jax(tmp_path):
         "from kaldi_ctc_tpu_torch.cli import align_ctc\n"
         "from kaldi_ctc_tpu_torch.features import (functions, transform,"
         " spectrogram, plp, pitch, htk)\n"
+        "from kaldi_ctc_tpu_torch.cli import (graph_tool, lm_tool, tree_tool,"
+        " generate_report, devwatch)\n"
+        "from kaldi_ctc_tpu_torch.decoding import graph, context\n"
+        "from kaldi_ctc_tpu_torch.utils import tree, tree_build\n"
+        "from kaldi_ctc_tpu_torch.data import synth_lang\n"
+        "from kaldi_ctc_tpu_torch.tools import dump_lg\n"
         "kaldi_ctc_tpu_torch.decoding.wfst._load()\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'kaldi_ctc_tpu')]\n"
@@ -310,6 +316,7 @@ def test_port_imports_without_jax(tmp_path):
         " (decode_stream, ['--feats', 'x']),"
         " (compute_feats, ['--wav-scp', 'x', '--out', 'y'])):\n"
         "    assert cli.parse_args(argv).device == 'cuda'\n"
+        "assert devwatch.probe_device(['--dir', 'x']) == 'cuda'\n"
         "print('ok')\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     env["PYTHONPATH"] = ROOT
@@ -318,6 +325,29 @@ def test_port_imports_without_jax(tmp_path):
                           timeout=120)
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.strip() == "ok"
+    # the recipes' scripts import their modules inside main() and the
+    # run.sh files name their CLIs: neither may name the JAX package
+    import ast
+    import re
+    recipes = os.path.join(ROOT, "kaldi_ctc_tpu_torch", "recipes")
+    scripts = [os.path.join(r, f) for r, _, fs in os.walk(recipes)
+               for f in fs if f.endswith((".py", ".sh"))]
+    assert len([f for f in scripts if f.endswith(".py")]) == 6
+    assert len([f for f in scripts if f.endswith(".sh")]) == 5
+    for path in scripts:
+        with open(path) as f:
+            text = f.read()
+        if path.endswith(".py"):
+            for node in ast.walk(ast.parse(text)):
+                names = ([a.name for a in node.names]
+                         if isinstance(node, ast.Import) else
+                         [node.module or ""]
+                         if isinstance(node, ast.ImportFrom) else [])
+                for name in names:
+                    assert name.split(".")[0] not in (
+                        "jax", "jaxlib", "kaldi_ctc_tpu"), (path, name)
+        assert not re.search(r"kaldi_ctc_tpu\.|JAX_PLATFORMS|import jax",
+                             text), path
 
 
 def test_chip_smoke_refuses_without_the_card_or_the_repo(tmp_path):
