@@ -1,0 +1,7 @@
+"""Share of the traced serving window with no device activity."""
+
+from asrbench.metrics import _common
+
+
+def read(ctx):
+    return _common.idle_pct(ctx, "recognize")
