@@ -13,6 +13,11 @@ Every C entry point returns ``cudaGetLastError()`` after its launch;
 :func:`check` raises when that is not 0.  Nothing here falls back to a
 plain version: a missing compiler, a failed build or a failed launch
 raises.
+
+Spans ``kernels.load.<name>`` (a process's first use: the source hash,
+the build if any, ``dlopen``) and ``kernels.build.<name>`` (``nvcc``
+alone), counters ``kernels.built`` and ``kernels.reused`` (a library of
+the same hash was there).
 """
 
 from __future__ import annotations
@@ -25,6 +30,8 @@ import shutil
 import subprocess
 import threading
 from typing import Dict, List
+
+from kaldi_ctc_tpu_torch.utils.profiling import profiler
 
 __all__ = ["BUILD_DIR", "NVCC_FLAGS", "build", "load", "check",
            "stream_ptr"]
@@ -58,16 +65,19 @@ def build(name: str) -> str:
     digest.update(" ".join(NVCC_FLAGS).encode())
     out = os.path.join(BUILD_DIR, f"{name}-{digest.hexdigest()[:16]}.so")
     if os.path.exists(out):
+        profiler.count("kernels.reused")
         return out
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{out}.{os.getpid()}.tmp"
-    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, src],
-                          capture_output=True, text=True)
+    with profiler.span("kernels.build." + name):
+        proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, src],
+                              capture_output=True, text=True)
     if proc.returncode != 0:
         if os.path.exists(tmp):
             os.unlink(tmp)
         raise RuntimeError(f"nvcc failed on {src}:\n{proc.stderr}")
     os.replace(tmp, out)   # atomic: a concurrent loader sees all or none
+    profiler.count("kernels.built")
     return out
 
 
@@ -78,13 +88,14 @@ def load(name: str, signatures: Dict[str, List]) -> ctypes.CDLL:
     with _lock:
         lib = _libs.get(name)
         if lib is None:
-            lib = ctypes.CDLL(build(name))
-            for fn, argtypes in signatures.items():
-                f = getattr(lib, fn)
-                f.argtypes = argtypes
-                f.restype = ctypes.c_int
-            lib.kctpu_error_string.argtypes = [ctypes.c_int]
-            lib.kctpu_error_string.restype = ctypes.c_char_p
+            with profiler.span("kernels.load." + name):
+                lib = ctypes.CDLL(build(name))
+                for fn, argtypes in signatures.items():
+                    f = getattr(lib, fn)
+                    f.argtypes = argtypes
+                    f.restype = ctypes.c_int
+                lib.kctpu_error_string.argtypes = [ctypes.c_int]
+                lib.kctpu_error_string.restype = ctypes.c_char_p
             _libs[name] = lib
     return lib
 

@@ -76,7 +76,8 @@ def parse_args(argv=None):
                    help="reference label seqs (text table of ints) for error rate")
     p.add_argument("--output", default=None, help="hypotheses output file")
     p.add_argument("--profile", type=int, default=0,
-                   help="1: per-section host timing summary at exit")
+                   help="1: print the table of spans and counters at "
+                        "exit")
     p.add_argument("--device", default="cuda",
                    help="torch device the model and the greedy and beam "
                         "decoders run on; 'cuda' with no card raises")
@@ -147,18 +148,24 @@ def main(argv=None):
     total_frames = 0
     t0 = time.perf_counter()
     for group, batch in batches(egs, args.minibatch_size):
-        with profiling.profiler.track("am_forward"), torch.inference_mode():
+        with profiling.profiler.span("decode.am_forward"), \
+                torch.inference_mode():
             logits = am_forward(
                 model_params, torch.as_tensor(batch["feats"], device=device),
                 cfg, torch.as_tensor(batch["input_lens"], device=device))
             scores, skip = acoustic_scores(
                 logits, priors=priors, acoustic_scale=args.acoustic_scale,
                 blank_threshold=args.blank_threshold)
+            # the span ends once the host holds the scores (or the device
+            # has made them): it times the work, not the enqueue
+            if args.method == "wfst":
+                scores_np = scores.cpu().numpy()
+                skip_np = skip.cpu().numpy()
+            elif scores.is_cuda:
+                torch.cuda.synchronize(scores.device)
         # conv time stride: score rows per utterance (identity without)
         score_lens = np.asarray(cfg.output_lens(batch["input_lens"]))
         if args.method == "wfst":
-            scores_np = scores.cpu().numpy()
-            skip_np = skip.cpu().numpy()
             todo = []     # (key, rows) with blank-threshold frames dropped
             for j, e in enumerate(group):
                 t = int(score_lens[j])

@@ -18,6 +18,13 @@ the score preparation run there.
   POST /stream/<k>/end       → {"labels": [all...], "new": [...],
                                 "words": [...]?, "text": "..."?}
                                (404 for a slot that is not open)
+  GET  /stats                → the span and counter registry's snapshot
+                               (``utils/profiling.py``; README.md)
+
+Each POST is a span ``serve.request`` of ``utils/profiling.py``, from
+the body read to the response written; its children
+time the lock wait, features, forward, scores, the device-to-host reads,
+the greedy labels and the WFST words (README.md lists them).
 
 With ``--graph`` (a CTC TLG graph) /recognize and /stream end add the
 best path's words through the native WFST decoder on the host
@@ -47,6 +54,7 @@ import numpy as np
 import torch
 
 from kaldi_ctc_tpu_torch.cli.common import resolve_device
+from kaldi_ctc_tpu_torch.utils.profiling import profiler
 
 
 def parse_args(argv=None):
@@ -188,12 +196,13 @@ class Engine:
         kernel path wherever it runs on its accelerator."""
         from kaldi_ctc_tpu_torch.features.cmvn import apply_cmvn
 
-        wave = torch.as_tensor(np.asarray(samples, np.float32),
-                               device=self.device)
-        f = self._compute(wave, self.fopts)
-        if self.cmvn_stats is not None:
-            f = apply_cmvn(f, self.cmvn_stats)
-        return f.to(torch.float32)
+        with profiler.span("serve.feats"):
+            wave = torch.as_tensor(np.asarray(samples, np.float32),
+                                   device=self.device)
+            f = self._compute(wave, self.fopts)
+            if self.cmvn_stats is not None:
+                f = apply_cmvn(f, self.cmvn_stats)
+            return f.to(torch.float32)
 
     # ---- full utterance ----
 
@@ -209,40 +218,54 @@ class Engine:
 
         t = feats.shape[0]
         with torch.inference_mode():
-            lens = torch.full((1,), t, dtype=torch.int32, device=self.device)
-            logits = am_forward(self.params, feats[None], self.cfg,
-                                input_lens=lens)
-            sc, skip = acoustic_scores(
-                logits, priors=self.priors,
-                acoustic_scale=self.args.acoustic_scale,
-                blank_threshold=self.args.blank_threshold)
-            raw, _ = acoustic_scores(
-                logits, priors=self.priors,
-                acoustic_scale=self.args.acoustic_scale, blank_threshold=1.0)
+            with profiler.span("serve.forward"):
+                lens = torch.full((1,), t, dtype=torch.int32,
+                                  device=self.device)
+                logits = am_forward(self.params, feats[None], self.cfg,
+                                    input_lens=lens)
+            with profiler.span("serve.scores"):
+                sc, skip = acoustic_scores(
+                    logits, priors=self.priors,
+                    acoustic_scale=self.args.acoustic_scale,
+                    blank_threshold=self.args.blank_threshold)
+                raw, _ = acoustic_scores(
+                    logits, priors=self.priors,
+                    acoustic_scale=self.args.acoustic_scale,
+                    blank_threshold=1.0)
         n_out = int(self.cfg.output_lens(t))
-        return (sc[0, :n_out].cpu().numpy(), skip[0, :n_out].cpu().numpy(),
-                raw[0, :n_out].cpu().numpy())
+        # the host waits here for the device's forward and scores
+        with profiler.span("serve.d2h"):
+            return (sc[0, :n_out].cpu().numpy(),
+                    skip[0, :n_out].cpu().numpy(),
+                    raw[0, :n_out].cpu().numpy())
 
     def recognize(self, samples: np.ndarray) -> dict:
         t0 = time.time()
-        with self.lock:
+        with profiler.span("serve.lock_wait"):
+            self.lock.acquire()
+        try:
             feats = self.feats_for(samples)
+            profiler.count("serve.frames", int(feats.shape[0]))
             if feats.shape[0] == 0:
                 return {"labels": [], "num_frames": 0}
             # forward + score prep (CtcDecodableAmNnet semantics) and the
             # unforced scores the greedy labels come from
             scores, skip, raw = self.score_utt(feats)
+        finally:
+            self.lock.release()
         out: dict = {"num_frames": int(feats.shape[0])}
-        ids = np.argmax(raw, axis=-1)
-        labels = []
-        last = 0
-        for lab in ids:
-            if lab != 0 and lab != last:
-                labels.append(int(lab))
-            last = int(lab)
+        with profiler.span("serve.greedy"):
+            ids = np.argmax(raw, axis=-1)
+            labels = []
+            last = 0
+            for lab in ids:
+                if lab != 0 and lab != last:
+                    labels.append(int(lab))
+                last = int(lab)
         out["labels"] = labels
         if self.graph is not None:
-            out.update(self._wfst_words(scores, skip))
+            with profiler.span("serve.wfst"):
+                out.update(self._wfst_words(scores, skip))
         dur = feats.shape[0] * self.shift / self.args.sample_rate
         out["rtf"] = round((time.time() - t0) / max(dur, 1e-9), 4)
         return out
@@ -310,16 +333,22 @@ class Engine:
     def stream_chunk(self, slot: int, samples: np.ndarray) -> List[int]:
         # the slot buffers and the batched recognizer state are touched
         # only under the engine lock
-        with self.lock:
-            st = self.slots[slot]
-            st["buf"] = np.concatenate([st["buf"], samples])
-            frames = self._new_frames(st)
-            if self.graph is not None and frames.shape[0]:
-                # keep the feature history for the WFST word decode at
-                # stream end (~16 KB per audio-second at 40 dims)
-                st["hist"].append(frames)
-            st["pending"] = np.concatenate([st["pending"], frames])
-            return self._drain(slot)
+        with profiler.span("serve.stream_chunk"):
+            with profiler.span("serve.lock_wait"):
+                self.lock.acquire()
+            try:
+                st = self.slots[slot]
+                st["buf"] = np.concatenate([st["buf"], samples])
+                frames = self._new_frames(st)
+                profiler.count("serve.frames", int(frames.shape[0]))
+                if self.graph is not None and frames.shape[0]:
+                    # keep the feature history for the WFST word decode
+                    # at stream end (~16 KB per audio-second at 40 dims)
+                    st["hist"].append(frames)
+                st["pending"] = np.concatenate([st["pending"], frames])
+                return self._drain(slot)
+            finally:
+                self.lock.release()
 
     def _drain(self, slot: int, flush: bool = False) -> List[int]:
         """Feed complete chunk_frames ticks.
@@ -349,7 +378,9 @@ class Engine:
                     ticked.append(s)
                 if not ticked:
                     break
-                out = self.stream.process(chunks, valid)
+                with profiler.span("serve.stream_tick"):
+                    out = self.stream.process(chunks, valid)
+                profiler.count("serve.streams_per_tick", len(ticked))
                 for s in ticked:
                     self.slots[s]["ready"].extend(out[s])
                 if flush and st["pending"].shape[0] == 0:
@@ -381,7 +412,7 @@ def make_handler(engine: Engine):
         def log_message(self, *a):  # quiet
             pass
 
-        def _json(self, code: int, obj: dict):
+        def _write_json(self, code: int, obj: dict):
             body = json.dumps(obj).encode()
             self.send_response(code)
             self.send_header("Content-Type", "application/json")
@@ -389,53 +420,68 @@ def make_handler(engine: Engine):
             self.end_headers()
             self.wfile.write(body)
 
+        def _json(self, code: int, obj: dict):
+            with profiler.span("serve.respond"):
+                self._write_json(code, obj)
+
         def do_GET(self):
+            # untimed: a GET is no request of the engine's
             if self.path == "/healthz":
-                self._json(200, {"ok": True,
-                                 "streaming": engine.stream is not None})
+                self._write_json(200, {"ok": True,
+                                       "streaming": engine.stream is not None})
+            elif self.path == "/stats":
+                self._write_json(200, profiler.snapshot())
             else:
-                self._json(404, {"error": "not found"})
+                self._write_json(404, {"error": "not found"})
 
         def do_POST(self):
-            n = int(self.headers.get("Content-Length", "0"))
-            body = self.rfile.read(n)
-            try:
-                if self.path == "/recognize":
-                    pcm, rate = _pcm_from_body(body,
-                                               engine.args.sample_rate)
+            with profiler.span("serve.request"):
+                profiler.count("serve.requests")
+                with profiler.span("serve.read"):
+                    n = int(self.headers.get("Content-Length", "0"))
+                    body = self.rfile.read(n)
+                try:
+                    self._post(body)
+                except Exception as e:  # noqa: BLE001 — report to client
+                    profiler.count("serve.failed")
+                    self._json(500, {"error": str(e)})
+
+        def _post(self, body: bytes):
+            if self.path == "/recognize":
+                with profiler.span("serve.audio"):
+                    pcm, rate = _pcm_from_body(body, engine.args.sample_rate)
                     if rate != engine.args.sample_rate:
                         from kaldi_ctc_tpu_torch.features.resample import (
                             resample)
                         pcm = resample(pcm, rate, engine.args.sample_rate)
-                    self._json(200, engine.recognize(pcm))
+                self._json(200, engine.recognize(pcm))
+                return
+            if self.path == "/stream/start":
+                slot = engine.stream_start()
+                if slot is None:
+                    self._json(400, {"error": "streaming needs a "
+                                     "unidirectional model"})
+                elif slot < 0:
+                    self._json(503, {"error": "no free slots"})
+                else:
+                    self._json(200, {"slot": slot})
+                return
+            m = re.match(r"^/stream/(\d+)/(chunk|end)$", self.path)
+            if m:
+                slot = int(m.group(1))
+                if slot not in engine.slots:
+                    self._json(404, {"error": f"unknown slot {slot}"})
                     return
-                if self.path == "/stream/start":
-                    slot = engine.stream_start()
-                    if slot is None:
-                        self._json(400, {"error": "streaming needs a "
-                                         "unidirectional model"})
-                    elif slot < 0:
-                        self._json(503, {"error": "no free slots"})
-                    else:
-                        self._json(200, {"slot": slot})
-                    return
-                m = re.match(r"^/stream/(\d+)/(chunk|end)$", self.path)
-                if m:
-                    slot = int(m.group(1))
-                    if slot not in engine.slots:
-                        self._json(404, {"error": f"unknown slot {slot}"})
-                        return
-                    if m.group(2) == "chunk":
+                if m.group(2) == "chunk":
+                    with profiler.span("serve.audio"):
                         pcm, _ = _pcm_from_body(body,
                                                 engine.args.sample_rate)
-                        self._json(200, {"labels": engine.stream_chunk(
-                            slot, pcm)})
-                    else:
-                        self._json(200, engine.stream_end(slot))
-                    return
-                self._json(404, {"error": "not found"})
-            except Exception as e:  # noqa: BLE001 — report to client
-                self._json(500, {"error": str(e)})
+                    self._json(200, {"labels": engine.stream_chunk(
+                        slot, pcm)})
+                else:
+                    self._json(200, engine.stream_end(slot))
+                return
+            self._json(404, {"error": "not found"})
 
     return Handler
 

@@ -35,6 +35,14 @@ initial numbers than JAX's (``torch.Generator``), and dropout masks are
 drawn from a ``torch.Generator`` seeded with the step, not from JAX's
 keys, so runs are compared from one shared checkpoint with ``--resume``.
 
+The loop's phases are spans of ``utils/profiling.py`` (``setup.*``,
+``train.*``; the pipeline's producer thread adds ``pipeline.*``).  At
+each epoch's end the first process appends a ``timing`` record to
+metrics.jsonl: the spans and counters since the previous record, its
+wall time and the part of it no top-level span covers (README.md lists
+the fields).  ``--profile-dir`` traces the run, or with
+``--profile-steps A:B`` steps A to B only.
+
 Example (tiny sanity run on the CPU):
   python -m kaldi_ctc_tpu_torch.cli.train_ctc \\
       --feats scp:data/train/feats.scp --ali ark:exp/ali.ark \\
@@ -44,9 +52,21 @@ Example (tiny sanity run on the CPU):
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import sys
+
+
+def _step_range(text: str):
+    """``A:B`` → (A, B), 1 <= A <= B."""
+    try:
+        a, b = (int(x) for x in text.split(":"))
+    except ValueError:
+        raise argparse.ArgumentTypeError(f"want A:B, got {text!r}")
+    if not 1 <= a <= b:
+        raise argparse.ArgumentTypeError(f"want 1 <= A <= B, got {text!r}")
+    return a, b
 
 
 def parse_args(argv=None):
@@ -144,10 +164,14 @@ def parse_args(argv=None):
     p.add_argument("--dir", required=True, help="experiment directory")
     p.add_argument("--resume", action="store_true")
     p.add_argument("--profile", type=int, default=0,
-                   help="1: per-section host timing summary at exit "
+                   help="1: print the table of spans and counters at exit "
                         "(AccuProfile analogue)")
     p.add_argument("--profile-dir", default=None,
-                   help="capture a torch.profiler trace here")
+                   help="write a torch.profiler trace here, and the host "
+                        "spans of every thread beside it")
+    p.add_argument("--profile-steps", default=None, type=_step_range,
+                   help="A:B: trace from step A to the end of step B "
+                        "(1-based global steps; default: the whole run)")
     p.add_argument("--device", default="cuda",
                    help="torch device the model trains on; 'cuda' with no "
                         "card raises")
@@ -167,19 +191,31 @@ def main(argv=None):
     from kaldi_ctc_tpu_torch.cli.common import resolve_device
     from kaldi_ctc_tpu_torch.parallel.distributed import (init_distributed,
                                                           shutdown)
+    from kaldi_ctc_tpu_torch.utils.profiling import profiler
 
-    args = parse_args(argv)
-    # multi-process bring-up (no-op in one process; the run.pl analogue)
-    device = init_distributed(device=resolve_device(args.device))
+    # setup.imports: the process's start (the interpreter, torch, the
+    # port) to here; the first timing record's interval starts there
+    first = profiler.main_started()
+    with profiler.span("setup.distributed"):
+        args = parse_args(argv)
+        # multi-process bring-up (no-op in one process; the run.pl
+        # analogue)
+        device = init_distributed(device=resolve_device(args.device))
     try:
-        _train(args, device)
+        # _train closes setup.init when the loop is ready; an exception
+        # in the set-up closes it here
+        with contextlib.ExitStack() as setup:
+            setup.enter_context(profiler.span("setup.init"))
+            _train(args, device, first, setup)
     finally:
         # leave the group on every exit path, so that a caller in this
         # process can start again
         shutdown()
 
 
-def _train(args, device):
+def _train(args, device, last, setup):
+    """``last``: the snapshot the first timing record's interval starts
+    from; ``setup``: the stack that holds the ``setup.init`` span."""
     import dataclasses
 
     import numpy as np
@@ -206,6 +242,8 @@ def _train(args, device):
     from kaldi_ctc_tpu_torch.utils.kaldi_io import SequentialTextReader
     from kaldi_ctc_tpu_torch.utils.logging import MetricsLogger, Timer
 
+    span = profiling.profiler.span
+    count = profiling.profiler.count
     os.makedirs(args.dir, exist_ok=True)
     if args.profile:
         profiling.enable()
@@ -219,15 +257,16 @@ def _train(args, device):
         utt2spk = dict(SequentialTextReader(args.utt2spk))
 
     log.info("loading examples...")
-    if args.egs:
-        from kaldi_ctc_tpu_torch.data.egs_io import SequentialEgsReader
-        examples = list(SequentialEgsReader(args.egs))
-    elif args.feats and args.ali:
-        examples = list(load_examples(args.feats, args.ali,
-                                      cmvn_rspecifier=args.cmvn,
-                                      utt2spk=utt2spk))
-    else:
+    if not args.egs and not (args.feats and args.ali):
         log.error("need --egs or both --feats and --ali"); sys.exit(1)
+    with span("setup.load_examples"):
+        if args.egs:
+            from kaldi_ctc_tpu_torch.data.egs_io import SequentialEgsReader
+            examples = list(SequentialEgsReader(args.egs))
+        else:
+            examples = list(load_examples(args.feats, args.ali,
+                                          cmvn_rspecifier=args.cmvn,
+                                          utt2spk=utt2spk))
     if not examples:
         log.error("no examples loaded"); sys.exit(1)
     # the conv stride math lives in AmConfig.time_stride (one source of
@@ -302,9 +341,10 @@ def _train(args, device):
 
     valid_pipe = None
     if args.valid_feats and args.valid_ali:
-        valid_examples = list(load_examples(args.valid_feats, args.valid_ali,
-                                            cmvn_rspecifier=args.cmvn,
-                                            utt2spk=utt2spk))
+        with span("setup.load_examples"):
+            valid_examples = list(load_examples(
+                args.valid_feats, args.valid_ali,
+                cmvn_rspecifier=args.cmvn, utt2spk=utt2spk))
         valid_fixed = None
         if n_proc > 1:
             # the same contract as training, the global pre-filter
@@ -487,11 +527,37 @@ def _train(args, device):
                         "labels — re-running realignment with the "
                         "restored params",
                         max(e for e in realign_epochs if e <= start_epoch))
-            run_realign(max(e for e in realign_epochs if e <= start_epoch))
+            with span("train.realign"):
+                run_realign(max(e for e in realign_epochs
+                                if e <= start_epoch))
+    setup.close()   # setup.init ends: the loop is ready
+
+    def write_timing(epoch, last):
+        # the registry's difference since the last record: the spans and
+        # counters of the interval, its wall time, and the part of it that
+        # no top-level span of the main thread covers (the span around
+        # this write falls in the next record's interval)
+        now = profiling.profiler.snapshot()
+        d = profiling.diff(now, last)
+        for v in d["spans"].values():
+            v["p50_s"] = profiling.quantile(v, 0.5)
+            v["p95_s"] = profiling.quantile(v, 0.95)
+        metrics_log.log("timing", step=global_step, epoch=epoch,
+                        wall_s=d["wall_s"],
+                        unaccounted_s=d["wall_s"] - d["main_top_s"],
+                        spans=d["spans"], counters=d["counters"])
+        return now
+
+    def checkpoint(extra):
+        with span("train.checkpoint"):
+            path = save_checkpoint(ckpt_dir, global_step, state, extra=extra)
+            count("train.checkpoint_bytes",
+                  os.path.getsize(os.path.join(path, "arrays.npz")))
+            apply_retention(ckpt_dir)
 
     # the trace closes on the way out of the with, a failed step included,
     # or the profile directory is left unusable
-    with profiling.trace(args.profile_dir):
+    with profiling.Trace(args.profile_dir, args.profile_steps) as trace:
         for epoch in range(start_epoch, args.epochs):
             log.info("epoch %d", epoch)
             if (epoch in realign_epochs
@@ -500,21 +566,36 @@ def _train(args, device):
                 # params that produced the in-flight epoch's alignment are
                 # gone, and realigning with newer params would
                 # double-apply the epoch's realignment
-                run_realign(epoch)
+                with span("train.realign"):
+                    run_realign(epoch)
             epoch_step = 0
             trained_batches = skipped_nonfinite = 0
             skip = start_epoch_step if epoch == start_epoch else 0
-            for batch_np in Prefetcher(pipe.epoch(epoch)):
+            batches = Prefetcher(pipe.epoch(epoch))
+            while True:
+                trace.step_begins(global_step + 1)
+                with span("train.data_wait"):
+                    batch_np = next(batches, None)
+                if batch_np is None:
+                    break
                 if epoch_step < skip:
                     epoch_step += 1
                     continue
                 epoch_step += 1
                 keys = batch_np.pop("keys")
-                batch = shard_batch(batch_np, mesh)
-                with profiling.profiler.track("train_step"):
+                count("train.frames_valid", int(batch_np["input_lens"].sum()))
+                count("train.frames_padded", int(batch_np["feats"].shape[0]
+                                                 * batch_np["feats"].shape[1]))
+                with span("train.shard"):
+                    batch = shard_batch(batch_np, mesh)
+                with span("train.step"):
                     state, m = train_step(state, batch)
+                count("train.steps")
                 global_step += 1
-                if not bool(m["finite"]):
+                # the host's first read of the step: it waits for the device
+                with span("train.device_wait"):
+                    finite = bool(m["finite"])
+                if not finite:
                     # the device already suppressed this update; decide
                     # whether the run survives (reference: KALDI_ERR)
                     if args.nonfinite_action == "abort":
@@ -528,60 +609,68 @@ def _train(args, device):
                     log.warning("non-finite loss/gradient at step %d — "
                                 "batch skipped (keys %s)", global_step,
                                 ",".join(keys[:4]))
-                    metrics_log.log("skipped_nonfinite", step=global_step)
+                    with span("train.log"):
+                        metrics_log.log("skipped_nonfinite", step=global_step)
+                    count("train.skipped_nonfinite")
                     skipped_nonfinite += 1
+                    trace.step_ended(global_step)
                     continue
                 trained_batches += 1
                 if (grow and cfg.num_layers < args.num_layers
                         and global_step % args.add_layers_period == 0):
-                    new_params, cfg = grow_rnn_layer(
-                        state.params, cfg, torch.Generator().manual_seed(
-                            args.seed + 100 + cfg.num_layers))
-                    # the tree changed: fresh velocity, rebuilt steps
-                    state = init_train_state(new_params,
-                                             opts)._replace(step=state.step)
-                    train_step = make_train_step(cfg, opts, mesh)
-                    eval_step = make_eval_step(cfg, mesh)
-                    write_cfg(cfg)
+                    with span("train.grow"):
+                        new_params, cfg = grow_rnn_layer(
+                            state.params, cfg, torch.Generator().manual_seed(
+                                args.seed + 100 + cfg.num_layers))
+                        # the tree changed: fresh velocity, rebuilt steps
+                        state = init_train_state(
+                            new_params, opts)._replace(step=state.step)
+                        train_step = make_train_step(cfg, opts, mesh)
+                        eval_step = make_eval_step(cfg, mesh)
+                        write_cfg(cfg)
                     log.info("grew RNN stack to %d layers at step %d",
                              cfg.num_layers, global_step)
-                acc, err, ref = accuracy_from_outputs(
-                    m, batch_np["labels"], batch_np["label_lens"])
+                with span("train.accuracy"):
+                    acc, err, ref = accuracy_from_outputs(
+                        m, batch_np["labels"], batch_np["label_lens"])
                 tot_err += err; tot_ref += ref
-                metrics_log.log(
-                    "train_step", step=global_step,
-                    loss_per_frame=float(m["loss_per_frame"]),
-                    lr=float(m["lr"]), accuracy=acc,
-                    grad_norm=float(m["grad_norm"]),
-                    num_frames=int(m["num_frames"]))
-                if global_step % 10 == 0:
-                    log.info(
-                        "step %d loss/frame %.4f acc %.4f lr %.3g (%.1fs)",
-                        global_step, float(m["loss_per_frame"]), acc,
-                        float(m["lr"]), timer.elapsed())
-                    timer.reset()
+                with span("train.log"):
+                    metrics_log.log(
+                        "train_step", step=global_step,
+                        loss_per_frame=float(m["loss_per_frame"]),
+                        lr=float(m["lr"]), accuracy=acc,
+                        grad_norm=float(m["grad_norm"]),
+                        num_frames=int(m["num_frames"]))
+                    if global_step % 10 == 0:
+                        log.info(
+                            "step %d loss/frame %.4f acc %.4f lr %.3g (%.1fs)",
+                            global_step, float(m["loss_per_frame"]), acc,
+                            float(m["lr"]), timer.elapsed())
+                        timer.reset()
                 if (valid_pipe is not None
                         and global_step % (args.cv_period * 10) == 0):
-                    v_err = v_ref = 0; v_loss = 0.0; v_frames = 0
-                    for vb in valid_pipe.epoch(0):
-                        vb.pop("keys")
-                        out = eval_step(state.params, shard_batch(vb, mesh))
-                        _, e, r = accuracy_from_outputs(
-                            out, vb["labels"], vb["label_lens"])
-                        v_err += e; v_ref += r
-                        v_loss += float(out["loss_total"])
-                        v_frames += int(out["num_frames"])
-                    v_err, v_ref = global_counts(v_err, v_ref)
-                    v_acc = 1.0 - v_err / max(v_ref, 1)
-                    metrics_log.log("valid", step=global_step, accuracy=v_acc,
-                                    loss_per_frame=v_loss / max(v_frames, 1))
+                    with span("train.cv"):
+                        v_err = v_ref = 0; v_loss = 0.0; v_frames = 0
+                        for vb in valid_pipe.epoch(0):
+                            vb.pop("keys")
+                            out = eval_step(state.params,
+                                            shard_batch(vb, mesh))
+                            _, e, r = accuracy_from_outputs(
+                                out, vb["labels"], vb["label_lens"])
+                            v_err += e; v_ref += r
+                            v_loss += float(out["loss_total"])
+                            v_frames += int(out["num_frames"])
+                        v_err, v_ref = global_counts(v_err, v_ref)
+                        v_acc = 1.0 - v_err / max(v_ref, 1)
+                        metrics_log.log("valid", step=global_step,
+                                        accuracy=v_acc,
+                                        loss_per_frame=v_loss / max(v_frames,
+                                                                    1))
                     log.info("valid @%d: acc %.4f", global_step, v_acc)
                 if global_step % args.checkpoint_period == 0 and is_primary():
-                    save_checkpoint(ckpt_dir, global_step, state,
-                                    extra={"epoch": epoch,
-                                           "epoch_step": epoch_step,
-                                           "num_layers": cfg.num_layers})
-                    apply_retention(ckpt_dir)
+                    checkpoint({"epoch": epoch, "epoch_step": epoch_step,
+                                "num_layers": cfg.num_layers})
+                trace.step_ended(global_step)
             if (trained_batches == 0 and skipped_nonfinite == 0
                     and skip == 0):
                 # an epoch that formed no batches at all must not report
@@ -599,23 +688,24 @@ def _train(args, device):
                             "non-finite — no parameters were updated",
                             epoch, skipped_nonfinite)
             # per-epoch accuracy line (parseable contract), global counts
-            g_err, g_ref = global_counts(tot_err, tot_ref)
-            if g_ref > 0:
-                metrics_log.log_accuracy(1.0 - g_err / max(g_ref, 1),
-                                         epoch=epoch, step=global_step)
+            with span("train.log"):
+                g_err, g_ref = global_counts(tot_err, tot_ref)
+                if g_ref > 0:
+                    metrics_log.log_accuracy(1.0 - g_err / max(g_ref, 1),
+                                             epoch=epoch, step=global_step)
             tot_err = tot_ref = 0
             if is_primary():
-                save_checkpoint(ckpt_dir, global_step, state,
-                                extra={"epoch": epoch + 1,
-                                       "num_layers": cfg.num_layers})
-                apply_retention(ckpt_dir)
+                checkpoint({"epoch": epoch + 1, "num_layers": cfg.num_layers})
+            with span("train.log"):
+                last = write_timing(epoch, last)
 
     if not is_primary():
         log.info("done (secondary process): %d steps", global_step)
         return
-    save_checkpoint(ckpt_dir, global_step, state,
-                    extra={"epoch": args.epochs, "num_layers": cfg.num_layers,
-                           "final": True})
+    with span("train.checkpoint"):
+        save_checkpoint(ckpt_dir, global_step, state,
+                        extra={"epoch": args.epochs,
+                               "num_layers": cfg.num_layers, "final": True})
     log.info("done: %d steps", global_step)
 
 

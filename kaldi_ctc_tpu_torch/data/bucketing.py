@@ -1,8 +1,10 @@
 """Length bucketing and batch padding with a fixed shape menu.
 
-A copy of ``kaldi_ctc_tpu/data/bucketing.py`` (host-only numpy).  The
-port runs eagerly and recompiles nothing, but keeps the menu so a batch
-has the shape the JAX package gives it.
+The rules of ``kaldi_ctc_tpu/data/bucketing.py`` (host-only numpy), its
+grouping split out as :func:`group_by_length` so that the pipeline can
+time an epoch's preparation apart from each batch's padding.  The port
+runs eagerly and recompiles nothing, but keeps the menu so a batch has
+the shape the JAX package gives it.
 
 The reference sorts egs by length (``ctcbin/nnet-ctc-sort-egs.cc:82-90``,
 ``get_egs2.sh:326-338``) and pads each minibatch to its max length
@@ -22,7 +24,8 @@ import numpy as np
 
 from kaldi_ctc_tpu_torch.data.egs import CtcExample
 
-__all__ = ["make_buckets", "bucket_length", "pad_batch", "batch_by_length"]
+__all__ = ["make_buckets", "bucket_length", "pad_batch", "batch_by_length",
+           "group_by_length", "default_menus"]
 
 
 def make_buckets(
@@ -85,6 +88,47 @@ def pad_batch(
     }
 
 
+def group_by_length(
+    egs: Iterable[CtcExample],
+    minibatch_size: int,
+    sort_window: int = 0,
+    rng: Optional[np.random.Generator] = None,
+) -> List[List[CtcExample]]:
+    """Length-homogeneous minibatches of examples, in the order
+    :func:`batch_by_length` pads them (its sorting and shuffle)."""
+    egs = list(egs)
+    if not egs:
+        return []
+    window = sort_window if sort_window > 0 else len(egs)
+    batches: List[List[CtcExample]] = []
+    leftover: List[CtcExample] = []
+    for start in range(0, len(egs), window):
+        # window remainders carry over so only the final < minibatch tail
+        # of the whole epoch is dropped (not the longest of every window)
+        chunk = sorted(leftover + egs[start:start + window],
+                       key=lambda e: e.num_frames)
+        n_full = (len(chunk) // minibatch_size) * minibatch_size
+        for i in range(0, n_full, minibatch_size):
+            batches.append(chunk[i:i + minibatch_size])
+        leftover = chunk[n_full:]
+    if rng is not None:
+        rng.shuffle(batches)
+    return batches
+
+
+def default_menus(
+    frame_buckets: Optional[Sequence[int]] = None,
+    label_buckets: Optional[Sequence[int]] = None,
+):
+    """The padded-length menus :func:`batch_by_length` uses where none is
+    given."""
+    if frame_buckets is None:
+        frame_buckets = make_buckets()
+    if label_buckets is None:
+        label_buckets = make_buckets(min_len=8, max_len=640, growth=1.5)
+    return frame_buckets, label_buckets
+
+
 def batch_by_length(
     egs: Iterable[CtcExample],
     minibatch_size: int,
@@ -100,26 +144,7 @@ def batch_by_length(
     length-homogeneous without a global sort; 0 sorts everything.
     A final short batch is dropped (static batch shapes for XLA).
     """
-    if frame_buckets is None:
-        frame_buckets = make_buckets()
-    if label_buckets is None:
-        label_buckets = make_buckets(min_len=8, max_len=640, growth=1.5)
-    egs = list(egs)
-    if not egs:
-        return
-    window = sort_window if sort_window > 0 else len(egs)
-    batches: List[List[CtcExample]] = []
-    leftover: List[CtcExample] = []
-    for start in range(0, len(egs), window):
-        # window remainders carry over so only the final < minibatch tail
-        # of the whole epoch is dropped (not the longest of every window)
-        chunk = sorted(leftover + egs[start:start + window],
-                       key=lambda e: e.num_frames)
-        n_full = (len(chunk) // minibatch_size) * minibatch_size
-        for i in range(0, n_full, minibatch_size):
-            batches.append(chunk[i:i + minibatch_size])
-        leftover = chunk[n_full:]
-    if rng is not None:
-        rng.shuffle(batches)
-    for group in batches:
+    frame_buckets, label_buckets = default_menus(frame_buckets,
+                                                 label_buckets)
+    for group in group_by_length(egs, minibatch_size, sort_window, rng):
         yield pad_batch(group, frame_buckets, label_buckets)

@@ -8,7 +8,11 @@ applies frame-subsampling/shift augmentation, buckets into padded numpy
 minibatches, and prefetches batches on a background thread while the
 device computes.  Numpy only: an epoch draws from
 ``np.random.default_rng(seed + epoch)`` in the JAX package's order, so
-both packages yield the same batches, bit for bit.
+both packages yield the same batches, bit for bit.  An epoch's
+preparation (filter, subsampling, shuffle, grouping), each batch's
+padding and the producer's wait on a full queue are spans of
+``utils/profiling.py`` (``pipeline.prepare``, ``pipeline.batch``,
+``pipeline.put_wait``).
 """
 
 from __future__ import annotations
@@ -20,7 +24,8 @@ from typing import Dict, Iterable, Iterator, List, Optional
 import numpy as np
 import torch
 
-from kaldi_ctc_tpu_torch.data.bucketing import batch_by_length
+from kaldi_ctc_tpu_torch.data.bucketing import (default_menus,
+                                                group_by_length, pad_batch)
 from kaldi_ctc_tpu_torch.data.egs import (
     CtcExample,
     collapse_alignment,
@@ -29,6 +34,7 @@ from kaldi_ctc_tpu_torch.data.egs import (
 )
 from kaldi_ctc_tpu_torch.features.cmvn import apply_cmvn
 from kaldi_ctc_tpu_torch.utils import kaldi_io
+from kaldi_ctc_tpu_torch.utils.profiling import profiler
 
 __all__ = ["load_examples", "EgsPipeline", "Prefetcher"]
 
@@ -113,28 +119,35 @@ class EgsPipeline:
     def epoch(self, epoch_idx: int = 0) -> Iterator[Dict[str, np.ndarray]]:
         """One pass: frame-shift cycles with the epoch index
         (steps/ctc/train.sh:412: frame_shift = iter % factor)."""
-        rng = np.random.default_rng(self.seed + epoch_idx)
-        shift = epoch_idx % self.fs_factor if self.fs_factor > 1 else 0
-        egs = []
-        self.num_skipped = 0
-        order = rng.permutation(len(self.examples))
-        for i in order:
-            e = self.examples[i]
-            feats = frame_subsample(e.feats, self.fs_factor, shift)
-            eg = CtcExample(e.key, feats, e.labels)
-            if not example_ok(eg, self.max_allow_frames,
-                              time_stride=self.time_stride):
-                self.num_skipped += 1
-                continue
-            egs.append(eg)
-        frame_buckets = label_buckets = None
-        if self.fixed_shape is not None:
-            frame_buckets = [max(int(self.fixed_shape[0]), 1)]
-            label_buckets = [max(int(self.fixed_shape[1]), 1)]
-        yield from batch_by_length(
-            egs, self.minibatch_size, frame_buckets=frame_buckets,
-            label_buckets=label_buckets, sort_window=self.sort_window,
-            rng=rng)
+        with profiler.span("pipeline.prepare"):
+            rng = np.random.default_rng(self.seed + epoch_idx)
+            shift = epoch_idx % self.fs_factor if self.fs_factor > 1 else 0
+            egs = []
+            self.num_skipped = 0
+            order = rng.permutation(len(self.examples))
+            for i in order:
+                e = self.examples[i]
+                feats = frame_subsample(e.feats, self.fs_factor, shift)
+                eg = CtcExample(e.key, feats, e.labels)
+                if not example_ok(eg, self.max_allow_frames,
+                                  time_stride=self.time_stride):
+                    self.num_skipped += 1
+                    continue
+                egs.append(eg)
+            frame_buckets = label_buckets = None
+            if self.fixed_shape is not None:
+                frame_buckets = [max(int(self.fixed_shape[0]), 1)]
+                label_buckets = [max(int(self.fixed_shape[1]), 1)]
+            frame_buckets, label_buckets = default_menus(frame_buckets,
+                                                         label_buckets)
+            groups = group_by_length(egs, self.minibatch_size,
+                                     sort_window=self.sort_window, rng=rng)
+        profiler.count("pipeline.skipped", self.num_skipped)
+        for group in groups:
+            with profiler.span("pipeline.batch"):
+                batch = pad_batch(group, frame_buckets, label_buckets)
+            profiler.count("pipeline.batches")
+            yield batch
 
 
 class Prefetcher:
@@ -152,7 +165,8 @@ class Prefetcher:
         def worker():
             try:
                 for item in iterator:
-                    self._q.put(item)
+                    with profiler.span("pipeline.put_wait"):
+                        self._q.put(item)
             except BaseException as e:  # surface in consumer
                 self._err = e
             finally:

@@ -29,6 +29,7 @@ import numpy as np
 import torch
 
 from kaldi_ctc_tpu_torch import _kernels
+from kaldi_ctc_tpu_torch.utils import profiling
 
 __all__ = ["K4Plan", "dft_tables", "fft_twiddles", "k4_plan", "log_mel",
            "log_mel_reference", "mel_rows"]
@@ -314,3 +315,6 @@ log_mel.launches = 0
 log_mel.fft_launches = 0
 log_mel.dft_launches = 0
 log_mel.frame_counts = collections.Counter()
+
+# every snapshot of the span registry reads these counters where they are
+profiling.register_launch_counters(log_mel)

@@ -30,6 +30,7 @@ from typing import NamedTuple, Tuple
 import torch
 
 from kaldi_ctc_tpu_torch import _kernels
+from kaldi_ctc_tpu_torch.utils import profiling
 
 __all__ = ["NEG_INF", "K1_WARP_MAX_S", "K1Plan", "k1_plan", "BAND_MAX_S",
            "BandPlan", "k11_plan", "k12_plan", "logaddexp", "alpha_beta",
@@ -356,3 +357,7 @@ forward_alphas.block_launches = 0
 backward_betas.launches = 0
 backward_betas.band_launches = 0
 backward_betas.block_launches = 0
+
+# every snapshot of the span registry reads these counters where they are
+profiling.register_launch_counters(
+    alpha_beta, forward_alphas, backward_betas)

@@ -50,6 +50,7 @@ from kaldi_ctc_tpu_torch.ops.rnn_cuda import (_BI_GATES_ARGS, _I, _P,
                                               _sm_count, _smem_optin,
                                               bwd_chain_plan, fwd_chain_plan,
                                               max_rows, run_in_row_slices)
+from kaldi_ctc_tpu_torch.utils import profiling
 
 __all__ = ["gru_seq_fwd", "gru_seq_fwd_reference", "gru_seq_bwd_dgates",
            "gru_seq_bwd_dgates_reference", "gru_sequence", "bigru_seq_fwd",
@@ -689,6 +690,10 @@ def _bigru_bwd_cooperative(lib, dy_f, dy_b, xp, y_f, y_b, w_h_f, w_h_b,
 
 
 bigru_seq_bwd_dgates.launches = 0  # kernel launches made by this wrapper
+
+# every snapshot of the span registry reads these counters where they are
+profiling.register_launch_counters(
+    gru_seq_fwd, gru_seq_bwd_dgates, bigru_seq_fwd, bigru_seq_bwd_dgates)
 
 
 class _BiGruLayer(torch.autograd.Function):

@@ -49,6 +49,7 @@ import torch
 from kaldi_ctc_tpu_torch import _kernels
 from kaldi_ctc_tpu_torch.ops.rnn import (COMPUTE_DTYPES, _lstm_cell, _valid,
                                          matmul_f32acc)
+from kaldi_ctc_tpu_torch.utils import profiling
 
 __all__ = ["bilstm_seq_fwd", "bilstm_seq_fwd_reference",
            "bilstm_seq_bwd_dgates", "bilstm_seq_bwd_dgates_reference",
@@ -1787,3 +1788,9 @@ def _lstm_stack_cooperative(lib: ctypes.CDLL, xp0, wxs, whs, bs,
 
 
 lstm_stack_fwd.launches = 0  # kernel launches made by this wrapper
+
+# every snapshot of the span registry reads these counters where they are
+profiling.register_launch_counters(
+    bilstm_seq_fwd, bilstm_seq_bwd_dgates, bilstm_seq_fwd_proj,
+    bilstm_seq_bwd_dgates_proj, lstm_seq_fwd, lstm_seq_bwd_dgates,
+    lstm_stack_fwd)

@@ -28,6 +28,8 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from kaldi_ctc_tpu_torch.utils.profiling import profiler
+
 __all__ = ["init_distributed", "host_shard", "is_primary", "process_count",
            "process_index", "rank_device", "initialised_device", "shutdown",
            "resolve_environment", "DistEnv", "process_allgather"]
@@ -172,7 +174,8 @@ def process_allgather(x) -> np.ndarray:
     a = np.asarray(x)
     if not dist.is_initialized():
         return a[None]
-    t = torch.as_tensor(a, device=_RANK_DEVICE)
-    parts = [torch.empty_like(t) for _ in range(dist.get_world_size())]
-    dist.all_gather(parts, t)
-    return torch.stack(parts).cpu().numpy()
+    with profiler.span("parallel.allgather"):
+        t = torch.as_tensor(a, device=_RANK_DEVICE)
+        parts = [torch.empty_like(t) for _ in range(dist.get_world_size())]
+        dist.all_gather(parts, t)
+        return torch.stack(parts).cpu().numpy()

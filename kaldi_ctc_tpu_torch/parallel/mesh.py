@@ -30,6 +30,7 @@ import torch.distributed as dist
 from kaldi_ctc_tpu_torch.parallel.distributed import (initialised_device,
                                                       process_count,
                                                       process_index)
+from kaldi_ctc_tpu_torch.utils.profiling import profiler
 
 __all__ = ["Mesh", "make_mesh", "data_sharding", "param_sharding",
            "shard_batch", "replicated", "split_dims", "local_slices",
@@ -202,12 +203,16 @@ def gather_model(mesh: Mesh, leaves: Sequence[torch.Tensor],
 def sum_over_data(mesh: Mesh, tensors: Sequence[torch.Tensor]
                   ) -> List[torch.Tensor]:
     """Each tensor summed over the data group, in f32 on one flat buffer
-    (one all-reduce a call); the inputs are unchanged."""
+    (one all-reduce a call); the inputs are unchanged.  The span
+    ``parallel.all_reduce`` times the host's part (the flattening and
+    the collective's launch; NCCL's runs on the device)."""
     if not mesh.distributed:
         return list(tensors)
-    flat = torch.cat([t.detach().reshape(-1).to(torch.float32)
-                      for t in tensors])
-    dist.all_reduce(flat, op=dist.ReduceOp.SUM, group=mesh.data_group)
+    with profiler.span("parallel.all_reduce"):
+        flat = torch.cat([t.detach().reshape(-1).to(torch.float32)
+                          for t in tensors])
+        dist.all_reduce(flat, op=dist.ReduceOp.SUM, group=mesh.data_group)
+    profiler.count("parallel.all_reduce_bytes", flat.numel() * 4)
     out, at = [], 0
     for t in tensors:
         out.append(flat[at:at + t.numel()].reshape(t.shape).to(t.dtype))

@@ -11,6 +11,7 @@ import shutil
 import subprocess
 import sys
 import threading
+import time
 import wave
 
 import numpy as np
@@ -105,6 +106,22 @@ def _request(port, method, path, body=None):
     return resp.status, data
 
 
+def _settled_stats(port):
+    """GET /stats once no POST is in flight: a response is written inside
+    its ``serve.request`` span, so the span may end just after the client
+    has read the response.  A POST counts ``serve.requests`` as it starts
+    and adds to ``serve.request`` as it ends."""
+    deadline = time.monotonic() + 30
+    while True:
+        status, snap = _request(port, "GET", "/stats")
+        assert status == 200
+        started = snap["counters"].get("serve.requests", 0)
+        ended = snap["spans"].get("serve.request", {}).get("count", 0)
+        if started == ended or time.monotonic() > deadline:
+            return snap
+        time.sleep(0.01)
+
+
 def _wav_bytes(pcm, rate):
     buf = io.BytesIO()
     with wave.open(buf, "wb") as w:
@@ -136,6 +153,46 @@ def test_http_endpoints(http_server):
     assert _request(port, "POST", "/stream/0/chunk", b"") == (
         404, {"error": "unknown slot 0"})
     assert _request(port, "GET", "/nope")[0] == 404
+
+
+# the direct children of serve.request on /recognize with no graph
+RECOGNIZE_CHILDREN = ("serve.read", "serve.audio", "serve.lock_wait",
+                      "serve.feats", "serve.forward", "serve.scores",
+                      "serve.d2h", "serve.greedy", "serve.respond")
+
+
+def test_stats_cover_recognize(http_server):
+    """GET /stats: after three /recognize requests the registry holds
+    three serve.request spans, three of each child, children covering at
+    least 95% of the root, and the counters; the histograms come whole."""
+    from kaldi_ctc_tpu_torch.utils import profiling
+
+    port, _ = http_server
+    before = _settled_stats(port)
+    for seed in range(3):
+        assert _request(port, "POST", "/recognize",
+                        _pcm(1.0, seed=seed).tobytes())[0] == 200
+    after = _settled_stats(port)
+    d = profiling.diff(after, before)
+    root = d["spans"]["serve.request"]
+    assert root["count"] == 3
+    for name in RECOGNIZE_CHILDREN:
+        assert d["spans"][name]["count"] == 3, name
+    covered = sum(d["spans"][n]["total_s"] for n in RECOGNIZE_CHILDREN)
+    assert 0.95 * root["total_s"] <= covered <= root["total_s"]
+    assert root["self_s"] == pytest.approx(root["total_s"] - covered,
+                                           abs=1e-6)
+    assert d["counters"]["serve.requests"] == 3
+    assert d["counters"]["serve.frames"] == 3 * 98
+    assert "serve.failed" not in d["counters"]
+    hist = after["spans"]["serve.request"]["hist"]
+    assert sum(hist.values()) == after["spans"]["serve.request"]["count"]
+    assert after["hist"] == {"lo_s": profiling.HIST_LO_S, "per_octave": 4,
+                             "buckets": profiling.HIST_BUCKETS}
+    # a failed request counts as one
+    assert _request(port, "POST", "/recognize", b"RIFF-not-a-wav")[0] == 500
+    _, last = _request(port, "GET", "/stats")
+    assert profiling.diff(last, after)["counters"]["serve.failed"] == 1
 
 
 @pytest.mark.parametrize("bidirectional", ["1", "0"])

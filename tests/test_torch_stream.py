@@ -9,6 +9,7 @@ import dataclasses
 import http.client
 import json
 import threading
+import time
 
 import jax
 import jax.numpy as jnp
@@ -317,6 +318,22 @@ def _request(port, method, path, body=None):
     return resp.status, data
 
 
+def _settled_stats(port):
+    """GET /stats once no POST is in flight: a response is written inside
+    its ``serve.request`` span, so the span may end just after the client
+    has read the response.  A POST counts ``serve.requests`` as it starts
+    and adds to ``serve.request`` as it ends."""
+    deadline = time.monotonic() + 30
+    while True:
+        status, snap = _request(port, "GET", "/stats")
+        assert status == 200
+        started = snap["counters"].get("serve.requests", 0)
+        ended = snap["spans"].get("serve.request", {}).get("count", 0)
+        if started == ended or time.monotonic() > deadline:
+            return snap
+        time.sleep(0.01)
+
+
 def _jax_stream(jeng, pcm, sizes):
     slot = jeng.stream_start()
     off = 0
@@ -369,6 +386,33 @@ def test_interleaved_slots_are_independent(uni_server):
     _, e2 = _request(port, "POST", f"/stream/{s2['slot']}/end")
     assert e1["labels"] == off1["labels"]
     assert e2["labels"] == off2["labels"]
+
+
+def test_stats_count_stream_chunks_and_ticks(uni_server):
+    """GET /stats after one stream of six chunks: one serve.stream_chunk
+    a chunk, one serve.stream_tick a process() call, the streams each
+    tick batched, and eight requests (start, six chunks, end)."""
+    from kaldi_ctc_tpu_torch.utils import profiling
+
+    port, _, _ = uni_server
+    before = _settled_stats(port)
+    pcm = _pcm(1.0, seed=4)
+    _, start = _request(port, "POST", "/stream/start")
+    slot = start["slot"]
+    for part in np.array_split(pcm, 6):
+        assert _request(port, "POST", f"/stream/{slot}/chunk",
+                        part.tobytes())[0] == 200
+    assert _request(port, "POST", f"/stream/{slot}/end")[0] == 200
+    after = _settled_stats(port)
+    d = profiling.diff(after, before)
+    spans, counters = d["spans"], d["counters"]
+    assert spans["serve.request"]["count"] == 8
+    assert spans["serve.stream_chunk"]["count"] == 6
+    # 98 frames in 7-frame chunks: 14 ticks, one stream in each
+    assert spans["serve.stream_tick"]["count"] == 14
+    assert counters["serve.streams_per_tick"] == 14
+    assert counters["serve.frames"] == 98
+    assert counters["serve.requests"] == 8
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])

@@ -97,8 +97,11 @@ def _train(data, tmp_path, argv, init=LAYERS):
 
 
 def _records(exp):
+    """The records both packages write: the port's own ``timing``
+    records (its span and counter registry's, one an epoch) are left out."""
     with open(os.path.join(exp, "metrics.jsonl")) as f:
         recs = [json.loads(line) for line in f]
+    recs = [r for r in recs if r["event"] != "timing"]
     for r in recs:
         r.pop("t")
     return recs
@@ -174,6 +177,9 @@ def test_train_ctc_nonfinite_skip_and_abort(data, tmp_path):
     _assert_records_equal(got, want)
     skipped = [r["step"] for r in got if r["event"] == "skipped_nonfinite"]
     assert len(skipped) == 3      # the poisoned utterance, once an epoch
+    # the port's timing records count them too, one an epoch
+    assert [r["counters"].get("train.skipped_nonfinite") for r in
+            _timing(dirs["port"])] == [1, 1, 1]
     from kaldi_ctc_tpu.cli import train_ctc as jax_cli
     from kaldi_ctc_tpu_torch.cli import train_ctc as port_cli
     for pkg, cli, dev in (("jax", jax_cli, []),
@@ -285,6 +291,97 @@ def test_train_ctc_unported_flags_raise_before_writing(data, tmp_path, flags,
     assert meta["extra"]["final"] and meta["step"] == 4
     if key == "realign_epochs":
         assert (exp / "realign_labels.host0.json").exists()
+
+
+def _timing(exp):
+    with open(os.path.join(exp, "metrics.jsonl")) as f:
+        return [r for r in map(json.loads, f) if r["event"] == "timing"]
+
+
+# the training rows of the span table (PERF.md, "Spans and counters"):
+# each runs in every epoch of the run below
+TRAIN_SPANS = ("train.data_wait", "train.shard", "train.step",
+               "train.device_wait", "train.accuracy", "train.log",
+               "train.checkpoint", "pipeline.prepare", "pipeline.batch",
+               "pipeline.put_wait")
+TRAIN_COUNTERS = ("train.steps", "train.frames_valid", "train.frames_padded",
+                  "train.checkpoint_bytes", "pipeline.batches")
+
+
+def test_train_ctc_timing_records(data, tmp_path):
+    """One ``timing`` record an epoch in metrics.jsonl: every span of the
+    training rows, the counters, and the main thread's top-level spans
+    covering all but 5% of the interval's wall time; the set-up spans in
+    the first record; cv and realignment where they ran."""
+    from kaldi_ctc_tpu_torch.cli import train_ctc
+
+    exp = tmp_path / "exp"
+    shutil.copytree(str(data / f"init{LAYERS}"), str(exp))
+    train_ctc.main(_argv(data, epochs=6, extra=[
+        "--valid-feats", f"ark:{data}/valid_feats.ark", "--valid-ali",
+        f"ark:{data}/valid_ali.ark", "--cv-period", "1",
+        "--realign-epochs", "4"]) + ["--dir", str(exp), "--device", "cpu"])
+    recs = _timing(str(exp))
+    assert [r["epoch"] for r in recs] == list(range(6))
+    assert [r["step"] for r in recs] == [2, 4, 6, 8, 10, 12]
+    for r in recs:
+        assert set(TRAIN_SPANS) <= set(r["spans"]), r["spans"].keys()
+        assert r["spans"]["train.step"]["count"] == 2
+        assert r["spans"]["train.data_wait"]["count"] == 3
+        assert r["counters"]["train.steps"] == 2
+        # two training batches an epoch; cv's one batch at step 10
+        assert r["counters"]["pipeline.batches"] == (3 if r["step"] == 10
+                                                     else 2)
+        assert (r["counters"]["train.frames_valid"]
+                <= r["counters"]["train.frames_padded"])
+        assert set(TRAIN_COUNTERS) <= set(r["counters"])
+        for v in r["spans"].values():
+            assert v["self_s"] <= v["total_s"] + 1e-9
+            assert v["p50_s"] <= v["p95_s"] and v["count"] > 0
+        assert -1e-3 <= r["unaccounted_s"] <= 0.05 * r["wall_s"], r
+    assert {"setup.distributed", "setup.init",
+            "setup.load_examples"} <= set(recs[0]["spans"])
+    assert recs[0]["spans"]["setup.load_examples"]["count"] == 2
+    assert "train.cv" in recs[4]["spans"]          # step 10
+    assert "train.realign" in recs[4]["spans"]     # epoch 4's start
+    assert not any("train.cv" in r["spans"] for r in recs[:4])
+
+
+def test_train_ctc_profile_steps_window(data, tmp_path):
+    """--profile-steps 2:3 across an epoch's end: the trace and the host
+    spans beside it hold steps 2 and 3 only (the pipeline's producer
+    thread's spans in the host file)."""
+    from kaldi_ctc_tpu_torch.cli import train_ctc
+
+    trace = tmp_path / "trace"
+    exp = tmp_path / "exp"
+    shutil.copytree(str(data / f"init{LAYERS}"), str(exp))
+    train_ctc.main(_argv(data, epochs=3) + [
+        "--dir", str(exp), "--device", "cpu", "--profile-dir", str(trace),
+        "--profile-steps", "2:3"])
+    traces = sorted(trace.glob("*.pt.trace.json"))
+    spans = sorted(trace.glob("*.host_spans.json"))
+    assert len(traces) == len(spans) == 1
+    with open(traces[0]) as f:
+        ann = [e["name"] for e in json.load(f)["traceEvents"]
+               if e.get("cat") == "user_annotation"]
+    with open(spans[0]) as f:
+        host = [e for e in json.load(f)["traceEvents"] if e["ph"] == "X"]
+    assert ann.count("train.step") == 2
+    assert [e["name"] for e in host].count("train.step") == 2
+    assert "train.checkpoint" in ann          # epoch 0's end, after step 2
+    assert any(e["name"].startswith("pipeline.") for e in host)
+    assert not any(n.startswith("pipeline.") for n in ann)
+
+
+@pytest.mark.parametrize("value", ["3", "0:2", "3:2", "a:b"])
+def test_train_ctc_profile_steps_refuses(value, capsys):
+    from kaldi_ctc_tpu_torch.cli import train_ctc
+
+    with pytest.raises(SystemExit):
+        train_ctc.parse_args(["--num-targets", "4", "--dir", "x",
+                              "--profile-steps", value])
+    assert "--profile-steps" in capsys.readouterr().err
 
 
 def test_train_ctc_profile_trace_on_cpu(data, tmp_path):
