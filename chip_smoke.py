@@ -802,7 +802,9 @@ def phase_k2(torch, np, dev):
     """K2 against its plain version at T=800, B=1 and B=8 (serving) and
     T=240, B=48 and B=600 (training), H=320, f32 and bf16, with its plan;
     at T=800, B=1 and T=240, B=48 both of its routes timed on the same
-    operands (the cluster route and the cooperative kernel)."""
+    operands (the cluster route and the cooperative kernel); at T=240,
+    B=48 also the instance with the store, which training runs
+    (store_witness)."""
     from kaldi_ctc_tpu_torch import _kernels
     from kaldi_ctc_tpu_torch.ops import rnn_cuda
     h = 320
@@ -863,9 +865,11 @@ def phase_k2(torch, np, dev):
                 row["projection_plus_kernel_ms"] = projection_plus_kernel_ms(
                     torch, dev, dtype, t_max, b, 2 * h, 8 * h,
                     lambda p: rnn_cuda.bilstm_seq_fwd(p, *args[1:]))
+                row.update(store_witness(torch, rnn_cuda.bilstm_seq_fwd,
+                                         args, got, ref, K2_TOL[dtype_name]))
             rows.append(row)
             emit({"phase": "k2_bilstm", **row})
-            if not all(ok for _, ok in errs):
+            if not all(ok for _, ok in errs) or not row.get("store_ok", True):
                 fail(f"K2 bilstm_seq_fwd disagrees with its plain version: "
                      f"{row}")
     # the kernels line reports the training shape in bf16
@@ -876,10 +880,49 @@ def phase_k2(torch, np, dev):
 
 def kernel_row(rows, row):
     """The kernels line's entry from a phase's rows: the largest error
-    of all, the times, bound and library time of one row."""
+    of all, the times, bound and library time of one row (and its time
+    with the store, K2's and K8a's training row)."""
     return {"max_abs_err": max(r["max_abs_err"] for r in rows),
             **{k: row[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
-                                   "library_ms")}}
+                                   "library_ms", "store_ms") if k in row}}
+
+
+def plain_sums(torch, y_f, y_b, w_f, w_b, lens):
+    """The recurrent sums a bidirectional forward formed its gates from,
+    in the backward's walk order, recomputed in f64 from its y: row s the
+    forward direction's at t = T-1-s over the h it carried (y_f[min(t,
+    len) - 1], zeros before the first frame) and the backward
+    direction's at t = s over y_b[t+1] (zeros at t = T-1)."""
+    t_max, b, _ = y_f.shape
+    dev = y_f.device
+    prev = torch.minimum(torch.arange(t_max, device=dev)[:, None],
+                         lens.long()[None, :]) - 1
+    rows = torch.arange(b, device=dev).expand(t_max, b)
+    h_f = y_f[prev.clamp(min=0), rows].double() * (prev >= 0)[..., None]
+    h_b = torch.cat([y_b[1:], torch.zeros_like(y_b[:1])]).double()
+    return torch.cat([(h_f @ w_f.double()).flip(0), h_b @ w_b.double()],
+                     dim=-1)
+
+
+def store_witness(torch, fwd, args, outs, refs, tol):
+    """K2's or K8a's instance with the store (``fwd`` its wrapper, which
+    training runs with ``store_sums``) on ``args`` (xp, w_h_f, w_h_b,
+    lens): its outputs against the plain version's ``refs`` within
+    ``tol`` and bit for bit the outputs ``outs`` of the instance without
+    the store, its sums within ``tol`` of plain_sums from its y, and its
+    median ms beside the other's."""
+    *got, sums = fwd(*args, store_sums=True)
+    torch.cuda.synchronize()
+    errs = [max_err(g, r, 0.0, tol) for g, r in zip(got, refs)]
+    ref_sums = plain_sums(torch, got[0], got[len(got) // 2], *args[1:])
+    sums_err, sums_ok = max_err(sums, ref_sums, 0.0, tol)
+    equal = all(torch.equal(g, o) for g, o in zip(got, outs))
+    return {"store_max_abs_err": max(e for e, _ in errs),
+            "store_sums_max_abs_err": sums_err,
+            "store_bit_equal_no_store": equal,
+            "store_ok": all(ok for _, ok in errs) and sums_ok and equal,
+            "store_ms": median_ms(lambda: fwd(*args, store_sums=True), 10,
+                                  torch)}
 
 
 def projection_plus_kernel_ms(torch, dev, dtype, t, b, d_in, g, kernel):
@@ -1126,11 +1169,12 @@ def phase_k3(torch, np, dev):
         lens = np.full(b, t_max, np.int32)
         lens[1:] = rng.integers(t_max // 2, t_max + 1, size=b - 1)
         lens = torch.as_tensor(lens, device=dev)
-        y_f, c_f, y_b, c_b = rnn_cuda.bilstm_seq_fwd(xp, w[0], w[1], lens)
+        y_f, c_f, y_b, c_b, sums = rnn_cuda.bilstm_seq_fwd(
+            xp, w[0], w[1], lens, store_sums=True)
         dy = [torch.as_tensor(rng.standard_normal((t_max, b, h)).astype(
             np.float32), device=dev).to(dtype) for _ in range(2)]
         args = (dy[0], dy[1], xp, y_f, c_f, y_b, c_b, w[0], w[1], lens)
-        got = rnn_cuda.bilstm_seq_bwd_dgates(*args)
+        got = rnn_cuda.bilstm_seq_bwd_dgates(*args, sums)
         ref = rnn_cuda.bilstm_seq_bwd_dgates_reference(*args)
         torch.cuda.synchronize()
         errs = [max_err(g, r, 0.0, K3_TOL[dtype_name])
@@ -1139,20 +1183,23 @@ def phase_k3(torch, np, dev):
                "max_abs_err": max(e for e, _ in errs),
                "max_abs_ref": max(float(r.float().abs().max()) for r in ref),
                "tol": K3_TOL[dtype_name],
-               "ms": median_ms(lambda: rnn_cuda.bilstm_seq_bwd_dgates(*args),
-                               10, torch),
+               "ms": median_ms(
+                   lambda: rnn_cuda.bilstm_seq_bwd_dgates(*args, sums), 10,
+                   torch),
                "plain_ms": median_ms(
                    lambda: rnn_cuda.bilstm_seq_bwd_dgates_reference(*args),
                    3, torch),
-               # the gate recompute and the dh product, per direction
+               # the gate recompute and the dh product, per direction (the
+               # bound of the recompute pair; the cluster route reads K2's
+               # sums instead of recomputing them)
                **bound(nbytes(*args, *got), lstm_ops(lens, h, 4),
                        dtype_name),
                "library_ms": library_rnn_ms(
                    torch, dev, dtype, t_max, b, 2 * h, h,
                    bidirectional=True, backward=True)}
-        row.update(bwd_routes(torch, dev, "K3", args))
+        row.update(bwd_routes(torch, dev, "K3", args, sums))
         row["first_step_bit_equal_cooperative"] = k3_first_steps_equal(
-            torch, dev, args)
+            torch, dev, args, sums)
         row["below_library"] = row["ms"] < row["library_ms"]
         rows.append(row)
         emit({"phase": "k3_bilstm_bwd", **row})
@@ -1164,11 +1211,13 @@ def phase_k3(torch, np, dev):
     return kernel_row(rows, rows[1])     # bf16
 
 
-def k3_first_steps_equal(torch, dev, args):
-    """Whether K3's cluster route and its cooperative kernel give the same
-    dgates bit for bit at each row's first valid walk step (t = len - 1
-    for the forward direction, t = 0 for the backward one), where dh and
-    dc are still zero: the gates recomputed in warp_dot's order by both."""
+def k3_first_steps_equal(torch, dev, args, sums):
+    """Whether K3's cluster route (on K2's stored ``sums``) and its
+    cooperative kernel give the same dgates bit for bit at each row's
+    first valid walk step (t = len - 1 for the forward direction, t = 0
+    for the backward one), where dh and dc are still zero: the gates from
+    K2's sums and from the cooperative kernel's recompute in warp_dot's
+    order."""
     from kaldi_ctc_tpu_torch import _kernels
     from kaldi_ctc_tpu_torch.ops import rnn_cuda
     *ops, lens = args
@@ -1177,7 +1226,7 @@ def k3_first_steps_equal(torch, dev, args):
     lib = _kernels.load("bilstm_bwd", rnn_cuda._BWD_SIGNATURES)
     lens32 = lens.to(torch.int32)
     chain = rnn_cuda._bilstm_bwd_chain(
-        lib, *ops, lens32, rnn_cuda.k3_plan(lib, b, h, xp.dtype, dev))
+        lib, *ops, lens32, sums, rnn_cuda.k3_plan(lib, b, h, xp.dtype, dev))
     coop = rnn_cuda._bilstm_bwd_cooperative(lib, *ops, lens32)
     rows = torch.arange(b, device=dev)
     valid = lens > 0
@@ -1283,65 +1332,46 @@ def phase_k6(torch, np, dev):
     return kernel_row(rows, rows[1])     # bf16
 
 
-def bwd_routes(torch, dev, name, args):
+def bwd_routes(torch, dev, name, args, sums=None):
     """K3's, K6's, K8b's or K9b's plan and its two routes timed on the
-    same operands (the cluster route: phase 1 then the backward chain; the
-    cooperative kernel in row slices), and the cluster route's two phases
-    timed apart (one chunk of steps at the training shape): phase 1, the
-    recurrent sums of every step (of both directions for K3 and K8b), and
-    phase 2, the chain in clusters."""
+    same operands (the cluster route: K3 and K8b on their forward's stored
+    ``sums``, K6 and K9b phase 1 then the backward chain; the cooperative
+    kernel in row slices), and K6's and K9b's two phases timed apart (one
+    chunk of steps at the training shape): phase 1, the recurrent sums of
+    every step, and phase 2, the chain in clusters."""
     from kaldi_ctc_tpu_torch import _kernels
     from kaldi_ctc_tpu_torch.ops import gru_cuda, rnn_cuda
     f32 = torch.float32
     *ops, lens = args
     lens32 = lens.to(torch.int32)
     stream = _kernels.stream_ptr(dev)
+    phases = True
     if name == "K3":
-        dy_f, dy_b, xp, y_f, c_f, y_b, c_b, w_f, w_b = ops
+        xp = ops[2]
         lib = _kernels.load("bilstm_bwd", rnn_cuda._BWD_SIGNATURES)
         t, b, g = xp.shape
         h = g // 8
         plan = rnn_cuda.k3_plan(lib, b, h, xp.dtype, dev)
-        pre = torch.empty((t, b, g), dtype=f32, device=dev)
-        state = torch.zeros((2, 2, b, h), dtype=f32, device=dev)
-        outs = [torch.empty((t, b, 4 * h), dtype=xp.dtype, device=dev)
-                for _ in range(2)]
+        phases = False
 
         def chain():
-            rnn_cuda._bilstm_bwd_chain(lib, *ops, lens32, plan)
+            rnn_cuda._bilstm_bwd_chain(lib, *ops, lens32, sums, plan)
 
         def coop():
             rnn_cuda._bilstm_bwd_cooperative(lib, *ops, lens32)
-
-        def phase1():
-            rnn_cuda._k3_gates(lib, y_f, y_b, w_f, w_b, pre, 0, t, plan)
-
-        def phase2():
-            rnn_cuda._k3_chain(lib, dy_f, dy_b, xp, c_f, c_b, w_f, w_b,
-                               lens32, pre, *outs, state, 0, t, plan)
     elif name == "K8b":
-        dy_f, dy_b, xp, y_f, y_b, w_f, w_b = ops
+        xp = ops[2]
         lib = _kernels.load("gru_bwd", gru_cuda._BWD_SIGNATURES)
         t, b, g = xp.shape
         h = g // 6
         plan = gru_cuda.k8b_plan(lib, b, h, xp.dtype, dev)
-        pre = torch.empty((t, b, g), dtype=f32, device=dev)
-        state = torch.zeros((1, 2, b, h), dtype=f32, device=dev)
-        outs = [torch.empty((t, b, 3 * h), dtype=xp.dtype, device=dev)
-                for _ in range(4)]
+        phases = False
 
         def chain():
-            gru_cuda._bigru_bwd_chain(lib, *ops, lens32, plan)
+            gru_cuda._bigru_bwd_chain(lib, *ops, lens32, sums, plan)
 
         def coop():
             gru_cuda._bigru_bwd_cooperative(lib, *ops, lens32)
-
-        def phase1():
-            gru_cuda._k8b_gates(lib, y_f, y_b, w_f, w_b, pre, 0, t, plan)
-
-        def phase2():
-            gru_cuda._k8b_chain(lib, dy_f, dy_b, xp, y_f, y_b, w_f, w_b,
-                                lens32, pre, outs, state, 0, t, plan)
     else:
         if name == "K6":
             dy, xp, y, res, w = ops
@@ -1387,11 +1417,13 @@ def bwd_routes(torch, dev, name, args):
     if plan.route != "cluster":
         fail(f"{name} at T={t}, B={b}, H={h} does not take its cluster "
              f"route: {plan}")
-    return {"plan": plan._asdict(),
-            "chain_route_ms": median_ms(chain, 10, torch),
-            "cooperative_route_ms": median_ms(coop, 10, torch),
-            "phase1_gates_ms": median_ms(phase1, 10, torch),
-            "phase2_chain_ms": median_ms(phase2, 10, torch)}
+    out = {"plan": plan._asdict(),
+           "chain_route_ms": median_ms(chain, 10, torch),
+           "cooperative_route_ms": median_ms(coop, 10, torch)}
+    if phases:
+        out.update(phase1_gates_ms=median_ms(phase1, 10, torch),
+                   phase2_chain_ms=median_ms(phase2, 10, torch))
+    return out
 
 
 def gru_inputs(torch, np, dev, t_max, b, h, dtype, seed, dirs=1):
@@ -1439,7 +1471,9 @@ def phase_gru_kernels(torch, np, dev, bidirectional):
     forward rows carry the plan, and at T=800, B=1 and T=240, B=48 both
     routes timed on the same operands; K8a's there also its witnesses:
     its cluster route equals its cooperative kernel bit for bit, and each
-    direction equals K9a's cluster route on its half of xp."""
+    direction equals K9a's cluster route on its half of xp; and at T=240,
+    B=48 K8a's instance with the store, which training runs
+    (store_witness)."""
     from kaldi_ctc_tpu_torch import _kernels
     from kaldi_ctc_tpu_torch.ops import gru_cuda
     h, dirs = 320, 2 if bidirectional else 1
@@ -1524,6 +1558,10 @@ def phase_gru_kernels(torch, np, dev, bidirectional):
                     lambda p: fwd(*fwd_args(p, ws, lens, False)))
                 row["projection_plus_kernel_below_library"] = (
                     row["projection_plus_kernel_ms"] < row["library_ms"])
+                if bidirectional:
+                    row.update(store_witness(torch, fwd, args, got, ref,
+                                             K2_TOL[dtype_name]))
+                    errs.append((row["store_max_abs_err"], row["store_ok"]))
                 if dtype_name == "float32":
                     full = torch.full_like(lens, t_max)
                     ys = fwd(*fwd_args(xp, ws, full, False))
@@ -1540,18 +1578,22 @@ def phase_gru_kernels(torch, np, dev, bidirectional):
                     and row.get("bit_equal_k9a", True)):
                 fail(f"K8a's witnesses do not hold: {row}")
 
-        # the backward at the training shape, on the kernel's forward
+        # the backward at the training shape, on the kernel's forward (K8a
+        # keeps its recurrent sums for K8b, as in training)
         xp, ws, lens = gru_inputs(torch, np, dev, TRAIN_T, TRAIN_B, h, dtype,
                                   6, dirs)
-        ys = fwd(*fwd_args(xp, ws, lens, False))
-        ys = ys if bidirectional else (ys,)
+        if bidirectional:
+            *ys, sums = fwd(*fwd_args(xp, ws, lens, False), store_sums=True)
+            kw = {"sums": sums}
+        else:
+            ys, sums, kw = (fwd(*fwd_args(xp, ws, lens, False)),), None, {}
         rng = np.random.default_rng(7)
         dys = [torch.as_tensor(rng.standard_normal((TRAIN_T, TRAIN_B, h))
                                .astype(np.float32), device=dev).to(dtype)
                for _ in range(dirs)]
         args = ((*dys, xp, *ys, *ws, lens) if bidirectional
                 else (dys[0], xp, ys[0], ws[0], lens))
-        got = bwd(*args)
+        got = bwd(*args, **kw)
         ref = bwd_ref(*args)
         torch.cuda.synchronize()
         errs = [max_err(g, r, 0.0, K3_TOL[dtype_name])
@@ -1561,7 +1603,7 @@ def phase_gru_kernels(torch, np, dev, bidirectional):
                "max_abs_err": max(e for e, _ in errs),
                "max_abs_ref": max(float(r.float().abs().max()) for r in ref),
                "tol": K3_TOL[dtype_name],
-               "ms": median_ms(lambda: bwd(*args), 10, torch),
+               "ms": median_ms(lambda: bwd(*args, **kw), 10, torch),
                "plain_ms": median_ms(lambda: bwd_ref(*args), 3, torch),
                # the gate recompute and the dh product, per direction
                **bound(nbytes(*args, *got), gru_ops(lens, h, 2 * dirs),
@@ -1569,9 +1611,9 @@ def phase_gru_kernels(torch, np, dev, bidirectional):
                "library_ms": library_rnn_ms(
                    torch, dev, dtype, TRAIN_T, TRAIN_B, dirs * h, h,
                    bidirectional=bidirectional, backward=True, cell="GRU")}
-        row.update(bwd_routes(torch, dev, f"{kname}b", args))
+        row.update(bwd_routes(torch, dev, f"{kname}b", args, sums))
         if bidirectional:
-            row.update(k8b_witnesses(torch, dev, args))
+            row.update(k8b_witnesses(torch, dev, args, sums))
         bwd_rows.append(row)
         emit({"phase": phase, **row})
         if not all(ok for _, ok in errs):
@@ -1603,9 +1645,10 @@ def k8a_witnesses(torch, lib, xp, ws, lens32, chain, coop):
                                  for c, u in zip(chain, uni))}
 
 
-def k8b_witnesses(torch, dev, args):
-    """K8b's two witnesses on one set of operands: its cluster route
-    equals its cooperative kernel bit for bit at each row's first valid
+def k8b_witnesses(torch, dev, args, sums):
+    """K8b's two witnesses on one set of operands and K8a's stored
+    ``sums``: its cluster route equals its cooperative kernel (which
+    recomputes the sums) bit for bit at each row's first valid
     walk step (t = len - 1 forward, t = 0 backward), where dh is zero; and
     each direction of its cluster route equals K9b's cluster route on that
     direction's operands (the backward one with reverse) over the whole
@@ -1618,7 +1661,7 @@ def k8b_witnesses(torch, dev, args):
     b, h = xp.shape[1], xp.shape[2] // 6
     lens32 = lens.to(torch.int32)
     chain = gru_cuda._bigru_bwd_chain(
-        lib, *ops, lens32, gru_cuda.k8b_plan(lib, b, h, xp.dtype, dev))
+        lib, *ops, lens32, sums, gru_cuda.k8b_plan(lib, b, h, xp.dtype, dev))
     coop = gru_cuda._bigru_bwd_cooperative(lib, *ops, lens32)
     k9b = gru_cuda.k9b_plan(lib, b, h, xp.dtype, dev)
     uni = (gru_cuda._gru_bwd_chain(lib, dy_f, xp[..., :3 * h].contiguous(),
@@ -1716,6 +1759,9 @@ def phase_k10(torch, np, dev):
         errs = [max_err(g, r, 0.0, K3_TOL[dtype_name])
                 for g, r in zip(got_b, ref_b)]
         xp = rnn_cuda._project_bilstm(x, w_x, bias)
+        # the hoisted route as training runs it: K3 on K2's stored sums
+        *hoisted, hsums = rnn_cuda.bilstm_seq_fwd(xp, w[0], w[1], lens,
+                                                  store_sums=True)
         row = {"kernel": "K10b", "dtype": dtype_name, "T": TRAIN_T,
                "B": TRAIN_B, "D": d, "H": h,
                "max_abs_err": max(e for e, _ in errs),
@@ -1733,7 +1779,8 @@ def phase_k10(torch, np, dev):
                    bidirectional=True, backward=True),
                "hoisted_route_ms": median_ms(
                    lambda: rnn_cuda.bilstm_seq_bwd_dgates(
-                       dy[0], dy[1], xp, *got, w[0], w[1], lens), 10, torch)}
+                       dy[0], dy[1], xp, *hoisted, w[0], w[1], lens, hsums),
+                   10, torch)}
         row.update(k10b_phases(torch, dev, bargs))
         bwd_rows.append(row)
         emit({"phase": "k10_bilstm_proj", **row})
@@ -1865,13 +1912,14 @@ def k10b_large_batch(torch, np, dev):
 
 def bilstm_bwd_operands(torch, np, dev, t, b, h, mat):
     """K3's operands at T=t, B=b, H=h, f32, ragged rows: seeded cotangents
-    and a forward of K2's plain version (``mat`` draws seeded matrices)."""
+    and a forward of K2 with the store (``mat`` draws seeded matrices) →
+    (operands, the sums K2 stored; None on its cooperative route)."""
     from kaldi_ctc_tpu_torch.ops import rnn_cuda
     xp, w, lens = uni_inputs(torch, np, dev, t, b, h, torch.float32, b)
     xp = torch.cat([xp, mat(t, b, 4 * h, scale=0.5)], dim=2)
     w2 = mat(h, 4 * h, scale=h ** -0.5)
-    ys = rnn_cuda.bilstm_seq_fwd_reference(xp, w, w2, lens)
-    return (mat(t, b, h), mat(t, b, h), xp, *ys, w, w2, lens)
+    *ys, sums = rnn_cuda.bilstm_seq_fwd(xp, w, w2, lens, store_sums=True)
+    return (mat(t, b, h), mat(t, b, h), xp, *ys, w, w2, lens), sums
 
 
 def phase_f7(torch, np, dev):
@@ -1910,7 +1958,7 @@ def phase_f7(torch, np, dev):
                      f"route")
             return (rnn_cuda.bilstm_seq_bwd_dgates,
                     rnn_cuda.bilstm_seq_bwd_dgates_reference,
-                    bilstm_bwd_operands(torch, np, dev, t, b, hk, mat),
+                    bilstm_bwd_operands(torch, np, dev, t, b, hk, mat)[0],
                     K3_TOL["float32"], b)
         if name in ("K5", "K6", "K7"):
             src, sigs, query, dims = {
@@ -1987,15 +2035,17 @@ def phase_f7(torch, np, dev):
 
     def cluster_case(name):
         """K3, K6, K7 (one layer), K8a, K8b or K9b on its cluster route at
-        B=600, H=320: (wrapper, plain version, operands, tolerance,
-        plan)"""
+        B=600, H=320: (wrapper, plain version, operands, the wrapper's
+        keywords (K3's and K8b's: the sums their forward stored),
+        tolerance, plan)"""
         b = 600
         if name == "K3":
             lib = _kernels.load("bilstm_bwd", rnn_cuda._BWD_SIGNATURES)
+            args, sums = bilstm_bwd_operands(torch, np, dev, t, b, h, mat)
             return (rnn_cuda.bilstm_seq_bwd_dgates,
-                    rnn_cuda.bilstm_seq_bwd_dgates_reference,
-                    bilstm_bwd_operands(torch, np, dev, t, b, h, mat),
-                    K3_TOL["float32"], rnn_cuda.k3_plan(lib, b, h, f32, dev))
+                    rnn_cuda.bilstm_seq_bwd_dgates_reference, args,
+                    {"sums": sums}, K3_TOL["float32"],
+                    rnn_cuda.k3_plan(lib, b, h, f32, dev))
         if name == "K6":
             lib = _kernels.load("lstm_bwd", rnn_cuda._UNI_BWD_SIGNATURES)
             plan = rnn_cuda.k6_plan(lib, b, h, f32, dev)
@@ -2003,7 +2053,7 @@ def phase_f7(torch, np, dev):
             y, c = rnn_cuda.lstm_seq_fwd_reference(xp, w, lens)
             return (rnn_cuda.lstm_seq_bwd_dgates,
                     rnn_cuda.lstm_seq_bwd_dgates_reference,
-                    (mat(t, b, h), xp, y, c, w, lens), K3_TOL["float32"],
+                    (mat(t, b, h), xp, y, c, w, lens), {}, K3_TOL["float32"],
                     plan)
         if name == "K7":
             lib = _kernels.load("lstm_stack", rnn_cuda._STACK_SIGNATURES)
@@ -2011,29 +2061,32 @@ def phase_f7(torch, np, dev):
             return (rnn_cuda.lstm_stack_fwd,
                     rnn_cuda.lstm_stack_fwd_reference,
                     (xp, [], [w], [], lens, mat(1, b, h, scale=0.5),
-                     mat(1, b, h, scale=0.5)), K2_TOL["float32"],
+                     mat(1, b, h, scale=0.5)), {}, K2_TOL["float32"],
                     rnn_cuda.k7_plan(lib, 1, b, h, f32, dev))
         if name == "K8a":
             lib = _kernels.load("gru_fwd", gru_cuda._FWD_SIGNATURES)
             xp, ws, lens = gru_inputs(torch, np, dev, t, b, h, f32, b, 2)
             return (gru_cuda.bigru_seq_fwd, gru_cuda.bigru_seq_fwd_reference,
-                    (xp, *ws, lens), K2_TOL["float32"],
+                    (xp, *ws, lens), {}, K2_TOL["float32"],
                     gru_cuda.k8a_plan(lib, b, h, f32, dev))
         if name == "K8b":
             lib = _kernels.load("gru_bwd", gru_cuda._BWD_SIGNATURES)
             xp, ws, lens = gru_inputs(torch, np, dev, t, b, h, f32, b, 2)
-            ys = gru_cuda.bigru_seq_fwd_reference(xp, *ws, lens)
+            *ys, sums = gru_cuda.bigru_seq_fwd(xp, *ws, lens,
+                                               store_sums=True)
             return (gru_cuda.bigru_seq_bwd_dgates,
                     gru_cuda.bigru_seq_bwd_dgates_reference,
                     (mat(t, b, h), mat(t, b, h), xp, *ys, *ws, lens),
-                    K3_TOL["float32"], gru_cuda.k8b_plan(lib, b, h, f32, dev))
+                    {"sums": sums}, K3_TOL["float32"],
+                    gru_cuda.k8b_plan(lib, b, h, f32, dev))
         lib = _kernels.load("gru_bwd", gru_cuda._BWD_SIGNATURES)
         plan = gru_cuda.k9b_plan(lib, b, h, f32, dev)
         xp, ws, lens = gru_inputs(torch, np, dev, t, b, h, f32, b)
         y = gru_cuda.gru_seq_fwd_reference(xp, ws[0], lens)
         return (gru_cuda.gru_seq_bwd_dgates,
                 gru_cuda.gru_seq_bwd_dgates_reference,
-                (mat(t, b, h), xp, y, ws[0], lens), K3_TOL["float32"], plan)
+                (mat(t, b, h), xp, y, ws[0], lens), {}, K3_TOL["float32"],
+                plan)
 
     rows = []
     for name in ("K3", "K5", "K6", "K7", "K8a", "K8b", "K9a", "K9b"):
@@ -2060,9 +2113,9 @@ def phase_f7(torch, np, dev):
     # route, which has no ceiling: B=600 in one call, waves of clusters,
     # no row slices
     for name in ("K3", "K6", "K7", "K8a", "K8b", "K9b"):
-        fn, ref, args, tol, plan = cluster_case(name)
+        fn, ref, args, kw, tol, plan = cluster_case(name)
         before = fn.launches
-        got = fn(*args)
+        got = fn(*args, **kw)
         torch.cuda.synchronize()
         launched = fn.launches - before
         got = got if isinstance(got, tuple) else (got,)
@@ -2657,11 +2710,12 @@ def device_kernels(prof, DeviceType):
 # routes of K2 (bilstm_xp_chain_kernel or bilstm_fwd_kernel), K5
 # (lstm_fwd_chain_kernel or lstm_fwd_kernel), K9a (gru_fwd_chain_kernel
 # or gru_fwd_kernel) and K8a (bigru_fwd_chain_kernel or bigru_fwd_kernel),
-# those of K3, K6, K8b and K9b: the cluster route's two phases
+# those of K6 and K9b: the cluster route's two phases
 # (lstm_bwd_gates_tiled_kernel or lstm_bwd_gates_kernel, then
-# lstm_bwd_chain_kernel; the same with bilstm_bwd_, bigru_bwd_ and
-# gru_bwd_) or the cooperative kernel (bilstm_bwd_kernel, lstm_bwd_kernel,
-# bigru_bwd_kernel, gru_bwd_kernel); and K7's two routes
+# lstm_bwd_chain_kernel; the same with gru_bwd_), of K3 and K8b: the
+# cluster route's chain alone (bilstm_bwd_chain_kernel,
+# bigru_bwd_chain_kernel), or the cooperative kernel (bilstm_bwd_kernel,
+# lstm_bwd_kernel, bigru_bwd_kernel, gru_bwd_kernel); and K7's two routes
 # (lstm_stack_chain_kernel or lstm_stack_kernel)
 KERNEL_TAGS = {"bilstm_proj_fwd": ("::bilstm_proj_x",
                                    "::bilstm_fwd_chain_kernel"),
@@ -2673,15 +2727,13 @@ KERNEL_TAGS = {"bilstm_proj_fwd": ("::bilstm_proj_x",
                "gru_fwd": ("::gru_fwd_chain_kernel", "::gru_fwd_kernel"),
                "bigru_fwd": ("::bigru_fwd_chain_kernel",
                              "::bigru_fwd_kernel"),
-               "bilstm_bwd": ("::bilstm_bwd_gates",
-                              "::bilstm_bwd_chain_kernel",
+               "bilstm_bwd": ("::bilstm_bwd_chain_kernel",
                               "::bilstm_bwd_kernel"),
                "lstm_bwd": ("::lstm_bwd_gates", "::lstm_bwd_chain_kernel",
                             "::lstm_bwd_kernel"),
                "gru_bwd": ("::gru_bwd_gates", "::gru_bwd_chain_kernel",
                            "::gru_bwd_kernel"),
-               "bigru_bwd": ("::bigru_bwd_gates",
-                             "::bigru_bwd_chain_kernel",
+               "bigru_bwd": ("::bigru_bwd_chain_kernel",
                              "::bigru_bwd_kernel"),
                "lstm_stack": ("::lstm_stack_chain_kernel",
                               "::lstm_stack_kernel")}

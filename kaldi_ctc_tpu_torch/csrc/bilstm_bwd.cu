@@ -1,6 +1,8 @@
 // K3 and K10b: the backward recurrence of one bidirectional LSTM layer
-// (dgates), with the gates recomputed from the hoisted projection (K3) or
-// from the layer input through the in-kernel projection (K10b).
+// (dgates), with the gates from the hoisted projection (K3: plus the
+// forward's stored recurrent sums on its cluster route, recomputed on its
+// cooperative one) or recomputed from the layer input through the
+// in-kernel projection (K10b).
 //
 // Replaces kaldi_ctc_tpu/ops/rnn_pallas.py::_bilstm_seq_bwd_dgates
 // (kernel body _bibwd_kernel with _dgates_update and _lstm_gates; K3) and
@@ -17,12 +19,17 @@
 // The walk runs each direction's forward order in reverse: step s
 // handles the forward direction at t = T-1-s and the backward direction
 // at t = s.  At each step it
-//   - recomputes the gates from xp[t] + y[t-+1] . W_h, with y[t-+1] as
-//     stored (the compute dtype) and zero at the direction's first
-//     forward step, f32 accumulation: the same sums, in the same order,
-//     as K2's, so the gates equal the forward's.  K10b takes xp[t] from
-//     project() of csrc/bilstm_cell.cuh, K10a's own definition, so its
-//     gates equal K10a's bit for bit;
+//   - forms the gates xp[t] + y[t-+1] . W_h: K3's cluster route reads the
+//     sums y[t-+1] . W_h that K2 stored while it ran (K2 with the store:
+//     ops/rnn_cuda.py::bilstm_layer asks for it where a backward is
+//     recorded; an inference forward stores nothing), the very values K2
+//     formed the gates from; the
+//     cooperative route recomputes them with y[t-+1] as stored (the
+//     compute dtype) and zero at the direction's first forward step, f32
+//     accumulation in K2's order, so its gates equal the forward's too.
+//     K10b takes xp[t] from project() of csrc/bilstm_cell.cuh, K10a's own
+//     definition, and recomputes the sums, so its gates equal K10a's bit
+//     for bit;
 //   - reads c[t] and c[t-+1] (zero at the first forward step);
 //   - forms dh_total = dy + dh and dc_total, writes the dgates;
 //   - at valid frames carries dh = dgates . W_h^T (dgates rounded to the
@@ -38,27 +45,21 @@
 // (ops/rnn_cuda.py::k3_plan, the backward chain's plan with both
 // directions):
 //   - the cluster route, wherever W_h's four gate columns as f32 fit a
-//     cluster of at most 16 CTAs (H up to ~465, either dtype): two
-//     kernels, the split of K6 (csrc/lstm_bwd.cu) with both directions.
-//     The gate recompute depends only on the stored y, never on the dh/dc
-//     recurrence, so
-//       1. bilstm_bwd_gates_tiled_kernel (H <= 426) or
-//          bilstm_bwd_gates_kernel computes both directions' recurrent
-//          sums y[t-+1] . W_h of every step at once, parallel over T
-//          (csrc/lstm_gates.cuh with Sums::kRec and BiWalkRows: warp_dot's
-//          sums, the forward chain's order), into an f32 scratch [S, B, 8H]
-//          per chunk of S steps (chunks above 256 MiB);
-//       2. bilstm_bwd_chain_kernel walks the dh/dc chain of both
-//          directions in thread-block clusters (the backward chain of
-//          csrc/bwd_chain.cuh with LstmBwdCell), adding xp[t] to each sum
-//          as the forward chain does, so the gates equal K2's bit for bit
-//          (the recompute invariant).  Rows never meet: one cluster of C
-//          CTAs per (direction, group of R rows), W_h's gate columns as
-//          f32 in distributed shared memory, the partial dh rows exchanged
-//          through DSMEM, one cluster barrier a step, no grid barrier, any
-//          B.  Its name is its own (not bilstm_proj_chain_kernel, K10b's
-//          phase 2, which reads the pre-activation), so a trace tells K3
-//          from K10b;
+//     cluster of at most 16 CTAs (H up to ~465, either dtype; K2 takes its
+//     cluster route there too, to ~470): one kernel,
+//     bilstm_bwd_chain_kernel, on the recurrent sums K2's cluster route
+//     stored, [T, B, 8H] f32 in this walk's order (row s: the forward
+//     direction's sums at t = T-1-s, the backward one's at t = s; csrc/
+//     fwd_chain.cuh), read whole in one launch.  It walks the dh/dc chain
+//     of both directions in thread-block clusters (the backward chain of
+//     csrc/bwd_chain.cuh with LstmBwdCell), adding xp[t] to each sum as
+//     the forward chain does, so the gates are K2's bit for bit.  Rows
+//     never meet: one cluster of C CTAs per (direction, group of R rows),
+//     W_h's gate columns as f32 in distributed shared memory, the partial
+//     dh rows exchanged through DSMEM, one cluster barrier a step, no grid
+//     barrier, any B.  Its name is its own (not bilstm_proj_chain_kernel,
+//     K10b's phase 2, which reads the pre-activation), so a trace tells K3
+//     from K10b;
 //   - the cooperative route above that: bilstm_bwd_kernel, below.  One
 //     cooperative launch per layer, K2's cooperative layout.  Each block
 //     owns hs hidden units of one direction and keeps those units' four
@@ -75,10 +76,11 @@
 //     y[t-+1], the gate sums and the dgates of all B rows stay in shared
 //     memory, so a launch takes at most bilstm_bwd_max_rows(H) rows; the
 //     wrapper runs a larger batch as row slices.
-// Both routes recompute the gates with warp_dot's sums; they carry dh in
-// another order (partials per CTA of a cluster, then over the ranks), so
-// they agree bit for bit where dh and dc are still zero (each row's first
-// valid walk step) and within tolerance elsewhere.
+// Both routes form the gates from warp_dot's sums (K2's stored ones, or
+// recomputed); they carry dh in another order (partials per CTA of a
+// cluster, then over the ranks), so they agree bit for bit where dh and dc
+// are still zero (each row's first valid walk step) and within tolerance
+// elsewhere.
 //
 // K10b.  The gate recompute depends only on x and the stored y, never on
 // the dh/dc recurrence; the only serial chain is dh -> dgates ->
@@ -103,8 +105,9 @@
 //   2. bilstm_proj_chain_kernel, the dh/dc chain, serial over the steps,
 //      in thread-block clusters: the backward chain of csrc/bwd_chain.cuh
 //      with the LSTM cell (LstmBwdCell), both directions, on the
-//      pre-activations of phase 1 (K3, K6 and K9b run the same chain on
-//      their own phase 1's recurrent sums).  One cluster of C CTAs per
+//      pre-activations of phase 1 (K6 and K9b run the same chain on
+//      their phase 1's recurrent sums, K3 and K8b on the ones their
+//      forward stored).  One cluster of C CTAs per
 //      (direction, group of R rows); each CTA keeps its ceil(H/C) units'
 //      four gate columns of W_h in shared memory as f32 (64 KB at H =
 //      128, C = 4) with their dh and dc carries; one cluster barrier a
@@ -496,33 +499,9 @@ int chain_launch(const void* dyf, const void* dyb, const void* cf,
 }
 
 // ---------------------------------------------------------------------------
-// K3's cluster route: phase 1, both directions' recurrent sums of every
-// step at once, then the backward chain with both directions on them
+// K3's cluster route: the backward chain with both directions on K2's
+// stored recurrent sums
 // ---------------------------------------------------------------------------
-
-template <typename T>
-__global__ void __launch_bounds__(kGateThreads)
-bilstm_bwd_gates_kernel(const T* __restrict__ yf, const T* __restrict__ yb,
-                        const T* __restrict__ whf, const T* __restrict__ whb,
-                        float* __restrict__ pre, int s0, int S, int steps,
-                        int B, int H, int cols, int) {
-  gates_warp_body<T, Sums::kRec>(nullptr, nullptr, whf, whb, pre, S * B, 0,
-                                 H, 4, 2, cols,
-                                 BiWalkRows<T>{yf, yb, s0, steps, B, H});
-}
-
-template <typename T>
-__global__ void __launch_bounds__(kTileThreads, 1)
-bilstm_bwd_gates_tiled_kernel(const T* __restrict__ yf,
-                              const T* __restrict__ yb,
-                              const T* __restrict__ whf,
-                              const T* __restrict__ whb,
-                              float* __restrict__ pre, int s0, int S,
-                              int steps, int B, int H, int) {
-  gates_tiled_body<T, Sums::kRec>(nullptr, nullptr, whf, whb, pre, S * B, 0,
-                                  H, 4, 2,
-                                  BiWalkRows<T>{yf, yb, s0, steps, B, H});
-}
 
 template <typename T>
 __global__ void __launch_bounds__(kBwdChainThreads)
@@ -544,17 +523,17 @@ template <typename T>
 int rec_chain_launch(const void* dyf, const void* dyb, const void* xp,
                      const void* cf, const void* cb, const void* whf,
                      const void* whb, const void* lens, const void* pre,
-                     void* dgf, void* dgb, void* state, int s0, int S,
-                     int steps, int B, int H, int C, int R, void* stream) {
+                     void* dgf, void* dgb, void* state, int steps, int B,
+                     int H, int C, int R, void* stream) {
   return bwd_chain_launch<LstmBwdCell, false>(
-      bilstm_bwd_chain_kernel<T>, C, 2, s0, S, steps, B, H, R, stream,
+      bilstm_bwd_chain_kernel<T>, C, 2, 0, steps, steps, B, H, R, stream,
       static_cast<const T*>(dyf), static_cast<const T*>(dyb),
       static_cast<const T*>(xp), static_cast<const float*>(cf),
       static_cast<const float*>(cb), static_cast<const T*>(whf),
       static_cast<const T*>(whb), static_cast<const int32_t*>(lens),
       static_cast<const float*>(pre), static_cast<T*>(dgf),
-      static_cast<T*>(dgb), static_cast<float*>(state), s0, S, steps, B, H,
-      R);
+      static_cast<T*>(dgb), static_cast<float*>(state), 0, steps, steps, B,
+      H, R);
 }
 
 }  // namespace
@@ -607,56 +586,30 @@ int bilstm_bwd_bf16(const void* dyf, const void* dyb, const void* xp,
 // it), or a negative CUDA error code
 int bilstm_bwd_smem_optin(void) { return smem_optin_bytes(); }
 
-// K3's cluster route, phase 1 over walk steps s0 .. s0+S-1 of `steps`:
-// y_f, y_b [T, B, H] and w_h_f, w_h_b [H, 4H] in the compute dtype -> pre
-// [S, B, 8H] f32, row i the recurrent sums y[prev] . W_h of step s0 + i
-// (the forward direction's at t = T-1-s, over y_f[t-1]; the backward's at
-// t = s, over y_b[t+1]).  cols 0: the tiled kernel (H <= 426); 1..32: the
-// warp kernel with that many gate columns a block.
-int bilstm_bwd_gates_f32(const void* yf, const void* yb, const void* whf,
-                         const void* whb, void* pre, int s0, int S,
-                         int steps, int B, int H, int cols, void* stream) {
-  return rec_gates_launch<float>(bilstm_bwd_gates_tiled_kernel<float>,
-                                 bilstm_bwd_gates_kernel<float>, yf, yb, whf,
-                                 whb, pre, s0, S, steps, B, H, 4, 2, cols, 0,
-                                 stream);
-}
-
-int bilstm_bwd_gates_bf16(const void* yf, const void* yb, const void* whf,
-                          const void* whb, void* pre, int s0, int S,
-                          int steps, int B, int H, int cols, void* stream) {
-  return rec_gates_launch<__nv_bfloat16>(
-      bilstm_bwd_gates_tiled_kernel<__nv_bfloat16>,
-      bilstm_bwd_gates_kernel<__nv_bfloat16>, yf, yb, whf, whb, pre, s0, S,
-      steps, B, H, 4, 2, cols, 0, stream);
-}
-
-// K3's cluster route, phase 2 over the same steps: dy_f, dy_b [T, B, H],
-// xp [T, B, 8H] and w_h_f, w_h_b in the compute dtype, c_f, c_b [T, B, H]
-// f32, lens [B] int32, pre from phase 1 -> dg_f, dg_b [T, B, 4H] at those
-// steps' frames; state [2][2][B][H] f32 holds dh and dc (per direction) on
-// entry and, unless the walk ends here, on exit.  C CTAs per cluster (a
-// power of two <= 16), R rows per cluster.
+// K3's cluster route, the whole walk of `steps` steps: dy_f, dy_b
+// [T, B, H], xp [T, B, 8H] and w_h_f, w_h_b in the compute dtype, c_f, c_b
+// [T, B, H] f32, lens [B] int32, pre: the recurrent sums K2 stored
+// ([T, B, 8H] f32, row s the sums of walk step s) -> dg_f, dg_b
+// [T, B, 4H]; state [2][2][B][H] f32, zeros: the dh and dc carries (per
+// direction).  C CTAs per cluster (a power of two <= 16), R rows per
+// cluster.
 int bilstm_bwd_chain_f32(const void* dyf, const void* dyb, const void* xp,
                          const void* cf, const void* cb, const void* whf,
                          const void* whb, const void* lens, const void* pre,
-                         void* dgf, void* dgb, void* state, int s0, int S,
-                         int steps, int B, int H, int C, int R,
-                         void* stream) {
+                         void* dgf, void* dgb, void* state, int steps, int B,
+                         int H, int C, int R, void* stream) {
   return rec_chain_launch<float>(dyf, dyb, xp, cf, cb, whf, whb, lens, pre,
-                                 dgf, dgb, state, s0, S, steps, B, H, C, R,
-                                 stream);
+                                 dgf, dgb, state, steps, B, H, C, R, stream);
 }
 
 int bilstm_bwd_chain_bf16(const void* dyf, const void* dyb, const void* xp,
                           const void* cf, const void* cb, const void* whf,
                           const void* whb, const void* lens, const void* pre,
-                          void* dgf, void* dgb, void* state, int s0, int S,
-                          int steps, int B, int H, int C, int R,
-                          void* stream) {
+                          void* dgf, void* dgb, void* state, int steps,
+                          int B, int H, int C, int R, void* stream) {
   return rec_chain_launch<__nv_bfloat16>(dyf, dyb, xp, cf, cb, whf, whb, lens,
-                                         pre, dgf, dgb, state, s0, S, steps,
-                                         B, H, C, R, stream);
+                                         pre, dgf, dgb, state, steps, B, H, C,
+                                         R, stream);
 }
 
 // K10b phase 1 over walk steps s0 .. s0+S-1 of `steps`: x [T, B, D], y_f,

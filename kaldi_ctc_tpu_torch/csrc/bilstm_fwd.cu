@@ -37,7 +37,10 @@
 //     memory and one cluster barrier a step: no grid barrier, any B.  Its
 //     name is its own (not bilstm_fwd_chain_kernel, K10a's phase 2, which
 //     in f32 would be the same template instance), so a trace tells K2
-//     from K10a;
+//     from K10a.  Where a backward is recorded (training) it also keeps
+//     the recurrent sums of every step, f32, in K3's walk order
+//     (fwd_chain.cuh says how), and K3's cluster route reads them instead
+//     of recomputing them; inference passes null and stores nothing;
 //   - the cooperative route above that: bilstm_fwd_kernel, ONE
 //     cooperative launch per layer.  The grid covers both directions: each block owns hs hidden
 //     units of one direction and keeps those units' four gate columns of
@@ -54,10 +57,10 @@
 //     memory), so the kernel takes any batch.  hs is chosen so that the
 //     grid fits the card in one wave; the host checks co-residency before
 //     launching.
-// Both sum in warp_dot's order (csrc/bilstm_cell.cuh), the order K3
-// recomputes the gates in, and do the gate math of one function
-// (LstmCell::step of csrc/fwd_chain.cuh): the two routes agree bit for
-// bit.
+// Both sum in warp_dot's order (csrc/bilstm_cell.cuh), the order K3's
+// cooperative route recomputes the gates in, and do the gate math of one
+// function (LstmCell::step of csrc/fwd_chain.cuh): the two routes agree
+// bit for bit.
 //
 // K10a's design: two kernels.  The projection does not depend on the
 // recurrence, so it leaves the serial chain:
@@ -315,7 +318,7 @@ bilstm_fwd_chain_kernel(const float* pre, int pre_stride, int t0f, int t0b,
   fwd_chain_body<LstmCell, T, float, RT>(pre, pre_stride, t0f, t0b, whf,
                                          whb, lens, yf, cf, yb, cb, state,
                                          dirs, s0, S, steps, B, H, R,
-                                         reverse);
+                                         reverse, nullptr);
 }
 
 template <typename T>
@@ -339,30 +342,37 @@ int chain_launch(const void* pre, const void* whf, const void* whb,
 // K2's cluster route: both directions' recurrences on xp
 // ---------------------------------------------------------------------------
 
-template <typename T, int RT>
+// kStore: keep the recurrent sums in `sums` for K3
+template <typename T, int RT, bool kStore>
 __global__ void __launch_bounds__(kChainFwdThreads)
 bilstm_xp_chain_kernel(const T* pre, int pre_stride, int t0f, int t0b,
                        const T* whf, const T* whb, const int32_t* lens, T* yf,
                        float* cf, T* yb, float* cb, float* state, int dirs,
                        int s0, int S, int steps, int B, int H, int R,
-                       int reverse) {
-  fwd_chain_body<LstmCell, T, T, RT>(pre, pre_stride, t0f, t0b, whf, whb,
-                                     lens, yf, cf, yb, cb, state, dirs, s0,
-                                     S, steps, B, H, R, reverse);
+                       int reverse, float* sums) {
+  fwd_chain_body<LstmCell, T, T, RT, kStore>(
+      pre, pre_stride, t0f, t0b, whf, whb, lens, yf, cf, yb, cb, state, dirs,
+      s0, S, steps, B, H, R, reverse, sums);
+}
+
+template <typename T, bool kStore>
+auto xp_chain_kernel(int R) {
+  return R >= 4 ? &bilstm_xp_chain_kernel<T, 4, kStore>
+         : R >= 2 ? &bilstm_xp_chain_kernel<T, 2, kStore>
+                  : &bilstm_xp_chain_kernel<T, 1, kStore>;
 }
 
 template <typename T>
 int xp_chain_launch(const void* xp, const void* whf, const void* whb,
                     const void* lens, void* yf, void* cf, void* yb, void* cb,
-                    void* state, int steps, int B, int H, int C, int R,
-                    void* stream) {
-  auto kern = R >= 4 ? &bilstm_xp_chain_kernel<T, 4>
-              : R >= 2 ? &bilstm_xp_chain_kernel<T, 2>
-                       : &bilstm_xp_chain_kernel<T, 1>;
+                    void* state, void* sums, int steps, int B, int H, int C,
+                    int R, void* stream) {
+  auto kern = sums != nullptr ? xp_chain_kernel<T, true>(R)
+                              : xp_chain_kernel<T, false>(R);
   return fwd_chain_launch<LstmCell, T, T>(kern, xp, 8 * H, 0, 0, whf, whb,
                                           lens, yf, cf, yb, cb, state, 2, 0,
                                           steps, steps, B, H, C, R, 0,
-                                          stream);
+                                          stream, static_cast<float*>(sums));
 }
 
 }  // namespace
@@ -388,21 +398,25 @@ int bilstm_fwd_bf16(const void* xp, const void* whf, const void* whb,
 // K2's cluster route: xp [T, B, 8H] and w_h_f, w_h_b [H, 4H] in the
 // compute dtype, lens [B] int32 -> y_f, y_b [T, B, H] in the compute dtype
 // and c_f, c_b [T, B, H] f32; state [2][2][B][H] f32 zeroed by the caller.
+// sums: null, or [T, B, 8H] f32 for the recurrent sums of every step in
+// the backward's walk order (row s: the forward direction's at t = T-1-s,
+// the backward direction's at t = s), which K3's cluster route reads.
 // C CTAs per cluster (a power of two <= 16), R rows per cluster.
 int bilstm_xp_chain_f32(const void* xp, const void* whf, const void* whb,
                         const void* lens, void* yf, void* cf, void* yb,
-                        void* cb, void* state, int steps, int B, int H, int C,
-                        int R, void* stream) {
+                        void* cb, void* state, void* sums, int steps, int B,
+                        int H, int C, int R, void* stream) {
   return xp_chain_launch<float>(xp, whf, whb, lens, yf, cf, yb, cb, state,
-                                steps, B, H, C, R, stream);
+                                sums, steps, B, H, C, R, stream);
 }
 
 int bilstm_xp_chain_bf16(const void* xp, const void* whf, const void* whb,
                          const void* lens, void* yf, void* cf, void* yb,
-                         void* cb, void* state, int steps, int B, int H,
-                         int C, int R, void* stream) {
+                         void* cb, void* state, void* sums, int steps, int B,
+                         int H, int C, int R, void* stream) {
   return xp_chain_launch<__nv_bfloat16>(xp, whf, whb, lens, yf, cf, yb, cb,
-                                        state, steps, B, H, C, R, stream);
+                                        state, sums, steps, B, H, C, R,
+                                        stream);
 }
 
 // the opt-in shared memory of one block on the current device, in bytes

@@ -1,23 +1,28 @@
-// The backward recurrence of an LSTM or a GRU in thread-block clusters,
-// the serial half of a backward kernel split in two: phase 2 of K10b
-// (csrc/bilstm_bwd.cu: both LSTM directions, the gate pre-activations
-// from its phase 1), K3 (csrc/bilstm_bwd.cu: both LSTM directions), K6
-// (csrc/lstm_bwd.cu: one LSTM direction) and K9b (csrc/gru_bwd.cu: one
-// GRU direction), the last three on their phase 1's recurrent sums plus
-// the stored projection (xp or x_proj).  The cell is a
-// policy (LstmBwdCell, GruBwdCell below): its gate columns per unit, the
-// residuals it reads, its carries and its gate math.
+// The backward recurrence of an LSTM or a GRU in thread-block clusters:
+// phase 2 of K10b (csrc/bilstm_bwd.cu: both LSTM directions, the gate
+// pre-activations from its phase 1), K6 (csrc/lstm_bwd.cu: one LSTM
+// direction) and K9b (csrc/gru_bwd.cu: one GRU direction) on their phase
+// 1's recurrent sums, and K3 (csrc/bilstm_bwd.cu: both LSTM directions)
+// and K8b (csrc/gru_bwd.cu: both GRU directions) on the recurrent sums
+// their forward (K2, K8a) stored; all but K10b add the stored projection
+// (xp or x_proj).  The cell is a policy (LstmBwdCell, GruBwdCell below):
+// its gate columns per unit, the residuals it reads, its carries and its
+// gate math.
 //
-// Phase 1 (csrc/lstm_gates.cuh) depends only on the stored y, never on
-// the dh recurrence, so it computes every step's sums at once; what is
-// left serial is dh -> dgates -> dgates . W_h^T -> dh.  The walk runs each
+// The sums depend only on the stored y, never on the dh recurrence, so
+// phase 1 (csrc/lstm_gates.cuh) computes every step's at once, or the
+// forward chain keeps the ones it formed (csrc/fwd_chain.cuh, K2 and K8a
+// where a backward is recorded); what is left serial is dh -> dgates ->
+// dgates . W_h^T -> dh.  Either way the array is [steps, B, dirs gates H]
+// f32 in this walk's order, row s holding walk step s.  The walk runs each
 // direction's forward order in reverse (step s at t = T-1-s for a
 // forward direction, whose previous frame is t-1; at t = s for a reverse
 // one, previous frame t+1).  At each step, for each (row, unit):
 //   - the gates, from the scratch (K10b: the pre-activation; K3, K6,
-//     K9b: the recurrent sum, to which the chain adds x_proj[t], the one
-//     addition the forward chain makes, so the gates equal the forward's
-//     bit for bit: the recompute invariant);
+//     K8b, K9b: the recurrent sum, to which the chain adds x_proj[t], the
+//     one addition the forward chain makes, so the gates equal the
+//     forward's bit for bit: the forward's own sums for K3 and K8b, the
+//     recompute invariant for the others);
 //   - dh_total = dy[t] + dh and the cell's gate math: the dgates written
 //     in the compute dtype, zero at pad frames;
 //   - the CTA's partial dh = dgates_own . W_h_own^T for every unit k, the
@@ -50,7 +55,8 @@
 // the launcher checks them and returns the CUDA error when they do not
 // fit.
 //
-// A walk may run in chunks of steps (a phase-1 scratch above 256 MiB):
+// A walk may run in chunks of steps (a phase-1 scratch above 256 MiB;
+// K3 and K8b read the forward's whole array in one walk):
 // the carries (dh, and the LSTM's dc) are read from and, unless the walk
 // ends, written to an f32 array [carries][dirs][B][H] (zeros before the
 // first step).
@@ -215,7 +221,8 @@ inline size_t bwd_chain_floats(int C, int R, int H, int gates, int words) {
 
 // Cell: LstmBwdCell or GruBwdCell; kPre: the scratch holds the
 // pre-activation; T: the compute dtype.  pre: phase 1's scratch [S, B,
-// dirs G] f32 (G = gates H; row s - s0 holds walk step s); xp: the
+// dirs G] f32 (G = gates H; row s - s0 holds walk step s), or the sums
+// the forward stored (K3, K8b: the whole walk, s0 = 0); xp: the
 // stored projection [T, B, dirs G] (unused with kPre); per direction (f,
 // b) the output cotangent dy [T, B, H], the cell's residual res, W_h [H,
 // G] and the outputs out, out2 [T, B, G]; state: the carries

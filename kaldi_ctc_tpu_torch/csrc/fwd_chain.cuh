@@ -40,7 +40,8 @@
 //   4. its slice of h[t], rounded to the compute dtype as the next
 //      operand, stored into every CTA's receive buffer of the other
 //      parity through DSMEM (cluster.map_shared_rank);
-//   5. one cluster barrier, split into arrive and wait.
+//   5. one cluster barrier, split into arrive and wait (a training
+//      forward stores step 1's sums between the two: below).
 // A buffer read at step s is written at step s + 1 only after the
 // barrier of step s, which every CTA reaches after its reads: one
 // barrier a step is enough.  ceil(B / R) x dirs clusters run in as many
@@ -51,6 +52,31 @@
 // A walk may run in chunks of steps (K10a's scratch above 256 MiB): h and
 // the state are read from and, unless the walk ends, written to an f32
 // array [2 (h, state)][dirs][B][H] (zeros before the first step).
+//
+// The recurrent sums as a training residual (K2 and K8a, the two kernels
+// whose backward runs on the backward chain of csrc/bwd_chain.cuh): with
+// a non-null `sums` the launcher takes the kernel's kStore instance,
+// which also stores the g_s values of every step, the sums of step s at
+// row steps-1-s of an f32 array [steps, B, dirs G] (direction dir at dir
+// G, gate q of unit j at q H + j).  That is the walk order of the
+// backward chain, whose step s' handles the forward direction at t =
+// T-1-s' and the backward one at t = s', so K3's and K8b's chain reads
+// it as K6's and K9b's reads its phase 1's scratch.  These are the sums
+// the gates were formed from, bit for bit, equal at every valid frame to
+// a recompute from the stored y in warp_dot's order.  At a pad frame of
+// the forward direction past its first (t > lens[b]) they are the sums
+// over the carried h, where a recompute would sum the stored y = 0; the
+// backward chain writes zero dgates there and carries nothing, so no
+// output depends on them.  The stores go out between the cluster
+// barrier's arrive and wait, from g_s, with one CTA barrier after the
+// wait before the next step writes g_s (on the H100 at T = 240, B = 48,
+// H = 320 in f32 K2 took 3% longer so, 5% with the stores in step 2-3,
+// 4% with them before the arrive; K8a 0.3%).  The wrappers pass the
+// pointer only where a backward is recorded (ops/rnn_cuda.py::
+// bilstm_layer, ops/gru_cuda.py::bigru_layer).  With null (inference;
+// every other kernel here has no kStore instance) the chain is the code
+// it was: a runtime branch in one instance instead cost K2 8% a step in
+// f32 with the pointer null.
 
 #pragma once
 
@@ -138,15 +164,17 @@ inline size_t fwd_chain_bytes(int C, int R, int H, int tsize, int gates) {
 // pre-activation's type; RT rows by 32 / RT columns a warp tile.  pre row
 // of (t, b): pre + ((t - t0) * B + b) * pre_stride + dir * gates H, gate q
 // of unit j at q * H + j.  cf, cb: the LSTM's c outputs (unused by a
-// cell that stores no state).
-template <typename Cell, typename T, typename P, int RT>
+// cell that stores no state).  kStore: `sums` is the recurrent sums'
+// residual [steps, B, dirs gates H] f32 in the backward's walk order (an
+// instance of its own, so the chain without it is the code it was).
+template <typename Cell, typename T, typename P, int RT, bool kStore = false>
 __device__ __forceinline__ void fwd_chain_body(
     const P* __restrict__ pre, int pre_stride, int t0f, int t0b,
     const T* __restrict__ whf, const T* __restrict__ whb,
     const int32_t* __restrict__ lens, T* __restrict__ yf,
     float* __restrict__ cf, T* __restrict__ yb, float* __restrict__ cb,
     float* __restrict__ state, int dirs, int s0, int S, int steps, int B,
-    int H, int R, int reverse) {
+    int H, int R, int reverse, float* __restrict__ sums) {
   constexpr int kG = Cell::kGates;
   constexpr int CT = 32 / RT;
   extern __shared__ __align__(16) unsigned char fwd_chain_smem[];
@@ -214,6 +242,20 @@ __device__ __forceinline__ void fwd_chain_body(
     }
   };
 
+  // kStore: step s's sums of this CTA, from g_s, at the backward's walk
+  // row steps-1-s; streamed, as only the backward reads them
+  auto store_sums = [&](int s) {
+    float* row = sums + (size_t)(steps - 1 - s) * B * dirs * G +
+                 (size_t)dir * G;
+    for (int e = threadIdx.x; e < ne; e += blockDim.x) {
+      const int r = e / n, jj = e % n;
+      float* o = row + (size_t)(r0 + r) * dirs * G + j0 + jj;
+      const float* g = g_s + r * ng + jj;
+#pragma unroll
+      for (int k = 0; k < kG; ++k) __stcs(o + k * H, g[k * n]);
+    }
+  };
+
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const int nwarps = blockDim.x >> 5;
@@ -271,15 +313,15 @@ __device__ __forceinline__ void fwd_chain_body(
       const float* g = g_s + r * ng;
       const P* src = pre_of(t, b) + j;
       // gate k: the recurrent sum and the step's projection
-      float sums[kG], xs[kG];
+      float s_k[kG], xs[kG];
 #pragma unroll
       for (int k = 0; k < kG; ++k) {
-        sums[k] = g[k * n + jj];
+        s_k[k] = g[k * n + jj];
         xs[k] = from_word(q[k], src + k * H);
       }
       const float s_prev = c_s[e];
       float s_new = s_prev;
-      const float h_new = Cell::step(sums, xs, s_new);
+      const float h_new = Cell::step(s_k, xs, s_new);
       const bool valid = t < lens_s[r];
       const float s_out = valid ? s_new : s_prev;
       c_s[e] = s_out;
@@ -290,7 +332,10 @@ __device__ __forceinline__ void fwd_chain_body(
       y[o] = from_f32<T>(valid ? h_new : 0.0f);
       if constexpr (Cell::kStoresState) cst[o] = s_out;
     }
-    if (i + 1 == S) break;
+    if (i + 1 == S) {
+      if constexpr (kStore) store_sums(s);
+      break;
+    }
     __syncthreads();
 
     // 4. this CTA's slice of h[t] into every CTA's next receive buffer
@@ -301,8 +346,13 @@ __device__ __forceinline__ void fwd_chain_body(
       cluster.map_shared_rank(next, to)[r * H + j0 + jj] = hl[r * hsz + jj];
     }
     // 5. one barrier; the next step's pre-activations are in after it
+    // (and, for a backward, the sums go out while the other CTAs arrive)
     cluster_arrive();
+    if constexpr (kStore) store_sums(s);
     cluster_wait();
+    // (the next step's tile loop writes g_s only after every thread's
+    // store_sums has read it)
+    if constexpr (kStore) __syncthreads();
     cp_async_wait_all();
   }
   if (s0 + S < steps) {   // the next chunk of steps takes the carries
@@ -317,16 +367,17 @@ __device__ __forceinline__ void fwd_chain_body(
 
 // Launch `kern` (a __global__ wrapper of fwd_chain_body with Cell) over
 // dirs x ceil(B / R) clusters of C CTAs: C a power of two <= 16, R >= 1,
-// the CTA's shared memory within the card's opt-in limit.
-template <typename Cell, typename T, typename P>
+// the CTA's shared memory within the card's opt-in limit.  `extra`: the
+// kernel's parameters after `reverse` (K2's and K8a's sums, or none).
+template <typename Cell, typename T, typename P, typename... Extra>
 cudaError_t fwd_chain_launch(
     void (*kern)(const P*, int, int, int, const T*, const T*, const int32_t*,
                  T*, float*, T*, float*, float*, int, int, int, int, int,
-                 int, int, int),
+                 int, int, int, Extra...),
     const void* pre, int pre_stride, int t0f, int t0b, const void* whf,
     const void* whb, const void* lens, void* yf, void* cf, void* yb,
     void* cb, void* state, int dirs, int s0, int S, int steps, int B, int H,
-    int C, int R, int reverse, void* stream) {
+    int C, int R, int reverse, void* stream, Extra... extra) {
   if (S <= 0 || B <= 0) return cudaGetLastError();
   if (C < 1 || C > kMaxChainCluster || (C & (C - 1)) != 0 || R < 1 ||
       H <= 0 || dirs < 1 || dirs > 2 || s0 < 0 || s0 + S > steps)
@@ -365,7 +416,8 @@ cudaError_t fwd_chain_launch(
       static_cast<const T*>(whf), static_cast<const T*>(whb),
       static_cast<const int32_t*>(lens), static_cast<T*>(yf),
       static_cast<float*>(cf), static_cast<T*>(yb), static_cast<float*>(cb),
-      static_cast<float*>(state), dirs, s0, S, steps, B, H, R, reverse);
+      static_cast<float*>(state), dirs, s0, S, steps, B, H, R, reverse,
+      extra...);
   if (e != cudaSuccess) return e;
   return cudaGetLastError();
 }

@@ -17,10 +17,15 @@
 // a forward direction (its previous frame is t-1), t = s for a reverse
 // one (its previous frame is t+1); both directions of K8b reach their
 // forward-first step at s = T-1.  At each step it
-//   - recomputes r, z, n and hn from x_proj[t] + y[prev] . W_h, with
-//     y[prev] as stored (the compute dtype, not the forward's f32 carry)
-//     and zero at the forward's first step, f32 sums: K9a's sums in K9a's
-//     order, so the gates equal the forward's;
+//   - forms r, z, n and hn from x_proj[t] and the recurrent sums
+//     y[prev] . W_h: K8b's cluster route reads the sums K8a stored while
+//     it ran (ops/gru_cuda.py::bigru_layer asks for them where a backward
+//     is recorded; an inference forward stores nothing), the values K8a
+//     formed its gates from; K9b and the
+//     cooperative routes recompute them with y[prev] as stored (the
+//     compute dtype, not the forward's f32 carry) and zero at the
+//     forward's first step, f32 sums in K9a's order, so the gates equal
+//     the forward's;
 //   - forms dh_total = dy + dh, dn = dh_total (1-z)(1-n^2),
 //     dz = dh_total (y[prev] - n) z (1-z), dr = dn hn r (1-r);
 //   - at valid frames carries dh = dgh . W_h^T + dh_total * z, with dgh
@@ -48,20 +53,20 @@
 //     chunks of steps, dh carried between them;
 //   - the cooperative route above that: gru_bwd_kernel, below.
 // K8b has the same two routes with both directions (ops/gru_cuda.py::
-// k8b_plan, the same plan with dirs 2), K3's split (csrc/bilstm_bwd.cu)
-// with the GRU cell:
-//   - the cluster route, to the same H: bigru_bwd_gates_tiled_kernel (H
-//     <= 426) or bigru_bwd_gates_kernel computes both directions' sums
-//     y[prev] . W_h of every step at once (BiWalkRows: the forward
-//     direction at t = T-1-s over y_f[t-1], the backward one at t = s over
-//     y_b[t+1], zeros at each one's forward-first step) into an f32
-//     scratch [S, B, 2 3H]; then bigru_bwd_chain_kernel (its own name, so
-//     a trace tells it from K9b's chain) walks both directions' dh chains,
-//     one cluster per (direction, R rows), reading xp at stride 6H and
-//     each direction's y[prev] residual.  Each direction's sums and cell
-//     are K9b's, so each equals K9b's chain on its operands bit for bit
-//     (rows never meet: R does not change a row's sums).  Any B; chunks
-//     of steps above a 256 MiB scratch, dh carried in state [1][2][B][H];
+// k8b_plan, the same plan with dirs 2), K3's (csrc/bilstm_bwd.cu) with the
+// GRU cell:
+//   - the cluster route, to the same H (K8a takes its cluster route there
+//     too): bigru_bwd_chain_kernel (its own name, so a trace tells it from
+//     K9b's chain) on the sums hr, hz, hn that K8a's cluster route stored,
+//     [T, B, 6H] f32 in this walk's order (row s: the forward direction's
+//     at t = T-1-s, the backward one's at t = s; csrc/fwd_chain.cuh), read
+//     whole in one launch.  It walks both directions' dh chains, one
+//     cluster per (direction, R rows), reading xp at stride 6H and each
+//     direction's y[prev] residual.  The sums are K8a's, which K9b's phase
+//     1 recomputes bit for bit from y (the recompute invariant), and the
+//     cell is K9b's, so each direction equals K9b's chain on its operands
+//     bit for bit at every valid frame (rows never meet: R does not change a row's
+//     sums).  Any B; state [1][2][B][H] holds each direction's dh;
 //   - the cooperative route (bigru_bwd_kernel) above that H.
 //
 // The cooperative design: K6's and K3's (csrc/lstm_bwd.cu,
@@ -357,8 +362,7 @@ int launch(bool bidirectional, const void* dy0, const void* dy1,
 
 template <typename T>
 __global__ void __launch_bounds__(kGateThreads)
-gru_bwd_gates_kernel(const T* __restrict__ y, const T*,
-                     const T* __restrict__ wh, const T*,
+gru_bwd_gates_kernel(const T* __restrict__ y, const T* __restrict__ wh,
                      float* __restrict__ pre, int s0, int S, int steps,
                      int B, int H, int cols, int reverse) {
   gates_warp_body<T, Sums::kRec>(nullptr, nullptr, wh, wh, pre, S * B, 0, H,
@@ -368,8 +372,8 @@ gru_bwd_gates_kernel(const T* __restrict__ y, const T*,
 
 template <typename T>
 __global__ void __launch_bounds__(kTileThreads, 1)
-gru_bwd_gates_tiled_kernel(const T* __restrict__ y, const T*,
-                           const T* __restrict__ wh, const T*,
+gru_bwd_gates_tiled_kernel(const T* __restrict__ y,
+                           const T* __restrict__ wh,
                            float* __restrict__ pre, int s0, int S, int steps,
                            int B, int H, int reverse) {
   gates_tiled_body<T, Sums::kRec>(nullptr, nullptr, wh, wh, pre, S * B, 0,
@@ -407,33 +411,9 @@ int chain_launch(const void* dy, const void* xp, const void* y,
 }
 
 // ---------------------------------------------------------------------------
-// K8b's cluster route: phase 1, both directions' recurrent sums of every
-// step at once, then the backward chain with both directions
+// K8b's cluster route: the backward chain with both directions on K8a's
+// stored recurrent sums
 // ---------------------------------------------------------------------------
-
-template <typename T>
-__global__ void __launch_bounds__(kGateThreads)
-bigru_bwd_gates_kernel(const T* __restrict__ yf, const T* __restrict__ yb,
-                       const T* __restrict__ whf, const T* __restrict__ whb,
-                       float* __restrict__ pre, int s0, int S, int steps,
-                       int B, int H, int cols, int) {
-  gates_warp_body<T, Sums::kRec>(nullptr, nullptr, whf, whb, pre, S * B, 0,
-                                 H, 3, 2, cols,
-                                 BiWalkRows<T>{yf, yb, s0, steps, B, H});
-}
-
-template <typename T>
-__global__ void __launch_bounds__(kTileThreads, 1)
-bigru_bwd_gates_tiled_kernel(const T* __restrict__ yf,
-                             const T* __restrict__ yb,
-                             const T* __restrict__ whf,
-                             const T* __restrict__ whb,
-                             float* __restrict__ pre, int s0, int S,
-                             int steps, int B, int H, int) {
-  gates_tiled_body<T, Sums::kRec>(nullptr, nullptr, whf, whb, pre, S * B, 0,
-                                  H, 3, 2,
-                                  BiWalkRows<T>{yf, yb, s0, steps, B, H});
-}
 
 template <typename T>
 __global__ void __launch_bounds__(kBwdChainThreads)
@@ -456,17 +436,17 @@ int bi_chain_launch(const void* dyf, const void* dyb, const void* xp,
                     const void* yf, const void* yb, const void* whf,
                     const void* whb, const void* lens, const void* pre,
                     void* dgxf, void* dghf, void* dgxb, void* dghb,
-                    void* state, int s0, int S, int steps, int B, int H,
-                    int C, int R, void* stream) {
+                    void* state, int steps, int B, int H, int C, int R,
+                    void* stream) {
   return bwd_chain_launch<GruBwdCell, false>(
-      bigru_bwd_chain_kernel<T>, C, 2, s0, S, steps, B, H, R, stream,
+      bigru_bwd_chain_kernel<T>, C, 2, 0, steps, steps, B, H, R, stream,
       static_cast<const T*>(dyf), static_cast<const T*>(dyb),
       static_cast<const T*>(xp), static_cast<const T*>(yf),
       static_cast<const T*>(yb), static_cast<const T*>(whf),
       static_cast<const T*>(whb), static_cast<const int32_t*>(lens),
       static_cast<const float*>(pre), static_cast<T*>(dgxf),
       static_cast<T*>(dghf), static_cast<T*>(dgxb), static_cast<T*>(dghb),
-      static_cast<float*>(state), s0, S, steps, B, H, R);
+      static_cast<float*>(state), 0, steps, steps, B, H, R);
 }
 
 }  // namespace
@@ -532,9 +512,9 @@ int gru_bwd_gates_f32(const void* y, const void* wh, void* pre, int s0,
                       int S, int steps, int B, int H, int cols, int reverse,
                       void* stream) {
   return rec_gates_launch<float>(gru_bwd_gates_tiled_kernel<float>,
-                                 gru_bwd_gates_kernel<float>, y, y, wh, wh,
-                                 pre, s0, S, steps, B, H, 3, 1, cols,
-                                 reverse, stream);
+                                 gru_bwd_gates_kernel<float>, y, wh, pre,
+                                 s0, S, steps, B, H, 3, cols, reverse,
+                                 stream);
 }
 
 int gru_bwd_gates_bf16(const void* y, const void* wh, void* pre, int s0,
@@ -542,8 +522,8 @@ int gru_bwd_gates_bf16(const void* y, const void* wh, void* pre, int s0,
                        void* stream) {
   return rec_gates_launch<__nv_bfloat16>(
       gru_bwd_gates_tiled_kernel<__nv_bfloat16>,
-      gru_bwd_gates_kernel<__nv_bfloat16>, y, y, wh, wh, pre, s0, S, steps,
-      B, H, 3, 1, cols, reverse, stream);
+      gru_bwd_gates_kernel<__nv_bfloat16>, y, wh, pre, s0, S, steps, B, H,
+      3, cols, reverse, stream);
 }
 
 // K9b's cluster route, phase 2 over the same steps: dy, x_proj, y, w_h in
@@ -590,56 +570,32 @@ int bigru_bwd_bf16(const void* dyf, const void* dyb, const void* xp,
                                stream);
 }
 
-// K8b's cluster route, phase 1 over walk steps s0 .. s0+S-1 of `steps`:
-// y_f, y_b [T, B, H] and w_h_f, w_h_b [H, 3H] in the compute dtype -> pre
-// [S, B, 6H] f32, row i the recurrent sums hr, hz, hn of step s0 + i of
-// both directions (the forward one at t = T-1-s over y_f[t-1], the
-// backward one at t = s over y_b[t+1]).  cols 0: the tiled kernel (H <=
-// 426); 1..32: the warp kernel with that many gate columns a block.
-int bigru_bwd_gates_f32(const void* yf, const void* yb, const void* whf,
-                        const void* whb, void* pre, int s0, int S, int steps,
-                        int B, int H, int cols, void* stream) {
-  return rec_gates_launch<float>(bigru_bwd_gates_tiled_kernel<float>,
-                                 bigru_bwd_gates_kernel<float>, yf, yb, whf,
-                                 whb, pre, s0, S, steps, B, H, 3, 2, cols, 0,
-                                 stream);
-}
-
-int bigru_bwd_gates_bf16(const void* yf, const void* yb, const void* whf,
-                         const void* whb, void* pre, int s0, int S,
-                         int steps, int B, int H, int cols, void* stream) {
-  return rec_gates_launch<__nv_bfloat16>(
-      bigru_bwd_gates_tiled_kernel<__nv_bfloat16>,
-      bigru_bwd_gates_kernel<__nv_bfloat16>, yf, yb, whf, whb, pre, s0, S,
-      steps, B, H, 3, 2, cols, 0, stream);
-}
-
-// K8b's cluster route, phase 2 over the same steps: dy_f, dy_b, xp [T, B,
-// 6H], y_f, y_b, w_h_f, w_h_b in the compute dtype, lens [B] int32, pre
-// from phase 1 -> dgx_f, dgh_f, dgx_b, dgh_b [T, B, 3H] at those steps'
-// frames; state [1][2][B][H] f32 holds each direction's dh on entry and,
-// unless the walk ends here, on exit.  C CTAs per cluster (a power of two
-// <= 16), R rows per cluster.
+// K8b's cluster route, the whole walk of `steps` steps: dy_f, dy_b, xp
+// [T, B, 6H], y_f, y_b, w_h_f, w_h_b in the compute dtype, lens [B] int32,
+// pre: the recurrent sums K8a stored ([T, B, 6H] f32, row s the sums of
+// walk step s) -> dgx_f, dgh_f, dgx_b, dgh_b [T, B, 3H]; state
+// [1][2][B][H] f32, zeros: each direction's dh carry.  C CTAs per cluster
+// (a power of two <= 16), R rows per cluster.
 int bigru_bwd_chain_f32(const void* dyf, const void* dyb, const void* xp,
                         const void* yf, const void* yb, const void* whf,
                         const void* whb, const void* lens, const void* pre,
                         void* dgxf, void* dghf, void* dgxb, void* dghb,
-                        void* state, int s0, int S, int steps, int B, int H,
-                        int C, int R, void* stream) {
+                        void* state, int steps, int B, int H, int C, int R,
+                        void* stream) {
   return bi_chain_launch<float>(dyf, dyb, xp, yf, yb, whf, whb, lens, pre,
-                                dgxf, dghf, dgxb, dghb, state, s0, S, steps,
-                                B, H, C, R, stream);
+                                dgxf, dghf, dgxb, dghb, state, steps, B, H, C,
+                                R, stream);
 }
 
 int bigru_bwd_chain_bf16(const void* dyf, const void* dyb, const void* xp,
                          const void* yf, const void* yb, const void* whf,
                          const void* whb, const void* lens, const void* pre,
                          void* dgxf, void* dghf, void* dgxb, void* dghb,
-                         void* state, int s0, int S, int steps, int B, int H,
-                         int C, int R, void* stream) {
+                         void* state, int steps, int B, int H, int C, int R,
+                         void* stream) {
   return bi_chain_launch<__nv_bfloat16>(dyf, dyb, xp, yf, yb, whf, whb, lens,
                                         pre, dgxf, dghf, dgxb, dghb, state,
-                                        s0, S, steps, B, H, C, R, stream);
+                                        steps, B, H, C, R, stream);
 }
 
 const char* kctpu_error_string(int err) {

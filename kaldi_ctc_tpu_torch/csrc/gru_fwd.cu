@@ -14,8 +14,9 @@
 //   r = sigmoid(xr + hr), z = sigmoid(xz + hz), n = tanh(xn + r * hn)
 //   h' = (1 - z) * n + z * h (the carry h in f32).
 // There is no recurrent bias.  A frame t >= lens[b] carries h and writes
-// y = 0.  Output: y [T, B, H] of each direction in the compute dtype, the
-// only residual (the backward kernels recompute the gates).
+// y = 0.  Output: y [T, B, H] of each direction in the compute dtype (and
+// K8a's optional recurrent sums, below); K9b and K8b's cooperative route
+// recompute the gates from y.
 //
 // What bounds it on the H100: the T serial steps.  A step is B GEMVs of
 // H x 3H = 307,200 MACs per direction at H = 320: a few microseconds of
@@ -35,7 +36,10 @@
 //     x_proj or xp directly.  Rows never meet, so each cluster of C CTAs
 //     walks one direction of a group of R rows with W_h in distributed
 //     shared memory and one cluster barrier a step: no grid barrier, any
-//     B;
+//     B.  Where a backward is recorded (training) K8a also keeps the
+//     recurrent sums of every step, f32, in K8b's walk order (csrc/
+//     fwd_chain.cuh says how), and K8b's cluster route reads them instead
+//     of recomputing them; inference passes null and stores nothing;
 //   - the cooperative route above that: gru_fwd_kernel (K9a) or
 //     bigru_fwd_kernel (K8a), below.
 //
@@ -59,9 +63,10 @@
 // slices.
 //
 // Every route sums in warp_dot's order (csrc/bilstm_cell.cuh), the order
-// K8b and K9b recompute the sums in, and does the gate math of one
-// function, gru_cell() of csrc/fwd_chain.cuh: K9a's two routes agree bit
-// for bit, and so do K8a's, each direction with K9a's on its half of xp.
+// K9b and K8b's cooperative route recompute the sums in, and does the gate
+// math of one function, gru_cell() of csrc/fwd_chain.cuh: K9a's two
+// routes agree bit for bit, and so do K8a's, each direction with K9a's on
+// its half of xp.
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
@@ -249,7 +254,7 @@ gru_fwd_chain_kernel(const T* pre, int pre_stride, int t0f, int t0b,
                      int reverse) {
   fwd_chain_body<GruCell, T, T, RT>(pre, pre_stride, t0f, t0b, whf, whb,
                                     lens, yf, cf, yb, cb, state, dirs, s0, S,
-                                    steps, B, H, R, reverse);
+                                    steps, B, H, R, reverse, nullptr);
 }
 
 template <typename T>
@@ -266,30 +271,39 @@ int chain_launch(const void* xp, const void* wh, const void* lens, void* y,
 }
 
 // K8a's cluster route: the forward chain with the GRU cell, both
-// directions on xp [T, B, 6H] (the forward direction's 3H first)
-template <typename T, int RT>
+// directions on xp [T, B, 6H] (the forward direction's 3H first); kStore:
+// keep the recurrent sums in `sums` for K8b
+template <typename T, int RT, bool kStore>
 __global__ void __launch_bounds__(kChainFwdThreads)
 bigru_fwd_chain_kernel(const T* pre, int pre_stride, int t0f, int t0b,
                        const T* whf, const T* whb, const int32_t* lens,
                        T* yf, float* cf, T* yb, float* cb, float* state,
                        int dirs, int s0, int S, int steps, int B, int H,
-                       int R, int reverse) {
-  fwd_chain_body<GruCell, T, T, RT>(pre, pre_stride, t0f, t0b, whf, whb,
-                                    lens, yf, cf, yb, cb, state, dirs, s0, S,
-                                    steps, B, H, R, reverse);
+                       int R, int reverse, float* sums) {
+  fwd_chain_body<GruCell, T, T, RT, kStore>(
+      pre, pre_stride, t0f, t0b, whf, whb, lens, yf, cf, yb, cb, state, dirs,
+      s0, S, steps, B, H, R, reverse, sums);
+}
+
+template <typename T, bool kStore>
+auto bichain_kernel(int R) {
+  return R >= 4 ? &bigru_fwd_chain_kernel<T, 4, kStore>
+         : R >= 2 ? &bigru_fwd_chain_kernel<T, 2, kStore>
+                  : &bigru_fwd_chain_kernel<T, 1, kStore>;
 }
 
 template <typename T>
 int bichain_launch(const void* xp, const void* whf, const void* whb,
                    const void* lens, void* yf, void* yb, void* state,
-                   int steps, int B, int H, int C, int R, void* stream) {
-  auto kern = R >= 4 ? &bigru_fwd_chain_kernel<T, 4>
-              : R >= 2 ? &bigru_fwd_chain_kernel<T, 2>
-                       : &bigru_fwd_chain_kernel<T, 1>;
+                   void* sums, int steps, int B, int H, int C, int R,
+                   void* stream) {
+  auto kern = sums != nullptr ? bichain_kernel<T, true>(R)
+                              : bichain_kernel<T, false>(R);
   return fwd_chain_launch<GruCell, T, T>(kern, xp, 6 * H, 0, 0, whf, whb,
                                          lens, yf, nullptr, yb, nullptr,
                                          state, 2, 0, steps, steps, B, H, C,
-                                         R, 0, stream);
+                                         R, 0, stream,
+                                         static_cast<float*>(sums));
 }
 
 }  // namespace
@@ -349,21 +363,25 @@ int gru_fwd_chain_bf16(const void* xp, const void* wh, const void* lens,
 // K8a's cluster route: xp [T, B, 6H] and w_h_f, w_h_b [H, 3H] in the
 // compute dtype, lens [B] int32 -> y_f, y_b [T, B, H] in the compute
 // dtype; state [2 (h, h)][2 directions][B][H] f32 zeroed by the caller (the
-// operand's h and the cell's f32 carry).  C CTAs per cluster (a power of
-// two <= 16), R rows per cluster.
+// operand's h and the cell's f32 carry).  sums: null, or [T, B, 6H] f32
+// for the recurrent sums hr, hz, hn of every step in the backward's walk
+// order (row s: the forward direction's at t = T-1-s, the backward
+// direction's at t = s), which K8b's cluster route reads.  C CTAs per
+// cluster (a power of two <= 16), R rows per cluster.
 int bigru_fwd_chain_f32(const void* xp, const void* whf, const void* whb,
                         const void* lens, void* yf, void* yb, void* state,
-                        int steps, int B, int H, int C, int R, void* stream) {
-  return bichain_launch<float>(xp, whf, whb, lens, yf, yb, state, steps, B,
-                               H, C, R, stream);
+                        void* sums, int steps, int B, int H, int C, int R,
+                        void* stream) {
+  return bichain_launch<float>(xp, whf, whb, lens, yf, yb, state, sums,
+                               steps, B, H, C, R, stream);
 }
 
 int bigru_fwd_chain_bf16(const void* xp, const void* whf, const void* whb,
                          const void* lens, void* yf, void* yb, void* state,
-                         int steps, int B, int H, int C, int R,
+                         void* sums, int steps, int B, int H, int C, int R,
                          void* stream) {
   return bichain_launch<__nv_bfloat16>(xp, whf, whb, lens, yf, yb, state,
-                                       steps, B, H, C, R, stream);
+                                       sums, steps, B, H, C, R, stream);
 }
 
 // K8a's cooperative route.  hbuf: [2 parities][2 directions][B][H] f32,

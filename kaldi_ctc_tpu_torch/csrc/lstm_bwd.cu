@@ -294,8 +294,7 @@ int launch(const void* dy, const void* xp, const void* y, const void* cst,
 
 template <typename T>
 __global__ void __launch_bounds__(kGateThreads)
-lstm_bwd_gates_kernel(const T* __restrict__ y, const T*,
-                      const T* __restrict__ wh, const T*,
+lstm_bwd_gates_kernel(const T* __restrict__ y, const T* __restrict__ wh,
                       float* __restrict__ pre, int s0, int S, int steps,
                       int B, int H, int cols, int reverse) {
   gates_warp_body<T, Sums::kRec>(nullptr, nullptr, wh, wh, pre, S * B, 0, H,
@@ -305,8 +304,8 @@ lstm_bwd_gates_kernel(const T* __restrict__ y, const T*,
 
 template <typename T>
 __global__ void __launch_bounds__(kTileThreads, 1)
-lstm_bwd_gates_tiled_kernel(const T* __restrict__ y, const T*,
-                            const T* __restrict__ wh, const T*,
+lstm_bwd_gates_tiled_kernel(const T* __restrict__ y,
+                            const T* __restrict__ wh,
                             float* __restrict__ pre, int s0, int S,
                             int steps, int B, int H, int reverse) {
   gates_tiled_body<T, Sums::kRec>(nullptr, nullptr, wh, wh, pre, S * B, 0,
@@ -398,9 +397,9 @@ int lstm_bwd_gates_f32(const void* y, const void* wh, void* pre, int s0,
                        int S, int steps, int B, int H, int cols, int reverse,
                        void* stream) {
   return rec_gates_launch<float>(lstm_bwd_gates_tiled_kernel<float>,
-                                 lstm_bwd_gates_kernel<float>, y, y, wh, wh,
-                                 pre, s0, S, steps, B, H, 4, 1, cols,
-                                 reverse, stream);
+                                 lstm_bwd_gates_kernel<float>, y, wh, pre,
+                                 s0, S, steps, B, H, 4, cols, reverse,
+                                 stream);
 }
 
 int lstm_bwd_gates_bf16(const void* y, const void* wh, void* pre, int s0,
@@ -408,8 +407,8 @@ int lstm_bwd_gates_bf16(const void* y, const void* wh, void* pre, int s0,
                         int reverse, void* stream) {
   return rec_gates_launch<__nv_bfloat16>(
       lstm_bwd_gates_tiled_kernel<__nv_bfloat16>,
-      lstm_bwd_gates_kernel<__nv_bfloat16>, y, y, wh, wh, pre, s0, S, steps,
-      B, H, 4, 1, cols, reverse, stream);
+      lstm_bwd_gates_kernel<__nv_bfloat16>, y, wh, pre, s0, S, steps, B, H,
+      4, cols, reverse, stream);
 }
 
 // The cluster route's phase 2 over the same steps: dy, x_proj, w_h in the

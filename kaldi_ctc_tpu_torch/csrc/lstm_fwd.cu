@@ -207,7 +207,7 @@ lstm_fwd_chain_kernel(const T* pre, int pre_stride, int t0f, int t0b,
                       int reverse) {
   fwd_chain_body<LstmCell, T, T, RT>(pre, pre_stride, t0f, t0b, whf, whb,
                                      lens, yf, cf, yb, cb, state, dirs, s0,
-                                     S, steps, B, H, R, reverse);
+                                     S, steps, B, H, R, reverse, nullptr);
 }
 
 template <typename T>

@@ -1,14 +1,15 @@
 // Gate sums of many (step, batch row) pairs at once, parallel over the
-// steps: phase 1 of K10b and K3 (csrc/bilstm_bwd.cu), of K10a
+// steps: phase 1 of K10b (csrc/bilstm_bwd.cu), of K10a
 // (csrc/bilstm_fwd.cu) and of K6 and K9b (csrc/lstm_bwd.cu,
-// csrc/gru_bwd.cu).
+// csrc/gru_bwd.cu).  (K3 and K8b have no phase 1: their backward chain
+// reads the sums K2 and K8a stored, csrc/fwd_chain.cuh.)
 //
 // What a kernel sums per (row, gate column) is a template argument
 // (Sums): K10b's phase 1 recomputes the forward's gate pre-activations,
 // the projection of x[t] plus the recurrent sum over the stored y[t-+1]
 // (kProjRec); K10a's phase 1 computes the projection alone (kProj), which
-// its forward chain (csrc/fwd_chain.cuh) adds to the recurrent sum; K3's,
-// K6's and K9b's phase 1 the recurrent sum alone (kRec), to which their
+// its forward chain (csrc/fwd_chain.cuh) adds to the recurrent sum; K6's
+// and K9b's phase 1 the recurrent sum alone (kRec), to which their
 // backward chain (csrc/bwd_chain.cuh) adds the stored projection x_proj,
 // as the forward chain does.  All run the bodies below, so the
 // projection K10a's chain reads is the one K10b recomputes, bit for bit
@@ -57,7 +58,7 @@ constexpr int kTileStride = 68;       // floats a k, rows or columns
 
 // what a phase-1 kernel sums per (row, gate column): the projection
 // alone (K10a), the recurrent sum plus the projection (K10b), the
-// recurrent sum alone (K3, K6, K9b)
+// recurrent sum alone (K6, K9b)
 enum class Sums { kProj, kProjRec, kRec };
 
 // shared memory of a warp-kernel block of `cols` gate columns: their W_x
@@ -299,48 +300,25 @@ struct UniWalkRows {
   }
 };
 
-// K3's rows (both directions): row r of a chunk is walk step s0 + r / B,
-// batch row r % B; the forward direction at t = T-1-s reads y_f[t-1], the
-// backward direction at t = s reads y_b[t+1], and each reads zeros (null)
-// at its first forward step, s = T-1
+// The recurrent sums alone of walk steps s0 .. s0+S-1 of one direction
+// (K6's and K9b's phase 1, `gates` gate columns a unit): the tiled
+// kernel `tiled` where cols is 0, else the warp kernel `warp` with cols
+// gate columns a block.  Each kernel takes y, W_h and `reverse`, the
+// direction's forward order.
 template <typename T>
-struct BiWalkRows {
-  const T* yf;
-  const T* yb;
-  int s0, steps, B, H;
-  __device__ __forceinline__ void operator()(int dir, int r, const T*&,
-                                             const T*& yr) const {
-    const int s = s0 + r / B;
-    if (s == steps - 1) return;
-    yr = dir == 0 ? yf + ((size_t)(steps - 2 - s) * B + r % B) * H
-                  : yb + ((size_t)(s + 1) * B + r % B) * H;
-  }
-};
-
-// The recurrent sums alone of walk steps s0 .. s0+S-1 of `dirs`
-// directions (K3's, K6's and K9b's phase 1, `gates` gate columns a unit):
-// the tiled kernel `tiled` where cols is 0, else the warp kernel `warp`
-// with cols gate columns a block.  Each kernel takes both directions' y
-// and W_h (one direction: the same twice) and `reverse`, the forward's
-// direction of one direction.
-template <typename T>
-int rec_gates_launch(void (*tiled)(const T*, const T*, const T*, const T*,
-                                   float*, int, int, int, int, int, int),
-                     void (*warp)(const T*, const T*, const T*, const T*,
-                                  float*, int, int, int, int, int, int, int),
-                     const void* yf, const void* yb, const void* whf,
-                     const void* whb, void* pre, int s0, int S, int steps,
-                     int B, int H, int gates, int dirs, int cols, int reverse,
-                     void* stream) {
+int rec_gates_launch(void (*tiled)(const T*, const T*, float*, int, int, int,
+                                   int, int, int),
+                     void (*warp)(const T*, const T*, float*, int, int, int,
+                                  int, int, int, int),
+                     const void* y, const void* wh, void* pre, int s0, int S,
+                     int steps, int B, int H, int gates, int cols,
+                     int reverse, void* stream) {
   if (S <= 0 || B <= 0) return cudaGetLastError();
-  if (s0 < 0 || s0 + S > steps || H <= 0 || cols < 0 ||
-      cols > kMaxGateCols || dirs < 1 || dirs > 2)
+  if (s0 < 0 || s0 + S > steps || H <= 0 || cols < 0 || cols > kMaxGateCols)
     return cudaErrorInvalidValue;
   const long long rows = (long long)S * B;
-  const T* a_yf = static_cast<const T*>(yf);
-  const T* a_yb = static_cast<const T*>(yb);
-  const T* a_whf = static_cast<const T*>(whf);
-  const T* a_whb = static_cast<const T*>(whb);
+  const T* a_y = static_cast<const T*>(y);
+  const T* a_wh = static_cast<const T*>(wh);
   float* a_pre = static_cast<float*>(pre);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   int sms = 0;
@@ -348,16 +326,14 @@ int rec_gates_launch(void (*tiled)(const T*, const T*, const T*, const T*,
     const size_t smem = gates_tiled_smem(0, H);
     cudaError_t e = gates_prepare((const void*)tiled, smem, &sms);
     if (e != cudaSuccess) return e;
-    tiled<<<gates_tiled_grid(rows, gates * H, dirs, sms), kTileThreads, smem,
-            st>>>(a_yf, a_yb, a_whf, a_whb, a_pre, s0, S, steps, B, H,
-                  reverse);
+    tiled<<<gates_tiled_grid(rows, gates * H, 1, sms), kTileThreads, smem,
+            st>>>(a_y, a_wh, a_pre, s0, S, steps, B, H, reverse);
   } else {
     const size_t smem = gates_smem(cols, 0, H);
     cudaError_t e = gates_prepare((const void*)warp, smem, &sms);
     if (e != cudaSuccess) return e;
-    warp<<<gates_warp_grid(rows, gates * H, dirs, cols), kGateThreads, smem,
-           st>>>(a_yf, a_yb, a_whf, a_whb, a_pre, s0, S, steps, B, H, cols,
-                 reverse);
+    warp<<<gates_warp_grid(rows, gates * H, 1, cols), kGateThreads, smem,
+           st>>>(a_y, a_wh, a_pre, s0, S, steps, B, H, cols, reverse);
   }
   return cudaGetLastError();
 }

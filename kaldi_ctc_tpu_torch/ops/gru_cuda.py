@@ -17,13 +17,15 @@ the forward chain in thread-block clusters (``csrc/fwd_chain.cuh`` with
 the GRU cell; any B, one launch) where W_h fits a cluster, else the
 cooperative kernel in row slices.  K9b's and K8b's come from
 ``rnn_cuda.bwd_chain_plan`` with three gates and one or two directions:
-every step's recurrent sums at once, then the backward chain in clusters
-(``csrc/bwd_chain.cuh`` with the GRU cell; any B), else the cooperative
-kernel in row slices.
+the backward chain in clusters (``csrc/bwd_chain.cuh`` with the GRU cell;
+any B) after K9b's phase 1, every step's recurrent sums at once, or, for
+K8b, on the sums K8a stored, which :func:`bigru_layer` asks K8a for where
+a backward is recorded; else the cooperative kernel in row slices.
 
 The cell is cuDNN's linear-before-reset GRU (``ops.rnn._gru_gates``, gate
-order r, z, n, no recurrent bias).  The forward writes y only; the
-backward recomputes the gates from ``x_proj[t] + y[prev] · W_h`` and emits
+order r, z, n, no recurrent bias).  The forward writes y (and, for K8b,
+its recurrent sums); the backward forms the gates from ``x_proj[t] +
+y[prev] · W_h`` (the forward's sums, or recomputed) and emits
 two gate cotangents: ``dgx`` (the projection's) and ``dgh`` (its n block
 scaled by r; the recurrent product's, for dW_h and the dh carry).  Under
 bfloat16 the shipped default of the JAX package's ``_bf16_cfg`` holds:
@@ -41,15 +43,15 @@ import torch
 from kaldi_ctc_tpu_torch import _kernels
 from kaldi_ctc_tpu_torch.ops.rnn import (COMPUTE_DTYPES, _gru_gates, _valid,
                                          matmul_f32acc)
-from kaldi_ctc_tpu_torch.ops.rnn_cuda import (_BI_GATES_ARGS, _I, _P,
-                                              _REC_GATES_ARGS, _SUFFIX,
-                                              BwdChainPlan,
+from kaldi_ctc_tpu_torch.ops.rnn_cuda import (_I, _P, _REC_GATES_ARGS,
+                                              _SUFFIX, BwdChainPlan,
                                               FwdChainPlan, _check_lens,
                                               _check_tensors, _check_x_proj,
-                                              _dw_h, _scratch_steps,
-                                              _sm_count, _smem_optin,
-                                              bwd_chain_plan, fwd_chain_plan,
-                                              max_rows, run_in_row_slices)
+                                              _dw_h, _records_backward,
+                                              _scratch_steps, _sm_count,
+                                              _smem_optin, bwd_chain_plan,
+                                              fwd_chain_plan, max_rows,
+                                              run_in_row_slices)
 from kaldi_ctc_tpu_torch.utils import profiling
 
 __all__ = ["gru_seq_fwd", "gru_seq_fwd_reference", "gru_seq_bwd_dgates",
@@ -65,8 +67,8 @@ _FWD_SIGNATURES = {"gru_fwd_f32": [_P] * 5 + [_I] * 4 + [_P],
                    "gru_fwd_smem_optin": [],
                    "bigru_fwd_f32": [_P] * 7 + [_I] * 3 + [_P],
                    "bigru_fwd_bf16": [_P] * 7 + [_I] * 3 + [_P],
-                   "bigru_fwd_chain_f32": [_P] * 7 + [_I] * 5 + [_P],
-                   "bigru_fwd_chain_bf16": [_P] * 7 + [_I] * 5 + [_P]}
+                   "bigru_fwd_chain_f32": [_P] * 8 + [_I] * 5 + [_P],
+                   "bigru_fwd_chain_bf16": [_P] * 8 + [_I] * 5 + [_P]}
 _BWD_SIGNATURES = {"gru_bwd_f32": [_P] * 8 + [_I] * 4 + [_P],
                    "gru_bwd_bf16": [_P] * 8 + [_I] * 4 + [_P],
                    "bigru_bwd_f32": [_P] * 13 + [_I] * 3 + [_P],
@@ -77,10 +79,8 @@ _BWD_SIGNATURES = {"gru_bwd_f32": [_P] * 8 + [_I] * 4 + [_P],
                    "gru_bwd_gates_bf16": _REC_GATES_ARGS,
                    "gru_bwd_chain_f32": [_P] * 9 + [_I] * 8 + [_P],
                    "gru_bwd_chain_bf16": [_P] * 9 + [_I] * 8 + [_P],
-                   "bigru_bwd_gates_f32": _BI_GATES_ARGS,
-                   "bigru_bwd_gates_bf16": _BI_GATES_ARGS,
-                   "bigru_bwd_chain_f32": [_P] * 14 + [_I] * 7 + [_P],
-                   "bigru_bwd_chain_bf16": [_P] * 14 + [_I] * 7 + [_P]}
+                   "bigru_bwd_chain_f32": [_P] * 14 + [_I] * 5 + [_P],
+                   "bigru_bwd_chain_bf16": [_P] * 14 + [_I] * 5 + [_P]}
 # each source's batch-ceiling queries, one per kernel and dtype
 _FWD_SIGNATURES.update({f"{k}_fwd_max_rows_{sfx}": [_I]
                         for k in ("gru", "bigru") for sfx in _SUFFIX.values()})
@@ -421,28 +421,41 @@ def gru_sequence(x_proj: torch.Tensor, w_h: torch.Tensor, lens: torch.Tensor,
 
 def bigru_seq_fwd_reference(xp: torch.Tensor, w_h_f: torch.Tensor,
                             w_h_b: torch.Tensor, lens: torch.Tensor,
-                            y_dtype: Optional[torch.dtype] = None) -> Pair:
+                            y_dtype: Optional[torch.dtype] = None,
+                            store_sums: bool = False):
     """Plain PyTorch version of :func:`bigru_seq_fwd` on any device: the
-    forward direction at t = s, the backward direction at t = T-1-s."""
+    forward direction at t = s, the backward direction at t = T-1-s.  It
+    keeps no sums: with ``store_sums`` the third output is None (its
+    backward recomputes them)."""
     g3 = xp.shape[2] // 2
     y_dtype = xp.dtype if y_dtype is None else y_dtype
-    return (_fwd_loop(xp[..., :g3], w_h_f, lens, False, y_dtype),
-            _fwd_loop(xp[..., g3:], w_h_b, lens, True, y_dtype))
+    return ((_fwd_loop(xp[..., :g3], w_h_f, lens, False, y_dtype),
+             _fwd_loop(xp[..., g3:], w_h_b, lens, True, y_dtype))
+            + ((None,) if store_sums else ()))
 
 
 def bigru_seq_fwd(xp: torch.Tensor, w_h_f: torch.Tensor, w_h_b: torch.Tensor,
-                  lens: torch.Tensor, y_dtype: Optional[torch.dtype] = None
-                  ) -> Pair:
+                  lens: torch.Tensor, y_dtype: Optional[torch.dtype] = None,
+                  store_sums: bool = False):
     """xp [T, B, 6H] fused projection (forward half first, compute dtype),
     w_h_f / w_h_b [H, 3H] in the compute dtype, lens [B] → (y_f, y_b)
     [T, B, H] in y_dtype (default xp's).  The contract of
     ``_bigru_seq_fwd``.  On the card the route is :func:`k8a_plan`'s,
     from the shapes: both directions' forward chains in thread-block
     clusters (any B, one launch) where W_h fits a cluster, else the
-    cooperative kernel in row slices."""
+    cooperative kernel in row slices.
+
+    ``store_sums`` (a backward will follow: :func:`bigru_layer` under
+    autograd) appends a third output, the recurrent sums hr, hz, hn the
+    cluster route formed its gates from, [T, B, 6H] f32 in K8b's walk
+    order (row s: the forward direction's at t = T-1-s, the backward
+    one's at t = s), for :func:`bigru_seq_bwd_dgates`; None where nothing
+    was stored (the plain version, the cooperative route).  Counter
+    ``store_launches``: the forwards that stored them."""
     y_dtype = xp.dtype if y_dtype is None else y_dtype
     if xp.device.type == "cpu":
-        return bigru_seq_fwd_reference(xp, w_h_f, w_h_b, lens, y_dtype)
+        return bigru_seq_fwd_reference(xp, w_h_f, w_h_b, lens, y_dtype,
+                                       store_sums)
     if xp.device.type != "cuda":
         raise ValueError(f"bigru_seq_fwd: unsupported device {xp.device}")
     h = _check_x_proj("bigru_seq_fwd", xp, 6)
@@ -457,15 +470,21 @@ def bigru_seq_fwd(xp: torch.Tensor, w_h_f: torch.Tensor, w_h_b: torch.Tensor,
         "w_h_b": (w_h_b, xp.dtype, (h, 3 * h))})
     _check_lens("bigru_seq_fwd", lens, b, dev)
     if t_max == 0 or b == 0:
-        return tuple(torch.empty((t_max, b, h), dtype=y_dtype, device=dev)
-                     for _ in range(2))
+        out = tuple(torch.empty((t_max, b, h), dtype=y_dtype, device=dev)
+                    for _ in range(2))
+        return out + (None,) if store_sums else out
     lib = _kernels.load("gru_fwd", _FWD_SIGNATURES)
     plan = k8a_plan(lib, b, h, xp.dtype, dev)
     lens32 = lens.to(torch.int32).contiguous()
     if plan.route == "cluster":
-        out = _bigru_fwd_chain(lib, xp, w_h_f, w_h_b, lens32, plan)
+        out = _bigru_fwd_chain(lib, xp, w_h_f, w_h_b, lens32, plan,
+                               store_sums)
+        if store_sums:
+            bigru_seq_fwd.store_launches += 1
     else:
         out = _bigru_fwd_cooperative(lib, xp, w_h_f, w_h_b, lens32)
+        if store_sums:
+            out += (None,)
     bigru_seq_fwd.launches += 1
     return out
 
@@ -481,9 +500,10 @@ def k8a_plan(lib, b: int, h: int, dtype: torch.dtype, device
 
 def _bigru_fwd_chain(lib, xp: torch.Tensor, w_h_f: torch.Tensor,
                      w_h_b: torch.Tensor, lens32: torch.Tensor,
-                     plan: FwdChainPlan) -> Pair:
+                     plan: FwdChainPlan, store_sums: bool = False):
     """K8a's cluster route (``bigru_fwd_chain_*``, one launch for any B) on
-    checked operands."""
+    checked operands; with ``store_sums`` the recurrent sums [T, B, 6H]
+    f32 in K8b's walk order are a third output."""
     t_max, b, g6 = xp.shape
     h = g6 // 6
     dev = xp.device
@@ -491,12 +511,15 @@ def _bigru_fwd_chain(lib, xp: torch.Tensor, w_h_f: torch.Tensor,
     y_b = torch.empty_like(y_f)
     # the initial h of each direction: the operand's and the cell's carry
     state = torch.zeros((2, 2, b, h), dtype=torch.float32, device=dev)
+    sums = (torch.empty((t_max, b, g6), dtype=torch.float32, device=dev)
+            if store_sums else None)
     err = getattr(lib, "bigru_fwd_chain_" + _SUFFIX[xp.dtype])(
         xp.data_ptr(), w_h_f.data_ptr(), w_h_b.data_ptr(), lens32.data_ptr(),
-        y_f.data_ptr(), y_b.data_ptr(), state.data_ptr(), t_max, b, h,
+        y_f.data_ptr(), y_b.data_ptr(), state.data_ptr(),
+        None if sums is None else sums.data_ptr(), t_max, b, h,
         plan.cluster, plan.rows, _kernels.stream_ptr(dev))
     _kernels.check(lib, err, f"bigru_seq_fwd at T={t_max}, B={b}, {plan}")
-    return y_f, y_b
+    return (y_f, y_b, sums) if store_sums else (y_f, y_b)
 
 
 def _bigru_fwd_cooperative(lib, xp: torch.Tensor, w_h_f: torch.Tensor,
@@ -528,6 +551,8 @@ def _bigru_fwd_cooperative(lib, xp: torch.Tensor, w_h_f: torch.Tensor,
 
 
 bigru_seq_fwd.launches = 0  # kernel launches made by this wrapper
+# of those, the ones that kept the recurrent sums for the backward
+bigru_seq_fwd.store_launches = 0
 
 
 Quad = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]
@@ -537,10 +562,12 @@ def bigru_seq_bwd_dgates_reference(
         dy_f: torch.Tensor, dy_b: torch.Tensor, xp: torch.Tensor,
         y_f: torch.Tensor, y_b: torch.Tensor, w_h_f: torch.Tensor,
         w_h_b: torch.Tensor, lens: torch.Tensor,
-        dg_dtype: Optional[torch.dtype] = None) -> Quad:
+        dg_dtype: Optional[torch.dtype] = None,
+        sums: Optional[torch.Tensor] = None) -> Quad:
     """Plain PyTorch version of :func:`bigru_seq_bwd_dgates` on any
     device: the forward direction at t = T-1-s, the backward direction at
-    t = s (``_bibwd_kernel``)."""
+    t = s (``_bibwd_kernel``).  It recomputes the gates from y and leaves
+    ``sums`` unread."""
     g3 = xp.shape[2] // 2
     dg_dtype = xp.dtype if dg_dtype is None else dg_dtype
     return (_bwd_loop(dy_f, xp[..., :g3], y_f, w_h_f, lens, False, dg_dtype)
@@ -552,17 +579,24 @@ def bigru_seq_bwd_dgates(dy_f: torch.Tensor, dy_b: torch.Tensor,
                          xp: torch.Tensor, y_f: torch.Tensor,
                          y_b: torch.Tensor, w_h_f: torch.Tensor,
                          w_h_b: torch.Tensor, lens: torch.Tensor,
-                         dg_dtype: Optional[torch.dtype] = None) -> Quad:
+                         dg_dtype: Optional[torch.dtype] = None,
+                         sums: Optional[torch.Tensor] = None) -> Quad:
     """Output cotangents dy_f / dy_b [T, B, H] and the forward's
     residuals (xp [T, B, 6H], y_f / y_b [T, B, H], w_h_f / w_h_b [H, 3H],
     all in the compute dtype, lens [B]) → (dgx_f, dgh_f, dgx_b, dgh_b)
     [T, B, 3H] in dg_dtype (default xp's).  The contract of
     ``_bigru_seq_bwd_dgates``.  On the card the route is
-    :func:`k8b_plan`'s, from the shapes: phase 1 (both directions'
-    recurrent sums of every step at once) and the backward chain with both
-    directions in thread-block clusters (any B, chunks of steps above a
-    256 MiB scratch) where W_h fits a cluster, else the cooperative kernel
-    in row slices."""
+    :func:`k8b_plan`'s, from the shapes: where W_h fits a cluster, the
+    backward chain with both directions in thread-block clusters (any B,
+    one launch) on the recurrent sums the forward formed its gates from,
+    ``sums`` of :func:`bigru_seq_fwd` with ``store_sums`` ([T, B, 6H] f32,
+    K8b's walk order; no recompute, and the gates are the forward's bit
+    for bit), which that route requires (a ValueError without them); else
+    the cooperative kernel in row slices, which recomputes the sums from
+    y and ignores ``sums``.  :func:`bigru_layer` passes them where
+    autograd records a backward (an inference forward keeps none; K8a
+    takes its cluster route wherever this one does).  Counter
+    ``stored_launches``: the calls that read the forward's sums."""
     dg_dtype = xp.dtype if dg_dtype is None else dg_dtype
     if xp.device.type == "cpu":
         return bigru_seq_bwd_dgates_reference(dy_f, dy_b, xp, y_f, y_b,
@@ -593,7 +627,14 @@ def bigru_seq_bwd_dgates(dy_f: torch.Tensor, dy_b: torch.Tensor,
     ops = (dy_f, dy_b, xp, y_f, y_b, w_h_f, w_h_b,
            lens.to(torch.int32).contiguous())
     if plan.route == "cluster":
-        out = _bigru_bwd_chain(lib, *ops, plan)
+        if sums is None:
+            raise ValueError("bigru_seq_bwd_dgates: the cluster route reads "
+                             "the recurrent sums of bigru_seq_fwd with "
+                             "store_sums=True; none were passed")
+        _check_tensors("bigru_seq_bwd_dgates", dev, {
+            "sums": (sums, torch.float32, (t_max, b, g6))})
+        bigru_seq_bwd_dgates.stored_launches += 1
+        out = _bigru_bwd_chain(lib, *ops, sums, plan)
     else:
         out = _bigru_bwd_cooperative(lib, *ops)
     bigru_seq_bwd_dgates.launches += 1
@@ -609,56 +650,25 @@ def k8b_plan(lib, b: int, h: int, dtype: torch.dtype, device
                           gates=3)
 
 
-def _k8b_gates(lib, y_f, y_b, w_h_f, w_h_b, pre: torch.Tensor, s0: int,
-               n: int, plan: BwdChainPlan) -> None:
-    """K8b's phase 1 for walk steps s0 .. s0+n-1: both directions'
-    recurrent sums into pre[:n]."""
-    t_max, b, h = y_f.shape
-    err = getattr(lib, "bigru_bwd_gates_" + _SUFFIX[y_f.dtype])(
-        y_f.data_ptr(), y_b.data_ptr(), w_h_f.data_ptr(), w_h_b.data_ptr(),
-        pre.data_ptr(), s0, n, t_max, b, h, plan.gate_cols,
-        _kernels.stream_ptr(y_f.device))
-    _kernels.check(lib, err, f"bigru_seq_bwd_dgates phase 1 at T={t_max}, "
-                             f"B={b}, {plan}")
-
-
-def _k8b_chain(lib, dy_f, dy_b, xp, y_f, y_b, w_h_f, w_h_b,
-               lens32: torch.Tensor, pre: torch.Tensor, outs: Quad,
-               state: torch.Tensor, s0: int, n: int,
-               plan: BwdChainPlan) -> None:
-    """K8b's phase 2 for the same steps: both directions' dh chains in
-    clusters, (dgx_f, dgh_f, dgx_b, dgh_b) into ``outs``; ``state``
-    carries dh across chunks."""
-    t_max, b, h = dy_f.shape
-    err = getattr(lib, "bigru_bwd_chain_" + _SUFFIX[dy_f.dtype])(
-        dy_f.data_ptr(), dy_b.data_ptr(), xp.data_ptr(), y_f.data_ptr(),
-        y_b.data_ptr(), w_h_f.data_ptr(), w_h_b.data_ptr(),
-        lens32.data_ptr(), pre.data_ptr(), *(o.data_ptr() for o in outs),
-        state.data_ptr(), s0, n, t_max, b, h, plan.cluster, plan.rows,
-        _kernels.stream_ptr(dy_f.device))
-    _kernels.check(lib, err, f"bigru_seq_bwd_dgates phase 2 at T={t_max}, "
-                             f"B={b}, {plan}")
-
-
 def _bigru_bwd_chain(lib, dy_f, dy_b, xp, y_f, y_b, w_h_f, w_h_b,
-                     lens32: torch.Tensor, plan: BwdChainPlan) -> Quad:
-    """K8b's cluster route (``bigru_bwd_gates_*``, then
-    ``bigru_bwd_chain_*``, per chunk of steps) on checked operands."""
+                     lens32: torch.Tensor, sums: torch.Tensor,
+                     plan: BwdChainPlan) -> Quad:
+    """K8b's cluster route (``bigru_bwd_chain_*``, the whole walk in one
+    launch) on checked operands and K8a's stored ``sums``."""
     t_max, b, g6 = xp.shape
     h = g6 // 6
     dev = xp.device
     outs = tuple(torch.empty((t_max, b, 3 * h), dtype=xp.dtype, device=dev)
                  for _ in range(4))
-    # phase 1's scratch holds the steps of one chunk; phase 2 carries each
-    # direction's dh between chunks in `state`
-    steps = _scratch_steps(t_max, b, g6)
-    pre = torch.empty((steps, b, g6), dtype=torch.float32, device=dev)
     state = torch.zeros((1, 2, b, h), dtype=torch.float32, device=dev)
-    for s0 in range(0, t_max, steps):
-        n = min(steps, t_max - s0)
-        _k8b_gates(lib, y_f, y_b, w_h_f, w_h_b, pre, s0, n, plan)
-        _k8b_chain(lib, dy_f, dy_b, xp, y_f, y_b, w_h_f, w_h_b, lens32, pre,
-                   outs, state, s0, n, plan)
+    err = getattr(lib, "bigru_bwd_chain_" + _SUFFIX[xp.dtype])(
+        dy_f.data_ptr(), dy_b.data_ptr(), xp.data_ptr(), y_f.data_ptr(),
+        y_b.data_ptr(), w_h_f.data_ptr(), w_h_b.data_ptr(),
+        lens32.data_ptr(), sums.data_ptr(), *(o.data_ptr() for o in outs),
+        state.data_ptr(), t_max, b, h, plan.cluster, plan.rows,
+        _kernels.stream_ptr(dev))
+    _kernels.check(lib, err, f"bigru_seq_bwd_dgates at T={t_max}, B={b}, "
+                             f"{plan}")
     return outs
 
 
@@ -690,6 +700,8 @@ def _bigru_bwd_cooperative(lib, dy_f, dy_b, xp, y_f, y_b, w_h_f, w_h_b,
 
 
 bigru_seq_bwd_dgates.launches = 0  # kernel launches made by this wrapper
+# of those, the ones on the sums the forward stored
+bigru_seq_bwd_dgates.stored_launches = 0
 
 # every snapshot of the span registry reads these counters where they are
 profiling.register_launch_counters(
@@ -699,29 +711,32 @@ profiling.register_launch_counters(
 class _BiGruLayer(torch.autograd.Function):
     """``bigru_layer`` with the custom VJP of ``gru_pallas``: forward
     ``_bigru_layer_fwd_impl`` (projection, K8a), backward
-    ``_bigru_layer_bwd`` (K8b, then plain products)."""
+    ``_bigru_layer_bwd`` (K8b, then plain products).  ``store``: a
+    backward is recorded, so K8a keeps its recurrent sums for K8b."""
 
     @staticmethod
-    def forward(ctx, x, w_x, bias, w_h_f, w_h_b, lens, compute_dtype):
+    def forward(ctx, x, w_x, bias, w_h_f, w_h_b, lens, compute_dtype, store):
         t_max, b, d = x.shape
         cdt = COMPUTE_DTYPES[compute_dtype]
         # f32-accumulated projection plus bias, stored in the compute dtype
         xp = (matmul_f32acc(x.reshape(t_max * b, d), w_x, cdt)
               + bias).to(cdt).reshape(t_max, b, -1)
-        y_f, y_b = bigru_seq_fwd(xp, w_h_f.to(cdt).contiguous(),
-                                 w_h_b.to(cdt).contiguous(), lens, cdt)
+        y_f, y_b, *sums = bigru_seq_fwd(xp, w_h_f.to(cdt).contiguous(),
+                                        w_h_b.to(cdt).contiguous(), lens,
+                                        cdt, store_sums=store)
         ctx.cdt = cdt
-        ctx.save_for_backward(x, w_x, w_h_f, w_h_b, lens, xp, y_f, y_b)
+        ctx.save_for_backward(x, w_x, w_h_f, w_h_b, lens, xp, y_f, y_b,
+                              sums[0] if sums else None)
         return y_f, y_b
 
     @staticmethod
     def backward(ctx, dy_f, dy_b):
-        x, w_x, w_h_f, w_h_b, lens, xp, y_f, y_b = ctx.saved_tensors
+        x, w_x, w_h_f, w_h_b, lens, xp, y_f, y_b, sums = ctx.saved_tensors
         cdt = ctx.cdt
         dgx_f, dgh_f, dgx_b, dgh_b = bigru_seq_bwd_dgates(
             dy_f.to(cdt).contiguous(), dy_b.to(cdt).contiguous(), xp, y_f,
             y_b, w_h_f.to(cdt).contiguous(), w_h_b.to(cdt).contiguous(), lens,
-            cdt)
+            cdt, sums=sums)
         t_max, b, h = y_f.shape
         g3 = 3 * h
         d = x.shape[-1]
@@ -741,7 +756,7 @@ class _BiGruLayer(torch.autograd.Function):
                           matmul_f32acc(x2.T, dgxb2, cdt)], dim=1)
         dbias = torch.cat([dgxf2.float().sum(dim=0),
                            dgxb2.float().sum(dim=0)])
-        return dx, dw_x, dbias, dw_f, dw_b, None, None
+        return dx, dw_x, dbias, dw_f, dw_b, None, None, None
 
 
 def bigru_layer(x: torch.Tensor, w_x: torch.Tensor, bias: torch.Tensor,
@@ -751,5 +766,11 @@ def bigru_layer(x: torch.Tensor, w_x: torch.Tensor, bias: torch.Tensor,
     in the compute dtype.  x [T, B, D]; w_x = [w_x_fwd | w_x_bwd]
     [D, 6H] and bias [6H] in master precision (f32); the cast to the
     compute dtype happens inside, as in JAX's custom VJP, so the weight
-    gradients come back f32 and dx in x's dtype."""
-    return _BiGruLayer.apply(x, w_x, bias, w_h_f, w_h_b, lens, compute_dtype)
+    gradients come back f32 and dx in x's dtype.  Where a backward is
+    recorded (grad mode on and an operand requiring a gradient), K8a keeps
+    its recurrent sums ([T, B, 6H] f32, saved beside xp and y) and K8b
+    reads them; under ``no_grad`` or ``inference_mode`` nothing more is
+    stored."""
+    store = _records_backward(x, w_x, bias, w_h_f, w_h_b)
+    return _BiGruLayer.apply(x, w_x, bias, w_h_f, w_h_b, lens, compute_dtype,
+                             store)

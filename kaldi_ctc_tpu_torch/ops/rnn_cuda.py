@@ -28,10 +28,13 @@ clusters (``csrc/fwd_chain.cuh``), which take any batch by design, and so
 do K2 and the GRU's K9a (``ops/gru_cuda.py``) where W_h fits a cluster;
 their launch shape comes from :func:`fwd_chain_plan`, which sends K2, K5
 and K9a (and the GRU's K8a) to their cooperative kernels where W_h fits
-no cluster.  The backwards K3, K6, K9b and K10b (phase 2) walk the dh
-chain the same way (``csrc/bwd_chain.cuh``) after a phase 1 that
-computes every step's gate sums at once; :func:`bwd_chain_plan` sends
-K3, K6 and K9b to their cooperative kernels where W_h fits no cluster.
+no cluster.  The backwards K6, K9b and K10b (phase 2) walk the dh chain
+the same way (``csrc/bwd_chain.cuh``) after a phase 1 that computes
+every step's gate sums at once; K3 (and the GRU's K8b) walk it on the
+recurrent sums their forward stored, which :func:`bilstm_layer` asks K2
+for where a backward is recorded.  :func:`bwd_chain_plan` sends K3, K6
+and K9b to their cooperative kernels where W_h fits no cluster (K2 takes
+its cluster route wherever K3 does).
 
 Under bfloat16 the shipped default of the JAX package's ``_bf16_cfg``
 holds: the projection, the layer outputs and the dgates are stored in
@@ -71,7 +74,7 @@ _SUFFIX = {torch.float32: "f32", torch.bfloat16: "bf16"}
 _ARGS = [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P]
 _PROJ_X_ARGS = [_P] * 4 + [_I] * 8 + [_P]
 _FWD_CHAIN_ARGS = [_P] * 9 + [_I] * 7 + [_P]
-_XP_CHAIN_ARGS = [_P] * 9 + [_I] * 5 + [_P]
+_XP_CHAIN_ARGS = [_P] * 10 + [_I] * 5 + [_P]
 _SIGNATURES = {"bilstm_fwd_f32": _ARGS, "bilstm_fwd_bf16": _ARGS,
                "bilstm_fwd_smem_optin": [],
                "bilstm_xp_chain_f32": _XP_CHAIN_ARGS,
@@ -84,17 +87,14 @@ _BWD_ARGS = [_P] * 13 + [_I, _I, _I, _P]
 _GATES_ARGS = [_P] * 8 + [_I] * 7 + [_P]
 _TILED_ARGS = [_P] * 8 + [_I] * 6 + [_P]
 _CHAIN_ARGS = [_P] * 11 + [_I] * 7 + [_P]
-# K3's cluster route: phase 1 and the backward chain with both directions
-_BI_GATES_ARGS = [_P] * 5 + [_I] * 6 + [_P]
-_BI_CHAIN_ARGS = [_P] * 12 + [_I] * 7 + [_P]
+# K3's cluster route: the backward chain with both directions
+_BI_CHAIN_ARGS = [_P] * 12 + [_I] * 5 + [_P]
 _BWD_SIGNATURES = {"bilstm_bwd_f32": _BWD_ARGS,
                    "bilstm_bwd_bf16": _BWD_ARGS,
                    "bilstm_bwd_exchange_floats": [_I, _I],
                    "bilstm_bwd_max_rows_f32": [_I],
                    "bilstm_bwd_max_rows_bf16": [_I],
                    "bilstm_bwd_smem_optin": [],
-                   "bilstm_bwd_gates_f32": _BI_GATES_ARGS,
-                   "bilstm_bwd_gates_bf16": _BI_GATES_ARGS,
                    "bilstm_bwd_chain_f32": _BI_CHAIN_ARGS,
                    "bilstm_bwd_chain_bf16": _BI_CHAIN_ARGS,
                    "bilstm_proj_gates_f32": _GATES_ARGS,
@@ -227,10 +227,12 @@ def run_in_row_slices(launch: Callable[..., Tuple[torch.Tensor, ...]],
 
 def bilstm_seq_fwd_reference(xp: torch.Tensor, w_h_f: torch.Tensor,
                              w_h_b: torch.Tensor, lens: torch.Tensor,
-                             y_dtype: Optional[torch.dtype] = None
-                             ) -> Outputs:
+                             y_dtype: Optional[torch.dtype] = None,
+                             store_sums: bool = False):
     """Plain PyTorch version of :func:`bilstm_seq_fwd` on any device: a
-    loop of T steps, forward direction at t=s, backward at t=T-1-s."""
+    loop of T steps, forward direction at t=s, backward at t=T-1-s.  It
+    keeps no sums: with ``store_sums`` the fifth output is None (its
+    backward recomputes them)."""
     t_max, b, g8 = xp.shape
     g4 = g8 // 2
     h_dim = g4 // 4
@@ -255,7 +257,7 @@ def bilstm_seq_fwd_reference(xp: torch.Tensor, w_h_f: torch.Tensor,
             y[t] = torch.where(v, h_new, 0.0).to(y_dtype)
             cs[t] = c
         outs += [y, cs]
-    return tuple(outs)
+    return tuple(outs) + ((None,) if store_sums else ())
 
 
 def _check(xp, w_h_f, w_h_b, lens, y_dtype):
@@ -274,31 +276,47 @@ def _check(xp, w_h_f, w_h_b, lens, y_dtype):
 
 def bilstm_seq_fwd(xp: torch.Tensor, w_h_f: torch.Tensor,
                    w_h_b: torch.Tensor, lens: torch.Tensor,
-                   y_dtype: Optional[torch.dtype] = None) -> Outputs:
+                   y_dtype: Optional[torch.dtype] = None,
+                   store_sums: bool = False):
     """xp [T, B, 8H] fused projection (forward half first, compute dtype),
     w_h_f / w_h_b [H, 4H] in the compute dtype, lens [B] →
     (y_f, c_f, y_b, c_b): y [T, B, H] in y_dtype (default xp's), c
     [T, B, H] f32.  The contract of ``_bilstm_seq_fwd``.  On the card the
     route is :func:`fwd_chain_plan`'s, from the shapes: both directions'
     forward chains in thread-block clusters where W_h fits a cluster, else
-    the cooperative kernel; one launch for any B either way."""
+    the cooperative kernel; one launch for any B either way.
+
+    ``store_sums`` (a backward will follow: :func:`bilstm_layer` under
+    autograd) appends a fifth output, the recurrent sums y[t-+1] . W_h the
+    cluster route formed its gates from, [T, B, 8H] f32 in K3's walk order
+    (row s: the forward direction's at t = T-1-s, the backward one's at
+    t = s), for :func:`bilstm_seq_bwd_dgates`; None where nothing was
+    stored (the plain version, the cooperative route).  Counter
+    ``store_launches``: the forwards that stored them."""
     y_dtype = xp.dtype if y_dtype is None else y_dtype
     if xp.device.type == "cpu":
-        return bilstm_seq_fwd_reference(xp, w_h_f, w_h_b, lens, y_dtype)
+        return bilstm_seq_fwd_reference(xp, w_h_f, w_h_b, lens, y_dtype,
+                                        store_sums)
     if xp.device.type != "cuda":
         raise ValueError(f"bilstm_seq_fwd: unsupported device {xp.device}")
     _check(xp, w_h_f, w_h_b, lens, y_dtype)
     t_max, b, g8 = xp.shape
     h = g8 // 8
     if t_max == 0 or b == 0:
-        return _fwd_outputs(t_max, b, h, y_dtype, xp.device)
+        outs = _fwd_outputs(t_max, b, h, y_dtype, xp.device)
+        return outs + (None,) if store_sums else outs
     lib = _kernels.load("bilstm_fwd", _SIGNATURES)
     plan = k2_plan(lib, b, h, xp.dtype, xp.device)
     lens32 = lens.to(torch.int32).contiguous()
     if plan.route == "cluster":
-        outs = _bilstm_fwd_chain(lib, xp, w_h_f, w_h_b, lens32, plan)
+        outs = _bilstm_fwd_chain(lib, xp, w_h_f, w_h_b, lens32, plan,
+                                 store_sums)
+        if store_sums:
+            bilstm_seq_fwd.store_launches += 1
     else:
         outs = _bilstm_fwd_cooperative(lib, xp, w_h_f, w_h_b, lens32)
+        if store_sums:
+            outs += (None,)
     bilstm_seq_fwd.launches += 1
     return outs
 
@@ -312,18 +330,24 @@ def k2_plan(lib: ctypes.CDLL, b: int, h: int, dtype: torch.dtype,
 
 
 def _bilstm_fwd_chain(lib: ctypes.CDLL, xp: torch.Tensor, w_h_f, w_h_b,
-                      lens32: torch.Tensor, plan: "FwdChainPlan") -> Outputs:
-    """K2's cluster route (``bilstm_xp_chain_*``) on checked operands."""
+                      lens32: torch.Tensor, plan: "FwdChainPlan",
+                      store_sums: bool = False):
+    """K2's cluster route (``bilstm_xp_chain_*``) on checked operands;
+    with ``store_sums`` the recurrent sums [T, B, 8H] f32 in K3's walk
+    order are a fifth output."""
     t_max, b, g8 = xp.shape
     h = g8 // 8
     outs = _fwd_outputs(t_max, b, h, xp.dtype, xp.device)
     state = torch.zeros((2, 2, b, h), dtype=torch.float32, device=xp.device)
+    sums = (torch.empty((t_max, b, g8), dtype=torch.float32,
+                        device=xp.device) if store_sums else None)
     err = getattr(lib, "bilstm_xp_chain_" + _SUFFIX[xp.dtype])(
         xp.data_ptr(), w_h_f.data_ptr(), w_h_b.data_ptr(), lens32.data_ptr(),
-        *(v.data_ptr() for v in outs), state.data_ptr(), t_max, b, h,
+        *(v.data_ptr() for v in outs), state.data_ptr(),
+        None if sums is None else sums.data_ptr(), t_max, b, h,
         plan.cluster, plan.rows, _kernels.stream_ptr(xp.device))
     _kernels.check(lib, err, f"bilstm_seq_fwd at T={t_max}, B={b}, {plan}")
-    return outs
+    return outs + (sums,) if store_sums else outs
 
 
 def _bilstm_fwd_cooperative(lib: ctypes.CDLL, xp: torch.Tensor, w_h_f,
@@ -354,16 +378,20 @@ def _fwd_outputs(t_max: int, b: int, h: int, y_dtype: torch.dtype,
 
 
 bilstm_seq_fwd.launches = 0  # kernel launches made by this wrapper
+# of those, the ones that kept the recurrent sums for the backward
+bilstm_seq_fwd.store_launches = 0
 
 
 def bilstm_seq_bwd_dgates_reference(
         dy_f: torch.Tensor, dy_b: torch.Tensor, xp: torch.Tensor,
         y_f: torch.Tensor, c_f: torch.Tensor, y_b: torch.Tensor,
         c_b: torch.Tensor, w_h_f: torch.Tensor, w_h_b: torch.Tensor,
-        lens: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        lens: torch.Tensor, sums: Optional[torch.Tensor] = None
+        ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain PyTorch version of :func:`bilstm_seq_bwd_dgates` on any
     device: a loop of T steps, forward direction at t=T-1-s, backward
-    at t=s (``_bibwd_kernel`` with ``_dgates_update``)."""
+    at t=s (``_bibwd_kernel`` with ``_dgates_update``).  It recomputes
+    the gates from y and leaves ``sums`` unread."""
     t_max, b, h_dim = dy_f.shape
     g4 = 4 * h_dim
     cdt = w_h_f.dtype
@@ -426,18 +454,26 @@ def bilstm_seq_bwd_dgates(dy_f: torch.Tensor, dy_b: torch.Tensor,
                           xp: torch.Tensor, y_f: torch.Tensor,
                           c_f: torch.Tensor, y_b: torch.Tensor,
                           c_b: torch.Tensor, w_h_f: torch.Tensor,
-                          w_h_b: torch.Tensor, lens: torch.Tensor
+                          w_h_b: torch.Tensor, lens: torch.Tensor,
+                          sums: Optional[torch.Tensor] = None
                           ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Output cotangents dy_f / dy_b [T, B, H] and the forward's
     residuals (xp [T, B, 8H], y and c of both directions, w_h_f / w_h_b
     [H, 4H] in the compute dtype, lens [B]) → (dg_f, dg_b) [T, B, 4H] in
     xp's dtype, the gate pre-activation cotangents.  The contract of
     ``_bilstm_seq_bwd_dgates`` with its default dgates dtype.  On the card
-    the route is :func:`k3_plan`'s, from the shapes: phase 1 (both
-    directions' recurrent sums of every step at once) and the backward
-    chain with both directions in thread-block clusters (any B, chunks of
-    steps above a 256 MiB scratch) where W_h fits a cluster, else the
-    cooperative kernel in row slices."""
+    the route is :func:`k3_plan`'s, from the shapes: where W_h fits a
+    cluster, the backward chain with both directions in thread-block
+    clusters (any B, one launch) on the recurrent sums the forward
+    formed its gates from, ``sums`` of :func:`bilstm_seq_fwd` with
+    ``store_sums`` ([T, B, 8H] f32, K3's walk order; they need no
+    recompute, and the gates are the forward's bit for bit), which that
+    route requires (a ValueError without them); else the cooperative
+    kernel in row slices, which recomputes the sums from y and ignores
+    ``sums``.  :func:`bilstm_layer` passes them where autograd records a
+    backward (an inference forward keeps none; K2 takes its cluster route
+    wherever this one does).  Counter ``stored_launches``: the calls that
+    read the forward's sums."""
     if xp.device.type == "cpu":
         return bilstm_seq_bwd_dgates_reference(
             dy_f, dy_b, xp, y_f, c_f, y_b, c_b, w_h_f, w_h_b, lens)
@@ -456,7 +492,14 @@ def bilstm_seq_bwd_dgates(dy_f: torch.Tensor, dy_b: torch.Tensor,
     lens32 = lens.to(torch.int32).contiguous()
     ops = (dy_f, dy_b, xp, y_f, c_f, y_b, c_b, w_h_f, w_h_b, lens32)
     if plan.route == "cluster":
-        out = _bilstm_bwd_chain(lib, *ops, plan)
+        if sums is None:
+            raise ValueError("bilstm_seq_bwd_dgates: the cluster route reads "
+                             "the recurrent sums of bilstm_seq_fwd with "
+                             "store_sums=True; none were passed")
+        _check_tensors("bilstm_seq_bwd_dgates", dev, {
+            "sums": (sums, torch.float32, (t_max, b, g8))})
+        bilstm_seq_bwd_dgates.stored_launches += 1
+        out = _bilstm_bwd_chain(lib, *ops, sums, plan)
     else:
         out = _bilstm_bwd_cooperative(lib, *ops)
     bilstm_seq_bwd_dgates.launches += 1
@@ -471,58 +514,26 @@ def k3_plan(lib: ctypes.CDLL, b: int, h: int, dtype: torch.dtype,
                           _smem_optin(lib, "bilstm_bwd_smem_optin", device))
 
 
-def _k3_gates(lib: ctypes.CDLL, y_f, y_b, w_h_f, w_h_b, pre: torch.Tensor,
-              s0: int, n: int, plan: "BwdChainPlan") -> None:
-    """K3's phase 1 for walk steps s0 .. s0+n-1: both directions'
-    recurrent sums into pre[:n]."""
-    t_max, b, h = y_f.shape
-    err = getattr(lib, "bilstm_bwd_gates_" + _SUFFIX[y_f.dtype])(
-        y_f.data_ptr(), y_b.data_ptr(), w_h_f.data_ptr(), w_h_b.data_ptr(),
-        pre.data_ptr(), s0, n, t_max, b, h, plan.gate_cols,
-        _kernels.stream_ptr(y_f.device))
-    _kernels.check(lib, err, f"bilstm_seq_bwd_dgates phase 1 at T={t_max}, "
-                             f"B={b}, {plan}")
-
-
-def _k3_chain(lib: ctypes.CDLL, dy_f, dy_b, xp, c_f, c_b, w_h_f, w_h_b,
-              lens32: torch.Tensor, pre: torch.Tensor, dg_f, dg_b,
-              state: torch.Tensor, s0: int, n: int,
-              plan: "BwdChainPlan") -> None:
-    """K3's phase 2 for the same steps: the dh/dc chain of both directions
-    in clusters, dgates into dg_f, dg_b; ``state`` carries dh and dc
-    across chunks."""
-    t_max, b, h = dy_f.shape
-    err = getattr(lib, "bilstm_bwd_chain_" + _SUFFIX[dy_f.dtype])(
-        dy_f.data_ptr(), dy_b.data_ptr(), xp.data_ptr(), c_f.data_ptr(),
-        c_b.data_ptr(), w_h_f.data_ptr(), w_h_b.data_ptr(),
-        lens32.data_ptr(), pre.data_ptr(), dg_f.data_ptr(), dg_b.data_ptr(),
-        state.data_ptr(), s0, n, t_max, b, h, plan.cluster, plan.rows,
-        _kernels.stream_ptr(dy_f.device))
-    _kernels.check(lib, err, f"bilstm_seq_bwd_dgates phase 2 at T={t_max}, "
-                             f"B={b}, {plan}")
-
-
 def _bilstm_bwd_chain(lib: ctypes.CDLL, dy_f, dy_b, xp, y_f, c_f, y_b, c_b,
                       w_h_f, w_h_b, lens32: torch.Tensor,
-                      plan: "BwdChainPlan") -> Tuple[torch.Tensor,
-                                                     torch.Tensor]:
-    """K3's cluster route (``bilstm_bwd_gates_*``, then
-    ``bilstm_bwd_chain_*``, per chunk of steps) on checked operands."""
+                      sums: torch.Tensor, plan: "BwdChainPlan"
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K3's cluster route (``bilstm_bwd_chain_*``, the whole walk in one
+    launch) on checked operands and K2's stored ``sums``."""
     t_max, b, g8 = xp.shape
     h = g8 // 8
     dev = xp.device
     dg_f = torch.empty((t_max, b, 4 * h), dtype=xp.dtype, device=dev)
     dg_b = torch.empty_like(dg_f)
-    # phase 1's scratch holds the steps of one chunk; phase 2 carries dh
-    # and dc between chunks in `state`
-    steps = _scratch_steps(t_max, b, g8)
-    pre = torch.empty((steps, b, g8), dtype=torch.float32, device=dev)
     state = torch.zeros((2, 2, b, h), dtype=torch.float32, device=dev)
-    for s0 in range(0, t_max, steps):
-        n = min(steps, t_max - s0)
-        _k3_gates(lib, y_f, y_b, w_h_f, w_h_b, pre, s0, n, plan)
-        _k3_chain(lib, dy_f, dy_b, xp, c_f, c_b, w_h_f, w_h_b, lens32, pre,
-                  dg_f, dg_b, state, s0, n, plan)
+    err = getattr(lib, "bilstm_bwd_chain_" + _SUFFIX[xp.dtype])(
+        dy_f.data_ptr(), dy_b.data_ptr(), xp.data_ptr(), c_f.data_ptr(),
+        c_b.data_ptr(), w_h_f.data_ptr(), w_h_b.data_ptr(),
+        lens32.data_ptr(), sums.data_ptr(), dg_f.data_ptr(), dg_b.data_ptr(),
+        state.data_ptr(), t_max, b, h, plan.cluster, plan.rows,
+        _kernels.stream_ptr(dev))
+    _kernels.check(lib, err, f"bilstm_seq_bwd_dgates at T={t_max}, B={b}, "
+                             f"{plan}")
     return dg_f, dg_b
 
 
@@ -562,6 +573,8 @@ def _bilstm_bwd_cooperative(lib: ctypes.CDLL, dy_f, dy_b, xp, y_f, c_f,
 
 
 bilstm_seq_bwd_dgates.launches = 0  # kernel launches made by this wrapper
+# of those, the ones on the sums the forward stored
+bilstm_seq_bwd_dgates.stored_launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -790,14 +803,16 @@ def k10b_plan(b: int, d: int, h: int, sms: int, smem_optin: int
 
 class BwdChainPlan(NamedTuple):
     """The launch shape of a backward recurrence on the hoisted projection
-    (K3, K6, K9b).  ``route`` "cluster": phase 1, the recurrent sums of every
-    step, on the tiled kernel (64 rows and 64 gate columns a block,
-    ``gate_cols`` 0) or one warp per row over ``gate_cols`` columns a
-    block, ``gates_smem`` bytes a block; phase 2, the backward chain, one
+    (K3, K6, K8b, K9b).  ``route`` "cluster": the backward chain, one
     cluster of ``cluster`` CTAs per (direction, ``rows`` batch rows), each
     CTA holding ceil(H / cluster) units' gate columns of W_h as f32
-    (``chain_smem`` bytes in all).  "cooperative": the kernel's
-    cooperative route (in row slices), the other fields 0."""
+    (``chain_smem`` bytes in all), on recurrent sums that K6 and K9b
+    compute first in a phase 1, on the tiled kernel (64 rows and 64 gate
+    columns a block, ``gate_cols`` 0) or one warp per row over
+    ``gate_cols`` columns a block, ``gates_smem`` bytes a block; K3 and
+    K8b have no phase 1 (they read the sums their forward stored): both
+    fields 0.  "cooperative": the kernel's cooperative route (in row
+    slices), the other fields 0."""
     route: str
     gate_cols: int
     gates_smem: int
@@ -810,9 +825,9 @@ def bwd_chain_plan(b: int, h: int, dtype: torch.dtype, dirs: int, sms: int,
                    smem_optin: int, gates: int = 4) -> BwdChainPlan:
     """The route and launch shape of a backward recurrence on the hoisted
     projection for a batch of ``b`` rows, ``h`` units of ``gates`` gate
-    columns (4: an LSTM, K3 with dirs 2 and K6 with 1; 3: a GRU, K9b) and
-    ``dirs`` directions in ``dtype`` on a card of ``sms`` SMs with
-    ``smem_optin`` bytes of shared memory per block.
+    columns (4: an LSTM, K3 with dirs 2 and K6 with 1; 3: a GRU, K8b with
+    dirs 2 and K9b with 1) and ``dirs`` directions in ``dtype`` on a card
+    of ``sms`` SMs with ``smem_optin`` bytes of shared memory per block.
 
     The chain holds W_h as f32 in either dtype (its dh product reads each
     weight once a step per row, so a bf16 copy would cost a conversion in
@@ -821,9 +836,15 @@ def bwd_chain_plan(b: int, h: int, dtype: torch.dtype, dirs: int, sms: int,
     (the LSTM to H ~465, the GRU to ~545), with C and R from
     :func:`_bwd_chain_shape` (16 and 8 at B = 48, H = 320 with one
     direction, 16 and 16 with two); above that the kernel's cooperative
-    route.  Phase 1 is tiled where 64 staged rows
-    and 64 columns of H f32 fit a block (H <= 426), else it takes 32 gate
-    columns a block."""
+    route.  K3's and K8b's cluster route reads the recurrent sums their
+    forward (K2, K8a) stored while it ran, [T, B, dirs gates H] f32 in the
+    walk's order (row s: the forward direction's sums at t = T-1-s, the
+    backward one's at t = s), whole, in one launch; the forward stores
+    them only where a backward is recorded (training), and its cluster
+    route holds wherever this one does (to H ~470 and ~545 in f32, more
+    in bf16).  K6's and K9b's phase 1 (dirs 1) is tiled where 64 staged
+    rows and 64 columns of H f32 fit a block (H <= 426), else it takes 32
+    gate columns a block."""
     if dtype not in _SUFFIX:
         raise ValueError(f"bwd_chain_plan: no kernel for {dtype}")
     words = _bwd_chain_words(gates, pre=False)
@@ -831,11 +852,14 @@ def bwd_chain_plan(b: int, h: int, dtype: torch.dtype, dirs: int, sms: int,
     if shape is None:
         return BwdChainPlan("cooperative", 0, 0, 0, 0, 0)
     c, r = shape
+    chain = _bwd_chain_bytes(c, r, h, gates, words)
+    if dirs == 2:
+        return BwdChainPlan("cluster", 0, 0, c, r, chain)
     tiled = 4 * (2 * 68 * h + 64)            # gates_tiled_smem(0, H)
     cols = 0 if tiled <= smem_optin else 32
     return BwdChainPlan("cluster", cols,
                         tiled if cols == 0 else 4 * cols * (h + 1), c, r,
-                        _bwd_chain_bytes(c, r, h, gates, words))
+                        chain)
 
 
 class FwdChainPlan(NamedTuple):
@@ -1063,12 +1087,14 @@ def _dw_h(y: torch.Tensor, dgates: torch.Tensor, reverse: bool,
 class _BiLstmLayer(torch.autograd.Function):
     """``bilstm_layer`` with the custom VJP of ``rnn_pallas``: forward
     ``_bilstm_layer_fwd_impl`` (K10a, or the projection and K2), backward
-    ``_bilstm_layer_bwd`` (K10b or K3, then plain products)."""
+    ``_bilstm_layer_bwd`` (K10b or K3, then plain products).  ``store``:
+    a backward is recorded, so K2 keeps its recurrent sums for K3."""
 
     @staticmethod
-    def forward(ctx, x, w_x, bias, w_h_f, w_h_b, lens, compute_dtype):
+    def forward(ctx, x, w_x, bias, w_h_f, w_h_b, lens, compute_dtype, store):
         cdt = COMPUTE_DTYPES[compute_dtype]
         whf, whb = w_h_f.to(cdt).contiguous(), w_h_b.to(cdt).contiguous()
+        sums = []
         if use_in_kernel_proj(x.shape[-1], w_x.shape[1] // 2, cdt):
             # the projection inside the kernel: no [T, B, 8H] residual is
             # written, kept or read back (xp None, as in the reference)
@@ -1078,15 +1104,16 @@ class _BiLstmLayer(torch.autograd.Function):
                 bias.float().contiguous(), whf, whb, lens)
         else:
             xp = _project_bilstm(x, w_x.to(cdt), bias)
-            y_f, c_f, y_b, c_b = bilstm_seq_fwd(xp, whf, whb, lens, cdt)
+            y_f, c_f, y_b, c_b, *sums = bilstm_seq_fwd(
+                xp, whf, whb, lens, cdt, store_sums=store)
         ctx.cdt = cdt
         ctx.save_for_backward(x, w_x, bias, w_h_f, w_h_b, lens, xp,
-                              y_f, c_f, y_b, c_b)
+                              y_f, c_f, y_b, c_b, sums[0] if sums else None)
         return y_f, y_b
 
     @staticmethod
     def backward(ctx, dy_f, dy_b):
-        x, w_x, bias, w_h_f, w_h_b, lens, xp, y_f, c_f, y_b, c_b = \
+        x, w_x, bias, w_h_f, w_h_b, lens, xp, y_f, c_f, y_b, c_b, sums = \
             ctx.saved_tensors
         cdt = ctx.cdt
         whf, whb = w_h_f.to(cdt).contiguous(), w_h_b.to(cdt).contiguous()
@@ -1098,7 +1125,7 @@ class _BiLstmLayer(torch.autograd.Function):
         else:
             dg_f, dg_b = bilstm_seq_bwd_dgates(
                 dy_f.contiguous(), dy_b.contiguous(), xp, y_f, c_f, y_b, c_b,
-                whf, whb, lens)
+                whf, whb, lens, sums=sums)
         t_max, b, h = y_f.shape
         g4 = 4 * h
         d = x.shape[-1]
@@ -1117,7 +1144,15 @@ class _BiLstmLayer(torch.autograd.Function):
         dw_x = torch.cat([matmul_f32acc(x2.T, dgf2, cdt),
                           matmul_f32acc(x2.T, dgb2, cdt)], dim=1)
         dbias = torch.cat([dgf2.float().sum(dim=0), dgb2.float().sum(dim=0)])
-        return dx, dw_x, dbias, dw_f, dw_b, None, None
+        return dx, dw_x, dbias, dw_f, dw_b, None, None, None
+
+
+def _records_backward(*tensors: torch.Tensor) -> bool:
+    """Whether autograd records the op about to run on ``tensors`` for a
+    backward: grad mode is on (not ``no_grad``, not ``inference_mode``)
+    and one of them requires a gradient.  The bidirectional layers keep
+    the forward's recurrent sums for the backward exactly then."""
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
 
 
 def bilstm_layer(x: torch.Tensor, w_x: torch.Tensor, bias: torch.Tensor,
@@ -1128,9 +1163,13 @@ def bilstm_layer(x: torch.Tensor, w_x: torch.Tensor, bias: torch.Tensor,
     in the compute dtype.  x [T, B, D]; w_x = [w_x_fwd | w_x_bwd]
     [D, 8H] and bias [8H] in master precision (f32); the cast to the
     compute dtype happens inside, as in JAX's custom VJP, so the weight
-    gradients come back f32 and dx in x's dtype."""
+    gradients come back f32 and dx in x's dtype.  Where a backward is
+    recorded (:func:`_records_backward`), K2 keeps its recurrent sums
+    ([T, B, 8H] f32, saved beside xp, y and c) and K3 reads them; under
+    ``no_grad`` or ``inference_mode`` nothing more is stored."""
+    store = _records_backward(x, w_x, bias, w_h_f, w_h_b)
     return _BiLstmLayer.apply(x, w_x, bias, w_h_f, w_h_b, lens,
-                              compute_dtype)
+                              compute_dtype, store)
 
 
 # ---------------------------------------------------------------------------

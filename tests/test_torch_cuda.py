@@ -678,27 +678,15 @@ def test_k1_warp_route_at_its_limit_and_a_large_batch(cuda):
         assert torch.equal(w, k)
 
 
-def _bwd_inputs(t, b, h, dtype, device, seed):
-    """A forward pass through K2's plain version on the card, and seeded
-    cotangents: K3's operands."""
-    xp, w_f, w_b, lens = _bilstm_inputs(t, b, h, dtype, device, seed)
-    y_f, c_f, y_b, c_b = rnn_cuda.bilstm_seq_fwd_reference(xp, w_f, w_b,
-                                                           lens)
-    rng = np.random.default_rng(seed + 1)
-    dy_f, dy_b = (torch.as_tensor(rng.standard_normal((t, b, h)).astype(
-        np.float32), device=device).to(dtype) for _ in range(2))
-    return dy_f, dy_b, xp, y_f, c_f, y_b, c_b, w_f, w_b, lens
-
-
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, BILSTM_BWD_F32_TOL),
                                        (torch.bfloat16, BILSTM_BWD_BF16_TOL)])
 @pytest.mark.parametrize("t,b,h", [(16, 3, 16), (16, 3, 128), (40, 2, 320),
                                    (240, 48, 320)])
 def test_bilstm_bwd_kernel_matches_plain(cuda, dtype, tol, t, b, h):
-    args = _bwd_inputs(t, b, h, dtype, cuda, seed=h + t)
+    args, sums = _stored_case("lstm", t, b, h, dtype, cuda, h + t, False)
     before = rnn_cuda.bilstm_seq_bwd_dgates.launches
-    got = rnn_cuda.bilstm_seq_bwd_dgates(*args)
+    got = rnn_cuda.bilstm_seq_bwd_dgates(*args, sums)
     torch.cuda.synchronize()
     assert rnn_cuda.bilstm_seq_bwd_dgates.launches == before + 1
     ref = rnn_cuda.bilstm_seq_bwd_dgates_reference(*args)
@@ -714,7 +702,12 @@ def test_bilstm_bwd_kernel_matches_plain(cuda, dtype, tol, t, b, h):
 
 @pytest.mark.cuda
 def test_bilstm_bwd_kernel_rejects_bad_inputs(cuda):
-    args = list(_bwd_inputs(4, 2, 16, torch.float32, cuda, 0))
+    args, sums = _stored_case("lstm", 4, 2, 16, torch.float32, cuda, 0,
+                              False)
+    with pytest.raises(ValueError, match="store_sums"):  # no stored sums
+        rnn_cuda.bilstm_seq_bwd_dgates(*args)
+    with pytest.raises(ValueError):                     # sums not f32
+        rnn_cuda.bilstm_seq_bwd_dgates(*args, sums.double())
     bad = list(args)
     bad[0] = args[0].to(torch.bfloat16)                 # dy dtype
     with pytest.raises(ValueError):
@@ -1767,20 +1760,17 @@ def test_bigru_kernel_matches_plain(cuda, dtype, t, b, h):
 @pytest.mark.parametrize("t,b,h", [(16, 3, 16), (16, 3, 128), (40, 2, 320),
                                    (240, 48, 320)])
 def test_bigru_bwd_kernel_matches_plain(cuda, dtype, t, b, h):
-    """K8b's four outputs against its plain version on a forward of K8a's
-    plain version."""
-    xp, (w_f, w_b), (dy_f, dy_b), lens = _gru_inputs(t, b, h, dtype, cuda,
-                                                     h + t + 1, 2)
-    y_f, y_b = gru_cuda.bigru_seq_fwd_reference(xp, w_f, w_b, lens)
-    args = (dy_f, dy_b, xp, y_f, y_b, w_f, w_b, lens)
+    """K8b's four outputs against its plain version on a forward of K8a
+    with the store."""
+    args, sums = _stored_case("gru", t, b, h, dtype, cuda, h + t + 1, False)
     before = gru_cuda.bigru_seq_bwd_dgates.launches
-    got = gru_cuda.bigru_seq_bwd_dgates(*args)
+    got = gru_cuda.bigru_seq_bwd_dgates(*args, sums=sums)
     torch.cuda.synchronize()
     assert gru_cuda.bigru_seq_bwd_dgates.launches == before + 1
     ref = gru_cuda.bigru_seq_bwd_dgates_reference(*args)
     for name, g, r in zip(("dgx_f", "dgh_f", "dgx_b", "dgh_b"), got, ref):
         _close(g, r, GRU_BWD_TOL[dtype], name)
-    _zero_past_lens(got, lens, "dgates")
+    _zero_past_lens(got, args[-1], "dgates")
 
 
 # the f32 and bf16 H from which K9a takes its cooperative route (W_h's
@@ -1887,6 +1877,9 @@ def test_gru_kernels_reject_bad_inputs(cuda):
     with pytest.raises(ValueError):                   # lens on the CPU
         gru_cuda.bigru_seq_bwd_dgates(dy_f, dy_b, xp2, y_f, y_b, w_f, w_b,
                                       lens2.cpu())
+    with pytest.raises(ValueError, match="store_sums"):  # no stored sums
+        gru_cuda.bigru_seq_bwd_dgates(dy_f, dy_b, xp2, y_f, y_b, w_f, w_b,
+                                      lens2)
 
 
 @pytest.mark.cuda
@@ -2201,14 +2194,71 @@ def _k3_lib():
     return _kernels.load("bilstm_bwd", rnn_cuda._BWD_SIGNATURES)
 
 
-def _k3_routes(args, plan):
-    """(cluster route, cooperative route) of K3 on the same checked
-    operands, each (dg_f, dg_b)."""
+def _k3_routes(args, sums, plan):
+    """(cluster route on K2's stored ``sums``, cooperative route) of K3 on
+    the same checked operands, each (dg_f, dg_b)."""
     lib = _k3_lib()
     *ops, lens = args
     lens32 = lens.to(torch.int32)
-    return (rnn_cuda._bilstm_bwd_chain(lib, *ops, lens32, plan),
+    return (rnn_cuda._bilstm_bwd_chain(lib, *ops, lens32, sums, plan),
             rnn_cuda._bilstm_bwd_cooperative(lib, *ops, lens32))
+
+
+def _stored_case(family, t, b, h, dtype, device, seed, short_rows=True):
+    """The backward's operands on a forward through K2 ("lstm") or K8a
+    ("gru") on the card with the store, as training runs them: ragged
+    rows (row 0 of length T, the rest random; with ``short_rows`` row 1
+    of length 1 and row 2 empty) and seeded cotangents → (args, sums),
+    args K3's (dy_f, dy_b, xp, y_f, c_f, y_b, c_b, w_h_f, w_h_b, lens) or
+    K8b's (dy_f, dy_b, xp, y_f, y_b, w_h_f, w_h_b, lens); sums None where
+    the forward takes its cooperative route."""
+    if family == "lstm":
+        xp, w_f, w_b, lens = _bilstm_inputs(t, b, h, dtype, device, seed)
+    else:
+        xp, (w_f, w_b), dys, lens = _gru_inputs(t, b, h, dtype, device,
+                                                seed, 2)
+    if short_rows:
+        lens[1], lens[2] = 1, 0
+    if family == "lstm":
+        y_f, c_f, y_b, c_b, sums = rnn_cuda.bilstm_seq_fwd(
+            xp, w_f, w_b, lens, store_sums=True)
+        rng = np.random.default_rng(seed + 1)
+        dys = [torch.as_tensor(rng.standard_normal((t, b, h)).astype(
+            np.float32), device=device).to(dtype) for _ in range(2)]
+        return (*dys, xp, y_f, c_f, y_b, c_b, w_f, w_b, lens), sums
+    y_f, y_b, sums = gru_cuda.bigru_seq_fwd(xp, w_f, w_b, lens,
+                                            store_sums=True)
+    return (*dys, xp, y_f, y_b, w_f, w_b, lens), sums
+
+
+def _plain_sums(y_f, y_b, w_f, w_b, lens):
+    """The recurrent sums a forward formed its gates from, in the
+    backward's walk order, recomputed in f64 from its stored y: row s the
+    forward direction's at t = T-1-s over the h it carried (y_f[min(t,
+    len) - 1], zeros before the first frame: past a row's end the carry
+    is its last valid h) and the backward direction's at t = s over
+    y_b[t+1] (zeros at t = T-1; y_b is zero at pad frames, where that
+    direction's carry is still its zero start)."""
+    t_max, b, _ = y_f.shape
+    dev = y_f.device
+    prev = torch.minimum(torch.arange(t_max, device=dev)[:, None],
+                         lens.to(dev).long()[None, :]) - 1
+    rows = torch.arange(b, device=dev).expand(t_max, b)
+    h_f = y_f[prev.clamp(min=0), rows].double() * (prev >= 0)[..., None]
+    h_b = torch.cat([y_b[1:], torch.zeros_like(y_b[:1])]).double()
+    return torch.cat([(h_f @ w_f.double()).flip(0), h_b @ w_b.double()],
+                     dim=-1)
+
+
+def _pad_steps(lens, t_max):
+    """[T, B] masks of the backward walk's pad steps, forward direction
+    (step s at t = T-1-s) and backward direction (t = s): t >= len."""
+    s = torch.arange(t_max, device=lens.device)[:, None]
+    lens = lens.long()[None, :]
+    return t_max - 1 - s >= lens, s >= lens
+
+
+STORED_T = [47, 233, 700]
 
 
 def _k8a_routes(xp, w_f, w_b, lens, dtype):
@@ -2293,18 +2343,15 @@ def test_k8a_cooperative_route_at_a_large_h(cuda, dtype):
 @pytest.mark.parametrize("b", [1, 48, 600])
 def test_k3_chain_matches_plain_at_any_batch(cuda, dtype, b):
     """K3 on its cluster route at H=320 at B = 1, 48 and 600 (several
-    waves of clusters, no row slices; at B=600, T=120 puts the phase-1
-    scratch above 256 MiB, so the walk runs in three chunks of steps)
-    against its plain version, ragged rows, zero at pad frames, one launch
-    a call."""
+    waves of clusters, no row slices; the walk whole in one launch, at
+    B=600, T=120 on 737 MB of sums) on the sums K2 stored, against its
+    plain version, ragged rows, zero at pad frames, one launch a call."""
     t = 120 if b == 600 else 30
-    args = _bwd_inputs(t, b, 320, dtype, cuda, seed=b + 5)
+    args, sums = _stored_case("lstm", t, b, 320, dtype, cuda, b + 5, False)
     plan = rnn_cuda.k3_plan(_k3_lib(), b, 320, dtype, cuda)
     assert plan.route == "cluster" and plan.cluster == 16, plan
-    assert -(-t // rnn_cuda._scratch_steps(t, b, 8 * 320)) == \
-        (3 if b == 600 else 1)
     before = rnn_cuda.bilstm_seq_bwd_dgates.launches
-    got = rnn_cuda.bilstm_seq_bwd_dgates(*args)
+    got = rnn_cuda.bilstm_seq_bwd_dgates(*args, sums)
     torch.cuda.synchronize()
     assert rnn_cuda.bilstm_seq_bwd_dgates.launches == before + 1
     for name, g, r in zip(("dg_f", "dg_b"), got,
@@ -2315,36 +2362,18 @@ def test_k3_chain_matches_plain_at_any_batch(cuda, dtype, b):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("h", [32, 320])
-def test_k3_in_chunks_of_steps_equal_one_chunk(cuda, h, dtype, monkeypatch):
-    """K3 with its scratch cut to 3 steps: the chain carries dh and dc of
-    both directions between the chunks, and the outputs equal one
-    chunk's bit for bit."""
-    t, b = 10, 5
-    args = _bwd_inputs(t, b, h, dtype, cuda, seed=h + 1)
-    whole = rnn_cuda.bilstm_seq_bwd_dgates(*args)
-    with monkeypatch.context() as m:
-        m.setattr(rnn_cuda, "_K10_SCRATCH_BYTES", 3 * b * 8 * h * 4)
-        assert rnn_cuda._scratch_steps(t, b, 8 * h) == 3
-        chunked = rnn_cuda.bilstm_seq_bwd_dgates(*args)
-    torch.cuda.synchronize()
-    for name, c, w in zip(("dg_f", "dg_b"), chunked, whole):
-        assert torch.equal(c, w), name
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_k3_routes_agree_and_equal_where_dh_is_zero(cuda, dtype):
-    """The recompute invariant, witnessed by K3's cooperative kernel,
-    which recomputes the gates with warp_dot in its order: at each row's
-    first valid frame of the walk (t = len - 1 for the forward direction,
-    t = 0 for the backward one) dh and dc are still zero, so the two
-    routes' dgates there depend on the gates alone and are equal bit for
-    bit; elsewhere dh is summed in another order, within tolerance."""
+    """The gates of the cluster route (K2's stored sums plus xp) equal
+    those of K3's cooperative kernel, which recomputes the sums from the
+    stored y with warp_dot in its order: at each row's first valid frame
+    of the walk (t = len - 1 for the forward direction, t = 0 for the
+    backward one) dh and dc are still zero, so the two routes' dgates
+    there depend on the gates alone and are equal bit for bit; elsewhere
+    dh is summed in another order, within tolerance."""
     t, b, h = 24, 6, 320
-    args = _bwd_inputs(t, b, h, dtype, cuda, seed=29)
+    args, sums = _stored_case("lstm", t, b, h, dtype, cuda, seed=29)
     plan = rnn_cuda.k3_plan(_k3_lib(), b, h, dtype, cuda)
-    chain, coop = _k3_routes(args, plan)
+    chain, coop = _k3_routes(args, sums, plan)
     torch.cuda.synchronize()
     lens = args[-1].cpu().numpy()
     assert (lens > 0).sum() >= 3
@@ -2360,18 +2389,19 @@ def test_k3_routes_agree_and_equal_where_dh_is_zero(cuda, dtype):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("b", [5, 48])
 def test_k3_directions_equal_k6_bit_for_bit(cuda, dtype, b):
-    """Each direction of K3 equals K6 on that direction's operands (the
-    backward one as K6 with reverse), bit for bit over the whole walk:
-    both plans take clusters of 16 at H=320 and rows never meet, so each
-    row's sums are the same whatever the rows a cluster."""
+    """Each direction of K3, on the sums K2 stored, equals K6 on that
+    direction's operands (the backward one as K6 with reverse), whose
+    phase 1 recomputes the sums from K2's y, bit for bit over the whole
+    walk: the recompute invariant, and rows never meet, so each row's
+    chain is the same whatever the rows a cluster."""
     t, h = 30, 320
-    dy_f, dy_b, xp, y_f, c_f, y_b, c_b, w_f, w_b, lens = _bwd_inputs(
-        t, b, h, dtype, cuda, seed=b + 11)
+    args, sums = _stored_case("lstm", t, b, h, dtype, cuda, seed=b + 11)
+    dy_f, dy_b, xp, y_f, c_f, y_b, c_b, w_f, w_b, lens = args
     k3 = rnn_cuda.k3_plan(_k3_lib(), b, h, dtype, cuda)
     k6 = rnn_cuda.k6_plan(_k6_lib(), b, h, dtype, cuda)
     assert k3.cluster == k6.cluster == 16, (k3, k6)
     got = rnn_cuda.bilstm_seq_bwd_dgates(dy_f, dy_b, xp, y_f, c_f, y_b, c_b,
-                                         w_f, w_b, lens)
+                                         w_f, w_b, lens, sums)
     uni = (rnn_cuda.lstm_seq_bwd_dgates(dy_f, xp[..., :4 * h].contiguous(),
                                         y_f, c_f, w_f, lens),
            rnn_cuda.lstm_seq_bwd_dgates(dy_b, xp[..., 4 * h:].contiguous(),
@@ -2382,33 +2412,144 @@ def test_k3_directions_equal_k6_bit_for_bit(cuda, dtype, b):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("t", STORED_T)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("h", [128, 320])
-def test_k3_phase1_kernels_agree_bit_for_bit(cuda, h, dtype):
-    """K3's tiled phase 1 and its warp kernel give the same recurrent sums
-    of both directions bit for bit, on a chunk of steps that starts
-    mid-walk and one that ends it (its last step, each direction's first
-    forward step, sums over zeros)."""
-    t, b = 7, 5
-    _, _, _, y_f, _, y_b, _, w_f, w_b, _ = _bwd_inputs(t, b, h, dtype, cuda,
-                                                       seed=h + 3)
-    lib = _k3_lib()
-    assert rnn_cuda.k3_plan(lib, b, h, dtype, cuda).gate_cols == 0
-    fn = getattr(lib, "bilstm_bwd_gates_" + rnn_cuda._SUFFIX[dtype])
-    for s0, n in ((2, 3), (4, 3)):
-        got = []
-        for cols in (0, 32):
-            pre = torch.full((n, b, 8 * h), float("nan"), device=cuda)
-            _kernels.check(lib, fn(y_f.data_ptr(), y_b.data_ptr(),
-                                   w_f.data_ptr(), w_b.data_ptr(),
-                                   pre.data_ptr(), s0, n, t, b, h, cols,
-                                   _kernels.stream_ptr(cuda)), "K3 phase 1")
-            got.append(pre)
-        torch.cuda.synchronize()
-        assert not got[0].isnan().any()
-        assert torch.equal(got[0], got[1]), (s0, n)
-        if s0 + n == t:                       # the forward's first step
-            assert not got[0][-1].any()
+@pytest.mark.parametrize("family", ["lstm", "gru"])
+def test_k2_k8a_stored_sums_equal_a_plain_recompute(cuda, family, dtype, t):
+    """K2 and K8a with the store at the training shape (B=48, H=320,
+    ragged rows from length T down to 1, some 0): one launch and one store
+    counted, the outputs those of the same forward without the store bit
+    for bit, and every stored sum, pad frames included (nothing left
+    unwritten), an f64 recompute from the stored y over the h the forward
+    carried within the forward's tolerance."""
+    fwd = rnn_cuda.bilstm_seq_fwd if family == "lstm" else \
+        gru_cuda.bigru_seq_fwd
+    before = (fwd.launches, fwd.store_launches)
+    args, sums = _stored_case(family, t, 48, 320, dtype, cuda, seed=t)
+    xp, w_f, w_b, lens = args[2], args[-3], args[-2], args[-1]
+    outs = args[3:7] if family == "lstm" else args[3:5]
+    plain = fwd(xp, w_f, w_b, lens)
+    torch.cuda.synchronize()
+    assert (fwd.launches, fwd.store_launches) == (before[0] + 2,
+                                                  before[1] + 1)
+    for i, (o, p) in enumerate(zip(outs, plain)):
+        assert torch.equal(o, p), i
+    g = (8 if family == "lstm" else 6) * 320
+    assert sums.dtype == torch.float32 and sums.shape == (t, 48, g)
+    ref = _plain_sums(outs[0], outs[-2 if family == "lstm" else 1], w_f,
+                      w_b, lens)
+    assert torch.isfinite(sums).all()
+    _close(sums, ref.float(), LSTM_TOL[dtype], "sums")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("t", STORED_T)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("family", ["lstm", "gru"])
+def test_k3_k8b_on_stored_sums_match_plain(cuda, family, dtype, t):
+    """K3 and K8b on the sums their forward stored, at the training shape
+    (B=48, H=320, ragged rows from length T down to 1, some 0): one launch
+    and one read of the stored sums counted; against the plain version
+    within the backward's tolerance, zero at pad frames; bit for bit the
+    cooperative kernel (which recomputes the sums from y) at each row's
+    first valid walk step, where the carries are zero; and bit for bit
+    the same with every pad step's stored sums replaced by other finite
+    values: no output depends on the sums there (past a row's end the
+    forward direction's sums are over the carried h, where a recompute
+    from y read zeros).  (Not NaN: the GRU's dgh stores dn r there, 0 r,
+    +0 for every finite sum and NaN for a NaN one.)"""
+    args, sums = _stored_case(family, t, 48, 320, dtype, cuda, seed=t + 3)
+    *ops, lens = args
+    lens32 = lens.to(torch.int32)
+    if family == "lstm":
+        bwd, ref_of = (rnn_cuda.bilstm_seq_bwd_dgates,
+                       rnn_cuda.bilstm_seq_bwd_dgates_reference)
+        lib, plan = _k3_lib(), rnn_cuda.k3_plan(_k3_lib(), 48, 320, dtype,
+                                                cuda)
+        chain_of, coop_of = (rnn_cuda._bilstm_bwd_chain,
+                             rnn_cuda._bilstm_bwd_cooperative)
+        names, tol, g = ("dg_f", "dg_b"), LSTM_BWD_TOL[dtype], 4 * 320
+    else:
+        bwd, ref_of = (gru_cuda.bigru_seq_bwd_dgates,
+                       gru_cuda.bigru_seq_bwd_dgates_reference)
+        lib, plan = _k9b_lib(), gru_cuda.k8b_plan(_k9b_lib(), 48, 320,
+                                                  dtype, cuda)
+        chain_of, coop_of = (gru_cuda._bigru_bwd_chain,
+                             gru_cuda._bigru_bwd_cooperative)
+        names, tol, g = K8B_OUTPUTS, GRU_BWD_TOL[dtype], 3 * 320
+    assert plan.route == "cluster", plan
+    before = (bwd.launches, bwd.stored_launches)
+    got = bwd(*args, sums=sums)
+    torch.cuda.synchronize()
+    assert (bwd.launches, bwd.stored_launches) == (before[0] + 1,
+                                                   before[1] + 1)
+    for name, o, r in zip(names, got, ref_of(*args)):
+        _close(o, r, tol, name)
+    _zero_past_lens(got, lens, "dgates")
+    # the cooperative kernel at each row's first valid walk step
+    coop = coop_of(lib, *ops, lens32)
+    half = len(names) // 2
+    rows = torch.arange(48, device=cuda)
+    valid = lens > 0
+    first = (lens.long() - 1).clamp(min=0)
+    for i, (name, o, k) in enumerate(zip(names, got, coop)):
+        at = first if i < half else torch.zeros_like(first)
+        assert torch.equal(o[at, rows][valid], k[at, rows][valid]), name
+    # other finite sums at every pad step change nothing
+    pad_f, pad_b = _pad_steps(lens, t)
+    poisoned = sums.clone()
+    gen = torch.Generator(device=cuda).manual_seed(t)
+    noise = torch.randn(sums.shape, generator=gen, device=cuda) * 100
+    poisoned[..., :g][pad_f] = noise[..., :g][pad_f]
+    poisoned[..., g:][pad_b] = noise[..., g:][pad_b]
+    assert pad_f.any() and pad_b.any()
+    again = chain_of(lib, *ops, lens32, poisoned, plan)
+    torch.cuda.synchronize()
+    for name, o, a in zip(names, got, again):
+        assert torch.equal(o, a), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("family", ["lstm", "gru"])
+def test_train_step_stores_and_reads_the_sums_once_a_layer(cuda, family):
+    """One train step of a 5-layer bidirectional stack of 320 (f32, T cut
+    to 40, ragged) keeps the recurrent sums in each layer's forward and
+    reads them in each layer's backward: five stores, five reads; the
+    eval step after it (``no_grad``, as cv runs) makes five forwards and
+    stores nothing."""
+    from kaldi_ctc_tpu_torch.models.acoustic import AmConfig, init_am_params
+    from kaldi_ctc_tpu_torch.ops.rnn import RnnMode
+    from kaldi_ctc_tpu_torch.training import train
+
+    cfg = AmConfig(input_dim=40, num_targets=72, hidden_dim=320,
+                   num_layers=5,
+                   mode=RnnMode.LSTM if family == "lstm" else RnnMode.GRU)
+    fwd, bwd = ((rnn_cuda.bilstm_seq_fwd, rnn_cuda.bilstm_seq_bwd_dgates)
+                if family == "lstm" else
+                (gru_cuda.bigru_seq_fwd, gru_cuda.bigru_seq_bwd_dgates))
+    rng = np.random.default_rng(2)
+    b, t, lmax = 6, 40, 8
+    batch = {"feats": rng.standard_normal((b, t, 40)).astype(np.float32),
+             "labels": rng.integers(1, 72, (b, lmax)).astype(np.int32),
+             "input_lens": np.array([40, 40, 33, 25, 17, 5], np.int32),
+             "label_lens": np.array([8, 5, 8, 3, 8, 1], np.int32)}
+    params = init_am_params(cfg, torch.Generator().manual_seed(0), cuda)
+
+    def counts():
+        return (fwd.launches, fwd.store_launches, bwd.launches,
+                bwd.stored_launches)
+
+    before = counts()
+    state, m = train.make_train_step(cfg, train.TrainOptions())(
+        train.init_train_state(params), batch)
+    torch.cuda.synchronize()
+    assert bool(m["finite"])
+    assert tuple(a - b for a, b in zip(counts(), before)) == (5, 5, 5, 5)
+    before = counts()
+    ev = train.make_eval_step(cfg)(state.params, batch)
+    torch.cuda.synchronize()
+    assert np.isfinite(float(ev["loss_total"]))
+    assert tuple(a - b for a, b in zip(counts(), before)) == (5, 0, 0, 0)
 
 
 @pytest.mark.cuda
@@ -2418,7 +2559,7 @@ def test_k3_cooperative_route_at_a_large_h(cuda, dtype):
     in either dtype) the plan sends K3 to its cooperative kernel, which
     still matches its plain version."""
     h = K3_COOPERATIVE_H
-    args = _bwd_inputs(10, 3, h, dtype, cuda, seed=h)
+    args, _ = _stored_case("lstm", 10, 3, h, dtype, cuda, h, False)
     assert rnn_cuda.k3_plan(_k3_lib(), 3, h, dtype, cuda).route \
         == "cooperative"
     before = rnn_cuda.bilstm_seq_bwd_dgates.launches
@@ -2436,10 +2577,10 @@ def test_k3_k8a_chain_launch_errors_raise(cuda):
     16 the chains take) raises through _kernels.check: no silent switch
     to the other route or to the plain version."""
     f32 = torch.float32
-    args = _bwd_inputs(6, 3, 32, f32, cuda, seed=1)
+    args, sums = _stored_case("lstm", 6, 3, 32, f32, cuda, 1, False)
     plan = rnn_cuda.k3_plan(_k3_lib(), 3, 32, f32, cuda)
-    with pytest.raises(RuntimeError, match="phase 2"):
-        _k3_routes(args, plan._replace(cluster=32))
+    with pytest.raises(RuntimeError, match="bilstm_seq_bwd_dgates at"):
+        _k3_routes(args, sums, plan._replace(cluster=32))
     xp, (w_f, w_b), _, lens = _gru_inputs(6, 3, 32, f32, cuda, 1, 2)
     plan = gru_cuda.k8a_plan(_gru_lib(), 3, 32, f32, cuda)
     with pytest.raises(RuntimeError, match="bigru_seq_fwd"):
@@ -2448,22 +2589,13 @@ def test_k3_k8a_chain_launch_errors_raise(cuda):
                                   plan._replace(cluster=32))
 
 
-def _k8b_case(t, b, h, dtype, device, seed):
-    """K8b's operands on a forward of K8a's plain version, ragged rows:
-    (dy_f, dy_b, xp, y_f, y_b, w_h_f, w_h_b, lens)."""
-    xp, (w_f, w_b), (dy_f, dy_b), lens = _gru_inputs(t, b, h, dtype, device,
-                                                     seed, 2)
-    y_f, y_b = gru_cuda.bigru_seq_fwd_reference(xp, w_f, w_b, lens)
-    return dy_f, dy_b, xp, y_f, y_b, w_f, w_b, lens
-
-
-def _k8b_routes(args, plan):
-    """(cluster route, cooperative route) of K8b on the same checked
-    operands, each (dgx_f, dgh_f, dgx_b, dgh_b)."""
+def _k8b_routes(args, sums, plan):
+    """(cluster route on K8a's stored ``sums``, cooperative route) of K8b
+    on the same checked operands, each (dgx_f, dgh_f, dgx_b, dgh_b)."""
     lib = _k9b_lib()
     *ops, lens = args
     lens32 = lens.to(torch.int32)
-    return (gru_cuda._bigru_bwd_chain(lib, *ops, lens32, plan),
+    return (gru_cuda._bigru_bwd_chain(lib, *ops, lens32, sums, plan),
             gru_cuda._bigru_bwd_cooperative(lib, *ops, lens32))
 
 
@@ -2475,17 +2607,15 @@ K8B_OUTPUTS = ("dgx_f", "dgh_f", "dgx_b", "dgh_b")
 @pytest.mark.parametrize("b", [1, 48, 600])
 def test_k8b_chain_matches_plain_at_any_batch(cuda, dtype, b):
     """K8b on its cluster route at H=320 at B = 1, 48 and 600 (one launch,
-    36 rows a cluster; at B=600, T=120 the phase-1 scratch is above 256
-    MiB, so the walk runs in three chunks of steps) against its plain
-    version, ragged rows, zero at pad frames, one launch a call."""
+    36 rows a cluster at B=600; the walk whole, at T=120 on 553 MB of
+    sums) on the sums K8a stored, against its plain version, ragged rows,
+    zero at pad frames, one launch a call."""
     t = 120 if b == 600 else 30
-    args = _k8b_case(t, b, 320, dtype, cuda, b + 9)
+    args, sums = _stored_case("gru", t, b, 320, dtype, cuda, b + 9, False)
     plan = gru_cuda.k8b_plan(_k9b_lib(), b, 320, dtype, cuda)
     assert plan.route == "cluster" and plan.cluster == 16, plan
-    assert -(-t // rnn_cuda._scratch_steps(t, b, 6 * 320)) == \
-        (3 if b == 600 else 1)
     before = gru_cuda.bigru_seq_bwd_dgates.launches
-    got = gru_cuda.bigru_seq_bwd_dgates(*args)
+    got = gru_cuda.bigru_seq_bwd_dgates(*args, sums=sums)
     torch.cuda.synchronize()
     assert gru_cuda.bigru_seq_bwd_dgates.launches == before + 1
     for name, g, r in zip(K8B_OUTPUTS, got,
@@ -2496,33 +2626,17 @@ def test_k8b_chain_matches_plain_at_any_batch(cuda, dtype, b):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_k8b_in_chunks_of_steps_equal_one_chunk(cuda, dtype, monkeypatch):
-    """K8b with its scratch cut to 3 steps: the chain carries both
-    directions' dh between the chunks, and the outputs equal one chunk's
-    bit for bit."""
-    t, b, h = 10, 5, 320
-    args = _k8b_case(t, b, h, dtype, cuda, 17)
-    whole = gru_cuda.bigru_seq_bwd_dgates(*args)
-    with monkeypatch.context() as m:
-        m.setattr(gru_cuda, "_scratch_steps", lambda *a: 3)
-        chunked = gru_cuda.bigru_seq_bwd_dgates(*args)
-    torch.cuda.synchronize()
-    for name, c, w in zip(K8B_OUTPUTS, chunked, whole):
-        assert torch.equal(c, w), name
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_k8b_routes_agree_and_equal_where_dh_is_zero(cuda, dtype):
-    """The recompute invariant, witnessed by K8b's cooperative kernel: at
-    each row's first valid walk step (t = len - 1 forward, t = 0
+    """The gates of the cluster route (K8a's stored sums) equal those of
+    K8b's cooperative kernel, which recomputes the sums from the stored
+    y: at each row's first valid walk step (t = len - 1 forward, t = 0
     backward) dh is still zero, so the two routes' outputs there depend
     on the gates alone and are equal bit for bit; elsewhere dh is summed
     in another order, within tolerance."""
     t, b, h = 24, 6, 320
-    args = _k8b_case(t, b, h, dtype, cuda, 31)
+    args, sums = _stored_case("gru", t, b, h, dtype, cuda, 31)
     plan = gru_cuda.k8b_plan(_k9b_lib(), b, h, dtype, cuda)
-    chain, coop = _k8b_routes(args, plan)
+    chain, coop = _k8b_routes(args, sums, plan)
     torch.cuda.synchronize()
     lens = args[-1].cpu().numpy()
     assert (lens > 0).sum() >= 3
@@ -2538,15 +2652,17 @@ def test_k8b_routes_agree_and_equal_where_dh_is_zero(cuda, dtype):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("b", [5, 48])
 def test_k8b_directions_equal_k9b_bit_for_bit(cuda, dtype, b):
-    """Each direction of K8b equals K9b's cluster route on that
-    direction's operands (the backward one as K9b with reverse), bit for
-    bit over the whole walk: rows never meet, so 16 rows a cluster (K8b at
-    B=48) against K9b's 8 change no row's sums."""
+    """Each direction of K8b, on the sums K8a stored, equals K9b's cluster
+    route on that direction's operands (the backward one as K9b with
+    reverse), whose phase 1 recomputes the sums from K8a's y, bit for bit
+    over the whole walk: the recompute invariant, and rows never meet, so
+    16 rows a cluster (K8b at B=48) against K9b's 8 change no row's
+    chain."""
     t, h = 30, 320
-    dy_f, dy_b, xp, y_f, y_b, w_f, w_b, lens = _k8b_case(t, b, h, dtype,
-                                                         cuda, b + 13)
+    args, sums = _stored_case("gru", t, b, h, dtype, cuda, b + 13)
+    dy_f, dy_b, xp, y_f, y_b, w_f, w_b, lens = args
     got = gru_cuda.bigru_seq_bwd_dgates(dy_f, dy_b, xp, y_f, y_b, w_f, w_b,
-                                        lens)
+                                        lens, sums=sums)
     uni = (gru_cuda.gru_seq_bwd_dgates(dy_f, xp[..., :3 * h].contiguous(),
                                        y_f, w_f, lens)
            + gru_cuda.gru_seq_bwd_dgates(dy_b, xp[..., 3 * h:].contiguous(),
@@ -2558,40 +2674,12 @@ def test_k8b_directions_equal_k9b_bit_for_bit(cuda, dtype, b):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("h", [128, 320])
-def test_k8b_phase1_kernels_agree_bit_for_bit(cuda, h, dtype):
-    """K8b's tiled phase 1 and its warp kernel give the same recurrent
-    sums of both directions bit for bit, on a chunk of steps mid-walk and
-    one that ends it (each direction's first forward step sums zeros)."""
-    t, b = 7, 5
-    _, _, _, y_f, y_b, w_f, w_b, _ = _k8b_case(t, b, h, dtype, cuda, h + 5)
-    lib = _k9b_lib()
-    assert gru_cuda.k8b_plan(lib, b, h, dtype, cuda).gate_cols == 0
-    fn = getattr(lib, "bigru_bwd_gates_" + rnn_cuda._SUFFIX[dtype])
-    for s0, n in ((2, 3), (4, 3)):
-        got = []
-        for cols in (0, 32):
-            pre = torch.full((n, b, 6 * h), float("nan"), device=cuda)
-            _kernels.check(lib, fn(y_f.data_ptr(), y_b.data_ptr(),
-                                   w_f.data_ptr(), w_b.data_ptr(),
-                                   pre.data_ptr(), s0, n, t, b, h, cols,
-                                   _kernels.stream_ptr(cuda)), "K8b phase 1")
-            got.append(pre)
-        torch.cuda.synchronize()
-        assert not got[0].isnan().any()
-        assert torch.equal(got[0], got[1]), (s0, n)
-        if s0 + n == t:                       # the forward's first step
-            assert not got[0][-1].any()
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_k8b_cooperative_route_at_a_large_h(cuda, dtype):
     """Where W_h's gate columns as f32 fit no cluster of 16 (from H ~545,
     in either dtype) the plan sends K8b to its cooperative kernel, which
     still matches its plain version."""
     h = BWD_COOPERATIVE_H["K9b"]
-    args = _k8b_case(10, 3, h, dtype, cuda, h)
+    args, _ = _stored_case("gru", 10, 3, h, dtype, cuda, h, False)
     assert gru_cuda.k8b_plan(_k9b_lib(), 3, h, dtype, cuda).route \
         == "cooperative"
     before = gru_cuda.bigru_seq_bwd_dgates.launches
@@ -2607,10 +2695,10 @@ def test_k8b_cooperative_route_at_a_large_h(cuda, dtype):
 def test_k8b_chain_launch_errors_raise(cuda):
     """A cluster launch the card refuses (a cluster of 32 CTAs) raises
     through _kernels.check."""
-    args = _k8b_case(6, 3, 32, torch.float32, cuda, 1)
+    args, sums = _stored_case("gru", 6, 3, 32, torch.float32, cuda, 1)
     plan = gru_cuda.k8b_plan(_k9b_lib(), 3, 32, torch.float32, cuda)
-    with pytest.raises(RuntimeError, match="phase 2"):
-        _k8b_routes(args, plan._replace(cluster=32))
+    with pytest.raises(RuntimeError, match="bigru_seq_bwd_dgates at"):
+        _k8b_routes(args, sums, plan._replace(cluster=32))
 
 
 def _above_ceiling(source, signatures, query, *dims):
@@ -2642,7 +2730,8 @@ def _sliced_case(name, t, h, device):
                            "bilstm_bwd_max_rows_f32", h)
         return (rnn_cuda.bilstm_seq_bwd_dgates,
                 rnn_cuda.bilstm_seq_bwd_dgates_reference,
-                _bwd_inputs(t, b, h, f32, device, seed=b), BILSTM_BWD_F32_TOL)
+                _stored_case("lstm", t, b, h, f32, device, b, False)[0],
+                BILSTM_BWD_F32_TOL)
     if name == "K5":
         # only K5's cooperative route keeps its rows in one block: H=512
         assert rnn_cuda.fwd_chain_plan(1, 0, K5_COOPERATIVE_H, f32, 1, 132,

@@ -495,7 +495,9 @@ def _check_bwd_plan(plan, b, h, dirs, gates):
     want = min(b, -(-b // max(1, H100_SMS * 3 // 4 // (dirs * c))))
     assert r == want or (r < want and _bwd_bytes(c, r + 1, h, gates, words)
                          > H100_SMEM), plan
-    if h <= 426:         # gates_tiled_smem(0, H) of csrc/lstm_gates.cuh
+    if dirs == 2:        # K3 and K8b: no phase 1
+        assert plan.gate_cols == 0 and plan.gates_smem == 0
+    elif h <= 426:       # gates_tiled_smem(0, H) of csrc/lstm_gates.cuh
         assert plan.gate_cols == 0 and plan.gates_smem == 4 * (136 * h + 64)
     else:                # gates_smem(32, 0, H)
         assert plan.gate_cols == 32 and plan.gates_smem == 4 * 32 * (h + 1)
@@ -507,8 +509,8 @@ def _check_bwd_plan(plan, b, h, dirs, gates):
 def test_bwd_chain_plan_fits_every_shape(b, gates):
     """bwd_chain_plan at every H from 8 to the cluster route's last, in
     both dtypes, one direction (K6, K9b) and two (K3): a cluster plan that
-    fits one H100 block's shared memory at B = 1, 48 and 600, its phase 1
-    tiled to H = 426."""
+    fits one H100 block's shared memory at B = 1, 48 and 600, with one
+    direction its phase 1 tiled to H = 426 (with two, no phase 1)."""
     last = 464 if gates == 4 else 544
     for h in list(range(8, last + 1, 24)) + [320, 426, 427, last]:
         for dtype in (torch.float32, torch.bfloat16):
@@ -677,14 +679,14 @@ def test_k8b_plan_is_the_two_direction_gru_chain(h100, dtype, b, rows, smem):
     """``k8b_plan`` is bwd_chain_plan with three gates and both
     directions: at H=320 the cluster route at every batch, clusters of 16,
     16 rows a cluster at the training batch (three clusters a direction,
-    96 CTAs; 144,704 B a CTA), 36 at B=600 in one launch, phase 1 tiled
-    (174,336 B a block)."""
+    96 CTAs; 144,704 B a CTA), 36 at B=600 in one launch, and no phase 1
+    (it reads the sums K8a stored)."""
     plan = gru_cuda.k8b_plan(None, b, 320, dtype, "cuda")
     assert plan == rnn_cuda.bwd_chain_plan(b, 320, dtype, 2, H100_SMS,
                                            H100_SMEM, gates=3)
     _check_bwd_plan(plan, b, 320, 2, 3)
     assert (plan.route, plan.cluster, plan.rows) == ("cluster", 16, rows)
-    assert plan.gates_smem == 174336
+    assert plan.gate_cols == plan.gates_smem == 0
     if smem is not None:
         assert plan.chain_smem == smem
 
@@ -703,6 +705,93 @@ def test_k8b_routes_by_h(h100, dtype):
         for b in (1, 48, 600):
             assert gru_cuda.k8b_plan(None, b, h, dtype, "cuda") == (
                 "cooperative", 0, 0, 0, 0, 0)
+
+
+# ---------------------------------------------------------------------------
+# K3 and K8b on the recurrent sums K2 and K8a stored
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("gates", [4, 3], ids=["lstm", "gru"])
+def test_forward_takes_its_cluster_route_wherever_the_backward_does(gates):
+    """K3's and K8b's cluster route reads the recurrent sums that K2's
+    and K8a's cluster route stored: wherever bwd_chain_plan gives the
+    two-direction backward its cluster route, fwd_chain_plan gives the
+    forward its own, at every H, batch and dtype, on the H100 and on
+    cards with less shared memory a block (163 and 99 KiB); on the H100
+    the LSTM's backward stops at H 465 and its forward at 472 in f32, the
+    GRU's both at 544."""
+    for smem in (H100_SMEM, 166912, 101376):
+        for dtype in (torch.float32, torch.bfloat16):
+            for h in range(8, 1032, 8):
+                for b in (1, 48, 600):
+                    bwd = rnn_cuda.bwd_chain_plan(b, h, dtype, 2, H100_SMS,
+                                                  smem, gates)
+                    fwd = rnn_cuda.fwd_chain_plan(b, 0, h, dtype, 2,
+                                                  H100_SMS, smem, gates)
+                    if bwd.route == "cluster":
+                        assert fwd.route == "cluster", (smem, dtype, h, b)
+    last = {4: (465, 472), 3: (544, 544)}[gates]
+    for h, route in zip(last, ("cluster", "cluster")):
+        assert rnn_cuda.fwd_chain_plan(48, 0, h, torch.float32, 2, H100_SMS,
+                                       H100_SMEM, gates).route == route
+    assert rnn_cuda.bwd_chain_plan(48, last[0], torch.float32, 2, H100_SMS,
+                                   H100_SMEM, gates).route == "cluster"
+    assert rnn_cuda.bwd_chain_plan(48, last[0] + 1, torch.float32, 2,
+                                   H100_SMS, H100_SMEM,
+                                   gates).route == "cooperative"
+
+
+@pytest.mark.parametrize("mode", ["train", "no_grad", "inference_mode",
+                                  "frozen"])
+@pytest.mark.parametrize("family", ["lstm", "gru"])
+def test_layer_asks_for_the_sums_only_where_a_backward_is_recorded(
+        monkeypatch, family, mode):
+    """``bilstm_layer`` and ``bigru_layer`` ask their forward (K2, K8a)
+    to keep the recurrent sums exactly where autograd records a backward:
+    grad mode on and an operand requiring a gradient.  Evaluation under
+    ``no_grad`` (cv), serving and decoding under ``inference_mode``, and
+    a layer with nothing to differentiate store nothing.  In training the
+    backward runs and returns a gradient for every differentiable
+    operand (the plain versions here: the sums are None on the CPU)."""
+    mod, fwd_name = ((rnn_cuda, "bilstm_seq_fwd") if family == "lstm"
+                     else (gru_cuda, "bigru_seq_fwd"))
+    layer = rnn_cuda.bilstm_layer if family == "lstm" else gru_cuda.bigru_layer
+    gates = 4 if family == "lstm" else 3
+    asked = []
+    real = getattr(mod, fwd_name)
+
+    def spy(*args, store_sums=False, **kw):
+        asked.append(store_sums)
+        return real(*args, store_sums=store_sums, **kw)
+
+    monkeypatch.setattr(mod, fwd_name, spy)
+    rng = np.random.default_rng(5)
+    d, h = 5, 4
+    x = _mat(rng, T, B, d)
+    leaves = [_mat(rng, d, 2 * gates * h, scale=0.4),
+              _mat(rng, 2 * gates * h, scale=0.1),
+              _mat(rng, h, gates * h, scale=0.4),
+              _mat(rng, h, gates * h, scale=0.4)]
+    if mode != "frozen":
+        for v in leaves:
+            v.requires_grad_(True)
+    lens = torch.as_tensor(LENS)
+    if mode == "no_grad":
+        with torch.no_grad():
+            y_f, y_b = layer(x, *leaves, lens)
+    elif mode == "inference_mode":
+        with torch.inference_mode():
+            y_f, y_b = layer(x, *leaves, lens)
+    else:
+        y_f, y_b = layer(x, *leaves, lens)
+    assert asked == [mode == "train"]
+    if mode == "train":
+        (y_f.float().sum() + 2 * y_b.float().sum()).backward()
+        for v in leaves:
+            assert v.grad is not None and torch.isfinite(v.grad).all()
+    else:
+        assert not y_f.requires_grad and not y_b.requires_grad
 
 
 # ---------------------------------------------------------------------------
