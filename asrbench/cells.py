@@ -4,7 +4,9 @@ Everything that belongs to one configuration, traffic mix, per-layer
 metric, layer or cell is a file of its own, found by the name that
 ``BENCHMARK.json`` gives it:
 
-- ``configs/<config>.json`` (the path is the config entry's ``file``);
+- ``configs/<config>.json`` (the path is the config entry's ``file``),
+  whose ``family`` names ``families/<family>.py``, the model's code
+  (``google`` where it names none);
 - ``traffic/<traffic>.json``, whose ``kind`` names the driver
   ``drivers/<kind>.py`` that runs it;
 - ``metrics/<metric>.py``, a reader with ``read(ctx)`` that returns the
@@ -27,6 +29,8 @@ import json
 import os
 import re
 from typing import Dict, List
+
+from asrbench import families
 
 __all__ = ["Cell", "load_benchmark", "validate", "find_cell",
            "kernel_layers", "metric_reader", "driver_for", "HERE"]
@@ -114,6 +118,12 @@ def validate(bench: dict, root: str, bench_dir: str = HERE) -> List[str]:
             e.append(f"config {c.get('name')}: file {f} not under paths")
         elif not os.path.exists(os.path.join(root, f)):
             e.append(f"config {c.get('name')}: {f} missing")
+        else:
+            with open(os.path.join(root, f)) as fh:
+                family = json.load(fh).get("family", families.DEFAULT)
+            if not families.NAME.match(str(family)) or not os.path.exists(
+                    os.path.join(bench_dir, "families", f"{family}.py")):
+                e.append(f"config {c.get('name')}: no family {family!r}")
         if len(c.get("reduced", [])) > 16 or any(
                 not _NAME.match(k) for k in c.get("reduced", [])):
             e.append(f"config {c.get('name')}: reduced")

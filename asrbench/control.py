@@ -35,18 +35,12 @@ def control_train(cell, seed: int) -> dict:
     from asrbench import checks, reference as ref, traffic as tr, weights
     from asrbench.drivers import train as drv
 
-    cfg, t = cell.config, cell.traffic
-    f = t["train_flags"]
-    fs = int(f["frame-subsampling-factor"])
-    pool = tr.train_pool(t, seed, "train")
-    batches = []
-    for g in drv.schedule(t, seed, pool, 3):
-        batches.append([(tr.utterance_features(pool[i], seed,
-                                               int(cfg["input_dim"]))[0::fs],
-                         drv._labels(tr.utterance_alignment(pool[i], t, seed)))
-                        for i in sum(g["ranks"], [])])
+    cfg, f = cell.config, cell.traffic["train_flags"]
+    pool = tr.train_pool(cell.traffic, seed, "train")
+    batches = drv.step_rows(cell, seed, pool,
+                            drv.schedule(cell, seed, pool, 3))
     p0 = weights.make_params(cfg, seed, "cuda")
-    num_steps = drv.num_steps(t, pool)
+    num_steps = drv.num_steps(cell, pool)
     lr_i, lr_f = (float(f["initial-learning-rate"]),
                   float(f["final-learning-rate"]))
     args = (batches, cfg, lr_i, lr_f, num_steps)
@@ -70,7 +64,7 @@ def control_train(cell, seed: int) -> dict:
 def control_recognize(cell, seed: int, seconds: float) -> dict:
     import numpy as np
 
-    from asrbench import reference as ref, traffic as tr, weights
+    from asrbench import families, reference as ref, traffic as tr, weights
     from asrbench.drivers import recognize as drv
 
     cfg, t = cell.config, cell.traffic
@@ -78,7 +72,8 @@ def control_recognize(cell, seed: int, seconds: float) -> dict:
                       key=lambda r: r.samples)
     pcm = tr.pcm_pool(t, seed)
     tree = weights.unflatten(cfg, weights.make_params(cfg, seed, "cuda"))
-    feats = [ref.mfcc_hires(tr.request_pcm(pcm, r)) for r in requests]
+    front = families.of(cfg).features
+    feats = [front(cfg, tr.request_pcm(pcm, r)) for r in requests]
     gap, flips = 0.0, 0
     for i in range(0, len(requests), drv.BLOCK):
         exact = ref.scores(tree, feats[i:i + drv.BLOCK], cfg, "cuda")

@@ -29,7 +29,7 @@ import time
 
 import numpy as np
 
-from asrbench import cells, proc, traffic as tr
+from asrbench import cells, families, proc, traffic as tr
 
 __all__ = ["run", "post", "Client"]
 
@@ -115,7 +115,8 @@ def _reference_check(cell, seed: int, pcm: np.ndarray, sample, out: dict,
 
     cfg = cell.config
     tree = weights.unflatten(cfg, weights.make_params(cfg, seed, device))
-    feats = [ref.mfcc_hires(tr.request_pcm(pcm, r)) for r in sample]
+    front = families.of(cfg).features
+    feats = [front(cfg, tr.request_pcm(pcm, r)) for r in sample]
     gap, frames_differ, missing = 0.0, 0, 0
     # in blocks of utterances of like lengths: the reference's loop over
     # frames is batched, its memory small

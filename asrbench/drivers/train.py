@@ -23,9 +23,9 @@ import time
 import numpy as np
 
 from asrbench import batches as bt
-from asrbench import cells, checks, proc, traffic as tr
+from asrbench import cells, checks, families, proc, traffic as tr
 
-__all__ = ["run", "schedule", "warm_steps", "num_steps"]
+__all__ = ["run", "schedule", "warm_steps", "num_steps", "step_rows"]
 
 CAPTURE = (1, 3)
 
@@ -38,35 +38,41 @@ def _program_seed(seed: int) -> int:
     return int(seed) % (1 << 62)
 
 
-def schedule(traffic: dict, seed: int, pool, steps: int):
+def _stride(cell) -> int:
+    return families.of(cell.config).time_stride(cell.config)
+
+
+def schedule(cell, seed: int, pool, steps: int):
     """The program's first ``steps`` global batches, worked out again
     (``batches.global_batches``)."""
-    f = _flags(traffic)
+    f = _flags(cell.traffic)
     return bt.global_batches(pool, _program_seed(seed),
                              int(f["minibatch-size"]),
                              int(f["max-allow-frames"]),
                              int(f["frame-subsampling-factor"]),
-                             int(traffic.get("processes", 1)), steps)
+                             int(cell.traffic.get("processes", 1)), steps,
+                             time_stride=_stride(cell))
 
 
-def warm_steps(traffic: dict, seed: int, pool) -> int:
+def warm_steps(cell, seed: int, pool) -> int:
     """Steps of the first ``warmup_epochs`` epochs."""
-    epochs = int(traffic.get("warmup_epochs", 1))
+    epochs = int(cell.traffic.get("warmup_epochs", 1))
     n = 64
     while True:
-        sched = schedule(traffic, seed, pool, n)
+        sched = schedule(cell, seed, pool, n)
         if sched[-1]["epoch"] >= epochs:
             return sum(g["epoch"] < epochs for g in sched)
         n *= 2
 
 
-def num_steps(traffic: dict, pool) -> int:
+def num_steps(cell, pool) -> int:
     """``train_ctc``'s lr decay horizon: a process's loaded utterances
     over its batch, times the epochs."""
-    f = _flags(traffic)
-    n = int(traffic.get("processes", 1))
+    f = _flags(cell.traffic)
+    n = int(cell.traffic.get("processes", 1))
     shard = bt.rank_shards(pool, n, int(f["max-allow-frames"]),
-                           int(f["frame-subsampling-factor"]))[0]
+                           int(f["frame-subsampling-factor"]),
+                           time_stride=_stride(cell))[0]
     return max(len(shard) // (int(f["minibatch-size"]) // n), 1) * int(
         f["epochs"])
 
@@ -83,13 +89,8 @@ def _command(cell, seed: int, run_dir: str, device: str) -> list:
     cmd = [py, "-m", "kaldi_ctc_tpu_torch.cli.train_ctc",
            "--feats", piped("train", "feats"), "--ali", piped("train", "ali"),
            "--valid-feats", piped("valid", "feats"),
-           "--valid-ali", piped("valid", "ali"),
-           "--num-targets", str(cfg["num_targets"]),
-           "--hidden-dim", str(cfg["hidden_dim"]),
-           "--num-layers", str(cfg["num_layers"]),
-           "--rnn-mode", str(cfg["rnn_mode"]),
-           "--bidirectional", str(cfg["bidirectional"]),
-           "--compute-dtype", cfg["compute_dtype"]]
+           "--valid-ali", piped("valid", "ali")]
+    cmd += families.of(cfg).program_flags(cfg)
     for k, v in _flags(t).items():
         cmd += [f"--{k}", str(v)]
     cmd += ["--seed", str(_program_seed(seed)),
@@ -107,6 +108,16 @@ def _labels(ali: np.ndarray) -> np.ndarray:
     return (ali[keep] + 1).astype(np.int64)
 
 
+def step_rows(cell, seed: int, pool, groups) -> list:
+    """The rows of each global batch in ``groups`` as the reference
+    takes them: (features subsampled at shift 0, labels)."""
+    fs = int(_flags(cell.traffic)["frame-subsampling-factor"])
+    dim = int(cell.config["input_dim"])
+    return [[(tr.utterance_features(pool[i], seed, dim)[0::fs],
+              _labels(tr.utterance_alignment(pool[i], cell.traffic, seed)))
+             for i in sum(g["ranks"], [])] for g in groups]
+
+
 def _reference_check(cell, seed: int, run_dir: str, pool, res: dict,
                      device: str) -> dict:
     """Readings of the program's first three steps against the
@@ -116,24 +127,14 @@ def _reference_check(cell, seed: int, run_dir: str, pool, res: dict,
     from asrbench import reference as ref
     from asrbench import weights
 
-    cfg, t, f = cell.config, cell.traffic, _flags(cell.traffic)
-    fs = int(f["frame-subsampling-factor"])
-    sched = schedule(t, seed, pool, len(res["batch_keys"]))
+    cfg, f = cell.config, _flags(cell.traffic)
+    sched = schedule(cell, seed, pool, len(res["batch_keys"]))
     # every batch the program's first process took, against the rules
     differ = sum([pool[i].key for i in g["ranks"][0]] != keys
                  for g, (_, keys) in zip(sched, res["batch_keys"]))
-    mine = [sum(g["ranks"], []) for g in sched[:max(CAPTURE)]]
-    batches = []
-    for b in mine:
-        rows = []
-        for i in b:
-            u = pool[i]
-            feats = tr.utterance_features(u, seed, int(cfg["input_dim"]))
-            rows.append((feats[0::fs] if fs > 1 else feats,
-                         _labels(tr.utterance_alignment(u, t, seed))))
-        batches.append(rows)
+    batches = step_rows(cell, seed, pool, sched[:max(CAPTURE)])
     p0 = weights.make_params(cfg, seed, device)
-    horizon = num_steps(t, pool)
+    horizon = num_steps(cell, pool)
     lr_i, lr_f = (float(f["initial-learning-rate"]),
                   float(f["final-learning-rate"]))
     out = ref.sgd_steps(p0, batches, cfg, lr_i, lr_f, horizon,
@@ -142,9 +143,10 @@ def _reference_check(cell, seed: int, run_dir: str, pool, res: dict,
     with open(os.path.join(run_dir, "exp", "metrics.jsonl")) as fh:
         for line in fh:
             r = json.loads(line)
-            if r.get("event") == "train_step" and r["step"] <= len(mine):
+            if r.get("event") == "train_step" and r["step"] <= len(batches):
                 losses[r["step"]] = r["loss_per_frame"]
-    prog_loss = [losses.get(s + 1, float("nan")) for s in range(len(mine))]
+    prog_loss = [losses.get(s + 1, float("nan"))
+                 for s in range(len(batches))]
     p1 = [x.to(device) for x in torch.load(
         os.path.join(run_dir, "params_step1.pt"))]
     p3 = [x.to(device) for x in torch.load(
@@ -174,6 +176,32 @@ def _reference_check(cell, seed: int, run_dir: str, pool, res: dict,
     }
 
 
+def _merge_ranks(res: dict, others: list) -> None:
+    """Fold the further processes' results into the first's: the
+    fullest card's memory peak, and the traces averaged over the cards
+    (busy and window seconds, device seconds by operation and by layer;
+    the idle gaps stay the first process's, named by its spans)."""
+    if not others:
+        return
+    every = [res] + others
+    res["memory_peak_bytes"] = max(int(r.get("memory_peak_bytes", 0))
+                                   for r in every)
+    if not res.get("trace"):
+        return
+    traces = [r["trace"] for r in every]
+    n = float(len(traces))
+    tr0 = res["trace"]
+    for key in ("busy_s", "window_s"):
+        tr0[key] = sum(x[key] for x in traces) / n
+    for key in ("op_seconds", "layer_s"):
+        names = {k for x in traces for k in x[key]}
+        tr0[key] = {k: sum(x[key].get(k, 0.0) for x in traces) / n
+                    for k in names}
+    ops = sorted(tr0["op_seconds"].items(), key=lambda kv: -kv[1])
+    tr0["device_ops"] = [[k, v] for k, v in ops[:10]]
+    tr0["device_events"] = sum(x["device_events"] for x in traces)
+
+
 def run(cell: cells.Cell, seed: int, seconds: float, trace: bool,
         t_start: float, device: str = "cuda", fault=None,
         check_cards=None) -> dict:
@@ -183,7 +211,7 @@ def run(cell: cells.Cell, seed: int, seconds: float, trace: bool,
     t = cell.traffic
     f = _flags(t)
     pool = tr.train_pool(t, seed, "train")
-    warm = warm_steps(t, seed, pool)
+    warm = warm_steps(cell, seed, pool)
     run_dir = tempfile.mkdtemp(prefix="asrbench-train-")
     try:
         settings = {"role": "train",
@@ -204,15 +232,20 @@ def run(cell: cells.Cell, seed: int, seconds: float, trace: bool,
                 check_cards()
             res = proc.wait_for(os.path.join(run_dir, "results.json"), p,
                                 timeout_s=1100.0)
+            others = [proc.wait_for(os.path.join(
+                run_dir, f"results.rank{r}.json"), p, timeout_s=300.0)
+                for r in range(1, int(t.get("processes", 1)))
+                if res is not None]
         finally:
             proc.end(p)
-        if res is None:
+        if res is None or None in others:
             sys.stderr.write(proc.tail(log))
             raise RuntimeError("train_ctc ended before the window closed")
+        _merge_ranks(res, others)
         t_open, t_end = res["t_open"], res["t_open"] + float(seconds)
         stamps = res["stamps"]
         fs = int(f["frame-subsampling-factor"])
-        sched = schedule(t, seed, pool, len(stamps))
+        sched = schedule(cell, seed, pool, len(stamps))
 
         def step_work(k):
             # the global batch: the first process's rows as it recorded

@@ -1,11 +1,10 @@
 """Operations and bytes from the shapes alone, and the card's peaks.
 
-The work a configuration needs, whatever kernel does it: the matrix
-products of the forward (input projections, recurrent products, the
-output affine) at 2 operations a multiply-add, the backward at twice the
-forward, and, for the recurrent stack's roofline, the recurrent products
-alone with each input byte read once and each output byte written once
-(``PERF.md``'s rule).  Elementwise gate arithmetic is not counted.
+The work a configuration needs, whatever kernel does it, as its family
+(``families``) counts it: the forward's matrix products at 2 operations
+a multiply-add, the backward at twice the forward, and, for a layer's
+roofline, the least operations and bytes of the layers that
+``kernels/*.json`` names.
 """
 
 from __future__ import annotations
@@ -14,25 +13,17 @@ import json
 import os
 from typing import Dict, Sequence
 
+from asrbench import families
+
 __all__ = ["forward_flops_per_frame", "train_flops_per_frame",
            "recurrent_work", "least_seconds", "peaks_for"]
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 
 
-def _gates(cfg: dict) -> int:
-    return {2: 4, 3: 3}[int(cfg["rnn_mode"])]
-
-
 def forward_flops_per_frame(cfg: dict) -> float:
-    """Forward operations for one (output) frame of one utterance."""
-    h, g = int(cfg["hidden_dim"]), _gates(cfg)
-    dirs = 2 if int(cfg["bidirectional"]) else 1
-    total = 0.0
-    for layer in range(int(cfg["num_layers"])):
-        d_in = int(cfg["input_dim"]) if layer == 0 else h * dirs
-        total += dirs * (2.0 * d_in * g * h + 2.0 * h * g * h)
-    return total + 2.0 * h * dirs * int(cfg["num_targets"])
+    """Forward operations for one (input) frame of one utterance."""
+    return families.of(cfg).forward_flops_per_frame(cfg)
 
 
 def train_flops_per_frame(cfg: dict) -> float:
@@ -43,22 +34,11 @@ def train_flops_per_frame(cfg: dict) -> float:
 
 def recurrent_work(cfg: dict, frames: Sequence[int], backward: bool
                    ) -> Dict[str, float]:
-    """The recurrent stack's work over utterances of ``frames`` valid
-    frames: the recurrent products ``h W_h`` (and, with ``backward``,
-    ``dgates W_h^T``) of every layer and direction, and the bytes each
-    direction must move at least (f32): its input projection read, its
-    outputs written, W_h read; the backward also reads the outputs'
-    gradients and writes the gates' gradients."""
-    h, g = int(cfg["hidden_dim"]), _gates(cfg)
-    dirs = 2 if int(cfg["bidirectional"]) else 1
-    layers = int(cfg["num_layers"])
-    n = float(sum(frames))
-    passes = 2.0 if backward else 1.0
-    flops = passes * layers * dirs * n * 2.0 * h * g * h
-    per_dir = n * (g * h + h) * 4.0 + h * g * h * 4.0
-    if backward:
-        per_dir += n * (h + g * h) * 4.0 + h * g * h * 4.0
-    return {"flops": flops, "bytes": layers * dirs * per_dir}
+    """{"flops", "bytes"} of the recurrent stack over utterances of
+    ``frames`` input frames (with ``backward``, the backward's too): the
+    family's ``layer_work``."""
+    return families.of(cfg).layer_work(cfg, "recurrent stack", frames,
+                                       backward)
 
 
 def least_seconds(work: Dict[str, float], peak_flops: float,

@@ -10,8 +10,9 @@ settings file.  It runs before the program's ``main``:
   ``serve --model`` loads;
 - it stamps the measured window with the host clock: a training run's
   window opens at the record of step ``warm_steps`` and closes at the
-  first record past ``seconds``; a server's window is opened and closed
-  by the harness with SIGUSR1 and SIGUSR2;
+  first record past ``seconds``, in each process under ``launch`` at
+  its own records; a server's window is opened and closed by the
+  harness with SIGUSR1 and SIGUSR2;
 - in a traced run it opens ``torch.profiler`` for the window alone and,
   in ``train_ctc``, puts ``record_function`` spans around the calls into
   the program's layers;
@@ -20,7 +21,11 @@ settings file.  It runs before the program's ``main``:
 - with ``fault`` set (the benchmark's own tests and the planted-fault
   readings) it breaks the timed path underneath.
 
-At the window's close it writes ``results.json`` beside the settings.
+At the window's close it writes ``results.json`` beside the settings;
+under ``launch`` each further process writes ``results.rank<r>.json``
+(its card's memory peak and trace), and the processes train on until
+the harness ends them, since a process that left would stall the
+others' next all-reduce.
 """
 
 from __future__ import annotations
@@ -44,14 +49,16 @@ def _write_json(path: str, obj) -> None:
 class _Window:
     """The window's stamps, the profiler and the results file."""
 
-    def __init__(self, settings: dict, device):
+    def __init__(self, settings: dict, device, rank: int = 0):
         self.s = settings
         self.device = device
         self.prof = None
         self.t_open = None
         self.closed = False
         self.trace_ns = None
-        self.results_path = os.path.join(settings["run_dir"], "results.json")
+        self.results_path = os.path.join(
+            settings["run_dir"],
+            f"results.rank{rank}.json" if rank else "results.json")
 
     def open(self) -> None:
         import torch
@@ -129,6 +136,7 @@ def _install_train(s: dict) -> None:
     cfg = s["config"]
     device = _device(s)
     rank = int(os.environ.get("PROCESS_ID", "0"))
+    alone = int(os.environ.get("NUM_PROCESSES", "1")) == 1
     ckpt_dir = os.path.join(s["exp_dir"], "checkpoints")
     meta = os.path.join(ckpt_dir, "step_0", "meta.json")
     if rank == 0:
@@ -142,7 +150,7 @@ def _install_train(s: dict) -> None:
             time.sleep(0.05)
 
     s["t_weights"] = time.monotonic()
-    win = _Window(s, device)
+    win = _Window(s, device, rank)
     stamps: list = []
     batch_keys: list = []
     keys_lock = threading.Lock()
@@ -191,14 +199,13 @@ def _install_train(s: dict) -> None:
         if len(stamps) == int(s["warm_steps"]):
             win.open()
         elif win.t_open is not None and now > win.t_open + float(s["seconds"]):
-            if rank != 0:
-                win.closed = True
-                return
             with keys_lock:
                 keys = list(batch_keys)
-            win.close({"stamps": stamps, "batch_keys": keys})
-            # the harness reads the results and ends the run
-            os._exit(0)
+            win.close({"stamps": stamps, "batch_keys": keys} if rank == 0
+                      else {})
+            if alone:
+                # the harness reads the results and ends the run
+                os._exit(0)
 
     klog.MetricsLogger.log = log
 
@@ -251,19 +258,11 @@ def _write_model(path: str, cfg: dict, seed: int, device) -> None:
     layout: numbered leaves, the config as JSON bytes, the priors)."""
     import numpy as np
 
-    from asrbench import weights
+    from asrbench import families, weights
 
     arrays = {f"leaf_{i}": t.cpu().numpy() for i, t in
               enumerate(weights.make_params(cfg, seed, device))}
-    am = {"input_dim": int(cfg["input_dim"]),
-          "num_targets": int(cfg["num_targets"]),
-          "hidden_dim": int(cfg["hidden_dim"]),
-          "num_layers": int(cfg["num_layers"]),
-          "mode": int(cfg["rnn_mode"]),
-          "bidirectional": bool(int(cfg["bidirectional"])),
-          "param_stddev": float(cfg["param_stddev"]),
-          "bias_stddev": float(cfg["bias_stddev"]),
-          "compute_dtype": cfg["compute_dtype"]}
+    am = families.of(cfg).model_file_config(cfg)
     arrays["__config__"] = np.frombuffer(json.dumps(am).encode(), np.uint8)
     priors = np.ones(int(cfg["num_targets"]), np.float32)
     priors[0] = float(cfg["blank_prior"])

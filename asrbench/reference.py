@@ -5,17 +5,12 @@ Written from the published equations, not from the program; it imports
 nothing of the program and takes nothing it made (the weights come from
 ``weights.make_params`` with the run's seed, the inputs from
 ``traffic``).  IEEE f32 throughout (TF32 off) unless a caller asks for
-TF32, the control's precision: then every product rounds its operands
-to TF32, forward and backward.
+TF32, the control's precision: then every product and every convolution
+rounds its operands to TF32, forward and backward.
 
-- Recurrent stack: per layer and direction, over all frames the input
-  projection ``x W_x + b``, then a loop over time of ``h W_h`` and the
-  cell: LSTM gates (i, f, g, o), ``c' = s(f) c + s(i) tanh(g)``,
-  ``h' = s(o) tanh(c')``; GRU (linear before reset) ``r = s(x_r + h_r)``,
-  ``z = s(x_z + h_z)``, ``n = tanh(x_n + r h_n)``, ``h' = (1 - z) n + z h``.
-  Past an utterance's length the state is held and the output is 0; the
-  backward direction runs from the last frame down.
-- Output: ``y W_out + b_out``; the CTC loss is ``F.ctc_loss`` (blank 0)
+- The model: its family's forward (``families``: the ``google`` stack,
+  for one), through ``mm`` and ``conv2d`` below.
+- Loss: ``F.ctc_loss`` (blank 0) over the family's output lengths,
   summed over the batch; the gradient is autograd's, clipped to +-5 a
   element; SGD ``p - lr(step) g`` with
   ``lr(s) = lr_i exp(s log(lr_f / lr_i) / num_steps)``.
@@ -34,9 +29,10 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from asrbench import families
 from asrbench import weights as wts
 
-__all__ = ["precision", "rnn_stack", "logits", "ctc_losses", "lr_at",
+__all__ = ["precision", "mm", "conv2d", "logits", "ctc_losses", "lr_at",
            "sgd_steps", "mfcc_hires", "scores", "greedy_labels",
            "label_gap"]
 
@@ -65,6 +61,28 @@ class _Tf32Matmul(torch.autograd.Function):
         g = tf32_round(g)
         return (g @ tf32_round(b).transpose(-1, -2),
                 tf32_round(a).transpose(-1, -2) @ g)
+
+
+class _Tf32Conv2d(torch.autograd.Function):
+    """conv2d(x, w) with both operands rounded to TF32 and f32
+    accumulation, in the forward and in the two products of the
+    backward."""
+
+    @staticmethod
+    def forward(ctx, x, w, stride):
+        ctx.save_for_backward(x, w)
+        ctx.stride = stride
+        return F.conv2d(tf32_round(x), tf32_round(w), stride=stride)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        g = tf32_round(g)
+        return (torch.nn.grad.conv2d_input(x.shape, tf32_round(w), g,
+                                           stride=ctx.stride),
+                torch.nn.grad.conv2d_weight(tf32_round(x), w.shape, g,
+                                            stride=ctx.stride),
+                None)
 
 
 _TF32 = [False]
@@ -96,70 +114,17 @@ def mm(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return a @ b
 
 
-def _lstm_cell(pre, h, c, w_h):
-    """pre [dirs, B, 4H], h and c [dirs, B, H], w_h [dirs, H, 4H]."""
-    i, f, g, o = (pre + mm(h, w_h)).chunk(4, dim=-1)
-    c = torch.sigmoid(f) * c + torch.sigmoid(i) * torch.tanh(g)
-    return torch.sigmoid(o) * torch.tanh(c), c
-
-
-def _gru_cell(pre, h, w_h):
-    xr, xz, xn = pre.chunk(3, dim=-1)
-    hr, hz, hn = mm(h, w_h).chunk(3, dim=-1)
-    r = torch.sigmoid(xr + hr)
-    z = torch.sigmoid(xz + hz)
-    n = torch.tanh(xn + r * hn)
-    return (1.0 - z) * n + z * h
-
-
-def rnn_stack(tree: Dict, x: torch.Tensor, lens: torch.Tensor, cfg: dict
-              ) -> torch.Tensor:
-    """x [T, B, D] → [T, B, H * dirs].  The directions of a layer step
-    together: at loop index t the forward direction takes frame t and
-    the backward direction frame T-1-t."""
-    mode = int(cfg["rnn_mode"])
-    t_max, b, _ = x.shape
-    h_dim = int(cfg["hidden_dim"])
-    valid = (torch.arange(t_max, device=x.device)[:, None]
-             < lens.to(x.device)[None, :])[..., None]          # [T, B, 1]
-    out = x
-    for layer in tree["rnn"]:
-        dirs = layer["dirs"]
-        n = len(dirs)
-        # time-major per direction, the backward one read back to front
-        pre = torch.stack([
-            (mm(out.reshape(t_max * b, -1), p["w_x"]) + p["b"]).reshape(
-                t_max, b, -1).flip(0) if d else
-            (mm(out.reshape(t_max * b, -1), p["w_x"]) + p["b"]).reshape(
-                t_max, b, -1) for d, p in enumerate(dirs)], dim=1)
-        v_all = torch.stack([valid.flip(0) if d else valid
-                             for d in range(n)], dim=1)      # [T, n, B, 1]
-        w_h = torch.stack([p["w_h"] for p in dirs])           # [n, H, G]
-        h = x.new_zeros((n, b, h_dim))
-        c = x.new_zeros((n, b, h_dim))
-        ys = []
-        for t in range(t_max):
-            v = v_all[t]
-            if mode == 2:
-                h_new, c_new = _lstm_cell(pre[t], h, c, w_h)
-                c = torch.where(v, c_new, c)
-            else:
-                h_new = _gru_cell(pre[t], h, w_h)
-            h = torch.where(v, h_new, h)
-            ys.append(torch.where(v, h_new, 0.0))
-        y = torch.stack(ys)                                    # [T, n, B, H]
-        out = torch.cat([y[:, d].flip(0) if d else y[:, d]
-                         for d in range(n)], dim=-1)
-    return out
+def conv2d(x: torch.Tensor, w: torch.Tensor, stride) -> torch.Tensor:
+    """The reference's convolution (NCHW, OIHW, no padding, no bias)."""
+    if _TF32[0]:
+        return _Tf32Conv2d.apply(x, w, tuple(stride))
+    return F.conv2d(x, w, stride=stride)
 
 
 def logits(tree: Dict, feats: torch.Tensor, lens: torch.Tensor, cfg: dict
            ) -> torch.Tensor:
-    """feats [B, T, D] → logits [T, B, A]."""
-    y = rnn_stack(tree, feats.transpose(0, 1), lens, cfg)
-    t, b, h = y.shape
-    return (mm(y.reshape(t * b, h), tree["out_w"]) + tree["out_b"]).reshape(
-        t, b, -1)
+    """feats [B, T, D] → logits [T', B, A] (the family's forward)."""
+    return families.of(cfg).logits(tree, feats, lens, cfg)
 
 
 def ctc_losses(lg: torch.Tensor, labels: Sequence[np.ndarray],
@@ -199,6 +164,7 @@ def sgd_steps(leaves: List[torch.Tensor], batches, cfg: dict, lr_i: float,
     """Train steps 1..len(batches) from ``leaves`` (step s uses lr(s-1)).
     → {"loss_per_frame": [per step], "params": [leaves after each step]}."""
     params = [p.detach().clone() for p in leaves]
+    family = families.of(cfg)
     losses, after = [], []
     with precision(tf32):
         for s, batch in enumerate(batches):
@@ -207,8 +173,9 @@ def sgd_steps(leaves: List[torch.Tensor], batches, cfg: dict, lr_i: float,
             req = [p.detach().requires_grad_(True) for p in params]
             tree = wts.unflatten(cfg, req)
             with torch.enable_grad():
-                lg = logits(tree, feats, lens, cfg)
-                loss = ctc_losses(lg, labels, lens)
+                lg = family.logits(tree, feats, lens, cfg)
+                out_lens = family.output_lens(cfg, lens)
+                loss = ctc_losses(lg, labels, out_lens)
                 total = loss.sum()
             grads = torch.autograd.grad(total, req)
             lr = torch.tensor(lr_at(s, lr_i, lr_f, num_steps),
@@ -216,7 +183,7 @@ def sgd_steps(leaves: List[torch.Tensor], batches, cfg: dict, lr_i: float,
             with torch.no_grad():
                 params = [p - lr * torch.clamp(g, -clip, clip)
                           for p, g in zip(params, grads)]
-            losses.append(float(total.detach()) / float(lens.sum()))
+            losses.append(float(total.detach()) / float(out_lens.sum()))
             after.append(params)
     return {"loss_per_frame": losses, "params": after}
 
@@ -285,7 +252,8 @@ def scores(tree: Dict, feats_list: Sequence[np.ndarray], cfg: dict, device,
     with precision(tf32), torch.no_grad():
         lp = torch.log_softmax(logits(tree, feats, lens, cfg), dim=-1)
     lp = lp.double().cpu().numpy() - np.log(priors)[None, None]
-    return [lp[:int(n), i] for i, n in enumerate(lens.cpu().numpy())]
+    out_lens = families.of(cfg).output_lens(cfg, lens)
+    return [lp[:int(n), i] for i, n in enumerate(out_lens.cpu().numpy())]
 
 
 def greedy_labels(sc: np.ndarray) -> List[int]:

@@ -101,12 +101,19 @@ def test_traced_run_reports_its_layers():
     assert line["device"]["busy_s"] == 0.0
 
 
-@pytest.mark.parametrize("fault", [None, "no_exchange"])
-def test_four_processes_on_gloo(fault):
+@pytest.mark.parametrize("fault,trace", [(None, False),
+                                         ("no_exchange", False),
+                                         (None, True)])
+def test_four_processes_on_gloo(fault, trace):
     """The four-process path (``launch``, gloo on the CPU): the global
     batches worked out again match the first process's; with the
-    all-reduce left out the run is not correct."""
+    all-reduce left out the run is not correct; traced, every process's
+    trace is folded into the line."""
     line = _line(_cell("tiny_lstm", "tiny_train_dp4", "blstm5x320.train"),
-                 fault)
+                 fault, trace)
     assert line["checks"]["batches_differ"]["value"] == 0
     assert line["correct"] == (fault is None), line["checks"]
+    if trace:
+        assert "train.step_interval_p50_ms" in line["metrics"]
+        assert line["device"]["busy_s"] == 0.0
+        assert line["device"]["window_s"] > 0.0

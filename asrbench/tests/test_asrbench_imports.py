@@ -13,9 +13,10 @@ ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))))
 BENCH = os.path.join(ROOT, "asrbench")
 JAX = {"jax", "jaxlib", "flax", "kaldi_ctc_tpu"}
-# the reference, and the makers of everything it is handed
+# the reference, and the makers of everything it is handed; a package
+# (``families``) with every module in it
 INDEPENDENT = ("reference", "weights", "traffic", "batches", "flops",
-               "checks", "featgen")
+               "checks", "featgen", "families")
 
 
 def _top_imports(path):
@@ -34,6 +35,17 @@ def _sources():
                             recursive=True))
 
 
+def _modules(name):
+    """{dotted module name: path} of ``asrbench.<name>``, a module or a
+    package with its modules."""
+    path = os.path.join(BENCH, name)
+    if not os.path.isdir(path):
+        return {f"asrbench.{name}": path + ".py"}
+    return {f"asrbench.{name}" + ("" if f == "__init__.py" else
+                                  "." + f[:-3]): os.path.join(path, f)
+            for f in sorted(os.listdir(path)) if f.endswith(".py")}
+
+
 def test_no_module_imports_jax_or_the_jax_package():
     assert _sources()
     for path in _sources():
@@ -42,11 +54,12 @@ def test_no_module_imports_jax_or_the_jax_package():
 
 
 def test_reference_imports_nothing_of_the_program():
-    for name in INDEPENDENT:
-        path = os.path.join(BENCH, name + ".py")
+    modules = {m: p for n in INDEPENDENT for m, p in _modules(n).items()}
+    assert "asrbench.families.google" in modules
+    for path in modules.values():
         assert "kaldi_ctc_tpu_torch" not in _top_imports(path), path
     code = ("import sys; sys.path.insert(0, %r)\n" % ROOT
-            + "".join(f"import asrbench.{n}\n" for n in INDEPENDENT)
+            + "".join(f"import {m}\n" for m in modules)
             + "bad = [m for m in sys.modules if m.split('.')[0] in "
               "('kaldi_ctc_tpu_torch', 'kaldi_ctc_tpu', 'jax')]\n"
               "print(bad); sys.exit(1 if bad else 0)\n")

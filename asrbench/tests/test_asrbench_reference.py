@@ -8,6 +8,7 @@ import torch
 
 from asrbench import reference as ref
 from asrbench import weights
+from asrbench.families import google
 
 
 def _sig(x):
@@ -35,7 +36,7 @@ def test_lstm_two_frames_by_hand():
     cfg = _tiny(2)
     tree = _tree(cfg, 0.5, 0.25, 0.1)
     x = torch.tensor([[[1.0]], [[-2.0]]], dtype=torch.float64)   # [T, B, D]
-    y = ref.rnn_stack(tree, x, torch.tensor([2]), cfg)
+    y = google.rnn_stack(tree, x, torch.tensor([2]), cfg)
     h, c, fwd = 0.0, 0.0, []
     for xt in (1.0, -2.0):
         a = 0.5 * xt + 0.25 * h + 0.1           # the same for all gates
@@ -59,7 +60,7 @@ def test_gru_frame_by_hand_and_padding():
     cfg = _tiny(3)
     tree = _tree(cfg, 0.5, 0.25, 0.1)
     x = torch.tensor([[[1.0]], [[7.0]]], dtype=torch.float64)
-    y = ref.rnn_stack(tree, x, torch.tensor([1]), cfg)
+    y = google.rnn_stack(tree, x, torch.tensor([1]), cfg)
     a = 0.5 * 1.0 + 0.1
     r = z = _sig(a)
     n = math.tanh(a + r * 0.0)
@@ -116,3 +117,29 @@ def test_mfcc_matches_the_ports_features():
                           MfccOptions.hires()).numpy()
     assert mine.shape == theirs.shape == (98, 40)
     np.testing.assert_allclose(mine, theirs, atol=2e-3 * np.abs(mine).max())
+
+
+def test_tf32_conv_rounds_its_operands():
+    """Under the control's precision the convolution rounds both
+    operands and the incoming gradient to TF32: on values that TF32
+    holds exactly it is the plain convolution, forward and backward;
+    1 + 2^-12, which it does not, counts as 1."""
+    import torch.nn.functional as F
+
+    gen = torch.Generator().manual_seed(0)
+    x = torch.randint(-8, 8, (2, 1, 9, 8), generator=gen).float()
+    w = torch.randint(-8, 8, (3, 1, 3, 5), generator=gen).float()
+    g = torch.randint(-8, 8, (2, 3, 4, 2), generator=gen).float()
+    plain = [t.clone().requires_grad_(True) for t in (x, w)]
+    y0 = F.conv2d(*plain, stride=(2, 2))
+    y0.backward(g)
+    mine = [t.clone().requires_grad_(True) for t in (x, w)]
+    with ref.precision(tf32=True):
+        y1 = ref.conv2d(*mine, (2, 2))
+    y1.backward(g)
+    assert torch.equal(y0, y1)
+    assert all(torch.equal(a.grad, b.grad) for a, b in zip(plain, mine))
+    off = torch.ones(1, 1, 1, 1) + 2.0 ** -12
+    with ref.precision(tf32=True):
+        assert float(ref.conv2d(off, off, (1, 1))) == 1.0
+    assert float(ref.conv2d(off, off, (1, 1))) > 1.0

@@ -1,13 +1,14 @@
 """The model's weights, made from the seed on the device.
 
 The benchmark makes the weights the program starts from, and the
-reference makes the same ones again: one ``torch.Generator`` on the
-device, seeded with the run's seed, fills every weight in one draw and
-every bias in another.  The tree is the program's layout
-(``rnn[layer]["dirs"][d]{"w_x", "w_h", "b"}``, ``out_w``, ``out_b``),
-flattened in ``jax.tree_util`` order (dict keys sorted), which the
-program's checkpoints and model files number their leaves by.  Torch
-only: nothing here imports the program.
+reference makes the same ones again: the configuration's family
+(``families``) lists the leaves and draws them from one
+``torch.Generator`` on the device, seeded with the run's seed.  The tree
+is the program's layout, each leaf named by its path
+(``rnn.0.dirs.1.w_x``: dict keys and list indices), and its leaves are
+numbered in ``jax.tree_util`` order (dict keys sorted, lists in order),
+as the program's checkpoints and model files number them.  Torch only:
+nothing here imports the program.
 """
 
 from __future__ import annotations
@@ -16,27 +17,15 @@ from typing import Any, Dict, List, Tuple
 
 import torch
 
-__all__ = ["gates", "param_shapes", "make_params", "flatten", "leaf_names",
+from asrbench import families
+
+__all__ = ["param_shapes", "make_params", "flatten", "leaf_names",
            "unflatten"]
-
-
-def gates(cfg: dict) -> int:
-    return {2: 4, 3: 3}[int(cfg["rnn_mode"])]
 
 
 def param_shapes(cfg: dict) -> List[Tuple[str, Tuple[int, ...]]]:
     """(name, shape) of every leaf, in flatten order."""
-    h, g = int(cfg["hidden_dim"]), gates(cfg)
-    dirs = 2 if int(cfg["bidirectional"]) else 1
-    out = [("out_b", (int(cfg["num_targets"]),)),
-           ("out_w", (h * dirs, int(cfg["num_targets"])))]
-    for layer in range(int(cfg["num_layers"])):
-        d_in = int(cfg["input_dim"]) if layer == 0 else h * dirs
-        for d in range(dirs):
-            pre = f"rnn.{layer}.dirs.{d}."
-            out += [(pre + "b", (g * h,)), (pre + "w_h", (h, g * h)),
-                    (pre + "w_x", (d_in, g * h))]
-    return out
+    return families.of(cfg).param_shapes(cfg)
 
 
 def leaf_names(cfg: dict) -> List[str]:
@@ -44,67 +33,37 @@ def leaf_names(cfg: dict) -> List[str]:
 
 
 def make_params(cfg: dict, seed: int, device) -> List[torch.Tensor]:
-    """The flat leaves: weights N(0, param_stddev^2), recurrent biases
-    N(0, bias_stddev^2), the output bias 0 (the port's and the
-    reference's init), f32 on ``device``.  With ``near_tie_pairs`` = n,
-    the output columns of labels 2k and 2k-1, k <= n, differ by the
-    factor 1 + ``near_tie_eps``: their logits nearly tie on every frame
-    where one of them leads, so the served labels show a loss of
-    precision in the forward (TF32 rounds the two columns alike) that
-    random weights would hide."""
-    shapes = param_shapes(cfg)
-    gen = torch.Generator(device=device)
-    gen.manual_seed(int(seed) % (1 << 63))
-    is_w = [n.split(".")[-1] in ("w_h", "w_x", "out_w") for n, _ in shapes]
-    sizes = [int(torch.Size(s).numel()) for _, s in shapes]
-    n_w = sum(s for s, w in zip(sizes, is_w) if w)
-    n_b = sum(s for (n, _), s, w in zip(shapes, sizes, is_w)
-              if not w and n != "out_b")
-    wbuf = torch.randn(n_w, generator=gen, device=device) * float(
-        cfg["param_stddev"])
-    bbuf = torch.randn(n_b, generator=gen, device=device) * float(
-        cfg["bias_stddev"])
-    leaves, iw, ib = [], 0, 0
-    for (name, shape), size, w in zip(shapes, sizes, is_w):
-        if name == "out_b":
-            leaves.append(torch.zeros(shape, device=device))
-        elif w:
-            leaves.append(wbuf[iw:iw + size].view(shape))
-            iw += size
-        else:
-            leaves.append(bbuf[ib:ib + size].view(shape))
-            ib += size
-    pairs = int(cfg.get("near_tie_pairs", 0))
-    if pairs:
-        out_w = leaves[1]
-        eps = float(cfg["near_tie_eps"])
-        for k in range(1, pairs + 1):
-            out_w[:, 2 * k] = out_w[:, 2 * k - 1] * (1.0 + eps)
-    return leaves
+    """The flat leaves from the seed, f32 on ``device``."""
+    return families.of(cfg).make_params(cfg, seed, device)
 
 
 def unflatten(cfg: dict, leaves: List[Any]) -> Dict[str, Any]:
-    """The program's parameter tree from flat leaves."""
-    it = iter(zip(leaf_names(cfg), leaves))
+    """The program's parameter tree from flat leaves: each name's parts
+    are dict keys, or list indices where they are digits."""
     tree: Dict[str, Any] = {}
-    dirs = 2 if int(cfg["bidirectional"]) else 1
-    tree["out_b"] = next(it)[1]
-    tree["out_w"] = next(it)[1]
-    tree["rnn"] = []
-    for _ in range(int(cfg["num_layers"])):
-        layer = {"dirs": []}
-        for _ in range(dirs):
-            d = {}
-            for key in ("b", "w_h", "w_x"):
-                d[key] = next(it)[1]
-            layer["dirs"].append(d)
-        tree["rnn"].append(layer)
+    for name, leaf in zip(leaf_names(cfg), leaves):
+        parts = name.split(".")
+        node: Any = tree
+        for key, below in zip(parts, parts[1:]):
+            child = [] if below.isdigit() else {}
+            if isinstance(node, list):
+                if int(key) == len(node):
+                    node.append(child)
+                node = node[int(key)]
+            else:
+                node = node.setdefault(key, child)
+        if isinstance(node, list):
+            node.append(leaf)
+        else:
+            node[parts[-1]] = leaf
     return tree
 
 
-def flatten(tree: Dict[str, Any]) -> List[Any]:
-    out = [tree["out_b"], tree["out_w"]]
-    for layer in tree["rnn"]:
-        for d in layer["dirs"]:
-            out += [d["b"], d["w_h"], d["w_x"]]
-    return out
+def flatten(tree: Any) -> List[Any]:
+    """The leaves of a tree of dicts and lists, in ``jax.tree_util``
+    order."""
+    if isinstance(tree, dict):
+        return [leaf for k in sorted(tree) for leaf in flatten(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [leaf for t in tree for leaf in flatten(t)]
+    return [tree]
