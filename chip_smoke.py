@@ -58,6 +58,18 @@ result line:
    clusters; the cooperative kernel) timed on the same operands, the
    cluster route's two phases timed apart, and the two routes held equal
    bit for bit at each row's first valid walk step;
+   then wide: K2's and K3's wide route (csrc/lstm_wide.cuh) at the DS2
+   cell's layer shape (T'=750, B=64, H=1024, f32, ragged rows; both
+   plans must take it): K2 with the store and K3 on its sums through
+   their wrappers against the plain versions at K2's and K3's f32
+   tolerances, the wide and store counters zeroed before those two calls
+   and read after them (one each), card ms, plain ms, cuDNN's
+   bidirectional nn.LSTM(1024, 1024) forward and backward on the same
+   shape and the bound; then one train step of deepspeech.pytorch's DS2
+   at its published widths (161 bins, 2 convs of 32 channels, 5 summed
+   BLSTM layers of 1,024, 29 targets) on 64 seeded rows of up to 1,500
+   frames, its launches counted (K2 and K3 5x each on the wide route, K1
+   on its block route), its ms and memory peak;
 7. serve: the 5x320 BLSTM flagship (random weights from a seed) written as
    a JAX-format artifact and served by the port's own HTTP server on cuda;
    4 /recognize requests of 2, 4, 6 and 8 s of seeded audio per compute
@@ -391,6 +403,10 @@ BWD_COOPERATIVE_H = {"K3": 512, "K6": 512, "K9b": 576}
 # the 3x128 BLSTM of recipes/medium and recipes/hard: hidden units,
 # layers, targets (its input is the flagship's 40-dim features)
 PROJ_H, PROJ_LAYERS, PROJ_TARGETS = 128, 3, 42
+# K2's and K3's wide route at the DS2 cell's layer shape: deepspeech.pytorch's
+# 5x1024 BLSTM at batch 64, 1,500 frames halved by the conv front's stride
+WIDE_T, WIDE_B, WIDE_H = 750, 64, 1024
+WIDE_KERNELS = ("bilstm_fwd_wide", "bilstm_bwd_wide")
 # bench.py's DS2 configuration (_bench_cfg(ds2=True)): the flagship behind
 # a 2-layer conv front of 32 channels, time stride 2
 DS2_CONV = dict(conv_layers=2, conv_channels=32, conv_time_stride=2)
@@ -1209,6 +1225,175 @@ def phase_k3(torch, np, dev):
         if not row["first_step_bit_equal_cooperative"]:
             fail(f"K3's routes differ where dh and dc are zero: {row}")
     return kernel_row(rows, rows[1])     # bf16
+
+
+def wide_counts(fwd, bwd):
+    """The wide route's counters: K2's wide and store launches, K3's wide
+    launches and those on stored sums."""
+    return {"bilstm_fwd.wide": fwd.wide_launches,
+            "bilstm_fwd.store": fwd.store_launches,
+            "bilstm_bwd.wide": bwd.wide_launches,
+            "bilstm_bwd.stored": bwd.stored_launches}
+
+
+def zero_wide_counts(fwd, bwd):
+    fwd.wide_launches = fwd.store_launches = 0
+    bwd.wide_launches = bwd.stored_launches = 0
+
+
+def phase_wide(torch, np, dev):
+    """K2's and K3's wide route at T'=750, B=64, H=1024 in f32 with
+    ragged rows against their plain versions, timed beside them, cuDNN
+    and the bound; then one DS2 train step at its published widths with
+    its launches counted → (the kernels line's two rows, the step's
+    launches by kernel)."""
+    from kaldi_ctc_tpu_torch import _kernels
+    from kaldi_ctc_tpu_torch.ops import ctc_cuda, rnn_cuda
+    t_max, b, h = WIDE_T, WIDE_B, WIDE_H
+    dtype = torch.float32
+    fwd, bwd = rnn_cuda.bilstm_seq_fwd, rnn_cuda.bilstm_seq_bwd_dgates
+    plans = {"k2": rnn_cuda.k2_plan(_kernels.load(
+                 "bilstm_fwd", rnn_cuda._SIGNATURES), b, h, dtype, dev),
+             "k3": rnn_cuda.k3_plan(_kernels.load(
+                 "bilstm_bwd", rnn_cuda._BWD_SIGNATURES), b, h, dtype, dev)}
+    if {p.route for p in plans.values()} != {"wide"}:
+        fail(f"at H={h}, B={b} K2 and K3 must take the wide route: {plans}")
+    rng = np.random.default_rng(25)
+    xp = torch.as_tensor(rng.standard_normal((t_max, b, 8 * h))
+                         .astype(np.float32) * 0.5, device=dev)
+    w = [torch.as_tensor((rng.standard_normal((h, 4 * h)) / np.sqrt(h))
+                         .astype(np.float32), device=dev) for _ in range(2)]
+    # the cell's utterances run 1.5-15 s: 75-750 frames after the stride
+    lens = np.full(b, t_max, np.int32)
+    lens[1:] = rng.integers(t_max // 10, t_max + 1, size=b - 1)
+    lens = torch.as_tensor(lens, device=dev)
+    dy = [torch.as_tensor(rng.standard_normal((t_max, b, h)).astype(
+        np.float32), device=dev) for _ in range(2)]
+    zero_wide_counts(fwd, bwd)
+    y_f, c_f, y_b, c_b, sums = fwd(xp, w[0], w[1], lens, store_sums=True)
+    args = (dy[0], dy[1], xp, y_f, c_f, y_b, c_b, w[0], w[1], lens)
+    got_b = bwd(*args, sums)
+    torch.cuda.synchronize()
+    counts = wide_counts(fwd, bwd)
+    ref_f = rnn_cuda.bilstm_seq_fwd_reference(xp, w[0], w[1], lens)
+    ref_b = rnn_cuda.bilstm_seq_bwd_dgates_reference(*args)
+    errs_f = [max_err(g, r, 0.0, K2_TOL["float32"])
+              for g, r in zip((y_f, c_f, y_b, c_b), ref_f)]
+    errs_b = [max_err(g, r, 0.0, K3_TOL["float32"])
+              for g, r in zip(got_b, ref_b)]
+    ops = lstm_ops(lens, h, 2)
+    rows = [{"kernel": "bilstm_fwd_wide", "dtype": "float32", "T": t_max,
+             "B": b, "H": h, "plan": plans["k2"]._asdict(),
+             "max_abs_err": max(e for e, _ in errs_f),
+             "tol": K2_TOL["float32"],
+             "ms": median_ms(lambda: fwd(xp, w[0], w[1], lens,
+                                         store_sums=True), 10, torch),
+             "ms_no_store": median_ms(lambda: fwd(xp, w[0], w[1], lens),
+                                      10, torch),
+             "plain_ms": median_ms(lambda: rnn_cuda.bilstm_seq_fwd_reference(
+                 xp, w[0], w[1], lens), 3, torch),
+             # cuDNN's layer includes the input projection (a layer above
+             # the first: the summed directions' 1,024 inputs)
+             "library_ms": library_rnn_ms(torch, dev, dtype, t_max, b, h, h,
+                                          bidirectional=True),
+             **bound(nbytes(xp, *w, lens, y_f, c_f, y_b, c_b, sums), ops,
+                     "float32")},
+            {"kernel": "bilstm_bwd_wide", "dtype": "float32", "T": t_max,
+             "B": b, "H": h, "plan": plans["k3"]._asdict(),
+             "max_abs_err": max(e for e, _ in errs_b),
+             "max_abs_ref": max(float(r.abs().max()) for r in ref_b),
+             "tol": K3_TOL["float32"],
+             "ms": median_ms(lambda: bwd(*args, sums), 10, torch),
+             "plain_ms": median_ms(
+                 lambda: rnn_cuda.bilstm_seq_bwd_dgates_reference(*args), 3,
+                 torch),
+             # cuDNN's backward computes dx and dW too
+             "library_ms": library_rnn_ms(torch, dev, dtype, t_max, b, h, h,
+                                          bidirectional=True, backward=True),
+             # the dh product a direction; the gates come from the sums
+             **bound(nbytes(*args, sums, *got_b), ops, "float32")}]
+    for row in rows:
+        row["launches_checked_run"] = counts
+        emit({"phase": "wide_" + row["kernel"], **row})
+    if counts != {k: 1 for k in counts}:
+        fail(f"the wide route's checked run counted {counts} (want one "
+             f"each)")
+    if not all(ok for _, ok in errs_f + errs_b):
+        fail(f"K2's or K3's wide route disagrees with its plain version: "
+             f"{rows}")
+    del xp, w, dy, y_f, c_f, y_b, c_b, sums, args, got_b, ref_f, ref_b
+    step_launches = wide_train_step(torch, np, dev, ctc_cuda, fwd, bwd)
+    return {r["kernel"]: {k: r[k] for k in (
+        "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+        "library_ms")} for r in rows}, step_launches
+
+
+def wide_train_step(torch, np, dev, ctc_cuda, fwd, bwd):
+    """One train step of deepspeech.pytorch's DS2 at its published widths
+    (the ds2blstm5x1024 configuration) on 64 seeded rows of 150-1,500
+    frames and 15 characters a second, after a warm-up step: its launches
+    (K2 and K3 on the wide route once a layer, K1 on its block route),
+    its ms (median of 3, host clock over a synchronised step) and the
+    card's memory peak."""
+    from kaldi_ctc_tpu_torch.models.acoustic import (AmConfig,
+                                                     init_am_params,
+                                                     init_norm_stats)
+    from kaldi_ctc_tpu_torch.params import tree_flatten
+    from kaldi_ctc_tpu_torch.training import train
+    cfg = AmConfig(input_dim=161, num_targets=29, hidden_dim=WIDE_H,
+                   num_layers=5, conv_layers=2, conv_channels=32,
+                   conv_time_stride=2, conv_norm="batch")
+    b, t = WIDE_B, 2 * WIDE_T
+    rng = np.random.default_rng(26)
+    lens = np.full(b, t, np.int32)
+    lens[1:] = rng.integers(t // 10, t + 1, size=b - 1)
+    label_lens = (lens * 0.15).astype(np.int32)
+    feats = rng.standard_normal((b, t, 161)).astype(np.float32)
+    feats[np.arange(t)[None, :] >= lens[:, None]] = 0.0
+    batch = {k: torch.as_tensor(v, device=dev) for k, v in {
+        "feats": feats,
+        "labels": rng.integers(1, 29, (b, int(label_lens.max())))
+        .astype(np.int32),
+        "input_lens": lens, "label_lens": label_lens}.items()}
+    params = init_am_params(cfg, torch.Generator().manual_seed(0), dev)
+    opts = train.TrainOptions()
+    state = train.init_train_state(params, opts, init_norm_stats(cfg, dev))
+    step = train.build_train_step(cfg, opts)
+    torch.cuda.reset_peak_memory_stats(dev)
+    state, _ = step(state, batch)            # warm-up
+    torch.cuda.synchronize()
+    reset_counts()
+    zero_wide_counts(fwd, bwd)
+    state, m = step(state, batch)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    launches = {**{k: counts[k] for k in ("bilstm_fwd", "bilstm_bwd",
+                                          "ctc_alpha_beta",
+                                          "ctc_alpha_beta.warp",
+                                          "ctc_alpha_beta.block")},
+                **wide_counts(fwd, bwd)}
+    times = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        state, m = step(state, batch)
+        bool(m["finite"])
+        times.append((time.perf_counter() - t0) * 1e3)
+    res = {"phase": "wide_ds2_train_step", "B": b, "T": t,
+           "T_logits": int(cfg.output_lens(lens).max()),
+           "max_label_len": int(label_lens.max()),
+           "parameters": sum(p.numel() for p in tree_flatten(
+               state.params)),
+           "launches": launches, "step_ms": sorted(times)[1],
+           "loss_total": float(m["loss_total"]),
+           "finite": bool(m["finite"]),
+           "memory_peak_bytes": torch.cuda.max_memory_allocated(dev)}
+    emit(res)
+    want = {"bilstm_fwd.wide": 5, "bilstm_fwd.store": 5,
+            "bilstm_bwd.wide": 5, "bilstm_bwd.stored": 5,
+            "ctc_alpha_beta": 1, "ctc_alpha_beta.block": 1}
+    if any(launches[k] != n for k, n in want.items()) or not res["finite"]:
+        fail(f"the DS2 train step: {res} (want {want})")
+    return launches
 
 
 def k3_first_steps_equal(torch, dev, args, sums):
@@ -5049,6 +5234,7 @@ def main():
     ctc_rows, launches = phase_k1(torch, np, dev)
     measured.update(ctc_rows)
     measured["bilstm_bwd"] = phase_k3(torch, np, dev)
+    wide_rows, wide_step = phase_wide(torch, np, dev)
     measured["lstm_fwd"] = phase_k5(torch, np, dev)
     measured["lstm_bwd"] = phase_k6(torch, np, dev)
     measured["lstm_stack"] = phase_k7(torch, np, dev)
@@ -5136,7 +5322,15 @@ def main():
          "source": f"kaldi_ctc_tpu_torch/csrc/{sources[name][0]}",
          "replaces": f"kaldi_ctc_tpu/{sources[name][1]}",
          "launches": launches[name], **measured[name]}
-        for name in KERNELS], "launch_floor_ms": launch_floor_ms(torch, dev)})
+        for name in KERNELS] + [
+        {"name": name, "route": "cuda/wide",
+         "source": f"kaldi_ctc_tpu_torch/csrc/{src} + csrc/lstm_wide.cuh",
+         "replaces": f"kaldi_ctc_tpu/{sources[base][1]}",
+         # one DS2 train step's (wide_ds2_train_step)
+         "launches": wide_step[f"{base}.wide"], **wide_rows[name]}
+        for name, base, src in zip(WIDE_KERNELS, ("bilstm_fwd", "bilstm_bwd"),
+                                   ("bilstm_fwd.cu", "bilstm_bwd.cu"))],
+        "launch_floor_ms": launch_floor_ms(torch, dev)})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -45,7 +45,8 @@ def main(argv=None):
     from kaldi_ctc_tpu_torch.data.bucketing import make_buckets, pad_batch
     from kaldi_ctc_tpu_torch.data.egs import (CtcExample, example_ok,
                                               frame_subsample)
-    from kaldi_ctc_tpu_torch.models.artifact import load_acoustic_model
+    from kaldi_ctc_tpu_torch.models.artifact import (load_acoustic_model,
+                                                     load_norm_stats)
     from kaldi_ctc_tpu_torch.training import (accuracy_from_outputs,
                                               make_eval_step)
     from kaldi_ctc_tpu_torch.utils import get_logger
@@ -57,6 +58,7 @@ def main(argv=None):
     device = resolve_device(args.device)
     params, cfg, _, meta = load_acoustic_model(dir=args.dir, step=args.step,
                                                device=device)
+    stats = load_norm_stats(cfg, dir=args.dir, step=args.step, device=device)
 
     if args.egs:
         from kaldi_ctc_tpu_torch.data.egs_io import SequentialEgsReader
@@ -97,7 +99,7 @@ def main(argv=None):
         batch = pad_batch(examples[i:i + args.minibatch_size],
                           frame_buckets, label_buckets)
         batch.pop("keys")
-        out = eval_step(params, batch)
+        out = eval_step(params, batch, stats=stats)
         _, e, r = accuracy_from_outputs(out, batch["labels"],
                                         batch["label_lens"])
         tot_err += e; tot_ref += r

@@ -34,8 +34,8 @@ def parse_args(argv=None):
 def main(argv=None):
     from kaldi_ctc_tpu_torch.models import AmConfig
     from kaldi_ctc_tpu_torch.models.artifact import save_inference_artifact
-    from kaldi_ctc_tpu_torch.training.checkpoint import (cfg_for_checkpoint,
-                                                         restore_params)
+    from kaldi_ctc_tpu_torch.training.checkpoint import (
+        cfg_for_checkpoint, restore_norm_stats, restore_params)
     from kaldi_ctc_tpu_torch.utils import get_logger
 
     args = parse_args(argv)
@@ -52,6 +52,7 @@ def main(argv=None):
         log.info("removed dropout")
 
     params, meta = restore_params(ckpt_dir, cfg, step=args.step)
+    stats = restore_norm_stats(ckpt_dir, cfg, step=args.step)
 
     priors = None
     priors_path = os.path.join(args.dir, "priors.npy")
@@ -59,7 +60,7 @@ def main(argv=None):
         priors = np.load(priors_path)
         log.info("attached priors from %s", priors_path)
 
-    save_inference_artifact(args.output, params, cfg, priors)
+    save_inference_artifact(args.output, params, cfg, priors, stats)
     log.info("wrote %s (step %d)", args.output, meta["step"])
 
 

@@ -94,7 +94,8 @@ def main(argv=None):
                                               greedy_decode,
                                               prefix_beam_search)
     from kaldi_ctc_tpu_torch.models import am_forward, default_priors
-    from kaldi_ctc_tpu_torch.models.artifact import load_acoustic_model
+    from kaldi_ctc_tpu_torch.models.artifact import (load_acoustic_model,
+                                                     load_norm_stats)
     from kaldi_ctc_tpu_torch.utils import get_logger, profiling
     from kaldi_ctc_tpu_torch.utils.edit_distance import edit_distance
     from kaldi_ctc_tpu_torch.utils.kaldi_io import SequentialTextReader
@@ -108,6 +109,8 @@ def main(argv=None):
     try:
         model_params, cfg, loaded_priors, _ = load_acoustic_model(
             args.model, args.dir, args.step, device=device)
+        norm_stats = load_norm_stats(cfg, args.model, args.dir, args.step,
+                                     device)
     except ValueError as e:
         log.error("%s", e); sys.exit(1)
     if args.use_priors:
@@ -152,7 +155,8 @@ def main(argv=None):
                 torch.inference_mode():
             logits = am_forward(
                 model_params, torch.as_tensor(batch["feats"], device=device),
-                cfg, torch.as_tensor(batch["input_lens"], device=device))
+                cfg, torch.as_tensor(batch["input_lens"], device=device),
+                stats=norm_stats)
             scores, skip = acoustic_scores(
                 logits, priors=priors, acoustic_scale=args.acoustic_scale,
                 blank_threshold=args.blank_threshold)

@@ -9,10 +9,13 @@ The weights come from the port's ``init_am_params`` with a
 ``torch.Generator`` seeded by ``--seed``: the same distributions as the
 JAX package's, not the same numbers (``jax.random`` draws other bits).
 Splicing, the FT front (``--front-affine-dim``, relu) and the DS2 conv
-front (``--conv-layers``) take the JAX CLI's flags; ``--front-nonlin``,
-``--front-group`` and ``--conv-norm`` exist only in ``train_ctc``, as
-there.  A DS2 front combined with splicing or the FT front raises
-``ValueError`` before any file is written.
+front (``--conv-layers``) take the JAX CLI's flags; ``--front-nonlin``
+and ``--front-group`` exist only in ``train_ctc``, as there.  The port
+adds ``--conv-norm`` (with "batch": deepspeech.pytorch's DS2, whose
+batch norms start their running statistics at mean 0, variance 1 in the
+checkpoint).  A
+DS2 front combined with splicing or the FT front raises ``ValueError``
+before any file is written.
 """
 
 from __future__ import annotations
@@ -45,6 +48,9 @@ def parse_args(argv=None):
                    help="DS2 model type: conv front-end layers")
     p.add_argument("--conv-channels", type=int, default=32)
     p.add_argument("--conv-time-stride", type=int, default=2)
+    # "batch": deepspeech.pytorch's DS2 (the port's; train_ctc's flag)
+    p.add_argument("--conv-norm", default="seq",
+                   choices=["seq", "none", "batch"])
     p.add_argument("--param-stddev", type=float, default=0.02)
     p.add_argument("--bias-stddev", type=float, default=0.2)
     p.add_argument("--blank-prior", type=float, default=9.0)
@@ -57,6 +63,7 @@ def main(argv=None):
 
     from kaldi_ctc_tpu_torch.models import (AmConfig, default_priors,
                                             init_am_params)
+    from kaldi_ctc_tpu_torch.models.acoustic import init_norm_stats
     from kaldi_ctc_tpu_torch.ops.rnn import RnnMode
     from kaldi_ctc_tpu_torch.params import tree_flatten
     from kaldi_ctc_tpu_torch.training import init_train_state
@@ -77,7 +84,8 @@ def main(argv=None):
                    front_affine_dim=args.front_affine_dim,
                    conv_layers=args.conv_layers,
                    conv_channels=args.conv_channels,
-                   conv_time_stride=args.conv_time_stride)
+                   conv_time_stride=args.conv_time_stride,
+                   conv_norm=args.conv_norm)
     # a DS2 front with splicing or the FT front raises before any write
     params = init_am_params(cfg, torch.Generator().manual_seed(args.seed))
 
@@ -85,7 +93,8 @@ def main(argv=None):
     with open(os.path.join(args.dir, "model_config.json"), "w") as f:
         json.dump(cfg.to_dict(), f)
     save_checkpoint(os.path.join(args.dir, "checkpoints"), 0,
-                    init_train_state(params),
+                    init_train_state(params,
+                                     stats=init_norm_stats(cfg)),
                     extra={"epoch": 0, "num_layers": cfg.num_layers})
     np.save(os.path.join(args.dir, "priors.npy"),
             default_priors(cfg.num_targets, args.blank_prior))

@@ -51,7 +51,8 @@ def main(argv=None):
                                                 resolve_device)
     from kaldi_ctc_tpu_torch.data import CtcExample, frame_subsample
     from kaldi_ctc_tpu_torch.models import am_forward
-    from kaldi_ctc_tpu_torch.models.artifact import load_acoustic_model
+    from kaldi_ctc_tpu_torch.models.artifact import (load_acoustic_model,
+                                                     load_norm_stats)
     from kaldi_ctc_tpu_torch.utils import get_logger, kaldi_io
 
     args = parse_args(argv)
@@ -60,6 +61,7 @@ def main(argv=None):
     try:
         params, cfg, _, _ = load_acoustic_model(args.model, args.dir,
                                                 args.step, device=device)
+        stats = load_norm_stats(cfg, args.model, args.dir, args.step, device)
     except ValueError as e:
         log.error("%s", e); sys.exit(1)
 
@@ -80,7 +82,7 @@ def main(argv=None):
             logits = am_forward(
                 params, torch.as_tensor(batch["feats"], device=device), cfg,
                 input_lens=torch.as_tensor(batch["input_lens"],
-                                           device=device))
+                                           device=device), stats=stats)
             if args.what == "logits":
                 out = logits
             else:

@@ -117,13 +117,16 @@ class Engine:
 
         from kaldi_ctc_tpu_torch.features import (
             FbankOptions, MfccOptions, compute_fbank, compute_mfcc)
-        from kaldi_ctc_tpu_torch.models.artifact import load_acoustic_model
+        from kaldi_ctc_tpu_torch.models.artifact import (load_acoustic_model,
+                                                         load_norm_stats)
 
         self.args = args
         self.device = resolve_device(args.device)
         try:
             self.params, self.cfg, self.priors, _ = load_acoustic_model(
                 args.model, args.dir, device=self.device)
+            self.norm_stats = load_norm_stats(self.cfg, args.model, args.dir,
+                                              device=self.device)
         except ValueError as e:
             raise SystemExit(f"serve: {e}")
         if not args.use_priors:
@@ -222,7 +225,7 @@ class Engine:
                 lens = torch.full((1,), t, dtype=torch.int32,
                                   device=self.device)
                 logits = am_forward(self.params, feats[None], self.cfg,
-                                    input_lens=lens)
+                                    input_lens=lens, stats=self.norm_stats)
             with profiler.span("serve.scores"):
                 sc, skip = acoustic_scores(
                     logits, priors=self.priors,

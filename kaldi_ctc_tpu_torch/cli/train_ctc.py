@@ -23,7 +23,9 @@ checkpoints.  ``--minibatch-size`` is the global batch and the final
 short batch of an epoch is dropped, as in the JAX package.  The
 model families and options of the JAX CLI all run: splicing, the FT
 front (``--front-affine-dim``, five nonlinearities), the DS2 conv front
-(``--conv-layers``; its time stride enters the egs 2L+1 filter),
+(``--conv-layers``; its time stride enters the egs 2L+1 filter; with
+``--conv-norm batch`` deepspeech.pytorch's DS2, whose batch norms' running
+statistics ride in the train state and its checkpoints),
 ``--dropout``, ``--affine-type natural`` (NG-SGD on the output affine
 and the FT front) and ``--realign-epochs`` (at those epochs the current
 model Viterbi-aligns the training set on the device: relabel, drop
@@ -111,9 +113,14 @@ def parse_args(argv=None):
     p.add_argument("--conv-time-stride", type=int, default=2,
                    help="time stride of the first conv layer (halves "
                         "the RNN sequence at 2)")
-    p.add_argument("--conv-norm", default="seq", choices=["seq", "none"],
+    p.add_argument("--conv-norm", default="seq",
+                   choices=["seq", "none", "batch"],
                    help="conv-front normalization: 'seq' = per-utterance, "
-                        "per-channel moments over valid frames; 'none'")
+                        "per-channel moments over valid frames; 'none'; "
+                        "'batch' = deepspeech.pytorch's DS2: batch norm "
+                        "then Hardtanh(0, 20), the directions summed, a "
+                        "batch norm before every later layer and before "
+                        "the bias-free output")
     p.add_argument("--dropout", type=float, default=0.0,
                    help="dropout after the RNN stack (training only)")
     p.add_argument("--compute-dtype", default="float32",
@@ -225,6 +232,7 @@ def _train(args, device, last, setup):
                                           load_examples)
     from kaldi_ctc_tpu_torch.data.egs import example_ok, frame_subsample
     from kaldi_ctc_tpu_torch.models import AmConfig, grow_rnn_layer
+    from kaldi_ctc_tpu_torch.models.acoustic import init_norm_stats
     from kaldi_ctc_tpu_torch.ops.rnn import RnnMode
     from kaldi_ctc_tpu_torch.parallel import make_mesh, shard_batch
     from kaldi_ctc_tpu_torch.parallel.distributed import (
@@ -234,7 +242,7 @@ def _train(args, device, last, setup):
         TrainOptions, accuracy_from_outputs, init_train_state,
         make_eval_step, make_train_step)
     from kaldi_ctc_tpu_torch.training.checkpoint import (
-        apply_retention, latest_step, read_meta, restore_checkpoint,
+        apply_retention, latest_step, read_meta, restore_train_state,
         save_checkpoint)
     from kaldi_ctc_tpu_torch.training.realign import (parse_realign_epochs,
                                                       realign_examples)
@@ -416,11 +424,12 @@ def _train(args, device, last, setup):
     )
 
     mesh = make_mesh(devices=None if initialised_device() else [device])
-    state = init_train_state(initial_params(cfg, args.seed, device), opts)
+    state = init_train_state(initial_params(cfg, args.seed, device), opts,
+                             init_norm_stats(cfg, device))
     start_epoch = 0
     start_epoch_step = 0
     if args.resume and latest_step(ckpt_dir) is not None:
-        state, meta = restore_checkpoint(ckpt_dir, state)
+        state, meta = restore_train_state(ckpt_dir, state)
         start_epoch = meta["extra"].get("epoch", 0)
         # resume mid-epoch: skip the batches already trained (the epoch
         # order is deterministic given the epoch seed), otherwise they
@@ -591,6 +600,9 @@ def _train(args, device, last, setup):
                 with span("train.step"):
                     state, m = train_step(state, batch)
                 count("train.steps")
+                if state.stats:
+                    # the batch norms the step ran (deepspeech.pytorch's)
+                    count("train.norm_layers", len(state.stats))
                 global_step += 1
                 # the host's first read of the step: it waits for the device
                 with span("train.device_wait"):
@@ -654,7 +666,8 @@ def _train(args, device, last, setup):
                         for vb in valid_pipe.epoch(0):
                             vb.pop("keys")
                             out = eval_step(state.params,
-                                            shard_batch(vb, mesh))
+                                            shard_batch(vb, mesh),
+                                            stats=state.stats)
                             _, e, r = accuracy_from_outputs(
                                 out, vb["labels"], vb["label_lens"])
                             v_err += e; v_ref += r

@@ -127,6 +127,7 @@
 #include "bilstm_cell.cuh"
 #include "bwd_chain.cuh"
 #include "lstm_gates.cuh"
+#include "lstm_wide.cuh"
 #include "row_ceiling.cuh"
 
 namespace cg = cooperative_groups;
@@ -536,6 +537,248 @@ int rec_chain_launch(const void* dyf, const void* dyb, const void* xp,
       H, R);
 }
 
+// ---------------------------------------------------------------------------
+// K3's wide route: W_h from L2 every step (csrc/lstm_wide.cuh)
+// ---------------------------------------------------------------------------
+
+constexpr int kWideSlices = 8;     // the dh product's column slices
+constexpr int kWideCols = 16;      // columns a staged chunk
+
+// gate columns each slice of the dh product takes at H units: 4H over
+// the slices, rounded up to whole chunks (the dgates exchange and the
+// weights hold kWideSlices times as many rows, zeros past 4H; the
+// wrapper sizes them by bilstm_wide_bwd_cols)
+__host__ __device__ inline int wide_slice_cols(int H) {
+  const int per = kWideSlices * kWideCols;
+  return (4 * H + per - 1) / per * kWideCols;
+}
+
+// bytes of a wide backward block's shared memory: per slice, two buffers
+// of a chunk's dgates rows (64) and W_h rows (16), and every slice's
+// partial dh tile (ops/rnn_cuda.py::_wide_bwd_bytes is the same sum)
+inline size_t wide_bwd_bytes() {
+  return sizeof(float) *
+         ((size_t)kWideSlices * 2 * kWideCols * (kWideRows + kWideUnits) +
+          (size_t)kWideSlices * kWideRows * kWideUnits);
+}
+
+// One block per (direction, kWideUnits units), both directions in one
+// cooperative grid.  Inputs as K3's cluster route (sums: K2's stored
+// recurrent sums, [T, B, 8H] f32 in this walk's order), and
+//   wq: W_h of both directions as f32, [2][nb][8 cs][16]: block blk's
+//       row c holds W_h[blk * 16 + kk][c] at kk (zeros past H and 4H);
+//   dgx: the dgates of the step as the dh product's operand, f32 rounded
+//       to T, [2 parities][2 directions][8 cs][Bp], zeroed by the caller;
+//   state: [2][2][B][H] f32 zeros, the dh and dc carries.
+// Walk step s: each thread forms the dgates of its cells (the cooperative
+// route's arithmetic on the stored sums: gates, c, dh and dc are f32) and
+// writes them out and into dgx; one grid.sync(); then for each tile of
+// 64 rows the block's 8 slices of 64 threads each sum dgates . W_h^T over
+// their columns for 4 rows x 4 units a thread, double-buffered by
+// cp.async, and the slices' partials are added in slice order into dh
+// where the step's frame was valid.
+template <typename T>
+__global__ void __launch_bounds__(kWideThreads, 1)
+bilstm_wide_chain_bwd_kernel(const T* __restrict__ dyf,
+                             const T* __restrict__ dyb,
+                             const T* __restrict__ xp,
+                             const float* __restrict__ cf,
+                             const float* __restrict__ cb,
+                             const float* __restrict__ wq,
+                             const int32_t* __restrict__ lens,
+                             const float* __restrict__ sums,
+                             T* __restrict__ dgf, T* __restrict__ dgb,
+                             float* dgx, float* state, int steps, int B,
+                             int H) {
+  cg::grid_group grid = cg::this_grid();
+  extern __shared__ float4 wide_smem[];
+  float* smem = reinterpret_cast<float*>(wide_smem);
+  const int nb = (H + kWideUnits - 1) / kWideUnits;
+  const int dir = blockIdx.x / nb, blk = blockIdx.x % nb;
+  const int j0 = blk * kWideUnits;
+  const int Bp = (B + kWideRows - 1) / kWideRows * kWideRows;
+  const int G = 4 * H;
+  const int cs = wide_slice_cols(H);
+  const T* dy = dir == 0 ? dyf : dyb;
+  const float* cst = dir == 0 ? cf : cb;
+  T* dg = dir == 0 ? dgf : dgb;
+  float* dh = state + (size_t)dir * B * H;
+  float* dc = state + (size_t)(2 + dir) * B * H;
+  const size_t xsize = (size_t)kWideSlices * cs * Bp;  // a parity, direction
+  const float* wblk = wq + ((size_t)dir * nb + blk) * kWideSlices * cs *
+                               kWideUnits;
+  // the product: slice `slice` of 64 threads; a warp 8 row groups x 4
+  // unit groups (its dgates loads 128 bytes, its W_h 64)
+  const int slice = threadIdx.x / 64;
+  const int u = threadIdx.x % 64;
+  const int tr = (u >> 5) * 8 + ((u & 31) >> 2);   // rows 4 tr .. 4 tr + 3
+  const int tu = u & 3;                            // units 4 tu .. 4 tu + 3
+  constexpr int kChunk = kWideCols * (kWideRows + kWideUnits);
+  float* buf = smem + (size_t)slice * 2 * kChunk;
+  float* part = smem + (size_t)kWideSlices * 2 * kChunk;   // [8][64][16]
+  auto time_of = [&](int s) { return dir == 0 ? steps - 1 - s : s; };
+
+  for (int s = 0; s < steps; ++s) {
+    const int t = time_of(s);
+    const bool first = s == steps - 1;   // the direction's first fwd step
+    const int tp = dir == 0 ? t - 1 : t + 1;
+    float* dg_x = dgx + ((size_t)(s & 1) * 2 + dir) * xsize;
+    for (int e = threadIdx.x; e < B * kWideUnits; e += kWideThreads) {
+      const int b = e / kWideUnits, j = j0 + e % kWideUnits;
+      if (j >= H) continue;
+      const T* x = xp + ((size_t)t * B + b) * 2 * G + dir * G;
+      const float* g = sums + ((size_t)s * B + b) * 2 * G + dir * G;
+      // pre-activation of gate q: the stored projection plus the sums
+      auto pre = [&](int q) { return to_f32(x[q * H + j]) + g[q * H + j]; };
+      const float gi = sigmoid(pre(0));
+      const float gf = sigmoid(pre(1));
+      const float gg = tanhf(pre(2));
+      const float go = sigmoid(pre(3));
+      const size_t o = ((size_t)t * B + b) * H + j;
+      const float c = cst[o];
+      const float cp = first ? 0.0f : cst[((size_t)tp * B + b) * H + j];
+      const float tc = tanhf(c);
+      const size_t sj = (size_t)b * H + j;
+      const float dht = to_f32(dy[o]) + dh[sj];
+      const float dct = dc[sj] + dht * go * (1.0f - tc * tc);
+      const bool valid = t < lens[b];
+      const float d[4] = {valid ? dct * gg * gi * (1.0f - gi) : 0.0f,
+                          valid ? dct * cp * gf * (1.0f - gf) : 0.0f,
+                          valid ? dct * gi * (1.0f - gg * gg) : 0.0f,
+                          valid ? dht * tc * go * (1.0f - go) : 0.0f};
+      T* out = dg + ((size_t)t * B + b) * G;
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const T r = from_f32<T>(d[q]);
+        out[q * H + j] = r;
+        __stcg(dg_x + (size_t)(q * H + j) * Bp + b, to_f32(r));
+      }
+      if (valid) dc[sj] = dct * gf;
+    }
+    grid.sync();
+    if (s + 1 == steps) break;
+    for (int r0 = 0; r0 < B; r0 += kWideRows) {
+      // chunk i of this slice's columns into buffer i & 1
+      auto fetch = [&](int i) {
+        const int c0 = slice * cs + i * kWideCols;
+        float* a = buf + (i & 1) * kChunk;          // [16][64] dgates
+        float* w = a + kWideCols * kWideRows;       // [16][16] W_h
+        for (int q = u; q < kWideCols * (kWideRows + kWideUnits) / 4;
+             q += 64) {
+          if (q < kWideCols * kWideRows / 4) {
+            const int k = q / (kWideRows / 4), o = q % (kWideRows / 4) * 4;
+            cp_async16(a + k * kWideRows + o,
+                       dg_x + (size_t)(c0 + k) * Bp + r0 + o);
+          } else {
+            const int o = (q - kWideCols * kWideRows / 4) * 4;
+            cp_async16(w + o, wblk + (size_t)c0 * kWideUnits + o);
+          }
+        }
+        cp_async_commit();
+      };
+      float acc[4][4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) acc[i][q] = 0.0f;
+      const int chunks = cs / kWideCols;
+      fetch(0);
+      for (int i = 0; i < chunks; ++i) {
+        if (i + 1 < chunks) {
+          fetch(i + 1);
+          cp_async_wait<1>();
+        } else {
+          cp_async_wait<0>();
+        }
+        __syncthreads();
+        const float* a = buf + (i & 1) * kChunk;
+        const float* w = a + kWideCols * kWideRows;
+#pragma unroll 4
+        for (int k = 0; k < kWideCols; ++k) {
+          const float4 a4 =
+              *reinterpret_cast<const float4*>(a + k * kWideRows + 4 * tr);
+          const float4 b4 =
+              *reinterpret_cast<const float4*>(w + k * kWideUnits + 4 * tu);
+          const float av[4] = {a4.x, a4.y, a4.z, a4.w};
+          const float bv[4] = {b4.x, b4.y, b4.z, b4.w};
+#pragma unroll
+          for (int r = 0; r < 4; ++r)
+#pragma unroll
+            for (int q = 0; q < 4; ++q)
+              acc[r][q] = fmaf(av[r], bv[q], acc[r][q]);
+        }
+        __syncthreads();   // the buffer is refilled two chunks on
+      }
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+#pragma unroll
+        for (int q = 0; q < 4; ++q)
+          part[((size_t)slice * kWideRows + 4 * tr + r) * kWideUnits +
+               4 * tu + q] = acc[r][q];
+      __syncthreads();
+      // dh = the slices' partials in slice order, where step s was valid
+      for (int o = threadIdx.x; o < kWideRows * kWideUnits;
+           o += kWideThreads) {
+        const int b = r0 + o / kWideUnits, j = j0 + o % kWideUnits;
+        if (b >= B || j >= H || t >= lens[b]) continue;
+        float sum = part[o];
+        for (int k = 1; k < kWideSlices; ++k)
+          sum += part[(size_t)k * kWideRows * kWideUnits + o];
+        dh[(size_t)b * H + j] = sum;
+      }
+      __syncthreads();   // `part` serves the next tile, dh the next step
+    }
+  }
+}
+
+template <typename T>
+int wide_launch(const void* dyf, const void* dyb, const void* xp,
+                const void* cf, const void* cb, const void* wq,
+                const void* lens, const void* sums, void* dgf, void* dgb,
+                void* dgx, void* state, int steps, int B, int H,
+                void* stream) {
+  if (steps <= 0 || B <= 0) return cudaGetLastError();
+  if (H <= 0) return cudaErrorInvalidValue;
+  int dev = 0, sms = 0, coop = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
+  if (!coop) return cudaErrorNotSupported;
+  const int nb = (H + kWideUnits - 1) / kWideUnits;
+  const size_t smem = wide_bwd_bytes();
+  auto kern = bilstm_wide_chain_bwd_kernel<T>;
+  e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           (int)smem);
+  if (e != cudaSuccess) return e;
+  int per_sm = 0;
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern,
+                                                    kWideThreads, smem);
+  if (e != cudaSuccess) return e;
+  if (per_sm * sms < 2 * nb) return cudaErrorCooperativeLaunchTooLarge;
+  const T* a_dyf = static_cast<const T*>(dyf);
+  const T* a_dyb = static_cast<const T*>(dyb);
+  const T* a_xp = static_cast<const T*>(xp);
+  const float* a_cf = static_cast<const float*>(cf);
+  const float* a_cb = static_cast<const float*>(cb);
+  const float* a_wq = static_cast<const float*>(wq);
+  const int32_t* a_lens = static_cast<const int32_t*>(lens);
+  const float* a_sums = static_cast<const float*>(sums);
+  T* a_dgf = static_cast<T*>(dgf);
+  T* a_dgb = static_cast<T*>(dgb);
+  float* a_dgx = static_cast<float*>(dgx);
+  float* a_state = static_cast<float*>(state);
+  int a_steps = steps, a_b = B, a_h = H;
+  void* args[] = {&a_dyf, &a_dyb,  &a_xp,   &a_cf,    &a_cb,
+                  &a_wq,  &a_lens, &a_sums, &a_dgf,   &a_dgb,
+                  &a_dgx, &a_state, &a_steps, &a_b, &a_h};
+  e = cudaLaunchCooperativeKernel((void*)kern, dim3(2 * nb),
+                                  dim3(kWideThreads), args, smem,
+                                  static_cast<cudaStream_t>(stream));
+  if (e != cudaSuccess) return e;
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -682,6 +925,38 @@ int bilstm_proj_chain_bf16(const void* dyf, const void* dyb, const void* cf,
                                      dgf, dgb, state, s0, S, steps, B, H, C,
                                      R, stream);
 }
+
+// K3's wide route (csrc/lstm_wide.cuh), where W_h fits neither route
+// above: dy_f, dy_b [T, B, H], xp [T, B, 8H] in the compute dtype, c_f,
+// c_b [T, B, H] f32, wq [2][nb][8 cs][16] f32 (W_h of both directions in
+// the wide layout: ops/rnn_cuda.py::_wide_rows), lens [B] int32, sums:
+// the recurrent sums K2's wide route stored -> dg_f, dg_b [T, B, 4H];
+// dgx [2][2][8 cs][Bp] f32 and state [2][2][B][H] f32, both zeroed by the
+// caller (8 cs = bilstm_wide_bwd_cols(H), Bp = B rounded up to 64).  One
+// launch for any B.
+int bilstm_wide_bwd_f32(const void* dyf, const void* dyb, const void* xp,
+                        const void* cf, const void* cb, const void* wq,
+                        const void* lens, const void* sums, void* dgf,
+                        void* dgb, void* dgx, void* state, int steps, int B,
+                        int H, void* stream) {
+  return wide_launch<float>(dyf, dyb, xp, cf, cb, wq, lens, sums, dgf, dgb,
+                            dgx, state, steps, B, H, stream);
+}
+
+int bilstm_wide_bwd_bf16(const void* dyf, const void* dyb, const void* xp,
+                         const void* cf, const void* cb, const void* wq,
+                         const void* lens, const void* sums, void* dgf,
+                         void* dgb, void* dgx, void* state, int steps,
+                         int B, int H, void* stream) {
+  return wide_launch<__nv_bfloat16>(dyf, dyb, xp, cf, cb, wq, lens, sums,
+                                    dgf, dgb, dgx, state, steps, B, H,
+                                    stream);
+}
+
+// rows of the wide route's weights and dgates exchange at H units (the
+// dh product's column slices together), and its shared memory a block
+int bilstm_wide_bwd_cols(int H) { return kWideSlices * wide_slice_cols(H); }
+int bilstm_wide_bwd_smem(void) { return (int)wide_bwd_bytes(); }
 
 const char* kctpu_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));

@@ -86,6 +86,7 @@
 #include "bilstm_cell.cuh"
 #include "fwd_chain.cuh"
 #include "lstm_gates.cuh"
+#include "lstm_wide.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -375,6 +376,190 @@ int xp_chain_launch(const void* xp, const void* whf, const void* whb,
                                           stream, static_cast<float*>(sums));
 }
 
+// ---------------------------------------------------------------------------
+// K2's wide route: W_h from L2 every step (csrc/lstm_wide.cuh)
+// ---------------------------------------------------------------------------
+
+// bytes of a wide forward block's shared memory at H units: per half, two
+// buffers of one leaf's h rows and W_h columns (ceil(H/32) terms of 64
+// floats each), and the right half's sums handed to the left
+inline size_t wide_fwd_bytes(int H) {
+  const size_t terms = (H + 31) / 32;
+  return sizeof(float) * (2 * 2 * 2 * terms * 64 + kWideHalf * 16);
+}
+
+// One block per (direction, kWideUnits units); both directions in one
+// cooperative grid, one grid.sync() a step.  Inputs as K2's other routes,
+// and
+//   wp: W_h of both directions as f32, [2][nb][32 lanes][J][64]: block
+//       blk's column 4 jj + q is gate q of unit blk * 16 + jj, term j of
+//       lane l is row k = l + 32 j (zeros past H);
+//   hx: h as the next step's operand, f32 rounded to T, [2 parities][2
+//       directions][32 lanes][J][Bp] (unit k at lane k % 32, term k / 32;
+//       Bp = B rounded up to kWideRows), zeroed by the caller; it is also
+//       the carry of h over pad frames.
+// Each step, for each tile of 64 rows, the block's two halves stream the
+// 16 leaves of their half of warp_dot's tree, double-buffered by
+// cp.async; the left half adds the right half's sums and does the gate
+// math of its 4 rows x 1 unit a thread (LstmCell::step, c carried in the
+// c output itself), writes y, c and the next h, and with kStore the
+// recurrent sums in K3's walk order (row steps-1-s), as the cluster route.
+template <typename T, bool kStore>
+__global__ void __launch_bounds__(kWideThreads, 1)
+bilstm_wide_chain_fwd_kernel(const T* __restrict__ xp,
+                             const float* __restrict__ wp,
+                             const int32_t* __restrict__ lens,
+                             T* __restrict__ yf, float* __restrict__ cf,
+                             T* __restrict__ yb, float* __restrict__ cb,
+                             float* hx, float* __restrict__ sums, int steps,
+                             int B, int H) {
+  cg::grid_group grid = cg::this_grid();
+  extern __shared__ float4 wide_smem[];
+  float* smem = reinterpret_cast<float*>(wide_smem);
+  const int J = (H + 31) / 32;
+  const int nb = (H + kWideUnits - 1) / kWideUnits;
+  const int dir = blockIdx.x / nb, blk = blockIdx.x % nb;
+  const int Bp = (B + kWideRows - 1) / kWideRows * kWideRows;
+  const int G = 4 * H;
+  const int half = threadIdx.x / kWideHalf;
+  const int tid = threadIdx.x % kWideHalf;
+  const int lane = tid & 31, warp = tid >> 5;
+  // a warp: 4 row groups x 8 units (its h loads 64 bytes, its W_h 128)
+  const int tr = (warp >> 1) * 4 + (lane >> 3);   // rows 4 tr .. 4 tr + 3
+  const int tc = (warp & 1) * 8 + (lane & 7);     // unit tc, columns 4 tc + q
+  const int j = blk * kWideUnits + tc;
+  const size_t chunk = (size_t)J * 64;
+  float* buf = smem + half * 2 * 2 * chunk;       // [2 buffers][h | W_h]
+  float* right = smem + 2 * 2 * 2 * chunk;        // [256][16]
+  const float* wblk = wp + ((size_t)dir * nb + blk) * 32 * chunk;
+  const size_t hsize = (size_t)32 * J * Bp;       // one parity, direction
+  const size_t hslot = ((size_t)(j & 31) * J + (j >> 5)) * Bp;
+  T* y = dir == 0 ? yf : yb;
+  float* cst = dir == 0 ? cf : cb;
+
+  for (int s = 0; s < steps; ++s) {
+    const int t = dir == 0 ? s : steps - 1 - s;
+    const int tp = dir == 0 ? t - 1 : t + 1;
+    const float* h_cur = hx + ((size_t)(s & 1) * 2 + dir) * hsize;
+    float* h_next = hx + ((size_t)((s + 1) & 1) * 2 + dir) * hsize;
+    for (int r0 = 0; r0 < B; r0 += kWideRows) {
+      // leaf i of this half into buffer i & 1
+      auto fetch = [&](int i) {
+        const int l = leaf_lane(half * 16 + i);
+        float* a = buf + (i & 1) * 2 * chunk;
+        const float* ha = h_cur + (size_t)l * J * Bp + r0;
+        const float* wb = wblk + (size_t)l * chunk;
+        for (int q = tid; q < J * 16; q += kWideHalf) {
+          const int k = q >> 4, o = (q & 15) * 4;
+          cp_async16(a + k * 64 + o, ha + (size_t)k * Bp + o);
+          cp_async16(a + chunk + k * 64 + o, wb + k * 64 + o);
+        }
+        cp_async_commit();
+      };
+      LeafTree4x4 tree;
+      fetch(0);
+      for (int i = 0; i < 16; ++i) {
+        if (i + 1 < 16) {
+          fetch(i + 1);
+          cp_async_wait<1>();
+        } else {
+          cp_async_wait<0>();
+        }
+        half_sync(half);
+        const float* a = buf + (i & 1) * 2 * chunk;
+        tree.leaf(a + 4 * tr, a + chunk + 4 * tc, 64,
+                  leaf_terms(leaf_lane(half * 16 + i), H));
+        tree.close(i);
+        half_sync(half);   // the buffer is refilled two leaves on
+      }
+      if (half == 1) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int q = 0; q < 4; ++q) right[tid * 16 + i * 4 + q] = tree.v[i][q];
+      }
+      __syncthreads();
+      if (half == 0 && j < H) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int b = r0 + 4 * tr + i;
+          if (b >= B) break;
+          // the root: the left half plus the right
+          float sums4[4], xs[4];
+          const T* x = xp + ((size_t)t * B + b) * 2 * G + dir * G;
+#pragma unroll
+          for (int q = 0; q < 4; ++q) {
+            sums4[q] = tree.v[i][q] + right[tid * 16 + i * 4 + q];
+            xs[q] = to_f32(x[q * H + j]);
+          }
+          const size_t o = ((size_t)t * B + b) * H + j;
+          const float c_prev =
+              s == 0 ? 0.0f : cst[((size_t)tp * B + b) * H + j];
+          float c_new = c_prev;
+          const float h_new = LstmCell::step(sums4, xs, c_new);
+          const bool valid = t < lens[b];
+          const float h_prev = __ldcg(h_cur + hslot + b);
+          __stcg(h_next + hslot + b,
+                 valid ? to_f32(from_f32<T>(h_new)) : h_prev);
+          y[o] = from_f32<T>(valid ? h_new : 0.0f);
+          cst[o] = valid ? c_new : c_prev;
+          if (kStore) {
+            float* row = sums + ((size_t)(steps - 1 - s) * B + b) * 2 * G +
+                         dir * G;
+#pragma unroll
+            for (int q = 0; q < 4; ++q) __stcs(row + q * H + j, sums4[q]);
+          }
+        }
+      }
+      __syncthreads();   // `right` and the buffers serve the next tile
+    }
+    grid.sync();
+  }
+}
+
+template <typename T>
+int wide_launch(const void* xp, const void* wp, const void* lens, void* yf,
+                void* cf, void* yb, void* cb, void* hx, void* sums,
+                int steps, int B, int H, void* stream) {
+  if (steps <= 0 || B <= 0) return cudaGetLastError();
+  if (H <= 0) return cudaErrorInvalidValue;
+  int dev = 0, sms = 0, coop = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
+  if (!coop) return cudaErrorNotSupported;
+  const int nb = (H + kWideUnits - 1) / kWideUnits;
+  const size_t smem = wide_fwd_bytes(H);
+  auto kern = sums != nullptr ? bilstm_wide_chain_fwd_kernel<T, true>
+                              : bilstm_wide_chain_fwd_kernel<T, false>;
+  e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           (int)smem);
+  if (e != cudaSuccess) return e;
+  int per_sm = 0;
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern,
+                                                    kWideThreads, smem);
+  if (e != cudaSuccess) return e;
+  if (per_sm * sms < 2 * nb) return cudaErrorCooperativeLaunchTooLarge;
+  const T* a_xp = static_cast<const T*>(xp);
+  const float* a_wp = static_cast<const float*>(wp);
+  const int32_t* a_lens = static_cast<const int32_t*>(lens);
+  T* a_yf = static_cast<T*>(yf);
+  float* a_cf = static_cast<float*>(cf);
+  T* a_yb = static_cast<T*>(yb);
+  float* a_cb = static_cast<float*>(cb);
+  float* a_hx = static_cast<float*>(hx);
+  float* a_sums = static_cast<float*>(sums);
+  int a_steps = steps, a_b = B, a_h = H;
+  void* args[] = {&a_xp, &a_wp, &a_lens, &a_yf, &a_cf, &a_yb,
+                  &a_cb, &a_hx, &a_sums, &a_steps, &a_b, &a_h};
+  e = cudaLaunchCooperativeKernel((void*)kern, dim3(2 * nb),
+                                  dim3(kWideThreads), args, smem,
+                                  static_cast<cudaStream_t>(stream));
+  if (e != cudaSuccess) return e;
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -465,6 +650,30 @@ int bilstm_fwd_chain_bf16(const void* pre, const void* whf, const void* whb,
                                      state, s0, S, steps, B, H, C, R,
                                      stream);
 }
+
+// K2's wide route (csrc/lstm_wide.cuh), where W_h fits neither route
+// above: xp [T, B, 8H] in the compute dtype, wp [2][nb][32][J][64] f32
+// (W_h of both directions in the wide layout: ops/rnn_cuda.py::
+// _wide_weights), lens [B] int32 -> y_f, y_b [T, B, H] in the compute
+// dtype and c_f, c_b [T, B, H] f32; hx [2][2][32][J][Bp] f32 zeroed by
+// the caller (J = ceil(H/32), Bp = B rounded up to 64); sums as the
+// cluster route's (null: nothing stored).  One launch for any B.
+int bilstm_wide_fwd_f32(const void* xp, const void* wp, const void* lens,
+                        void* yf, void* cf, void* yb, void* cb, void* hx,
+                        void* sums, int steps, int B, int H, void* stream) {
+  return wide_launch<float>(xp, wp, lens, yf, cf, yb, cb, hx, sums, steps,
+                            B, H, stream);
+}
+
+int bilstm_wide_fwd_bf16(const void* xp, const void* wp, const void* lens,
+                         void* yf, void* cf, void* yb, void* cb, void* hx,
+                         void* sums, int steps, int B, int H, void* stream) {
+  return wide_launch<__nv_bfloat16>(xp, wp, lens, yf, cf, yb, cb, hx, sums,
+                                    steps, B, H, stream);
+}
+
+// the wide route's shared memory a block at H units, in bytes
+int bilstm_wide_fwd_smem(int H) { return (int)wide_fwd_bytes(H); }
 
 const char* kctpu_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));

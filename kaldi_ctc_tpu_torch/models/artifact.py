@@ -4,7 +4,9 @@ Counterpart of ``kaldi_ctc_tpu/models/artifact.py``, same ``.npz``
 format: ``leaf_<i>`` arrays numbered in ``jax.tree_util`` flatten order
 (reproduced by :func:`params.tree_flatten`, hazard F3), the AmConfig
 JSON under ``__config__`` and the prior vector under ``__priors__``.
-Artifacts written by either package load in the other.
+Artifacts written by either package load in the other.  A model with
+batch norms (the port's alone) adds its running statistics as
+``stat_<i>`` (:func:`load_norm_stats`).
 """
 
 from __future__ import annotations
@@ -16,17 +18,22 @@ from typing import Any, Optional, Tuple
 import numpy as np
 import torch
 
-from kaldi_ctc_tpu_torch.models.acoustic import AmConfig, am_param_shapes
+from kaldi_ctc_tpu_torch.models.acoustic import (AmConfig, am_param_shapes,
+                                                 init_norm_stats)
 from kaldi_ctc_tpu_torch.params import tree_flatten, tree_unflatten
 
 __all__ = ["save_inference_artifact", "load_inference_artifact",
-           "load_acoustic_model", "leaves_to_params"]
+           "load_acoustic_model", "leaves_to_params", "load_norm_stats"]
 
 
 def save_inference_artifact(path: str, params: Any, cfg: AmConfig,
-                            priors: Optional[np.ndarray] = None) -> None:
+                            priors: Optional[np.ndarray] = None,
+                            stats: Optional[list] = None) -> None:
+    """``stats``: the running statistics of a model with batch norms."""
     arrays = {f"leaf_{i}": l.detach().to("cpu", torch.float32).numpy()
               for i, l in enumerate(tree_flatten(params))}
+    for i, leaf in enumerate(tree_flatten(stats)):
+        arrays[f"stat_{i}"] = leaf.detach().to("cpu", torch.float32).numpy()
     arrays["__config__"] = np.frombuffer(
         json.dumps(cfg.to_dict()).encode(), dtype=np.uint8)
     if priors is not None:
@@ -67,6 +74,30 @@ def load_inference_artifact(path: str, device="cpu"
         priors = (np.asarray(data["__priors__"])
                   if "__priors__" in data.files else None)
     return params, cfg, priors
+
+
+def load_norm_stats(cfg: AmConfig, model: Optional[str] = None,
+                    dir: Optional[str] = None, step: Optional[int] = None,
+                    device="cpu") -> list:
+    """The running statistics of ``cfg``'s batch norms, from the model
+    file or the training directory :func:`load_acoustic_model` read;
+    empty for a model with none.  A model file without them raises (every
+    writer of the port writes them); a training directory's step-0
+    checkpoint may start them fresh (``restore_norm_stats``)."""
+    fresh = init_norm_stats(cfg, device)
+    if not fresh:
+        return fresh
+    if not model:
+        from kaldi_ctc_tpu_torch.training.checkpoint import restore_norm_stats
+        return restore_norm_stats(os.path.join(dir, "checkpoints"), cfg,
+                                  step, device)
+    keys = [f"stat_{i}" for i in range(len(tree_flatten(fresh)))]
+    with np.load(model) as data:
+        if keys[0] not in data.files:
+            raise ValueError(f"{model} holds no running statistics, which "
+                             f"its model's batch norms need")
+        return tree_unflatten(fresh, [torch.as_tensor(data[k], device=device)
+                                      for k in keys])
 
 
 def load_acoustic_model(model: Optional[str] = None,

@@ -41,7 +41,7 @@ from __future__ import annotations
 
 import dataclasses
 import enum
-from typing import Any, Dict, List, Optional
+from typing import Any, Callable, Dict, List, Optional
 
 import torch
 
@@ -79,6 +79,11 @@ class RnnConfig:
     # matmul compute dtype: "float32" or "bfloat16" (mixed precision —
     # params/state stay f32, matmul operands cast, f32 accumulation)
     compute_dtype: str = "float32"
+    # deepspeech.pytorch's BatchRNN: a bidirectional layer's two
+    # directions summed (H wide, not concatenated), and a batch norm of
+    # every layer's input but the first's (its SequenceWise BatchNorm1d;
+    # leaves norm_g and norm_b in the layer)
+    batch_rnn: bool = False
 
     @property
     def num_directions(self) -> int:
@@ -86,7 +91,8 @@ class RnnConfig:
 
     @property
     def output_dim(self) -> int:
-        return self.hidden_dim * self.num_directions
+        return self.hidden_dim * (1 if self.batch_rnn
+                                  else self.num_directions)
 
     @property
     def dtype(self) -> torch.dtype:
@@ -99,13 +105,21 @@ class RnnConfig:
 def rnn_param_shapes(cfg: RnnConfig) -> List[Dict[str, Any]]:
     """The parameter tree with shapes (``torch.Size``) as leaves:
     params[layer]["dirs"][d] = {"w_x": [D_in, G*H], "w_h": [H, G*H],
-    "b": [G*H]}."""
+    "b": [G*H]}; with ``batch_rnn`` layers 2.. also hold "norm_g" and
+    "norm_b" [D_in]."""
     gh = _GATES[cfg.mode] * cfg.hidden_dim
-    return [{"dirs": [{"w_x": torch.Size((cfg.layer_input_dim(layer), gh)),
-                       "w_h": torch.Size((cfg.hidden_dim, gh)),
-                       "b": torch.Size((gh,))}
-                      for _ in range(cfg.num_directions)]}
-            for layer in range(cfg.num_layers)]
+    out = []
+    for layer in range(cfg.num_layers):
+        d_in = cfg.layer_input_dim(layer)
+        shapes: Dict[str, Any] = {
+            "dirs": [{"w_x": torch.Size((d_in, gh)),
+                      "w_h": torch.Size((cfg.hidden_dim, gh)),
+                      "b": torch.Size((gh,))}
+                     for _ in range(cfg.num_directions)]}
+        if layer and cfg.batch_rnn:
+            shapes["norm_g"] = shapes["norm_b"] = torch.Size((d_in,))
+        out.append(shapes)
+    return out
 
 
 def init_rnn_params(cfg: RnnConfig,
@@ -118,11 +132,18 @@ def init_rnn_params(cfg: RnnConfig,
         return (std * torch.randn(shape, generator=generator,
                                   dtype=torch.float32)).to(device)
 
-    return [{"dirs": [{"w_x": draw(d["w_x"], cfg.param_stddev),
-                       "w_h": draw(d["w_h"], cfg.param_stddev),
-                       "b": draw(d["b"], cfg.bias_stddev)}
-                      for d in layer["dirs"]]}
-            for layer in rnn_param_shapes(cfg)]
+    out = []
+    for layer in rnn_param_shapes(cfg):
+        params: Dict[str, Any] = {
+            "dirs": [{"w_x": draw(d["w_x"], cfg.param_stddev),
+                      "w_h": draw(d["w_h"], cfg.param_stddev),
+                      "b": draw(d["b"], cfg.bias_stddev)}
+                     for d in layer["dirs"]]}
+        if "norm_g" in layer:
+            params["norm_g"] = torch.ones(layer["norm_g"], device=device)
+            params["norm_b"] = torch.zeros(layer["norm_b"], device=device)
+        out.append(params)
+    return out
 
 
 def matmul_f32acc(a: torch.Tensor, b: torch.Tensor,
@@ -236,11 +257,19 @@ def rnn_forward(
     x: torch.Tensor,
     cfg: RnnConfig,
     input_lens: Optional[torch.Tensor] = None,
+    norm: Optional[Callable[..., torch.Tensor]] = None,
 ) -> torch.Tensor:
-    """Run the full stack. x: [T, B, input_dim] → [T, B, H*num_directions]
-    in the compute dtype."""
+    """Run the full stack. x: [T, B, input_dim] → [T, B, output_dim] in
+    the compute dtype.  ``norm(x, g, b)`` normalises the input of each
+    layer that holds ``norm_g`` and ``norm_b`` (``batch_rnn``; the
+    acoustic model's batch norm over the valid frames)."""
     out = x
     for layer_params in params:
+        if "norm_g" in layer_params:
+            if norm is None:
+                raise ValueError("rnn_forward: a layer with an input norm "
+                                 "needs `norm`")
+            out = norm(out, layer_params["norm_g"], layer_params["norm_b"])
         dirs = layer_params["dirs"]
         if cfg.bidirectional and cfg.mode in (RnnMode.LSTM, RnnMode.GRU):
             out = _run_birnn_fused(out, input_lens, dirs, cfg)
@@ -248,10 +277,17 @@ def rnn_forward(
         fwd = _run_direction(out, input_lens, dirs[0], cfg, reverse=False)
         if cfg.bidirectional:
             bwd = _run_direction(out, input_lens, dirs[1], cfg, reverse=True)
-            out = torch.cat([fwd, bwd], dim=-1)
+            out = _merge(fwd, bwd, cfg)
         else:
             out = fwd
     return out
+
+
+def _merge(fwd: torch.Tensor, bwd: torch.Tensor, cfg: RnnConfig
+           ) -> torch.Tensor:
+    """A bidirectional layer's output: the directions concatenated, or
+    summed (``batch_rnn``)."""
+    return fwd + bwd if cfg.batch_rnn else torch.cat([fwd, bwd], dim=-1)
 
 
 def _run_birnn_fused(x, input_lens, dirs, cfg: RnnConfig) -> torch.Tensor:
@@ -271,7 +307,7 @@ def _run_birnn_fused(x, input_lens, dirs, cfg: RnnConfig) -> torch.Tensor:
     bias = torch.cat([dirs[0]["b"], dirs[1]["b"]])
     y_f, y_b = bi_layer(x, w_x, bias, dirs[0]["w_h"], dirs[1]["w_h"], lens,
                         cfg.compute_dtype)
-    return torch.cat([y_f, y_b], dim=-1)
+    return _merge(y_f, y_b, cfg)
 
 
 # ---------------------------------------------------------------------------
@@ -283,6 +319,8 @@ def init_stream_state(cfg: RnnConfig, batch: int, device="cpu") -> List[Any]:
     an LSTM, h otherwise."""
     if cfg.bidirectional:
         raise ValueError("streaming requires a unidirectional stack")
+    if cfg.batch_rnn:
+        raise ValueError("streaming takes no batch norm")
     states: List[Any] = []
     for _ in range(cfg.num_layers):
         h = torch.zeros((batch, cfg.hidden_dim), dtype=torch.float32,

@@ -26,6 +26,9 @@ slices (:func:`run_in_row_slices`), so every wrapper takes any batch, as
 the reference does.  K10a and K5 walk their recurrence in thread-block
 clusters (``csrc/fwd_chain.cuh``), which take any batch by design, and so
 do K2 and the GRU's K9a (``ops/gru_cuda.py``) where W_h fits a cluster;
+where W_h fits neither a cluster nor a cooperative block (H = 1024), K2
+and K3 take their wide route (``csrc/lstm_wide.cuh``: W_h from L2 every
+step, the batch in tiles, one walk of T);
 their launch shape comes from :func:`fwd_chain_plan`, which sends K2, K5
 and K9a (and the GRU's K8a) to their cooperative kernels where W_h fits
 no cluster.  The backwards K6, K9b and K10b (phase 2) walk the dh chain
@@ -45,6 +48,7 @@ cell states are f32, and weight gradients come out f32.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Callable, Dict, NamedTuple, Optional, Tuple
 
 import torch
@@ -64,7 +68,8 @@ __all__ = ["bilstm_seq_fwd", "bilstm_seq_fwd_reference",
            "lstm_sequence", "lstm_stack_fwd", "lstm_stack_fwd_reference",
            "lstm_stack_fits", "max_rows", "run_in_row_slices", "K10bPlan",
            "k10b_plan", "FwdChainPlan", "fwd_chain_plan", "k2_plan",
-           "BwdChainPlan", "bwd_chain_plan", "k3_plan", "k6_plan",
+           "bilstm_fwd_plan", "BwdChainPlan", "bwd_chain_plan",
+           "k3_plan", "bilstm_bwd_plan", "k6_plan",
            "StackPlan", "stack_chain_plan", "k7_plan"]
 
 _P = ctypes.c_void_p
@@ -75,7 +80,11 @@ _ARGS = [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P]
 _PROJ_X_ARGS = [_P] * 4 + [_I] * 8 + [_P]
 _FWD_CHAIN_ARGS = [_P] * 9 + [_I] * 7 + [_P]
 _XP_CHAIN_ARGS = [_P] * 10 + [_I] * 5 + [_P]
-_SIGNATURES = {"bilstm_fwd_f32": _ARGS, "bilstm_fwd_bf16": _ARGS,
+_WIDE_FWD_ARGS = [_P] * 9 + [_I] * 3 + [_P]
+_SIGNATURES = {"bilstm_wide_fwd_f32": _WIDE_FWD_ARGS,
+               "bilstm_wide_fwd_bf16": _WIDE_FWD_ARGS,
+               "bilstm_wide_fwd_smem": [_I],
+               "bilstm_fwd_f32": _ARGS, "bilstm_fwd_bf16": _ARGS,
                "bilstm_fwd_smem_optin": [],
                "bilstm_xp_chain_f32": _XP_CHAIN_ARGS,
                "bilstm_xp_chain_bf16": _XP_CHAIN_ARGS,
@@ -89,7 +98,12 @@ _TILED_ARGS = [_P] * 8 + [_I] * 6 + [_P]
 _CHAIN_ARGS = [_P] * 11 + [_I] * 7 + [_P]
 # K3's cluster route: the backward chain with both directions
 _BI_CHAIN_ARGS = [_P] * 12 + [_I] * 5 + [_P]
-_BWD_SIGNATURES = {"bilstm_bwd_f32": _BWD_ARGS,
+_WIDE_BWD_ARGS = [_P] * 12 + [_I] * 3 + [_P]
+_BWD_SIGNATURES = {"bilstm_wide_bwd_f32": _WIDE_BWD_ARGS,
+                   "bilstm_wide_bwd_bf16": _WIDE_BWD_ARGS,
+                   "bilstm_wide_bwd_cols": [_I],
+                   "bilstm_wide_bwd_smem": [],
+                   "bilstm_bwd_f32": _BWD_ARGS,
                    "bilstm_bwd_bf16": _BWD_ARGS,
                    "bilstm_bwd_exchange_floats": [_I, _I],
                    "bilstm_bwd_max_rows_f32": [_I],
@@ -284,15 +298,17 @@ def bilstm_seq_fwd(xp: torch.Tensor, w_h_f: torch.Tensor,
     [T, B, H] f32.  The contract of ``_bilstm_seq_fwd``.  On the card the
     route is :func:`fwd_chain_plan`'s, from the shapes: both directions'
     forward chains in thread-block clusters where W_h fits a cluster, else
-    the cooperative kernel; one launch for any B either way.
+    the cooperative kernel, and where neither fits (H = 1024 in f32) the
+    wide route (:func:`bilstm_fwd_plan`); one launch for any B each way.
 
     ``store_sums`` (a backward will follow: :func:`bilstm_layer` under
     autograd) appends a fifth output, the recurrent sums y[t-+1] . W_h the
     cluster route formed its gates from, [T, B, 8H] f32 in K3's walk order
     (row s: the forward direction's at t = T-1-s, the backward one's at
     t = s), for :func:`bilstm_seq_bwd_dgates`; None where nothing was
-    stored (the plain version, the cooperative route).  Counter
-    ``store_launches``: the forwards that stored them."""
+    stored (the plain version, the cooperative route).  Counters
+    ``store_launches``: the forwards that stored them; ``wide_launches``:
+    the forwards on the wide route."""
     y_dtype = xp.dtype if y_dtype is None else y_dtype
     if xp.device.type == "cpu":
         return bilstm_seq_fwd_reference(xp, w_h_f, w_h_b, lens, y_dtype,
@@ -313,6 +329,11 @@ def bilstm_seq_fwd(xp: torch.Tensor, w_h_f: torch.Tensor,
                                  store_sums)
         if store_sums:
             bilstm_seq_fwd.store_launches += 1
+    elif plan.route == "wide":
+        outs = _bilstm_fwd_wide(lib, xp, w_h_f, w_h_b, lens32, store_sums)
+        bilstm_seq_fwd.wide_launches += 1
+        if store_sums:
+            bilstm_seq_fwd.store_launches += 1
     else:
         outs = _bilstm_fwd_cooperative(lib, xp, w_h_f, w_h_b, lens32)
         if store_sums:
@@ -323,10 +344,90 @@ def bilstm_seq_fwd(xp: torch.Tensor, w_h_f: torch.Tensor,
 
 def k2_plan(lib: ctypes.CDLL, b: int, h: int, dtype: torch.dtype,
             device) -> "FwdChainPlan":
-    """K2's route and launch shape on ``device``: :func:`fwd_chain_plan`
-    with both directions."""
-    return fwd_chain_plan(b, 0, h, dtype, 2, _sm_count(device),
-                          _smem_optin(lib, "bilstm_fwd_smem_optin", device))
+    """K2's route and launch shape on ``device``: :func:`bilstm_fwd_plan`
+    with the card's SMs and shared memory."""
+    return bilstm_fwd_plan(b, h, dtype, _sm_count(device),
+                           _smem_optin(lib, "bilstm_fwd_smem_optin", device))
+
+
+def _bilstm_coop_fits(b: int, h: int, sms: int, smem_optin: int) -> bool:
+    """Whether both cooperative kernels of the layer take it: K2's at
+    ``b`` rows (``launch`` of csrc/bilstm_fwd.cu: W_h's 4 hs H floats,
+    every row's cell state and one staged row) and K3's at one row of its
+    row slices (``plan`` of csrc/bilstm_bwd.cu), hs = ceil(2H / SMs)."""
+    hs = -(-2 * h // sms)
+    k2 = 4 * (4 * hs * h + b * hs + h + 4 * hs)
+    k3 = 4 * (4 * hs * h + h + 2 * 4 * hs + 2 * hs)
+    return max(k2, k3) <= smem_optin
+
+
+# pure in its arguments, and asked on every K2 and K3 call
+@functools.lru_cache(maxsize=None)
+def _wide_route(b: int, h: int, dtype: torch.dtype, sms: int,
+                smem_optin: int) -> bool:
+    """Whether a BLSTM layer takes K2's and K3's wide route: neither
+    cluster route fits and a cooperative kernel of the pair does not take
+    the batch (the same answer for K2 and K3, so the wide backward always
+    reads the wide forward's sums).  Raises where the wide grid, one
+    block an SM for every 16 units of both directions, exceeds the card
+    (H above 16 x SMs / 2: 1,056 on 132 SMs)."""
+    fwd = fwd_chain_plan(b, 0, h, dtype, 2, sms, smem_optin)
+    bwd = bwd_chain_plan(b, h, dtype, 2, sms, smem_optin)
+    if fwd.route == "cluster" or bwd.route == "cluster" \
+            or _bilstm_coop_fits(b, h, sms, smem_optin):
+        return False
+    if 2 * -(-h // 16) > sms:
+        raise ValueError(f"BLSTM at H={h}: no route on {sms} SMs (the wide "
+                         f"route needs {2 * -(-h // 16)} co-resident blocks)")
+    return True
+
+
+def bilstm_fwd_plan(b: int, h: int, dtype: torch.dtype, sms: int,
+                    smem_optin: int) -> "FwdChainPlan":
+    """K2's route and launch shape for a batch of ``b`` rows and ``h``
+    units on a card of ``sms`` SMs with ``smem_optin`` bytes of shared
+    memory a block: :func:`fwd_chain_plan` with both directions, or the
+    wide route (``rows`` the 64 rows of a tile; its launch sizes its
+    blocks, ``bilstm_wide_fwd_smem``) where no cluster and no cooperative
+    kernel fits (:func:`_wide_route`: H = 1024 in either dtype on the
+    H100)."""
+    if _wide_route(b, h, dtype, sms, smem_optin):
+        return FwdChainPlan("wide", 0, 64, 0, 0, 0)
+    return fwd_chain_plan(b, 0, h, dtype, 2, sms, smem_optin)
+
+
+def _wide_weights(w_h_f: torch.Tensor, w_h_b: torch.Tensor) -> torch.Tensor:
+    """W_h of both directions in the wide forward's layout, f32 [2][nb][32
+    lanes][J][64]: block blk's column 4 jj + q is gate q of unit 16 blk +
+    jj, term j of lane l row k = l + 32 j; zeros past H."""
+    h = w_h_f.shape[0]
+    nb, terms = -(-h // 16), -(-h // 32)
+    w = torch.stack([w_h_f, w_h_b]).float().view(2, h, 4, h)
+    w = torch.nn.functional.pad(w, (0, 16 * nb - h, 0, 0, 0, 32 * terms - h))
+    w = w.view(2, terms, 32, 4, nb, 16).permute(0, 4, 2, 1, 5, 3)
+    return w.reshape(2, nb, 32, terms, 64).contiguous()
+
+
+def _bilstm_fwd_wide(lib: ctypes.CDLL, xp: torch.Tensor, w_h_f, w_h_b,
+                     lens32: torch.Tensor, store_sums: bool = False):
+    """K2's wide route (``bilstm_wide_fwd_*``, csrc/lstm_wide.cuh) on
+    checked operands; with ``store_sums`` the recurrent sums [T, B, 8H]
+    f32 in K3's walk order are a fifth output."""
+    t_max, b, g8 = xp.shape
+    h = g8 // 8
+    outs = _fwd_outputs(t_max, b, h, xp.dtype, xp.device)
+    hx = torch.zeros((2, 2, 32, -(-h // 32), -(-b // 64) * 64),
+                     dtype=torch.float32, device=xp.device)
+    sums = (torch.empty((t_max, b, g8), dtype=torch.float32,
+                        device=xp.device) if store_sums else None)
+    err = getattr(lib, "bilstm_wide_fwd_" + _SUFFIX[xp.dtype])(
+        xp.data_ptr(), _wide_weights(w_h_f, w_h_b).data_ptr(),
+        lens32.data_ptr(), *(v.data_ptr() for v in outs), hx.data_ptr(),
+        None if sums is None else sums.data_ptr(), t_max, b, h,
+        _kernels.stream_ptr(xp.device))
+    _kernels.check(lib, err, f"bilstm_seq_fwd (wide) at T={t_max}, B={b}, "
+                             f"H={h}")
+    return outs + (sums,) if store_sums else outs
 
 
 def _bilstm_fwd_chain(lib: ctypes.CDLL, xp: torch.Tensor, w_h_f, w_h_b,
@@ -380,6 +481,7 @@ def _fwd_outputs(t_max: int, b: int, h: int, y_dtype: torch.dtype,
 bilstm_seq_fwd.launches = 0  # kernel launches made by this wrapper
 # of those, the ones that kept the recurrent sums for the backward
 bilstm_seq_fwd.store_launches = 0
+bilstm_seq_fwd.wide_launches = 0  # and the ones on the wide route
 
 
 def bilstm_seq_bwd_dgates_reference(
@@ -472,8 +574,10 @@ def bilstm_seq_bwd_dgates(dy_f: torch.Tensor, dy_b: torch.Tensor,
     kernel in row slices, which recomputes the sums from y and ignores
     ``sums``.  :func:`bilstm_layer` passes them where autograd records a
     backward (an inference forward keeps none; K2 takes its cluster route
-    wherever this one does).  Counter ``stored_launches``: the calls that
-    read the forward's sums."""
+    wherever this one does).  Where neither fits (H = 1024 in f32) the
+    wide route, which reads the sums too (:func:`bilstm_bwd_plan`).
+    Counters ``stored_launches``: the calls that read the forward's sums;
+    ``wide_launches``: the calls on the wide route."""
     if xp.device.type == "cpu":
         return bilstm_seq_bwd_dgates_reference(
             dy_f, dy_b, xp, y_f, c_f, y_b, c_b, w_h_f, w_h_b, lens)
@@ -491,15 +595,19 @@ def bilstm_seq_bwd_dgates(dy_f: torch.Tensor, dy_b: torch.Tensor,
     plan = k3_plan(lib, b, h, xp.dtype, dev)
     lens32 = lens.to(torch.int32).contiguous()
     ops = (dy_f, dy_b, xp, y_f, c_f, y_b, c_b, w_h_f, w_h_b, lens32)
-    if plan.route == "cluster":
+    if plan.route in ("cluster", "wide"):
         if sums is None:
-            raise ValueError("bilstm_seq_bwd_dgates: the cluster route reads "
-                             "the recurrent sums of bilstm_seq_fwd with "
+            raise ValueError(f"bilstm_seq_bwd_dgates: the {plan.route} route "
+                             "reads the recurrent sums of bilstm_seq_fwd with "
                              "store_sums=True; none were passed")
         _check_tensors("bilstm_seq_bwd_dgates", dev, {
             "sums": (sums, torch.float32, (t_max, b, g8))})
         bilstm_seq_bwd_dgates.stored_launches += 1
-        out = _bilstm_bwd_chain(lib, *ops, sums, plan)
+        if plan.route == "cluster":
+            out = _bilstm_bwd_chain(lib, *ops, sums, plan)
+        else:
+            out = _bilstm_bwd_wide(lib, *ops, sums)
+            bilstm_seq_bwd_dgates.wide_launches += 1
     else:
         out = _bilstm_bwd_cooperative(lib, *ops)
     bilstm_seq_bwd_dgates.launches += 1
@@ -508,10 +616,59 @@ def bilstm_seq_bwd_dgates(dy_f: torch.Tensor, dy_b: torch.Tensor,
 
 def k3_plan(lib: ctypes.CDLL, b: int, h: int, dtype: torch.dtype,
             device) -> "BwdChainPlan":
-    """K3's route and launch shape on ``device``: :func:`bwd_chain_plan`
-    with four gates and both directions."""
-    return bwd_chain_plan(b, h, dtype, 2, _sm_count(device),
-                          _smem_optin(lib, "bilstm_bwd_smem_optin", device))
+    """K3's route and launch shape on ``device``: :func:`bilstm_bwd_plan`
+    with the card's SMs and shared memory."""
+    return bilstm_bwd_plan(b, h, dtype, _sm_count(device),
+                           _smem_optin(lib, "bilstm_bwd_smem_optin", device))
+
+
+def bilstm_bwd_plan(b: int, h: int, dtype: torch.dtype, sms: int,
+                    smem_optin: int) -> "BwdChainPlan":
+    """K3's route and launch shape: :func:`bwd_chain_plan` with four gates
+    and both directions, or the wide route (``rows`` 64; its launch sizes
+    its blocks, ``bilstm_wide_bwd_smem``) wherever K2 takes it
+    (:func:`_wide_route`)."""
+    if _wide_route(b, h, dtype, sms, smem_optin):
+        return BwdChainPlan("wide", 0, 0, 0, 64, 0)
+    return bwd_chain_plan(b, h, dtype, 2, sms, smem_optin)
+
+
+def _wide_rows(w_h_f: torch.Tensor, w_h_b: torch.Tensor, cols: int
+               ) -> torch.Tensor:
+    """W_h of both directions in the wide backward's layout, f32 [2][nb]
+    [cols][16] (``cols``: ``bilstm_wide_bwd_cols``, 4H in 8 slices of
+    whole 16-column chunks): block blk's row c holds W_h[16 blk + kk][c]
+    at kk; zeros past H and 4H."""
+    h = w_h_f.shape[0]
+    nb = -(-h // 16)
+    w = torch.stack([w_h_f, w_h_b]).float()
+    w = torch.nn.functional.pad(w, (0, cols - 4 * h, 0, 16 * nb - h))
+    return w.view(2, nb, 16, -1).transpose(2, 3).contiguous()
+
+
+def _bilstm_bwd_wide(lib: ctypes.CDLL, dy_f, dy_b, xp, y_f, c_f, y_b, c_b,
+                     w_h_f, w_h_b, lens32: torch.Tensor, sums: torch.Tensor
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K3's wide route (``bilstm_wide_bwd_*``, csrc/lstm_wide.cuh) on
+    checked operands and the sums K2's wide route stored."""
+    t_max, b, g8 = xp.shape
+    h = g8 // 8
+    dev = xp.device
+    dg_f = torch.empty((t_max, b, 4 * h), dtype=xp.dtype, device=dev)
+    dg_b = torch.empty_like(dg_f)
+    cols = lib.bilstm_wide_bwd_cols(h)
+    dgx = torch.zeros((2, 2, cols, -(-b // 64) * 64),
+                      dtype=torch.float32, device=dev)
+    state = torch.zeros((2, 2, b, h), dtype=torch.float32, device=dev)
+    err = getattr(lib, "bilstm_wide_bwd_" + _SUFFIX[xp.dtype])(
+        dy_f.data_ptr(), dy_b.data_ptr(), xp.data_ptr(), c_f.data_ptr(),
+        c_b.data_ptr(), _wide_rows(w_h_f, w_h_b, cols).data_ptr(),
+        lens32.data_ptr(), sums.data_ptr(), dg_f.data_ptr(), dg_b.data_ptr(),
+        dgx.data_ptr(), state.data_ptr(), t_max, b, h,
+        _kernels.stream_ptr(dev))
+    _kernels.check(lib, err, f"bilstm_seq_bwd_dgates (wide) at T={t_max}, "
+                             f"B={b}, H={h}")
+    return dg_f, dg_b
 
 
 def _bilstm_bwd_chain(lib: ctypes.CDLL, dy_f, dy_b, xp, y_f, c_f, y_b, c_b,
@@ -575,6 +732,7 @@ def _bilstm_bwd_cooperative(lib: ctypes.CDLL, dy_f, dy_b, xp, y_f, c_f,
 bilstm_seq_bwd_dgates.launches = 0  # kernel launches made by this wrapper
 # of those, the ones on the sums the forward stored
 bilstm_seq_bwd_dgates.stored_launches = 0
+bilstm_seq_bwd_dgates.wide_launches = 0  # and the wide route's
 
 
 # ---------------------------------------------------------------------------
@@ -812,7 +970,9 @@ class BwdChainPlan(NamedTuple):
     ``gate_cols`` columns a block, ``gates_smem`` bytes a block; K3 and
     K8b have no phase 1 (they read the sums their forward stored): both
     fields 0.  "cooperative": the kernel's cooperative route (in row
-    slices), the other fields 0."""
+    slices), the other fields 0.  "wide" (K3 alone, :func:`bilstm_bwd_plan`):
+    W_h read from L2 every step, ``rows`` a tile's rows, the other fields
+    0 (its launch sizes its blocks)."""
     route: str
     gate_cols: int
     gates_smem: int
@@ -868,7 +1028,9 @@ class FwdChainPlan(NamedTuple):
     ``rows`` batch rows), each CTA holding ceil(H / cluster) units' gate
     columns of W_h in the compute dtype (``chain_smem`` bytes in all);
     "cooperative" (all but K10a): the kernel's cooperative route, and the
-    other fields 0.  K10a's phase 1 runs the tiled kernel (64 frames and 64 gate
+    other fields 0; "wide" (K2 alone, :func:`bilstm_fwd_plan`): W_h read
+    from L2 every step, ``rows`` a tile's rows, the other fields 0 (its
+    launch sizes its blocks).  K10a's phase 1 runs the tiled kernel (64 frames and 64 gate
     columns a block, ``proj_cols`` 0) or one warp per frame over
     ``proj_cols`` columns a block; ``proj_smem`` is its block's shared
     memory."""

@@ -7,9 +7,10 @@ state's leaves as ``leaf_<i>`` in ``jax.tree_util`` order (reproduced by
 :func:`params.tree_flatten`, hazard F3), and a meta with ``step``,
 ``num_leaves``, ``num_param_leaves`` and ``extra``.  The training state is
 flattened with ``params`` first, so leaves ``[0, num_param_leaves)`` are
-the params whatever optimizer state follows.  Retention keeps every
-``keep_every``-th checkpoint and the last few
-(``steps/ctc/train.sh:450-452,527-535``).
+the params whatever optimizer state follows.  A model with batch norms
+keeps its running statistics last (``TrainState.stats``), counted in the
+meta's ``num_stat_leaves``.  Retention keeps every ``keep_every``-th
+checkpoint and the last few (``steps/ctc/train.sh:450-452,527-535``).
 """
 
 from __future__ import annotations
@@ -27,9 +28,9 @@ import torch
 from kaldi_ctc_tpu_torch.models.acoustic import AmConfig, am_param_shapes
 from kaldi_ctc_tpu_torch.params import tree_flatten, tree_unflatten
 
-__all__ = ["save_checkpoint", "restore_checkpoint", "latest_step",
-           "read_meta", "restore_params", "cfg_for_checkpoint",
-           "apply_retention"]
+__all__ = ["save_checkpoint", "restore_checkpoint", "restore_train_state",
+           "latest_step", "read_meta", "restore_params",
+           "restore_norm_stats", "cfg_for_checkpoint", "apply_retention"]
 
 _STEP_RE = re.compile(r"^step_(\d+)$")
 
@@ -58,6 +59,8 @@ def save_checkpoint(ckpt_dir: str, step: int, state: Any,
     # the params-prefix contract of restore_params
     if hasattr(state, "params"):
         meta["num_param_leaves"] = len(tree_flatten(state.params))
+    if getattr(state, "stats", None):
+        meta["num_stat_leaves"] = len(tree_flatten(state.stats))
     with open(os.path.join(tmp, "meta.json"), "w") as f:
         json.dump(meta, f)
     if os.path.exists(final):
@@ -79,6 +82,31 @@ def restore_checkpoint(ckpt_dir: str, like: Any,
         leaves = [torch.as_tensor(data[f"leaf_{i}"], device=device)
                   for i in range(meta["num_leaves"])]
     return tree_unflatten(like, leaves), meta
+
+
+def restore_train_state(ckpt_dir: str, state: Any,
+                        step: Optional[int] = None) -> Tuple[Any, Dict]:
+    """:func:`restore_checkpoint` into a ``TrainState`` like ``state``.
+    A model with batch norms restores their running statistics too; a
+    step-0 checkpoint that holds none (initial weights written by a tool
+    that knows no batch norm) starts them as ``state`` holds them, fresh
+    as ``init_model`` writes them.  Any later checkpoint without them
+    raises: it would train on with the wrong normalisation."""
+    meta = read_meta(ckpt_dir, step)
+    if state.stats and not meta.get("num_stat_leaves"):
+        _check_fresh_ok(ckpt_dir, meta)
+        restored, meta = restore_checkpoint(
+            ckpt_dir, state._replace(stats=None), step)
+        return restored._replace(stats=state.stats), meta
+    return restore_checkpoint(ckpt_dir, state, step)
+
+
+def _check_fresh_ok(ckpt_dir: str, meta: Dict) -> None:
+    """Fresh running statistics stand in only for a step-0 checkpoint."""
+    if meta["step"]:
+        raise ValueError(f"checkpoint step {meta['step']} in {ckpt_dir} "
+                         f"holds no running statistics, which its model's "
+                         f"batch norms need")
 
 
 def apply_retention(ckpt_dir: str, keep_every: int = 100,
@@ -147,6 +175,34 @@ def restore_params(ckpt_dir: str, cfg: AmConfig, step: Optional[int] = None,
         params = leaves_to_params(cfg, [data[f"leaf_{i}"] for i in range(n)],
                                   path, device)
     return params, meta
+
+
+def restore_norm_stats(ckpt_dir: str, cfg: AmConfig,
+                       step: Optional[int] = None, device="cpu") -> list:
+    """The running statistics of ``cfg``'s batch norms from a checkpoint
+    (its last ``num_stat_leaves`` leaves; fresh for a step-0 checkpoint
+    that holds none, as :func:`restore_train_state`); empty for a model
+    with none."""
+    from kaldi_ctc_tpu_torch.models.acoustic import init_norm_stats
+
+    fresh = init_norm_stats(cfg, device)
+    if not fresh:
+        return fresh
+    step = _resolve(ckpt_dir, step)
+    meta = read_meta(ckpt_dir, step)
+    k, n = meta.get("num_stat_leaves", 0), meta["num_leaves"]
+    if not k:
+        _check_fresh_ok(ckpt_dir, meta)
+        return fresh
+    if k != len(tree_flatten(fresh)):
+        raise ValueError(f"checkpoint step {step} in {ckpt_dir} has {k} "
+                         f"statistics leaves, the model expects "
+                         f"{len(tree_flatten(fresh))}")
+    path = os.path.join(ckpt_dir, f"step_{step}", "arrays.npz")
+    with np.load(path) as data:
+        leaves = [torch.as_tensor(data[f"leaf_{i}"], device=device)
+                  for i in range(n - k, n)]
+    return tree_unflatten(fresh, leaves)
 
 
 def cfg_for_checkpoint(ckpt_dir: str, cfg: AmConfig,

@@ -18,7 +18,10 @@ NnetCtcUpdater, ``ctc/ctc-nnet-update.cc:76-348``):
   and their pre-activation gradients, taken from autograd on those
   tensors (the JAX package's zero probes);
 - dropout after the stack (training only) with a mask drawn by
-  :func:`dropout_mask`.
+  :func:`dropout_mask`;
+- batch norms (DeepSpeech2 as deepspeech.pytorch builds it): the step
+  normalises by the batch's statistics and moves the running statistics
+  in ``TrainState.stats``; the eval step normalises by those.
 
 On the card the step runs, for each layer, the forward and backward
 kernels of its mode: K2 and K3 (BLSTM), K5 and K6 (unidirectional LSTM),
@@ -85,14 +88,17 @@ class TrainState(NamedTuple):
     # natural-gradient states: {"out": {"in": NgState, "out": NgState}}
     # and "front" with an FT front; None for plain affine (no leaves)
     ng: Any = None
+    # the batch norms' running statistics (models.acoustic.
+    # init_norm_stats); None or empty for a model with none (no leaves)
+    stats: Any = None
 
 
 def _device(params: Any) -> torch.device:
     return tree_flatten(params)[0].device
 
 
-def init_train_state(params: Any,
-                     opts: "TrainOptions" = None) -> TrainState:
+def init_train_state(params: Any, opts: "TrainOptions" = None,
+                     stats: Any = None) -> TrainState:
     device = _device(params)
     ng = None
     if opts is not None and opts.affine_type == "natural":
@@ -111,7 +117,7 @@ def init_train_state(params: Any,
     return TrainState(params=params,
                       velocity=tree_map(torch.zeros_like, params),
                       step=torch.zeros((), dtype=torch.int32, device=device),
-                      ng=ng)
+                      ng=ng, stats=stats)
 
 
 def dropout_mask(step: int, keep: float, shape, device) -> torch.Tensor:
@@ -234,6 +240,10 @@ def build_train_step(cfg: AmConfig, opts: TrainOptions, mesh=None):
     ng_layers = [name for name in ("out", "front")
                  if use_ng and (name == "out" or cfg.front_affine_dim)]
     spmd = mesh is not None and mesh.distributed
+    norms = bool(cfg.norm_widths())
+    if norms and (use_ng or (spmd and mesh.data > 1)):
+        raise ValueError("batch norm takes neither NG-SGD nor a data group "
+                         "of several processes")
     if spmd:
         from kaldi_ctc_tpu_torch.parallel.mesh import (gather_over_data,
                                                        sum_over_data)
@@ -264,10 +274,12 @@ def build_train_step(cfg: AmConfig, opts: TrainOptions, mesh=None):
             if data > 1:
                 mask = mask[:, mesh.data_index * b:(mesh.data_index + 1) * b]
         taps = {} if use_ng else None
+        new_stats = [] if norms else None
         with torch.enable_grad():
             logits = am_forward(params, batch["feats"], cfg,
                                 input_lens=batch["input_lens"],
-                                dropout_mask=mask, taps=taps)
+                                dropout_mask=mask, taps=taps,
+                                stats=state.stats, new_stats=new_stats)
             losses = ctc_loss(logits, batch["labels"], out_lens,
                               batch["label_lens"])
             total = torch.sum(losses) * opts.objective_scale
@@ -338,13 +350,19 @@ def build_train_step(cfg: AmConfig, opts: TrainOptions, mesh=None):
                     # nor the preconditioners
                     new_ng = tree_map(lambda n, o: torch.where(finite, n, o),
                                       new_ng, state.ng)
+                if norms:
+                    # nor the running statistics
+                    new_stats = tree_map(
+                        lambda n, o: torch.where(finite, n, o), new_stats,
+                        state.stats)
             else:
                 params = tree_map(lambda p, v: p - lr * v, state.params,
                                   velocity)
             new_state = TrainState(
                 params=params,
                 velocity=velocity if opts.momentum > 0 else state.velocity,
-                step=state.step + 1, ng=new_ng)
+                step=state.step + 1, ng=new_ng,
+                stats=new_stats if norms else state.stats)
             hyp_ids, hyp_lens = greedy_collapse(
                 torch.argmax(logits.detach(), dim=-1), out_lens)
             metrics = {
@@ -373,15 +391,16 @@ def make_eval_step(cfg: AmConfig, mesh=None):
     no gradient, so the loss takes the alpha recursion alone.  With a
     process group in ``mesh``, ``loss_total`` and ``num_frames`` are
     summed over the data group (``hyp_ids`` stay this rank's rows), and
-    ``params`` are this rank's slices where a model axis splits them."""
+    ``params`` are this rank's slices where a model axis splits them.
+    ``stats``: the running statistics of a model with batch norms."""
     spmd = mesh is not None and mesh.distributed
 
-    def eval_step(params, batch):
+    def eval_step(params, batch, stats=None):
         batch = _on(batch, _device(params))
         with torch.no_grad():
             params = whole_params(params, cfg, mesh)
             logits = am_forward(params, batch["feats"], cfg,
-                                input_lens=batch["input_lens"])
+                                input_lens=batch["input_lens"], stats=stats)
             out_lens = cfg.output_lens(batch["input_lens"])
             losses = ctc_loss(logits, batch["labels"], out_lens,
                               batch["label_lens"])

@@ -349,6 +349,7 @@ def test_ds2_with_splicing_or_ft_refused():
     _, tcfg = _cfg(front_affine_dim=4, front_nonlin="softplus")
     with pytest.raises(ValueError, match="front_nonlin"):
         tam.init_am_params(tcfg)
-    tcfg = dataclasses.replace(_cfg()[1], conv_layers=1, conv_norm="batch")
+    # "batch" is deepspeech.pytorch's DS2 norm (tests/test_torch_ds2.py)
+    tcfg = dataclasses.replace(_cfg()[1], conv_layers=1, conv_norm="layer")
     with pytest.raises(ValueError, match="conv_norm"):
         tam.init_am_params(tcfg)

@@ -3446,3 +3446,126 @@ def test_triphone_decode_ctc_on_cuda_equals_cpu(cuda, tmp_path):
         g_words, _, g_cost = lats["cuda"][key].best_path()
         assert list(g_words) == list(w_words)
         assert abs(g_cost - w_cost) <= 1e-4 * abs(w_cost)
+
+
+# K2's and K3's wide route (csrc/lstm_wide.cuh), taken where W_h fits no
+# cluster and no cooperative block: H = 1024, the DS2 configuration's
+# width.  Its forward sums are warp_dot's (the tolerance of the other
+# routes against the plain loop: another summation order, now over 1024
+# terms a gate, whose rounding grows as the square root of the terms,
+# ~1.8x H = 320's, inside K2's 2e-5 with the inputs' 1/sqrt(H) weights);
+# its backward sums dgates . W_h^T over 4096 columns in 8 slices (K3's
+# 1e-4 for the same reason).
+WIDE_H = 1024
+
+
+def _wide_case(t, b, h, dtype, device, seed):
+    """K2's wide route with the store on ragged rows (row 1 of length 1,
+    row 2 empty) and seeded cotangents → (K3's args, sums)."""
+    xp, w_f, w_b, lens = _bilstm_inputs(t, b, h, dtype, device, seed)
+    lens[1], lens[2] = 1, 0
+    y_f, c_f, y_b, c_b, sums = rnn_cuda._bilstm_fwd_wide(
+        _k2_lib(), xp, w_f, w_b, lens.to(torch.int32), store_sums=True)
+    rng = np.random.default_rng(seed + 1)
+    dys = [torch.as_tensor(rng.standard_normal((t, b, h)).astype(
+        np.float32), device=device).to(dtype) for _ in range(2)]
+    return (*dys, xp, y_f, c_f, y_b, c_b, w_f, w_b, lens), sums
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b", [64, 130])
+def test_k2_k3_wide_route_matches_plain_at_h1024(cuda, dtype, b):
+    """At H=1024 both plans pick the wide route; through the wrappers, as
+    training calls them (K2 with the store, K3 on its sums), at B = 64
+    (the DS2 cell's batch, one tile) and 130 (three tiles, one walk of T),
+    ragged rows: each one launch, counted on ``wide_launches``, against
+    the plain versions, zero at pad frames."""
+    t = 40
+    assert rnn_cuda.k2_plan(_k2_lib(), b, WIDE_H, dtype, cuda).route \
+        == "wide"
+    assert rnn_cuda.k3_plan(_k3_lib(), b, WIDE_H, dtype, cuda).route \
+        == "wide"
+    fwd, bwd = rnn_cuda.bilstm_seq_fwd, rnn_cuda.bilstm_seq_bwd_dgates
+    before = (fwd.wide_launches, fwd.store_launches, bwd.wide_launches,
+              bwd.stored_launches)
+    args, sums = _stored_case("lstm", t, b, WIDE_H, dtype, cuda, seed=b)
+    assert sums is not None and sums.shape == (t, b, 8 * WIDE_H)
+    got = bwd(*args, sums)
+    torch.cuda.synchronize()
+    assert (fwd.wide_launches, fwd.store_launches, bwd.wide_launches,
+            bwd.stored_launches) == tuple(n + 1 for n in before)
+    dy_f, dy_b, xp, y_f, c_f, y_b, c_b, w_f, w_b, lens = args
+    ref = rnn_cuda.bilstm_seq_fwd_reference(xp, w_f, w_b, lens)
+    for name, g, r in zip(("y_f", "c_f", "y_b", "c_b"),
+                          (y_f, c_f, y_b, c_b), ref):
+        _close(g, r, LSTM_TOL[dtype], name)
+    _zero_past_lens((y_f, y_b), lens, "y")
+    for name, g, r in zip(("dg_f", "dg_b"), got,
+                          rnn_cuda.bilstm_seq_bwd_dgates_reference(*args)):
+        _close(g, r, LSTM_BWD_TOL[dtype], name)
+    _zero_past_lens(got, lens, "dgates")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,h", [(5, 48), (67, 100), (1, 320)])
+def test_k2_wide_route_equals_cooperative_bit_for_bit(cuda, dtype, b, h):
+    """The wide route forced at small H (H not a multiple of 16 or 32,
+    one or two tiles of rows) gives the cooperative kernel's (y, c) bit
+    for bit, ragged rows: its sums are warp_dot's, its gate math
+    LstmCell::step.  The store changes no output, and the stored sums are
+    an f64 recompute from y within the forward's tolerance."""
+    t = 20
+    xp, w_f, w_b, lens = _bilstm_inputs(t, b, h, dtype, cuda, seed=3 * h + b)
+    lib = _k2_lib()
+    lens32 = lens.to(torch.int32)
+    wide = rnn_cuda._bilstm_fwd_wide(lib, xp, w_f, w_b, lens32)
+    stored = rnn_cuda._bilstm_fwd_wide(lib, xp, w_f, w_b, lens32, True)
+    coop = rnn_cuda._bilstm_fwd_cooperative(lib, xp, w_f, w_b, lens32)
+    torch.cuda.synchronize()
+    for name, g, s, r in zip(("y_f", "c_f", "y_b", "c_b"), wide, stored,
+                             coop):
+        assert torch.equal(g, r), name
+        assert torch.equal(s, r), name
+    ref = _plain_sums(wide[0], wide[2], w_f, w_b, lens)
+    _close(stored[4], ref.float(), LSTM_TOL[dtype], "sums")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,h", [(6, 48), (67, 100)])
+def test_k3_wide_route_agrees_with_cooperative(cuda, dtype, b, h):
+    """The wide backward forced at small H, on the wide forward's sums,
+    against K3's cooperative kernel (which recomputes the sums from y in
+    warp_dot's order): bit for bit at each row's first valid walk step,
+    where dh and dc are zero; elsewhere dh is summed in another order,
+    within tolerance."""
+    t = 24
+    args, sums = _wide_case(t, b, h, dtype, cuda, seed=h + b)
+    *ops, lens = args
+    lib = _k3_lib()
+    lens32 = lens.to(torch.int32)
+    wide = rnn_cuda._bilstm_bwd_wide(lib, *ops, lens32, sums)
+    coop = rnn_cuda._bilstm_bwd_cooperative(lib, *ops, lens32)
+    torch.cuda.synchronize()
+    n = lens.cpu().numpy()
+    for d, (name, w, k) in enumerate(zip(("dg_f", "dg_b"), wide, coop)):
+        _close(w, k, LSTM_BWD_TOL[dtype], name)
+        for row, length in enumerate(n):
+            if length:
+                first = length - 1 if d == 0 else 0
+                assert torch.equal(w[first, row], k[first, row]), (name, row)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("h", [48, 100, 1024])
+def test_wide_smem_queries_fit_the_card(cuda, h):
+    """The wide route's shared memory, as its sources size its launches
+    (the one formula of each), fits a block of the card, and its exchange
+    rows hold 4H in 8 slices of whole 16-column chunks."""
+    optin = rnn_cuda._smem_optin(_k2_lib(), "bilstm_fwd_smem_optin", cuda)
+    assert 0 < _k2_lib().bilstm_wide_fwd_smem(h) <= optin
+    assert 0 < _k3_lib().bilstm_wide_bwd_smem() <= optin
+    cols = _k3_lib().bilstm_wide_bwd_cols(h)
+    assert cols % 128 == 0 and 4 * h <= cols < 4 * h + 128
